@@ -8,23 +8,40 @@ neither JAX nor the JAX package.  Phases, each on its own line with its
 seconds:
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: the whole-run kernel, one ``nvcc`` call (ops/_build.py).
-3. kernel against its plain torch version, on the card: 256 lanes each of
-   an RC driven by SIN, an RL driven by PULSE and a PWL current source into
-   an RC ladder, and the 8192 lanes of bench.py's RLC deck (perturbed as
-   bench.py does).  accepted/attempts/fail must be equal per lane, state and
-   t_final equal within rtol 1e-9.
-4. main path: parse -> compile_circuit -> batch_params -> init_state ->
-   build_config -> make_tran_batch(store="none") on those 8192 lanes, one
-   warm-up run and one timed run; the launch count is reset just before
-   the timed run.  Every lane must finish without failing, through the
-   kernel, with the same result as phase 3's kernel run.
-5. the ``kernels`` JSON line; the last line is the contract line
-   ``{"ok": true, "device": {...}}``.
+2. build: the whole-run kernel and the OP kernel, one ``nvcc`` call each,
+   both started together (ops/_build.py).
+3. run kernel against its plain torch version on linear decks, on the
+   card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
+   PWL current source into an RC ladder, the RL deck again with minstep =
+   NaN on 64 lanes, and the 8192 lanes of bench.py's RLC deck (perturbed as
+   bench.py does).  accepted/attempts/fail/nr_iters must be equal per lane,
+   state and t_final equal within rtol 1e-9.
+4. linear main path: parse -> compile_circuit -> batch_params -> init_state
+   -> build_config -> make_tran_batch(store="none") on those 8192 lanes,
+   one warm-up run and one timed run; the launch counts are reset just
+   before the timed run.  Every lane must finish without failing, through
+   the kernel, with the same result as phase 3's kernel run.
+5. OP kernel against its plain version through ``make_op_fused`` (rescue
+   ladders included): ce_amplifier_op.cir, the diode divider, the MOSFET
+   bias deck and the half-wave rectifier's bias, 8192 lanes with R spread
+   log-normally by 0.1; the diode stack HARD_V with V1 drawn per lane in
+   [2, 100] V (stages 0 and 2 both occur) and the current-driven HARD_I
+   (no lane converges), 256 lanes.  converged, stage and the iteration
+   counts must be equal per lane, x and jv equal within rtol 1e-9.
+6. run kernel against its plain version on nonlinear decks:
+   half_wave_rectifier.cir, nmos_inverter_tran.cir and a CE-amplifier BJT
+   transient, 8192 lanes, R and C spread log-normally by 0.1, warm-started
+   from their OP; the same bar as phase 3, jv included.
+7. nonlinear main path: make_tran_batch on the half-wave rectifier, 8192
+   lanes, the full 2 ms: engine "run", the OP kernel and the run kernel
+   each launched, no lane failed, the lanes equal to phase 6's kernel run.
+8. the bounds and the ``kernels`` JSON line; the last line is the contract
+   line ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -36,13 +53,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import toyspice_tpu_torch as ts  # noqa: E402
 from toyspice_tpu_torch.compiler import SRC_PULSE, SRC_PWL, SRC_SIN  # noqa: E402
-from toyspice_tpu_torch.ops import _build, run, run_plan  # noqa: E402
+from toyspice_tpu_torch.engine.options import DEFAULTS  # noqa: E402
+from toyspice_tpu_torch.ops import _build, op, run, run_plan  # noqa: E402
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_LANES = 8192
 SMALL_LANES = 256
+NAN_LANES = 64
+RESCUE_LANES = 256
 RTOL = 1e-9  # both sides f64; they may differ only in rounding order
 # H100 SXM f64 rate outside the tensor cores (NVIDIA data sheet) and HBM3
-# bandwidth, for the bound of the kernel
+# bandwidth, for the bounds of the kernels
 PEAK_F64 = 34e12
 PEAK_BYTES = 3.35e12
 
@@ -77,6 +98,65 @@ C2 1 2 0.1u
 R2 2 0 2k
 """
 
+# ce_amplifier_ac.cir's circuit with a SIN drive
+BJT_TRAN = """* CE amplifier transient (ce_amplifier_ac.cir's circuit, SIN drive)
+.tran 5u 2m
+Vcc vcc 0 DC 12
+Vsig sig 0 SIN(0 20m 1k)
+Rsrc sig in 600
+Cin in base 10u
+Rb1 vcc base 68k
+Rb2 base 0 12k
+Rc vcc col 3.3k
+Re emit 0 680
+Cb emit 0 47u
+Q1 col base emit QNPN
+.model QNPN NPN (Bf=180 Vaf=90)
+"""
+
+# tests/test_fused_op.py's bias decks
+D_DIV = """* diode divider
+.op
+Vin 1 0 DC 2
+R1 1 2 1k
+D1 2 0 DM
+.model DM D (Is=1e-14 N=1.2)
+"""
+
+M_BIAS = """* MOSFET bias
+.op
+VDD 1 0 DC 5
+VG 2 0 DC 2
+RD 1 3 10k
+M1 3 2 0 0 NM L=2u W=20u
+.model NM NMOS(Level=1 VTO=0.7 KP=20u LAMBDA=0.01)
+"""
+
+# tests/test_rescue.py's diode stacks: only source stepping rescues HARD_V;
+# nothing rescues HARD_I (source stepping scales V sources only)
+HARD_V = """diode stack
+.op
+V1 1 0 DC 100
+D1 1 2 DM
+D2 2 3 DM
+D3 3 0 DM
+.model DM D (Is=1e-15 N=1.0)
+"""
+
+HARD_I = """i-driven stack
+.op
+I1 0 1 DC 1
+D1 1 2 DM
+D2 2 3 DM
+D3 3 0 DM
+.model DM D (Is=1e-18 N=0.7)
+"""
+
+
+def deck_file(name):
+    with open(os.path.join(ROOT, "circuits", name)) as f:
+        return f.read()
+
 
 def phase(name, t0, text):
     print(f"[{name}] {text} ({time.perf_counter() - t0:.3f} s)", flush=True)
@@ -90,23 +170,29 @@ def perturbed(cc, rng, b, keys, spread=0.1):
     """bench.py's log-normal perturbation of each kind's "value" leaf."""
     return {k: {"value": np.asarray(cc.params[k]["value"])[None, :] * np.exp(
         rng.normal(0.0, spread, size=(b, len(cc.params[k]["value"]))))}
-        for k in keys}
+        for k in keys if k in cc.params}
+
+
+def rc_spread(cc, b):
+    """R then C, spread 0.1, numpy default_rng(0)."""
+    return perturbed(cc, np.random.default_rng(0), b, ("R", "C"))
 
 
 def setup(deck, overrides_fn, b):
     cc = ts.compile_circuit(ts.parse(deck))
     tp = cc.netlist.tran
-    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    cfg = (ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+           if tp is not None and tp.tstop > 0 else None)  # None: an .op
     params, axes = ts.batch_params(cc, overrides_fn(cc, b))
     return cc, cfg, params, axes, ts.init_state(cc)
 
 
 def lane_inputs(cc, cfg, params, state0):
-    """The kernel's (plan, dev, src, state, scalars) for one deck."""
+    """The run kernel's (plan, dev, src, state, scalars) for one deck."""
     plan = run_plan.make_plan(cc)
     b = run_plan.infer_batch(params, state0)
     device = torch.device("cuda")
-    dev = run_plan.const_stack(plan, params, b, device)
+    dev = run_plan.const_stack(plan, params, b, device, DEFAULTS.temp, state0)
     src = run_plan.source_stack(plan, params, b, device)
     st = run_plan.init_state_stack(plan, state0, b, device)
     sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
@@ -114,47 +200,156 @@ def lane_inputs(cc, cfg, params, state0):
     return plan, dev, src, st, sc
 
 
-def attempt_flops(plan):
-    """f64 operations one attempt needs, counted from the deck's plan (a
-    transcendental counts as one): sources, build (one add per stamp, plus
-    its division or product), elimination, LTE, step control and the
-    commit of an accepted step.  Gauss-Jordan stage k needs only the n - k
-    columns right of its pivot: one division each in the pivot row, a
-    multiply and a subtract each in the n - 1 other rows."""
-    n = plan.np1
-    nc, nl = plan.counts[1:3]
+def ptxas_summary(log):
+    """Registers, stack frame and spills of each kernel instantiation, from
+    ``nvcc -Xptxas -v`` output."""
+    out, entry, label, frame, mine = [], None, None, None, False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, frame = m.group(1), None
+            k = re.search(r"(run_kernel|op_kernel)ILi(\d+)E(?:Lb([01])E)?",
+                          entry)
+            label = entry if k is None else (
+                f"{k.group(1)}<{k.group(2)}" + {None: "", "0": ", linear",
+                                               "1": ", newton"}[k.group(3)]
+                + ">")
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mine = m.group(1) == entry
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and mine:
+            frame, mine = m.groups(), False
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            f = frame or ("?", "?", "?")
+            out.append(f"{label} {m.group(1)} registers, {f[0]} B stack "
+                       f"frame, {f[1]}/{f[2]} B spill stores/loads")
+            entry = None
+    return out
+
+
+# ------------------------------------------------------------- the bounds
+# f64 operations counted from the kernels' code, a transcendental as one
+
+
+def gj_flops(n):
+    """Gauss-Jordan stage k needs only the n - k columns right of its
+    pivot: one division each in the pivot row, a multiply and a subtract
+    each in the n - 1 other rows."""
+    return sum((n - k) * (1 + 2 * (n - 1)) for k in range(n))
+
+
+def build_flops(plan, entries):
+    """One add per stamp, plus its division or product by dt."""
     per_tag = {run_plan.TAG_G: 0, run_plan.TAG_GEQ: 1, run_plan.TAG_LTERM: 1,
-               run_plan.TAG_ONE: 0, run_plan.TAG_CEQ: 1, run_plan.TAG_LRHS: 2,
-               run_plan.TAG_VSRC: 0, run_plan.TAG_ISRC: 0}
-    build = sum(1 + per_tag[int(tag)] for tag in plan.entries[:, 2])
-    gj = sum((n - k) * (1 + 2 * (n - 1)) for k in range(n))
+               run_plan.TAG_ONE: 0, run_plan.TAG_CEQ: 1,
+               run_plan.TAG_LRHS: 2, run_plan.TAG_VSRC: 0,
+               run_plan.TAG_ISRC: 0, run_plan.TAG_NL: 0}
+    return sum(1 + per_tag[int(tag)] for tag in entries[:, 2])
+
+
+def step_flops(plan):
+    """An attempt's work around its solve: sources, LTE, step control and
+    the commit of an accepted step."""
+    nc, nl = plan.counts[1:3]
     src = 0
     for kind in plan.stype:
         for s in plan.stype[kind]:
             src += {SRC_SIN: 8, SRC_PULSE: 16,
                     SRC_PWL: 3 * plan.knots[kind] + 6}.get(int(s), 0)
-    lte = 6 * nc + 10 * nl
-    commit = 3 * nc + 8 * nl
-    return build + gj + src + lte + commit + 10
+    return src + 6 * nc + 10 * nl + 3 * nc + 8 * nl + 10
 
 
-def compare(name, k, p):
-    """Exact counters, state and t_final within RTOL; returns max abs err."""
-    for key in ("accepted", "attempts", "fail"):
+def attempt_flops(plan):
+    """A linear deck's attempt: step work plus one build and solve."""
+    return step_flops(plan) + build_flops(plan, plan.entries) + gj_flops(
+        plan.np1)
+
+
+def newton_flops(plan):
+    """One Newton iteration (csrc/newton.cuh): junction limiting, device
+    evaluations (diode 12, +7 for the transient companion; BJT 134; MOSFET
+    66, +75 for the three differenced currents of levels 2/3, +50 for the
+    Meyer charges of a transient), the build, the solve and the
+    convergence test (6 per row); an OP adds the gmin diagonal."""
+    n_d, n_q, n_m = plan.counts[5:]
+    tran = plan.mode == "tran"
+    levels = np.asarray(plan.idx["M"]["level"]) if n_m else np.zeros(0)
+    dev = (n_d * (8 + 12 + (7 if tran else 0)) + n_q * (18 + 134)
+           + sum(6 + 66 + (75 if lv in (2, 3) else 0) + (50 if tran else 0)
+                 for lv in levels))
+    return (dev + build_flops(plan, plan.entries) + gj_flops(plan.np1)
+            + 6 * plan.np1 + (0 if tran else plan.np1 - 1))
+
+
+def bound(flops, nbytes):
+    op_ms = flops / PEAK_F64 * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms
+                                 else "bytes"), op_ms, byte_ms
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+# ---------------------------------------------------------- comparisons
+
+
+def compare_run(name, k, p, check_jv=False):
+    """Exact counters, state/t_final (and jv) within RTOL; max abs err."""
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
         a, b = getattr(k, key), getattr(p, key)
         if not torch.equal(a, b):
             bad = int((a != b).sum())
             fail(f"{name}: {key} differs on {bad} lanes")
+    pairs = [("t_final", k.t, p.t), ("state", k.state, p.state)]
+    if check_jv:
+        pairs.append(("jv", k.jv, p.jv))
+    return max_err(name, pairs)
+
+
+def max_err(name, pairs):
     err = 0.0
-    for what, a, b in (("t_final", k.t, p.t), ("state", k.state, p.state)):
-        d = (a - b).abs()
-        scale = b.abs().amax(dim=0, keepdim=True) if b.ndim == 2 \
-            else b.abs().amax()
-        if bool((d > RTOL * scale).any()) or not bool(torch.isfinite(a).all()):
+    for what, a, b in pairs:
+        same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+        fin = torch.isfinite(b)
+        d = torch.where(fin, (a - b).abs(), 0.0)
+        scale = torch.where(fin, b.abs(), 0.0)
+        scale = scale.amax(dim=0, keepdim=True) if b.ndim == 2 \
+            else scale.amax()
+        if not same_nan or bool((d > RTOL * scale).any()) or not bool(
+                (torch.isfinite(a) == fin).all()):
             fail(f"{name}: {what} differs beyond rtol {RTOL} "
                  f"(max abs {float(d.max()):.3e})")
         err = max(err, float(d.max()))
     return err
+
+
+class TimedSolve:
+    """The OP launch function with CUDA events around every launch."""
+
+    def __init__(self, solve):
+        self.solve = solve
+        self.events = []
+
+    def __call__(self, *args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = self.solve(*args)
+        e1.record()
+        self.events.append((e0, e1))
+        return r
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(e0.elapsed_time(e1) for e0, e1 in self.events)
 
 
 def main():
@@ -178,13 +373,20 @@ def main():
 
     # ----------------------------------------------------------- 2 build
     t0 = time.perf_counter()
-    fresh = not _build.library_path().exists()
-    lib_path = _build.build()
-    _build.load()
-    phase("2 build", t0, f"{'built' if fresh else 'found'} {lib_path.name} "
-          f"with one nvcc call")
+    fresh = [name for name in _build.SOURCES
+             if not _build.library_path(name).exists()]
+    libs = _build.build(extra_flags=("-Xptxas", "-v"))
+    logs = dict(_build.build.log)
+    for name in _build.SOURCES:
+        _build.load(name)
+    phase("2 build", t0, f"built {fresh or 'nothing'} with one nvcc call "
+          "per source, started together: "
+          + ", ".join(p.name for p in libs.values()))
+    for name, text in logs.items():
+        print(f"[2 ptxas] {name}: {'; '.join(ptxas_summary(text))}",
+              flush=True)
 
-    # --------------------------------------- 3 kernel vs plain version
+    # -------------------------------- 3 run kernel vs plain, linear decks
     def small(keys, pwl=False):
         def overrides(cc, b):
             rng = np.random.default_rng(1)
@@ -200,42 +402,59 @@ def main():
         # bench.py: numpy default_rng(0), R then L then C, spread 0.1
         return perturbed(cc, np.random.default_rng(0), b, ("R", "L", "C"))
 
-    decks = [("rc_sin", RC_SIN, small(("R", "C")), SMALL_LANES),
-             ("rl_pulse", RL_PULSE, small(("R", "L")), SMALL_LANES),
-             ("ipwl_ladder", IPWL, small(("R", "C"), pwl=True), SMALL_LANES),
-             ("bench_rlc", RLC, bench_overrides, BENCH_LANES)]
-    max_err = 0.0
+    def nan_minstep(sc):
+        return sc._replace(minstep=float("nan"))
+
+    decks = [("rc_sin", RC_SIN, small(("R", "C")), SMALL_LANES, None),
+             ("rl_pulse", RL_PULSE, small(("R", "L")), SMALL_LANES, None),
+             ("ipwl_ladder", IPWL, small(("R", "C"), pwl=True), SMALL_LANES,
+              None),
+             ("rl_nan_minstep", RL_PULSE, small(("R", "L")), NAN_LANES,
+              nan_minstep),
+             ("bench_rlc", RLC, bench_overrides, BENCH_LANES, None)]
+    lin_err = 0.0
     bench = None
-    for name, deck, ov, b in decks:
-        t0 = time.perf_counter()
-        cc, cfg, params, axes, state0 = setup(deck, ov, b)
-        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
-        run.launch_run_kernel(plan, dev, src, st, sc)  # warm-up
+
+    def kernel_vs_plain(plan, dev, src, st, sc, jv0=None):
+        run.launch_run_kernel(plan, dev, src, st, sc, jv0)  # warm-up
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        k = run.launch_run_kernel(plan, dev, src, st, sc)
+        k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
         e1.record()
         torch.cuda.synchronize()
         k_ms = e0.elapsed_time(e1)
         p0 = time.perf_counter()
-        p = run.run_plain(plan, dev, src, st, sc)
+        p = run.run_plain(plan, dev, src, st, sc, jv0)
         torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - p0) * 1e3
-        err = compare(name, k, p)
-        max_err = max(max_err, err)
+        return k, k_ms, p, (time.perf_counter() - p0) * 1e3
+
+    for name, deck, ov, b, edit in decks:
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(deck, ov, b)
+        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+        if edit:
+            sc = edit(sc)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
+        err = compare_run(name, k, p)
+        lin_err = max(lin_err, err)
         attempts = int(k.attempts.sum())
         phase("3 kernel vs plain", t0,
               f"{name}: {b} lanes, np1={plan.np1}, accepted "
               f"{int(k.accepted.sum())}, attempts {attempts}, failed "
               f"{int(k.fail.sum())}; counters equal, max abs err {err:.3e}; "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        if edit is nan_minstep and not (
+                bool(torch.isnan(k.t).all()) and bool(k.fail.all())
+                and k.attempts.tolist() == [2] * b):
+            fail(f"{name}: expected every lane to fail after 2 attempts "
+                 "with t NaN, as the general engine does")
         if name == "bench_rlc":
             bench = dict(k=k, k_ms=k_ms, p_ms=p_ms, plan=plan, dev=dev,
                          src=src, st=st, attempts=attempts)
 
-    # ------------------------------------------------------ 4 main path
+    # ----------------------------------------------- 4 linear main path
     t0 = time.perf_counter()
     cc = ts.compile_circuit(ts.parse(RLC))
     tp = cc.netlist.tran
@@ -246,18 +465,21 @@ def main():
     out = fn(params, state0)  # warm-up
     torch.cuda.synchronize()
     run.launch_run_kernel.launches = 0
+    op.launch_op_kernel.launches = 0
     w0 = time.perf_counter()
     out = fn(params, state0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
-    launches = run.launch_run_kernel.launches
+    lin_launches = run.launch_run_kernel.launches
     accepted = int(out.accepted.sum())
     attempts = int(out.attempts.sum())
     failed = int(out.fail.sum())
     if fn.engine != "run":
         fail(f"main path engine {fn.engine!r}, expected 'run'")
-    if launches != 1:
-        fail(f"main path launched the kernel {launches} times, expected 1")
+    if lin_launches != 1 or op.launch_op_kernel.launches != 0:
+        fail(f"linear main path launched the run kernel {lin_launches} "
+             f"times and the OP kernel {op.launch_op_kernel.launches} "
+             "times, expected 1 and 0")
     if failed:
         fail(f"{failed} of {BENCH_LANES} lanes failed")
     if out.accepted.shape != (BENCH_LANES,) or out.t_final.shape != (
@@ -277,36 +499,197 @@ def main():
         fail("main path differs from phase 3's kernel run on the same lanes")
     rate = accepted / wall
     phase("4 main path", t0,
-          f"engine={fn.engine}, launches={launches}, lanes={BENCH_LANES}, "
-          f"accepted={accepted}, attempts={attempts}, failed={failed}, "
-          f"wall={wall:.6f} s, {rate:.6e} accepted steps/s on {smi}")
+          f"engine={fn.engine}, launches={lin_launches}, "
+          f"lanes={BENCH_LANES}, accepted={accepted}, attempts={attempts}, "
+          f"failed={failed}, wall={wall:.6f} s, {rate:.6e} accepted steps/s "
+          f"on {smi}")
 
-    # ------------------------------------------------- 5 the kernels line
+    # ------------------------------------- 5 OP kernel vs plain version
+    def r_spread(cc, b):
+        return perturbed(cc, np.random.default_rng(0), b, ("R",))
+
+    def v1_draw(cc, b):
+        return {"V": {"dc": np.random.default_rng(0).uniform(2.0, 100.0,
+                                                              (b, 1))}}
+
+    op_decks = [
+        ("half_wave_rectifier", deck_file("half_wave_rectifier.cir"),
+         rc_spread, BENCH_LANES),
+        ("ce_amplifier_op", deck_file("ce_amplifier_op.cir"), r_spread,
+         BENCH_LANES),
+        ("diode_divider", D_DIV, r_spread, BENCH_LANES),
+        ("mosfet_bias", M_BIAS, r_spread, BENCH_LANES),
+        ("hard_v", HARD_V, v1_draw, RESCUE_LANES),
+        ("hard_i", HARD_I, lambda cc, b: {"I": {"dc": np.ones((b, 1))}},
+         RESCUE_LANES)]
+    op_err = 0.0
+    op_main = None
+    for name, deck, ov, b in op_decks:
+        t0 = time.perf_counter()
+        cc, _, params, axes, state0 = setup(deck, ov, b)
+        fk = op.make_op_fused(cc, DEFAULTS, solve=op.op_lanes)
+        fk(params, state0)  # warm-up
+        tk = TimedSolve(op.op_lanes)
+        tp_ = TimedSolve(op.op_plain)
+        op.launch_op_kernel.launches = 0
+        k = op.make_op_fused(cc, DEFAULTS, solve=tk)(params, state0)
+        launches = op.launch_op_kernel.launches
+        p = op.make_op_fused(cc, DEFAULTS, solve=tp_)(params, state0)
+        k_ms, p_ms = tk.ms(), tp_.ms()
+        for key in ("converged", "stage", "iters", "iters_all"):
+            if not torch.equal(getattr(k, key), getattr(p, key)):
+                fail(f"{name}: OP {key} differs from the plain version")
+        pairs = [("x", k.x, p.x)] + [
+            (f"jv.{kd}.{key}", k.jv[kd][key], p.jv[kd][key])
+            for kd in k.jv for key in k.jv[kd]]
+        err = max_err(name, pairs)
+        op_err = max(op_err, err)
+        stages = torch.bincount(k.stage.long(), minlength=3).tolist()
+        conv = int(k.converged.sum())
+        if name == "hard_v" and not (stages[0] and stages[2]
+                                     and conv == b):
+            fail("hard_v: expected lanes at stages 0 and 2, all converged")
+        if name == "hard_i" and (conv or stages[2] != b):
+            fail("hard_i: expected every lane through the whole ladder and "
+                 "none converged (source stepping scales V sources only)")
+        if name not in ("hard_v", "hard_i") and conv != b:
+            fail(f"{name}: {b - conv} lanes did not converge")
+        phase("5 OP kernel vs plain", t0,
+              f"{name}: {b} lanes, np1={cc.np1}, stages {stages}, "
+              f"converged {conv}, NR iterations stage 0 "
+              f"{int(k.iters.sum())}, all {int(k.iters_all.sum())}, "
+              f"launches {launches}; equal counts, max abs err {err:.3e}; "
+              f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        if name == "half_wave_rectifier":
+            # bytes of each launch: dev and dyn rows, x and jv in and out,
+            # the two counters, the plan
+            plan_op = fk.plan
+            per_lane = 8 * (plan_op.nd + op.dyn_width(plan_op)
+                            + 2 * (plan_op.np1 + plan_op.kj)) + 8
+            op_main = dict(k_ms=k_ms, p_ms=p_ms, plan=plan_op,
+                           iters=int(k.iters_all.sum()),
+                           nbytes=launches * (b * per_lane
+                                              + plan_op.topo.nbytes))
+
+    # ------------------------- 6 run kernel vs plain, nonlinear decks
+    nl_decks = [("half_wave_rectifier", deck_file("half_wave_rectifier.cir")),
+                ("nmos_inverter_tran", deck_file("nmos_inverter_tran.cir")),
+                ("bjt_ce_tran", BJT_TRAN)]
+    nl_err = 0.0
+    hwr = None
+    for name, deck in nl_decks:
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(deck, rc_spread, BENCH_LANES)
+        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+        opr = op.make_op_fused(cc, DEFAULTS)(params, state0)
+        jv0 = run_plan.jv_stack(plan, opr.jv, BENCH_LANES)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+        err = compare_run(name, k, p, check_jv=True)
+        nl_err = max(nl_err, err)
+        acc_ = int(k.accepted.sum())
+        att_ = int(k.attempts.sum())
+        nri = int(k.nr_iters.sum())
+        phase("6 nonlinear kernel vs plain", t0,
+              f"{name}: {BENCH_LANES} lanes, np1={plan.np1}, accepted "
+              f"{acc_}, attempts {att_}, NR iterations {nri}, failed "
+              f"{int(k.fail.sum())}; counters equal, max abs err "
+              f"{err:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        if name == "half_wave_rectifier":
+            hwr = dict(k=k, k_ms=k_ms, p_ms=p_ms, plan=plan, attempts=att_,
+                       nri=nri, nbytes=nbytes(dev, src, st, jv0)
+                       + nbytes(st, jv0) + plan.topo.nbytes
+                       + BENCH_LANES * (8 + 8 + 4 + 4 + 4 + 4))
+
+    # --------------------------------------- 7 nonlinear main path
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        deck_file("half_wave_rectifier.cir"), rc_spread, BENCH_LANES)
+    fn = ts.make_tran_batch(cc, cfg, axes, store="none")
+    out = fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    run.launch_run_kernel.launches = 0
+    op.launch_op_kernel.launches = 0
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    nl_launches = run.launch_run_kernel.launches
+    op_launches = op.launch_op_kernel.launches
+    accepted = int(out.accepted.sum())
+    attempts = int(out.attempts.sum())
+    nri = int(out.nr_iters.sum())
+    failed = int(out.fail.sum())
+    if fn.engine != "run":
+        fail(f"nonlinear main path engine {fn.engine!r}, expected 'run'")
+    if nl_launches != 1 or op_launches < 1:
+        fail(f"nonlinear main path launched the run kernel {nl_launches} "
+             f"times and the OP kernel {op_launches} times")
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"{failed} of {BENCH_LANES} lanes failed or stopped early")
+    k = hwr["k"]
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.attempts, k.attempts)
+            and torch.equal(out.nr_iters, k.nr_iters)
+            and torch.equal(out.t_final, k.t)
+            and torch.equal(out.jv["D"]["vd"], k.jv)):
+        fail("nonlinear main path differs from phase 6's kernel run")
+    phase("7 nonlinear main path", t0,
+          f"half_wave_rectifier: engine={fn.engine}, run kernel launches="
+          f"{nl_launches}, OP kernel launches={op_launches}, "
+          f"lanes={BENCH_LANES}, accepted={accepted}, attempts={attempts}, "
+          f"failed={failed}, NR iterations per attempt "
+          f"{nri / attempts:.6f}, wall={wall:.6f} s, "
+          f"{accepted / wall:.6e} accepted steps/s on {smi}")
+
+    # ------------------------------------------------- 8 the kernels line
     plan = bench["plan"]
-    flops = attempt_flops(plan) * bench["attempts"]
-    nbytes = sum(x.numel() * x.element_size() for x in
-                 (bench["dev"], bench["src"], bench["st"]))
-    nbytes += plan.topo.nbytes + bench["st"].numel() * 8 \
-        + BENCH_LANES * (8 + 8 + 4 + 4 + 4)
-    op_ms = flops / PEAK_F64 * 1e3
-    byte_ms = nbytes / PEAK_BYTES * 1e3
-    print(f"[5 bound] {attempt_flops(plan)} f64 operations per attempt x "
-          f"{bench['attempts']} attempts = {flops:.4e} / {PEAK_F64:.3g} "
-          f"op/s = {op_ms:.6f} ms; {nbytes} bytes / {PEAK_BYTES:.3g} B/s "
-          f"= {byte_ms:.6f} ms", flush=True)
-    line = {"kernels": [{
-        "name": "run_kernel",
-        "route": "cuda",
-        "source": "toyspice_tpu_torch/csrc/run_kernel.cu",
-        "replaces": "toyspice_tpu/ops/pallas_run.py:652",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": bench["k_ms"],
-        "plain_ms": bench["p_ms"],
-        "bound_ms": max(op_ms, byte_ms),
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-        "library_ms": None,
-    }]}
+    lin_bytes = nbytes(bench["dev"], bench["src"], bench["st"]) \
+        + plan.topo.nbytes + nbytes(bench["st"]) \
+        + BENCH_LANES * (8 + 8 + 4 + 4 + 4 + 4)
+    lin_bound = bound(attempt_flops(plan) * bench["attempts"], lin_bytes)
+    print(f"[8 bound] run_kernel linear (bench_rlc): {attempt_flops(plan)} "
+          f"f64 operations per attempt x {bench['attempts']} attempts / "
+          f"{PEAK_F64:.3g} op/s = {lin_bound[2]:.6f} ms; {lin_bytes} bytes / "
+          f"{PEAK_BYTES:.3g} B/s = {lin_bound[3]:.6f} ms", flush=True)
+    hp = hwr["plan"]
+    nl_flops = hwr["attempts"] * step_flops(hp) + hwr["nri"] * newton_flops(
+        hp)
+    nl_bound = bound(nl_flops, hwr["nbytes"])
+    print(f"[8 bound] run_kernel nonlinear (half_wave_rectifier): "
+          f"{hwr['attempts']} attempts x {step_flops(hp)} + {hwr['nri']} "
+          f"Newton iterations x {newton_flops(hp)} f64 operations / "
+          f"{PEAK_F64:.3g} op/s = {nl_bound[2]:.6f} ms; {hwr['nbytes']} "
+          f"bytes / {PEAK_BYTES:.3g} B/s = {nl_bound[3]:.6f} ms", flush=True)
+    opp = op_main["plan"]
+    seed = BENCH_LANES * (build_flops(opp, opp.entries[:opp.n_lin])
+                          + gj_flops(opp.np1))
+    op_flops = op_main["iters"] * newton_flops(opp) + seed
+    op_bound = bound(op_flops, op_main["nbytes"])
+    print(f"[8 bound] op_kernel (half_wave_rectifier bias): "
+          f"{op_main['iters']} Newton iterations x {newton_flops(opp)} + "
+          f"{BENCH_LANES} linear estimates, {op_flops} f64 operations / "
+          f"{PEAK_F64:.3g} op/s = {op_bound[2]:.6f} ms; "
+          f"{op_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{op_bound[3]:.6f} ms", flush=True)
+
+    def entry(name, source, replaces, launches, err, k_ms, p_ms, bd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None}
+
+    run_src = "toyspice_tpu_torch/csrc/run_kernel.cu"
+    line = {"kernels": [
+        entry("run_kernel", run_src, "toyspice_tpu/ops/pallas_run.py:652",
+              lin_launches, lin_err, bench["k_ms"], bench["p_ms"],
+              lin_bound),
+        entry("run_kernel_nonlinear", run_src,
+              "toyspice_tpu/ops/pallas_run.py:652", nl_launches, nl_err,
+              hwr["k_ms"], hwr["p_ms"], nl_bound),
+        entry("op_kernel", "toyspice_tpu_torch/csrc/op_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:230", op_launches, op_err,
+              op_main["k_ms"], op_main["p_ms"], op_bound),
+    ]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

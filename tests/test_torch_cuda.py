@@ -1,4 +1,5 @@
-"""The whole-run CUDA kernel against its plain torch version on the card.
+"""The CUDA kernels (the whole-run transient and the OP) against their
+plain torch versions on the card.
 
 Needs a CUDA card and nvcc; skips elsewhere.  On the card, without JAX:
 
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 import toyspice_tpu_torch as ts
-from toyspice_tpu_torch.ops import run, run_plan
+from toyspice_tpu_torch.engine.options import DEFAULTS
+from toyspice_tpu_torch.ops import op, run, run_plan
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -69,11 +71,17 @@ def _inputs(deck, lanes, device, edit=None):
 
 
 def _assert_same(k, p):
+    """Integers equal; floats within 1e-9 of the largest finite value,
+    non-finite where the plain version is."""
     for a, b in zip(k, p):
         assert a.dtype == b.dtype and a.shape == b.shape
         if a.dtype == torch.float64:
-            scale = b.abs().amax().clamp_min(1e-300)
-            assert bool(((a - b).abs() <= 1e-9 * scale).all())
+            fin = b.isfinite()
+            assert torch.equal(a.isfinite(), fin)
+            assert torch.equal(a.isnan(), b.isnan())
+            scale = b.abs()[fin].amax().clamp_min(1e-300) if fin.any() \
+                else 1.0
+            assert bool(((a - b).abs()[fin] <= 1e-9 * scale).all())
         else:
             assert torch.equal(a, b)
 
@@ -91,6 +99,19 @@ def test_kernel_matches_plain(cuda, deck, lanes, max_attempts):
     _assert_same(k, run.run_plain(plan, dev, src, st, sc))
 
 
+def test_sin_phase_lanes_match_plain(cuda):
+    """Per-lane SIN phases: the phase's division by 180 rounds alike in the
+    kernel and its plain version."""
+    def phases(ov):
+        ov["V"] = {"phase": np.random.default_rng(8).uniform(-90, 90,
+                                                             (32, 1))}
+
+    deck = RLC.replace(".tran 0.01m 2ms", ".tran 0.01m 0.2ms")
+    *_, plan, dev, src, st, sc = _inputs(deck, 32, cuda, phases)
+    k = run.launch_run_kernel(plan, dev, src, st, sc)
+    _assert_same(k, run.run_plain(plan, dev, src, st, sc))
+
+
 def test_zero_pivot_and_nan_lanes_end_failed(cuda):
     def zero_caps(ov):
         ov["C"]["value"][1] = 0.0
@@ -99,9 +120,12 @@ def test_zero_pivot_and_nan_lanes_end_failed(cuda):
     k = run.launch_run_kernel(plan, dev, src, st, sc)
     _assert_same(k, run.run_plain(plan, dev, src, st, sc))
     assert k.fail.tolist() == [0, 1, 0, 0]
+    # minstep NaN: the lanes run on as the general engine's loop does; the
+    # capacitors' C/dt goes NaN, so the first solve fails at "minstep"
     nan = sc._replace(minstep=float("nan"))
     k = run.launch_run_kernel(plan, dev, src, st, nan)
-    assert k.fail.tolist() == [1] * 4 and k.attempts.tolist() == [0] * 4
+    _assert_same(k, run.run_plain(plan, dev, src, st, nan))
+    assert k.fail.tolist() == [1] * 4 and k.attempts.tolist() == [1] * 4
 
 
 def test_main_path_launches_the_kernel_once(cuda):
@@ -111,4 +135,131 @@ def test_main_path_launches_the_kernel_once(cuda):
     out = fn(params, state0)
     assert run.launch_run_kernel.launches == before + 1
     assert fn.engine == "run" and out.t_final.is_cuda
+    assert not out.fail.any()
+
+
+HWR = """Half-wave rectifier with smoothing cap
+.tran 10u 2m
+Vac ac 0 SIN(0 6 1k)
+Dr ac dcout DFAST
+Rload dcout 0 2.7k
+Csmooth dcout 0 4.7u
+.model DFAST D (Is=2e-14 N=1.05 Cj0=4p Tt=5n)
+"""
+
+NMOS_INV = """NMOS inverter switching a capacitive load
+.tran 1u 0.4m
+Vdd vdd 0 DC 5
+Vg gate 0 PULSE(0 5 20u 1u 1u 80u 200u)
+Rpull vdd drain 10k
+Mn drain gate 0 0 NSW
+Cload drain 0 10p
+.model NSW NMOS (VTO=1.1 KP=3m LAMBDA=0.01)
+"""
+
+BJT_TRAN = """* CE amplifier transient
+.tran 5u 2m
+Vcc vcc 0 DC 12
+Vsig sig 0 SIN(0 20m 1k)
+Rsrc sig in 600
+Cin in base 10u
+Rb1 vcc base 68k
+Rb2 base 0 12k
+Rc vcc col 3.3k
+Re emit 0 680
+Cb emit 0 47u
+Q1 col base emit QNPN
+.model QNPN NPN (Bf=180 Vaf=90)
+"""
+
+# PMOS of levels 2 and 3 and a PNP, for the device branches the decks
+# above leave out
+MIXED_OP = """* mixed polarities and levels
+.op
+Vdd vdd 0 DC 5
+Vin in 0 DC 2.2
+Mp out in vdd vdd PM2 L=2u W=20u
+Mn out in 0 0 NM3 L=2u W=10u
+Mq q in vdd vdd PM3 L=1u W=8u
+Rq q 0 20k
+Q1 0 out e QP
+Re vdd e 10k
+.model PM2 PMOS(Level=2 VTO=-0.8 KP=15u UCRIT=1e4 UEXP=0.1)
+.model NM3 NMOS(Level=3 VTO=0.7 KP=30u THETA=0.05 KAPPA=0.3)
+.model PM3 PMOS(Level=3 VTO=-0.7 KP=20u THETA=0.05 DELTA=0.5)
+.model QP PNP(Bf=100)
+"""
+
+HARD_V = """diode stack
+.op
+V1 1 0 DC 100
+D1 1 2 DM
+D2 2 3 DM
+D3 3 0 DM
+.model DM D (Is=1e-15 N=1.0)
+"""
+
+
+def _rc_spread(cc, lanes, seed=4):
+    rng = np.random.default_rng(seed)
+    return {k: {"value": np.asarray(cc.params[k]["value"])[None] * np.exp(
+        rng.normal(0, 0.1, (lanes, len(cc.params[k]["value"]))))}
+        for k in ("R", "C") if k in cc.params}
+
+
+@pytest.mark.parametrize("deck", [HWR, NMOS_INV, BJT_TRAN],
+                         ids=["diode", "mosfet", "bjt"])
+def test_nonlinear_kernel_matches_plain(cuda, deck):
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 64), device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    plan = run_plan.make_plan(cc)
+    dev = run_plan.const_stack(plan, params, 64, cuda, DEFAULTS.temp, state0)
+    src = run_plan.source_stack(plan, params, 64, cuda)
+    st = run_plan.init_state_stack(plan, state0, 64, cuda)
+    sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
+                        cfg.max_attempts)
+    opr = op.make_op_fused(cc, DEFAULTS)(params, state0)
+    jv0 = run_plan.jv_stack(plan, opr.jv, 64)
+    k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
+    torch.cuda.synchronize()
+    _assert_same(k, run.run_plain(plan, dev, src, st, sc, jv0))
+    assert not k.fail.any() and bool((k.nr_iters > k.attempts).all())
+
+
+@pytest.mark.parametrize("deck,ov", [
+    (MIXED_OP, lambda cc, b: {"V": {"dc": np.stack(
+        [np.full(b, 5.0), np.linspace(0.5, 4.5, b)], axis=1)}}),
+    (HARD_V, lambda cc, b: {"V": {"dc": np.linspace(2.0, 100.0, b)[:, None]}}),
+], ids=["levels_polarities", "rescue_ladder"])
+def test_op_kernel_matches_plain(cuda, deck, ov):
+    cc = ts.compile_circuit(ts.parse(deck))
+    params, _ = ts.batch_params(cc, ov(cc, 32), device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    before = op.launch_op_kernel.launches
+    k = op.make_op_fused(cc, DEFAULTS, solve=op.op_lanes)(params, state0)
+    launched = op.launch_op_kernel.launches - before
+    p = op.make_op_fused(cc, DEFAULTS, solve=op.op_plain)(params, state0)
+    assert op.launch_op_kernel.launches - before == launched >= 1
+    for key in ("converged", "stage", "iters", "iters_all"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+    assert torch.equal(k.x.isnan(), p.x.isnan())
+    fin = p.x.isfinite()
+    assert bool(((k.x - p.x).abs()[fin]
+                 <= 1e-9 * p.x.abs()[fin].amax()).all())
+
+
+def test_nonlinear_main_path_launches_both_kernels(cuda):
+    cc = ts.compile_circuit(ts.parse(HWR))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 32), device=cuda)
+    fn = ts.make_tran_batch(cc, cfg, None, store="none")
+    r0, o0 = run.launch_run_kernel.launches, op.launch_op_kernel.launches
+    out = fn(params, ts.init_state(cc, device=cuda))
+    assert run.launch_run_kernel.launches == r0 + 1
+    assert op.launch_op_kernel.launches >= o0 + 1
+    assert fn.engine == "run" and out.jv["D"]["vd"].is_cuda
     assert not out.fail.any()

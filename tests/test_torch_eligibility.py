@@ -1,4 +1,4 @@
-"""What the port's transient does not cover raises NotImplementedError
+"""What the port's transient and OP do not cover raise NotImplementedError
 with the reason; there is no other engine to fall back on yet."""
 
 import os
@@ -7,7 +7,7 @@ import pytest
 
 import toyspice_tpu_torch as ts
 from toyspice_tpu_torch.engine.options import SimOptions
-from toyspice_tpu_torch.ops import run
+from toyspice_tpu_torch.ops import op, run
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,6 +37,14 @@ def _many_sources(count):
     return "\n".join(lines) + "\n"
 
 
+def _diodes(count):
+    """``count`` diodes in series from a DC source (np1 = count + 2)."""
+    lines = ["* diode chain", ".tran 0.01m 1m", "V1 1 0 DC 5", "R1 1 2 1k"]
+    lines += [f"D{k} {k + 2} {k + 3} DM" for k in range(count - 1)]
+    lines += [f"D{count - 1} {count + 1} 0 DM", ".model DM D (Is=1e-14)"]
+    return "\n".join(lines) + "\n"
+
+
 def _build(text, **kw):
     cc = ts.compile_circuit(ts.parse(text))
     tp = cc.netlist.tran
@@ -51,8 +59,10 @@ def _deck(name):
 
 
 @pytest.mark.parametrize("text,kw,reason", [
-    (_deck("half_wave_rectifier.cir"), {}, "device kinds ['D']"),
-    (_deck("nmos_inverter_tran.cir"), {}, "device kinds ['M']"),
+    (_diodes(17), {}, "17 diodes, BJTs and MOSFETs exceed the kernel's cap "
+     "of 16"),
+    (_deck("nmos_inverter_tran.cir"), {"semantics": "physics"},
+     "semantics='physics'"),
     (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
     (RLC, {"store": "full"}, "store='full'"),
     (RLC, {"semantics": "physics"}, "semantics='physics'"),
@@ -78,7 +88,7 @@ def test_np1_cap_boundary():
 
 
 def test_make_tran_run_refuses_ineligible():
-    cc = ts.compile_circuit(ts.parse(_deck("half_wave_rectifier.cir")))
+    cc = ts.compile_circuit(ts.parse(_deck("coupled_inductors.cir")))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
     with pytest.raises(NotImplementedError, match="device kinds"):
@@ -87,7 +97,43 @@ def test_make_tran_run_refuses_ineligible():
 
 def test_eligible_decks_select_the_run_engine():
     for name in ("rc_lowpass_tran.cir", "rl_tran.cir", "rlc_ringdown.cir",
-                 "pulse_drive.cir", "pwl_drive.cir", "current_sin.cir"):
+                 "pulse_drive.cir", "pwl_drive.cir", "current_sin.cir",
+                 "half_wave_rectifier.cir", "nmos_inverter_tran.cir"):
         fn = _build(_deck(name))
         assert fn.engine == "run", name
         assert "whole-run kernel" in fn.engine_reason
+
+
+def test_nonlinear_device_cap_boundary():
+    ok = ts.compile_circuit(ts.parse(_diodes(16)))
+    assert run.run_ineligible_reason(ok, "compat", "none",
+                                     SimOptions()) is None
+    assert op.op_fused_ineligible_reason(ok) is None
+    big = ts.compile_circuit(ts.parse(_diodes(17)))
+    assert "cap of 16" in op.op_fused_ineligible_reason(big)
+
+
+@pytest.mark.parametrize("text,kw,reason", [
+    (_deck("divider_op.cir"), {}, "linear circuit"),
+    (_deck("ce_amplifier_op.cir"), {"semantics": "physics"},
+     "semantics='physics'"),
+    (_deck("saturating_transformer.cir"), {}, "device kinds"),
+    (_diodes(17), {}, "cap of 16"),
+], ids=["linear", "physics", "magnetic", "device_cap"])
+def test_op_ineligible_reasons(text, kw, reason):
+    cc = ts.compile_circuit(ts.parse(text))
+    assert reason in op.op_fused_ineligible_reason(cc, **kw)
+    with pytest.raises(NotImplementedError, match="not eligible"):
+        op.make_op_fused(cc, SimOptions(), **kw)
+
+
+def test_nonlinear_transient_builds_its_op():
+    cc = ts.compile_circuit(ts.parse(_deck("half_wave_rectifier.cir")))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    assert run.make_tran_run(cc, cfg).op is not None
+    assert run.make_tran_run(cc, cfg._replace(uic=True)).op is None
+    lin = ts.compile_circuit(ts.parse(RLC))
+    tp = lin.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    assert run.make_tran_run(lin, cfg).op is None

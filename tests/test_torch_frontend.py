@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from toyspice_tpu.compiler import compile_circuit as jax_compile
 from toyspice_tpu.engine.tran import build_config as jax_build_config
@@ -115,3 +116,73 @@ def test_build_config_matches(text):
     got = build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
     assert tuple(got) == tuple(ref)
     assert got._fields == ref._fields
+
+
+# PNP and PMOS of levels 2 and 3 beside the NPN/NMOS decks of circuits/
+# (no space before a model's "(": with one, the parser drops the first
+# parameter, as the reference does)
+POLARITIES = """* polarities and levels
+.tran 1u 10u
+V1 1 0 DC 5
+R1 1 2 1k
+Q1 3 2 0 QP
+Q2 1 2 3 QN
+M1 4 2 1 1 PM2 L=2u W=10u
+M2 5 2 1 1 PM3 L=1u W=4u
+M3 5 2 0 0 NM1
+D1 4 0 DX
+R2 3 0 1k
+R3 5 0 2k
+.model QP PNP(Bf=120 Vaf=60)
+.model QN NPN(Bf=150)
+.model PM2 PMOS(Level=2 VTO=-0.8 KP=15u UCRIT=1e4 UEXP=0.1)
+.model PM3 PMOS(Level=3 VTO=-0.7 KP=20u THETA=0.05 KAPPA=0.3)
+.model NM1 NMOS(VTO=0.6 KP=30u GAMMA=0.4)
+.model DX D(Is=1e-15 N=1.1 Tt=2n)
+"""
+
+
+@pytest.mark.parametrize("text", [
+    _deck_text(os.path.join(ROOT, "circuits", name))
+    for name in ("half_wave_rectifier.cir", "nmos_inverter_tran.cir",
+                 "ce_amplifier_op.cir")] + [POLARITIES],
+    ids=["diode", "nmos", "npn", "polarities"])
+def test_params_from_numpy_carries_nonlinear_tables(text):
+    """The JAX package's batch_params pytree, carried across with
+    params_from_numpy, equals the port's own: D, Q and M tables with the
+    model sign leaves, a batched override among them; and the MOSFET level
+    codes sit in the idx tables of both."""
+    from toyspice_tpu.engine.batch import batch_params as jax_batch_params
+
+    import toyspice_tpu_torch as ts
+    from toyspice_tpu_torch.convert import params_from_numpy
+
+    ref_cc = jax_compile(jax_parse(text))
+    cc = compile_circuit(parse(text))
+    rng = np.random.default_rng(5)
+    kind = [k for k in ("M", "Q", "D") if k in cc.params][0]
+    key = {"D": "is_", "Q": "ies", "M": "kp"}[kind]
+    base = np.asarray(cc.params[kind][key])
+    ov = {kind: {key: base[None] * rng.uniform(0.5, 2.0, (3,) + base.shape)}}
+    jparams, _ = jax_batch_params(ref_cc, ov)
+    got = params_from_numpy(
+        {k: {kk: np.asarray(v) for kk, v in t.items()}
+         for k, t in jparams.items()}, device="cpu")
+    want, _ = ts.batch_params(cc, ov, device="cpu")
+    assert list(got) == list(want)
+    for k in want:
+        assert list(got[k]) == list(want[k]), k
+        for kk in want[k]:
+            assert got[k][kk].dtype == want[k][kk].dtype
+            assert torch.equal(got[k][kk], want[k][kk]), (k, kk)
+    assert got[kind][key].shape == (3,) + base.shape
+    for k in ("D", "Q", "M"):
+        if k in cc.params:
+            assert {"D": "n", "Q": "sign", "M": "sign"}[k] in got[k]
+    if "M" in cc.idx:
+        np.testing.assert_array_equal(cc.idx["M"]["level"],
+                                      ref_cc.idx["M"]["level"])
+    if text is POLARITIES:
+        assert got["Q"]["sign"].tolist() == [-1.0, 1.0]
+        assert got["M"]["sign"].tolist() == [-1.0, -1.0, 1.0]
+        assert cc.idx["M"]["level"].tolist() == [2, 3, 1]

@@ -184,13 +184,48 @@ def test_max_attempts_guard_ends_every_lane():
     assert bool((res.t < cfg.tstop).all())
 
 
+def _assert_non_finite_matches(out, ref):
+    """Counters equal per lane; t_final and state equal, NaN where the
+    general engine has NaN."""
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        np.testing.assert_array_equal(getattr(out, key).numpy(),
+                                      np.asarray(getattr(ref, key)), key)
+    np.testing.assert_allclose(out.t_final.numpy(), np.asarray(ref.t_final),
+                               rtol=RTOL, atol=0, equal_nan=True)
+    for kind in ref.state:
+        for key in ref.state[kind]:
+            np.testing.assert_allclose(
+                out.state[kind][key].numpy(), np.asarray(ref.state[kind][key]),
+                rtol=RTOL, atol=1e-300, equal_nan=True,
+                err_msg=f"{kind}.{key}")
+
+
 def test_non_finite_dt_ends_the_lane_as_failed():
-    cfg, plan, dev, src, st = _rl_inputs()
-    sc = run.RunScalars(cfg.tstop, float("nan"), cfg.tmax, 7.0,
-                        cfg.max_attempts)
-    res = run.run_plain(plan, dev, src, st, sc)
-    assert res.fail.tolist() == [1, 1]
-    assert res.attempts.tolist() == [0, 0]
+    """minstep = NaN: t and dt go NaN; the lane runs on as the general
+    engine's loop does, until its hard fail."""
+    cc = jax_compile(jax_parse(RL_PULSE))
+    rng = np.random.default_rng(2)
+    ov = {"R": {"value": lognormal(rng, cc.params["R"]["value"], 2)}}
+    cfg, _, params_np, ref = reference(RL_PULSE, ov,
+                                       {"minstep": float("nan")})
+    out = port_run(RL_PULSE, cfg, params_np)
+    _assert_non_finite_matches(out, ref)
+    assert out.attempts.tolist() == [2, 2]
+    assert out.accepted.tolist() == [1, 1]
+    assert out.fail.tolist() == [True, True]
+    assert bool(torch.isnan(out.t_final).all())
+
+
+def test_nan_parameter_lane_matches_general_engine():
+    """One lane's R is NaN; the other lanes run as usual."""
+    cc = jax_compile(jax_parse(RL_PULSE))
+    rng = np.random.default_rng(3)
+    r = lognormal(rng, cc.params["R"]["value"], 3)
+    r[1] = np.nan
+    cfg, _, params_np, ref = reference(RL_PULSE, {"R": {"value": r}})
+    out = port_run(RL_PULSE, cfg, params_np)
+    _assert_non_finite_matches(out, ref)
+    assert out.fail.tolist() == [False, True, False]
 
 
 def test_zero_tstop_is_done_at_once():

@@ -1,0 +1,554 @@
+// The in-kernel Newton shared by csrc/run_kernel.cu (each transient
+// attempt) and csrc/op_kernel.cu (each OP solve): one thread per lane, f64.
+//
+// The CUDA counterpart of toyspice_tpu/ops/pallas_tran.py's
+// _newton_in_kernel and _device_eval_lib (compat branches), and of the
+// general engine's engine/newton.py.  ops/newton.py is the same arithmetic
+// as torch operations: each value below is computed with the operations of
+// that file in the same order, and the build uses -fmad=false, so that
+// kernel and plain version agree bit for bit.
+//
+// One Newton iteration of a lane:
+//   1. junction voltages: the carried ones at iteration 0 of a transient
+//      attempt (warm start, tran.go:174), else UpdateVoltages of the last
+//      solution with pnjlim on the diode and BJT junctions
+//      (engine/nlstate.py);
+//   2. device evaluation into value slots (ops/run_plan.py NL_SLOTS per
+//      device): the compat diode with its transit-time companion, the
+//      Ebers-Moll BJT with its exact Jacobian after the cold-start guess,
+//      the level 1-3 MOSFET after its cold-start guess, with the Meyer
+//      charge stamps of a transient (previous charges frozen, PLAN.md 1);
+//   3. the build from the stamp plan in shared memory, the ground row and,
+//      in an OP, the status gmin on every non-ground diagonal;
+//   4. Gauss-Jordan with partial pivoting (largest |pivot| among unused
+//      rows, lowest row on a tie; a zero pivot poisons the row);
+//   5. convergence from iteration 1 on: every |new - old| <=
+//      reltol*max(|new|, |old|) + abstol, and the solution finite.
+// The loop ends on convergence or at max_iter, the lane's own count.
+//
+// Not a copy of the TPU code: that one carries double-float (hi, lo) f32
+// pairs folded to (8, W) tiles and extracts pivot rows by one-hot sums;
+// Hopper has native f64 and a thread per lane, so here the matrix is a
+// per-thread array and the pivot row is indexed.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace tsr {
+
+// stamp tags and table header slots: ops/run_plan.py TAG_* and H_*
+enum Tag { TAG_G = 0, TAG_GEQ, TAG_LTERM, TAG_ONE, TAG_CEQ, TAG_LRHS,
+           TAG_VSRC, TAG_ISRC, TAG_NL };
+enum Hdr { H_NP1 = 0, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN,
+           H_LN, H_KS, H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN,
+           H_NLIN, H_KJ, H_DOFF, H_QOFF, H_MOFF };
+// per-device dev rows: ops/run_plan.py D_ROWS, Q_ROWS, M_ROWS
+enum DRow { D_N = 0, D_IS, D_GMIN, D_TT, D_PQ, D_NVT, D_IST, D_VTE,
+            D_VCRIT };
+enum QRow { Q_SIGN = 0, Q_IES, Q_ICS, Q_NF, Q_NR, Q_AF, Q_INVNFVT,
+            Q_INVNRVT, Q_INVVAF, Q_INVVAR, Q_INVIKF, Q_INVIKR, Q_VBE0,
+            Q_VBC0, Q_VTEF, Q_VCRITF, Q_VTER, Q_VCRITR };
+enum MRow { M_SIGN = 0, M_VTO, M_GAMMA, M_PHI, M_KP, M_W, M_L, M_LAM,
+            M_TOX, M_UO, M_UCRIT, M_UEXP, M_VMAX, M_THETA, M_KAPPA, M_DELTA,
+            M_CGSO, M_CGDO, M_CGBO, M_CBS, M_CBD, M_CJ, M_CJSW, M_AS, M_AD,
+            M_PS, M_PD, M_PB, M_MJ, M_QGS, M_QGD, M_QGB, M_QBS, M_QBD };
+// value slots per device: ops/run_plan.py NL_SLOTS
+constexpr int D_SLOTS = 2, Q_SLOTS = 12, M_SLOTS = 21;
+
+constexpr int MAX_NL = 16;  // ops/newton.py MAX_NL_DEVICES
+constexpr int MAX_KJ = 3 * MAX_NL;
+constexpr int MAX_NVAL = M_SLOTS * MAX_NL;
+constexpr int THREADS = 128;
+
+constexpr double EXP_CLAMP = 40.0;  // models/bjt.py, models/diode.py
+constexpr double MOS_GMIN = 1e-12;  // models/mosfet.py GMIN
+constexpr double MOS_DELTA = 1e-6;  // models/mosfet.py DELTA
+constexpr double COX_NUM = 3.9 * 8.85e-14;  // 3.9 * EPS0 (mosfet.go:382)
+enum Region { CUTOFF = 0, LINEAR = 1, SATURATION = 2 };
+
+// torch.maximum / torch.minimum: NaN if either is NaN
+__device__ __forceinline__ double max_nan(double a, double b) {
+  if (isnan(a) || isnan(b)) return NAN;
+  return a > b ? a : b;
+}
+__device__ __forceinline__ double min_nan(double a, double b) {
+  if (isnan(a) || isnan(b)) return NAN;
+  return a < b ? a : b;
+}
+// torch.clamp_min / clamp_max: a NaN passes through
+__device__ __forceinline__ double clamp_min(double x, double lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ double clamp_max(double x, double hi) {
+  return x > hi ? hi : x;
+}
+// torch.sign: 0 for zero and NaN
+__device__ __forceinline__ double sgn(double x) {
+  return (double)((0.0 < x) - (x < 0.0));
+}
+
+// a ** b for a > 0 as exp(b*log a): models/mosfet.py pow_pos (pow built
+// with -fmad=false does not round as torch.pow on every input; exp and log
+// do)
+__device__ __forceinline__ double pow_pos(double a, double b) {
+  return exp(b * log(a));
+}
+
+// SPICE3F5 DEVpnjlim: models/limiter.py
+__device__ __forceinline__ double pnjlim(double vnew, double vold, double vte,
+                                         double vc) {
+  const bool limit = (vnew > vc) && (fabs(vnew - vold) > 2.0 * vte);
+  if (!limit) return vnew;
+  if (vold > 0) {
+    const double arg = 1.0 + (vnew - vold) / vte;
+    return arg > 0 ? vold + vte * log(clamp_min(arg, 1e-300)) : vc;
+  }
+  return vte * log(clamp_min(vnew, 1e-300) / vte);
+}
+
+// ------------------------------------------------------------ the MOSFET
+
+struct Mos {  // one device's rows: models/mosfet.py reads them as p[...]
+  const double* p;
+  int stride;
+  __device__ __forceinline__ double operator[](int r) const {
+    return p[r * stride];
+  }
+};
+
+// threshold with body effect, type-positive frame (mosfet.go:296-318)
+__device__ __forceinline__ double mos_vth(const Mos& p, double vbs) {
+  if (!(p[M_GAMMA] > 0)) return p[M_VTO];
+  return p[M_VTO] + p[M_GAMMA] * (sqrt(clamp_min(p[M_PHI] - vbs, 0.0)) -
+                                  sqrt(p[M_PHI]));
+}
+
+// drain current in the type-positive frame (mosfet.go:321-459): the branch
+// of the device's level only, as the torch version selects it
+__device__ double mos_ids(const Mos& p, int level, double vgs, double vds,
+                          double vbs, int* region) {
+  const double vth = mos_vth(p, vbs);
+  const double vgst = vgs - vth;
+  const double beta1 = p[M_KP] * p[M_W] / p[M_L];
+  const double lamf = 1.0 + p[M_LAM] * vds;
+  double id, vdsat;
+  if (level == 2) {
+    const double cox = COX_NUM / p[M_TOX];
+    const double eeff = vgst / (p[M_TOX] * 100.0);
+    const double den =
+        (p[M_UCRIT] > 0 && eeff > 0)
+            ? 1.0 + pow_pos(clamp_min(eeff / p[M_UCRIT], 1e-300), p[M_UEXP])
+            : 1.0;
+    const double ueff = p[M_UO] / den;
+    const double ecrit = p[M_VMAX] / (ueff == 0 ? 1.0 : ueff) * 100.0;
+    vdsat = p[M_VMAX] > 0 ? min_nan(vgst, ecrit * p[M_L]) : vgst;
+    const double beta2 = ueff * cox * p[M_W] / (p[M_L] * 100.0);
+    id = vds < vdsat
+             ? beta2 * (vgst * vds - 0.5 * vds * vds) * lamf
+             : 0.5 * beta2 * vdsat * vdsat * lamf;
+  } else if (level == 3) {
+    const double vgst_eff =
+        p[M_THETA] > 0 ? vgst / (1.0 + p[M_THETA] * vgst) : vgst;
+    vdsat = p[M_KAPPA] > 0
+                ? vgst_eff / sqrt(clamp_min(1.0 + p[M_KAPPA] * vgst_eff,
+                                            1e-30))
+                : vgst_eff;
+    const double beta3 =
+        beta1 / (p[M_DELTA] > 0 ? 1.0 + p[M_DELTA] / p[M_W] : 1.0);
+    id = vds < vdsat
+             ? beta3 *
+                   (vgst_eff * vds -
+                    0.5 * vds * vds / (1.0 + p[M_KAPPA] * vgst_eff)) *
+                   lamf
+             : 0.5 * beta3 * vdsat * vdsat * lamf;
+  } else {
+    vdsat = vgst;
+    id = vds < vgst ? beta1 * (vgst * vds - 0.5 * vds * vds) * lamf
+                    : 0.5 * beta1 * vgst * vgst * lamf;
+  }
+  if (vgst <= 0) {
+    *region = CUTOFF;
+    return 0.0;
+  }
+  *region = vds < vdsat ? LINEAR : SATURATION;
+  return id;
+}
+
+// one bulk junction's charge (mosfet.go:597-637)
+__device__ __forceinline__ double mos_qj(const Mos& p, double c, double v) {
+  const double cv =
+      v < 0 ? c / pow_pos(clamp_min(1.0 - v / p[M_PB], 1e-30), p[M_MJ])
+            : c * (1.0 + p[M_MJ] * v / p[M_PB]);
+  return cv * v;
+}
+
+// ------------------------------------------------------- the lane's deck
+
+// What a lane's Newton reads: the plan in shared memory, its dev row, and
+// where its nonlinear device blocks start.
+struct Deck {
+  const int* topo;
+  const double* dv;
+  int n, n_d, n_q, n_m, kj;
+  const int* dn;
+  const int* qn;
+  const int* mn;
+  const double* pd;
+  const double* pq;
+  const double* pm;
+
+  __device__ Deck(const int* topo_, const double* dv_) : topo(topo_),
+                                                         dv(dv_) {
+    n = topo[H_NP1];
+    n_d = topo[H_NDD];
+    n_q = topo[H_NQ];
+    n_m = topo[H_NM];
+    kj = topo[H_KJ];
+    dn = topo + topo[H_DN];
+    qn = topo + topo[H_QN];
+    mn = topo + topo[H_MN];
+    pd = dv + topo[H_DOFF];
+    pq = dv + topo[H_QOFF];
+    pm = dv + topo[H_MOFF];
+  }
+  __device__ __forceinline__ double d(int r, int k) const {
+    return pd[r * n_d + k];
+  }
+  __device__ __forceinline__ double q(int r, int k) const {
+    return pq[r * n_q + k];
+  }
+};
+
+// UpdateVoltages + pnjlim (engine/nlstate.py), in place on the rows
+// D vd | Q vbe | Q vbc | M vgs | M vds | M vbs
+__device__ void limit_jv(const Deck& c, const double* x, double* jv) {
+  for (int k = 0; k < c.n_d; ++k) {
+    const double vd = x[c.dn[2 * k]] - x[c.dn[2 * k + 1]];
+    jv[k] = pnjlim(vd, jv[k], c.d(D_VTE, k), c.d(D_VCRIT, k));
+  }
+  double* vbe = jv + c.n_d;
+  double* vbc = vbe + c.n_q;
+  for (int k = 0; k < c.n_q; ++k) {
+    const double vc = x[c.qn[3 * k]], vb = x[c.qn[3 * k + 1]],
+                 ve = x[c.qn[3 * k + 2]];
+    const bool pnp = c.q(Q_SIGN, k) < 0;
+    const double be = pnp ? ve - vb : vb - ve;
+    const double bc = pnp ? vc - vb : vb - vc;
+    vbe[k] = pnjlim(be, vbe[k], c.q(Q_VTEF, k), c.q(Q_VCRITF, k));
+    vbc[k] = pnjlim(bc, vbc[k], c.q(Q_VTER, k), c.q(Q_VCRITR, k));
+  }
+  double* vgs = vbc + c.n_q;
+  double* vds = vgs + c.n_m;
+  double* vbs = vds + c.n_m;
+  for (int k = 0; k < c.n_m; ++k) {
+    const int* nd = c.mn + 5 * k;  // drain gate source bulk level
+    const double s = c.pm[M_SIGN * c.n_m + k];
+    const double xs = x[nd[2]];
+    vgs[k] = s * (x[nd[1]] - xs);
+    vds[k] = s * (x[nd[0]] - xs);
+    vbs[k] = s * (x[nd[3]] - xs);
+  }
+}
+
+// Device evaluation into the value slots at junction voltages jv.  TRAN
+// adds the companions of a transient step dte; gmin is the OP's status
+// gmin on the MOSFET drain/source diagonals (0 in a transient).
+template <bool TRAN>
+__device__ void device_values(const Deck& c, const double* jv, double dte,
+                              double gmin, double* nv) {
+  // ---- diodes (diode.go:119-148, 184-227)
+  for (int k = 0; k < c.n_d; ++k) {
+    const double vd = jv[k];
+    const double nvt = c.d(D_NVT, k), is_t = c.d(D_IST, k);
+    const double gmin_d = c.d(D_GMIN, k);
+    const bool fwd = vd > -3.0 * nvt;
+    const double arg = clamp_max(vd / nvt, EXP_CLAMP);
+    const double i_fwd = is_t * (exp(arg) - 1.0);
+    double id = fwd ? i_fwd : -is_t;
+    double gd = fwd ? (fabs(id) + is_t) / nvt + gmin_d : gmin_d;
+    if (TRAN) {  // compat: the previous charge is frozen (PLAN.md 1)
+      const double tt = c.d(D_TT, k);
+      const double charge = tt * id;
+      const bool pos = dte > 0;
+      const double cap = pos ? (charge - c.d(D_PQ, k)) / dte : 0.0;
+      const double geq = pos ? tt * gd / dte : 0.0;
+      gd = gd + geq;
+      id = id + cap;
+    }
+    nv[k] = gd;
+    nv[c.n_d + k] = id - gd * vd;
+  }
+  double* qv = nv + D_SLOTS * c.n_d;
+  // ---- BJTs: models/bjt.py jacobian after the cold start
+  const double* jbe = jv + c.n_d;
+  const double* jbc = jbe + c.n_q;
+  for (int k = 0; k < c.n_q; ++k) {
+    double vbe = jbe[k], vbc = jbc[k];
+    const bool cold = (vbe == 0.0) && (vbe - vbc == 0.0);
+    vbe = cold ? c.q(Q_VBE0, k) : vbe;
+    vbc = cold ? c.q(Q_VBC0, k) : vbc;
+    const double sign = c.q(Q_SIGN, k), ies = c.q(Q_IES, k),
+                 ics = c.q(Q_ICS, k);
+    const double invnfvt = c.q(Q_INVNFVT, k), invnrvt = c.q(Q_INVNRVT, k);
+    const double invvaf = c.q(Q_INVVAF, k), invvar = c.q(Q_INVVAR, k);
+    const double invikf = c.q(Q_INVIKF, k), invikr = c.q(Q_INVIKR, k);
+    const double a1 = vbe * invnfvt;
+    const double a2 = vbc * invnrvt;
+    const double e1 = exp(clamp_max(a1, EXP_CLAMP));
+    const double e2 = exp(clamp_max(a2, EXP_CLAMP));
+    const double f0 = sign * ies * (e1 - 1.0);
+    const double r0 = sign * ics * (e2 - 1.0);
+    const double df0 = a1 <= EXP_CLAMP ? sign * ies * e1 * invnfvt : 0.0;
+    const double dr0 = a2 <= EXP_CLAMP ? sign * ics * e2 * invnrvt : 0.0;
+    const double u = 1.0 - vbc * invvaf;
+    const double wv = 1.0 + vbe * invvar;
+    const double f1 = f0 * u;
+    const double r1 = r0 * wv;
+    const double df1_be = df0 * u;
+    const double df1_bc = -f0 * invvaf;
+    const double dr1_be = r0 * invvar;
+    const double dr1_bc = dr0 * wv;
+    const double sf = sgn(f1), sr = sgn(r1);
+    const double den_f = 1.0 + fabs(f1) * invikf * u;
+    const double den_r = 1.0 + fabs(r1) * invikr * u;
+    const double f2 = f1 / den_f;
+    const double r2 = r1 / den_r;
+    const double ddenf_be = sf * df1_be * invikf * u;
+    const double ddenf_bc =
+        sf * df1_bc * invikf * u - fabs(f1) * invikf * invvaf;
+    const double ddenr_be = sr * dr1_be * invikr * u;
+    const double ddenr_bc =
+        sr * dr1_bc * invikr * u - fabs(r1) * invikr * invvaf;
+    const double df2_be = (df1_be - f2 * ddenf_be) / den_f;
+    const double df2_bc = (df1_bc - f2 * ddenf_bc) / den_f;
+    const double dr2_be = (dr1_be - r2 * ddenr_be) / den_r;
+    const double dr2_bc = (dr1_bc - r2 * ddenr_bc) / den_r;
+    const double af = c.q(Q_AF, k);
+    const double ic0 = sign * (af * f2 - r2) * u;
+    const double ie0 = sign * (f2 - r2);
+    const double ib0 = ie0 - ic0;
+    const double g11 = sign * (af * df2_be - dr2_be) * u;
+    const double g12 = sign * ((af * df2_bc - dr2_bc) * u - (af * f2 - r2) *
+                                                              invvaf);
+    const double g21 = sign * (df2_be - dr2_be) - g11;
+    const double g22 = sign * (df2_bc - dr2_bc) - g12;
+    const int nq = c.n_q;
+    // the stamp of ops/assemble.py's BJT block, base node sign sb
+    qv[0 * nq + k] = (g11 + g12) * sign;
+    qv[1 * nq + k] = -g11 * sign;
+    qv[2 * nq + k] = -g12 * sign;
+    qv[3 * nq + k] = (g21 + g22) * sign;
+    qv[4 * nq + k] = -g21 * sign;
+    qv[5 * nq + k] = -g22 * sign;
+    qv[6 * nq + k] = -(g11 + g12 + g21 + g22) * sign;
+    qv[7 * nq + k] = (g11 + g21) * sign;
+    qv[8 * nq + k] = (g12 + g22) * sign;
+    qv[9 * nq + k] = -ic0 + g11 * vbe + g12 * vbc;
+    qv[10 * nq + k] = -ib0 + g21 * vbe + g22 * vbc;
+    qv[11 * nq + k] = (ic0 + ib0) - (g11 + g21) * vbe - (g12 + g22) * vbc;
+  }
+  double* mv = qv + Q_SLOTS * c.n_q;
+  // ---- MOSFETs: models/mosfet.py dc_eval and charges after the cold start
+  const double* jgs = jbc + c.n_q;
+  const double* jds = jgs + c.n_m;
+  const double* jbs = jds + c.n_m;
+  const int nm = c.n_m;
+  for (int k = 0; k < nm; ++k) {
+    const Mos p{c.pm + k, nm};
+    const int level = c.mn[5 * k + 4];
+    double vgs = jgs[k], vds = jds[k], vbs = jbs[k];
+    const bool cold = (vgs == 0.0) && (vds == 0.0) && (vbs == 0.0);
+    vgs = cold ? 0.7 : vgs;
+    vds = cold ? 0.1 : vds;
+    vbs = cold ? 0.0 : vbs;
+    const double sign = p[M_SIGN];
+    int region;
+    const double id = sign * mos_ids(p, level, vgs, vds, vbs, &region);
+    const double vth = mos_vth(p, vbs);
+    const double vgst = vgs - vth;
+    const double beta1 = p[M_KP] * p[M_W] / p[M_L];
+    const bool lin = region == LINEAR;
+    const bool cut = region == CUTOFF;
+    double gm, gds, gmbs;
+    if (level == 2 || level == 3) {  // numeric differencing (mosfet.go:517)
+      const double d = MOS_DELTA * sign;
+      int r_;
+      const double idg = mos_ids(p, level, vgs + d, vds, vbs, &r_);
+      const double idd = mos_ids(p, level, vgs, vds + d, vbs, &r_);
+      const double idb = mos_ids(p, level, vgs, vds, vbs + d, &r_);
+      gm = clamp_min((sign * idg - id) / MOS_DELTA, MOS_GMIN);
+      gds = clamp_min((sign * idd - id) / MOS_DELTA, MOS_GMIN);
+      gmbs = clamp_min((sign * idb - id) / MOS_DELTA, MOS_GMIN);
+    } else {  // level 1 analytic (mosfet.go:505-515)
+      const double lamf = 1.0 + p[M_LAM] * vds;
+      gm = lin ? beta1 * vds * lamf : beta1 * vgst * lamf;
+      gds = lin ? beta1 * (vgst - vds) * lamf +
+                      beta1 * p[M_LAM] * (vgst * vds - 0.5 * vds * vds)
+                : 0.5 * beta1 * vgst * vgst * p[M_LAM];
+      gmbs = (p[M_GAMMA] > 0 && p[M_PHI] > 0 && vbs < 0)
+                 ? gm * p[M_GAMMA] /
+                       (2.0 * sqrt(clamp_min(p[M_PHI] - vbs, 1e-30)))
+                 : MOS_GMIN;
+    }
+    gm = cut ? MOS_GMIN : gm;
+    gds = cut ? MOS_GMIN : gds;
+    gmbs = cut ? MOS_GMIN : gmbs;
+    gm = gm * sign;  // mosfet.go:534-537: gm and gmbs flip, gds does not
+    gmbs = gmbs * sign;
+    mv[0 * nm + k] = gds + gmin;
+    mv[1 * nm + k] = gm;
+    mv[2 * nm + k] = -gds - gm - gmbs;
+    mv[3 * nm + k] = gmbs;
+    mv[4 * nm + k] = gds + gm + gmbs + gmin;
+    mv[5 * nm + k] = -gds;
+    mv[6 * nm + k] = -gm;
+    mv[7 * nm + k] = -gmbs;
+    mv[8 * nm + k] = -id + gds * vds + gm * vgs + gmbs * vbs;
+    if (TRAN) {  // Meyer capacitances (mosfet.go:540-594) and charges
+      const double cox = COX_NUM / p[M_TOX];
+      const double cgate = cox * p[M_W] * p[M_L];
+      const double cgso = p[M_CGSO] * p[M_W];
+      const double cgdo = p[M_CGDO] * p[M_W];
+      const double cgbo = p[M_CGBO] * p[M_L];
+      const double cbs = (p[M_CBS] == 0 && p[M_CJ] > 0)
+                             ? p[M_CJ] * p[M_AS] + p[M_CJSW] * p[M_PS]
+                             : p[M_CBS];
+      const double cbd = (p[M_CBD] == 0 && p[M_CJ] > 0)
+                             ? p[M_CJ] * p[M_AD] + p[M_CJSW] * p[M_PD]
+                             : p[M_CBD];
+      const double cgs = cut ? cgso
+                             : (lin ? cgate / 2.0 + cgso
+                                    : 2.0 * cgate / 3.0 + cgso);
+      const double cgd = cut ? cgdo : (lin ? cgate / 2.0 + cgdo : cgdo);
+      const double cgb =
+          cut ? 2.0 * cgate / 3.0 : (lin ? cgbo : cgbo + cgate / 3.0);
+      const double qgs = cut ? 0.0 : cgs * vgs;
+      const double qgd = cut ? 0.0 : cgd * (vgs - vds);
+      const double qgb = cgb * (vgs - vbs);
+      const double qbs = mos_qj(p, cbs, vbs);
+      const double qbd = mos_qj(p, cbd, vbs - vds);
+      mv[9 * nm + k] = cgd / dte;
+      mv[10 * nm + k] = cgs / dte;
+      mv[11 * nm + k] = cgb / dte;
+      mv[12 * nm + k] = (cgd + cgs + cgb) / dte;
+      mv[13 * nm + k] = cbs / dte;
+      mv[14 * nm + k] = cbd / dte;
+      mv[15 * nm + k] = (cbd + cbs) / dte;
+      mv[16 * nm + k] = (qgd - p[M_QGD]) / dte;
+      mv[17 * nm + k] = (qgs - p[M_QGS]) / dte;
+      mv[18 * nm + k] = (qgb - p[M_QGB]) / dte;
+      mv[19 * nm + k] = (qbs - p[M_QBS]) / dte;
+      mv[20 * nm + k] = (qbd - p[M_QBD]) / dte;
+    }
+  }
+}
+
+// ------------------------------------------------------ build and solve
+
+// Zero the augmented system and add the first ne entries of the plan in
+// order: lin(tag, index) gives a linear stamp's value, nv[] the nonlinear
+// slots (NLV: the plan has TAG_NL entries); then the ground row x[0] = 0.
+template <int NMAX, bool NLV, class Lin>
+__device__ __forceinline__ void build(double (*m)[NMAX + 1], int n,
+                                      const int* ent, int ne, const Lin& lin,
+                                      const double* nv) {
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j <= n; ++j) m[i][j] = 0.0;
+  for (int e = 0; e < ne; ++e) {
+    const int* en = ent + 5 * e;
+    const double v =
+        (NLV && en[2] == TAG_NL) ? nv[en[3]] : lin(en[2], en[3]);
+    m[en[0]][en[1]] += (double)en[4] * v;
+  }
+  m[0][0] = 1.0;
+}
+
+// Gauss-Jordan with partial pivoting (largest |pivot| among unused rows,
+// lowest row on a tie; a zero pivot poisons its row so x goes non-finite;
+// a NaN in a pivot column makes every x NaN).  Returns whether every x is
+// finite.  run_kernel.cu's linear branch has the same code in line.
+template <int NMAX>
+__device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
+                                             double* x) {
+  int perm[NMAX];
+  bool used[NMAX];
+  bool nan_col = false;
+  for (int i = 0; i < n; ++i) used[i] = false;
+  for (int k = 0; k < n && !nan_col; ++k) {
+    int p = -1;
+    double best = -1.0;
+    for (int i = 0; i < n; ++i) {
+      if (used[i]) continue;
+      const double a = fabs(m[i][k]);
+      if (isnan(a)) nan_col = true;
+      if (a > best) {
+        best = a;
+        p = i;
+      }
+    }
+    if (nan_col || p < 0) {
+      nan_col = true;
+      break;
+    }
+    const double piv = m[p][k];
+    if (piv == 0.0) {
+      for (int j = 0; j <= n; ++j) m[p][j] = j == k ? 1.0 : INFINITY;
+    } else {
+      for (int j = 0; j <= n; ++j) m[p][j] = m[p][j] / piv;
+    }
+    for (int i = 0; i < n; ++i) {
+      if (i == p) continue;
+      const double f = m[i][k];
+      for (int j = 0; j <= n; ++j) m[i][j] = m[i][j] - f * m[p][j];
+    }
+    used[p] = true;
+    perm[k] = p;
+  }
+  bool finite = !nan_col;
+  for (int k = 0; k < n; ++k) {
+    x[k] = nan_col ? NAN : m[perm[k]][n];
+    finite = finite && isfinite(x[k]);
+  }
+  return finite;
+}
+
+// The Newton loop of one lane (engine/newton.py).  x holds x0 on entry
+// and the last solution on exit; jv holds the carried junction voltages
+// on entry and those of the last iteration on exit.  TRAN: the transient
+// flavour (iteration 0 stamps the carried jv, companions of step dte, no
+// gmin diagonal); else the OP flavour (jv from x at every iteration,
+// status gmin on the diagonals).  Returns the iteration count; *conv is
+// whether it converged.
+template <int NMAX, bool TRAN, class Lin>
+__device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
+                      double (*m)[NMAX + 1], double* x, double* jv,
+                      double* nv, double dte, double gmin, int max_iter,
+                      double reltol, double abstol, bool* conv) {
+  const int n = c.n;
+  double xn[NMAX];
+  int k = 0;
+  bool ok = false;
+  while (!ok && k < max_iter) {
+    if (!TRAN || k > 0) limit_jv(c, x, jv);
+    device_values<TRAN>(c, jv, dte, TRAN ? 0.0 : gmin, nv);
+    build<NMAX, true>(m, n, ent, ne, lin, nv);
+    if (!TRAN)
+      for (int r = 1; r < n; ++r) m[r][r] = m[r][r] + gmin;
+    const bool finite = gauss_jordan<NMAX>(m, n, xn);
+    bool all = true;
+    for (int r = 0; r < n; ++r) {
+      const double d = fabs(xn[r] - x[r]);
+      all = all &&
+            d <= reltol * max_nan(fabs(xn[r]), fabs(x[r])) + abstol;
+      x[r] = xn[r];
+    }
+    ok = k > 0 && all && finite;
+    ++k;
+  }
+  *conv = ok;
+  return k;
+}
+
+}  // namespace tsr

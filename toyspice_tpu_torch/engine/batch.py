@@ -1,10 +1,12 @@
-"""Monte-Carlo batching of the transient (engine/batch.py of the JAX
-package: ``batch_params``, ``make_tran_batch``, ``select_tran_engine``).
+"""Monte-Carlo batching of the transient and the operating point
+(engine/batch.py of the JAX package: ``batch_params``, ``make_tran_batch``,
+``select_tran_engine``, ``select_op_engine``, ``run_op_batch``).
 
 Parameters are a dict of f64 tensors on one device: leaves a batch
 overrides carry a leading batch axis (B, nk), the rest stay shared (nk,).
-The port has one transient engine so far, the whole-run kernel
-(``ops/run.py``); a deck, store or semantics it does not cover raises
+The port has one transient engine, the whole-run kernel (``ops/run.py``),
+and one OP engine, the OP kernel with its rescue ladders (``ops/op.py``);
+a deck, store or semantics they do not cover raises
 ``NotImplementedError`` with the reason.
 """
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .options import DEFAULTS, SimOptions
+from .state import init_state
 from .tran import TranConfig
 
 _log = logging.getLogger("toyspice_tpu_torch.engine")
@@ -71,3 +74,34 @@ def make_tran_batch(cc, cfg: TranConfig, in_axes,
     fn.engine = engine
     fn.engine_reason = reason
     return fn
+
+
+def select_op_engine(cc, semantics: str = "compat",
+                     opts: SimOptions = DEFAULTS):
+    """(engine_name, reason) for a batched OP.  The only engine is "fused",
+    the OP kernel; anything it does not serve (a linear deck, physics
+    semantics, a kind not ported) raises NotImplementedError with the
+    reason."""
+    from ..ops.op import op_fused_ineligible_reason
+
+    why = op_fused_ineligible_reason(cc, semantics, opts)
+    if why is not None:
+        raise NotImplementedError(
+            f"no OP engine for this deck in the port: {why}")
+    return "fused", f"OP kernel eligible ({semantics})"
+
+
+def run_op_batch(cc, params, in_axes=None, opts: SimOptions = DEFAULTS,
+                 semantics: str = "compat"):
+    """Batched operating point: each lane runs plain NR and the rescue
+    ladders on its own parameters.  Returns the FusedOPResult (x (B, np1),
+    jv, converged (B,), stage (B,), iters) on the device the parameters lie
+    on; ``in_axes`` keeps the JAX package's call shape (the port reads the
+    batch axis from the tensors themselves)."""
+    from ..ops.op import make_op_fused
+    from ..ops.run_plan import first_leaf
+
+    engine, reason = select_op_engine(cc, semantics, opts)
+    _log.info("op engine: %s (%s)", engine, reason)
+    fn = make_op_fused(cc, opts, semantics=semantics)
+    return fn(params, init_state(cc, device=first_leaf(params).device))

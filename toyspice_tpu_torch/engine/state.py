@@ -1,6 +1,8 @@
 """Committed device state as a dict of f64 tensors (engine/state.py of the
-JAX package, ``init_state`` only, for the kinds the port runs: compat
-semantics commits state for C and L only, PLAN.md item 1)."""
+JAX package, ``init_state`` only).  Compat semantics commits state for C and
+L only (PLAN.md item 1): the D, Q and M leaves exist, are read where the
+reference reads them (the diode's and MOSFET's frozen previous charges) and
+go out of a run unchanged."""
 
 from typing import Dict
 
@@ -14,13 +16,20 @@ def init_state(cc, device="cuda") -> Dict:
         return torch.zeros(cc.kind_count(kind), dtype=torch.float64,
                            device=device)
 
+    def leaves(kind, keys):
+        return {key: z(kind) for key in keys}
+
     state: Dict = {}
     if "C" in cc.idx:
-        state["C"] = {"v0": z("C"), "v1": z("C"), "q0": z("C"), "q1": z("C"),
-                      "i0": z("C"), "hist": z("C")}
+        state["C"] = leaves("C", ("v0", "v1", "q0", "q1", "i0", "hist"))
     if "L" in cc.idx:
-        state["L"] = {
-            "i0": z("L"), "i1": z("L"), "v0": z("L"), "v1": z("L"),
-            "flux0": z("L"), "hist": z("L"),
-        }
+        state["L"] = leaves("L", ("i0", "i1", "v0", "v1", "flux0", "hist"))
+    if "D" in cc.idx:
+        state["D"] = leaves("D", ("prev_vd", "prev_id", "prev_charge", "ic0",
+                                  "hist"))
+    if "M" in cc.idx:
+        state["M"] = leaves("M", ("qgs", "qgd", "qgb", "qbs", "qbd", "icgs",
+                                  "icgd", "icgb", "icbs", "icbd", "hist"))
+    if "Q" in cc.idx:
+        state["Q"] = leaves("Q", ("qbe", "qbc"))
     return state

@@ -50,12 +50,13 @@ class TranOutput(NamedTuple):
     out_x: torch.Tensor  # (B, 1, np1): no waveform store in this engine
     out_t: torch.Tensor  # (B, 1)
     out_n: torch.Tensor  # (B,) int32, all 0
-    fail: torch.Tensor  # (B,) bool: hard fail at minstep, or t/dt non-finite
+    fail: torch.Tensor  # (B,) bool: a failed solve at minstep (hard fail)
     accepted: torch.Tensor  # (B,) int32 accepted steps
     attempts: torch.Tensor  # (B,) int32
-    nr_iters: torch.Tensor  # (B,) int32: one solve per attempt (linear decks)
+    nr_iters: torch.Tensor  # (B,) int32 Newton iterations (1 per attempt
+    #                         on a linear deck)
     t_final: torch.Tensor  # (B,) committed simulation time on exit
-    state: dict  # committed C/L state, leaves (B, nk)
-    jv: dict  # junction voltages: empty for linear decks
+    state: dict  # committed C/L state and the D/Q/M passthrough, (B, nk)
+    jv: dict  # junction voltages on exit, (B, nk); empty for linear decks
     store_overflow: torch.Tensor = None  # (B,) bool, all False
     dt_final: torch.Tensor = None  # (B,) adaptive step size on exit

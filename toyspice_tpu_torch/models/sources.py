@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..compiler import SRC_PULSE, SRC_PWL, SRC_SIN
+from ..utils.tensor import true_div
 
 TWO_PI = 2.0 * math.pi
 
@@ -25,11 +26,12 @@ def floor_mod(a, b):
     return torch.where(shift, r + b, r)
 
 
-def sin_value(p, t):
-    """SIN(dc ampl freq phase): dc + ampl*sin(2*pi*freq*t + phase*pi/180)."""
+def sin_value(p, t, dc):
+    """SIN(dc ampl freq phase): dc + ampl*sin(2*pi*freq*t + phase*pi/180),
+    with the offset ``dc`` given (eval_sources scales it)."""
     tq = t[:, None]
-    return p["dc"] + p["amplitude"] * torch.sin(
-        TWO_PI * p["freq"] * tq + p["phase"] * math.pi / 180.0)
+    return dc + p["amplitude"] * torch.sin(
+        TWO_PI * p["freq"] * tq + true_div(p["phase"] * math.pi, 180.0))
 
 
 def pulse_value(p, t):
@@ -77,23 +79,26 @@ def pwl_interp(times, values, t):
     return torch.where(tq <= times[..., 0], values[..., 0], val)
 
 
-def eval_sources(stype, p, t):
+def eval_sources(stype, p, t, dc_scale=1.0):
     """Value of every source of one kind at per-lane times t: (B, nS).
 
     ``stype`` is the deck's static type code per source (host numpy).  Each
     waveform present is computed for all sources at once and each source
-    takes its own type's column, so no device-side type mask is needed."""
+    takes its own type's column, so no device-side type mask is needed.
+    ``dc_scale`` is the OP's source stepping (op.go:113-169): it scales the
+    dcValue field, the level of a DC source and the offset of a SIN."""
     stype = [int(v) for v in np.asarray(stype).tolist()]
+    dc = p["dc"] * dc_scale
     branch = {}
     for s in set(stype):
         if s == SRC_SIN:
-            branch[s] = sin_value(p, t)
+            branch[s] = sin_value(p, t, dc)
         elif s == SRC_PULSE:
             branch[s] = pulse_value(p, t)
         elif s == SRC_PWL:
             branch[s] = pwl_interp(p["pwl_t"], p["pwl_v"], t)
         else:  # SRC_DC
-            branch[s] = p["dc"] + torch.zeros_like(t)[:, None]
+            branch[s] = dc + torch.zeros_like(t)[:, None]
     if len(branch) == 1:
         return branch[stype[0]]
     return torch.stack([branch[s][:, k] for k, s in enumerate(stype)], dim=1)

@@ -1,11 +1,14 @@
-"""Build ``csrc/run_kernel.cu`` with ``nvcc`` at first use and bind it with
-``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` at first use and bind them
+with ``ctypes``.
 
-One ``nvcc`` call compiles the source to a shared library with a plain C
-entry point (no PyTorch headers, so the build takes seconds).  The library
-goes to ``toyspice_tpu_torch/_build/``, named by a hash of the source and
-the flags, so an edited source builds anew and an unchanged one loads.  A
-missing ``nvcc`` or a failed build raises: there is no fallback.
+Each kernel source (``csrc/run_kernel.cu``, ``csrc/op_kernel.cu``; both
+include ``csrc/newton.cuh``) compiles with one ``nvcc`` call to a shared
+library with a plain C entry point (no PyTorch headers, so a build takes
+seconds); the calls for every missing library start together.  A library
+goes to ``toyspice_tpu_torch/_build/``, named by a hash of its source, the
+shared header and the flags, so an edited source builds anew and an
+unchanged one loads.  A missing ``nvcc`` or a failed build raises: there is
+no fallback.
 """
 
 import ctypes
@@ -16,14 +19,16 @@ import subprocess
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCE = PKG / "csrc" / "run_kernel.cu"
+CSRC = PKG / "csrc"
+SOURCES = {"run": CSRC / "run_kernel.cu", "op": CSRC / "op_kernel.cu"}
+HEADERS = (CSRC / "newton.cuh",)
 BUILD_DIR = PKG / "_build"
 # -fmad=false: every product and sum rounds on its own, as in the torch
-# plain version (ops/run.py), so the two agree to the last bit
+# plain versions (ops/run.py, ops/op.py), so the two agree to the last bit
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_lib = None
+_libs = {}
 
 
 def nvcc_path():
@@ -33,46 +38,80 @@ def nvcc_path():
     home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     if (home / "bin" / "nvcc").exists():
         return str(home / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the whole-run kernel is built from "
-                       f"{SOURCE} with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the kernels are built from "
+                       f"{CSRC} with the CUDA toolkit")
 
 
-def library_path():
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode())
-    return BUILD_DIR / f"librun_kernel-{h.hexdigest()[:16]}.so"
+def library_path(name="run"):
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes()
+                       + b"".join(p.read_bytes() for p in HEADERS)
+                       + " ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build():
-    """Compile the kernel if its library is missing; returns its path."""
-    out = library_path()
-    if out.exists():
+def build(names=tuple(SOURCES), extra_flags=()):
+    """Compile the named kernels whose libraries are missing, one ``nvcc``
+    process each, all at once; returns {name: library path} and, in
+    ``build.log``, each compile's output (``extra_flags`` such as
+    ``-Xptxas -v`` show there)."""
+    out = {name: library_path(name) for name in names}
+    todo = [name for name in names if not out[name].exists()]
+    build.log = {}
+    if not todo:
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    procs = {}
+    for name in todo:
+        tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *FLAGS, *extra_flags, "-o", str(tmp),
+               str(SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        build.log[name] = text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+        else:
+            os.replace(tmp, out[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-def load():
-    """The bound library (built at first use)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.tsr_run.argtypes = [i, p, i, p, p, p, p, p, p, p, p, i,
-                                d, d, d, d, i, p]
-        lib.tsr_run.restype = i
-        lib.tsr_error_string.argtypes = [i]
+build.log = {}
+
+_ARGTYPES = {
+    # tsr_run(np1, nonlinear, topo, topo_len, dev, rc, state, jv, t, dt,
+    #         acc, att, fail, nri, nlanes, tstop, minstep, tmax, trtol,
+    #         max_attempts, reltol, abstol, max_iter, stream)
+    "run": ("tsr_run", "iipi" + "p" * 10 + "iddddiddip"),
+    # tsr_op(np1, topo, topo_len, dev, dyn, x0, jv0, x, jv, iters, conv,
+    #        nlanes, reltol, abstol, max_iter, gmin_floor, stream)
+    "op": ("tsr_op", "ipi" + "p" * 8 + "iddidp"),
+}
+
+
+def load(name="run"):
+    """The bound library of one kernel (built at first use)."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build((name,))[name]))
+        fn_name, sig = _ARGTYPES[name]
+        kinds = {"i": ctypes.c_int, "p": ctypes.c_void_p,
+                 "d": ctypes.c_double}
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [kinds[c] for c in sig]
+        fn.restype = ctypes.c_int
+        lib.tsr_error_string.argtypes = [ctypes.c_int]
         lib.tsr_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def error_string(err):
-    return load().tsr_error_string(int(err)).decode()
+def error_string(err, name="run"):
+    return load(name).tsr_error_string(int(err)).decode()

@@ -1,19 +1,30 @@
-"""Host-side tables of the whole-run transient for linear compat decks.
+"""Host-side tables of the whole-run transient and the OP kernel for
+compat decks of R, C, L, V, I, D, Q and M.
 
 The counterpart of ``ops/pallas_tran.py``'s ``_build_plan``, ``_layout``,
-``_const_stack64``, ``_init_state_stack64``, ``_unpack_state_jv`` and
-``fused_ineligible_reason`` in the JAX package, for R/C/L/V/I decks.  The
-TPU kernel unrolls its stamp plan at trace time; here the plan is data, so
-one compiled kernel (``csrc/run_kernel.cu``) serves every eligible deck:
+``_const_stack64``, ``_init_state_stack64``, ``_jv_stack64``,
+``_unpack_state_jv`` and ``fused_ineligible_reason`` in the JAX package.
+The TPU kernels unroll their stamp plan at trace time; here the plan is
+data, so one compiled kernel (``csrc/run_kernel.cu``, ``csrc/op_kernel.cu``)
+serves every eligible deck:
 
 * ``entries``: int32 (row, col, tag, index, sign) stamps in the order the
   general engine scatters them (ops/assemble.py), so each cell sums its
   terms in the same order.  Column ``np1`` is the right-hand side; stamps
-  into the ground row 0 are dropped (that row is the identity).
+  into the ground row 0 are dropped (that row is the identity).  The
+  linear stamps come first; the nonlinear ones (tag ``TAG_NL``) read the
+  value slot ``index`` that the device evaluation of each Newton iteration
+  fills (``NL_SLOTS`` per device).  A sign of 0 is the general engine's
+  masked MOSFET charge current (value times 0.0).  The OP plan
+  (``mode="op"``) has no capacitor companion RHS and no MOSFET charge
+  stamps, as assemble.py's mode "op".
 * per-lane f64 rows, batch axis first: ``dev`` (B, nd) holds g = 1/R_t,
-  C_t, C, L; ``src`` (B, nrc) one record per source (``SRC_KEYS`` then the
-  P knot times and P knot values); ``state`` (B, ks) the committed C/L
-  rows.
+  C_t, C, L, then the ``D_ROWS``, ``Q_ROWS`` and ``M_ROWS`` of each
+  nonlinear device (row r of device k of a kind at its block offset + r·nk
+  + k); ``src`` (B, nrc) one record per source (``SRC_KEYS`` then the P
+  knot times and P knot values); ``state`` (B, ks) the committed C/L rows;
+  ``jv`` (B, kj) the junction voltages D vd | Q vbe | Q vbc | M vgs | M vds
+  | M vbs.
 * ``topo``: the int32 table the kernel copies to shared memory (a header
   of counts and offsets, then the entries, sources and device nodes).
 """
@@ -24,26 +35,55 @@ import numpy as np
 import torch
 
 from ..consts import TEMP_DEFAULT
+from ..engine.nlstate import limiter_constants
+from ..models import bjt, diode
 
-SLICE_KINDS = ("R", "C", "L", "V", "I")
+SLICE_KINDS = ("R", "C", "L", "V", "I", "D", "Q", "M")
+NL_KINDS = ("D", "Q", "M")
 
-# stamp tags, csrc/run_kernel.cu ``enum Tag``
+# stamp tags, csrc/newton.cuh ``enum Tag``
 (TAG_G, TAG_GEQ, TAG_LTERM, TAG_ONE, TAG_CEQ, TAG_LRHS, TAG_VSRC,
- TAG_ISRC) = range(8)
+ TAG_ISRC, TAG_NL) = range(9)
+
+# per-device value slots of one Newton iteration (csrc/newton.cuh)
+NL_SLOTS = {"D": 2, "Q": 12, "M": 21}
+
+# per-device dev rows of the nonlinear kinds, csrc/newton.cuh ``enum DRow``,
+# ``QRow``, ``MRow``: raw parameters, the values that depend only on the
+# parameters and the temperature, and the frozen compat state they read
+D_ROWS = ("n", "is_", "gmin", "tt", "prev_charge", "nvt", "is_t", "vte",
+          "vcrit")
+Q_ROWS = ("sign", "ies", "ics", "nf", "nr", "alphaf", "invnfvt", "invnrvt",
+          "invvaf", "invvar", "invikf", "invikr", "vbe0", "vbc0", "vtef",
+          "vcritf", "vter", "vcritr")
+M_PARAMS = ("sign", "vto", "gamma", "phi", "kp", "w", "l", "lam", "tox",
+            "uo", "ucrit", "uexp", "vmax", "theta", "kappa", "delta", "cgso",
+            "cgdo", "cgbo", "cbs", "cbd", "cj", "cjsw", "as", "ad", "ps",
+            "pd", "pb", "mj")
+M_CHARGES = ("qgs", "qgd", "qgb", "qbs", "qbd")
+M_ROWS = M_PARAMS + M_CHARGES
+NL_ROWS = {"D": D_ROWS, "Q": Q_ROWS, "M": M_ROWS}
 
 # the scalar leaves of one source record, in record order
 SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
             "fall", "width", "period")
 
-# topo header slots, csrc/run_kernel.cu ``enum Hdr``
+# topo header slots, csrc/newton.cuh ``enum Hdr``
 (H_NP1, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN, H_LN, H_KS,
- H_ND, H_NRC) = range(14)
-H_LEN = 16
+ H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN, H_NLIN, H_KJ, H_DOFF,
+ H_QOFF, H_MOFF) = range(25)
+H_LEN = 32
 
 
 def kind_counts(cc):
-    """(nR, nC, nL, nV, nI) of the slice's kinds."""
+    """(nR, nC, nL, nV, nI, nD, nQ, nM): the counts of the kinds the port
+    runs."""
     return tuple(cc.kind_count(k) if k in cc.idx else 0 for k in SLICE_KINDS)
+
+
+def nonlinear(cc):
+    """Whether the deck has a diode, BJT or MOSFET (a Newton per solve)."""
+    return any(k in cc.idx for k in NL_KINDS)
 
 
 def fused_ineligible_reason(cc, semantics: str, store: str, opts):
@@ -59,7 +99,7 @@ def fused_ineligible_reason(cc, semantics: str, store: str, opts):
     extra = set(cc.idx.keys()) - set(SLICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
-                "runs R, C, L, V and I)")
+                "runs R, C, L, V, I, D, Q and M)")
     return None
 
 
@@ -71,64 +111,137 @@ def state_layout(nc, nl):
             "ks": 4 * nc + 5 * nl}
 
 
-def build_plan(cc):
+def build_plan(cc, mode="tran"):
     """Stamp entries (E, 5) int32 in the general engine's scatter order:
-    kind by kind, pattern slot by slot, device by device."""
+    kind by kind, pattern slot by slot, device by device; and the count of
+    leading linear entries (the OP's linear initial estimate uses those)."""
+    assert mode in ("tran", "op")
+    tran = mode == "tran"
     ents = []
 
-    def add(rows, cols, tag, sign):
+    def add(rows, cols, tag, idx, sign):
         rows = np.asarray(rows).ravel()
         cols = np.asarray(cols).ravel()
-        for k, (r, c) in enumerate(zip(rows, cols)):
+        idx = np.broadcast_to(np.asarray(idx), rows.shape)
+        sign = np.broadcast_to(np.asarray(sign), rows.shape)
+        for r, c, k, s in zip(rows, cols, idx, sign):
             if r != 0:  # the ground row is the identity
-                ents.append((int(r), int(c), tag, k, sign))
+                ents.append((int(r), int(c), tag, int(k), int(s)))
+
+    def seq(n):
+        return np.arange(n)
 
     rhs = cc.np1
     if "R" in cc.idx:
         n = np.asarray(cc.idx["R"]["nodes"])
         for (a, b), s in (((0, 0), 1), ((0, 1), -1), ((1, 0), -1),
                           ((1, 1), 1)):
-            add(n[:, a], n[:, b], TAG_G, s)
+            add(n[:, a], n[:, b], TAG_G, seq(len(n)), s)
     if "C" in cc.idx:
         n = np.asarray(cc.idx["C"]["nodes"])
         for (a, b), s in (((0, 0), 1), ((0, 1), -1), ((1, 0), -1),
                           ((1, 1), 1)):
-            add(n[:, a], n[:, b], TAG_GEQ, s)
-        add(n[:, 0], np.full(len(n), rhs), TAG_CEQ, 1)
-        add(n[:, 1], np.full(len(n), rhs), TAG_CEQ, -1)
+            add(n[:, a], n[:, b], TAG_GEQ, seq(len(n)), s)
+        if tran:  # the OP stamps only the gmin leak
+            add(n[:, 0], np.full(len(n), rhs), TAG_CEQ, seq(len(n)), 1)
+            add(n[:, 1], np.full(len(n), rhs), TAG_CEQ, seq(len(n)), -1)
     if "L" in cc.idx:
         n = np.asarray(cc.idx["L"]["nodes"])
         br = np.asarray(cc.idx["L"]["branch"])
+        k = seq(len(br))
         # inductor sign convention n1 -> -1, n2 -> +1 (inductor.go:59-66)
-        add(n[:, 0], br, TAG_ONE, -1)
-        add(br, n[:, 0], TAG_ONE, -1)
-        add(n[:, 1], br, TAG_ONE, 1)
-        add(br, n[:, 1], TAG_ONE, 1)
-        add(br, br, TAG_LTERM, -1)
-        add(br, np.full(len(br), rhs), TAG_LRHS, 1)
+        add(n[:, 0], br, TAG_ONE, k, -1)
+        add(br, n[:, 0], TAG_ONE, k, -1)
+        add(n[:, 1], br, TAG_ONE, k, 1)
+        add(br, n[:, 1], TAG_ONE, k, 1)
+        add(br, br, TAG_LTERM, k, -1)
+        add(br, np.full(len(br), rhs), TAG_LRHS, k, 1)
     if "V" in cc.idx:
         n = np.asarray(cc.idx["V"]["nodes"])
         br = np.asarray(cc.idx["V"]["branch"])
+        k = seq(len(br))
         # voltage-source convention n1 -> +1 (vsource.go:140-147)
-        add(br, n[:, 0], TAG_ONE, 1)
-        add(n[:, 0], br, TAG_ONE, 1)
-        add(br, n[:, 1], TAG_ONE, -1)
-        add(n[:, 1], br, TAG_ONE, -1)
-        add(br, np.full(len(br), rhs), TAG_VSRC, 1)
+        add(br, n[:, 0], TAG_ONE, k, 1)
+        add(n[:, 0], br, TAG_ONE, k, 1)
+        add(br, n[:, 1], TAG_ONE, k, -1)
+        add(n[:, 1], br, TAG_ONE, k, -1)
+        add(br, np.full(len(br), rhs), TAG_VSRC, k, 1)
     if "I" in cc.idx:
         n = np.asarray(cc.idx["I"]["nodes"])
-        add(n[:, 0], np.full(len(n), rhs), TAG_ISRC, 1)
-        add(n[:, 1], np.full(len(n), rhs), TAG_ISRC, -1)
-    return np.asarray(ents, dtype=np.int32).reshape(-1, 5)
+        add(n[:, 0], np.full(len(n), rhs), TAG_ISRC, seq(len(n)), 1)
+        add(n[:, 1], np.full(len(n), rhs), TAG_ISRC, seq(len(n)), -1)
+    n_lin = len(ents)
+
+    base = 0
+    if "D" in cc.idx:  # diode.go:184-227: slot 0 gd, slot 1 id - gd·vd
+        n = np.asarray(cc.idx["D"]["nodes"])
+        nd = len(n)
+
+        def slot(s):
+            return base + s * nd + seq(nd)
+
+        for (a, b), s in (((0, 0), 1), ((0, 1), -1), ((1, 0), -1),
+                          ((1, 1), 1)):
+            add(n[:, a], n[:, b], TAG_NL, slot(0), s)
+        add(n[:, 0], np.full(nd, rhs), TAG_NL, slot(1), -1)
+        add(n[:, 1], np.full(nd, rhs), TAG_NL, slot(1), 1)
+        base += NL_SLOTS["D"] * nd
+    if "Q" in cc.idx:  # assemble.py's BJT block: 9 matrix, 3 RHS slots
+        n = np.asarray(cc.idx["Q"]["nodes"])
+        nq = len(n)
+        c, b_, e = n[:, 0], n[:, 1], n[:, 2]
+        for s, (r, col) in enumerate(((c, b_), (c, e), (c, c), (b_, b_),
+                                      (b_, e), (b_, c), (e, b_), (e, e),
+                                      (e, c))):
+            add(r, col, TAG_NL, base + s * nq + seq(nq), 1)
+        for s, r in enumerate((c, b_, e)):
+            add(r, np.full(nq, rhs), TAG_NL, base + (9 + s) * nq + seq(nq),
+                1)
+        base += NL_SLOTS["Q"] * nq
+    if "M" in cc.idx:  # mosfet.go:668-786 as assemble.py stamps it
+        n = np.asarray(cc.idx["M"]["nodes"])
+        nm = len(n)
+        d, g, s_, b_ = n[:, 0], n[:, 1], n[:, 2], n[:, 3]
+
+        def slot(k):
+            return base + k * nm + seq(nm)
+
+        for k, (r, col) in enumerate(((d, d), (d, g), (d, s_), (d, b_),
+                                      (s_, s_), (s_, d), (s_, g), (s_, b_))):
+            add(r, col, TAG_NL, slot(k), 1)
+        add(d, np.full(nm, rhs), TAG_NL, slot(8), 1)
+        add(s_, np.full(nm, rhs), TAG_NL, slot(8), -1)
+        if tran:
+            for k, (r, col) in ((9, (g, d)), (9, (d, g)), (10, (g, s_)),
+                                (10, (s_, g)), (11, (g, b_)), (11, (b_, g)),
+                                (12, (g, g)), (13, (b_, s_)), (13, (s_, b_)),
+                                (14, (b_, d)), (14, (d, b_)), (15, (b_, b_))):
+                add(r, col, TAG_NL, slot(k), 1)
+            # the charge currents, each masked by the OTHER terminal's
+            # ground check (mosfet.go:744-782): sign 0 where it is ground
+            def on(node):
+                return (node != 0).astype(np.int64)
+
+            col = np.full(nm, rhs)
+            for k, r, other, sgn in ((16, g, d, 1), (16, d, g, -1),
+                                     (17, g, s_, 1), (17, s_, g, -1),
+                                     (18, g, b_, 1), (18, b_, g, -1),
+                                     (19, b_, s_, 1), (19, s_, b_, -1),
+                                     (20, b_, d, 1), (20, d, b_, -1)):
+                add(r, col, TAG_NL, slot(k), sgn * on(other))
+        base += NL_SLOTS["M"] * nm
+    return np.asarray(ents, dtype=np.int32).reshape(-1, 5), n_lin
 
 
 @dataclass
 class RunPlan:
-    """Static tables of one deck (host numpy)."""
+    """Static tables of one deck (host numpy) for one stamp mode."""
 
     np1: int
-    counts: tuple  # (nR, nC, nL, nV, nI)
+    mode: str  # "tran" or "op" (build_plan)
+    counts: tuple  # (nR, nC, nL, nV, nI, nD, nQ, nM)
     entries: np.ndarray  # (E, 5) int32
+    n_lin: int  # the leading linear entries
     c_nodes: np.ndarray  # (nC, 2) int32
     l_nodes: np.ndarray  # (nL, 2) int32
     stype: dict  # kind -> (nS,) source type codes
@@ -136,6 +249,8 @@ class RunPlan:
     src_offset: dict  # kind -> (nS,) record offsets into the src rows
     nrc: int  # width of the src rows
     layout: dict  # state_layout
+    dev_offset: dict  # nonlinear kind -> offset of its block in dev rows
+    idx: dict  # D/Q/M "nodes" (and M "level") tables of the deck
     topo: np.ndarray  # int32 table for the kernel
 
     @property
@@ -148,10 +263,19 @@ class RunPlan:
         """Width of the state rows."""
         return int(self.topo[H_KS])
 
+    @property
+    def kj(self):
+        """Junction-voltage rows: nD + 2·nQ + 3·nM."""
+        return int(self.topo[H_KJ])
 
-def make_plan(cc) -> RunPlan:
-    nr, nc, nl, nv, ni = kind_counts(cc)
-    entries = build_plan(cc)
+    @property
+    def nonlinear(self):
+        return self.kj > 0
+
+
+def make_plan(cc, mode="tran") -> RunPlan:
+    nr, nc, nl, nv, ni, n_d, n_q, n_m = counts = kind_counts(cc)
+    entries, n_lin = build_plan(cc, mode)
     c_nodes = (np.asarray(cc.idx["C"]["nodes"], np.int32).reshape(-1, 2)
                if nc else np.zeros((0, 2), np.int32))
     l_nodes = (np.asarray(cc.idx["L"]["nodes"], np.int32).reshape(-1, 2)
@@ -172,27 +296,62 @@ def make_plan(cc) -> RunPlan:
         off += width * ns
     layout = state_layout(nc, nl)
 
+    # nonlinear device nodes: D (n1, n2), Q (c, b, e), M (d, g, s, b, level)
+    def nodes(kind, cols):
+        if kind not in cc.idx:
+            return np.zeros(0, np.int32)
+        return np.asarray(cc.idx[kind]["nodes"], np.int32)[:, :cols]
+
+    m_tab = np.zeros((0, 5), np.int32)
+    if n_m:
+        m_tab = np.concatenate(
+            [nodes("M", 4), np.asarray(cc.idx["M"]["level"],
+                                       np.int32)[:, None]], axis=1)
+    dev_offset = {}
+    row = nr + 2 * nc + nl
+    for kind, nk in (("D", n_d), ("Q", n_q), ("M", n_m)):
+        dev_offset[kind] = row
+        row += len(NL_ROWS[kind]) * nk
+
     hdr = np.zeros(H_LEN, np.int32)
     parts = [entries.ravel(), np.asarray(src_rows, np.int32).ravel(),
-             c_nodes.ravel(), l_nodes.ravel()]
+             c_nodes.ravel(), l_nodes.ravel(), nodes("D", 2).ravel(),
+             nodes("Q", 3).ravel(), m_tab.ravel()]
     pos = H_LEN
-    for slot, part in zip((H_ENT, H_SRC, H_CN, H_LN), parts):
-        hdr[slot] = pos
+    for key, part in zip((H_ENT, H_SRC, H_CN, H_LN, H_DN, H_QN, H_MN),
+                         parts):
+        hdr[key] = pos
         pos += part.size
     hdr[H_NP1] = cc.np1
     hdr[H_NE] = len(entries)
     hdr[H_NR], hdr[H_NC], hdr[H_NL], hdr[H_NV], hdr[H_NI] = nr, nc, nl, nv, ni
+    hdr[H_NDD], hdr[H_NQ], hdr[H_NM] = n_d, n_q, n_m
     hdr[H_KS] = max(layout["ks"], 1)  # stack widths: a dummy row when 0
-    hdr[H_ND] = max(nr + 2 * nc + nl, 1)
+    hdr[H_ND] = max(row, 1)
     hdr[H_NRC] = max(off, 1)
+    hdr[H_NLIN] = n_lin
+    hdr[H_KJ] = n_d + 2 * n_q + 3 * n_m
+    hdr[H_DOFF], hdr[H_QOFF], hdr[H_MOFF] = (dev_offset["D"], dev_offset["Q"],
+                                             dev_offset["M"])
     topo = np.concatenate([hdr] + parts).astype(np.int32)
-    return RunPlan(np1=cc.np1, counts=(nr, nc, nl, nv, ni), entries=entries,
-                   c_nodes=c_nodes, l_nodes=l_nodes, stype=stype,
-                   knots=knots, src_offset=src_offset, nrc=max(off, 1),
-                   layout=layout, topo=topo)
+    return RunPlan(np1=cc.np1, mode=mode, counts=counts, entries=entries,
+                   n_lin=n_lin, c_nodes=c_nodes, l_nodes=l_nodes,
+                   stype=stype, knots=knots, src_offset=src_offset,
+                   nrc=max(off, 1), layout=layout, dev_offset=dev_offset,
+                   idx={k: cc.idx[k] for k in NL_KINDS if k in cc.idx},
+                   topo=topo)
 
 
 # ------------------------------------------------------------ lane tables
+
+
+def first_leaf(tree):
+    """The first leaf of a {kind: {key: tensor}} tree (its device is the
+    run's)."""
+    for tbl in tree.values():
+        for leaf in tbl.values():
+            return leaf
+    raise ValueError("empty parameter tree")
 
 
 def infer_batch(params, state0):
@@ -218,9 +377,36 @@ def lanes(leaf, b):
     return leaf.expand(b, leaf.shape[1])
 
 
-def const_stack(plan, params, b, device, temp=TEMP_DEFAULT):
+def nl_row_values(kind, p, st, temp):
+    """The ``NL_ROWS`` of one nonlinear kind as a list of (nk,) or (B, nk)
+    tensors, computed by the same model functions the general engine
+    stamps with; ``st`` is the kind's committed state (None: zeros), whose
+    frozen charges the diode and MOSFET read."""
+    if kind == "D":
+        vte, vc = limiter_constants(p, "n", "is_")
+        vals = {"nvt": p["n"] * diode.thermal_voltage(temp),
+                "is_t": diode.temperature_adjusted_is(p, temp),
+                "vte": vte, "vcrit": vc}
+    elif kind == "Q":
+        vbe0, vbc0, _ = bjt.cold_start_bias(p, temp)
+        vtef, vcritf = limiter_constants(p, "nf", "ies")
+        vter, vcritr = limiter_constants(p, "nr", "ics")
+        vals = dict(bjt.inverses(p, temp), vbe0=vbe0, vbc0=vbc0, vtef=vtef,
+                    vcritf=vcritf, vter=vter, vcritr=vcritr)
+    else:
+        vals = {}
+    for key in NL_ROWS[kind]:
+        if key not in vals and key not in p:  # a frozen state leaf
+            vals[key] = (torch.zeros_like(p["sign" if kind == "M" else "n"])
+                         if st is None else st[key])
+    return [vals[key] if key in vals else p[key] for key in NL_ROWS[kind]]
+
+
+def const_stack(plan, params, b, device, temp=TEMP_DEFAULT, state0=None):
     """Per-lane device rows (b, nd): g = 1/R_t, C_t, C, L (the general
-    engine's stamp and commit values; _t = temperature adjusted)."""
+    engine's stamp and commit values; _t = temperature adjusted), then the
+    nonlinear devices' ``NL_ROWS``.  ``state0`` supplies the frozen compat
+    charges of D and M (zeros when it is None)."""
     nr, nc, nl = plan.counts[:3]
     dtemp = temp - TEMP_DEFAULT
 
@@ -236,9 +422,53 @@ def const_stack(plan, params, b, device, temp=TEMP_DEFAULT):
         rows.append(lanes(params["C"]["value"], b))
     if nl:
         rows.append(lanes(params["L"]["value"], b))
+    for kind in NL_KINDS:
+        if kind in params:
+            st = (state0 or {}).get(kind)
+            rows += [lanes(val, b) for val in
+                     nl_row_values(kind, params[kind], st, temp)]
     if not rows:
         return torch.zeros((b, 1), dtype=torch.float64, device=device)
     return torch.cat(rows, dim=1).contiguous()
+
+
+def nl_params(plan, dev, kind):
+    """One nonlinear kind's dev rows read back as (B, nk) leaves keyed by
+    ``NL_ROWS`` (the plain versions' device parameters)."""
+    nk = plan.counts[5 + NL_KINDS.index(kind)]
+    off = plan.dev_offset[kind]
+    return {key: dev[:, off + r * nk: off + (r + 1) * nk]
+            for r, key in enumerate(NL_ROWS[kind])}
+
+
+def jv_stack(plan, jv, b):
+    """Junction-voltage tree (leaves (nk,) or (B, nk), ``nlstate``'s form)
+    -> the (b, kj) rows D vd | Q vbe | Q vbc | M vgs | M vds | M vbs."""
+    keys = (("D", ("vd",)), ("Q", ("vbe", "vbc")),
+            ("M", ("vgs", "vds", "vbs")))
+    rows = [lanes(jv[kind][key], b) for kind, names in keys if kind in jv
+            for key in names]
+    return torch.cat(rows, dim=1).contiguous()
+
+
+def jv_tree(plan, jvs):
+    """(B, kj) rows -> the nlstate tree with (B, nk) leaves; the BJT's vce
+    is vbe - vbc, as update_jv keeps it."""
+    n_d, n_q, n_m = plan.counts[5:]
+    jv = {}
+    off = 0
+    if n_d:
+        jv["D"] = {"vd": jvs[:, :n_d]}
+        off = n_d
+    if n_q:
+        vbe = jvs[:, off:off + n_q]
+        vbc = jvs[:, off + n_q:off + 2 * n_q]
+        jv["Q"] = {"vbe": vbe, "vbc": vbc, "vce": vbe - vbc}
+        off += 2 * n_q
+    if n_m:
+        jv["M"] = {key: jvs[:, off + i * n_m:off + (i + 1) * n_m]
+                   for i, key in enumerate(("vgs", "vds", "vbs"))}
+    return jv
 
 
 def source_stack(plan, params, b, device):
@@ -296,7 +526,8 @@ def init_state_stack(plan, state0, b, device):
 def unpack_state(plan, st, state0, accepted, b):
     """Final state stack -> the state dict of the JAX package's
     ``_unpack_state_jv`` (compat): C/L rows from the stack, C.i0 passed
-    through, hist set on lanes that accepted a step."""
+    through, hist set on lanes that accepted a step, D/Q/M passed
+    through."""
     nc, nl = plan.counts[1:3]
     L = plan.layout
     started = (accepted > 0)[:, None]
@@ -319,4 +550,10 @@ def unpack_state(plan, st, state0, accepted, b):
             "flux0": grab("l_flux0", nl),
             "hist": torch.where(started, 1.0, lanes(state0["L"]["hist"], b)),
         }
+    # compat never commits D, Q or M state (PLAN.md 1): pass it through,
+    # broadcast to the batch
+    for kind in NL_KINDS:
+        if kind in state0:
+            state[kind] = {key: lanes(leaf, b).clone()
+                           for key, leaf in state0[kind].items()}
     return state
