@@ -8,8 +8,9 @@ neither JAX nor the JAX package.  Phases, each on its own line with its
 seconds:
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: the whole-run kernel and the OP kernel, one ``nvcc`` call each,
-   both started together (ops/_build.py).
+2. build: the whole-run kernel, the OP kernel, the stamped solve, the DC
+   sweep kernel and the AC kernel, one ``nvcc`` call each, all started
+   together (ops/_build.py).
 3. run kernel against its plain torch version on linear decks, on the
    card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -35,8 +36,25 @@ seconds:
 7. nonlinear main path: make_tran_batch on the half-wave rectifier, 8192
    lanes, the full 2 ms: engine "run", the OP kernel and the run kernel
    each launched, no lane failed, the lanes equal to phase 6's kernel run.
-8. the bounds and the ``kernels`` JSON line; the last line is the contract
+8. linear OP and linear DC sweep: run_op_batch on divider_op.cir and
+   run_dc_batch on the linear divider sweep, 8192 lanes, R spread 0.1, each
+   one launch of the stamped-solve kernel; then the stamped-solve kernel
+   against its plain version under the same entries (converged and stage
+   equal, x within rtol 1e-9), and torch.linalg.solve on the same systems.
+9. DC sweep: run_dc_batch on diode_iv_sweep.cir, 8192 lanes, Rsen and the
+   diode's Is spread 0.1, all 35 points in one launch of the DC sweep
+   kernel; then the kernel against its plain version (conv and iterations
+   equal per point, xs within rtol 1e-9).
+10. AC: run_ac_batch on ce_amplifier_ac.cir, 8192 lanes, R and C spread
+   0.1, 12 frequencies: the OP kernel's bias, then one launch of the AC
+   kernel for the 98,304 (instance, frequency) systems; then the AC kernel
+   against its plain version on the same G, B^ and RHS, and
+   torch.linalg.solve on the same systems.
+11. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
+
+Each main path (phases 4, 7, 8, 9, 10) runs with every kernel's launch
+count set to 0 just before and read just after.
 """
 
 import json
@@ -53,8 +71,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import toyspice_tpu_torch as ts  # noqa: E402
 from toyspice_tpu_torch.compiler import SRC_PULSE, SRC_PWL, SRC_SIN  # noqa: E402
+from toyspice_tpu_torch.engine.ac import make_ac_batch  # noqa: E402
+from toyspice_tpu_torch.engine.dc import make_dc  # noqa: E402
+from toyspice_tpu_torch.engine.op import make_op  # noqa: E402
 from toyspice_tpu_torch.engine.options import DEFAULTS  # noqa: E402
-from toyspice_tpu_torch.ops import _build, op, run, run_plan  # noqa: E402
+from toyspice_tpu_torch.ops import (_build, ac, dc, op, run,  # noqa: E402
+                                    run_plan, solve_stamped)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_LANES = 8192
@@ -153,6 +175,41 @@ D3 3 0 DM
 """
 
 
+# tests/test_analytic_ac_dc.py's linear sweep
+DIVIDER_DC = """divider sweep
+.dc Vin 0 10 0.5
+Vin in 0 DC 0
+R1 in mid 3k
+R2 mid 0 1k
+"""
+
+# every kernel wrapper's launch count
+COUNTERS = {"run_kernel": run.launch_run_kernel,
+            "op_kernel": op.launch_op_kernel,
+            "stamped_solve": solve_stamped.launch_stamped,
+            "dc_sweep_kernel": dc.launch_dc_kernel,
+            "ac_kernel": ac.launch_ac_kernel}
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def check_counts(what, got, want):
+    """Each kernel's launches within its (lo, hi) of ``want``; every kernel
+    not named there must have none."""
+    for name, n in got.items():
+        lo, hi = want.get(name, (0, 0))
+        if not lo <= n <= hi:
+            fail(f"{what}: {name} launched {n} times, expected "
+                 f"{lo}..{hi}")
+
+
 def deck_file(name):
     with open(os.path.join(ROOT, "circuits", name)) as f:
         return f.read()
@@ -208,7 +265,8 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry, frame = m.group(1), None
-            k = re.search(r"(run_kernel|op_kernel)ILi(\d+)E(?:Lb([01])E)?",
+            k = re.search(r"(run_kernel|op_kernel|stamped_kernel|"
+                          r"dc_sweep_kernel|ac_kernel)ILi(\d+)E(?:Lb([01])E)?",
                           entry)
             label = entry if k is None else (
                 f"{k.group(1)}<{k.group(2)}" + {None: "", "0": ", linear",
@@ -234,14 +292,26 @@ def ptxas_summary(log):
 
 
 # ------------------------------------------------------------- the bounds
-# f64 operations counted from the kernels' code, a transcendental as one
+# The fewest f64 operations the work needs, a transcendental as one: the
+# device evaluations and stamps as the kernels do them, each linear system
+# as a dense LU solve (fewer operations than the kernels' Gauss-Jordan).
 
 
-def gj_flops(n):
-    """Gauss-Jordan stage k needs only the n - k columns right of its
-    pivot: one division each in the pivot row, a multiply and a subtract
-    each in the n - 1 other rows."""
-    return sum((n - k) * (1 + 2 * (n - 1)) for k in range(n))
+def lu_flops(n):
+    """Gaussian elimination of an n x n real system with one right-hand
+    side: per pivot k one division and n - k multiply-subtracts in each of
+    the n - 1 - k rows below it, then back substitution (a multiply-subtract
+    per known unknown and one division per row)."""
+    fwd = sum((n - 1 - k) * (1 + 2 * (n - k)) for k in range(n))
+    return fwd + sum(2 * (n - 1 - i) + 1 for i in range(n))
+
+
+def complex_lu_flops(n):
+    """The same for an n x n complex system, in real operations: a complex
+    multiply-subtract is 8, a complex multiply 6 and each pivot's
+    reciprocal 5."""
+    fwd = sum((n - 1 - k) * (6 + 8 * (n - k)) for k in range(n))
+    return fwd + sum(8 * (n - 1 - i) + 6 for i in range(n)) + 5 * n
 
 
 def build_flops(plan, entries):
@@ -267,7 +337,7 @@ def step_flops(plan):
 
 def attempt_flops(plan):
     """A linear deck's attempt: step work plus one build and solve."""
-    return step_flops(plan) + build_flops(plan, plan.entries) + gj_flops(
+    return step_flops(plan) + build_flops(plan, plan.entries) + lu_flops(
         plan.np1)
 
 
@@ -283,8 +353,32 @@ def newton_flops(plan):
     dev = (n_d * (8 + 12 + (7 if tran else 0)) + n_q * (18 + 134)
            + sum(6 + 66 + (75 if lv in (2, 3) else 0) + (50 if tran else 0)
                  for lv in levels))
-    return (dev + build_flops(plan, plan.entries) + gj_flops(plan.np1)
+    return (dev + build_flops(plan, plan.entries) + lu_flops(plan.np1)
             + 6 * plan.np1 + (0 if tran else plan.np1 - 1))
+
+
+def stamped_flops(pat):
+    """One stamped solve: an add per term and per gmin diagonal, then the
+    elimination."""
+    return int(pat.table[0]) + pat.n - 1 + lu_flops(pat.n)
+
+
+def ac_flops(np1):
+    """One AC lane: the N^2 products omega·B^, then the N x N complex
+    system (G + j·omega·B^) x = r that the kernel's real 2N block system
+    [[G, -omega·B^], [omega·B^, G]] embeds."""
+    return np1 * np1 + complex_lu_flops(np1)
+
+
+def timed_call(fn, *args):
+    """(result, ms) of one call between CUDA events."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    r = fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    return r, e0.elapsed_time(e1)
 
 
 def bound(flops, nbytes):
@@ -332,11 +426,13 @@ def max_err(name, pairs):
 
 
 class TimedSolve:
-    """The OP launch function with CUDA events around every launch."""
+    """A launch function with CUDA events around every launch; ``args``
+    keeps each call's arguments."""
 
     def __init__(self, solve):
         self.solve = solve
         self.events = []
+        self.args = []
 
     def __call__(self, *args):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -345,11 +441,240 @@ class TimedSolve:
         r = self.solve(*args)
         e1.record()
         self.events.append((e0, e1))
+        self.args.append(args)
         return r
 
     def ms(self):
         torch.cuda.synchronize()
         return sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+
+
+def stamped_phases(lanes):
+    """Phase 8: the linear OP and the linear DC sweep through the stamped-solve
+    kernel, then the kernel against its plain version."""
+    def r_only(cc, b):
+        return perturbed(cc, np.random.default_rng(0), b, ("R",))
+
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(deck_file("divider_op.cir"), r_only,
+                                        lanes)
+    ts.run_op_batch(cc, params, axes)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    opr = ts.run_op_batch(cc, params, axes)
+    torch.cuda.synchronize()
+    op_wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("linear OP main path", got, {"stamped_solve": (1, 1)})
+    st_launches = got["stamped_solve"]
+    ra, rb = (params["R"]["value"][:, k] for k in (0, 1))
+    want = 12.0 * rb / (ra + rb)
+    if not (bool(opr.converged.all()) and bool((opr.stage == 0).all())
+            and bool(((opr.x[:, 2] - want).abs()
+                      <= 1e-12 * want.abs()).all())):
+        fail("linear OP: a lane did not converge at stage 0 or V(mid) is "
+             "not 12·Rb/(Ra + Rb)")
+    tk = TimedSolve(solve_stamped.solve_lanes)
+    tp_ = TimedSolve(solve_stamped.solve_plain)
+    k = make_op(cc, DEFAULTS, solve=tk)(params, state0)
+    p = make_op(cc, DEFAULTS, solve=tp_)(params, state0)
+    for key in ("converged", "stage"):
+        if not torch.equal(getattr(k, key), getattr(p, key)):
+            fail(f"linear OP: {key} differs from the plain version")
+    st_err = max_err("linear OP", [("x", k.x, p.x), ("x", opr.x, p.x)])
+    st_ms, st_pms = tk.ms(), tp_.ms()
+    systems = [tk.args[0]]
+    phase("8 linear OP", t0,
+          f"divider_op: {lanes} lanes, np1={cc.np1}, stamped-solve "
+          f"launches={st_launches}, converged {int(opr.converged.sum())} at "
+          f"stage 0, wall={op_wall:.6f} s; kernel vs plain equal, max abs "
+          f"err {st_err:.3e}; kernel {st_ms:.3f} ms, plain {st_pms:.1f} ms")
+
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(DIVIDER_DC, r_only, lanes)
+    d = cc.netlist.dc
+    pts = np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1))
+    ts.run_dc_batch(cc, (0,), params, axes, pts)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    xs, conv = ts.run_dc_batch(cc, (0,), params, axes, pts)
+    torch.cuda.synchronize()
+    ldc_wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("linear DC main path", got, {"stamped_solve": (1, 1)})
+    st_launches += got["stamped_solve"]
+    ra, rb = (params["R"]["value"][:, k] for k in (0, 1))
+    want = torch.as_tensor(pts, device=ra.device)[None] * (
+        rb / (ra + rb))[:, None]
+    if xs.shape != (lanes, len(pts), cc.np1) or not bool(
+            conv.all()) or not bool(((xs[..., 2] - want).abs()
+                                     <= 1e-12 * want.abs().amax()).all()):
+        fail("linear DC: wrong shape, a point not converged, or V(mid) is "
+             "not Vin·R2/(R1 + R2)")
+    tk = TimedSolve(solve_stamped.solve_lanes)
+    tp_ = TimedSolve(solve_stamped.solve_plain)
+    xk, ck = make_dc(cc, (0,), DEFAULTS, solve=tk)(params, state0, pts)
+    xp, cp = make_dc(cc, (0,), DEFAULTS, solve=tp_)(params, state0, pts)
+    if not torch.equal(ck, cp):
+        fail("linear DC: conv differs from the plain version")
+    ldc_err = max_err("linear DC", [("xs", xk.reshape(-1, cc.np1),
+                                     xp.reshape(-1, cc.np1)),
+                                    ("xs", xs.reshape(-1, cc.np1),
+                                     xp.reshape(-1, cc.np1))])
+    st_err = max(st_err, ldc_err)
+    dk_ms, dp_ms = tk.ms(), tp_.ms()
+    st_ms, st_pms = st_ms + dk_ms, st_pms + dp_ms
+    systems.append(tk.args[0])
+    lib_ms = 0.0
+    st_flops = st_bytes = 0
+    for pat, vals, rvals, gmin in systems:
+        m = solve_stamped.build_plain(pat, vals, rvals, gmin)
+        a_, b_ = m[:, :, :pat.n].contiguous(), m[:, :, pat.n:].contiguous()
+        torch.linalg.solve(a_, b_)  # warm-up
+        _, ms = timed_call(torch.linalg.solve, a_, b_)
+        lib_ms += ms
+        st_flops += vals.shape[0] * stamped_flops(pat)
+        st_bytes += nbytes(vals, rvals, gmin) + pat.table.nbytes \
+            + vals.shape[0] * pat.n * 8
+    stamped = dict(launches=st_launches, err=st_err, k_ms=st_ms,
+                   p_ms=st_pms, lib_ms=lib_ms, flops=st_flops,
+                   nbytes=st_bytes, systems=[v.shape[0] for _, v, _, _ in
+                                             systems])
+    phase("8 linear DC", t0,
+          f"divider sweep: {lanes} lanes x {len(pts)} points = "
+          f"{lanes * len(pts)} systems in one stamped-solve launch, "
+          f"all converged, wall={ldc_wall:.6f} s; kernel vs plain equal, "
+          f"max abs err {ldc_err:.3e}; kernel {dk_ms:.3f} ms, plain "
+          f"{dp_ms:.1f} ms; torch.linalg.solve on the OP's and the sweep's "
+          f"systems {lib_ms:.3f} ms")
+    return stamped
+
+
+def dc_phase(lanes):
+    """Phase 9: the DC sweep main path and the DC sweep kernel against its
+    plain version."""
+    def rsen_is(cc, b):
+        rng = np.random.default_rng(0)
+        ov = perturbed(cc, rng, b, ("R",))
+        is_ = np.asarray(cc.params["D"]["is_"])
+        ov["D"] = {"is_": is_[None] * np.exp(rng.normal(0.0, 0.1,
+                                                        (b, len(is_))))}
+        return ov
+
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(deck_file("diode_iv_sweep.cir"),
+                                        rsen_is, lanes)
+    d = cc.netlist.dc
+    pts = np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1))
+    if len(pts) != 35:
+        fail(f"diode_iv_sweep: {len(pts)} sweep points, expected 35")
+    slot = (cc.names["V"].index(d.source1),)
+    ts.run_dc_batch(cc, slot, params, axes, pts)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    xs, conv = ts.run_dc_batch(cc, slot, params, axes, pts)
+    torch.cuda.synchronize()
+    dc_wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("DC sweep main path", got, {"dc_sweep_kernel": (1, 1)})
+    dc_launches = got["dc_sweep_kernel"]
+    # the diode current I(Vb) = -x[branch] rises with the sweep
+    i_b = -xs[..., cc.np1 - 1]
+    if xs.shape != (lanes, 35, cc.np1) or not bool(conv.all()) or \
+            not bool(torch.isfinite(xs).all()) or not bool(
+                (i_b[:, 1:] > i_b[:, :-1]).all()):
+        fail("DC sweep: wrong shape, a point not converged or not finite, "
+             "or the diode current not rising")
+    tk = TimedSolve(dc.dc_lanes)
+    tp_ = TimedSolve(dc.dc_plain)
+    k = dc.make_dc_fused(cc, slot, DEFAULTS, solve=tk)(params, state0, pts)
+    p = dc.make_dc_fused(cc, slot, DEFAULTS, solve=tp_)(params, state0, pts)
+    for key in ("conv", "iters"):
+        if not torch.equal(getattr(k, key), getattr(p, key)):
+            fail(f"DC sweep: {key} differs from the plain version")
+    dc_err = max_err("DC sweep", [
+        ("xs", k.xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1)),
+        ("xs", xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1))])
+    dk_ms, dp_ms = tk.ms(), tp_.ms()
+    plan_dc, dev_, dyn_, vs_, _ = tk.args[0]
+    dc_iters = int(k.iters.sum())
+    dc_main = dict(launches=dc_launches, err=dc_err, k_ms=dk_ms, p_ms=dp_ms,
+                   plan=plan_dc, iters=dc_iters,
+                   nbytes=nbytes(dev_, dyn_, vs_, k.xs) + plan_dc.topo.nbytes
+                   + lanes * len(pts) * 8)
+    phase("9 DC sweep", t0,
+          f"diode_iv_sweep: {lanes} lanes x {len(pts)} points in one "
+          f"launch, np1={cc.np1}, all converged, Newton iterations "
+          f"{dc_iters} ({dc_iters / (lanes * len(pts)):.6f} per "
+          f"point), wall={dc_wall:.6f} s; kernel vs plain equal, max abs "
+          f"err {dc_err:.3e}; kernel {dk_ms:.3f} ms, plain {dp_ms:.1f} ms")
+    return dc_main
+
+
+def ac_phase(lanes):
+    """Phase 10: the AC main path and the AC kernel against its plain
+    version."""
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(deck_file("ce_amplifier_ac.cir"),
+                                        rc_spread, lanes)
+    a = cc.netlist.ac
+    freqs = ts.frequency_points(a.sweep, a.fstart, a.fstop, a.points)
+    ts.run_ac_batch(cc, params, axes, freqs)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs)
+    torch.cuda.synchronize()
+    ac_wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("AC main path", got, {"op_kernel": (1, 1 << 30),
+                                       "ac_kernel": (1, 1)})
+    ac_launches = got["ac_kernel"]
+    nf = len(freqs)
+    if xr.shape != (lanes, nf, cc.np1) or not bool(
+            opr.converged.all()) or not bool(
+                torch.isfinite(xr).all() & torch.isfinite(xi).all()):
+        fail("AC: wrong shape, a bias not converged, or a value not finite")
+    # the AC source's node is the source's phasor, 1 + 0j, at every lane
+    # and frequency
+    sig = cc.netlist.nodes["sig"]
+    if not (bool(((xr[..., sig] - 1.0).abs() <= 1e-12).all())
+            and bool((xi[..., sig].abs() <= 1e-12).all())):
+        fail("AC: V(sig) is not the source's 1 + 0j")
+    tk = TimedSolve(ac.launch_ac_kernel)
+    tp_ = TimedSolve(ac.ac_plain)
+    kr, ki, _ = make_ac_batch(cc, axes, DEFAULTS, ac_solve=tk)(
+        params, state0, freqs)
+    pr, pi_, _ = make_ac_batch(cc, axes, DEFAULTS, ac_solve=tp_)(
+        params, state0, freqs)
+    n2 = 2 * cc.np1
+    ac_err = max_err("AC", [
+        ("xr", kr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1)),
+        ("xi", ki.reshape(-1, cc.np1), pi_.reshape(-1, cc.np1)),
+        ("xr", xr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1))])
+    ak_ms, ap_ms = tk.ms(), tp_.ms()
+    g_, bh_, r_, om_ = tk.args[0]
+    m = ac.build_systems(g_, bh_, r_, om_)
+    a_, b_ = m[:, :, :n2].contiguous(), m[:, :, n2:].contiguous()
+    torch.linalg.solve(a_, b_)  # warm-up
+    _, ac_lib_ms = timed_call(torch.linalg.solve, a_, b_)
+    ac_main = dict(launches=ac_launches, err=ac_err, k_ms=ak_ms, p_ms=ap_ms,
+                   lib_ms=ac_lib_ms,
+                   flops=lanes * nf * ac_flops(cc.np1),
+                   nbytes=nbytes(g_, bh_, r_, om_)
+                   + lanes * nf * n2 * 8)
+    phase("10 AC", t0,
+          f"ce_amplifier_ac: {lanes} lanes x {nf} frequencies = "
+          f"{lanes * nf} systems of {n2}, OP kernel launches "
+          f"{got['op_kernel']} (stages "
+          f"{torch.bincount(opr.stage.long(), minlength=3).tolist()}), AC "
+          f"kernel launches {ac_launches}, wall={ac_wall:.6f} s; kernel vs "
+          f"plain max abs err {ac_err:.3e}; kernel {ak_ms:.3f} ms, plain "
+          f"{ap_ms:.1f} ms, torch.linalg.solve {ac_lib_ms:.3f} ms")
+    return ac_main
 
 
 def main():
@@ -464,22 +789,19 @@ def main():
     fn = ts.make_tran_batch(cc, cfg, axes, store="none")
     out = fn(params, state0)  # warm-up
     torch.cuda.synchronize()
-    run.launch_run_kernel.launches = 0
-    op.launch_op_kernel.launches = 0
+    reset_counts()
     w0 = time.perf_counter()
     out = fn(params, state0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
-    lin_launches = run.launch_run_kernel.launches
+    got = counts()
+    lin_launches = got["run_kernel"]
     accepted = int(out.accepted.sum())
     attempts = int(out.attempts.sum())
     failed = int(out.fail.sum())
     if fn.engine != "run":
         fail(f"main path engine {fn.engine!r}, expected 'run'")
-    if lin_launches != 1 or op.launch_op_kernel.launches != 0:
-        fail(f"linear main path launched the run kernel {lin_launches} "
-             f"times and the OP kernel {op.launch_op_kernel.launches} "
-             "times, expected 1 and 0")
+    check_counts("linear main path", got, {"run_kernel": (1, 1)})
     if failed:
         fail(f"{failed} of {BENCH_LANES} lanes failed")
     if out.accepted.shape != (BENCH_LANES,) or out.t_final.shape != (
@@ -607,23 +929,22 @@ def main():
     fn = ts.make_tran_batch(cc, cfg, axes, store="none")
     out = fn(params, state0)  # warm-up
     torch.cuda.synchronize()
-    run.launch_run_kernel.launches = 0
-    op.launch_op_kernel.launches = 0
+    reset_counts()
     w0 = time.perf_counter()
     out = fn(params, state0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
-    nl_launches = run.launch_run_kernel.launches
-    op_launches = op.launch_op_kernel.launches
+    got = counts()
+    nl_launches = got["run_kernel"]
+    op_launches = got["op_kernel"]
     accepted = int(out.accepted.sum())
     attempts = int(out.attempts.sum())
     nri = int(out.nr_iters.sum())
     failed = int(out.fail.sum())
     if fn.engine != "run":
         fail(f"nonlinear main path engine {fn.engine!r}, expected 'run'")
-    if nl_launches != 1 or op_launches < 1:
-        fail(f"nonlinear main path launched the run kernel {nl_launches} "
-             f"times and the OP kernel {op_launches} times")
+    check_counts("nonlinear main path", got,
+                 {"run_kernel": (1, 1), "op_kernel": (1, 1 << 30)})
     if failed or not bool((out.t_final == cfg.tstop).all()):
         fail(f"{failed} of {BENCH_LANES} lanes failed or stopped early")
     k = hwr["k"]
@@ -641,13 +962,17 @@ def main():
           f"{nri / attempts:.6f}, wall={wall:.6f} s, "
           f"{accepted / wall:.6e} accepted steps/s on {smi}")
 
-    # ------------------------------------------------- 8 the kernels line
+    stamped = stamped_phases(BENCH_LANES)
+    dc_main = dc_phase(BENCH_LANES)
+    ac_main = ac_phase(BENCH_LANES)
+
+    # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
     lin_bytes = nbytes(bench["dev"], bench["src"], bench["st"]) \
         + plan.topo.nbytes + nbytes(bench["st"]) \
         + BENCH_LANES * (8 + 8 + 4 + 4 + 4 + 4)
     lin_bound = bound(attempt_flops(plan) * bench["attempts"], lin_bytes)
-    print(f"[8 bound] run_kernel linear (bench_rlc): {attempt_flops(plan)} "
+    print(f"[11 bound] run_kernel linear (bench_rlc): {attempt_flops(plan)} "
           f"f64 operations per attempt x {bench['attempts']} attempts / "
           f"{PEAK_F64:.3g} op/s = {lin_bound[2]:.6f} ms; {lin_bytes} bytes / "
           f"{PEAK_BYTES:.3g} B/s = {lin_bound[3]:.6f} ms", flush=True)
@@ -655,28 +980,49 @@ def main():
     nl_flops = hwr["attempts"] * step_flops(hp) + hwr["nri"] * newton_flops(
         hp)
     nl_bound = bound(nl_flops, hwr["nbytes"])
-    print(f"[8 bound] run_kernel nonlinear (half_wave_rectifier): "
+    print(f"[11 bound] run_kernel nonlinear (half_wave_rectifier): "
           f"{hwr['attempts']} attempts x {step_flops(hp)} + {hwr['nri']} "
           f"Newton iterations x {newton_flops(hp)} f64 operations / "
           f"{PEAK_F64:.3g} op/s = {nl_bound[2]:.6f} ms; {hwr['nbytes']} "
           f"bytes / {PEAK_BYTES:.3g} B/s = {nl_bound[3]:.6f} ms", flush=True)
     opp = op_main["plan"]
     seed = BENCH_LANES * (build_flops(opp, opp.entries[:opp.n_lin])
-                          + gj_flops(opp.np1))
+                          + lu_flops(opp.np1))
     op_flops = op_main["iters"] * newton_flops(opp) + seed
     op_bound = bound(op_flops, op_main["nbytes"])
-    print(f"[8 bound] op_kernel (half_wave_rectifier bias): "
+    print(f"[11 bound] op_kernel (half_wave_rectifier bias): "
           f"{op_main['iters']} Newton iterations x {newton_flops(opp)} + "
           f"{BENCH_LANES} linear estimates, {op_flops} f64 operations / "
           f"{PEAK_F64:.3g} op/s = {op_bound[2]:.6f} ms; "
           f"{op_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
           f"{op_bound[3]:.6f} ms", flush=True)
 
-    def entry(name, source, replaces, launches, err, k_ms, p_ms, bd):
+    st_bound = bound(stamped["flops"], stamped["nbytes"])
+    print(f"[11 bound] stamped_solve (divider_op + divider sweep): "
+          f"{stamped['systems']} systems, {stamped['flops']} f64 operations "
+          f"/ {PEAK_F64:.3g} op/s = {st_bound[2]:.6f} ms; "
+          f"{stamped['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{st_bound[3]:.6f} ms", flush=True)
+    dp = dc_main["plan"]
+    dc_per_iter = newton_flops(dp) - (dp.np1 - 1)  # no gmin diagonal
+    dc_bound = bound(dc_main["iters"] * dc_per_iter, dc_main["nbytes"])
+    print(f"[11 bound] dc_sweep_kernel (diode_iv_sweep): "
+          f"{dc_main['iters']} Newton iterations x {dc_per_iter} f64 "
+          f"operations / {PEAK_F64:.3g} op/s = {dc_bound[2]:.6f} ms; "
+          f"{dc_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{dc_bound[3]:.6f} ms", flush=True)
+    ac_bound = bound(ac_main["flops"], ac_main["nbytes"])
+    print(f"[11 bound] ac_kernel (ce_amplifier_ac): {ac_main['flops']} f64 "
+          f"operations / {PEAK_F64:.3g} op/s = {ac_bound[2]:.6f} ms; "
+          f"{ac_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{ac_bound[3]:.6f} ms", flush=True)
+
+    def entry(name, source, replaces, launches, err, k_ms, p_ms, bd,
+              lib_ms=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None}
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib_ms}
 
     run_src = "toyspice_tpu_torch/csrc/run_kernel.cu"
     line = {"kernels": [
@@ -689,6 +1035,17 @@ def main():
         entry("op_kernel", "toyspice_tpu_torch/csrc/op_kernel.cu",
               "toyspice_tpu/ops/pallas_op.py:230", op_launches, op_err,
               op_main["k_ms"], op_main["p_ms"], op_bound),
+        entry("stamped_solve", "toyspice_tpu_torch/csrc/stamped_solve.cu",
+              "toyspice_tpu/ops/pallas_solve.py:337", stamped["launches"],
+              stamped["err"], stamped["k_ms"], stamped["p_ms"], st_bound,
+              stamped["lib_ms"]),
+        entry("dc_sweep_kernel", "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:431", dc_main["launches"],
+              dc_main["err"], dc_main["k_ms"], dc_main["p_ms"], dc_bound),
+        entry("ac_kernel", "toyspice_tpu_torch/csrc/ac_kernel.cu",
+              "toyspice_tpu/ops/pallas_ac.py:102", ac_main["launches"],
+              ac_main["err"], ac_main["k_ms"], ac_main["p_ms"], ac_bound,
+              ac_main["lib_ms"]),
     ]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (the whole-run transient and the OP) against their
-plain torch versions on the card.
+"""The CUDA kernels (the whole-run transient, the OP, the stamped solve,
+the DC sweep and the AC solve) against their plain torch versions on the
+card.
 
 Needs a CUDA card and nvcc; skips elsewhere.  On the card, without JAX:
 
@@ -12,7 +13,8 @@ import torch
 
 import toyspice_tpu_torch as ts
 from toyspice_tpu_torch.engine.options import DEFAULTS
-from toyspice_tpu_torch.ops import op, run, run_plan
+from toyspice_tpu_torch.engine.op import make_op
+from toyspice_tpu_torch.ops import ac, dc, op, run, run_plan, solve_stamped
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -263,3 +265,176 @@ def test_nonlinear_main_path_launches_both_kernels(cuda):
     assert op.launch_op_kernel.launches >= o0 + 1
     assert fn.engine == "run" and out.jv["D"]["vd"].is_cuda
     assert not out.fail.any()
+
+
+def _assert_close(k, p):
+    """Equal non-finite pattern; finite values within 1e-9 of the largest
+    finite |value| of the plain version."""
+    assert torch.equal(k.isnan(), p.isnan())
+    fin = p.isfinite()
+    assert torch.equal(k.isfinite(), fin)
+    if fin.any():
+        assert bool(((k - p).abs()[fin]
+                     <= 1e-9 * p.abs()[fin].amax()).all())
+
+
+DIVIDER = """Resistive divider bias check
+.op
+Vsrc in 0 DC 12
+Ra in mid 4.7k
+Rb mid 0 2.2k
+"""
+
+OPEN_NODE = """* current source into a resistor that may be open
+.op
+V1 1 0 DC 5
+R1 1 2 1k
+R2 2 0 2k
+L1 2 4 1m
+C1 4 0 1u
+I1 0 3 DC 1m
+R3 3 0 1k
+"""
+
+
+@pytest.mark.parametrize("n", [3, 12, 30])
+def test_stamped_kernel_matches_plain_on_random_patterns(cuda, n):
+    """Duplicate cells, RHS entries, entries into the ground row, and a
+    zero column on some lanes (a poisoned row); NMAX 8, 16 and 32."""
+    rng = np.random.default_rng(n)
+    nnz, nrhs, b = 6 * n, 2 * n, 96
+    rows = rng.integers(0, n, nnz)
+    cols = rng.integers(0, n, nnz)
+    rows[:n], cols[:n] = np.arange(n), np.arange(n)  # a diagonal
+    rrows = rng.integers(0, n, nrhs)
+    vals = torch.as_tensor(rng.normal(size=(b, nnz)), device=cuda)
+    vals[:8, :n] = 0.0
+    vals[:8, n:][:, (cols[n:] == 1)] = 0.0
+    vals[:8, :n][:, 1] = 0.0
+    rvals = torch.as_tensor(rng.normal(size=(b, nrhs)), device=cuda)
+    gmin = torch.as_tensor(np.where(np.arange(b) % 3 == 0, 0.0, 1e-3),
+                           device=cuda)
+    pat = solve_stamped.StampPattern(n, rows, cols, rrows)
+    before = solve_stamped.launch_stamped.launches
+    k = solve_stamped.launch_stamped(pat, vals, rvals, gmin)
+    torch.cuda.synchronize()
+    assert solve_stamped.launch_stamped.launches == before + 1
+    _assert_close(k, solve_stamped.solve_plain(pat, vals, rvals, gmin))
+
+
+def test_linear_op_through_the_stamped_kernel(cuda):
+    cc = ts.compile_circuit(ts.parse(OPEN_NODE))
+    r = np.asarray(cc.params["R"]["value"])
+    rv = np.repeat(r[None], 16, axis=0) * np.exp(
+        np.random.default_rng(3).normal(0, 0.1, (16, len(r))))
+    rv[::4, 2] = np.inf
+    params, _ = ts.batch_params(cc, {"R": {"value": rv}}, device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    before = solve_stamped.launch_stamped.launches
+    k = ts.run_op_batch(cc, params)
+    assert solve_stamped.launch_stamped.launches == before + 1
+    p = make_op(cc, solve=solve_stamped.solve_plain)(params, state0)
+    assert torch.equal(k.converged, p.converged)
+    assert torch.equal(k.stage, p.stage)
+    assert k.stage.tolist() == [2, 0, 0, 0] * 4
+    _assert_close(k.x, p.x)
+
+
+DIODE_IV = """Diode I-V curve via DC sweep
+.dc Vb 0.2 0.9 0.02
+Vb anode 0 DC 0.2
+Rsen anode d 10
+Dut d 0 DIV
+.model DIV D (Is=5e-15 N=1.1)
+"""
+
+MOS_DC = """* MOSFET gate sweep, levels 2 and 3 and a PMOS load
+.dc VG 0 4 0.25
+VDD 1 0 DC 5
+VG 2 0 DC 0
+Mp 3 2 1 1 PM2 L=2u W=20u
+Mn 3 2 0 0 NM3 L=2u W=10u
+RL 3 0 100k
+.model PM2 PMOS(Level=2 VTO=-0.8 KP=15u UCRIT=1e4 UEXP=0.1)
+.model NM3 NMOS(Level=3 VTO=0.7 KP=30u THETA=0.05 KAPPA=0.3)
+"""
+
+
+@pytest.mark.parametrize("deck,nested,batched_v", [
+    (DIODE_IV, False, False), (DIODE_IV, False, True),
+    (MOS_DC, True, False)], ids=["diode", "diode_batched_v", "mos_nested"])
+def test_dc_kernel_matches_plain(cuda, deck, nested, batched_v):
+    cc = ts.compile_circuit(ts.parse(deck))
+    ov = _rc_spread(cc, 64)
+    if batched_v:  # a per-lane table of source values
+        ov["V"] = {"dc": np.full((64, 1), 0.2)}
+    params, _ = ts.batch_params(cc, ov, device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    d = cc.netlist.dc
+    pts = np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1))
+    slots = (cc.names["V"].index(d.source1),)
+    if nested:
+        pts = np.array([(a, b) for a in (3.0, 5.0) for b in pts])
+        slots = (cc.names["V"].index("VDD"),) + slots
+    before = dc.launch_dc_kernel.launches
+    k = dc.make_dc_fused(cc, slots, DEFAULTS)(params, state0, pts)
+    torch.cuda.synchronize()
+    assert dc.launch_dc_kernel.launches == before + 1
+    p = dc.make_dc_fused(cc, slots, DEFAULTS, solve=dc.dc_plain)(
+        params, state0, pts)
+    assert torch.equal(k.conv, p.conv) and torch.equal(k.iters, p.iters)
+    _assert_close(k.xs, p.xs)
+    if not nested:
+        assert bool(k.conv.all())
+    else:  # the general engine converges on the first 20 of the 34 points
+        # of this sweep's first 4 lanes and no later one
+        # (test_torch_dc.py::test_level23_cmos_sweep[nested])
+        assert bool(k.conv[:4, :20].all()) and not bool(k.conv[:4, 20:].any())
+        assert abs(k.conv.double().mean().item() - 20 / 34) < 0.02
+
+
+@pytest.mark.parametrize("np1", [5, 12, 30])
+def test_ac_kernel_matches_plain(cuda, np1):
+    """N2MAX 16, 32 and 64; a zero B^ on one instance and a singular G on
+    another."""
+    rng = np.random.default_rng(np1)
+    b = 40
+    g = rng.normal(size=(b, np1, np1)) + 4 * np.eye(np1)
+    g[1] = 0.0
+    bh = rng.normal(size=(b, np1, np1)) * 1e-6
+    bh[2] = 0.0
+    r = rng.normal(size=(b, 2 * np1))
+    freqs = np.array([10.0, 1e3, 1e5, 1e7])
+    args = [torch.as_tensor(v, device=cuda) for v in (g, bh, r)]
+    before = ac.launch_ac_kernel.launches
+    k = ac.ac_solve_batch(*args, freqs)
+    torch.cuda.synchronize()
+    assert ac.launch_ac_kernel.launches == before + 1
+    _assert_close(k, ac.ac_solve_batch(*args, freqs, solve=ac.ac_plain))
+
+
+def test_ac_main_path_runs_the_op_and_ac_kernels(cuda):
+    deck = """Common-emitter amplifier frequency response
+.ac DEC 12 20 2meg
+Vcc vcc 0 DC 12
+Vsig sig 0 AC 1 0
+Rsrc sig base 600
+Rb1 vcc base 68k
+Rb2 base 0 12k
+Rc vcc col 3.3k
+Re emit 0 680
+Cb emit 0 47u
+Q1 col base emit QNPN
+.model QNPN NPN (Bf=180 Vaf=90 Cje=6p Cjc=3p Tf=0.4n)
+"""
+    cc = ts.compile_circuit(ts.parse(deck))
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 32), device=cuda)
+    a = cc.netlist.ac
+    freqs = ts.frequency_points(a.sweep, a.fstart, a.fstop, a.points)
+    o0, a0 = op.launch_op_kernel.launches, ac.launch_ac_kernel.launches
+    xr, xi, opr = ts.run_ac_batch(cc, params, None, freqs)
+    assert op.launch_op_kernel.launches >= o0 + 1
+    assert ac.launch_ac_kernel.launches == a0 + 1
+    assert xr.shape == (32, 12, cc.np1) and bool(opr.converged.all())
+    assert bool(torch.isfinite(xr).all() and torch.isfinite(xi).all())
+

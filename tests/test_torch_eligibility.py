@@ -2,6 +2,7 @@
 with the reason; there is no other engine to fall back on yet."""
 
 import os
+import re
 
 import pytest
 
@@ -137,3 +138,80 @@ def test_nonlinear_transient_builds_its_op():
     tp = lin.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
     assert run.make_tran_run(lin, cfg).op is None
+
+
+def _ac(text):
+    """The deck with an AC card in place of its analysis card."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.lower().startswith((".tran", ".op", ".dc", ".ac"))]
+    return "\n".join(lines[:1] + [".ac DEC 5 10 100k"] + lines[1:]) + "\n"
+
+
+@pytest.mark.parametrize("text,kw,reason", [
+    (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
+    (_deck("saturating_transformer.cir"), {}, "device kinds ['K', 'LM']"),
+    (_deck("ce_amplifier_ac.cir"), {"semantics": "physics"},
+     "semantics='physics'"),
+    (_ac(_ladder(30)), {}, "np1=33 exceeds the AC kernel's matrix cap of 32"),
+    (_ac(_diodes(17)), {}, "cap of 16"),
+], ids=["mutual", "magnetic", "physics", "np1_cap", "device_cap"])
+def test_ac_ineligible_raises_with_reason(text, kw, reason):
+    from toyspice_tpu_torch.engine.ac import make_ac_batch
+    from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
+
+    cc = ts.compile_circuit(ts.parse(text))
+    assert reason in ac_ineligible_reason(cc, **kw)
+    with pytest.raises(NotImplementedError, match="no AC engine") as e:
+        make_ac_batch(cc, None, **kw)
+    assert reason in str(e.value)
+    with pytest.raises(NotImplementedError, match="no AC engine"):
+        ts.run_ac_batch(cc, ts.batch_params(cc, {}, device="cpu")[0], None,
+                        [1e3], **kw)
+
+
+def test_ac_np1_cap_boundary():
+    from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
+
+    ok = ts.compile_circuit(ts.parse(_ac(_ladder(29))))
+    assert ok.np1 == 32 and ac_ineligible_reason(ok) is None
+
+
+@pytest.mark.parametrize("text,kw,reason", [
+    (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
+    (_deck("saturating_transformer.cir"), {}, "device kinds"),
+    (_deck("diode_iv_sweep.cir"), {"semantics": "physics"},
+     "semantics='physics'"),
+    (_deck("divider_op.cir"), {"semantics": "physics"},
+     "semantics='physics'"),
+    (_diodes(17), {}, "cap of 16"),
+    (_ladder(30), {}, "np1=33 exceeds the stamped-solve kernel's matrix "
+     "cap of 32"),
+], ids=["mutual", "magnetic", "physics", "physics_linear", "device_cap",
+        "np1_cap"])
+def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
+    cc = ts.compile_circuit(ts.parse(text))
+    params = ts.batch_params(cc, {}, device="cpu")[0]
+    with pytest.raises(NotImplementedError, match="no OP engine") as e:
+        ts.run_dc_batch(cc, (0,), params, None, [0.0, 1.0], **kw)
+    assert reason in str(e.value)
+    with pytest.raises(NotImplementedError, match=re.escape(reason)):
+        ts.run_op_batch(cc, params, **kw)
+
+
+def test_linear_decks_select_the_linear_engines():
+    from toyspice_tpu_torch.engine.batch import select_op_engine
+    from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
+    from toyspice_tpu_torch.ops.op import op_fused_ineligible_reason
+
+    for name in ("divider_op.cir", "rc_lowpass_tran.cir", "rl_tran.cir",
+                 "rlc_ringdown.cir", "current_sin.cir"):
+        cc = ts.compile_circuit(ts.parse(_deck(name)))
+        assert select_op_engine(cc)[0] == "linear", name
+        assert ac_ineligible_reason(cc) is None, name
+        assert "linear circuit" in op_fused_ineligible_reason(cc), name
+    for name in ("diode_iv_sweep.cir", "ce_amplifier_ac.cir",
+                 "half_wave_rectifier.cir", "nmos_inverter_tran.cir"):
+        cc = ts.compile_circuit(ts.parse(_deck(name)))
+        assert select_op_engine(cc)[0] == "fused", name
+        assert ac_ineligible_reason(cc) is None, name
+        assert op_fused_ineligible_reason(cc) is None, name

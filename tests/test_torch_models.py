@@ -1,7 +1,9 @@
 """The port's device models (toyspice_tpu_torch/models) against the JAX
 package's, function by function, on random batches of 256 made with numpy
-from a seed: the limiter, the diode, the BJT (NPN and PNP) and the MOSFET
-(NMOS and PMOS, levels 1-3, every region).  Both sides are f64; they may
+from a seed: the limiter, the diode, the BJT (NPN and PNP), the MOSFET
+(NMOS and PMOS, levels 1-3, every region), and the AC pieces: the sources'
+phasors, the diode's junction capacitance and the BJT's junction
+capacitances.  Both sides are f64; they may
 differ only where XLA and PyTorch round differently (XLA's CPU code may
 contract a product into a sum, and its exp/log/pow are its own), so the
 bar is rtol 1e-12.  The one exception is stated where it is checked: the
@@ -19,8 +21,9 @@ from toyspice_tpu.models import bjt as jbjt
 from toyspice_tpu.models import diode as jdiode
 from toyspice_tpu.models import limiter as jlim
 from toyspice_tpu.models import mosfet as jmos
+from toyspice_tpu.models import sources as jsources
 
-from toyspice_tpu_torch.models import bjt, diode, limiter, mosfet
+from toyspice_tpu_torch.models import bjt, diode, limiter, mosfet, sources
 
 N = 256
 RTOL = 1e-12
@@ -253,3 +256,55 @@ R3 5 0 1k
         for k in want:
             for kk in want[k]:
                 close(got[k][kk][lane], want[k][kk], f"{k}.{kk}")
+
+
+def test_source_phasors():
+    rng = np.random.default_rng(21)
+    p = {"ac_mag": np.where(rng.uniform(size=N) < 0.2, 0.0,
+                            rng.uniform(-2.0, 5.0, N)),
+         "ac_phase": rng.uniform(-400.0, 400.0, N)}
+    p["ac_phase"][::7] = 0.0
+    p["ac_phase"][3::11] = 90.0
+    pt, pj = both(p)
+    for g, w, what in zip(sources.eval_sources_ac(pt),
+                          jsources.eval_sources_ac(pj), ("re", "im")):
+        close(g, w, what)
+    # batched (B, nS) leaves as the AC assembly passes them
+    pb = {k: v.reshape(16, 16) for k, v in pt.items()}
+    re_, im_ = sources.eval_sources_ac(pb)
+    assert re_.shape == (16, 16)
+    close(re_.reshape(-1), jsources.eval_sources_ac(pj)[0], "re batched")
+
+
+def test_diode_junction_cap():
+    rng = np.random.default_rng(22)
+    p = {"cj0": np.where(rng.uniform(size=N) < 0.2, 0.0,
+                         10.0 ** rng.uniform(-13, -10, N)),
+         "vj": rng.uniform(0.5, 1.0, N), "m": rng.uniform(0.2, 0.6, N)}
+    vd = rng.uniform(-20.0, 1.0, N)
+    vd[::9] = 0.0
+    pt, pj = both(p)
+    close(diode.junction_cap(pt, torch.as_tensor(vd)),
+          jdiode.junction_cap(pj, jnp.asarray(vd)), "cj")
+
+
+@pytest.mark.parametrize("sign", (1.0, -1.0), ids=("npn", "pnp"))
+def test_bjt_junction_caps(sign):
+    rng = np.random.default_rng(23 if sign > 0 else 24)
+    p = {"cje": 10.0 ** rng.uniform(-13, -10, N),
+         "vje": rng.uniform(0.5, 0.9, N), "mje": rng.uniform(0.2, 0.5, N),
+         "cjc": 10.0 ** rng.uniform(-13, -10, N),
+         "vjc": rng.uniform(0.5, 0.9, N), "mjc": rng.uniform(0.2, 0.5, N),
+         "tf": np.where(rng.uniform(size=N) < 0.2, 0.0,
+                        10.0 ** rng.uniform(-11, -8, N)),
+         "sign": np.full(N, sign)}
+    vbe = rng.uniform(-5.0, 1.2, N)  # both sides of vje
+    vbc = rng.uniform(-15.0, 1.2, N)
+    gm = sign * 10.0 ** rng.uniform(-6, -1, N)
+    pt, pj = both(p)
+    got = bjt.junction_caps(pt, *(torch.as_tensor(a) for a in (vbe, vbc,
+                                                               gm)))
+    want = jbjt.junction_caps(pj, *(jnp.asarray(a) for a in (vbe, vbc,
+                                                             gm)))
+    for g, w, what in zip(got, want, ("cbe", "cbc")):
+        close(g, w, what)

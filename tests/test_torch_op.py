@@ -170,8 +170,13 @@ def test_constants_match_the_reference():
 def test_engine_selection_and_reasons():
     cc = ts.compile_circuit(ts.parse(_deck("ce_amplifier_op.cir")))
     assert select_op_engine(cc) == ("fused", "OP kernel eligible (compat)")
+    # a linear deck takes the stamped solve (tests/test_torch_op_linear.py)
+    lin = ts.compile_circuit(ts.parse(_deck("divider_op.cir")))
+    assert select_op_engine(lin)[0] == "linear"
+    assert "linear circuit" in op.op_fused_ineligible_reason(lin)
     for text, kw, reason in (
-            (_deck("divider_op.cir"), {}, "linear circuit"),
+            (_deck("divider_op.cir"), {"semantics": "physics"},
+             "semantics='physics'"),
             (_deck("ce_amplifier_op.cir"), {"semantics": "physics"},
              "semantics='physics'"),
             (_deck("saturating_transformer.cir"), {}, "device kinds")):

@@ -134,3 +134,55 @@ def test_the_op_junctions_warm_start_the_run():
     # compat commits no BJT state: it leaves the run as it came in
     assert torch.equal(out.state["Q"]["qbe"],
                        torch.zeros((1, 1), dtype=torch.float64))
+
+
+# a level-3 NMOS inverter driving a level-2 PMOS inverter: both engines run
+# it to tstop (a CMOS pair of these levels hard-fails on both at its first
+# edge)
+MOS23_TRAN = """* two stages: a level-3 NMOS inverter driving a level-2 PMOS inverter
+.tran 1u 0.2m
+Vdd vdd 0 DC 5
+Vg gate 0 PULSE(0 5 20u 2u 2u 60u 120u)
+Rpull vdd d1 10k
+Mn d1 gate 0 0 NM3 L=2u W=20u
+C1 d1 0 10p
+Mp d2 d1 vdd vdd PM2 L=2u W=40u
+Rload d2 0 20k
+C2 d2 0 10p
+.model NM3 NMOS(Level=3 VTO=0.7 KP=300u THETA=0.05 KAPPA=0.3)
+.model PM2 PMOS(Level=2 VTO=-0.8 KP=150u UCRIT=1e4 UEXP=0.1)
+"""
+
+# The bar this deck meets, below the one above: the level-2/3 conductances
+# are differences of two currents 1e-6 V apart, so an ulp between XLA's and
+# PyTorch's rounding of a current is ~1e-9 of gm, gds and gmbs
+# (tests/test_torch_models.py); over 206 steps that moves a Newton
+# convergence test by one iteration on some lanes and the state by ~1e-8.
+MOS23_RTOL = 5e-8
+
+
+def test_level23_mosfet_transient_runs_to_tstop():
+    cc = jax_compile(jax_parse(MOS23_TRAN))
+    rng = np.random.default_rng(13)
+    ov = {k: {"value": lognormal(rng, cc.params[k]["value"], 4)}
+          for k in ("R", "C")}
+    cfg, _, params_np, ref = reference(MOS23_TRAN, ov)
+    out = port_batch(MOS23_TRAN, cfg, params_np)
+    for key in ("accepted", "attempts", "fail"):
+        np.testing.assert_array_equal(getattr(out, key).numpy(),
+                                      np.asarray(getattr(ref, key)))
+    assert not out.fail.any()
+    np.testing.assert_array_equal(out.t_final.numpy(),
+                                  np.asarray(ref.t_final))
+    assert bool((out.t_final == cfg.tstop).all())
+    d = np.abs(out.nr_iters.numpy() - np.asarray(ref.nr_iters))
+    assert d.max() <= 1, d
+    for tree, rtree in ((out.state, ref.state), (out.jv, ref.jv)):
+        for kind in rtree:
+            for key in rtree[kind]:
+                a = np.asarray(rtree[kind][key])
+                f = tree[kind][key].numpy()
+                scale = max(1e-300, float(np.max(np.abs(a))))
+                np.testing.assert_allclose(f, a, rtol=MOS23_RTOL,
+                                           atol=MOS23_RTOL * scale,
+                                           err_msg=f"{kind}.{key}")

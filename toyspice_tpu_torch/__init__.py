@@ -6,12 +6,15 @@ copies), parameters and state as dicts of f64 tensors with the batch axis
 first, and hand-written CUDA kernels in ``csrc/`` in place of the Pallas
 kernels.  The port imports neither JAX nor the JAX package.
 
-Ported so far, compat semantics: the Monte-Carlo transient of decks of R,
-C, L, V and I (DC, SIN, PULSE and PWL sources), diodes, BJTs and MOSFETs
-with ``store='none'``, through one whole-run kernel (a nonlinear deck first
-takes its operating point through the OP kernel); and the batched
-operating point of nonlinear decks (``run_op_batch``), through the OP
-kernel and the rescue ladders.  Entry points run on ``cuda`` unless given
+Ported so far, compat semantics, for decks of R, C, L, V and I (DC, SIN,
+PULSE and PWL sources), diodes, BJTs and MOSFETs: the Monte-Carlo
+transient with ``store='none'``, through one whole-run kernel (a nonlinear
+deck first takes its operating point through the OP kernel); the batched
+operating point (``run_op_batch``), through the OP kernel and the rescue
+ladders, or on a linear deck the stamped-solve kernel under the same
+ladders; the DC sweep (``run_dc_batch``), through the DC sweep kernel or
+the stamped solve; and AC (``run_ac_batch``), that operating point and
+then the AC kernel.  Entry points run on ``cuda`` unless given
 ``device="cpu"``; on the CPU the kernels' plain torch versions run instead.
 
     cc = compile_circuit(parse(deck))
@@ -19,11 +22,15 @@ kernel and the rescue ladders.  Entry points run on ``cuda`` unless given
     fn = make_tran_batch(cc, cfg, axes, store="none")
     out = fn(params, init_state(cc))
     op = run_op_batch(cc, params, axes)
+    xs, conv = run_dc_batch(cc, (0,), params, axes, points)
+    xr, xi, opr = run_ac_batch(cc, params, axes, freqs)
 """
 
 from .compiler import CompiledCircuit, compile_circuit  # noqa: F401
+from .engine.ac import frequency_points  # noqa: F401
 from .engine.batch import (batch_params, make_tran_batch,  # noqa: F401
-                           run_op_batch)
+                           run_ac_batch, run_dc_batch, run_op_batch)
+from .engine.dc import sweep_values  # noqa: F401
 from .engine.options import DEFAULTS, SimOptions  # noqa: F401
 from .engine.state import init_state  # noqa: F401
 from .engine.tran import TranConfig, TranOutput, build_config  # noqa: F401

@@ -1,5 +1,7 @@
 // The in-kernel Newton shared by csrc/run_kernel.cu (each transient
-// attempt) and csrc/op_kernel.cu (each OP solve): one thread per lane, f64.
+// attempt), csrc/op_kernel.cu (each OP solve) and csrc/dc_sweep_kernel.cu
+// (each sweep point), and the Gauss-Jordan that csrc/stamped_solve.cu and
+// csrc/ac_kernel.cu use too: one thread per lane, f64.
 //
 // The CUDA counterpart of toyspice_tpu/ops/pallas_tran.py's
 // _newton_in_kernel and _device_eval_lib (compat branches), and of the
@@ -10,9 +12,9 @@
 //
 // One Newton iteration of a lane:
 //   1. junction voltages: the carried ones at iteration 0 of a transient
-//      attempt (warm start, tran.go:174), else UpdateVoltages of the last
-//      solution with pnjlim on the diode and BJT junctions
-//      (engine/nlstate.py);
+//      attempt or a DC sweep point (warm start, tran.go:174, dc.go:155),
+//      else UpdateVoltages of the last solution with pnjlim on the diode
+//      and BJT junctions (engine/nlstate.py);
 //   2. device evaluation into value slots (ops/run_plan.py NL_SLOTS per
 //      device): the compat diode with its transit-time companion, the
 //      Ebers-Moll BJT with its exact Jacobian after the cold-start guess,
@@ -23,7 +25,8 @@
 //   4. Gauss-Jordan with partial pivoting (largest |pivot| among unused
 //      rows, lowest row on a tie; a zero pivot poisons the row);
 //   5. convergence from iteration 1 on: every |new - old| <=
-//      reltol*max(|new|, |old|) + abstol, and the solution finite.
+//      reltol*max(|new|, |old|) + abstol (a DC sweep point: every |new -
+//      old| <= abstol or <= reltol*|new|), and the solution finite.
 // The loop ends on convergence or at max_iter, the lane's own count.
 //
 // Not a copy of the TPU code: that one carries double-float (hi, lo) f32
@@ -514,34 +517,44 @@ __device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
   return finite;
 }
 
-// The Newton loop of one lane (engine/newton.py).  x holds x0 on entry
-// and the last solution on exit; jv holds the carried junction voltages
-// on entry and those of the last iteration on exit.  TRAN: the transient
-// flavour (iteration 0 stamps the carried jv, companions of step dte, no
-// gmin diagonal); else the OP flavour (jv from x at every iteration,
-// status gmin on the diagonals).  Returns the iteration count; *conv is
-// whether it converged.
-template <int NMAX, bool TRAN, class Lin>
+// The Newton flavours of engine/newton.py: the OP (jv from x at every
+// iteration, status gmin on the MOSFET and the non-ground diagonals), the
+// transient (iteration 0 stamps the carried jv, companions of step dte, no
+// gmin diagonal) and the DC sweep (the transient's warm start without its
+// companions, status gmin 0, no gmin diagonal, and CheckConvergence:
+// every |new - old| <= abstol or <= reltol*|new|, dc.go:142-187).
+enum Flavour { FL_OP = 0, FL_TRAN = 1, FL_DC = 2 };
+
+// The Newton loop of one lane (engine/newton.py) in flavour FL.  x holds
+// x0 on entry and the last solution on exit; jv holds the carried junction
+// voltages on entry and those of the last iteration on exit.  Returns the
+// iteration count; *conv is whether it converged.
+template <int NMAX, int FL, class Lin>
 __device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
                       double (*m)[NMAX + 1], double* x, double* jv,
                       double* nv, double dte, double gmin, int max_iter,
                       double reltol, double abstol, bool* conv) {
+  constexpr bool TRAN = FL == FL_TRAN;
+  constexpr bool OP = FL == FL_OP;
   const int n = c.n;
   double xn[NMAX];
   int k = 0;
   bool ok = false;
   while (!ok && k < max_iter) {
-    if (!TRAN || k > 0) limit_jv(c, x, jv);
-    device_values<TRAN>(c, jv, dte, TRAN ? 0.0 : gmin, nv);
+    if (OP || k > 0) limit_jv(c, x, jv);
+    device_values<TRAN>(c, jv, dte, OP ? gmin : 0.0, nv);
     build<NMAX, true>(m, n, ent, ne, lin, nv);
-    if (!TRAN)
+    if (OP)
       for (int r = 1; r < n; ++r) m[r][r] = m[r][r] + gmin;
     const bool finite = gauss_jordan<NMAX>(m, n, xn);
     bool all = true;
     for (int r = 0; r < n; ++r) {
       const double d = fabs(xn[r] - x[r]);
-      all = all &&
-            d <= reltol * max_nan(fabs(xn[r]), fabs(x[r])) + abstol;
+      if (FL == FL_DC)
+        all = all && (d <= abstol || d <= reltol * fabs(xn[r]));
+      else
+        all = all &&
+              d <= reltol * max_nan(fabs(xn[r]), fabs(x[r])) + abstol;
       x[r] = xn[r];
     }
     ok = k > 0 && all && finite;

@@ -97,7 +97,7 @@ op_kernel(const int* __restrict__ topo_g, int topo_len,
   int iters = 0;
   bool conv = false;
   if (act)
-    iters = newton<NMAX, false>(deck, ent, ne,
+    iters = newton<NMAX, FL_OP>(deck, ent, ne,
                                 lin_for(max_nan(gmin, gmin_floor)), m, x, jv,
                                 nv, 0.0, gmin, max_iter, reltol, abstol,
                                 &conv);

@@ -197,8 +197,8 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
         }
       };
       for (int i = 0; i < n; ++i) x[i] = 0.0;
-      nri += newton<NMAX, true>(deck, ent, ne, lin, m, x, jv, nv, dte, 0.0,
-                                max_iter, reltol, abstol, &nr_ok);
+      nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin, m, x, jv, nv, dte,
+                                   0.0, max_iter, reltol, abstol, &nr_ok);
     } else {
       // One solve, converged when finite.  The build and the elimination
       // are newton.cuh's build() and gauss_jordan() written out in line:

@@ -1,5 +1,5 @@
 """Ebers-Moll BJT (reference pkg/device/bjt.go), batched f64 torch: the JAX
-package's ``models/bjt.py`` without the AC-only ``junction_caps``.
+package's ``models/bjt.py``.
 
 Exponential arguments are clamped at 40 (the JAX package's PLAN.md 10
 deviation: the reference's unclamped exp overflows on its own fixtures), and
@@ -128,3 +128,18 @@ def jacobian(p, vbe, vbc, temp, inv=None):
     g21 = sign * (df2_be - dr2_be) - g11
     g22 = sign * (df2_bc - dr2_bc) - g12
     return ic0, ib0, g11, g12, g21, g22
+
+
+def junction_caps(p, vbe, vbc, gm):
+    """(cbe, cbc): depletion capacitances Cj0/(1 - v/Vj)^M below Vj (the
+    argument floored at 1e-30) and linearized above it, plus the diffusion
+    capacitance Tf·|gm| on b-e (bjt.go:196-212); ``gm`` is the consistent
+    forward transconductance.  AC path only."""
+
+    def depletion(v, cj, vj, mj):
+        rev = cj / torch.pow(torch.clamp_min(1.0 - v / vj, 1e-30), mj)
+        fwd = cj * (1.0 + mj * (v - vj) / vj)
+        return torch.where(v < vj, rev, fwd)
+
+    cbe = depletion(vbe, p["cje"], p["vje"], p["mje"]) + p["tf"] * gm.abs()
+    return cbe, depletion(vbc, p["cjc"], p["vjc"], p["mjc"])

@@ -102,3 +102,13 @@ def eval_sources(stype, p, t, dc_scale=1.0):
     if len(branch) == 1:
         return branch[stype[0]]
     return torch.stack([branch[s][:, k] for k, s in enumerate(stype)], dim=1)
+
+
+def eval_sources_ac(p):
+    """Complex phasor (real, imag) of every source for AC analysis
+    (vsource.go:155-176, isource.go:150-165): ac_mag·cos and ac_mag·sin of
+    the phase in degrees; a source without an AC spec has ac_mag 0.  Leaves
+    (nS,) or (B, nS), results alike."""
+    phase_rad = true_div(p["ac_phase"] * math.pi, 180.0)
+    return (p["ac_mag"] * torch.cos(phase_rad),
+            p["ac_mag"] * torch.sin(phase_rad))

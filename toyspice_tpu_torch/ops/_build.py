@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and bind them
 with ``ctypes``.
 
-Each kernel source (``csrc/run_kernel.cu``, ``csrc/op_kernel.cu``; both
-include ``csrc/newton.cuh``) compiles with one ``nvcc`` call to a shared
-library with a plain C entry point (no PyTorch headers, so a build takes
-seconds); the calls for every missing library start together.  A library
+Each kernel source (``csrc/run_kernel.cu``, ``csrc/op_kernel.cu``,
+``csrc/stamped_solve.cu``, ``csrc/dc_sweep_kernel.cu``,
+``csrc/ac_kernel.cu``; all include ``csrc/newton.cuh``) compiles with one
+``nvcc`` call to a shared library with a plain C entry point (no PyTorch
+headers, so a build takes seconds); the calls for every missing library
+start together.  A library
 goes to ``toyspice_tpu_torch/_build/``, named by a hash of its source, the
 shared header and the flags, so an edited source builds anew and an
 unchanged one loads.  A missing ``nvcc`` or a failed build raises: there is
@@ -20,11 +22,14 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-SOURCES = {"run": CSRC / "run_kernel.cu", "op": CSRC / "op_kernel.cu"}
+SOURCES = {"run": CSRC / "run_kernel.cu", "op": CSRC / "op_kernel.cu",
+           "stamped": CSRC / "stamped_solve.cu",
+           "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu"}
 HEADERS = (CSRC / "newton.cuh",)
 BUILD_DIR = PKG / "_build"
 # -fmad=false: every product and sum rounds on its own, as in the torch
-# plain versions (ops/run.py, ops/op.py), so the two agree to the last bit
+# plain versions (ops/run.py, ops/op.py, ops/solve_stamped.py, ops/dc.py,
+# ops/ac.py), so the two agree to the last bit
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -94,6 +99,15 @@ _ARGTYPES = {
     # tsr_op(np1, topo, topo_len, dev, dyn, x0, jv0, x, jv, iters, conv,
     #        nlanes, reltol, abstol, max_iter, gmin_floor, stream)
     "op": ("tsr_op", "ipi" + "p" * 8 + "iddidp"),
+    # tsr_stamped(n, tab, tab_len, nnz, nrhs, vals, rvals, gmin, x, nlanes,
+    #             stream)
+    "stamped": ("tsr_stamped", "ipiii" + "p" * 4 + "ip"),
+    # tsr_dc_sweep(np1, topo, topo_len, dev, dyn, vs, vs_stride, npts, x,
+    #              iters, conv, nlanes, reltol, abstol, max_iter,
+    #              gmin_floor, stream)
+    "dc": ("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidp"),
+    # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
+    "ac": ("tsr_ac", "iii" + "p" * 5 + "p"),
 }
 
 
@@ -102,8 +116,8 @@ def load(name="run"):
     if name not in _libs:
         lib = ctypes.CDLL(str(build((name,))[name]))
         fn_name, sig = _ARGTYPES[name]
-        kinds = {"i": ctypes.c_int, "p": ctypes.c_void_p,
-                 "d": ctypes.c_double}
+        kinds = {"i": ctypes.c_int, "q": ctypes.c_longlong,
+                 "p": ctypes.c_void_p, "d": ctypes.c_double}
         fn = getattr(lib, fn_name)
         fn.argtypes = [kinds[c] for c in sig]
         fn.restype = ctypes.c_int

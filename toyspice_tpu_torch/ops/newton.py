@@ -1,6 +1,8 @@
 """The plain torch version of the in-kernel Newton of ``csrc/newton.cuh``,
-shared by the whole-run transient (``ops/run.py``) and the OP kernel
-(``ops/op.py``).
+shared by the whole-run transient (``ops/run.py``), the OP kernel
+(``ops/op.py``) and the DC sweep kernel (``ops/dc.py``), and the
+Gauss-Jordan of the stamped solve (``ops/solve_stamped.py``) and AC
+(``ops/ac.py``).
 
 The counterpart of ``ops/pallas_tran.py``'s ``_newton_in_kernel`` and
 ``_device_eval_lib`` in the JAX package, compat branches, and of its
