@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Time the whole-run kernel of ``toyspice_tpu_torch`` on bench.py's
-8192-lane RLC deck for several checkouts of the port, in turns, on one
+8192-lane RLC deck (its linear instantiation), or with ``--rectifier`` on
+the 8192-lane half-wave rectifier (its Newton instantiation, warm-started
+from the OP kernel), for several checkouts of the port, in turns, on one
 CUDA card.
 
     python3 ab_run_kernel.py _parent . . _parent
+    python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
 
 Each argument is a directory holding a ``toyspice_tpu_torch`` package (for
 example the parent commit unpacked with ``git archive`` into a directory
 that ``.gitignore`` lists); each runs in a process of its own, in the order
-given, builds its kernel, launches it once to warm up and three times
-under CUDA events, and prints its attempt count and the three times, after
-the registers, stack frames and spills ``nvcc -Xptxas -v`` reports for its
-run kernel's source.  The card's name and power limit come first.  It
+given, builds its kernel, launches it once to warm up and ``--reps`` times
+(default 3) under CUDA events, and prints its attempt count and the times,
+after the registers, stack frames and spills ``nvcc -Xptxas -v`` reports
+for its run kernel's source.  The card's name and power limit come first.  It
 needs a card and ``nvcc``.
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -30,7 +34,12 @@ C1 3 0 1u
 """
 
 
-def time_checkout(root):
+def rectifier_deck(root):
+    with open(os.path.join(root, "circuits", "half_wave_rectifier.cir")) as f:
+        return f.read()
+
+
+def time_checkout(root, deck, reps):
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -50,45 +59,66 @@ def time_checkout(root):
     for line in (out.stdout + out.stderr).splitlines():
         if "registers" in line or "stack frame" in line:
             print(f"{root}: ptxas: {line.strip()}", flush=True)
-    cc = ts.compile_circuit(ts.parse(RLC))
+    cc = ts.compile_circuit(ts.parse(deck))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
     rng = np.random.default_rng(0)  # bench.py: R then L then C, spread 0.1
     ov = {k: {"value": np.asarray(cc.params[k]["value"])[None] * np.exp(
         rng.normal(0, 0.1, (LANES, len(cc.params[k]["value"]))))}
-        for k in ("R", "L", "C")}
+        for k in ("R", "L", "C") if k in cc.params}
     params, _ = ts.batch_params(cc, ov)
+    state0 = ts.init_state(cc)
     plan = run_plan.make_plan(cc)
-    dev = run_plan.const_stack(plan, params, LANES, "cuda")
+    dev = run_plan.const_stack(plan, params, LANES, "cuda", 300.15, state0)
     src = run_plan.source_stack(plan, params, LANES, "cuda")
-    st = run_plan.init_state_stack(plan, ts.init_state(cc), LANES, "cuda")
+    st = run_plan.init_state_stack(plan, state0, LANES, "cuda")
     sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
                         cfg.max_attempts)
-    run.launch_run_kernel(plan, dev, src, st, sc)
+    jv0 = None
+    if plan.nonlinear:  # the OP's junction voltages, as make_tran_run
+        from toyspice_tpu_torch.engine.options import DEFAULTS
+        from toyspice_tpu_torch.ops import op
+
+        jv0 = run_plan.jv_stack(
+            plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv, LANES)
+    run.launch_run_kernel(plan, dev, src, st, sc, jv0)
     torch.cuda.synchronize()
     ms = []
-    for _ in range(3):
+    for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        k = run.launch_run_kernel(plan, dev, src, st, sc)
+        k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
         e1.record()
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
-    print(f"{root}: attempts {int(k.attempts.sum())}, kernel ms {ms}",
-          flush=True)
+    print(f"{root}: attempts {int(k.attempts.sum())}, Newton iterations "
+          f"{int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
 
 
 def main():
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        time_checkout(os.path.abspath(sys.argv[2]))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rectifier", action="store_true",
+                    help="time the rectifier (Newton) instead of bench.py's "
+                    "deck")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed launches per checkout")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="+")
+    a = ap.parse_args()
+    if a.one:
+        here = os.path.dirname(os.path.abspath(__file__))
+        time_checkout(os.path.abspath(a.roots[0]),
+                      rectifier_deck(here) if a.rectifier else RLC, a.reps)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    for root in sys.argv[1:]:
+    extra = ["--reps", str(a.reps)] + (["--rectifier"] if a.rectifier
+                                       else [])
+    for root in a.roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        root], check=True)
+                        *extra, root], check=True)
     return 0
 
 

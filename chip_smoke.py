@@ -50,11 +50,41 @@ seconds:
    kernel for the 98,304 (instance, frequency) systems; then the AC kernel
    against its plain version on the same G, B^ and RHS, and
    torch.linalg.solve on the same systems.
-11. the bounds and the ``kernels`` JSON line; the last line is the contract
+11. run kernel against its plain version on the magnetic decks:
+   coupled_inductors.cir (K between two L) and saturating_transformer.cir
+   (two LM windings and their K), 256 lanes, R (and L) spread; the bar of
+   phase 3.
+12. magnetic main path: make_tran_batch on saturating_transformer.cir,
+   8192 lanes (BENCH_MATRIX's transformer3 class), one run-kernel launch,
+   no lane failed, the lanes equal to a kernel run on the same inputs;
+   then that kernel run against its plain version (the bar of phase 3).
+13. the store instantiation against its plain version, ``store='full'``:
+   the RC driven by SIN, half_wave_rectifier.cir and coupled_inductors.cir,
+   256 lanes: out_n equal per lane, out_x/out_t within rtol 1e-9, and the
+   counters and state equal to the run kernel on the same lanes.  Then
+   64-bit offsets: 8192 lanes of an RC ladder with np1 = 11, whose out_x
+   passes element 2^31; the lanes from just below that element to the
+   last one against the plain version run on those lanes.
+14. store main path: make_tran_batch(store='full') on the half-wave
+   rectifier, 8192 lanes: one OP and one store launch, counters equal to
+   phase 7's store='none' run; then the store kernel against its plain
+   version on the same 8192 lanes.  The store kernel is timed around its
+   wrapper (which zeroes the output) and around the launch alone, into
+   zeroed buffers given as ``out``.
+15. streamed main path: stream_transient_chunks on the 8192 lanes of
+   phase 4 with chunk_store = 4096 (BENCH_MATRIX's full-streamed row),
+   every chunk equal bit for bit to the matching rows of one monolithic
+   store launch, which is held to its plain version on the same lanes;
+   the totals equal to phase 4's; run_transient_streamed's host stitch
+   at 256 lanes equal to its monolithic run.
+16. resume: bench.py's deck, 256 lanes, a run cut at half its attempts,
+   then a resume from its state, t, dt and attempt count, equal to the
+   one-piece run.
+17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 4, 7, 8, 9, 10) runs with every kernel's launch
-count set to 0 just before and read just after.
+Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16) runs with every
+kernel's launch count set to 0 just before and read just after.
 """
 
 import json
@@ -118,6 +148,29 @@ R1 1 0 1k
 C1 1 0 0.2u
 C2 1 2 0.1u
 R2 2 0 2k
+"""
+
+# an RC ladder of eight sections: np1 = 11, so 8192 lanes of max_store
+# rows pass element 2^31 of the store
+LADDER = """* rc ladder
+.tran 0.02m 1m
+Vin 1 0 SIN(0 5 1k)
+R1 1 2 100
+C1 2 0 0.1u
+R2 2 3 100
+C2 3 0 0.1u
+R3 3 4 100
+C3 4 0 0.1u
+R4 4 5 100
+C4 5 0 0.1u
+R5 5 6 100
+C5 6 0 0.1u
+R6 6 7 100
+C6 7 0 0.1u
+R7 7 8 100
+C7 8 0 0.1u
+R8 8 9 100
+C8 9 0 0.1u
 """
 
 # ce_amplifier_ac.cir's circuit with a SIN drive
@@ -185,6 +238,7 @@ R2 mid 0 1k
 
 # every kernel wrapper's launch count
 COUNTERS = {"run_kernel": run.launch_run_kernel,
+            "run_kernel_store": run.launch_store_kernel,
             "op_kernel": op.launch_op_kernel,
             "stamped_solve": solve_stamped.launch_stamped,
             "dc_sweep_kernel": dc.launch_dc_kernel,
@@ -266,12 +320,16 @@ def ptxas_summary(log):
         if m:
             entry, frame = m.group(1), None
             k = re.search(r"(run_kernel|op_kernel|stamped_kernel|"
-                          r"dc_sweep_kernel|ac_kernel)ILi(\d+)E(?:Lb([01])E)?",
+                          r"dc_sweep_kernel|ac_kernel)ILi(\d+)E((?:Lb[01]E)*)",
                           entry)
+            flags = [] if k is None else re.findall(r"Lb([01])E",
+                                                    k.group(3))
+            # run_kernel<NMAX, NL, MAG, STORE>
+            names = [("linear", "newton"), ("", "mag"), ("", "store")]
             label = entry if k is None else (
-                f"{k.group(1)}<{k.group(2)}" + {None: "", "0": ", linear",
-                                               "1": ", newton"}[k.group(3)]
-                + ">")
+                f"{k.group(1)}<{k.group(2)}" + "".join(
+                    f", {names[i][int(f)]}" for i, f in enumerate(flags)
+                    if names[i][int(f)]) + ">")
             continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -409,19 +467,43 @@ def compare_run(name, k, p, check_jv=False):
 
 
 def max_err(name, pairs):
+    """Each (what, a, b): a within RTOL of b's largest finite magnitude
+    (per column of a 2-D b), non-finite where b is; the max abs err."""
+    return max((check_err(name, what, a, b, err_scale(b))
+                for what, a, b in pairs), default=0.0)
+
+
+def err_scale(b):
+    fin = torch.isfinite(b)
+    scale = torch.where(fin, b.abs(), 0.0)
+    return scale.amax(dim=0, keepdim=True) if b.ndim == 2 else scale.amax()
+
+
+def check_err(name, what, a, b, scale):
+    same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+    fin = torch.isfinite(b)
+    d = torch.where(fin, (a - b).abs(), 0.0)
+    if not same_nan or bool((d > RTOL * scale).any()) or not bool(
+            (torch.isfinite(a) == fin).all()):
+        fail(f"{name}: {what} differs beyond rtol {RTOL} "
+             f"(max abs {float(d.max()):.3e})")
+    return float(d.max())
+
+
+def wave_err(name, kw, pw, block=1024):
+    """max_err over out_x (every lane's rows as one (B·max_store, np1)
+    table) and out_t, a block of lanes at a time against the scale of all
+    of them, so that no temporary outgrows a block."""
+    b, m, n = kw.out_x.shape
+    parts = (("out_x", lambda w, i: w.out_x[i:i + block].reshape(-1, n)),
+             ("out_t", lambda w, i: w.out_t[i:i + block]))
     err = 0.0
-    for what, a, b in pairs:
-        same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
-        fin = torch.isfinite(b)
-        d = torch.where(fin, (a - b).abs(), 0.0)
-        scale = torch.where(fin, b.abs(), 0.0)
-        scale = scale.amax(dim=0, keepdim=True) if b.ndim == 2 \
-            else scale.amax()
-        if not same_nan or bool((d > RTOL * scale).any()) or not bool(
-                (torch.isfinite(a) == fin).all()):
-            fail(f"{name}: {what} differs beyond rtol {RTOL} "
-                 f"(max abs {float(d.max()):.3e})")
-        err = max(err, float(d.max()))
+    for what, part in parts:
+        scale = torch.stack([err_scale(part(pw, i))
+                             for i in range(0, b, block)]).amax(dim=0)
+        for i in range(0, b, block):
+            err = max(err, check_err(name, what, part(kw, i), part(pw, i),
+                                     scale))
     return err
 
 
@@ -677,6 +759,443 @@ def ac_phase(lanes):
     return ac_main
 
 
+def kernel_vs_plain(plan, dev, src, st, sc, jv0=None):
+    """The run kernel (timed with CUDA events after a warm-up launch) and
+    its plain version (on the host clock) on the same lanes."""
+    run.launch_run_kernel(plan, dev, src, st, sc, jv0)  # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
+    e1.record()
+    torch.cuda.synchronize()
+    k_ms = e0.elapsed_time(e1)
+    p0 = time.perf_counter()
+    p = run.run_plain(plan, dev, src, st, sc, jv0)
+    torch.cuda.synchronize()
+    return k, k_ms, p, (time.perf_counter() - p0) * 1e3
+
+
+def free():
+    """Let the card's allocator give back what the caller dropped."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def magnetic_phases(lanes, main_lanes, smi):
+    """Phases 11 and 12: the run kernel's magnetic instantiation against
+    its plain version, and the magnetic main path."""
+    err = 0.0
+    for name, keys in (("coupled_inductors", ("R", "L")),
+                       ("saturating_transformer", ("R",))):
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(
+            deck_file(f"{name}.cir"),
+            lambda cc, b: perturbed(cc, np.random.default_rng(2), b, keys),
+            lanes)
+        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
+        e = compare_run(name, k, p)
+        err = max(err, e)
+        if bool(k.fail.any()) or not bool((k.t == cfg.tstop).all()):
+            fail(f"{name}: a lane failed or stopped before tstop")
+        phase("11 magnetic kernel vs plain", t0,
+              f"{name}: {lanes} lanes, np1={plan.np1}, {plan.nlm} LM, "
+              f"{plan.nk} K, accepted {int(k.accepted.sum())}, attempts "
+              f"{int(k.attempts.sum())}, failed 0; counters equal, max abs "
+              f"err {e:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        deck_file("saturating_transformer.cir"),
+        lambda cc, b: perturbed(cc, np.random.default_rng(0), b, ("R",)),
+        main_lanes)
+    fn = ts.make_tran_batch(cc, cfg, axes, store="none")
+    fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("magnetic main path", got, {"run_kernel": (1, 1)})
+    if fn.engine != "run":
+        fail(f"magnetic main path engine {fn.engine!r}, expected 'run'")
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"magnetic main path: {failed} of {main_lanes} lanes failed "
+             "or stopped early")
+    plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+    k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
+    e = compare_run("saturating_transformer_8192", k, p)
+    err = max(err, e)
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.attempts, k.attempts)
+            and torch.equal(out.t_final, k.t)):
+        fail("magnetic main path differs from the kernel on its lanes")
+    accepted = int(out.accepted.sum())
+    phase("12 magnetic main path", t0,
+          f"saturating_transformer: engine={fn.engine}, run kernel "
+          f"launches={got['run_kernel']}, lanes={main_lanes}, "
+          f"accepted={accepted}, attempts={int(out.attempts.sum())}, "
+          f"failed={failed}, wall={wall:.6f} s, {accepted / wall:.6e} "
+          f"accepted steps/s on {smi}; the same lanes through the kernel "
+          f"and its plain version: counters equal, max abs err {e:.3e}; "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    return err
+
+
+def store_vs_plain(name, plan, dev, src, st, sc, keep, jv0=None):
+    """The store instantiation and its plain version on the same lanes.
+    The kernel is timed twice with CUDA events: around the wrapper, which
+    allocates and zeroes the outputs, and around the launch alone, into
+    zeroed buffers given as ``out`` (its result must equal the wrapper's
+    bit for bit); the plain version on the host clock.  Their counters,
+    out_n and overflow must be equal, and out_x, out_t and the state within
+    RTOL.  Returns (kernel result, waveforms, max abs err, launch ms,
+    wrapper ms, plain ms)."""
+    # warm-up; its outputs go back to the allocator's cache, so the timed
+    # wrapper below allocates them again without a cudaMalloc
+    run.launch_store_kernel(plan, dev, src, st, sc, keep, jv0)
+    (k, kw), w_ms = timed_call(run.launch_store_kernel, plan, dev, src, st,
+                               sc, keep, jv0)
+    buf = run.Waveforms(torch.zeros_like(kw.out_x),
+                        torch.zeros_like(kw.out_t), None, None)
+    torch.cuda.synchronize()
+    (k2, kw2), k_ms = timed_call(lambda: run.launch_store_kernel(
+        plan, dev, src, st, sc, keep, jv0, out=buf))
+    if not all(torch.equal(a, b) for a, b in zip(k + kw, k2 + kw2)):
+        fail(f"{name}: the launch into given buffers differs from the "
+             "wrapper's")
+    del k2, kw2, buf
+    p0 = time.perf_counter()
+    p, pw = run.store_plain(plan, dev, src, st, sc, keep, jv0)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - p0) * 1e3
+    err = compare_run(name, k, p, check_jv=jv0 is not None)
+    for key in ("out_n", "overflow"):
+        if not torch.equal(getattr(kw, key), getattr(pw, key)):
+            fail(f"{name}: store {key} differs from the plain version")
+    err = max(err, wave_err(name, kw, pw))
+    del p, pw
+    return k, kw, err, k_ms, w_ms, p_ms
+
+
+def store_phases(lanes, main_lanes, smi, hwr_none):
+    """Phases 13 and 14: the store instantiation against its plain version
+    and against the run kernel, then the store main path."""
+    err = 0.0
+    hwr = deck_file("half_wave_rectifier.cir")
+    decks = (("rc_sin", RC_SIN, ("R", "C")), ("half_wave_rectifier", hwr,
+                                              ("R", "C")),
+             ("coupled_inductors", deck_file("coupled_inductors.cir"),
+              ("R", "L")))
+    for name, deck, keys in decks:
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(
+            deck,
+            lambda cc, b: perturbed(cc, np.random.default_rng(3), b, keys),
+            lanes)
+        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+        jv0 = None
+        if plan.nonlinear:
+            jv0 = run_plan.jv_stack(
+                plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv,
+                lanes)
+        keep = run.Store(cfg.tstart, cfg.max_store)
+        k, kw, e, k_ms, _, p_ms = store_vs_plain(name, plan, dev, src, st,
+                                                 sc, keep, jv0)
+        r = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
+        for key in ("accepted", "attempts", "fail", "nr_iters", "t", "dt",
+                    "state", "jv"):
+            if not torch.equal(getattr(k, key), getattr(r, key)):
+                fail(f"{name}: store kernel's {key} differs from the run "
+                     "kernel's")
+        if not torch.equal(kw.out_n, k.accepted) or bool(kw.overflow.any()):
+            fail(f"{name}: out_n is not the accepted count, or overflow")
+        err = max(err, e)
+        phase("13 store kernel vs plain", t0,
+              f"{name}: {lanes} lanes, np1={plan.np1}, max_store "
+              f"{cfg.max_store}, stored rows {int(kw.out_n.sum())}; out_n "
+              f"and counters equal, state equal to the run kernel's, max "
+              f"abs err {e:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        del kw
+        free()
+    err = max(err, offsets_check(main_lanes))
+
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(hwr, rc_spread, main_lanes)
+    fn = ts.make_tran_batch(cc, cfg, axes, store="full")
+    if fn.engine != "store":
+        fail(f"store main path engine {fn.engine!r}, expected 'store'")
+    out = fn(params, state0)  # warm-up
+    del out
+    free()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("store main path", got, {"op_kernel": (1, 1 << 30),
+                                          "run_kernel_store": (1, 1)})
+    for key in ("accepted", "attempts", "fail", "nr_iters", "t_final",
+                "dt_final"):
+        if not torch.equal(getattr(out, key), getattr(hwr_none, key)):
+            fail(f"store main path: {key} differs from phase 7's "
+                 "store='none' run")
+    if not torch.equal(out.out_n, out.accepted) or bool(
+            out.store_overflow.any()) or not bool(
+                torch.isfinite(out.out_x).all()):
+        fail("store main path: out_n is not the accepted count, a row "
+             "overflowed, or a stored value is not finite")
+    ac = cc.node_map["ac"]
+    rows = int(out.out_n.sum())
+    b, m, n = out.out_x.shape
+    gb = (out.out_x.numel() + out.out_t.numel()) * 8 / 1e9
+    phase("14 store main path", t0,
+          f"half_wave_rectifier: engine={fn.engine}, OP kernel launches="
+          f"{got['op_kernel']}, store kernel launches="
+          f"{got['run_kernel_store']}, lanes={main_lanes}, counters equal "
+          f"to phase 7's store='none' run, stored rows={rows}, wall="
+          f"{wall:.6f} s, {rows / wall:.6e} stored rows/s; the output is "
+          f"({b}, {m}, {n}) + ({b}, {m}) f64, {gb:.3f} GB, on {smi}")
+    # compat takes the sources at the attempt's old time (PLAN.md 2): the
+    # row at out_t[i] holds V(ac) = 6 sin(2 pi 1k out_t[i - 1])
+    n0 = int(out.out_n[0])
+    t_old = torch.cat([torch.zeros_like(out.out_t[0, :1]),
+                       out.out_t[0, :n0 - 1]])
+    want = 6.0 * torch.sin(2 * np.pi * 1e3 * t_old)
+    if not bool(((out.out_x[0, :n0, ac] - want).abs() < 1e-9).all()):
+        fail("store main path: V(ac) is not the source's waveform")
+    launches = got["run_kernel_store"]
+    del out
+    free()
+
+    t0 = time.perf_counter()
+    plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+    jv0 = run_plan.jv_stack(
+        plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv, main_lanes)
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    k, kw, e, k_ms, w_ms, p_ms = store_vs_plain(
+        "half_wave_rectifier_full", plan, dev, src, st, sc, keep, jv0)
+    err = max(err, e)
+    attempts = int(k.attempts.sum())
+    nri = int(k.nr_iters.sum())
+    nbytes_ = (nbytes(dev, src, st, jv0) + nbytes(st, jv0)
+               + plan.topo.nbytes + main_lanes * (8 + 8 + 4 + 4 + 4 + 4)
+               + nbytes(kw.out_x, kw.out_t, kw.out_n, kw.overflow))
+    phase("14 store kernel vs plain", t0,
+          f"half_wave_rectifier: {main_lanes} lanes, counters and out_n "
+          f"equal, max abs err {e:.3e}; kernel {k_ms:.3f} ms (the launch "
+          f"into zeroed buffers), {w_ms:.3f} ms (the wrapper: it also "
+          f"zeroes the {gb:.3f} GB output), plain {p_ms:.1f} ms")
+    del kw
+    free()
+    return dict(launches=launches, err=err, k_ms=k_ms, w_ms=w_ms, p_ms=p_ms,
+                plan=plan, attempts=attempts, nri=nri, nbytes=nbytes_)
+
+
+def offsets_check(lanes):
+    """Phase 13, 64-bit offsets: ``lanes`` lanes of an RC ladder with 11
+    rows keep their rows past element 2^31 of out_x; the kernel's rows of
+    the lanes from just below that element to the last one against the
+    plain version run on those lanes alone."""
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        LADDER,
+        lambda cc, b: perturbed(cc, np.random.default_rng(5), b, ("R", "C")),
+        lanes)
+    plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    per_lane = cfg.max_store * plan.np1
+    cross = (1 << 31) // per_lane  # the lane whose block holds element 2^31
+    if lanes * per_lane <= 1 << 31:
+        fail("64-bit offsets: the store does not reach element 2^31")
+    k, kw = run.launch_store_kernel(plan, dev, src, st, sc, keep)
+    if not torch.equal(kw.out_n, k.accepted) or bool(kw.overflow.any()) \
+            or bool(k.fail.any()):
+        fail("64-bit offsets: out_n is not the accepted count, a row "
+             "overflowed, or a lane failed")
+    lo = max(cross - 64, 0)
+    p, pw = run.store_plain(plan, dev[lo:], src[lo:], st[lo:], sc, keep)
+    ks = run.RunResult(*(x[lo:] for x in k))
+    kws = run.Waveforms(*(x[lo:] for x in kw))
+    err = compare_run("ladder_offsets", ks, p)
+    if not (torch.equal(kws.out_n, pw.out_n)
+            and torch.equal(kws.overflow, pw.overflow)):
+        fail("64-bit offsets: out_n or overflow differs from the plain "
+             "version")
+    err = max(err, wave_err("ladder_offsets", kws, pw))
+    elems = lanes * per_lane
+    last = (lanes - 1) * per_lane + (int(kw.out_n[-1]) - 1) * plan.np1
+    phase("13 store kernel, 64-bit offsets", t0,
+          f"rc_ladder: {lanes} lanes, np1={plan.np1}, max_store "
+          f"{cfg.max_store}: out_x has {elems} elements (2^31 = "
+          f"{1 << 31}), lane {cross} holds element 2^31; lanes {lo}.."
+          f"{lanes - 1} ({int(kws.out_n.sum())} stored rows, the last at "
+          f"element {last}) equal to the plain version on those lanes: "
+          f"out_n and counters equal, max abs err {err:.3e}")
+    del kw, kws, pw
+    free()
+    return err
+
+
+def stream_phase(main_lanes, lanes, smi, bench, bench_none,
+                 bench_overrides):
+    """Phase 15: the streamed main path on bench.py's deck against one
+    monolithic store launch, then the host stitch at ``lanes`` lanes."""
+    chunk = 4096
+    t0 = time.perf_counter()
+    cc = ts.compile_circuit(ts.parse(RLC))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, axes = ts.batch_params(cc, bench_overrides(cc, main_lanes))
+    state0 = ts.init_state(cc)
+    fns = ts.make_tran_stream(cc, cfg, chunk)
+    for _ in ts.stream_transient_chunks(cc, cfg, params, state0, chunk,
+                                        fns=fns):
+        pass  # warm-up
+    free()
+    reset_counts()
+    w0 = time.perf_counter()
+    n_chunks = 0
+    for out in ts.stream_transient_chunks(cc, cfg, params, state0, chunk,
+                                          fns=fns):
+        n_chunks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("streamed main path", got,
+                 {"run_kernel_store": (n_chunks, n_chunks)})
+    del out
+    free()
+
+    # one monolithic store launch of the same lanes against its plain
+    # version, timed against the store='none' kernel of phase 3 (the same
+    # call)
+    plan, dev, src, st = bench["plan"], bench["dev"], bench["src"], \
+        bench["st"]
+    sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
+                        cfg.max_attempts)
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    mono, mw, err, mono_ms, mono_w_ms, mono_p_ms = store_vs_plain(
+        "bench_rlc_full", plan, dev, src, st, sc, keep)
+    free()
+    b, m, n = mw.out_x.shape
+    mono_gb = (mw.out_x.numel() + mw.out_t.numel()) * 8 / 1e9
+    acc = torch.zeros_like(mono.accepted)
+    offs = torch.zeros(b, dtype=torch.long, device=acc.device)
+    rows = 0
+    last = None
+    j = torch.arange(chunk, device=acc.device)[None, :]
+    for out in ts.stream_transient_chunks(cc, cfg, params, state0, chunk,
+                                          fns=fns):
+        cn = out.out_n.long()
+        valid = j < cn[:, None]
+        idx = torch.clamp(offs[:, None] + j, max=m - 1)
+        want_t = torch.gather(mw.out_t, 1, idx)
+        want_x = torch.gather(mw.out_x, 1, idx[:, :, None].expand(-1, -1, n))
+        if not (torch.equal(torch.where(valid, out.out_t, 0.0),
+                            torch.where(valid, want_t, 0.0))
+                and torch.equal(torch.where(valid[:, :, None], out.out_x,
+                                            0.0),
+                                torch.where(valid[:, :, None], want_x,
+                                            0.0))):
+            fail("streamed main path: a chunk differs from the monolithic "
+                 "store's rows")
+        del want_t, want_x
+        offs += cn
+        rows += int(cn.sum())
+        acc += out.accepted
+        last = out
+    if not torch.equal(offs.to(torch.int32), mw.out_n):
+        fail("streamed main path: the chunks' rows are not the monolithic "
+             "out_n")
+    for key, a, want in (("accepted", acc, bench_none.accepted),
+                         ("attempts", last.attempts, bench_none.attempts),
+                         ("t_final", last.t_final, bench_none.t_final),
+                         ("accepted (monolithic)", mono.accepted,
+                          bench_none.accepted)):
+        if not torch.equal(a, want):
+            fail(f"streamed main path: {key} differs from phase 4's run")
+    accepted = int(acc.sum())
+    phase("15 streamed main path", t0,
+          f"bench_rlc: {main_lanes} lanes, chunk_store={chunk}, "
+          f"{n_chunks} chunks, store kernel launches="
+          f"{got['run_kernel_store']}, stored rows={rows}, every chunk "
+          f"equal to the monolithic store's rows, totals equal to phase 4's, "
+          f"wall={wall:.6f} s, {accepted / wall:.6e} accepted steps/s on "
+          f"{smi}; the monolithic store launch {mono_ms:.3f} ms into "
+          f"zeroed buffers, {mono_w_ms:.3f} ms through the wrapper (({b}, "
+          f"{m}, {n}) + ({b}, {m}) f64, {mono_gb:.3f} GB), against "
+          f"{bench['k_ms']:.3f} ms for the store='none' kernel in phase 3; "
+          f"its plain version {mono_p_ms:.1f} ms, out_n and counters equal, "
+          f"max abs err {err:.3e}")
+    del mw, last, out
+    free()
+
+    t0 = time.perf_counter()
+    params, axes = ts.batch_params(cc, bench_overrides(cc, lanes))
+    so = ts.run_transient_streamed(cc, cfg, params, state0, chunk)
+    whole = ts.make_tran_batch(cc, cfg, axes, store="full")(params, state0)
+    nmax = int(so.out_n.max())
+    if not (torch.equal(so.out_n, whole.out_n.cpu())
+            and torch.equal(so.out_x, whole.out_x[:, :nmax].cpu())
+            and torch.equal(so.out_t, whole.out_t[:, :nmax].cpu())
+            and torch.equal(so.accepted, whole.accepted)
+            and torch.equal(so.attempts, whole.attempts)):
+        fail("run_transient_streamed differs from the monolithic run")
+    phase("15 streamed host stitch", t0,
+          f"bench_rlc: {lanes} lanes, run_transient_streamed with "
+          f"chunk_store={chunk} stitched on the host into ({lanes}, {nmax}, "
+          f"{cc.np1}), equal to the monolithic store='full' run bit for "
+          "bit")
+    del so, whole
+    free()
+    return dict(mono_ms=mono_ms, chunks=n_chunks, rows=rows, err=err)
+
+
+def resume_phase(lanes, bench_overrides):
+    """Phase 16: a run cut at half its attempts and resumed from its state,
+    t, dt and attempt count equals the one-piece run."""
+    t0 = time.perf_counter()
+    cc = ts.compile_circuit(ts.parse(RLC))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, axes = ts.batch_params(cc, bench_overrides(cc, lanes))
+    state0 = ts.init_state(cc)
+    whole = ts.make_tran_batch(cc, cfg, axes)(params, state0)
+    half = int(whole.attempts.max()) // 2
+    reset_counts()
+    leg1 = ts.make_tran_batch(cc, cfg._replace(max_attempts=half), axes)(
+        params, state0)
+    fn = ts.make_tran_batch(cc, cfg, axes, resume=True)
+    rest = fn(params, leg1.state, leg1.t_final, leg1.jv, leg1.dt_final,
+              leg1.attempts)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("resume", got, {"run_kernel": (1, 1),
+                                 "run_kernel_store": (1, 1)})
+    same = (torch.equal(rest.attempts, whole.attempts)
+            and torch.equal(leg1.accepted + rest.accepted, whole.accepted)
+            and torch.equal(rest.t_final, whole.t_final)
+            and torch.equal(rest.dt_final, whole.dt_final)
+            and all(torch.equal(rest.state[kd][key], whole.state[kd][key])
+                    for kd in whole.state for key in whole.state[kd]))
+    if not same or bool((leg1.t_final >= cfg.tstop).any()):
+        fail("resume: the two legs differ from the one-piece run")
+    phase("16 resume", t0,
+          f"bench_rlc: {lanes} lanes cut at {half} attempts (t = "
+          f"{float(leg1.t_final.min()):.6e}..{float(leg1.t_final.max()):.6e}"
+          f" s), resumed with their state, t, dt and attempts: counters, "
+          f"t_final, dt_final and state equal to the one-piece run; run "
+          f"kernel launches {got['run_kernel']}, store kernel launches "
+          f"{got['run_kernel_store']} (the resumed leg)")
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -739,21 +1258,6 @@ def main():
              ("bench_rlc", RLC, bench_overrides, BENCH_LANES, None)]
     lin_err = 0.0
     bench = None
-
-    def kernel_vs_plain(plan, dev, src, st, sc, jv0=None):
-        run.launch_run_kernel(plan, dev, src, st, sc, jv0)  # warm-up
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
-        e1.record()
-        torch.cuda.synchronize()
-        k_ms = e0.elapsed_time(e1)
-        p0 = time.perf_counter()
-        p = run.run_plain(plan, dev, src, st, sc, jv0)
-        torch.cuda.synchronize()
-        return k, k_ms, p, (time.perf_counter() - p0) * 1e3
 
     for name, deck, ov, b, edit in decks:
         t0 = time.perf_counter()
@@ -820,6 +1324,7 @@ def main():
             and torch.equal(out.t_final, k.t)):
         fail("main path differs from phase 3's kernel run on the same lanes")
     rate = accepted / wall
+    bench_none = out
     phase("4 main path", t0,
           f"engine={fn.engine}, launches={lin_launches}, "
           f"lanes={BENCH_LANES}, accepted={accepted}, attempts={attempts}, "
@@ -954,6 +1459,7 @@ def main():
             and torch.equal(out.t_final, k.t)
             and torch.equal(out.jv["D"]["vd"], k.jv)):
         fail("nonlinear main path differs from phase 6's kernel run")
+    hwr_none = out
     phase("7 nonlinear main path", t0,
           f"half_wave_rectifier: engine={fn.engine}, run kernel launches="
           f"{nl_launches}, OP kernel launches={op_launches}, "
@@ -965,6 +1471,11 @@ def main():
     stamped = stamped_phases(BENCH_LANES)
     dc_main = dc_phase(BENCH_LANES)
     ac_main = ac_phase(BENCH_LANES)
+    mag_err = magnetic_phases(SMALL_LANES, BENCH_LANES, smi)
+    store = store_phases(SMALL_LANES, BENCH_LANES, smi, hwr_none)
+    stream = stream_phase(BENCH_LANES, SMALL_LANES, smi, bench, bench_none,
+                          bench_overrides)
+    resume_phase(SMALL_LANES, bench_overrides)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -972,7 +1483,7 @@ def main():
         + plan.topo.nbytes + nbytes(bench["st"]) \
         + BENCH_LANES * (8 + 8 + 4 + 4 + 4 + 4)
     lin_bound = bound(attempt_flops(plan) * bench["attempts"], lin_bytes)
-    print(f"[11 bound] run_kernel linear (bench_rlc): {attempt_flops(plan)} "
+    print(f"[17 bound] run_kernel linear (bench_rlc): {attempt_flops(plan)} "
           f"f64 operations per attempt x {bench['attempts']} attempts / "
           f"{PEAK_F64:.3g} op/s = {lin_bound[2]:.6f} ms; {lin_bytes} bytes / "
           f"{PEAK_BYTES:.3g} B/s = {lin_bound[3]:.6f} ms", flush=True)
@@ -980,7 +1491,7 @@ def main():
     nl_flops = hwr["attempts"] * step_flops(hp) + hwr["nri"] * newton_flops(
         hp)
     nl_bound = bound(nl_flops, hwr["nbytes"])
-    print(f"[11 bound] run_kernel nonlinear (half_wave_rectifier): "
+    print(f"[17 bound] run_kernel nonlinear (half_wave_rectifier): "
           f"{hwr['attempts']} attempts x {step_flops(hp)} + {hwr['nri']} "
           f"Newton iterations x {newton_flops(hp)} f64 operations / "
           f"{PEAK_F64:.3g} op/s = {nl_bound[2]:.6f} ms; {hwr['nbytes']} "
@@ -990,7 +1501,7 @@ def main():
                           + lu_flops(opp.np1))
     op_flops = op_main["iters"] * newton_flops(opp) + seed
     op_bound = bound(op_flops, op_main["nbytes"])
-    print(f"[11 bound] op_kernel (half_wave_rectifier bias): "
+    print(f"[17 bound] op_kernel (half_wave_rectifier bias): "
           f"{op_main['iters']} Newton iterations x {newton_flops(opp)} + "
           f"{BENCH_LANES} linear estimates, {op_flops} f64 operations / "
           f"{PEAK_F64:.3g} op/s = {op_bound[2]:.6f} ms; "
@@ -998,7 +1509,7 @@ def main():
           f"{op_bound[3]:.6f} ms", flush=True)
 
     st_bound = bound(stamped["flops"], stamped["nbytes"])
-    print(f"[11 bound] stamped_solve (divider_op + divider sweep): "
+    print(f"[17 bound] stamped_solve (divider_op + divider sweep): "
           f"{stamped['systems']} systems, {stamped['flops']} f64 operations "
           f"/ {PEAK_F64:.3g} op/s = {st_bound[2]:.6f} ms; "
           f"{stamped['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
@@ -1006,13 +1517,24 @@ def main():
     dp = dc_main["plan"]
     dc_per_iter = newton_flops(dp) - (dp.np1 - 1)  # no gmin diagonal
     dc_bound = bound(dc_main["iters"] * dc_per_iter, dc_main["nbytes"])
-    print(f"[11 bound] dc_sweep_kernel (diode_iv_sweep): "
+    print(f"[17 bound] dc_sweep_kernel (diode_iv_sweep): "
           f"{dc_main['iters']} Newton iterations x {dc_per_iter} f64 "
           f"operations / {PEAK_F64:.3g} op/s = {dc_bound[2]:.6f} ms; "
           f"{dc_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
           f"{dc_bound[3]:.6f} ms", flush=True)
+    sp = store["plan"]
+    store_flops = store["attempts"] * step_flops(sp) + store[
+        "nri"] * newton_flops(sp)
+    store_bound = bound(store_flops, store["nbytes"])
+    print(f"[17 bound] run_kernel store (half_wave_rectifier, "
+          f"store='full'): {store['attempts']} attempts x {step_flops(sp)} "
+          f"+ {store['nri']} Newton iterations x {newton_flops(sp)} f64 "
+          f"operations / {PEAK_F64:.3g} op/s = {store_bound[2]:.6f} ms; "
+          f"{store['nbytes']} bytes (the inputs, the state and counters, "
+          f"and the whole zeroed output) / {PEAK_BYTES:.3g} B/s = "
+          f"{store_bound[3]:.6f} ms", flush=True)
     ac_bound = bound(ac_main["flops"], ac_main["nbytes"])
-    print(f"[11 bound] ac_kernel (ce_amplifier_ac): {ac_main['flops']} f64 "
+    print(f"[17 bound] ac_kernel (ce_amplifier_ac): {ac_main['flops']} f64 "
           f"operations / {PEAK_F64:.3g} op/s = {ac_bound[2]:.6f} ms; "
           f"{ac_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
           f"{ac_bound[3]:.6f} ms", flush=True)
@@ -1027,11 +1549,15 @@ def main():
     run_src = "toyspice_tpu_torch/csrc/run_kernel.cu"
     line = {"kernels": [
         entry("run_kernel", run_src, "toyspice_tpu/ops/pallas_run.py:652",
-              lin_launches, lin_err, bench["k_ms"], bench["p_ms"],
-              lin_bound),
+              lin_launches, max(lin_err, mag_err), bench["k_ms"],
+              bench["p_ms"], lin_bound),
         entry("run_kernel_nonlinear", run_src,
               "toyspice_tpu/ops/pallas_run.py:652", nl_launches, nl_err,
               hwr["k_ms"], hwr["p_ms"], nl_bound),
+        entry("run_kernel_store", run_src,
+              "toyspice_tpu/ops/pallas_tran.py:1429", store["launches"],
+              max(store["err"], stream["err"]), store["k_ms"],
+              store["p_ms"], store_bound),
         entry("op_kernel", "toyspice_tpu_torch/csrc/op_kernel.cu",
               "toyspice_tpu/ops/pallas_op.py:230", op_launches, op_err,
               op_main["k_ms"], op_main["p_ms"], op_bound),

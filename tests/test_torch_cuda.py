@@ -1,6 +1,6 @@
-"""The CUDA kernels (the whole-run transient, the OP, the stamped solve,
-the DC sweep and the AC solve) against their plain torch versions on the
-card.
+"""The CUDA kernels (the whole-run transient with and without the waveform
+store, the OP, the stamped solve, the DC sweep and the AC solve) against
+their plain torch versions on the card.
 
 Needs a CUDA card and nvcc; skips elsewhere.  On the card, without JAX:
 
@@ -14,6 +14,7 @@ import torch
 import toyspice_tpu_torch as ts
 from toyspice_tpu_torch.engine.options import DEFAULTS
 from toyspice_tpu_torch.engine.op import make_op
+from toyspice_tpu_torch.models import magnetic
 from toyspice_tpu_torch.ops import ac, dc, op, run, run_plan, solve_stamped
 
 pytestmark = pytest.mark.needs_cuda
@@ -438,3 +439,187 @@ Q1 col base emit QNPN
     assert xr.shape == (32, 12, cc.np1) and bool(opr.converged.all())
     assert bool(torch.isfinite(xr).all() and torch.isfinite(xi).all())
 
+
+
+# ------------------------------------------------ the store instantiation
+
+RC_SIN = """* rc sin
+.tran 0.02m 1m
+Vin 1 0 SIN(0 5 1k)
+R1 1 2 100
+C1 2 0 1u
+"""
+
+RL_PULSE = """* rl pulse
+.tran 0.02m 1m
+Vin 1 0 PULSE(0 5 0.1m 0.01m 0.01m 0.3m 0.8m)
+R1 1 2 50
+L1 2 0 10m
+"""
+
+COUPLED = """Linear transformer 2:1 with resistive load
+.tran 5u 1.5m
+Vpri in 0 SIN(0 10 2k)
+Rpri in p1 4.7
+Lp p1 0 8m
+Ls s1 0 2m
+K1 Lp Ls 0.995
+Rsec s1 0 150
+"""
+
+SATURATING = """Transformer on a Jiles-Atherton core driven into saturation
+.tran 10u 2m
+Vpri in 0 SIN(0 20 1k)
+Rpri in p1 2.2
+Lp p1 0 core=XCORE turns=120
+Ls s1 0 core=XCORE turns=40
+K1 Lp Ls 0.98
+Rsec s1 0 220
+.model XCORE CORE (ms=1.5meg A=900 K=450 C=0.18 ALPHA=1.2e-3 AREA=1.1e-4 LEN=0.08)
+"""
+
+
+def _store_inputs(deck, lanes, device, magnetised=False):
+    """The run kernel's rows for a deck with R spread (the OP's junction
+    voltages on a nonlinear deck; with ``magnetised``, each lane's LM
+    state from ``_magnetised_lm``)."""
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    rng = np.random.default_rng(6)
+    ov = {"R": {"value": np.asarray(cc.params["R"]["value"])[None] * np.exp(
+        rng.normal(0, 0.1, (lanes, len(cc.params["R"]["value"]))))}}
+    params, _ = ts.batch_params(cc, ov, device=device)
+    state0 = ts.init_state(cc, device=device)
+    if magnetised:
+        state0["LM"] = _magnetised_lm(params["LM"], rng, lanes, device)
+    plan = run_plan.make_plan(cc)
+    dev = run_plan.const_stack(plan, params, lanes, device, DEFAULTS.temp,
+                               state0)
+    src = run_plan.source_stack(plan, params, lanes, device)
+    st = run_plan.init_state_stack(plan, state0, lanes, device)
+    sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
+                        cfg.max_attempts)
+    jv0 = None
+    if plan.nonlinear:
+        jv0 = run_plan.jv_stack(
+            plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv, lanes)
+    return cc, cfg, params, state0, plan, dev, src, st, sc, jv0
+
+
+def _magnetised_lm(pm, rng, b, device):
+    """Per-lane LM leaves of a magnetised core: the J-A state after
+    ramping each winding to a seeded current in ten steps, i0 and i1 near
+    that current (tests/test_torch_magnetic.py's ``magnetised_state``)."""
+    nlm = pm["turns"].shape[-1]
+    i_end = torch.as_tensor(rng.uniform(0.05, 0.4, (b, nlm)) * rng.choice(
+        [-1.0, 1.0], (b, nlm)), device=device)
+    zero = torch.zeros((b, nlm), dtype=torch.float64, device=device)
+    core = magnetic.CoreState(*(zero for _ in range(5)))
+    for s in np.linspace(0.1, 1.0, 10):
+        _, _, core = magnetic.ja_calculate(
+            pm, core, pm["turns"] * (s * i_end) / pm["len"], DEFAULTS.temp)
+    lm = dict(zip(("H", "Hold", "M", "Mirr", "dMdH"), core))
+    lm.update(i0=i_end * 1.05, i1=i_end * 0.9, v0=zero, v1=zero,
+              flux0=zero)
+    return lm
+
+
+def _assert_store_same(kw, pw):
+    assert torch.equal(kw.out_n, pw.out_n)
+    assert torch.equal(kw.overflow, pw.overflow)
+    b, m, n = kw.out_x.shape
+    _assert_same((kw.out_x.reshape(b * m, n), kw.out_t),
+                 (pw.out_x.reshape(b * m, n), pw.out_t))
+
+
+@pytest.mark.parametrize("deck", [RC_SIN, RL_PULSE, HWR, COUPLED,
+                                  SATURATING],
+                         ids=["rc_sin", "rl_pulse", "diode", "coupled",
+                              "saturating"])
+def test_store_kernel_matches_plain(cuda, deck):
+    *_, cfg, _, _, plan, dev, src, st, sc, jv0 = _store_inputs(deck, 64,
+                                                               cuda)
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    before = run.launch_store_kernel.launches
+    k, kw = run.launch_store_kernel(plan, dev, src, st, sc, keep, jv0)
+    torch.cuda.synchronize()
+    assert run.launch_store_kernel.launches == before + 1
+    p, pw = run.store_plain(plan, dev, src, st, sc, keep, jv0)
+    _assert_same(k, p)
+    _assert_store_same(kw, pw)
+    assert torch.equal(kw.out_n, k.accepted) and not kw.overflow.any()
+    # a launch into given zeroed buffers writes the same rows there
+    buf = run.Waveforms(torch.zeros_like(kw.out_x),
+                        torch.zeros_like(kw.out_t), None, None)
+    _, kw2 = run.launch_store_kernel(plan, dev, src, st, sc, keep, jv0,
+                                     out=buf)
+    assert kw2.out_x.data_ptr() == buf.out_x.data_ptr()
+    for a, b in zip(kw2, kw):
+        assert torch.equal(a, b)
+    # the store does not move the trajectory
+    r = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
+    for a, b in zip(k, r):
+        assert torch.equal(a, b)
+    # a magnetic deck runs the run kernel's magnetic instantiation
+    if plan.nlm or plan.nk:
+        _assert_same(r, run.run_plain(plan, dev, src, st, sc, jv0))
+
+
+MIXED = """Linear primary, saturating secondary
+.tran 10u 0.1m
+Vpri in 0 SIN(0 20 1k)
+Rpri in p1 2.2
+Lp p1 0 8m
+Ls s1 0 core=XCORE turns=40
+K1 Lp Ls 0.98
+Rsec s1 0 220
+.model XCORE CORE (ms=1.5meg A=900 K=450 C=0.18 ALPHA=1.2e-3 AREA=1.1e-4 LEN=0.08)
+"""
+
+
+@pytest.mark.parametrize("deck", [SATURATING, MIXED],
+                         ids=["saturating", "linear_primary"])
+def test_magnetised_core_kernels_match_plain(cuda, deck):
+    """A nonzero frozen core (L_eff, the frozen i1, an LM partner's frozen
+    i0) through the magnetic and the store instantiations."""
+    _, cfg, params, state0, plan, dev, src, st, sc, _ = _store_inputs(
+        deck, 64, cuda, magnetised=True)
+    l0, leff = run_plan.magnetic_rows(plan, params, 64, cuda, DEFAULTS.temp,
+                                      state0)[:2]
+    assert bool((leff > 10.0 * l0).all())
+    r = run.launch_run_kernel(plan, dev, src, st, sc)
+    _assert_same(r, run.run_plain(plan, dev, src, st, sc))
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    k, kw = run.launch_store_kernel(plan, dev, src, st, sc, keep)
+    p, pw = run.store_plain(plan, dev, src, st, sc, keep)
+    _assert_same(k, p)
+    _assert_store_same(kw, pw)
+    assert not bool(k.fail.any()) and torch.equal(kw.out_n, k.accepted)
+
+
+def test_two_chunk_stream_matches_plain_and_the_whole_run(cuda):
+    cc, cfg, params, state0, plan, dev, src, st, sc, _ = _store_inputs(
+        RC_SIN, 64, cuda)
+    whole = ts.make_tran_batch(cc, cfg, None, store="full")(params, state0)
+    chunk = int(whole.out_n.max()) // 2 + 1
+    outs = list(ts.stream_transient_chunks(cc, cfg, params, state0, chunk))
+    assert len(outs) == 2
+    n0 = outs[0].out_n.long()
+    for lane in range(64):
+        a, b = int(n0[lane]), int(outs[1].out_n[lane])
+        assert torch.equal(outs[0].out_x[lane, :a], whole.out_x[lane, :a])
+        assert torch.equal(outs[1].out_t[lane, :b],
+                           whole.out_t[lane, a:a + b])
+    assert torch.equal(outs[1].attempts, whole.attempts)
+    assert torch.equal(outs[0].accepted + outs[1].accepted, whole.accepted)
+    # the second chunk's re-entry against the plain version
+    keep = run.Store(cfg.tstart, chunk, True)
+    start = run.RunStart(outs[0].t_final, outs[0].dt_final,
+                         outs[0].attempts)
+    st1 = run_plan.init_state_stack(plan, outs[0].state, 64, cuda)
+    k, kw = run.launch_store_kernel(plan, dev, src, st1, sc, keep,
+                                    start=start)
+    p, pw = run.store_plain(plan, dev, src, st1, sc, keep, start=start)
+    _assert_same(k, p)
+    _assert_store_same(kw, pw)

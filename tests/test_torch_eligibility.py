@@ -59,19 +59,35 @@ def _deck(name):
         return f.read()
 
 
+# a transformer whose secondary feeds a diode: K with a nonlinear device
+K_DIODE = """* transformer into a diode
+.tran 5u 1m
+Vpri in 0 SIN(0 10 2k)
+Rpri in p1 4.7
+Lp p1 0 8m
+Ls s1 0 2m
+K1 Lp Ls 0.995
+D1 s1 out DM
+Rl out 0 150
+.model DM D (Is=1e-14)
+"""
+
+
 @pytest.mark.parametrize("text,kw,reason", [
     (_diodes(17), {}, "17 diodes, BJTs and MOSFETs exceed the kernel's cap "
      "of 16"),
     (_deck("nmos_inverter_tran.cir"), {"semantics": "physics"},
      "semantics='physics'"),
-    (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
-    (RLC, {"store": "full"}, "store='full'"),
+    (_deck("saturating_transformer.cir"), {"semantics": "physics"},
+     "semantics='physics'"),
+    (RLC, {"store": "bogus"}, "store='bogus'"),
     (RLC, {"semantics": "physics"}, "semantics='physics'"),
     (RLC, {"opts": SimOptions(integration="trap")}, "integration='trap'"),
     (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32"),
     (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32"),
-], ids=["diode", "mosfet", "mutual", "store_full", "physics", "trap",
-        "source_cap", "np1_cap"])
+    (K_DIODE, {}, "mutual couplings with diodes"),
+], ids=["diode", "mosfet", "magnetic_physics", "store_bogus", "physics",
+        "trap", "source_cap", "np1_cap", "mutual_with_diode"])
 def test_ineligible_raises_with_reason(text, kw, reason):
     with pytest.raises(NotImplementedError, match="no transient engine") as e:
         _build(text, **kw)
@@ -89,20 +105,41 @@ def test_np1_cap_boundary():
 
 
 def test_make_tran_run_refuses_ineligible():
-    cc = ts.compile_circuit(ts.parse(_deck("coupled_inductors.cir")))
+    cc = ts.compile_circuit(ts.parse(_deck("nmos_inverter_tran.cir")))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
-    with pytest.raises(NotImplementedError, match="device kinds"):
-        run.make_tran_run(cc, cfg)
+    with pytest.raises(NotImplementedError, match="semantics='physics'"):
+        run.make_tran_run(cc, cfg, semantics="physics")
+
+
+TRAN_DECKS = ("rc_lowpass_tran.cir", "rl_tran.cir", "rlc_ringdown.cir",
+              "pulse_drive.cir", "pwl_drive.cir", "current_sin.cir",
+              "half_wave_rectifier.cir", "nmos_inverter_tran.cir",
+              "coupled_inductors.cir", "saturating_transformer.cir")
 
 
 def test_eligible_decks_select_the_run_engine():
-    for name in ("rc_lowpass_tran.cir", "rl_tran.cir", "rlc_ringdown.cir",
-                 "pulse_drive.cir", "pwl_drive.cir", "current_sin.cir",
-                 "half_wave_rectifier.cir", "nmos_inverter_tran.cir"):
+    for name in TRAN_DECKS:
         fn = _build(_deck(name))
         assert fn.engine == "run", name
         assert "whole-run kernel" in fn.engine_reason
+
+
+@pytest.mark.parametrize("name", ["coupled_inductors.cir",
+                                  "saturating_transformer.cir"])
+def test_magnetic_decks_run(name):
+    cc = ts.compile_circuit(ts.parse(_deck(name)))
+    assert run.run_ineligible_reason(cc, "compat", "none",
+                                     SimOptions()) is None
+    assert run.run_ineligible_reason(cc, "compat", "full",
+                                     SimOptions()) is None
+
+
+def test_store_full_selects_the_store_engine():
+    for name in TRAN_DECKS:
+        fn = _build(_deck(name), store="full")
+        assert fn.engine == "store", name
+        assert "store instantiation" in fn.engine_reason
 
 
 def test_nonlinear_device_cap_boundary():

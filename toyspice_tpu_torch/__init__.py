@@ -8,8 +8,14 @@ kernels.  The port imports neither JAX nor the JAX package.
 
 Ported so far, compat semantics, for decks of R, C, L, V and I (DC, SIN,
 PULSE and PWL sources), diodes, BJTs and MOSFETs: the Monte-Carlo
-transient with ``store='none'``, through one whole-run kernel (a nonlinear
-deck first takes its operating point through the OP kernel); the batched
+transient through one whole-run kernel (a nonlinear deck first takes its
+operating point through the OP kernel), also for magnetic inductors and
+mutual couplings; with ``store='full'`` the kernel's store instantiation
+returns every accepted step, whole (``make_tran_batch``) or in chunks of
+bounded size (``stream_transient_chunks``, ``run_transient_streamed``),
+and a run resumes from a checkpoint (``resume=True``,
+``save_checkpoint``/``load_checkpoint``, files the JAX package reads too);
+the batched
 operating point (``run_op_batch``), through the OP kernel and the rescue
 ladders, or on a linear deck the stamped-solve kernel under the same
 ladders; the DC sweep (``run_dc_batch``), through the DC sweep kernel or
@@ -21,6 +27,9 @@ then the AC kernel.  Entry points run on ``cuda`` unless given
     params, axes = batch_params(cc, overrides)
     fn = make_tran_batch(cc, cfg, axes, store="none")
     out = fn(params, init_state(cc))
+    for chunk in stream_transient_chunks(cc, cfg, params, init_state(cc),
+                                         chunk_store=4096):
+        ...  # chunk.out_x[:, :chunk.out_n.max()] on the card
     op = run_op_batch(cc, params, axes)
     xs, conv = run_dc_batch(cc, (0,), params, axes, points)
     xr, xi, opr = run_ac_batch(cc, params, axes, freqs)
@@ -29,7 +38,10 @@ then the AC kernel.  Entry points run on ``cuda`` unless given
 from .compiler import CompiledCircuit, compile_circuit  # noqa: F401
 from .engine.ac import frequency_points  # noqa: F401
 from .engine.batch import (batch_params, make_tran_batch,  # noqa: F401
-                           run_ac_batch, run_dc_batch, run_op_batch)
+                           make_tran_stream, run_ac_batch, run_dc_batch,
+                           run_op_batch, run_transient_batch,
+                           run_transient_streamed, stream_transient_chunks)
+from .engine.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from .engine.dc import sweep_values  # noqa: F401
 from .engine.options import DEFAULTS, SimOptions  # noqa: F401
 from .engine.state import init_state  # noqa: F401

@@ -43,10 +43,11 @@ namespace tsr {
 
 // stamp tags and table header slots: ops/run_plan.py TAG_* and H_*
 enum Tag { TAG_G = 0, TAG_GEQ, TAG_LTERM, TAG_ONE, TAG_CEQ, TAG_LRHS,
-           TAG_VSRC, TAG_ISRC, TAG_NL };
+           TAG_VSRC, TAG_ISRC, TAG_NL, TAG_LMTERM, TAG_LMRHS, TAG_KTERM,
+           TAG_KRHSA, TAG_KRHSB };
 enum Hdr { H_NP1 = 0, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN,
            H_LN, H_KS, H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN,
-           H_NLIN, H_KJ, H_DOFF, H_QOFF, H_MOFF };
+           H_NLIN, H_KJ, H_DOFF, H_QOFF, H_MOFF, H_NLM, H_NK, H_KP };
 // per-device dev rows: ops/run_plan.py D_ROWS, Q_ROWS, M_ROWS
 enum DRow { D_N = 0, D_IS, D_GMIN, D_TT, D_PQ, D_NVT, D_IST, D_VTE,
             D_VCRIT };
@@ -68,7 +69,10 @@ constexpr int THREADS = 128;
 constexpr double EXP_CLAMP = 40.0;  // models/bjt.py, models/diode.py
 constexpr double MOS_GMIN = 1e-12;  // models/mosfet.py GMIN
 constexpr double MOS_DELTA = 1e-6;  // models/mosfet.py DELTA
+constexpr double MOS_INV_DELTA = 1e6;  // models/mosfet.py INV_DELTA
 constexpr double COX_NUM = 3.9 * 8.85e-14;  // 3.9 * EPS0 (mosfet.go:382)
+// XLA folds 2·c/3 and c/3 into products with these (models/mosfet.py)
+constexpr double TWO_THIRDS = 2.0 / 3.0, ONE_THIRD = 1.0 / 3.0;
 enum Region { CUTOFF = 0, LINEAR = 1, SATURATION = 2 };
 
 // torch.maximum / torch.minimum: NaN if either is NaN
@@ -139,10 +143,13 @@ __device__ double mos_ids(const Mos& p, int level, double vgs, double vds,
   double id, vdsat;
   if (level == 2) {
     const double cox = COX_NUM / p[M_TOX];
-    const double eeff = vgst / (p[M_TOX] * 100.0);
+    const double tox100 = p[M_TOX] * 100.0;
+    const double eeff = vgst / tox100;
+    // eeff / ucrit as XLA computes it (models/mosfet.py)
     const double den =
         (p[M_UCRIT] > 0 && eeff > 0)
-            ? 1.0 + pow_pos(clamp_min(eeff / p[M_UCRIT], 1e-300), p[M_UEXP])
+            ? 1.0 + pow_pos(clamp_min(vgst / (tox100 * p[M_UCRIT]), 1e-300),
+                            p[M_UEXP])
             : 1.0;
     const double ueff = p[M_UO] / den;
     const double ecrit = p[M_VMAX] / (ueff == 0 ? 1.0 : ueff) * 100.0;
@@ -154,12 +161,14 @@ __device__ double mos_ids(const Mos& p, int level, double vgs, double vds,
   } else if (level == 3) {
     const double vgst_eff =
         p[M_THETA] > 0 ? vgst / (1.0 + p[M_THETA] * vgst) : vgst;
+    // a / sqrt(b) and beta1 / c as XLA computes them (models/mosfet.py)
     vdsat = p[M_KAPPA] > 0
-                ? vgst_eff / sqrt(clamp_min(1.0 + p[M_KAPPA] * vgst_eff,
-                                            1e-30))
+                ? vgst_eff * (1.0 / sqrt(clamp_min(1.0 + p[M_KAPPA] * vgst_eff,
+                                                   1e-30)))
                 : vgst_eff;
     const double beta3 =
-        beta1 / (p[M_DELTA] > 0 ? 1.0 + p[M_DELTA] / p[M_W] : 1.0);
+        (p[M_KP] * p[M_W]) /
+        (p[M_L] * (p[M_DELTA] > 0 ? 1.0 + p[M_DELTA] / p[M_W] : 1.0));
     id = vds < vdsat
              ? beta3 *
                    (vgst_eff * vds -
@@ -381,9 +390,9 @@ __device__ void device_values(const Deck& c, const double* jv, double dte,
       const double idg = mos_ids(p, level, vgs + d, vds, vbs, &r_);
       const double idd = mos_ids(p, level, vgs, vds + d, vbs, &r_);
       const double idb = mos_ids(p, level, vgs, vds, vbs + d, &r_);
-      gm = clamp_min((sign * idg - id) / MOS_DELTA, MOS_GMIN);
-      gds = clamp_min((sign * idd - id) / MOS_DELTA, MOS_GMIN);
-      gmbs = clamp_min((sign * idb - id) / MOS_DELTA, MOS_GMIN);
+      gm = clamp_min((sign * idg - id) * MOS_INV_DELTA, MOS_GMIN);
+      gds = clamp_min((sign * idd - id) * MOS_INV_DELTA, MOS_GMIN);
+      gmbs = clamp_min((sign * idb - id) * MOS_INV_DELTA, MOS_GMIN);
     } else {  // level 1 analytic (mosfet.go:505-515)
       const double lamf = 1.0 + p[M_LAM] * vds;
       gm = lin ? beta1 * vds * lamf : beta1 * vgst * lamf;
@@ -423,10 +432,10 @@ __device__ void device_values(const Deck& c, const double* jv, double dte,
                              : p[M_CBD];
       const double cgs = cut ? cgso
                              : (lin ? cgate / 2.0 + cgso
-                                    : 2.0 * cgate / 3.0 + cgso);
+                                    : cgate * TWO_THIRDS + cgso);
       const double cgd = cut ? cgdo : (lin ? cgate / 2.0 + cgdo : cgdo);
       const double cgb =
-          cut ? 2.0 * cgate / 3.0 : (lin ? cgbo : cgbo + cgate / 3.0);
+          cut ? cgate * TWO_THIRDS : (lin ? cgbo : cgbo + cgate * ONE_THIRD);
       const double qgs = cut ? 0.0 : cgs * vgs;
       const double qgd = cut ? 0.0 : cgd * (vgs - vds);
       const double qgb = cgb * (vgs - vbs);

@@ -1,15 +1,17 @@
 // Whole-run adaptive transient for compat decks (R, C, L, V, I with
-// DC/SIN/PULSE/PWL sources, plus diodes, BJTs and MOSFETs), one thread per
-// Monte-Carlo lane, in f64.
+// DC/SIN/PULSE/PWL sources, magnetic inductors and mutual couplings, or
+// diodes, BJTs and MOSFETs), one thread per Monte-Carlo lane, in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_run.py::_run_kernel
 // (body _run_core, launched at pallas_run.py:811) for its compat subset:
-// the linear decks, and the nonlinear ones whose attempt runs the in-kernel
-// Newton (pallas_tran.py::_newton_in_kernel, here csrc/newton.cuh).  The
-// TPU kernel carries double-float (hi, lo) f32 pairs folded to (8, W)
-// sublane tiles and steps whole blocks of lanes in lockstep; Hopper has
-// native f64, so each thread here runs its own lane's loop (tran.go:96-152,
-// as engine/tran.py:145-200 of the JAX package):
+// the linear decks, the magnetic ones (LM and K with the frozen-core run
+// constants of _run_const64, stamped as _run_core stamps them), and the
+// nonlinear ones whose attempt runs the in-kernel Newton
+// (pallas_tran.py::_newton_in_kernel, here csrc/newton.cuh).  The TPU
+// kernel carries double-float (hi, lo) f32 pairs folded to (8, W) sublane
+// tiles and steps whole blocks of lanes in lockstep; Hopper has native
+// f64, so each thread here runs its own lane's loop (tran.go:96-152, as
+// engine/tran.py:145-200 of the JAX package):
 //
 //   while (!done && attempts < max_attempts):
 //     clamp dt at tstop; sources at the OLD time t (PLAN.md 2);
@@ -21,6 +23,21 @@
 //     LTE from the COMMITTED C/L state; accept (commit compat C/L state,
 //     grow dt x2 or x1.1 up to tmax) or reject (halve dt while dt >
 //     minstep, else a hard fail).
+//
+// The STORE instantiation also replaces pallas_tran.py::_fused_kernel
+// (:1429, launched at :2252) with the waveform store of make_tran_fused
+// (:1958) around it: an accepted attempt with next_t >= tstart writes the
+// lane's whole solution (ground row included) and next_t straight into
+// row n_kept of the lane's (max_store, np1) block.  The TPU needed one
+// launch per attempt, a uniform-slot attempt buffer and a compaction after
+// the run because Mosaic could neither hold that block in VMEM nor scatter
+// per lane; here the thread that owns the lane owns its rows.  With the
+// stream flag a full block pauses the lane (the caller drains it and
+// re-enters); without it a row past max_store is dropped and the lane's
+// overflow flag set (max_store = 0 keeps nothing: a resumed run without
+// waveforms).  The STORE instantiation starts each lane from its own t, dt
+// and attempt count (a fresh run: 0, minstep, 0; a resume or a stream's
+// re-entry: the checkpoint's), so max_attempts binds the whole run.
 //
 // A non-finite t or dt does not end a lane early: as in the general
 // engine's loop, done and the hard fail decide, and max_attempts bounds
@@ -36,6 +53,8 @@
 // eligible deck; the matrix lives in a per-thread array sized by the
 // template NMAX (8, 16 or 32), and nonlinearity is a second template
 // parameter, so a linear deck runs the code of a kernel without Newton.
+// MAG (the LM and K stamps) and STORE are template parameters too: the
+// instantiations without them compile to the code they had before.
 //
 // Bound: operations.  An attempt on bench.py's RLC deck (np1 = 6) needs 299
 // f64 operations (chip_smoke.py attempt_flops: 231 for the 6 x 7
@@ -108,16 +127,59 @@ __device__ double source_value(int stype, const double* p, int P, double t) {
   return dc;
 }
 
-template <int NMAX, bool NL>
+// The compat magnetic run constants of one lane (ops/run_plan.py
+// magnetic_rows) and the K partners' table.
+struct Mag {
+  const double* l0;    // [nlm] L0 = mu0 N^2 A / len
+  const double* leff;  // [nlm] L_eff at the frozen core
+  const double* i0;    // [nlm] the frozen i0
+  const double* i1;    // [nlm] the frozen i1
+  const double* mij;   // [nk] M = k sqrt(La Lb)
+  const int* kp;       // [nk][4] kind_a, idx_a, kind_b, idx_b
+  const double* l_i0;  // the linear inductors' committed i0 (live)
+
+  // the LM branch value (assemble.py LM tran, compat): L0 on the first
+  // step or while |i0| < 1e-9, else L_eff
+  __device__ __forceinline__ double l_used(int k, double t, double dtl) const {
+    return (t < dtl || fabs(i0[k]) < 1e-9) ? l0[k] : leff[k];
+  }
+  // a winding's current as the mutual stamp reads it (mutual.go:114-115):
+  // a linear L's live junk i0, an LM's frozen i0
+  __device__ __forceinline__ double partner_i0(int kind, int idx) const {
+    return kind == 0 ? l_i0[idx] : i0[idx];
+  }
+  // a magnetic stamp's value; every other tag left here is TAG_ONE
+  __device__ __forceinline__ double term(int tag, int k, double t, double dte,
+                                         double dtl) const {
+    switch (tag) {
+      case TAG_LMTERM: return l_used(k, t, dtl) / dtl;
+      case TAG_LMRHS: return (l_used(k, t, dtl) / dtl) * i1[k];
+      case TAG_KTERM: return mij[k] / dte;
+      case TAG_KRHSA:
+        return (mij[k] * partner_i0(kp[4 * k + 2], kp[4 * k + 3])) / dte;
+      case TAG_KRHSB:
+        return (mij[k] * partner_i0(kp[4 * k], kp[4 * k + 1])) / dte;
+      default: return 1.0;
+    }
+  }
+};
+
+// t_io, dt_io and att_io hold each lane's end on exit, and in the STORE
+// instantiation its start on entry; out_x/out_t/out_n/overflow are used
+// only by the STORE instantiation.
+template <int NMAX, bool NL, bool MAG, bool STORE>
 __global__ void __launch_bounds__(THREADS)
 run_kernel(const int* __restrict__ topo_g, int topo_len,
            const double* __restrict__ dev, const double* __restrict__ rc,
            double* __restrict__ state, double* __restrict__ jv_g,
-           double* __restrict__ t_out, double* __restrict__ dt_out,
-           int* __restrict__ acc_out, int* __restrict__ att_out,
+           double* __restrict__ t_io, double* __restrict__ dt_io,
+           int* __restrict__ acc_out, int* __restrict__ att_io,
            int* __restrict__ fail_out, int* __restrict__ nri_out, int nlanes,
            double tstop, double minstep, double tmax, double trtol,
-           int max_attempts, double reltol, double abstol, int max_iter) {
+           int max_attempts, double reltol, double abstol, int max_iter,
+           double tstart, int max_store, int stream,
+           double* __restrict__ out_x, double* __restrict__ out_t,
+           int* __restrict__ out_n, int* __restrict__ overflow) {
   extern __shared__ int topo[];
   for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
   __syncthreads();
@@ -150,14 +212,32 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
   double* l_v0 = l_i0 + 2 * nl;
   double* l_v1 = l_i0 + 3 * nl;
   double* l_flux0 = l_i0 + 4 * nl;
+  // the magnetic run constants follow L in the dev rows
+  Mag mag{};
+  if constexpr (MAG) {
+    const int nlm = topo[H_NLM];
+    mag.l0 = lval + nl;
+    mag.leff = mag.l0 + nlm;
+    mag.i0 = mag.l0 + 2 * nlm;
+    mag.i1 = mag.l0 + 3 * nlm;
+    mag.mij = mag.l0 + 4 * nlm;
+    mag.kp = topo + topo[H_KP];
+    mag.l_i0 = l_i0;
+  }
 
   double m[NMAX][NMAX + 1];
   double x[NMAX];
   double sv[MAX_SRC];
 
-  double t = 0.0, dt = minstep;
-  bool done = tstop <= 0.0, fail = false;
-  int acc = 0, att = 0, nri = 0;
+  // a run without the store starts at 0 (the code of the kernel before the
+  // store: reading the start rows there cost the linear instantiation 24
+  // registers); the store instantiation reads each lane's start
+  double t = STORE ? t_io[lane] : 0.0, dt = STORE ? dt_io[lane] : minstep;
+  int att = STORE ? att_io[lane] : 0;
+  bool done = tstop <= 0.0 || t >= tstop, fail = false;
+  int acc = 0, nri = 0;
+  int n_kept = 0;
+  bool dropped = false;
   const double trtol100 = trtol / 100.0;
 
   // the Newton's state: the deck's device blocks, the lane's junction
@@ -169,7 +249,8 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
   if constexpr (NL)
     for (int i = 0; i < deck.kj; ++i) jv[i] = jv_lane[i];
 
-  while (!done && att < max_attempts) {
+  while (!done && att < max_attempts &&
+         (!STORE || !stream || n_kept < max_store)) {
     const double tpdt = t + dt;
     const bool over = tpdt > tstop;
     const double next_t = over ? tstop : tpdt;
@@ -220,7 +301,13 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
           case TAG_LRHS: v = (lval[k] / dtl) * l_i1[k]; break;
           case TAG_VSRC: v = sv[k]; break;
           case TAG_ISRC: v = sv[topo[H_NV] + k]; break;
-          default: v = 1.0; break;  // TAG_ONE
+          default:  // TAG_ONE, or a magnetic stamp
+            if constexpr (MAG) {
+              v = mag.term(en[2], k, t, dte, dtl);
+            } else {
+              v = 1.0;
+            }
+            break;
         }
         m[en[0]][en[1]] += (double)en[4] * v;
       }
@@ -304,6 +391,18 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
         l_flux0[k] = vd * dte;
       }
       t = next_t;
+      if constexpr (STORE) {  // tran.go:141-143
+        if (next_t >= tstart) {
+          if (n_kept < max_store) {
+            const size_t row = (size_t)lane * max_store + n_kept;
+            for (int i = 0; i < n; ++i) out_x[row * n + i] = x[i];
+            out_t[row] = next_t;
+            ++n_kept;
+          } else {
+            dropped = true;
+          }
+        }
+      }
       const double grown = dte * (lte < trtol100 ? 2.0 : 1.1);
       const double dt_g = isnan(grown) ? grown : (grown > tmax ? tmax : grown);
       dt = (next_t < tstop && dte < tmax) ? dt_g : dte;
@@ -321,12 +420,17 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
 
   if constexpr (NL)
     for (int i = 0; i < deck.kj; ++i) jv_lane[i] = jv[i];
-  t_out[lane] = t;
-  dt_out[lane] = dt;
+  // a linear attempt is one solve: this run's attempts
+  nri_out[lane] = NL ? nri : (STORE ? att - att_io[lane] : att);
+  t_io[lane] = t;
+  dt_io[lane] = dt;
   acc_out[lane] = acc;
-  att_out[lane] = att;
+  att_io[lane] = att;
+  if constexpr (STORE) {
+    out_n[lane] = n_kept;
+    overflow[lane] = dropped ? 1 : 0;
+  }
   fail_out[lane] = fail ? 1 : 0;
-  nri_out[lane] = NL ? nri : att;  // a linear attempt is one solve
 }
 
 struct RunArgs {
@@ -336,10 +440,10 @@ struct RunArgs {
   const double* rc;
   double* state;
   double* jv;
-  double* t_out;
-  double* dt_out;
+  double* t_io;
+  double* dt_io;
   int* acc;
-  int* att;
+  int* att_io;
   int* fail;
   int* nri;
   int nlanes;
@@ -347,46 +451,86 @@ struct RunArgs {
   int max_attempts;
   double reltol, abstol;
   int max_iter;
+  double tstart;
+  int max_store, stream;
+  double* out_x;
+  double* out_t;
+  int* out_n;
+  int* overflow;
 };
 
-template <int NMAX, bool NL>
+template <int NMAX, bool NL, bool MAG, bool STORE>
 cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
   const int blocks = (a.nlanes + THREADS - 1) / THREADS;
   const size_t shmem = (size_t)a.topo_len * sizeof(int);
-  run_kernel<NMAX, NL><<<blocks, THREADS, shmem, stream>>>(
-      a.topo, a.topo_len, a.dev, a.rc, a.state, a.jv, a.t_out, a.dt_out,
-      a.acc, a.att, a.fail, a.nri, a.nlanes, a.tstop, a.minstep, a.tmax,
-      a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter);
+  run_kernel<NMAX, NL, MAG, STORE><<<blocks, THREADS, shmem, stream>>>(
+      a.topo, a.topo_len, a.dev, a.rc, a.state, a.jv, a.t_io, a.dt_io,
+      a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep, a.tmax,
+      a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter, a.tstart,
+      a.max_store, a.stream, a.out_x, a.out_t, a.out_n, a.overflow);
   return cudaGetLastError();
 }
 
-template <int NMAX>
-cudaError_t launch_nl(const RunArgs& a, bool nonlinear, cudaStream_t s) {
-  return nonlinear ? launch<NMAX, true>(a, s) : launch<NMAX, false>(a, s);
+// the Newton instantiation, or a linear one with or without the magnetic
+// stamps (a deck with LM or K has no diode, BJT or MOSFET)
+template <int NMAX, bool STORE>
+cudaError_t launch_kind(const RunArgs& a, int nonlinear, int mag,
+                        cudaStream_t s) {
+  if (nonlinear) return launch<NMAX, true, false, STORE>(a, s);
+  if (mag) return launch<NMAX, false, true, STORE>(a, s);
+  return launch<NMAX, false, false, STORE>(a, s);
+}
+
+template <bool STORE>
+int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
+               void* stream) {
+  if (a.nlanes <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (np1 <= 8) return launch_kind<8, STORE>(a, nonlinear, mag, s);
+  if (np1 <= 16) return launch_kind<16, STORE>(a, nonlinear, mag, s);
+  if (np1 <= 32) return launch_kind<32, STORE>(a, nonlinear, mag, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Launch the whole-run kernel for nlanes lanes on `stream`; returns the
-// cudaError_t of the launch (0 on success).  np1 picks the matrix size and
-// nonlinear the Newton instantiation.  state and jv are updated in place.
-extern "C" int tsr_run(int np1, int nonlinear, const int* topo, int topo_len,
-                       const double* dev, const double* rc, double* state,
-                       double* jv, double* t_out, double* dt_out, int* acc,
-                       int* att, int* fail, int* nri, int nlanes,
+// Launch the whole-run kernel for nlanes lanes on `stream` from t = 0;
+// returns the cudaError_t of the launch (0 on success).  np1 picks the
+// matrix size, nonlinear the Newton instantiation and mag the magnetic
+// stamps.  state and jv are updated in place; t, dt and att are written.
+extern "C" int tsr_run(int np1, int nonlinear, int mag, const int* topo,
+                       int topo_len, const double* dev, const double* rc,
+                       double* state, double* jv, double* t, double* dt,
+                       int* acc, int* att, int* fail, int* nri, int nlanes,
                        double tstop, double minstep, double tmax,
                        double trtol, int max_attempts, double reltol,
                        double abstol, int max_iter, void* stream) {
-  if (nlanes <= 0) return 0;
-  const RunArgs a{topo,    topo_len, dev,   rc,     state,  jv,
-                  t_out,   dt_out,   acc,   att,    fail,   nri,
-                  nlanes,  tstop,    minstep, tmax, trtol,  max_attempts,
-                  reltol,  abstol,   max_iter};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (np1 <= 8) return launch_nl<8>(a, nonlinear != 0, s);
-  if (np1 <= 16) return launch_nl<16>(a, nonlinear != 0, s);
-  if (np1 <= 32) return launch_nl<32>(a, nonlinear != 0, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const RunArgs a{topo,    topo_len, dev,     rc,      state,   jv,
+                  t,       dt,       acc,     att,     fail,    nri,
+                  nlanes,  tstop,    minstep, tmax,    trtol,   max_attempts,
+                  reltol,  abstol,   max_iter, 0.0,    0,       0,
+                  nullptr, nullptr,  nullptr, nullptr};
+  return launch_np1<false>(a, np1, nonlinear, mag, stream);
+}
+
+// The same with the waveform store, from each lane's t, dt and att: out_x
+// (nlanes, max_store, np1) and out_t (nlanes, max_store), zeroed by the
+// caller; out_n and overflow (nlanes) are written.  stream != 0 pauses a
+// lane whose block is full.
+extern "C" int tsr_run_store(
+    int np1, int nonlinear, int mag, const int* topo, int topo_len,
+    const double* dev, const double* rc, double* state, double* jv,
+    double* t, double* dt, int* acc, int* att, int* fail, int* nri,
+    int nlanes, double tstop, double minstep, double tmax, double trtol,
+    int max_attempts, double reltol, double abstol, int max_iter,
+    double tstart, int max_store, int stream, double* out_x, double* out_t,
+    int* out_n, int* overflow, void* cuda_stream) {
+  const RunArgs a{topo,    topo_len, dev,     rc,      state,  jv,
+                  t,       dt,       acc,     att,     fail,   nri,
+                  nlanes,  tstop,    minstep, tmax,    trtol,  max_attempts,
+                  reltol,  abstol,   max_iter, tstart, max_store, stream,
+                  out_x,   out_t,    out_n,   overflow};
+  return launch_np1<true>(a, np1, nonlinear, mag, cuda_stream);
 }
 
 extern "C" const char* tsr_error_string(int err) {

@@ -1,21 +1,25 @@
 """Monte-Carlo batching of the transient, the operating point, the DC
 sweep and AC (engine/batch.py of the JAX package: ``batch_params``,
-``make_tran_batch``, ``select_tran_engine``, ``select_op_engine``,
-``run_op_batch``, ``run_dc_batch``, ``run_ac_batch``).
+``make_tran_batch``, ``select_tran_engine``, ``run_transient_batch``,
+``make_tran_stream``, ``stream_transient_chunks``,
+``run_transient_streamed``, ``select_op_engine``, ``run_op_batch``,
+``run_dc_batch``, ``run_ac_batch``).
 
 Parameters are a dict of f64 tensors on one device: leaves a batch
 overrides carry a leading batch axis (B, nk), the rest stay shared (nk,).
-The port's engines: the whole-run kernel for the transient
-(``ops/run.py``); for the OP, the OP kernel with its rescue ladders
-(``ops/op.py``) on a nonlinear deck and the stamped solve under the same
-ladders (``engine/op.make_op``) on a linear one; for the DC sweep, the DC
-sweep kernel (``ops/dc.py``) or the stamped solve of every point
-(``engine/dc.make_dc``); for AC, that OP and the AC kernel
+The port's engines: the whole-run kernel for the transient, its store
+instantiation for waveforms (``store='full'``, the streamed store) and
+for a resumed run (``ops/run.py``); for the OP, the OP kernel with its
+rescue ladders (``ops/op.py``) on a nonlinear deck and the stamped solve
+under the same ladders (``engine/op.make_op``) on a linear one; for the DC
+sweep, the DC sweep kernel (``ops/dc.py``) or the stamped solve of every
+point (``engine/dc.make_dc``); for AC, that OP and the AC kernel
 (``engine/ac.py``).  A deck, store or semantics they do not cover raises
 ``NotImplementedError`` with the reason.
 """
 
 import logging
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
@@ -51,9 +55,13 @@ def batch_params(cc, overrides: Dict[str, Dict[str, object]],
 
 def select_tran_engine(cc, cfg: TranConfig, in_axes,
                        semantics: str = "compat", store: str = "none",
-                       opts: SimOptions = DEFAULTS):
-    """(engine_name, reason, fn) for a batched transient.  The only engine
-    is "run", the whole-run kernel; anything it does not serve raises
+                       opts: SimOptions = DEFAULTS, resume: bool = False):
+    """(engine_name, reason, fn) for a batched transient: "run", the
+    whole-run kernel, for a fresh ``store='none'`` run; "store", its store
+    instantiation (the JAX package's "fused" engine), for ``store='full'``
+    and for ``resume=True``, whose fn(params, state0, t0, jv0, dt0=None,
+    attempts0=None) continues a checkpointed run
+    (``ops/run.make_tran_run``).  Anything the kernels do not serve raises
     NotImplementedError with the reason.  ``in_axes`` keeps the JAX
     package's call shape (bench.py passes ``batch_params``' axes); the port
     reads the batch axis from the tensors themselves."""
@@ -63,22 +71,157 @@ def select_tran_engine(cc, cfg: TranConfig, in_axes,
     if why is not None:
         raise NotImplementedError(
             f"no transient engine for this run in the port: {why}")
-    reason = f"whole-run kernel eligible ({semantics}/{opts.integration})"
-    return "run", reason, make_tran_run(cc, cfg, opts, semantics=semantics)
+    fn = make_tran_run(cc, cfg, opts, semantics=semantics, store=store,
+                       resume=resume)
+    if store == "full" or resume:
+        how = ", resumed from each lane's t0" if resume else ""
+        return "store", ("the whole-run kernel's store instantiation "
+                         f"({semantics}/{opts.integration}, store={store!r}"
+                         f"{how})"), fn
+    return "run", (f"whole-run kernel eligible ({semantics}/"
+                   f"{opts.integration})"), fn
 
 
 def make_tran_batch(cc, cfg: TranConfig, in_axes,
                     semantics: str = "compat", store: str = "none",
-                    opts: SimOptions = DEFAULTS):
-    """The batched transient callable fn(params, state0) -> TranOutput,
-    with ``.engine`` and ``.engine_reason`` set.  It runs on the device its
-    parameters lie on; ``in_axes`` is as in ``select_tran_engine``."""
+                    opts: SimOptions = DEFAULTS, resume: bool = False):
+    """The batched transient callable fn(params, state0) -> TranOutput
+    (with ``resume=True``: fn(params, state0, t0, jv0, dt0=None,
+    attempts0=None)), with ``.engine`` and ``.engine_reason`` set.  It runs
+    on the device its parameters lie on; ``in_axes`` is as in
+    ``select_tran_engine``.  Build it once and call it many times."""
     engine, reason, fn = select_tran_engine(
-        cc, cfg, in_axes, semantics=semantics, store=store, opts=opts)
+        cc, cfg, in_axes, semantics=semantics, store=store, opts=opts,
+        resume=resume)
     _log.info("transient engine: %s (%s)", engine, reason)
     fn.engine = engine
     fn.engine_reason = reason
     return fn
+
+
+def run_transient_batch(cc, cfg: TranConfig, params, in_axes, state0,
+                        semantics: str = "compat", store: str = "none",
+                        opts: SimOptions = DEFAULTS):
+    """One-shot batched transient (builds the callable and calls it).  With
+    ``store='full'`` a lane that dropped a kept row past ``cfg.max_store``
+    sets ``TranOutput.store_overflow``; this runner checks the flags on the
+    host and warns (``build_config`` sizes max_store so that it does not
+    happen)."""
+    fn = make_tran_batch(cc, cfg, in_axes, semantics=semantics, store=store,
+                         opts=opts)
+    out = fn(params, state0)
+    if store == "full":
+        n_over = int(out.store_overflow.sum())
+        if n_over:
+            warnings.warn(
+                f"the waveform store overflowed on {n_over} instance(s): "
+                "kept rows past max_store were dropped (check "
+                "TranOutput.store_overflow per lane)", RuntimeWarning,
+                stacklevel=2)
+    return out
+
+
+def make_tran_stream(cc, cfg: TranConfig, chunk_store: int,
+                     semantics: str = "compat", opts: SimOptions = DEFAULTS):
+    """The (fresh, cont) pair of the streamed store: store='full' with a
+    ``chunk_store``-row buffer whose lanes pause when it is full; ``cont``
+    is the resume flavour.  Build once and pass to
+    ``stream_transient_chunks`` via ``fns`` when draining repeatedly."""
+    from ..ops.run import make_tran_run, run_ineligible_reason
+
+    why = run_ineligible_reason(cc, semantics, "full", opts)
+    if why is not None:
+        raise ValueError(f"the streamed store needs the store engine: {why}")
+    if int(chunk_store) < 1:
+        raise ValueError("chunk_store must be at least 1 row")
+    cfg_c = cfg._replace(max_store=int(chunk_store))
+    fresh = make_tran_run(cc, cfg_c, opts, semantics=semantics,
+                          store="full", stream=True)
+    cont = make_tran_run(cc, cfg_c, opts, semantics=semantics,
+                         store="full", stream=True, resume=True)
+    return fresh, cont
+
+
+def stream_transient_chunks(cc, cfg: TranConfig, params, state0,
+                            chunk_store: int, semantics: str = "compat",
+                            opts: SimOptions = DEFAULTS, fns=None):
+    """Generator: the full-waveform transient in chunks of at most
+    ``chunk_store`` rows per lane, each yielded as a ``TranOutput`` on the
+    device.
+
+    Lanes pause (they do not fail, and nothing is truncated) when their
+    buffer fills; the next chunk re-enters the same callables at each
+    lane's (t_final, dt_final, state, jv, attempts).  Because the adaptive
+    dt is carried exactly, the chunks concatenated reproduce the
+    monolithic store='full' run step for step.  ``cfg.max_attempts`` binds
+    the cumulative per-lane budget (each chunk's ``attempts`` is
+    cumulative, ``accepted`` and ``nr_iters`` are the chunk's); a lane
+    that is done, failed or out of budget is parked at tstop, where it
+    does not move.  Which lanes go on is decided with one reduction on the
+    device and one host sync per chunk."""
+    fresh, cont = fns if fns is not None else make_tran_stream(
+        cc, cfg, chunk_store, semantics, opts)
+    out = fresh(params, state0)
+    yield out
+    parked = out.fail
+    while True:
+        parked = parked | out.fail | (out.attempts >= cfg.max_attempts)
+        go_on = ~parked & (out.t_final < cfg.tstop)
+        if not bool(go_on.any()):
+            return
+        t_next = torch.where(go_on, out.t_final,
+                             torch.full_like(out.t_final, cfg.tstop))
+        out = cont(params, out.state, t_next, out.jv, out.dt_final,
+                   out.attempts)
+        yield out
+
+
+def run_transient_streamed(cc, cfg: TranConfig, params, state0,
+                           chunk_store: int, semantics: str = "compat",
+                           opts: SimOptions = DEFAULTS):
+    """The streamed full-waveform transient stitched on the host into the
+    monolithic layout: ``out_x`` (B, N, np1), ``out_t`` (B, N) and
+    ``out_n`` (B,) are CPU tensors (N the most rows of any lane); the rest
+    stay on the device.  ``accepted`` and ``nr_iters`` add up over the
+    chunks, ``attempts`` is the last chunk's (already cumulative), ``fail``
+    and ``store_overflow`` latch."""
+    xs, ts_, ns = [], [], []
+    accepted = nr_iters = fail = overflow = last = None
+    for out in stream_transient_chunks(cc, cfg, params, state0, chunk_store,
+                                       semantics, opts):
+        kmax = int(out.out_n.max())
+        xs.append(out.out_x[:, :kmax].cpu())
+        ts_.append(out.out_t[:, :kmax].cpu())
+        ns.append(out.out_n.cpu().long())
+        if last is None:
+            accepted, nr_iters = out.accepted, out.nr_iters
+            fail, overflow = out.fail, out.store_overflow
+        else:
+            accepted = accepted + out.accepted
+            nr_iters = nr_iters + out.nr_iters
+            fail = fail | out.fail
+            overflow = overflow | out.store_overflow
+        last = out
+    total = torch.stack(ns).sum(dim=0)
+    b, np1 = last.out_x.shape[0], last.out_x.shape[2]
+    n_max = int(total.max())
+    out_x = torch.zeros((b, n_max, np1), dtype=torch.float64)
+    out_t = torch.zeros((b, n_max), dtype=torch.float64)
+    # one masked copy per chunk: row j of a lane's chunk goes to the
+    # lane's offset + j
+    offs = torch.zeros(b, dtype=torch.long)
+    for cx, ct, cn in zip(xs, ts_, ns):
+        j = torch.arange(cx.shape[1])[None, :]
+        valid = j < cn[:, None]
+        lane = torch.arange(b)[:, None].expand_as(valid)[valid]
+        dest = (offs[:, None] + j)[valid]
+        out_x[lane, dest] = cx[valid]
+        out_t[lane, dest] = ct[valid]
+        offs += cn
+    return last._replace(out_x=out_x, out_t=out_t,
+                         out_n=total.to(torch.int32), fail=fail,
+                         accepted=accepted, nr_iters=nr_iters,
+                         store_overflow=overflow)
 
 
 def linear_op_ineligible_reason(cc, semantics: str = "compat"):

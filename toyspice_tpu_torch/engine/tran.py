@@ -47,16 +47,20 @@ def build_config(tstart, tstop, tstep, tmax, uic,
 class TranOutput(NamedTuple):
     """Per-lane transient result; every tensor has the batch axis first."""
 
-    out_x: torch.Tensor  # (B, 1, np1): no waveform store in this engine
-    out_t: torch.Tensor  # (B, 1)
-    out_n: torch.Tensor  # (B,) int32, all 0
+    out_x: torch.Tensor  # store='full': (B, max_store, np1), every kept
+    #                      accepted step's solution, 0 past out_n;
+    #                      store='none': (B, 1, np1) zeros
+    out_t: torch.Tensor  # (B, max_store) times of those rows ((B, 1))
+    out_n: torch.Tensor  # (B,) int32 rows kept (0 with store='none')
     fail: torch.Tensor  # (B,) bool: a failed solve at minstep (hard fail)
-    accepted: torch.Tensor  # (B,) int32 accepted steps
-    attempts: torch.Tensor  # (B,) int32
+    accepted: torch.Tensor  # (B,) int32 accepted steps (of this call)
+    attempts: torch.Tensor  # (B,) int32, cumulative over a resumed run
     nr_iters: torch.Tensor  # (B,) int32 Newton iterations (1 per attempt
     #                         on a linear deck)
     t_final: torch.Tensor  # (B,) committed simulation time on exit
     state: dict  # committed C/L state and the D/Q/M passthrough, (B, nk)
     jv: dict  # junction voltages on exit, (B, nk); empty for linear decks
-    store_overflow: torch.Tensor = None  # (B,) bool, all False
-    dt_final: torch.Tensor = None  # (B,) adaptive step size on exit
+    store_overflow: torch.Tensor = None  # (B,) bool: a kept row was
+    #                                      dropped past max_store
+    dt_final: torch.Tensor = None  # (B,) adaptive step size on exit (the
+    #                                dt0 that continues the run exactly)

@@ -18,6 +18,7 @@ from ..utils.tensor import scalar_div, true_div
 CUTOFF, LINEAR, SATURATION = 0, 1, 2
 GMIN = 1e-12
 DELTA = 1e-6
+INV_DELTA = 1e6  # XLA folds a division by DELTA into this product
 EPS0 = 8.85e-14  # F/cm, as the reference writes it (mosfet.go:382)
 
 
@@ -89,10 +90,12 @@ def _ids_pos(p, level, vgs, vds, vbs):
 
     # level 2 (mosfet.go:378-418)
     cox = scalar_div(3.9 * EPS0, p["tox"])
-    eeff = vgst / (p["tox"] * 100.0)
+    tox100 = p["tox"] * 100.0
+    eeff = vgst / tox100
+    # eeff / ucrit as XLA computes it: (a / b) / c -> a / (b·c)
     ueff = p["uo"] / torch.where(
         (p["ucrit"] > 0) & (eeff > 0),
-        1.0 + pow_pos(torch.clamp_min(eeff / p["ucrit"], 1e-300),
+        1.0 + pow_pos(torch.clamp_min(vgst / (tox100 * p["ucrit"]), 1e-300),
                       p["uexp"]),
         1.0)
     ecrit = p["vmax"] / torch.where(ueff == 0, 1.0, ueff) * 100.0
@@ -107,13 +110,15 @@ def _ids_pos(p, level, vgs, vds, vbs):
     # level 3 (mosfet.go:421-459)
     vgst_eff = torch.where(p["theta"] > 0, vgst / (1.0 + p["theta"] * vgst),
                            vgst)
+    # a / sqrt(b) as XLA computes it, a times the reciprocal square root
     vdsat3 = torch.where(
         p["kappa"] > 0,
-        vgst_eff / torch.sqrt(torch.clamp_min(1.0 + p["kappa"] * vgst_eff,
-                                              1e-30)),
+        vgst_eff * scalar_div(1.0, torch.sqrt(torch.clamp_min(
+            1.0 + p["kappa"] * vgst_eff, 1e-30))),
         vgst_eff)
-    beta3 = beta1 / torch.where(p["delta"] > 0, 1.0 + p["delta"] / p["w"],
-                                1.0)
+    # beta1 / c as XLA computes it: (kp·w / l) / c -> kp·w / (l·c)
+    beta3 = (p["kp"] * p["w"]) / (p["l"] * torch.where(
+        p["delta"] > 0, 1.0 + p["delta"] / p["w"], 1.0))
     lin3 = (beta3
             * (vgst_eff * vds
                - 0.5 * vds * vds / (1.0 + p["kappa"] * vgst_eff))
@@ -156,9 +161,10 @@ def dc_eval(p, level, vgs, vds, vbs) -> MosEval:
     idg, _ = _ids_pos(p, level, vgs + d, vds, vbs)
     idd, _ = _ids_pos(p, level, vgs, vds + d, vbs)
     idb, _ = _ids_pos(p, level, vgs, vds, vbs + d)
-    gm23 = torch.clamp_min(true_div(sign * idg - id_, DELTA), GMIN)
-    gds23 = torch.clamp_min(true_div(sign * idd - id_, DELTA), GMIN)
-    gmbs23 = torch.clamp_min(true_div(sign * idb - id_, DELTA), GMIN)
+    # the quotients as XLA computes them: x / 1e-6 -> x·1e6
+    gm23 = torch.clamp_min((sign * idg - id_) * INV_DELTA, GMIN)
+    gds23 = torch.clamp_min((sign * idd - id_) * INV_DELTA, GMIN)
+    gmbs23 = torch.clamp_min((sign * idb - id_) * INV_DELTA, GMIN)
 
     use23 = (level == 2) | (level == 3)
     gm = torch.where(use23, gm23, gm1)
@@ -188,13 +194,15 @@ def dc_eval(p, level, vgs, vds, vbs) -> MosEval:
                           p["cj"] * p["as"] + p["cjsw"] * p["ps"], p["cbs"])
     cbd_eff = torch.where((p["cbd"] == 0) & (p["cj"] > 0),
                           p["cj"] * p["ad"] + p["cjsw"] * p["pd"], p["cbd"])
+    # 2·c/3 and c/3 as XLA computes them: products with the folded
+    # constants
     half = true_div(cgate, 2.0)
-    two_thirds = true_div(2.0 * cgate, 3.0)
+    two_thirds = cgate * (2.0 / 3.0)
     cgs = torch.where(cut, cgso, torch.where(lin, half + cgso,
                                              two_thirds + cgso))
     cgd = torch.where(cut, cgdo, torch.where(lin, half + cgdo, cgdo))
     cgb = torch.where(cut, two_thirds,
-                      torch.where(lin, cgbo, cgbo + true_div(cgate, 3.0)))
+                      torch.where(lin, cgbo, cgbo + cgate * (1.0 / 3.0)))
     return MosEval(id=id_, region=region, gm=gm, gds=gds, gmbs=gmbs,
                    cgs=cgs, cgd=cgd, cgb=cgb, cbs_eff=cbs_eff,
                    cbd_eff=cbd_eff)

@@ -92,22 +92,26 @@ def build(names=tuple(SOURCES), extra_flags=()):
 build.log = {}
 
 _ARGTYPES = {
-    # tsr_run(np1, nonlinear, topo, topo_len, dev, rc, state, jv, t, dt,
-    #         acc, att, fail, nri, nlanes, tstop, minstep, tmax, trtol,
+    # tsr_run(np1, nonlinear, mag, topo, topo_len, dev, rc, state, jv, t,
+    #         dt, acc, att, fail, nri, nlanes, tstop, minstep, tmax, trtol,
     #         max_attempts, reltol, abstol, max_iter, stream)
-    "run": ("tsr_run", "iipi" + "p" * 10 + "iddddiddip"),
+    # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
+    #               out_x, out_t, out_n, overflow, stream)
+    "run": (("tsr_run", "iiipi" + "p" * 10 + "iddddiddip"),
+            ("tsr_run_store", "iiipi" + "p" * 10 + "iddddiddi" + "dii"
+             + "p" * 5)),
     # tsr_op(np1, topo, topo_len, dev, dyn, x0, jv0, x, jv, iters, conv,
     #        nlanes, reltol, abstol, max_iter, gmin_floor, stream)
-    "op": ("tsr_op", "ipi" + "p" * 8 + "iddidp"),
+    "op": (("tsr_op", "ipi" + "p" * 8 + "iddidp"),),
     # tsr_stamped(n, tab, tab_len, nnz, nrhs, vals, rvals, gmin, x, nlanes,
     #             stream)
-    "stamped": ("tsr_stamped", "ipiii" + "p" * 4 + "ip"),
+    "stamped": (("tsr_stamped", "ipiii" + "p" * 4 + "ip"),),
     # tsr_dc_sweep(np1, topo, topo_len, dev, dyn, vs, vs_stride, npts, x,
     #              iters, conv, nlanes, reltol, abstol, max_iter,
     #              gmin_floor, stream)
-    "dc": ("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidp"),
+    "dc": (("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidp"),),
     # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
-    "ac": ("tsr_ac", "iii" + "p" * 5 + "p"),
+    "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
 }
 
 
@@ -115,12 +119,12 @@ def load(name="run"):
     """The bound library of one kernel (built at first use)."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build((name,))[name]))
-        fn_name, sig = _ARGTYPES[name]
         kinds = {"i": ctypes.c_int, "q": ctypes.c_longlong,
                  "p": ctypes.c_void_p, "d": ctypes.c_double}
-        fn = getattr(lib, fn_name)
-        fn.argtypes = [kinds[c] for c in sig]
-        fn.restype = ctypes.c_int
+        for fn_name, sig in _ARGTYPES[name]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [kinds[c] for c in sig]
+            fn.restype = ctypes.c_int
         lib.tsr_error_string.argtypes = [ctypes.c_int]
         lib.tsr_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

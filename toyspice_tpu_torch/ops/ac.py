@@ -24,7 +24,7 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 from .op import op_fused_ineligible_reason
 from .run import NP1_CAP
-from .run_plan import SLICE_KINDS, nonlinear
+from .run_plan import DEVICE_KINDS, nonlinear
 
 F64 = torch.float64
 
@@ -35,7 +35,7 @@ def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     if semantics != "compat":
         return (f"semantics={semantics!r} (the port runs compat semantics "
                 "only)")
-    extra = set(cc.idx.keys()) - set(SLICE_KINDS)
+    extra = set(cc.idx.keys()) - set(DEVICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
                 "runs R, C, L, V, I, D, Q and M)")

@@ -31,9 +31,10 @@ import torch
 
 from ..engine.nlstate import update_jv
 from ..models import bjt, diode, mosfet
-from .run_plan import (NL_KINDS, TAG_CEQ, TAG_G, TAG_GEQ, TAG_ISRC, TAG_LRHS,
-                       TAG_LTERM, TAG_NL, TAG_ONE, TAG_VSRC, jv_tree,
-                       nl_params)
+from .run_plan import (NL_KINDS, TAG_CEQ, TAG_G, TAG_GEQ, TAG_ISRC,
+                       TAG_KRHSA, TAG_KRHSB, TAG_KTERM, TAG_LMRHS,
+                       TAG_LMTERM, TAG_LRHS, TAG_LTERM, TAG_NL, TAG_ONE,
+                       TAG_VSRC, jv_tree, nl_params)
 
 F64 = torch.float64
 MAX_NL_DEVICES = 16  # csrc/newton.cuh: diodes + BJTs + MOSFETs per deck
@@ -83,12 +84,15 @@ class Builder:
     def __init__(self, plan, device, entries=None):
         nr, nc, nl, nv, ni = plan.counts[:5]
         ents = plan.entries if entries is None else entries
-        self.base = {TAG_G: 0, TAG_GEQ: nr, TAG_LTERM: nr + nc,
-                     TAG_ONE: nr + nc + nl, TAG_CEQ: nr + nc + nl + 1,
-                     TAG_LRHS: nr + 2 * nc + nl + 1,
-                     TAG_VSRC: nr + 2 * nc + 2 * nl + 1,
-                     TAG_ISRC: nr + 2 * nc + 2 * nl + 1 + nv,
-                     TAG_NL: nr + 2 * nc + 2 * nl + 1 + nv + ni}
+        widths = ((TAG_G, nr), (TAG_GEQ, nc), (TAG_LTERM, nl), (TAG_ONE, 1),
+                  (TAG_CEQ, nc), (TAG_LRHS, nl), (TAG_VSRC, nv),
+                  (TAG_ISRC, ni), (TAG_LMTERM, plan.nlm),
+                  (TAG_LMRHS, plan.nlm), (TAG_KTERM, plan.nk),
+                  (TAG_KRHSA, plan.nk), (TAG_KRHSB, plan.nk), (TAG_NL, 0))
+        self.base, pos = {}, 0
+        for tag, width in widths:
+            self.base[tag] = pos
+            pos += width
         n = plan.np1
         self.n = n
         term_col, sign, cells = [], [], {}

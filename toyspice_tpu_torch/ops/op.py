@@ -38,7 +38,7 @@ from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices, converged
 from .run import check_caps, check_rows, kernel_caps_reason
-from .run_plan import (SLICE_KINDS, const_stack, first_leaf, infer_batch,
+from .run_plan import (DEVICE_KINDS, const_stack, first_leaf, infer_batch,
                        jv_tree, lanes, make_plan, nonlinear, source_leaves,
                        source_stack)
 
@@ -55,7 +55,7 @@ def op_fused_ineligible_reason(cc, semantics: str = "compat", opts=None):
     if semantics != "compat":
         return (f"semantics={semantics!r} (the port runs compat semantics "
                 "only)")
-    extra = set(cc.idx.keys()) - set(SLICE_KINDS)
+    extra = set(cc.idx.keys()) - set(DEVICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
                 "runs R, C, L, V, I, D, Q and M)")

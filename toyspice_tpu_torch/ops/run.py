@@ -4,20 +4,30 @@ adaptive time loop in one launch.
 The counterpart of ``ops/pallas_run.py`` in the JAX package
 (``run_ineligible_reason``, ``_run_const64``, ``_source_vals``,
 ``_run_core`` and ``make_tran_run``), for R/C/L/V/I decks with DC, SIN,
-PULSE and PWL sources, plus diodes, BJTs and MOSFETs.  Three pieces live
-here:
+PULSE and PWL sources, plus magnetic inductors and mutual couplings, or
+diodes, BJTs and MOSFETs; and, through the kernel's store instantiation,
+of ``ops/pallas_tran.py``'s ``make_tran_fused`` (``store='full'``, the
+streamed store and resume).  The pieces:
 
-* ``launch_run_kernel``: the wrapper of ``csrc/run_kernel.cu`` (one thread
-  per lane, f64).  It checks its inputs, allocates the outputs, launches on
-  the current stream and counts its launches in ``.launches``.
-* ``run_plain``: the same arithmetic as batched f64 torch operations with
-  per-lane masks.  The CPU tests use it, and ``chip_smoke.py`` holds the
-  kernel against it on the card.  Each of its steps is one Newton
-  iteration of every lane (one attempt of a linear deck), so lanes at
-  different points of their runs advance together; it looks at the host
-  for pending lanes once every ``CHECK_EVERY`` steps.
-* ``run_lanes``: takes the plain version for CPU tensors only; on CUDA
-  tensors it launches the kernel or raises.
+* ``launch_run_kernel`` and ``launch_store_kernel``: the wrappers of
+  ``csrc/run_kernel.cu`` (one thread per lane, f64) without and with the
+  waveform store.  Each checks its inputs, allocates the outputs, launches
+  on the current stream and counts its launches in ``.launches``.
+* ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
+  torch operations with per-lane masks.  The CPU tests use them, and
+  ``chip_smoke.py`` holds the kernels against them on the card.  Each
+  step is one Newton iteration of every lane (one attempt of a linear
+  deck), so lanes at different points of their runs advance together; the
+  host looks for pending lanes once every ``CHECK_EVERY`` steps.
+* ``run_lanes`` and ``store_lanes``: the plain versions for CPU tensors
+  only; on CUDA tensors they launch the kernel or raise.
+
+A run without the store starts every lane at t = 0; the store
+instantiation starts each lane from its own t, dt and attempt count
+(``RunStart``; a fresh run: 0, minstep, 0), so a resumed or streamed run
+continues the exact adaptive trajectory and ``max_attempts`` binds the
+whole run.  A resumed run without waveforms is the store instantiation
+with ``NO_STORE``.
 
 Each attempt is the reference's tran.go:96-152 (the general engine,
 engine/tran.py:145-200): clamp dt at tstop; evaluate the sources at the OLD
@@ -29,7 +39,11 @@ dt while dt > minstep, else a hard fail).  The junction voltages of the
 last Newton iteration carry to the next attempt whether it accepted or
 not.  A lane stops when it reaches tstop, hard-fails or runs
 ``max_attempts`` attempts; a non-finite t or dt does not stop it early, as
-in the general engine.
+in the general engine.  With the store, an accepted attempt at next_t >=
+tstart keeps the solution (ground row included) and next_t as the lane's
+next row (tran.go:141-143); the streamed store pauses a lane whose
+``max_store`` rows are full, the plain store drops the row and flags the
+lane's overflow.
 """
 
 from typing import NamedTuple
@@ -104,12 +118,38 @@ class RunScalars(NamedTuple):
     max_iter: int = DEFAULTS.max_iter
 
 
+class RunStart(NamedTuple):
+    """Each lane's start: t (B,) f64, dt (B,) f64, attempts (B,) int32."""
+
+    t: torch.Tensor
+    dt: torch.Tensor
+    attempts: torch.Tensor
+
+
+class Store(NamedTuple):
+    """The waveform store of one run."""
+
+    tstart: float
+    max_store: int
+    stream: bool = False  # pause a lane whose rows are full
+
+
+NO_STORE = Store(0.0, 0)  # keeps no row: a resumed run without waveforms
+
+
+class Waveforms(NamedTuple):
+    out_x: torch.Tensor  # (B, max_store, np1) f64, zero past out_n
+    out_t: torch.Tensor  # (B, max_store) f64, zero past out_n
+    out_n: torch.Tensor  # (B,) int32 rows kept
+    overflow: torch.Tensor  # (B,) bool: a row was dropped
+
+
 class RunResult(NamedTuple):
     state: torch.Tensor  # (B, ks) committed state on exit
     t: torch.Tensor  # (B,) f64
     dt: torch.Tensor  # (B,) f64
-    accepted: torch.Tensor  # (B,) int32
-    attempts: torch.Tensor  # (B,) int32
+    accepted: torch.Tensor  # (B,) int32 (this call's)
+    attempts: torch.Tensor  # (B,) int32 (cumulative from the start's)
     fail: torch.Tensor  # (B,) int32, 0 or 1
     jv: torch.Tensor  # (B, kj) junction voltages on exit ((B, 1) if linear)
     nr_iters: torch.Tensor  # (B,) int32 Newton iterations (linear: attempts)
@@ -133,10 +173,20 @@ def check_rows(b, device, rows):
             raise ValueError(f"{name} is on {x.device}, dev on {device}")
 
 
-def _check_inputs(plan, dev, src, state, jv):
-    check_rows(dev.shape[0], dev.device,
+def _check_inputs(plan, dev, src, state, jv, start):
+    b = dev.shape[0]
+    check_rows(b, dev.device,
                (("dev", dev, plan.nd), ("src", src, plan.nrc),
                 ("state", state, plan.ks), ("jv", jv, max(plan.kj, 1))))
+    if start is None:
+        return
+    for name, x, dtype in (("start.t", start.t, F64),
+                           ("start.dt", start.dt, F64),
+                           ("start.attempts", start.attempts, I32)):
+        if x.dtype != dtype or x.shape != (b,) or x.device != dev.device:
+            raise ValueError(f"{name} must be a ({b},) {dtype} tensor on "
+                             f"{dev.device}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
 
 
 def _jv0(plan, dev, jv):
@@ -146,50 +196,119 @@ def _jv0(plan, dev, jv):
     return jv
 
 
-def launch_run_kernel(plan, dev, src, state, sc: RunScalars,
-                      jv=None) -> RunResult:
-    """Run every lane's transient with ``csrc/run_kernel.cu``.
+def fresh_start(b, sc: RunScalars, device) -> RunStart:
+    """t = 0, dt = minstep, no attempts: the start of a run from t = 0."""
+    return RunStart(torch.zeros(b, dtype=F64, device=device),
+                    torch.full((b,), sc.minstep, dtype=F64, device=device),
+                    torch.zeros(b, dtype=I32, device=device))
 
-    ``dev``/``src``/``state``/``jv`` are the (B, ·) f64 CUDA rows of
-    ``ops/run_plan`` (``jv`` None: zero junction voltages); the inputs are
-    not modified."""
+
+def _waves(b, m, np1, device, out):
+    """The store's outputs: new zeroed out_x/out_t, or ``out``'s after a
+    check (the kernel writes only the rows it keeps)."""
+    if out is None:
+        return (torch.zeros((b, m, np1), dtype=F64, device=device),
+                torch.zeros((b, m), dtype=F64, device=device))
+    for name, x, shape in (("out.out_x", out.out_x, (b, m, np1)),
+                           ("out.out_t", out.out_t, (b, m))):
+        if x.dtype != F64 or x.shape != shape or x.device != device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} float64 "
+                             f"tensor on {device}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    return out.out_x, out.out_t
+
+
+def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
+    """One launch of ``csrc/run_kernel.cu``, with the store when ``store``
+    is given (from ``start``; without the store every lane starts at 0);
+    returns (RunResult, Waveforms or None)."""
     if not dev.is_cuda:
-        raise ValueError("launch_run_kernel needs CUDA tensors")
+        raise ValueError("the run kernel needs CUDA tensors")
     jv = _jv0(plan, dev, jv)
-    _check_inputs(plan, dev, src, state, jv)
+    device = dev.device
+    b = dev.shape[0]
+    if store is not None and start is None:
+        start = fresh_start(b, sc, device)
+    _check_inputs(plan, dev, src, state, jv, start)
     if plan.mode != "tran":
         raise ValueError("the run kernel takes a plan of mode 'tran'")
     check_caps(plan)
     lib = _build.load("run")
-    device = dev.device
-    b = dev.shape[0]
     topo = torch.as_tensor(plan.topo, device=device)
     st = state.clone()
     jv_out = jv.clone()
-    t = torch.empty(b, dtype=F64, device=device)
-    dt = torch.empty(b, dtype=F64, device=device)
+    if store is None:  # the kernel starts at 0 and writes these
+        t = torch.empty(b, dtype=F64, device=device)
+        dt = torch.empty(b, dtype=F64, device=device)
+        att = torch.empty(b, dtype=I32, device=device)
+    else:
+        t = start.t.clone()
+        dt = start.dt.clone()
+        att = start.attempts.clone()
     acc = torch.empty(b, dtype=I32, device=device)
-    att = torch.empty(b, dtype=I32, device=device)
     fail = torch.empty(b, dtype=I32, device=device)
     nri = torch.empty(b, dtype=I32, device=device)
+    args = [plan.np1, int(plan.nonlinear), int(plan.nlm + plan.nk > 0),
+            topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
+            src.data_ptr(), st.data_ptr(), jv_out.data_ptr(), t.data_ptr(),
+            dt.data_ptr(), acc.data_ptr(), att.data_ptr(), fail.data_ptr(),
+            nri.data_ptr(), b, float(sc.tstop), float(sc.minstep),
+            float(sc.tmax), float(sc.trtol), int(sc.max_attempts),
+            float(sc.reltol), float(sc.abstol), int(sc.max_iter)]
+    wave = None
+    if store is not None:
+        m = int(store.max_store)
+        wave = Waveforms(
+            *_waves(b, m, plan.np1, device, out),
+            torch.empty(b, dtype=I32, device=device),
+            torch.empty(b, dtype=I32, device=device))
+        args += [float(store.tstart), m, int(store.stream),
+                 wave.out_x.data_ptr(), wave.out_t.data_ptr(),
+                 wave.out_n.data_ptr(), wave.overflow.data_ptr()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tsr_run(
-            plan.np1, int(plan.nonlinear), topo.data_ptr(),
-            int(plan.topo.size), dev.data_ptr(), src.data_ptr(),
-            st.data_ptr(), jv_out.data_ptr(), t.data_ptr(), dt.data_ptr(),
-            acc.data_ptr(), att.data_ptr(), fail.data_ptr(), nri.data_ptr(),
-            b, float(sc.tstop), float(sc.minstep), float(sc.tmax),
-            float(sc.trtol), int(sc.max_attempts), float(sc.reltol),
-            float(sc.abstol), int(sc.max_iter), stream)
+        fn = lib.tsr_run if store is None else lib.tsr_run_store
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"run kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err)})")
+    res = RunResult(st, t, dt, acc, att, fail, jv_out, nri)
+    if wave is not None:
+        wave = wave._replace(overflow=wave.overflow > 0)
+    return res, wave
+
+
+def launch_run_kernel(plan, dev, src, state, sc: RunScalars,
+                      jv=None) -> RunResult:
+    """Run every lane's transient from t = 0 with ``csrc/run_kernel.cu``.
+
+    ``dev``/``src``/``state``/``jv`` are the (B, ·) f64 CUDA rows of
+    ``ops/run_plan`` (``jv`` None: zero junction voltages); the inputs are
+    not modified."""
+    res, _ = _launch(plan, dev, src, state, sc, jv, None, None)
     launch_run_kernel.launches += 1
-    return RunResult(st, t, dt, acc, att, fail, jv_out, nri)
+    return res
 
 
 launch_run_kernel.launches = 0
+
+
+def launch_store_kernel(plan, dev, src, state, sc: RunScalars,
+                        store: Store, jv=None, start: RunStart = None,
+                        out: Waveforms = None):
+    """The same run through the store instantiation of
+    ``csrc/run_kernel.cu``, each lane from ``start`` (None:
+    ``fresh_start``); returns (RunResult, Waveforms).  The counterpart of
+    ``_fused_kernel`` and the waveform store around it.  ``out`` gives
+    zeroed out_x and out_t to write into (its out_n and overflow are not
+    read) in place of new ones."""
+    res = _launch(plan, dev, src, state, sc, jv, start, store, out)
+    launch_store_kernel.launches += 1
+    return res
+
+
+launch_store_kernel.launches = 0
 
 
 # ------------------------------------------------------- the plain version
@@ -197,12 +316,25 @@ launch_run_kernel.launches = 0
 
 def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
     """The kernel's arithmetic as batched torch operations on any device."""
+    return _plain(plan, dev, src, state, sc, jv, None, None)[0]
+
+
+def store_plain(plan, dev, src, state, sc: RunScalars, store: Store,
+                jv=None, start: RunStart = None):
+    """The store instantiation's arithmetic in torch: (RunResult,
+    Waveforms)."""
+    return _plain(plan, dev, src, state, sc, jv, start, store)
+
+
+def _plain(plan, dev, src, state, sc, jv, start, store):
     jv = _jv0(plan, dev, jv)
-    _check_inputs(plan, dev, src, state, jv)
     device = dev.device
     b = dev.shape[0]
+    start = fresh_start(b, sc, device) if start is None else start
+    _check_inputs(plan, dev, src, state, jv, start)
     n = plan.np1
     nr, nc, nl, nv, ni = plan.counts[:5]
+    nlm, nk = plan.nlm, plan.nk
     nonlin = plan.nonlinear
     L = plan.layout
     bld = Builder(plan, device)
@@ -211,6 +343,14 @@ def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
     cadj = dev[:, nr:nr + nc]
     craw = dev[:, nr + nc:nr + 2 * nc]
     lval = dev[:, nr + 2 * nc:nr + 2 * nc + nl]
+    mag = dev[:, nr + 2 * nc + nl:nr + 2 * nc + nl + 4 * nlm + nk]
+    lm_l0, lm_leff, lm_i0, lm_i1 = (mag[:, r * nlm:(r + 1) * nlm]
+                                    for r in range(4))
+    mij = mag[:, 4 * nlm:]
+    # each K's partners as columns of [live L i0 | frozen LM i0]
+    kp = plan.kpairs.astype("int64")
+    ka_col, kb_col = (torch.as_tensor(kp[:, c + 1] + (kp[:, c] != 0) * nl,
+                                      device=device) for c in (0, 2))
     pv = source_leaves(plan, src, "V") if nv else None
     pi = source_leaves(plan, src, "I") if ni else None
     ones = torch.ones((b, 1), dtype=F64, device=device)
@@ -226,8 +366,12 @@ def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
         return st[:, L[key]:L[key] + nk]
 
     def step(carry):
-        st, t, dt, done, fail, acc, att, nri, jv, k, x, jvs = carry
+        st, t, dt, done, fail, acc, att, nri, jv, k, x, jvs = carry[:12]
         running = ~done & (att < sc.max_attempts)
+        if store is not None:
+            n_kept, dropped = carry[12:]
+            if store.stream:  # a full buffer pauses the lane
+                running = running & (n_kept < store.max_store)
 
         tpdt = t + dt
         over = tpdt > sc.tstop
@@ -243,12 +387,20 @@ def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
             terms.append(eval_sources(plan.stype["V"], pv, t))
         if ni:
             terms.append(eval_sources(plan.stype["I"], pi, t))
+        if nlm:  # the compat LM branch value (assemble.py LM tran)
+            use_l0 = (t[:, None] < dtl_c) | (lm_i0.abs() < 1e-9)
+            lmterm = torch.where(use_l0, lm_l0, lm_leff) / dtl_c
+            terms += [lmterm, lmterm * lm_i1]
+        if nk:  # -M/dt and the junk-i0 memory (mutual.go:114-115)
+            i0s = torch.cat([rows(st, "l_i0", nl), lm_i0], dim=1)
+            terms += [mij / dte_c, (mij * i0s[:, kb_col]) / dte_c,
+                      (mij * i0s[:, ka_col]) / dte_c]
         if nonlin:
             # iteration 0 of an attempt: x = 0 and the carried junction
             # voltages (warm start); later ones limit the new solution
-            start = (k == 0)[:, None]
-            xp = torch.where(start, 0.0, x)
-            jv_used = torch.where(start, jv, devs.limit(xp, jvs))
+            first = (k == 0)[:, None]
+            xp = torch.where(first, 0.0, x)
+            jv_used = torch.where(first, jv, devs.limit(xp, jvs))
             terms.append(devs.values(jv_used, dte_c))
         xn = bld.solve(torch.cat(terms, dim=1))
         if nonlin:
@@ -308,25 +460,43 @@ def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
             x = torch.where(run_c, xn, x)
             jvs = torch.where(run_c, jv_used, jvs)
             k = torch.where(running, torch.where(end, zero_i, kn), k)
-        return (st, t, dt, done, fail, acc, att, nri, jv, k, x, jvs)
+        out = (st, t, dt, done, fail, acc, att, nri, jv, k, x, jvs)
+        if store is None:
+            return out
+        # tran.go:141-143: the row lands at the lane's n_kept, a row that
+        # is not kept in the trash row past every lane's block
+        want = acc_act & (next_t >= store.tstart)
+        keep = want & (n_kept < store.max_store)
+        slot = torch.where(keep, lane_row + n_kept, trash)
+        wave_x.index_copy_(0, slot, xn)
+        wave_t.index_copy_(0, slot, next_t)
+        return out + (n_kept + keep.to(I32), dropped | (want & ~keep))
 
     # the loop carry lives in fixed buffers; a chunk of steps reads them
     # and writes its result back, so on the card it can be replayed as one
     # captured CUDA graph (the same operations without the host's per-op
     # launch cost)
     carry = (state.clone(),
-             torch.zeros(b, dtype=F64, device=device),
-             torch.full((b,), sc.minstep, dtype=F64, device=device),
-             torch.full((b,), sc.tstop <= 0.0, dtype=torch.bool,
-                        device=device),
+             start.t.clone(),
+             start.dt.clone(),
+             (start.t >= sc.tstop) | (sc.tstop <= 0.0),
              torch.zeros(b, dtype=torch.bool, device=device),
              torch.zeros(b, dtype=I32, device=device),
-             torch.zeros(b, dtype=I32, device=device),
+             start.attempts.clone(),
              torch.zeros(b, dtype=I32, device=device),
              jv.clone(),
              torch.zeros(b, dtype=I32, device=device),
              torch.zeros((b, n), dtype=F64, device=device),
              jv.clone())
+    if store is not None:
+        m = int(store.max_store)
+        # (b·m + 1) rows, the last one the trash row
+        wave_x = torch.zeros((b * m + 1, n), dtype=F64, device=device)
+        wave_t = torch.zeros(b * m + 1, dtype=F64, device=device)
+        lane_row = torch.arange(b, device=device) * m
+        trash = torch.full((b,), b * m, dtype=torch.long, device=device)
+        carry += (torch.zeros(b, dtype=I32, device=device),
+                  torch.zeros(b, dtype=torch.bool, device=device))
     every = CHECK_EVERY_NL if nonlin else CHECK_EVERY
 
     def chunk():
@@ -338,7 +508,10 @@ def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
 
     def pending():
         done, att = carry[3], carry[6]
-        return bool((~done & (att < sc.max_attempts)).any())
+        live = ~done & (att < sc.max_attempts)
+        if store is not None and store.stream:
+            live = live & (carry[12] < store.max_store)
+        return bool(live.any())
 
     run_chunk = chunk
     if device.type == "cuda":
@@ -360,7 +533,11 @@ def run_plain(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
             break
         run_chunk()
     st, t, dt, _, fail, acc, att, nri, jv = carry[:9]
-    return RunResult(st, t, dt, acc, att, fail.to(I32), jv, nri)
+    res = RunResult(st, t, dt, acc, att, fail.to(I32), jv, nri)
+    if store is None:
+        return res, None
+    return res, Waveforms(wave_x[:b * m].view(b, m, n),
+                          wave_t[:b * m].view(b, m), carry[12], carry[13])
 
 
 # ------------------------------------------------------------ dispatch
@@ -375,7 +552,33 @@ def run_lanes(plan, dev, src, state, sc: RunScalars, jv=None) -> RunResult:
     raise ValueError(f"no whole-run transient for device {dev.device}")
 
 
-def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat"):
+def store_lanes(plan, dev, src, state, sc: RunScalars, store: Store,
+                jv=None, start: RunStart = None):
+    """The store instantiation for CUDA tensors, its plain version for CPU
+    tensors: (RunResult, Waveforms)."""
+    if dev.is_cuda:
+        return launch_store_kernel(plan, dev, src, state, sc, store, jv,
+                                   start)
+    if dev.device.type == "cpu":
+        return store_plain(plan, dev, src, state, sc, store, jv, start)
+    raise ValueError(f"no whole-run transient for device {dev.device}")
+
+
+def lane_vector(v, b, default, dtype, device):
+    """A per-lane start value: None (``default``), a scalar, or (b,)."""
+    v = default if v is None else v
+    v = torch.as_tensor(v, dtype=dtype, device=device)
+    if v.ndim == 0:
+        return v.expand(b).clone()
+    if v.shape != (b,):
+        raise ValueError(f"a per-lane start value must be ({b},), got "
+                         f"{tuple(v.shape)}")
+    return v.contiguous()
+
+
+def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
+                  store: str = "none", resume: bool = False,
+                  stream: bool = False):
     """Batched whole-run transient: fn(params, state0) -> TranOutput.
 
     ``params``/``state0`` are dicts of f64 tensors on one device (shared
@@ -383,40 +586,86 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat"):
     nonlinear deck first takes its operating point through the OP kernel
     (``ops/op.make_op_fused``, rescue ladders included) unless ``cfg.uic``:
     its junction voltages warm-start the transient, whose committed state
-    stays the given one (compat, tran.go:57-75)."""
-    why = run_ineligible_reason(cc, semantics, "none", opts)
+    stays the given one (compat, tran.go:57-75).
+
+    ``store='full'`` runs the store instantiation and returns every
+    accepted step at t >= tstart in ``out_x`` (B, max_store, np1) and
+    ``out_t`` (B, max_store) (``make_tran_fused`` of the JAX package);
+    ``stream=True`` pauses a lane whose ``cfg.max_store`` rows are full.
+    ``resume=True`` continues a checkpointed run: fn(params, state0, t0,
+    jv0, dt0=None, attempts0=None) skips the OP, starts each lane at t0
+    (scalar or (B,); t is absolute, so sources keep their phase) with the
+    checkpoint's junction voltages jv0, dt0 (default minstep) and
+    attempts0 (default 0; ``cfg.max_attempts`` then binds the whole run);
+    ``accepted`` and ``nr_iters`` count this call's work."""
+    why = run_ineligible_reason(cc, semantics, store, opts)
     if why is not None:
         raise NotImplementedError(
             f"circuit not eligible for the whole-run kernel: {why}")
+    if stream and store != "full":
+        raise ValueError("stream=True pauses lanes on a full waveform "
+                         "buffer and therefore requires store='full'")
     plan = make_plan(cc)
     sc = RunScalars(float(cfg.tstop), float(cfg.minstep), float(cfg.tmax),
                     float(opts.trtol), int(cfg.max_attempts),
                     float(opts.reltol), float(opts.abstol),
                     int(opts.max_iter))
-    need_op = plan.nonlinear and not cfg.uic
+    keep = (Store(float(cfg.tstart), int(cfg.max_store), stream)
+            if store == "full" else None)
+    need_op = plan.nonlinear and not cfg.uic and not resume
     op_fn = None
     if need_op:
         from .op import make_op_fused
 
         op_fn = make_op_fused(cc, opts, semantics=semantics)
 
-    def tran_run(params, state0) -> TranOutput:
+    def tran_run(params, state0, t0=None, jv0=None, dt0=None,
+                 attempts0=None) -> TranOutput:
+        if not resume and not all(v is None for v in (t0, jv0, dt0,
+                                                     attempts0)):
+            raise ValueError("t0, jv0, dt0 and attempts0 continue a run: "
+                             "build it with resume=True")
+        if resume and t0 is None:
+            raise ValueError("resume=True requires the checkpoint time t0")
+        if resume and plan.nonlinear and not jv0:
+            raise ValueError("resume=True requires the checkpointed jv0 "
+                             "for a nonlinear deck")
         device = first_leaf(params).device
         b = infer_batch(params, state0)
+        for v in (t0, dt0, attempts0):
+            if v is not None and torch.as_tensor(v).ndim == 1:
+                b = max(b, len(v))
+        start = RunStart(lane_vector(t0, b, 0.0, F64, device),
+                         lane_vector(dt0, b, sc.minstep, F64, device),
+                         lane_vector(attempts0, b, 0, I32, device))
         dev = const_stack(plan, params, b, device, opts.temp, state0)
         src = source_stack(plan, params, b, device)
         st0 = init_state_stack(plan, state0, b, device)
-        jv0 = None
-        if plan.nonlinear:  # warm start: the OP's junctions, or 0 (UIC)
-            jv0 = jv_stack(plan, op_fn(params, state0).jv if need_op
-                           else init_jv(cc, device), b)
-        res = run_lanes(plan, dev, src, st0, sc, jv0)
+        jv_rows = None
+        if plan.nonlinear:  # the checkpoint's junctions (resume), the
+            # OP's (a warm start), or 0 (UIC)
+            jv_rows = jv_stack(plan, jv0 if resume else
+                               op_fn(params, state0).jv if need_op
+                               else init_jv(cc, device), b)
+        if keep is not None:
+            res, wave = store_lanes(plan, dev, src, st0, sc, keep, jv_rows,
+                                    start)
+        else:
+            if resume:
+                res, _ = store_lanes(plan, dev, src, st0, sc, NO_STORE,
+                                     jv_rows, start)
+            else:
+                res = run_lanes(plan, dev, src, st0, sc, jv_rows)
+            wave = Waveforms(
+                torch.zeros((b, 1, cc.np1), dtype=F64, device=device),
+                torch.zeros((b, 1), dtype=F64, device=device),
+                torch.zeros(b, dtype=I32, device=device),
+                torch.zeros(b, dtype=torch.bool, device=device))
         state = unpack_state(plan, res.state, state0, res.accepted, b)
-        zeros_i = torch.zeros(b, dtype=I32, device=device)
         return TranOutput(
-            out_x=torch.zeros((b, 1, cc.np1), dtype=F64, device=device),
-            out_t=torch.zeros((b, 1), dtype=F64, device=device),
-            out_n=zeros_i,
+            out_x=wave.out_x,
+            out_t=wave.out_t,
+            out_n=wave.out_n,
             fail=res.fail > 0,
             accepted=res.accepted,
             attempts=res.attempts,
@@ -424,10 +673,9 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat"):
             t_final=res.t,
             state=state,
             jv=jv_tree(plan, res.jv) if plan.nonlinear else {},
-            store_overflow=torch.zeros(b, dtype=torch.bool, device=device),
+            store_overflow=wave.overflow,
             dt_final=res.dt,
         )
 
     tran_run.op = op_fn
     return tran_run
-

@@ -1,5 +1,6 @@
 """Host-side tables of the whole-run transient and the OP kernel for
-compat decks of R, C, L, V, I, D, Q and M.
+compat decks of R, C, L, V, I, D, Q and M, and for the transient also
+magnetic inductors (LM) and mutual couplings (K).
 
 The counterpart of ``ops/pallas_tran.py``'s ``_build_plan``, ``_layout``,
 ``_const_stack64``, ``_init_state_stack64``, ``_jv_stack64``,
@@ -14,19 +15,25 @@ serves every eligible deck:
   into the ground row 0 are dropped (that row is the identity).  The
   linear stamps come first; the nonlinear ones (tag ``TAG_NL``) read the
   value slot ``index`` that the device evaluation of each Newton iteration
-  fills (``NL_SLOTS`` per device).  A sign of 0 is the general engine's
+  fills (``NL_SLOTS`` per device).  The LM branch rows and the K cross
+  terms and their RHS memory (tags ``TAG_LMTERM`` .. ``TAG_KRHSB``) read
+  the compat run constants below.  A sign of 0 is the general engine's
   masked MOSFET charge current (value times 0.0).  The OP plan
   (``mode="op"``) has no capacitor companion RHS and no MOSFET charge
   stamps, as assemble.py's mode "op".
 * per-lane f64 rows, batch axis first: ``dev`` (B, nd) holds g = 1/R_t,
-  C_t, C, L, then the ``D_ROWS``, ``Q_ROWS`` and ``M_ROWS`` of each
-  nonlinear device (row r of device k of a kind at its block offset + r·nk
-  + k); ``src`` (B, nrc) one record per source (``SRC_KEYS`` then the P
-  knot times and P knot values); ``state`` (B, ks) the committed C/L rows;
-  ``jv`` (B, kj) the junction voltages D vd | Q vbe | Q vbc | M vgs | M vds
-  | M vbs.
+  C_t, C, L, the compat magnetic run constants (each LM's L0, its
+  frozen-core L_eff and its frozen i0 and i1; each K's M = k·sqrt(La·Lb),
+  ``_run_const64`` of the JAX package), then the ``D_ROWS``, ``Q_ROWS``
+  and ``M_ROWS`` of each nonlinear device (row r of device k of a kind at
+  its block offset + r·nk + k); ``src`` (B, nrc) one record per source
+  (``SRC_KEYS`` then the P knot times and P knot values); ``state`` (B,
+  ks) the committed C/L rows; ``jv`` (B, kj) the junction voltages D vd |
+  Q vbe | Q vbc | M vgs | M vds | M vbs.
 * ``topo``: the int32 table the kernel copies to shared memory (a header
-  of counts and offsets, then the entries, sources and device nodes).
+  of counts and offsets, then the entries, sources, device nodes and each
+  K's partners: kind (0 linear L, 1 LM) and index of winding a, then of
+  winding b).
 """
 
 from dataclasses import dataclass
@@ -36,14 +43,18 @@ import torch
 
 from ..consts import TEMP_DEFAULT
 from ..engine.nlstate import limiter_constants
-from ..models import bjt, diode
+from ..models import bjt, diode, magnetic
 
-SLICE_KINDS = ("R", "C", "L", "V", "I", "D", "Q", "M")
+# the kinds of ``RunPlan.counts``, which the OP, DC and AC paths run
+DEVICE_KINDS = ("R", "C", "L", "V", "I", "D", "Q", "M")
+MAG_KINDS = ("LM", "K")
+SLICE_KINDS = DEVICE_KINDS + MAG_KINDS  # the transient's
 NL_KINDS = ("D", "Q", "M")
 
 # stamp tags, csrc/newton.cuh ``enum Tag``
 (TAG_G, TAG_GEQ, TAG_LTERM, TAG_ONE, TAG_CEQ, TAG_LRHS, TAG_VSRC,
- TAG_ISRC, TAG_NL) = range(9)
+ TAG_ISRC, TAG_NL, TAG_LMTERM, TAG_LMRHS, TAG_KTERM, TAG_KRHSA,
+ TAG_KRHSB) = range(14)
 
 # per-device value slots of one Newton iteration (csrc/newton.cuh)
 NL_SLOTS = {"D": 2, "Q": 12, "M": 21}
@@ -71,14 +82,14 @@ SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
 # topo header slots, csrc/newton.cuh ``enum Hdr``
 (H_NP1, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN, H_LN, H_KS,
  H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN, H_NLIN, H_KJ, H_DOFF,
- H_QOFF, H_MOFF) = range(25)
+ H_QOFF, H_MOFF, H_NLM, H_NK, H_KP) = range(28)
 H_LEN = 32
 
 
-def kind_counts(cc):
-    """(nR, nC, nL, nV, nI, nD, nQ, nM): the counts of the kinds the port
-    runs."""
-    return tuple(cc.kind_count(k) if k in cc.idx else 0 for k in SLICE_KINDS)
+def kind_counts(cc, kinds=DEVICE_KINDS):
+    """The counts of ``kinds`` in the deck: (nR, nC, nL, nV, nI, nD, nQ,
+    nM) by default."""
+    return tuple(cc.kind_count(k) if k in cc.idx else 0 for k in kinds)
 
 
 def nonlinear(cc):
@@ -93,13 +104,16 @@ def fused_ineligible_reason(cc, semantics: str, store: str, opts):
                 "only)")
     if opts.integration != "be":
         return f"integration={opts.integration!r} (compat is backward Euler)"
-    if store != "none":
-        return (f"store={store!r} (the whole-run kernel serves "
-                "store='none')")
+    if store not in ("none", "full"):
+        return (f"store={store!r} (the whole-run kernel serves 'none' and "
+                "'full')")
     extra = set(cc.idx.keys()) - set(SLICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
-                "runs R, C, L, V, I, D, Q and M)")
+                "runs R, C, L, LM, K, V, I, D, Q and M)")
+    if nonlinear(cc) and any(k in cc.idx for k in MAG_KINDS):
+        return ("magnetic inductors or mutual couplings with diodes, BJTs "
+                "or MOSFETs (the OP kernel has no magnetic stamps yet)")
     return None
 
 
@@ -156,6 +170,18 @@ def build_plan(cc, mode="tran"):
         add(br, n[:, 1], TAG_ONE, k, 1)
         add(br, br, TAG_LTERM, k, -1)
         add(br, np.full(len(br), rhs), TAG_LRHS, k, 1)
+    if "LM" in cc.idx:  # magnetic.go:197-274, the compat branch value
+        if not tran:
+            raise ValueError("the OP plan has no magnetic stamps")
+        n = np.asarray(cc.idx["LM"]["nodes"])
+        br = np.asarray(cc.idx["LM"]["branch"])
+        k = seq(len(br))
+        add(n[:, 0], br, TAG_ONE, k, -1)
+        add(br, n[:, 0], TAG_ONE, k, -1)
+        add(n[:, 1], br, TAG_ONE, k, 1)
+        add(br, n[:, 1], TAG_ONE, k, 1)
+        add(br, br, TAG_LMTERM, k, -1)
+        add(br, np.full(len(br), rhs), TAG_LMRHS, k, 1)
     if "V" in cc.idx:
         n = np.asarray(cc.idx["V"]["nodes"])
         br = np.asarray(cc.idx["V"]["branch"])
@@ -170,6 +196,16 @@ def build_plan(cc, mode="tran"):
         n = np.asarray(cc.idx["I"]["nodes"])
         add(n[:, 0], np.full(len(n), rhs), TAG_ISRC, seq(len(n)), 1)
         add(n[:, 1], np.full(len(n), rhs), TAG_ISRC, seq(len(n)), -1)
+    if "K" in cc.idx and tran:
+        # mutual.go:57-120: -M/dt between the windings' branch rows, and
+        # the reference's junk-i0 memory -M·i0_b/dt, -M·i0_a/dt
+        ba = np.asarray(cc.idx["K"]["branch_a"])
+        bb = np.asarray(cc.idx["K"]["branch_b"])
+        k = seq(len(ba))
+        add(ba, bb, TAG_KTERM, k, -1)
+        add(bb, ba, TAG_KTERM, k, -1)
+        add(ba, np.full(len(ba), rhs), TAG_KRHSA, k, -1)
+        add(bb, np.full(len(bb), rhs), TAG_KRHSB, k, -1)
     n_lin = len(ents)
 
     base = 0
@@ -240,6 +276,9 @@ class RunPlan:
     np1: int
     mode: str  # "tran" or "op" (build_plan)
     counts: tuple  # (nR, nC, nL, nV, nI, nD, nQ, nM)
+    nlm: int  # magnetic inductors
+    nk: int  # mutual-coupling pairs
+    kpairs: np.ndarray  # (nK, 4) int32 kind_a, idx_a, kind_b, idx_b
     entries: np.ndarray  # (E, 5) int32
     n_lin: int  # the leading linear entries
     c_nodes: np.ndarray  # (nC, 2) int32
@@ -275,7 +314,13 @@ class RunPlan:
 
 def make_plan(cc, mode="tran") -> RunPlan:
     nr, nc, nl, nv, ni, n_d, n_q, n_m = counts = kind_counts(cc)
+    nlm, nk = kind_counts(cc, MAG_KINDS)
     entries, n_lin = build_plan(cc, mode)
+    kpairs = np.zeros((0, 4), np.int32)
+    if nk:
+        kidx = cc.idx["K"]
+        kpairs = np.stack([np.asarray(kidx[key], np.int32) for key in
+                           ("kind_a", "idx_a", "kind_b", "idx_b")], axis=1)
     c_nodes = (np.asarray(cc.idx["C"]["nodes"], np.int32).reshape(-1, 2)
                if nc else np.zeros((0, 2), np.int32))
     l_nodes = (np.asarray(cc.idx["L"]["nodes"], np.int32).reshape(-1, 2)
@@ -308,17 +353,17 @@ def make_plan(cc, mode="tran") -> RunPlan:
             [nodes("M", 4), np.asarray(cc.idx["M"]["level"],
                                        np.int32)[:, None]], axis=1)
     dev_offset = {}
-    row = nr + 2 * nc + nl
-    for kind, nk in (("D", n_d), ("Q", n_q), ("M", n_m)):
+    row = nr + 2 * nc + nl + 4 * nlm + nk
+    for kind, count in (("D", n_d), ("Q", n_q), ("M", n_m)):
         dev_offset[kind] = row
-        row += len(NL_ROWS[kind]) * nk
+        row += len(NL_ROWS[kind]) * count
 
     hdr = np.zeros(H_LEN, np.int32)
     parts = [entries.ravel(), np.asarray(src_rows, np.int32).ravel(),
              c_nodes.ravel(), l_nodes.ravel(), nodes("D", 2).ravel(),
-             nodes("Q", 3).ravel(), m_tab.ravel()]
+             nodes("Q", 3).ravel(), m_tab.ravel(), kpairs.ravel()]
     pos = H_LEN
-    for key, part in zip((H_ENT, H_SRC, H_CN, H_LN, H_DN, H_QN, H_MN),
+    for key, part in zip((H_ENT, H_SRC, H_CN, H_LN, H_DN, H_QN, H_MN, H_KP),
                          parts):
         hdr[key] = pos
         pos += part.size
@@ -326,6 +371,7 @@ def make_plan(cc, mode="tran") -> RunPlan:
     hdr[H_NE] = len(entries)
     hdr[H_NR], hdr[H_NC], hdr[H_NL], hdr[H_NV], hdr[H_NI] = nr, nc, nl, nv, ni
     hdr[H_NDD], hdr[H_NQ], hdr[H_NM] = n_d, n_q, n_m
+    hdr[H_NLM], hdr[H_NK] = nlm, nk
     hdr[H_KS] = max(layout["ks"], 1)  # stack widths: a dummy row when 0
     hdr[H_ND] = max(row, 1)
     hdr[H_NRC] = max(off, 1)
@@ -334,7 +380,8 @@ def make_plan(cc, mode="tran") -> RunPlan:
     hdr[H_DOFF], hdr[H_QOFF], hdr[H_MOFF] = (dev_offset["D"], dev_offset["Q"],
                                              dev_offset["M"])
     topo = np.concatenate([hdr] + parts).astype(np.int32)
-    return RunPlan(np1=cc.np1, mode=mode, counts=counts, entries=entries,
+    return RunPlan(np1=cc.np1, mode=mode, counts=counts, nlm=nlm, nk=nk,
+                   kpairs=kpairs, entries=entries,
                    n_lin=n_lin, c_nodes=c_nodes, l_nodes=l_nodes,
                    stype=stype, knots=knots, src_offset=src_offset,
                    nrc=max(off, 1), layout=layout, dev_offset=dev_offset,
@@ -402,11 +449,51 @@ def nl_row_values(kind, p, st, temp):
     return [vals[key] if key in vals else p[key] for key in NL_ROWS[kind]]
 
 
+def magnetic_rows(plan, params, b, device, temp, state0):
+    """The compat magnetic run constants (``_run_const64`` of the JAX
+    package): per LM, L0, the frozen-core L_eff (``l_effective``) and the
+    frozen i0 and i1; per K, M = k·sqrt(La·Lb) with a linear partner's
+    value or an LM partner's ``value_for_mutual`` at its frozen core."""
+    nl, nlm = plan.counts[2], plan.nlm
+    rows = []
+    if nlm:
+        pm = {key: lanes(leaf, b) for key, leaf in params["LM"].items()}
+        stm = (state0 or {}).get("LM")
+
+        def lmrow(key):
+            if stm is None:
+                return torch.zeros((b, nlm), dtype=torch.float64,
+                                   device=device)
+            return lanes(stm[key], b)
+
+        core = magnetic.CoreState(*(lmrow(key) for key in
+                                    ("H", "Hold", "M", "Mirr", "dMdH")))
+        i0 = lmrow("i0")
+        leff, _ = magnetic.l_effective(pm, core, i0, temp)
+        rows += [magnetic.l_zero(pm), leff, i0, lmrow("i1")]
+    if plan.nk:
+        lval = lanes(params["L"]["value"], b) if nl else None
+        lm_vm = (magnetic.value_for_mutual(pm, core, i0, temp) if nlm
+                 else None)
+
+        def partner(kinds, idxs):
+            return torch.stack([lval[:, i] if kk == 0 else lm_vm[:, i]
+                                for kk, i in zip(kinds, idxs)], dim=1)
+
+        kp = plan.kpairs
+        la = partner(kp[:, 0], kp[:, 1])
+        lb = partner(kp[:, 2], kp[:, 3])
+        rows.append(lanes(params["K"]["coeff"], b) * torch.sqrt(la * lb))
+    return [row.expand(b, row.shape[1]) for row in rows]
+
+
 def const_stack(plan, params, b, device, temp=TEMP_DEFAULT, state0=None):
     """Per-lane device rows (b, nd): g = 1/R_t, C_t, C, L (the general
-    engine's stamp and commit values; _t = temperature adjusted), then the
-    nonlinear devices' ``NL_ROWS``.  ``state0`` supplies the frozen compat
-    charges of D and M (zeros when it is None)."""
+    engine's stamp and commit values; _t = temperature adjusted), the
+    compat magnetic run constants (``magnetic_rows``), then the nonlinear
+    devices' ``NL_ROWS``.  ``state0`` supplies the frozen compat charges of
+    D and M and the frozen LM currents and cores (zeros when it is
+    None)."""
     nr, nc, nl = plan.counts[:3]
     dtemp = temp - TEMP_DEFAULT
 
@@ -422,6 +509,7 @@ def const_stack(plan, params, b, device, temp=TEMP_DEFAULT, state0=None):
         rows.append(lanes(params["C"]["value"], b))
     if nl:
         rows.append(lanes(params["L"]["value"], b))
+    rows += magnetic_rows(plan, params, b, device, temp, state0)
     for kind in NL_KINDS:
         if kind in params:
             st = (state0 or {}).get(kind)
@@ -526,7 +614,7 @@ def init_state_stack(plan, state0, b, device):
 def unpack_state(plan, st, state0, accepted, b):
     """Final state stack -> the state dict of the JAX package's
     ``_unpack_state_jv`` (compat): C/L rows from the stack, C.i0 passed
-    through, hist set on lanes that accepted a step, D/Q/M passed
+    through, hist set on lanes that accepted a step, LM/D/Q/M passed
     through."""
     nc, nl = plan.counts[1:3]
     L = plan.layout
@@ -550,9 +638,9 @@ def unpack_state(plan, st, state0, accepted, b):
             "flux0": grab("l_flux0", nl),
             "hist": torch.where(started, 1.0, lanes(state0["L"]["hist"], b)),
         }
-    # compat never commits D, Q or M state (PLAN.md 1): pass it through,
-    # broadcast to the batch
-    for kind in NL_KINDS:
+    # compat never commits LM, D, Q or M state (PLAN.md 1): pass it
+    # through, broadcast to the batch
+    for kind in ("LM",) + NL_KINDS:
         if kind in state0:
             state[kind] = {key: lanes(leaf, b).clone()
                            for key, leaf in state0[kind].items()}
