@@ -8,9 +8,11 @@ neither JAX nor the JAX package.  Phases, each on its own line with its
 seconds:
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: the whole-run kernel, the OP kernel, the stamped solve, the DC
-   sweep kernel and the AC kernel, one ``nvcc`` call each, all started
-   together (ops/_build.py).
+2. build: the whole-run kernel (its compat instantiations in
+   run_kernel.cu, its physics ones in run_kernel_phys.cu, each source
+   built without and with the waveform store), the OP kernel, the stamped
+   solve, the DC sweep kernel and the AC kernel, one ``nvcc`` call per
+   library, all started together (ops/_build.py).
 3. run kernel against its plain torch version on linear decks, on the
    card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -60,8 +62,9 @@ seconds:
    then that kernel run against its plain version (the bar of phase 3).
 13. the store instantiation against its plain version, ``store='full'``:
    the RC driven by SIN, half_wave_rectifier.cir and coupled_inductors.cir,
-   256 lanes: out_n equal per lane, out_x/out_t within rtol 1e-9, and the
-   counters and state equal to the run kernel on the same lanes.  Then
+   256 lanes:
+   out_n equal per lane, out_x/out_t within rtol 1e-9, and the counters
+   and state equal to the run kernel on the same lanes.  Then
    64-bit offsets: 8192 lanes of an RC ladder with np1 = 11, whose out_x
    passes element 2^31; the lanes from just below that element to the
    last one against the plain version run on those lanes.
@@ -80,11 +83,32 @@ seconds:
 16. resume: bench.py's deck, 256 lanes, a run cut at half its attempts,
    then a resume from its state, t, dt and attempt count, equal to the
    one-piece run.
+18. physics: the PHYS run kernel and its store instantiation against their
+   plain versions, 256 lanes, R and C spread, from the physics OP's bias
+   point: the rectifier under BE and trap, sine-driven Rs and Bv diodes
+   (trap), the NMOS inverter (trap, cut to 0.2 ms and 120 attempts),
+   the BJT transient
+   (BE) and rlc_ringdown.cir (trap, its linear OP first, the lanes
+   stopped at 1000 attempts);
+   counters and out_n equal, state, jv and waveforms within rtol 1e-9,
+   the store's counters and state equal to the run kernel's.
+19. the OP kernel's physics flavour against its plain version through
+   make_op_fused: the Rs and Bv diodes, ce_amplifier_op.cir and the
+   rectifier's bias, 8192 lanes (the bar of phase 5).
+20. physics DC sweep: run_dc_batch(semantics="physics") on
+   diode_iv_sweep.cir with the diode's Rs drawn per lane, one launch of
+   the DC sweep kernel's physics flavour, then the kernel against its
+   plain version (the bar of phase 9).
+21. physics main path, half_wave_rectifier_8192_physics_trap:
+   make_tran_batch(semantics="physics", SimOptions(integration="trap"))
+   on the 8192 lanes of phase 7: one OP launch, the bias-point seed, one
+   run-kernel launch, no lane failed; then the kernel on the same inputs
+   against its plain version.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16) runs with every
-kernel's launch count set to 0 just before and read just after.
+Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21) runs with
+every kernel's launch count set to 0 just before and read just after.
 """
 
 import json
@@ -236,6 +260,44 @@ R1 in mid 3k
 R2 mid 0 1k
 """
 
+# tests/test_physics_mode.py's Rs and Bv diodes (physics semantics cashes
+# both; compat ignores them)
+D_RS = """* forward diode with series resistance
+.tran 0.05m 0.5m
+Vin 1 0 DC 5
+R1 1 2 1k
+D1 2 0 DM
+.model DM D (Is=1e-14 Rs=100)
+"""
+
+D_BV = """* reverse diode into breakdown
+.tran 0.05m 0.5m
+Vin 1 0 DC -200
+R1 1 2 1k
+D1 2 0 DM
+.model DM D (Is=1e-14 Bv=100)
+"""
+
+# the same diodes driven by a sine into a capacitor, with a transit time:
+# the Rs inner Newton and the breakdown region over a transient
+D_RS_SIN = """* Rs diode, sine drive
+.tran 0.05m 0.5m
+Vin 1 0 SIN(0 5 5k)
+R1 1 2 1k
+D1 2 0 DM
+C1 2 0 10n
+.model DM D (Is=1e-14 Rs=100 Tt=10n)
+"""
+
+D_BV_SIN = """* Bv diode, sine drive through breakdown
+.tran 0.05m 0.5m
+Vin 1 0 SIN(-150 60 5k)
+R1 1 2 1k
+D1 2 0 DM
+C1 2 0 10n
+.model DM D (Is=1e-14 Bv=100 Tt=10n)
+"""
+
 # every kernel wrapper's launch count
 COUNTERS = {"run_kernel": run.launch_run_kernel,
             "run_kernel_store": run.launch_store_kernel,
@@ -298,17 +360,14 @@ def setup(deck, overrides_fn, b):
     return cc, cfg, params, axes, ts.init_state(cc)
 
 
-def lane_inputs(cc, cfg, params, state0):
-    """The run kernel's (plan, dev, src, state, scalars) for one deck."""
-    plan = run_plan.make_plan(cc)
-    b = run_plan.infer_batch(params, state0)
-    device = torch.device("cuda")
-    dev = run_plan.const_stack(plan, params, b, device, DEFAULTS.temp, state0)
-    src = run_plan.source_stack(plan, params, b, device)
-    st = run_plan.init_state_stack(plan, state0, b, device)
-    sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
-                        cfg.max_attempts)
-    return plan, dev, src, st, sc
+def lane_inputs(cc, cfg, params, state0, opts=DEFAULTS,
+                semantics="compat"):
+    """The run kernel's (plan, dev, src, state, scalars, jv) for one deck,
+    as make_tran_run builds them (ops/run.run_inputs): unless UIC, the OP
+    of a nonlinear or physics deck first, then its junction voltages (and
+    under physics the state seeded from the bias point)."""
+    r = run.run_inputs(cc, cfg, params, state0, opts, semantics)
+    return r.plan, r.dev, r.src, r.st, r.sc, r.jv
 
 
 def ptxas_summary(log):
@@ -324,12 +383,15 @@ def ptxas_summary(log):
                           entry)
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
-            # run_kernel<NMAX, NL, MAG, STORE>
-            names = [("linear", "newton"), ("", "mag"), ("", "store")]
+            # run_kernel<NMAX, NL, MAG, STORE, PHYS>, op_kernel<NMAX, PHYS>
+            # and dc_sweep_kernel<NMAX, PHYS>
+            names = ([("linear", "newton"), ("", "mag"), ("", "store"),
+                      ("", "physics")] if k is not None
+                     and k.group(1) == "run_kernel" else [("", "physics")])
             label = entry if k is None else (
                 f"{k.group(1)}<{k.group(2)}" + "".join(
                     f", {names[i][int(f)]}" for i, f in enumerate(flags)
-                    if names[i][int(f)]) + ">")
+                    if i < len(names) and names[i][int(f)]) + ">")
             continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -794,7 +856,7 @@ def magnetic_phases(lanes, main_lanes, smi):
             deck_file(f"{name}.cir"),
             lambda cc, b: perturbed(cc, np.random.default_rng(2), b, keys),
             lanes)
-        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+        plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
         e = compare_run(name, k, p)
         err = max(err, e)
@@ -827,7 +889,7 @@ def magnetic_phases(lanes, main_lanes, smi):
     if failed or not bool((out.t_final == cfg.tstop).all()):
         fail(f"magnetic main path: {failed} of {main_lanes} lanes failed "
              "or stopped early")
-    plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+    plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
     k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
     e = compare_run("saturating_transformer_8192", k, p)
     err = max(err, e)
@@ -898,12 +960,7 @@ def store_phases(lanes, main_lanes, smi, hwr_none):
             deck,
             lambda cc, b: perturbed(cc, np.random.default_rng(3), b, keys),
             lanes)
-        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
-        jv0 = None
-        if plan.nonlinear:
-            jv0 = run_plan.jv_stack(
-                plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv,
-                lanes)
+        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
         keep = run.Store(cfg.tstart, cfg.max_store)
         k, kw, e, k_ms, _, p_ms = store_vs_plain(name, plan, dev, src, st,
                                                  sc, keep, jv0)
@@ -975,9 +1032,7 @@ def store_phases(lanes, main_lanes, smi, hwr_none):
     free()
 
     t0 = time.perf_counter()
-    plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
-    jv0 = run_plan.jv_stack(
-        plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv, main_lanes)
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
     keep = run.Store(cfg.tstart, cfg.max_store)
     k, kw, e, k_ms, w_ms, p_ms = store_vs_plain(
         "half_wave_rectifier_full", plan, dev, src, st, sc, keep, jv0)
@@ -1008,7 +1063,7 @@ def offsets_check(lanes):
         LADDER,
         lambda cc, b: perturbed(cc, np.random.default_rng(5), b, ("R", "C")),
         lanes)
-    plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+    plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
     keep = run.Store(cfg.tstart, cfg.max_store)
     per_lane = cfg.max_store * plan.np1
     cross = (1 << 31) // per_lane  # the lane whose block holds element 2^31
@@ -1196,6 +1251,277 @@ def resume_phase(lanes, bench_overrides):
           f"{got['run_kernel_store']} (the resumed leg)")
 
 
+# ------------------------------------------------------------ physics
+# Physics semantics: the PHYS instantiations of the run kernel and its
+# store, and the physics flavours of the OP and DC sweep kernels.
+
+
+def phys_newton_flops(plan, rs_share=0.0):
+    """One physics Newton iteration: newton_flops with the physics diode
+    (the breakdown-frame gate 3, the eval with its breakdown exponential
+    22, the companions from the committed rows 9) and, on the share of
+    lanes whose Rs is not 0, its 8-step inner Newton (8 evaluations of 26
+    and a seed of 16); a MOSFET's companions add 10."""
+    n_d, _, n_m = plan.counts[5:]
+    tran = plan.mode == "tran"
+    extra = n_d * (3 + 22 - 12 + (9 - 7 if tran else 0)
+                   + rs_share * (8 * 26 + 16)) + (n_m * 10 if tran else 0)
+    return newton_flops(plan) + extra
+
+
+def phys_step_flops(plan, rs_share=0.0):
+    """A physics attempt's work around its solve: step_flops, the
+    trapezoidal C/L companions (6 each), the capacitor current's commit
+    (5), and the commit's re-evaluation of each diode (28, and its Rs
+    steps on their share) and MOSFET (75)."""
+    nc, nl, n_d, _, n_m = plan.counts[1], plan.counts[2], *plan.counts[5:]
+    return (step_flops(plan) + 11 * nc + 6 * nl
+            + n_d * (28 + rs_share * (8 * 26 + 16)) + 75 * n_m)
+
+
+def physics_run_phase(lanes):
+    """Phase 18: the PHYS run kernel and its store instantiation against
+    their plain versions (counters, out_n equal; state, jv, waveforms
+    within RTOL), and the store's counters and state equal to the run
+    kernel's."""
+    hwr = deck_file("half_wave_rectifier.cir")
+    # cut in depth so that the plain versions' replay stays short: the
+    # NMOS inverter's 0.4 ms is two periods of its gate pulse (0.2 ms, one;
+    # its lanes stop at 120 of their 206 attempts, past the first edges);
+    # rlc_ringdown takes ~20,800 attempts per lane to its tstop whatever
+    # the tstop (build_config ties the steps to tstop / 300), so its lanes
+    # stop at 1000 attempts
+    nmos = deck_file("nmos_inverter_tran.cir").replace(".tran 1u 0.4m",
+                                                       ".tran 1u 0.2m")
+    decks = (("half_wave_rectifier", hwr, False, None),
+             ("half_wave_rectifier", hwr, True, None),
+             ("d_rs_sin", D_RS_SIN, True, None),
+             ("d_bv_sin", D_BV_SIN, True, None),
+             ("nmos_inverter_tran_0.2m", nmos, True, 120),
+             ("bjt_ce_tran", BJT_TRAN, False, None),
+             ("rlc_ringdown_1000", deck_file("rlc_ringdown.cir"), True,
+              1000))
+    run_err = store_err = 0.0
+    for name, deck, trap, max_att in decks:
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(
+            deck, lambda cc, b: perturbed(cc, np.random.default_rng(4), b,
+                                          ("R", "C")), lanes)
+        plan, dev, src, st, sc, jv0 = lane_inputs(
+            cc, cfg, params, state0,
+            ts.SimOptions(integration="trap" if trap else "be"), "physics")
+        if max_att:
+            sc = sc._replace(max_attempts=max_att)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+        e = compare_run(name, k, p, check_jv=jv0 is not None)
+        run_err = max(run_err, e)
+        keep = run.Store(cfg.tstart, cfg.max_store)
+        ks, kw, es, s_ms, _, sp_ms = store_vs_plain(name, plan, dev, src,
+                                                    st, sc, keep, jv0)
+        store_err = max(store_err, es)
+        for key in ("accepted", "attempts", "fail", "nr_iters", "t", "dt",
+                    "state", "jv"):
+            if not torch.equal(getattr(ks, key), getattr(k, key)):
+                fail(f"{name}: the PHYS store's {key} differs from the PHYS "
+                     "run kernel's")
+        if not torch.equal(kw.out_n, k.accepted) or bool(kw.overflow.any()):
+            fail(f"{name}: out_n is not the accepted count, or overflow")
+        phase("18 physics kernel vs plain", t0,
+              f"{name} ({'trap' if trap else 'be'}): {lanes} lanes, "
+              f"np1={plan.np1}, ks={plan.ks}, accepted "
+              f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
+              f"NR iterations {int(k.nr_iters.sum())}, failed "
+              f"{int(k.fail.sum())}; counters equal, max abs err {e:.3e} "
+              f"(run), {es:.3e} (store); kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms; store {s_ms:.3f} ms, plain {sp_ms:.1f} ms")
+        del kw
+        free()
+    return run_err, store_err
+
+
+def physics_op_phase(lanes):
+    """Phase 19: the OP kernel's physics flavour against its plain version
+    through make_op_fused (rescue ladders included) on the Rs and Bv
+    diodes, ce_amplifier_op.cir and the main path's bias."""
+    def r_spread(cc, b):
+        return perturbed(cc, np.random.default_rng(0), b, ("R",))
+
+    decks = (("d_rs", D_RS, r_spread),
+             ("d_bv", D_BV, r_spread),
+             ("ce_amplifier_op", deck_file("ce_amplifier_op.cir"), r_spread),
+             ("half_wave_rectifier", deck_file("half_wave_rectifier.cir"),
+              rc_spread))
+    err, main = 0.0, None
+    for name, deck, ov in decks:
+        t0 = time.perf_counter()
+        cc, _, params, axes, state0 = setup(deck, ov, lanes)
+        fk = op.make_op_fused(cc, DEFAULTS, semantics="physics")
+        fk(params, state0)  # warm-up
+        tk = TimedSolve(op.op_lanes)
+        tp_ = TimedSolve(op.op_plain)
+        k = op.make_op_fused(cc, DEFAULTS, semantics="physics",
+                             solve=tk)(params, state0)
+        p = op.make_op_fused(cc, DEFAULTS, semantics="physics",
+                             solve=tp_)(params, state0)
+        k_ms, p_ms = tk.ms(), tp_.ms()
+        for key in ("converged", "stage", "iters", "iters_all"):
+            if not torch.equal(getattr(k, key), getattr(p, key)):
+                fail(f"{name}: physics OP {key} differs from the plain "
+                     "version")
+        e = max_err(name, [("x", k.x, p.x)] + [
+            (f"jv.{kd}.{key}", k.jv[kd][key], p.jv[kd][key])
+            for kd in k.jv for key in k.jv[kd]])
+        err = max(err, e)
+        conv = int(k.converged.sum())
+        if conv != lanes:
+            fail(f"{name}: {lanes - conv} physics OP lanes did not converge")
+        phase("19 physics OP kernel vs plain", t0,
+              f"{name}: {lanes} lanes, np1={cc.np1}, converged {conv}, NR "
+              f"iterations {int(k.iters_all.sum())}, launches "
+              f"{len(tk.events)}; equal counts, max abs err {e:.3e}; kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        if name == "half_wave_rectifier":
+            plan_op = fk.plan
+            per_lane = 8 * (plan_op.nd + op.dyn_width(plan_op)
+                            + 2 * (plan_op.np1 + plan_op.kj)) + 8
+            main = dict(k_ms=k_ms, p_ms=p_ms, plan=plan_op,
+                        iters=int(k.iters_all.sum()),
+                        nbytes=len(tk.events) * (lanes * per_lane
+                                                 + plan_op.topo.nbytes))
+    main["err"] = err
+    return main
+
+
+def physics_dc_phase(lanes):
+    """Phase 20: run_dc_batch under physics on diode_iv_sweep.cir with Rsen,
+    Is and the diode's Rs drawn per lane (the Rs inner Newton on every
+    lane), one launch of the DC sweep kernel's physics flavour; then the
+    kernel against its plain version."""
+    def spread(cc, b):
+        rng = np.random.default_rng(0)
+        ov = perturbed(cc, rng, b, ("R",))
+        is_ = np.asarray(cc.params["D"]["is_"])
+        ov["D"] = {"is_": is_[None] * np.exp(rng.normal(0.0, 0.1,
+                                                        (b, len(is_)))),
+                   "rs": rng.uniform(1.0, 20.0, (b, len(is_)))}
+        return ov
+
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(deck_file("diode_iv_sweep.cir"),
+                                        spread, lanes)
+    d = cc.netlist.dc
+    pts = np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1))
+    slot = (cc.names["V"].index(d.source1),)
+    ts.run_dc_batch(cc, slot, params, axes, pts, semantics="physics")
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    xs, conv = ts.run_dc_batch(cc, slot, params, axes, pts,
+                               semantics="physics")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("physics DC sweep main path", got,
+                 {"dc_sweep_kernel": (1, 1)})
+    i_b = -xs[..., cc.np1 - 1]
+    if not bool(conv.all()) or not bool(torch.isfinite(xs).all()) or \
+            not bool((i_b[:, 1:] > i_b[:, :-1]).all()):
+        fail("physics DC sweep: a point not converged or not finite, or "
+             "the diode current not rising")
+    tk = TimedSolve(dc.dc_lanes)
+    tp_ = TimedSolve(dc.dc_plain)
+    k = dc.make_dc_fused(cc, slot, DEFAULTS, "physics", solve=tk)(
+        params, state0, pts)
+    p = dc.make_dc_fused(cc, slot, DEFAULTS, "physics", solve=tp_)(
+        params, state0, pts)
+    for key in ("conv", "iters"):
+        if not torch.equal(getattr(k, key), getattr(p, key)):
+            fail(f"physics DC sweep: {key} differs from the plain version")
+    err = max_err("physics DC sweep", [
+        ("xs", k.xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1)),
+        ("xs", xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1))])
+    k_ms, p_ms = tk.ms(), tp_.ms()
+    plan_dc, dev_, dyn_, vs_, _ = tk.args[0]
+    iters = int(k.iters.sum())
+    phase("20 physics DC sweep", t0,
+          f"diode_iv_sweep (physics, Rs per lane): {lanes} lanes x "
+          f"{len(pts)} points in one launch, all converged, Newton "
+          f"iterations {iters}, wall={wall:.6f} s; kernel vs plain equal, "
+          f"max abs err {err:.3e}; kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.1f} ms")
+    return dict(launches=got["dc_sweep_kernel"], err=err, k_ms=k_ms,
+                p_ms=p_ms, plan=plan_dc, iters=iters,
+                nbytes=nbytes(dev_, dyn_, vs_, k.xs) + plan_dc.topo.nbytes
+                + lanes * len(pts) * 8)
+
+
+def physics_main_phase(lanes, smi):
+    """Phase 21: the main path half_wave_rectifier_8192_physics_trap:
+    make_tran_batch(semantics='physics') with SimOptions(integration=
+    'trap'), store='none', non-UIC: one launch of the OP kernel's physics
+    flavour, the bias-point seed, one launch of the PHYS run kernel; no
+    lane failed; then that kernel on the same inputs against its plain
+    version."""
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        deck_file("half_wave_rectifier.cir"), rc_spread, lanes)
+    opts = ts.SimOptions(integration="trap")
+    fn = ts.make_tran_batch(cc, cfg, axes, semantics="physics", opts=opts)
+    if fn.engine != "run":
+        fail(f"physics main path engine {fn.engine!r}, expected 'run'")
+    out = fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("physics main path", got, {"run_kernel": (1, 1),
+                                            "op_kernel": (1, 1)})
+    accepted = int(out.accepted.sum())
+    attempts = int(out.attempts.sum())
+    nri = int(out.nr_iters.sum())
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"physics main path: {failed} of {lanes} lanes failed or "
+             "stopped early")
+    for kind_ in out.state.values():
+        for leaf in kind_.values():
+            if leaf.shape[0] != lanes or not bool(torch.isfinite(leaf).all()):
+                fail("physics main path state is not finite or has the "
+                     "wrong shape")
+    if not bool((out.state["D"]["hist"] == 1).all()):
+        fail("physics main path: a diode committed no step")
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0, opts,
+                                              "physics")
+    k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+    err = compare_run("half_wave_rectifier_physics_trap", k, p,
+                      check_jv=True)
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.attempts, k.attempts)
+            and torch.equal(out.nr_iters, k.nr_iters)
+            and torch.equal(out.t_final, k.t)
+            and torch.equal(out.jv["D"]["vd"], k.jv)):
+        fail("physics main path differs from a kernel run on the same "
+             "inputs")
+    phase("21 physics main path", t0,
+          f"half_wave_rectifier_8192_physics_trap: engine={fn.engine}, "
+          f"run kernel launches={got['run_kernel']}, OP kernel launches="
+          f"{got['op_kernel']}, lanes={lanes}, accepted={accepted}, "
+          f"attempts={attempts} ({attempts / lanes:.6f} per lane), NR "
+          f"iterations {nri} ({nri / lanes:.6f} per lane), failed="
+          f"{failed}, wall={wall:.6f} s, {accepted / wall:.6e} accepted "
+          f"steps/s on {smi}; the kernel on the same inputs against its "
+          f"plain version: counters equal, max abs err {err:.3e}; kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    return dict(launches=got["run_kernel"], op_launches=got["op_kernel"],
+                err=err, k_ms=k_ms, p_ms=p_ms, plan=plan,
+                attempts=int(k.attempts.sum()), nri=int(k.nr_iters.sum()),
+                nbytes=nbytes(dev, src, st, jv0) + nbytes(st, jv0)
+                + plan.topo.nbytes + lanes * (8 + 8 + 4 + 4 + 4 + 4))
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1224,7 +1550,7 @@ def main():
     for name in _build.SOURCES:
         _build.load(name)
     phase("2 build", t0, f"built {fresh or 'nothing'} with one nvcc call "
-          "per source, started together: "
+          "per library, started together: "
           + ", ".join(p.name for p in libs.values()))
     for name, text in logs.items():
         print(f"[2 ptxas] {name}: {'; '.join(ptxas_summary(text))}",
@@ -1262,7 +1588,7 @@ def main():
     for name, deck, ov, b, edit in decks:
         t0 = time.perf_counter()
         cc, cfg, params, axes, state0 = setup(deck, ov, b)
-        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
+        plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
         if edit:
             sc = edit(sc)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
@@ -1407,9 +1733,7 @@ def main():
     for name, deck in nl_decks:
         t0 = time.perf_counter()
         cc, cfg, params, axes, state0 = setup(deck, rc_spread, BENCH_LANES)
-        plan, dev, src, st, sc = lane_inputs(cc, cfg, params, state0)
-        opr = op.make_op_fused(cc, DEFAULTS)(params, state0)
-        jv0 = run_plan.jv_stack(plan, opr.jv, BENCH_LANES)
+        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
         err = compare_run(name, k, p, check_jv=True)
         nl_err = max(nl_err, err)
@@ -1476,6 +1800,10 @@ def main():
     stream = stream_phase(BENCH_LANES, SMALL_LANES, smi, bench, bench_none,
                           bench_overrides)
     resume_phase(SMALL_LANES, bench_overrides)
+    phys_run_err, phys_store_err = physics_run_phase(SMALL_LANES)
+    phys_op = physics_op_phase(BENCH_LANES)
+    phys_dc = physics_dc_phase(BENCH_LANES)
+    phys = physics_main_phase(BENCH_LANES, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -1533,6 +1861,34 @@ def main():
           f"{store['nbytes']} bytes (the inputs, the state and counters, "
           f"and the whole zeroed output) / {PEAK_BYTES:.3g} B/s = "
           f"{store_bound[3]:.6f} ms", flush=True)
+    pp = phys["plan"]
+    phys_flops = phys["attempts"] * phys_step_flops(pp) + phys[
+        "nri"] * phys_newton_flops(pp)
+    phys_bound = bound(phys_flops, phys["nbytes"])
+    print(f"[17 bound] run_kernel physics (half_wave_rectifier, trap): "
+          f"{phys['attempts']} attempts x {phys_step_flops(pp)} + "
+          f"{phys['nri']} Newton iterations x {phys_newton_flops(pp)} f64 "
+          f"operations / {PEAK_F64:.3g} op/s = {phys_bound[2]:.6f} ms; "
+          f"{phys['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{phys_bound[3]:.6f} ms", flush=True)
+    pop = phys_op["plan"]
+    pop_flops = phys_op["iters"] * phys_newton_flops(pop) + BENCH_LANES * (
+        build_flops(pop, pop.entries[:pop.n_lin]) + lu_flops(pop.np1))
+    pop_bound = bound(pop_flops, phys_op["nbytes"])
+    print(f"[17 bound] op_kernel physics (half_wave_rectifier bias): "
+          f"{phys_op['iters']} Newton iterations x {phys_newton_flops(pop)} "
+          f"+ {BENCH_LANES} linear estimates, {pop_flops} f64 operations / "
+          f"{PEAK_F64:.3g} op/s = {pop_bound[2]:.6f} ms; "
+          f"{phys_op['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{pop_bound[3]:.6f} ms", flush=True)
+    pdp = phys_dc["plan"]
+    pdc_per_iter = phys_newton_flops(pdp, rs_share=1.0) - (pdp.np1 - 1)
+    pdc_bound = bound(phys_dc["iters"] * pdc_per_iter, phys_dc["nbytes"])
+    print(f"[17 bound] dc_sweep_kernel physics (diode_iv_sweep, Rs on "
+          f"every lane): {phys_dc['iters']} Newton iterations x "
+          f"{pdc_per_iter} f64 operations / {PEAK_F64:.3g} op/s = "
+          f"{pdc_bound[2]:.6f} ms; {phys_dc['nbytes']} bytes / "
+          f"{PEAK_BYTES:.3g} B/s = {pdc_bound[3]:.6f} ms", flush=True)
     ac_bound = bound(ac_main["flops"], ac_main["nbytes"])
     print(f"[17 bound] ac_kernel (ce_amplifier_ac): {ac_main['flops']} f64 "
           f"operations / {PEAK_F64:.3g} op/s = {ac_bound[2]:.6f} ms; "
@@ -1556,8 +1912,13 @@ def main():
               hwr["k_ms"], hwr["p_ms"], nl_bound),
         entry("run_kernel_store", run_src,
               "toyspice_tpu/ops/pallas_tran.py:1429", store["launches"],
-              max(store["err"], stream["err"]), store["k_ms"],
-              store["p_ms"], store_bound),
+              max(store["err"], stream["err"], phys_store_err),
+              store["k_ms"], store["p_ms"], store_bound),
+        entry("run_kernel_physics",
+              "toyspice_tpu_torch/csrc/run_kernel_phys.cu",
+              "toyspice_tpu/ops/pallas_run.py:652", phys["launches"],
+              max(phys["err"], phys_run_err), phys["k_ms"], phys["p_ms"],
+              phys_bound),
         entry("op_kernel", "toyspice_tpu_torch/csrc/op_kernel.cu",
               "toyspice_tpu/ops/pallas_op.py:230", op_launches, op_err,
               op_main["k_ms"], op_main["p_ms"], op_bound),
@@ -1565,9 +1926,16 @@ def main():
               "toyspice_tpu/ops/pallas_solve.py:337", stamped["launches"],
               stamped["err"], stamped["k_ms"], stamped["p_ms"], st_bound,
               stamped["lib_ms"]),
+        entry("op_kernel_physics", "toyspice_tpu_torch/csrc/op_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:230", phys["op_launches"],
+              phys_op["err"], phys_op["k_ms"], phys_op["p_ms"], pop_bound),
         entry("dc_sweep_kernel", "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
               "toyspice_tpu/ops/pallas_op.py:431", dc_main["launches"],
               dc_main["err"], dc_main["k_ms"], dc_main["p_ms"], dc_bound),
+        entry("dc_sweep_kernel_physics",
+              "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:431", phys_dc["launches"],
+              phys_dc["err"], phys_dc["k_ms"], phys_dc["p_ms"], pdc_bound),
         entry("ac_kernel", "toyspice_tpu_torch/csrc/ac_kernel.cu",
               "toyspice_tpu/ops/pallas_ac.py:102", ac_main["launches"],
               ac_main["err"], ac_main["k_ms"], ac_main["p_ms"], ac_bound,

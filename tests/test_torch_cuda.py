@@ -493,18 +493,8 @@ def _store_inputs(deck, lanes, device, magnetised=False):
     state0 = ts.init_state(cc, device=device)
     if magnetised:
         state0["LM"] = _magnetised_lm(params["LM"], rng, lanes, device)
-    plan = run_plan.make_plan(cc)
-    dev = run_plan.const_stack(plan, params, lanes, device, DEFAULTS.temp,
-                               state0)
-    src = run_plan.source_stack(plan, params, lanes, device)
-    st = run_plan.init_state_stack(plan, state0, lanes, device)
-    sc = run.RunScalars(cfg.tstop, cfg.minstep, cfg.tmax, 7.0,
-                        cfg.max_attempts)
-    jv0 = None
-    if plan.nonlinear:
-        jv0 = run_plan.jv_stack(
-            plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv, lanes)
-    return cc, cfg, params, state0, plan, dev, src, st, sc, jv0
+    r = run.run_inputs(cc, cfg, params, state0)
+    return cc, cfg, params, state0, r.plan, r.dev, r.src, r.st, r.sc, r.jv
 
 
 def _magnetised_lm(pm, rng, b, device):
@@ -623,3 +613,115 @@ def test_two_chunk_stream_matches_plain_and_the_whole_run(cuda):
     p, pw = run.store_plain(plan, dev, src, st1, sc, keep, start=start)
     _assert_same(k, p)
     _assert_store_same(kw, pw)
+
+
+# ------------------------------------------------------------ physics
+
+D_RS_SIN = """* Rs diode, sine drive
+.tran 0.05m 0.5m
+Vin 1 0 SIN(0 5 5k)
+R1 1 2 1k
+D1 2 0 DM
+C1 2 0 10n
+.model DM D (Is=1e-14 Rs=100 Tt=10n)
+"""
+
+D_BV_SIN = """* Bv diode, sine drive through breakdown
+.tran 0.05m 0.5m
+Vin 1 0 SIN(-150 60 5k)
+R1 1 2 1k
+D1 2 0 DM
+C1 2 0 10n
+.model DM D (Is=1e-14 Bv=100 Tt=10n)
+"""
+
+
+def _physics_inputs(deck, lanes, device, trap):
+    """The PHYS run kernel's inputs as make_tran_run builds them: the
+    physics OP (or the linear OP) seeds the state unless UIC."""
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, lanes), device=device)
+    r = run.run_inputs(cc, cfg, params, ts.init_state(cc, device=device),
+                       ts.SimOptions(integration="trap" if trap else "be"),
+                       "physics")
+    return cfg, r.plan, r.dev, r.src, r.st, r.sc, r.jv
+
+
+@pytest.mark.parametrize("trap", [False, True], ids=["be", "trap"])
+@pytest.mark.parametrize("deck", [HWR, D_RS_SIN, D_BV_SIN, NMOS_INV,
+                                  BJT_TRAN, RC_SIN],
+                         ids=["diode", "diode_rs", "diode_bv", "mosfet",
+                              "bjt", "rc_sin"])
+def test_physics_kernels_match_plain(cuda, deck, trap):
+    """The PHYS run kernel and its store instantiation against their plain
+    versions (64 lanes); the store moves no counter or state."""
+    cfg, plan, dev, src, st, sc, jv0 = _physics_inputs(deck, 64, cuda, trap)
+    before = run.launch_run_kernel.launches
+    k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
+    torch.cuda.synchronize()
+    assert run.launch_run_kernel.launches == before + 1
+    _assert_same(k, run.run_plain(plan, dev, src, st, sc, jv0))
+    assert not k.fail.any()
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    ks, kw = run.launch_store_kernel(plan, dev, src, st, sc, keep, jv0)
+    p, pw = run.store_plain(plan, dev, src, st, sc, keep, jv0)
+    _assert_same(ks, p)
+    _assert_store_same(kw, pw)
+    for a, b in zip(ks, k):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("deck", [D_RS_SIN, D_BV_SIN, HWR],
+                         ids=["diode_rs", "diode_bv", "rectifier"])
+def test_physics_op_kernel_matches_plain(cuda, deck):
+    cc = ts.compile_circuit(ts.parse(deck))
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 32), device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    k = op.make_op_fused(cc, DEFAULTS, "physics", solve=op.op_lanes)(
+        params, state0)
+    p = op.make_op_fused(cc, DEFAULTS, "physics", solve=op.op_plain)(
+        params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+    _assert_close(k.x, p.x)
+    assert bool(k.converged.all())
+
+
+def test_physics_dc_kernel_matches_plain(cuda):
+    """The DC sweep kernel's physics flavour with the diode's Rs per lane."""
+    cc = ts.compile_circuit(ts.parse(DIODE_IV))
+    ov = _rc_spread(cc, 64)
+    ov["D"] = {"rs": np.linspace(1.0, 20.0, 64)[:, None]}
+    params, _ = ts.batch_params(cc, ov, device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    d = cc.netlist.dc
+    pts = np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1))
+    slots = (cc.names["V"].index(d.source1),)
+    before = dc.launch_dc_kernel.launches
+    k = dc.make_dc_fused(cc, slots, DEFAULTS, "physics")(params, state0, pts)
+    torch.cuda.synchronize()
+    assert dc.launch_dc_kernel.launches == before + 1
+    p = dc.make_dc_fused(cc, slots, DEFAULTS, "physics",
+                         solve=dc.dc_plain)(params, state0, pts)
+    assert torch.equal(k.conv, p.conv) and torch.equal(k.iters, p.iters)
+    _assert_close(k.xs, p.xs)
+    assert bool(k.conv.all())
+
+
+def test_physics_main_path_launches_both_kernels(cuda):
+    """make_tran_batch under physics/trap on the rectifier: one launch of
+    the OP kernel's physics flavour, one of the PHYS run kernel."""
+    cc = ts.compile_circuit(ts.parse(HWR))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 64), device=cuda)
+    fn = ts.make_tran_batch(cc, cfg, None, semantics="physics",
+                            opts=ts.SimOptions(integration="trap"))
+    r0, o0 = run.launch_run_kernel.launches, op.launch_op_kernel.launches
+    out = fn(params, ts.init_state(cc, device=cuda))
+    torch.cuda.synchronize()
+    assert run.launch_run_kernel.launches == r0 + 1
+    assert op.launch_op_kernel.launches == o0 + 1
+    assert not out.fail.any() and bool((out.t_final == cfg.tstop).all())

@@ -1,5 +1,8 @@
 """What the port's transient and OP do not cover raise NotImplementedError
-with the reason; there is no other engine to fall back on yet."""
+with the reason; there is no other engine to fall back on yet.  Physics
+semantics runs every deck of R, C, L, V, I, D, Q and M; physics with
+magnetic inductors or mutual couplings (the live Jiles-Atherton core) and
+trapezoidal integration under compat stay refused."""
 
 import os
 import re
@@ -76,13 +79,16 @@ Rl out 0 150
 @pytest.mark.parametrize("text,kw,reason", [
     (_diodes(17), {}, "17 diodes, BJTs and MOSFETs exceed the kernel's cap "
      "of 16"),
-    (_deck("nmos_inverter_tran.cir"), {"semantics": "physics"},
-     "semantics='physics'"),
+    (_deck("coupled_inductors.cir"), {"semantics": "physics"},
+     "mutual couplings under physics semantics"),
     (_deck("saturating_transformer.cir"), {"semantics": "physics"},
-     "semantics='physics'"),
+     "live Jiles-Atherton core"),
     (RLC, {"store": "bogus"}, "store='bogus'"),
-    (RLC, {"semantics": "physics"}, "semantics='physics'"),
-    (RLC, {"opts": SimOptions(integration="trap")}, "integration='trap'"),
+    (K_DIODE, {"semantics": "physics",
+               "opts": SimOptions(integration="trap")},
+     "mutual couplings under physics semantics"),
+    (RLC, {"opts": SimOptions(integration="trap")},
+     "integration='trap' requires semantics='physics'"),
     (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32"),
     (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32"),
     (K_DIODE, {}, "mutual couplings with diodes"),
@@ -105,11 +111,50 @@ def test_np1_cap_boundary():
 
 
 def test_make_tran_run_refuses_ineligible():
-    cc = ts.compile_circuit(ts.parse(_deck("nmos_inverter_tran.cir")))
+    cc = ts.compile_circuit(ts.parse(_deck("saturating_transformer.cir")))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
-    with pytest.raises(NotImplementedError, match="semantics='physics'"):
+    with pytest.raises(NotImplementedError,
+                       match="live Jiles-Atherton core"):
         run.make_tran_run(cc, cfg, semantics="physics")
+    with pytest.raises(NotImplementedError, match="integration='trap'"):
+        run.make_tran_run(cc, cfg, SimOptions(integration="trap"))
+
+
+@pytest.mark.parametrize("integration", ["be", "trap"])
+def test_physics_decks_select_the_run_and_store_engines(integration):
+    """Every non-magnetic deck runs under physics through the PHYS run
+    kernel (store='none') or its store instantiation (store='full' and
+    resume)."""
+    opts = SimOptions(integration=integration)
+    for name in TRAN_DECKS[:-2]:
+        fn = _build(_deck(name), semantics="physics", opts=opts)
+        assert fn.engine == "run", name
+        assert f"physics/{integration}" in fn.engine_reason
+        fn = _build(_deck(name), semantics="physics", opts=opts,
+                    store="full")
+        assert fn.engine == "store", name
+        fn = _build(_deck(name), semantics="physics", opts=opts,
+                    resume=True)
+        assert fn.engine == "store", name
+
+
+def test_physics_transient_builds_its_op():
+    """A physics run starts at the bias point, so a linear deck takes the
+    linear OP unless UIC; a resumed run takes none."""
+    from toyspice_tpu_torch.engine.batch import linear_op_ineligible_reason
+
+    lin = ts.compile_circuit(ts.parse(RLC))
+    tp = lin.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    assert linear_op_ineligible_reason(lin, "physics") is None
+    assert run.make_tran_run(lin, cfg, semantics="physics").op is not None
+    assert run.make_tran_run(lin, cfg._replace(uic=True),
+                             semantics="physics").op is None
+    assert run.make_tran_run(lin, cfg, semantics="physics",
+                             resume=True).op is None
+    nl = ts.compile_circuit(ts.parse(_deck("half_wave_rectifier.cir")))
+    assert run.make_tran_run(nl, cfg, semantics="physics").op is not None
 
 
 TRAN_DECKS = ("rc_lowpass_tran.cir", "rl_tran.cir", "rlc_ringdown.cir",
@@ -153,16 +198,30 @@ def test_nonlinear_device_cap_boundary():
 
 @pytest.mark.parametrize("text,kw,reason", [
     (_deck("divider_op.cir"), {}, "linear circuit"),
-    (_deck("ce_amplifier_op.cir"), {"semantics": "physics"},
-     "semantics='physics'"),
-    (_deck("saturating_transformer.cir"), {}, "device kinds"),
+    (_deck("ce_amplifier_op.cir"),
+     {"opts": SimOptions(integration="trap")},
+     "integration='trap' requires semantics='physics'"),
+    (_deck("saturating_transformer.cir"), {"semantics": "physics"},
+     "device kinds"),
     (_diodes(17), {}, "cap of 16"),
 ], ids=["linear", "physics", "magnetic", "device_cap"])
 def test_op_ineligible_reasons(text, kw, reason):
     cc = ts.compile_circuit(ts.parse(text))
-    assert reason in op.op_fused_ineligible_reason(cc, **kw)
+    kw = dict(kw)
+    opts = kw.pop("opts", SimOptions())
+    assert reason in op.op_fused_ineligible_reason(cc, opts=opts, **kw)
     with pytest.raises(NotImplementedError, match="not eligible"):
-        op.make_op_fused(cc, SimOptions(), **kw)
+        op.make_op_fused(cc, opts, **kw)
+
+
+def test_op_serves_physics():
+    for name in ("ce_amplifier_op.cir", "half_wave_rectifier.cir",
+                 "nmos_inverter_tran.cir", "diode_iv_sweep.cir"):
+        cc = ts.compile_circuit(ts.parse(_deck(name)))
+        for opts in (SimOptions(), SimOptions(integration="trap")):
+            assert op.op_fused_ineligible_reason(cc, "physics", opts) is None
+    assert "semantics='bogus'" in op.op_fused_ineligible_reason(
+        cc, "bogus")
 
 
 def test_nonlinear_transient_builds_its_op():
@@ -187,8 +246,8 @@ def _ac(text):
 @pytest.mark.parametrize("text,kw,reason", [
     (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
     (_deck("saturating_transformer.cir"), {}, "device kinds ['K', 'LM']"),
-    (_deck("ce_amplifier_ac.cir"), {"semantics": "physics"},
-     "semantics='physics'"),
+    (_deck("ce_amplifier_ac.cir"), {"opts": SimOptions(integration="trap")},
+     "integration='trap' requires semantics='physics'"),
     (_ac(_ladder(30)), {}, "np1=33 exceeds the AC kernel's matrix cap of 32"),
     (_ac(_diodes(17)), {}, "cap of 16"),
 ], ids=["mutual", "magnetic", "physics", "np1_cap", "device_cap"])
@@ -216,10 +275,10 @@ def test_ac_np1_cap_boundary():
 @pytest.mark.parametrize("text,kw,reason", [
     (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
     (_deck("saturating_transformer.cir"), {}, "device kinds"),
-    (_deck("diode_iv_sweep.cir"), {"semantics": "physics"},
-     "semantics='physics'"),
-    (_deck("divider_op.cir"), {"semantics": "physics"},
-     "semantics='physics'"),
+    (_deck("diode_iv_sweep.cir"), {"opts": SimOptions(integration="trap")},
+     "integration='trap' requires semantics='physics'"),
+    (_deck("divider_op.cir"), {"opts": SimOptions(integration="trap")},
+     "integration='trap' requires semantics='physics'"),
     (_diodes(17), {}, "cap of 16"),
     (_ladder(30), {}, "np1=33 exceeds the stamped-solve kernel's matrix "
      "cap of 32"),
@@ -252,3 +311,19 @@ def test_linear_decks_select_the_linear_engines():
         assert select_op_engine(cc)[0] == "fused", name
         assert ac_ineligible_reason(cc) is None, name
         assert op_fused_ineligible_reason(cc) is None, name
+
+
+def test_physics_selects_the_same_op_engines():
+    """The OP stamps of a linear deck do not depend on the semantics, so a
+    physics linear deck takes the stamped solve; a nonlinear one the OP
+    kernel's physics flavour; AC serves both."""
+    from toyspice_tpu_torch.engine.batch import select_op_engine
+    from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
+
+    for name, engine in (("divider_op.cir", "linear"),
+                         ("rlc_ringdown.cir", "linear"),
+                         ("diode_iv_sweep.cir", "fused"),
+                         ("ce_amplifier_ac.cir", "fused")):
+        cc = ts.compile_circuit(ts.parse(_deck(name)))
+        assert select_op_engine(cc, "physics")[0] == engine, name
+        assert ac_ineligible_reason(cc, "physics") is None, name

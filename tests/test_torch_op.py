@@ -174,11 +174,15 @@ def test_engine_selection_and_reasons():
     lin = ts.compile_circuit(ts.parse(_deck("divider_op.cir")))
     assert select_op_engine(lin)[0] == "linear"
     assert "linear circuit" in op.op_fused_ineligible_reason(lin)
+    # physics is served (tests/test_torch_physics_op.py); trap under
+    # compat is refused, as the JAX package refuses it
     for text, kw, reason in (
-            (_deck("divider_op.cir"), {"semantics": "physics"},
-             "semantics='physics'"),
-            (_deck("ce_amplifier_op.cir"), {"semantics": "physics"},
-             "semantics='physics'"),
+            (_deck("divider_op.cir"),
+             {"opts": SimOptions(integration="trap")},
+             "integration='trap'"),
+            (_deck("ce_amplifier_op.cir"),
+             {"opts": SimOptions(integration="trap")},
+             "integration='trap'"),
             (_deck("saturating_transformer.cir"), {}, "device kinds")):
         cc = ts.compile_circuit(ts.parse(text))
         with pytest.raises(NotImplementedError, match="no OP engine") as e:

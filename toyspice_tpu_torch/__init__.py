@@ -6,21 +6,23 @@ copies), parameters and state as dicts of f64 tensors with the batch axis
 first, and hand-written CUDA kernels in ``csrc/`` in place of the Pallas
 kernels.  The port imports neither JAX nor the JAX package.
 
-Ported so far, compat semantics, for decks of R, C, L, V and I (DC, SIN,
-PULSE and PWL sources), diodes, BJTs and MOSFETs: the Monte-Carlo
-transient through one whole-run kernel (a nonlinear deck first takes its
-operating point through the OP kernel), also for magnetic inductors and
-mutual couplings; with ``store='full'`` the kernel's store instantiation
-returns every accepted step, whole (``make_tran_batch``) or in chunks of
-bounded size (``stream_transient_chunks``, ``run_transient_streamed``),
-and a run resumes from a checkpoint (``resume=True``,
+Ported so far, for decks of R, C, L, V and I (DC, SIN, PULSE and PWL
+sources), diodes, BJTs and MOSFETs, under compat semantics and under
+physics semantics (``semantics="physics"``: backward Euler or, with
+``SimOptions(integration="trap")``, the trapezoidal rule; a physics run
+starts at its bias point): the Monte-Carlo transient through one whole-run
+kernel (a nonlinear deck first takes its operating point through the OP
+kernel), also for magnetic inductors and mutual couplings under compat;
+with ``store='full'`` the kernel's store instantiation returns every
+accepted step, whole (``make_tran_batch``) or in chunks of bounded size
+(``stream_transient_chunks``, ``run_transient_streamed``), and a run
+resumes from a checkpoint (``resume=True``,
 ``save_checkpoint``/``load_checkpoint``, files the JAX package reads too);
-the batched
-operating point (``run_op_batch``), through the OP kernel and the rescue
-ladders, or on a linear deck the stamped-solve kernel under the same
-ladders; the DC sweep (``run_dc_batch``), through the DC sweep kernel or
-the stamped solve; and AC (``run_ac_batch``), that operating point and
-then the AC kernel.  Entry points run on ``cuda`` unless given
+the batched operating point (``run_op_batch``), through the OP kernel and
+the rescue ladders, or on a linear deck the stamped-solve kernel under the
+same ladders; the DC sweep (``run_dc_batch``), through the DC sweep kernel
+or the stamped solve; and AC (``run_ac_batch``), that operating point and
+then the AC kernel. Entry points run on ``cuda`` unless given
 ``device="cpu"``; on the CPU the kernels' plain torch versions run instead.
 
     cc = compile_circuit(parse(deck))

@@ -4,8 +4,10 @@
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_op.py::_dc_sweep_kernel
 // (body _dc_sweep_core, launched at pallas_op.py:837 through
 // _dc_sweep_call and make_dc_fused), which computes vmap(engine/dc.py
-// make_dc): per lane, the junction voltages start at zero and carry from
-// point to point; at each point
+// make_dc), compat and (the PHYS instantiations) its phys_be mode
+// (pallas_op.py:856-960: the physics diode with Bv and Rs and its
+// breakdown-frame limit): per lane, the junction voltages start at zero and
+// carry from point to point; at each point
 //
 //   x = 0 (dc.py passes zeros; _dc_sweep_core x0 = (zn, zn));
 //   the DC-flavour Newton of newton.cuh: iteration 0 stamps the carried
@@ -42,7 +44,7 @@ namespace {
 
 using namespace tsr;
 
-template <int NMAX>
+template <int NMAX, bool PHYS>
 __global__ void __launch_bounds__(THREADS)
 dc_sweep_kernel(const int* __restrict__ topo_g, int topo_len,
                 const double* __restrict__ dev,
@@ -93,9 +95,9 @@ dc_sweep_kernel(const int* __restrict__ topo_g, int topo_len,
     };
     for (int i = 0; i < n; ++i) x[i] = 0.0;
     bool conv = false;
-    const int iters = newton<NMAX, FL_DC>(deck, ent, ne, lin, m, x, jv, nv,
-                                          0.0, 0.0, max_iter, reltol, abstol,
-                                          &conv);
+    const int iters = newton<NMAX, FL_DC, PHYS>(deck, ent, ne, lin, m, x,
+                                                jv, nv, 0.0, 0.0, max_iter,
+                                                reltol, abstol, &conv);
     const size_t pt = (size_t)lane * npts + p;
     for (int i = 0; i < n; ++i) x_out[pt * n + i] = x[i];
     iters_out[pt] = iters;
@@ -103,7 +105,7 @@ dc_sweep_kernel(const int* __restrict__ topo_g, int topo_len,
   }
 }
 
-template <int NMAX>
+template <int NMAX, bool PHYS>
 cudaError_t launch(const int* topo, int topo_len, const double* dev,
                    const double* dyn, const double* vs, long long vs_stride,
                    int npts, double* x_out, int* iters, int* conv,
@@ -111,39 +113,54 @@ cudaError_t launch(const int* topo, int topo_len, const double* dev,
                    double gmin_floor, cudaStream_t stream) {
   const int blocks = (nlanes + THREADS - 1) / THREADS;
   const size_t shmem = (size_t)topo_len * sizeof(int);
-  dc_sweep_kernel<NMAX><<<blocks, THREADS, shmem, stream>>>(
+  dc_sweep_kernel<NMAX, PHYS><<<blocks, THREADS, shmem, stream>>>(
       topo, topo_len, dev, dyn, vs, vs_stride, npts, x_out, iters, conv,
       nlanes, reltol, abstol, max_iter, gmin_floor);
   return cudaGetLastError();
+}
+
+template <bool PHYS>
+int launch_np1(int np1, const int* topo, int topo_len, const double* dev,
+               const double* dyn, const double* vs, long long vs_stride,
+               int npts, double* x_out, int* iters, int* conv, int nlanes,
+               double reltol, double abstol, int max_iter,
+               double gmin_floor, cudaStream_t s) {
+  if (np1 <= 8)
+    return launch<8, PHYS>(topo, topo_len, dev, dyn, vs, vs_stride, npts,
+                           x_out, iters, conv, nlanes, reltol, abstol,
+                           max_iter, gmin_floor, s);
+  if (np1 <= 16)
+    return launch<16, PHYS>(topo, topo_len, dev, dyn, vs, vs_stride, npts,
+                            x_out, iters, conv, nlanes, reltol, abstol,
+                            max_iter, gmin_floor, s);
+  if (np1 <= 32)
+    return launch<32, PHYS>(topo, topo_len, dev, dyn, vs, vs_stride, npts,
+                            x_out, iters, conv, nlanes, reltol, abstol,
+                            max_iter, gmin_floor, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Launch the DC sweep kernel for nlanes lanes of npts points on `stream`;
 // returns the cudaError_t of the launch (0 on success).  np1 picks the
-// matrix size; vs_stride is the lane stride of the source table (0 when
-// every lane shares one).
+// matrix size, physics the physics instantiation; vs_stride is the lane
+// stride of the source table (0 when every lane shares one).
 extern "C" int tsr_dc_sweep(int np1, const int* topo, int topo_len,
                             const double* dev, const double* dyn,
                             const double* vs, long long vs_stride, int npts,
                             double* x_out, int* iters, int* conv, int nlanes,
                             double reltol, double abstol, int max_iter,
-                            double gmin_floor, void* stream) {
+                            double gmin_floor, int physics, void* stream) {
   if (nlanes <= 0 || npts <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (np1 <= 8)
-    return launch<8>(topo, topo_len, dev, dyn, vs, vs_stride, npts, x_out,
-                     iters, conv, nlanes, reltol, abstol, max_iter,
-                     gmin_floor, s);
-  if (np1 <= 16)
-    return launch<16>(topo, topo_len, dev, dyn, vs, vs_stride, npts, x_out,
-                      iters, conv, nlanes, reltol, abstol, max_iter,
-                      gmin_floor, s);
-  if (np1 <= 32)
-    return launch<32>(topo, topo_len, dev, dyn, vs, vs_stride, npts, x_out,
-                      iters, conv, nlanes, reltol, abstol, max_iter,
-                      gmin_floor, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (physics)
+    return launch_np1<true>(np1, topo, topo_len, dev, dyn, vs, vs_stride,
+                            npts, x_out, iters, conv, nlanes, reltol, abstol,
+                            max_iter, gmin_floor, s);
+  return launch_np1<false>(np1, topo, topo_len, dev, dyn, vs, vs_stride,
+                           npts, x_out, iters, conv, nlanes, reltol, abstol,
+                           max_iter, gmin_floor, s);
 }
 
 extern "C" const char* tsr_error_string(int err) {

@@ -4,22 +4,26 @@
 // csrc/ac_kernel.cu use too: one thread per lane, f64.
 //
 // The CUDA counterpart of toyspice_tpu/ops/pallas_tran.py's
-// _newton_in_kernel and _device_eval_lib (compat branches), and of the
-// general engine's engine/newton.py.  ops/newton.py is the same arithmetic
-// as torch operations: each value below is computed with the operations of
-// that file in the same order, and the build uses -fmad=false, so that
-// kernel and plain version agree bit for bit.
+// _newton_in_kernel and _device_eval_lib (compat, and with PHYS the
+// physics branches), and of the general engine's engine/newton.py.
+// ops/newton.py is the same arithmetic as torch operations: each value
+// below is computed with the operations of that file in the same order,
+// and the build uses -fmad=false, so that kernel and plain version agree
+// bit for bit.
 //
 // One Newton iteration of a lane:
 //   1. junction voltages: the carried ones at iteration 0 of a transient
 //      attempt or a DC sweep point (warm start, tran.go:174, dc.go:155),
 //      else UpdateVoltages of the last solution with pnjlim on the diode
-//      and BJT junctions (engine/nlstate.py);
+//      and BJT junctions (engine/nlstate.py; PHYS adds the diode's
+//      breakdown-frame limit);
 //   2. device evaluation into value slots (ops/run_plan.py NL_SLOTS per
-//      device): the compat diode with its transit-time companion, the
-//      Ebers-Moll BJT with its exact Jacobian after the cold-start guess,
-//      the level 1-3 MOSFET after its cold-start guess, with the Meyer
-//      charge stamps of a transient (previous charges frozen, PLAN.md 1);
+//      device): the diode (compat, or PHYS: Bv and Rs) with its
+//      transit-time companion, the Ebers-Moll BJT with its exact Jacobian
+//      after the cold-start guess, the level 1-3 MOSFET after its
+//      cold-start guess, with the Meyer charge stamps of a transient
+//      (compat: previous charges frozen, PLAN.md 1; PHYS: the committed
+//      charge memory, trapezoidal after a device's first committed step);
 //   3. the build from the stamp plan in shared memory, the ground row and,
 //      in an OP, the status gmin on every non-ground diagonal;
 //   4. Gauss-Jordan with partial pivoting (largest |pivot| among unused
@@ -47,10 +51,10 @@ enum Tag { TAG_G = 0, TAG_GEQ, TAG_LTERM, TAG_ONE, TAG_CEQ, TAG_LRHS,
            TAG_KRHSA, TAG_KRHSB };
 enum Hdr { H_NP1 = 0, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN,
            H_LN, H_KS, H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN,
-           H_NLIN, H_KJ, H_DOFF, H_QOFF, H_MOFF, H_NLM, H_NK, H_KP };
+           H_NLIN, H_KJ, H_DOFF, H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB };
 // per-device dev rows: ops/run_plan.py D_ROWS, Q_ROWS, M_ROWS
 enum DRow { D_N = 0, D_IS, D_GMIN, D_TT, D_PQ, D_NVT, D_IST, D_VTE,
-            D_VCRIT };
+            D_VCRIT, D_RS, D_BV };
 enum QRow { Q_SIGN = 0, Q_IES, Q_ICS, Q_NF, Q_NR, Q_AF, Q_INVNFVT,
             Q_INVNRVT, Q_INVVAF, Q_INVVAR, Q_INVIKF, Q_INVIKR, Q_VBE0,
             Q_VBC0, Q_VTEF, Q_VCRITF, Q_VTER, Q_VCRITR };
@@ -60,6 +64,11 @@ enum MRow { M_SIGN = 0, M_VTO, M_GAMMA, M_PHI, M_KP, M_W, M_L, M_LAM,
             M_PS, M_PD, M_PB, M_MJ, M_QGS, M_QGD, M_QGB, M_QBS, M_QBD };
 // value slots per device: ops/run_plan.py NL_SLOTS
 constexpr int D_SLOTS = 2, Q_SLOTS = 12, M_SLOTS = 21;
+// the physics state rows of a diode and a MOSFET: ops/run_plan.py
+// PHYS_ROWS (row r of device k at r*nk + k)
+enum DState { DS_VD = 0, DS_ID, DS_Q, DS_IC, DS_HIST, DS_ROWS };
+enum MState { MS_QGS = 0, MS_QGD, MS_QGB, MS_QBS, MS_QBD, MS_ICGS, MS_ICGD,
+              MS_ICGB, MS_ICBS, MS_ICBD, MS_HIST, MS_ROWS };
 
 constexpr int MAX_NL = 16;  // ops/newton.py MAX_NL_DEVICES
 constexpr int MAX_KJ = 3 * MAX_NL;
@@ -114,6 +123,63 @@ __device__ __forceinline__ double pnjlim(double vnew, double vold, double vte,
   }
   return vte * log(clamp_min(vnew, 1e-300) / vte);
 }
+
+// ------------------------------------------------ the physics diode
+
+// The junction's (i, g) at vj with the Bv breakdown exponential
+// (models/diode.py _raw_physics).
+__device__ __forceinline__ void d_raw_phys(double vj, double nvt, double is_t,
+                                           double gmin, double bv, double* i,
+                                           double* g) {
+  const bool fwd = vj > -3.0 * nvt;
+  const bool bkd = vj <= -bv;
+  const double arg = clamp_max(vj / nvt, EXP_CLAMP);
+  const double barg = clamp_max(-(bv + vj) / nvt, EXP_CLAMP);
+  const double eb = exp(barg);
+  const double i_fwd = is_t * (exp(arg) - 1.0);
+  const double i_bkd = -is_t * eb;
+  *i = fwd ? i_fwd : (bkd ? i_bkd : -is_t);
+  const double g_fwd = (fabs(i_fwd) + is_t) / nvt;
+  const double g_bkd = is_t * eb / nvt;
+  *g = (fwd ? g_fwd : (bkd ? g_bkd : 0.0)) + gmin;
+}
+
+// Terminal (id, gd) of the physics diode (models/diode.py
+// dc_eval_physics): Rs folded in by the 8-step inner Newton from the
+// current-limited seed.  The branch is per lane and at run time: at
+// Rs = 0 the seed is vd and every step subtracts 0, so skipping them is
+// exact.
+__device__ __forceinline__ void d_phys(double vd, double nvt, double is_t,
+                                       double gmin, double rs, double bv,
+                                       double* id, double* gd) {
+  double vj = vd, ij, gj;
+  if (rs != 0.0) {
+    const bool rs_pos = rs > 0;
+    const double rs_is = (rs_pos ? rs : 1.0) * is_t;
+    const double fwd_cap = nvt * log1p(clamp_min(vd, 0.0) / rs_is);
+    const double bkd_cap =
+        -bv - nvt * log1p(clamp_min(-vd - bv, 0.0) / rs_is);
+    vj = (rs_pos && vd > 0)
+             ? min_nan(vd, fwd_cap)
+             : ((rs_pos && vd < -bv) ? max_nan(vd, bkd_cap) : vd);
+    for (int s = 0; s < 8; ++s) {
+      d_raw_phys(vj, nvt, is_t, gmin, bv, &ij, &gj);
+      const double f = vj + rs * ij - vd;
+      vj = vj - f / (1.0 + rs * gj);
+    }
+  }
+  d_raw_phys(vj, nvt, is_t, gmin, bv, &ij, &gj);
+  *id = ij;
+  *gd = gj / (1.0 + rs * gj);
+}
+
+// What a physics transient's companions read besides the dev rows: the
+// lane's committed diode and MOSFET rows and the integration rule.
+struct Phys {
+  const double* d = nullptr;  // DS_ROWS x n_d
+  const double* m = nullptr;  // MS_ROWS x n_m
+  bool trap = false;
+};
 
 // ------------------------------------------------------------ the MOSFET
 
@@ -196,6 +262,38 @@ __device__ __forceinline__ double mos_qj(const Mos& p, double c, double v) {
   return cv * v;
 }
 
+// The five charges qgs qgd qgb qbs qbd at the terminal voltages, no cold
+// start (models/mosfet.py dc_eval and charges, as the physics commit of
+// engine/state.py takes them): the Meyer capacitances of device_values.
+__device__ void mos_charges(const Mos& p, int level, double vgs, double vds,
+                            double vbs, double* q) {
+  int region;
+  mos_ids(p, level, vgs, vds, vbs, &region);
+  const bool lin = region == LINEAR;
+  const bool cut = region == CUTOFF;
+  const double cox = COX_NUM / p[M_TOX];
+  const double cgate = cox * p[M_W] * p[M_L];
+  const double cgso = p[M_CGSO] * p[M_W];
+  const double cgdo = p[M_CGDO] * p[M_W];
+  const double cgbo = p[M_CGBO] * p[M_L];
+  const double cbs = (p[M_CBS] == 0 && p[M_CJ] > 0)
+                         ? p[M_CJ] * p[M_AS] + p[M_CJSW] * p[M_PS]
+                         : p[M_CBS];
+  const double cbd = (p[M_CBD] == 0 && p[M_CJ] > 0)
+                         ? p[M_CJ] * p[M_AD] + p[M_CJSW] * p[M_PD]
+                         : p[M_CBD];
+  const double cgs =
+      cut ? cgso : (lin ? cgate / 2.0 + cgso : cgate * TWO_THIRDS + cgso);
+  const double cgd = cut ? cgdo : (lin ? cgate / 2.0 + cgdo : cgdo);
+  const double cgb =
+      cut ? cgate * TWO_THIRDS : (lin ? cgbo : cgbo + cgate * ONE_THIRD);
+  q[0] = cut ? 0.0 : cgs * vgs;
+  q[1] = cut ? 0.0 : cgd * (vgs - vds);
+  q[2] = cgb * (vgs - vbs);
+  q[3] = mos_qj(p, cbs, vbs);
+  q[4] = mos_qj(p, cbd, vbs - vds);
+}
+
 // ------------------------------------------------------- the lane's deck
 
 // What a lane's Newton reads: the plan in shared memory, its dev row, and
@@ -234,11 +332,24 @@ struct Deck {
 };
 
 // UpdateVoltages + pnjlim (engine/nlstate.py), in place on the rows
-// D vd | Q vbe | Q vbc | M vgs | M vds | M vbs
+// D vd | Q vbe | Q vbc | M vgs | M vds | M vbs.  PHYS limits a diode
+// voltage below min(0, -Bv + 10 vte) as -(Bv + vd), gated on the new
+// voltage only.
+template <bool PHYS = false>
 __device__ void limit_jv(const Deck& c, const double* x, double* jv) {
   for (int k = 0; k < c.n_d; ++k) {
     const double vd = x[c.dn[2 * k]] - x[c.dn[2 * k + 1]];
-    jv[k] = pnjlim(vd, jv[k], c.d(D_VTE, k), c.d(D_VCRIT, k));
+    if constexpr (PHYS) {
+      const double vte = c.d(D_VTE, k), vcrit = c.d(D_VCRIT, k);
+      const double bv = c.d(D_BV, k);
+      const double vold = jv[k];
+      double v = pnjlim(vd, vold, vte, vcrit);
+      if (vd < min_nan(0.0, -bv + 10.0 * vte))
+        v = -bv - pnjlim(-(bv + vd), -(bv + vold), vte, vcrit);
+      jv[k] = v;
+    } else {
+      jv[k] = pnjlim(vd, jv[k], c.d(D_VTE, k), c.d(D_VCRIT, k));
+    }
   }
   double* vbe = jv + c.n_d;
   double* vbc = vbe + c.n_q;
@@ -266,21 +377,38 @@ __device__ void limit_jv(const Deck& c, const double* x, double* jv) {
 
 // Device evaluation into the value slots at junction voltages jv.  TRAN
 // adds the companions of a transient step dte; gmin is the OP's status
-// gmin on the MOSFET drain/source diagonals (0 in a transient).
-template <bool TRAN>
+// gmin on the MOSFET drain/source diagonals (0 in a transient).  PHYS
+// evaluates the physics diode, and its companions read ph.
+template <bool TRAN, bool PHYS = false>
 __device__ void device_values(const Deck& c, const double* jv, double dte,
-                              double gmin, double* nv) {
+                              double gmin, double* nv, const Phys& ph = {}) {
   // ---- diodes (diode.go:119-148, 184-227)
   for (int k = 0; k < c.n_d; ++k) {
     const double vd = jv[k];
     const double nvt = c.d(D_NVT, k), is_t = c.d(D_IST, k);
     const double gmin_d = c.d(D_GMIN, k);
-    const bool fwd = vd > -3.0 * nvt;
-    const double arg = clamp_max(vd / nvt, EXP_CLAMP);
-    const double i_fwd = is_t * (exp(arg) - 1.0);
-    double id = fwd ? i_fwd : -is_t;
-    double gd = fwd ? (fabs(id) + is_t) / nvt + gmin_d : gmin_d;
-    if (TRAN) {  // compat: the previous charge is frozen (PLAN.md 1)
+    double id, gd;
+    if constexpr (PHYS) {
+      d_phys(vd, nvt, is_t, gmin_d, c.d(D_RS, k), c.d(D_BV, k), &id, &gd);
+    } else {
+      const bool fwd = vd > -3.0 * nvt;
+      const double arg = clamp_max(vd / nvt, EXP_CLAMP);
+      const double i_fwd = is_t * (exp(arg) - 1.0);
+      id = fwd ? i_fwd : -is_t;
+      gd = fwd ? (fabs(id) + is_t) / nvt + gmin_d : gmin_d;
+    }
+    if (TRAN && PHYS) {  // the committed charge memory (assemble.py)
+      const double tt = c.d(D_TT, k);
+      const double* sd = ph.d + k;
+      const bool on = ph.trap && sd[DS_HIST * c.n_d] > 0;
+      const double dq = tt * id - sd[DS_Q * c.n_d];
+      const bool pos = dte > 0;
+      const double cap =
+          pos ? (on ? 2.0 * dq / dte - sd[DS_IC * c.n_d] : dq / dte) : 0.0;
+      const double geq = pos ? (on ? 2.0 * tt : tt) * gd / dte : 0.0;
+      gd = gd + geq;
+      id = id + cap;
+    } else if (TRAN) {  // compat: the previous charge is frozen (PLAN.md 1)
       const double tt = c.d(D_TT, k);
       const double charge = tt * id;
       const bool pos = dte > 0;
@@ -441,18 +569,40 @@ __device__ void device_values(const Deck& c, const double* jv, double dte,
       const double qgb = cgb * (vgs - vbs);
       const double qbs = mos_qj(p, cbs, vbs);
       const double qbd = mos_qj(p, cbd, vbs - vds);
-      mv[9 * nm + k] = cgd / dte;
-      mv[10 * nm + k] = cgs / dte;
-      mv[11 * nm + k] = cgb / dte;
-      mv[12 * nm + k] = (cgd + cgs + cgb) / dte;
-      mv[13 * nm + k] = cbs / dte;
-      mv[14 * nm + k] = cbd / dte;
-      mv[15 * nm + k] = (cbd + cbs) / dte;
-      mv[16 * nm + k] = (qgd - p[M_QGD]) / dte;
-      mv[17 * nm + k] = (qgs - p[M_QGS]) / dte;
-      mv[18 * nm + k] = (qgb - p[M_QGB]) / dte;
-      mv[19 * nm + k] = (qbs - p[M_QBS]) / dte;
-      mv[20 * nm + k] = (qbd - p[M_QBD]) / dte;
+      if constexpr (PHYS) {
+        // the committed charges; trapezoidal 2C/dt and 2dq/dt - ic after
+        // the device's first committed step (assemble.py's physics block)
+        const double* sm = ph.m + k;
+        const bool on = ph.trap && sm[MS_HIST * nm] > 0;
+        const double cs[7] = {cgd, cgs, cgb, cgd + cgs + cgb, cbs, cbd,
+                              cbd + cbs};
+        for (int r = 0; r < 7; ++r)
+          mv[(9 + r) * nm + k] = (on ? 2.0 * cs[r] : cs[r]) / dte;
+        const double qs[5] = {qgs, qgd, qgb, qbs, qbd};
+        double ic[5];
+        for (int r = 0; r < 5; ++r) {
+          const double dq = (qs[r] - sm[(MS_QGS + r) * nm]) / dte;
+          ic[r] = on ? 2.0 * dq - sm[(MS_ICGS + r) * nm] : dq;
+        }
+        mv[16 * nm + k] = ic[1];
+        mv[17 * nm + k] = ic[0];
+        mv[18 * nm + k] = ic[2];
+        mv[19 * nm + k] = ic[3];
+        mv[20 * nm + k] = ic[4];
+      } else {
+        mv[9 * nm + k] = cgd / dte;
+        mv[10 * nm + k] = cgs / dte;
+        mv[11 * nm + k] = cgb / dte;
+        mv[12 * nm + k] = (cgd + cgs + cgb) / dte;
+        mv[13 * nm + k] = cbs / dte;
+        mv[14 * nm + k] = cbd / dte;
+        mv[15 * nm + k] = (cbd + cbs) / dte;
+        mv[16 * nm + k] = (qgd - p[M_QGD]) / dte;
+        mv[17 * nm + k] = (qgs - p[M_QGS]) / dte;
+        mv[18 * nm + k] = (qgb - p[M_QGB]) / dte;
+        mv[19 * nm + k] = (qbs - p[M_QBS]) / dte;
+        mv[20 * nm + k] = (qbd - p[M_QBD]) / dte;
+      }
     }
   }
 }
@@ -537,12 +687,14 @@ enum Flavour { FL_OP = 0, FL_TRAN = 1, FL_DC = 2 };
 // The Newton loop of one lane (engine/newton.py) in flavour FL.  x holds
 // x0 on entry and the last solution on exit; jv holds the carried junction
 // voltages on entry and those of the last iteration on exit.  Returns the
-// iteration count; *conv is whether it converged.
-template <int NMAX, int FL, class Lin>
+// iteration count; *conv is whether it converged.  PHYS: the physics
+// diode and limit, and a transient's companions from ph.
+template <int NMAX, int FL, bool PHYS = false, class Lin>
 __device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
                       double (*m)[NMAX + 1], double* x, double* jv,
                       double* nv, double dte, double gmin, int max_iter,
-                      double reltol, double abstol, bool* conv) {
+                      double reltol, double abstol, bool* conv,
+                      const Phys& ph = {}) {
   constexpr bool TRAN = FL == FL_TRAN;
   constexpr bool OP = FL == FL_OP;
   const int n = c.n;
@@ -550,8 +702,8 @@ __device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
   int k = 0;
   bool ok = false;
   while (!ok && k < max_iter) {
-    if (OP || k > 0) limit_jv(c, x, jv);
-    device_values<TRAN>(c, jv, dte, OP ? gmin : 0.0, nv);
+    if (OP || k > 0) limit_jv<PHYS>(c, x, jv);
+    device_values<TRAN, PHYS>(c, jv, dte, OP ? gmin : 0.0, nv, ph);
     build<NMAX, true>(m, n, ent, ne, lin, nv);
     if (OP)
       for (int r = 1; r < n; ++r) m[r][r] = m[r][r] + gmin;

@@ -2,7 +2,10 @@
 // thread per lane, in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_op.py::_op_kernel (body
-// _op_core with the "op" flavour, launched at pallas_op.py:555).  The host
+// _op_core with the "op" flavour, launched at pallas_op.py:555), compat and
+// (the PHYS instantiations) its phys_be mode (pallas_op.py:574-595): the
+// physics diode with Bv and Rs and its breakdown-frame limit; the OP has
+// no companions, so nothing else changes with the semantics.  The host
 // (ops/op.py::make_op_fused) runs the reference's rescue ladders around it:
 // plain NR, the gmin ladder, source stepping, each rung one launch on the
 // lanes still active.  Per lane:
@@ -33,7 +36,7 @@ namespace {
 
 using namespace tsr;
 
-template <int NMAX>
+template <int NMAX, bool PHYS>
 __global__ void __launch_bounds__(THREADS)
 op_kernel(const int* __restrict__ topo_g, int topo_len,
           const double* __restrict__ dev, const double* __restrict__ dyn_g,
@@ -97,10 +100,10 @@ op_kernel(const int* __restrict__ topo_g, int topo_len,
   int iters = 0;
   bool conv = false;
   if (act)
-    iters = newton<NMAX, FL_OP>(deck, ent, ne,
-                                lin_for(max_nan(gmin, gmin_floor)), m, x, jv,
-                                nv, 0.0, gmin, max_iter, reltol, abstol,
-                                &conv);
+    iters = newton<NMAX, FL_OP, PHYS>(deck, ent, ne,
+                                      lin_for(max_nan(gmin, gmin_floor)), m,
+                                      x, jv, nv, 0.0, gmin, max_iter, reltol,
+                                      abstol, &conv);
 
   for (int i = 0; i < n; ++i) x_out[(size_t)lane * n + i] = x[i];
   for (int i = 0; i < kj; ++i) jv_out[(size_t)lane * kj + i] = jv[i];
@@ -108,7 +111,7 @@ op_kernel(const int* __restrict__ topo_g, int topo_len,
   conv_out[lane] = conv ? 1 : 0;
 }
 
-template <int NMAX>
+template <int NMAX, bool PHYS>
 cudaError_t launch(const int* topo, int topo_len, const double* dev,
                    const double* dyn, const double* x0, const double* jv0,
                    double* x_out, double* jv_out, int* iters, int* conv,
@@ -116,34 +119,53 @@ cudaError_t launch(const int* topo, int topo_len, const double* dev,
                    double gmin_floor, cudaStream_t stream) {
   const int blocks = (nlanes + THREADS - 1) / THREADS;
   const size_t shmem = (size_t)topo_len * sizeof(int);
-  op_kernel<NMAX><<<blocks, THREADS, shmem, stream>>>(
+  op_kernel<NMAX, PHYS><<<blocks, THREADS, shmem, stream>>>(
       topo, topo_len, dev, dyn, x0, jv0, x_out, jv_out, iters, conv, nlanes,
       reltol, abstol, max_iter, gmin_floor);
   return cudaGetLastError();
 }
 
+template <bool PHYS>
+int launch_np1(int np1, const int* topo, int topo_len, const double* dev,
+               const double* dyn, const double* x0, const double* jv0,
+               double* x_out, double* jv_out, int* iters, int* conv,
+               int nlanes, double reltol, double abstol, int max_iter,
+               double gmin_floor, cudaStream_t s) {
+  if (np1 <= 8)
+    return launch<8, PHYS>(topo, topo_len, dev, dyn, x0, jv0, x_out, jv_out,
+                           iters, conv, nlanes, reltol, abstol, max_iter,
+                           gmin_floor, s);
+  if (np1 <= 16)
+    return launch<16, PHYS>(topo, topo_len, dev, dyn, x0, jv0, x_out,
+                            jv_out, iters, conv, nlanes, reltol, abstol,
+                            max_iter, gmin_floor, s);
+  if (np1 <= 32)
+    return launch<32, PHYS>(topo, topo_len, dev, dyn, x0, jv0, x_out,
+                            jv_out, iters, conv, nlanes, reltol, abstol,
+                            max_iter, gmin_floor, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Launch the OP kernel for nlanes lanes on `stream`; returns the
-// cudaError_t of the launch (0 on success).  np1 picks the matrix size.
+// cudaError_t of the launch (0 on success).  np1 picks the matrix size,
+// physics the physics instantiation.
 extern "C" int tsr_op(int np1, const int* topo, int topo_len,
                       const double* dev, const double* dyn, const double* x0,
                       const double* jv0, double* x_out, double* jv_out,
                       int* iters, int* conv, int nlanes, double reltol,
                       double abstol, int max_iter, double gmin_floor,
-                      void* stream) {
+                      int physics, void* stream) {
   if (nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (np1 <= 8)
-    return launch<8>(topo, topo_len, dev, dyn, x0, jv0, x_out, jv_out, iters,
-                     conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
-  if (np1 <= 16)
-    return launch<16>(topo, topo_len, dev, dyn, x0, jv0, x_out, jv_out, iters,
-                      conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
-  if (np1 <= 32)
-    return launch<32>(topo, topo_len, dev, dyn, x0, jv0, x_out, jv_out, iters,
-                      conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (physics)
+    return launch_np1<true>(np1, topo, topo_len, dev, dyn, x0, jv0, x_out,
+                            jv_out, iters, conv, nlanes, reltol, abstol,
+                            max_iter, gmin_floor, s);
+  return launch_np1<false>(np1, topo, topo_len, dev, dyn, x0, jv0, x_out,
+                           jv_out, iters, conv, nlanes, reltol, abstol,
+                           max_iter, gmin_floor, s);
 }
 
 extern "C" const char* tsr_error_string(int err) {

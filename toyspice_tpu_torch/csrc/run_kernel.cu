@@ -1,485 +1,34 @@
-// Whole-run adaptive transient for compat decks (R, C, L, V, I with
-// DC/SIN/PULSE/PWL sources, magnetic inductors and mutual couplings, or
-// diodes, BJTs and MOSFETs), one thread per Monte-Carlo lane, in f64.
+// The compat instantiations of the whole-run kernel (csrc/run_kernel.cuh):
+// linear, magnetic (LM and K) and Newton; without the waveform store, or
+// with it when built with -DTSR_STORE (ops/_build.py builds both, as two
+// libraries whose nvcc calls run side by side).
 //
-// Replaces the TPU kernel toyspice_tpu/ops/pallas_run.py::_run_kernel
-// (body _run_core, launched at pallas_run.py:811) for its compat subset:
-// the linear decks, the magnetic ones (LM and K with the frozen-core run
-// constants of _run_const64, stamped as _run_core stamps them), and the
-// nonlinear ones whose attempt runs the in-kernel Newton
-// (pallas_tran.py::_newton_in_kernel, here csrc/newton.cuh).  The TPU
-// kernel carries double-float (hi, lo) f32 pairs folded to (8, W) sublane
-// tiles and steps whole blocks of lanes in lockstep; Hopper has native
-// f64, so each thread here runs its own lane's loop (tran.go:96-152, as
-// engine/tran.py:145-200 of the JAX package):
-//
-//   while (!done && attempts < max_attempts):
-//     clamp dt at tstop; sources at the OLD time t (PLAN.md 2);
-//     linear deck: build the (np1) x (np1+1) augmented system from the
-//     stamp plan, row 0 the ground identity row, and solve it by
-//     Gauss-Jordan (newton.cuh); nonlinear deck: the Newton of newton.cuh
-//     from x = 0 with the carried junction voltages, which carry on to the
-//     next attempt whether it accepts or not;
-//     LTE from the COMMITTED C/L state; accept (commit compat C/L state,
-//     grow dt x2 or x1.1 up to tmax) or reject (halve dt while dt >
-//     minstep, else a hard fail).
-//
-// The STORE instantiation also replaces pallas_tran.py::_fused_kernel
-// (:1429, launched at :2252) with the waveform store of make_tran_fused
-// (:1958) around it: an accepted attempt with next_t >= tstart writes the
-// lane's whole solution (ground row included) and next_t straight into
-// row n_kept of the lane's (max_store, np1) block.  The TPU needed one
-// launch per attempt, a uniform-slot attempt buffer and a compaction after
-// the run because Mosaic could neither hold that block in VMEM nor scatter
-// per lane; here the thread that owns the lane owns its rows.  With the
-// stream flag a full block pauses the lane (the caller drains it and
-// re-enters); without it a row past max_store is dropped and the lane's
-// overflow flag set (max_store = 0 keeps nothing: a resumed run without
-// waveforms).  The STORE instantiation starts each lane from its own t, dt
-// and attempt count (a fresh run: 0, minstep, 0; a resume or a stream's
-// re-entry: the checkpoint's), so max_attempts binds the whole run.
-//
-// A non-finite t or dt does not end a lane early: as in the general
-// engine's loop, done and the hard fail decide, and max_attempts bounds
-// every lane.  ops/run.py::run_plain is the same arithmetic as torch
-// operations; the build uses -fmad=false so that every product and sum
-// here is rounded on its own, as in the torch version.
-//
-// The deck is data, not code: an int32 table (ops/run_plan.py, copied to
-// shared memory) lists the stamps as (row, col, tag, index, sign) in the
-// general engine's scatter order, the sources and the device nodes; the
-// lane's device values, source records, committed state and junction
-// voltages are f64 rows with the batch axis first.  One build serves every
-// eligible deck; the matrix lives in a per-thread array sized by the
-// template NMAX (8, 16 or 32), and nonlinearity is a second template
-// parameter, so a linear deck runs the code of a kernel without Newton.
-// MAG (the LM and K stamps) and STORE are template parameters too: the
-// instantiations without them compile to the code they had before.
-//
-// Bound: operations.  An attempt on bench.py's RLC deck (np1 = 6) needs 299
-// f64 operations (chip_smoke.py attempt_flops: 231 for the 6 x 7
-// elimination, counting only the columns right of each pivot, plus the
-// build, the source's sin, the LTE and the commit); a Newton iteration adds
-// the device evaluations and a build and solve (chip_smoke.py
-// newton_flops).  Memory traffic is a few rows per lane.  8192 lanes fill
-// only a small share of the card's thread slots, and each thread's
-// attempts are a serial dependency chain through local memory, so the
-// kernel is latency-bound; this version is the simple, exact one.
+// Replaces the TPU kernels toyspice_tpu/ops/pallas_run.py::_run_kernel
+// (launched at pallas_run.py:811) and, with the store,
+// toyspice_tpu/ops/pallas_tran.py::_fused_kernel (:1429, launched at
+// :2252), compat subset; run_kernel.cuh says how.
 
-#include "newton.cuh"
+#include "run_kernel.cuh"
 
 namespace {
 
 using namespace tsr;
-
-// source type codes: compiler.py SRC_*
-enum Src { SRC_DC = 0, SRC_SIN = 1, SRC_PULSE = 2, SRC_PWL = 3 };
-// source record: dc amplitude freq phase v1 v2 delay rise fall width period,
-// then P knot times and P knot values (ops/run_plan.py SRC_KEYS)
-enum Rec { R_DC = 0, R_AMPL, R_FREQ, R_PHASE, R_V1, R_V2, R_DELAY, R_RISE,
-           R_FALL, R_WIDTH, R_PERIOD, R_KNOTS };
-
-constexpr int MAX_SRC = 32;  // ops/run.py MAX_SOURCES
-constexpr double PI = 3.141592653589793;
-constexpr double TWO_PI = 2.0 * PI;
-
-// One source's value at time t: models/sources.py, operation for operation.
-__device__ double source_value(int stype, const double* p, int P, double t) {
-  const double dc = p[R_DC];
-  if (stype == SRC_SIN) {
-    return dc +
-           p[R_AMPL] * sin(TWO_PI * p[R_FREQ] * t + p[R_PHASE] * PI / 180.0);
-  }
-  if (stype == SRC_PULSE) {
-    const double v1 = p[R_V1], v2 = p[R_V2], delay = p[R_DELAY];
-    const double rise = p[R_RISE], fall = p[R_FALL], width = p[R_WIDTH];
-    const double period = p[R_PERIOD];
-    double tp = t - delay;
-    if (period > 0) {  // floor mod: exact fmod, shifted to the divisor's sign
-      double r = fmod(tp, period);
-      if (r != 0 && ((r < 0) != (period < 0))) r = r + period;
-      tp = r;
-    }
-    const double rise_safe = rise == 0 ? 1.0 : rise;
-    const double fall_safe = fall == 0 ? 1.0 : fall;
-    const double fall_start = rise + width;
-    const double in_rise = rise == 0 ? v2 : v1 + (v2 - v1) * tp / rise_safe;
-    const double in_fall =
-        fall == 0 ? v1 : v2 - (v2 - v1) * (tp - fall_start) / fall_safe;
-    const double val =
-        tp < rise ? in_rise
-                  : (tp < fall_start ? v2
-                                     : (tp < fall_start + fall ? in_fall : v1));
-    return t < delay ? v1 : val;
-  }
-  if (stype == SRC_PWL) {
-    const double* kt = p + R_KNOTS;
-    const double* kv = kt + P;
-    int cnt = 0;
-    for (int q = 0; q < P; ++q) cnt += kt[q] < t ? 1 : 0;
-    const int idx = cnt < 1 ? 1 : (cnt > P - 1 ? P - 1 : cnt);
-    const double t1 = kt[idx - 1], t2 = kt[idx];
-    const double w1 = kv[idx - 1], w2 = kv[idx];
-    const double slope = (w2 - w1) / (t2 == t1 ? 1.0 : t2 - t1);
-    const double val = w1 + slope * (t - t1);
-    return t <= kt[0] ? kv[0] : val;
-  }
-  return dc;
-}
-
-// The compat magnetic run constants of one lane (ops/run_plan.py
-// magnetic_rows) and the K partners' table.
-struct Mag {
-  const double* l0;    // [nlm] L0 = mu0 N^2 A / len
-  const double* leff;  // [nlm] L_eff at the frozen core
-  const double* i0;    // [nlm] the frozen i0
-  const double* i1;    // [nlm] the frozen i1
-  const double* mij;   // [nk] M = k sqrt(La Lb)
-  const int* kp;       // [nk][4] kind_a, idx_a, kind_b, idx_b
-  const double* l_i0;  // the linear inductors' committed i0 (live)
-
-  // the LM branch value (assemble.py LM tran, compat): L0 on the first
-  // step or while |i0| < 1e-9, else L_eff
-  __device__ __forceinline__ double l_used(int k, double t, double dtl) const {
-    return (t < dtl || fabs(i0[k]) < 1e-9) ? l0[k] : leff[k];
-  }
-  // a winding's current as the mutual stamp reads it (mutual.go:114-115):
-  // a linear L's live junk i0, an LM's frozen i0
-  __device__ __forceinline__ double partner_i0(int kind, int idx) const {
-    return kind == 0 ? l_i0[idx] : i0[idx];
-  }
-  // a magnetic stamp's value; every other tag left here is TAG_ONE
-  __device__ __forceinline__ double term(int tag, int k, double t, double dte,
-                                         double dtl) const {
-    switch (tag) {
-      case TAG_LMTERM: return l_used(k, t, dtl) / dtl;
-      case TAG_LMRHS: return (l_used(k, t, dtl) / dtl) * i1[k];
-      case TAG_KTERM: return mij[k] / dte;
-      case TAG_KRHSA:
-        return (mij[k] * partner_i0(kp[4 * k + 2], kp[4 * k + 3])) / dte;
-      case TAG_KRHSB:
-        return (mij[k] * partner_i0(kp[4 * k], kp[4 * k + 1])) / dte;
-      default: return 1.0;
-    }
-  }
-};
-
-// t_io, dt_io and att_io hold each lane's end on exit, and in the STORE
-// instantiation its start on entry; out_x/out_t/out_n/overflow are used
-// only by the STORE instantiation.
-template <int NMAX, bool NL, bool MAG, bool STORE>
-__global__ void __launch_bounds__(THREADS)
-run_kernel(const int* __restrict__ topo_g, int topo_len,
-           const double* __restrict__ dev, const double* __restrict__ rc,
-           double* __restrict__ state, double* __restrict__ jv_g,
-           double* __restrict__ t_io, double* __restrict__ dt_io,
-           int* __restrict__ acc_out, int* __restrict__ att_io,
-           int* __restrict__ fail_out, int* __restrict__ nri_out, int nlanes,
-           double tstop, double minstep, double tmax, double trtol,
-           int max_attempts, double reltol, double abstol, int max_iter,
-           double tstart, int max_store, int stream,
-           double* __restrict__ out_x, double* __restrict__ out_t,
-           int* __restrict__ out_n, int* __restrict__ overflow) {
-  extern __shared__ int topo[];
-  for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= nlanes) return;
-
-  const int n = topo[H_NP1], ne = topo[H_NE];
-  const int nr = topo[H_NR], nc = topo[H_NC], nl = topo[H_NL];
-  const int nv_src = topo[H_NV];
-  const int nsrc = nv_src + topo[H_NI];
-  const int* ent = topo + topo[H_ENT];
-  const int* src = topo + topo[H_SRC];
-  const int* cnodes = topo + topo[H_CN];
-  const int* lnodes = topo + topo[H_LN];
-  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the nonlinear blocks
-  const double* dv = dev + (size_t)lane * topo[H_ND];
-  const double* g = dv;
-  const double* cadj = dv + nr;
-  const double* craw = dv + nr + nc;
-  const double* lval = dv + nr + 2 * nc;
-  const double* rv = rc + (size_t)lane * topo[H_NRC];
-  // committed state rows: q0 q1 v0 v1 [nc], i0 i1 v0 v1 flux0 [nl]
-  double* st = state + (size_t)lane * topo[H_KS];
-  double* c_q0 = st;
-  double* c_q1 = st + nc;
-  double* c_v0 = st + 2 * nc;
-  double* c_v1 = st + 3 * nc;
-  double* l_i0 = st + 4 * nc;
-  double* l_i1 = l_i0 + nl;
-  double* l_v0 = l_i0 + 2 * nl;
-  double* l_v1 = l_i0 + 3 * nl;
-  double* l_flux0 = l_i0 + 4 * nl;
-  // the magnetic run constants follow L in the dev rows
-  Mag mag{};
-  if constexpr (MAG) {
-    const int nlm = topo[H_NLM];
-    mag.l0 = lval + nl;
-    mag.leff = mag.l0 + nlm;
-    mag.i0 = mag.l0 + 2 * nlm;
-    mag.i1 = mag.l0 + 3 * nlm;
-    mag.mij = mag.l0 + 4 * nlm;
-    mag.kp = topo + topo[H_KP];
-    mag.l_i0 = l_i0;
-  }
-
-  double m[NMAX][NMAX + 1];
-  double x[NMAX];
-  double sv[MAX_SRC];
-
-  // a run without the store starts at 0 (the code of the kernel before the
-  // store: reading the start rows there cost the linear instantiation 24
-  // registers); the store instantiation reads each lane's start
-  double t = STORE ? t_io[lane] : 0.0, dt = STORE ? dt_io[lane] : minstep;
-  int att = STORE ? att_io[lane] : 0;
-  bool done = tstop <= 0.0 || t >= tstop, fail = false;
-  int acc = 0, nri = 0;
-  int n_kept = 0;
-  bool dropped = false;
-  const double trtol100 = trtol / 100.0;
-
-  // the Newton's state: the deck's device blocks, the lane's junction
-  // voltages (carried across attempts) and the value slots
-  const Deck deck(topo, dv);
-  double jv[NL ? MAX_KJ : 1];
-  double nv[NL ? MAX_NVAL : 1];
-  double* jv_lane = jv_g + (size_t)lane * (deck.kj > 0 ? deck.kj : 1);
-  if constexpr (NL)
-    for (int i = 0; i < deck.kj; ++i) jv[i] = jv_lane[i];
-
-  while (!done && att < max_attempts &&
-         (!STORE || !stream || n_kept < max_store)) {
-    const double tpdt = t + dt;
-    const bool over = tpdt > tstop;
-    const double next_t = over ? tstop : tpdt;
-    const double dte = over ? tstop - t : dt;
-    const double dtl = dte > 0 ? dte : 1e-9;
-
-    for (int s = 0; s < nsrc; ++s)
-      sv[s] = source_value(src[3 * s], rv + src[3 * s + 1], src[3 * s + 2], t);
-
-    bool nr_ok;
-    if constexpr (NL) {  // Newton from x = 0, the carried junction voltages
-      // a linear stamp's value in this attempt (scalars and pointers by
-      // value: a reference capture of dte/dtl would take their address)
-      auto lin = [g, cadj, lval, c_q1, l_i1, nv_src, dte, dtl,
-                  &sv](int tag, int k) -> double {
-        switch (tag) {
-          case TAG_G: return g[k];
-          case TAG_GEQ: return cadj[k] / dte;
-          case TAG_LTERM: return lval[k] / dtl;
-          case TAG_CEQ: return c_q1[k] / dte;
-          case TAG_LRHS: return (lval[k] / dtl) * l_i1[k];
-          case TAG_VSRC: return sv[k];
-          case TAG_ISRC: return sv[nv_src + k];
-          default: return 1.0;  // TAG_ONE
-        }
-      };
-      for (int i = 0; i < n; ++i) x[i] = 0.0;
-      nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin, m, x, jv, nv, dte,
-                                   0.0, max_iter, reltol, abstol, &nr_ok);
-    } else {
-      // One solve, converged when finite.  The build and the elimination
-      // are newton.cuh's build() and gauss_jordan() written out in line:
-      // calling those functions here measured 1-2% slower on bench.py's
-      // deck (ab_run_kernel.py against the parent, in turns), so the
-      // linear instantiation keeps the code of the kernel before Newton.
-      // ---- build: zero, scatter the stamps in plan order, ground row
-      for (int i = 0; i < n; ++i)
-        for (int j = 0; j <= n; ++j) m[i][j] = 0.0;
-      for (int e = 0; e < ne; ++e) {
-        const int* en = ent + 5 * e;
-        const int k = en[3];
-        double v;
-        switch (en[2]) {
-          case TAG_G: v = g[k]; break;
-          case TAG_GEQ: v = cadj[k] / dte; break;
-          case TAG_LTERM: v = lval[k] / dtl; break;
-          case TAG_CEQ: v = c_q1[k] / dte; break;
-          case TAG_LRHS: v = (lval[k] / dtl) * l_i1[k]; break;
-          case TAG_VSRC: v = sv[k]; break;
-          case TAG_ISRC: v = sv[topo[H_NV] + k]; break;
-          default:  // TAG_ONE, or a magnetic stamp
-            if constexpr (MAG) {
-              v = mag.term(en[2], k, t, dte, dtl);
-            } else {
-              v = 1.0;
-            }
-            break;
-        }
-        m[en[0]][en[1]] += (double)en[4] * v;
-      }
-      m[0][0] = 1.0;
-
-      // ---- Gauss-Jordan with partial pivoting
-      bool nan_col = false;
-      int perm[NMAX];
-      bool used[NMAX];
-      for (int i = 0; i < n; ++i) used[i] = false;
-      for (int k = 0; k < n && !nan_col; ++k) {
-        int p = -1;
-        double best = -1.0;
-        for (int i = 0; i < n; ++i) {
-          if (used[i]) continue;
-          const double a = fabs(m[i][k]);
-          if (isnan(a)) nan_col = true;
-          if (a > best) {
-            best = a;
-            p = i;
-          }
-        }
-        if (nan_col || p < 0) {
-          nan_col = true;
-          break;
-        }
-        const double piv = m[p][k];
-        if (piv == 0.0) {
-          for (int j = 0; j <= n; ++j) m[p][j] = j == k ? 1.0 : INFINITY;
-        } else {
-          for (int j = 0; j <= n; ++j) m[p][j] = m[p][j] / piv;
-        }
-        for (int i = 0; i < n; ++i) {
-          if (i == p) continue;
-          const double f = m[i][k];
-          for (int j = 0; j <= n; ++j) m[i][j] = m[i][j] - f * m[p][j];
-        }
-        used[p] = true;
-        perm[k] = p;
-      }
-      nr_ok = !nan_col;
-      for (int k = 0; k < n; ++k) {
-        x[k] = nan_col ? NAN : m[perm[k]][n];
-        nr_ok = nr_ok && isfinite(x[k]);
-      }
-    }
-
-    // ---- LTE from the committed state
-    double lte = 0.0;
-    for (int k = 0; k < nc; ++k)
-      lte = max_nan(lte,
-                    fabs(craw[k] * c_v0[k] - craw[k] * c_v1[k]) / (2.0 * dte));
-    for (int k = 0; k < nl; ++k) {
-      const double cur = fabs(l_i0[k] - l_i1[k]) / (2.0 * dte);
-      const double vol = fabs(l_v0[k] - l_v1[k]) / (2.0 * dte);
-      lte = max_nan(lte, max_nan(cur, vol));
-    }
-
-    // ---- accept / reject
-    const bool can_halve = dte > minstep;
-    const bool hard_fail = !nr_ok && !can_halve;
-    const bool reject =
-        (!nr_ok && can_halve) || (nr_ok && lte > trtol && can_halve);
-    const bool accept = nr_ok && !reject;
-    if (accept) {
-      for (int k = 0; k < nc; ++k) {  // capacitor.go:155-171
-        const double vd = x[cnodes[2 * k]] - x[cnodes[2 * k + 1]];
-        const double q0 = c_q0[k], v0 = c_v0[k];
-        c_q0[k] = craw[k] * vd;
-        c_q1[k] = q0;
-        c_v0[k] = vd;
-        c_v1[k] = v0;
-      }
-      for (int k = 0; k < nl; ++k) {  // inductor.go:81-114
-        const double vd = x[lnodes[2 * k]] - x[lnodes[2 * k + 1]];
-        const double v0 = l_v0[k];
-        l_i0[k] = vd * 1e-9 / lval[k];
-        l_i1[k] = l_i1[k] + vd * dte / lval[k];
-        l_v0[k] = vd;
-        l_v1[k] = v0;
-        l_flux0[k] = vd * dte;
-      }
-      t = next_t;
-      if constexpr (STORE) {  // tran.go:141-143
-        if (next_t >= tstart) {
-          if (n_kept < max_store) {
-            const size_t row = (size_t)lane * max_store + n_kept;
-            for (int i = 0; i < n; ++i) out_x[row * n + i] = x[i];
-            out_t[row] = next_t;
-            ++n_kept;
-          } else {
-            dropped = true;
-          }
-        }
-      }
-      const double grown = dte * (lte < trtol100 ? 2.0 : 1.1);
-      const double dt_g = isnan(grown) ? grown : (grown > tmax ? tmax : grown);
-      dt = (next_t < tstop && dte < tmax) ? dt_g : dte;
-      ++acc;
-      if (next_t >= tstop) done = true;
-    } else {
-      dt = dte / 2.0;
-    }
-    if (hard_fail) {
-      done = true;
-      fail = true;
-    }
-    ++att;
-  }
-
-  if constexpr (NL)
-    for (int i = 0; i < deck.kj; ++i) jv_lane[i] = jv[i];
-  // a linear attempt is one solve: this run's attempts
-  nri_out[lane] = NL ? nri : (STORE ? att - att_io[lane] : att);
-  t_io[lane] = t;
-  dt_io[lane] = dt;
-  acc_out[lane] = acc;
-  att_io[lane] = att;
-  if constexpr (STORE) {
-    out_n[lane] = n_kept;
-    overflow[lane] = dropped ? 1 : 0;
-  }
-  fail_out[lane] = fail ? 1 : 0;
-}
-
-struct RunArgs {
-  const int* topo;
-  int topo_len;
-  const double* dev;
-  const double* rc;
-  double* state;
-  double* jv;
-  double* t_io;
-  double* dt_io;
-  int* acc;
-  int* att_io;
-  int* fail;
-  int* nri;
-  int nlanes;
-  double tstop, minstep, tmax, trtol;
-  int max_attempts;
-  double reltol, abstol;
-  int max_iter;
-  double tstart;
-  int max_store, stream;
-  double* out_x;
-  double* out_t;
-  int* out_n;
-  int* overflow;
-};
-
-template <int NMAX, bool NL, bool MAG, bool STORE>
-cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
-  const int blocks = (a.nlanes + THREADS - 1) / THREADS;
-  const size_t shmem = (size_t)a.topo_len * sizeof(int);
-  run_kernel<NMAX, NL, MAG, STORE><<<blocks, THREADS, shmem, stream>>>(
-      a.topo, a.topo_len, a.dev, a.rc, a.state, a.jv, a.t_io, a.dt_io,
-      a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep, a.tmax,
-      a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter, a.tstart,
-      a.max_store, a.stream, a.out_x, a.out_t, a.out_n, a.overflow);
-  return cudaGetLastError();
-}
 
 // the Newton instantiation, or a linear one with or without the magnetic
 // stamps (a deck with LM or K has no diode, BJT or MOSFET)
 template <int NMAX, bool STORE>
 cudaError_t launch_kind(const RunArgs& a, int nonlinear, int mag,
                         cudaStream_t s) {
-  if (nonlinear) return launch<NMAX, true, false, STORE>(a, s);
-  if (mag) return launch<NMAX, false, true, STORE>(a, s);
-  return launch<NMAX, false, false, STORE>(a, s);
+  if (nonlinear) return launch<NMAX, true, false, STORE, false>(a, s);
+  if (mag) return launch<NMAX, false, true, STORE, false>(a, s);
+  return launch<NMAX, false, false, STORE, false>(a, s);
 }
+
+#ifdef TSR_STORE
+constexpr bool STORE_BUILD = true;
+#else
+constexpr bool STORE_BUILD = false;
+#endif
 
 template <bool STORE>
 int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
@@ -494,6 +43,7 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 
 }  // namespace
 
+#ifndef TSR_STORE
 // Launch the whole-run kernel for nlanes lanes on `stream` from t = 0;
 // returns the cudaError_t of the launch (0 on success).  np1 picks the
 // matrix size, nonlinear the Newton instantiation and mag the magnetic
@@ -509,9 +59,10 @@ extern "C" int tsr_run(int np1, int nonlinear, int mag, const int* topo,
                   t,       dt,       acc,     att,     fail,    nri,
                   nlanes,  tstop,    minstep, tmax,    trtol,   max_attempts,
                   reltol,  abstol,   max_iter, 0.0,    0,       0,
-                  nullptr, nullptr,  nullptr, nullptr};
-  return launch_np1<false>(a, np1, nonlinear, mag, stream);
+                  nullptr, nullptr,  nullptr, nullptr, 0};
+  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, stream);
 }
+#else
 
 // The same with the waveform store, from each lane's t, dt and att: out_x
 // (nlanes, max_store, np1) and out_t (nlanes, max_store), zeroed by the
@@ -529,9 +80,10 @@ extern "C" int tsr_run_store(
                   t,       dt,       acc,     att,     fail,   nri,
                   nlanes,  tstop,    minstep, tmax,    trtol,  max_attempts,
                   reltol,  abstol,   max_iter, tstart, max_store, stream,
-                  out_x,   out_t,    out_n,   overflow};
-  return launch_np1<true>(a, np1, nonlinear, mag, cuda_stream);
+                  out_x,   out_t,    out_n,   overflow, 0};
+  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, cuda_stream);
 }
+#endif
 
 extern "C" const char* tsr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

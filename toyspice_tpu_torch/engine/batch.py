@@ -224,16 +224,18 @@ def run_transient_streamed(cc, cfg: TranConfig, params, state0,
                          store_overflow=overflow)
 
 
-def linear_op_ineligible_reason(cc, semantics: str = "compat"):
+def linear_op_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT use the linear OP (the stamped solve under
-    the rescue ladders); None when it can."""
+    the rescue ladders); None when it can.  Its OP stamps do not depend
+    on the semantics (assemble.py reads it only in transient stamps and
+    for the diode)."""
     from ..ops.assemble import LINEAR_KINDS
     from ..ops.run import NP1_CAP
-    from ..ops.run_plan import nonlinear
+    from ..ops.run_plan import nonlinear, semantics_reason
 
-    if semantics != "compat":
-        return (f"semantics={semantics!r} (the port runs compat semantics "
-                "only)")
+    why = semantics_reason(semantics, opts)
+    if why is not None:
+        return why
     if nonlinear(cc):
         return "nonlinear circuit (the OP kernel serves it)"
     extra = set(cc.idx.keys()) - set(LINEAR_KINDS)
@@ -250,17 +252,18 @@ def select_op_engine(cc, semantics: str = "compat",
                      opts: SimOptions = DEFAULTS):
     """(engine_name, reason) for a batched OP or DC sweep: "fused", the
     OP kernel (the DC sweep kernel) on a nonlinear deck, or "linear", the
-    stamped solve, on a linear one; anything neither serves (physics
-    semantics, a kind not ported, a deck over the kernels' caps) raises
-    NotImplementedError with the reason."""
+    stamped solve, on a linear one; anything neither serves (a kind not
+    ported, such as LM or K, a semantics other than compat and physics,
+    a deck over the kernels' caps) raises NotImplementedError with the
+    reason."""
     from ..ops.op import op_fused_ineligible_reason
     from ..ops.run_plan import nonlinear
 
-    if nonlinear(cc) or semantics != "compat":
+    if nonlinear(cc):
         why = op_fused_ineligible_reason(cc, semantics, opts)
         engine, reason = "fused", f"OP kernel eligible ({semantics})"
     else:
-        why = linear_op_ineligible_reason(cc, semantics)
+        why = linear_op_ineligible_reason(cc, semantics, opts)
         engine, reason = "linear", ("linear circuit: one stamped solve per "
                                     f"rung ({semantics})")
     if why is not None:

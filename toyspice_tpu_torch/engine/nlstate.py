@@ -1,11 +1,12 @@
-"""Nonlinear-device linearization state ("junction voltages", jv), compat
-semantics: the JAX package's ``engine/nlstate.py`` with batched tensors.
+"""Nonlinear-device linearization state ("junction voltages", jv): the JAX
+package's ``engine/nlstate.py`` with batched tensors.
 
 The reference keeps per-device voltages (diode vd, BJT vbe/vbc/vce, MOSFET
 vgs/vds/vbs) updated by UpdateVoltages between Newton iterations; here they
 are a dict of f64 tensors carried through the Newton loop and across
 timesteps.  ``update_jv`` is UpdateVoltages plus SPICE3F5 pnjlim junction
-limiting on the diode and BJT junctions; MOSFET terminal voltages carry
+limiting on the diode and BJT junctions, and under physics semantics the
+breakdown-frame limit of the diode; MOSFET terminal voltages carry
 unlimited.
 """
 
@@ -44,10 +45,15 @@ def limiter_constants(p, n_key, is_key):
     return vte, vcrit(vte, p[is_key])
 
 
-def update_jv(idx, params, x, jv_prev: Dict) -> Dict:
+def update_jv(idx, params, x, jv_prev: Dict,
+              semantics: str = "compat") -> Dict:
     """Device voltages from the solution ``x`` (..., np1), limited against
     the previous iteration's values; leaves broadcast as (..., nk).  ``idx``
-    is the deck's ``cc.idx`` (the D/Q/M node tables are what it reads)."""
+    is the deck's ``cc.idx`` (the D/Q/M node tables are what it reads).
+    Under physics a diode voltage below min(0, -Bv + 10·vte) (SPICE3F5
+    diode.c) is limited as -(Bv + vd) like a forward junction, gated on
+    the NEW voltage only, so that a jump from breakdown to forward bias
+    keeps the forward limit."""
     jv: Dict = {}
 
     def node(kind, col):
@@ -59,7 +65,13 @@ def update_jv(idx, params, x, jv_prev: Dict) -> Dict:
         pd = params["D"]
         vte, vc = limiter_constants(pd, "n", "is_")
         vd = node("D", 0) - node("D", 1)
-        jv["D"] = {"vd": pnjlim(vd, jv_prev["D"]["vd"], vte, vc)}
+        vd_old = jv_prev["D"]["vd"]
+        vlim = pnjlim(vd, vd_old, vte, vc)
+        if semantics == "physics":
+            vbk = pnjlim(-(pd["bv"] + vd), -(pd["bv"] + vd_old), vte, vc)
+            gate = torch.clamp_max(-pd["bv"] + 10.0 * vte, 0.0)
+            vlim = torch.where(vd < gate, -pd["bv"] - vbk, vlim)
+        jv["D"] = {"vd": vlim}
 
     if "Q" in idx:
         pq = params["Q"]

@@ -1,13 +1,18 @@
 """Committed device state as a dict of f64 tensors (engine/state.py of the
-JAX package, ``init_state`` only).  Compat semantics commits state for C and
-L only (PLAN.md item 1): the D, Q, M and LM leaves exist, are read where the
-reference reads them (the diode's and MOSFET's frozen previous charges, the
-magnetic inductor's frozen current and core) and go out of a run
-unchanged."""
+JAX package: ``init_state`` and ``make_op_seed``; the commit forms live in
+the run kernel and its plain version, ``ops/run.py``).  Compat semantics
+commits state for C and L only (PLAN.md item 1): the D, Q, M and LM leaves
+exist, are read where the reference reads them (the diode's and MOSFET's
+frozen previous charges, the magnetic inductor's frozen current and core)
+and go out of a run unchanged.  Physics semantics commits C, L, D and M:
+the capacitor current and the first-step flags of the trapezoidal
+companions, and the diode and MOSFET charge memory."""
 
 from typing import Dict
 
 import torch
+
+from ..models import diode as diode_model
 
 
 def init_state(cc, device="cuda") -> Dict:
@@ -37,3 +42,46 @@ def init_state(cc, device="cuda") -> Dict:
     if "Q" in cc.idx:
         state["Q"] = leaves("Q", ("qbe", "qbc"))
     return state
+
+
+def make_op_seed(cc, temp: float = 300.15):
+    """The physics transient's start at the bias point: seed(params, state,
+    x) -> state, with ``x`` the OP solution (B, np1).  A capacitor starts at
+    its OP voltage and charge (raw C), an inductor at its OP current (the
+    branch unknown is -I), a diode with its physics charge Tt·id at the
+    stamp temperature ``temp``; hist stays as given (0), so a trapezoidal
+    run takes its first step as BE.  Compat keeps the zero state: that is
+    the reference (its devices never see the OP solution,
+    circuit.go:192-224)."""
+
+    def seed(params, state, x):
+        new = dict(state)
+
+        def vdiff(kind):
+            nodes = torch.as_tensor(cc.idx[kind]["nodes"], dtype=torch.long,
+                                    device=x.device)
+            return x[:, nodes[:, 0]] - x[:, nodes[:, 1]]
+
+        def branch(kind):
+            return x[:, torch.as_tensor(cc.idx[kind]["branch"],
+                                        dtype=torch.long, device=x.device)]
+
+        if "C" in cc.idx:
+            vd = vdiff("C")
+            q = params["C"]["value"] * vd
+            new["C"] = {**state["C"], "v0": vd, "v1": vd, "q0": q, "q1": q}
+        if "L" in cc.idx:
+            vd = vdiff("L")
+            i = -branch("L")
+            new["L"] = {**state["L"], "i0": i, "i1": i, "v0": vd, "v1": vd}
+        if "D" in cc.idx:
+            pd = params["D"]
+            vd = vdiff("D")
+            id_, _ = diode_model.dc_eval_physics(pd, vd, temp)
+            new["D"] = {"prev_vd": vd, "prev_id": id_,
+                        "prev_charge": pd["tt"] * id_,
+                        "ic0": torch.zeros_like(id_),
+                        "hist": state["D"]["hist"]}
+        return new
+
+    return seed

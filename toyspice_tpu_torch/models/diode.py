@@ -1,6 +1,6 @@
-"""Shockley diode model (reference pkg/device/diode.go), compat semantics,
-batched f64 torch: the JAX package's ``models/diode.py`` without the
-physics-mode ``dc_eval_physics``.
+"""Shockley diode model (reference pkg/device/diode.go), batched f64 torch:
+the JAX package's ``models/diode.py``, compat (``dc_eval``) and physics
+(``dc_eval_physics``: the Bv breakdown and the series resistance Rs).
 
 Leaves of ``p`` are f64 tensors that broadcast against the voltages;
 ``temp`` is a Python float in kelvin.
@@ -43,6 +43,60 @@ def dc_eval(p, vd, temp, nvt=None, is_t=None):
     id_ = torch.where(fwd, i_fwd, -is_t)
     gd = torch.where(fwd, (id_.abs() + is_t) / nvt + p["gmin"], p["gmin"])
     return id_, gd
+
+
+def _raw_physics(p, vj, nvt, is_t):
+    """(i, g) of the junction at vj: the compat regions plus the Bv
+    breakdown exponential -Is_t·exp(-(Bv+vj)/nVt) for vj <= -Bv."""
+    fwd = vj > -3.0 * nvt
+    bkd = vj <= -p["bv"]
+    arg = torch.clamp_max(vj / nvt, 40.0)
+    barg = torch.clamp_max(-(p["bv"] + vj) / nvt, 40.0)
+    eb = torch.exp(barg)
+    i_fwd = is_t * (torch.exp(arg) - 1.0)
+    i_bkd = -is_t * eb
+    id_ = torch.where(fwd, i_fwd, torch.where(bkd, i_bkd, -is_t))
+    g_fwd = (i_fwd.abs() + is_t) / nvt
+    g_bkd = is_t * eb / nvt
+    zero = torch.zeros_like(g_fwd)
+    g = torch.where(fwd, g_fwd, torch.where(bkd, g_bkd, zero)) + p["gmin"]
+    return id_, g
+
+
+def dc_eval_physics(p, vd, temp, nvt=None, is_t=None, rs_any=True):
+    """Physics-mode (id, gd) (models/diode.py dc_eval_physics of the JAX
+    package): the reference parses Rs and Bv and never uses them
+    (diode.go:65-69); physics mode cashes both.
+
+    Bv: for vd <= -Bv the reverse current turns on exponentially, continuous
+    with the -Is_t flat region at -Bv.  Rs is folded into the terminal
+    characteristic: the junction voltage vj solving vj + Rs·i(vj) = vd by a
+    fixed 8-step inner Newton seeded from the current-limited junction
+    voltage (forward nVt·ln(1 + vd/(Rs·Is)), breakdown mirrored around
+    -Bv), then id = i(vj) and gd = g(vj)/(1 + Rs·g(vj)).  At Rs = 0 the seed
+    is vd and every step subtracts 0, so ``rs_any=False`` (every Rs is 0)
+    skips the steps with the same result."""
+    if nvt is None:
+        nvt = p["n"] * thermal_voltage(temp)
+    if is_t is None:
+        is_t = temperature_adjusted_is(p, temp)
+    rs = p["rs"]
+    vj = vd
+    if rs_any:
+        rs_pos = rs > 0
+        rs_is = torch.where(rs_pos, rs, torch.ones_like(rs)) * is_t
+        fwd_cap = nvt * torch.log1p(torch.clamp_min(vd, 0.0) / rs_is)
+        bkd_cap = -p["bv"] - nvt * torch.log1p(
+            torch.clamp_min(-vd - p["bv"], 0.0) / rs_is)
+        vj = torch.where(rs_pos & (vd > 0), torch.minimum(vd, fwd_cap),
+                         torch.where(rs_pos & (vd < -p["bv"]),
+                                     torch.maximum(vd, bkd_cap), vd))
+        for _ in range(8):
+            ij, gj = _raw_physics(p, vj, nvt, is_t)
+            f = vj + rs * ij - vd
+            vj = vj - f / (1.0 + rs * gj)
+    ij, gj = _raw_physics(p, vj, nvt, is_t)
+    return ij, gj / (1.0 + rs * gj)
 
 
 def junction_cap(p, vd):

@@ -1,9 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and bind them
 with ``ctypes``.
 
-Each kernel source (``csrc/run_kernel.cu``, ``csrc/op_kernel.cu``,
+Each kernel library compiles from one source (``csrc/run_kernel.cu`` and
+``csrc/run_kernel_phys.cu``, the compat and physics instantiations of
+``csrc/run_kernel.cuh``, each built twice: without and, with
+``-DTSR_STORE``, with the waveform store; ``csrc/op_kernel.cu``,
 ``csrc/stamped_solve.cu``, ``csrc/dc_sweep_kernel.cu``,
-``csrc/ac_kernel.cu``; all include ``csrc/newton.cuh``) compiles with one
+``csrc/ac_kernel.cu``; all include ``csrc/newton.cuh``) with one
 ``nvcc`` call to a shared library with a plain C entry point (no PyTorch
 headers, so a build takes seconds); the calls for every missing library
 start together.  A library
@@ -22,10 +25,17 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-SOURCES = {"run": CSRC / "run_kernel.cu", "op": CSRC / "op_kernel.cu",
+SOURCES = {"run": CSRC / "run_kernel.cu",
+           "run_store": CSRC / "run_kernel.cu",
+           "run_phys": CSRC / "run_kernel_phys.cu",
+           "run_phys_store": CSRC / "run_kernel_phys.cu",
+           "op": CSRC / "op_kernel.cu",
            "stamped": CSRC / "stamped_solve.cu",
            "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu"}
-HEADERS = (CSRC / "newton.cuh",)
+# the run kernel's store builds: their instantiations compile in a call of
+# their own, beside the one without the store
+DEFINES = {"run_store": ("-DTSR_STORE",), "run_phys_store": ("-DTSR_STORE",)}
+HEADERS = (CSRC / "newton.cuh", CSRC / "run_kernel.cuh")
 BUILD_DIR = PKG / "_build"
 # -fmad=false: every product and sum rounds on its own, as in the torch
 # plain versions (ops/run.py, ops/op.py, ops/solve_stamped.py, ops/dc.py,
@@ -51,8 +61,13 @@ def library_path(name="run"):
     src = SOURCES[name]
     h = hashlib.sha256(src.read_bytes()
                        + b"".join(p.read_bytes() for p in HEADERS)
-                       + " ".join(FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+                       + " ".join(FLAGS + flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def flags(name):
+    """The nvcc flags of one library beyond ``FLAGS``."""
+    return list(DEFINES.get(name, ()))
 
 
 def build(names=tuple(SOURCES), extra_flags=()):
@@ -70,7 +85,7 @@ def build(names=tuple(SOURCES), extra_flags=()):
     procs = {}
     for name in todo:
         tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *FLAGS, *extra_flags, "-o", str(tmp),
+        cmd = [nvcc, *FLAGS, *flags(name), *extra_flags, "-o", str(tmp),
                str(SOURCES[name])]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -97,19 +112,24 @@ _ARGTYPES = {
     #         max_attempts, reltol, abstol, max_iter, stream)
     # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
     #               out_x, out_t, out_n, overflow, stream)
-    "run": (("tsr_run", "iiipi" + "p" * 10 + "iddddiddip"),
-            ("tsr_run_store", "iiipi" + "p" * 10 + "iddddiddi" + "dii"
-             + "p" * 5)),
+    # tsr_run_phys and tsr_run_phys_store: the same with trap in place of
+    # mag
+    "run": (("tsr_run", "iiipi" + "p" * 10 + "iddddiddip"),),
+    "run_store": (("tsr_run_store", "iiipi" + "p" * 10 + "iddddiddi"
+                   + "dii" + "p" * 5),),
+    "run_phys": (("tsr_run_phys", "iiipi" + "p" * 10 + "iddddiddip"),),
+    "run_phys_store": (("tsr_run_phys_store", "iiipi" + "p" * 10
+                        + "iddddiddi" + "dii" + "p" * 5),),
     # tsr_op(np1, topo, topo_len, dev, dyn, x0, jv0, x, jv, iters, conv,
-    #        nlanes, reltol, abstol, max_iter, gmin_floor, stream)
-    "op": (("tsr_op", "ipi" + "p" * 8 + "iddidp"),),
+    #        nlanes, reltol, abstol, max_iter, gmin_floor, physics, stream)
+    "op": (("tsr_op", "ipi" + "p" * 8 + "iddidip"),),
     # tsr_stamped(n, tab, tab_len, nnz, nrhs, vals, rvals, gmin, x, nlanes,
     #             stream)
     "stamped": (("tsr_stamped", "ipiii" + "p" * 4 + "ip"),),
     # tsr_dc_sweep(np1, topo, topo_len, dev, dyn, vs, vs_stride, npts, x,
     #              iters, conv, nlanes, reltol, abstol, max_iter,
-    #              gmin_floor, stream)
-    "dc": (("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidp"),),
+    #              gmin_floor, physics, stream)
+    "dc": (("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidip"),),
     # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
     "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
 }

@@ -24,7 +24,7 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 from .op import op_fused_ineligible_reason
 from .run import NP1_CAP
-from .run_plan import DEVICE_KINDS, nonlinear
+from .run_plan import DEVICE_KINDS, nonlinear, semantics_reason
 
 F64 = torch.float64
 
@@ -32,9 +32,9 @@ F64 = torch.float64
 def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT run the port's AC (its bias and the AC
     kernel); None when it can."""
-    if semantics != "compat":
-        return (f"semantics={semantics!r} (the port runs compat semantics "
-                "only)")
+    why = semantics_reason(semantics, opts)
+    if why is not None:
+        return why
     extra = set(cc.idx.keys()) - set(DEVICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "

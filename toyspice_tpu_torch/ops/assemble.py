@@ -8,7 +8,9 @@ and ``assemble_ac_blocks`` for R, C, L, V, I, D, Q and M (the parts of the
 JAX package's ``assemble_system_ac``, the AC system at the bias point).
 The nonlinear devices' OP, DC and transient stamps live in the kernels'
 stamp plans (``ops/run_plan.py``); LM and K are not ported
-(``models/magnetic.py``), and physics semantics is not served.
+(``models/magnetic.py``).  Under physics semantics the linear OP stamps
+are the compat ones, and the diode's AC conductance is the physics one
+(Rs and Bv).
 
 Each device kind adds a fixed set of (row, col) entries (static host numpy)
 and a value per entry and lane: parameters are (nk,) shared or (B, nk)
@@ -29,7 +31,7 @@ from ..models import diode as diode_model
 from ..models import mosfet as mos_model
 from ..models.sources import eval_sources, eval_sources_ac
 from ..utils.tensor import true_div
-from .run_plan import first_leaf, infer_batch
+from .run_plan import first_leaf, infer_batch, semantics_reason
 from .solve_stamped import cell_sums
 
 F64 = torch.float64
@@ -146,10 +148,10 @@ def assemble_entries(cc, params, state, status_gmin, dc_scale=1.0,
     max(status_gmin, gmin_floor), an inductor stamps its dt = 1e-9
     companion, sources take their t = 0 values with ``dc_scale`` on the V
     sources' dc (source stepping).  ``status_gmin`` and ``dc_scale`` are
-    floats or (B,) tensors."""
-    if semantics != "compat":
-        raise NotImplementedError(
-            f"semantics={semantics!r} (the port runs compat semantics only)")
+    floats or (B,) tensors.  Compat and physics stamp alike here."""
+    why = semantics_reason(semantics, None)
+    if why is not None:
+        raise NotImplementedError(why)
     _unported(cc, LINEAR_KINDS)
     b, device = infer_batch(params, state), first_leaf(params).device
     acc = _Acc(b, device)
@@ -195,10 +197,10 @@ def assemble_ac_blocks(cc, params, state, jv, freq, temp=TEMP_DEFAULT,
     the RHS phasor br, bi (B, np1), ground rows applied (G's the identity,
     B's zero).  Nonlinear devices stamp their small-signal conductances
     and capacitances at the OP bias ``jv`` (nlstate tree, (B, nk)
-    leaves)."""
-    if semantics != "compat":
-        raise NotImplementedError(
-            f"semantics={semantics!r} (the port runs compat semantics only)")
+    leaves); under physics the diode's gd includes Rs and Bv."""
+    why = semantics_reason(semantics, None)
+    if why is not None:
+        raise NotImplementedError(why)
     _unported(cc, AC_KINDS)
     b, device = infer_batch(params, state), first_leaf(params).device
     np1 = cc.np1
@@ -237,7 +239,10 @@ def assemble_ac_blocks(cc, params, state, jv, freq, temp=TEMP_DEFAULT,
         nodes = cc.idx["D"]["nodes"]
         pd = params["D"]
         vd = jv["D"]["vd"]
-        _, gd = diode_model.dc_eval(pd, vd, temp)
+        # the small-signal gd at the physics bias includes Rs and Bv
+        _, gd = (diode_model.dc_eval_physics(pd, vd, temp)
+                 if semantics == "physics"
+                 else diode_model.dc_eval(pd, vd, temp))
         cj = diode_model.junction_cap(pd, vd)
         _two_node_pattern(gacc, nodes, gd)
         _two_node_pattern(bacc, nodes, omega * cj)

@@ -1,12 +1,13 @@
-"""Batched DC sweep for nonlinear compat decks: every sweep point of every
-lane in one kernel launch.
+"""Batched DC sweep for nonlinear decks, compat or physics: every sweep
+point of every lane in one kernel launch.
 
 The counterpart of ``ops/pallas_op.py``'s ``_dc_sweep_core``,
 ``_dc_sweep_call`` and ``make_dc_fused`` in the JAX package, which compute
 ``vmap(engine/dc.py make_dc)``: per lane the junction voltages start at
 zero and carry from point to point, and each point is a DC-flavour Newton
 from x = 0 (warm start at iteration 0, OP stamps with status gmin 0,
-CheckConvergence).  Three pieces live here:
+CheckConvergence); physics changes only the diode (its Bv/Rs evaluation
+and the breakdown-frame limit).  Three pieces live here:
 
 * ``launch_dc_kernel``: the wrapper of ``csrc/dc_sweep_kernel.cu`` (one
   thread per lane, f64).  Its dyn rows are ``[isrc(nI), lrhs(nL)]`` and
@@ -44,12 +45,14 @@ I32 = torch.int32
 
 
 class DCScalars(NamedTuple):
-    """The Newton scalars of one sweep."""
+    """The Newton scalars of one sweep; ``physics`` picks the physics
+    diode."""
 
     reltol: float
     abstol: float
     max_iter: int
     gmin_floor: float  # the capacitor leak's floor (SimOptions.gmin)
+    physics: bool = False
 
 
 class DCResult(NamedTuple):
@@ -103,7 +106,7 @@ def launch_dc_kernel(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
             dyn.data_ptr(), vs.data_ptr(), stride, npts, xs.data_ptr(),
             iters.data_ptr(), conv.data_ptr(), b, float(sc.reltol),
             float(sc.abstol), int(sc.max_iter), float(sc.gmin_floor),
-            stream)
+            int(sc.physics), stream)
     if err != 0:
         raise RuntimeError(f"DC sweep kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'dc')})")
@@ -124,7 +127,7 @@ def dc_plain(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
     b, npts, n = dev.shape[0], vs.shape[-2], plan.np1
     nr, nc, nl, nv, ni = plan.counts[:5]
     bld = Builder(plan, device)
-    devs = Devices(plan, dev)
+    devs = Devices(plan, dev, sc.physics)
     lval = dev[:, nr + 2 * nc:nr + 2 * nc + nl]
     gc = torch.maximum(torch.zeros((b, 1), dtype=F64, device=device),
                        torch.full((b, 1), sc.gmin_floor, dtype=F64,
@@ -220,8 +223,8 @@ def make_dc_fused(cc, src_slots, opts, semantics: str = "compat",
     the host), ``src_slots`` the swept sources' indices in the V table;
     ``solve`` is the per-launch solver (``dc_lanes``; ``dc_plain`` to run
     the plain version on the card)."""
-    # what the OP kernel serves: compat decks of the port's kinds with a
-    # diode, BJT or MOSFET (a linear deck's points are stamped solves,
+    # what the OP kernel serves: decks of the port's kinds with a diode,
+    # BJT or MOSFET (a linear deck's points are stamped solves,
     # engine/dc.make_dc)
     why = op_fused_ineligible_reason(cc, semantics, opts)
     if why is not None:
@@ -232,7 +235,8 @@ def make_dc_fused(cc, src_slots, opts, semantics: str = "compat",
     plan = make_plan(cc, "op")
     nl, ni = plan.counts[2], plan.counts[4]
     sc = DCScalars(float(opts.reltol), float(opts.abstol),
-                   int(opts.max_iter), float(opts.gmin))
+                   int(opts.max_iter), float(opts.gmin),
+                   semantics == "physics")
     slots = tuple(int(s) for s in src_slots)
 
     def dc_fused(params, state0, points) -> DCResult:

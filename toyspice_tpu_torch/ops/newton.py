@@ -5,17 +5,21 @@ Gauss-Jordan of the stamped solve (``ops/solve_stamped.py``) and AC
 (``ops/ac.py``).
 
 The counterpart of ``ops/pallas_tran.py``'s ``_newton_in_kernel`` and
-``_device_eval_lib`` in the JAX package, compat branches, and of its
-general engine's ``engine/newton.py``.  One Newton iteration of a lane:
+``_device_eval_lib`` in the JAX package, and of its general engine's
+``engine/newton.py``.  One Newton iteration of a lane:
 
 1. junction voltages: the carried ones at iteration 0 of a transient
    attempt (warm start, tran.go:174), else ``engine/nlstate.update_jv`` of
-   the previous solution, limited against the previous voltages (pnjlim);
+   the previous solution, limited against the previous voltages (pnjlim;
+   physics adds the diode's breakdown-frame limit);
 2. device evaluation into value slots (``run_plan.NL_SLOTS`` per device):
-   the diode with its compat transit-time companion, the BJT's Ebers-Moll
-   currents and exact Jacobian after the cold-start guess, the MOSFET's
-   level 1-3 currents and conductances after its cold-start guess, with
-   the Meyer charge stamps of a transient (previous charges frozen);
+   the diode (compat, or physics with Bv and Rs) with its transit-time
+   companion, the BJT's Ebers-Moll currents and exact Jacobian after the
+   cold-start guess, the MOSFET's level 1-3 currents and conductances
+   after its cold-start guess, with the Meyer charge stamps of a
+   transient; compat freezes the previous charges, physics reads them
+   from the committed state rows, with the trapezoidal companions after a
+   device's first committed step;
 3. the build: every stamp of the plan added into its cell in plan order,
    the ground row, and in an OP the status gmin on the non-ground
    diagonals (matrix/circuit.go:107-114);
@@ -31,10 +35,10 @@ import torch
 
 from ..engine.nlstate import update_jv
 from ..models import bjt, diode, mosfet
-from .run_plan import (NL_KINDS, TAG_CEQ, TAG_G, TAG_GEQ, TAG_ISRC,
-                       TAG_KRHSA, TAG_KRHSB, TAG_KTERM, TAG_LMRHS,
-                       TAG_LMTERM, TAG_LRHS, TAG_LTERM, TAG_NL, TAG_ONE,
-                       TAG_VSRC, jv_tree, nl_params)
+from .run_plan import (M_CHARGES, NL_KINDS, PHYS_ROWS, TAG_CEQ, TAG_G,
+                       TAG_GEQ, TAG_ISRC, TAG_KRHSA, TAG_KRHSB, TAG_KTERM,
+                       TAG_LMRHS, TAG_LMTERM, TAG_LRHS, TAG_LTERM, TAG_NL,
+                       TAG_ONE, TAG_VSRC, jv_tree, nl_params)
 
 F64 = torch.float64
 MAX_NL_DEVICES = 16  # csrc/newton.cuh: diodes + BJTs + MOSFETs per deck
@@ -138,45 +142,87 @@ class Builder:
 
 class Devices:
     """The nonlinear devices of one plan on one batch: their dev rows as
-    parameter leaves, and the evaluation of one Newton iteration."""
+    parameter leaves, and the evaluation of one Newton iteration under
+    compat or (``physics``) physics semantics."""
 
-    def __init__(self, plan, dev):
+    def __init__(self, plan, dev, physics=False):
         def lt(v):
             return torch.as_tensor(v, dtype=torch.long, device=dev.device)
 
         self.plan = plan
+        self.physics = physics
         # the node tables as device tensors, so that a captured CUDA graph
         # copies nothing from the host
         self.idx = {kind: {key: lt(v) for key, v in tbl.items()}
                     for kind, tbl in plan.idx.items()}
         self.p = {kind: nl_params(plan, dev, kind) for kind in NL_KINDS
                   if kind in plan.idx}
+        # the Rs inner Newton is an exact no-op where Rs = 0: skip it when
+        # every lane's is (one host read here, none in a captured graph)
+        self.rs_any = physics and "D" in self.p and bool(
+            (self.p["D"]["rs"] != 0).any())
 
     def limit(self, x, jvs):
         """Junction voltages from ``x`` (B, n), limited against the rows
         ``jvs`` (B, kj); returns (B, kj) rows."""
-        tree = update_jv(self.idx, self.p, x, jv_tree(self.plan, jvs))
+        tree = update_jv(self.idx, self.p, x, jv_tree(self.plan, jvs),
+                         "physics" if self.physics else "compat")
         keys = (("D", ("vd",)), ("Q", ("vbe", "vbc")),
                 ("M", ("vgs", "vds", "vbs")))
         return torch.cat([tree[kind][key] for kind, names in keys
                           if kind in tree for key in names], dim=1)
 
-    def values(self, jvs, dte=None, gmin=0.0):
+    def diode(self, vd):
+        """(id, gd) of the diodes at ``vd`` (B, nD), compat or physics."""
+        p = self.p["D"]
+        if self.physics:
+            return diode.dc_eval_physics(p, vd, None, nvt=p["nvt"],
+                                         is_t=p["is_t"], rs_any=self.rs_any)
+        return diode.dc_eval(p, vd, None, nvt=p["nvt"], is_t=p["is_t"])
+
+    def state_rows(self, st, kind):
+        """One kind's physics state rows of the stack ``st`` (B, ks), keyed
+        by ``run_plan.PHYS_ROWS``."""
+        nk = self.plan.counts[5 + NL_KINDS.index(kind)]
+        lay = self.plan.layout
+        return {key: st[:, lay[f"{kind.lower()}_{key}"]:
+                        lay[f"{kind.lower()}_{key}"] + nk]
+                for key in PHYS_ROWS[kind]}
+
+    def values(self, jvs, dte=None, gmin=0.0, st=None, trap=False):
         """Value slots (B, nval) at the junction voltages ``jvs``; ``dte``
         (B, 1) adds the transient companions, ``gmin`` is the status gmin
-        of the MOSFET drain/source diagonals (0 in a transient)."""
+        of the MOSFET drain/source diagonals (0 in a transient).  Under
+        physics the companions read the committed rows of the state stack
+        ``st``, trapezoidal (``trap``) after a device's first committed
+        step (hist > 0)."""
         tree = jv_tree(self.plan, jvs)
         out = []
         if "D" in self.p:  # diode.go:184-227
             p = self.p["D"]
             vd = tree["D"]["vd"]
-            id_, gd = diode.dc_eval(p, vd, None, nvt=p["nvt"],
-                                    is_t=p["is_t"])
-            if dte is not None:  # compat: prev_charge frozen (PLAN.md 1)
+            id_, gd = self.diode(vd)
+            if dte is not None:
                 charge = p["tt"] * id_
                 pos = dte > 0
-                cap = torch.where(pos, (charge - p["prev_charge"]) / dte, 0.0)
-                geq = torch.where(pos, p["tt"] * gd / dte, 0.0)
+                if self.physics:  # assemble.py's physics D block
+                    sd = self.state_rows(st, "D")
+                    dq = charge - sd["prev_charge"]
+                    tt = p["tt"]
+                    if trap:
+                        started = sd["hist"] > 0
+                        cap = torch.where(started,
+                                          2.0 * dq / dte - sd["ic0"],
+                                          dq / dte)
+                        tt = torch.where(started, 2.0 * tt, tt)
+                    else:
+                        cap = dq / dte
+                    cap = torch.where(pos, cap, 0.0)
+                    geq = torch.where(pos, tt * gd / dte, 0.0)
+                else:  # compat: prev_charge frozen (PLAN.md 1)
+                    cap = torch.where(pos, (charge - p["prev_charge"]) / dte,
+                                      0.0)
+                    geq = torch.where(pos, p["tt"] * gd / dte, 0.0)
                 gd = gd + geq
                 id_ = id_ + cap
             out += [gd, id_ - gd * vd]
@@ -207,13 +253,64 @@ class Devices:
                     -ev.id + ev.gds * vds + ev.gm * vgs + ev.gmbs * vbs]
             if dte is not None:
                 q = mosfet.charges(p, ev, vgs, vds, vbs)
-                icap = [(qk - p[key]) / dte for qk, key in
-                        zip(q, ("qgs", "qgd", "qgb", "qbs", "qbd"))]
-                out += [ev.cgd / dte, ev.cgs / dte, ev.cgb / dte,
-                        (ev.cgd + ev.cgs + ev.cgb) / dte, ev.cbs_eff / dte,
-                        ev.cbd_eff / dte, (ev.cbd_eff + ev.cbs_eff) / dte,
-                        icap[1], icap[0], icap[2], icap[3], icap[4]]
+                caps = [ev.cgd, ev.cgs, ev.cgb, ev.cgd + ev.cgs + ev.cgb,
+                        ev.cbs_eff, ev.cbd_eff, ev.cbd_eff + ev.cbs_eff]
+                if self.physics:  # assemble.py's physics M block
+                    sm = self.state_rows(st, "M")
+                    icap = [(qk - sm[key]) / dte for qk, key in
+                            zip(q, M_CHARGES)]
+                    if trap:
+                        started = sm["hist"] > 0
+                        icap = [torch.where(started,
+                                            2.0 * dq - sm["ic" + key[1:]], dq)
+                                for dq, key in zip(icap, M_CHARGES)]
+                        caps = [torch.where(started, 2.0 * c, c)
+                                for c in caps]
+                else:  # compat: the previous charges frozen (PLAN.md 1)
+                    icap = [(qk - p[key]) / dte for qk, key in
+                            zip(q, M_CHARGES)]
+                out += [c / dte for c in caps]
+                out += [icap[1], icap[0], icap[2], icap[3], icap[4]]
         return torch.cat(out, dim=1)
+
+
+    def commit(self, x, dte, st, trap):
+        """The physics D and M rows committed on an accepted step
+        (engine/state.py make_commit of the JAX package): each device
+        re-evaluated at the raw solution ``x`` (B, n), no limiting and no
+        cold start, its charges and companion currents (BE, or trapezoidal
+        after its first committed step), hist 1; a list of (B, nk) rows in
+        ``PHYS_ROWS`` order."""
+        rows = []
+        if "D" in self.p:
+            p = self.p["D"]
+            nodes = self.idx["D"]["nodes"]
+            vd = x[:, nodes[:, 0]] - x[:, nodes[:, 1]]
+            id_, _ = self.diode(vd)
+            sd = self.state_rows(st, "D")
+            q = p["tt"] * id_
+            dq = q - sd["prev_charge"]
+            ic = dq / dte
+            if trap:
+                ic = torch.where(sd["hist"] > 0, 2.0 * dq / dte - sd["ic0"],
+                                 ic)
+            rows += [vd, id_, q, ic, torch.ones_like(vd)]
+        if "M" in self.p:
+            p = self.p["M"]
+            vgs, vds, vbs = mosfet.terminal_voltages(
+                p, x, self.idx["M"]["nodes"])
+            ev = mosfet.dc_eval(p, self.idx["M"]["level"], vgs, vds, vbs)
+            q = mosfet.charges(p, ev, vgs, vds, vbs)
+            sm = self.state_rows(st, "M")
+            ics = []
+            for qk, key in zip(q, M_CHARGES):
+                dq = (qk - sm[key]) / dte
+                if trap:
+                    dq = torch.where(sm["hist"] > 0,
+                                     2.0 * dq - sm["ic" + key[1:]], dq)
+                ics.append(dq)
+            rows += list(q) + ics + [torch.ones_like(vgs)]
+        return rows
 
 
 def converged(xn, xp, reltol, abstol):

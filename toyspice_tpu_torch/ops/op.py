@@ -1,9 +1,12 @@
-"""Batched operating point for nonlinear compat decks: one OP Newton solve
-per lane per kernel launch, and the reference's rescue ladders on the host.
+"""Batched operating point for nonlinear decks, compat or physics: one OP
+Newton solve per lane per kernel launch, and the reference's rescue
+ladders on the host.
 
 The counterpart of ``ops/pallas_op.py`` in the JAX package
 (``op_fused_ineligible_reason``, ``FusedOPResult``, ``_op_core`` with the
-``op`` flavour and ``make_op_fused``).  Three pieces live here:
+``op`` flavour and ``make_op_fused``).  Physics semantics (the
+``phys_be`` flavour) changes only the diode: its Bv/Rs evaluation and the
+breakdown-frame limit; the OP has no companions.  Three pieces live here:
 
 * ``launch_op_kernel``: the wrapper of ``csrc/op_kernel.cu`` (one thread
   per lane, f64).  Its dyn rows are ``[status_gmin, use_seed, act,
@@ -39,8 +42,8 @@ from . import _build
 from .newton import Builder, Devices, converged
 from .run import check_caps, check_rows, kernel_caps_reason
 from .run_plan import (DEVICE_KINDS, const_stack, first_leaf, infer_batch,
-                       jv_tree, lanes, make_plan, nonlinear, source_leaves,
-                       source_stack)
+                       jv_tree, lanes, make_plan, nonlinear,
+                       semantics_reason, source_leaves, source_stack)
 
 CHECK_EVERY = 8  # plain version: Newton iterations between host checks
 
@@ -50,11 +53,11 @@ I32 = torch.int32
 
 def op_fused_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT use the OP kernel; None when it can.  The
-    kernel serves compat decks of the port's kinds with at least one
-    nonlinear device."""
-    if semantics != "compat":
-        return (f"semantics={semantics!r} (the port runs compat semantics "
-                "only)")
+    kernel serves compat and physics decks of the port's kinds with at
+    least one nonlinear device."""
+    why = semantics_reason(semantics, opts)
+    if why is not None:
+        return why
     extra = set(cc.idx.keys()) - set(DEVICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
@@ -66,12 +69,13 @@ def op_fused_ineligible_reason(cc, semantics: str = "compat", opts=None):
 
 
 class OPScalars(NamedTuple):
-    """The Newton scalars of one OP."""
+    """The Newton scalars of one OP; ``physics`` picks the physics diode."""
 
     reltol: float
     abstol: float
     max_iter: int
     gmin_floor: float  # the capacitor leak's floor (SimOptions.gmin)
+    physics: bool = False
 
 
 class OPLaunch(NamedTuple):
@@ -127,7 +131,7 @@ def launch_op_kernel(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
             dyn.data_ptr(), x0.data_ptr(), jv0.data_ptr(), x.data_ptr(),
             jv.data_ptr(), iters.data_ptr(), conv.data_ptr(), b,
             float(sc.reltol), float(sc.abstol), int(sc.max_iter),
-            float(sc.gmin_floor), stream)
+            float(sc.gmin_floor), int(sc.physics), stream)
     if err != 0:
         raise RuntimeError(f"OP kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'op')})")
@@ -149,7 +153,7 @@ def op_plain(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     nr, nc, nl, nv, ni = plan.counts[:5]
     bld = Builder(plan, device)
     lin = Builder(plan, device, plan.entries[:plan.n_lin])
-    devs = Devices(plan, dev)
+    devs = Devices(plan, dev, sc.physics)
     gmin = dyn[:, 0:1]
     use_seed = dyn[:, 1] > 0.5
     act = dyn[:, 2] > 0.5
@@ -217,7 +221,7 @@ def make_op_fused(cc, opts, semantics: str = "compat", solve=op_lanes):
     n, kj = plan.np1, plan.kj
     nl, nv, ni = plan.counts[2], plan.counts[3], plan.counts[4]
     sc = OPScalars(float(opts.reltol), float(opts.abstol), int(opts.max_iter),
-                   float(opts.gmin))
+                   float(opts.gmin), semantics == "physics")
     g0 = cc.n * 0.001 * (10.0 ** GMIN_STEPS)  # op.go:193
 
     def op_fused(params, state0) -> FusedOPResult:

@@ -1,18 +1,20 @@
-"""Whole-run transient for compat decks: each Monte-Carlo lane's complete
-adaptive time loop in one launch.
+"""Whole-run transient under compat or physics semantics: each Monte-Carlo
+lane's complete adaptive time loop in one launch.
 
 The counterpart of ``ops/pallas_run.py`` in the JAX package
 (``run_ineligible_reason``, ``_run_const64``, ``_source_vals``,
 ``_run_core`` and ``make_tran_run``), for R/C/L/V/I decks with DC, SIN,
-PULSE and PWL sources, plus magnetic inductors and mutual couplings, or
-diodes, BJTs and MOSFETs; and, through the kernel's store instantiation,
-of ``ops/pallas_tran.py``'s ``make_tran_fused`` (``store='full'``, the
-streamed store and resume).  The pieces:
+PULSE and PWL sources, plus magnetic inductors and mutual couplings
+(compat), or diodes, BJTs and MOSFETs; and, through the kernel's store
+instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
+(``store='full'``, the streamed store and resume). The pieces:
 
 * ``launch_run_kernel`` and ``launch_store_kernel``: the wrappers of
-  ``csrc/run_kernel.cu`` (one thread per lane, f64) without and with the
-  waveform store.  Each checks its inputs, allocates the outputs, launches
-  on the current stream and counts its launches in ``.launches``.
+  ``csrc/run_kernel.cu`` (compat) and ``csrc/run_kernel_phys.cu``
+  (physics), the instantiations of ``csrc/run_kernel.cuh`` (one thread per
+  lane, f64), without and with the waveform store. Each checks its inputs,
+  allocates the outputs, launches on the current stream and counts its
+  launches in ``.launches``.
 * ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
   torch operations with per-lane masks.  The CPU tests use them, and
   ``chip_smoke.py`` holds the kernels against them on the card.  Each
@@ -31,19 +33,24 @@ with ``NO_STORE``.
 
 Each attempt is the reference's tran.go:96-152 (the general engine,
 engine/tran.py:145-200): clamp dt at tstop; evaluate the sources at the OLD
-time t (PLAN.md 2); solve the companion system: one Gauss-Jordan solve for
-a linear deck, else the Newton of ``ops/newton.py`` from x = 0 with the
-carried junction voltages at iteration 0; take the LTE from the COMMITTED
-C/L state; accept (commit, grow dt x2 or x1.1 up to tmax) or reject (halve
-dt while dt > minstep, else a hard fail).  The junction voltages of the
-last Newton iteration carry to the next attempt whether it accepted or
-not.  A lane stops when it reaches tstop, hard-fails or runs
-``max_attempts`` attempts; a non-finite t or dt does not stop it early, as
-in the general engine.  With the store, an accepted attempt at next_t >=
-tstart keeps the solution (ground row included) and next_t as the lane's
-next row (tran.go:141-143); the streamed store pauses a lane whose
-``max_store`` rows are full, the plain store drops the row and flags the
-lane's overflow.
+time t (PLAN.md 2; trapezoidal physics at next_t); solve the companion
+system (compat, or physics: BE with the previous step's charge, or the
+trapezoidal companions after each device's first committed step): one
+Gauss-Jordan solve for a linear deck, else the Newton of ``ops/newton.py``
+from x = 0 with the carried junction voltages at iteration 0; take the LTE
+from the COMMITTED C/L state; accept (commit, grow dt x2 or x1.1 up to
+tmax) or reject (halve dt while dt > minstep, else a hard fail). Compat
+commits the reference's C/L state; physics also the capacitor current, the
+inductor current from its branch row, the diode and MOSFET charge memory
+re-evaluated at the raw solution, and the first-step flags (engine/state.py
+make_commit). The junction voltages of the last Newton iteration carry to
+the next attempt whether it accepted or not. A lane stops when it reaches
+tstop, hard-fails or runs ``max_attempts`` attempts; a non-finite t or dt
+does not stop it early, as in the general engine. With the store, an
+accepted attempt at next_t >= tstart keeps the solution (ground row
+included) and next_t as the lane's next row (tran.go:141-143); the streamed
+store pauses a lane whose ``max_store`` rows are full, the plain store
+drops the row and flags the lane's overflow.
 """
 
 from typing import NamedTuple
@@ -52,6 +59,7 @@ import torch
 
 from ..engine.nlstate import init_jv
 from ..engine.options import DEFAULTS
+from ..engine.state import make_op_seed
 from ..engine.tran import TranOutput
 from ..models.sources import eval_sources
 from . import _build
@@ -106,7 +114,8 @@ def run_ineligible_reason(cc, semantics: str, store: str, opts):
 
 
 class RunScalars(NamedTuple):
-    """The step-control and Newton scalars of one run."""
+    """The step-control and Newton scalars of one run; ``trap`` picks the
+    trapezoidal companions (a plan with the physics state rows only)."""
 
     tstop: float
     minstep: float
@@ -116,6 +125,7 @@ class RunScalars(NamedTuple):
     reltol: float = DEFAULTS.reltol
     abstol: float = DEFAULTS.abstol
     max_iter: int = DEFAULTS.max_iter
+    trap: bool = False
 
 
 class RunStart(NamedTuple):
@@ -189,6 +199,12 @@ def _check_inputs(plan, dev, src, state, jv, start):
                              f"{x.dtype} on {x.device}")
 
 
+def _check_trap(plan, sc):
+    if sc.trap and not plan.physics:
+        raise ValueError("trapezoidal integration needs a physics plan "
+                         "(make_plan(cc, physics=True))")
+
+
 def _jv0(plan, dev, jv):
     if jv is None:
         return torch.zeros((dev.shape[0], max(plan.kj, 1)), dtype=F64,
@@ -233,8 +249,12 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     _check_inputs(plan, dev, src, state, jv, start)
     if plan.mode != "tran":
         raise ValueError("the run kernel takes a plan of mode 'tran'")
+    _check_trap(plan, sc)
     check_caps(plan)
-    lib = _build.load("run")
+    # the library (and its entry point tsr_<name>) of this instantiation
+    name = ("run_phys" if plan.physics else "run") + (
+        "" if store is None else "_store")
+    lib = _build.load(name)
     topo = torch.as_tensor(plan.topo, device=device)
     st = state.clone()
     jv_out = jv.clone()
@@ -249,7 +269,9 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     acc = torch.empty(b, dtype=I32, device=device)
     fail = torch.empty(b, dtype=I32, device=device)
     nri = torch.empty(b, dtype=I32, device=device)
-    args = [plan.np1, int(plan.nonlinear), int(plan.nlm + plan.nk > 0),
+    # the physics entry points take trap where compat takes mag
+    args = [plan.np1, int(plan.nonlinear),
+            int(sc.trap) if plan.physics else int(plan.nlm + plan.nk > 0),
             topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
             src.data_ptr(), st.data_ptr(), jv_out.data_ptr(), t.data_ptr(),
             dt.data_ptr(), acc.data_ptr(), att.data_ptr(), fail.data_ptr(),
@@ -268,11 +290,10 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
                  wave.out_n.data_ptr(), wave.overflow.data_ptr()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        fn = lib.tsr_run if store is None else lib.tsr_run_store
-        err = fn(*args, stream)
+        err = getattr(lib, f"tsr_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"run kernel launch failed: CUDA error {err} "
-                           f"({_build.error_string(err)})")
+                           f"({_build.error_string(err, name)})")
     res = RunResult(st, t, dt, acc, att, fail, jv_out, nri)
     if wave is not None:
         wave = wave._replace(overflow=wave.overflow > 0)
@@ -332,13 +353,15 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
     b = dev.shape[0]
     start = fresh_start(b, sc, device) if start is None else start
     _check_inputs(plan, dev, src, state, jv, start)
+    _check_trap(plan, sc)
     n = plan.np1
+    phys, trap = plan.physics, bool(sc.trap)
     nr, nc, nl, nv, ni = plan.counts[:5]
     nlm, nk = plan.nlm, plan.nk
     nonlin = plan.nonlinear
     L = plan.layout
     bld = Builder(plan, device)
-    devs = Devices(plan, dev) if nonlin else None
+    devs = Devices(plan, dev, phys) if nonlin else None
     g = dev[:, :nr]
     cadj = dev[:, nr:nr + nc]
     craw = dev[:, nr + nc:nr + 2 * nc]
@@ -356,6 +379,7 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
     ones = torch.ones((b, 1), dtype=F64, device=device)
     cn = torch.as_tensor(plan.c_nodes, dtype=torch.long, device=device)
     ln = torch.as_tensor(plan.l_nodes, dtype=torch.long, device=device)
+    lb = torch.as_tensor(plan.l_branch, dtype=torch.long, device=device)
     tstop = torch.tensor(sc.tstop, dtype=F64, device=device)
     tmax = torch.tensor(sc.tmax, dtype=F64, device=device)
     grow2 = torch.tensor(2.0, dtype=F64, device=device)
@@ -380,13 +404,28 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
         dtl = torch.where(dte > 0, dte, 1e-9)
         dte_c, dtl_c = dte[:, None], dtl[:, None]
 
-        terms = [g, cadj / dte_c, lval / dtl_c, ones,
-                 rows(st, "c_q1", nc) / dte_c,
-                 (lval / dtl_c) * rows(st, "l_i1", nl)]
+        geq, lterm = cadj / dte_c, lval / dtl_c
+        # compat charges with the reference's lagged q1, physics BE with
+        # q0 (assemble.py's C block)
+        ceq = rows(st, "c_q0" if phys else "c_q1", nc) / dte_c
+        lrhs = lterm * rows(st, "l_i1", nl)
+        if trap:  # the trapezoidal companions, BE on the first step
+            c_on = rows(st, "c_hist", nc) > 0
+            geq = torch.where(c_on, 2.0 * cadj / dte_c, geq)
+            ceq = torch.where(c_on, geq * rows(st, "c_v0", nc)
+                              + rows(st, "c_i0", nc), ceq)
+            l_on = rows(st, "l_hist", nl) > 0
+            lterm = torch.where(l_on, 2.0 * lval / dtl_c, lterm)
+            lrhs = lterm * rows(st, "l_i1", nl) + torch.where(
+                l_on, rows(st, "l_v0", nl), 0.0)
+        terms = [g, geq, lterm, ones, ceq, lrhs]
+        # trapezoidal physics takes the sources at the end of the step
+        # (engine/tran.py), BE at the old time (PLAN.md 2)
+        t_src = next_t if trap else t
         if nv:
-            terms.append(eval_sources(plan.stype["V"], pv, t))
+            terms.append(eval_sources(plan.stype["V"], pv, t_src))
         if ni:
-            terms.append(eval_sources(plan.stype["I"], pi, t))
+            terms.append(eval_sources(plan.stype["I"], pi, t_src))
         if nlm:  # the compat LM branch value (assemble.py LM tran)
             use_l0 = (t[:, None] < dtl_c) | (lm_i0.abs() < 1e-9)
             lmterm = torch.where(use_l0, lm_l0, lm_leff) / dtl_c
@@ -401,7 +440,7 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
             first = (k == 0)[:, None]
             xp = torch.where(first, 0.0, x)
             jv_used = torch.where(first, jv, devs.limit(xp, jvs))
-            terms.append(devs.values(jv_used, dte_c))
+            terms.append(devs.values(jv_used, dte_c, st=st, trap=trap))
         xn = bld.solve(torch.cat(terms, dim=1))
         if nonlin:
             kn = k + 1
@@ -431,15 +470,36 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
         accept = nr_ok & ~reject
         acc_act = accept & end
 
-        # compat commit (capacitor.go:155-171, inductor.go:81-114)
-        new = []
+        # the commit: compat (capacitor.go:155-171, inductor.go:81-114) or
+        # physics (engine/state.py make_commit), rows in state_layout order
+        new, tail = [], []
         if nc:
             vd = xn[:, cn[:, 0]] - xn[:, cn[:, 1]]
-            new += [craw * vd, rows(st, "c_q0", nc), vd, rows(st, "c_v0", nc)]
+            v0 = rows(st, "c_v0", nc)
+            new += [craw * vd, rows(st, "c_q0", nc), vd, v0]
+            if phys:
+                dv = vd - v0
+                if trap:  # the stamp's C_t: the TR recursion must match it
+                    i0 = torch.where(rows(st, "c_hist", nc) > 0,
+                                     2.0 * cadj / dte_c * dv
+                                     - rows(st, "c_i0", nc),
+                                     cadj * dv / dte_c)
+                else:
+                    i0 = craw * dv / dte_c
+                tail += [i0, torch.ones_like(vd)]
         if nl:
             vd = xn[:, ln[:, 0]] - xn[:, ln[:, 1]]
-            new += [vd * 1e-9 / lval, rows(st, "l_i1", nl) + vd * dte_c / lval,
-                    vd, rows(st, "l_v0", nl), vd * dte_c]
+            if phys:  # the branch unknown is the current: x_b = -I
+                i = -xn[:, lb]
+                new += [i, i, vd, rows(st, "l_v0", nl), vd * dte_c]
+                tail.append(torch.ones_like(vd))
+            else:
+                new += [vd * 1e-9 / lval,
+                        rows(st, "l_i1", nl) + vd * dte_c / lval,
+                        vd, rows(st, "l_v0", nl), vd * dte_c]
+        if phys and nonlin:
+            tail += devs.commit(xn, dte_c, st, trap)
+        new += tail
         if new:
             st = torch.where(acc_act[:, None], torch.cat(new, dim=1), st)
 
@@ -576,17 +636,93 @@ def lane_vector(v, b, default, dtype, device):
     return v.contiguous()
 
 
+class RunInputs(NamedTuple):
+    """The run kernel's inputs for one batch, as ``make_tran_run`` gives
+    them to it."""
+
+    plan: object
+    dev: torch.Tensor  # (B, rows) f64 device constants
+    src: torch.Tensor  # (B, rows) f64 source parameters
+    st: torch.Tensor  # (B, ks) f64 committed state at the start
+    sc: RunScalars
+    jv: object  # (B, kj) f64 junction voltages, or None (linear)
+    state0: dict  # the committed state the run starts from
+    op: object  # the OP's result, or None (UIC, linear compat, resume)
+
+
+def make_run_inputs(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
+                    resume: bool = False):
+    """fn(params, state0, jv0=None, b=None) -> RunInputs, the inputs of
+    ``make_tran_run``'s kernel launch.  Unless ``cfg.uic`` or ``resume``, a
+    nonlinear deck first takes its operating point through the OP kernel
+    (``ops/op.make_op_fused``, rescue ladders included), and a linear
+    physics deck through the linear OP (``engine/op.make_op``): its
+    junction voltages warm-start the transient.  Compat keeps the given
+    committed state (tran.go:57-75); physics seeds it from the bias point
+    (``engine/state.make_op_seed``).  ``jv0`` is a resumed run's
+    checkpointed junction voltages; ``b`` the batch, when the start values
+    set it.  The function's ``.plan``, ``.sc`` and ``.op`` (the OP
+    function, or None) are fixed when it is made."""
+    physics = semantics == "physics"
+    plan = make_plan(cc, physics=physics)
+    sc = RunScalars(float(cfg.tstop), float(cfg.minstep), float(cfg.tmax),
+                    float(opts.trtol), int(cfg.max_attempts),
+                    float(opts.reltol), float(opts.abstol),
+                    int(opts.max_iter),
+                    physics and opts.integration == "trap")
+    need_op = (plan.nonlinear or physics) and not cfg.uic and not resume
+    op_fn = op_seed = None
+    if need_op and plan.nonlinear:
+        from .op import make_op_fused
+
+        op_fn = make_op_fused(cc, opts, semantics=semantics)
+    elif need_op:
+        from ..engine.op import make_op
+
+        op_fn = make_op(cc, opts, semantics)
+    if need_op and physics:
+        op_seed = make_op_seed(cc, opts.temp)
+
+    def inputs(params, state0, jv0=None, b=None) -> RunInputs:
+        device = first_leaf(params).device
+        if b is None:
+            b = infer_batch(params, state0)
+        opr = op_fn(params, state0) if need_op else None
+        if op_seed is not None:  # start the physics run at the bias point
+            state0 = op_seed(params, state0, opr.x)
+        jv = None
+        if plan.nonlinear:  # the checkpoint's junctions (resume), the
+            # OP's (a warm start), or 0 (UIC)
+            jv = jv_stack(plan, jv0 if resume else
+                          opr.jv if need_op else init_jv(cc, device), b)
+        return RunInputs(plan,
+                         const_stack(plan, params, b, device, opts.temp,
+                                     state0),
+                         source_stack(plan, params, b, device),
+                         init_state_stack(plan, state0, b, device),
+                         sc, jv, state0, opr)
+
+    inputs.plan, inputs.sc, inputs.op = plan, sc, op_fn
+    return inputs
+
+
+def run_inputs(cc, cfg, params, state0, opts=DEFAULTS,
+               semantics: str = "compat") -> RunInputs:
+    """One fresh run's kernel inputs (``make_run_inputs``)."""
+    return make_run_inputs(cc, cfg, opts, semantics)(params, state0)
+
+
 def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
                   store: str = "none", resume: bool = False,
                   stream: bool = False):
     """Batched whole-run transient: fn(params, state0) -> TranOutput.
 
     ``params``/``state0`` are dicts of f64 tensors on one device (shared
-    leaves (nk,), batched leaves (B, nk)); the run happens there.  A
-    nonlinear deck first takes its operating point through the OP kernel
-    (``ops/op.make_op_fused``, rescue ladders included) unless ``cfg.uic``:
-    its junction voltages warm-start the transient, whose committed state
-    stays the given one (compat, tran.go:57-75).
+    leaves (nk,), batched leaves (B, nk)); the run happens there, from the
+    inputs of ``make_run_inputs`` (the OP first, unless UIC, on a
+    nonlinear or a physics deck).  ``semantics="physics"`` runs the
+    physics instantiation of the kernel, with ``opts.integration`` "be" or
+    "trap" (trap takes the sources at the end of each step).
 
     ``store='full'`` runs the store instantiation and returns every
     accepted step at t >= tstart in ``out_x`` (B, max_store, np1) and
@@ -605,19 +741,10 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
     if stream and store != "full":
         raise ValueError("stream=True pauses lanes on a full waveform "
                          "buffer and therefore requires store='full'")
-    plan = make_plan(cc)
-    sc = RunScalars(float(cfg.tstop), float(cfg.minstep), float(cfg.tmax),
-                    float(opts.trtol), int(cfg.max_attempts),
-                    float(opts.reltol), float(opts.abstol),
-                    int(opts.max_iter))
+    inputs = make_run_inputs(cc, cfg, opts, semantics, resume)
+    plan, sc = inputs.plan, inputs.sc
     keep = (Store(float(cfg.tstart), int(cfg.max_store), stream)
             if store == "full" else None)
-    need_op = plan.nonlinear and not cfg.uic and not resume
-    op_fn = None
-    if need_op:
-        from .op import make_op_fused
-
-        op_fn = make_op_fused(cc, opts, semantics=semantics)
 
     def tran_run(params, state0, t0=None, jv0=None, dt0=None,
                  attempts0=None) -> TranOutput:
@@ -635,33 +762,25 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
         for v in (t0, dt0, attempts0):
             if v is not None and torch.as_tensor(v).ndim == 1:
                 b = max(b, len(v))
+        r = inputs(params, state0, jv0, b)
         start = RunStart(lane_vector(t0, b, 0.0, F64, device),
                          lane_vector(dt0, b, sc.minstep, F64, device),
                          lane_vector(attempts0, b, 0, I32, device))
-        dev = const_stack(plan, params, b, device, opts.temp, state0)
-        src = source_stack(plan, params, b, device)
-        st0 = init_state_stack(plan, state0, b, device)
-        jv_rows = None
-        if plan.nonlinear:  # the checkpoint's junctions (resume), the
-            # OP's (a warm start), or 0 (UIC)
-            jv_rows = jv_stack(plan, jv0 if resume else
-                               op_fn(params, state0).jv if need_op
-                               else init_jv(cc, device), b)
         if keep is not None:
-            res, wave = store_lanes(plan, dev, src, st0, sc, keep, jv_rows,
-                                    start)
+            res, wave = store_lanes(plan, r.dev, r.src, r.st, sc, keep,
+                                    r.jv, start)
         else:
             if resume:
-                res, _ = store_lanes(plan, dev, src, st0, sc, NO_STORE,
-                                     jv_rows, start)
+                res, _ = store_lanes(plan, r.dev, r.src, r.st, sc,
+                                     NO_STORE, r.jv, start)
             else:
-                res = run_lanes(plan, dev, src, st0, sc, jv_rows)
+                res = run_lanes(plan, r.dev, r.src, r.st, sc, r.jv)
             wave = Waveforms(
                 torch.zeros((b, 1, cc.np1), dtype=F64, device=device),
                 torch.zeros((b, 1), dtype=F64, device=device),
                 torch.zeros(b, dtype=I32, device=device),
                 torch.zeros(b, dtype=torch.bool, device=device))
-        state = unpack_state(plan, res.state, state0, res.accepted, b)
+        state = unpack_state(plan, res.state, r.state0, res.accepted, b)
         return TranOutput(
             out_x=wave.out_x,
             out_t=wave.out_t,
@@ -677,5 +796,5 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
             dt_final=res.dt,
         )
 
-    tran_run.op = op_fn
+    tran_run.op = inputs.op
     return tran_run

@@ -1,6 +1,7 @@
-"""Host-side tables of the whole-run transient and the OP kernel for
-compat decks of R, C, L, V, I, D, Q and M, and for the transient also
-magnetic inductors (LM) and mutual couplings (K).
+"""Host-side tables of the whole-run transient and the OP kernel for decks
+of R, C, L, V, I, D, Q and M under compat and physics semantics, and for
+the compat transient also magnetic inductors (LM) and mutual couplings
+(K).
 
 The counterpart of ``ops/pallas_tran.py``'s ``_build_plan``, ``_layout``,
 ``_const_stack64``, ``_init_state_stack64``, ``_jv_stack64``,
@@ -11,14 +12,16 @@ serves every eligible deck:
 
 * ``entries``: int32 (row, col, tag, index, sign) stamps in the order the
   general engine scatters them (ops/assemble.py), so each cell sums its
-  terms in the same order.  Column ``np1`` is the right-hand side; stamps
-  into the ground row 0 are dropped (that row is the identity).  The
-  linear stamps come first; the nonlinear ones (tag ``TAG_NL``) read the
-  value slot ``index`` that the device evaluation of each Newton iteration
-  fills (``NL_SLOTS`` per device).  The LM branch rows and the K cross
-  terms and their RHS memory (tags ``TAG_LMTERM`` .. ``TAG_KRHSB``) read
-  the compat run constants below.  A sign of 0 is the general engine's
-  masked MOSFET charge current (value times 0.0).  The OP plan
+  terms in the same order. Column ``np1`` is the right-hand side; stamps
+  into the ground row 0 are dropped (that row is the identity). The linear
+  stamps come first; the nonlinear ones (tag ``TAG_NL``) read the value
+  slot ``index`` that the device evaluation of each Newton iteration fills
+  (``NL_SLOTS`` per device). The LM branch rows and the K cross terms and
+  their RHS memory (tags ``TAG_LMTERM`` .. ``TAG_KRHSB``) read the compat
+  run constants below. Physics uses the same plan: the values of
+  ``TAG_GEQ``, ``TAG_CEQ``, ``TAG_LTERM``, ``TAG_LRHS`` and the D/M value
+  slots then come from the physics state rows. A sign of 0 is the general
+  engine's masked MOSFET charge current (value times 0.0). The OP plan
   (``mode="op"``) has no capacitor companion RHS and no MOSFET charge
   stamps, as assemble.py's mode "op".
 * per-lane f64 rows, batch axis first: ``dev`` (B, nd) holds g = 1/R_t,
@@ -28,12 +31,13 @@ serves every eligible deck:
   and ``M_ROWS`` of each nonlinear device (row r of device k of a kind at
   its block offset + r·nk + k); ``src`` (B, nrc) one record per source
   (``SRC_KEYS`` then the P knot times and P knot values); ``state`` (B,
-  ks) the committed C/L rows; ``jv`` (B, kj) the junction voltages D vd |
-  Q vbe | Q vbc | M vgs | M vds | M vbs.
+  ks) the committed C/L rows, and under physics then the rows
+  ``PHYS_ROWS`` of C, L, D and M (``state_layout``); ``jv`` (B, kj) the
+  junction voltages D vd | Q vbe | Q vbc | M vgs | M vds | M vbs.
 * ``topo``: the int32 table the kernel copies to shared memory (a header
-  of counts and offsets, then the entries, sources, device nodes and each
+  of counts and offsets, then the entries, sources, device nodes, each
   K's partners: kind (0 linear L, 1 LM) and index of winding a, then of
-  winding b).
+  winding b, and the inductors' branch rows).
 """
 
 from dataclasses import dataclass
@@ -63,7 +67,7 @@ NL_SLOTS = {"D": 2, "Q": 12, "M": 21}
 # ``QRow``, ``MRow``: raw parameters, the values that depend only on the
 # parameters and the temperature, and the frozen compat state they read
 D_ROWS = ("n", "is_", "gmin", "tt", "prev_charge", "nvt", "is_t", "vte",
-          "vcrit")
+          "vcrit", "rs", "bv")
 Q_ROWS = ("sign", "ies", "ics", "nf", "nr", "alphaf", "invnfvt", "invnrvt",
           "invvaf", "invvar", "invikf", "invikr", "vbe0", "vbc0", "vtef",
           "vcritf", "vter", "vcritr")
@@ -75,6 +79,15 @@ M_CHARGES = ("qgs", "qgd", "qgb", "qbs", "qbd")
 M_ROWS = M_PARAMS + M_CHARGES
 NL_ROWS = {"D": D_ROWS, "Q": Q_ROWS, "M": M_ROWS}
 
+# the committed physics state rows after the compat C/L rows, kind by kind
+# (the JAX package's _layout(physics=True)): C current and first-step flag,
+# L first-step flag, the diode charge memory, the MOSFET charges, their
+# companion currents and first-step flag
+PHYS_ROWS = {"C": ("i0", "hist"), "L": ("hist",),
+             "D": ("prev_vd", "prev_id", "prev_charge", "ic0", "hist"),
+             "M": M_CHARGES + ("icgs", "icgd", "icgb", "icbs", "icbd",
+                               "hist")}
+
 # the scalar leaves of one source record, in record order
 SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
             "fall", "width", "period")
@@ -82,7 +95,7 @@ SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
 # topo header slots, csrc/newton.cuh ``enum Hdr``
 (H_NP1, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN, H_LN, H_KS,
  H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN, H_NLIN, H_KJ, H_DOFF,
- H_QOFF, H_MOFF, H_NLM, H_NK, H_KP) = range(28)
+ H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB) = range(29)
 H_LEN = 32
 
 
@@ -97,13 +110,28 @@ def nonlinear(cc):
     return any(k in cc.idx for k in NL_KINDS)
 
 
+def semantics_reason(semantics: str, opts):
+    """Why the port can NOT run this semantics and integration; None when
+    it can (compat BE, physics BE or trap)."""
+    if semantics not in ("compat", "physics"):
+        return f"semantics={semantics!r} (the port runs compat and physics)"
+    if opts is not None and opts.integration != "be" \
+            and semantics != "physics":
+        return (f"integration={opts.integration!r} requires "
+                "semantics='physics' (compat reproduces the reference's "
+                "backward Euler)")
+    return None
+
+
 def fused_ineligible_reason(cc, semantics: str, store: str, opts):
     """Why the port can NOT run this deck; None when it can."""
-    if semantics != "compat":
-        return (f"semantics={semantics!r} (the port runs compat semantics "
-                "only)")
-    if opts.integration != "be":
-        return f"integration={opts.integration!r} (compat is backward Euler)"
+    why = semantics_reason(semantics, opts)
+    if why is not None:
+        return why
+    if semantics == "physics" and any(k in cc.idx for k in MAG_KINDS):
+        return ("magnetic inductors or mutual couplings under physics "
+                "semantics (the live Jiles-Atherton core commit is not "
+                "ported yet)")
     if store not in ("none", "full"):
         return (f"store={store!r} (the whole-run kernel serves 'none' and "
                 "'full')")
@@ -117,12 +145,20 @@ def fused_ineligible_reason(cc, semantics: str, store: str, opts):
     return None
 
 
-def state_layout(nc, nl):
-    """Row offsets of the committed compat state stack."""
-    return {"c_q0": 0, "c_q1": nc, "c_v0": 2 * nc, "c_v1": 3 * nc,
-            "l_i0": 4 * nc, "l_i1": 4 * nc + nl, "l_v0": 4 * nc + 2 * nl,
-            "l_v1": 4 * nc + 3 * nl, "l_flux0": 4 * nc + 4 * nl,
-            "ks": 4 * nc + 5 * nl}
+def state_layout(nc, nl, nd=0, nm=0, physics=False):
+    """Row offsets of the committed state stack: the compat C/L rows, and
+    under physics then ``PHYS_ROWS`` (keys "c_i0", "d_prev_charge", ...)."""
+    out = {"c_q0": 0, "c_q1": nc, "c_v0": 2 * nc, "c_v1": 3 * nc,
+           "l_i0": 4 * nc, "l_i1": 4 * nc + nl, "l_v0": 4 * nc + 2 * nl,
+           "l_v1": 4 * nc + 3 * nl, "l_flux0": 4 * nc + 4 * nl}
+    row = 4 * nc + 5 * nl
+    if physics:
+        for kind, nk in (("C", nc), ("L", nl), ("D", nd), ("M", nm)):
+            for key in PHYS_ROWS[kind]:
+                out[f"{kind.lower()}_{key}"] = row
+                row += nk
+    out["ks"] = row
+    return out
 
 
 def build_plan(cc, mode="tran"):
@@ -275,6 +311,7 @@ class RunPlan:
 
     np1: int
     mode: str  # "tran" or "op" (build_plan)
+    physics: bool  # the physics state rows (state_layout)
     counts: tuple  # (nR, nC, nL, nV, nI, nD, nQ, nM)
     nlm: int  # magnetic inductors
     nk: int  # mutual-coupling pairs
@@ -283,6 +320,7 @@ class RunPlan:
     n_lin: int  # the leading linear entries
     c_nodes: np.ndarray  # (nC, 2) int32
     l_nodes: np.ndarray  # (nL, 2) int32
+    l_branch: np.ndarray  # (nL,) int32 branch rows
     stype: dict  # kind -> (nS,) source type codes
     knots: dict  # kind -> P, the padded PWL knot count
     src_offset: dict  # kind -> (nS,) record offsets into the src rows
@@ -312,7 +350,7 @@ class RunPlan:
         return self.kj > 0
 
 
-def make_plan(cc, mode="tran") -> RunPlan:
+def make_plan(cc, mode="tran", physics=False) -> RunPlan:
     nr, nc, nl, nv, ni, n_d, n_q, n_m = counts = kind_counts(cc)
     nlm, nk = kind_counts(cc, MAG_KINDS)
     entries, n_lin = build_plan(cc, mode)
@@ -339,7 +377,7 @@ def make_plan(cc, mode="tran") -> RunPlan:
         for k in range(ns):
             src_rows.append((int(stype[kind][k]), off + width * k, P))
         off += width * ns
-    layout = state_layout(nc, nl)
+    layout = state_layout(nc, nl, n_d, n_m, physics)
 
     # nonlinear device nodes: D (n1, n2), Q (c, b, e), M (d, g, s, b, level)
     def nodes(kind, cols):
@@ -358,13 +396,15 @@ def make_plan(cc, mode="tran") -> RunPlan:
         dev_offset[kind] = row
         row += len(NL_ROWS[kind]) * count
 
+    l_branch = (np.asarray(cc.idx["L"]["branch"], np.int32) if nl
+                else np.zeros(0, np.int32))
     hdr = np.zeros(H_LEN, np.int32)
     parts = [entries.ravel(), np.asarray(src_rows, np.int32).ravel(),
              c_nodes.ravel(), l_nodes.ravel(), nodes("D", 2).ravel(),
-             nodes("Q", 3).ravel(), m_tab.ravel(), kpairs.ravel()]
+             nodes("Q", 3).ravel(), m_tab.ravel(), kpairs.ravel(), l_branch]
     pos = H_LEN
-    for key, part in zip((H_ENT, H_SRC, H_CN, H_LN, H_DN, H_QN, H_MN, H_KP),
-                         parts):
+    for key, part in zip((H_ENT, H_SRC, H_CN, H_LN, H_DN, H_QN, H_MN, H_KP,
+                          H_LB), parts):
         hdr[key] = pos
         pos += part.size
     hdr[H_NP1] = cc.np1
@@ -380,9 +420,11 @@ def make_plan(cc, mode="tran") -> RunPlan:
     hdr[H_DOFF], hdr[H_QOFF], hdr[H_MOFF] = (dev_offset["D"], dev_offset["Q"],
                                              dev_offset["M"])
     topo = np.concatenate([hdr] + parts).astype(np.int32)
-    return RunPlan(np1=cc.np1, mode=mode, counts=counts, nlm=nlm, nk=nk,
+    return RunPlan(np1=cc.np1, mode=mode, physics=bool(physics),
+                   counts=counts, nlm=nlm, nk=nk,
                    kpairs=kpairs, entries=entries,
                    n_lin=n_lin, c_nodes=c_nodes, l_nodes=l_nodes,
+                   l_branch=l_branch,
                    stype=stype, knots=knots, src_offset=src_offset,
                    nrc=max(off, 1), layout=layout, dev_offset=dev_offset,
                    idx={k: cc.idx[k] for k in NL_KINDS if k in cc.idx},
@@ -606,6 +648,10 @@ def init_state_stack(plan, state0, b, device):
         rows += [srow("C", k) for k in ("q0", "q1", "v0", "v1")]
     if nl:
         rows += [srow("L", k) for k in ("i0", "i1", "v0", "v1", "flux0")]
+    if plan.physics:
+        for kind in ("C", "L", "D", "M"):
+            if plan.counts[DEVICE_KINDS.index(kind)]:
+                rows += [srow(kind, k) for k in PHYS_ROWS[kind]]
     if not rows:
         return torch.zeros((b, 1), dtype=torch.float64, device=device)
     return torch.cat(rows, dim=1).contiguous()
@@ -613,9 +659,10 @@ def init_state_stack(plan, state0, b, device):
 
 def unpack_state(plan, st, state0, accepted, b):
     """Final state stack -> the state dict of the JAX package's
-    ``_unpack_state_jv`` (compat): C/L rows from the stack, C.i0 passed
-    through, hist set on lanes that accepted a step, LM/D/Q/M passed
-    through."""
+    ``_unpack_state_jv``: C/L rows from the stack; under compat C.i0
+    passed through, hist set on lanes that accepted a step, LM/D/Q/M
+    passed through; under physics C.i0, every hist and the D and M rows
+    from the stack, Q passed through."""
     nc, nl = plan.counts[1:3]
     L = plan.layout
     started = (accepted > 0)[:, None]
@@ -623,25 +670,37 @@ def unpack_state(plan, st, state0, accepted, b):
     def grab(key, nk):
         return st[:, L[key]:L[key] + nk]
 
+    def phys(kind, nk):
+        return {key: grab(f"{kind.lower()}_{key}", nk)
+                for key in PHYS_ROWS[kind]}
+
+    def hist(kind):
+        return torch.where(started, 1.0, lanes(state0[kind]["hist"], b))
+
     state = {}
     if nc:
         state["C"] = {
             "q0": grab("c_q0", nc), "q1": grab("c_q1", nc),
             "v0": grab("c_v0", nc), "v1": grab("c_v1", nc),
-            "i0": lanes(state0["C"]["i0"], b).clone(),
-            "hist": torch.where(started, 1.0, lanes(state0["C"]["hist"], b)),
+            **(phys("C", nc) if plan.physics else {
+                "i0": lanes(state0["C"]["i0"], b).clone(),
+                "hist": hist("C")}),
         }
     if nl:
         state["L"] = {
             "i0": grab("l_i0", nl), "i1": grab("l_i1", nl),
             "v0": grab("l_v0", nl), "v1": grab("l_v1", nl),
             "flux0": grab("l_flux0", nl),
-            "hist": torch.where(started, 1.0, lanes(state0["L"]["hist"], b)),
+            **(phys("L", nl) if plan.physics else {"hist": hist("L")}),
         }
-    # compat never commits LM, D, Q or M state (PLAN.md 1): pass it
-    # through, broadcast to the batch
+    # compat never commits LM, D, Q or M state (PLAN.md 1), physics never
+    # Q: pass it through, broadcast to the batch
     for kind in ("LM",) + NL_KINDS:
-        if kind in state0:
+        if kind not in state0:
+            continue
+        if plan.physics and kind in ("D", "M"):
+            state[kind] = phys(kind, plan.counts[DEVICE_KINDS.index(kind)])
+        else:
             state[kind] = {key: lanes(leaf, b).clone()
                            for key, leaf in state0[kind].items()}
     return state
