@@ -5,11 +5,18 @@ the 8192-lane half-wave rectifier (its Newton instantiation, warm-started
 from the OP kernel), or with ``--physics`` on that rectifier under physics
 semantics and the trapezoidal rule (the PHYS Newton instantiation, from
 the physics OP's bias point: chip_smoke.py's physics main path), for
-several checkouts of the port, in turns, on one CUDA card.
+several checkouts of the port, in turns, on one CUDA card.  With ``--opdc``
+it times the OP kernel's first launch on that rectifier (plain Newton from
+the linear estimate), compat and physics, and the DC sweep kernel on
+diode_iv_sweep.cir (35 points), 8192 lanes each, in place of the run
+kernel: each rep is the mean of 20 back-to-back calls of the kernel's C
+entry point on prepared buffers, so that the wrapper's host work does not
+hide a launch that takes tens of microseconds.
 
     python3 ab_run_kernel.py _parent . . _parent
     python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
     python3 ab_run_kernel.py --physics --reps 10 . .
+    python3 ab_run_kernel.py --opdc --reps 10 _parent . . _parent
 
 Each argument is a directory holding a ``toyspice_tpu_torch`` package (for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -38,9 +45,123 @@ C1 3 0 1u
 """
 
 
-def rectifier_deck(root):
-    with open(os.path.join(root, "circuits", "half_wave_rectifier.cir")) as f:
+def deck_text(root, name):
+    with open(os.path.join(root, "circuits", name)) as f:
         return f.read()
+
+
+def rectifier_deck(root):
+    return deck_text(root, "half_wave_rectifier.cir")
+
+
+def spread_params(ts, cc, keys=("R", "L", "C")):
+    """bench.py's perturbation: each of ``keys`` in turn, log-normal by
+    0.1 from one seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ov = {k: {"value": np.asarray(cc.params[k]["value"])[None] * np.exp(
+        rng.normal(0, 0.1, (LANES, len(cc.params[k]["value"]))))}
+        for k in keys if k in cc.params}
+    return ts.batch_params(cc, ov)
+
+
+def event_ms(fn, reps):
+    """One warm-up call of ``fn``, then ``reps`` calls under CUDA events;
+    returns (the last call's result, the times in ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return out, ms
+
+
+def time_op_dc(root, reps, calls=20):
+    """The OP kernel's first launch of the rectifier's OP ladder, compat and
+    physics, and the DC sweep kernel's one launch of diode_iv_sweep.cir,
+    each captured from its entry's call; each rep times ``calls`` calls of
+    the library's C entry point on the captured inputs."""
+    import torch
+
+    import toyspice_tpu_torch as ts
+    from toyspice_tpu_torch.engine.options import DEFAULTS
+    from toyspice_tpu_torch.ops import _build, dc, op
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    seen = {}
+
+    def capture(kind, launch):
+        def solve(*args):
+            seen.setdefault(kind, args)
+            return launch(*args)
+        return solve
+
+    def raw(fn, args):
+        def many():
+            for _ in range(calls):
+                err = fn(*args)
+            return err
+        err, ms = event_ms(many, reps)
+        if err != 0:
+            raise SystemExit(f"{root}: launch failed: CUDA error {err}")
+        return [m / calls for m in ms]
+
+    stream = torch.cuda.current_stream().cuda_stream
+    cc = ts.compile_circuit(ts.parse(rectifier_deck(here)))
+    params, _ = spread_params(ts, cc)
+    for semantics in ("compat", "physics"):
+        seen.pop("op", None)
+        op.make_op_fused(cc, DEFAULTS, semantics, solve=capture(
+            "op", op.launch_op_kernel))(params, ts.init_state(cc))
+        plan, dev, dyn, x0, jv0, sc = seen["op"]
+        b = dev.shape[0]
+        topo = torch.as_tensor(plan.topo, device=dev.device)
+        x, jv = torch.empty_like(x0), torch.empty_like(jv0)
+        iters = torch.empty(b, dtype=torch.int32, device=dev.device)
+        conv = torch.empty(b, dtype=torch.int32, device=dev.device)
+        ms = raw(_build.load("op").tsr_op, (
+            plan.np1, topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
+            dyn.data_ptr(), x0.data_ptr(), jv0.data_ptr(), x.data_ptr(),
+            jv.data_ptr(), iters.data_ptr(), conv.data_ptr(), b,
+            float(sc.reltol), float(sc.abstol), int(sc.max_iter),
+            float(sc.gmin_floor), int(sc.physics), stream))
+        print(f"{root}: OP kernel (half_wave_rectifier, {semantics}, {b} "
+              f"lanes): Newton iterations {int(iters.sum())}, converged "
+              f"{int(conv.sum())}, kernel ms {ms}", flush=True)
+
+    cc = ts.compile_circuit(ts.parse(deck_text(here, "diode_iv_sweep.cir")))
+    params, _ = spread_params(ts, cc, ("R",))
+    d = cc.netlist.dc
+    slot = (cc.names["V"].index(d.source1),)
+    pts = ts.sweep_values(d.start1, d.stop1, d.increment1)
+    dc.make_dc_fused(cc, slot, DEFAULTS, solve=capture(
+        "dc", dc.launch_dc_kernel))(params, ts.init_state(cc), pts)
+    plan, dev, dyn, vs, sc = seen["dc"]
+    b, npts = dev.shape[0], vs.shape[-2]
+    topo = torch.as_tensor(plan.topo, device=dev.device)
+    xs = torch.empty((b, npts, plan.np1), dtype=torch.float64,
+                     device=dev.device)
+    iters = torch.empty((b, npts), dtype=torch.int32, device=dev.device)
+    conv = torch.empty((b, npts), dtype=torch.int32, device=dev.device)
+    ms = raw(_build.load("dc").tsr_dc_sweep, (
+        plan.np1, topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
+        dyn.data_ptr(), vs.data_ptr(),
+        npts * plan.counts[3] if vs.ndim == 3 else 0, npts, xs.data_ptr(),
+        iters.data_ptr(), conv.data_ptr(), b, float(sc.reltol),
+        float(sc.abstol), int(sc.max_iter), float(sc.gmin_floor),
+        int(sc.physics), stream))
+    print(f"{root}: DC sweep kernel (diode_iv_sweep, {b} lanes x {npts} "
+          f"points): Newton iterations {int(iters.sum())}, converged "
+          f"{int(conv.sum())}, kernel ms {ms}", flush=True)
 
 
 def print_ptxas(root, _build):
@@ -66,11 +187,9 @@ def print_ptxas(root, _build):
                           flush=True)
 
 
-def time_checkout(root, deck, reps, ptxas=True, physics=False):
+def time_checkout(root, deck, reps, ptxas=True, physics=False,
+                  opdc=False):
     sys.path.insert(0, root)
-    import numpy as np
-    import torch
-
     import toyspice_tpu_torch as ts
     from toyspice_tpu_torch.ops import _build, run, run_plan
 
@@ -79,14 +198,12 @@ def time_checkout(root, deck, reps, ptxas=True, physics=False):
     _build.build()
     if ptxas:
         print_ptxas(root, _build)
+    if opdc:
+        return time_op_dc(root, reps)
     cc = ts.compile_circuit(ts.parse(deck))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
-    rng = np.random.default_rng(0)  # bench.py: R then L then C, spread 0.1
-    ov = {k: {"value": np.asarray(cc.params[k]["value"])[None] * np.exp(
-        rng.normal(0, 0.1, (LANES, len(cc.params[k]["value"]))))}
-        for k in ("R", "L", "C") if k in cc.params}
-    params, _ = ts.batch_params(cc, ov)
+    params, _ = spread_params(ts, cc)
     state0 = ts.init_state(cc)
     if physics:  # the physics OP's bias point, as make_tran_run builds it
         plan, dev, src, st, sc, jv0, *_ = run.run_inputs(
@@ -109,17 +226,8 @@ def time_checkout(root, deck, reps, ptxas=True, physics=False):
             jv0 = run_plan.jv_stack(
                 plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv,
                 LANES)
-    run.launch_run_kernel(plan, dev, src, st, sc, jv0)
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
-        e1.record()
-        torch.cuda.synchronize()
-        ms.append(e0.elapsed_time(e1))
+    k, ms = event_ms(
+        lambda: run.launch_run_kernel(plan, dev, src, st, sc, jv0), reps)
     print(f"{root}: attempts {int(k.attempts.sum())}, Newton iterations "
           f"{int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
 
@@ -133,6 +241,9 @@ def main():
                     help="time the rectifier under physics semantics and "
                     "the trapezoidal rule (a checkout with the physics "
                     "instantiation)")
+    ap.add_argument("--opdc", action="store_true",
+                    help="time the OP and DC sweep kernels instead of the "
+                    "run kernel")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed launches per checkout")
     ap.add_argument("--no-ptxas", action="store_true", help=argparse.SUPPRESS)
@@ -143,14 +254,15 @@ def main():
         here = os.path.dirname(os.path.abspath(__file__))
         deck = (rectifier_deck(here) if a.rectifier or a.physics else RLC)
         time_checkout(os.path.abspath(a.roots[0]), deck, a.reps,
-                      not a.no_ptxas, a.physics)
+                      not a.no_ptxas, a.physics, a.opdc)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     extra = (["--reps", str(a.reps)]
              + (["--rectifier"] if a.rectifier else [])
-             + (["--physics"] if a.physics else []))
+             + (["--physics"] if a.physics else [])
+             + (["--opdc"] if a.opdc else []))
     seen = set()
     for root in a.roots:
         quiet = a.no_ptxas or os.path.abspath(root) in seen

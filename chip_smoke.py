@@ -9,10 +9,11 @@ seconds:
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
 2. build: the whole-run kernel (its compat instantiations in
-   run_kernel.cu, its physics ones in run_kernel_phys.cu, each source
-   built without and with the waveform store), the OP kernel, the stamped
-   solve, the DC sweep kernel and the AC kernel, one ``nvcc`` call per
-   library, all started together (ops/_build.py).
+   run_kernel.cu, its physics ones in run_kernel_phys.cu, its physics
+   magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
+   source built without and with the waveform store), the OP kernel, the
+   DC sweep kernel, the stamped solve and the AC kernel, one ``nvcc`` call
+   per library, all started together (ops/_build.py).
 3. run kernel against its plain torch version on linear decks, on the
    card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -104,11 +105,39 @@ seconds:
    on the 8192 lanes of phase 7: one OP launch, the bias-point seed, one
    run-kernel launch, no lane failed; then the kernel on the same inputs
    against its plain version.
+22. physics magnetics: the PHYS MAG run kernel against its plain version,
+   256 lanes, R spread, from the linear OP's bias point:
+   saturating_transformer.cir under BE and trap, coupled_inductors.cir
+   under trap (its lanes stopped at 2000 attempts), TRANS_SMALL and
+   XFMR_MAG under BE (fail parity: the counters include fail); then the
+   store path make_tran_batch(store='full') on the saturating
+   transformer under trap (one stamped solve, one store launch) and the
+   physics MAG store instantiation against the plain store.
+23. LM and K with a diode (TRANS_SMALL with a rectifier on its secondary,
+   256 lanes) under compat and physics/trap: the transient path (the OP
+   kernel with the windings' branch diagonal, then the MAG Newton
+   instantiation) and the kernel against its plain version; the OP path
+   (run_op_batch) and the DC sweep path (run_dc_batch, 15 points), each
+   kernel against its plain version.
+24. magnetic AC: run_ac_batch on saturating_transformer.cir with an AC
+   source, 8192 lanes, 9 frequencies: one stamped solve, one AC launch;
+   the AC kernel against its plain version.
+25. physics magnetic main path, saturating_transformer_8192_physics_trap:
+   make_tran_batch(semantics="physics", SimOptions(integration="trap"))
+   on the 8192 lanes of phase 12: one stamped-solve launch (the linear
+   OP), the bias-point seed, one launch of the PHYS MAG run kernel, no
+   lane failed, every lane at tstop; then the linear OP's stamped solve
+   and the run kernel on the same inputs against their plain versions.
+26. physics store main path: make_tran_batch(semantics="physics",
+   store='full') on phase 21's 8192 lanes (one OP launch, one PHYS store
+   launch, 9.8 GB of output), then that store kernel against the plain
+   store on the same lanes, timed alone and through its wrapper.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21) runs with
-every kernel's launch count set to 0 just before and read just after.
+Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26) and
+each path of phases 22-24 runs with every kernel's launch count set to 0
+just before and read just after.
 """
 
 import json
@@ -298,6 +327,38 @@ C1 2 0 10n
 .model DM D (Is=1e-14 Bv=100 Tt=10n)
 """
 
+# tests/test_fused_tran.py's small two-winding J-A transformer (where the
+# JAX run kernel misses the general engine under physics/be) and
+# transformer3's topology
+TRANS_SMALL = """* small 2-winding J-A transformer
+Vin 1 0 sin(0 10 1k)
+Rp 1 2 0.5
+Lp 2 0 core=C1 turns=300
+Ls 3 0 core=C1 turns=150
+Rload 3 0 1000
+.model C1 core(ms=1.6e6 alpha=1e-3 a=1000 c=0.1 k=2000 area=1e-4 len=0.1)
+K1 Lp Ls 0.95
+.tran 20u 1m
+"""
+
+XFMR_MAG = """* J-A core transformer (transformer3.cir topology)
+.tran 0.05m 1m
+Vin 1 0 SIN(0 10 1k)
+Rp 1 2 0.1
+Lp 2 0 core=C1 turns=300
+Rs 3 4 0.1
+Ls 3 0 core=C1 turns=150
+Rload 4 0 1000
+.model C1 core(ms=1.6e6 alpha=1e-3 a=1000 c=0.1 k=2000 area=1e-4 len=0.1)
+K1 Lp Ls 0.95
+"""
+
+# TRANS_SMALL with a half-wave rectifier on its secondary: LM and K with a
+# diode
+LM_DIODE = TRANS_SMALL.replace(
+    "Rload 3 0 1000", "D1 3 4 DMOD\nRload 4 0 1k\nCload 4 0 10u\n"
+    ".model DMOD D(IS=1e-14)")
+
 # every kernel wrapper's launch count
 COUNTERS = {"run_kernel": run.launch_run_kernel,
             "run_kernel_store": run.launch_store_kernel,
@@ -439,7 +500,10 @@ def build_flops(plan, entries):
     per_tag = {run_plan.TAG_G: 0, run_plan.TAG_GEQ: 1, run_plan.TAG_LTERM: 1,
                run_plan.TAG_ONE: 0, run_plan.TAG_CEQ: 1,
                run_plan.TAG_LRHS: 2, run_plan.TAG_VSRC: 0,
-               run_plan.TAG_ISRC: 0, run_plan.TAG_NL: 0}
+               run_plan.TAG_ISRC: 0, run_plan.TAG_NL: 0,
+               run_plan.TAG_LMTERM: 1, run_plan.TAG_LMRHS: 2,
+               run_plan.TAG_KTERM: 1, run_plan.TAG_KRHSA: 2,
+               run_plan.TAG_KRHSB: 2}
     return sum(1 + per_tag[int(tag)] for tag in entries[:, 2])
 
 
@@ -1522,6 +1586,461 @@ def physics_main_phase(lanes, smi):
                 + plan.topo.nbytes + lanes * (8 + 8 + 4 + 4 + 4 + 4))
 
 
+# --------------------------------------------------- physics magnetics
+# The live Jiles-Atherton core and the physics mutual (the PHYS MAG
+# instantiations of csrc/run_kernel_mag.cu), compat LM and K with a Newton
+# (its compat MAG NL ones), and the OP and DC sweep kernels on a magnetic
+# deck (each winding's +1e-3 branch diagonal).
+
+
+def mag_build_extra(plan):
+    """A physics build's magnetic work beyond build_flops: each LM stamp's
+    incremental L (2) and each K stamp's M = k·sqrt(La·Lb) from the two
+    live inductances (7)."""
+    tags = plan.entries[:, 2]
+    lm = int(np.isin(tags, (run_plan.TAG_LMTERM, run_plan.TAG_LMRHS)).sum())
+    k = int(np.isin(tags, (run_plan.TAG_KTERM, run_plan.TAG_KRHSA,
+                           run_plan.TAG_KRHSB)).sum())
+    return 2 * lm + 7 * k
+
+
+def ja_commit_flops(plan):
+    """An accepted step's live J-A commit: per winding its core's mmf (2
+    per winding on the core), H and its clip (3), the J-A step (44: He,
+    the anhysteretic with its series or tanh, the irreversible slope, M
+    and dM/dH) and the voltage and flux (3)."""
+    core = plan.core
+    return sum(2 * int((core == c).sum()) + 50 for c in core)
+
+
+def phys_mag_attempt_flops(plan):
+    """A physics linear attempt on a magnetic deck: phys_step_flops, one
+    build with its magnetic terms, one solve."""
+    return int(phys_step_flops(plan) + build_flops(plan, plan.entries)
+               + mag_build_extra(plan) + lu_flops(plan.np1))
+
+
+def run_bound(plan, k, physics):
+    """The operation count of one run kernel result ``k`` on a magnetic
+    deck: every attempt's step work, every Newton iteration's (or linear
+    attempt's) build and solve, and under physics the J-A commit of every
+    accepted step."""
+    acc, att, nri = (int(getattr(k, key).sum()) for key in
+                     ("accepted", "attempts", "nr_iters"))
+    step = phys_step_flops(plan) if physics else step_flops(plan)
+    extra = mag_build_extra(plan) if physics else 0
+    if plan.nonlinear:
+        per = (phys_newton_flops(plan) if physics else newton_flops(plan))
+        flops = att * step + nri * (per + extra)
+    else:
+        flops = att * (step + build_flops(plan, plan.entries) + extra
+                       + lu_flops(plan.np1))
+    return int(flops + (acc * ja_commit_flops(plan) if physics else 0))
+
+
+def run_nbytes(plan, dev, src, st, jv0, lanes):
+    """Inputs read once, the state and junctions written once, and the
+    per-lane counters."""
+    jv = () if jv0 is None else (jv0, jv0)
+    return (nbytes(dev, src, st, st, *jv) + plan.topo.nbytes
+            + lanes * (8 + 8 + 4 + 4 + 4 + 4))
+
+
+def mag_run_phase(lanes, smi):
+    """Phase 22: the PHYS MAG run kernel against its plain version on
+    saturating_transformer.cir (BE and trap), coupled_inductors.cir (trap:
+    2M/dt on its both-linear pair), TRANS_SMALL and XFMR_MAG (BE), 256
+    lanes, R spread, from the linear OP's bias point; then the physics MAG
+    store path (make_tran_batch(store='full') on the saturating
+    transformer under trap) and its store instantiation against the plain
+    store."""
+    sat = deck_file("saturating_transformer.cir")
+    # coupled_inductors' linear inductor LTE paces every lane near minstep
+    # (~23,700 attempts to its 1.5 ms): its lanes stop at 2000 attempts so
+    # that the plain version's replay stays short
+    decks = (("saturating_transformer", sat, False, None),
+             ("saturating_transformer", sat, True, None),
+             ("coupled_inductors_2000", deck_file("coupled_inductors.cir"),
+              True, 2000),
+             ("trans_small", TRANS_SMALL, False, None),
+             ("xfmr_mag", XFMR_MAG, False, None))
+    err = 0.0
+    for name, deck, trap, max_att in decks:
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(
+            deck, lambda cc, b: perturbed(cc, np.random.default_rng(4), b,
+                                          ("R",)), lanes)
+        plan, dev, src, st, sc, _ = lane_inputs(
+            cc, cfg, params, state0,
+            ts.SimOptions(integration="trap" if trap else "be"), "physics")
+        if max_att:
+            sc = sc._replace(max_attempts=max_att)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
+        e = compare_run(name, k, p)
+        err = max(err, e)
+        if not max_att and not bool((k.t == cfg.tstop).all()):
+            fail(f"{name}: a lane stopped before tstop")
+        lay = plan.layout
+        dmdh = k.state[:, lay["lm_dMdH"]:lay["lm_dMdH"] + plan.nlm]
+        core = (f"committed dM/dH in [{float(dmdh.min()):.4g}, "
+                f"{float(dmdh.max()):.4g}]" if plan.nlm else "no LM")
+        phase("22 physics magnetic kernel vs plain", t0,
+              f"{name} ({'trap' if trap else 'be'}): {lanes} lanes, "
+              f"np1={plan.np1}, {plan.nlm} LM, {plan.nk} K, ks={plan.ks}, "
+              f"accepted {int(k.accepted.sum())}, attempts "
+              f"{int(k.attempts.sum())}, failed {int(k.fail.sum())} (the "
+              f"plain version's too); counters equal, max abs err {e:.3e}; "
+              f"{core}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+
+    # the store path: the linear OP, then one store launch
+    t0 = time.perf_counter()
+    opts = ts.SimOptions(integration="trap")
+    cc, cfg, params, axes, state0 = setup(
+        sat, lambda cc, b: perturbed(cc, np.random.default_rng(4), b,
+                                     ("R",)), lanes)
+    fn = ts.make_tran_batch(cc, cfg, axes, semantics="physics",
+                            store="full", opts=opts)
+    fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("physics magnetic store path", got,
+                 {"stamped_solve": (1, 1), "run_kernel_store": (1, 1)})
+    plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0, opts,
+                                            "physics")
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    ks, kw, es, s_ms, w_ms, sp_ms = store_vs_plain(
+        "saturating_transformer store", plan, dev, src, st, sc, keep)
+    if not (torch.equal(kw.out_n, out.out_n)
+            and torch.equal(kw.out_x, out.out_x)
+            and torch.equal(ks.attempts, out.attempts)):
+        fail("physics magnetic store path differs from a store launch on "
+             "the same inputs")
+    if bool(out.fail.any()) or not torch.equal(out.out_n, out.accepted):
+        fail("physics magnetic store path: a lane failed or out_n is not "
+             "the accepted count")
+    store = dict(launches=got["run_kernel_store"], err=es, k_ms=s_ms,
+                 p_ms=sp_ms, flops=run_bound(plan, ks, True),
+                 nbytes=run_nbytes(plan, dev, src, st, None, lanes)
+                 + nbytes(kw.out_x, kw.out_t))
+    phase("22 physics magnetic store", t0,
+          f"saturating_transformer (trap, store='full'): {lanes} lanes, "
+          f"stamped-solve launches {got['stamped_solve']}, store launches "
+          f"{got['run_kernel_store']}, rows {int(out.out_n.sum())}; the "
+          f"store kernel against the plain store: counters and out_n equal, "
+          f"max abs err {es:.3e}; launch {s_ms:.3f} ms, wrapper "
+          f"{w_ms:.3f} ms, plain {sp_ms:.1f} ms on {smi}")
+    del kw, out
+    free()
+    return err, store
+
+
+def mag_newton_phase(lanes, smi):
+    """Phase 23: LM and K with a diode (LM_DIODE) under compat and
+    physics/trap: the transient path (the OP kernel with the windings'
+    branch diagonal, then the Newton MAG instantiation), then the kernel
+    against its plain version; the OP path (run_op_batch) and the DC sweep
+    path (run_dc_batch), each then held to its plain version."""
+    res = {}
+    for semantics, trap in (("compat", False), ("physics", True)):
+        opts = ts.SimOptions(integration="trap" if trap else "be")
+        t0 = time.perf_counter()
+        cc, cfg, params, axes, state0 = setup(LM_DIODE, rc_spread, lanes)
+        fn = ts.make_tran_batch(cc, cfg, axes, semantics=semantics,
+                                opts=opts)
+        fn(params, state0)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(params, state0)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"LM + diode {semantics} path", got,
+                     {"op_kernel": (1, 1), "run_kernel": (1, 1)})
+        if bool(out.fail.any()) or not bool((out.t_final == cfg.tstop).all()):
+            fail(f"LM + diode {semantics}: a lane failed or stopped early")
+        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0,
+                                                  opts, semantics)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+        e = compare_run(f"lm_diode {semantics}", k, p, check_jv=True)
+        if not (torch.equal(out.attempts, k.attempts)
+                and torch.equal(out.nr_iters, k.nr_iters)
+                and torch.equal(out.t_final, k.t)):
+            fail(f"LM + diode {semantics} path differs from a kernel run")
+        res[f"run_{semantics}"] = dict(
+            launches=got["run_kernel"], err=e, k_ms=k_ms, p_ms=p_ms,
+            flops=run_bound(plan, k, semantics == "physics"),
+            nbytes=run_nbytes(plan, dev, src, st, jv0, lanes))
+        phase("23 magnetic Newton kernel vs plain", t0,
+              f"lm_diode ({semantics}/{'trap' if trap else 'be'}): "
+              f"{lanes} lanes, OP launches {got['op_kernel']}, run "
+              f"launches {got['run_kernel']}, accepted "
+              f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
+              f"NR iterations {int(k.nr_iters.sum())}, failed 0; counters "
+              f"equal, max abs err {e:.3e}; kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms")
+
+        # the OP path and the OP kernel on the magnetic deck against its
+        # plain version
+        t0 = time.perf_counter()
+        reset_counts()
+        opr = ts.run_op_batch(cc, params, axes, semantics=semantics)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"LM + diode {semantics} OP path", got,
+                     {"op_kernel": (1, 1 << 30)})
+        tk = TimedSolve(op.op_lanes)
+        tp_ = TimedSolve(op.op_plain)
+        ko = op.make_op_fused(cc, DEFAULTS, semantics, solve=tk)(params,
+                                                                 state0)
+        po = op.make_op_fused(cc, DEFAULTS, semantics, solve=tp_)(params,
+                                                                  state0)
+        for key in ("converged", "stage", "iters", "iters_all"):
+            if not torch.equal(getattr(ko, key), getattr(po, key)):
+                fail(f"LM + diode {semantics} OP: {key} differs")
+        eo = max_err("lm_diode OP", [("x", ko.x, po.x), ("x", opr.x, po.x)])
+        if not bool(opr.converged.all()):
+            fail(f"LM + diode {semantics} OP: a lane did not converge")
+        plan_op = tk.args[0][0]
+        per_lane = 8 * (plan_op.nd + op.dyn_width(plan_op)
+                        + 2 * (plan_op.np1 + plan_op.kj)) + 8
+        op_it = int(ko.iters_all.sum())
+        res[f"op_{semantics}"] = dict(
+            launches=got["op_kernel"], err=eo, k_ms=tk.ms(), p_ms=tp_.ms(),
+            flops=int(op_it * (phys_newton_flops(plan_op)
+                               if semantics == "physics"
+                               else newton_flops(plan_op))
+                      + lanes * (build_flops(plan_op,
+                                             plan_op.entries[:plan_op.n_lin])
+                                 + lu_flops(plan_op.np1))),
+            nbytes=len(tk.events) * (lanes * per_lane + plan_op.topo.nbytes))
+        phase("23 magnetic OP kernel vs plain", t0,
+              f"lm_diode ({semantics}): {lanes} lanes, OP launches "
+              f"{got['op_kernel']}, converged {int(opr.converged.sum())}, "
+              f"NR iterations {op_it}; equal counts, max abs err {eo:.3e}; "
+              f"kernel {res[f'op_{semantics}']['k_ms']:.3f} ms, plain "
+              f"{res[f'op_{semantics}']['p_ms']:.1f} ms")
+
+        # the DC sweep path of the primary's source
+        t0 = time.perf_counter()
+        pts = np.linspace(-2.0, 5.0, 15)
+        reset_counts()
+        xs, conv = ts.run_dc_batch(cc, (0,), params, axes, pts,
+                                   semantics=semantics)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"LM + diode {semantics} DC path", got,
+                     {"dc_sweep_kernel": (1, 1)})
+        if not bool(conv.all()) or not bool(torch.isfinite(xs).all()):
+            fail(f"LM + diode {semantics} DC: a point not converged")
+        tk = TimedSolve(dc.dc_lanes)
+        tp_ = TimedSolve(dc.dc_plain)
+        kd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics, solve=tk)(
+            params, state0, pts)
+        pd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics, solve=tp_)(
+            params, state0, pts)
+        for key in ("conv", "iters"):
+            if not torch.equal(getattr(kd, key), getattr(pd, key)):
+                fail(f"LM + diode {semantics} DC: {key} differs")
+        ed = max_err("lm_diode DC", [
+            ("xs", kd.xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1)),
+            ("xs", xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1))])
+        plan_dc, dev_, dyn_, vs_, _ = tk.args[0]
+        dc_it = int(kd.iters.sum())
+        per_it = (phys_newton_flops(plan_dc) if semantics == "physics"
+                  else newton_flops(plan_dc)) - (plan_dc.np1 - 1)
+        res[f"dc_{semantics}"] = dict(
+            launches=got["dc_sweep_kernel"], err=ed, k_ms=tk.ms(),
+            p_ms=tp_.ms(), flops=int(dc_it * per_it),
+            nbytes=nbytes(dev_, dyn_, vs_, kd.xs) + plan_dc.topo.nbytes
+            + lanes * len(pts) * 8)
+        phase("23 magnetic DC sweep kernel vs plain", t0,
+              f"lm_diode ({semantics}): {lanes} lanes x {len(pts)} points "
+              f"in one launch, all converged, Newton iterations {dc_it}; "
+              f"equal counts, max abs err {ed:.3e}; kernel "
+              f"{res[f'dc_{semantics}']['k_ms']:.3f} ms, plain "
+              f"{res[f'dc_{semantics}']['p_ms']:.1f} ms on {smi}")
+    return res
+
+
+def mag_ac_phase(lanes):
+    """Phase 24: AC of saturating_transformer.cir with its primary driven
+    by a unit AC source: the linear OP's bias (one stamped solve), then one
+    AC launch whose host-assembled systems carry each winding's -ωL and
+    the coupling's -ωM; then the AC kernel against its plain version."""
+    deck = deck_file("saturating_transformer.cir").replace("SIN(0 20 1k)",
+                                                           "AC 1 0")
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(
+        deck, lambda cc, b: perturbed(cc, np.random.default_rng(0), b,
+                                      ("R",)), lanes)
+    freqs = ts.frequency_points("DEC", 10.0, 1e5, 9)
+    ts.run_ac_batch(cc, params, axes, freqs)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("magnetic AC path", got, {"stamped_solve": (1, 1),
+                                           "ac_kernel": (1, 1)})
+    sec = int(cc.idx["LM"]["branch"][1])
+    if not bool(torch.isfinite(xr).all() & torch.isfinite(xi).all()) or \
+            float(xr[..., sec].abs().max()) <= 1e-4:
+        fail("magnetic AC: a value not finite or no secondary current")
+    tk = TimedSolve(ac.launch_ac_kernel)
+    tp_ = TimedSolve(ac.ac_plain)
+    kr, ki, _ = make_ac_batch(cc, axes, DEFAULTS, ac_solve=tk)(
+        params, state0, freqs)
+    pr, pi_, _ = make_ac_batch(cc, axes, DEFAULTS, ac_solve=tp_)(
+        params, state0, freqs)
+    err = max_err("magnetic AC", [
+        ("xr", kr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1)),
+        ("xi", ki.reshape(-1, cc.np1), pi_.reshape(-1, cc.np1)),
+        ("xr", xr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1))])
+    phase("24 magnetic AC", t0,
+          f"saturating_transformer (AC source): {lanes} lanes x "
+          f"{len(freqs)} frequencies, stamped-solve launches "
+          f"{got['stamped_solve']}, AC kernel launches {got['ac_kernel']}; "
+          f"kernel vs plain max abs err {err:.3e}; kernel {tk.ms():.3f} ms, "
+          f"plain {tp_.ms():.1f} ms")
+    return err
+
+
+def mag_main_phase(lanes, smi):
+    """Phase 25: the main path saturating_transformer_8192_physics_trap:
+    make_tran_batch(semantics='physics', SimOptions(integration='trap')),
+    store='none', non-UIC: one stamped-solve launch for the linear OP (the
+    windings' +1e-3 branch diagonal, no K), the bias-point seed of each
+    winding's current, one launch of the PHYS MAG run kernel; no lane
+    failed; then the linear OP's stamped solve and the run kernel on the
+    same inputs against their plain versions."""
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        deck_file("saturating_transformer.cir"),
+        lambda cc, b: perturbed(cc, np.random.default_rng(0), b, ("R",)),
+        lanes)
+    opts = ts.SimOptions(integration="trap")
+    fn = ts.make_tran_batch(cc, cfg, axes, semantics="physics", opts=opts)
+    if fn.engine != "run":
+        fail(f"physics magnetic main path engine {fn.engine!r}")
+    out = fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("physics magnetic main path", got,
+                 {"stamped_solve": (1, 1), "run_kernel": (1, 1)})
+    accepted = int(out.accepted.sum())
+    att = out.attempts
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"physics magnetic main path: {failed} of {lanes} lanes "
+             "failed or stopped early")
+    lm = out.state["LM"]
+    for leaf in lm.values():
+        if leaf.shape != (lanes, 2) or not bool(torch.isfinite(leaf).all()):
+            fail("physics magnetic main path: an LM leaf is not finite or "
+                 "has the wrong shape")
+    if not bool((lm["M"] != 0).all()):
+        fail("physics magnetic main path: a core never moved")
+    # the two windings share one core: their core copies stay equal
+    if not all(torch.equal(lm[key][:, 0], lm[key][:, 1])
+               for key in ("H", "M", "Mirr", "dMdH")):
+        fail("physics magnetic main path: the windings' cores differ")
+    tk = TimedSolve(solve_stamped.solve_lanes)
+    tp_ = TimedSolve(solve_stamped.solve_plain)
+    ok_ = make_op(cc, opts, "physics", solve=tk)(params, state0)
+    op_ = make_op(cc, opts, "physics", solve=tp_)(params, state0)
+    op_err = max_err("main path linear OP", [("x", ok_.x, op_.x)])
+    if not bool(ok_.converged.all()):
+        fail("physics magnetic main path: the linear OP did not converge")
+    plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0, opts,
+                                            "physics")
+    k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
+    err = compare_run("saturating_transformer_8192_physics_trap", k, p)
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.attempts, k.attempts)
+            and torch.equal(out.t_final, k.t)):
+        fail("physics magnetic main path differs from a kernel run on the "
+             "same inputs")
+    phase("25 physics magnetic main path", t0,
+          f"saturating_transformer_8192_physics_trap: engine={fn.engine}, "
+          f"stamped-solve launches={got['stamped_solve']}, run kernel "
+          f"launches={got['run_kernel']}, lanes={lanes}, accepted="
+          f"{accepted}, attempts={int(att.sum())} (per lane "
+          f"{int(att.min())}..{int(att.max())}), failed={failed}, every "
+          f"lane at tstop, wall={wall:.6f} s, {accepted / wall:.6e} "
+          f"accepted steps/s on {smi}; the linear OP's stamped solve vs "
+          f"plain max abs err {op_err:.3e} ({tk.ms():.3f} ms, plain "
+          f"{tp_.ms():.1f} ms); the run kernel on the same inputs against "
+          f"its plain version: counters equal, max abs err {err:.3e}; "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    return dict(launches=got["run_kernel"], err=err, k_ms=k_ms, p_ms=p_ms,
+                plan=plan, accepted=accepted, attempts=int(att.sum()),
+                flops=run_bound(plan, k, True),
+                nbytes=run_nbytes(plan, dev, src, st, None, lanes))
+
+
+def physics_store_phase(lanes, smi):
+    """Phase 26: the physics store at the main path's size:
+    make_tran_batch(semantics='physics', store='full') on the 8192 lanes
+    of phase 21 (the rectifier under trap): one launch of the OP kernel's
+    physics flavour, one launch of the PHYS store instantiation; then that
+    store kernel against the plain store on the same lanes, timed alone
+    into zeroed buffers and through its wrapper."""
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        deck_file("half_wave_rectifier.cir"), rc_spread, lanes)
+    opts = ts.SimOptions(integration="trap")
+    fn = ts.make_tran_batch(cc, cfg, axes, semantics="physics",
+                            store="full", opts=opts)
+    out = fn(params, state0)  # warm-up
+    del out
+    free()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("physics store path", got, {"op_kernel": (1, 1),
+                                             "run_kernel_store": (1, 1)})
+    if not torch.equal(out.out_n, out.accepted) or bool(
+            out.store_overflow.any()) or bool(out.fail.any()):
+        fail("physics store path: out_n is not the accepted count, a row "
+             "overflowed, or a lane failed")
+    rows = int(out.out_n.sum())
+    del out
+    free()
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0, opts,
+                                              "physics")
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    k, kw, e, k_ms, w_ms, p_ms = store_vs_plain(
+        "half_wave_rectifier_physics_full", plan, dev, src, st, sc, keep,
+        jv0)
+    flops = (int(k.attempts.sum()) * phys_step_flops(plan)
+             + int(k.nr_iters.sum()) * phys_newton_flops(plan))
+    nbytes_ = (run_nbytes(plan, dev, src, st, jv0, lanes)
+               + nbytes(kw.out_x, kw.out_t, kw.out_n, kw.overflow))
+    phase("26 physics store main path", t0,
+          f"half_wave_rectifier (physics/trap, store='full'): {lanes} "
+          f"lanes, OP kernel launches {got['op_kernel']}, store launches "
+          f"{got['run_kernel_store']}, stored rows {rows}, wall={wall:.6f} "
+          f"s, {rows / wall:.6e} stored rows/s on {smi}; the store kernel "
+          f"against the plain store on the same lanes: counters and out_n "
+          f"equal, max abs err {e:.3e}; kernel {k_ms:.3f} ms (the launch "
+          f"into zeroed buffers), {w_ms:.3f} ms (the wrapper), plain "
+          f"{p_ms:.1f} ms")
+    del kw
+    free()
+    return dict(launches=got["run_kernel_store"], err=e, k_ms=k_ms,
+                w_ms=w_ms, p_ms=p_ms, flops=int(flops), nbytes=nbytes_)
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1804,6 +2323,11 @@ def main():
     phys_op = physics_op_phase(BENCH_LANES)
     phys_dc = physics_dc_phase(BENCH_LANES)
     phys = physics_main_phase(BENCH_LANES, smi)
+    mag_run_err, mag_store = mag_run_phase(SMALL_LANES, smi)
+    mag_nl = mag_newton_phase(SMALL_LANES, smi)
+    mag_ac_err = mag_ac_phase(BENCH_LANES)
+    mag = mag_main_phase(BENCH_LANES, smi)
+    phys_store = physics_store_phase(BENCH_LANES, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -1895,6 +2419,39 @@ def main():
           f"{ac_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
           f"{ac_bound[3]:.6f} ms", flush=True)
 
+    mag_bound = bound(mag["flops"], mag["nbytes"])
+    mp_ = mag["plan"]
+    print(f"[17 bound] run_kernel physics magnetic (saturating_transformer, "
+          f"trap): {mag['attempts']} attempts x "
+          f"{phys_mag_attempt_flops(mp_)} + {mag['accepted']} J-A commits x "
+          f"{ja_commit_flops(mp_)} = {mag['flops']} f64 operations / "
+          f"{PEAK_F64:.3g} op/s = {mag_bound[2]:.6f} ms; {mag['nbytes']} "
+          f"bytes / {PEAK_BYTES:.3g} B/s = {mag_bound[3]:.6f} ms",
+          flush=True)
+    mag_bounds = {}
+    for key, what, label in (
+            ("phys_store", phys_store, "run_kernel physics store "
+             "(half_wave_rectifier, trap, store='full', the inputs, state, "
+             "counters and the whole zeroed output)"),
+            ("store", mag_store, "run_kernel physics magnetic store "
+             "(saturating_transformer, trap, 256 lanes)"),
+            ("run_compat", mag_nl["run_compat"], "run_kernel magnetic "
+             "Newton (lm_diode, compat, 256 lanes)"),
+            ("run_physics", mag_nl["run_physics"], "run_kernel physics "
+             "magnetic Newton (lm_diode, trap, 256 lanes)"),
+            ("op_compat", mag_nl["op_compat"], "op_kernel magnetic "
+             "(lm_diode, 256 lanes)"),
+            ("op_physics", mag_nl["op_physics"], "op_kernel magnetic "
+             "physics (lm_diode, 256 lanes)"),
+            ("dc_compat", mag_nl["dc_compat"], "dc_sweep_kernel magnetic "
+             "(lm_diode, 256 lanes x 15 points)"),
+            ("dc_physics", mag_nl["dc_physics"], "dc_sweep_kernel magnetic "
+             "physics (lm_diode, 256 lanes x 15 points)")):
+        mag_bounds[key] = bd = bound(what["flops"], what["nbytes"])
+        print(f"[17 bound] {label}: {what['flops']} f64 operations / "
+              f"{PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; {what['nbytes']} "
+              f"bytes / {PEAK_BYTES:.3g} B/s = {bd[3]:.6f} ms", flush=True)
+
     def entry(name, source, replaces, launches, err, k_ms, p_ms, bd,
               lib_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -1903,6 +2460,7 @@ def main():
                 "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib_ms}
 
     run_src = "toyspice_tpu_torch/csrc/run_kernel.cu"
+    mag_src = "toyspice_tpu_torch/csrc/run_kernel_mag.cu"
     line = {"kernels": [
         entry("run_kernel", run_src, "toyspice_tpu/ops/pallas_run.py:652",
               lin_launches, max(lin_err, mag_err), bench["k_ms"],
@@ -1938,9 +2496,41 @@ def main():
               phys_dc["err"], phys_dc["k_ms"], phys_dc["p_ms"], pdc_bound),
         entry("ac_kernel", "toyspice_tpu_torch/csrc/ac_kernel.cu",
               "toyspice_tpu/ops/pallas_ac.py:102", ac_main["launches"],
-              ac_main["err"], ac_main["k_ms"], ac_main["p_ms"], ac_bound,
-              ac_main["lib_ms"]),
-    ]}
+              max(ac_main["err"], mag_ac_err), ac_main["k_ms"],
+              ac_main["p_ms"], ac_bound, ac_main["lib_ms"]),
+        entry("run_kernel_physics_magnetic", mag_src,
+              "toyspice_tpu/ops/pallas_run.py:652", mag["launches"],
+              max(mag["err"], mag_run_err), mag["k_ms"], mag["p_ms"],
+              mag_bound),
+        entry("run_kernel_physics_store",
+              "toyspice_tpu_torch/csrc/run_kernel_phys.cu",
+              "toyspice_tpu/ops/pallas_tran.py:1429", phys_store["launches"],
+              phys_store["err"], phys_store["k_ms"], phys_store["p_ms"],
+              mag_bounds["phys_store"]),
+        entry("run_kernel_physics_magnetic_store", mag_src,
+              "toyspice_tpu/ops/pallas_tran.py:1429", mag_store["launches"],
+              mag_store["err"], mag_store["k_ms"], mag_store["p_ms"],
+              mag_bounds["store"]),
+    ] + [entry(name, src_, repl, mag_nl[key]["launches"],
+               mag_nl[key]["err"], mag_nl[key]["k_ms"], mag_nl[key]["p_ms"],
+               mag_bounds[key])
+         for name, key, src_, repl in (
+             ("run_kernel_magnetic_newton", "run_compat", mag_src,
+              "toyspice_tpu/ops/pallas_run.py:652"),
+             ("run_kernel_physics_magnetic_newton", "run_physics", mag_src,
+              "toyspice_tpu/ops/pallas_run.py:652"),
+             ("op_kernel_magnetic", "op_compat",
+              "toyspice_tpu_torch/csrc/op_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:230"),
+             ("op_kernel_magnetic_physics", "op_physics",
+              "toyspice_tpu_torch/csrc/op_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:230"),
+             ("dc_sweep_kernel_magnetic", "dc_compat",
+              "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:431"),
+             ("dc_sweep_kernel_magnetic_physics", "dc_physics",
+              "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:431"))]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

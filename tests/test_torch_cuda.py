@@ -1,6 +1,7 @@
 """The CUDA kernels (the whole-run transient with and without the waveform
-store, the OP, the stamped solve, the DC sweep and the AC solve) against
-their plain torch versions on the card.
+store, compat and physics, magnetic decks included, the OP, the stamped
+solve, the DC sweep and the AC solve) against their plain torch versions
+on the card.
 
 Needs a CUDA card and nvcc; skips elsewhere.  On the card, without JAX:
 
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import toyspice_tpu_torch as ts
+from toyspice_tpu_torch.engine.ac import make_ac_batch
 from toyspice_tpu_torch.engine.options import DEFAULTS
 from toyspice_tpu_torch.engine.op import make_op
 from toyspice_tpu_torch.models import magnetic
@@ -725,3 +727,117 @@ def test_physics_main_path_launches_both_kernels(cuda):
     assert run.launch_run_kernel.launches == r0 + 1
     assert op.launch_op_kernel.launches == o0 + 1
     assert not out.fail.any() and bool((out.t_final == cfg.tstop).all())
+
+
+# tests/test_fused_tran.py's small J-A transformer, and with a rectifier
+# on its secondary: LM and K with a diode
+TRANS_SMALL = """* small 2-winding J-A transformer
+Vin 1 0 sin(0 10 1k)
+Rp 1 2 0.5
+Lp 2 0 core=C1 turns=300
+Ls 3 0 core=C1 turns=150
+Rload 3 0 1000
+.model C1 core(ms=1.6e6 alpha=1e-3 a=1000 c=0.1 k=2000 area=1e-4 len=0.1)
+K1 Lp Ls 0.95
+.tran 20u 1m
+"""
+LM_DIODE = TRANS_SMALL.replace(
+    "Rload 3 0 1000", "D1 3 4 DMOD\nRload 4 0 1k\nCload 4 0 10u\n"
+    ".model DMOD D(IS=1e-14)")
+
+
+@pytest.mark.parametrize("deck,semantics,trap,max_attempts", [
+    (SATURATING, "physics", False, None), (SATURATING, "physics", True, None),
+    (COUPLED, "physics", True, 1500), (TRANS_SMALL, "physics", False, None),
+    (MIXED, "physics", True, None), (LM_DIODE, "compat", False, None),
+    (LM_DIODE, "physics", True, None)],
+    ids=["saturating_be", "saturating_trap", "coupled_trap",
+         "trans_small_be", "mixed_trap", "lm_diode_compat",
+         "lm_diode_trap"])
+def test_magnetic_kernels_match_plain(cuda, deck, semantics, trap,
+                                      max_attempts):
+    """The PHYS MAG instantiations (the live J-A commit, the physics
+    mutual) and the compat MAG Newton one, with and without the store,
+    against their plain versions (64 lanes, from the OP's bias point)."""
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 64), device=cuda)
+    r = run.run_inputs(cc, cfg, params, ts.init_state(cc, device=cuda),
+                       ts.SimOptions(integration="trap" if trap else "be"),
+                       semantics)
+    sc = r.sc if max_attempts is None else r.sc._replace(
+        max_attempts=max_attempts)
+    before = run.launch_run_kernel.launches
+    k = run.launch_run_kernel(r.plan, r.dev, r.src, r.st, sc, r.jv)
+    torch.cuda.synchronize()
+    assert run.launch_run_kernel.launches == before + 1
+    _assert_same(k, run.run_plain(r.plan, r.dev, r.src, r.st, sc, r.jv))
+    assert not k.fail.any()
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    ks, kw = run.launch_store_kernel(r.plan, r.dev, r.src, r.st, sc, keep,
+                                     r.jv)
+    p, pw = run.store_plain(r.plan, r.dev, r.src, r.st, sc, keep, r.jv)
+    _assert_same(ks, p)
+    _assert_store_same(kw, pw)
+    for a, b in zip(ks, k):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("semantics", ["compat", "physics"])
+def test_magnetic_op_and_dc_kernels_match_plain(cuda, semantics):
+    """The OP and DC sweep kernels on a magnetic deck (each winding's +1e-3
+    branch diagonal) against their plain versions on LM_DIODE."""
+    cc = ts.compile_circuit(ts.parse(LM_DIODE))
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 32), device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    before = op.launch_op_kernel.launches
+    k = op.make_op_fused(cc, DEFAULTS, semantics, solve=op.op_lanes)(
+        params, state0)
+    assert op.launch_op_kernel.launches > before
+    p = op.make_op_fused(cc, DEFAULTS, semantics, solve=op.op_plain)(
+        params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+    _assert_close(k.x, p.x)
+    assert bool(k.converged.all())
+    pts = np.linspace(-2.0, 5.0, 15)
+    before = dc.launch_dc_kernel.launches
+    kd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics)(params, state0,
+                                                         pts)
+    torch.cuda.synchronize()
+    assert dc.launch_dc_kernel.launches == before + 1
+    pd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics,
+                          solve=dc.dc_plain)(params, state0, pts)
+    assert torch.equal(kd.conv, pd.conv) and torch.equal(kd.iters, pd.iters)
+    _assert_close(kd.xs, pd.xs)
+    assert bool(kd.conv.all())
+
+
+def test_magnetic_main_path_launches_its_kernels(cuda):
+    """make_tran_batch under physics/trap on saturating_transformer.cir:
+    one stamped solve (the linear OP with the LM branch diagonal), one
+    launch of the PHYS MAG run kernel; and its AC with an AC source: one
+    stamped solve, one AC launch."""
+    cc = ts.compile_circuit(ts.parse(SATURATING))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 64), device=cuda)
+    fn = ts.make_tran_batch(cc, cfg, None, semantics="physics",
+                            opts=ts.SimOptions(integration="trap"))
+    r0 = run.launch_run_kernel.launches
+    s0 = solve_stamped.launch_stamped.launches
+    out = fn(params, ts.init_state(cc, device=cuda))
+    torch.cuda.synchronize()
+    assert run.launch_run_kernel.launches == r0 + 1
+    assert solve_stamped.launch_stamped.launches == s0 + 1
+    assert not out.fail.any() and bool((out.t_final == cfg.tstop).all())
+    acc = ts.compile_circuit(ts.parse(SATURATING.replace("SIN(0 20 1k)",
+                                                         "AC 1 0")))
+    a0 = ac.launch_ac_kernel.launches
+    xr, xi, _ = ts.run_ac_batch(acc, params, None, [10.0, 1e3, 1e5])
+    kr, ki, _ = make_ac_batch(acc, None, DEFAULTS, ac_solve=ac.ac_plain)(
+        params, ts.init_state(acc, device=cuda), [10.0, 1e3, 1e5])
+    assert ac.launch_ac_kernel.launches == a0 + 1
+    _assert_close(xr, kr)
+    _assert_close(xi, ki)

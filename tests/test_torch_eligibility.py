@@ -1,8 +1,9 @@
 """What the port's transient and OP do not cover raise NotImplementedError
-with the reason; there is no other engine to fall back on yet.  Physics
-semantics runs every deck of R, C, L, V, I, D, Q and M; physics with
-magnetic inductors or mutual couplings (the live Jiles-Atherton core) and
-trapezoidal integration under compat stay refused."""
+with the reason; there is no other engine to fall back on yet.  Compat and
+physics semantics run every deck of R, C, L, LM, K, V, I, D, Q and M
+within the kernels' caps, magnetic decks with diodes included, and their
+OP, DC sweep and AC; trapezoidal integration under compat stays
+refused."""
 
 import os
 import re
@@ -79,21 +80,15 @@ Rl out 0 150
 @pytest.mark.parametrize("text,kw,reason", [
     (_diodes(17), {}, "17 diodes, BJTs and MOSFETs exceed the kernel's cap "
      "of 16"),
-    (_deck("coupled_inductors.cir"), {"semantics": "physics"},
-     "mutual couplings under physics semantics"),
-    (_deck("saturating_transformer.cir"), {"semantics": "physics"},
-     "live Jiles-Atherton core"),
     (RLC, {"store": "bogus"}, "store='bogus'"),
-    (K_DIODE, {"semantics": "physics",
-               "opts": SimOptions(integration="trap")},
-     "mutual couplings under physics semantics"),
     (RLC, {"opts": SimOptions(integration="trap")},
+     "integration='trap' requires semantics='physics'"),
+    (K_DIODE, {"opts": SimOptions(integration="trap")},
      "integration='trap' requires semantics='physics'"),
     (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32"),
     (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32"),
-    (K_DIODE, {}, "mutual couplings with diodes"),
-], ids=["diode", "mosfet", "magnetic_physics", "store_bogus", "physics",
-        "trap", "source_cap", "np1_cap", "mutual_with_diode"])
+], ids=["diode", "store_bogus", "trap", "trap_mutual_with_diode",
+        "source_cap", "np1_cap"])
 def test_ineligible_raises_with_reason(text, kw, reason):
     with pytest.raises(NotImplementedError, match="no transient engine") as e:
         _build(text, **kw)
@@ -114,20 +109,36 @@ def test_make_tran_run_refuses_ineligible():
     cc = ts.compile_circuit(ts.parse(_deck("saturating_transformer.cir")))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
-    with pytest.raises(NotImplementedError,
-                       match="live Jiles-Atherton core"):
-        run.make_tran_run(cc, cfg, semantics="physics")
     with pytest.raises(NotImplementedError, match="integration='trap'"):
         run.make_tran_run(cc, cfg, SimOptions(integration="trap"))
+    with pytest.raises(NotImplementedError, match="store='bogus'"):
+        run.make_tran_run(cc, cfg, semantics="physics", store="bogus")
+
+
+@pytest.mark.parametrize("text,kw", [
+    (_deck("coupled_inductors.cir"), {"semantics": "physics"}),
+    (_deck("saturating_transformer.cir"), {"semantics": "physics"}),
+    (K_DIODE, {"semantics": "physics",
+               "opts": SimOptions(integration="trap")}),
+    (K_DIODE, {}),
+], ids=["mutual_physics", "magnetic_physics", "mutual_with_diode_physics",
+        "mutual_with_diode"])
+def test_magnetic_decks_select_the_run_engine(text, kw):
+    """Physics with LM or K (the live Jiles-Atherton core, the physics
+    mutual) and LM or K with a diode run through the run kernel; a
+    nonlinear or physics deck takes its OP first."""
+    fn = _build(text, **kw)
+    assert fn.engine == "run"
+    assert fn.op is not None
 
 
 @pytest.mark.parametrize("integration", ["be", "trap"])
 def test_physics_decks_select_the_run_and_store_engines(integration):
-    """Every non-magnetic deck runs under physics through the PHYS run
-    kernel (store='none') or its store instantiation (store='full' and
-    resume)."""
+    """Every deck runs under physics through the PHYS run kernel
+    (store='none') or its store instantiation (store='full' and resume),
+    the magnetic ones included."""
     opts = SimOptions(integration=integration)
-    for name in TRAN_DECKS[:-2]:
+    for name in TRAN_DECKS:
         fn = _build(_deck(name), semantics="physics", opts=opts)
         assert fn.engine == "run", name
         assert f"physics/{integration}" in fn.engine_reason
@@ -202,7 +213,7 @@ def test_nonlinear_device_cap_boundary():
      {"opts": SimOptions(integration="trap")},
      "integration='trap' requires semantics='physics'"),
     (_deck("saturating_transformer.cir"), {"semantics": "physics"},
-     "device kinds"),
+     "linear circuit"),
     (_diodes(17), {}, "cap of 16"),
 ], ids=["linear", "physics", "magnetic", "device_cap"])
 def test_op_ineligible_reasons(text, kw, reason):
@@ -244,13 +255,11 @@ def _ac(text):
 
 
 @pytest.mark.parametrize("text,kw,reason", [
-    (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
-    (_deck("saturating_transformer.cir"), {}, "device kinds ['K', 'LM']"),
     (_deck("ce_amplifier_ac.cir"), {"opts": SimOptions(integration="trap")},
      "integration='trap' requires semantics='physics'"),
     (_ac(_ladder(30)), {}, "np1=33 exceeds the AC kernel's matrix cap of 32"),
     (_ac(_diodes(17)), {}, "cap of 16"),
-], ids=["mutual", "magnetic", "physics", "np1_cap", "device_cap"])
+], ids=["physics", "np1_cap", "device_cap"])
 def test_ac_ineligible_raises_with_reason(text, kw, reason):
     from toyspice_tpu_torch.engine.ac import make_ac_batch
     from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
@@ -273,8 +282,6 @@ def test_ac_np1_cap_boundary():
 
 
 @pytest.mark.parametrize("text,kw,reason", [
-    (_deck("coupled_inductors.cir"), {}, "device kinds ['K']"),
-    (_deck("saturating_transformer.cir"), {}, "device kinds"),
     (_deck("diode_iv_sweep.cir"), {"opts": SimOptions(integration="trap")},
      "integration='trap' requires semantics='physics'"),
     (_deck("divider_op.cir"), {"opts": SimOptions(integration="trap")},
@@ -282,8 +289,7 @@ def test_ac_np1_cap_boundary():
     (_diodes(17), {}, "cap of 16"),
     (_ladder(30), {}, "np1=33 exceeds the stamped-solve kernel's matrix "
      "cap of 32"),
-], ids=["mutual", "magnetic", "physics", "physics_linear", "device_cap",
-        "np1_cap"])
+], ids=["physics", "physics_linear", "device_cap", "np1_cap"])
 def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
     cc = ts.compile_circuit(ts.parse(text))
     params = ts.batch_params(cc, {}, device="cpu")[0]
@@ -327,3 +333,23 @@ def test_physics_selects_the_same_op_engines():
         cc = ts.compile_circuit(ts.parse(_deck(name)))
         assert select_op_engine(cc, "physics")[0] == engine, name
         assert ac_ineligible_reason(cc, "physics") is None, name
+
+
+@pytest.mark.parametrize("name,engine", [
+    ("coupled_inductors.cir", "linear"),
+    ("saturating_transformer.cir", "linear")])
+@pytest.mark.parametrize("semantics", ["compat", "physics"])
+def test_magnetic_decks_select_the_op_and_ac_engines(name, engine,
+                                                     semantics):
+    """A magnetic deck's OP and DC sweep stamp each winding's +1e-3 branch
+    diagonal and no mutual (the stamped solve on a linear deck); its AC
+    stamps -ωL and -ωM on the branch rows."""
+    from toyspice_tpu_torch.engine.batch import select_op_engine
+    from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
+
+    cc = ts.compile_circuit(ts.parse(_deck(name)))
+    assert select_op_engine(cc, semantics)[0] == engine
+    assert ac_ineligible_reason(cc, semantics) is None
+    cc = ts.compile_circuit(ts.parse(K_DIODE))
+    assert select_op_engine(cc, semantics)[0] == "fused"
+    assert op.op_fused_ineligible_reason(cc, semantics) is None

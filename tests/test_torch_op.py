@@ -174,6 +174,10 @@ def test_engine_selection_and_reasons():
     lin = ts.compile_circuit(ts.parse(_deck("divider_op.cir")))
     assert select_op_engine(lin)[0] == "linear"
     assert "linear circuit" in op.op_fused_ineligible_reason(lin)
+    # a magnetic deck's OP stamps each winding's +1e-3 branch diagonal
+    # (tests/test_torch_physics_magnetic_op.py)
+    mag = ts.compile_circuit(ts.parse(_deck("saturating_transformer.cir")))
+    assert select_op_engine(mag)[0] == "linear"
     # physics is served (tests/test_torch_physics_op.py); trap under
     # compat is refused, as the JAX package refuses it
     for text, kw, reason in (
@@ -183,7 +187,9 @@ def test_engine_selection_and_reasons():
             (_deck("ce_amplifier_op.cir"),
              {"opts": SimOptions(integration="trap")},
              "integration='trap'"),
-            (_deck("saturating_transformer.cir"), {}, "device kinds")):
+            (_deck("saturating_transformer.cir"),
+             {"opts": SimOptions(integration="trap")},
+             "integration='trap'")):
         cc = ts.compile_circuit(ts.parse(text))
         with pytest.raises(NotImplementedError, match="no OP engine") as e:
             select_op_engine(cc, **kw)

@@ -13,7 +13,9 @@
 //   the DC-flavour Newton of newton.cuh: iteration 0 stamps the carried
 //   junction voltages, later ones UpdateVoltages + pnjlim of the last
 //   solution; OP stamps with status gmin 0 (a capacitor leaks the gmin
-//   floor, an inductor stamps its dt = 1e-9 companion, no gmin diagonal);
+//   floor, an inductor stamps its dt = 1e-9 companion, no gmin diagonal,
+//   an LM its +1e-3 branch diagonal, pallas_op.py:285-298, and a K
+//   nothing);
 //   convergence from iteration 1 on by CheckConvergence, every |new - old|
 //   <= abstol or <= reltol*|new|, and the solution finite (dc.go:142-187);
 //   the point's voltage-source values are row p of the lane's table
@@ -90,6 +92,9 @@ dc_sweep_kernel(const int* __restrict__ topo_g, int topo_len,
         case TAG_LRHS: return lrhs[k];
         case TAG_VSRC: return vsrc[k];
         case TAG_ISRC: return isrc[k];
+        // an LM's +1e-3 branch diagonal against the plan's sign -1
+        // (magnetic.go:216-217); the OP plan has no K and no LM RHS
+        case TAG_LMTERM: return -1e-3;
         default: return 1.0;  // TAG_ONE (the OP plan has no TAG_CEQ)
       }
     };

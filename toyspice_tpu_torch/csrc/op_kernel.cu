@@ -19,8 +19,10 @@
 //
 // OP stamps (ops/assemble.py mode "op"): a capacitor leaks max(status gmin,
 // gmin floor), an inductor stamps its dt = 1e-9 companion, sources take
-// their t = 0 values.  The lane's dyn row is [status_gmin, use_seed, act,
-// vsrc(nV), isrc(nI), lrhs(nL)], as ops/op.py builds it.  An inactive lane
+// their t = 0 values, each magnetic inductor (LM) stamps its +1e-3 branch
+// diagonal (pallas_op.py:130-138), a mutual coupling nothing.  The lane's
+// dyn row is [status_gmin, use_seed, act, vsrc(nV), isrc(nI), lrhs(nL)],
+// as ops/op.py builds it.  An inactive lane
 // returns x0 (or the estimate), jv0, 0 iterations and not converged.
 // ops/op.py::op_plain is the same arithmetic as torch operations, and the
 // build uses -fmad=false.
@@ -86,6 +88,9 @@ op_kernel(const int* __restrict__ topo_g, int topo_len,
         case TAG_LRHS: return lrhs[k];
         case TAG_VSRC: return vsrc[k];
         case TAG_ISRC: return isrc[k];
+        // an LM's +1e-3 branch diagonal against the plan's sign -1
+        // (magnetic.go:216-217); the OP plan has no K and no LM RHS
+        case TAG_LMTERM: return -1e-3;
         default: return 1.0;  // TAG_ONE (the OP plan has no TAG_CEQ)
       }
     };

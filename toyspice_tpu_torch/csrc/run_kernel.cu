@@ -30,9 +30,12 @@ constexpr bool STORE_BUILD = true;
 constexpr bool STORE_BUILD = false;
 #endif
 
+// compat without trap; LM or K with a Newton is run_kernel_mag.cu's
 template <bool STORE>
 int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
-               void* stream) {
+               int physics, void* stream) {
+  if (physics || a.trap || (nonlinear && mag))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (np1 <= 8) return launch_kind<8, STORE>(a, nonlinear, mag, s);
@@ -46,21 +49,25 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 #ifndef TSR_STORE
 // Launch the whole-run kernel for nlanes lanes on `stream` from t = 0;
 // returns the cudaError_t of the launch (0 on success).  np1 picks the
-// matrix size, nonlinear the Newton instantiation and mag the magnetic
-// stamps.  state and jv are updated in place; t, dt and att are written.
-extern "C" int tsr_run(int np1, int nonlinear, int mag, const int* topo,
-                       int topo_len, const double* dev, const double* rc,
-                       double* state, double* jv, double* t, double* dt,
-                       int* acc, int* att, int* fail, int* nri, int nlanes,
-                       double tstop, double minstep, double tmax,
-                       double trtol, int max_attempts, double reltol,
-                       double abstol, int max_iter, void* stream) {
+// matrix size, nonlinear the Newton instantiation, mag the magnetic
+// stamps, physics the physics semantics and trap != 0 its trapezoidal
+// companions (every run-kernel library has this entry point; this one
+// holds compat, and refuses physics, trap and LM/K with a Newton).  state
+// and jv are updated in place; t, dt and att are written.
+extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
+                       int trap, const int* topo, int topo_len,
+                       const double* dev, const double* rc, double* state,
+                       double* jv, double* t, double* dt, int* acc, int* att,
+                       int* fail, int* nri, int nlanes, double tstop,
+                       double minstep, double tmax, double trtol,
+                       int max_attempts, double reltol, double abstol,
+                       int max_iter, void* stream) {
   const RunArgs a{topo,    topo_len, dev,     rc,      state,   jv,
                   t,       dt,       acc,     att,     fail,    nri,
                   nlanes,  tstop,    minstep, tmax,    trtol,   max_attempts,
                   reltol,  abstol,   max_iter, 0.0,    0,       0,
-                  nullptr, nullptr,  nullptr, nullptr, 0};
-  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, stream);
+                  nullptr, nullptr,  nullptr, nullptr, trap};
+  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics, stream);
 }
 #else
 
@@ -69,7 +76,8 @@ extern "C" int tsr_run(int np1, int nonlinear, int mag, const int* topo,
 // caller; out_n and overflow (nlanes) are written.  stream != 0 pauses a
 // lane whose block is full.
 extern "C" int tsr_run_store(
-    int np1, int nonlinear, int mag, const int* topo, int topo_len,
+    int np1, int nonlinear, int mag, int physics, int trap, const int* topo,
+    int topo_len,
     const double* dev, const double* rc, double* state, double* jv,
     double* t, double* dt, int* acc, int* att, int* fail, int* nri,
     int nlanes, double tstop, double minstep, double tmax, double trtol,
@@ -80,8 +88,9 @@ extern "C" int tsr_run_store(
                   t,       dt,       acc,     att,     fail,   nri,
                   nlanes,  tstop,    minstep, tmax,    trtol,  max_attempts,
                   reltol,  abstol,   max_iter, tstart, max_store, stream,
-                  out_x,   out_t,    out_n,   overflow, 0};
-  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, cuda_stream);
+                  out_x,   out_t,    out_n,   overflow, trap};
+  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics,
+                                 cuda_stream);
 }
 #endif
 

@@ -1,4 +1,5 @@
-// The whole-run kernel of csrc/run_kernel.cu and csrc/run_kernel_phys.cu.
+// The whole-run kernel of csrc/run_kernel.cu, csrc/run_kernel_phys.cu and
+// csrc/run_kernel_mag.cu.
 //
 // Whole-run adaptive transient (R, C, L, V, I with DC/SIN/PULSE/PWL
 // sources, and under compat semantics magnetic inductors and mutual
@@ -29,11 +30,11 @@
 //
 // The PHYS instantiations replace the physics subset of both TPU kernels
 // (modes phys_be and phys_trap of _attempt_core, pallas_tran.py:1140-1427,
-// and _run_core's trap source time, pallas_run.py:377-381) for decks
-// without LM or K: the state stack carries the physics rows after the
-// compat ones (ops/run_plan.py PHYS_ROWS: C i0 and hist, L hist, the
-// diode's prev_vd prev_id prev_charge ic0 hist, the MOSFET's five charges,
-// five companion currents and hist).  The capacitor stamps C_t/dt with
+// and _run_core's trap source time, pallas_run.py:377-381): the state
+// stack carries the physics rows after the compat ones (ops/run_plan.py
+// PHYS_ROWS: C i0 and hist, L hist, the diode's prev_vd prev_id
+// prev_charge ic0 hist, the MOSFET's five charges, five companion
+// currents and hist).  The capacitor stamps C_t/dt with
 // the previous step's charge q0 (BE) or, with trap after its first
 // committed step, 2C_t/dt with Ieq = geq v0 + i0; the inductor's branch
 // row -L/dt (BE) or -2L/dt with RHS (2L/dt) i1 + v0; the diode (Bv, Rs)
@@ -43,7 +44,15 @@
 // raw C, trap with C_t), the inductor current i0 = i1 = -x_b, and the
 // diode and MOSFET charges and companion currents re-evaluated at the raw
 // solution (no limiting, no cold start); every hist becomes 1.  Trap is a
-// run-time argument, uniform across the lanes.
+// run-time argument, uniform across the lanes.  With MAG (physics
+// magnetics, pallas_run.py:390-583) the state stack also carries each LM
+// winding's ten live rows (i0 i1 v0 v1 flux0 and its copy of the J-A core,
+// H Hold M Mirr dMdH) after the MOSFETs', and the dev rows its J-A
+// leaves (MagPhys): each attempt stamps the incremental L = max(1e-12,
+// L0 (1 + clip(dMdH, +-1e3))) of the committed core (backward Euler
+// under trap too) and M = k sqrt(La Lb) of the live inductances; an
+// accepted step sums each core's mmf over its windings, clips H = mmf/len
+// to +-1e6 and runs one J-A step (ja_step) of every winding's core copy.
 //
 // The STORE instantiation also replaces pallas_tran.py::_fused_kernel
 // (:1429, launched at :2252) with the waveform store of make_tran_fused
@@ -77,7 +86,8 @@
 // MAG (the LM and K stamps), STORE and PHYS are template parameters too:
 // the instantiations without them compile to the code they had before.
 // run_kernel.cu instantiates the compat kernels, run_kernel_phys.cu the
-// PHYS ones: two sources, so that their nvcc calls run side by side.
+// PHYS ones without MAG, run_kernel_mag.cu the PHYS MAG ones and compat
+// MAG with NL: three sources, so that their nvcc calls run side by side.
 //
 // Bound: operations.  An attempt on bench.py's RLC deck (np1 = 6) needs 299
 // f64 operations (chip_smoke.py attempt_flops: 231 for the 6 x 7
@@ -189,6 +199,119 @@ struct Mag {
   }
 };
 
+// a physics LM's run constants and live state rows (ops/run_plan.py
+// LM_PHYS_ROWS and LM_STATE; row r of winding k at r * nlm + k)
+enum LmRow { LM_L0 = 0, LM_MST, LM_A, LM_K, LM_C, LM_ALPHA, LM_TURNS, LM_LEN,
+             LM_ROWS };
+enum LmState { LS_I0 = 0, LS_I1, LS_V0, LS_V1, LS_FLUX0, LS_H, LS_HOLD, LS_M,
+               LS_MIRR, LS_DMDH, LS_ROWS };
+
+// One Jiles-Atherton step of a winding's core copy to field h, with Ms at
+// the commit's temperature given as mst (models/magnetic.py ja_step,
+// magnetic.go:88-132): every guard of the reference (|dH| < 1e-12 keeps
+// the core, the linear anhysteretic at |He| < 1e-6, the denominator
+// clamped at +-1e-12) and the JAX package's Bernoulli series of the
+// Langevin function below |x| = 0.25.  c points at the winding's H row;
+// the other core rows follow at the stride nlm.
+__device__ __forceinline__ void ja_step(double mst, double a, double kk,
+                                        double cc, double alpha, double h,
+                                        double* c, int nlm) {
+  double& H = c[0];
+  double& Hold = c[(LS_HOLD - LS_H) * nlm];
+  double& M = c[(LS_M - LS_H) * nlm];
+  double& Mirr = c[(LS_MIRR - LS_H) * nlm];
+  double& dMdH = c[(LS_DMDH - LS_H) * nlm];
+  const double dH = h - Hold;
+  const bool small = fabs(dH) < 1e-12;
+  const double delta = dH < 0 ? -1.0 : 1.0;
+  const double he = h + alpha * M;
+  const double he_safe = fabs(he) < 1e-6 ? 1.0 : he;
+  const double man_lin = mst * he / (3.0 * a);
+  const double x = he_safe / a;
+  const double x2 = x * x;
+  const double series =
+      x * (1.0 / 3.0 +
+           x2 * (-1.0 / 45.0 +
+                 x2 * (2.0 / 945.0 +
+                       x2 * (-1.0 / 4725.0 +
+                             x2 * (2.0 / 93555.0 +
+                                   x2 * (-1382.0 / 638512875.0))))));
+  const double x_safe = fabs(x) < 1e-30 ? 1.0 : x;
+  const double direct = 1.0 / tanh(x_safe) - 1.0 / x_safe;
+  const double langevin = fabs(x) < 0.25 ? series : direct;
+  const double man = fabs(he) < 1e-6 ? man_lin : mst * langevin;
+  double denom = kk * delta - alpha * (man - Mirr);
+  if (fabs(denom) < 1e-12) denom = 1e-12 * sgn(denom + 1e-300);
+  const double d_mirr_dh = (man - Mirr) / denom;
+  const double mirr_new = Mirr + d_mirr_dh * dH;
+  const double m_new = mirr_new + cc * (man - mirr_new);
+  const double dmdh_new = (m_new - M) / (small ? 1.0 : dH);
+  if (!small) {
+    H = h;
+    Hold = h;
+    M = m_new;
+    Mirr = mirr_new;
+    dMdH = dmdh_new;
+  }
+}
+
+// The physics magnetic stamps of one lane (assemble.py's physics LM and K
+// blocks): each LM's incremental L = max(1e-12, L0 (1 + clip(dMdH,
+// +-1e3))) from its committed core, backward Euler under trap too; each
+// K's M = k sqrt(La Lb) from the live inductances with the +M/dt memory
+// of the partner's committed current, trap's 2M/dt on a both-linear pair
+// once both windings have history.  The plan's K RHS entries carry
+// compat's sign -1, so those values carry the minus.
+struct MagPhys {
+  const double* lm;      // [LM_ROWS][nlm] run constants
+  const double* kc;      // [nk] coefficients
+  double* ls;            // [LS_ROWS][nlm] the live state rows
+  const double* lval;    // [nl] the linear inductors
+  const double* l_i1;    // [nl] their committed current
+  const double* l_hist;  // [nl] their first-step flags
+  const int* kp;         // [nk][4] kind_a, idx_a, kind_b, idx_b
+  int nlm;
+  bool trap;
+
+  __device__ __forceinline__ double l_used(int k) const {
+    const double d = clamp_max(clamp_min(ls[LS_DMDH * nlm + k], -1e3), 1e3);
+    return max_nan(1e-12, lm[LM_L0 * nlm + k] * (1.0 + d));
+  }
+  __device__ __forceinline__ double l_of(int kind, int idx) const {
+    return kind == 0 ? lval[idx] : l_used(idx);
+  }
+  __device__ __forceinline__ double i1_of(int kind, int idx) const {
+    return kind == 0 ? l_i1[idx] : ls[LS_I1 * nlm + idx];
+  }
+  // M/dt, or 2M/dt on a started both-linear pair under trap
+  __device__ __forceinline__ double mcoef(int k, double dte) const {
+    const int* p = kp + 4 * k;
+    const double m = kc[k] * sqrt(l_of(p[0], p[1]) * l_of(p[2], p[3]));
+    const bool tr = trap && p[0] == 0 && p[2] == 0 && l_hist[p[1]] > 0 &&
+                    l_hist[p[3]] > 0;
+    return tr ? 2.0 * m / dte : m / dte;
+  }
+  // the partner's memory term, BE: (M i1)/dt; trap: mcoef i1
+  __device__ __forceinline__ double krhs(int k, int kind, int idx,
+                                         double dte) const {
+    if (trap) return -(mcoef(k, dte) * i1_of(kind, idx));
+    const int* p = kp + 4 * k;
+    const double m = kc[k] * sqrt(l_of(p[0], p[1]) * l_of(p[2], p[3]));
+    return -((m * i1_of(kind, idx)) / dte);
+  }
+  __device__ __forceinline__ double term(int tag, int k, double dte,
+                                         double dtl) const {
+    switch (tag) {
+      case TAG_LMTERM: return l_used(k) / dtl;
+      case TAG_LMRHS: return (l_used(k) / dtl) * ls[LS_I1 * nlm + k];
+      case TAG_KTERM: return mcoef(k, dte);
+      case TAG_KRHSA: return krhs(k, kp[4 * k + 2], kp[4 * k + 3], dte);
+      case TAG_KRHSB: return krhs(k, kp[4 * k], kp[4 * k + 1], dte);
+      default: return 1.0;
+    }
+  }
+};
+
 // t_io, dt_io and att_io hold each lane's end on exit, and in the STORE
 // instantiation its start on entry; out_x/out_t/out_n/overflow are used
 // only by the STORE instantiation, trap only by the PHYS ones.
@@ -245,9 +368,22 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
   double* d_st = l_hist + nl;
   double* m_st = d_st + DS_ROWS * topo[H_NDD];
   const int* lbranch = topo + topo[H_LB];
-  // the magnetic run constants follow L in the dev rows
+  // the magnetic run constants follow L in the dev rows; under physics
+  // the live LM rows follow the MOSFETs' in the state rows
   Mag mag{};
-  if constexpr (MAG) {
+  MagPhys mp{};
+  if constexpr (MAG && PHYS) {
+    const int nlm = topo[H_NLM];
+    mp.lm = lval + nl;
+    mp.kc = mp.lm + LM_ROWS * nlm;
+    mp.ls = m_st + MS_ROWS * topo[H_NM];
+    mp.lval = lval;
+    mp.l_i1 = l_i1;
+    mp.l_hist = l_hist;
+    mp.kp = topo + topo[H_KP];
+    mp.nlm = nlm;
+    mp.trap = trap != 0;
+  } else if constexpr (MAG) {
     const int nlm = topo[H_NLM];
     mag.l0 = lval + nl;
     mag.leff = mag.l0 + nlm;
@@ -332,13 +468,25 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
           default: return 1.0;  // TAG_ONE
         }
       };
+      // with MAG, the LM and K stamps (their tags follow TAG_NL)
+      auto lin_pm = [&lin_phys, &mp, dte, dtl](int tag, int k) -> double {
+        return tag > TAG_NL ? mp.term(tag, k, dte, dtl) : lin_phys(tag, k);
+      };
       if constexpr (NL) {  // Newton from x = 0, the carried junctions
         for (int i = 0; i < n; ++i) x[i] = 0.0;
-        nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_phys, m, x,
-                                           jv, nv, dte, 0.0, max_iter,
-                                           reltol, abstol, &nr_ok, ph);
+        if constexpr (MAG)
+          nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_pm, m, x,
+                                             jv, nv, dte, 0.0, max_iter,
+                                             reltol, abstol, &nr_ok, ph);
+        else
+          nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_phys, m, x,
+                                             jv, nv, dte, 0.0, max_iter,
+                                             reltol, abstol, &nr_ok, ph);
       } else {  // one solve, converged when finite
-        build<NMAX, false>(m, n, ent, ne, lin_phys, nv);
+        if constexpr (MAG)
+          build<NMAX, false>(m, n, ent, ne, lin_pm, nv);
+        else
+          build<NMAX, false>(m, n, ent, ne, lin_phys, nv);
         nr_ok = gauss_jordan<NMAX>(m, n, x);
       }
     } else if constexpr (NL) {  // Newton from x = 0, the carried junctions
@@ -358,8 +506,17 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
         }
       };
       for (int i = 0; i < n; ++i) x[i] = 0.0;
-      nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin, m, x, jv, nv, dte,
-                                   0.0, max_iter, reltol, abstol, &nr_ok);
+      if constexpr (MAG) {  // the compat LM and K stamps (after TAG_NL)
+        auto lin_mag = [&lin, &mag, t, dte, dtl](int tag, int k) -> double {
+          return tag > TAG_NL ? mag.term(tag, k, t, dte, dtl) : lin(tag, k);
+        };
+        nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin_mag, m, x, jv, nv,
+                                     dte, 0.0, max_iter, reltol, abstol,
+                                     &nr_ok);
+      } else {
+        nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin, m, x, jv, nv, dte,
+                                     0.0, max_iter, reltol, abstol, &nr_ok);
+      }
     } else {
       // One solve, converged when finite.  The build and the elimination
       // are newton.cuh's build() and gauss_jordan() written out in line:
@@ -516,6 +673,33 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
               sm[(MS_QGS + r) * nm] = q[r];
             }
             sm[MS_HIST * nm] = 1.0;
+          }
+        }
+        if constexpr (MAG) {  // the live J-A commit (engine/state.py)
+          const int nlm = mp.nlm;
+          const int* lmt = topo + topo[H_LMN];  // n1 n2 branch per winding
+          const int* core = topo + topo[H_CORE];
+          const double* lm = mp.lm;
+          double* ls = mp.ls;
+          for (int k = 0; k < nlm; ++k) {
+            // the core's summed mmf, in winding order (segment_sum)
+            double mmf = 0.0;
+            for (int j = 0; j < nlm; ++j)
+              mmf = mmf + (core[j] == core[k]
+                               ? lm[LM_TURNS * nlm + j] * -x[lmt[3 * j + 2]]
+                               : 0.0);
+            const double h = clamp_max(
+                clamp_min(mmf / lm[LM_LEN * nlm + k], -1e6), 1e6);
+            ja_step(lm[LM_MST * nlm + k], lm[LM_A * nlm + k],
+                    lm[LM_K * nlm + k], lm[LM_C * nlm + k],
+                    lm[LM_ALPHA * nlm + k], h, ls + LS_H * nlm + k, nlm);
+            const double vd = x[lmt[3 * k]] - x[lmt[3 * k + 1]];
+            double* sk = ls + k;
+            sk[LS_I1 * nlm] = sk[LS_I0 * nlm];
+            sk[LS_I0 * nlm] = -x[lmt[3 * k + 2]];
+            sk[LS_V1 * nlm] = sk[LS_V0 * nlm];
+            sk[LS_V0 * nlm] = vd;
+            sk[LS_FLUX0 * nlm] = sk[LS_FLUX0 * nlm] + vd * dte;
           }
         }
       } else {

@@ -27,8 +27,11 @@ constexpr bool STORE_BUILD = true;
 constexpr bool STORE_BUILD = false;
 #endif
 
+// physics without LM or K (run_kernel_mag.cu holds those)
 template <bool STORE>
-int launch_np1(const RunArgs& a, int np1, int nonlinear, void* stream) {
+int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
+               int physics, void* stream) {
+  if (!physics || mag) return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (np1 <= 8) return launch_kind<8, STORE>(a, nonlinear, s);
@@ -41,15 +44,16 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, void* stream) {
 
 #ifndef TSR_STORE
 // Launch the physics whole-run kernel for nlanes lanes on `stream` from
-// t = 0; returns the cudaError_t of the launch (0 on success).  np1 picks
-// the matrix size, nonlinear the Newton instantiation; trap != 0 runs the
-// trapezoidal companions.  state (with the physics rows) and jv are
-// updated in place; t, dt and att are written.
-extern "C" int tsr_run_phys(int np1, int nonlinear, int trap,
-                            const int* topo, int topo_len, const double* dev,
-                            const double* rc, double* state, double* jv,
-                            double* t, double* dt, int* acc, int* att,
-                            int* fail, int* nri, int nlanes, double tstop,
+// t = 0; returns the cudaError_t of the launch (0 on success).  The
+// arguments are tsr_run's (csrc/run_kernel.cu); this library holds physics
+// without LM or K.  state (with the physics rows) and jv are updated in
+// place; t, dt and att are written.
+extern "C" int tsr_run_phys(int np1, int nonlinear, int mag, int physics,
+                            int trap, const int* topo, int topo_len,
+                            const double* dev, const double* rc,
+                            double* state, double* jv, double* t,
+                            double* dt, int* acc, int* att, int* fail,
+                            int* nri, int nlanes, double tstop,
                             double minstep, double tmax, double trtol,
                             int max_attempts, double reltol, double abstol,
                             int max_iter, void* stream) {
@@ -58,14 +62,15 @@ extern "C" int tsr_run_phys(int np1, int nonlinear, int trap,
                   nlanes,  tstop,    minstep, tmax,    trtol,   max_attempts,
                   reltol,  abstol,   max_iter, 0.0,    0,       0,
                   nullptr, nullptr,  nullptr, nullptr, trap};
-  return launch_np1<STORE_BUILD>(a, np1, nonlinear, stream);
+  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics, stream);
 }
 #else
 
 // The same with the waveform store, from each lane's t, dt and att (the
 // arguments of tsr_run_store in csrc/run_kernel.cu).
 extern "C" int tsr_run_phys_store(
-    int np1, int nonlinear, int trap, const int* topo, int topo_len,
+    int np1, int nonlinear, int mag, int physics, int trap, const int* topo,
+    int topo_len,
     const double* dev, const double* rc, double* state, double* jv,
     double* t, double* dt, int* acc, int* att, int* fail, int* nri,
     int nlanes, double tstop, double minstep, double tmax, double trtol,
@@ -77,7 +82,8 @@ extern "C" int tsr_run_phys_store(
                   nlanes,  tstop,    minstep, tmax,    trtol,  max_attempts,
                   reltol,  abstol,   max_iter, tstart, max_store, stream,
                   out_x,   out_t,    out_n,   overflow, trap};
-  return launch_np1<STORE_BUILD>(a, np1, nonlinear, cuda_stream);
+  return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics,
+                                 cuda_stream);
 }
 #endif
 

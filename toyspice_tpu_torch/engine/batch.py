@@ -241,7 +241,7 @@ def linear_op_ineligible_reason(cc, semantics: str = "compat", opts=None):
     extra = set(cc.idx.keys()) - set(LINEAR_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (a linear OP "
-                "runs R, C, L, V and I)")
+                "runs R, C, L, LM, K, V and I)")
     if cc.np1 > NP1_CAP:
         return (f"np1={cc.np1} exceeds the stamped-solve kernel's matrix "
                 f"cap of {NP1_CAP}")
@@ -253,8 +253,8 @@ def select_op_engine(cc, semantics: str = "compat",
     """(engine_name, reason) for a batched OP or DC sweep: "fused", the
     OP kernel (the DC sweep kernel) on a nonlinear deck, or "linear", the
     stamped solve, on a linear one; anything neither serves (a kind not
-    ported, such as LM or K, a semantics other than compat and physics,
-    a deck over the kernels' caps) raises NotImplementedError with the
+    ported, a semantics other than compat and physics, a deck over the
+    kernels' caps) raises NotImplementedError with the
     reason."""
     from ..ops.op import op_fused_ineligible_reason
     from ..ops.run_plan import nonlinear

@@ -4,9 +4,10 @@ the run kernel and its plain version, ``ops/run.py``).  Compat semantics
 commits state for C and L only (PLAN.md item 1): the D, Q, M and LM leaves
 exist, are read where the reference reads them (the diode's and MOSFET's
 frozen previous charges, the magnetic inductor's frozen current and core)
-and go out of a run unchanged.  Physics semantics commits C, L, D and M:
+and go out of a run unchanged.  Physics semantics commits C, L, D, M and LM:
 the capacitor current and the first-step flags of the trapezoidal
-companions, and the diode and MOSFET charge memory."""
+companions, the diode and MOSFET charge memory, and each magnetic
+winding's currents, voltages, flux and Jiles-Atherton core."""
 
 from typing import Dict
 
@@ -47,10 +48,11 @@ def init_state(cc, device="cuda") -> Dict:
 def make_op_seed(cc, temp: float = 300.15):
     """The physics transient's start at the bias point: seed(params, state,
     x) -> state, with ``x`` the OP solution (B, np1).  A capacitor starts at
-    its OP voltage and charge (raw C), an inductor at its OP current (the
-    branch unknown is -I), a diode with its physics charge Tt·id at the
-    stamp temperature ``temp``; hist stays as given (0), so a trapezoidal
-    run takes its first step as BE.  Compat keeps the zero state: that is
+    its OP voltage and charge (raw C), an inductor or a magnetic winding at
+    its OP current (the branch unknown is -I; the winding's core as
+    given), a diode with its physics charge Tt·id at the stamp
+    temperature ``temp``; hist stays as given (0), so a trapezoidal run
+    takes its first step as BE.  Compat keeps the zero state: that is
     the reference (its devices never see the OP solution,
     circuit.go:192-224)."""
 
@@ -74,6 +76,9 @@ def make_op_seed(cc, temp: float = 300.15):
             vd = vdiff("L")
             i = -branch("L")
             new["L"] = {**state["L"], "i0": i, "i1": i, "v0": vd, "v1": vd}
+        if "LM" in cc.idx:  # the winding's OP current; its core as given
+            i = -branch("LM")
+            new["LM"] = {**state["LM"], "i0": i, "i1": i}
         if "D" in cc.idx:
             pd = params["D"]
             vd = vdiff("D")

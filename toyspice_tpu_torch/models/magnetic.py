@@ -7,7 +7,9 @@ a transient stamps L0 = mu0·N²·A/len unless a user-given i0 says otherwise
 (magnetic.go:239-251).  The port evaluates these functions once per run on
 the host side, at the frozen core, as run constants of the whole-run
 kernel (``ops/run_plan.const_stack``): the branch's ``l_effective`` and
-each mutual partner's ``value_for_mutual``.
+each mutual partner's ``value_for_mutual``.  Physics semantics commits the
+core on every accepted step (``ja_step`` in the run kernel and its plain
+version) and stamps the incremental inductance ``l_incremental``.
 
 Parameter leaves are (nk,) shared or (B, nk) batched tensors; the core
 state leaves likewise.
@@ -38,19 +40,31 @@ def _where(cond, a: float, b: float, like):
                        torch.full_like(like, b))
 
 
+def saturation(p, temp):
+    """Ms at ``temp``: ms·((tc - temp)/tc)**beta with a Curie temperature
+    tc > 0, else ms (magnetic.go:95-98)."""
+    tc = p["tc"]
+    return p["ms"] * torch.where(tc > 0, torch.pow((tc - temp) / tc,
+                                                   p["beta"]),
+                                 torch.ones_like(tc))
+
+
 def ja_calculate(p, st: CoreState, h, temp):
     """One J-A update step (magnetic.go:88-132): returns (M, dMdH,
     new_state), with every guard of the reference (the |dH| < 1e-12
     early-out, the linearised anhysteretic at small He, the denominator
     clamp at ±1e-12) and the stable Langevin split of the JAX package."""
+    return ja_step(p, saturation(p, temp), st, h)
+
+
+def ja_step(p, mst, st: CoreState, h):
+    """``ja_calculate`` with Ms at the temperature given as ``mst``: the
+    physics commit's form (its temperature is fixed, so the run kernel
+    reads mst as a run constant; csrc/run_kernel.cuh ``ja_step`` is the
+    same arithmetic)."""
     dH = h - st.Hold
     small = dH.abs() < 1e-12
     delta = _where(dH < 0, -1.0, 1.0, dH)
-
-    tc = p["tc"]
-    mst = p["ms"] * torch.where(tc > 0, torch.pow((tc - temp) / tc,
-                                                  p["beta"]),
-                                torch.ones_like(tc))
 
     he = h + p["alpha"] * st.M
     he_safe = torch.where(he.abs() < 1e-6, 1.0, he)
@@ -113,3 +127,11 @@ def value_for_mutual(p, st: CoreState, i0, temp):
     _, dmdh, _ = ja_calculate(p, st, h, temp)
     return (MU0 * p["turns"] * p["turns"] * p["area"] * (1.0 + dmdh)
             / p["len"])
+
+
+def l_incremental(l0, dmdh):
+    """The physics branch's and mutual's inductance from the committed core
+    (assemble.py's physics LM block): max(1e-12, L0·(1 + clip(dMdH,
+    ±1e3)))."""
+    l_used = l0 * (1.0 + torch.clamp(dmdh, -1e3, 1e3))
+    return torch.maximum(torch.full_like(l_used, 1e-12), l_used)

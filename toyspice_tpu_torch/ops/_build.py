@@ -1,15 +1,15 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and bind them
 with ``ctypes``.
 
-Each kernel library compiles from one source (``csrc/run_kernel.cu`` and
-``csrc/run_kernel_phys.cu``, the compat and physics instantiations of
-``csrc/run_kernel.cuh``, each built twice: without and, with
-``-DTSR_STORE``, with the waveform store; ``csrc/op_kernel.cu``,
-``csrc/stamped_solve.cu``, ``csrc/dc_sweep_kernel.cu``,
-``csrc/ac_kernel.cu``; all include ``csrc/newton.cuh``) with one
-``nvcc`` call to a shared library with a plain C entry point (no PyTorch
-headers, so a build takes seconds); the calls for every missing library
-start together.  A library
+Each kernel library compiles from one source (``csrc/run_kernel.cu``,
+``csrc/run_kernel_phys.cu`` and ``csrc/run_kernel_mag.cu``, the compat,
+physics and magnetic instantiations of ``csrc/run_kernel.cuh``, each
+built twice: without and, with ``-DTSR_STORE``, with the waveform store;
+``csrc/op_kernel.cu``, ``csrc/dc_sweep_kernel.cu``,
+``csrc/stamped_solve.cu``, ``csrc/ac_kernel.cu``; all include
+``csrc/newton.cuh``) with one ``nvcc`` call to a shared library with a
+plain C entry point (no PyTorch headers, so a build takes seconds); the
+calls for every missing library start together.  A library
 goes to ``toyspice_tpu_torch/_build/``, named by a hash of its source, the
 shared header and the flags, so an edited source builds anew and an
 unchanged one loads.  A missing ``nvcc`` or a failed build raises: there is
@@ -29,12 +29,14 @@ SOURCES = {"run": CSRC / "run_kernel.cu",
            "run_store": CSRC / "run_kernel.cu",
            "run_phys": CSRC / "run_kernel_phys.cu",
            "run_phys_store": CSRC / "run_kernel_phys.cu",
-           "op": CSRC / "op_kernel.cu",
-           "stamped": CSRC / "stamped_solve.cu",
+           "run_mag": CSRC / "run_kernel_mag.cu",
+           "run_mag_store": CSRC / "run_kernel_mag.cu",
+           "op": CSRC / "op_kernel.cu", "stamped": CSRC / "stamped_solve.cu",
            "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu"}
 # the run kernel's store builds: their instantiations compile in a call of
-# their own, beside the one without the store
-DEFINES = {"run_store": ("-DTSR_STORE",), "run_phys_store": ("-DTSR_STORE",)}
+# their own, beside the others
+DEFINES = {"run_store": ("-DTSR_STORE",), "run_phys_store": ("-DTSR_STORE",),
+           "run_mag_store": ("-DTSR_STORE",)}
 HEADERS = (CSRC / "newton.cuh", CSRC / "run_kernel.cuh")
 BUILD_DIR = PKG / "_build"
 # -fmad=false: every product and sum rounds on its own, as in the torch
@@ -106,20 +108,21 @@ def build(names=tuple(SOURCES), extra_flags=()):
 
 build.log = {}
 
+RUN_SIG = "iiiiipi" + "p" * 10 + "iddddiddip"
+RUN_STORE_SIG = "iiiiipi" + "p" * 10 + "iddddiddi" + "dii" + "p" * 5
 _ARGTYPES = {
-    # tsr_run(np1, nonlinear, mag, topo, topo_len, dev, rc, state, jv, t,
-    #         dt, acc, att, fail, nri, nlanes, tstop, minstep, tmax, trtol,
-    #         max_attempts, reltol, abstol, max_iter, stream)
+    # tsr_run(np1, nonlinear, mag, physics, trap, topo, topo_len, dev, rc,
+    #         state, jv, t, dt, acc, att, fail, nri, nlanes, tstop, minstep,
+    #         tmax, trtol, max_attempts, reltol, abstol, max_iter, stream)
     # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
     #               out_x, out_t, out_n, overflow, stream)
-    # tsr_run_phys and tsr_run_phys_store: the same with trap in place of
-    # mag
-    "run": (("tsr_run", "iiipi" + "p" * 10 + "iddddiddip"),),
-    "run_store": (("tsr_run_store", "iiipi" + "p" * 10 + "iddddiddi"
-                   + "dii" + "p" * 5),),
-    "run_phys": (("tsr_run_phys", "iiipi" + "p" * 10 + "iddddiddip"),),
-    "run_phys_store": (("tsr_run_phys_store", "iiipi" + "p" * 10
-                        + "iddddiddi" + "dii" + "p" * 5),),
+    # tsr_run_phys, tsr_run_mag and their _store entries: the same
+    "run": (("tsr_run", RUN_SIG),),
+    "run_store": (("tsr_run_store", RUN_STORE_SIG),),
+    "run_phys": (("tsr_run_phys", RUN_SIG),),
+    "run_phys_store": (("tsr_run_phys_store", RUN_STORE_SIG),),
+    "run_mag": (("tsr_run_mag", RUN_SIG),),
+    "run_mag_store": (("tsr_run_mag_store", RUN_STORE_SIG),),
     # tsr_op(np1, topo, topo_len, dev, dyn, x0, jv0, x, jv, iters, conv,
     #        nlanes, reltol, abstol, max_iter, gmin_floor, physics, stream)
     "op": (("tsr_op", "ipi" + "p" * 8 + "iddidip"),),

@@ -24,7 +24,7 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 from .op import op_fused_ineligible_reason
 from .run import NP1_CAP
-from .run_plan import DEVICE_KINDS, nonlinear, semantics_reason
+from .run_plan import SLICE_KINDS, nonlinear, semantics_reason
 
 F64 = torch.float64
 
@@ -35,10 +35,10 @@ def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     why = semantics_reason(semantics, opts)
     if why is not None:
         return why
-    extra = set(cc.idx.keys()) - set(DEVICE_KINDS)
+    extra = set(cc.idx.keys()) - set(SLICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
-                "runs R, C, L, V, I, D, Q and M)")
+                "runs R, C, L, LM, K, V, I, D, Q and M)")
     if cc.np1 > NP1_CAP:  # a 2np1 system: N2MAX 16/32/64
         return (f"np1={cc.np1} exceeds the AC kernel's matrix cap of "
                 f"{NP1_CAP} (a 2np1 system)")

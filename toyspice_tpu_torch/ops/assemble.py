@@ -2,15 +2,14 @@
 evaluate-and-scatter stamping in f64 torch.
 
 The counterpart of the JAX package's ``ops/assemble.py`` for what the
-port's paths use: ``assemble_entries`` in mode "op" for R, C, L, V and I
-(the flat entries ``engine/newton.nr_linear`` hands to the stamped solve)
-and ``assemble_ac_blocks`` for R, C, L, V, I, D, Q and M (the parts of the
-JAX package's ``assemble_system_ac``, the AC system at the bias point).
-The nonlinear devices' OP, DC and transient stamps live in the kernels'
-stamp plans (``ops/run_plan.py``); LM and K are not ported
-(``models/magnetic.py``).  Under physics semantics the linear OP stamps
-are the compat ones, and the diode's AC conductance is the physics one
-(Rs and Bv).
+port's paths use: ``assemble_entries`` in mode "op" for R, C, L, LM, K, V
+and I (the flat entries ``engine/newton.nr_linear`` hands to the stamped
+solve) and ``assemble_ac_blocks`` for R, C, L, LM, K, V, I, D, Q and M
+(the parts of the JAX package's ``assemble_system_ac``, the AC system at
+the bias point).  The nonlinear devices' OP, DC and transient stamps live
+in the kernels' stamp plans (``ops/run_plan.py``).  Under physics
+semantics the linear OP stamps are the compat ones, and the diode's AC
+conductance is the physics one (Rs and Bv).
 
 Each device kind adds a fixed set of (row, col) entries (static host numpy)
 and a value per entry and lane: parameters are (nk,) shared or (B, nk)
@@ -28,14 +27,15 @@ import torch
 from ..consts import TEMP_DEFAULT
 from ..models import bjt as bjt_model
 from ..models import diode as diode_model
+from ..models import magnetic as mag_model
 from ..models import mosfet as mos_model
 from ..models.sources import eval_sources, eval_sources_ac
 from ..utils.tensor import true_div
-from .run_plan import first_leaf, infer_batch, semantics_reason
+from .run_plan import CORE_KEYS, first_leaf, infer_batch, semantics_reason
 from .solve_stamped import cell_sums
 
 F64 = torch.float64
-LINEAR_KINDS = ("R", "C", "L", "V", "I")
+LINEAR_KINDS = ("R", "C", "L", "LM", "K", "V", "I")
 AC_KINDS = LINEAR_KINDS + ("D", "Q", "M")
 
 
@@ -98,6 +98,11 @@ class _Acc:
         return a.view(self.b, np1, np1), cell_sums(rrows, rvals, np1)
 
 
+def _lane_cols(leaf, i):
+    """Column ``i`` of a (nk,) or (B, nk) leaf: a scalar or a (B,) tensor."""
+    return leaf[..., int(i)]
+
+
 def _two_node_pattern(acc: _Acc, nodes, g):
     """Conductance stamp: +g on the diagonals, -g off them."""
     n1, n2 = nodes[:, 0], nodes[:, 1]
@@ -134,8 +139,7 @@ def _unported(cc, kinds):
     if extra:
         raise NotImplementedError(
             f"device kinds {extra} are not ported to this assembly (the "
-            f"port assembles {', '.join(kinds)}; LM and K wait for "
-            "models/magnetic.py)")
+            f"port assembles {', '.join(kinds)})")
 
 
 def assemble_entries(cc, params, state, status_gmin, dc_scale=1.0,
@@ -144,11 +148,13 @@ def assemble_entries(cc, params, state, status_gmin, dc_scale=1.0,
     solve: (rows, cols, vals (B, nnz), rrows, rvals (B, nrhs)), the index
     arrays static host numpy.  The ground row and the gmin diagonal are
     the solver's.  The JAX package's mode "op" at t = 0, dt = 0 (reference
-    Mode=OperatingPoint), for R, C, L, V and I: a capacitor leaks
+    Mode=OperatingPoint), for R, C, L, LM, K, V and I: a capacitor leaks
     max(status_gmin, gmin_floor), an inductor stamps its dt = 1e-9
-    companion, sources take their t = 0 values with ``dc_scale`` on the V
-    sources' dc (source stepping).  ``status_gmin`` and ``dc_scale`` are
-    floats or (B,) tensors.  Compat and physics stamp alike here."""
+    companion, a magnetic winding its +1e-3 branch diagonal
+    (magnetic.go:216-217), a mutual coupling nothing, sources take their
+    t = 0 values with ``dc_scale`` on the V sources' dc (source
+    stepping).  ``status_gmin`` and ``dc_scale`` are floats or (B,)
+    tensors.  Compat and physics stamp alike here."""
     why = semantics_reason(semantics, None)
     if why is not None:
         raise NotImplementedError(why)
@@ -176,6 +182,12 @@ def assemble_entries(cc, params, state, status_gmin, dc_scale=1.0,
         _branch_pattern(acc, nodes, branch)
         acc.add(branch, branch, -true_div(lval, 1e-9))
         acc.add_rhs(branch, true_div(lval, 1e-9) * state["L"]["i1"])
+    if "LM" in cc.idx:  # OP: a small fixed branch diagonal, note the sign
+        nodes = cc.idx["LM"]["nodes"]
+        branch = cc.idx["LM"]["branch"]
+        _branch_pattern(acc, nodes, branch)
+        acc.add(branch, branch, torch.full((len(branch),), 1e-3, dtype=F64,
+                                           device=device))
     t_lanes = torch.zeros(b, dtype=F64, device=device)
     if "V" in cc.idx:  # vsource.go:131-152
         nodes = cc.idx["V"]["nodes"]
@@ -197,7 +209,10 @@ def assemble_ac_blocks(cc, params, state, jv, freq, temp=TEMP_DEFAULT,
     the RHS phasor br, bi (B, np1), ground rows applied (G's the identity,
     B's zero).  Nonlinear devices stamp their small-signal conductances
     and capacitances at the OP bias ``jv`` (nlstate tree, (B, nk)
-    leaves); under physics the diode's gd includes Rs and Bv."""
+    leaves); under physics the diode's gd includes Rs and Bv.  A magnetic
+    winding stamps -ωL and a mutual coupling -ωM on the branch rows, L
+    the J-A ``value_for_mutual`` at the state's core and current, under
+    either semantics, as the JAX package does."""
     why = semantics_reason(semantics, None)
     if why is not None:
         raise NotImplementedError(why)
@@ -221,6 +236,32 @@ def assemble_ac_blocks(cc, params, state, jv, freq, temp=TEMP_DEFAULT,
         branch = cc.idx["L"]["branch"]
         _branch_pattern(gacc, nodes, branch)
         bacc.add(branch, branch, -omega * params["L"]["value"])
+    lm_val = None
+    if "LM" in cc.idx:
+        nodes = cc.idx["LM"]["nodes"]
+        branch = cc.idx["LM"]["branch"]
+        stm = state["LM"]
+        core = mag_model.CoreState(*(stm[key] for key in CORE_KEYS))
+        lm_val = mag_model.value_for_mutual(params["LM"], core, stm["i0"],
+                                            temp)
+        _branch_pattern(gacc, nodes, branch)
+        bacc.add(branch, branch, -omega * lm_val)
+    if "K" in cc.idx:
+        # the branch-row mutual stamp (the JAX package's deviation from
+        # mutual.go:122-185, whose node stamp is singular; PLAN.md 13)
+        kidx = cc.idx["K"]
+
+        def partner(kinds, idxs):
+            cols = [_lane_cols(params["L"]["value"], i) if kk == 0
+                    else _lane_cols(lm_val, i)
+                    for kk, i in zip(np.asarray(kinds), np.asarray(idxs))]
+            return torch.stack(torch.broadcast_tensors(*cols), dim=-1)
+
+        la = partner(kidx["kind_a"], kidx["idx_a"])
+        lb = partner(kidx["kind_b"], kidx["idx_b"])
+        mij = params["K"]["coeff"] * torch.sqrt(la * lb)
+        bacc.add(kidx["branch_a"], kidx["branch_b"], -omega * mij)
+        bacc.add(kidx["branch_b"], kidx["branch_a"], -omega * mij)
     if "V" in cc.idx:
         nodes = cc.idx["V"]["nodes"]
         branch = cc.idx["V"]["branch"]

@@ -33,7 +33,7 @@ from ..models.sources import eval_sources
 from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices
-from .op import op_fused_ineligible_reason
+from .op import op_fused_ineligible_reason, op_mag_terms
 from .run import check_caps, check_rows
 from .run_plan import (const_stack, first_leaf, infer_batch, lanes,
                        make_plan)
@@ -136,11 +136,12 @@ def dc_plain(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
             torch.ones((b, 1), dtype=F64, device=device),
             torch.zeros((b, nc), dtype=F64, device=device), dyn[:, ni:]]
     isrc = dyn[:, :ni]
+    mag = op_mag_terms(plan, b, device)
     jvs = torch.zeros((b, plan.kj), dtype=F64, device=device)
     xs, iters, convs = [], [], []
     for p in range(npts):
         vsrc = vs[:, p] if vs.ndim == 3 else vs[p].expand(b, nv)
-        base = torch.cat(head + [vsrc, isrc], dim=1)
+        base = torch.cat(head + [vsrc, isrc, mag], dim=1)
         x = torch.zeros((b, n), dtype=F64, device=device)
         k = torch.zeros(b, dtype=I32, device=device)
         conv = torch.zeros(b, dtype=torch.bool, device=device)

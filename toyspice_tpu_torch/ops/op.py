@@ -41,7 +41,7 @@ from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices, converged
 from .run import check_caps, check_rows, kernel_caps_reason
-from .run_plan import (DEVICE_KINDS, const_stack, first_leaf, infer_batch,
+from .run_plan import (SLICE_KINDS, const_stack, first_leaf, infer_batch,
                        jv_tree, lanes, make_plan, nonlinear,
                        semantics_reason, source_leaves, source_stack)
 
@@ -58,10 +58,10 @@ def op_fused_ineligible_reason(cc, semantics: str = "compat", opts=None):
     why = semantics_reason(semantics, opts)
     if why is not None:
         return why
-    extra = set(cc.idx.keys()) - set(DEVICE_KINDS)
+    extra = set(cc.idx.keys()) - set(SLICE_KINDS)
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
-                "runs R, C, L, V, I, D, Q and M)")
+                "runs R, C, L, LM, K, V, I, D, Q and M)")
     if not nonlinear(cc):
         return ("linear circuit (the OP kernel serves decks with a diode, "
                 "BJT or MOSFET; a linear OP is one solve, not ported)")
@@ -92,6 +92,17 @@ class FusedOPResult(NamedTuple):
     stage: torch.Tensor  # (B,) int32: 0 plain NR, 1 gmin, 2 source step
     iters: torch.Tensor  # (B,) int32: plain-NR (stage-0) iterations
     iters_all: torch.Tensor  # (B,) int32: Newton iterations of every rung
+
+
+def op_mag_terms(plan, b, device):
+    """The magnetic term columns of an OP plan (``ops/newton.Builder``
+    order): each LM's branch diagonal as -1e-3 against the plan's sign -1
+    (magnetic.go:216-217), then zeros where the transient has its LM
+    memory and K stamps (the OP plan has none)."""
+    nlm, nk = plan.nlm, plan.nk
+    return torch.cat([torch.full((b, nlm), -1e-3, dtype=F64, device=device),
+                      torch.zeros((b, nlm + 3 * nk), dtype=F64,
+                                  device=device)], dim=1)
 
 
 def dyn_width(plan):
@@ -158,6 +169,7 @@ def op_plain(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     use_seed = dyn[:, 1] > 0.5
     act = dyn[:, 2] > 0.5
     lval = dev[:, nr + 2 * nc:nr + 2 * nc + nl]
+    mag = op_mag_terms(plan, b, device)
 
     def terms(status_gmin):
         gc = torch.maximum(status_gmin, torch.full_like(status_gmin,
@@ -165,7 +177,7 @@ def op_plain(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
         return [dev[:, :nr], gc.expand(b, nc), true_div(lval, 1e-9),
                 torch.ones((b, 1), dtype=F64, device=device),
                 torch.zeros((b, nc), dtype=F64, device=device),
-                dyn[:, 3 + nv + ni:], dyn[:, 3:3 + nv + ni]]
+                dyn[:, 3 + nv + ni:], dyn[:, 3:3 + nv + ni], mag]
 
     # the linear-devices-only initial estimate (op.go:90-111): status gmin
     # 0, no gmin diagonal, non-finite -> the zero vector

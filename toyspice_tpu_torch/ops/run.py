@@ -4,17 +4,18 @@ lane's complete adaptive time loop in one launch.
 The counterpart of ``ops/pallas_run.py`` in the JAX package
 (``run_ineligible_reason``, ``_run_const64``, ``_source_vals``,
 ``_run_core`` and ``make_tran_run``), for R/C/L/V/I decks with DC, SIN,
-PULSE and PWL sources, plus magnetic inductors and mutual couplings
-(compat), or diodes, BJTs and MOSFETs; and, through the kernel's store
+PULSE and PWL sources, plus magnetic inductors and mutual couplings,
+and diodes, BJTs and MOSFETs; and, through the kernel's store
 instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
 (``store='full'``, the streamed store and resume). The pieces:
 
 * ``launch_run_kernel`` and ``launch_store_kernel``: the wrappers of
-  ``csrc/run_kernel.cu`` (compat) and ``csrc/run_kernel_phys.cu``
-  (physics), the instantiations of ``csrc/run_kernel.cuh`` (one thread per
-  lane, f64), without and with the waveform store. Each checks its inputs,
-  allocates the outputs, launches on the current stream and counts its
-  launches in ``.launches``.
+  ``csrc/run_kernel.cu`` (compat), ``csrc/run_kernel_phys.cu`` (physics)
+  and ``csrc/run_kernel_mag.cu`` (physics with LM or K, compat LM or K
+  with a Newton), the instantiations of ``csrc/run_kernel.cuh`` (one
+  thread per lane, f64), without and with the waveform store. Each
+  checks its inputs, allocates the outputs, launches on the current
+  stream and counts its launches in ``.launches``.
 * ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
   torch operations with per-lane masks.  The CPU tests use them, and
   ``chip_smoke.py`` holds the kernels against them on the card.  Each
@@ -42,9 +43,13 @@ from the COMMITTED C/L state; accept (commit, grow dt x2 or x1.1 up to
 tmax) or reject (halve dt while dt > minstep, else a hard fail). Compat
 commits the reference's C/L state; physics also the capacitor current, the
 inductor current from its branch row, the diode and MOSFET charge memory
-re-evaluated at the raw solution, and the first-step flags (engine/state.py
-make_commit). The junction voltages of the last Newton iteration carry to
-the next attempt whether it accepted or not. A lane stops when it reaches
+re-evaluated at the raw solution, each magnetic winding's currents,
+voltages, flux and J-A core (its core's summed mmf, one J-A step), and the
+first-step flags (engine/state.py make_commit).  A physics attempt stamps
+each LM's incremental inductance from its committed core (backward Euler
+under trap too) and each K's M = k·sqrt(La·Lb) of the live inductances.
+The junction voltages of the last Newton iteration carry to the next
+attempt whether it accepted or not. A lane stops when it reaches
 tstop, hard-fails or runs ``max_attempts`` attempts; a non-finite t or dt
 does not stop it early, as in the general engine. With the store, an
 accepted attempt at next_t >= tstart keeps the solution (ground row
@@ -61,13 +66,14 @@ from ..engine.nlstate import init_jv
 from ..engine.options import DEFAULTS
 from ..engine.state import make_op_seed
 from ..engine.tran import TranOutput
+from ..models import magnetic
 from ..models.sources import eval_sources
 from . import _build
 from .newton import MAX_NL_DEVICES, Builder, Devices, converged
-from .run_plan import (const_stack, first_leaf,
+from .run_plan import (CORE_KEYS, LM_PHYS_ROWS, const_stack, first_leaf,
                        fused_ineligible_reason, infer_batch,
-                       init_state_stack, jv_stack, jv_tree, make_plan,
-                       source_leaves, source_stack, unpack_state)
+                       init_state_stack, jv_stack, jv_tree, mag_width,
+                       make_plan, source_leaves, source_stack, unpack_state)
 
 NP1_CAP = 32  # largest matrix the kernel is compiled for (NMAX 8/16/32)
 MAX_SOURCES = 32  # per-thread source-value array of the kernel
@@ -251,9 +257,14 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
         raise ValueError("the run kernel takes a plan of mode 'tran'")
     _check_trap(plan, sc)
     check_caps(plan)
-    # the library (and its entry point tsr_<name>) of this instantiation
-    name = ("run_phys" if plan.physics else "run") + (
-        "" if store is None else "_store")
+    # the library (and its entry point tsr_<name>) of this instantiation:
+    # run_kernel_mag.cu holds physics with LM or K and compat LM or K with
+    # a Newton, run_kernel_phys.cu the rest of physics, run_kernel.cu the
+    # rest of compat
+    mag = plan.nlm + plan.nk > 0
+    family = ("run_mag" if mag and (plan.physics or plan.nonlinear)
+              else "run_phys" if plan.physics else "run")
+    name = family + ("" if store is None else "_store")
     lib = _build.load(name)
     topo = torch.as_tensor(plan.topo, device=device)
     st = state.clone()
@@ -269,13 +280,12 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     acc = torch.empty(b, dtype=I32, device=device)
     fail = torch.empty(b, dtype=I32, device=device)
     nri = torch.empty(b, dtype=I32, device=device)
-    # the physics entry points take trap where compat takes mag
-    args = [plan.np1, int(plan.nonlinear),
-            int(sc.trap) if plan.physics else int(plan.nlm + plan.nk > 0),
-            topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
-            src.data_ptr(), st.data_ptr(), jv_out.data_ptr(), t.data_ptr(),
-            dt.data_ptr(), acc.data_ptr(), att.data_ptr(), fail.data_ptr(),
-            nri.data_ptr(), b, float(sc.tstop), float(sc.minstep),
+    args = [plan.np1, int(plan.nonlinear), int(mag), int(plan.physics),
+            int(sc.trap), topo.data_ptr(),
+            int(plan.topo.size), dev.data_ptr(), src.data_ptr(),
+            st.data_ptr(), jv_out.data_ptr(), t.data_ptr(), dt.data_ptr(),
+            acc.data_ptr(), att.data_ptr(), fail.data_ptr(), nri.data_ptr(),
+            b, float(sc.tstop), float(sc.minstep),
             float(sc.tmax), float(sc.trtol), int(sc.max_attempts),
             float(sc.reltol), float(sc.abstol), int(sc.max_iter)]
     wave = None
@@ -366,14 +376,33 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
     cadj = dev[:, nr:nr + nc]
     craw = dev[:, nr + nc:nr + 2 * nc]
     lval = dev[:, nr + 2 * nc:nr + 2 * nc + nl]
-    mag = dev[:, nr + 2 * nc + nl:nr + 2 * nc + nl + 4 * nlm + nk]
-    lm_l0, lm_leff, lm_i0, lm_i1 = (mag[:, r * nlm:(r + 1) * nlm]
-                                    for r in range(4))
-    mij = mag[:, 4 * nlm:]
-    # each K's partners as columns of [live L i0 | frozen LM i0]
+    mag = dev[:, nr + 2 * nc + nl:
+              nr + 2 * nc + nl + mag_width(nlm, nk, phys)]
+    if phys:  # the J-A leaves of each LM, each K's coefficient
+        lmp = {key: mag[:, r * nlm:(r + 1) * nlm]
+               for r, key in enumerate(LM_PHYS_ROWS)}
+        kcoef = mag[:, len(LM_PHYS_ROWS) * nlm:]
+    else:  # the frozen-core run constants
+        lm_l0, lm_leff, lm_i0, lm_i1 = (mag[:, r * nlm:(r + 1) * nlm]
+                                        for r in range(4))
+        mij = mag[:, 4 * nlm:]
+    # each K's partners as columns of [L | LM]
     kp = plan.kpairs.astype("int64")
     ka_col, kb_col = (torch.as_tensor(kp[:, c + 1] + (kp[:, c] != 0) * nl,
                                       device=device) for c in (0, 2))
+    # trap's 2M/dt pairs: both windings linear, read through their L hist
+    k_lin = (kp[:, 0] == 0) & (kp[:, 2] == 0)
+    k_trap = trap and bool(k_lin.any())
+    if k_trap:
+        k_lin_t = torch.as_tensor(k_lin, device=device)
+        ka_l, kb_l = (torch.as_tensor(kp[:, c + 1] * (kp[:, c] == 0),
+                                      device=device) for c in (0, 2))
+    if phys and nlm:
+        lm_tab = torch.as_tensor(plan.lm_tab, dtype=torch.long,
+                                 device=device)
+        # same_core[:, j]: the windings that winding j's mmf adds to
+        same_core = torch.as_tensor(plan.core[:, None] == plan.core[None],
+                                    device=device)
     pv = source_leaves(plan, src, "V") if nv else None
     pi = source_leaves(plan, src, "I") if ni else None
     ones = torch.ones((b, 1), dtype=F64, device=device)
@@ -426,11 +455,38 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
             terms.append(eval_sources(plan.stype["V"], pv, t_src))
         if ni:
             terms.append(eval_sources(plan.stype["I"], pi, t_src))
-        if nlm:  # the compat LM branch value (assemble.py LM tran)
+        if nlm and phys:  # the incremental L of the committed core,
+            # backward Euler under trap too (assemble.py's physics LM)
+            l_used = magnetic.l_incremental(lmp["l0"],
+                                            rows(st, "lm_dMdH", nlm))
+            lmterm = l_used / dtl_c
+            terms += [lmterm, lmterm * rows(st, "lm_i1", nlm)]
+        elif nlm:  # the compat LM branch value (assemble.py LM tran)
             use_l0 = (t[:, None] < dtl_c) | (lm_i0.abs() < 1e-9)
             lmterm = torch.where(use_l0, lm_l0, lm_leff) / dtl_c
             terms += [lmterm, lmterm * lm_i1]
-        if nk:  # -M/dt and the junk-i0 memory (mutual.go:114-115)
+        if nk and phys:
+            # M = k·sqrt(La·Lb) from the live inductances and the +M/dt
+            # memory of the partner's committed current; the plan's sign
+            # on the RHS is -1 (compat's), so these values carry the minus
+            lv = torch.cat([lval, l_used] if nlm else [lval], dim=1)
+            i1s = torch.cat([rows(st, "l_i1", nl)]
+                            + ([rows(st, "lm_i1", nlm)] if nlm else []),
+                            dim=1)
+            mk = kcoef * torch.sqrt(lv[:, ka_col] * lv[:, kb_col])
+            if trap:  # 2M/dt on both-linear pairs once both have history
+                mcoef = mk / dte_c
+                if k_trap:
+                    hist = rows(st, "l_hist", nl)
+                    use_tr = k_lin_t & (hist[:, ka_l] > 0) & (hist[:, kb_l]
+                                                              > 0)
+                    mcoef = torch.where(use_tr, 2.0 * mk / dte_c, mcoef)
+                terms += [mcoef, -(mcoef * i1s[:, kb_col]),
+                          -(mcoef * i1s[:, ka_col])]
+            else:
+                terms += [mk / dte_c, -((mk * i1s[:, kb_col]) / dte_c),
+                          -((mk * i1s[:, ka_col]) / dte_c)]
+        elif nk:  # -M/dt and the junk-i0 memory (mutual.go:114-115)
             i0s = torch.cat([rows(st, "l_i0", nl), lm_i0], dim=1)
             terms += [mij / dte_c, (mij * i0s[:, kb_col]) / dte_c,
                       (mij * i0s[:, ka_col]) / dte_c]
@@ -499,6 +555,20 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
                         vd, rows(st, "l_v0", nl), vd * dte_c]
         if phys and nonlin:
             tail += devs.commit(xn, dte_c, st, trap)
+        if phys and nlm:  # the live J-A commit (engine/state.py)
+            vd = xn[:, lm_tab[:, 0]] - xn[:, lm_tab[:, 1]]
+            i_new = -xn[:, lm_tab[:, 2]]
+            ti = lmp["turns"] * i_new
+            mmf = torch.zeros_like(ti)
+            for j in range(nlm):  # segment_sum by core, in winding order
+                mmf = mmf + torch.where(same_core[:, j], ti[:, j:j + 1], 0.0)
+            h = torch.clamp(mmf / lmp["len"], -1e6, 1e6)
+            core = magnetic.CoreState(*(rows(st, f"lm_{key}", nlm)
+                                        for key in CORE_KEYS))
+            _, _, core = magnetic.ja_step(lmp, lmp["mst"], core, h)
+            tail += [i_new, rows(st, "lm_i0", nlm), vd,
+                     rows(st, "lm_v0", nlm),
+                     rows(st, "lm_flux0", nlm) + vd * dte_c, *core]
         new += tail
         if new:
             st = torch.where(acc_act[:, None], torch.cat(new, dim=1), st)

@@ -1,7 +1,5 @@
 """Host-side tables of the whole-run transient and the OP kernel for decks
-of R, C, L, V, I, D, Q and M under compat and physics semantics, and for
-the compat transient also magnetic inductors (LM) and mutual couplings
-(K).
+of R, C, L, LM, K, V, I, D, Q and M under compat and physics semantics.
 
 The counterpart of ``ops/pallas_tran.py``'s ``_build_plan``, ``_layout``,
 ``_const_stack64``, ``_init_state_stack64``, ``_jv_stack64``,
@@ -19,25 +17,30 @@ serves every eligible deck:
   (``NL_SLOTS`` per device). The LM branch rows and the K cross terms and
   their RHS memory (tags ``TAG_LMTERM`` .. ``TAG_KRHSB``) read the compat
   run constants below. Physics uses the same plan: the values of
-  ``TAG_GEQ``, ``TAG_CEQ``, ``TAG_LTERM``, ``TAG_LRHS`` and the D/M value
-  slots then come from the physics state rows. A sign of 0 is the general
-  engine's masked MOSFET charge current (value times 0.0). The OP plan
-  (``mode="op"``) has no capacitor companion RHS and no MOSFET charge
-  stamps, as assemble.py's mode "op".
+  ``TAG_GEQ``, ``TAG_CEQ``, ``TAG_LTERM``, ``TAG_LRHS``, the magnetic tags
+  and the D/M value slots then come from the physics state rows. A sign
+  of 0 is the general engine's masked MOSFET charge current (value times
+  0.0). The OP plan (``mode="op"``) has no capacitor companion RHS, no
+  MOSFET charge stamps and no K, and an LM stamps its +1e-3 branch
+  diagonal as ``TAG_LMTERM`` of value -1e-3 against sign -1, as
+  assemble.py's mode "op".
 * per-lane f64 rows, batch axis first: ``dev`` (B, nd) holds g = 1/R_t,
-  C_t, C, L, the compat magnetic run constants (each LM's L0, its
-  frozen-core L_eff and its frozen i0 and i1; each K's M = k·sqrt(La·Lb),
-  ``_run_const64`` of the JAX package), then the ``D_ROWS``, ``Q_ROWS``
-  and ``M_ROWS`` of each nonlinear device (row r of device k of a kind at
-  its block offset + r·nk + k); ``src`` (B, nrc) one record per source
-  (``SRC_KEYS`` then the P knot times and P knot values); ``state`` (B,
-  ks) the committed C/L rows, and under physics then the rows
-  ``PHYS_ROWS`` of C, L, D and M (``state_layout``); ``jv`` (B, kj) the
-  junction voltages D vd | Q vbe | Q vbc | M vgs | M vds | M vbs.
+  C_t, C, L, the magnetic run constants (compat: each LM's L0, its
+  frozen-core L_eff and its frozen i0 and i1, each K's M = k·sqrt(La·Lb),
+  ``_run_const64`` of the JAX package; physics: each LM's
+  ``LM_PHYS_ROWS``, the J-A leaves its commit reads, and each K's
+  coefficient), then the ``D_ROWS``, ``Q_ROWS`` and ``M_ROWS`` of each
+  nonlinear device (row r of device k of a kind at its block offset +
+  r·nk + k); ``src`` (B, nrc) one record per source (``SRC_KEYS`` then
+  the P knot times and P knot values); ``state`` (B, ks) the committed C/L
+  rows, and under physics then the rows ``PHYS_ROWS`` of C, L, D and M
+  and the live LM rows ``LM_STATE`` (``state_layout``); ``jv`` (B, kj)
+  the junction voltages D vd | Q vbe | Q vbc | M vgs | M vds | M vbs.
 * ``topo``: the int32 table the kernel copies to shared memory (a header
   of counts and offsets, then the entries, sources, device nodes, each
   K's partners: kind (0 linear L, 1 LM) and index of winding a, then of
-  winding b, and the inductors' branch rows).
+  winding b (a pair with both kinds 0 is both-linear), the inductors'
+  branch rows, each LM's nodes and branch row, and each LM's core).
 """
 
 from dataclasses import dataclass
@@ -88,6 +91,20 @@ PHYS_ROWS = {"C": ("i0", "hist"), "L": ("hist",),
              "M": M_CHARGES + ("icgs", "icgd", "icgb", "icbs", "icbd",
                                "hist")}
 
+# the live magnetic inductor rows of physics (the JAX package's
+# _layout(physics=True) places them after the physics stack): the
+# currents, voltages and flux, and the winding's copy of its J-A core
+LM_STATE = ("i0", "i1", "v0", "v1", "flux0", "H", "Hold", "M", "Mirr",
+            "dMdH")
+CORE_KEYS = ("H", "Hold", "M", "Mirr", "dMdH")
+# a physics LM's run constants, csrc/run_kernel.cuh ``enum LmRow``: L0,
+# Ms at the commit's fixed 300.15 K (``magnetic.saturation``), the J-A
+# leaves of ``magnetic.ja_step``, and the turns and path length of the mmf
+LM_PHYS_ROWS = ("l0", "mst", "a", "k", "c", "alpha", "turns", "len")
+# the commit's temperature: engine/state.py make_commit runs ja_calculate
+# at 300.15 K whatever the stamp temperature
+JA_COMMIT_TEMP = 300.15
+
 # the scalar leaves of one source record, in record order
 SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
             "fall", "width", "period")
@@ -95,7 +112,7 @@ SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
 # topo header slots, csrc/newton.cuh ``enum Hdr``
 (H_NP1, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN, H_LN, H_KS,
  H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN, H_NLIN, H_KJ, H_DOFF,
- H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB) = range(29)
+ H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB, H_LMN, H_CORE) = range(31)
 H_LEN = 32
 
 
@@ -128,10 +145,6 @@ def fused_ineligible_reason(cc, semantics: str, store: str, opts):
     why = semantics_reason(semantics, opts)
     if why is not None:
         return why
-    if semantics == "physics" and any(k in cc.idx for k in MAG_KINDS):
-        return ("magnetic inductors or mutual couplings under physics "
-                "semantics (the live Jiles-Atherton core commit is not "
-                "ported yet)")
     if store not in ("none", "full"):
         return (f"store={store!r} (the whole-run kernel serves 'none' and "
                 "'full')")
@@ -139,15 +152,13 @@ def fused_ineligible_reason(cc, semantics: str, store: str, opts):
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
                 "runs R, C, L, LM, K, V, I, D, Q and M)")
-    if nonlinear(cc) and any(k in cc.idx for k in MAG_KINDS):
-        return ("magnetic inductors or mutual couplings with diodes, BJTs "
-                "or MOSFETs (the OP kernel has no magnetic stamps yet)")
     return None
 
 
-def state_layout(nc, nl, nd=0, nm=0, physics=False):
+def state_layout(nc, nl, nd=0, nm=0, physics=False, nlm=0):
     """Row offsets of the committed state stack: the compat C/L rows, and
-    under physics then ``PHYS_ROWS`` (keys "c_i0", "d_prev_charge", ...)."""
+    under physics then ``PHYS_ROWS`` (keys "c_i0", "d_prev_charge", ...)
+    and the LM rows ``LM_STATE`` (keys "lm_i0", ..., "lm_dMdH")."""
     out = {"c_q0": 0, "c_q1": nc, "c_v0": 2 * nc, "c_v1": 3 * nc,
            "l_i0": 4 * nc, "l_i1": 4 * nc + nl, "l_v0": 4 * nc + 2 * nl,
            "l_v1": 4 * nc + 3 * nl, "l_flux0": 4 * nc + 4 * nl}
@@ -157,6 +168,9 @@ def state_layout(nc, nl, nd=0, nm=0, physics=False):
             for key in PHYS_ROWS[kind]:
                 out[f"{kind.lower()}_{key}"] = row
                 row += nk
+        for key in LM_STATE:
+            out[f"lm_{key}"] = row
+            row += nlm
     out["ks"] = row
     return out
 
@@ -206,9 +220,8 @@ def build_plan(cc, mode="tran"):
         add(br, n[:, 1], TAG_ONE, k, 1)
         add(br, br, TAG_LTERM, k, -1)
         add(br, np.full(len(br), rhs), TAG_LRHS, k, 1)
-    if "LM" in cc.idx:  # magnetic.go:197-274, the compat branch value
-        if not tran:
-            raise ValueError("the OP plan has no magnetic stamps")
+    if "LM" in cc.idx:  # magnetic.go:197-274: the branch value, or in the
+        # OP the +1e-3 branch diagonal (magnetic.go:216-217)
         n = np.asarray(cc.idx["LM"]["nodes"])
         br = np.asarray(cc.idx["LM"]["branch"])
         k = seq(len(br))
@@ -217,7 +230,8 @@ def build_plan(cc, mode="tran"):
         add(n[:, 1], br, TAG_ONE, k, 1)
         add(br, n[:, 1], TAG_ONE, k, 1)
         add(br, br, TAG_LMTERM, k, -1)
-        add(br, np.full(len(br), rhs), TAG_LMRHS, k, 1)
+        if tran:
+            add(br, np.full(len(br), rhs), TAG_LMRHS, k, 1)
     if "V" in cc.idx:
         n = np.asarray(cc.idx["V"]["nodes"])
         br = np.asarray(cc.idx["V"]["branch"])
@@ -316,6 +330,8 @@ class RunPlan:
     nlm: int  # magnetic inductors
     nk: int  # mutual-coupling pairs
     kpairs: np.ndarray  # (nK, 4) int32 kind_a, idx_a, kind_b, idx_b
+    lm_tab: np.ndarray  # (nLM, 3) int32 n1, n2, branch row
+    core: np.ndarray  # (nLM,) int32 core id
     entries: np.ndarray  # (E, 5) int32
     n_lin: int  # the leading linear entries
     c_nodes: np.ndarray  # (nC, 2) int32
@@ -350,6 +366,13 @@ class RunPlan:
         return self.kj > 0
 
 
+def mag_width(nlm, nk, physics):
+    """The magnetic run constants' width in the dev rows: compat's L0,
+    L_eff, i0 and i1 per LM and M per K; physics' ``LM_PHYS_ROWS`` per LM
+    and the coefficient per K."""
+    return (len(LM_PHYS_ROWS) if physics else 4) * nlm + nk
+
+
 def make_plan(cc, mode="tran", physics=False) -> RunPlan:
     nr, nc, nl, nv, ni, n_d, n_q, n_m = counts = kind_counts(cc)
     nlm, nk = kind_counts(cc, MAG_KINDS)
@@ -377,7 +400,7 @@ def make_plan(cc, mode="tran", physics=False) -> RunPlan:
         for k in range(ns):
             src_rows.append((int(stype[kind][k]), off + width * k, P))
         off += width * ns
-    layout = state_layout(nc, nl, n_d, n_m, physics)
+    layout = state_layout(nc, nl, n_d, n_m, physics, nlm)
 
     # nonlinear device nodes: D (n1, n2), Q (c, b, e), M (d, g, s, b, level)
     def nodes(kind, cols):
@@ -391,20 +414,29 @@ def make_plan(cc, mode="tran", physics=False) -> RunPlan:
             [nodes("M", 4), np.asarray(cc.idx["M"]["level"],
                                        np.int32)[:, None]], axis=1)
     dev_offset = {}
-    row = nr + 2 * nc + nl + 4 * nlm + nk
+    row = nr + 2 * nc + nl + mag_width(nlm, nk, physics)
     for kind, count in (("D", n_d), ("Q", n_q), ("M", n_m)):
         dev_offset[kind] = row
         row += len(NL_ROWS[kind]) * count
 
     l_branch = (np.asarray(cc.idx["L"]["branch"], np.int32) if nl
                 else np.zeros(0, np.int32))
+    # each LM's (n1, n2, branch) and core, for the physics commit
+    lm_tab = np.zeros((0, 3), np.int32)
+    core = np.zeros(0, np.int32)
+    if nlm:
+        lm_tab = np.concatenate(
+            [np.asarray(cc.idx["LM"]["nodes"], np.int32)[:, :2],
+             np.asarray(cc.idx["LM"]["branch"], np.int32)[:, None]], axis=1)
+        core = np.asarray(cc.idx["LM"]["core_id"], np.int32)
     hdr = np.zeros(H_LEN, np.int32)
     parts = [entries.ravel(), np.asarray(src_rows, np.int32).ravel(),
              c_nodes.ravel(), l_nodes.ravel(), nodes("D", 2).ravel(),
-             nodes("Q", 3).ravel(), m_tab.ravel(), kpairs.ravel(), l_branch]
+             nodes("Q", 3).ravel(), m_tab.ravel(), kpairs.ravel(), l_branch,
+             lm_tab.ravel(), core]
     pos = H_LEN
     for key, part in zip((H_ENT, H_SRC, H_CN, H_LN, H_DN, H_QN, H_MN, H_KP,
-                          H_LB), parts):
+                          H_LB, H_LMN, H_CORE), parts):
         hdr[key] = pos
         pos += part.size
     hdr[H_NP1] = cc.np1
@@ -422,7 +454,7 @@ def make_plan(cc, mode="tran", physics=False) -> RunPlan:
     topo = np.concatenate([hdr] + parts).astype(np.int32)
     return RunPlan(np1=cc.np1, mode=mode, physics=bool(physics),
                    counts=counts, nlm=nlm, nk=nk,
-                   kpairs=kpairs, entries=entries,
+                   kpairs=kpairs, lm_tab=lm_tab, core=core, entries=entries,
                    n_lin=n_lin, c_nodes=c_nodes, l_nodes=l_nodes,
                    l_branch=l_branch,
                    stype=stype, knots=knots, src_offset=src_offset,
@@ -492,11 +524,24 @@ def nl_row_values(kind, p, st, temp):
 
 
 def magnetic_rows(plan, params, b, device, temp, state0):
-    """The compat magnetic run constants (``_run_const64`` of the JAX
+    """The magnetic run constants.  Compat (``_run_const64`` of the JAX
     package): per LM, L0, the frozen-core L_eff (``l_effective``) and the
     frozen i0 and i1; per K, M = k·sqrt(La·Lb) with a linear partner's
-    value or an LM partner's ``value_for_mutual`` at its frozen core."""
+    value or an LM partner's ``value_for_mutual`` at its frozen core.
+    Physics: per LM the ``LM_PHYS_ROWS`` (the core moves, so L and M are
+    the kernel's to compute from the state rows), per K its coefficient."""
     nl, nlm = plan.counts[2], plan.nlm
+    if plan.physics:
+        rows = []
+        if nlm:
+            pm = params["LM"]
+            vals = {"l0": magnetic.l_zero(pm),
+                    "mst": magnetic.saturation(pm, JA_COMMIT_TEMP)}
+            rows += [lanes(vals[key] if key in vals else pm[key], b)
+                     for key in LM_PHYS_ROWS]
+        if plan.nk:
+            rows.append(lanes(params["K"]["coeff"], b))
+        return rows
     rows = []
     if nlm:
         pm = {key: lanes(leaf, b) for key, leaf in params["LM"].items()}
@@ -508,8 +553,7 @@ def magnetic_rows(plan, params, b, device, temp, state0):
                                    device=device)
             return lanes(stm[key], b)
 
-        core = magnetic.CoreState(*(lmrow(key) for key in
-                                    ("H", "Hold", "M", "Mirr", "dMdH")))
+        core = magnetic.CoreState(*(lmrow(key) for key in CORE_KEYS))
         i0 = lmrow("i0")
         leff, _ = magnetic.l_effective(pm, core, i0, temp)
         rows += [magnetic.l_zero(pm), leff, i0, lmrow("i1")]
@@ -652,6 +696,8 @@ def init_state_stack(plan, state0, b, device):
         for kind in ("C", "L", "D", "M"):
             if plan.counts[DEVICE_KINDS.index(kind)]:
                 rows += [srow(kind, k) for k in PHYS_ROWS[kind]]
+        if plan.nlm:
+            rows += [srow("LM", k) for k in LM_STATE]
     if not rows:
         return torch.zeros((b, 1), dtype=torch.float64, device=device)
     return torch.cat(rows, dim=1).contiguous()
@@ -661,8 +707,8 @@ def unpack_state(plan, st, state0, accepted, b):
     """Final state stack -> the state dict of the JAX package's
     ``_unpack_state_jv``: C/L rows from the stack; under compat C.i0
     passed through, hist set on lanes that accepted a step, LM/D/Q/M
-    passed through; under physics C.i0, every hist and the D and M rows
-    from the stack, Q passed through."""
+    passed through; under physics C.i0, every hist and the D, M and LM
+    rows from the stack, Q passed through."""
     nc, nl = plan.counts[1:3]
     L = plan.layout
     started = (accepted > 0)[:, None]
@@ -698,7 +744,10 @@ def unpack_state(plan, st, state0, accepted, b):
     for kind in ("LM",) + NL_KINDS:
         if kind not in state0:
             continue
-        if plan.physics and kind in ("D", "M"):
+        if plan.physics and kind == "LM":
+            state[kind] = {key: grab(f"lm_{key}", plan.nlm)
+                           for key in LM_STATE}
+        elif plan.physics and kind in ("D", "M"):
             state[kind] = phys(kind, plan.counts[DEVICE_KINDS.index(kind)])
         else:
             state[kind] = {key: lanes(leaf, b).clone()
