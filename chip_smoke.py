@@ -12,8 +12,9 @@ seconds:
    run_kernel.cu, its physics ones in run_kernel_phys.cu, its physics
    magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
    source built without and with the waveform store), the OP kernel, the
-   DC sweep kernel, the stamped solve and the AC kernel, one ``nvcc`` call
-   per library, all started together (ops/_build.py).
+   DC sweep kernel, the stamped solve (per-thread to np1 = 32, a block per
+   lane to 128), the AC kernel and the GJ kernel, one ``nvcc`` call per
+   library, all started together (ops/_build.py).
 3. run kernel against its plain torch version on linear decks, on the
    card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -132,12 +133,32 @@ seconds:
    store='full') on phase 21's 8192 lanes (one OP launch, one PHYS store
    launch, 9.8 GB of output), then that store kernel against the plain
    store on the same lanes, timed alone and through its wrapper.
+27. the GJ kernel (csrc/gj_kernel.cu) against gj_plain on 256 random
+   systems each of n = 6, 32, 40, 72 and 128, with a zero diagonal and a
+   singular lane: the same non-finite lane, x within rtol 1e-9 (the same
+   bits expected), and on the same systems the stamped solve (per-thread
+   to 32, its block instantiation above) and its plain version.
+28. the general engine against the run kernel on an eligible deck: the
+   half-wave rectifier, 256 lanes, through engine/tran.make_tran (the
+   general OP with its GJ seed, the general Newton over the stamped solve)
+   and through make_tran_batch (the OP and run kernels): counters equal,
+   state and jv within rtol 1e-9.
+29. the general engine's main path cw16_8192: a 16-stage Cockcroft-Walton
+   multiplier (np1 = 35, 32 diodes, past the kernels' caps), C spread 0.1,
+   make_tran_batch to 2 ms: engine "general", one GJ launch (the OP's
+   seed), one launch of the stamped solve's block instantiation per batched
+   Newton iteration, no other kernel, no lane failed; then the kernels
+   against their plain versions on the same lanes over the first 0.1 ms.
+30. lc16_ac_8192: a 16-section LC ladder (np1 = 36, a 72 x 72 AC system),
+   C spread 0.1, run_ac_batch: the linear OP (one stamped launch at
+   n = 36), then one GJ launch for the 8192 x 21 = 172,032 systems; the GJ
+   kernel against gj_plain on them, torch.linalg.solve as the yardstick.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26) and
-each path of phases 22-24 runs with every kernel's launch count set to 0
-just before and read just after.
+Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
+29, 30) and each path of phases 22-24 and 28 runs with every kernel's
+launch count set to 0 just before and read just after.
 """
 
 import json
@@ -154,12 +175,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import toyspice_tpu_torch as ts  # noqa: E402
 from toyspice_tpu_torch.compiler import SRC_PULSE, SRC_PWL, SRC_SIN  # noqa: E402
-from toyspice_tpu_torch.engine.ac import make_ac_batch  # noqa: E402
+from toyspice_tpu_torch.engine.ac import make_ac, make_ac_batch  # noqa: E402
 from toyspice_tpu_torch.engine.dc import make_dc  # noqa: E402
 from toyspice_tpu_torch.engine.op import make_op  # noqa: E402
 from toyspice_tpu_torch.engine.options import DEFAULTS  # noqa: E402
+from toyspice_tpu_torch.engine.tran import make_tran  # noqa: E402
 from toyspice_tpu_torch.ops import (_build, ac, dc, op, run,  # noqa: E402
-                                    run_plan, solve_stamped)
+                                    run_plan, solve, solve_stamped)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_LANES = 8192
@@ -167,6 +189,7 @@ SMALL_LANES = 256
 NAN_LANES = 64
 RESCUE_LANES = 256
 RTOL = 1e-9  # both sides f64; they may differ only in rounding order
+DEVICE = "cuda"
 # H100 SXM f64 rate outside the tensor cores (NVIDIA data sheet) and HBM3
 # bandwidth, for the bounds of the kernels
 PEAK_F64 = 34e12
@@ -365,7 +388,8 @@ COUNTERS = {"run_kernel": run.launch_run_kernel,
             "op_kernel": op.launch_op_kernel,
             "stamped_solve": solve_stamped.launch_stamped,
             "dc_sweep_kernel": dc.launch_dc_kernel,
-            "ac_kernel": ac.launch_ac_kernel}
+            "ac_kernel": ac.launch_ac_kernel,
+            "gj_kernel": solve.launch_gj}
 
 
 def reset_counts():
@@ -449,7 +473,8 @@ def ptxas_summary(log):
             names = ([("linear", "newton"), ("", "mag"), ("", "store"),
                       ("", "physics")] if k is not None
                      and k.group(1) == "run_kernel" else [("", "physics")])
-            label = entry if k is None else (
+            g = re.search(r"(gj_kernel|stamped_block_kernel)", entry)
+            label = (g.group(1) if g else entry) if k is None else (
                 f"{k.group(1)}<{k.group(2)}" + "".join(
                     f", {names[i][int(f)]}" for i, f in enumerate(flags)
                     if i < len(names) and names[i][int(f)]) + ">")
@@ -635,11 +660,14 @@ def wave_err(name, kw, pw, block=1024):
 
 class TimedSolve:
     """A launch function with CUDA events around every launch; ``args``
-    keeps each call's arguments."""
+    keeps each call's arguments.  With ``library``, each call also times
+    torch.linalg.solve on the call's systems (``library(*args)`` -> (a,
+    b)) under events of its own."""
 
-    def __init__(self, solve):
+    def __init__(self, solve, library=None):
         self.solve = solve
-        self.events = []
+        self.library = library
+        self.events, self.lib_events = [], []
         self.args = []
 
     def __call__(self, *args):
@@ -650,11 +678,20 @@ class TimedSolve:
         e1.record()
         self.events.append((e0, e1))
         self.args.append(args)
+        if self.library is not None:
+            a_, b_ = self.library(*args)
+            l0 = torch.cuda.Event(enable_timing=True)
+            l1 = torch.cuda.Event(enable_timing=True)
+            l0.record()
+            torch.linalg.solve(a_, b_)
+            l1.record()
+            self.lib_events.append((l0, l1))
         return r
 
-    def ms(self):
+    def ms(self, lib=False):
         torch.cuda.synchronize()
-        return sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+        return sum(e0.elapsed_time(e1) for e0, e1 in
+                   (self.lib_events if lib else self.events))
 
 
 def stamped_phases(lanes):
@@ -2041,6 +2078,345 @@ def physics_store_phase(lanes, smi):
                 w_ms=w_ms, p_ms=p_ms, flops=int(flops), nbytes=nbytes_)
 
 
+# ------------------------------------------------------ general engine
+# Decks past the kernels' caps through the general engine (engine/tran,
+# op, dc, ac): its Newton is a host loop over the stamped solve, whose
+# block instantiation takes np1 past 32; its dense solves are the GJ
+# kernel (csrc/gj_kernel.cu).
+
+
+def cockcroft_walton(stages, tstop="2m"):
+    """A half-wave Cockcroft-Walton multiplier of ``stages`` stages
+    (tests/test_torch_general.py): 2·stages diodes and capacitors, np1 =
+    2·stages + 3, a 100 V 1 kHz sine into a 10 MΩ load."""
+    lines = [f"* {stages}-stage half-wave Cockcroft-Walton multiplier",
+             f".tran 5u {tstop}", "Vin a 0 SIN(0 100 1k)",
+             "C1 a p1 100n", "D1 0 p1 DMOD", "D2 p1 s1 DMOD",
+             "C2 0 s1 100n"]
+    for k in range(2, stages + 1):
+        lines += [f"C{2 * k - 1} p{k - 1} p{k} 100n",
+                  f"D{2 * k - 1} s{k - 1} p{k} DMOD",
+                  f"D{2 * k} p{k} s{k} DMOD",
+                  f"C{2 * k} s{k - 1} s{k} 100n"]
+    lines += [f"Rload s{stages} 0 10meg",
+              ".model DMOD D (Is=1e-14 N=1.0 Cj0=2p Tt=5n)", ""]
+    return "\n".join(lines)
+
+
+def lc_ladder(sections):
+    """A doubly terminated 50 Ω LC low-pass of ``sections`` sections
+    (tests/test_torch_general_analyses.py): np1 = sections + 4, 21
+    frequencies from 10 kHz to 100 MHz."""
+    lines = [f"* {sections}-section 50 ohm LC ladder low-pass",
+             ".ac dec 21 10k 100meg", "Vin in 0 AC 1 0", "Rs in n0 50"]
+    for k in range(1, sections + 1):
+        lines += [f"L{k} n{k - 1} n{k} 1u", f"C{k} n{k} 0 400p"]
+    lines += [f"Rl n{sections} 0 50", ""]
+    return "\n".join(lines)
+
+
+def c_spread(cc, b):
+    """C spread log-normally by 0.1, numpy default_rng(0)."""
+    return perturbed(cc, np.random.default_rng(0), b, ("C",))
+
+
+def dense_sets(n, b, seed):
+    """b random well-conditioned (n, n) systems on the card with row 0 the
+    ground identity (x[0] = 0), a structural zero on diagonal 3 (pivoting
+    needed) and an all-zero row 2 on lane 5 (singular)."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(b, n, n)) + 4.0 * np.eye(n)
+    rhs = rng.normal(size=(b, n))
+    a[:, 0, :] = 0.0
+    a[:, 0, 0] = 1.0
+    rhs[:, 0] = 0.0
+    a[:, 3, 3] = 0.0
+    a[5, 2, :] = 0.0
+    return (torch.as_tensor(a, device=DEVICE),
+            torch.as_tensor(rhs, device=DEVICE))
+
+
+def dense_pattern(n):
+    """A stamped pattern with one entry per cell of rows 1..n-1 and one RHS
+    entry per row: the stamped solve of (a[:, 1:], b[:, 1:]) with gmin 0
+    builds [a | b] itself (row 0 the ground identity)."""
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    return solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                           np.arange(1, n))
+
+
+def same_bits(a, b):
+    return torch.equal(torch.nan_to_num(a, nan=7.0, posinf=8.0,
+                                        neginf=9.0),
+                       torch.nan_to_num(b, nan=7.0, posinf=8.0, neginf=9.0))
+
+
+def gj_phase(lanes):
+    """Phase 27: the GJ kernel against gj_plain on random sets, n in {6,
+    32, 40, 72, 128}, with a zero-diagonal column and a singular lane: x
+    within rtol 1e-9 (bit-identical expected), the same non-finite lanes;
+    on the same systems the stamped solve (the per-thread instantiation at
+    n <= 32, the block one above) and its plain version."""
+    t0 = time.perf_counter()
+    err = 0.0
+    notes = []
+    for n in (6, 32, 40, 72, 128):
+        a, rhs = dense_sets(n, lanes, n)
+        xk = solve.launch_gj(a, rhs)
+        xp = solve.gj_plain(a, rhs)
+        fn = dense_pattern(n)
+        g = torch.zeros(lanes, dtype=torch.float64, device=DEVICE)
+        vals = a[:, 1:, :].reshape(lanes, -1).contiguous()
+        rv = rhs[:, 1:].contiguous()
+        xs = fn(vals, rv, g)
+        xsp = solve_stamped.solve_plain(fn.pattern, vals, rv, g)
+        torch.cuda.synchronize()
+        bad = ~torch.isfinite(xp).all(dim=1)
+        if bad.tolist() != [i == 5 for i in range(lanes)]:
+            fail(f"GJ n={n}: the singular lane is not the only non-finite "
+                 "one")
+        for what, got in (("GJ kernel", xk), ("stamped kernel", xs),
+                          ("stamped plain", xsp)):
+            if not torch.equal(~torch.isfinite(got).all(dim=1), bad):
+                fail(f"GJ n={n}: the {what}'s non-finite lanes differ")
+            err = max(err, check_err(f"GJ n={n}", what, got[~bad],
+                                     xp[~bad], err_scale(xp[~bad])))
+        bits = [same_bits(xk, xp), same_bits(xs, xp), same_bits(xsp, xp)]
+        notes.append(f"n={n}: bit-identical {'/'.join(map(str, bits))}")
+        if not all(bits):
+            print(f"[27 GJ] n={n}: not bit-identical (GJ kernel, stamped "
+                  f"kernel, stamped plain vs gj_plain: {bits})", flush=True)
+    phase("27 GJ kernel vs plain", t0,
+          f"{lanes} random systems each, a zero diagonal and a singular "
+          f"lane: GJ kernel, stamped kernel (per-thread to 32, block above) "
+          f"and stamped plain against gj_plain, the same non-finite lanes, "
+          f"max abs err {err:.3e}; " + "; ".join(notes))
+    return err
+
+
+def general_vs_run_phase(lanes):
+    """Phase 28: the general engine against the run kernel on an eligible
+    deck: the half-wave rectifier, 256 lanes, R and C spread, through
+    engine/tran.make_tran (the general OP, then the general Newton over
+    the stamped solve) and through make_tran_batch (the OP and run
+    kernels): counters equal per lane, state and jv within rtol 1e-9."""
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(
+        deck_file("half_wave_rectifier.cir"), rc_spread, lanes)
+    fk = ts.make_tran_batch(cc, cfg, axes)
+    if fk.engine != "run":
+        fail(f"general vs run: engine {fk.engine!r}, expected 'run'")
+    k = fk(params, state0)
+    reset_counts()
+    g = make_tran(cc, cfg, store="none")(params, state0)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("general vs run", got, {"gj_kernel": (1, 2),
+                                         "stamped_solve": (1, 1 << 30)})
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        if not torch.equal(getattr(k, key), getattr(g, key)):
+            bad = int((getattr(k, key) != getattr(g, key)).sum())
+            fail(f"general vs run: {key} differs on {bad} lanes")
+    pairs = [("t_final", g.t_final, k.t_final)] + [
+        (f"{what}.{kd}.{key}", gt[kd][key], kt[kd][key])
+        for what, gt, kt in (("state", g.state, k.state),
+                             ("jv", g.jv, k.jv))
+        for kd in kt for key in kt[kd]]
+    err = max_err("general vs run", pairs)
+    phase("28 general engine vs run kernel", t0,
+          f"half_wave_rectifier: {lanes} lanes, attempts "
+          f"{int(g.attempts.sum())}, NR iterations {int(g.nr_iters.sum())}, "
+          f"GJ launches {got['gj_kernel']}, stamped-solve launches "
+          f"{got['stamped_solve']}: counters equal to the run kernel's, "
+          f"max abs err {err:.3e}")
+    return err
+
+
+def stamped_systems(pat, vals, rvals, gmin):
+    m = solve_stamped.build_plain(pat, vals, rvals, gmin)
+    return m[:, :, :pat.n].contiguous(), m[:, :, pat.n:].contiguous()
+
+
+def cw16_phase(lanes, smi):
+    """Phase 29: the main path cw16_8192: a 16-stage Cockcroft-Walton
+    multiplier (np1 = 35, 32 diodes: past the kernels' caps), C spread
+    0.1, compat, store='none', not UIC, through make_tran_batch: engine
+    "general", the GJ kernel for the OP's seed, the stamped solve's block
+    instantiation once per batched Newton iteration, no run, OP or store
+    kernel; no lane failed, every lane at tstop.  Then the general engine
+    with the kernels against the general engine with their plain versions
+    on the same 8192 lanes over the run's first 0.1 ms: counters equal,
+    state and jv within rtol 1e-9 (bit-identical expected); the stamped
+    kernel's, the plain version's and torch.linalg.solve's times are
+    those launches'."""
+    t0 = time.perf_counter()
+    deck = cockcroft_walton(16)
+    cc, cfg, params, axes, state0 = setup(deck, c_spread, lanes)
+    if cc.np1 != 35 or cc.kind_count("D") != 32:
+        fail("cw16: np1 is not 35 or the diodes are not 32")
+    short = cfg._replace(tstop=1e-4)
+    ts.make_tran_batch(cc, short, axes)(params, state0)  # warm-up
+    fn = ts.make_tran_batch(cc, cfg, axes)
+    if fn.engine != "general" or "np1=35" not in fn.engine_reason:
+        fail(f"cw16 engine {fn.engine!r} ({fn.engine_reason})")
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("cw16 main path", got, {"gj_kernel": (1, 2),
+                                         "stamped_solve": (1, 1 << 30)})
+    accepted = int(out.accepted.sum())
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"cw16 main path: {failed} of {lanes} lanes failed or stopped "
+             "early")
+    vc = out.state["C"]["v0"]
+    if not bool(torch.isfinite(vc).all()) or not bool(
+            (vc.abs() < 3200.0).all()):
+        fail("cw16 main path: a capacitor voltage is not finite or exceeds "
+             "16 stages of 200 V")
+    nri = out.nr_iters
+    # the kernels against their plain versions on the same 8192 lanes, the
+    # run cut to its first 0.1 ms (a whole plain run takes ~35 s)
+    tk, gk = (TimedSolve(solve_stamped.solve_lanes, stamped_systems),
+              TimedSolve(solve.linear_solve))
+    tp_, gp = TimedSolve(solve_stamped.solve_plain), TimedSolve(solve.gj_plain)
+    k = make_tran(cc, short, store="none", solve=tk, dense_solve=gk)(
+        params, state0)
+    p = make_tran(cc, short, store="none", solve=tp_, dense_solve=gp)(
+        params, state0)
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        if not torch.equal(getattr(k, key), getattr(p, key)):
+            fail(f"cw16: {key} differs between the kernels and the plain "
+                 "versions")
+    pairs = [(f"{what}.{kd}.{key}", kt[kd][key], pt[kd][key])
+             for what, kt, pt in (("state", k.state, p.state),
+                                  ("jv", k.jv, p.jv))
+             for kd in pt for key in pt[kd]]
+    err = max_err("cw16 kernels vs plain", pairs)
+    pat, vals, rvals, gmin = tk.args[0]
+    ga, gb = gk.args[0]
+    calls = len(tk.args)
+    per_launch_bytes = (nbytes(vals, rvals, gmin) + pat.table.nbytes
+                        + lanes * pat.n * 8)
+    stamped_big = dict(
+        launches=got["stamped_solve"], err=err, k_ms=tk.ms(),
+        p_ms=tp_.ms(), lib_ms=tk.ms(lib=True), calls=calls,
+        flops=calls * lanes * stamped_flops(pat),
+        nbytes=calls * per_launch_bytes, n=pat.n, terms=int(pat.table[0]))
+    gj_seed = dict(launches=got["gj_kernel"], k_ms=gk.ms(), p_ms=gp.ms(),
+                   systems=ga.shape[0], n=ga.shape[1],
+                   flops=len(gk.args) * ga.shape[0] * lu_flops(ga.shape[1]),
+                   nbytes=len(gk.args) * (nbytes(ga, gb) + nbytes(gb)))
+    gl0 = torch.cuda.Event(enable_timing=True)
+    gl1 = torch.cuda.Event(enable_timing=True)
+    gl0.record()
+    torch.linalg.solve(ga, gb)
+    gl1.record()
+    torch.cuda.synchronize()
+    gj_seed["lib_ms"] = len(gk.args) * gl0.elapsed_time(gl1)
+    phase("29 cw16_8192 main path", t0,
+          f"cw16 (np1={cc.np1}, {cc.kind_count('D')} diodes): engine="
+          f"{fn.engine} ({fn.engine_reason}), GJ kernel launches="
+          f"{got['gj_kernel']}, stamped-solve launches="
+          f"{got['stamped_solve']} (block instantiation, n={pat.n}, "
+          f"{int(pat.table[0])} terms), lanes={lanes}, accepted={accepted}, "
+          f"attempts={int(out.attempts.sum())}, failed={failed}, every lane "
+          f"at tstop, Newton iterations per lane {int(nri.min())}.."
+          f"{int(nri.max())} (mean {float(nri.double().mean()):.3f}), wall="
+          f"{wall:.6f} s, {accepted / wall:.6e} accepted steps/s on {smi}; "
+          f"the kernels vs their plain versions on these lanes over the "
+          f"first 0.1 ms ({calls} stamped launches): counters equal, "
+          f"max abs err {err:.3e}; stamped kernel {stamped_big['k_ms']:.3f} "
+          f"ms, plain {stamped_big['p_ms']:.1f} ms, torch.linalg.solve on "
+          f"the built systems {stamped_big['lib_ms']:.3f} ms; GJ seed "
+          f"kernel {gj_seed['k_ms']:.3f} ms, plain {gj_seed['p_ms']:.3f} ms")
+    del k, p, tk, gk, tp_, gp
+    free()
+    return stamped_big, gj_seed
+
+
+def lc16_phase(lanes, smi, chunk=16384):
+    """Phase 30: the main path lc16_ac_8192: a 16-section LC ladder (np1 =
+    36, a 72 x 72 AC system: past the AC kernel's 2np1 <= 64), C spread
+    0.1, through run_ac_batch: the linear OP as the bias (one launch of
+    the stamped solve's block instantiation, n = 36), then one GJ launch
+    for the 8192 x 21 = 172,032 systems; |V(n16)| = 0.5 at 10 kHz.  Then
+    the GJ kernel against gj_plain on the same systems (in chunks), and
+    torch.linalg.solve on them as the yardstick."""
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(lc_ladder(16), c_spread, lanes)
+    ap = cc.netlist.ac
+    freqs = ts.frequency_points(ap.sweep, ap.fstart, ap.fstop, ap.points)
+    if cc.np1 != 36 or len(freqs) != 21:
+        fail("lc16: np1 is not 36 or the frequencies are not 21")
+    fn = make_ac_batch(cc, axes)
+    if fn.engine != "general":
+        fail(f"lc16 AC engine {fn.engine!r}, expected 'general'")
+    small = {k_: {kk: (v[:64] if v.ndim == 2 else v) for kk, v in t.items()}
+             for k_, t in params.items()}
+    fn(small, state0, freqs)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("lc16 AC main path", got, {"stamped_solve": (1, 1),
+                                            "gj_kernel": (1, 1)})
+    nf = len(freqs)
+    out = cc.netlist.nodes["n16"]
+    if xr.shape != (lanes, nf, cc.np1) or not bool(
+            torch.isfinite(xr).all() & torch.isfinite(xi).all()) or not bool(
+                opr.converged.all()):
+        fail("lc16 AC: wrong shape, a value not finite, or a bias not "
+             "converged")
+    mag = torch.sqrt(xr[:, :, out] ** 2 + xi[:, :, out] ** 2)
+    if not bool(((mag[:, 0] - 0.5).abs() < 1e-4).all()):
+        fail("lc16 AC: |V(n16)| at 10 kHz is not half the source")
+    del xr, xi
+    free()
+    gk = TimedSolve(solve.linear_solve)
+    kr, ki, _ = make_ac(cc, dense_solve=gk)(params, state0, freqs)
+    a2, b2 = gk.args[0]
+    k_ms = gk.ms()
+    x = torch.cat([kr, ki], dim=-1).reshape(-1, 2 * cc.np1)
+    del kr, ki
+    _, k2_ms = timed_call(solve.launch_gj, a2, b2)
+    p_ms, err, bits = 0.0, 0.0, True
+    for i in range(0, a2.shape[0], chunk):
+        xp, ms = timed_call(solve.gj_plain, a2[i:i + chunk], b2[i:i + chunk])
+        p_ms += ms
+        err = max(err, max_err("lc16 GJ", [("x", x[i:i + chunk], xp)]))
+        bits = bits and same_bits(x[i:i + chunk], xp)
+        del xp
+    torch.linalg.solve(a2[:1024], b2[:1024])  # warm-up
+    _, lib_ms = timed_call(torch.linalg.solve, a2, b2)
+    nsys = a2.shape[0]
+    gj_ac = dict(launches=got["gj_kernel"], err=err, k_ms=k2_ms,
+                 p_ms=p_ms, lib_ms=lib_ms, systems=nsys, n=a2.shape[1],
+                 flops=nsys * lu_flops(a2.shape[1]),
+                 nbytes=nbytes(a2, b2) + nbytes(b2))
+    phase("30 lc16_ac_8192 main path", t0,
+          f"lc16 (np1={cc.np1}): engine {fn.engine} ({fn.engine_reason}), "
+          f"stamped-solve launches={got['stamped_solve']}, GJ kernel "
+          f"launches={got['gj_kernel']} for {nsys} systems of "
+          f"{a2.shape[1]}, wall={wall:.6f} s, {nsys / wall:.6e} systems/s "
+          f"on {smi}; |V(n16)| {float(mag[:, 0].mean()):.6f} at 10 kHz, "
+          f"{float(mag[:, 10].mean()):.6f} at {freqs[10]:.6g} Hz, "
+          f"{float(mag[:, -1].max()):.3e} at 100 MHz; GJ kernel "
+          f"{k2_ms:.3f} ms (in the path {k_ms:.3f} ms), plain {p_ms:.1f} ms "
+          f"in chunks of {chunk}, max abs err {err:.3e}, bit-identical "
+          f"{bits}; torch.linalg.solve {lib_ms:.3f} ms")
+    del a2, b2, x, gk
+    free()
+    return gj_ac
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2328,6 +2704,10 @@ def main():
     mag_ac_err = mag_ac_phase(BENCH_LANES)
     mag = mag_main_phase(BENCH_LANES, smi)
     phys_store = physics_store_phase(BENCH_LANES, smi)
+    gj_err = gj_phase(SMALL_LANES)
+    gen_err = general_vs_run_phase(SMALL_LANES)
+    stamped_big, gj_seed = cw16_phase(BENCH_LANES, smi)
+    gj_ac = lc16_phase(BENCH_LANES, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -2452,6 +2832,24 @@ def main():
               f"{PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; {what['nbytes']} "
               f"bytes / {PEAK_BYTES:.3g} B/s = {bd[3]:.6f} ms", flush=True)
 
+    sb_bound = bound(stamped_big["flops"], stamped_big["nbytes"])
+    print(f"[17 bound] stamped_solve block (cw16_8192's first 0.1 ms, "
+          f"{stamped_big['calls']} launches, n={stamped_big['n']}, "
+          f"{stamped_big['terms']} terms): "
+          f"{stamped_big['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
+          f"{sb_bound[2]:.6f} ms; {stamped_big['nbytes']} bytes / "
+          f"{PEAK_BYTES:.3g} B/s = {sb_bound[3]:.6f} ms", flush=True)
+    gj_flops = gj_seed["flops"] + gj_ac["flops"]
+    gj_bytes = gj_seed["nbytes"] + gj_ac["nbytes"]
+    gj_bound = bound(gj_flops, gj_bytes)
+    print(f"[17 bound] gj_kernel (cw16_8192's seed, {gj_seed['systems']} "
+          f"systems of {gj_seed['n']}, and lc16_ac_8192, "
+          f"{gj_ac['systems']} systems of {gj_ac['n']}): {gj_flops} f64 "
+          f"operations / {PEAK_F64:.3g} op/s = {gj_bound[2]:.6f} ms; "
+          f"{gj_bytes} bytes / {PEAK_BYTES:.3g} B/s = {gj_bound[3]:.6f} ms; "
+          f"lc16 alone: {bound(gj_ac['flops'], gj_ac['nbytes'])[0]:.6f} ms",
+          flush=True)
+
     def entry(name, source, replaces, launches, err, k_ms, p_ms, bd,
               lib_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -2530,7 +2928,19 @@ def main():
               "toyspice_tpu/ops/pallas_op.py:431"),
              ("dc_sweep_kernel_magnetic_physics", "dc_physics",
               "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
-              "toyspice_tpu/ops/pallas_op.py:431"))]}
+              "toyspice_tpu/ops/pallas_op.py:431"))] + [
+        entry("gj_kernel", "toyspice_tpu_torch/csrc/gj_kernel.cu",
+              "toyspice_tpu/ops/pallas_solve.py:235",
+              gj_seed["launches"] + gj_ac["launches"],
+              max(gj_err, gj_ac["err"]), gj_seed["k_ms"] + gj_ac["k_ms"],
+              gj_seed["p_ms"] + gj_ac["p_ms"], gj_bound,
+              gj_seed["lib_ms"] + gj_ac["lib_ms"]),
+        entry("stamped_solve_block",
+              "toyspice_tpu_torch/csrc/stamped_solve.cu",
+              "toyspice_tpu/ops/pallas_solve.py:337",
+              stamped_big["launches"], max(stamped_big["err"], gen_err),
+              stamped_big["k_ms"], stamped_big["p_ms"], sb_bound,
+              stamped_big["lib_ms"])]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

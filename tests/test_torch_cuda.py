@@ -841,3 +841,108 @@ def test_magnetic_main_path_launches_its_kernels(cuda):
     assert ac.launch_ac_kernel.launches == a0 + 1
     _assert_close(xr, kr)
     _assert_close(xi, ki)
+
+
+# ------------------------------------------------------- general engine
+
+
+def _general_inputs(deck, lanes, device):
+    cc, cfg, params, state0 = _inputs(deck, lanes, device)[:4]
+    return cc, cfg, params, state0
+
+
+def _dense_sets(n, lanes, device):
+    rng = np.random.default_rng(n)
+    a = rng.normal(size=(lanes, n, n)) + 4.0 * np.eye(n)
+    b = rng.normal(size=(lanes, n))
+    a[:, 0, :] = 0.0
+    a[:, 0, 0] = 1.0
+    b[:, 0] = 0.0
+    a[:, 3, 3] = 0.0
+    a[5, 2, :] = 0.0  # singular lane
+    return (torch.as_tensor(a, device=device),
+            torch.as_tensor(b, device=device))
+
+
+@pytest.mark.parametrize("n", [6, 32, 40, 72, 128])
+def test_gj_and_stamped_kernels_match_plain(cuda, n):
+    """csrc/gj_kernel.cu and csrc/stamped_solve.cu (per-thread to 32, one
+    block per lane above) against gj_plain on the same systems: the same
+    bits and the same non-finite lane."""
+    from toyspice_tpu_torch.ops import solve
+
+    a, b = _dense_sets(n, 130, cuda)
+    want = solve.gj_plain(a, b)
+    before = solve.launch_gj.launches
+    got = solve.linear_solve(a, b)
+    assert solve.launch_gj.launches == before + 1
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                         np.arange(1, n))
+    vals = a[:, 1:, :].reshape(130, -1).contiguous()
+    g = torch.zeros(130, dtype=torch.float64, device=cuda)
+    st = fn(vals, b[:, 1:].contiguous(), g)
+    stp = solve_stamped.solve_plain(fn.pattern, vals, b[:, 1:].contiguous(),
+                                    g)
+    bad = ~torch.isfinite(want).all(dim=1)
+    assert bad.tolist() == [i == 5 for i in range(130)]
+    for x in (got, st, stp):
+        assert torch.equal(~torch.isfinite(x).all(dim=1), bad)
+        torch.testing.assert_close(x[~bad], want[~bad], rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_general_engine_matches_the_run_kernel(cuda):
+    """The half-wave rectifier through engine/tran.make_tran (the general
+    OP with its GJ seed, the general Newton over the stamped solve)
+    against make_tran_batch (the OP and run kernels), 64 lanes."""
+    from toyspice_tpu_torch.engine.tran import make_tran
+    from toyspice_tpu_torch.ops import solve
+
+    cc, cfg, params, state0 = _general_inputs(HWR, 64, cuda)
+    k = ts.make_tran_batch(cc, cfg, None)(params, state0)
+    before = solve.launch_gj.launches
+    g = make_tran(cc, cfg, store="none")(params, state0)
+    assert solve.launch_gj.launches > before
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        assert torch.equal(getattr(g, key), getattr(k, key)), key
+    for kind in k.state:
+        for key in k.state[kind]:
+            torch.testing.assert_close(g.state[kind][key], k.state[kind][key],
+                                       rtol=1e-9, atol=1e-15)
+
+
+def test_cw16_takes_the_general_engine(cuda):
+    """A 16-stage Cockcroft-Walton multiplier (np1 = 35, 32 diodes) cut to
+    0.1 ms: engine "general", the GJ kernel and the stamped solve's block
+    instantiation launched, no other kernel; the kernels against the plain
+    versions on the same lanes."""
+    from toyspice_tpu_torch.engine.tran import make_tran
+    from toyspice_tpu_torch.ops import solve
+
+    lines = [".tran 5u 0.1m", "Vin a 0 SIN(0 100 1k)", "C1 a p1 100n",
+             "D1 0 p1 DMOD", "D2 p1 s1 DMOD", "C2 0 s1 100n"]
+    for k in range(2, 17):
+        lines += [f"C{2 * k - 1} p{k - 1} p{k} 100n",
+                  f"D{2 * k - 1} s{k - 1} p{k} DMOD",
+                  f"D{2 * k} p{k} s{k} DMOD", f"C{2 * k} s{k - 1} s{k} 100n"]
+    deck = "\n".join(["* cw16"] + lines + [
+        "Rload s16 0 10meg", ".model DMOD D (Is=1e-14 N=1.0 Cj0=2p Tt=5n)",
+        ""])
+    cc, cfg, params, state0 = _general_inputs(deck, 32, cuda)
+    fn = ts.make_tran_batch(cc, cfg, None)
+    assert fn.engine == "general"
+    counters = (run.launch_run_kernel, op.launch_op_kernel, solve.launch_gj,
+                solve_stamped.launch_stamped)
+    before = [c.launches for c in counters]
+    out = fn(params, state0)
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    assert moved[:2] == [0, 0] and moved[2] >= 1 and moved[3] >= 1
+    assert not bool(out.fail.any())
+    p = make_tran(cc, cfg, store="none", solve=solve_stamped.solve_plain,
+                  dense_solve=solve.gj_plain)(params, state0)
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        assert torch.equal(getattr(out, key), getattr(p, key)), key
+    for key in out.state["C"]:
+        torch.testing.assert_close(out.state["C"][key], p.state["C"][key],
+                                   rtol=1e-9, atol=1e-15)

@@ -1,9 +1,9 @@
 """What the port's transient and OP do not cover raise NotImplementedError
-with the reason; there is no other engine to fall back on yet.  Compat and
-physics semantics run every deck of R, C, L, LM, K, V, I, D, Q and M
-within the kernels' caps, magnetic decks with diodes included, and their
-OP, DC sweep and AC; trapezoidal integration under compat stays
-refused."""
+with the reason.  Compat and physics semantics run every deck of R, C, L,
+LM, K, V, I, D, Q and M within the kernels' caps, magnetic decks with
+diodes included, and their OP, DC sweep and AC; a deck past the kernels'
+caps takes the general engine (engine "general", with the kernels'
+reason); trapezoidal integration under compat stays refused."""
 
 import os
 import re
@@ -77,19 +77,28 @@ Rl out 0 150
 """
 
 
-@pytest.mark.parametrize("text,kw,reason", [
+@pytest.mark.parametrize("text,kw,reason,general", [
     (_diodes(17), {}, "17 diodes, BJTs and MOSFETs exceed the kernel's cap "
-     "of 16"),
-    (RLC, {"store": "bogus"}, "store='bogus'"),
+     "of 16", True),
+    (RLC, {"store": "bogus"}, "store='bogus'", False),
     (RLC, {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'"),
+     "integration='trap' requires semantics='physics'", False),
     (K_DIODE, {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'"),
-    (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32"),
-    (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32"),
+     "integration='trap' requires semantics='physics'", False),
+    (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32",
+     True),
+    (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32", True),
+    (_ladder(130), {}, "np1=133 exceeds the stamped-solve kernel's matrix "
+     "cap of 128", False),
 ], ids=["diode", "store_bogus", "trap", "trap_mutual_with_diode",
-        "source_cap", "np1_cap"])
-def test_ineligible_raises_with_reason(text, kw, reason):
+        "source_cap", "np1_cap", "np1_past_nbig"])
+def test_ineligible_raises_with_reason(text, kw, reason, general):
+    """Past the kernels' caps the general engine takes the run, with the
+    kernels' reason; past the general engine's too, it raises."""
+    if general:
+        fn = _build(text, **kw)
+        assert fn.engine == "general" and reason in fn.engine_reason
+        return
     with pytest.raises(NotImplementedError, match="no transient engine") as e:
         _build(text, **kw)
     assert reason in str(e.value)
@@ -261,11 +270,20 @@ def _ac(text):
     (_ac(_diodes(17)), {}, "cap of 16"),
 ], ids=["physics", "np1_cap", "device_cap"])
 def test_ac_ineligible_raises_with_reason(text, kw, reason):
+    """The AC kernel's reasons; past its caps the general AC takes the
+    deck (engine "general"), and what neither serves raises."""
     from toyspice_tpu_torch.engine.ac import make_ac_batch
     from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
 
     cc = ts.compile_circuit(ts.parse(text))
     assert reason in ac_ineligible_reason(cc, **kw)
+    if "cap" in reason:
+        fn = make_ac_batch(cc, None, **kw)
+        assert fn.engine == "general" and reason in fn.engine_reason
+        xr, _, opr = ts.run_ac_batch(cc, ts.batch_params(
+            cc, {}, device="cpu")[0], None, [1e3], **kw)
+        assert xr.shape == (1, 1, cc.np1) and bool(opr.converged.all())
+        return
     with pytest.raises(NotImplementedError, match="no AC engine") as e:
         make_ac_batch(cc, None, **kw)
     assert reason in str(e.value)
@@ -287,12 +305,23 @@ def test_ac_np1_cap_boundary():
     (_deck("divider_op.cir"), {"opts": SimOptions(integration="trap")},
      "integration='trap' requires semantics='physics'"),
     (_diodes(17), {}, "cap of 16"),
-    (_ladder(30), {}, "np1=33 exceeds the stamped-solve kernel's matrix "
-     "cap of 32"),
+    (_ladder(126), {}, "np1=129 exceeds the stamped-solve kernel's matrix "
+     "cap of 128"),
 ], ids=["physics", "physics_linear", "device_cap", "np1_cap"])
 def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
+    """Past the OP kernel's device cap the general engine takes the OP and
+    the sweep (engine "general"); past NBIG nothing does."""
+    from toyspice_tpu_torch.engine.batch import select_op_engine
+
     cc = ts.compile_circuit(ts.parse(text))
     params = ts.batch_params(cc, {}, device="cpu")[0]
+    if reason == "cap of 16":
+        engine, why = select_op_engine(cc, **kw)
+        assert engine == "general" and reason in why
+        xs, conv = ts.run_dc_batch(cc, (0,), params, None, [0.0, 1.0], **kw)
+        assert xs.shape == (1, 2, cc.np1) and bool(conv.all())
+        assert bool(ts.run_op_batch(cc, params, **kw).converged.all())
+        return
     with pytest.raises(NotImplementedError, match="no OP engine") as e:
         ts.run_dc_batch(cc, (0,), params, None, [0.0, 1.0], **kw)
     assert reason in str(e.value)

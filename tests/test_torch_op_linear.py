@@ -28,7 +28,7 @@ from toyspice_tpu.netlist.parser import parse as jax_parse
 import toyspice_tpu_torch as ts
 from toyspice_tpu_torch.convert import params_from_numpy
 from toyspice_tpu_torch.engine.batch import select_op_engine
-from toyspice_tpu_torch.engine.newton import make_nr_linear
+from toyspice_tpu_torch.engine.newton import make_nr
 from toyspice_tpu_torch.engine.op import make_op
 from toyspice_tpu_torch.engine.options import SimOptions
 from toyspice_tpu_torch.ops import solve_stamped
@@ -167,8 +167,8 @@ I1 0 3 DC 1u
                                0.0, "op", gmin, gmin_floor=floor)
         want = np.linalg.solve(np.asarray(load_gmin(a, gmin)), np.asarray(b))
         assert JaxOptions(gmin=floor).gmin == SimOptions(gmin=floor).gmin
-        nr = make_nr_linear(cc, opts=SimOptions(gmin=floor))
-        r = nr(params, state0, gmin, 1.0)
+        nr = make_nr(cc, "op", False, opts=SimOptions(gmin=floor))
+        r = nr(params, state0, {}, None, 0.0, 0.0, gmin, 1.0)
         np.testing.assert_allclose(r.x[0].numpy(), want, rtol=1e-9,
                                    atol=1e-15)
         assert r.converged.tolist() == [True]

@@ -22,8 +22,15 @@ the batched operating point (``run_op_batch``), through the OP kernel and
 the rescue ladders, or on a linear deck the stamped-solve kernel under the
 same ladders; the DC sweep (``run_dc_batch``), through the DC sweep kernel
 or the stamped solve; and AC (``run_ac_batch``), that operating point and
-then the AC kernel. Entry points run on ``cuda`` unless given
-``device="cpu"``; on the CPU the kernels' plain torch versions run instead.
+then the AC kernel.  A deck past the kernels' caps (np1 > 32, more than 32
+sources, more than 16 diodes, BJTs and MOSFETs) takes the general engine
+(engine "general"): the JAX package's batched Newton, OP ladder,
+transient, DC sweep and AC as host loops over per-lane masks, each Newton
+iteration one assembly and one launch of the stamped solve (a block per
+lane past np1 = 32, up to 128), the dense solves (the OP's seed, the AC
+systems, 2np1 up to 128) the GJ kernel.  Entry points run on ``cuda``
+unless given ``device="cpu"``; on the CPU the kernels' plain torch
+versions run instead.
 
     cc = compile_circuit(parse(deck))
     params, axes = batch_params(cc, overrides)
@@ -38,16 +45,18 @@ then the AC kernel. Entry points run on ``cuda`` unless given
 """
 
 from .compiler import CompiledCircuit, compile_circuit  # noqa: F401
-from .engine.ac import frequency_points  # noqa: F401
+from .engine.ac import frequency_points, make_ac  # noqa: F401
 from .engine.batch import (batch_params, make_tran_batch,  # noqa: F401
                            make_tran_stream, run_ac_batch, run_dc_batch,
                            run_op_batch, run_transient_batch,
                            run_transient_streamed, stream_transient_chunks)
 from .engine.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
-from .engine.dc import sweep_values  # noqa: F401
+from .engine.dc import make_dc, sweep_values  # noqa: F401
+from .engine.op import make_op  # noqa: F401
 from .engine.options import DEFAULTS, SimOptions  # noqa: F401
 from .engine.state import init_state  # noqa: F401
-from .engine.tran import TranConfig, TranOutput, build_config  # noqa: F401
+from .engine.tran import (TranConfig, TranOutput, build_config,  # noqa: F401
+                          make_tran)
 from .netlist import parse  # noqa: F401
 
 __version__ = "0.1.0"

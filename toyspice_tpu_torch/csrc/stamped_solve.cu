@@ -30,7 +30,16 @@
 // gmin and writes n), the elimination's operations for larger ones
 // (chip_smoke.py gj_flops); both are far below what one thread per lane
 // through a local-memory matrix reaches, as in the other kernels.
+//
+// Past n = 32 (the general engine's Newton, np1 up to NBIG) a lane's
+// system no longer fits a thread: stamped_block_kernel gives each lane a
+// block of GJ_THREADS threads and builds the system in shared memory, each
+// cell summed by one thread in the table's entry order from 0 (the same
+// sums as the per-thread build), then runs gj_block.cuh's elimination,
+// whose element operations are gauss_jordan's.  The term table stays in
+// device memory there (the matrix takes the shared memory).
 
+#include "gj_block.cuh"
 #include "newton.cuh"
 
 namespace {
@@ -84,10 +93,65 @@ cudaError_t launch(const int* tab, int tab_len, int n, int nnz, int nrhs,
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(GJ_THREADS)
+stamped_block_kernel(const int* __restrict__ tab, int n, int nnz, int nrhs,
+                     const double* __restrict__ vals,
+                     const double* __restrict__ rvals,
+                     const double* __restrict__ gmin,
+                     double* __restrict__ x_out) {
+  extern __shared__ double m[];
+  const size_t lane = blockIdx.x;
+  const int ld = n + 1;
+  const int nterm = tab[0];
+  const int* row = tab + 1;
+  const int* col = row + nterm;
+  const int* src = col + nterm;
+  const double* v = vals + lane * nnz;
+  const double* rv = rvals + lane * nrhs;
+  for (int e = threadIdx.x; e < n * ld; e += blockDim.x) m[e] = 0.0;
+  __syncthreads();
+  // a cell's terms are consecutive in the table: the thread of its first
+  // term sums them all
+  for (int t = threadIdx.x; t < nterm; t += blockDim.x) {
+    const int r = row[t], c = col[t];
+    if (t > 0 && row[t - 1] == r && col[t - 1] == c) continue;
+    double acc = 0.0;
+    for (int u = t; u < nterm && row[u] == r && col[u] == c; ++u) {
+      const int s = src[u];
+      acc += s < nnz ? v[s] : rv[s - nnz];
+    }
+    m[r * ld + c] = acc;
+  }
+  __syncthreads();
+  const double g = gmin[lane];
+  if (threadIdx.x == 0) m[0] = 1.0;
+  for (int r = 1 + threadIdx.x; r < n; r += blockDim.x)
+    m[r * ld + r] = m[r * ld + r] + g;
+  __syncthreads();
+  gj_block(m, n, x_out + lane * n);
+}
+
+cudaError_t launch_block(const int* tab, int n, int nnz, int nrhs,
+                         const double* vals, const double* rvals,
+                         const double* gmin, double* x, int nlanes,
+                         cudaStream_t stream) {
+  const size_t shmem = gj_shared_bytes(n);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stamped_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
+    if (err != cudaSuccess) return err;
+  }
+  stamped_block_kernel<<<nlanes, GJ_THREADS, shmem, stream>>>(
+      tab, n, nnz, nrhs, vals, rvals, gmin, x);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Solve nlanes stamped systems of size n on `stream`; returns the
-// cudaError_t of the launch (0 on success).  n picks the matrix size.
+// cudaError_t of the launch (0 on success).  n picks the matrix size:
+// one thread per lane up to 32, one block per lane up to NBIG.
 extern "C" int tsr_stamped(int n, const int* tab, int tab_len, int nnz,
                            int nrhs, const double* vals, const double* rvals,
                            const double* gmin, double* x, int nlanes,
@@ -103,6 +167,8 @@ extern "C" int tsr_stamped(int n, const int* tab, int tab_len, int nnz,
   if (n <= 32)
     return launch<32>(tab, tab_len, n, nnz, nrhs, vals, rvals, gmin, x,
                       nlanes, s);
+  if (n <= NBIG)
+    return launch_block(tab, n, nnz, nrhs, vals, rvals, gmin, x, nlanes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

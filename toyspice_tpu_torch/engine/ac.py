@@ -3,10 +3,16 @@ ac.go): the bias point first, then one solve per (instance, frequency).
 
 The frequency grid reproduces the reference, including its quirk that
 ``numPoints`` is the TOTAL point count for DEC, OCT and LIN alike
-(ac.go:100-126).  ``make_ac_batch`` takes the JAX package's fused layout:
-the AC system is exactly linear in omega, so one assemble per instance at
-omega = 1 gives G and B^, and one launch of the AC kernel
-(``ops/ac.py``) builds and solves every (instance, frequency) system.
+(ac.go:100-126).  ``make_ac_batch`` takes the JAX package's fused layout
+where the AC kernel serves the deck: the AC system is exactly linear in
+omega, so one assemble per instance at omega = 1 gives G and B^, and one
+launch of the AC kernel (``ops/ac.py``) builds and solves every
+(instance, frequency) system.  Elsewhere (np1 past the AC kernel's 32, or
+a bias the OP kernel does not serve) it takes the general branch,
+``make_ac``: the general OP as the bias, the dense (2np1, 2np1) system of
+every (instance, frequency) assembled at its own omega
+(``assemble_system_ac``), and one dense solve of all B·F systems
+(``ops/solve.linear_solve``; on the card ``csrc/gj_kernel.cu``).
 """
 
 import math
@@ -33,17 +39,74 @@ def frequency_points(sweep: str, fstart: float, fstop: float,
         return fstart + i * ((fstop - fstart) / n)  # LIN
 
 
+def general_ac_reason(cc, semantics: str = "compat", opts=None):
+    """Why the general AC can NOT run this deck; None when it can: the
+    general engine's kinds and semantics, and a 2np1 system within the GJ
+    kernel's NBIG."""
+    from ..ops.solve import NBIG
+    from .batch import general_ineligible_reason
+
+    why = general_ineligible_reason(cc, semantics, opts)
+    if why is not None:
+        return why
+    if 2 * cc.np1 > NBIG:
+        return (f"2np1={2 * cc.np1} exceeds the GJ kernel's matrix cap of "
+                f"{NBIG}")
+    return None
+
+
+def make_ac(cc, opts: SimOptions = DEFAULTS, semantics: str = "compat",
+            solve=None, dense_solve=None):
+    """The general AC, batched: fn(params, state0, freqs) -> (xr, xi, opr)
+    with xr, xi (B, F, np1); per lane the JAX package's make_ac_batch
+    general branch.  The bias is ``engine/op.make_op`` (the general OP, or
+    a linear deck's one stamped solve); then the (B, F, 2np1, 2np1) systems
+    and one dense solve of all B·F of them.  ``solve``/``dense_solve``
+    override the stamped and the dense solve (the plain versions on the
+    card)."""
+    from ..ops.assemble import assemble_system_ac
+    from ..ops.solve import linear_solve
+    from .op import make_op
+
+    dense = dense_solve or linear_solve
+    np1 = cc.np1
+    bias = make_op(cc, opts, semantics, solve=solve, dense_solve=dense_solve)
+
+    def ac_execute(params, state0, freqs):
+        opr = bias(params, state0)
+        b = opr.x.shape[0]
+        nf = len(freqs)
+        n2 = 2 * np1
+        a2 = torch.empty((b, nf, n2, n2), dtype=torch.float64,
+                         device=opr.x.device)
+        b2 = torch.empty((b, nf, n2), dtype=torch.float64,
+                         device=opr.x.device)
+        for f, freq in enumerate(np.asarray(freqs, dtype=np.float64)):
+            assemble_system_ac(cc, params, state0, opr.jv, float(freq),
+                               opts.temp, semantics,
+                               out=(a2[:, f], b2[:, f]))
+        x2 = dense(a2.view(b * nf, n2, n2), b2.view(b * nf, n2))
+        x2 = x2.view(b, nf, n2)
+        return x2[..., :np1], x2[..., np1:], opr
+
+    ac_execute.bias = bias
+    return ac_execute
+
+
 def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
                   semantics: str = "compat", op_solve=None, ac_solve=None):
     """Batched AC: fn(params, state0, freqs) -> (xr, xi, opr) with xr, xi
-    (B, F, np1).  The bias is the OP kernel under its rescue ladders on a
-    nonlinear deck (``ops/op.make_op_fused``) and the linear OP
-    (``engine/op.make_op``) on a linear one; then one
+    (B, F, np1), and ``.engine`` "fused" or "general" with
+    ``.engine_reason``.  Fused: the bias is the OP kernel under its rescue
+    ladders on a nonlinear deck (``ops/op.make_op_fused``) and the linear
+    OP (``engine/op.make_op``) on a linear one; then one
     ``assemble_ac_blocks`` of every instance at freq = 1/(2 pi) and one
-    AC solve of every (instance, frequency) pair.  ``in_axes`` keeps the
+    AC solve of every (instance, frequency) pair.  General: ``make_ac``,
+    where the AC kernel does not serve the deck.  ``in_axes`` keeps the
     JAX package's call shape (the port reads the batch axis from the
     tensors).  ``op_solve``/``ac_solve`` override the per-launch solvers
-    (the plain versions on the card)."""
+    (the plain versions on the card: the stamped solve and the AC kernel,
+    or on the general branch the stamped and the dense solve)."""
     from ..ops.ac import ac_ineligible_reason, ac_solve_batch
     from ..ops.assemble import assemble_ac_blocks
     from ..ops.op import make_op_fused
@@ -52,8 +115,14 @@ def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
 
     why = ac_ineligible_reason(cc, semantics, opts)
     if why is not None:
-        raise NotImplementedError(f"no AC engine for this deck in the "
-                                  f"port: {why}")
+        why_not = general_ac_reason(cc, semantics, opts)
+        if why_not is not None:
+            raise NotImplementedError(f"no AC engine for this deck in the "
+                                      f"port: {why}; {why_not}")
+        fn = make_ac(cc, opts, semantics, solve=op_solve,
+                     dense_solve=ac_solve)
+        fn.engine, fn.engine_reason = "general", why
+        return fn
     np1 = cc.np1
     kw = {} if op_solve is None else {"solve": op_solve}
     bias = (make_op_fused(cc, opts, semantics=semantics, **kw)
@@ -72,4 +141,6 @@ def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
         return x2[..., :np1], x2[..., np1:], opr
 
     ac_batch_execute.bias = bias
+    ac_batch_execute.engine = "fused"
+    ac_batch_execute.engine_reason = f"AC kernel eligible ({semantics})"
     return ac_batch_execute

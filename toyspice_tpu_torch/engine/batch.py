@@ -14,7 +14,12 @@ rescue ladders (``ops/op.py``) on a nonlinear deck and the stamped solve
 under the same ladders (``engine/op.make_op``) on a linear one; for the DC
 sweep, the DC sweep kernel (``ops/dc.py``) or the stamped solve of every
 point (``engine/dc.make_dc``); for AC, that OP and the AC kernel
-(``engine/ac.py``).  A deck, store or semantics they do not cover raises
+(``engine/ac.py``).  A deck past the kernels' caps (np1 > 32, more than 32
+sources, more than 16 diodes, BJTs and MOSFETs) takes the general engine,
+engine "general", as the JAX package does: ``engine/tran.make_tran``,
+``engine/op.make_op``, ``engine/dc.make_dc`` and ``engine/ac.make_ac``,
+whose Newton is a host loop over the stamped solve (np1 up to NBIG = 128).
+A deck, store or semantics none of them covers raises
 ``NotImplementedError`` with the reason.
 """
 
@@ -53,6 +58,26 @@ def batch_params(cc, overrides: Dict[str, Dict[str, object]],
     return params, axes
 
 
+def general_ineligible_reason(cc, semantics: str = "compat", opts=None):
+    """Why the general engine can NOT run this deck; None when it can: the
+    port's semantics and device kinds, and np1 within the stamped solve's
+    NBIG."""
+    from ..ops.run_plan import SLICE_KINDS, semantics_reason
+    from ..ops.solve import NBIG
+
+    why = semantics_reason(semantics, opts)
+    if why is not None:
+        return why
+    extra = set(cc.idx.keys()) - set(SLICE_KINDS)
+    if extra:
+        return (f"device kinds {sorted(extra)} are not ported (the port "
+                "runs R, C, L, LM, K, V, I, D, Q and M)")
+    if cc.np1 > NBIG:
+        return (f"np1={cc.np1} exceeds the stamped-solve kernel's matrix "
+                f"cap of {NBIG}")
+    return None
+
+
 def select_tran_engine(cc, cfg: TranConfig, in_axes,
                        semantics: str = "compat", store: str = "none",
                        opts: SimOptions = DEFAULTS, resume: bool = False):
@@ -61,16 +86,25 @@ def select_tran_engine(cc, cfg: TranConfig, in_axes,
     instantiation (the JAX package's "fused" engine), for ``store='full'``
     and for ``resume=True``, whose fn(params, state0, t0, jv0, dt0=None,
     attempts0=None) continues a checkpointed run
-    (``ops/run.make_tran_run``).  Anything the kernels do not serve raises
-    NotImplementedError with the reason.  ``in_axes`` keeps the JAX
+    (``ops/run.make_tran_run``); "general", ``engine/tran.make_tran``, for
+    a deck past the kernels' caps (resumed: fn(params, state0, t0, jv0,
+    dt0=None)), with the kernels' reason.  Anything none of them serves
+    raises NotImplementedError with the reason.  ``in_axes`` keeps the JAX
     package's call shape (bench.py passes ``batch_params``' axes); the port
     reads the batch axis from the tensors themselves."""
     from ..ops.run import make_tran_run, run_ineligible_reason
+    from ..ops.run_plan import fused_ineligible_reason
+    from .tran import make_tran
 
     why = run_ineligible_reason(cc, semantics, store, opts)
     if why is not None:
-        raise NotImplementedError(
-            f"no transient engine for this run in the port: {why}")
+        why_not = (fused_ineligible_reason(cc, semantics, store, opts)
+                   or general_ineligible_reason(cc, semantics, opts))
+        if why_not is not None:
+            raise NotImplementedError(
+                f"no transient engine for this run in the port: {why_not}")
+        return "general", why, make_tran(cc, cfg, semantics, store, opts,
+                                         resume=resume)
     fn = make_tran_run(cc, cfg, opts, semantics=semantics, store=store,
                        resume=resume)
     if store == "full" or resume:
@@ -230,8 +264,8 @@ def linear_op_ineligible_reason(cc, semantics: str = "compat", opts=None):
     on the semantics (assemble.py reads it only in transient stamps and
     for the diode)."""
     from ..ops.assemble import LINEAR_KINDS
-    from ..ops.run import NP1_CAP
     from ..ops.run_plan import nonlinear, semantics_reason
+    from ..ops.solve import NBIG
 
     why = semantics_reason(semantics, opts)
     if why is not None:
@@ -242,26 +276,30 @@ def linear_op_ineligible_reason(cc, semantics: str = "compat", opts=None):
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (a linear OP "
                 "runs R, C, L, LM, K, V and I)")
-    if cc.np1 > NP1_CAP:
+    if cc.np1 > NBIG:
         return (f"np1={cc.np1} exceeds the stamped-solve kernel's matrix "
-                f"cap of {NP1_CAP}")
+                f"cap of {NBIG}")
     return None
 
 
 def select_op_engine(cc, semantics: str = "compat",
                      opts: SimOptions = DEFAULTS):
     """(engine_name, reason) for a batched OP or DC sweep: "fused", the
-    OP kernel (the DC sweep kernel) on a nonlinear deck, or "linear", the
-    stamped solve, on a linear one; anything neither serves (a kind not
-    ported, a semantics other than compat and physics, a deck over the
-    kernels' caps) raises NotImplementedError with the
-    reason."""
-    from ..ops.op import op_fused_ineligible_reason
-    from ..ops.run_plan import nonlinear
+    OP kernel (the DC sweep kernel) on a nonlinear deck, "general", the
+    general engine's Newton over the stamped solve, on a nonlinear deck
+    past the kernels' caps (with their reason), or "linear", the stamped
+    solve, on a linear one; anything none serves (a kind not ported, a
+    semantics other than compat and physics, np1 past NBIG) raises
+    NotImplementedError with the reason."""
+    from ..ops.run import kernel_caps_reason
+    from ..ops.run_plan import make_plan, nonlinear
 
     if nonlinear(cc):
-        why = op_fused_ineligible_reason(cc, semantics, opts)
-        engine, reason = "fused", f"OP kernel eligible ({semantics})"
+        # the OP kernel's gates are the general engine's plus its caps
+        why = general_ineligible_reason(cc, semantics, opts)
+        caps = None if why else kernel_caps_reason(make_plan(cc, "op"))
+        engine, reason = (("general", caps) if caps else
+                          ("fused", f"OP kernel eligible ({semantics})"))
     else:
         why = linear_op_ineligible_reason(cc, semantics, opts)
         engine, reason = "linear", ("linear circuit: one stamped solve per "
@@ -277,7 +315,8 @@ def run_op_batch(cc, params, in_axes=None, opts: SimOptions = DEFAULTS,
     """Batched operating point: each lane runs plain NR and the rescue
     ladders on its own parameters.  Returns the FusedOPResult (x (B, np1),
     jv, converged (B,), stage (B,), iters) of the OP kernel on a nonlinear
-    deck, the OPResult (x, jv {}, converged, stage) of the linear OP on a
+    deck, the OPResult (x, jv, converged, stage) of the general OP on a
+    nonlinear deck past the kernels' caps and of the linear OP (jv {}) on a
     linear one, on the device the parameters lie on; ``in_axes`` keeps the
     JAX package's call shape (the port reads the batch axis from the
     tensors themselves)."""
@@ -297,9 +336,11 @@ def run_dc_batch(cc, src_slots, params, in_axes=None, points=None,
     """Batched DC sweep.  Returns (xs (B, P, np1), conv (B, P)): a
     nonlinear deck through the DC sweep kernel (every point of every lane
     in one launch, junction voltages carried point to point,
-    dc.go:142-187), a linear one through one stamped solve of all B·P
-    systems.  ``points`` is (P,) or (P, 2) for a nested sweep; ``in_axes``
-    keeps the JAX package's call shape."""
+    dc.go:142-187), a nonlinear deck past the kernels' caps through the
+    general engine's sweep (one host loop over the points), a linear one
+    through one stamped solve of all B·P systems.  ``points`` is (P,) or
+    (P, 2) for a nested sweep; ``in_axes`` keeps the JAX package's call
+    shape."""
     from ..ops.dc import make_dc_fused
     from ..ops.run_plan import first_leaf
     from .dc import make_dc

@@ -6,8 +6,9 @@ Each kernel library compiles from one source (``csrc/run_kernel.cu``,
 physics and magnetic instantiations of ``csrc/run_kernel.cuh``, each
 built twice: without and, with ``-DTSR_STORE``, with the waveform store;
 ``csrc/op_kernel.cu``, ``csrc/dc_sweep_kernel.cu``,
-``csrc/stamped_solve.cu``, ``csrc/ac_kernel.cu``; all include
-``csrc/newton.cuh``) with one ``nvcc`` call to a shared library with a
+``csrc/stamped_solve.cu``, ``csrc/ac_kernel.cu``, all on
+``csrc/newton.cuh``; ``csrc/gj_kernel.cu``, and the stamped solve's
+large systems, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a shared library with a
 plain C entry point (no PyTorch headers, so a build takes seconds); the
 calls for every missing library start together.  A library
 goes to ``toyspice_tpu_torch/_build/``, named by a hash of its source, the
@@ -32,16 +33,18 @@ SOURCES = {"run": CSRC / "run_kernel.cu",
            "run_mag": CSRC / "run_kernel_mag.cu",
            "run_mag_store": CSRC / "run_kernel_mag.cu",
            "op": CSRC / "op_kernel.cu", "stamped": CSRC / "stamped_solve.cu",
-           "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu"}
+           "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu",
+           "gj": CSRC / "gj_kernel.cu"}
 # the run kernel's store builds: their instantiations compile in a call of
 # their own, beside the others
 DEFINES = {"run_store": ("-DTSR_STORE",), "run_phys_store": ("-DTSR_STORE",),
            "run_mag_store": ("-DTSR_STORE",)}
-HEADERS = (CSRC / "newton.cuh", CSRC / "run_kernel.cuh")
+HEADERS = (CSRC / "newton.cuh", CSRC / "run_kernel.cuh",
+           CSRC / "gj_block.cuh")
 BUILD_DIR = PKG / "_build"
 # -fmad=false: every product and sum rounds on its own, as in the torch
 # plain versions (ops/run.py, ops/op.py, ops/solve_stamped.py, ops/dc.py,
-# ops/ac.py), so the two agree to the last bit
+# ops/ac.py, ops/solve.py), so the two agree to the last bit
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -135,6 +138,8 @@ _ARGTYPES = {
     "dc": (("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidip"),),
     # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
     "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
+    # tsr_gj(n, a, b, x, nsys, stream)
+    "gj": (("tsr_gj", "ipppqp"),),
 }
 
 

@@ -1,0 +1,82 @@
+"""Batched dense linear solve: x = a^-1 b for (B, n, n) and (B, n) f64
+systems, with the kernels' pivot rule.
+
+The counterpart of ``ops/solve.py::linear_solve`` in the JAX package, whose
+batching rule runs the TPU kernel ``ops/pallas_solve.py::_gj_kernel``
+(``pallas_solve_batched``): the general engine's dense solves, the OP's
+linear-devices-only initial estimate and the general AC's (2np1, 2np1)
+system per (instance, frequency).  Gauss-Jordan with partial pivoting: the
+largest |pivot| among the unused rows, the first (lowest) row on a tie; a
+zero pivot poisons its row, so a singular system gives a non-finite x
+(solve.py:17-23), and a NaN in a pivot column makes every x NaN.
+
+* ``launch_gj``: the wrapper of ``csrc/gj_kernel.cu`` (one block of 128
+  threads per system, the matrix in shared memory, f64); it counts its
+  launches in ``.launches``.
+* ``gj_plain``: the same arithmetic as batched torch operations
+  (``ops/newton.py::gauss_jordan``).
+* ``linear_solve``: the kernel for CUDA tensors, the plain version for CPU
+  tensors.
+"""
+
+import torch
+
+from . import _build
+from .newton import gauss_jordan, poison_rows
+
+F64 = torch.float64
+NBIG = 128  # csrc/gj_block.cuh: the largest system a block eliminates
+
+
+def _check(a, b):
+    if a.dtype != F64 or b.dtype != F64:
+        raise TypeError(f"a and b must be float64, got {a.dtype} and "
+                        f"{b.dtype}")
+    if a.ndim != 3 or a.shape[1] != a.shape[2] or tuple(b.shape) != tuple(
+            a.shape[:2]):
+        raise ValueError(f"a must be (B, n, n) and b (B, n), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if b.device != a.device:
+        raise ValueError(f"b is on {b.device}, a on {a.device}")
+
+
+def launch_gj(a, b):
+    """x (B, n) of every system with ``csrc/gj_kernel.cu``."""
+    if not a.is_cuda:
+        raise ValueError("launch_gj needs CUDA tensors")
+    _check(a, b)
+    n = a.shape[1]
+    if not 1 <= n <= NBIG:
+        raise ValueError(f"n={n} exceeds the GJ kernel's cap of {NBIG}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    lib = _build.load("gj")
+    x = torch.empty((a.shape[0], n), dtype=F64, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.tsr_gj(n, a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                         a.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"GJ kernel launch failed: CUDA error {err} "
+                           f"({_build.error_string(err, 'gj')})")
+    launch_gj.launches += 1
+    return x
+
+
+launch_gj.launches = 0
+
+
+def gj_plain(a, b):
+    """The kernel's arithmetic as batched torch operations on any device."""
+    _check(a, b)
+    return gauss_jordan(torch.cat([a, b[..., None]], dim=-1),
+                        poison_rows(a.shape[1], a.device))
+
+
+def linear_solve(a, b):
+    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+    if a.is_cuda:
+        return launch_gj(a.contiguous(), b.contiguous())
+    if a.device.type == "cpu":
+        return gj_plain(a, b)
+    raise ValueError(f"no GJ kernel for device {a.device}")

@@ -1,6 +1,7 @@
-"""Build and solve MNA systems from flat stamp values: the linear deck's
-whole Newton (the linear OP and its rescue rungs, every point of a linear
-DC sweep, the bias of a linear AC).
+"""Build and solve MNA systems from flat stamp values: each iteration of
+the general engine's Newton, and a linear deck's whole Newton (the linear
+OP and its rescue rungs, every point of a linear DC sweep, the bias of a
+linear AC).
 
 The counterpart of ``ops/pallas_solve.py``'s ``_cell_groups``,
 ``_build_solve_kernel`` and ``solve_stamped_for`` in the JAX package.  A
@@ -14,8 +15,9 @@ ground identity row, gmin goes on diagonals 1..n-1 (matrix/circuit.go:
 pivot poisons its row, so a singular system gives a non-finite x).
 
 * ``launch_stamped``: the wrapper of ``csrc/stamped_solve.cu`` (one thread
-  per lane, f64; the term table in shared memory); it counts its launches
-  in ``.launches``.
+  per lane up to n = 32, the term table in shared memory; one block per
+  lane up to NBIG, the system in shared memory; f64); it counts its
+  launches in ``.launches``.
 * ``solve_plain``: the same arithmetic as batched torch operations.
 * ``solve_lanes``: the kernel for CUDA tensors, the plain version for CPU
   tensors.
@@ -29,6 +31,7 @@ import torch
 from . import _build
 from .newton import gauss_jordan, poison_rows
 from .run import MAX_TOPO, NP1_CAP
+from .solve import NBIG
 
 F64 = torch.float64
 
@@ -121,9 +124,9 @@ class StampPattern:
 
 def caps_reason(n, table_size):
     """Why the kernel can NOT hold this pattern; None when it can."""
-    if n > NP1_CAP:
-        return f"np1={n} exceeds the kernel's matrix cap of {NP1_CAP}"
-    if table_size > MAX_TOPO:
+    if n > NBIG:
+        return f"np1={n} exceeds the kernel's matrix cap of {NBIG}"
+    if n <= NP1_CAP and table_size > MAX_TOPO:  # the per-thread kernels'
         return "stamp pattern exceeds the kernel's shared-memory table"
     return None
 
