@@ -11,9 +11,15 @@ the linear estimate), compat and physics, and the DC sweep kernel on
 diode_iv_sweep.cir (35 points), 8192 lanes each, in place of the run
 kernel: each rep is the mean of 20 back-to-back calls of the kernel's C
 entry point on prepared buffers, so that the wrapper's host work does not
-hide a launch that takes tens of microseconds.
+hide a launch that takes tens of microseconds.  ``--ac`` and ``--stamped``
+add, beside bench.py's deck, the AC kernel on ce_amplifier_ac.cir's
+8192 x 12 systems of 16 and the stamped solve on one batched Newton
+iteration of cw16 (a 16-stage Cockcroft-Walton multiplier, np1 = 35,
+8192 lanes: chip_smoke.py's general-engine main path), each captured
+from its entry's call and timed the same way.
 
     python3 ab_run_kernel.py _parent . . _parent
+    python3 ab_run_kernel.py --ac --stamped _parent . . _parent
     python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
     python3 ab_run_kernel.py --physics --reps 10 . .
     python3 ab_run_kernel.py --opdc --reps 10 _parent . . _parent
@@ -164,6 +170,85 @@ def time_op_dc(root, reps, calls=20):
           f"{int(conv.sum())}, kernel ms {ms}", flush=True)
 
 
+def entry_ms(root, fn, args, reps, calls=20):
+    """Each rep: the mean of ``calls`` back-to-back calls of a C entry."""
+    def many():
+        for _ in range(calls):
+            err = fn(*args)
+        return err
+    err, ms = event_ms(many, reps)
+    if err != 0:
+        raise SystemExit(f"{root}: launch failed: CUDA error {err}")
+    return [m / calls for m in ms]
+
+
+def time_ac_stamped(root, reps, do_ac, do_stamped):
+    """The AC kernel on ce_amplifier_ac.cir (8192 lanes, R and C spread)
+    and the stamped solve on cw16's 40th batched Newton iteration (8192
+    lanes, C spread: the transient's first attempts), each on the inputs
+    its wrapper was called with."""
+    import torch
+
+    import toyspice_tpu_torch as ts
+    from toyspice_tpu_torch.engine.ac import make_ac_batch
+    from toyspice_tpu_torch.engine.options import DEFAULTS
+    from toyspice_tpu_torch.engine.tran import make_tran
+    from toyspice_tpu_torch.ops import _build, ac, solve_stamped
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    stream = torch.cuda.current_stream().cuda_stream
+    if do_ac:
+        cc = ts.compile_circuit(ts.parse(deck_text(here,
+                                                   "ce_amplifier_ac.cir")))
+        params, axes = spread_params(ts, cc, ("R", "C"))
+        a = cc.netlist.ac
+        freqs = ts.frequency_points(a.sweep, a.fstart, a.fstop, a.points)
+        seen = []
+
+        def capture(*args):
+            seen.append(args)
+            return ac.launch_ac_kernel(*args)
+
+        make_ac_batch(cc, axes, DEFAULTS, ac_solve=capture)(
+            params, ts.init_state(cc), freqs)
+        g, bh, r, om = seen[0]
+        b, n, nf = g.shape[0], g.shape[1], om.shape[0]
+        x = torch.empty((b, nf, 2 * n), dtype=torch.float64,
+                        device=g.device)
+        ms = entry_ms(root, _build.load("ac").tsr_ac, (
+            n, b, nf, g.data_ptr(), bh.data_ptr(), r.data_ptr(),
+            om.data_ptr(), x.data_ptr(), stream), reps)
+        print(f"{root}: AC kernel (ce_amplifier_ac, {b} x {nf} systems of "
+              f"{2 * n}): kernel ms {ms}", flush=True)
+    if do_stamped:
+        from chip_smoke import cockcroft_walton
+
+        cc = ts.compile_circuit(ts.parse(cockcroft_walton(16)))
+        tp = cc.netlist.tran
+        cfg = ts.build_config(tp.tstart, 1e-4, tp.tstep, tp.tmax, tp.uic)
+        params, _ = spread_params(ts, cc, ("C",))
+        seen = []
+
+        def capture(pat, vals, rvals, gmin):
+            if len(seen) < 40:
+                seen.append((pat, vals.clone(), rvals.clone(),
+                             gmin.clone()))
+            return solve_stamped.solve_lanes(pat, vals, rvals, gmin)
+
+        make_tran(cc, cfg, store="none", solve=capture)(params,
+                                                        ts.init_state(cc))
+        pat, vals, rvals, gmin = seen[-1]
+        b = vals.shape[0]
+        tab = torch.as_tensor(pat.table, device=vals.device)
+        x = torch.empty((b, pat.n), dtype=torch.float64, device=vals.device)
+        ms = entry_ms(root, _build.load("stamped").tsr_stamped, (
+            pat.n, tab.data_ptr(), int(pat.table.size), pat.nnz, pat.nrhs,
+            vals.data_ptr(), rvals.data_ptr(), gmin.data_ptr(), x.data_ptr(),
+            b, stream), reps)
+        print(f"{root}: stamped solve (cw16, {b} systems of {pat.n}, "
+              f"{int(pat.table[0])} terms): kernel ms {ms}", flush=True)
+
+
 def print_ptxas(root, _build):
     """``nvcc -Xptxas -v`` of every kernel source of the checkout, the
     compiles started together; each kernel's lines, tagged with the
@@ -188,7 +273,7 @@ def print_ptxas(root, _build):
 
 
 def time_checkout(root, deck, reps, ptxas=True, physics=False,
-                  opdc=False):
+                  opdc=False, do_ac=False, do_stamped=False):
     sys.path.insert(0, root)
     import toyspice_tpu_torch as ts
     from toyspice_tpu_torch.ops import _build, run, run_plan
@@ -230,6 +315,8 @@ def time_checkout(root, deck, reps, ptxas=True, physics=False,
         lambda: run.launch_run_kernel(plan, dev, src, st, sc, jv0), reps)
     print(f"{root}: attempts {int(k.attempts.sum())}, Newton iterations "
           f"{int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
+    if do_ac or do_stamped:
+        time_ac_stamped(root, reps, do_ac, do_stamped)
 
 
 def main():
@@ -244,6 +331,11 @@ def main():
     ap.add_argument("--opdc", action="store_true",
                     help="time the OP and DC sweep kernels instead of the "
                     "run kernel")
+    ap.add_argument("--ac", action="store_true",
+                    help="also time the AC kernel on ce_amplifier_ac.cir")
+    ap.add_argument("--stamped", action="store_true",
+                    help="also time the stamped solve on cw16's n = 35 "
+                    "systems")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed launches per checkout")
     ap.add_argument("--no-ptxas", action="store_true", help=argparse.SUPPRESS)
@@ -254,7 +346,7 @@ def main():
         here = os.path.dirname(os.path.abspath(__file__))
         deck = (rectifier_deck(here) if a.rectifier or a.physics else RLC)
         time_checkout(os.path.abspath(a.roots[0]), deck, a.reps,
-                      not a.no_ptxas, a.physics, a.opdc)
+                      not a.no_ptxas, a.physics, a.opdc, a.ac, a.stamped)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -262,7 +354,9 @@ def main():
     extra = (["--reps", str(a.reps)]
              + (["--rectifier"] if a.rectifier else [])
              + (["--physics"] if a.physics else [])
-             + (["--opdc"] if a.opdc else []))
+             + (["--opdc"] if a.opdc else [])
+             + (["--ac"] if a.ac else [])
+             + (["--stamped"] if a.stamped else []))
     seen = set()
     for root in a.roots:
         quiet = a.no_ptxas or os.path.abspath(root) in seen

@@ -12,9 +12,10 @@ seconds:
    run_kernel.cu, its physics ones in run_kernel_phys.cu, its physics
    magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
    source built without and with the waveform store), the OP kernel, the
-   DC sweep kernel, the stamped solve (per-thread to np1 = 32, a block per
-   lane to 128), the AC kernel and the GJ kernel, one ``nvcc`` call per
-   library, all started together (ops/_build.py).
+   DC sweep kernel, the stamped solve (per-thread to np1 = 32, a warp per
+   lane to 64, a block per lane to 128), the AC kernel (a warp segment per
+   system) and the GJ kernel, one ``nvcc`` call per library, all started
+   together (ops/_build.py).
 3. run kernel against its plain torch version on linear decks, on the
    card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -52,8 +53,8 @@ seconds:
 10. AC: run_ac_batch on ce_amplifier_ac.cir, 8192 lanes, R and C spread
    0.1, 12 frequencies: the OP kernel's bias, then one launch of the AC
    kernel for the 98,304 (instance, frequency) systems; then the AC kernel
-   against its plain version on the same G, B^ and RHS, and
-   torch.linalg.solve on the same systems.
+   against its plain version on the same G, B^ and RHS (bit-identical),
+   and torch.linalg.solve on the same systems.
 11. run kernel against its plain version on the magnetic decks:
    coupled_inductors.cir (K between two L) and saturating_transformer.cir
    (two LM windings and their K), 256 lanes, R (and L) spread; the bar of
@@ -63,7 +64,8 @@ seconds:
    no lane failed, the lanes equal to a kernel run on the same inputs;
    then that kernel run against its plain version (the bar of phase 3).
 13. the store instantiation against its plain version, ``store='full'``:
-   the RC driven by SIN, half_wave_rectifier.cir and coupled_inductors.cir,
+   the RC driven by SIN, half_wave_rectifier.cir and coupled_inductors.cir
+   (its lanes stopped at 2000 attempts: phase 11 runs it to tstop),
    256 lanes:
    out_n equal per lane, out_x/out_t within rtol 1e-9, and the counters
    and state equal to the run kernel on the same lanes.  Then
@@ -134,10 +136,10 @@ seconds:
    launch, 9.8 GB of output), then that store kernel against the plain
    store on the same lanes, timed alone and through its wrapper.
 27. the GJ kernel (csrc/gj_kernel.cu) against gj_plain on 256 random
-   systems each of n = 6, 32, 40, 72 and 128, with a zero diagonal and a
-   singular lane: the same non-finite lane, x within rtol 1e-9 (the same
-   bits expected), and on the same systems the stamped solve (per-thread
-   to 32, its block instantiation above) and its plain version.
+   systems each of n = 6, 32, 33, 40, 48, 49, 64, 65, 72 and 128, with a
+   zero diagonal and a singular lane: the same non-finite lane and the
+   same bits, and on the same systems the stamped solve (per-thread to 32,
+   a warp a system to 64, a block above) and its plain version.
 28. the general engine against the run kernel on an eligible deck: the
    half-wave rectifier, 256 lanes, through engine/tran.make_tran (the
    general OP with its GJ seed, the general Newton over the stamped solve)
@@ -146,18 +148,25 @@ seconds:
 29. the general engine's main path cw16_8192: a 16-stage Cockcroft-Walton
    multiplier (np1 = 35, 32 diodes, past the kernels' caps), C spread 0.1,
    make_tran_batch to 2 ms: engine "general", one GJ launch (the OP's
-   seed), one launch of the stamped solve's block instantiation per batched
+   seed), one launch of the stamped solve's warp instantiation per batched
    Newton iteration, no other kernel, no lane failed; then the kernels
-   against their plain versions on the same lanes over the first 0.1 ms.
+   against their plain versions on the same lanes over the first 0.1 ms
+   (bit-identical).
 30. lc16_ac_8192: a 16-section LC ladder (np1 = 36, a 72 x 72 AC system),
    C spread 0.1, run_ac_batch: the linear OP (one stamped launch at
    n = 36), then one GJ launch for the 8192 x 21 = 172,032 systems; the GJ
    kernel against gj_plain on them, torch.linalg.solve as the yardstick.
+31. compat semantics under integration="trap" in the analyses, served as
+   backward Euler as the JAX package serves them: run_op_batch and
+   run_dc_batch on the half-wave rectifier and run_ac_batch on it with an
+   AC source, 1024 lanes: the OP, DC sweep and AC kernels launched, each
+   result equal bit for bit to compat/BE's and each kernel bit-identical
+   to its plain version; make_tran_batch still refuses compat/trap.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30) and each path of phases 22-24 and 28 runs with every kernel's
+29, 30) and each path of phases 22-24, 28 and 31 runs with every kernel's
 launch count set to 0 just before and read just after.
 """
 
@@ -473,8 +482,11 @@ def ptxas_summary(log):
             names = ([("linear", "newton"), ("", "mag"), ("", "store"),
                       ("", "physics")] if k is not None
                      and k.group(1) == "run_kernel" else [("", "physics")])
-            g = re.search(r"(gj_kernel|stamped_block_kernel)", entry)
-            label = (g.group(1) if g else entry) if k is None else (
+            g = re.search(r"(gj_kernel|stamped_block_kernel|ac_smem_kernel|"
+                          r"stamped_warp_kernel)(?:ILb([01])E)?", entry)
+            where = ({"1": "<registers>", "0": "<shared>"}.get(g.group(2), "")
+                     if g else "")
+            label = (g.group(1) + where if g else entry) if k is None else (
                 f"{k.group(1)}<{k.group(2)}" + "".join(
                     f", {names[i][int(f)]}" for i, f in enumerate(flags)
                     if i < len(names) and names[i][int(f)]) + ">")
@@ -900,6 +912,9 @@ def ac_phase(lanes):
         ("xr", kr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1)),
         ("xi", ki.reshape(-1, cc.np1), pi_.reshape(-1, cc.np1)),
         ("xr", xr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1))])
+    if not all(same_bits(a, b) for a, b in ((kr, pr), (ki, pi_), (xr, pr),
+                                            (xi, pi_))):
+        fail("AC: the kernel is not bit-identical to its plain version")
     ak_ms, ap_ms = tk.ms(), tp_.ms()
     g_, bh_, r_, om_ = tk.args[0]
     m = ac.build_systems(g_, bh_, r_, om_)
@@ -917,8 +932,11 @@ def ac_phase(lanes):
           f"{got['op_kernel']} (stages "
           f"{torch.bincount(opr.stage.long(), minlength=3).tolist()}), AC "
           f"kernel launches {ac_launches}, wall={ac_wall:.6f} s; kernel vs "
-          f"plain max abs err {ac_err:.3e}; kernel {ak_ms:.3f} ms, plain "
-          f"{ap_ms:.1f} ms, torch.linalg.solve {ac_lib_ms:.3f} ms")
+          f"plain bit-identical, max abs err {ac_err:.3e}; kernel "
+          f"{ak_ms:.3f} ms, plain "
+          f"{ap_ms:.1f} ms, torch.linalg.solve {ac_lib_ms:.3f} ms on the "
+          f"same systems ({'no slower' if ak_ms <= ac_lib_ms else 'slower'}"
+          ")")
     return ac_main
 
 
@@ -1051,17 +1069,22 @@ def store_phases(lanes, main_lanes, smi, hwr_none):
     and against the run kernel, then the store main path."""
     err = 0.0
     hwr = deck_file("half_wave_rectifier.cir")
-    decks = (("rc_sin", RC_SIN, ("R", "C")), ("half_wave_rectifier", hwr,
-                                              ("R", "C")),
-             ("coupled_inductors", deck_file("coupled_inductors.cir"),
-              ("R", "L")))
-    for name, deck, keys in decks:
+    # coupled_inductors runs to its tstop in phase 11 (~23,700 attempts a
+    # lane); here its lanes stop at 2000 attempts, as in phase 22, so that
+    # the plain store's replay stays short
+    decks = (("rc_sin", RC_SIN, ("R", "C"), None),
+             ("half_wave_rectifier", hwr, ("R", "C"), None),
+             ("coupled_inductors_2000", deck_file("coupled_inductors.cir"),
+              ("R", "L"), 2000))
+    for name, deck, keys, max_att in decks:
         t0 = time.perf_counter()
         cc, cfg, params, axes, state0 = setup(
             deck,
             lambda cc, b: perturbed(cc, np.random.default_rng(3), b, keys),
             lanes)
         plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+        if max_att:
+            sc = sc._replace(max_attempts=max_att)
         keep = run.Store(cfg.tstart, cfg.max_store)
         k, kw, e, k_ms, _, p_ms = store_vs_plain(name, plan, dev, src, st,
                                                  sc, keep, jv0)
@@ -2153,14 +2176,15 @@ def same_bits(a, b):
 
 def gj_phase(lanes):
     """Phase 27: the GJ kernel against gj_plain on random sets, n in {6,
-    32, 40, 72, 128}, with a zero-diagonal column and a singular lane: x
-    within rtol 1e-9 (bit-identical expected), the same non-finite lanes;
-    on the same systems the stamped solve (the per-thread instantiation at
-    n <= 32, the block one above) and its plain version."""
+    32, 33, 40, 48, 49, 64, 65, 72, 128} (the stamped solve's bucket
+    edges), with a zero-diagonal column and a singular lane: the same bits
+    and the same non-finite lanes; on the same systems the stamped solve
+    (per-thread to n = 32, a warp a system to 64, a block above) and its
+    plain version."""
     t0 = time.perf_counter()
     err = 0.0
     notes = []
-    for n in (6, 32, 40, 72, 128):
+    for n in (6, 32, 33, 40, 48, 49, 64, 65, 72, 128):
         a, rhs = dense_sets(n, lanes, n)
         xk = solve.launch_gj(a, rhs)
         xp = solve.gj_plain(a, rhs)
@@ -2184,12 +2208,13 @@ def gj_phase(lanes):
         bits = [same_bits(xk, xp), same_bits(xs, xp), same_bits(xsp, xp)]
         notes.append(f"n={n}: bit-identical {'/'.join(map(str, bits))}")
         if not all(bits):
-            print(f"[27 GJ] n={n}: not bit-identical (GJ kernel, stamped "
-                  f"kernel, stamped plain vs gj_plain: {bits})", flush=True)
+            fail(f"GJ n={n}: not bit-identical (GJ kernel, stamped kernel, "
+                 f"stamped plain vs gj_plain: {bits})")
     phase("27 GJ kernel vs plain", t0,
           f"{lanes} random systems each, a zero diagonal and a singular "
-          f"lane: GJ kernel, stamped kernel (per-thread to 32, block above) "
-          f"and stamped plain against gj_plain, the same non-finite lanes, "
+          f"lane: GJ kernel, stamped kernel (per-thread to 32, a warp to 64, "
+          f"a block above) and stamped plain against gj_plain, the same "
+          f"non-finite lanes, "
           f"max abs err {err:.3e}; " + "; ".join(notes))
     return err
 
@@ -2241,14 +2266,13 @@ def cw16_phase(lanes, smi):
     """Phase 29: the main path cw16_8192: a 16-stage Cockcroft-Walton
     multiplier (np1 = 35, 32 diodes: past the kernels' caps), C spread
     0.1, compat, store='none', not UIC, through make_tran_batch: engine
-    "general", the GJ kernel for the OP's seed, the stamped solve's block
-    instantiation once per batched Newton iteration, no run, OP or store
-    kernel; no lane failed, every lane at tstop.  Then the general engine
-    with the kernels against the general engine with their plain versions
-    on the same 8192 lanes over the run's first 0.1 ms: counters equal,
-    state and jv within rtol 1e-9 (bit-identical expected); the stamped
-    kernel's, the plain version's and torch.linalg.solve's times are
-    those launches'."""
+    "general", the GJ kernel for the OP's seed, the stamped solve's warp
+    instantiation (n = 35) once per batched Newton iteration, no run, OP
+    or store kernel; no lane failed, every lane at tstop.  Then the
+    general engine with the kernels against the general engine with their
+    plain versions on the same 8192 lanes over the run's first 0.1 ms:
+    counters equal, state and jv bit-identical; the stamped kernel's, the
+    plain version's and torch.linalg.solve's times are those launches'."""
     t0 = time.perf_counter()
     deck = cockcroft_walton(16)
     cc, cfg, params, axes, state0 = setup(deck, c_spread, lanes)
@@ -2297,6 +2321,9 @@ def cw16_phase(lanes, smi):
                                   ("jv", k.jv, p.jv))
              for kd in pt for key in pt[kd]]
     err = max_err("cw16 kernels vs plain", pairs)
+    if not all(same_bits(a, b) for _, a, b in pairs):
+        fail("cw16: the kernels' state or jv is not bit-identical to the "
+             "plain versions'")
     pat, vals, rvals, gmin = tk.args[0]
     ga, gb = gk.args[0]
     calls = len(tk.args)
@@ -2322,7 +2349,7 @@ def cw16_phase(lanes, smi):
           f"cw16 (np1={cc.np1}, {cc.kind_count('D')} diodes): engine="
           f"{fn.engine} ({fn.engine_reason}), GJ kernel launches="
           f"{got['gj_kernel']}, stamped-solve launches="
-          f"{got['stamped_solve']} (block instantiation, n={pat.n}, "
+          f"{got['stamped_solve']} (warp instantiation, n={pat.n}, "
           f"{int(pat.table[0])} terms), lanes={lanes}, accepted={accepted}, "
           f"attempts={int(out.attempts.sum())}, failed={failed}, every lane "
           f"at tstop, Newton iterations per lane {int(nri.min())}.."
@@ -2330,8 +2357,10 @@ def cw16_phase(lanes, smi):
           f"{wall:.6f} s, {accepted / wall:.6e} accepted steps/s on {smi}; "
           f"the kernels vs their plain versions on these lanes over the "
           f"first 0.1 ms ({calls} stamped launches): counters equal, "
-          f"max abs err {err:.3e}; stamped kernel {stamped_big['k_ms']:.3f} "
-          f"ms, plain {stamped_big['p_ms']:.1f} ms, torch.linalg.solve on "
+          f"bit-identical, max abs err {err:.3e}; stamped kernel "
+          f"{stamped_big['k_ms']:.3f} ms ({stamped_big['k_ms'] / calls:.4f} "
+          f"ms a launch), plain {stamped_big['p_ms']:.1f} ms, "
+          f"torch.linalg.solve on "
           f"the built systems {stamped_big['lib_ms']:.3f} ms; GJ seed "
           f"kernel {gj_seed['k_ms']:.3f} ms, plain {gj_seed['p_ms']:.3f} ms")
     del k, p, tk, gk, tp_, gp
@@ -2415,6 +2444,86 @@ def lc16_phase(lanes, smi, chunk=16384):
     del a2, b2, x, gk
     free()
     return gj_ac
+
+
+RECTIFIER_AC = """* half-wave rectifier biased at 0.6 V, an AC source in series
+.ac DEC 5 100 1meg
+Vb ac m DC 0.6
+Vs m 0 AC 1
+Dr ac dcout DFAST
+Rload dcout 0 2.7k
+Csmooth dcout 0 4.7u
+.model DFAST D (Is=2e-14 N=1.05 Cj0=4p Tt=5n)
+"""
+
+
+def compat_trap_phase(lanes):
+    """Phase 31: compat under integration="trap" in the OP, the DC sweep
+    and the AC (served as BE, as the JAX package serves them): each entry
+    point's kernels launched, the result equal bit for bit to compat/BE's,
+    the kernel bit-identical to its plain version; the transient still
+    refuses compat/trap."""
+    t0 = time.perf_counter()
+    trap = ts.SimOptions(integration="trap")
+    hwr = deck_file("half_wave_rectifier.cir")
+    cc, cfg, params, axes, state0 = setup(hwr, rc_spread, lanes)
+    hcc = cc
+    pts = ts.sweep_values(-2.0, 2.0, 0.25)
+    notes = []
+    reset_counts()
+    o = ts.run_op_batch(cc, params, opts=trap)
+    xs, conv = ts.run_dc_batch(cc, (0,), params, axes, pts, opts=trap)
+    torch.cuda.synchronize()
+    check_counts("compat/trap OP and DC", counts(), {
+        "op_kernel": (1, 1 << 30), "dc_sweep_kernel": (1, 1)})
+    be = ts.run_op_batch(cc, params)
+    xs_be, conv_be = ts.run_dc_batch(cc, (0,), params, axes, pts)
+    if not (bool(o.converged.all()) and bool(conv.all())
+            and same_bits(o.x, be.x) and same_bits(xs, xs_be)
+            and torch.equal(o.stage, be.stage) and torch.equal(conv,
+                                                              conv_be)):
+        fail("compat/trap OP or DC sweep differs from compat/BE or did not "
+             "converge")
+    ok = op.make_op_fused(cc, trap, solve=op.op_lanes)(params, state0)
+    opn = op.make_op_fused(cc, trap, solve=op.op_plain)(params, state0)
+    dk = dc.make_dc_fused(cc, (0,), trap, solve=dc.dc_lanes)(params, state0,
+                                                             pts)
+    dp = dc.make_dc_fused(cc, (0,), trap, solve=dc.dc_plain)(params, state0,
+                                                             pts)
+    if not (same_bits(ok.x, opn.x) and torch.equal(ok.stage, opn.stage)
+            and same_bits(dk.xs, dp.xs) and torch.equal(dk.conv, dp.conv)
+            and torch.equal(dk.iters, dp.iters)):
+        fail("compat/trap: the OP or DC sweep kernel is not bit-identical to "
+             "its plain version")
+    notes.append(f"OP {lanes} lanes and DC {lanes} x {len(pts)} points "
+                 "equal to compat/BE, the kernels bit-identical to plain")
+    cc, _, params, axes, state0 = setup(RECTIFIER_AC, rc_spread, lanes)
+    a = cc.netlist.ac
+    freqs = ts.frequency_points(a.sweep, a.fstart, a.fstop, a.points)
+    reset_counts()
+    xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs, opts=trap)
+    torch.cuda.synchronize()
+    check_counts("compat/trap AC", counts(), {"op_kernel": (1, 1 << 30),
+                                              "ac_kernel": (1, 1)})
+    xr_be, xi_be, _ = ts.run_ac_batch(cc, params, axes, freqs)
+    pr, pi_, _ = make_ac_batch(cc, axes, trap, op_solve=op.op_plain,
+                               ac_solve=ac.ac_plain)(params, state0, freqs)
+    if not (bool(opr.converged.all()) and same_bits(xr, xr_be)
+            and same_bits(xi, xi_be) and same_bits(xr, pr)
+            and same_bits(xi, pi_) and bool(torch.isfinite(xr).all())):
+        fail("compat/trap AC differs from compat/BE or from the plain "
+             "versions")
+    notes.append(f"AC {lanes} x {len(freqs)} systems of {2 * cc.np1} equal "
+                 "to compat/BE and to the plain versions")
+    try:
+        ts.make_tran_batch(hcc, cfg, None, opts=trap)
+        fail("compat/trap transient was not refused")
+    except NotImplementedError as e:
+        if "requires semantics='physics'" not in str(e):
+            fail(f"compat/trap transient refused with {e}")
+    notes.append("the transient refuses it")
+    phase("31 compat/trap analyses", t0, "half_wave_rectifier: "
+          + "; ".join(notes))
 
 
 def main():
@@ -2708,6 +2817,7 @@ def main():
     gen_err = general_vs_run_phase(SMALL_LANES)
     stamped_big, gj_seed = cw16_phase(BENCH_LANES, smi)
     gj_ac = lc16_phase(BENCH_LANES, smi)
+    compat_trap_phase(1024)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -2833,7 +2943,7 @@ def main():
               f"bytes / {PEAK_BYTES:.3g} B/s = {bd[3]:.6f} ms", flush=True)
 
     sb_bound = bound(stamped_big["flops"], stamped_big["nbytes"])
-    print(f"[17 bound] stamped_solve block (cw16_8192's first 0.1 ms, "
+    print(f"[17 bound] stamped_solve warp (cw16_8192's first 0.1 ms, "
           f"{stamped_big['calls']} launches, n={stamped_big['n']}, "
           f"{stamped_big['terms']} terms): "
           f"{stamped_big['flops']} f64 operations / {PEAK_F64:.3g} op/s = "

@@ -416,6 +416,44 @@ def test_ac_kernel_matches_plain(cuda, np1):
     _assert_close(k, ac.ac_solve_batch(*args, freqs, solve=ac.ac_plain))
 
 
+def _same_bits(a, b):
+    """torch.equal, with NaN equal to NaN."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.where(torch.isnan(a), 0.0, a),
+                            torch.where(torch.isnan(b), 0.0, b)))
+
+
+@pytest.mark.parametrize("np1", [2, 8, 9, 16, 17, 32])
+def test_ac_warp_kernel_is_bit_identical(cuda, np1):
+    """The AC kernel (a warp segment per system) at every bucket edge:
+    16 lanes and registers to 2np1 = 16, 32 lanes to 32, shared memory to
+    64; 43 instances x 3 frequencies (not a multiple of a block's systems),
+    with a tie in |pivot|, a zero pivot, a NaN column and an all-zero
+    (singular) system: torch.equal with the plain version."""
+    rng = np.random.default_rng(np1)
+    g = rng.normal(size=(43, np1, np1)) + 3.0 * np.eye(np1)
+    bh = rng.normal(size=(43, np1, np1)) * 1e-3
+    r = rng.normal(size=(43, 2 * np1))
+    g[1, :, 0] = 0.0
+    g[1, 0, 0], g[1, 1, 0] = 2.0, -2.0  # a tie in column 0
+    bh[1, :, 0] = 0.0
+    g[2, 1, :] = 0.0  # a zero row: a zero pivot
+    bh[2, 1, :] = 0.0
+    g[3, :, 1 % np1] = np.nan  # a NaN column
+    g[4], bh[4], r[4] = 0.0, 0.0, 0.0  # singular
+    args = [torch.as_tensor(v, device=cuda) for v in (g, bh, r)]
+    freqs = np.array([0.0, 10.0, 1e4])
+    before = ac.launch_ac_kernel.launches
+    k = ac.ac_solve_batch(*args, freqs)
+    torch.cuda.synchronize()
+    assert ac.launch_ac_kernel.launches == before + 1
+    p = ac.ac_solve_batch(*args, freqs, solve=ac.ac_plain)
+    assert _same_bits(k, p)
+    bad = ~torch.isfinite(p).all(dim=2)
+    assert bool(bad[2:5].all()) and not bool(bad[[0, 1, 5, 42]].any())
+    assert bool(torch.isnan(k[bad]).all())
+
+
 def test_ac_main_path_runs_the_op_and_ac_kernels(cuda):
     deck = """Common-emitter amplifier frequency response
 .ac DEC 12 20 2meg
@@ -890,6 +928,73 @@ def test_gj_and_stamped_kernels_match_plain(cuda, n):
         assert torch.equal(~torch.isfinite(x).all(dim=1), bad)
         torch.testing.assert_close(x[~bad], want[~bad], rtol=1e-9,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [33, 35, 48, 49, 64, 65, 128])
+def test_stamped_warp_kernel_is_bit_identical(cuda, n):
+    """csrc/stamped_solve.cu past n = 32 at every bucket edge (a warp a
+    system with the rows in registers to 48, in shared memory to 64, a
+    block a system above) on 259 lanes (not a multiple of a block's
+    systems; many blocks, so that a warp writing past its slice of shared
+    memory shows), with a tie in |pivot|, a zero pivot (a singular lane), a NaN
+    column and integer entries; gmin 0 and per lane: torch.equal with the
+    plain version."""
+    rng = np.random.default_rng(n)
+    lanes = 259
+    a = rng.normal(size=(lanes, n, n)) + 4.0 * np.eye(n)
+    rhs = rng.normal(size=(lanes, n))
+    a[:, 3, 3] = 0.0
+    a[5, 2, :] = 0.0  # singular
+    a[6, :, 4] = np.nan
+    a[7, 1:, 1] = 0.0
+    a[7, 1, 1], a[7, 2, 1] = 3.0, -3.0  # a tie in column 1
+    a[8, 1:, :] = np.round(a[8, 1:, :])
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                         np.arange(1, n))
+    vals = torch.as_tensor(a[:, 1:, :].reshape(lanes, -1).copy(),
+                           device=cuda)
+    rv = torch.as_tensor(rhs[:, 1:].copy(), device=cuda)
+    for gmin in (torch.zeros(lanes, dtype=torch.float64, device=cuda),
+                 torch.as_tensor(rng.uniform(0.0, 1e-3, lanes),
+                                 device=cuda)):
+        before = solve_stamped.launch_stamped.launches
+        k = fn(vals, rv, gmin)
+        torch.cuda.synchronize()
+        assert solve_stamped.launch_stamped.launches == before + 1
+        p = solve_stamped.solve_plain(fn.pattern, vals, rv, gmin)
+        assert _same_bits(k, p)
+        bad = ~torch.isfinite(p).all(dim=1)
+        assert bool(bad[6]) and bool(torch.isnan(k[bad]).all())
+        assert bool(bad[5]) == (float(gmin[5]) == 0.0)
+        assert not bool(bad[[0, 1, 2, 3, 4, 7, 8, 9, 10, lanes - 1]].any())
+
+
+@pytest.mark.parametrize("n", [40, 56])
+def test_stamped_warp_kernel_sums_a_large_table(cuda, n):
+    """Every cell of the pattern four entries deep (each summed from 0 in
+    entry order): a term table past what the warp path keeps in shared
+    memory (it reads it through the cache then), with the rows in
+    registers (n = 40) and in shared memory (n = 56); torch.equal with the
+    plain version."""
+    rng = np.random.default_rng(n)
+    lanes, depth = 67, 4
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    rows = np.repeat(rows.ravel(), depth)
+    cols = np.repeat(cols.ravel(), depth)
+    rrows = np.repeat(np.arange(1, n), depth)
+    fn = solve_stamped.solve_stamped_for(n, rows, cols, rrows)
+    assert fn.pattern.table.size > 16384
+    vals = rng.normal(size=(lanes, rows.size)) / depth
+    diag = (rows == cols)
+    vals[:, diag] += 4.0 / depth
+    vals = torch.as_tensor(vals, device=cuda)
+    rv = torch.as_tensor(rng.normal(size=(lanes, rrows.size)), device=cuda)
+    gmin = torch.as_tensor(rng.uniform(0.0, 1e-3, lanes), device=cuda)
+    k = fn(vals, rv, gmin)
+    torch.cuda.synchronize()
+    p = solve_stamped.solve_plain(fn.pattern, vals, rv, gmin)
+    assert _same_bits(k, p) and bool(torch.isfinite(p).all())
 
 
 def test_general_engine_matches_the_run_kernel(cuda):

@@ -218,9 +218,9 @@ def test_nonlinear_device_cap_boundary():
 
 @pytest.mark.parametrize("text,kw,reason", [
     (_deck("divider_op.cir"), {}, "linear circuit"),
-    (_deck("ce_amplifier_op.cir"),
-     {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'"),
+    # compat under trap is served as BE (tests/test_torch_compat_trap.py)
+    (_deck("ce_amplifier_op.cir"), {"semantics": "bogus"},
+     "semantics='bogus'"),
     (_deck("saturating_transformer.cir"), {"semantics": "physics"},
      "linear circuit"),
     (_diodes(17), {}, "cap of 16"),
@@ -264,8 +264,8 @@ def _ac(text):
 
 
 @pytest.mark.parametrize("text,kw,reason", [
-    (_deck("ce_amplifier_ac.cir"), {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'"),
+    (_deck("ce_amplifier_ac.cir"), {"semantics": "bogus"},
+     "semantics='bogus'"),
     (_ac(_ladder(30)), {}, "np1=33 exceeds the AC kernel's matrix cap of 32"),
     (_ac(_diodes(17)), {}, "cap of 16"),
 ], ids=["physics", "np1_cap", "device_cap"])
@@ -300,10 +300,9 @@ def test_ac_np1_cap_boundary():
 
 
 @pytest.mark.parametrize("text,kw,reason", [
-    (_deck("diode_iv_sweep.cir"), {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'"),
-    (_deck("divider_op.cir"), {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'"),
+    (_deck("diode_iv_sweep.cir"), {"semantics": "bogus"},
+     "semantics='bogus'"),
+    (_deck("divider_op.cir"), {"semantics": "bogus"}, "semantics='bogus'"),
     (_diodes(17), {}, "cap of 16"),
     (_ladder(126), {}, "np1=129 exceeds the stamped-solve kernel's matrix "
      "cap of 128"),

@@ -179,24 +179,21 @@ def test_engine_selection_and_reasons():
     mag = ts.compile_circuit(ts.parse(_deck("saturating_transformer.cir")))
     assert select_op_engine(mag)[0] == "linear"
     # physics is served (tests/test_torch_physics_op.py); trap under
-    # compat is refused, as the JAX package refuses it
-    for text, kw, reason in (
-            (_deck("divider_op.cir"),
-             {"opts": SimOptions(integration="trap")},
-             "integration='trap'"),
-            (_deck("ce_amplifier_op.cir"),
-             {"opts": SimOptions(integration="trap")},
-             "integration='trap'"),
-            (_deck("saturating_transformer.cir"),
-             {"opts": SimOptions(integration="trap")},
-             "integration='trap'")):
+    # compat takes compat's engines, as the JAX package's OP takes the deck
+    # and stamps BE (tests/test_torch_compat_trap.py); a semantics the
+    # port does not run is refused
+    trap = SimOptions(integration="trap")
+    for text, engine in ((_deck("divider_op.cir"), "linear"),
+                         (_deck("ce_amplifier_op.cir"), "fused"),
+                         (_deck("saturating_transformer.cir"), "linear")):
         cc = ts.compile_circuit(ts.parse(text))
+        assert select_op_engine(cc, opts=trap)[0] == engine
         with pytest.raises(NotImplementedError, match="no OP engine") as e:
-            select_op_engine(cc, **kw)
-        assert reason in str(e.value)
-        with pytest.raises(NotImplementedError, match=reason):
+            select_op_engine(cc, "bogus")
+        assert "semantics='bogus'" in str(e.value)
+        with pytest.raises(NotImplementedError, match="semantics='bogus'"):
             ts.run_op_batch(cc, ts.batch_params(cc, {}, device="cpu")[0],
-                            **kw)
+                            semantics="bogus")
 
 
 def _op_inputs(deck, lanes):

@@ -12,11 +12,12 @@ pivot poisons its row), B = 130 (not a multiple of 128), n in {6, 40, 72}.
 The Pallas kernel runs at n = 6 only: its interpret mode unrolls every
 column into the traced program and took 344 s at n = 40 on one CPU core.
 
-On a singular lane every package gives a non-finite x, but not the same
-entries: the JAX package gathers x with a one-hot contraction, so one
-non-finite right-hand side spreads NaN into every x of the system, while
-the port (and every elimination in csrc/) indexes the pivot rows and
-leaves the finite entries finite.  The tests hold the lane-wise pattern
+On a singular lane every package gives a non-finite x: the JAX package
+gathers x with a one-hot contraction, so one non-finite right-hand side
+spreads NaN into every x of the system, and the port (every elimination
+in csrc/ too) indexes the pivot rows and then sets every x of a system
+with a non-finite one to NaN (tests/test_torch_singular_newton.py holds
+a Newton through such a solve).  The tests hold the lane-wise pattern
 (any x non-finite) equal."""
 
 import numpy as np

@@ -1,5 +1,5 @@
 // The AC small-signal solve of every (instance, frequency) pair in one
-// launch, one thread per pair, in f64.
+// launch, a segment of 16 or 32 lanes of one warp per pair, in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_ac.py::_ac_kernel (body
 // _ac_core, launched at pallas_ac.py:164 through ac_solve_batch).  The AC
@@ -16,64 +16,129 @@
 // G, B^ and r are read once per instance (index lane / F) from (B, ...)
 // rows, not repeated per frequency as the TPU wrapper's lanes() does
 // (pallas_ac.py:129-136): it had to lay every lane's values out in VMEM
-// tiles, while threads here read their instance's rows from memory (the F
-// threads of one instance are neighbours and share the cache lines).  The
-// TPU kernel carries double-float (hi, lo) f32 pairs; here omega*B^ is one
-// f64 product, as in ops/ac.py::ac_plain, and the build uses -fmad=false.
+// tiles, while the F systems of one instance are neighbouring segments
+// here and read the same rows through the cache.  The TPU kernel carries
+// double-float (hi, lo) f32 pairs; here omega*B^ is one f64 product, as in
+// ops/ac.py::ac_plain, and the build uses -fmad=false.
 //
-// The matrix is 2N x (2N+1) in a per-thread array: N2MAX 16, 32 or 64 for
-// np1 <= 8, 16, 32 (64 x 65 f64 is 33 KB of local memory per thread).
+// Design: a system per segment, its row i in lane i of the segment, and
+// gj_warp.cuh's elimination: a shuffle butterfly for the pivot, the pivot
+// row's quotients through the segment's slice of shared memory, no block
+// barrier.  2N <= 16 (np1 <= 8): 16 lanes and the rows in registers, two
+// systems a warp; 2N <= 32: 32 lanes, registers; 2N <= 64 (np1 <= 32): 32
+// lanes, two rows each in the warp's slice of shared memory (65 doubles a
+// row would not fit the register file).  The first port kept the 2N x
+// (2N+1) matrix in a per-thread array in local memory (2.2 KB a thread at
+// 2N = 16) and was 3.4x slower than one torch.linalg.solve.
 //
 // Bound: bytes for small systems (each instance's 2N^2 + 2N values, each
 // lane's 2N outputs), the 2N elimination's operations for larger ones
-// (chip_smoke.py gj_flops).  One thread per lane through local memory is
-// latency-bound, as in the other kernels.
+// (chip_smoke.py ac_flops).
 
-#include "newton.cuh"
+#include "gj_warp.cuh"
 
 namespace {
 
 using namespace tsr;
 
-template <int N2MAX>
-__global__ void __launch_bounds__(THREADS)
+constexpr int AC_THREADS = 128;  // a block: 4 warps
+constexpr int AC_SMEM_WARPS = 2;  // a block of the shared-memory bucket
+
+// the element (i, j) of lane `sys`'s real 2N system: [[G, -wB], [wB, G]]
+__device__ __forceinline__ double ac_entry(const double* g, const double* bh,
+                                           double w, int n, int i, int j) {
+  const int gi = i < n ? i : i - n;
+  const int gj = j < n ? j : j - n;
+  if ((i < n) == (j < n)) return g[gi * n + gj];
+  const double wb = w * bh[gi * n + gj];
+  return i < n ? -wb : wb;
+}
+
+template <int NMAX, int W>
+__global__ void __launch_bounds__(AC_THREADS)
 ac_kernel(int np1, int nf, const double* __restrict__ gm,
           const double* __restrict__ bm, const double* __restrict__ rhs,
           const double* __restrict__ omega, double* __restrict__ x_out,
-          int nlanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= nlanes) return;
-  const int b = lane / nf;
+          int nsys) {
+  // a segment's exchange buffer, 16-byte aligned (NMAX + 1 used)
+  __shared__ __align__(16) double sbuf[AC_THREADS / W][NMAX + 2];
+  const int seg = threadIdx.x / W;
+  const int lane = threadIdx.x & (W - 1);
+  const int sys = blockIdx.x * (AC_THREADS / W) + seg;
+  if (sys >= nsys) return;  // the whole segment leaves together
+  const unsigned mask = segment_mask<W>(threadIdx.x & 31);
+  const int b = sys / nf;
   const int n = np1, n2 = 2 * np1;
-  const double w = omega[lane - b * nf];
+  const double w = omega[sys - b * nf];
   const double* g = gm + (size_t)b * n * n;
   const double* bh = bm + (size_t)b * n * n;
-  const double* r = rhs + (size_t)b * n2;
 
-  double m[N2MAX][N2MAX + 1];
-  double x[N2MAX];
-  for (int i = 0; i < n; ++i) {
-    for (int j = 0; j < n; ++j) {
-      const double gij = g[i * n + j];
-      const double wb = w * bh[i * n + j];
-      m[i][j] = gij;
-      m[i][n + j] = -wb;
-      m[n + i][j] = wb;
-      m[n + i][n + j] = gij;
-    }
+  double m[1][NMAX + 1];
+#pragma unroll
+  for (int j = 0; j <= NMAX; ++j) m[0][j] = 0.0;
+  if (lane < n2) {
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j)
+      if (j < n2) m[0][j] = ac_entry(g, bh, w, n, lane, j);
+    m[0][NMAX] = rhs[(size_t)b * n2 + lane];
   }
-  for (int i = 0; i < n2; ++i) m[i][n2] = r[i];
-  gauss_jordan<N2MAX>(m, n2, x);
-  for (int i = 0; i < n2; ++i) x_out[(size_t)lane * n2 + i] = x[i];
+  gj_warp_reg<NMAX, W, 1>(m, n2, sbuf[seg], lane, mask,
+                          x_out + (size_t)sys * n2);
 }
 
-template <int N2MAX>
+__global__ void __launch_bounds__(AC_SMEM_WARPS * 32)
+ac_smem_kernel(int np1, int nf, const double* __restrict__ gm,
+               const double* __restrict__ bm, const double* __restrict__ rhs,
+               const double* __restrict__ omega, double* __restrict__ x_out,
+               int nsys) {
+  extern __shared__ double smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sys = blockIdx.x * AC_SMEM_WARPS + warp;
+  if (sys >= nsys) return;
+  const int b = sys / nf;
+  const int n = np1, n2 = 2 * np1, ld = warp_ld(n2);
+  double* t = smem + (size_t)warp * (n2 * ld + n2 + 1);
+  double* q = t + n2 * ld;
+  const double w = omega[sys - b * nf];
+  const double* g = gm + (size_t)b * n * n;
+  const double* bh = bm + (size_t)b * n * n;
+  for (int e = lane; e < n2 * n2; e += 32) {
+    const int i = e / n2, j = e - i * n2;
+    t[i * ld + j] = ac_entry(g, bh, w, n, i, j);
+  }
+  for (int i = lane; i < n2; i += 32) t[i * ld + n2] = rhs[(size_t)b * n2 + i];
+  __syncwarp();
+  gj_warp_smem<32, 2>(t, ld, n2, q, lane, 0xffffffffu,
+                      x_out + (size_t)sys * n2);
+}
+
+template <int NMAX, int W>
 cudaError_t launch(int np1, int nf, const double* g, const double* bh,
                    const double* r, const double* omega, double* x,
-                   int nlanes, cudaStream_t stream) {
-  const int blocks = (nlanes + THREADS - 1) / THREADS;
-  ac_kernel<N2MAX><<<blocks, THREADS, 0, stream>>>(np1, nf, g, bh, r, omega,
-                                                   x, nlanes);
+                   int nsys, cudaStream_t stream) {
+  constexpr int per_block = AC_THREADS / W;
+  const int blocks = (nsys + per_block - 1) / per_block;
+  ac_kernel<NMAX, W><<<blocks, AC_THREADS, 0, stream>>>(np1, nf, g, bh, r,
+                                                         omega, x, nsys);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_smem(int np1, int nf, const double* g, const double* bh,
+                        const double* r, const double* omega, double* x,
+                        int nsys, cudaStream_t stream) {
+  const int n2 = 2 * np1;
+  const size_t shmem = (size_t)AC_SMEM_WARPS * (n2 * warp_ld(n2) + n2 + 1)
+                       * sizeof(double);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ac_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (nsys + AC_SMEM_WARPS - 1) / AC_SMEM_WARPS;
+  ac_smem_kernel<<<blocks, AC_SMEM_WARPS * 32, shmem, stream>>>(
+      np1, nf, g, bh, r, omega, x, nsys);
   return cudaGetLastError();
 }
 
@@ -90,9 +155,9 @@ extern "C" int tsr_ac(int np1, int nb, int nf, const double* g,
   if (lanes > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nl = static_cast<int>(lanes);
-  if (np1 <= 8) return launch<16>(np1, nf, g, bh, r, omega, x, nl, s);
-  if (np1 <= 16) return launch<32>(np1, nf, g, bh, r, omega, x, nl, s);
-  if (np1 <= 32) return launch<64>(np1, nf, g, bh, r, omega, x, nl, s);
+  if (np1 <= 8) return launch<16, 16>(np1, nf, g, bh, r, omega, x, nl, s);
+  if (np1 <= 16) return launch<32, 32>(np1, nf, g, bh, r, omega, x, nl, s);
+  if (np1 <= 32) return launch_smem(np1, nf, g, bh, r, omega, x, nl, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

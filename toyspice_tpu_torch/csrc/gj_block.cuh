@@ -1,7 +1,8 @@
 // Block-cooperative Gauss-Jordan of one augmented (n, n+1) f64 system in
 // shared memory: the elimination of csrc/gj_kernel.cu (one dense system
-// per block) and of csrc/stamped_solve.cu's large-n instantiation (one
-// lane's stamped system per block).
+// per block) and of csrc/stamped_solve.cu's systems past n = 64 (one
+// lane's stamped system per block).  The stamped solve's systems of 33 to
+// 64 and the AC kernel's run on gj_warp.cuh (a warp a system).
 //
 // The counterpart of toyspice_tpu/ops/pallas_solve.py::_gj_eliminate and
 // ops/solve.py::_gj_batch_last, which carry double-float (hi, lo) f32
@@ -21,7 +22,8 @@
 //
 // Each element sees the operations of newton.cuh's per-thread
 // gauss_jordan in the same order (built with -fmad=false), so the kernels
-// and ops/newton.py::gauss_jordan give the same bits.
+// and ops/newton.py::gauss_jordan give the same bits; a system with a
+// non-finite x gets NaN in every x, as there.
 //
 // Shared memory: the matrix (n rows of stride n + 1) and, after it, the n
 // factors (doubles), the n pivot rows and the n used flags (ints):
@@ -113,8 +115,15 @@ __device__ inline void gj_block(double* m, int n, double* x_out) {
     }
     __syncthreads();
   }
+  // one non-finite x makes every x NaN, as the JAX package's one-hot
+  // gather does
+  if (tid == 0) s_nan = nan_col;
+  __syncthreads();
+  for (int k = tid; k < n && !nan_col; k += blockDim.x)
+    if (!isfinite(m[perm[k] * ld + n])) s_nan = 1;
+  __syncthreads();
   for (int k = tid; k < n; k += blockDim.x)
-    x_out[k] = nan_col ? NAN : m[perm[k] * ld + n];
+    x_out[k] = s_nan ? NAN : m[perm[k] * ld + n];
 }
 
 }  // namespace tsr

@@ -674,6 +674,10 @@ __device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
     x[k] = nan_col ? NAN : m[perm[k]][n];
     finite = finite && isfinite(x[k]);
   }
+  // one non-finite x makes every x NaN, as the JAX package's one-hot
+  // gather does
+  if (!finite)
+    for (int k = 0; k < n; ++k) x[k] = NAN;
   return finite;
 }
 

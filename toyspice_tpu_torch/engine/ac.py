@@ -39,14 +39,14 @@ def frequency_points(sweep: str, fstart: float, fstop: float,
         return fstart + i * ((fstop - fstart) / n)  # LIN
 
 
-def general_ac_reason(cc, semantics: str = "compat", opts=None):
+def general_ac_reason(cc, semantics: str = "compat"):
     """Why the general AC can NOT run this deck; None when it can: the
     general engine's kinds and semantics, and a 2np1 system within the GJ
     kernel's NBIG."""
     from ..ops.solve import NBIG
     from .batch import general_ineligible_reason
 
-    why = general_ineligible_reason(cc, semantics, opts)
+    why = general_ineligible_reason(cc, semantics)
     if why is not None:
         return why
     if 2 * cc.np1 > NBIG:
@@ -115,7 +115,7 @@ def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
 
     why = ac_ineligible_reason(cc, semantics, opts)
     if why is not None:
-        why_not = general_ac_reason(cc, semantics, opts)
+        why_not = general_ac_reason(cc, semantics)
         if why_not is not None:
             raise NotImplementedError(f"no AC engine for this deck in the "
                                       f"port: {why}; {why_not}")

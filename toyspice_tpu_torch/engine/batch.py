@@ -58,14 +58,16 @@ def batch_params(cc, overrides: Dict[str, Dict[str, object]],
     return params, axes
 
 
-def general_ineligible_reason(cc, semantics: str = "compat", opts=None):
+def general_ineligible_reason(cc, semantics: str = "compat"):
     """Why the general engine can NOT run this deck; None when it can: the
     port's semantics and device kinds, and np1 within the stamped solve's
-    NBIG."""
+    NBIG.  The integration is not asked: the OP, DC sweep and AC take
+    compat under trap as BE, and a transient's refusal of it comes first
+    (``select_tran_engine``)."""
     from ..ops.run_plan import SLICE_KINDS, semantics_reason
     from ..ops.solve import NBIG
 
-    why = semantics_reason(semantics, opts)
+    why = semantics_reason(semantics)
     if why is not None:
         return why
     extra = set(cc.idx.keys()) - set(SLICE_KINDS)
@@ -99,7 +101,7 @@ def select_tran_engine(cc, cfg: TranConfig, in_axes,
     why = run_ineligible_reason(cc, semantics, store, opts)
     if why is not None:
         why_not = (fused_ineligible_reason(cc, semantics, store, opts)
-                   or general_ineligible_reason(cc, semantics, opts))
+                   or general_ineligible_reason(cc, semantics))
         if why_not is not None:
             raise NotImplementedError(
                 f"no transient engine for this run in the port: {why_not}")
@@ -258,16 +260,16 @@ def run_transient_streamed(cc, cfg: TranConfig, params, state0,
                          store_overflow=overflow)
 
 
-def linear_op_ineligible_reason(cc, semantics: str = "compat", opts=None):
+def linear_op_ineligible_reason(cc, semantics: str = "compat"):
     """Why this deck can NOT use the linear OP (the stamped solve under
     the rescue ladders); None when it can.  Its OP stamps do not depend
-    on the semantics (assemble.py reads it only in transient stamps and
-    for the diode)."""
+    on the semantics or the integration (assemble.py reads them only in
+    transient stamps and for the diode)."""
     from ..ops.assemble import LINEAR_KINDS
     from ..ops.run_plan import nonlinear, semantics_reason
     from ..ops.solve import NBIG
 
-    why = semantics_reason(semantics, opts)
+    why = semantics_reason(semantics)
     if why is not None:
         return why
     if nonlinear(cc):
@@ -296,12 +298,12 @@ def select_op_engine(cc, semantics: str = "compat",
 
     if nonlinear(cc):
         # the OP kernel's gates are the general engine's plus its caps
-        why = general_ineligible_reason(cc, semantics, opts)
+        why = general_ineligible_reason(cc, semantics)
         caps = None if why else kernel_caps_reason(make_plan(cc, "op"))
         engine, reason = (("general", caps) if caps else
                           ("fused", f"OP kernel eligible ({semantics})"))
     else:
-        why = linear_op_ineligible_reason(cc, semantics, opts)
+        why = linear_op_ineligible_reason(cc, semantics)
         engine, reason = "linear", ("linear circuit: one stamped solve per "
                                     f"rung ({semantics})")
     if why is not None:

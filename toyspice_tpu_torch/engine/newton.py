@@ -14,7 +14,8 @@ Three flavours of the reference, by two switches:
 Convergence is tested from iteration 1 on, and a non-finite solution does
 not converge.  Each iteration is one ``ops/assemble.assemble_entries`` and
 one stamped solve of every lane (``ops/solve_stamped.py``; on the card
-``csrc/stamped_solve.cu``, one block per lane past np1 = 32).  The JAX
+``csrc/stamped_solve.cu``, one warp per lane past np1 = 32, one block
+past 64).  The JAX
 package's vmapped ``lax.while_loop`` is a host loop here: every lane has
 its own iteration count, a lane that converged or reached ``max_iter`` (or
 that the caller's ``act`` leaves out) keeps its x, jv and count, and the

@@ -6,9 +6,10 @@ Each kernel library compiles from one source (``csrc/run_kernel.cu``,
 physics and magnetic instantiations of ``csrc/run_kernel.cuh``, each
 built twice: without and, with ``-DTSR_STORE``, with the waveform store;
 ``csrc/op_kernel.cu``, ``csrc/dc_sweep_kernel.cu``,
-``csrc/stamped_solve.cu``, ``csrc/ac_kernel.cu``, all on
-``csrc/newton.cuh``; ``csrc/gj_kernel.cu``, and the stamped solve's
-large systems, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a shared library with a
+``csrc/stamped_solve.cu``, all on ``csrc/newton.cuh``;
+``csrc/ac_kernel.cu``, and the stamped solve's systems of 33 to 64, on
+``csrc/gj_warp.cuh``; ``csrc/gj_kernel.cu``, and the stamped solve's
+larger systems, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a shared library with a
 plain C entry point (no PyTorch headers, so a build takes seconds); the
 calls for every missing library start together.  A library
 goes to ``toyspice_tpu_torch/_build/``, named by a hash of its source, the
@@ -40,7 +41,7 @@ SOURCES = {"run": CSRC / "run_kernel.cu",
 DEFINES = {"run_store": ("-DTSR_STORE",), "run_phys_store": ("-DTSR_STORE",),
            "run_mag_store": ("-DTSR_STORE",)}
 HEADERS = (CSRC / "newton.cuh", CSRC / "run_kernel.cuh",
-           CSRC / "gj_block.cuh")
+           CSRC / "gj_block.cuh", CSRC / "gj_warp.cuh")
 BUILD_DIR = PKG / "_build"
 # -fmad=false: every product and sum rounds on its own, as in the torch
 # plain versions (ops/run.py, ops/op.py, ops/solve_stamped.py, ops/dc.py,

@@ -8,9 +8,9 @@ B^ (B, N, N) and the RHS (B, 2N); per lane b·F + f the solve builds
 [[G, -omega B^], [omega B^, G]] with omega = 2 pi freqs[f] and eliminates
 the real 2N system with the kernels' pivot rule.
 
-* ``launch_ac_kernel``: the wrapper of ``csrc/ac_kernel.cu`` (one thread
-  per lane, f64; G, B^ and the RHS read once per instance); it counts its
-  launches in ``.launches``.
+* ``launch_ac_kernel``: the wrapper of ``csrc/ac_kernel.cu`` (a segment of
+  16 or 32 lanes of a warp per system, f64; G, B^ and the RHS read once
+  per instance); it counts its launches in ``.launches``.
 * ``ac_plain``: the same arithmetic as batched torch operations.
 * ``ac_solve_batch``: the kernel for CUDA tensors, the plain version for
   CPU tensors.
@@ -32,7 +32,7 @@ F64 = torch.float64
 def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT run the port's AC (its bias and the AC
     kernel); None when it can."""
-    why = semantics_reason(semantics, opts)
+    why = semantics_reason(semantics)
     if why is not None:
         return why
     extra = set(cc.idx.keys()) - set(SLICE_KINDS)

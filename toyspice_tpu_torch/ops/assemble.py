@@ -209,7 +209,7 @@ def _assemble_acc(cc, params, state, jv, t, dt, mode, status_gmin,
     OP and DC sweep (reference Mode=OperatingPoint), mode "tran" the
     transient's companion models."""
     assert mode in ("op", "tran")
-    why = semantics_reason(semantics, None)
+    why = semantics_reason(semantics)
     if why is not None:
         raise NotImplementedError(why)
     _unported(cc, AC_KINDS)
@@ -526,7 +526,7 @@ def assemble_ac_blocks(cc, params, state, jv, freq, temp=TEMP_DEFAULT,
     winding stamps -ωL and a mutual coupling -ωM on the branch rows, L
     the J-A ``value_for_mutual`` at the state's core and current, under
     either semantics, as the JAX package does."""
-    why = semantics_reason(semantics, None)
+    why = semantics_reason(semantics)
     if why is not None:
         raise NotImplementedError(why)
     _unported(cc, AC_KINDS)

@@ -46,7 +46,7 @@ MAX_NL_DEVICES = 16  # csrc/newton.cuh: diodes + BJTs + MOSFETs per deck
 
 def gauss_jordan(m, poison):
     """Batched Gauss-Jordan on (B, n, n+1) augmented systems with the
-    kernel's pivot rule; returns x (B, n), non-finite where singular.
+    kernel's pivot rule; returns x (B, n), all NaN where singular.
     ``poison`` (n, n+1) holds the row a zero pivot at stage k leaves:
     inf everywhere but 1 at column k."""
     b, n, _ = m.shape
@@ -71,7 +71,10 @@ def gauss_jordan(m, poison):
         perm.append(p)
     x = m[:, :, n].gather(1, torch.stack(perm, dim=1))
     nan_col = torch.isnan(torch.cat(col_max, dim=1)).any(dim=1, keepdim=True)
-    return torch.where(nan_col, float("nan"), x)
+    # one non-finite x makes every x of its system NaN (the JAX package's
+    # one-hot gather does the same)
+    bad = nan_col | ~torch.isfinite(x).all(dim=1, keepdim=True)
+    return torch.where(bad, float("nan"), x)
 
 
 def poison_rows(n, device):

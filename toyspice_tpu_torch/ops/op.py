@@ -55,7 +55,7 @@ def op_fused_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT use the OP kernel; None when it can.  The
     kernel serves compat and physics decks of the port's kinds with at
     least one nonlinear device."""
-    why = semantics_reason(semantics, opts)
+    why = semantics_reason(semantics)
     if why is not None:
         return why
     extra = set(cc.idx.keys()) - set(SLICE_KINDS)

@@ -127,11 +127,21 @@ def nonlinear(cc):
     return any(k in cc.idx for k in NL_KINDS)
 
 
-def semantics_reason(semantics: str, opts):
-    """Why the port can NOT run this semantics and integration; None when
-    it can (compat BE, physics BE or trap)."""
+def semantics_reason(semantics: str):
+    """Why the port can NOT run this semantics in an OP, DC sweep or AC;
+    None when it can (compat or physics, whatever the integration: compat
+    stamps backward Euler under either, as the JAX package does)."""
     if semantics not in ("compat", "physics"):
         return f"semantics={semantics!r} (the port runs compat and physics)"
+    return None
+
+
+def tran_semantics_reason(semantics: str, opts):
+    """Why the port can NOT run this semantics and integration in a
+    transient; None when it can (compat BE, physics BE or trap)."""
+    why = semantics_reason(semantics)
+    if why is not None:
+        return why
     if opts is not None and opts.integration != "be" \
             and semantics != "physics":
         return (f"integration={opts.integration!r} requires "
@@ -142,7 +152,7 @@ def semantics_reason(semantics: str, opts):
 
 def fused_ineligible_reason(cc, semantics: str, store: str, opts):
     """Why the port can NOT run this deck; None when it can."""
-    why = semantics_reason(semantics, opts)
+    why = tran_semantics_reason(semantics, opts)
     if why is not None:
         return why
     if store not in ("none", "full"):

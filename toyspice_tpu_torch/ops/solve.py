@@ -8,7 +8,8 @@ linear-devices-only initial estimate and the general AC's (2np1, 2np1)
 system per (instance, frequency).  Gauss-Jordan with partial pivoting: the
 largest |pivot| among the unused rows, the first (lowest) row on a tie; a
 zero pivot poisons its row, so a singular system gives a non-finite x
-(solve.py:17-23), and a NaN in a pivot column makes every x NaN.
+(solve.py:17-23), and then, as after a NaN in a pivot column, every x of
+the system is NaN (as the JAX package's one-hot gather gives).
 
 * ``launch_gj``: the wrapper of ``csrc/gj_kernel.cu`` (one block of 128
   threads per system, the matrix in shared memory, f64); it counts its

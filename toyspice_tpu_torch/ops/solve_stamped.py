@@ -12,12 +12,13 @@ row dropped.  Per lane the system is built from the flat values (vals, then
 the RHS values rvals) by summing each cell's entries from 0, row 0 is the
 ground identity row, gmin goes on diagonals 1..n-1 (matrix/circuit.go:
 107-114), and Gauss-Jordan with the kernels' pivot rule solves it (a zero
-pivot poisons its row, so a singular system gives a non-finite x).
+pivot poisons its row, so a singular system gives an x of NaN).
 
 * ``launch_stamped``: the wrapper of ``csrc/stamped_solve.cu`` (one thread
-  per lane up to n = 32, the term table in shared memory; one block per
-  lane up to NBIG, the system in shared memory; f64); it counts its
-  launches in ``.launches``.
+  per lane up to n = 32, the term table in shared memory; one warp per
+  lane up to n = 64, the rows in registers or in the warp's shared memory;
+  one block per lane up to NBIG, the system in shared memory; f64); it
+  counts its launches in ``.launches``.
 * ``solve_plain``: the same arithmetic as batched torch operations.
 * ``solve_lanes``: the kernel for CUDA tensors, the plain version for CPU
   tensors.
@@ -104,6 +105,17 @@ class StampPattern:
                                      t[:, 2]]).astype(np.int32)
         self.flat = t[:, 0] * (self.n + 1) + t[:, 1]  # cell of each term
         self.src = t[:, 2]
+        self._tables = {}
+
+    def table_on(self, device):
+        """The term table on ``device``, copied there once (a pattern is
+        cached per deck, and the general engine launches it every Newton
+        iteration)."""
+        tab = self._tables.get(device)
+        if tab is None:
+            tab = self._tables[device] = torch.as_tensor(self.table,
+                                                         device=device)
+        return tab
 
     def check(self, vals, rvals, gmin):
         b = vals.shape[0]
@@ -142,7 +154,7 @@ def launch_stamped(pat: StampPattern, vals, rvals, gmin):
     lib = _build.load("stamped")
     device = vals.device
     b = vals.shape[0]
-    tab = torch.as_tensor(pat.table, device=device)
+    tab = pat.table_on(device)
     x = torch.empty((b, pat.n), dtype=F64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
