@@ -1,6 +1,12 @@
 #!/usr/bin/env python3
 """Time the whole-run kernel of ``toyspice_tpu_torch`` on bench.py's
-8192-lane RLC deck (its linear instantiation), with ``--rectifier`` on
+8192-lane RLC deck (its linear instantiation), with ``--store`` on the
+same deck through its store instantiation (one monolithic launch into
+zeroed buffers, as the streamed path's chunks are held to), with
+``--magphys`` on the 8192-lane saturating transformer under physics
+semantics and the trapezoidal rule (the linear PHYS MAG instantiation,
+from the linear OP's bias point: chip_smoke.py's physics magnetic main
+path), with ``--rectifier`` on
 the 8192-lane half-wave rectifier (its Newton instantiation, warm-started
 from the OP kernel), or with ``--physics`` on that rectifier under physics
 semantics and the trapezoidal rule (the PHYS Newton instantiation, from
@@ -19,10 +25,15 @@ iteration of cw16 (a 16-stage Cockcroft-Walton multiplier, np1 = 35,
 from its entry's call and timed the same way.
 
     python3 ab_run_kernel.py _parent . . _parent
+    python3 ab_run_kernel.py --store --magphys --rectifier _parent . . _parent
     python3 ab_run_kernel.py --ac --stamped _parent . . _parent
     python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
     python3 ab_run_kernel.py --physics --reps 10 . .
     python3 ab_run_kernel.py --opdc --reps 10 _parent . . _parent
+
+``--store``, ``--magphys`` and ``--rectifier`` may be given together: each
+checkout then times each of the named runs in turn (bench.py's deck
+through the run kernel first unless ``--rectifier`` is alone).
 
 Each argument is a directory holding a ``toyspice_tpu_torch`` package (for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -272,25 +283,28 @@ def print_ptxas(root, _build):
                           flush=True)
 
 
-def time_checkout(root, deck, reps, ptxas=True, physics=False,
-                  opdc=False, do_ac=False, do_stamped=False):
-    sys.path.insert(0, root)
-    import toyspice_tpu_torch as ts
-    from toyspice_tpu_torch.ops import _build, run, run_plan
+def run_case(root, ts, run, run_plan, mode, reps):
+    """Time one run of the kernel: ``mode`` "rlc" (bench.py's deck),
+    "store" (the same deck through the store instantiation, one launch
+    into zeroed buffers), "rectifier" (the Newton instantiation from the
+    OP's junction voltages), "physics" (that rectifier under physics/trap)
+    or "magphys" (the saturating transformer under physics/trap)."""
+    import torch
 
-    if not os.path.abspath(ts.__file__).startswith(root):
-        raise SystemExit(f"imported {ts.__file__}, not the one in {root}")
-    _build.build()
-    if ptxas:
-        print_ptxas(root, _build)
-    if opdc:
-        return time_op_dc(root, reps)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if mode in ("rectifier", "physics"):
+        deck, keys = rectifier_deck(here), ("R", "L", "C")
+    elif mode == "magphys":
+        deck, keys = deck_text(here, "saturating_transformer.cir"), ("R",)
+    else:
+        deck, keys = RLC, ("R", "L", "C")
     cc = ts.compile_circuit(ts.parse(deck))
     tp = cc.netlist.tran
     cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
-    params, _ = spread_params(ts, cc)
+    params, _ = spread_params(ts, cc, keys)
     state0 = ts.init_state(cc)
-    if physics:  # the physics OP's bias point, as make_tran_run builds it
+    if mode in ("physics", "magphys"):  # the physics OP's bias point, as
+        # make_tran_run builds it
         plan, dev, src, st, sc, jv0, *_ = run.run_inputs(
             cc, cfg, params, state0, ts.SimOptions(integration="trap"),
             "physics")
@@ -311,10 +325,46 @@ def time_checkout(root, deck, reps, ptxas=True, physics=False,
             jv0 = run_plan.jv_stack(
                 plan, op.make_op_fused(cc, DEFAULTS)(params, state0).jv,
                 LANES)
+    if mode == "store":
+        keep = run.Store(cfg.tstart, cfg.max_store)
+        m = cfg.max_store
+        buf = run.Waveforms(
+            torch.zeros((LANES, m, plan.np1), dtype=torch.float64,
+                        device="cuda"),
+            torch.zeros((LANES, m), dtype=torch.float64, device="cuda"),
+            None, None)
+        (k, kw), ms = event_ms(lambda: run.launch_store_kernel(
+            plan, dev, src, st, sc, keep, out=buf), reps)
+        print(f"{root}: store (bench_rlc, {LANES} lanes, {m} rows a lane): "
+              f"attempts {int(k.attempts.sum())}, rows "
+              f"{int(kw.out_n.sum())}, kernel ms {ms}", flush=True)
+        del buf, kw
+        torch.cuda.empty_cache()
+        return
     k, ms = event_ms(
         lambda: run.launch_run_kernel(plan, dev, src, st, sc, jv0), reps)
-    print(f"{root}: attempts {int(k.attempts.sum())}, Newton iterations "
-          f"{int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
+    label = {"rlc": "", "rectifier": " (half_wave_rectifier)",
+             "physics": " (half_wave_rectifier, physics/trap)",
+             "magphys": " (saturating_transformer, physics/trap)"}[mode]
+    print(f"{root}:{label} attempts {int(k.attempts.sum())}, Newton "
+          f"iterations {int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
+
+
+def time_checkout(root, modes, reps, ptxas=True, opdc=False, do_ac=False,
+                  do_stamped=False):
+    sys.path.insert(0, root)
+    import toyspice_tpu_torch as ts
+    from toyspice_tpu_torch.ops import _build, run, run_plan
+
+    if not os.path.abspath(ts.__file__).startswith(root):
+        raise SystemExit(f"imported {ts.__file__}, not the one in {root}")
+    _build.build()
+    if ptxas:
+        print_ptxas(root, _build)
+    if opdc:
+        return time_op_dc(root, reps)
+    for mode in modes:
+        run_case(root, ts, run, run_plan, mode, reps)
     if do_ac or do_stamped:
         time_ac_stamped(root, reps, do_ac, do_stamped)
 
@@ -324,6 +374,12 @@ def main():
     ap.add_argument("--rectifier", action="store_true",
                     help="time the rectifier (Newton) instead of bench.py's "
                     "deck")
+    ap.add_argument("--store", action="store_true",
+                    help="also time bench.py's deck through the store "
+                    "instantiation, one launch into zeroed buffers")
+    ap.add_argument("--magphys", action="store_true",
+                    help="also time the saturating transformer under "
+                    "physics semantics and the trapezoidal rule")
     ap.add_argument("--physics", action="store_true",
                     help="time the rectifier under physics semantics and "
                     "the trapezoidal rule (a checkout with the physics "
@@ -343,16 +399,24 @@ def main():
     ap.add_argument("roots", nargs="+")
     a = ap.parse_args()
     if a.one:
-        here = os.path.dirname(os.path.abspath(__file__))
-        deck = (rectifier_deck(here) if a.rectifier or a.physics else RLC)
-        time_checkout(os.path.abspath(a.roots[0]), deck, a.reps,
-                      not a.no_ptxas, a.physics, a.opdc, a.ac, a.stamped)
+        if a.physics:
+            modes = ["physics"]
+        elif a.rectifier and not (a.store or a.magphys):
+            modes = ["rectifier"]
+        else:
+            modes = (["rlc"] + (["store"] if a.store else [])
+                     + (["magphys"] if a.magphys else [])
+                     + (["rectifier"] if a.rectifier else []))
+        time_checkout(os.path.abspath(a.roots[0]), modes, a.reps,
+                      not a.no_ptxas, a.opdc, a.ac, a.stamped)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     extra = (["--reps", str(a.reps)]
              + (["--rectifier"] if a.rectifier else [])
+             + (["--store"] if a.store else [])
+             + (["--magphys"] if a.magphys else [])
              + (["--physics"] if a.physics else [])
              + (["--opdc"] if a.opdc else [])
              + (["--ac"] if a.ac else [])

@@ -258,6 +258,15 @@ R8 8 9 100
 C8 9 0 0.1u
 """
 
+# an RC ladder of np1 = 32: a lane's committed state, device rows and
+# source records (219 doubles) pass the 192 that the linear run kernel
+# stages in shared memory (csrc/run_kernel.cuh SEG_ROWS), so its segments,
+# each a whole warp, read them in device memory
+LADDER32 = ("* rc ladder, np1 = 32\n.tran 0.02m 0.2m\nVin 1 0 SIN(0 5 1k)\n"
+            + "".join(f"R{i} {i} {i + 1} {100 + i}\nC{i} {i + 1} 0 0.1u\n"
+                      for i in range(1, 30))
+            + "R30 30 0 1k\n")
+
 # ce_amplifier_ac.cir's circuit with a SIN drive
 BJT_TRAN = """* CE amplifier transient (ce_amplifier_ac.cir's circuit, SIN drive)
 .tran 5u 2m
@@ -472,16 +481,20 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry, frame = m.group(1), None
-            k = re.search(r"(run_kernel|op_kernel|stamped_kernel|"
-                          r"dc_sweep_kernel|ac_kernel)ILi(\d+)E((?:Lb[01]E)*)",
-                          entry)
+            k = re.search(r"(run_kernel|run_seg_kernel|op_kernel|"
+                          r"stamped_kernel|dc_sweep_kernel|ac_kernel)"
+                          r"ILi(\d+)E((?:Lb[01]E)*)", entry)
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
-            # run_kernel<NMAX, NL, MAG, STORE, PHYS>, op_kernel<NMAX, PHYS>
-            # and dc_sweep_kernel<NMAX, PHYS>
+            # run_kernel<NMAX, NL, MAG, STORE, PHYS> (NL always: the
+            # Newton decks), run_seg_kernel<NMAX, MAG, STORE, PHYS> (the
+            # linear ones), op_kernel<NMAX, PHYS> and dc_sweep_kernel<NMAX,
+            # PHYS>
+            kname = k.group(1) if k is not None else None
             names = ([("linear", "newton"), ("", "mag"), ("", "store"),
-                      ("", "physics")] if k is not None
-                     and k.group(1) == "run_kernel" else [("", "physics")])
+                      ("", "physics")] if kname == "run_kernel" else
+                     [("", "mag"), ("", "store"), ("", "physics")]
+                     if kname == "run_seg_kernel" else [("", "physics")])
             g = re.search(r"(gj_kernel|stamped_block_kernel|ac_smem_kernel|"
                           r"stamped_warp_kernel)(?:ILb([01])E)?", entry)
             where = ({"1": "<registers>", "0": "<shared>"}.get(g.group(2), "")
@@ -616,8 +629,10 @@ def nbytes(*tensors):
 # ---------------------------------------------------------- comparisons
 
 
-def compare_run(name, k, p, check_jv=False):
-    """Exact counters, state/t_final (and jv) within RTOL; max abs err."""
+def compare_run(name, k, p, check_jv=False, exact=False):
+    """Exact counters, state/t_final (and jv) within RTOL; max abs err.
+    ``exact`` (a linear instantiation, PR 12) holds t_final, dt_final and
+    the state bit for bit."""
     for key in ("accepted", "attempts", "fail", "nr_iters"):
         a, b = getattr(k, key), getattr(p, key)
         if not torch.equal(a, b):
@@ -626,6 +641,11 @@ def compare_run(name, k, p, check_jv=False):
     pairs = [("t_final", k.t, p.t), ("state", k.state, p.state)]
     if check_jv:
         pairs.append(("jv", k.jv, p.jv))
+    if exact:
+        for what, a, b in pairs + [("dt_final", k.dt, p.dt)]:
+            if not same_bits(a, b):
+                fail(f"{name}: {what} is not bit for bit the plain "
+                     "version's")
     return max_err(name, pairs)
 
 
@@ -653,11 +673,19 @@ def check_err(name, what, a, b, scale):
     return float(d.max())
 
 
-def wave_err(name, kw, pw, block=1024):
+def wave_err(name, kw, pw, block=1024, exact=False):
     """max_err over out_x (every lane's rows as one (B·max_store, np1)
     table) and out_t, a block of lanes at a time against the scale of all
-    of them, so that no temporary outgrows a block."""
+    of them, so that no temporary outgrows a block; ``exact``: each block
+    bit for bit too."""
     b, m, n = kw.out_x.shape
+    if exact:
+        for i in range(0, b, block):
+            if not (same_bits(kw.out_x[i:i + block], pw.out_x[i:i + block])
+                    and same_bits(kw.out_t[i:i + block],
+                                  pw.out_t[i:i + block])):
+                fail(f"{name}: the stored rows of lanes {i}.. are not bit "
+                     "for bit the plain version's")
     parts = (("out_x", lambda w, i: w.out_x[i:i + block].reshape(-1, n)),
              ("out_t", lambda w, i: w.out_t[i:i + block]))
     err = 0.0
@@ -977,15 +1005,16 @@ def magnetic_phases(lanes, main_lanes, smi):
             lanes)
         plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-        e = compare_run(name, k, p)
+        e = compare_run(name, k, p, exact=True)
         err = max(err, e)
         if bool(k.fail.any()) or not bool((k.t == cfg.tstop).all()):
             fail(f"{name}: a lane failed or stopped before tstop")
         phase("11 magnetic kernel vs plain", t0,
               f"{name}: {lanes} lanes, np1={plan.np1}, {plan.nlm} LM, "
               f"{plan.nk} K, accepted {int(k.accepted.sum())}, attempts "
-              f"{int(k.attempts.sum())}, failed 0; counters equal, max abs "
-              f"err {e:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+              f"{int(k.attempts.sum())}, failed 0; counters equal, bit for "
+              f"bit, max abs err {e:.3e}; kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms")
 
     t0 = time.perf_counter()
     cc, cfg, params, axes, state0 = setup(
@@ -1010,7 +1039,7 @@ def magnetic_phases(lanes, main_lanes, smi):
              "or stopped early")
     plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
     k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-    e = compare_run("saturating_transformer_8192", k, p)
+    e = compare_run("saturating_transformer_8192", k, p, exact=True)
     err = max(err, e)
     if not (torch.equal(out.accepted, k.accepted)
             and torch.equal(out.attempts, k.attempts)
@@ -1023,7 +1052,8 @@ def magnetic_phases(lanes, main_lanes, smi):
           f"accepted={accepted}, attempts={int(out.attempts.sum())}, "
           f"failed={failed}, wall={wall:.6f} s, {accepted / wall:.6e} "
           f"accepted steps/s on {smi}; the same lanes through the kernel "
-          f"and its plain version: counters equal, max abs err {e:.3e}; "
+          f"and its plain version: counters equal, bit for bit, max abs err "
+          f"{e:.3e}; "
           f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
     return err
 
@@ -1055,11 +1085,12 @@ def store_vs_plain(name, plan, dev, src, st, sc, keep, jv0=None):
     p, pw = run.store_plain(plan, dev, src, st, sc, keep, jv0)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - p0) * 1e3
-    err = compare_run(name, k, p, check_jv=jv0 is not None)
+    exact = not plan.nonlinear
+    err = compare_run(name, k, p, check_jv=jv0 is not None, exact=exact)
     for key in ("out_n", "overflow"):
         if not torch.equal(getattr(kw, key), getattr(pw, key)):
             fail(f"{name}: store {key} differs from the plain version")
-    err = max(err, wave_err(name, kw, pw))
+    err = max(err, wave_err(name, kw, pw, exact=exact))
     del p, pw
     return k, kw, err, k_ms, w_ms, p_ms
 
@@ -1202,12 +1233,12 @@ def offsets_check(lanes):
     p, pw = run.store_plain(plan, dev[lo:], src[lo:], st[lo:], sc, keep)
     ks = run.RunResult(*(x[lo:] for x in k))
     kws = run.Waveforms(*(x[lo:] for x in kw))
-    err = compare_run("ladder_offsets", ks, p)
+    err = compare_run("ladder_offsets", ks, p, exact=True)
     if not (torch.equal(kws.out_n, pw.out_n)
             and torch.equal(kws.overflow, pw.overflow)):
         fail("64-bit offsets: out_n or overflow differs from the plain "
              "version")
-    err = max(err, wave_err("ladder_offsets", kws, pw))
+    err = max(err, wave_err("ladder_offsets", kws, pw, exact=True))
     elems = lanes * per_lane
     last = (lanes - 1) * per_lane + (int(kw.out_n[-1]) - 1) * plan.np1
     phase("13 store kernel, 64-bit offsets", t0,
@@ -1216,7 +1247,7 @@ def offsets_check(lanes):
           f"{1 << 31}), lane {cross} holds element 2^31; lanes {lo}.."
           f"{lanes - 1} ({int(kws.out_n.sum())} stored rows, the last at "
           f"element {last}) equal to the plain version on those lanes: "
-          f"out_n and counters equal, max abs err {err:.3e}")
+          f"out_n and counters equal, bit for bit, max abs err {err:.3e}")
     del kw, kws, pw
     free()
     return err
@@ -1315,6 +1346,13 @@ def stream_phase(main_lanes, lanes, smi, bench, bench_none,
           f"max abs err {err:.3e}")
     del mw, last, out
     free()
+    # the bound of the streamed run's store launches: each kept row (np1
+    # values and its time) written once, the inputs read once, the state
+    # and counters written once; the attempts' operations
+    flops = bench["attempts"] * attempt_flops(plan)
+    nbytes_ = (nbytes(dev, src, st) + plan.topo.nbytes + nbytes(st)
+               + main_lanes * (8 + 8 + 4 + 4 + 4 + 4 + 4 + 4)
+               + rows * (n + 1) * 8)
 
     t0 = time.perf_counter()
     params, axes = ts.batch_params(cc, bench_overrides(cc, lanes))
@@ -1334,7 +1372,8 @@ def stream_phase(main_lanes, lanes, smi, bench, bench_none,
           "bit")
     del so, whole
     free()
-    return dict(mono_ms=mono_ms, chunks=n_chunks, rows=rows, err=err)
+    return dict(mono_ms=mono_ms, chunks=n_chunks, rows=rows, err=err,
+                flops=flops, nbytes=nbytes_)
 
 
 def resume_phase(lanes, bench_overrides):
@@ -1437,7 +1476,8 @@ def physics_run_phase(lanes):
         if max_att:
             sc = sc._replace(max_attempts=max_att)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
-        e = compare_run(name, k, p, check_jv=jv0 is not None)
+        e = compare_run(name, k, p, check_jv=jv0 is not None,
+                        exact=not plan.nonlinear)
         run_err = max(run_err, e)
         keep = run.Store(cfg.tstart, cfg.max_store)
         ks, kw, es, s_ms, _, sp_ms = store_vs_plain(name, plan, dev, src,
@@ -1455,8 +1495,9 @@ def physics_run_phase(lanes):
               f"np1={plan.np1}, ks={plan.ks}, accepted "
               f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
               f"NR iterations {int(k.nr_iters.sum())}, failed "
-              f"{int(k.fail.sum())}; counters equal, max abs err {e:.3e} "
-              f"(run), {es:.3e} (store); kernel {k_ms:.3f} ms, plain "
+              f"{int(k.fail.sum())}; counters equal"
+              f"{'' if plan.nonlinear else ', bit for bit'}, max abs err "
+              f"{e:.3e} (run), {es:.3e} (store); kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.1f} ms; store {s_ms:.3f} ms, plain {sp_ms:.1f} ms")
         del kw
         free()
@@ -1736,7 +1777,7 @@ def mag_run_phase(lanes, smi):
         if max_att:
             sc = sc._replace(max_attempts=max_att)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-        e = compare_run(name, k, p)
+        e = compare_run(name, k, p, exact=True)
         err = max(err, e)
         if not max_att and not bool((k.t == cfg.tstop).all()):
             fail(f"{name}: a lane stopped before tstop")
@@ -1749,7 +1790,8 @@ def mag_run_phase(lanes, smi):
               f"np1={plan.np1}, {plan.nlm} LM, {plan.nk} K, ks={plan.ks}, "
               f"accepted {int(k.accepted.sum())}, attempts "
               f"{int(k.attempts.sum())}, failed {int(k.fail.sum())} (the "
-              f"plain version's too); counters equal, max abs err {e:.3e}; "
+              f"plain version's too); counters equal, bit for bit, max abs "
+              f"err {e:.3e}; "
               f"{core}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
 
     # the store path: the linear OP, then one store launch
@@ -2021,7 +2063,8 @@ def mag_main_phase(lanes, smi):
     plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0, opts,
                                             "physics")
     k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-    err = compare_run("saturating_transformer_8192_physics_trap", k, p)
+    err = compare_run("saturating_transformer_8192_physics_trap", k, p,
+                      exact=True)
     if not (torch.equal(out.accepted, k.accepted)
             and torch.equal(out.attempts, k.attempts)
             and torch.equal(out.t_final, k.t)):
@@ -2037,7 +2080,8 @@ def mag_main_phase(lanes, smi):
           f"accepted steps/s on {smi}; the linear OP's stamped solve vs "
           f"plain max abs err {op_err:.3e} ({tk.ms():.3f} ms, plain "
           f"{tp_.ms():.1f} ms); the run kernel on the same inputs against "
-          f"its plain version: counters equal, max abs err {err:.3e}; "
+          f"its plain version: counters equal, bit for bit, max abs err "
+          f"{err:.3e}; "
           f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
     return dict(launches=got["run_kernel"], err=err, k_ms=k_ms, p_ms=p_ms,
                 plan=plan, accepted=accepted, attempts=int(att.sum()),
@@ -2585,6 +2629,8 @@ def main():
               None),
              ("rl_nan_minstep", RL_PULSE, small(("R", "L")), NAN_LANES,
               nan_minstep),
+             ("ladder32_rows_in_memory", LADDER32, small(("R", "C")),
+              SMALL_LANES, None),
              ("bench_rlc", RLC, bench_overrides, BENCH_LANES, None)]
     lin_err = 0.0
     bench = None
@@ -2596,13 +2642,14 @@ def main():
         if edit:
             sc = edit(sc)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-        err = compare_run(name, k, p)
+        err = compare_run(name, k, p, exact=True)
         lin_err = max(lin_err, err)
         attempts = int(k.attempts.sum())
         phase("3 kernel vs plain", t0,
               f"{name}: {b} lanes, np1={plan.np1}, accepted "
               f"{int(k.accepted.sum())}, attempts {attempts}, failed "
-              f"{int(k.fail.sum())}; counters equal, max abs err {err:.3e}; "
+              f"{int(k.fail.sum())}; counters equal, bit for bit, max abs err "
+              f"{err:.3e}; "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
         if edit is nan_minstep and not (
                 bool(torch.isnan(k.t).all()) and bool(k.fail.all())
@@ -2655,11 +2702,16 @@ def main():
         fail("main path differs from phase 3's kernel run on the same lanes")
     rate = accepted / wall
     bench_none = out
+    seg_w, seg_lanes, seg_blocks, seg_threads, seg_shmem = \
+        run.segment_shape(bench["plan"], BENCH_LANES)
     phase("4 main path", t0,
           f"engine={fn.engine}, launches={lin_launches}, "
           f"lanes={BENCH_LANES}, accepted={accepted}, attempts={attempts}, "
           f"failed={failed}, wall={wall:.6f} s, {rate:.6e} accepted steps/s "
-          f"on {smi}")
+          f"on {smi}; launch shape (the library's): segments of "
+          f"W={seg_w} threads, {seg_lanes} lanes a block, {seg_blocks} "
+          f"blocks of {seg_threads} threads, {seg_shmem} B of shared "
+          "memory a block")
 
     # ------------------------------------- 5 OP kernel vs plain version
     def r_spread(cc, b):
@@ -2829,6 +2881,13 @@ def main():
           f"f64 operations per attempt x {bench['attempts']} attempts / "
           f"{PEAK_F64:.3g} op/s = {lin_bound[2]:.6f} ms; {lin_bytes} bytes / "
           f"{PEAK_BYTES:.3g} B/s = {lin_bound[3]:.6f} ms", flush=True)
+    sb = bound(stream["flops"], stream["nbytes"])
+    print(f"[17 bound] run_kernel store (bench_rlc_8192_streamed, "
+          f"{stream['chunks']} launches, {stream['rows']} kept rows): "
+          f"{stream['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
+          f"{sb[2]:.6f} ms; {stream['nbytes']} bytes (the kept rows, the "
+          f"inputs, the state and counters) / {PEAK_BYTES:.3g} B/s = "
+          f"{sb[3]:.6f} ms", flush=True)
     hp = hwr["plan"]
     nl_flops = hwr["attempts"] * step_flops(hp) + hwr["nri"] * newton_flops(
         hp)

@@ -1051,3 +1051,139 @@ def test_cw16_takes_the_general_engine(cuda):
     for key in out.state["C"]:
         torch.testing.assert_close(out.state["C"][key], p.state["C"][key],
                                    rtol=1e-9, atol=1e-15)
+
+
+# ------------------------------ the linear run kernel on a warp segment
+
+
+def _ladder(np1):
+    """A deck of np1 unknowns: an RC ladder from a SIN source ending in an
+    inductor to ground (ground, the source's branch and the inductor's
+    branch besides the nodes); np1 = 2 a current source into R || C."""
+    if np1 == 2:
+        return ("* np1 = 2\n.tran 0.02m 0.5m\nI1 0 1 SIN(0 1m 2k)\n"
+                "R1 1 0 1k\nC1 1 0 0.2u\n")
+    nodes = np1 - 3
+    lines = ["* ladder", ".tran 0.02m 0.5m", "Vin 1 0 SIN(0 5 1k)",
+             "R0 1 0 2k"]
+    for i in range(1, nodes):
+        lines += [f"R{i} {i} {i + 1} {100 + 10 * i}",
+                  f"C{i} {i + 1} 0 {0.1 + 0.01 * i:.2f}u"]
+    lines.append(f"L1 {nodes} 0 2m")
+    return "\n".join(lines) + "\n"
+
+
+def _assert_bits(k, p):
+    """Every output bit for bit (NaN where the plain version has NaN)."""
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _same_bits(a, b) if a.is_floating_point() else \
+            torch.equal(a, b)
+
+
+def _run_and_store_bits(plan, dev, src, st, sc, keep, jv0=None, start=None):
+    """The run and the store instantiation against their plain versions,
+    bit for bit; returns the store's (result, waveforms)."""
+    if start is None:
+        k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
+        _assert_bits(k, run.run_plain(plan, dev, src, st, sc, jv0))
+    ks, kw = run.launch_store_kernel(plan, dev, src, st, sc, keep, jv0,
+                                     start=start)
+    p, pw = run.store_plain(plan, dev, src, st, sc, keep, jv0, start)
+    _assert_bits(ks, p)
+    _assert_bits(kw, pw)
+    return ks, kw
+
+
+@pytest.mark.parametrize("np1", [2, 6, 8, 9, 16, 17, 32])
+def test_linear_segment_kernel_is_bit_identical(cuda, np1):
+    """Segments of 8, 16 and 32 lanes at every bucket edge, 259 lanes (not
+    a multiple of a block's lanes): counters, state, t, dt and the store's
+    rows equal to run_plain/store_plain bit for bit."""
+    cc, cfg, params, state0, plan, dev, src, st, sc = _inputs(
+        _ladder(np1), 259, cuda)
+    assert plan.np1 == np1 and not plan.nonlinear
+    sc = sc._replace(max_attempts=1500)
+    ks, kw = _run_and_store_bits(plan, dev, src, st, sc,
+                                 run.Store(cfg.tstart, cfg.max_store))
+    assert not ks.fail.any() and torch.equal(kw.out_n, ks.accepted)
+
+
+def test_linear_segment_failing_lanes_beside_finite_ones(cuda):
+    """A zero-pivot lane (C = 0 in a capacitor chain) and a lane whose
+    stamps are NaN (C = NaN) in the same warp as finite lanes, then every
+    lane with minstep NaN: bit for bit with the plain version."""
+    def bad_caps(ov):
+        ov["C"]["value"][1] = 0.0
+        ov["C"]["value"][5, 0] = np.nan
+
+    *_, plan, dev, src, st, sc = _inputs(CSERIES, 12, cuda, bad_caps)
+    keep = run.Store(0.0, 64)
+    ks, _ = _run_and_store_bits(plan, dev, src, st, sc, keep)
+    assert ks.fail[[1, 5]].tolist() == [1, 1]
+    assert not ks.fail[[0, 2, 3, 4, 6, 7]].any()
+    nan = sc._replace(minstep=float("nan"))
+    ks, _ = _run_and_store_bits(plan, dev, src, st, nan, keep)
+    assert bool(ks.fail.all())
+
+
+def test_linear_segment_stream_pauses_lanes_of_one_warp(cuda):
+    """A streamed chunk whose rows fill at different attempts on the lanes
+    of one warp (each lane's pulse at its own delay, so its rejections
+    fall elsewhere), then the re-entry from where each lane paused: both
+    bit for bit with the plain store."""
+    def delays(ov):
+        ov["V"] = {"delay": np.random.default_rng(9).uniform(
+            0.02e-3, 0.2e-3, (37, 1))}
+
+    cc, cfg, params, state0, plan, dev, src, st, sc = _inputs(
+        RL_PULSE, 37, cuda, delays)
+    keep = run.Store(cfg.tstart, 150, True)
+    k1, w1 = _run_and_store_bits(plan, dev, src, st, sc, keep,
+                                 start=run.fresh_start(37, sc, cuda))
+    # the first warp's four lanes (np1 = 4: segments of 8) pause apart
+    assert len(set(k1.attempts[:4].tolist())) > 1
+    start = run.RunStart(k1.t, k1.dt, k1.attempts)
+    _run_and_store_bits(plan, dev, src, k1.state, sc, keep, start=start)
+
+
+@pytest.mark.parametrize("deck,semantics,trap", [
+    (SATURATING, "compat", False), (COUPLED, "compat", False),
+    ("rl_tran.cir", "physics", False), ("rl_tran.cir", "physics", True),
+    ("rlc_ringdown.cir", "physics", False),
+    ("rlc_ringdown.cir", "physics", True),
+    (SATURATING, "physics", True), (MIXED, "physics", False)],
+    ids=["compat_mag", "compat_k", "rl_be", "rl_trap", "rlc_be", "rlc_trap",
+         "phys_mag_trap", "phys_mag_be"])
+def test_linear_segment_instantiations_are_bit_identical(cuda, deck,
+                                                          semantics, trap):
+    """compat MAG, PHYS (BE and trap) and PHYS MAG linear, run and store,
+    64 lanes from the OP's bias point under physics, to 1500 attempts."""
+    if deck.endswith(".cir"):
+        from pathlib import Path
+
+        deck = (Path(__file__).resolve().parent.parent / "circuits"
+                / deck).read_text()
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 64), device=cuda)
+    r = run.run_inputs(cc, cfg, params, ts.init_state(cc, device=cuda),
+                       ts.SimOptions(integration="trap" if trap else "be"),
+                       semantics)
+    assert not r.plan.nonlinear
+    sc = r.sc._replace(max_attempts=1500)
+    ks, kw = _run_and_store_bits(r.plan, r.dev, r.src, r.st, sc,
+                                 run.Store(cfg.tstart, cfg.max_store))
+    assert not ks.fail.any()
+
+
+@pytest.mark.parametrize("np1,w", [(6, 8), (16, 16), (17, 32), (32, 32)])
+def test_linear_segment_launch_shape(cuda, np1, w):
+    """The shape the compat library reports for a linear deck: segments of
+    W threads, 128 / W lanes a block, enough blocks for 259 lanes, the
+    table and the slices within an SM's shared memory."""
+    *_, plan, dev, src, st, sc = _inputs(_ladder(np1), 259, cuda)
+    got = run.segment_shape(plan, 259)
+    assert got[:4] == (w, 128 // w, -(-259 // (128 // w)), 128)
+    assert plan.topo.size * 4 < got[4] <= 227 * 1024

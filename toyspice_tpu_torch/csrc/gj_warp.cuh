@@ -1,7 +1,8 @@
 // Gauss-Jordan of one augmented (n, n+1) f64 system by a segment of W
-// lanes of one warp (W = 16 or 32), with no block barrier: the
-// elimination of csrc/ac_kernel.cu (every (instance, frequency) system)
-// and of csrc/stamped_solve.cu's systems of 33 to 64.
+// lanes of one warp (W = 8, 16 or 32), with no block barrier: the
+// elimination of csrc/ac_kernel.cu (every (instance, frequency) system),
+// of csrc/stamped_solve.cu's systems of 33 to 64 and of each attempt of
+// the linear run kernel (csrc/run_kernel.cuh, run_seg_kernel).
 //
 // Row i belongs to lane i % W, slot i / W (R slots a lane).  For each
 // column k:
@@ -12,8 +13,11 @@
 //      a non-negative double as its value does, and __reduce_min_sync of
 //      the row index among the lanes that hold the maximum) keep the
 //      largest, the lowest row on a tie: newton.cuh's pivot rule (a
-//      segment of 16 lanes takes a butterfly of shuffles instead).  A NaN
-//      there (one warp vote) makes every x NaN;
+//      segment of 8 or 16 lanes takes a butterfly of shuffles instead).
+//      A NaN there (one warp vote), or no candidate, makes every x NaN;
+//      the segment still runs every column, with row 0 as its pivot from
+//      there on, so that the segments of a warp stay converged under one
+//      full-warp mask (a failed system's x is all NaN whatever it runs);
 //   2. the owner of the pivot row puts it in the segment's exchange
 //      buffer in shared memory; the lane of each live column divides its
 //      element by the pivot (a division per element, as newton.cuh does),
@@ -66,8 +70,8 @@ __device__ __forceinline__ unsigned segment_mask(int wl) {
 // p its row, p < 0 none): the largest best, the lowest row on a tie; -1 if
 // no lane has one.  A whole warp (W = 32) takes three warp reductions
 // (best is a non-negative double, so its high and low words order it as
-// its value does); a segment of 16 lanes, which shares its warp with
-// another, a butterfly of shuffles of width W.
+// its value does); a segment of 8 or 16 lanes, which shares its warp with
+// others, a butterfly of shuffles of width W.
 template <int W>
 __device__ __forceinline__ int segment_pivot(double best, int p,
                                              unsigned mask) {
@@ -111,9 +115,9 @@ __device__ __forceinline__ bool segment_any(bool v, unsigned mask) {
 
 // x of the segment's system: each row's right-hand side at the column
 // where it was the pivot, all NaN if a pivot column held a NaN or if any x
-// is not finite
+// is not finite; returns whether x is finite (the same on every lane)
 template <int W, int R>
-__device__ __forceinline__ void segment_store_x(const double (&rhs)[R],
+__device__ __forceinline__ bool segment_store_x(const double (&rhs)[R],
                                                 const int (&stage)[R],
                                                 int n, bool nan_col,
                                                 int lane, unsigned mask,
@@ -128,6 +132,7 @@ __device__ __forceinline__ void segment_store_x(const double (&rhs)[R],
     const int i = lane + s * W;
     if (i < n) x_out[nan_col ? i : stage[s]] = bad ? NAN : rhs[s];
   }
+  return !bad;
 }
 
 // The elimination with the rows in registers: m[s] is row lane + s * W
@@ -136,7 +141,7 @@ __device__ __forceinline__ void segment_store_x(const double (&rhs)[R],
 // quotient of relative column c in buf[c - 1], the right-hand side's in
 // buf[NMAX].  NMAX is a multiple of 4.
 template <int NMAX, int W, int R>
-__device__ __forceinline__ void gj_warp_reg(double (&m)[R][NMAX + 1], int n,
+__device__ __forceinline__ bool gj_warp_reg(double (&m)[R][NMAX + 1], int n,
                                             double* buf, int lane,
                                             unsigned mask, double* x_out) {
   static_assert(NMAX % 4 == 0, "slots go in groups of four");
@@ -162,10 +167,8 @@ __device__ __forceinline__ void gj_warp_reg(double (&m)[R][NMAX + 1], int n,
       }
     }
     p = segment_pivot<W>(best, p, mask);
-    if (segment_any<W>(nan, mask) || p < 0) {
-      nan_col = true;
-      break;
-    }
+    if (segment_any<W>(nan, mask) || p < 0) nan_col = true;
+    p = nan_col ? 0 : p;
     const int owner = p % W;
     const int oslot = p / W;
     double mk = m[0][0];
@@ -239,7 +242,7 @@ __device__ __forceinline__ void gj_warp_reg(double (&m)[R][NMAX + 1], int n,
   double rhs[R];
 #pragma unroll
   for (int s = 0; s < R; ++s) rhs[s] = m[s][NMAX];
-  segment_store_x<W, R>(rhs, stage, n, nan_col, lane, mask, x_out);
+  return segment_store_x<W, R>(rhs, stage, n, nan_col, lane, mask, x_out);
 }
 
 // The elimination with the rows in shared memory: row i at t + i * ld
@@ -270,10 +273,8 @@ __device__ __forceinline__ void gj_warp_smem(double* t, int ld, int n,
       }
     }
     p = segment_pivot<W>(best, p, mask);
-    if (segment_any<W>(nan, mask) || p < 0) {
-      nan_col = true;
-      break;
-    }
+    if (segment_any<W>(nan, mask) || p < 0) nan_col = true;
+    p = nan_col ? 0 : p;
     const double* prow = t + p * ld;
     const double piv = prow[k];
     for (int j = k + lane; j <= n; j += W)

@@ -52,7 +52,7 @@ enum Tag { TAG_G = 0, TAG_GEQ, TAG_LTERM, TAG_ONE, TAG_CEQ, TAG_LRHS,
 enum Hdr { H_NP1 = 0, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN,
            H_LN, H_KS, H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN,
            H_NLIN, H_KJ, H_DOFF, H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB,
-           H_LMN, H_CORE };
+           H_LMN, H_CORE, H_ROWS };
 // per-device dev rows: ops/run_plan.py D_ROWS, Q_ROWS, M_ROWS
 enum DRow { D_N = 0, D_IS, D_GMIN, D_TT, D_PQ, D_NVT, D_IST, D_VTE,
             D_VCRIT, D_RS, D_BV };

@@ -94,6 +94,23 @@ extern "C" int tsr_run_store(
 }
 #endif
 
+// The launch shape of a linear deck of np1 unknowns over nlanes lanes with
+// a table of topo_len words, as the entries above compute it: out = {W,
+// lanes a block, blocks, threads a block, bytes of shared memory}; returns
+// cudaErrorInvalidValue past the caps.
+extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
+                                 int* out) {
+  SegShape s;
+  if (!seg_shape_np1(np1, nlanes, topo_len, &s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = s.w;
+  out[1] = s.per_block;
+  out[2] = s.blocks;
+  out[3] = s.threads;
+  out[4] = s.shmem;
+  return 0;
+}
+
 extern "C" const char* tsr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -4,7 +4,9 @@
 // Whole-run adaptive transient (R, C, L, V, I with DC/SIN/PULSE/PWL
 // sources, and under compat semantics magnetic inductors and mutual
 // couplings, or diodes, BJTs and MOSFETs under compat or physics
-// semantics), one thread per Monte-Carlo lane, in f64.
+// semantics), in f64: a linear deck on a segment of 8, 16 or 32 lanes of
+// a warp per Monte-Carlo lane (run_seg_kernel), a Newton deck on one
+// thread per lane (run_kernel).
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_run.py::_run_kernel
 // (body _run_core, launched at pallas_run.py:811) for its compat subset:
@@ -14,14 +16,14 @@
 // (pallas_tran.py::_newton_in_kernel, here csrc/newton.cuh).  The TPU
 // kernel carries double-float (hi, lo) f32 pairs folded to (8, W) sublane
 // tiles and steps whole blocks of lanes in lockstep; Hopper has native
-// f64, so each thread here runs its own lane's loop (tran.go:96-152, as
+// f64, so each lane runs its own loop (tran.go:96-152, as
 // engine/tran.py:145-200 of the JAX package):
 //
 //   while (!done && attempts < max_attempts):
 //     clamp dt at tstop; sources at the OLD time t (PLAN.md 2);
 //     linear deck: build the (np1) x (np1+1) augmented system from the
 //     stamp plan, row 0 the ground identity row, and solve it by
-//     Gauss-Jordan (newton.cuh); nonlinear deck: the Newton of newton.cuh
+//     Gauss-Jordan (gj_warp.cuh); nonlinear deck: the Newton of newton.cuh
 //     from x = 0 with the carried junction voltages, which carry on to the
 //     next attempt whether it accepts or not;
 //     LTE from the COMMITTED C/L state; accept (commit compat C/L state,
@@ -61,8 +63,8 @@
 // row n_kept of the lane's (max_store, np1) block.  The TPU needed one
 // launch per attempt, a uniform-slot attempt buffer and a compaction after
 // the run because Mosaic could neither hold that block in VMEM nor scatter
-// per lane; here the thread that owns the lane owns its rows.  With the
-// stream flag a full block pauses the lane (the caller drains it and
+// per lane; here the lane's thread, or its segment, owns its rows.  With
+// the stream flag a full block pauses the lane (the caller drains it and
 // re-enters); without it a row past max_store is dropped and the lane's
 // overflow flag set (max_store = 0 keeps nothing: a resumed run without
 // waveforms).  The STORE instantiation starts each lane from its own t, dt
@@ -80,11 +82,12 @@
 // general engine's scatter order, the sources and the device nodes; the
 // lane's device values, source records, committed state and junction
 // voltages are f64 rows with the batch axis first.  One build serves every
-// eligible deck; the matrix lives in a per-thread array sized by the
-// template NMAX (8, 16 or 32), and nonlinearity is a second template
-// parameter, so a linear deck runs the code of a kernel without Newton.
-// MAG (the LM and K stamps), STORE and PHYS are template parameters too:
-// the instantiations without them compile to the code they had before.
+// eligible deck.  A Newton deck's matrix lives in a per-thread array sized
+// by the template NMAX (8, 16 or 32); a linear deck's rows, one a lane of
+// its segment of W = NMAX lanes, in registers (gj_warp_reg), each built
+// from the table's row view (ops/run_plan.py row_view).  MAG (the LM and K
+// stamps), STORE and PHYS are template parameters too: the instantiations
+// without them compile to the code they had before.
 // run_kernel.cu instantiates the compat kernels, run_kernel_phys.cu the
 // PHYS ones without MAG, run_kernel_mag.cu the PHYS MAG ones and compat
 // MAG with NL: three sources, so that their nvcc calls run side by side.
@@ -94,13 +97,18 @@
 // elimination, counting only the columns right of each pivot, plus the
 // build, the source's sin, the LTE and the commit); a Newton iteration adds
 // the device evaluations and a build and solve (chip_smoke.py
-// newton_flops).  Memory traffic is a few rows per lane.  8192 lanes fill
-// only a small share of the card's thread slots, and each thread's
-// attempts are a serial dependency chain through local memory, so the
-// kernel is latency-bound; this version is the simple, exact one.
+// newton_flops).  Memory traffic is a few rows per lane.  The kernel is
+// latency-bound: each lane's attempts are one dependency chain.  A Newton
+// lane's thread runs it through local memory, and 8192 such lanes fill
+// only a small share of the card's thread slots.  A linear lane's segment
+// (8 threads at np1 <= 8: 65,536 threads for 8192 lanes) spreads each
+// attempt's build, divisions and updates over its rows, keeps the matrix
+// in registers and the lane's rows in shared memory, and leaves the card
+// warps to hide one another's shuffles and divisions.
 
 #pragma once
 
+#include "gj_warp.cuh"
 #include "newton.cuh"
 
 namespace {
@@ -312,9 +320,11 @@ struct MagPhys {
   }
 };
 
-// t_io, dt_io and att_io hold each lane's end on exit, and in the STORE
-// instantiation its start on entry; out_x/out_t/out_n/overflow are used
-// only by the STORE instantiation, trap only by the PHYS ones.
+// The Newton instantiations: one thread per lane (a linear deck runs
+// run_seg_kernel below; NL stays a parameter so that these kernels keep
+// their names).  t_io, dt_io and att_io hold each lane's end on exit, and
+// in the STORE instantiation its start on entry; out_x/out_t/out_n/overflow
+// are used only by the STORE instantiation, trap only by the PHYS ones.
 template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
 __global__ void __launch_bounds__(THREADS)
 run_kernel(const int* __restrict__ topo_g, int topo_len,
@@ -328,6 +338,7 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
            double tstart, int max_store, int stream,
            double* __restrict__ out_x, double* __restrict__ out_t,
            int* __restrict__ out_n, int* __restrict__ overflow, int trap) {
+  static_assert(NL, "a linear deck runs run_seg_kernel");
   extern __shared__ int topo[];
   for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
   __syncthreads();
@@ -398,9 +409,8 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
   double x[NMAX];
   double sv[MAX_SRC];
 
-  // a run without the store starts at 0 (the code of the kernel before the
-  // store: reading the start rows there cost the linear instantiation 24
-  // registers); the store instantiation reads each lane's start
+  // a run without the store starts at 0; the store instantiation reads
+  // each lane's start
   double t = STORE ? t_io[lane] : 0.0, dt = STORE ? dt_io[lane] : minstep;
   int att = STORE ? att_io[lane] : 0;
   bool done = tstop <= 0.0 || t >= tstop, fail = false;
@@ -416,11 +426,10 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
   ph.d = d_st;
   ph.m = m_st;
   ph.trap = trap != 0;
-  double jv[NL ? MAX_KJ : 1];
-  double nv[NL ? MAX_NVAL : 1];
+  double jv[MAX_KJ];
+  double nv[MAX_NVAL];
   double* jv_lane = jv_g + (size_t)lane * (deck.kj > 0 ? deck.kj : 1);
-  if constexpr (NL)
-    for (int i = 0; i < deck.kj; ++i) jv[i] = jv_lane[i];
+  for (int i = 0; i < deck.kj; ++i) jv[i] = jv_lane[i];
 
   while (!done && att < max_attempts &&
          (!STORE || !stream || n_kept < max_store)) {
@@ -472,24 +481,17 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
       auto lin_pm = [&lin_phys, &mp, dte, dtl](int tag, int k) -> double {
         return tag > TAG_NL ? mp.term(tag, k, dte, dtl) : lin_phys(tag, k);
       };
-      if constexpr (NL) {  // Newton from x = 0, the carried junctions
-        for (int i = 0; i < n; ++i) x[i] = 0.0;
-        if constexpr (MAG)
-          nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_pm, m, x,
-                                             jv, nv, dte, 0.0, max_iter,
-                                             reltol, abstol, &nr_ok, ph);
-        else
-          nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_phys, m, x,
-                                             jv, nv, dte, 0.0, max_iter,
-                                             reltol, abstol, &nr_ok, ph);
-      } else {  // one solve, converged when finite
-        if constexpr (MAG)
-          build<NMAX, false>(m, n, ent, ne, lin_pm, nv);
-        else
-          build<NMAX, false>(m, n, ent, ne, lin_phys, nv);
-        nr_ok = gauss_jordan<NMAX>(m, n, x);
-      }
-    } else if constexpr (NL) {  // Newton from x = 0, the carried junctions
+      // Newton from x = 0, the carried junctions
+      for (int i = 0; i < n; ++i) x[i] = 0.0;
+      if constexpr (MAG)
+        nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_pm, m, x, jv,
+                                           nv, dte, 0.0, max_iter, reltol,
+                                           abstol, &nr_ok, ph);
+      else
+        nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_phys, m, x,
+                                           jv, nv, dte, 0.0, max_iter,
+                                           reltol, abstol, &nr_ok, ph);
+    } else {  // Newton from x = 0, the carried junctions
       // a linear stamp's value in this attempt (scalars and pointers by
       // value: a reference capture of dte/dtl would take their address)
       auto lin = [g, cadj, lval, c_q1, l_i1, nv_src, dte, dtl,
@@ -516,79 +518,6 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
       } else {
         nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin, m, x, jv, nv, dte,
                                      0.0, max_iter, reltol, abstol, &nr_ok);
-      }
-    } else {
-      // One solve, converged when finite.  The build and the elimination
-      // are newton.cuh's build() and gauss_jordan() written out in line:
-      // calling those functions here measured 1-2% slower on bench.py's
-      // deck (ab_run_kernel.py against the parent, in turns), so the
-      // linear instantiation keeps the code of the kernel before Newton.
-      // ---- build: zero, scatter the stamps in plan order, ground row
-      for (int i = 0; i < n; ++i)
-        for (int j = 0; j <= n; ++j) m[i][j] = 0.0;
-      for (int e = 0; e < ne; ++e) {
-        const int* en = ent + 5 * e;
-        const int k = en[3];
-        double v;
-        switch (en[2]) {
-          case TAG_G: v = g[k]; break;
-          case TAG_GEQ: v = cadj[k] / dte; break;
-          case TAG_LTERM: v = lval[k] / dtl; break;
-          case TAG_CEQ: v = c_q1[k] / dte; break;
-          case TAG_LRHS: v = (lval[k] / dtl) * l_i1[k]; break;
-          case TAG_VSRC: v = sv[k]; break;
-          case TAG_ISRC: v = sv[topo[H_NV] + k]; break;
-          default:  // TAG_ONE, or a magnetic stamp
-            if constexpr (MAG) {
-              v = mag.term(en[2], k, t, dte, dtl);
-            } else {
-              v = 1.0;
-            }
-            break;
-        }
-        m[en[0]][en[1]] += (double)en[4] * v;
-      }
-      m[0][0] = 1.0;
-
-      // ---- Gauss-Jordan with partial pivoting
-      bool nan_col = false;
-      int perm[NMAX];
-      bool used[NMAX];
-      for (int i = 0; i < n; ++i) used[i] = false;
-      for (int k = 0; k < n && !nan_col; ++k) {
-        int p = -1;
-        double best = -1.0;
-        for (int i = 0; i < n; ++i) {
-          if (used[i]) continue;
-          const double a = fabs(m[i][k]);
-          if (isnan(a)) nan_col = true;
-          if (a > best) {
-            best = a;
-            p = i;
-          }
-        }
-        if (nan_col || p < 0) {
-          nan_col = true;
-          break;
-        }
-        const double piv = m[p][k];
-        if (piv == 0.0) {
-          for (int j = 0; j <= n; ++j) m[p][j] = j == k ? 1.0 : INFINITY;
-        } else {
-          for (int j = 0; j <= n; ++j) m[p][j] = m[p][j] / piv;
-        }
-        for (int i = 0; i < n; ++i) {
-          if (i == p) continue;
-          const double f = m[i][k];
-          for (int j = 0; j <= n; ++j) m[i][j] = m[i][j] - f * m[p][j];
-        }
-        used[p] = true;
-        perm[k] = p;
-      }
-      nr_ok = !nan_col;
-      for (int k = 0; k < n; ++k) {
-        x[k] = nan_col ? NAN : m[perm[k]][n];
-        nr_ok = nr_ok && isfinite(x[k]);
       }
     }
 
@@ -637,7 +566,7 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
           l_flux0[k] = vd * dte;
           l_hist[k] = 1.0;
         }
-        if constexpr (NL) {
+        {
           const int nd = deck.n_d, nm = deck.n_m;
           for (int k = 0; k < nd; ++k) {  // the diode's charge memory
             const double vd = x[deck.dn[2 * k]] - x[deck.dn[2 * k + 1]];
@@ -749,10 +678,8 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
     ++att;
   }
 
-  if constexpr (NL)
-    for (int i = 0; i < deck.kj; ++i) jv_lane[i] = jv[i];
-  // a linear attempt is one solve: this run's attempts
-  nri_out[lane] = NL ? nri : (STORE ? att - att_io[lane] : att);
+  for (int i = 0; i < deck.kj; ++i) jv_lane[i] = jv[i];
+  nri_out[lane] = nri;
   t_io[lane] = t;
   dt_io[lane] = dt;
   acc_out[lane] = acc;
@@ -762,6 +689,383 @@ run_kernel(const int* __restrict__ topo_g, int topo_len,
     overflow[lane] = dropped ? 1 : 0;
   }
   fail_out[lane] = fail ? 1 : 0;
+}
+
+// ------------------------------------------------ the linear attempt
+
+// A lane's rows (committed state, device rows, source records) held in its
+// segment's slice of shared memory when together they fit this many
+// doubles; a deck past it reads them in device memory.
+constexpr int SEG_ROWS = 192;
+// blocks an SM holds at once: 8192 lanes of np1 <= 8 (512 blocks) in one
+// wave on 132 SMs, at most 128 registers a thread
+constexpr int SEG_BLOCKS = 4;
+
+// Doubles of one segment's slice of shared memory: the elimination's
+// exchange buffer and the W = NMAX build rows (stride NMAX + 2, so every
+// row starts 16-byte aligned), x, the source values and the lane's rows.
+template <int NMAX>
+__host__ __device__ constexpr int seg_slice() {
+  return (NMAX + 2) * (NMAX + 1) + NMAX + MAX_SRC + SEG_ROWS;
+}
+
+// A linear deck's whole run on a segment of W = NMAX lanes of one warp per
+// Monte-Carlo lane (THREADS / W lanes a block), thread i of the segment
+// owning row i of the system.  Per attempt: the sources, thread i taking
+// those s = i (mod W); the build, thread i summing its row's stamps in
+// plan order from the row view of the table (ops/run_plan.py row_view)
+// into its row of the slice, then into registers; gj_warp_reg's
+// elimination (x to the slice, all NaN when one x is not finite: the
+// per-thread elimination left a poisoned row's inf there, but either way
+// the attempt fails and its x is never committed or stored, so counters,
+// state and waveforms keep their bits); the LTE, thread i taking the C's
+// and L's k = i (mod W), then a max over the segment (every term is +0 or
+// more, or NaN, so the order does not move it); the step control, which
+// every thread computes from the same values; the commit, each device by
+// the thread k = i (mod W); the store, thread i writing x[i].  The warp's
+// segments (4 of 8 lanes, 2 of 16, or one of 32) run in lockstep under
+// one full-warp mask: the warp attempts while any of its lanes is live,
+// and a lane past its end (done, its attempts spent, paused, or past
+// nlanes) runs the attempt with the others and keeps nothing of it.
+// Per-segment masks let the segments drift apart, and the warp then
+// issues each instruction once per segment.
+template <int NMAX, bool MAG, bool STORE, bool PHYS>
+__global__ void __launch_bounds__(THREADS, SEG_BLOCKS)
+run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
+               const double* __restrict__ dev, const double* __restrict__ rc,
+               double* __restrict__ state, double* __restrict__ t_io,
+               double* __restrict__ dt_io, int* __restrict__ acc_out,
+               int* __restrict__ att_io, int* __restrict__ fail_out,
+               int* __restrict__ nri_out, int nlanes, double tstop,
+               double minstep, double tmax, double trtol, int max_attempts,
+               double tstart, int max_store, int stream,
+               double* __restrict__ out_x, double* __restrict__ out_t,
+               int* __restrict__ out_n, int* __restrict__ overflow,
+               int trap) {
+  constexpr int W = NMAX;
+  extern __shared__ __align__(16) double seg_smem[];
+  int* topo = reinterpret_cast<int*>(seg_smem);
+  for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
+  __syncthreads();
+  const int seg = threadIdx.x / W;
+  const int me = threadIdx.x & (W - 1);  // the row this thread owns
+  const int lane0 = blockIdx.x * (THREADS / W);
+  if (lane0 + (int)(threadIdx.x & ~31) / W >= nlanes) return;  // the warp
+  const int lane = lane0 + seg;
+  const bool real = lane < nlanes;
+  const int row_lane = real ? lane : nlanes - 1;  // rows read, never written
+  constexpr unsigned mask = 0xffffffffu;
+
+  double* sl = seg_smem + (topo_len + 3) / 4 * 2 + seg * seg_slice<NMAX>();
+  double* buf = sl;
+  double* row = sl + (NMAX + 2) * (1 + me);
+  double* xs = sl + (NMAX + 2) * (NMAX + 1);
+  double* sv = xs + NMAX;
+  double* own = sv + MAX_SRC;
+
+  const int n = topo[H_NP1];
+  const int nc = topo[H_NC], nl = topo[H_NL];
+  const int nv_src = topo[H_NV];
+  const int nsrc = nv_src + topo[H_NI];
+  const int ks = topo[H_KS], nd = topo[H_ND], nrc = topo[H_NRC];
+  const int* src = topo + topo[H_SRC];
+  const int* cnodes = topo + topo[H_CN];
+  const int* lnodes = topo + topo[H_LN];
+  const int* lbranch = topo + topo[H_LB];
+  const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
+  const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
+
+  // the lane's rows, read once into the slice and the state written back
+  // once at the end, when they fit it (the same for every lane of a deck)
+  const bool in_sh = ks + nd + nrc <= SEG_ROWS;
+  double* const st_g = state + (size_t)row_lane * ks;
+  double* st = st_g;
+  const double* dv = dev + (size_t)row_lane * nd;
+  const double* rv = rc + (size_t)row_lane * nrc;
+  if (in_sh) {
+    for (int i = me; i < ks; i += W) own[i] = st_g[i];
+    for (int i = me; i < nd; i += W) own[ks + i] = dv[i];
+    for (int i = me; i < nrc; i += W) own[ks + nd + i] = rv[i];
+    st = own;
+    dv = own + ks;
+    rv = own + ks + nd;
+    __syncwarp(mask);
+  }
+  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the magnetic constants
+  const double* g = dv;
+  const double* cadj = dv + topo[H_NR];
+  const double* craw = cadj + nc;
+  const double* lval = craw + nc;
+  // committed state rows: q0 q1 v0 v1 [nc], i0 i1 v0 v1 flux0 [nl], then
+  // under physics C i0 hist [nc], L hist [nl], the live LM rows
+  double* c_q0 = st;
+  double* c_q1 = st + nc;
+  double* c_v0 = st + 2 * nc;
+  double* c_v1 = st + 3 * nc;
+  double* l_i0 = st + 4 * nc;
+  double* l_i1 = l_i0 + nl;
+  double* l_v0 = l_i0 + 2 * nl;
+  double* l_v1 = l_i0 + 3 * nl;
+  double* l_flux0 = l_i0 + 4 * nl;
+  double* c_i0 = l_i0 + 5 * nl;
+  double* c_hist = c_i0 + nc;
+  double* l_hist = c_hist + nc;
+  Mag mag{};
+  MagPhys mp{};
+  const int nlm = topo[H_NLM];
+  if constexpr (MAG && PHYS) {
+    mp.lm = lval + nl;
+    mp.kc = mp.lm + LM_ROWS * nlm;
+    // a linear deck has no diode or MOSFET rows before the LM ones
+    mp.ls = l_hist + nl;
+    mp.lval = lval;
+    mp.l_i1 = l_i1;
+    mp.l_hist = l_hist;
+    mp.kp = topo + topo[H_KP];
+    mp.nlm = nlm;
+    mp.trap = trap != 0;
+  } else if constexpr (MAG) {
+    mag.l0 = lval + nl;
+    mag.leff = mag.l0 + nlm;
+    mag.i0 = mag.l0 + 2 * nlm;
+    mag.i1 = mag.l0 + 3 * nlm;
+    mag.mij = mag.l0 + 4 * nlm;
+    mag.kp = topo + topo[H_KP];
+    mag.l_i0 = l_i0;
+  }
+  const bool tr = PHYS && trap != 0;
+
+  double t = STORE ? t_io[row_lane] : 0.0;
+  double dt = STORE ? dt_io[row_lane] : minstep;
+  int att = STORE ? att_io[row_lane] : 0;
+  const int att0 = att;
+  bool done = !real || tstop <= 0.0 || t >= tstop, fail = false;
+  int acc = 0, n_kept = 0;
+  bool dropped = false;
+  const double trtol100 = trtol / 100.0;
+  auto live = [&] {
+    return !done && att < max_attempts &&
+           (!STORE || !stream || n_kept < max_store);
+  };
+
+  for (bool active = live(); __any_sync(mask, active); active = live()) {
+    const double tpdt = t + dt;
+    const bool over = tpdt > tstop;
+    const double next_t = over ? tstop : tpdt;
+    const double dte = over ? tstop - t : dt;
+    const double dtl = dte > 0 ? dte : 1e-9;
+
+    // ---- sources: trapezoidal physics at the end of the step
+    // (engine/tran.py), the rest at the old time (PLAN.md 2)
+    const double t_src = tr ? next_t : t;
+    for (int s = me; s < nsrc; s += W)
+      sv[s] = source_value(src[3 * s], rv + src[3 * s + 1], src[3 * s + 2],
+                           t_src);
+    __syncwarp(mask);
+
+    // ---- build: this thread's row, its stamps in plan order
+    // a stamp's value in this attempt: compat (the reference's companions,
+    // the frozen-core LM and K), or physics (BE with the previous step's
+    // charge, or the trapezoidal companions after the device's first
+    // committed step; the live LM and K), as assemble.py stamps them
+    auto stamp = [=](int tag, int k) -> double {
+      if constexpr (PHYS) {
+        switch (tag) {
+          case TAG_G: return g[k];
+          case TAG_GEQ:
+            return (tr && c_hist[k] > 0) ? 2.0 * cadj[k] / dte
+                                         : cadj[k] / dte;
+          case TAG_CEQ:
+            return (tr && c_hist[k] > 0)
+                       ? 2.0 * cadj[k] / dte * c_v0[k] + c_i0[k]
+                       : c_q0[k] / dte;
+          case TAG_LTERM:
+            return (tr && l_hist[k] > 0) ? 2.0 * lval[k] / dtl
+                                         : lval[k] / dtl;
+          case TAG_LRHS: {
+            const bool on = tr && l_hist[k] > 0;
+            const double lc = on ? 2.0 * lval[k] / dtl : lval[k] / dtl;
+            return tr ? lc * l_i1[k] + (on ? l_v0[k] : 0.0) : lc * l_i1[k];
+          }
+          case TAG_VSRC: return sv[k];
+          case TAG_ISRC: return sv[nv_src + k];
+          default:  // TAG_ONE, or a magnetic stamp
+            if constexpr (MAG) return mp.term(tag, k, dte, dtl);
+            return 1.0;
+        }
+      } else {
+        switch (tag) {
+          case TAG_G: return g[k];
+          case TAG_GEQ: return cadj[k] / dte;
+          case TAG_LTERM: return lval[k] / dtl;
+          case TAG_CEQ: return c_q1[k] / dte;
+          case TAG_LRHS: return (lval[k] / dtl) * l_i1[k];
+          case TAG_VSRC: return sv[k];
+          case TAG_ISRC: return sv[nv_src + k];
+          default:  // TAG_ONE, or a magnetic stamp
+            if constexpr (MAG) return mag.term(tag, k, t, dte, dtl);
+            return 1.0;
+        }
+      }
+    };
+    for (int c = 0; c <= n; ++c) row[c] = 0.0;
+    if (me < n) {
+      for (int e = roff[me]; e < roff[me + 1]; ++e) {
+        const int4 q = ent[e];  // col, tag, index, sign
+        row[q.x] += (double)q.w * stamp(q.y, q.z);
+      }
+    }
+    if (me == 0) row[0] = 1.0;  // the ground row is the identity
+    // slot c holds column c, the right-hand side slot NMAX
+    double m[1][NMAX + 1];
+#pragma unroll
+    for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
+    m[0][NMAX] = row[n];
+
+    // ---- one solve, converged when x is finite
+    const bool nr_ok =
+        gj_warp_reg<NMAX, W, 1>(m, n, buf, me, mask, xs);
+    __syncwarp(mask);
+
+    // ---- LTE from the committed state
+    double lte = 0.0;
+    for (int k = me; k < nc; k += W)
+      lte = max_nan(lte,
+                    fabs(craw[k] * c_v0[k] - craw[k] * c_v1[k]) / (2.0 * dte));
+    for (int k = me; k < nl; k += W) {
+      const double cur = fabs(l_i0[k] - l_i1[k]) / (2.0 * dte);
+      const double vol = fabs(l_v0[k] - l_v1[k]) / (2.0 * dte);
+      lte = max_nan(lte, max_nan(cur, vol));
+    }
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1)
+      lte = max_nan(lte, __shfl_xor_sync(mask, lte, off, W));
+
+    // ---- accept / reject
+    const bool can_halve = dte > minstep;
+    const bool hard_fail = !nr_ok && !can_halve;
+    const bool reject =
+        (!nr_ok && can_halve) || (nr_ok && lte > trtol && can_halve);
+    const bool accept = active && nr_ok && !reject;
+    if (accept) {
+      if constexpr (PHYS) {  // engine/state.py make_commit, physics
+        for (int k = me; k < nc; k += W) {
+          const double vd = xs[cnodes[2 * k]] - xs[cnodes[2 * k + 1]];
+          const double q0 = c_q0[k], v0 = c_v0[k];
+          const double dv_ = vd - v0;
+          // trap with the stamp's C_t (the TR recursion must match it)
+          c_i0[k] = tr ? (c_hist[k] > 0 ? 2.0 * cadj[k] / dte * dv_ - c_i0[k]
+                                        : cadj[k] * dv_ / dte)
+                       : craw[k] * dv_ / dte;
+          c_q0[k] = craw[k] * vd;
+          c_q1[k] = q0;
+          c_v0[k] = vd;
+          c_v1[k] = v0;
+          c_hist[k] = 1.0;
+        }
+        for (int k = me; k < nl; k += W) {  // the branch unknown is -I
+          const double vd = xs[lnodes[2 * k]] - xs[lnodes[2 * k + 1]];
+          const double i = -xs[lbranch[k]];
+          const double v0 = l_v0[k];
+          l_i0[k] = i;
+          l_i1[k] = i;
+          l_v0[k] = vd;
+          l_v1[k] = v0;
+          l_flux0[k] = vd * dte;
+          l_hist[k] = 1.0;
+        }
+        if constexpr (MAG) {  // the live J-A commit (engine/state.py)
+          const int* lmt = topo + topo[H_LMN];  // n1 n2 branch per winding
+          const int* core = topo + topo[H_CORE];
+          const double* lm = mp.lm;
+          double* ls = mp.ls;
+          for (int k = me; k < nlm; k += W) {
+            // the core's summed mmf, in winding order (segment_sum)
+            double mmf = 0.0;
+            for (int w = 0; w < nlm; ++w)
+              mmf = mmf + (core[w] == core[k]
+                               ? lm[LM_TURNS * nlm + w] * -xs[lmt[3 * w + 2]]
+                               : 0.0);
+            const double h = clamp_max(
+                clamp_min(mmf / lm[LM_LEN * nlm + k], -1e6), 1e6);
+            ja_step(lm[LM_MST * nlm + k], lm[LM_A * nlm + k],
+                    lm[LM_K * nlm + k], lm[LM_C * nlm + k],
+                    lm[LM_ALPHA * nlm + k], h, ls + LS_H * nlm + k, nlm);
+            const double vd = xs[lmt[3 * k]] - xs[lmt[3 * k + 1]];
+            double* sk = ls + k;
+            sk[LS_I1 * nlm] = sk[LS_I0 * nlm];
+            sk[LS_I0 * nlm] = -xs[lmt[3 * k + 2]];
+            sk[LS_V1 * nlm] = sk[LS_V0 * nlm];
+            sk[LS_V0 * nlm] = vd;
+            sk[LS_FLUX0 * nlm] = sk[LS_FLUX0 * nlm] + vd * dte;
+          }
+        }
+      } else {
+        for (int k = me; k < nc; k += W) {  // capacitor.go:155-171
+          const double vd = xs[cnodes[2 * k]] - xs[cnodes[2 * k + 1]];
+          const double q0 = c_q0[k], v0 = c_v0[k];
+          c_q0[k] = craw[k] * vd;
+          c_q1[k] = q0;
+          c_v0[k] = vd;
+          c_v1[k] = v0;
+        }
+        for (int k = me; k < nl; k += W) {  // inductor.go:81-114
+          const double vd = xs[lnodes[2 * k]] - xs[lnodes[2 * k + 1]];
+          const double v0 = l_v0[k];
+          l_i0[k] = vd * 1e-9 / lval[k];
+          l_i1[k] = l_i1[k] + vd * dte / lval[k];
+          l_v0[k] = vd;
+          l_v1[k] = v0;
+          l_flux0[k] = vd * dte;
+        }
+      }
+      t = next_t;
+      if constexpr (STORE) {  // tran.go:141-143
+        if (next_t >= tstart) {
+          if (n_kept < max_store) {
+            const size_t orow = (size_t)lane * max_store + n_kept;
+            if (me < n) out_x[orow * n + me] = xs[me];
+            if (me == 0) out_t[orow] = next_t;
+            ++n_kept;
+          } else {
+            dropped = true;
+          }
+        }
+      }
+      const double grown = dte * (lte < trtol100 ? 2.0 : 1.1);
+      const double dt_g = isnan(grown) ? grown : (grown > tmax ? tmax : grown);
+      dt = (next_t < tstop && dte < tmax) ? dt_g : dte;
+      ++acc;
+      if (next_t >= tstop) done = true;
+    } else if (active) {
+      dt = dte / 2.0;
+    }
+    if (active) {
+      if (hard_fail) {
+        done = true;
+        fail = true;
+      }
+      ++att;
+    }
+    __syncwarp(mask);  // the commit before the next attempt's reads
+  }
+
+  if (!real) return;
+  if (in_sh)
+    for (int i = me; i < ks; i += W) st_g[i] = st[i];
+  if (me == 0) {
+    // a linear attempt is one solve: this run's attempts
+    nri_out[lane] = att - att0;
+    t_io[lane] = t;
+    dt_io[lane] = dt;
+    acc_out[lane] = acc;
+    att_io[lane] = att;
+    if constexpr (STORE) {
+      out_n[lane] = n_kept;
+      overflow[lane] = dropped ? 1 : 0;
+    }
+    fail_out[lane] = fail ? 1 : 0;
+  }
 }
 
 struct RunArgs {
@@ -791,16 +1095,66 @@ struct RunArgs {
   int trap;
 };
 
+// A linear deck's launch shape: segments of W = NMAX threads, THREADS /
+// NMAX lanes a block, the table and the segments' slices in dynamic
+// shared memory (bytes).
+struct SegShape {
+  int w, per_block, blocks, threads, shmem;
+};
+
+template <int NMAX>
+SegShape seg_shape(int nlanes, int topo_len) {
+  constexpr int per_block = THREADS / NMAX;
+  const int doubles = (topo_len + 3) / 4 * 2 + per_block * seg_slice<NMAX>();
+  return {NMAX, per_block, (nlanes + per_block - 1) / per_block, THREADS,
+          doubles * static_cast<int>(sizeof(double))};
+}
+
+// the shape of np1's size bucket (what the tsr_run* entries launch for a
+// linear deck); false past the caps
+inline bool seg_shape_np1(int np1, int nlanes, int topo_len, SegShape* s) {
+  if (np1 <= 8) *s = seg_shape<8>(nlanes, topo_len);
+  else if (np1 <= 16) *s = seg_shape<16>(nlanes, topo_len);
+  else if (np1 <= 32) *s = seg_shape<32>(nlanes, topo_len);
+  else return false;
+  return true;
+}
+
+template <int NMAX, bool MAG, bool STORE, bool PHYS>
+cudaError_t launch_seg(const RunArgs& a, cudaStream_t stream) {
+  const SegShape sh = seg_shape<NMAX>(a.nlanes, a.topo_len);
+  auto kernel = run_seg_kernel<NMAX, MAG, STORE, PHYS>;
+  if (sh.shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.shmem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<sh.blocks, sh.threads, sh.shmem, stream>>>(
+      a.topo, a.topo_len, a.dev, a.rc, a.state, a.t_io, a.dt_io, a.acc,
+      a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep, a.tmax,
+      a.trtol, a.max_attempts, a.tstart, a.max_store, a.stream, a.out_x,
+      a.out_t, a.out_n, a.overflow, a.trap);
+  return cudaGetLastError();
+}
+
+// The launch of one instantiation: a linear deck on a segment per lane, a
+// Newton deck a thread per lane.
 template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
 cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
-  const int blocks = (a.nlanes + THREADS - 1) / THREADS;
-  const size_t shmem = (size_t)a.topo_len * sizeof(int);
-  run_kernel<NMAX, NL, MAG, STORE, PHYS><<<blocks, THREADS, shmem, stream>>>(
-      a.topo, a.topo_len, a.dev, a.rc, a.state, a.jv, a.t_io, a.dt_io,
-      a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep, a.tmax,
-      a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter, a.tstart,
-      a.max_store, a.stream, a.out_x, a.out_t, a.out_n, a.overflow, a.trap);
-  return cudaGetLastError();
+  if constexpr (!NL) {
+    return launch_seg<NMAX, MAG, STORE, PHYS>(a, stream);
+  } else {
+    const int blocks = (a.nlanes + THREADS - 1) / THREADS;
+    const size_t shmem = (size_t)a.topo_len * sizeof(int);
+    run_kernel<NMAX, NL, MAG, STORE, PHYS>
+        <<<blocks, THREADS, shmem, stream>>>(
+            a.topo, a.topo_len, a.dev, a.rc, a.state, a.jv, a.t_io,
+            a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop,
+            a.minstep, a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol,
+            a.max_iter, a.tstart, a.max_store, a.stream, a.out_x, a.out_t,
+            a.out_n, a.overflow, a.trap);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace

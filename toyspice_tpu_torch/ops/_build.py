@@ -121,7 +121,8 @@ _ARGTYPES = {
     # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
     #               out_x, out_t, out_n, overflow, stream)
     # tsr_run_phys, tsr_run_mag and their _store entries: the same
-    "run": (("tsr_run", RUN_SIG),),
+    # tsr_run_seg_shape(np1, nlanes, topo_len, out[5])
+    "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiip")),
     "run_store": (("tsr_run_store", RUN_STORE_SIG),),
     "run_phys": (("tsr_run_phys", RUN_SIG),),
     "run_phys_store": (("tsr_run_phys_store", RUN_STORE_SIG),),

@@ -13,7 +13,8 @@ instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
   ``csrc/run_kernel.cu`` (compat), ``csrc/run_kernel_phys.cu`` (physics)
   and ``csrc/run_kernel_mag.cu`` (physics with LM or K, compat LM or K
   with a Newton), the instantiations of ``csrc/run_kernel.cuh`` (one
-  thread per lane, f64), without and with the waveform store. Each
+  segment of a warp per lane for a linear deck, one thread per lane for
+  a Newton deck, f64), without and with the waveform store. Each
   checks its inputs, allocates the outputs, launches on the current
   stream and counts its launches in ``.launches``.
 * ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
@@ -58,6 +59,7 @@ store pauses a lane whose ``max_store`` rows are full, the plain store
 drops the row and flags the lane's overflow.
 """
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -99,9 +101,22 @@ def kernel_caps_reason(plan):
         return (f"{n_nl} diodes, BJTs and MOSFETs exceed the kernel's cap "
                 f"of {MAX_NL_DEVICES} (its per-thread junction and value "
                 "arrays)")
-    if plan.topo.size > MAX_TOPO:
+    if plan.base_len > MAX_TOPO:
         return "stamp plan exceeds the kernel's shared-memory table"
     return None
+
+
+def segment_shape(plan, b):
+    """The linear run kernel's launch for b lanes of ``plan`` as the
+    compat library computes it (``csrc/run_kernel.cuh`` ``seg_shape``, the
+    shape ``launch_seg`` launches): (W, lanes a block, blocks, threads a
+    block, bytes of shared memory a block)."""
+    out = (ctypes.c_int * 5)()
+    err = _build.load("run").tsr_run_seg_shape(
+        plan.np1, b, int(plan.topo.size), ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"np1={plan.np1} has no segment launch")
+    return tuple(out)
 
 
 def check_caps(plan):
@@ -282,7 +297,9 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     nri = torch.empty(b, dtype=I32, device=device)
     args = [plan.np1, int(plan.nonlinear), int(mag), int(plan.physics),
             int(sc.trap), topo.data_ptr(),
-            int(plan.topo.size), dev.data_ptr(), src.data_ptr(),
+            # a linear deck's segment kernel reads the row view too
+            int(plan.base_len if plan.nonlinear else plan.topo.size),
+            dev.data_ptr(), src.data_ptr(),
             st.data_ptr(), jv_out.data_ptr(), t.data_ptr(), dt.data_ptr(),
             acc.data_ptr(), att.data_ptr(), fail.data_ptr(), nri.data_ptr(),
             b, float(sc.tstop), float(sc.minstep),

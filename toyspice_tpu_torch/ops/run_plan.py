@@ -40,7 +40,12 @@ serves every eligible deck:
   of counts and offsets, then the entries, sources, device nodes, each
   K's partners: kind (0 linear L, 1 LM) and index of winding a, then of
   winding b (a pair with both kinds 0 is both-linear), the inductors'
-  branch rows, each LM's nodes and branch row, and each LM's core).
+  branch rows, each LM's nodes and branch row, and each LM's core). A
+  transient plan appends the row view of the entries (``row_view``) at
+  ``topo[H_ROWS]``, 16-byte aligned: the entries stably sorted by row as
+  (col, tag, index, sign), then the np1 + 1 offsets of the rows into it.
+  The linear run kernel's segment builds row i from its slice alone, in
+  plan order; the other kernels copy only the table before it.
 """
 
 from dataclasses import dataclass
@@ -112,7 +117,7 @@ SRC_KEYS = ("dc", "amplitude", "freq", "phase", "v1", "v2", "delay", "rise",
 # topo header slots, csrc/newton.cuh ``enum Hdr``
 (H_NP1, H_NE, H_NR, H_NC, H_NL, H_NV, H_NI, H_ENT, H_SRC, H_CN, H_LN, H_KS,
  H_ND, H_NRC, H_NDD, H_NQ, H_NM, H_DN, H_QN, H_MN, H_NLIN, H_KJ, H_DOFF,
- H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB, H_LMN, H_CORE) = range(31)
+ H_QOFF, H_MOFF, H_NLM, H_NK, H_KP, H_LB, H_LMN, H_CORE, H_ROWS) = range(32)
 H_LEN = 32
 
 
@@ -329,6 +334,17 @@ def build_plan(cc, mode="tran"):
     return np.asarray(ents, dtype=np.int32).reshape(-1, 5), n_lin
 
 
+def row_view(entries, np1):
+    """The entries bucketed by row: (the (E, 4) int32 (col, tag, index,
+    sign) of the entries stably sorted by row, so that each row keeps plan
+    order, and the (np1 + 1,) int32 offsets of each row's first entry)."""
+    order = np.argsort(entries[:, 0], kind="stable")
+    view = np.ascontiguousarray(entries[order][:, 1:], dtype=np.int32)
+    counts = np.bincount(entries[:, 0], minlength=np1)[:np1]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return view, offsets
+
+
 @dataclass
 class RunPlan:
     """Static tables of one deck (host numpy) for one stamp mode."""
@@ -355,6 +371,12 @@ class RunPlan:
     dev_offset: dict  # nonlinear kind -> offset of its block in dev rows
     idx: dict  # D/Q/M "nodes" (and M "level") tables of the deck
     topo: np.ndarray  # int32 table for the kernel
+
+    @property
+    def base_len(self):
+        """Length of the table before the row view (the whole table of an
+        OP plan): what the per-thread kernels copy and the caps count."""
+        return int(self.topo[H_ROWS]) or int(self.topo.size)
 
     @property
     def nd(self):
@@ -461,6 +483,11 @@ def make_plan(cc, mode="tran", physics=False) -> RunPlan:
     hdr[H_KJ] = n_d + 2 * n_q + 3 * n_m
     hdr[H_DOFF], hdr[H_QOFF], hdr[H_MOFF] = (dev_offset["D"], dev_offset["Q"],
                                              dev_offset["M"])
+    if mode == "tran":  # the row view, at a multiple of 4 words
+        view, offsets = row_view(entries, cc.np1)
+        pad = -pos % 4
+        hdr[H_ROWS] = pos + pad
+        parts += [np.zeros(pad, np.int32), view.ravel(), offsets]
     topo = np.concatenate([hdr] + parts).astype(np.int32)
     return RunPlan(np1=cc.np1, mode=mode, physics=bool(physics),
                    counts=counts, nlm=nlm, nk=nk,
