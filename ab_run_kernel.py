@@ -22,9 +22,17 @@ add, beside bench.py's deck, the AC kernel on ce_amplifier_ac.cir's
 8192 x 12 systems of 16 and the stamped solve on one batched Newton
 iteration of cw16 (a 16-stage Cockcroft-Walton multiplier, np1 = 35,
 8192 lanes: chip_smoke.py's general-engine main path), each captured
-from its entry's call and timed the same way.
+from its entry's call and timed the same way.  ``--gj`` times the GJ
+kernel (``csrc/gj_kernel.cu``, the general engine's dense solve) on
+lc16_ac_8192's 172,032 systems of 72 (a 16-section LC ladder's AC, built
+by the general AC as chip_smoke.py phase 30 builds them), on cw16's OP
+seed (8192 systems of 35) and on 8192 random systems of 96 and of 128,
+each through its C entry and through ``launch_gj``; it builds and prints
+``-Xptxas -v`` of the ``gj`` and ``stamped`` libraries only, and runs
+bench.py's deck only beside another run flag.
 
     python3 ab_run_kernel.py _parent . . _parent
+    python3 ab_run_kernel.py --gj _parent . . _parent
     python3 ab_run_kernel.py --store --magphys --rectifier _parent . . _parent
     python3 ab_run_kernel.py --ac --stamped _parent . . _parent
     python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
@@ -260,8 +268,77 @@ def time_ac_stamped(root, reps, do_ac, do_stamped):
               f"{int(pat.table[0])} terms): kernel ms {ms}", flush=True)
 
 
-def print_ptxas(root, _build):
-    """``nvcc -Xptxas -v`` of every kernel source of the checkout, the
+def time_gj(root, reps):
+    """The GJ kernel on lc16_ac_8192's systems (8192 lanes, C spread, 21
+    frequencies: 172,032 systems of 72), on cw16's OP seed (8192 systems
+    of 35, C spread) and on 8192 random systems of 96 (the largest in
+    registers) and of 128 (in shared memory), each captured from
+    its caller (or made from one seed) and timed through the C entry
+    (``calls`` calls a rep) and through ``launch_gj``; the first 16384
+    systems of each are held to ``gj_plain`` bit for bit."""
+    import numpy as np
+    import torch
+
+    import toyspice_tpu_torch as ts
+    from toyspice_tpu_torch.engine.ac import make_ac
+    from toyspice_tpu_torch.engine.op import make_op
+    from toyspice_tpu_torch.ops import _build, solve
+    from chip_smoke import cockcroft_walton, lc_ladder, same_bits
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.load("gj")
+
+    def capture(run):
+        seen = []
+
+        def dense(a, b):
+            seen.append((a, b))
+            return solve.linear_solve(a, b)
+        run(dense)
+        return seen[0]
+
+    def lc16(dense):
+        cc = ts.compile_circuit(ts.parse(lc_ladder(16)))
+        params, _ = spread_params(ts, cc, ("C",))
+        ap = cc.netlist.ac
+        make_ac(cc, dense_solve=dense)(params, ts.init_state(cc),
+                                       ts.frequency_points(
+                                           ap.sweep, ap.fstart, ap.fstop,
+                                           ap.points))
+
+    def cw16(dense):
+        cc = ts.compile_circuit(ts.parse(cockcroft_walton(16)))
+        params, _ = spread_params(ts, cc, ("C",))
+        make_op(cc, dense_solve=dense)(params, ts.init_state(cc))
+
+    def random(n):
+        rng = np.random.default_rng(n)
+        a = rng.normal(size=(LANES, n, n)) + 4.0 * np.eye(n)
+        return (torch.as_tensor(a, device="cuda"),
+                torch.as_tensor(rng.normal(size=(LANES, n)), device="cuda"))
+
+    for name, make, calls in (("lc16_ac_8192", lambda: capture(lc16), 5),
+                              ("cw16 OP seed", lambda: capture(cw16), 20),
+                              ("random n=96", lambda: random(96), 5),
+                              ("random n=128", lambda: random(128), 5)):
+        a, b = make()
+        nsys, n = a.shape[0], a.shape[1]
+        x = torch.empty((nsys, n), dtype=torch.float64, device=a.device)
+        ms = entry_ms(root, lib.tsr_gj, (n, a.data_ptr(), b.data_ptr(),
+                                         x.data_ptr(), nsys, stream), reps,
+                      calls)
+        _, wms = event_ms(lambda: solve.launch_gj(a, b), reps)
+        k = min(nsys, 16384)
+        bits = same_bits(x[:k], solve.gj_plain(a[:k], b[:k]))
+        print(f"{root}: GJ kernel ({name}, {nsys} systems of {n}): kernel "
+              f"ms {ms}, with launch_gj {wms}, the first {k} bit-identical "
+              f"to gj_plain {bits}", flush=True)
+        del a, b, x
+        torch.cuda.empty_cache()
+
+
+def print_ptxas(root, _build, names):
+    """``nvcc -Xptxas -v`` of the named kernel sources of the checkout, the
     compiles started together; each kernel's lines, tagged with the
     source's name."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -271,7 +348,7 @@ def print_ptxas(root, _build):
              "-Xptxas", "-v", "-o", os.path.join(tmp, f"{name}.so"),
              str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name, src in _build.SOURCES.items()}
+            for name, src in _build.SOURCES.items() if name in names}
         for name, proc in procs.items():
             text, _ = proc.communicate()
             if proc.returncode != 0:
@@ -351,22 +428,26 @@ def run_case(root, ts, run, run_plan, mode, reps):
 
 
 def time_checkout(root, modes, reps, ptxas=True, opdc=False, do_ac=False,
-                  do_stamped=False):
+                  do_stamped=False, do_gj=False):
     sys.path.insert(0, root)
     import toyspice_tpu_torch as ts
     from toyspice_tpu_torch.ops import _build, run, run_plan
 
     if not os.path.abspath(ts.__file__).startswith(root):
         raise SystemExit(f"imported {ts.__file__}, not the one in {root}")
-    _build.build()
+    names = (tuple(_build.SOURCES) if modes or opdc else
+             ("gj", "stamped") + (("ac", "op") if do_ac else ()))
+    _build.build(names)
     if ptxas:
-        print_ptxas(root, _build)
+        print_ptxas(root, _build, names)
     if opdc:
         return time_op_dc(root, reps)
     for mode in modes:
         run_case(root, ts, run, run_plan, mode, reps)
     if do_ac or do_stamped:
         time_ac_stamped(root, reps, do_ac, do_stamped)
+    if do_gj:
+        time_gj(root, reps)
 
 
 def main():
@@ -392,6 +473,10 @@ def main():
     ap.add_argument("--stamped", action="store_true",
                     help="also time the stamped solve on cw16's n = 35 "
                     "systems")
+    ap.add_argument("--gj", action="store_true",
+                    help="time the GJ kernel on lc16's, cw16's seed's and "
+                    "random n = 128 systems (bench.py's deck only beside "
+                    "another run flag)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed launches per checkout")
     ap.add_argument("--no-ptxas", action="store_true", help=argparse.SUPPRESS)
@@ -403,12 +488,14 @@ def main():
             modes = ["physics"]
         elif a.rectifier and not (a.store or a.magphys):
             modes = ["rectifier"]
+        elif a.gj and not (a.store or a.magphys or a.rectifier):
+            modes = []
         else:
             modes = (["rlc"] + (["store"] if a.store else [])
                      + (["magphys"] if a.magphys else [])
                      + (["rectifier"] if a.rectifier else []))
         time_checkout(os.path.abspath(a.roots[0]), modes, a.reps,
-                      not a.no_ptxas, a.opdc, a.ac, a.stamped)
+                      not a.no_ptxas, a.opdc, a.ac, a.stamped, a.gj)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -420,7 +507,8 @@ def main():
              + (["--physics"] if a.physics else [])
              + (["--opdc"] if a.opdc else [])
              + (["--ac"] if a.ac else [])
-             + (["--stamped"] if a.stamped else []))
+             + (["--stamped"] if a.stamped else [])
+             + (["--gj"] if a.gj else []))
     seen = set()
     for root in a.roots:
         quiet = a.no_ptxas or os.path.abspath(root) in seen

@@ -15,9 +15,10 @@ seconds:
    DC sweep kernel, the stamped solve (per-thread to np1 = 32, a warp per
    lane to 64, a block per lane to 128), the AC kernel (a warp segment per
    system) and the GJ kernel, one ``nvcc`` call per library, all started
-   together (ops/_build.py).
+   together (ops/_build.py) in a thread of their own, while phase 3's
+   plain versions, which need no library, run on the card.
 3. run kernel against its plain torch version on linear decks, on the
-   card: 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
+   card (the plain versions first, beside the build): 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
    NaN on 64 lanes, and the 8192 lanes of bench.py's RLC deck (perturbed as
    bench.py does).  accepted/attempts/fail/nr_iters must be equal per lane,
@@ -135,9 +136,10 @@ seconds:
    store='full') on phase 21's 8192 lanes (one OP launch, one PHYS store
    launch, 9.8 GB of output), then that store kernel against the plain
    store on the same lanes, timed alone and through its wrapper.
-27. the GJ kernel (csrc/gj_kernel.cu) against gj_plain on 256 random
-   systems each of n = 6, 32, 33, 40, 48, 49, 64, 65, 72 and 128, with a
-   zero diagonal and a singular lane: the same non-finite lane and the
+27. the GJ kernel (csrc/gj_kernel.cu) against gj_plain on 259 random
+   systems each of n = 1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72, 73,
+   96, 97 and 128 (its bucket edges and the stamped solve's), with a zero
+   diagonal, a singular and a NaN lane: the same non-finite lanes and the
    same bits, and on the same systems the stamped solve (per-thread to 32,
    a warp a system to 64, a block above) and its plain version.
 28. the general engine against the run kernel on an eligible deck: the
@@ -155,7 +157,8 @@ seconds:
 30. lc16_ac_8192: a 16-section LC ladder (np1 = 36, a 72 x 72 AC system),
    C spread 0.1, run_ac_batch: the linear OP (one stamped launch at
    n = 36), then one GJ launch for the 8192 x 21 = 172,032 systems; the GJ
-   kernel against gj_plain on them, torch.linalg.solve as the yardstick.
+   kernel against gj_plain on them, bit for bit on every system,
+   torch.linalg.solve as the yardstick.
 31. compat semantics under integration="trap" in the analyses, served as
    backward Euler as the JAX package serves them: run_op_batch and
    run_dc_batch on the half-wave rectifier and run_ac_batch on it with an
@@ -170,6 +173,7 @@ Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
 launch count set to 0 just before and read just after.
 """
 
+import concurrent.futures
 import json
 import os
 import re
@@ -495,10 +499,18 @@ def ptxas_summary(log):
                       ("", "physics")] if kname == "run_kernel" else
                      [("", "mag"), ("", "store"), ("", "physics")]
                      if kname == "run_seg_kernel" else [("", "physics")])
-            g = re.search(r"(gj_kernel|stamped_block_kernel|ac_smem_kernel|"
-                          r"stamped_warp_kernel)(?:ILb([01])E)?", entry)
-            where = ({"1": "<registers>", "0": "<shared>"}.get(g.group(2), "")
-                     if g else "")
+            # the warp kernels' REG flag, the block kernels' NMAX (0: the
+            # shared-memory body); the name follows its mangled length,
+            # which tells gj_kernel from the source's gj_kernel_cu
+            g = re.search(r"(?<=\d)(gj_kernel|stamped_block_kernel|"
+                          r"ac_smem_kernel|stamped_warp_kernel)"
+                          r"(?:ILb([01])E|ILi(\d+)E)?", entry)
+            where = ""
+            if g is not None and g.group(2):
+                where = "<registers>" if g.group(2) == "1" else "<shared>"
+            elif g is not None and g.group(3):
+                where = ("<shared>" if g.group(3) == "0"
+                         else f"<{g.group(3)}, registers>")
             label = (g.group(1) + where if g else entry) if k is None else (
                 f"{k.group(1)}<{k.group(2)}" + "".join(
                     f", {names[i][int(f)]}" for i, f in enumerate(flags)
@@ -968,9 +980,8 @@ def ac_phase(lanes):
     return ac_main
 
 
-def kernel_vs_plain(plan, dev, src, st, sc, jv0=None):
-    """The run kernel (timed with CUDA events after a warm-up launch) and
-    its plain version (on the host clock) on the same lanes."""
+def run_timed(plan, dev, src, st, sc, jv0=None):
+    """The run kernel, timed with CUDA events after a warm-up launch."""
     run.launch_run_kernel(plan, dev, src, st, sc, jv0)  # warm-up
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -979,11 +990,21 @@ def kernel_vs_plain(plan, dev, src, st, sc, jv0=None):
     k = run.launch_run_kernel(plan, dev, src, st, sc, jv0)
     e1.record()
     torch.cuda.synchronize()
-    k_ms = e0.elapsed_time(e1)
+    return k, e0.elapsed_time(e1)
+
+
+def plain_timed(plan, dev, src, st, sc, jv0=None):
+    """The run kernel's plain version, timed on the host clock."""
     p0 = time.perf_counter()
     p = run.run_plain(plan, dev, src, st, sc, jv0)
     torch.cuda.synchronize()
-    return k, k_ms, p, (time.perf_counter() - p0) * 1e3
+    return p, (time.perf_counter() - p0) * 1e3
+
+
+def kernel_vs_plain(plan, dev, src, st, sc, jv0=None):
+    """The run kernel and its plain version on the same lanes."""
+    return (*run_timed(plan, dev, src, st, sc, jv0),
+            *plain_timed(plan, dev, src, st, sc, jv0))
 
 
 def free():
@@ -2190,15 +2211,18 @@ def c_spread(cc, b):
 def dense_sets(n, b, seed):
     """b random well-conditioned (n, n) systems on the card with row 0 the
     ground identity (x[0] = 0), a structural zero on diagonal 3 (pivoting
-    needed) and an all-zero row 2 on lane 5 (singular)."""
+    needed), an all-zero row 2 on lane 5 (singular) and a NaN column 4 on
+    lane 6 (rows 2 and 4 the last one where n is smaller)."""
     rng = np.random.default_rng(seed)
     a = rng.normal(size=(b, n, n)) + 4.0 * np.eye(n)
     rhs = rng.normal(size=(b, n))
     a[:, 0, :] = 0.0
     a[:, 0, 0] = 1.0
     rhs[:, 0] = 0.0
-    a[:, 3, 3] = 0.0
-    a[5, 2, :] = 0.0
+    if n > 3:
+        a[:, 3, 3] = 0.0
+    a[5, min(2, n - 1), :] = 0.0
+    a[6, :, min(4, n - 1)] = np.nan
     return (torch.as_tensor(a, device=DEVICE),
             torch.as_tensor(rhs, device=DEVICE))
 
@@ -2218,47 +2242,59 @@ def same_bits(a, b):
                        torch.nan_to_num(b, nan=7.0, posinf=8.0, neginf=9.0))
 
 
+# n of phase 27: the GJ kernel's bucket edges (csrc/gj_block.cuh
+# gj_bucket: a row a thread in registers to 96, the shared-memory body
+# above) and the stamped solve's (a thread a lane to 32, a warp to 64, a
+# block above)
+GJ_SIZES = (1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72, 73, 96, 97, 128)
+# its lanes: no multiple of 32 (256 hid a warp writing into its
+# neighbour's system)
+GJ_LANES = 259
+
+
 def gj_phase(lanes):
-    """Phase 27: the GJ kernel against gj_plain on random sets, n in {6,
-    32, 33, 40, 48, 49, 64, 65, 72, 128} (the stamped solve's bucket
-    edges), with a zero-diagonal column and a singular lane: the same bits
-    and the same non-finite lanes; on the same systems the stamped solve
-    (per-thread to n = 32, a warp a system to 64, a block above) and its
-    plain version."""
+    """Phase 27: the GJ kernel against gj_plain on random sets of every n
+    in GJ_SIZES, with a zero-diagonal column, a singular lane and a NaN
+    lane: the same bits and the same non-finite lanes; on the same systems
+    (n > 1: row 0 is the ground row the stamped build makes) the stamped
+    solve (per-thread to n = 32, a warp a system to 64, a block above) and
+    its plain version."""
     t0 = time.perf_counter()
     err = 0.0
     notes = []
-    for n in (6, 32, 33, 40, 48, 49, 64, 65, 72, 128):
+    for n in GJ_SIZES:
         a, rhs = dense_sets(n, lanes, n)
         xk = solve.launch_gj(a, rhs)
         xp = solve.gj_plain(a, rhs)
-        fn = dense_pattern(n)
-        g = torch.zeros(lanes, dtype=torch.float64, device=DEVICE)
-        vals = a[:, 1:, :].reshape(lanes, -1).contiguous()
-        rv = rhs[:, 1:].contiguous()
-        xs = fn(vals, rv, g)
-        xsp = solve_stamped.solve_plain(fn.pattern, vals, rv, g)
+        outs = [("GJ kernel", xk)]
+        if n > 1:
+            fn = dense_pattern(n)
+            g = torch.zeros(lanes, dtype=torch.float64, device=DEVICE)
+            vals = a[:, 1:, :].reshape(lanes, -1).contiguous()
+            rv = rhs[:, 1:].contiguous()
+            outs += [("stamped kernel", fn(vals, rv, g)),
+                     ("stamped plain",
+                      solve_stamped.solve_plain(fn.pattern, vals, rv, g))]
         torch.cuda.synchronize()
         bad = ~torch.isfinite(xp).all(dim=1)
-        if bad.tolist() != [i == 5 for i in range(lanes)]:
-            fail(f"GJ n={n}: the singular lane is not the only non-finite "
-                 "one")
-        for what, got in (("GJ kernel", xk), ("stamped kernel", xs),
-                          ("stamped plain", xsp)):
+        if bad.tolist() != [i in (5, 6) for i in range(lanes)]:
+            fail(f"GJ n={n}: the singular and the NaN lane are not the only "
+                 "non-finite ones")
+        for what, got in outs:
             if not torch.equal(~torch.isfinite(got).all(dim=1), bad):
                 fail(f"GJ n={n}: the {what}'s non-finite lanes differ")
             err = max(err, check_err(f"GJ n={n}", what, got[~bad],
                                      xp[~bad], err_scale(xp[~bad])))
-        bits = [same_bits(xk, xp), same_bits(xs, xp), same_bits(xsp, xp)]
+        bits = [same_bits(got, xp) for _, got in outs]
         notes.append(f"n={n}: bit-identical {'/'.join(map(str, bits))}")
         if not all(bits):
-            fail(f"GJ n={n}: not bit-identical (GJ kernel, stamped kernel, "
-                 f"stamped plain vs gj_plain: {bits})")
+            fail(f"GJ n={n}: not bit-identical ("
+                 f"{', '.join(w for w, _ in outs)} vs gj_plain: {bits})")
     phase("27 GJ kernel vs plain", t0,
-          f"{lanes} random systems each, a zero diagonal and a singular "
-          f"lane: GJ kernel, stamped kernel (per-thread to 32, a warp to 64, "
-          f"a block above) and stamped plain against gj_plain, the same "
-          f"non-finite lanes, "
+          f"{lanes} random systems each, a zero diagonal, a singular and a "
+          f"NaN lane: GJ kernel (registers to 96, shared memory above), "
+          f"stamped kernel (per-thread to 32, a warp to 64, a block above) "
+          f"and stamped plain against gj_plain, the same non-finite lanes, "
           f"max abs err {err:.3e}; " + "; ".join(notes))
     return err
 
@@ -2416,10 +2452,11 @@ def lc16_phase(lanes, smi, chunk=16384):
     """Phase 30: the main path lc16_ac_8192: a 16-section LC ladder (np1 =
     36, a 72 x 72 AC system: past the AC kernel's 2np1 <= 64), C spread
     0.1, through run_ac_batch: the linear OP as the bias (one launch of
-    the stamped solve's block instantiation, n = 36), then one GJ launch
+    the stamped solve's warp instantiation, n = 36), then one GJ launch
     for the 8192 x 21 = 172,032 systems; |V(n16)| = 0.5 at 10 kHz.  Then
-    the GJ kernel against gj_plain on the same systems (in chunks), and
-    torch.linalg.solve on them as the yardstick."""
+    the GJ kernel against gj_plain on the same systems (in chunks), bit
+    for bit on every system, and torch.linalg.solve on them as the
+    yardstick."""
     t0 = time.perf_counter()
     cc, _, params, axes, state0 = setup(lc_ladder(16), c_spread, lanes)
     ap = cc.netlist.ac
@@ -2467,6 +2504,8 @@ def lc16_phase(lanes, smi, chunk=16384):
         err = max(err, max_err("lc16 GJ", [("x", x[i:i + chunk], xp)]))
         bits = bits and same_bits(x[i:i + chunk], xp)
         del xp
+    if not bits:
+        fail("lc16: the GJ kernel's x is not bit-identical to gj_plain's")
     torch.linalg.solve(a2[:1024], b2[:1024])  # warm-up
     _, lib_ms = timed_call(torch.linalg.solve, a2, b2)
     nsys = a2.shape[0]
@@ -2589,20 +2628,19 @@ def main():
     phase("1 device", t0, f"{kind}, {count} device(s), torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ----------------------------------------------------------- 2 build
-    t0 = time.perf_counter()
+    # ----------------------------------------------- 2 build (started)
+    # the libraries build in a thread of their own while phase 3's plain
+    # versions run on the card: those need no library
     fresh = [name for name in _build.SOURCES
              if not _build.library_path(name).exists()]
-    libs = _build.build(extra_flags=("-Xptxas", "-v"))
-    logs = dict(_build.build.log)
-    for name in _build.SOURCES:
-        _build.load(name)
-    phase("2 build", t0, f"built {fresh or 'nothing'} with one nvcc call "
-          "per library, started together: "
-          + ", ".join(p.name for p in libs.values()))
-    for name, text in logs.items():
-        print(f"[2 ptxas] {name}: {'; '.join(ptxas_summary(text))}",
-              flush=True)
+
+    def build():
+        b0 = time.perf_counter()
+        libs = _build.build(extra_flags=("-Xptxas", "-v"))
+        return libs, dict(_build.build.log), time.perf_counter() - b0
+
+    builder = concurrent.futures.ThreadPoolExecutor(1)
+    building = builder.submit(build)
 
     # -------------------------------- 3 run kernel vs plain, linear decks
     def small(keys, pwl=False):
@@ -2635,13 +2673,34 @@ def main():
     lin_err = 0.0
     bench = None
 
+    plains = []
     for name, deck, ov, b, edit in decks:
         t0 = time.perf_counter()
         cc, cfg, params, axes, state0 = setup(deck, ov, b)
         plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
         if edit:
             sc = edit(sc)
-        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
+        plains.append((plan, dev, src, st, sc,
+                       *plain_timed(plan, dev, src, st, sc),
+                       time.perf_counter() - t0))
+
+    # ------------------------------------------------ 2 build (finished)
+    libs, logs, build_s = building.result()
+    builder.shutdown()
+    for name in _build.SOURCES:
+        _build.load(name)
+    print(f"[2 build] built {fresh or 'nothing'} with one nvcc call per "
+          "library, started together, beside phase 3's plain versions: "
+          + ", ".join(p.name for p in libs.values()) + f" ({build_s:.3f} s)",
+          flush=True)
+    for name, text in logs.items():
+        print(f"[2 ptxas] {name}: {'; '.join(ptxas_summary(text))}",
+              flush=True)
+
+    for (name, deck, ov, b, edit), (plan, dev, src, st, sc, p, p_ms,
+                                    p_s) in zip(decks, plains):
+        t0 = time.perf_counter() - p_s  # the plain version's seconds too
+        k, k_ms = run_timed(plan, dev, src, st, sc)
         err = compare_run(name, k, p, exact=True)
         lin_err = max(lin_err, err)
         attempts = int(k.attempts.sum())
@@ -2865,7 +2924,7 @@ def main():
     mag_ac_err = mag_ac_phase(BENCH_LANES)
     mag = mag_main_phase(BENCH_LANES, smi)
     phys_store = physics_store_phase(BENCH_LANES, smi)
-    gj_err = gj_phase(SMALL_LANES)
+    gj_err = gj_phase(GJ_LANES)
     gen_err = general_vs_run_phase(SMALL_LANES)
     stamped_big, gj_seed = cw16_phase(BENCH_LANES, smi)
     gj_ac = lc16_phase(BENCH_LANES, smi)
@@ -3104,7 +3163,7 @@ def main():
               max(gj_err, gj_ac["err"]), gj_seed["k_ms"] + gj_ac["k_ms"],
               gj_seed["p_ms"] + gj_ac["p_ms"], gj_bound,
               gj_seed["lib_ms"] + gj_ac["lib_ms"]),
-        entry("stamped_solve_block",
+        entry("stamped_solve_warp",
               "toyspice_tpu_torch/csrc/stamped_solve.cu",
               "toyspice_tpu/ops/pallas_solve.py:337",
               stamped_big["launches"], max(stamped_big["err"], gen_err),

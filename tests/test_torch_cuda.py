@@ -896,38 +896,48 @@ def _dense_sets(n, lanes, device):
     a[:, 0, :] = 0.0
     a[:, 0, 0] = 1.0
     b[:, 0] = 0.0
-    a[:, 3, 3] = 0.0
-    a[5, 2, :] = 0.0  # singular lane
+    if n > 3:
+        a[:, 3, 3] = 0.0
+    a[5, min(2, n - 1), :] = 0.0  # singular lane
+    a[6, :, min(4, n - 1)] = np.nan  # a NaN lane
     return (torch.as_tensor(a, device=device),
             torch.as_tensor(b, device=device))
 
 
-@pytest.mark.parametrize("n", [6, 32, 40, 72, 128])
+@pytest.mark.parametrize("n", [1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72,
+                               73, 96, 97, 128])
 def test_gj_and_stamped_kernels_match_plain(cuda, n):
-    """csrc/gj_kernel.cu and csrc/stamped_solve.cu (per-thread to 32, one
-    block per lane above) against gj_plain on the same systems: the same
-    bits and the same non-finite lane."""
+    """csrc/gj_kernel.cu at each of its buckets' edges (a row a thread in
+    registers to 96, the matrix in shared memory above) and
+    csrc/stamped_solve.cu (per-thread to 32, a warp a lane to 64, a block
+    a lane above) against gj_plain on the same systems, 259 lanes (no
+    multiple of 32): the same bits, the singular and the NaN lane the only
+    non-finite ones."""
     from toyspice_tpu_torch.ops import solve
 
-    a, b = _dense_sets(n, 130, cuda)
+    lanes = 259
+    a, b = _dense_sets(n, lanes, cuda)
     want = solve.gj_plain(a, b)
     before = solve.launch_gj.launches
     got = solve.linear_solve(a, b)
     assert solve.launch_gj.launches == before + 1
-    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
-    fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
-                                         np.arange(1, n))
-    vals = a[:, 1:, :].reshape(130, -1).contiguous()
-    g = torch.zeros(130, dtype=torch.float64, device=cuda)
-    st = fn(vals, b[:, 1:].contiguous(), g)
-    stp = solve_stamped.solve_plain(fn.pattern, vals, b[:, 1:].contiguous(),
-                                    g)
     bad = ~torch.isfinite(want).all(dim=1)
-    assert bad.tolist() == [i == 5 for i in range(130)]
-    for x in (got, st, stp):
+    assert bad.tolist() == [i in (5, 6) for i in range(lanes)]
+    outs = [got]
+    if n > 1:  # the stamped solve's row 0 is the ground row it builds
+        rows, cols = np.meshgrid(np.arange(1, n), np.arange(n),
+                                 indexing="ij")
+        fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                             np.arange(1, n))
+        vals = a[:, 1:, :].reshape(lanes, -1).contiguous()
+        g = torch.zeros(lanes, dtype=torch.float64, device=cuda)
+        outs.append(fn(vals, b[:, 1:].contiguous(), g))
+        outs.append(solve_stamped.solve_plain(fn.pattern, vals,
+                                              b[:, 1:].contiguous(), g))
+    for x in outs:
         assert torch.equal(~torch.isfinite(x).all(dim=1), bad)
-        torch.testing.assert_close(x[~bad], want[~bad], rtol=1e-9,
-                                   atol=1e-12)
+        assert torch.equal(x[~bad], want[~bad])
+        assert bool(torch.isnan(x[bad]).all())
 
 
 @pytest.mark.parametrize("n", [33, 35, 48, 49, 64, 65, 128])

@@ -8,7 +8,10 @@ mode (double-float, the 1e-9 bar of tests/test_pallas_solve.py).
 
 The sets: well-conditioned random systems with a structural zero on a
 diagonal (pivoting needed), a lane with an all-zero row (singular: a zero
-pivot poisons its row), B = 130 (not a multiple of 128), n in {6, 40, 72}.
+pivot poisons its row), B = 130 (not a multiple of 128), n in {6, 40, 72}
+and the GJ kernel's bucket edges (csrc/gj_block.cuh gj_bucket: 1, 16, 17,
+32, 33, 48, 49, 64, 65, 72, 73, 96; 97 and 128 take its shared-memory
+body).
 The Pallas kernel runs at n = 6 only: its interpret mode unrolls every
 column into the traced program and took 344 s at n = 40 on one CPU core.
 
@@ -40,8 +43,9 @@ def systems(n, seed=0):
     rng = np.random.default_rng(seed + n)
     a = rng.normal(size=(LANES, n, n)) + 4.0 * np.eye(n)
     b = rng.normal(size=(LANES, n))
-    a[:, 3, 3] = 0.0  # a branch-row style zero on the diagonal
-    a[SINGULAR, 2, :] = 0.0
+    if n > 3:
+        a[:, 3, 3] = 0.0  # a branch-row style zero on the diagonal
+    a[SINGULAR, min(2, n - 1), :] = 0.0
     return a, b
 
 
@@ -59,7 +63,8 @@ def assert_close(x, want, rtol):
                                atol=rtol * np.abs(want[ok]).max())
 
 
-@pytest.mark.parametrize("n", [6, 40, 72])
+@pytest.mark.parametrize("n", [1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65,
+                               72, 73, 96, 97, 128])
 def test_gj_plain_matches_jax_solve(n):
     a, b = systems(n)
     want = np.asarray(_solve_batched(jnp.asarray(a), jnp.asarray(b)))

@@ -1,33 +1,54 @@
-// Block-cooperative Gauss-Jordan of one augmented (n, n+1) f64 system in
-// shared memory: the elimination of csrc/gj_kernel.cu (one dense system
-// per block) and of csrc/stamped_solve.cu's systems past n = 64 (one
-// lane's stamped system per block).  The stamped solve's systems of 33 to
-// 64 and the AC kernel's run on gj_warp.cuh (a warp a system).
+// Block-cooperative Gauss-Jordan of one augmented (n, n+1) f64 system: the
+// elimination of csrc/gj_kernel.cu (one dense system per block) and of
+// csrc/stamped_solve.cu's systems past n = 64 (one lane's stamped system
+// per block).  The stamped solve's systems of 33 to 64 and the AC kernel's
+// run on gj_warp.cuh (a warp a system).
 //
 // The counterpart of toyspice_tpu/ops/pallas_solve.py::_gj_eliminate and
 // ops/solve.py::_gj_batch_last, which carry double-float (hi, lo) f32
 // pairs folded to (8, W) tiles and pick pivot rows by one-hot sums because
 // the TPU has no f64; here the values are native f64 and the pivot row is
-// indexed.  For each column k:
+// indexed.  Two bodies, one arithmetic:
 //
-//   1. warp 0 finds the pivot: the largest |m[i][k]| over the unused rows,
-//      the lowest row on a tie; a NaN there makes every x NaN;
-//   2. the pivot row is divided by the pivot (a division per element, as
-//      newton.cuh's gauss_jordan does), or, for a zero pivot, becomes the
-//      poison row (1 at column k, inf elsewhere: x goes non-finite,
-//      pallas_solve.py:17-20); the factors m[i][k] of the other rows go to
-//      a shared vector before any of those rows changes;
-//   3. every other element is updated as m[i][j] - f[i] * p[j], a warp per
-//      row, its lanes over the columns.
+// gj_rows (n <= GJ_NREG = 96): the rows in registers across a block of
+// ceil(NMAX / 32) warps, row i on thread i, in a size bucket of NMAX
+// slots (gj_bucket).  As in gj_warp.cuh's gj_warp_reg, slot c holds
+// column k + c at column k (each update writes its result one slot to the
+// left), so column k is always slot 0, the column loop stays rolled and
+// the dead columns before k fall away.  For each column k:
 //
-// Each element sees the operations of newton.cuh's per-thread
-// gauss_jordan in the same order (built with -fmad=false), so the kernels
-// and ops/newton.py::gauss_jordan give the same bits; a system with a
-// non-finite x gets NaN in every x, as there.
+//   1. each warp has its candidate (warp_candidate: the largest |m[i][k]|
+//      over its unused rows, the lowest row on a tie, and a vote on a NaN
+//      there); one block barrier; every thread keeps the largest
+//      candidate, the lowest warp (so the lowest row) on a tie:
+//      newton.cuh's pivot rule.  A NaN there, or no candidate, makes every
+//      x NaN (the whole block leaves the loop);
+//   2. the pivot row's thread puts it in shared memory; a block barrier;
+//      thread t - 1 divides relative column t by the pivot (a division
+//      per element, as newton.cuh's gauss_jordan does; a zero pivot leaves
+//      the poison row, inf past column k); a block barrier;
+//   3. every thread updates its row as m[i][j] - f * p[j] over the live
+//      columns from the quotients, f = m[i][k] read before; the pivot row
+//      takes the quotients.  After the first eight slots each warp takes
+//      its candidate for column k + 1, whose reductions overlap the rest.
 //
-// Shared memory: the matrix (n rows of stride n + 1) and, after it, the n
-// factors (doubles), the n pivot rows and the n used flags (ints):
-// gj_shared_bytes(n).
+// Three block barriers a column, and no work done twice: in a design with
+// one barrier every warp stored and divided its own candidate row before
+// it, and lc16_ac_8192's 172,032 systems of 72 took 37.0 ms against 30.7
+// (ab_run_kernel.py --gj on an NVIDIA H100 80GB HBM3 at 700 W).  A zero
+// numerator's quotient skips the division (gj_quot): the general AC's
+// systems are ~95% zeros.
+//
+// gj_block (n past GJ_NREG, whose rows do not fit 255 registers): the
+// matrix in shared memory (gj_shared_bytes(n)), a block of GJ_THREADS;
+// warp 0 finds the pivot, the pivot row is divided and the factors saved,
+// then every element is updated, dead columns included, a warp a row;
+// three block barriers a column.
+//
+// Each element that reaches x sees the operations of newton.cuh's
+// per-thread gauss_jordan in the same order (built with -fmad=false), so
+// both bodies and ops/newton.py::gauss_jordan give the same bits; a
+// system with a non-finite x gets NaN in every x, as there.
 
 #pragma once
 
@@ -36,16 +57,191 @@
 
 namespace tsr {
 
-constexpr int GJ_THREADS = 128;  // threads per system
+constexpr int GJ_THREADS = 128;  // threads of the shared-memory body
 constexpr int NBIG = 128;        // ops/solve.py NBIG: the largest system
+constexpr int GJ_NREG = 96;      // the largest n with the rows in registers
+
+// the slots a row of the register body takes for a system of n (a
+// multiple of 8; 0 past GJ_NREG: the shared-memory body)
+__host__ __device__ constexpr int gj_bucket(int n) {
+  return n <= 16 ? 16 : n <= 32 ? 32 : n <= 48 ? 48 : n <= 64 ? 64
+       : n <= 72 ? 72 : n <= GJ_NREG ? 96 : 0;
+}
+
+// x / piv as the division rounds it (piv neither 0 nor NaN), a zero x's
+// signed zero without the division: the f64 division's instruction
+// sequence takes its slow path for a zero quotient (327 cycles a
+// dependent step against 126, probe_latency.py on an H100), and most of a
+// sparse system's pivot row is zeros
+__device__ __forceinline__ double gj_quot(double x, double piv) {
+  if (x == 0.0)
+    return __longlong_as_double(
+        (__double_as_longlong(x) ^ __double_as_longlong(piv))
+        & static_cast<long long>(0x8000000000000000ull));
+  return x / piv;
+}
+
+// the threads of the register body's block: a row a thread
+__host__ __device__ constexpr int gj_reg_threads(int nmax) {
+  return (nmax + 31) / 32 * 32;
+}
+
+// the blocks an SM should hold (__launch_bounds__): the bucket of 72 at
+// 4 (at most 168 registers), not 3 (206 registers unbounded): each column
+// is a chain of dependent steps, which more systems an SM overlap; the
+// bucket of 96 keeps its 254 registers (2 blocks), since at 3 blocks it
+// spills 764 bytes a thread and takes 40% longer
+__host__ __device__ constexpr int gj_min_blocks(int nmax) {
+  return nmax == 72 ? 4 : 1;
+}
+
+// A warp's pivot candidate: the largest |a| over the lanes with `cand`,
+// the lowest row on a tie (three warp reductions over the two words of
+// |a|, which order a non-negative double as its value does), as {its
+// bits' low and high word, its row or -1, whether a candidate |a| is NaN}
+__device__ __forceinline__ int4 warp_candidate(double a, bool cand, int i) {
+  const bool ok = cand && a >= 0.0;  // a NaN is no candidate
+  const unsigned long long bits =
+      ok ? static_cast<unsigned long long>(__double_as_longlong(a)) : 0ull;
+  const unsigned hi = static_cast<unsigned>(bits >> 32);
+  const unsigned lo = static_cast<unsigned>(bits);
+  const unsigned mh = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned ml = __reduce_max_sync(0xffffffffu, hi == mh ? lo : 0u);
+  const int mine = ok && hi == mh && lo == ml ? i : 0x7fffffff;
+  const int pw = static_cast<int>(__reduce_min_sync(0xffffffffu, mine));
+  const int nan = __any_sync(0xffffffffu, cand && isnan(a)) != 0;
+  return make_int4(static_cast<int>(ml), static_cast<int>(mh),
+                   pw == 0x7fffffff ? -1 : pw, nan);
+}
+
+// Eliminate the system whose row threadIdx.x is m (slots as above, the
+// right-hand side in slot NMAX; zeros on the threads past n) with the
+// whole block of gj_reg_threads(NMAX) threads, and write x[0..n) to x_out.
+template <int NMAX>
+__device__ __forceinline__ void gj_rows(double (&m)[NMAX + 1], int n,
+                                        double* __restrict__ x_out) {
+  static_assert(NMAX % 8 == 0, "the update goes in groups of eight slots");
+  constexpr int NW = gj_reg_threads(NMAX) / 32;
+  // per column parity: the pivot row (its quotient of relative column c
+  // in [c - 1], of the right-hand side in [NMAX], its pivot in
+  // [NMAX + 1]) and each warp's candidate (warp_candidate).  The barriers
+  // would allow one of each, but with one the kernel took 20% longer on
+  // lc16_ac_8192 (more spills in the column loop)
+  __shared__ __align__(16) double s_q[2][NMAX + 2];
+  __shared__ int4 s_cand[2][NW];
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const bool row = i < n;
+  int stage = -1;  // the column this row was the pivot of
+  bool nan_col = false;
+  int4 wc = warp_candidate(fabs(m[0]), row, i);  // column 0's
+  for (int k = 0; k < n; ++k) {
+    const int live = n - k;  // columns k..n-1 in slots 0..live-1
+    double* q = s_q[k & 1];
+    const double2* q2 = reinterpret_cast<const double2*>(q);
+    int4* cand = s_cand[k & 1];
+    // 1. the block's pivot: the largest warp candidate, the lowest warp
+    // (so the lowest row) on a tie
+    if (lane == 0) cand[warp] = wc;
+    __syncthreads();
+    int4 c[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) c[w] = cand[w];
+    unsigned long long best = 0ull;
+    int p = -1;
+    bool nan = false;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const unsigned long long bk =
+          (static_cast<unsigned long long>(static_cast<unsigned>(c[w].y))
+           << 32) | static_cast<unsigned>(c[w].x);
+      nan = nan || c[w].w != 0;
+      if (c[w].z >= 0 && (p < 0 || bk > best)) {
+        best = bk;
+        p = c[w].z;
+      }
+    }
+    if (nan || p < 0) {  // the same on every thread
+      nan_col = true;
+      break;
+    }
+    // 2. the pivot row to shared memory (columns c, c + 1 to [c - 1], [c];
+    // slot NMAX - 1's partner, the right-hand side, into the unused
+    // [NMAX - 1]), then its quotients, thread t - 1 dividing relative
+    // column t (a zero pivot leaves the poison row, inf past column k)
+    if (i == p) {
+      double2* out2 = reinterpret_cast<double2*>(q);
+#pragma unroll
+      for (int c0 = 1; c0 < NMAX; c0 += 4) {
+        if (c0 >= live) break;
+#pragma unroll
+        for (int c = c0; c < c0 + 4; c += 2)
+          out2[(c - 1) / 2] = make_double2(m[c], m[c + 1]);
+      }
+      q[NMAX] = m[NMAX];
+      q[NMAX + 1] = m[0];
+    }
+    __syncthreads();
+    if (i + 1 <= live) {
+      const int e = i + 1 < live ? i : NMAX;
+      const double piv = q[NMAX + 1];
+      q[e] = piv == 0.0 ? INFINITY : gj_quot(q[e], piv);
+    }
+    __syncthreads();
+    // 3. the update: slot c takes column c + 1 (quotient q[c]), in groups
+    // of eight slots, the slots past the live ones computing values
+    // nothing reads; column k + 1's warp candidates are taken after the
+    // first group, so that their reductions overlap the rest
+    const double f = m[0];
+    if (i == p) stage = k;
+#pragma unroll
+    for (int c0 = 0; c0 < NMAX; c0 += 8) {
+      if (c0 + 1 < live) {  // a group's quotients loaded first
+        double2 v[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) v[h] = q2[c0 / 2 + h];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int c = c0 + 2 * h;
+          if (c + 1 < NMAX) m[c] = m[c + 1] - f * v[h].x;
+          if (c + 2 < NMAX) m[c + 1] = m[c + 2] - f * v[h].y;
+        }
+      }
+      if (c0 == 0) wc = warp_candidate(fabs(m[0]), row && stage < 0, i);
+    }
+    const double qr = q[NMAX];
+    m[NMAX] = m[NMAX] - f * qr;
+    if (i == p) {  // the pivot row takes the quotients
+#pragma unroll
+      for (int c0 = 0; c0 < NMAX; c0 += 4) {
+        if (c0 + 1 < live) {
+#pragma unroll
+          for (int c = c0; c < c0 + 4; c += 2) {
+            const double2 v = q2[c / 2];
+            if (c + 1 < NMAX) m[c] = v.x;
+            if (c + 2 < NMAX) m[c + 1] = v.y;
+          }
+        }
+      }
+      m[NMAX] = qr;
+    }
+  }
+  // x: each row's right-hand side at the column it was the pivot of; one
+  // non-finite x makes every x NaN, as the JAX package's one-hot gather
+  // does
+  const bool bad = __syncthreads_or(nan_col || (row && !isfinite(m[NMAX])));
+  if (row) x_out[nan_col ? i : stage] = bad ? NAN : m[NMAX];
+}
 
 __host__ __device__ inline size_t gj_shared_bytes(int n) {
   return ((size_t)n * (n + 1) + n) * sizeof(double) + 2 * (size_t)n * sizeof(int);
 }
 
-// Eliminate the system in m (shared memory laid out as above) with the
-// whole block and write x[0..n) to x_out.  Every thread of the block must
-// call it.
+// The shared-memory body: eliminate the system in m (n rows of stride
+// n + 1, then the n factors (doubles), the n pivot rows and the n used
+// flags (ints): gj_shared_bytes(n)) with the whole block and write
+// x[0..n) to x_out.  Every thread of the block must call it.
 __device__ inline void gj_block(double* m, int n, double* x_out) {
   const int ld = n + 1;
   double* fac = m + (size_t)n * ld;
@@ -99,7 +295,7 @@ __device__ inline void gj_block(double* m, int n, double* x_out) {
     const double piv = s_piv;
     double* prow = m + p * ld;
     for (int j = tid; j <= n; j += blockDim.x)
-      prow[j] = piv == 0.0 ? (j == k ? 1.0 : INFINITY) : prow[j] / piv;
+      prow[j] = piv == 0.0 ? (j == k ? 1.0 : INFINITY) : gj_quot(prow[j], piv);
     for (int i = tid; i < n; i += blockDim.x)
       if (i != p) fac[i] = m[i * ld + k];
     if (tid == 0) {

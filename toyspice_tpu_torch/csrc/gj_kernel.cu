@@ -1,17 +1,18 @@
 // Batched dense Gauss-Jordan with partial pivoting: x = a^-1 b for every
-// system of a (B, n, n) and b (B, n) f64 pair, one thread block of 128
-// threads per system.
+// system of a (B, n, n) and b (B, n) f64 pair, one thread block per
+// system: to n = 96 a row a thread in registers, past it the matrix in
+// shared memory.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_solve.py::_gj_kernel
 // (launched at pallas_solve.py:297 by pallas_solve_batched, the batching
 // rule of ops/solve.py::linear_solve): the general engine's dense solves,
 // the OP's linear-devices-only initial estimate (engine/op.py:48-59) and
 // the general AC's (2np1, 2np1) system per (instance, frequency)
-// (engine/ac.py:127-141).  Per system the block copies [a | b] into shared
-// memory and runs gj_block.cuh's elimination: the largest |pivot| among
-// the unused rows, the lowest row on a tie, a zero pivot's poison row and
-// a NaN pivot column's all-NaN x, with the operations of newton.cuh's
-// per-thread gauss_jordan and of ops/solve.py::gj_plain in the same order.
+// (engine/ac.py:127-141).  Per system the block runs gj_block.cuh's
+// elimination: the largest |pivot| among the unused rows, the lowest row
+// on a tie, a zero pivot's poison row and a NaN pivot column's all-NaN x,
+// with the operations of newton.cuh's per-thread gauss_jordan and of
+// ops/solve.py::gj_plain in the same order.
 //
 // The TPU kernel's double-float (hi, lo) f32 pairs, its batch-last (n, n,
 // 8, W) folding and its one-hot pivot contractions exist because the TPU
@@ -19,11 +20,21 @@
 //
 // Bound: bytes.  Each system reads n^2 + n values and writes n: 6.0 f64
 // operations per byte at n = 72 (chip_smoke.py lu_flops), below the
-// card's 10 (34 TFLOP/s of f64 over 3.35 TB/s).  The
-// design is the simple one: one block per system, the matrix in shared
-// memory (41 KB at n = 72, 132 KB at n = 128, so 1-5 blocks per SM) and
-// three block barriers per column; several systems per block, register
-// tiles and cp.async loads are later work.
+// card's 10 (34 TFLOP/s of f64 over 3.35 TB/s).  The first port (one
+// block of 128 threads, the matrix in shared memory, three block barriers
+// a column, every element of every row updated, dead columns included)
+// took 86 ms on lc16_ac_8192's 172,032 systems of 72, 39x that bound.
+// gj_kernel<NMAX> keeps row i on thread i in registers (gj_block.cuh
+// gj_rows: the dead columns fall away, the pivot row alone goes through
+// shared memory, a division a thread) and takes ~30 ms there
+// (ab_run_kernel.py --gj, an NVIDIA H100 80GB HBM3 at 700 W): what bounds
+// it is each column's chain of dependent steps (warp reductions, three
+// block barriers, a division of ~130 cycles by probe_latency.py, the
+// update) at 4 systems an SM, not bytes or f64 operations.  Each thread
+// reads its own row from device memory: staging a system through shared
+// memory with coalesced loads first took 20% longer in an earlier form
+// of the kernel (82 ms against 68).  gj_kernel<0>, the shared-memory
+// body, takes n = 97 to NBIG, whose rows would not fit 255 registers.
 
 #include "gj_block.cuh"
 
@@ -31,21 +42,55 @@ namespace {
 
 using namespace tsr;
 
-__global__ void __launch_bounds__(GJ_THREADS)
+// NMAX slots a row in registers (gj_rows), or 0: the shared-memory body
+template <int NMAX>
+__global__ void __launch_bounds__(NMAX ? gj_reg_threads(NMAX) : GJ_THREADS,
+                                  gj_min_blocks(NMAX))
 gj_kernel(int n, const double* __restrict__ a, const double* __restrict__ b,
           double* __restrict__ x) {
-  extern __shared__ double m[];
   const size_t sys = blockIdx.x;
-  const int ld = n + 1;
-  const double* as = a + sys * n * n;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n;
-    m[i * ld + (e - i * n)] = as[e];
+  if constexpr (NMAX == 0) {
+    extern __shared__ double t[];
+    const int ld = n + 1;
+    const double* as = a + sys * n * n;
+    for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+      const int i = e / n;
+      t[i * ld + (e - i * n)] = as[e];
+    }
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      t[i * ld + n] = b[sys * n + i];
+    __syncthreads();
+    gj_block(t, n, x + sys * n);
+  } else {
+    const int i = threadIdx.x;
+    const bool row = i < n;
+    const double* ar = a + (sys * n + (row ? i : 0)) * n;
+    double m[NMAX + 1];
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) m[j] = row && j < n ? ar[j] : 0.0;
+    m[NMAX] = row ? b[sys * n + i] : 0.0;
+    gj_rows<NMAX>(m, n, x + sys * n);
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    m[i * ld + n] = b[sys * n + i];
-  __syncthreads();
-  gj_block(m, n, x + sys * n);
+}
+
+template <int NMAX>
+cudaError_t launch(int n, const double* a, const double* b, double* x,
+                   long long nsys, cudaStream_t stream) {
+  size_t shmem = 0;
+  int threads = gj_reg_threads(NMAX);
+  if constexpr (NMAX == 0) {
+    shmem = gj_shared_bytes(n);
+    threads = GJ_THREADS;
+    if (shmem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          gj_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shmem));
+      if (err != cudaSuccess) return err;
+    }
+  }
+  gj_kernel<NMAX><<<static_cast<unsigned>(nsys), threads, shmem, stream>>>(
+      n, a, b, x);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -57,16 +102,18 @@ extern "C" int tsr_gj(int n, const double* a, const double* b, double* x,
   if (nsys <= 0) return 0;
   if (n < 1 || n > NBIG || nsys > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = gj_shared_bytes(n);
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (gj_bucket(n)) {
+    case 16: err = launch<16>(n, a, b, x, nsys, s); break;
+    case 32: err = launch<32>(n, a, b, x, nsys, s); break;
+    case 48: err = launch<48>(n, a, b, x, nsys, s); break;
+    case 64: err = launch<64>(n, a, b, x, nsys, s); break;
+    case 72: err = launch<72>(n, a, b, x, nsys, s); break;
+    case 96: err = launch<96>(n, a, b, x, nsys, s); break;
+    default: err = launch<0>(n, a, b, x, nsys, s); break;
   }
-  gj_kernel<<<static_cast<unsigned>(nsys), GJ_THREADS, shmem,
-              static_cast<cudaStream_t>(stream)>>>(n, a, b, x);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" const char* tsr_error_string(int err) {

@@ -42,8 +42,11 @@
 // and runs gj_warp.cuh's elimination: the rows in registers, two a lane,
 // for n <= 48 (four systems a block); in the warp's slice of shared
 // memory (odd stride) for n <= 64 (two a block).  Past 64,
-// stamped_block_kernel gives each lane a block of GJ_THREADS threads on
-// gj_block.cuh (a shared-memory matrix, three block barriers a column).
+// stamped_block_kernel gives each lane a block: it builds the system in
+// shared memory as above, a block's threads over the cells, then runs
+// gj_kernel.cu's elimination (gj_block.cuh): to n = 96 (GJ_NREG) row i
+// goes to thread i's registers (gj_rows, three warps), past it the
+// shared-memory body (gj_block, GJ_THREADS threads).
 //
 // At n = 35 (cw16, 8192 systems; ab_run_kernel.py --stamped on an H100
 // 80GB HBM3 at 700 W) the block kernel took 0.73 ms a launch through the
@@ -243,7 +246,11 @@ cudaError_t launch_warp(const int* tab, int tab_len, int n, int nnz,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(GJ_THREADS)
+// NMAX slots a row in registers (gj_block.cuh's gj_rows), or 0: the
+// shared-memory body (gj_block)
+template <int NMAX>
+__global__ void __launch_bounds__(NMAX ? gj_reg_threads(NMAX) : GJ_THREADS,
+                                  gj_min_blocks(NMAX))
 stamped_block_kernel(const int* __restrict__ tab, int n, int nnz, int nrhs,
                      const double* __restrict__ vals,
                      const double* __restrict__ rvals,
@@ -278,22 +285,36 @@ stamped_block_kernel(const int* __restrict__ tab, int n, int nnz, int nrhs,
   for (int r = 1 + threadIdx.x; r < n; r += blockDim.x)
     m[r * ld + r] = m[r * ld + r] + g;
   __syncthreads();
-  gj_block(m, n, x_out + lane * n);
+  if constexpr (NMAX == 0) {
+    gj_block(m, n, x_out + lane * n);
+  } else {  // thread i takes row i
+    const int i = threadIdx.x;
+    const bool mine = i < n;
+    const double* mr = m + (mine ? i : 0) * ld;
+    double r[NMAX + 1];
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) r[j] = mine && j < n ? mr[j] : 0.0;
+    r[NMAX] = mine ? mr[n] : 0.0;
+    gj_rows<NMAX>(r, n, x_out + lane * n);
+  }
 }
 
+template <int NMAX>
 cudaError_t launch_block(const int* tab, int n, int nnz, int nrhs,
                          const double* vals, const double* rvals,
                          const double* gmin, double* x, int nlanes,
                          cudaStream_t stream) {
-  const size_t shmem = gj_shared_bytes(n);
+  const size_t shmem = NMAX ? (size_t)n * (n + 1) * sizeof(double)
+                            : gj_shared_bytes(n);
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stamped_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
+        stamped_block_kernel<NMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
     if (err != cudaSuccess) return err;
   }
-  stamped_block_kernel<<<nlanes, GJ_THREADS, shmem, stream>>>(
-      tab, n, nnz, nrhs, vals, rvals, gmin, x);
+  stamped_block_kernel<NMAX>
+      <<<nlanes, NMAX ? gj_reg_threads(NMAX) : GJ_THREADS, shmem, stream>>>(
+          tab, n, nnz, nrhs, vals, rvals, gmin, x);
   return cudaGetLastError();
 }
 
@@ -324,9 +345,18 @@ extern "C" int tsr_stamped(int n, const int* tab, int tab_len, int nnz,
   if (n <= 64)
     return launch_warp<false>(tab, tab_len, n, nnz, nrhs, vals, rvals,
                               gmin, x, nlanes, s);
-  if (n <= NBIG)
-    return launch_block(tab, n, nnz, nrhs, vals, rvals, gmin, x, nlanes, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (n > NBIG) return static_cast<int>(cudaErrorInvalidValue);
+  switch (gj_bucket(n)) {  // past 64 the GJ kernel's buckets: 72, 96, 0
+    case 72:
+      return launch_block<72>(tab, n, nnz, nrhs, vals, rvals, gmin, x,
+                              nlanes, s);
+    case 96:
+      return launch_block<96>(tab, n, nnz, nrhs, vals, rvals, gmin, x,
+                              nlanes, s);
+    default:
+      return launch_block<0>(tab, n, nnz, nrhs, vals, rvals, gmin, x,
+                             nlanes, s);
+  }
 }
 
 extern "C" const char* tsr_error_string(int err) {

@@ -9,13 +9,13 @@ built twice: without and, with ``-DTSR_STORE``, with the waveform store;
 ``csrc/stamped_solve.cu``, all on ``csrc/newton.cuh``;
 ``csrc/ac_kernel.cu``, and the stamped solve's systems of 33 to 64, on
 ``csrc/gj_warp.cuh``; ``csrc/gj_kernel.cu``, and the stamped solve's
-larger systems, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a shared library with a
-plain C entry point (no PyTorch headers, so a build takes seconds); the
-calls for every missing library start together.  A library
-goes to ``toyspice_tpu_torch/_build/``, named by a hash of its source, the
-shared header and the flags, so an edited source builds anew and an
-unchanged one loads.  A missing ``nvcc`` or a failed build raises: there is
-no fallback.
+systems past 64, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a
+shared library with a plain C entry point (no PyTorch headers, so a build
+takes seconds); the calls for every missing library start together.  A
+library goes to ``toyspice_tpu_torch/_build/``, named by a hash of its
+source, the shared header and the flags, so an edited source builds anew
+and an unchanged one loads.  A missing ``nvcc`` or a failed build raises:
+there is no fallback.
 """
 
 import ctypes

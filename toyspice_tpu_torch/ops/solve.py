@@ -11,8 +11,10 @@ zero pivot poisons its row, so a singular system gives a non-finite x
 (solve.py:17-23), and then, as after a NaN in a pivot column, every x of
 the system is NaN (as the JAX package's one-hot gather gives).
 
-* ``launch_gj``: the wrapper of ``csrc/gj_kernel.cu`` (one block of 128
-  threads per system, the matrix in shared memory, f64); it counts its
+* ``launch_gj``: the wrapper of ``csrc/gj_kernel.cu`` (one block per
+  system, f64: up to n = 96 row i on thread i in registers, the dead
+  columns dropped, the pivot row alone through shared memory, a division
+  a thread; up to NBIG the matrix in shared memory); it counts its
   launches in ``.launches``.
 * ``gj_plain``: the same arithmetic as batched torch operations
   (``ops/newton.py::gauss_jordan``).
@@ -26,7 +28,7 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 
 F64 = torch.float64
-NBIG = 128  # csrc/gj_block.cuh: the largest system a block eliminates
+NBIG = 128  # csrc/gj_block.cuh: the largest system the kernel eliminates
 
 
 def _check(a, b):

@@ -17,8 +17,9 @@ pivot poisons its row, so a singular system gives an x of NaN).
 * ``launch_stamped``: the wrapper of ``csrc/stamped_solve.cu`` (one thread
   per lane up to n = 32, the term table in shared memory; one warp per
   lane up to n = 64, the rows in registers or in the warp's shared memory;
-  one block per lane up to NBIG, the system in shared memory; f64); it
-  counts its launches in ``.launches``.
+  one block per lane up to NBIG, the system built in shared memory and
+  eliminated as the GJ kernel does, the rows in registers to n = 96;
+  f64); it counts its launches in ``.launches``.
 * ``solve_plain``: the same arithmetic as batched torch operations.
 * ``solve_lanes``: the kernel for CUDA tensors, the plain version for CPU
   tensors.
