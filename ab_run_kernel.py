@@ -10,7 +10,15 @@ path), with ``--rectifier`` on
 the 8192-lane half-wave rectifier (its Newton instantiation, warm-started
 from the OP kernel), or with ``--physics`` on that rectifier under physics
 semantics and the trapezoidal rule (the PHYS Newton instantiation, from
-the physics OP's bias point: chip_smoke.py's physics main path), for
+the physics OP's bias point: chip_smoke.py's physics main path), with
+``--nlstore`` on that rectifier through the store instantiation,
+``store='full'``, compat and physics/trap (one launch each into zeroed
+buffers: chip_smoke.py's store and physics store main paths), or with
+``--lmdiode`` on LM_DIODE (chip_smoke.py's two-winding J-A transformer
+with a rectifier on its secondary), 256 lanes, compat and physics/trap
+(the magnetic Newton instantiations: chip_smoke.py phase 23), or with
+``--rc`` on an 8192-lane RC low-pass (a linear deck of np1 = 4, the
+smallest size bucket), for
 several checkouts of the port, in turns, on one CUDA card.  With ``--opdc``
 it times the OP kernel's first launch on that rectifier (plain Newton from
 the linear estimate), compat and physics, and the DC sweep kernel on
@@ -37,11 +45,14 @@ bench.py's deck only beside another run flag.
     python3 ab_run_kernel.py --ac --stamped _parent . . _parent
     python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
     python3 ab_run_kernel.py --physics --reps 10 . .
+    python3 ab_run_kernel.py --rectifier --physics --nlstore --lmdiode \
+        _parent . . _parent
     python3 ab_run_kernel.py --opdc --reps 10 _parent . . _parent
 
-``--store``, ``--magphys`` and ``--rectifier`` may be given together: each
-checkout then times each of the named runs in turn (bench.py's deck
-through the run kernel first unless ``--rectifier`` is alone).
+The run flags may be given together: each checkout then times each of
+the named runs in turn (bench.py's deck through the run kernel first
+when ``--store``, ``--magphys`` or ``--rc`` is given, or no run flag at
+all).
 
 Each argument is a directory holding a ``toyspice_tpu_torch`` package (for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -68,6 +79,12 @@ R1 1 2 100
 L1 2 3 1m
 C1 3 0 1u
 """
+RC = """* RC low-pass
+.tran 0.01m 2ms
+Vin 1 0 SIN(0 5 1k)
+R1 1 2 1k
+C1 2 0 1u
+"""
 
 
 def deck_text(root, name):
@@ -79,14 +96,14 @@ def rectifier_deck(root):
     return deck_text(root, "half_wave_rectifier.cir")
 
 
-def spread_params(ts, cc, keys=("R", "L", "C")):
+def spread_params(ts, cc, keys=("R", "L", "C"), lanes=LANES):
     """bench.py's perturbation: each of ``keys`` in turn, log-normal by
     0.1 from one seed."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     ov = {k: {"value": np.asarray(cc.params[k]["value"])[None] * np.exp(
-        rng.normal(0, 0.1, (LANES, len(cc.params[k]["value"]))))}
+        rng.normal(0, 0.1, (lanes, len(cc.params[k]["value"]))))}
         for k in keys if k in cc.params}
     return ts.batch_params(cc, ov)
 
@@ -360,19 +377,80 @@ def print_ptxas(root, _build, names):
                           flush=True)
 
 
+def nlstore_case(root, ts, run, reps):
+    """The rectifier's store='full' launch, compat and physics/trap, each
+    from its OP's junction voltages into zeroed buffers."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cc = ts.compile_circuit(ts.parse(rectifier_deck(here)))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = spread_params(ts, cc)
+    for semantics, opts in (("compat", ts.SimOptions()),
+                            ("physics", ts.SimOptions(integration="trap"))):
+        plan, dev, src, st, sc, jv0, *_ = run.run_inputs(
+            cc, cfg, params, ts.init_state(cc), opts, semantics)
+        keep = run.Store(cfg.tstart, cfg.max_store)
+        m = cfg.max_store
+        buf = run.Waveforms(
+            torch.zeros((LANES, m, plan.np1), dtype=torch.float64,
+                        device="cuda"),
+            torch.zeros((LANES, m), dtype=torch.float64, device="cuda"),
+            None, None)
+        (k, kw), ms = event_ms(lambda: run.launch_store_kernel(
+            plan, dev, src, st, sc, keep, jv0, out=buf), reps)
+        print(f"{root}: Newton store (half_wave_rectifier, {semantics}, "
+              f"{LANES} lanes, {m} rows a lane): attempts "
+              f"{int(k.attempts.sum())}, Newton iterations "
+              f"{int(k.nr_iters.sum())}, rows {int(kw.out_n.sum())}, kernel "
+              f"ms {ms}", flush=True)
+        del buf, kw
+        torch.cuda.empty_cache()
+
+
+def lmdiode_case(root, ts, run, reps, lanes=256):
+    """LM_DIODE's run-kernel launch, compat and physics/trap, 256 lanes, R
+    and C spread, from the OP's bias point (the magnetic Newton
+    instantiations)."""
+    from chip_smoke import LM_DIODE
+
+    cc = ts.compile_circuit(ts.parse(LM_DIODE))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = spread_params(ts, cc, ("R", "C"), lanes)
+    for semantics, opts in (("compat", ts.SimOptions()),
+                            ("physics", ts.SimOptions(integration="trap"))):
+        plan, dev, src, st, sc, jv0, *_ = run.run_inputs(
+            cc, cfg, params, ts.init_state(cc), opts, semantics)
+        k, ms = event_ms(lambda: run.launch_run_kernel(
+            plan, dev, src, st, sc, jv0), reps)
+        print(f"{root}: lm_diode ({semantics}, {lanes} lanes): attempts "
+              f"{int(k.attempts.sum())}, Newton iterations "
+              f"{int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
+
+
 def run_case(root, ts, run, run_plan, mode, reps):
     """Time one run of the kernel: ``mode`` "rlc" (bench.py's deck),
     "store" (the same deck through the store instantiation, one launch
     into zeroed buffers), "rectifier" (the Newton instantiation from the
-    OP's junction voltages), "physics" (that rectifier under physics/trap)
-    or "magphys" (the saturating transformer under physics/trap)."""
+    OP's junction voltages), "physics" (that rectifier under physics/trap),
+    "magphys" (the saturating transformer under physics/trap), "rc" (RC,
+    linear, np1 = 4), "nlstore" (nlstore_case) or "lmdiode"
+    (lmdiode_case)."""
     import torch
 
+    if mode == "nlstore":
+        return nlstore_case(root, ts, run, reps)
+    if mode == "lmdiode":
+        return lmdiode_case(root, ts, run, reps)
     here = os.path.dirname(os.path.abspath(__file__))
     if mode in ("rectifier", "physics"):
         deck, keys = rectifier_deck(here), ("R", "L", "C")
     elif mode == "magphys":
         deck, keys = deck_text(here, "saturating_transformer.cir"), ("R",)
+    elif mode == "rc":
+        deck, keys = RC, ("R", "C")
     else:
         deck, keys = RLC, ("R", "L", "C")
     cc = ts.compile_circuit(ts.parse(deck))
@@ -422,7 +500,8 @@ def run_case(root, ts, run, run_plan, mode, reps):
         lambda: run.launch_run_kernel(plan, dev, src, st, sc, jv0), reps)
     label = {"rlc": "", "rectifier": " (half_wave_rectifier)",
              "physics": " (half_wave_rectifier, physics/trap)",
-             "magphys": " (saturating_transformer, physics/trap)"}[mode]
+             "magphys": " (saturating_transformer, physics/trap)",
+             "rc": f" (RC low-pass, np1 = {plan.np1})"}[mode]
     print(f"{root}:{label} attempts {int(k.attempts.sum())}, Newton "
           f"iterations {int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
 
@@ -461,10 +540,19 @@ def main():
     ap.add_argument("--magphys", action="store_true",
                     help="also time the saturating transformer under "
                     "physics semantics and the trapezoidal rule")
+    ap.add_argument("--rc", action="store_true",
+                    help="also time an RC low-pass (linear, np1 = 4)")
     ap.add_argument("--physics", action="store_true",
                     help="time the rectifier under physics semantics and "
                     "the trapezoidal rule (a checkout with the physics "
                     "instantiation)")
+    ap.add_argument("--nlstore", action="store_true",
+                    help="time the rectifier's store='full' launch, compat "
+                    "and physics/trap (the Newton store instantiations)")
+    ap.add_argument("--lmdiode", action="store_true",
+                    help="time LM_DIODE's run launch at 256 lanes, compat "
+                    "and physics/trap (the magnetic Newton "
+                    "instantiations)")
     ap.add_argument("--opdc", action="store_true",
                     help="time the OP and DC sweep kernels instead of the "
                     "run kernel")
@@ -484,16 +572,19 @@ def main():
     ap.add_argument("roots", nargs="+")
     a = ap.parse_args()
     if a.one:
-        if a.physics:
-            modes = ["physics"]
-        elif a.rectifier and not (a.store or a.magphys):
-            modes = ["rectifier"]
-        elif a.gj and not (a.store or a.magphys or a.rectifier):
+        newton = [m for m, on in (("rectifier", a.rectifier),
+                                  ("physics", a.physics),
+                                  ("nlstore", a.nlstore),
+                                  ("lmdiode", a.lmdiode)) if on]
+        linear = ((["store"] if a.store else [])
+                  + (["magphys"] if a.magphys else [])
+                  + (["rc"] if a.rc else []))
+        if a.gj and not (newton or linear):
             modes = []
+        elif newton and not linear:
+            modes = newton
         else:
-            modes = (["rlc"] + (["store"] if a.store else [])
-                     + (["magphys"] if a.magphys else [])
-                     + (["rectifier"] if a.rectifier else []))
+            modes = ["rlc"] + linear + newton
         time_checkout(os.path.abspath(a.roots[0]), modes, a.reps,
                       not a.no_ptxas, a.opdc, a.ac, a.stamped, a.gj)
         return 0
@@ -504,7 +595,10 @@ def main():
              + (["--rectifier"] if a.rectifier else [])
              + (["--store"] if a.store else [])
              + (["--magphys"] if a.magphys else [])
+             + (["--rc"] if a.rc else [])
              + (["--physics"] if a.physics else [])
+             + (["--nlstore"] if a.nlstore else [])
+             + (["--lmdiode"] if a.lmdiode else [])
              + (["--opdc"] if a.opdc else [])
              + (["--ac"] if a.ac else [])
              + (["--stamped"] if a.stamped else [])

@@ -22,7 +22,7 @@ seconds:
    PWL current source into an RC ladder, the RL deck again with minstep =
    NaN on 64 lanes, and the 8192 lanes of bench.py's RLC deck (perturbed as
    bench.py does).  accepted/attempts/fail/nr_iters must be equal per lane,
-   state and t_final equal within rtol 1e-9.
+   state, t_final and dt_final bit for bit (and within rtol 1e-9).
 4. linear main path: parse -> compile_circuit -> batch_params -> init_state
    -> build_config -> make_tran_batch(store="none") on those 8192 lanes,
    one warm-up run and one timed run; the launch counts are reset just
@@ -68,7 +68,7 @@ seconds:
    the RC driven by SIN, half_wave_rectifier.cir and coupled_inductors.cir
    (its lanes stopped at 2000 attempts: phase 11 runs it to tstop),
    256 lanes:
-   out_n equal per lane, out_x/out_t within rtol 1e-9, and the counters
+   out_n equal per lane, out_x/out_t bit for bit, and the counters
    and state equal to the run kernel on the same lanes.  Then
    64-bit offsets: 8192 lanes of an RC ladder with np1 = 11, whose out_x
    passes element 2^31; the lanes from just below that element to the
@@ -95,7 +95,7 @@ seconds:
    the BJT transient
    (BE) and rlc_ringdown.cir (trap, its linear OP first, the lanes
    stopped at 1000 attempts);
-   counters and out_n equal, state, jv and waveforms within rtol 1e-9,
+   counters and out_n equal, state, jv and waveforms bit for bit,
    the store's counters and state equal to the run kernel's.
 19. the OP kernel's physics flavour against its plain version through
    make_op_fused: the Rs and Bv diodes, ce_amplifier_op.cir and the
@@ -485,20 +485,17 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry, frame = m.group(1), None
-            k = re.search(r"(run_kernel|run_seg_kernel|op_kernel|"
+            k = re.search(r"(run_seg_kernel|op_kernel|"
                           r"stamped_kernel|dc_sweep_kernel|ac_kernel)"
                           r"ILi(\d+)E((?:Lb[01]E)*)", entry)
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
-            # run_kernel<NMAX, NL, MAG, STORE, PHYS> (NL always: the
-            # Newton decks), run_seg_kernel<NMAX, MAG, STORE, PHYS> (the
-            # linear ones), op_kernel<NMAX, PHYS> and dc_sweep_kernel<NMAX,
-            # PHYS>
+            # run_seg_kernel<NMAX, NL, MAG, STORE, PHYS> (NL: a Newton
+            # deck), op_kernel<NMAX, PHYS> and dc_sweep_kernel<NMAX, PHYS>
             kname = k.group(1) if k is not None else None
             names = ([("linear", "newton"), ("", "mag"), ("", "store"),
-                      ("", "physics")] if kname == "run_kernel" else
-                     [("", "mag"), ("", "store"), ("", "physics")]
-                     if kname == "run_seg_kernel" else [("", "physics")])
+                      ("", "physics")] if kname == "run_seg_kernel" else
+                     [("", "physics")])
             # the warp kernels' REG flag, the block kernels' NMAX (0: the
             # shared-memory body); the name follows its mangled length,
             # which tells gj_kernel from the source's gj_kernel_cu
@@ -641,10 +638,9 @@ def nbytes(*tensors):
 # ---------------------------------------------------------- comparisons
 
 
-def compare_run(name, k, p, check_jv=False, exact=False):
-    """Exact counters, state/t_final (and jv) within RTOL; max abs err.
-    ``exact`` (a linear instantiation, PR 12) holds t_final, dt_final and
-    the state bit for bit."""
+def compare_run(name, k, p, check_jv=False):
+    """Exact counters; t_final, dt_final and the state (and jv) bit for bit,
+    and within RTOL; max abs err."""
     for key in ("accepted", "attempts", "fail", "nr_iters"):
         a, b = getattr(k, key), getattr(p, key)
         if not torch.equal(a, b):
@@ -653,11 +649,9 @@ def compare_run(name, k, p, check_jv=False, exact=False):
     pairs = [("t_final", k.t, p.t), ("state", k.state, p.state)]
     if check_jv:
         pairs.append(("jv", k.jv, p.jv))
-    if exact:
-        for what, a, b in pairs + [("dt_final", k.dt, p.dt)]:
-            if not same_bits(a, b):
-                fail(f"{name}: {what} is not bit for bit the plain "
-                     "version's")
+    for what, a, b in pairs + [("dt_final", k.dt, p.dt)]:
+        if not same_bits(a, b):
+            fail(f"{name}: {what} is not bit for bit the plain version's")
     return max_err(name, pairs)
 
 
@@ -685,19 +679,17 @@ def check_err(name, what, a, b, scale):
     return float(d.max())
 
 
-def wave_err(name, kw, pw, block=1024, exact=False):
+def wave_err(name, kw, pw, block=1024):
     """max_err over out_x (every lane's rows as one (B·max_store, np1)
     table) and out_t, a block of lanes at a time against the scale of all
-    of them, so that no temporary outgrows a block; ``exact``: each block
-    bit for bit too."""
+    of them, so that no temporary outgrows a block; each block bit for bit
+    too."""
     b, m, n = kw.out_x.shape
-    if exact:
-        for i in range(0, b, block):
-            if not (same_bits(kw.out_x[i:i + block], pw.out_x[i:i + block])
-                    and same_bits(kw.out_t[i:i + block],
-                                  pw.out_t[i:i + block])):
-                fail(f"{name}: the stored rows of lanes {i}.. are not bit "
-                     "for bit the plain version's")
+    for i in range(0, b, block):
+        if not (same_bits(kw.out_x[i:i + block], pw.out_x[i:i + block])
+                and same_bits(kw.out_t[i:i + block], pw.out_t[i:i + block])):
+            fail(f"{name}: the stored rows of lanes {i}.. are not bit for "
+                 "bit the plain version's")
     parts = (("out_x", lambda w, i: w.out_x[i:i + block].reshape(-1, n)),
              ("out_t", lambda w, i: w.out_t[i:i + block]))
     err = 0.0
@@ -1026,7 +1018,7 @@ def magnetic_phases(lanes, main_lanes, smi):
             lanes)
         plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-        e = compare_run(name, k, p, exact=True)
+        e = compare_run(name, k, p)
         err = max(err, e)
         if bool(k.fail.any()) or not bool((k.t == cfg.tstop).all()):
             fail(f"{name}: a lane failed or stopped before tstop")
@@ -1060,7 +1052,7 @@ def magnetic_phases(lanes, main_lanes, smi):
              "or stopped early")
     plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0)
     k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-    e = compare_run("saturating_transformer_8192", k, p, exact=True)
+    e = compare_run("saturating_transformer_8192", k, p)
     err = max(err, e)
     if not (torch.equal(out.accepted, k.accepted)
             and torch.equal(out.attempts, k.attempts)
@@ -1085,8 +1077,8 @@ def store_vs_plain(name, plan, dev, src, st, sc, keep, jv0=None):
     allocates and zeroes the outputs, and around the launch alone, into
     zeroed buffers given as ``out`` (its result must equal the wrapper's
     bit for bit); the plain version on the host clock.  Their counters,
-    out_n and overflow must be equal, and out_x, out_t and the state within
-    RTOL.  Returns (kernel result, waveforms, max abs err, launch ms,
+    out_n and overflow must be equal, and out_x, out_t and the state bit for
+    bit.  Returns (kernel result, waveforms, max abs err, launch ms,
     wrapper ms, plain ms)."""
     # warm-up; its outputs go back to the allocator's cache, so the timed
     # wrapper below allocates them again without a cudaMalloc
@@ -1106,12 +1098,11 @@ def store_vs_plain(name, plan, dev, src, st, sc, keep, jv0=None):
     p, pw = run.store_plain(plan, dev, src, st, sc, keep, jv0)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - p0) * 1e3
-    exact = not plan.nonlinear
-    err = compare_run(name, k, p, check_jv=jv0 is not None, exact=exact)
+    err = compare_run(name, k, p, check_jv=jv0 is not None)
     for key in ("out_n", "overflow"):
         if not torch.equal(getattr(kw, key), getattr(pw, key)):
             fail(f"{name}: store {key} differs from the plain version")
-    err = max(err, wave_err(name, kw, pw, exact=exact))
+    err = max(err, wave_err(name, kw, pw))
     del p, pw
     return k, kw, err, k_ms, w_ms, p_ms
 
@@ -1220,9 +1211,9 @@ def store_phases(lanes, main_lanes, smi, hwr_none):
                + nbytes(kw.out_x, kw.out_t, kw.out_n, kw.overflow))
     phase("14 store kernel vs plain", t0,
           f"half_wave_rectifier: {main_lanes} lanes, counters and out_n "
-          f"equal, max abs err {e:.3e}; kernel {k_ms:.3f} ms (the launch "
-          f"into zeroed buffers), {w_ms:.3f} ms (the wrapper: it also "
-          f"zeroes the {gb:.3f} GB output), plain {p_ms:.1f} ms")
+          f"equal, bit for bit, max abs err {e:.3e}; kernel {k_ms:.3f} ms "
+          f"(the launch into zeroed buffers), {w_ms:.3f} ms (the wrapper: "
+          f"it also zeroes the {gb:.3f} GB output), plain {p_ms:.1f} ms")
     del kw
     free()
     return dict(launches=launches, err=err, k_ms=k_ms, w_ms=w_ms, p_ms=p_ms,
@@ -1254,12 +1245,12 @@ def offsets_check(lanes):
     p, pw = run.store_plain(plan, dev[lo:], src[lo:], st[lo:], sc, keep)
     ks = run.RunResult(*(x[lo:] for x in k))
     kws = run.Waveforms(*(x[lo:] for x in kw))
-    err = compare_run("ladder_offsets", ks, p, exact=True)
+    err = compare_run("ladder_offsets", ks, p)
     if not (torch.equal(kws.out_n, pw.out_n)
             and torch.equal(kws.overflow, pw.overflow)):
         fail("64-bit offsets: out_n or overflow differs from the plain "
              "version")
-    err = max(err, wave_err("ladder_offsets", kws, pw, exact=True))
+    err = max(err, wave_err("ladder_offsets", kws, pw))
     elems = lanes * per_lane
     last = (lanes - 1) * per_lane + (int(kw.out_n[-1]) - 1) * plan.np1
     phase("13 store kernel, 64-bit offsets", t0,
@@ -1466,7 +1457,7 @@ def phys_step_flops(plan, rs_share=0.0):
 def physics_run_phase(lanes):
     """Phase 18: the PHYS run kernel and its store instantiation against
     their plain versions (counters, out_n equal; state, jv, waveforms
-    within RTOL), and the store's counters and state equal to the run
+    bit for bit), and the store's counters and state equal to the run
     kernel's."""
     hwr = deck_file("half_wave_rectifier.cir")
     # cut in depth so that the plain versions' replay stays short: the
@@ -1497,8 +1488,7 @@ def physics_run_phase(lanes):
         if max_att:
             sc = sc._replace(max_attempts=max_att)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
-        e = compare_run(name, k, p, check_jv=jv0 is not None,
-                        exact=not plan.nonlinear)
+        e = compare_run(name, k, p, check_jv=jv0 is not None)
         run_err = max(run_err, e)
         keep = run.Store(cfg.tstart, cfg.max_store)
         ks, kw, es, s_ms, _, sp_ms = store_vs_plain(name, plan, dev, src,
@@ -1699,8 +1689,8 @@ def physics_main_phase(lanes, smi):
           f"iterations {nri} ({nri / lanes:.6f} per lane), failed="
           f"{failed}, wall={wall:.6f} s, {accepted / wall:.6e} accepted "
           f"steps/s on {smi}; the kernel on the same inputs against its "
-          f"plain version: counters equal, max abs err {err:.3e}; kernel "
-          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+          f"plain version: counters equal, bit for bit, max abs err "
+          f"{err:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
     return dict(launches=got["run_kernel"], op_launches=got["op_kernel"],
                 err=err, k_ms=k_ms, p_ms=p_ms, plan=plan,
                 attempts=int(k.attempts.sum()), nri=int(k.nr_iters.sum()),
@@ -1798,7 +1788,7 @@ def mag_run_phase(lanes, smi):
         if max_att:
             sc = sc._replace(max_attempts=max_att)
         k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-        e = compare_run(name, k, p, exact=True)
+        e = compare_run(name, k, p)
         err = max(err, e)
         if not max_att and not bool((k.t == cfg.tstop).all()):
             fail(f"{name}: a lane stopped before tstop")
@@ -1901,8 +1891,8 @@ def mag_newton_phase(lanes, smi):
               f"launches {got['run_kernel']}, accepted "
               f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
               f"NR iterations {int(k.nr_iters.sum())}, failed 0; counters "
-              f"equal, max abs err {e:.3e}; kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.1f} ms")
+              f"equal, bit for bit, max abs err {e:.3e}; kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
 
         # the OP path and the OP kernel on the magnetic deck against its
         # plain version
@@ -2084,8 +2074,7 @@ def mag_main_phase(lanes, smi):
     plan, dev, src, st, sc, _ = lane_inputs(cc, cfg, params, state0, opts,
                                             "physics")
     k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc)
-    err = compare_run("saturating_transformer_8192_physics_trap", k, p,
-                      exact=True)
+    err = compare_run("saturating_transformer_8192_physics_trap", k, p)
     if not (torch.equal(out.accepted, k.accepted)
             and torch.equal(out.attempts, k.attempts)
             and torch.equal(out.t_final, k.t)):
@@ -2157,9 +2146,9 @@ def physics_store_phase(lanes, smi):
           f"{got['run_kernel_store']}, stored rows {rows}, wall={wall:.6f} "
           f"s, {rows / wall:.6e} stored rows/s on {smi}; the store kernel "
           f"against the plain store on the same lanes: counters and out_n "
-          f"equal, max abs err {e:.3e}; kernel {k_ms:.3f} ms (the launch "
-          f"into zeroed buffers), {w_ms:.3f} ms (the wrapper), plain "
-          f"{p_ms:.1f} ms")
+          f"equal, bit for bit, max abs err {e:.3e}; kernel {k_ms:.3f} ms "
+          f"(the launch into zeroed buffers), {w_ms:.3f} ms (the wrapper), "
+          f"plain {p_ms:.1f} ms")
     del kw
     free()
     return dict(launches=got["run_kernel_store"], err=e, k_ms=k_ms,
@@ -2701,7 +2690,7 @@ def main():
                                     p_s) in zip(decks, plains):
         t0 = time.perf_counter() - p_s  # the plain version's seconds too
         k, k_ms = run_timed(plan, dev, src, st, sc)
-        err = compare_run(name, k, p, exact=True)
+        err = compare_run(name, k, p)
         lin_err = max(lin_err, err)
         attempts = int(k.attempts.sum())
         phase("3 kernel vs plain", t0,
@@ -2858,8 +2847,8 @@ def main():
         phase("6 nonlinear kernel vs plain", t0,
               f"{name}: {BENCH_LANES} lanes, np1={plan.np1}, accepted "
               f"{acc_}, attempts {att_}, NR iterations {nri}, failed "
-              f"{int(k.fail.sum())}; counters equal, max abs err "
-              f"{err:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+              f"{int(k.fail.sum())}; counters equal, bit for bit, max abs "
+              f"err {err:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
         if name == "half_wave_rectifier":
             hwr = dict(k=k, k_ms=k_ms, p_ms=p_ms, plan=plan, attempts=att_,
                        nri=nri, nbytes=nbytes(dev, src, st, jv0)

@@ -1105,9 +1105,9 @@ def _run_and_store_bits(plan, dev, src, st, sc, keep, jv0=None, start=None):
     return ks, kw
 
 
-@pytest.mark.parametrize("np1", [2, 6, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("np1", [2, 4, 5, 6, 8, 9, 16, 17, 32])
 def test_linear_segment_kernel_is_bit_identical(cuda, np1):
-    """Segments of 8, 16 and 32 lanes at every bucket edge, 259 lanes (not
+    """Segments of 4, 8, 16 and 32 lanes at every bucket edge, 259 lanes (not
     a multiple of a block's lanes): counters, state, t, dt and the store's
     rows equal to run_plain/store_plain bit for bit."""
     cc, cfg, params, state0, plan, dev, src, st, sc = _inputs(
@@ -1151,7 +1151,8 @@ def test_linear_segment_stream_pauses_lanes_of_one_warp(cuda):
     keep = run.Store(cfg.tstart, 150, True)
     k1, w1 = _run_and_store_bits(plan, dev, src, st, sc, keep,
                                  start=run.fresh_start(37, sc, cuda))
-    # the first warp's four lanes (np1 = 4: segments of 8) pause apart
+    # the first warp's first four lanes (np1 = 5: segments of 8) pause
+    # apart
     assert len(set(k1.attempts[:4].tolist())) > 1
     start = run.RunStart(k1.t, k1.dt, k1.attempts)
     _run_and_store_bits(plan, dev, src, k1.state, sc, keep, start=start)
@@ -1188,7 +1189,8 @@ def test_linear_segment_instantiations_are_bit_identical(cuda, deck,
     assert not ks.fail.any()
 
 
-@pytest.mark.parametrize("np1,w", [(6, 8), (16, 16), (17, 32), (32, 32)])
+@pytest.mark.parametrize("np1,w", [(4, 4), (5, 8), (6, 8), (16, 16),
+                                   (17, 32), (32, 32)])
 def test_linear_segment_launch_shape(cuda, np1, w):
     """The shape the compat library reports for a linear deck: segments of
     W threads, 128 / W lanes a block, enough blocks for 259 lanes, the
@@ -1197,3 +1199,293 @@ def test_linear_segment_launch_shape(cuda, np1, w):
     got = run.segment_shape(plan, 259)
     assert got[:4] == (w, 128 // w, -(-259 // (128 // w)), 128)
     assert plan.topo.size * 4 < got[4] <= 227 * 1024
+
+
+# ------------------------- the Newton run kernel on a warp segment
+
+
+def newton_ladder(np1):
+    """A Newton deck of np1 unknowns: an RC ladder from a SIN source with a
+    clamp diode at each of its first 16 nodes past the first, alternating
+    in direction (ground, the source's branch and the nodes); np1 = 2 a
+    current source into a diode, R and C."""
+    if np1 == 2:
+        return ("* np1 = 2\n.tran 0.02m 0.5m\nI1 0 1 SIN(0 2m 2k)\n"
+                "R1 1 0 1k\nC1 1 0 0.2u\nD1 1 0 DM\n"
+                ".model DM D (Is=1e-14 N=1.1 Tt=5n)\n")
+    nodes = np1 - 2
+    lines = ["* diode clamp ladder", ".tran 0.02m 0.5m",
+             "Vin 1 0 SIN(0 5 1k)"]
+    for i in range(1, nodes):
+        lines += [f"R{i} {i} {i + 1} {200 + 10 * i}",
+                  f"C{i} {i + 1} 0 {0.05 + 0.01 * i:.2f}u"]
+    for j, node in enumerate(range(2, min(nodes, 17) + 1)):
+        a, b = (node, 0) if j % 2 == 0 else (0, node)
+        lines.append(f"D{j + 1} {a} {b} DM")
+    lines.append(".model DM D (Is=1e-14 N=1.05 Tt=5n)")
+    return "\n".join(lines) + "\n"
+
+
+# sixteen devices (6 D, 4 Q, 6 M of levels 1-3), np1 = 32: MOSFET
+# inverters, common-emitter stages and diode clamps
+MIXED16 = """* mixed D/Q/M at the 16-device cap
+.tran 5u 0.2m
+Vdd vdd 0 DC 5
+Vin in 0 SIN(2.5 2 5k)
+Vsig sig 0 SIN(0 20m 1k)
+Rsrc sig s1 600
+R1 vdd d1 10k
+M1 d1 in 0 0 NL1 L=2u W=20u
+C1 d1 0 10p
+R2 vdd d2 10k
+M2 d2 d1 0 0 NL3 L=2u W=20u
+C2 d2 0 10p
+M3 d3 d2 vdd vdd PL2 L=2u W=40u
+R3 d3 0 20k
+C3 d3 0 10p
+R4 vdd d4 10k
+M4 d4 d3 0 0 NL1 L=2u W=20u
+C4 d4 0 10p
+R5 vdd d5 10k
+M5 d5 in 0 0 NL3 L=2u W=20u
+C5 d5 0 10p
+M6 d6 d5 vdd vdd PL2 L=2u W=40u
+R6 d6 0 20k
+C6 d6 0 10p
+Cc1 s1 b1 10u
+Rb11 vdd b1 68k
+Rb12 b1 0 12k
+Rc1 vdd c1 3.3k
+Re1 e1 0 680
+Ce1 e1 0 47u
+Q1 c1 b1 e1 QN
+Cc2 s1 b2 10u
+Rb21 vdd b2 82k
+Rb22 b2 0 15k
+Rc2 vdd c2 3.9k
+Re2 e2 0 820
+Q2 c2 b2 e2 QN
+Cc3 s1 b3 10u
+Rb31 vdd b3 56k
+Rb32 b3 0 10k
+Rc3 vdd c3 2.7k
+Re3 e3 0 560
+Q3 c3 b3 e3 QN
+Cc4 s1 b4 10u
+Rb41 vdd b4 47k
+Rb42 b4 0 8.2k
+Rc4 vdd c4 4.7k
+Re4 e4 0 1k
+Q4 c4 b4 e4 QN
+D1 d1 n1 DM
+Rd1 n1 0 22k
+D2 d2 n2 DM
+Rd2 n2 0 22k
+D3 n3 d3 DM
+Rd3 vdd n3 22k
+D4 c1 n4 DM
+Rd4 n4 0 10k
+D5 c2 n5 DM
+Rd5 n5 0 10k
+D6 c4 n6 DM
+Rd6 n6 0 10k
+.model NL1 NMOS(Level=1 VTO=1.1 KP=3m LAMBDA=0.01)
+.model NL3 NMOS(Level=3 VTO=0.7 KP=300u THETA=0.05 KAPPA=0.3)
+.model PL2 PMOS(Level=2 VTO=-0.8 KP=150u UCRIT=1e4 UEXP=0.1)
+.model QN NPN(Bf=180 Vaf=90)
+.model DM D(Is=1e-14 N=1.05 Tt=5n)
+"""
+
+# a rectifier with a clamp, driven by a pulse whose delay and rise each
+# lane draws (pulsed_spread): with max_iter = 5 its lanes take different
+# Newton counts, reject at different attempts and some hard-fail
+PULSED = """* pulse-driven rectifier
+.tran 5u 0.6m
+Vin in 0 PULSE(-4 6 0.05m 2u 2u 0.1m 0.25m)
+D1 in out DM
+R1 out 0 2k
+C1 out 0 0.5u
+D2 0 out DM
+.model DM D (Is=1e-14 N=1.05 Tt=5n)
+"""
+
+
+def pulsed_spread(cc, lanes, seed=5):
+    """R and C log-normal by 0.3, the pulse's delay and rise uniform."""
+    rng = np.random.default_rng(seed)
+    ov = {k: {"value": np.asarray(cc.params[k]["value"])[None] * np.exp(
+        rng.normal(0, 0.3, (lanes, len(cc.params[k]["value"]))))}
+        for k in ("R", "C")}
+    ov["V"] = {"delay": rng.uniform(0.01e-3, 0.1e-3, (lanes, 1)),
+               "rise": rng.uniform(0.5e-6, 20e-6, (lanes, 1))}
+    return ov
+
+
+def _newton_inputs(deck, lanes, device, semantics="compat", trap=False,
+                   overrides=None):
+    """A Newton deck's run inputs as make_tran_run builds them (its OP
+    first): (cfg, RunInputs)."""
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    ov = (overrides or _rc_spread)(cc, lanes)
+    params, _ = ts.batch_params(cc, ov, device=device)
+    r = run.run_inputs(cc, cfg, params, ts.init_state(cc, device=device),
+                       ts.SimOptions(integration="trap" if trap else "be"),
+                       semantics)
+    assert r.plan.nonlinear
+    return cfg, r
+
+
+@pytest.mark.parametrize("np1", [2, 4, 5, 8, 9, 16, 17, 32])
+def test_newton_segment_kernel_is_bit_identical(cuda, np1):
+    """The Newton instantiation on segments of 4, 8, 16 and 32 lanes at
+    every bucket edge, 259 lanes: counters, state, t, dt, jv and the
+    store's rows equal to run_plain/store_plain bit for bit."""
+    cfg, r = _newton_inputs(newton_ladder(np1), 259, cuda)
+    assert r.plan.np1 == np1
+    ks, kw = _run_and_store_bits(r.plan, r.dev, r.src, r.st, r.sc,
+                                 run.Store(cfg.tstart, cfg.max_store), r.jv)
+    assert not ks.fail.any() and torch.equal(kw.out_n, ks.accepted)
+    assert bool((ks.nr_iters > ks.attempts).all())
+
+
+@pytest.mark.parametrize("deck,semantics,trap", [
+    (HWR, "compat", False), (MIXED16, "compat", False),
+    (LM_DIODE, "compat", False), (HWR, "physics", False),
+    (BJT_TRAN, "physics", False), (NMOS_INV, "physics", True),
+    (D_BV_SIN, "physics", True), (newton_ladder(17), "physics", True),
+    (LM_DIODE, "physics", True), (LM_DIODE, "physics", False)],
+    ids=["compat", "compat_mixed16", "compat_mag", "phys_be",
+         "phys_be_bjt", "phys_trap_mos", "phys_trap_bv", "phys_trap_32",
+         "phys_mag_trap", "phys_mag_be"])
+def test_newton_segment_instantiations_are_bit_identical(cuda, deck,
+                                                          semantics, trap):
+    """compat, compat MAG, PHYS BE and trap and PHYS MAG Newton, run and
+    store, 259 lanes from the OP's bias point, to 600 attempts."""
+    cfg, r = _newton_inputs(deck, 259, cuda, semantics, trap)
+    sc = r.sc._replace(max_attempts=min(r.sc.max_attempts, 600))
+    ks, _ = _run_and_store_bits(r.plan, r.dev, r.src, r.st, sc,
+                                run.Store(cfg.tstart, cfg.max_store), r.jv)
+    assert not ks.fail.any()
+
+
+@pytest.mark.parametrize("semantics,trap", [("compat", False),
+                                            ("physics", True)])
+def test_newton_segment_lanes_of_a_warp_diverge(cuda, semantics, trap):
+    """PULSED at 259 lanes with max_iter = 5: lanes of one warp take
+    different Newton counts, reject at different attempts and some
+    hard-fail (under physics); run and store bit for bit with the plain
+    versions."""
+    cfg, r = _newton_inputs(PULSED, 259, cuda, semantics, trap,
+                            pulsed_spread)
+    sc = r.sc._replace(max_iter=5)
+    ks, _ = _run_and_store_bits(r.plan, r.dev, r.src, r.st, sc,
+                                run.Store(cfg.tstart, cfg.max_store), r.jv)
+    # np1 = 4: segments of 4, eight lanes a warp
+    assert len(set(ks.nr_iters[:8].tolist())) > 1
+    assert bool((ks.attempts > ks.accepted).any())
+    assert not bool(ks.fail.all())
+
+
+def test_newton_segment_failing_lanes_beside_finite_ones(cuda):
+    """A lane whose stamps are NaN (C = NaN) and a lane with R = 0 in the
+    same warp as finite lanes, then every lane with minstep NaN: bit for
+    bit with the plain versions, the NaN lane hard-failed."""
+    def bad(cc, lanes):
+        ov = _rc_spread(cc, lanes)
+        ov["C"]["value"][1] = np.nan
+        ov["R"]["value"][2] = 0.0
+        return ov
+
+    cfg, r = _newton_inputs(HWR, 12, cuda, overrides=bad)
+    keep = run.Store(0.0, 64)
+    sc = r.sc._replace(max_attempts=400)
+    ks, _ = _run_and_store_bits(r.plan, r.dev, r.src, r.st, sc, keep, r.jv)
+    assert ks.fail[1] == 1
+    assert not ks.fail[[0, 3, 4, 5, 6, 7]].any()
+    nan = sc._replace(minstep=float("nan"))
+    ks, _ = _run_and_store_bits(r.plan, r.dev, r.src, r.st, nan, keep, r.jv)
+    assert bool(ks.fail.all())
+
+
+def test_newton_segment_stream_pauses_lanes_of_one_warp(cuda):
+    """A streamed chunk of PULSED (max_iter = 5) whose rows fill at
+    different attempts on the lanes of one warp, then the re-entry from
+    where each lane paused with its junction voltages: both bit for bit
+    with the plain store."""
+    cfg, r = _newton_inputs(PULSED, 37, cuda, overrides=pulsed_spread)
+    sc = r.sc._replace(max_iter=5)
+    keep = run.Store(cfg.tstart, 60, True)
+    k1, _ = _run_and_store_bits(r.plan, r.dev, r.src, r.st, sc, keep, r.jv,
+                                start=run.fresh_start(37, sc, cuda))
+    assert len(set(k1.attempts[:8].tolist())) > 1
+    start = run.RunStart(k1.t, k1.dt, k1.attempts)
+    _run_and_store_bits(r.plan, r.dev, r.src, k1.state, sc, keep, k1.jv,
+                        start=start)
+
+
+@pytest.mark.parametrize("store", [False, True], ids=["run", "store"])
+def test_newton_segment_refuses_a_short_slice(cuda, monkeypatch, store):
+    """A launch whose nl_doubles is one short of the deck's junction
+    voltages and value slots fails every lane before its first attempt
+    and leaves jv and state as they were, where it would otherwise write
+    past its segment's slice."""
+    cfg, r = _newton_inputs(MIXED16, 37, cuda)
+    need = run.newton_doubles(r.plan)
+    monkeypatch.setattr(run, "newton_doubles", lambda plan: need - 1)
+    if store:
+        k, _ = run.launch_store_kernel(r.plan, r.dev, r.src, r.st, r.sc,
+                                       run.Store(cfg.tstart, 8), r.jv)
+    else:
+        k = run.launch_run_kernel(r.plan, r.dev, r.src, r.st, r.sc, r.jv)
+    torch.cuda.synchronize()
+    assert bool(k.fail.all()) and not k.attempts.any()
+    assert not k.accepted.any()
+    assert torch.equal(k.jv, r.jv) and torch.equal(k.state, r.st)
+
+
+@pytest.mark.parametrize("deck,semantics,store,tag", [
+    (HWR, "compat", False, "<4, true, false, false, false>"),
+    (HWR, "compat", True, "<4, true, false, true, false>"),
+    (newton_ladder(8), "physics", False, "<8, true, false, false, true>"),
+    (newton_ladder(9), "physics", True, "<16, true, false, true, true>"),
+    (MIXED16, "compat", False, "<32, true, false, false, false>"),
+    (LM_DIODE, "compat", True, "<8, true, true, true, false>"),
+    (LM_DIODE, "physics", False, "<8, true, true, false, true>")],
+    ids=["compat_4", "compat_store_4", "phys_8", "phys_store_16",
+         "compat_32", "compat_mag_store", "phys_mag"])
+def test_newton_segment_launch_shape(cuda, deck, semantics, store, tag):
+    """Each Newton instantiation launches the segment kernel (the one
+    kernel of the launch, by its name in a profile of the card) in the
+    shape the compat library reports: segments of W threads, 128 / W lanes
+    a block, enough blocks for 259 lanes, the table and the slices (with
+    the junction voltages and value slots) within an SM's shared
+    memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, r = _newton_inputs(deck, 259, cuda, semantics)
+    sc = r.sc._replace(max_attempts=20)
+    got = run.segment_shape(r.plan, 259)
+    w = int(tag[1:tag.index(",")])
+    assert got[:4] == (w, 128 // w, -(-259 // (128 // w)), 128)
+    # a slice: the exchange buffer and W build rows, x, 32 source values,
+    # the lane's 192 rows (csrc/run_kernel.cuh seg_slice), then the
+    # junction voltages and value slots, an even count
+    base = (w + 2) * (w + 1) + w + 32 + 192
+    nl = (run.newton_doubles(r.plan) + 1) // 2 * 2
+    assert run.newton_doubles(r.plan) >= r.plan.kj > 0
+    assert got[4] == 8 * ((r.plan.topo.size + 3) // 4 * 2
+                          + (128 // w) * (base + nl))
+    assert got[4] <= 227 * 1024
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if store:
+            run.launch_store_kernel(r.plan, r.dev, r.src, r.st, sc,
+                                    run.Store(cfg.tstart, 8), r.jv)
+        else:
+            run.launch_run_kernel(r.plan, r.dev, r.src, r.st, sc, r.jv)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "run_" in e.key}
+    assert len(names) == 1, names
+    assert "run_seg_kernel" + tag in names.pop().replace(" ", "").replace(
+        ",", ", ")

@@ -142,3 +142,37 @@ def test_op_plan_has_no_view_and_the_caps_count_the_base_table(
     assert run.kernel_caps_reason(tran) is None
     monkeypatch.setattr(run, "MAX_TOPO", tran.base_len - 1)
     assert "shared-memory table" in run.kernel_caps_reason(tran)
+
+
+HWR_MOS = """* a diode and an NMOS
+.tran 1u 0.1m
+Vdd vdd 0 DC 5
+Vg g 0 SIN(2.5 2 10k)
+R1 vdd d 10k
+M1 d g 0 0 NM L=2u W=20u
+D1 d 0 DM
+.model NM NMOS(Vto=1 Kp=2e-5)
+.model DM D(Is=1e-14)
+"""
+
+
+def test_newton_doubles_follow_the_kernels_slot_layout():
+    """newton_doubles sizes a Newton lane's slice of the run kernel's
+    shared memory: its junction voltages, then D_SLOTS, Q_SLOTS and
+    M_SLOTS value slots per diode, BJT and MOSFET (csrc/newton.cuh), which
+    the kernel checks at entry; NL_SLOTS must hold the header's counts."""
+    import re
+
+    from toyspice_tpu_torch.ops.run_plan import NL_SLOTS
+
+    header = (Path(run.__file__).resolve().parent.parent / "csrc"
+              / "newton.cuh").read_text()
+    slots = re.search(r"constexpr int D_SLOTS = (\d+), Q_SLOTS = (\d+), "
+                      r"M_SLOTS = (\d+);", header)
+    assert slots and NL_SLOTS == dict(zip("DQM", map(int, slots.groups())))
+    plan = plan_of(HWR_MOS)
+    assert plan.nonlinear
+    nd, nq, nm = plan.counts[5:]
+    assert (nd, nq, nm) == (1, 0, 1)
+    assert run.newton_doubles(plan) == plan.kj + 2 * nd + 21 * nm
+    assert run.newton_doubles(plan_of(ladder(6, "RC"))) == 0

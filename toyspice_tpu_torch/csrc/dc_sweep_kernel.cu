@@ -101,8 +101,8 @@ dc_sweep_kernel(const int* __restrict__ topo_g, int topo_len,
     for (int i = 0; i < n; ++i) x[i] = 0.0;
     bool conv = false;
     const int iters = newton<NMAX, FL_DC, PHYS>(deck, ent, ne, lin, m, x,
-                                                jv, nv, 0.0, 0.0, max_iter,
-                                                reltol, abstol, &conv);
+                                                jv, nv, 0.0, max_iter, reltol,
+                                                abstol, &conv);
     const size_t pt = (size_t)lane * npts + p;
     for (int i = 0; i < n; ++i) x_out[pt * n + i] = x[i];
     iters_out[pt] = iters;

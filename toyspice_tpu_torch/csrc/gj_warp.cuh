@@ -1,8 +1,9 @@
 // Gauss-Jordan of one augmented (n, n+1) f64 system by a segment of W
-// lanes of one warp (W = 8, 16 or 32), with no block barrier: the
+// lanes of one warp (W = 4, 8, 16 or 32), with no block barrier: the
 // elimination of csrc/ac_kernel.cu (every (instance, frequency) system),
-// of csrc/stamped_solve.cu's systems of 33 to 64 and of each attempt of
-// the linear run kernel (csrc/run_kernel.cuh, run_seg_kernel).
+// of csrc/stamped_solve.cu's systems of 33 to 64 and of each attempt, or
+// each Newton iteration, of the run kernel (csrc/run_kernel.cuh,
+// run_seg_kernel).
 //
 // Row i belongs to lane i % W, slot i / W (R slots a lane).  For each
 // column k:
@@ -13,7 +14,7 @@
 //      a non-negative double as its value does, and __reduce_min_sync of
 //      the row index among the lanes that hold the maximum) keep the
 //      largest, the lowest row on a tie: newton.cuh's pivot rule (a
-//      segment of 8 or 16 lanes takes a butterfly of shuffles instead).
+//      segment of 4, 8 or 16 lanes takes a butterfly of shuffles instead).
 //      A NaN there (one warp vote), or no candidate, makes every x NaN;
 //      the segment still runs every column, with row 0 as its pivot from
 //      there on, so that the segments of a warp stay converged under one
@@ -70,8 +71,8 @@ __device__ __forceinline__ unsigned segment_mask(int wl) {
 // p its row, p < 0 none): the largest best, the lowest row on a tie; -1 if
 // no lane has one.  A whole warp (W = 32) takes three warp reductions
 // (best is a non-negative double, so its high and low words order it as
-// its value does); a segment of 8 or 16 lanes, which shares its warp with
-// others, a butterfly of shuffles of width W.
+// its value does); a segment of 4, 8 or 16 lanes, which shares its warp
+// with others, a butterfly of shuffles of width W.
 template <int W>
 __device__ __forceinline__ int segment_pivot(double best, int p,
                                              unsigned mask) {

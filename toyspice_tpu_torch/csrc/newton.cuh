@@ -1,7 +1,9 @@
-// The in-kernel Newton shared by csrc/run_kernel.cu (each transient
-// attempt), csrc/op_kernel.cu (each OP solve) and csrc/dc_sweep_kernel.cu
-// (each sweep point), and the Gauss-Jordan that csrc/stamped_solve.cu and
-// csrc/ac_kernel.cu use too: one thread per lane, f64.
+// The in-kernel Newton of csrc/op_kernel.cu (each OP solve) and
+// csrc/dc_sweep_kernel.cu (each sweep point), one thread per lane, f64;
+// its per-device bodies (limit_diode .. limit_mos, value_diode ..
+// value_mos), which the run kernel's segment (csrc/run_kernel.cuh) calls
+// device by device, a device a thread; and the Gauss-Jordan that
+// csrc/stamped_solve.cu uses too.
 //
 // The CUDA counterpart of toyspice_tpu/ops/pallas_tran.py's
 // _newton_in_kernel and _device_eval_lib (compat, and with PHYS the
@@ -333,279 +335,339 @@ struct Deck {
 };
 
 // UpdateVoltages + pnjlim (engine/nlstate.py), in place on the rows
-// D vd | Q vbe | Q vbc | M vgs | M vds | M vbs.  PHYS limits a diode
-// voltage below min(0, -Bv + 10 vte) as -(Bv + vd), gated on the new
+// D vd | Q vbe | Q vbc | M vgs | M vds | M vbs, one device at a time: each
+// body reads x and writes only its own device's rows of jv.  PHYS limits a
+// diode voltage below min(0, -Bv + 10 vte) as -(Bv + vd), gated on the new
 // voltage only.
-template <bool PHYS = false>
-__device__ void limit_jv(const Deck& c, const double* x, double* jv) {
-  for (int k = 0; k < c.n_d; ++k) {
-    const double vd = x[c.dn[2 * k]] - x[c.dn[2 * k + 1]];
-    if constexpr (PHYS) {
-      const double vte = c.d(D_VTE, k), vcrit = c.d(D_VCRIT, k);
-      const double bv = c.d(D_BV, k);
-      const double vold = jv[k];
-      double v = pnjlim(vd, vold, vte, vcrit);
-      if (vd < min_nan(0.0, -bv + 10.0 * vte))
-        v = -bv - pnjlim(-(bv + vd), -(bv + vold), vte, vcrit);
-      jv[k] = v;
-    } else {
-      jv[k] = pnjlim(vd, jv[k], c.d(D_VTE, k), c.d(D_VCRIT, k));
-    }
-  }
-  double* vbe = jv + c.n_d;
-  double* vbc = vbe + c.n_q;
-  for (int k = 0; k < c.n_q; ++k) {
-    const double vc = x[c.qn[3 * k]], vb = x[c.qn[3 * k + 1]],
-                 ve = x[c.qn[3 * k + 2]];
-    const bool pnp = c.q(Q_SIGN, k) < 0;
-    const double be = pnp ? ve - vb : vb - ve;
-    const double bc = pnp ? vc - vb : vb - vc;
-    vbe[k] = pnjlim(be, vbe[k], c.q(Q_VTEF, k), c.q(Q_VCRITF, k));
-    vbc[k] = pnjlim(bc, vbc[k], c.q(Q_VTER, k), c.q(Q_VCRITR, k));
-  }
-  double* vgs = vbc + c.n_q;
-  double* vds = vgs + c.n_m;
-  double* vbs = vds + c.n_m;
-  for (int k = 0; k < c.n_m; ++k) {
-    const int* nd = c.mn + 5 * k;  // drain gate source bulk level
-    const double s = c.pm[M_SIGN * c.n_m + k];
-    const double xs = x[nd[2]];
-    vgs[k] = s * (x[nd[1]] - xs);
-    vds[k] = s * (x[nd[0]] - xs);
-    vbs[k] = s * (x[nd[3]] - xs);
+template <bool PHYS>
+__device__ __forceinline__ void limit_diode(const Deck& c, int k,
+                                            const double* x, double* jv) {
+  const double vd = x[c.dn[2 * k]] - x[c.dn[2 * k + 1]];
+  if constexpr (PHYS) {
+    const double vte = c.d(D_VTE, k), vcrit = c.d(D_VCRIT, k);
+    const double bv = c.d(D_BV, k);
+    const double vold = jv[k];
+    double v = pnjlim(vd, vold, vte, vcrit);
+    if (vd < min_nan(0.0, -bv + 10.0 * vte))
+      v = -bv - pnjlim(-(bv + vd), -(bv + vold), vte, vcrit);
+    jv[k] = v;
+  } else {
+    jv[k] = pnjlim(vd, jv[k], c.d(D_VTE, k), c.d(D_VCRIT, k));
   }
 }
 
-// Device evaluation into the value slots at junction voltages jv.  TRAN
-// adds the companions of a transient step dte; gmin is the OP's status
-// gmin on the MOSFET drain/source diagonals (0 in a transient).  PHYS
-// evaluates the physics diode, and its companions read ph.
-template <bool TRAN, bool PHYS = false>
-__device__ void device_values(const Deck& c, const double* jv, double dte,
-                              double gmin, double* nv, const Phys& ph = {}) {
+__device__ __forceinline__ void limit_bjt(const Deck& c, int k,
+                                          const double* x, double* jv) {
+  double* vbe = jv + c.n_d;
+  double* vbc = vbe + c.n_q;
+  const double vc = x[c.qn[3 * k]], vb = x[c.qn[3 * k + 1]],
+               ve = x[c.qn[3 * k + 2]];
+  const bool pnp = c.q(Q_SIGN, k) < 0;
+  const double be = pnp ? ve - vb : vb - ve;
+  const double bc = pnp ? vc - vb : vb - vc;
+  vbe[k] = pnjlim(be, vbe[k], c.q(Q_VTEF, k), c.q(Q_VCRITF, k));
+  vbc[k] = pnjlim(bc, vbc[k], c.q(Q_VTER, k), c.q(Q_VCRITR, k));
+}
+
+__device__ __forceinline__ void limit_mos(const Deck& c, int k,
+                                          const double* x, double* jv) {
+  double* vgs = jv + c.n_d + 2 * c.n_q;
+  double* vds = vgs + c.n_m;
+  double* vbs = vds + c.n_m;
+  const int* nd = c.mn + 5 * k;  // drain gate source bulk level
+  const double s = c.pm[M_SIGN * c.n_m + k];
+  const double xs = x[nd[2]];
+  vgs[k] = s * (x[nd[1]] - xs);
+  vds[k] = s * (x[nd[0]] - xs);
+  vbs[k] = s * (x[nd[3]] - xs);
+}
+
+// Every device's limit, kind by kind.
+template <bool PHYS = false>
+__device__ void limit_jv(const Deck& c, const double* x, double* jv) {
+  for (int k = 0; k < c.n_d; ++k) limit_diode<PHYS>(c, k, x, jv);
+  for (int k = 0; k < c.n_q; ++k) limit_bjt(c, k, x, jv);
+  for (int k = 0; k < c.n_m; ++k) limit_mos(c, k, x, jv);
+}
+
+// The limit of device j of the deck's order (its diodes, then its BJTs,
+// then its MOSFETs).
+template <bool PHYS = false>
+__device__ __forceinline__ void limit_device(const Deck& c, int j,
+                                             const double* x, double* jv) {
+  if (j < c.n_d)
+    limit_diode<PHYS>(c, j, x, jv);
+  else if (j < c.n_d + c.n_q)
+    limit_bjt(c, j - c.n_d, x, jv);
+  else
+    limit_mos(c, j - c.n_d - c.n_q, x, jv);
+}
+
+// Device evaluation into the value slots at junction voltages jv, one
+// device at a time: each body reads its own device's rows of jv (and under
+// PHYS its committed rows in ph) and writes only its own slots.  TRAN adds
+// the companions of a transient step dte; gmin is the OP's status gmin on
+// the MOSFET drain/source diagonals (0 in a transient).  PHYS evaluates
+// the physics diode, and its companions read ph.
+template <bool TRAN, bool PHYS>
+__device__ __forceinline__ void value_diode(const Deck& c, int k,
+                                            const double* jv, double dte,
+                                            double* nv, const Phys& ph) {
   // ---- diodes (diode.go:119-148, 184-227)
-  for (int k = 0; k < c.n_d; ++k) {
-    const double vd = jv[k];
-    const double nvt = c.d(D_NVT, k), is_t = c.d(D_IST, k);
-    const double gmin_d = c.d(D_GMIN, k);
-    double id, gd;
-    if constexpr (PHYS) {
-      d_phys(vd, nvt, is_t, gmin_d, c.d(D_RS, k), c.d(D_BV, k), &id, &gd);
-    } else {
-      const bool fwd = vd > -3.0 * nvt;
-      const double arg = clamp_max(vd / nvt, EXP_CLAMP);
-      const double i_fwd = is_t * (exp(arg) - 1.0);
-      id = fwd ? i_fwd : -is_t;
-      gd = fwd ? (fabs(id) + is_t) / nvt + gmin_d : gmin_d;
-    }
-    if (TRAN && PHYS) {  // the committed charge memory (assemble.py)
-      const double tt = c.d(D_TT, k);
-      const double* sd = ph.d + k;
-      const bool on = ph.trap && sd[DS_HIST * c.n_d] > 0;
-      const double dq = tt * id - sd[DS_Q * c.n_d];
-      const bool pos = dte > 0;
-      const double cap =
-          pos ? (on ? 2.0 * dq / dte - sd[DS_IC * c.n_d] : dq / dte) : 0.0;
-      const double geq = pos ? (on ? 2.0 * tt : tt) * gd / dte : 0.0;
-      gd = gd + geq;
-      id = id + cap;
-    } else if (TRAN) {  // compat: the previous charge is frozen (PLAN.md 1)
-      const double tt = c.d(D_TT, k);
-      const double charge = tt * id;
-      const bool pos = dte > 0;
-      const double cap = pos ? (charge - c.d(D_PQ, k)) / dte : 0.0;
-      const double geq = pos ? tt * gd / dte : 0.0;
-      gd = gd + geq;
-      id = id + cap;
-    }
-    nv[k] = gd;
-    nv[c.n_d + k] = id - gd * vd;
+  const double vd = jv[k];
+  const double nvt = c.d(D_NVT, k), is_t = c.d(D_IST, k);
+  const double gmin_d = c.d(D_GMIN, k);
+  double id, gd;
+  if constexpr (PHYS) {
+    d_phys(vd, nvt, is_t, gmin_d, c.d(D_RS, k), c.d(D_BV, k), &id, &gd);
+  } else {
+    const bool fwd = vd > -3.0 * nvt;
+    const double arg = clamp_max(vd / nvt, EXP_CLAMP);
+    const double i_fwd = is_t * (exp(arg) - 1.0);
+    id = fwd ? i_fwd : -is_t;
+    gd = fwd ? (fabs(id) + is_t) / nvt + gmin_d : gmin_d;
   }
-  double* qv = nv + D_SLOTS * c.n_d;
+  if (TRAN && PHYS) {  // the committed charge memory (assemble.py)
+    const double tt = c.d(D_TT, k);
+    const double* sd = ph.d + k;
+    const bool on = ph.trap && sd[DS_HIST * c.n_d] > 0;
+    const double dq = tt * id - sd[DS_Q * c.n_d];
+    const bool pos = dte > 0;
+    const double cap =
+        pos ? (on ? 2.0 * dq / dte - sd[DS_IC * c.n_d] : dq / dte) : 0.0;
+    const double geq = pos ? (on ? 2.0 * tt : tt) * gd / dte : 0.0;
+    gd = gd + geq;
+    id = id + cap;
+  } else if (TRAN) {  // compat: the previous charge is frozen (PLAN.md 1)
+    const double tt = c.d(D_TT, k);
+    const double charge = tt * id;
+    const bool pos = dte > 0;
+    const double cap = pos ? (charge - c.d(D_PQ, k)) / dte : 0.0;
+    const double geq = pos ? tt * gd / dte : 0.0;
+    gd = gd + geq;
+    id = id + cap;
+  }
+  nv[k] = gd;
+  nv[c.n_d + k] = id - gd * vd;
+}
+
+__device__ __forceinline__ void value_bjt(const Deck& c, int k,
+                                          const double* jv, double* nv) {
   // ---- BJTs: models/bjt.py jacobian after the cold start
+  double* qv = nv + D_SLOTS * c.n_d;
   const double* jbe = jv + c.n_d;
   const double* jbc = jbe + c.n_q;
-  for (int k = 0; k < c.n_q; ++k) {
-    double vbe = jbe[k], vbc = jbc[k];
-    const bool cold = (vbe == 0.0) && (vbe - vbc == 0.0);
-    vbe = cold ? c.q(Q_VBE0, k) : vbe;
-    vbc = cold ? c.q(Q_VBC0, k) : vbc;
-    const double sign = c.q(Q_SIGN, k), ies = c.q(Q_IES, k),
-                 ics = c.q(Q_ICS, k);
-    const double invnfvt = c.q(Q_INVNFVT, k), invnrvt = c.q(Q_INVNRVT, k);
-    const double invvaf = c.q(Q_INVVAF, k), invvar = c.q(Q_INVVAR, k);
-    const double invikf = c.q(Q_INVIKF, k), invikr = c.q(Q_INVIKR, k);
-    const double a1 = vbe * invnfvt;
-    const double a2 = vbc * invnrvt;
-    const double e1 = exp(clamp_max(a1, EXP_CLAMP));
-    const double e2 = exp(clamp_max(a2, EXP_CLAMP));
-    const double f0 = sign * ies * (e1 - 1.0);
-    const double r0 = sign * ics * (e2 - 1.0);
-    const double df0 = a1 <= EXP_CLAMP ? sign * ies * e1 * invnfvt : 0.0;
-    const double dr0 = a2 <= EXP_CLAMP ? sign * ics * e2 * invnrvt : 0.0;
-    const double u = 1.0 - vbc * invvaf;
-    const double wv = 1.0 + vbe * invvar;
-    const double f1 = f0 * u;
-    const double r1 = r0 * wv;
-    const double df1_be = df0 * u;
-    const double df1_bc = -f0 * invvaf;
-    const double dr1_be = r0 * invvar;
-    const double dr1_bc = dr0 * wv;
-    const double sf = sgn(f1), sr = sgn(r1);
-    const double den_f = 1.0 + fabs(f1) * invikf * u;
-    const double den_r = 1.0 + fabs(r1) * invikr * u;
-    const double f2 = f1 / den_f;
-    const double r2 = r1 / den_r;
-    const double ddenf_be = sf * df1_be * invikf * u;
-    const double ddenf_bc =
-        sf * df1_bc * invikf * u - fabs(f1) * invikf * invvaf;
-    const double ddenr_be = sr * dr1_be * invikr * u;
-    const double ddenr_bc =
-        sr * dr1_bc * invikr * u - fabs(r1) * invikr * invvaf;
-    const double df2_be = (df1_be - f2 * ddenf_be) / den_f;
-    const double df2_bc = (df1_bc - f2 * ddenf_bc) / den_f;
-    const double dr2_be = (dr1_be - r2 * ddenr_be) / den_r;
-    const double dr2_bc = (dr1_bc - r2 * ddenr_bc) / den_r;
-    const double af = c.q(Q_AF, k);
-    const double ic0 = sign * (af * f2 - r2) * u;
-    const double ie0 = sign * (f2 - r2);
-    const double ib0 = ie0 - ic0;
-    const double g11 = sign * (af * df2_be - dr2_be) * u;
-    const double g12 = sign * ((af * df2_bc - dr2_bc) * u - (af * f2 - r2) *
-                                                              invvaf);
-    const double g21 = sign * (df2_be - dr2_be) - g11;
-    const double g22 = sign * (df2_bc - dr2_bc) - g12;
-    const int nq = c.n_q;
-    // the stamp of ops/assemble.py's BJT block, base node sign sb
-    qv[0 * nq + k] = (g11 + g12) * sign;
-    qv[1 * nq + k] = -g11 * sign;
-    qv[2 * nq + k] = -g12 * sign;
-    qv[3 * nq + k] = (g21 + g22) * sign;
-    qv[4 * nq + k] = -g21 * sign;
-    qv[5 * nq + k] = -g22 * sign;
-    qv[6 * nq + k] = -(g11 + g12 + g21 + g22) * sign;
-    qv[7 * nq + k] = (g11 + g21) * sign;
-    qv[8 * nq + k] = (g12 + g22) * sign;
-    qv[9 * nq + k] = -ic0 + g11 * vbe + g12 * vbc;
-    qv[10 * nq + k] = -ib0 + g21 * vbe + g22 * vbc;
-    qv[11 * nq + k] = (ic0 + ib0) - (g11 + g21) * vbe - (g12 + g22) * vbc;
-  }
-  double* mv = qv + Q_SLOTS * c.n_q;
-  // ---- MOSFETs: models/mosfet.py dc_eval and charges after the cold start
-  const double* jgs = jbc + c.n_q;
-  const double* jds = jgs + c.n_m;
-  const double* jbs = jds + c.n_m;
+  double vbe = jbe[k], vbc = jbc[k];
+  const bool cold = (vbe == 0.0) && (vbe - vbc == 0.0);
+  vbe = cold ? c.q(Q_VBE0, k) : vbe;
+  vbc = cold ? c.q(Q_VBC0, k) : vbc;
+  const double sign = c.q(Q_SIGN, k), ies = c.q(Q_IES, k),
+               ics = c.q(Q_ICS, k);
+  const double invnfvt = c.q(Q_INVNFVT, k), invnrvt = c.q(Q_INVNRVT, k);
+  const double invvaf = c.q(Q_INVVAF, k), invvar = c.q(Q_INVVAR, k);
+  const double invikf = c.q(Q_INVIKF, k), invikr = c.q(Q_INVIKR, k);
+  const double a1 = vbe * invnfvt;
+  const double a2 = vbc * invnrvt;
+  const double e1 = exp(clamp_max(a1, EXP_CLAMP));
+  const double e2 = exp(clamp_max(a2, EXP_CLAMP));
+  const double f0 = sign * ies * (e1 - 1.0);
+  const double r0 = sign * ics * (e2 - 1.0);
+  const double df0 = a1 <= EXP_CLAMP ? sign * ies * e1 * invnfvt : 0.0;
+  const double dr0 = a2 <= EXP_CLAMP ? sign * ics * e2 * invnrvt : 0.0;
+  const double u = 1.0 - vbc * invvaf;
+  const double wv = 1.0 + vbe * invvar;
+  const double f1 = f0 * u;
+  const double r1 = r0 * wv;
+  const double df1_be = df0 * u;
+  const double df1_bc = -f0 * invvaf;
+  const double dr1_be = r0 * invvar;
+  const double dr1_bc = dr0 * wv;
+  const double sf = sgn(f1), sr = sgn(r1);
+  const double den_f = 1.0 + fabs(f1) * invikf * u;
+  const double den_r = 1.0 + fabs(r1) * invikr * u;
+  const double f2 = f1 / den_f;
+  const double r2 = r1 / den_r;
+  const double ddenf_be = sf * df1_be * invikf * u;
+  const double ddenf_bc =
+      sf * df1_bc * invikf * u - fabs(f1) * invikf * invvaf;
+  const double ddenr_be = sr * dr1_be * invikr * u;
+  const double ddenr_bc =
+      sr * dr1_bc * invikr * u - fabs(r1) * invikr * invvaf;
+  const double df2_be = (df1_be - f2 * ddenf_be) / den_f;
+  const double df2_bc = (df1_bc - f2 * ddenf_bc) / den_f;
+  const double dr2_be = (dr1_be - r2 * ddenr_be) / den_r;
+  const double dr2_bc = (dr1_bc - r2 * ddenr_bc) / den_r;
+  const double af = c.q(Q_AF, k);
+  const double ic0 = sign * (af * f2 - r2) * u;
+  const double ie0 = sign * (f2 - r2);
+  const double ib0 = ie0 - ic0;
+  const double g11 = sign * (af * df2_be - dr2_be) * u;
+  const double g12 = sign * ((af * df2_bc - dr2_bc) * u - (af * f2 - r2) *
+                                                            invvaf);
+  const double g21 = sign * (df2_be - dr2_be) - g11;
+  const double g22 = sign * (df2_bc - dr2_bc) - g12;
+  const int nq = c.n_q;
+  // the stamp of ops/assemble.py's BJT block, base node sign sb
+  qv[0 * nq + k] = (g11 + g12) * sign;
+  qv[1 * nq + k] = -g11 * sign;
+  qv[2 * nq + k] = -g12 * sign;
+  qv[3 * nq + k] = (g21 + g22) * sign;
+  qv[4 * nq + k] = -g21 * sign;
+  qv[5 * nq + k] = -g22 * sign;
+  qv[6 * nq + k] = -(g11 + g12 + g21 + g22) * sign;
+  qv[7 * nq + k] = (g11 + g21) * sign;
+  qv[8 * nq + k] = (g12 + g22) * sign;
+  qv[9 * nq + k] = -ic0 + g11 * vbe + g12 * vbc;
+  qv[10 * nq + k] = -ib0 + g21 * vbe + g22 * vbc;
+  qv[11 * nq + k] = (ic0 + ib0) - (g11 + g21) * vbe - (g12 + g22) * vbc;
+}
+
+template <bool TRAN, bool PHYS>
+__device__ __forceinline__ void value_mos(const Deck& c, int k,
+                                          const double* jv, double dte,
+                                          double gmin, double* nv,
+                                          const Phys& ph) {
+  // ---- MOSFETs: models/mosfet.py dc_eval and charges after the cold
+  // start
+  double* mv = nv + D_SLOTS * c.n_d + Q_SLOTS * c.n_q;
   const int nm = c.n_m;
-  for (int k = 0; k < nm; ++k) {
-    const Mos p{c.pm + k, nm};
-    const int level = c.mn[5 * k + 4];
-    double vgs = jgs[k], vds = jds[k], vbs = jbs[k];
-    const bool cold = (vgs == 0.0) && (vds == 0.0) && (vbs == 0.0);
-    vgs = cold ? 0.7 : vgs;
-    vds = cold ? 0.1 : vds;
-    vbs = cold ? 0.0 : vbs;
-    const double sign = p[M_SIGN];
-    int region;
-    const double id = sign * mos_ids(p, level, vgs, vds, vbs, &region);
-    const double vth = mos_vth(p, vbs);
-    const double vgst = vgs - vth;
-    const double beta1 = p[M_KP] * p[M_W] / p[M_L];
-    const bool lin = region == LINEAR;
-    const bool cut = region == CUTOFF;
-    double gm, gds, gmbs;
-    if (level == 2 || level == 3) {  // numeric differencing (mosfet.go:517)
-      const double d = MOS_DELTA * sign;
-      int r_;
-      const double idg = mos_ids(p, level, vgs + d, vds, vbs, &r_);
-      const double idd = mos_ids(p, level, vgs, vds + d, vbs, &r_);
-      const double idb = mos_ids(p, level, vgs, vds, vbs + d, &r_);
-      gm = clamp_min((sign * idg - id) * MOS_INV_DELTA, MOS_GMIN);
-      gds = clamp_min((sign * idd - id) * MOS_INV_DELTA, MOS_GMIN);
-      gmbs = clamp_min((sign * idb - id) * MOS_INV_DELTA, MOS_GMIN);
-    } else {  // level 1 analytic (mosfet.go:505-515)
-      const double lamf = 1.0 + p[M_LAM] * vds;
-      gm = lin ? beta1 * vds * lamf : beta1 * vgst * lamf;
-      gds = lin ? beta1 * (vgst - vds) * lamf +
-                      beta1 * p[M_LAM] * (vgst * vds - 0.5 * vds * vds)
-                : 0.5 * beta1 * vgst * vgst * p[M_LAM];
-      gmbs = (p[M_GAMMA] > 0 && p[M_PHI] > 0 && vbs < 0)
-                 ? gm * p[M_GAMMA] /
-                       (2.0 * sqrt(clamp_min(p[M_PHI] - vbs, 1e-30)))
-                 : MOS_GMIN;
-    }
-    gm = cut ? MOS_GMIN : gm;
-    gds = cut ? MOS_GMIN : gds;
-    gmbs = cut ? MOS_GMIN : gmbs;
-    gm = gm * sign;  // mosfet.go:534-537: gm and gmbs flip, gds does not
-    gmbs = gmbs * sign;
-    mv[0 * nm + k] = gds + gmin;
-    mv[1 * nm + k] = gm;
-    mv[2 * nm + k] = -gds - gm - gmbs;
-    mv[3 * nm + k] = gmbs;
-    mv[4 * nm + k] = gds + gm + gmbs + gmin;
-    mv[5 * nm + k] = -gds;
-    mv[6 * nm + k] = -gm;
-    mv[7 * nm + k] = -gmbs;
-    mv[8 * nm + k] = -id + gds * vds + gm * vgs + gmbs * vbs;
-    if (TRAN) {  // Meyer capacitances (mosfet.go:540-594) and charges
-      const double cox = COX_NUM / p[M_TOX];
-      const double cgate = cox * p[M_W] * p[M_L];
-      const double cgso = p[M_CGSO] * p[M_W];
-      const double cgdo = p[M_CGDO] * p[M_W];
-      const double cgbo = p[M_CGBO] * p[M_L];
-      const double cbs = (p[M_CBS] == 0 && p[M_CJ] > 0)
-                             ? p[M_CJ] * p[M_AS] + p[M_CJSW] * p[M_PS]
-                             : p[M_CBS];
-      const double cbd = (p[M_CBD] == 0 && p[M_CJ] > 0)
-                             ? p[M_CJ] * p[M_AD] + p[M_CJSW] * p[M_PD]
-                             : p[M_CBD];
-      const double cgs = cut ? cgso
-                             : (lin ? cgate / 2.0 + cgso
-                                    : cgate * TWO_THIRDS + cgso);
-      const double cgd = cut ? cgdo : (lin ? cgate / 2.0 + cgdo : cgdo);
-      const double cgb =
-          cut ? cgate * TWO_THIRDS : (lin ? cgbo : cgbo + cgate * ONE_THIRD);
-      const double qgs = cut ? 0.0 : cgs * vgs;
-      const double qgd = cut ? 0.0 : cgd * (vgs - vds);
-      const double qgb = cgb * (vgs - vbs);
-      const double qbs = mos_qj(p, cbs, vbs);
-      const double qbd = mos_qj(p, cbd, vbs - vds);
-      if constexpr (PHYS) {
-        // the committed charges; trapezoidal 2C/dt and 2dq/dt - ic after
-        // the device's first committed step (assemble.py's physics block)
-        const double* sm = ph.m + k;
-        const bool on = ph.trap && sm[MS_HIST * nm] > 0;
-        const double cs[7] = {cgd, cgs, cgb, cgd + cgs + cgb, cbs, cbd,
-                              cbd + cbs};
-        for (int r = 0; r < 7; ++r)
-          mv[(9 + r) * nm + k] = (on ? 2.0 * cs[r] : cs[r]) / dte;
-        const double qs[5] = {qgs, qgd, qgb, qbs, qbd};
-        double ic[5];
-        for (int r = 0; r < 5; ++r) {
-          const double dq = (qs[r] - sm[(MS_QGS + r) * nm]) / dte;
-          ic[r] = on ? 2.0 * dq - sm[(MS_ICGS + r) * nm] : dq;
-        }
-        mv[16 * nm + k] = ic[1];
-        mv[17 * nm + k] = ic[0];
-        mv[18 * nm + k] = ic[2];
-        mv[19 * nm + k] = ic[3];
-        mv[20 * nm + k] = ic[4];
-      } else {
-        mv[9 * nm + k] = cgd / dte;
-        mv[10 * nm + k] = cgs / dte;
-        mv[11 * nm + k] = cgb / dte;
-        mv[12 * nm + k] = (cgd + cgs + cgb) / dte;
-        mv[13 * nm + k] = cbs / dte;
-        mv[14 * nm + k] = cbd / dte;
-        mv[15 * nm + k] = (cbd + cbs) / dte;
-        mv[16 * nm + k] = (qgd - p[M_QGD]) / dte;
-        mv[17 * nm + k] = (qgs - p[M_QGS]) / dte;
-        mv[18 * nm + k] = (qgb - p[M_QGB]) / dte;
-        mv[19 * nm + k] = (qbs - p[M_QBS]) / dte;
-        mv[20 * nm + k] = (qbd - p[M_QBD]) / dte;
+  const double* jgs = jv + c.n_d + 2 * c.n_q;
+  const double* jds = jgs + nm;
+  const double* jbs = jds + nm;
+  const Mos p{c.pm + k, nm};
+  const int level = c.mn[5 * k + 4];
+  double vgs = jgs[k], vds = jds[k], vbs = jbs[k];
+  const bool cold = (vgs == 0.0) && (vds == 0.0) && (vbs == 0.0);
+  vgs = cold ? 0.7 : vgs;
+  vds = cold ? 0.1 : vds;
+  vbs = cold ? 0.0 : vbs;
+  const double sign = p[M_SIGN];
+  int region;
+  const double id = sign * mos_ids(p, level, vgs, vds, vbs, &region);
+  const double vth = mos_vth(p, vbs);
+  const double vgst = vgs - vth;
+  const double beta1 = p[M_KP] * p[M_W] / p[M_L];
+  const bool lin = region == LINEAR;
+  const bool cut = region == CUTOFF;
+  double gm, gds, gmbs;
+  if (level == 2 || level == 3) {  // numeric differencing (mosfet.go:517)
+    const double d = MOS_DELTA * sign;
+    int r_;
+    const double idg = mos_ids(p, level, vgs + d, vds, vbs, &r_);
+    const double idd = mos_ids(p, level, vgs, vds + d, vbs, &r_);
+    const double idb = mos_ids(p, level, vgs, vds, vbs + d, &r_);
+    gm = clamp_min((sign * idg - id) * MOS_INV_DELTA, MOS_GMIN);
+    gds = clamp_min((sign * idd - id) * MOS_INV_DELTA, MOS_GMIN);
+    gmbs = clamp_min((sign * idb - id) * MOS_INV_DELTA, MOS_GMIN);
+  } else {  // level 1 analytic (mosfet.go:505-515)
+    const double lamf = 1.0 + p[M_LAM] * vds;
+    gm = lin ? beta1 * vds * lamf : beta1 * vgst * lamf;
+    gds = lin ? beta1 * (vgst - vds) * lamf +
+                    beta1 * p[M_LAM] * (vgst * vds - 0.5 * vds * vds)
+              : 0.5 * beta1 * vgst * vgst * p[M_LAM];
+    gmbs = (p[M_GAMMA] > 0 && p[M_PHI] > 0 && vbs < 0)
+               ? gm * p[M_GAMMA] /
+                     (2.0 * sqrt(clamp_min(p[M_PHI] - vbs, 1e-30)))
+               : MOS_GMIN;
+  }
+  gm = cut ? MOS_GMIN : gm;
+  gds = cut ? MOS_GMIN : gds;
+  gmbs = cut ? MOS_GMIN : gmbs;
+  gm = gm * sign;  // mosfet.go:534-537: gm and gmbs flip, gds does not
+  gmbs = gmbs * sign;
+  mv[0 * nm + k] = gds + gmin;
+  mv[1 * nm + k] = gm;
+  mv[2 * nm + k] = -gds - gm - gmbs;
+  mv[3 * nm + k] = gmbs;
+  mv[4 * nm + k] = gds + gm + gmbs + gmin;
+  mv[5 * nm + k] = -gds;
+  mv[6 * nm + k] = -gm;
+  mv[7 * nm + k] = -gmbs;
+  mv[8 * nm + k] = -id + gds * vds + gm * vgs + gmbs * vbs;
+  if (TRAN) {  // Meyer capacitances (mosfet.go:540-594) and charges
+    const double cox = COX_NUM / p[M_TOX];
+    const double cgate = cox * p[M_W] * p[M_L];
+    const double cgso = p[M_CGSO] * p[M_W];
+    const double cgdo = p[M_CGDO] * p[M_W];
+    const double cgbo = p[M_CGBO] * p[M_L];
+    const double cbs = (p[M_CBS] == 0 && p[M_CJ] > 0)
+                           ? p[M_CJ] * p[M_AS] + p[M_CJSW] * p[M_PS]
+                           : p[M_CBS];
+    const double cbd = (p[M_CBD] == 0 && p[M_CJ] > 0)
+                           ? p[M_CJ] * p[M_AD] + p[M_CJSW] * p[M_PD]
+                           : p[M_CBD];
+    const double cgs = cut ? cgso
+                           : (lin ? cgate / 2.0 + cgso
+                                  : cgate * TWO_THIRDS + cgso);
+    const double cgd = cut ? cgdo : (lin ? cgate / 2.0 + cgdo : cgdo);
+    const double cgb =
+        cut ? cgate * TWO_THIRDS : (lin ? cgbo : cgbo + cgate * ONE_THIRD);
+    const double qgs = cut ? 0.0 : cgs * vgs;
+    const double qgd = cut ? 0.0 : cgd * (vgs - vds);
+    const double qgb = cgb * (vgs - vbs);
+    const double qbs = mos_qj(p, cbs, vbs);
+    const double qbd = mos_qj(p, cbd, vbs - vds);
+    if constexpr (PHYS) {
+      // the committed charges; trapezoidal 2C/dt and 2dq/dt - ic after
+      // the device's first committed step (assemble.py's physics block)
+      const double* sm = ph.m + k;
+      const bool on = ph.trap && sm[MS_HIST * nm] > 0;
+      const double cs[7] = {cgd, cgs, cgb, cgd + cgs + cgb, cbs, cbd,
+                            cbd + cbs};
+      for (int r = 0; r < 7; ++r)
+        mv[(9 + r) * nm + k] = (on ? 2.0 * cs[r] : cs[r]) / dte;
+      const double qs[5] = {qgs, qgd, qgb, qbs, qbd};
+      double ic[5];
+      for (int r = 0; r < 5; ++r) {
+        const double dq = (qs[r] - sm[(MS_QGS + r) * nm]) / dte;
+        ic[r] = on ? 2.0 * dq - sm[(MS_ICGS + r) * nm] : dq;
       }
+      mv[16 * nm + k] = ic[1];
+      mv[17 * nm + k] = ic[0];
+      mv[18 * nm + k] = ic[2];
+      mv[19 * nm + k] = ic[3];
+      mv[20 * nm + k] = ic[4];
+    } else {
+      mv[9 * nm + k] = cgd / dte;
+      mv[10 * nm + k] = cgs / dte;
+      mv[11 * nm + k] = cgb / dte;
+      mv[12 * nm + k] = (cgd + cgs + cgb) / dte;
+      mv[13 * nm + k] = cbs / dte;
+      mv[14 * nm + k] = cbd / dte;
+      mv[15 * nm + k] = (cbd + cbs) / dte;
+      mv[16 * nm + k] = (qgd - p[M_QGD]) / dte;
+      mv[17 * nm + k] = (qgs - p[M_QGS]) / dte;
+      mv[18 * nm + k] = (qgb - p[M_QGB]) / dte;
+      mv[19 * nm + k] = (qbs - p[M_QBS]) / dte;
+      mv[20 * nm + k] = (qbd - p[M_QBD]) / dte;
     }
   }
+}
+
+// Every device's evaluation, kind by kind, without a transient's
+// companions (the OP and the DC sweep).
+template <bool PHYS = false>
+__device__ void device_values(const Deck& c, const double* jv, double gmin,
+                              double* nv) {
+  for (int k = 0; k < c.n_d; ++k)
+    value_diode<false, PHYS>(c, k, jv, 0.0, nv, Phys{});
+  for (int k = 0; k < c.n_q; ++k) value_bjt(c, k, jv, nv);
+  for (int k = 0; k < c.n_m; ++k)
+    value_mos<false, PHYS>(c, k, jv, 0.0, gmin, nv, Phys{});
+}
+
+// The evaluation of device j of the deck's order.
+template <bool TRAN, bool PHYS = false>
+__device__ __forceinline__ void device_value(const Deck& c, int j,
+                                             const double* jv, double dte,
+                                             double gmin, double* nv,
+                                             const Phys& ph) {
+  if (j < c.n_d)
+    value_diode<TRAN, PHYS>(c, j, jv, dte, nv, ph);
+  else if (j < c.n_d + c.n_q)
+    value_bjt(c, j - c.n_d, jv, nv);
+  else
+    value_mos<TRAN, PHYS>(c, j - c.n_d - c.n_q, jv, dte, gmin, nv, ph);
 }
 
 // ------------------------------------------------------ build and solve
@@ -631,7 +693,7 @@ __device__ __forceinline__ void build(double (*m)[NMAX + 1], int n,
 // Gauss-Jordan with partial pivoting (largest |pivot| among unused rows,
 // lowest row on a tie; a zero pivot poisons its row so x goes non-finite;
 // a NaN in a pivot column makes every x NaN).  Returns whether every x is
-// finite.  run_kernel.cu's linear branch has the same code in line.
+// finite.  gj_warp.cuh's eliminations give the same bits.
 template <int NMAX>
 __device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
                                              double* x) {
@@ -681,26 +743,24 @@ __device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
   return finite;
 }
 
-// The Newton flavours of engine/newton.py: the OP (jv from x at every
-// iteration, status gmin on the MOSFET and the non-ground diagonals), the
-// transient (iteration 0 stamps the carried jv, companions of step dte, no
-// gmin diagonal) and the DC sweep (the transient's warm start without its
-// companions, status gmin 0, no gmin diagonal, and CheckConvergence:
-// every |new - old| <= abstol or <= reltol*|new|, dc.go:142-187).
-enum Flavour { FL_OP = 0, FL_TRAN = 1, FL_DC = 2 };
+// The Newton flavours of engine/newton.py on one thread: the OP (jv from x
+// at every iteration, status gmin on the MOSFET and the non-ground
+// diagonals) and the DC sweep (iteration 0 stamps the carried jv, a warm
+// start, dc.go:155; status gmin 0, no gmin diagonal, and CheckConvergence:
+// every |new - old| <= abstol or <= reltol*|new|, dc.go:142-187).  The
+// transient's Newton runs on the run kernel's segment (run_kernel.cuh).
+enum Flavour { FL_OP = 0, FL_DC };
 
 // The Newton loop of one lane (engine/newton.py) in flavour FL.  x holds
 // x0 on entry and the last solution on exit; jv holds the carried junction
 // voltages on entry and those of the last iteration on exit.  Returns the
 // iteration count; *conv is whether it converged.  PHYS: the physics
-// diode and limit, and a transient's companions from ph.
+// diode and limit.
 template <int NMAX, int FL, bool PHYS = false, class Lin>
 __device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
                       double (*m)[NMAX + 1], double* x, double* jv,
-                      double* nv, double dte, double gmin, int max_iter,
-                      double reltol, double abstol, bool* conv,
-                      const Phys& ph = {}) {
-  constexpr bool TRAN = FL == FL_TRAN;
+                      double* nv, double gmin, int max_iter, double reltol,
+                      double abstol, bool* conv) {
   constexpr bool OP = FL == FL_OP;
   const int n = c.n;
   double xn[NMAX];
@@ -708,7 +768,7 @@ __device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
   bool ok = false;
   while (!ok && k < max_iter) {
     if (OP || k > 0) limit_jv<PHYS>(c, x, jv);
-    device_values<TRAN, PHYS>(c, jv, dte, OP ? gmin : 0.0, nv, ph);
+    device_values<PHYS>(c, jv, OP ? gmin : 0.0, nv);
     build<NMAX, true>(m, n, ent, ne, lin, nv);
     if (OP)
       for (int r = 1; r < n; ++r) m[r][r] = m[r][r] + gmin;

@@ -107,7 +107,7 @@ op_kernel(const int* __restrict__ topo_g, int topo_len,
   if (act)
     iters = newton<NMAX, FL_OP, PHYS>(deck, ent, ne,
                                       lin_for(max_nan(gmin, gmin_floor)), m,
-                                      x, jv, nv, 0.0, gmin, max_iter, reltol,
+                                      x, jv, nv, gmin, max_iter, reltol,
                                       abstol, &conv);
 
   for (int i = 0; i < n; ++i) x_out[(size_t)lane * n + i] = x[i];

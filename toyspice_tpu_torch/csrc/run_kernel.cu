@@ -38,10 +38,13 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (np1 <= 8) return launch_kind<8, STORE>(a, nonlinear, mag, s);
-  if (np1 <= 16) return launch_kind<16, STORE>(a, nonlinear, mag, s);
-  if (np1 <= 32) return launch_kind<32, STORE>(a, nonlinear, mag, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (seg_bucket(np1)) {
+    case 4: return launch_kind<4, STORE>(a, nonlinear, mag, s);
+    case 8: return launch_kind<8, STORE>(a, nonlinear, mag, s);
+    case 16: return launch_kind<16, STORE>(a, nonlinear, mag, s);
+    case 32: return launch_kind<32, STORE>(a, nonlinear, mag, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -52,21 +55,25 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 // matrix size, nonlinear the Newton instantiation, mag the magnetic
 // stamps, physics the physics semantics and trap != 0 its trapezoidal
 // companions (every run-kernel library has this entry point; this one
-// holds compat, and refuses physics, trap and LM/K with a Newton).  state
-// and jv are updated in place; t, dt and att are written.
+// holds compat, and refuses physics, trap and LM/K with a Newton).  topo
+// is the whole table, row view included; nl_doubles a Newton deck's
+// junction voltages and value slots a lane (ops/run.py newton_doubles),
+// which size its segments' slices.  state and jv are updated in place; t,
+// dt and att are written.
 extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
                        int trap, const int* topo, int topo_len,
-                       const double* dev, const double* rc, double* state,
-                       double* jv, double* t, double* dt, int* acc, int* att,
-                       int* fail, int* nri, int nlanes, double tstop,
-                       double minstep, double tmax, double trtol,
-                       int max_attempts, double reltol, double abstol,
-                       int max_iter, void* stream) {
-  const RunArgs a{topo,    topo_len, dev,     rc,      state,   jv,
-                  t,       dt,       acc,     att,     fail,    nri,
-                  nlanes,  tstop,    minstep, tmax,    trtol,   max_attempts,
-                  reltol,  abstol,   max_iter, 0.0,    0,       0,
-                  nullptr, nullptr,  nullptr, nullptr, trap};
+                       int nl_doubles, const double* dev, const double* rc,
+                       double* state, double* jv, double* t, double* dt,
+                       int* acc, int* att, int* fail, int* nri, int nlanes,
+                       double tstop, double minstep, double tmax,
+                       double trtol, int max_attempts, double reltol,
+                       double abstol, int max_iter, void* stream) {
+  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+                  jv,      t,        dt,         acc,     att,     fail,
+                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+                  max_attempts,      reltol,     abstol,  max_iter, 0.0,
+                  0,       0,        nullptr,    nullptr, nullptr, nullptr,
+                  trap};
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics, stream);
 }
 #else
@@ -77,31 +84,33 @@ extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
 // lane whose block is full.
 extern "C" int tsr_run_store(
     int np1, int nonlinear, int mag, int physics, int trap, const int* topo,
-    int topo_len,
+    int topo_len, int nl_doubles,
     const double* dev, const double* rc, double* state, double* jv,
     double* t, double* dt, int* acc, int* att, int* fail, int* nri,
     int nlanes, double tstop, double minstep, double tmax, double trtol,
     int max_attempts, double reltol, double abstol, int max_iter,
     double tstart, int max_store, int stream, double* out_x, double* out_t,
     int* out_n, int* overflow, void* cuda_stream) {
-  const RunArgs a{topo,    topo_len, dev,     rc,      state,  jv,
-                  t,       dt,       acc,     att,     fail,   nri,
-                  nlanes,  tstop,    minstep, tmax,    trtol,  max_attempts,
-                  reltol,  abstol,   max_iter, tstart, max_store, stream,
-                  out_x,   out_t,    out_n,   overflow, trap};
+  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+                  jv,      t,        dt,         acc,     att,     fail,
+                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+                  max_attempts,      reltol,     abstol,  max_iter, tstart,
+                  max_store, stream, out_x,      out_t,   out_n,   overflow,
+                  trap};
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics,
                                  cuda_stream);
 }
 #endif
 
-// The launch shape of a linear deck of np1 unknowns over nlanes lanes with
-// a table of topo_len words, as the entries above compute it: out = {W,
-// lanes a block, blocks, threads a block, bytes of shared memory}; returns
-// cudaErrorInvalidValue past the caps.
+// The launch shape of a deck of np1 unknowns over nlanes lanes with a
+// table of topo_len words (and, a Newton deck, nl_doubles of junction
+// voltages and value slots a lane; 0 for a linear one), as the entries
+// above compute it: out = {W, lanes a block, blocks, threads a block,
+// bytes of shared memory}; returns cudaErrorInvalidValue past the caps.
 extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
-                                 int* out) {
+                                 int nl_doubles, int* out) {
   SegShape s;
-  if (!seg_shape_np1(np1, nlanes, topo_len, &s))
+  if (!seg_shape_np1(np1, nlanes, topo_len, nl_doubles, &s))
     return static_cast<int>(cudaErrorInvalidValue);
   out[0] = s.w;
   out[1] = s.per_block;

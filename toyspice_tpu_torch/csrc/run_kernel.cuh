@@ -4,9 +4,8 @@
 // Whole-run adaptive transient (R, C, L, V, I with DC/SIN/PULSE/PWL
 // sources, and under compat semantics magnetic inductors and mutual
 // couplings, or diodes, BJTs and MOSFETs under compat or physics
-// semantics), in f64: a linear deck on a segment of 8, 16 or 32 lanes of
-// a warp per Monte-Carlo lane (run_seg_kernel), a Newton deck on one
-// thread per lane (run_kernel).
+// semantics), in f64, every deck on a segment of 4, 8, 16 or 32 lanes of
+// a warp per Monte-Carlo lane (run_seg_kernel).
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_run.py::_run_kernel
 // (body _run_core, launched at pallas_run.py:811) for its compat subset:
@@ -17,7 +16,7 @@
 // kernel carries double-float (hi, lo) f32 pairs folded to (8, W) sublane
 // tiles and steps whole blocks of lanes in lockstep; Hopper has native
 // f64, so each lane runs its own loop (tran.go:96-152, as
-// engine/tran.py:145-200 of the JAX package):
+// engine/tran.py:145-200 of the JAX package), spread over its segment:
 //
 //   while (!done && attempts < max_attempts):
 //     clamp dt at tstop; sources at the OLD time t (PLAN.md 2);
@@ -63,7 +62,7 @@
 // row n_kept of the lane's (max_store, np1) block.  The TPU needed one
 // launch per attempt, a uniform-slot attempt buffer and a compaction after
 // the run because Mosaic could neither hold that block in VMEM nor scatter
-// per lane; here the lane's thread, or its segment, owns its rows.  With
+// per lane; here the lane's segment owns its rows.  With
 // the stream flag a full block pauses the lane (the caller drains it and
 // re-enters); without it a row past max_store is dropped and the lane's
 // overflow flag set (max_store = 0 keeps nothing: a resumed run without
@@ -82,11 +81,12 @@
 // general engine's scatter order, the sources and the device nodes; the
 // lane's device values, source records, committed state and junction
 // voltages are f64 rows with the batch axis first.  One build serves every
-// eligible deck.  A Newton deck's matrix lives in a per-thread array sized
-// by the template NMAX (8, 16 or 32); a linear deck's rows, one a lane of
-// its segment of W = NMAX lanes, in registers (gj_warp_reg), each built
-// from the table's row view (ops/run_plan.py row_view).  MAG (the LM and K
-// stamps), STORE and PHYS are template parameters too: the instantiations
+// eligible deck.  The system's rows, one a lane of the lane's segment of
+// W = NMAX lanes (the size bucket: 4, 8, 16 or 32), live in registers
+// (gj_warp_reg), each built from the table's row view (ops/run_plan.py
+// row_view); a Newton deck's junction voltages and value slots live in the
+// segment's slice of shared memory.  NL (the Newton), MAG (the LM and K
+// stamps), STORE and PHYS are template parameters: the instantiations
 // without them compile to the code they had before.
 // run_kernel.cu instantiates the compat kernels, run_kernel_phys.cu the
 // PHYS ones without MAG, run_kernel_mag.cu the PHYS MAG ones and compat
@@ -98,13 +98,12 @@
 // build, the source's sin, the LTE and the commit); a Newton iteration adds
 // the device evaluations and a build and solve (chip_smoke.py
 // newton_flops).  Memory traffic is a few rows per lane.  The kernel is
-// latency-bound: each lane's attempts are one dependency chain.  A Newton
-// lane's thread runs it through local memory, and 8192 such lanes fill
-// only a small share of the card's thread slots.  A linear lane's segment
-// (8 threads at np1 <= 8: 65,536 threads for 8192 lanes) spreads each
-// attempt's build, divisions and updates over its rows, keeps the matrix
-// in registers and the lane's rows in shared memory, and leaves the card
-// warps to hide one another's shuffles and divisions.
+// latency-bound: each lane's attempts are one dependency chain.  A lane's
+// segment (8 threads at np1 <= 8: 65,536 threads for 8192 lanes) spreads
+// each attempt's build, divisions and updates over its rows and its
+// devices' evaluations over its threads, keeps the matrix in registers
+// and the lane's rows in shared memory, and leaves the card warps to hide
+// one another's shuffles and divisions.
 
 #pragma once
 
@@ -320,378 +319,7 @@ struct MagPhys {
   }
 };
 
-// The Newton instantiations: one thread per lane (a linear deck runs
-// run_seg_kernel below; NL stays a parameter so that these kernels keep
-// their names).  t_io, dt_io and att_io hold each lane's end on exit, and
-// in the STORE instantiation its start on entry; out_x/out_t/out_n/overflow
-// are used only by the STORE instantiation, trap only by the PHYS ones.
-template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
-__global__ void __launch_bounds__(THREADS)
-run_kernel(const int* __restrict__ topo_g, int topo_len,
-           const double* __restrict__ dev, const double* __restrict__ rc,
-           double* __restrict__ state, double* __restrict__ jv_g,
-           double* __restrict__ t_io, double* __restrict__ dt_io,
-           int* __restrict__ acc_out, int* __restrict__ att_io,
-           int* __restrict__ fail_out, int* __restrict__ nri_out, int nlanes,
-           double tstop, double minstep, double tmax, double trtol,
-           int max_attempts, double reltol, double abstol, int max_iter,
-           double tstart, int max_store, int stream,
-           double* __restrict__ out_x, double* __restrict__ out_t,
-           int* __restrict__ out_n, int* __restrict__ overflow, int trap) {
-  static_assert(NL, "a linear deck runs run_seg_kernel");
-  extern __shared__ int topo[];
-  for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= nlanes) return;
-
-  const int n = topo[H_NP1], ne = topo[H_NE];
-  const int nr = topo[H_NR], nc = topo[H_NC], nl = topo[H_NL];
-  const int nv_src = topo[H_NV];
-  const int nsrc = nv_src + topo[H_NI];
-  const int* ent = topo + topo[H_ENT];
-  const int* src = topo + topo[H_SRC];
-  const int* cnodes = topo + topo[H_CN];
-  const int* lnodes = topo + topo[H_LN];
-  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the nonlinear blocks
-  const double* dv = dev + (size_t)lane * topo[H_ND];
-  const double* g = dv;
-  const double* cadj = dv + nr;
-  const double* craw = dv + nr + nc;
-  const double* lval = dv + nr + 2 * nc;
-  const double* rv = rc + (size_t)lane * topo[H_NRC];
-  // committed state rows: q0 q1 v0 v1 [nc], i0 i1 v0 v1 flux0 [nl]
-  double* st = state + (size_t)lane * topo[H_KS];
-  double* c_q0 = st;
-  double* c_q1 = st + nc;
-  double* c_v0 = st + 2 * nc;
-  double* c_v1 = st + 3 * nc;
-  double* l_i0 = st + 4 * nc;
-  double* l_i1 = l_i0 + nl;
-  double* l_v0 = l_i0 + 2 * nl;
-  double* l_v1 = l_i0 + 3 * nl;
-  double* l_flux0 = l_i0 + 4 * nl;
-  // the physics rows after them: C i0 hist [nc], L hist [nl], then the
-  // diode and MOSFET blocks (DS_ROWS x nD, MS_ROWS x nM)
-  double* c_i0 = l_i0 + 5 * nl;
-  double* c_hist = c_i0 + nc;
-  double* l_hist = c_hist + nc;
-  double* d_st = l_hist + nl;
-  double* m_st = d_st + DS_ROWS * topo[H_NDD];
-  const int* lbranch = topo + topo[H_LB];
-  // the magnetic run constants follow L in the dev rows; under physics
-  // the live LM rows follow the MOSFETs' in the state rows
-  Mag mag{};
-  MagPhys mp{};
-  if constexpr (MAG && PHYS) {
-    const int nlm = topo[H_NLM];
-    mp.lm = lval + nl;
-    mp.kc = mp.lm + LM_ROWS * nlm;
-    mp.ls = m_st + MS_ROWS * topo[H_NM];
-    mp.lval = lval;
-    mp.l_i1 = l_i1;
-    mp.l_hist = l_hist;
-    mp.kp = topo + topo[H_KP];
-    mp.nlm = nlm;
-    mp.trap = trap != 0;
-  } else if constexpr (MAG) {
-    const int nlm = topo[H_NLM];
-    mag.l0 = lval + nl;
-    mag.leff = mag.l0 + nlm;
-    mag.i0 = mag.l0 + 2 * nlm;
-    mag.i1 = mag.l0 + 3 * nlm;
-    mag.mij = mag.l0 + 4 * nlm;
-    mag.kp = topo + topo[H_KP];
-    mag.l_i0 = l_i0;
-  }
-
-  double m[NMAX][NMAX + 1];
-  double x[NMAX];
-  double sv[MAX_SRC];
-
-  // a run without the store starts at 0; the store instantiation reads
-  // each lane's start
-  double t = STORE ? t_io[lane] : 0.0, dt = STORE ? dt_io[lane] : minstep;
-  int att = STORE ? att_io[lane] : 0;
-  bool done = tstop <= 0.0 || t >= tstop, fail = false;
-  int acc = 0, nri = 0;
-  int n_kept = 0;
-  bool dropped = false;
-  const double trtol100 = trtol / 100.0;
-
-  // the Newton's state: the deck's device blocks, the lane's junction
-  // voltages (carried across attempts) and the value slots
-  const Deck deck(topo, dv);
-  Phys ph;
-  ph.d = d_st;
-  ph.m = m_st;
-  ph.trap = trap != 0;
-  double jv[MAX_KJ];
-  double nv[MAX_NVAL];
-  double* jv_lane = jv_g + (size_t)lane * (deck.kj > 0 ? deck.kj : 1);
-  for (int i = 0; i < deck.kj; ++i) jv[i] = jv_lane[i];
-
-  while (!done && att < max_attempts &&
-         (!STORE || !stream || n_kept < max_store)) {
-    const double tpdt = t + dt;
-    const bool over = tpdt > tstop;
-    const double next_t = over ? tstop : tpdt;
-    const double dte = over ? tstop - t : dt;
-    const double dtl = dte > 0 ? dte : 1e-9;
-
-    // trapezoidal physics takes the sources at the end of the step
-    // (engine/tran.py), the rest at the old time (PLAN.md 2)
-    const double t_src = (PHYS && ph.trap) ? next_t : t;
-    for (int s = 0; s < nsrc; ++s)
-      sv[s] = source_value(src[3 * s], rv + src[3 * s + 1], src[3 * s + 2],
-                           t_src);
-
-    bool nr_ok;
-    if constexpr (PHYS) {
-      // a physics linear stamp's value: BE with the previous step's charge,
-      // or the trapezoidal companions after the device's first committed
-      // step (assemble.py's C and L blocks)
-      auto lin_phys = [g, cadj, lval, c_q0, c_v0, c_i0, c_hist, l_i1, l_v0,
-                       l_hist, nv_src, dte, dtl, &sv,
-                       &ph](int tag, int k) -> double {
-        switch (tag) {
-          case TAG_G: return g[k];
-          case TAG_GEQ:
-            return (ph.trap && c_hist[k] > 0) ? 2.0 * cadj[k] / dte
-                                              : cadj[k] / dte;
-          case TAG_CEQ:
-            return (ph.trap && c_hist[k] > 0)
-                       ? 2.0 * cadj[k] / dte * c_v0[k] + c_i0[k]
-                       : c_q0[k] / dte;
-          case TAG_LTERM:
-            return (ph.trap && l_hist[k] > 0) ? 2.0 * lval[k] / dtl
-                                              : lval[k] / dtl;
-          case TAG_LRHS: {
-            const bool on = ph.trap && l_hist[k] > 0;
-            const double lc = on ? 2.0 * lval[k] / dtl : lval[k] / dtl;
-            return ph.trap ? lc * l_i1[k] + (on ? l_v0[k] : 0.0)
-                           : lc * l_i1[k];
-          }
-          case TAG_VSRC: return sv[k];
-          case TAG_ISRC: return sv[nv_src + k];
-          default: return 1.0;  // TAG_ONE
-        }
-      };
-      // with MAG, the LM and K stamps (their tags follow TAG_NL)
-      auto lin_pm = [&lin_phys, &mp, dte, dtl](int tag, int k) -> double {
-        return tag > TAG_NL ? mp.term(tag, k, dte, dtl) : lin_phys(tag, k);
-      };
-      // Newton from x = 0, the carried junctions
-      for (int i = 0; i < n; ++i) x[i] = 0.0;
-      if constexpr (MAG)
-        nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_pm, m, x, jv,
-                                           nv, dte, 0.0, max_iter, reltol,
-                                           abstol, &nr_ok, ph);
-      else
-        nri += newton<NMAX, FL_TRAN, true>(deck, ent, ne, lin_phys, m, x,
-                                           jv, nv, dte, 0.0, max_iter,
-                                           reltol, abstol, &nr_ok, ph);
-    } else {  // Newton from x = 0, the carried junctions
-      // a linear stamp's value in this attempt (scalars and pointers by
-      // value: a reference capture of dte/dtl would take their address)
-      auto lin = [g, cadj, lval, c_q1, l_i1, nv_src, dte, dtl,
-                  &sv](int tag, int k) -> double {
-        switch (tag) {
-          case TAG_G: return g[k];
-          case TAG_GEQ: return cadj[k] / dte;
-          case TAG_LTERM: return lval[k] / dtl;
-          case TAG_CEQ: return c_q1[k] / dte;
-          case TAG_LRHS: return (lval[k] / dtl) * l_i1[k];
-          case TAG_VSRC: return sv[k];
-          case TAG_ISRC: return sv[nv_src + k];
-          default: return 1.0;  // TAG_ONE
-        }
-      };
-      for (int i = 0; i < n; ++i) x[i] = 0.0;
-      if constexpr (MAG) {  // the compat LM and K stamps (after TAG_NL)
-        auto lin_mag = [&lin, &mag, t, dte, dtl](int tag, int k) -> double {
-          return tag > TAG_NL ? mag.term(tag, k, t, dte, dtl) : lin(tag, k);
-        };
-        nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin_mag, m, x, jv, nv,
-                                     dte, 0.0, max_iter, reltol, abstol,
-                                     &nr_ok);
-      } else {
-        nri += newton<NMAX, FL_TRAN>(deck, ent, ne, lin, m, x, jv, nv, dte,
-                                     0.0, max_iter, reltol, abstol, &nr_ok);
-      }
-    }
-
-    // ---- LTE from the committed state
-    double lte = 0.0;
-    for (int k = 0; k < nc; ++k)
-      lte = max_nan(lte,
-                    fabs(craw[k] * c_v0[k] - craw[k] * c_v1[k]) / (2.0 * dte));
-    for (int k = 0; k < nl; ++k) {
-      const double cur = fabs(l_i0[k] - l_i1[k]) / (2.0 * dte);
-      const double vol = fabs(l_v0[k] - l_v1[k]) / (2.0 * dte);
-      lte = max_nan(lte, max_nan(cur, vol));
-    }
-
-    // ---- accept / reject
-    const bool can_halve = dte > minstep;
-    const bool hard_fail = !nr_ok && !can_halve;
-    const bool reject =
-        (!nr_ok && can_halve) || (nr_ok && lte > trtol && can_halve);
-    const bool accept = nr_ok && !reject;
-    if (accept) {
-      if constexpr (PHYS) {  // engine/state.py make_commit, physics
-        for (int k = 0; k < nc; ++k) {
-          const double vd = x[cnodes[2 * k]] - x[cnodes[2 * k + 1]];
-          const double q0 = c_q0[k], v0 = c_v0[k];
-          const double dv = vd - v0;
-          // trap with the stamp's C_t (the TR recursion must match it)
-          c_i0[k] = ph.trap ? (c_hist[k] > 0
-                                   ? 2.0 * cadj[k] / dte * dv - c_i0[k]
-                                   : cadj[k] * dv / dte)
-                            : craw[k] * dv / dte;
-          c_q0[k] = craw[k] * vd;
-          c_q1[k] = q0;
-          c_v0[k] = vd;
-          c_v1[k] = v0;
-          c_hist[k] = 1.0;
-        }
-        for (int k = 0; k < nl; ++k) {  // the branch unknown is -I
-          const double vd = x[lnodes[2 * k]] - x[lnodes[2 * k + 1]];
-          const double i = -x[lbranch[k]];
-          const double v0 = l_v0[k];
-          l_i0[k] = i;
-          l_i1[k] = i;
-          l_v0[k] = vd;
-          l_v1[k] = v0;
-          l_flux0[k] = vd * dte;
-          l_hist[k] = 1.0;
-        }
-        {
-          const int nd = deck.n_d, nm = deck.n_m;
-          for (int k = 0; k < nd; ++k) {  // the diode's charge memory
-            const double vd = x[deck.dn[2 * k]] - x[deck.dn[2 * k + 1]];
-            double id, gd;
-            d_phys(vd, deck.d(D_NVT, k), deck.d(D_IST, k), deck.d(D_GMIN, k),
-                   deck.d(D_RS, k), deck.d(D_BV, k), &id, &gd);
-            double* sd = d_st + k;
-            const double q = deck.d(D_TT, k) * id;
-            const double dq = q - sd[DS_Q * nd];
-            const double ic = (ph.trap && sd[DS_HIST * nd] > 0)
-                                  ? 2.0 * dq / dte - sd[DS_IC * nd]
-                                  : dq / dte;
-            sd[DS_VD * nd] = vd;
-            sd[DS_ID * nd] = id;
-            sd[DS_Q * nd] = q;
-            sd[DS_IC * nd] = ic;
-            sd[DS_HIST * nd] = 1.0;
-          }
-          for (int k = 0; k < nm; ++k) {  // the MOSFET's charges
-            const int* nd_ = deck.mn + 5 * k;  // drain gate source bulk level
-            const Mos p{deck.pm + k, nm};
-            const double sg = p[M_SIGN];
-            const double xs = x[nd_[2]];
-            double q[5];
-            mos_charges(p, nd_[4], sg * (x[nd_[1]] - xs),
-                        sg * (x[nd_[0]] - xs), sg * (x[nd_[3]] - xs), q);
-            double* sm = m_st + k;
-            const bool on = ph.trap && sm[MS_HIST * nm] > 0;
-            for (int r = 0; r < 5; ++r) {
-              const double dq = (q[r] - sm[(MS_QGS + r) * nm]) / dte;
-              sm[(MS_ICGS + r) * nm] =
-                  on ? 2.0 * dq - sm[(MS_ICGS + r) * nm] : dq;
-              sm[(MS_QGS + r) * nm] = q[r];
-            }
-            sm[MS_HIST * nm] = 1.0;
-          }
-        }
-        if constexpr (MAG) {  // the live J-A commit (engine/state.py)
-          const int nlm = mp.nlm;
-          const int* lmt = topo + topo[H_LMN];  // n1 n2 branch per winding
-          const int* core = topo + topo[H_CORE];
-          const double* lm = mp.lm;
-          double* ls = mp.ls;
-          for (int k = 0; k < nlm; ++k) {
-            // the core's summed mmf, in winding order (segment_sum)
-            double mmf = 0.0;
-            for (int j = 0; j < nlm; ++j)
-              mmf = mmf + (core[j] == core[k]
-                               ? lm[LM_TURNS * nlm + j] * -x[lmt[3 * j + 2]]
-                               : 0.0);
-            const double h = clamp_max(
-                clamp_min(mmf / lm[LM_LEN * nlm + k], -1e6), 1e6);
-            ja_step(lm[LM_MST * nlm + k], lm[LM_A * nlm + k],
-                    lm[LM_K * nlm + k], lm[LM_C * nlm + k],
-                    lm[LM_ALPHA * nlm + k], h, ls + LS_H * nlm + k, nlm);
-            const double vd = x[lmt[3 * k]] - x[lmt[3 * k + 1]];
-            double* sk = ls + k;
-            sk[LS_I1 * nlm] = sk[LS_I0 * nlm];
-            sk[LS_I0 * nlm] = -x[lmt[3 * k + 2]];
-            sk[LS_V1 * nlm] = sk[LS_V0 * nlm];
-            sk[LS_V0 * nlm] = vd;
-            sk[LS_FLUX0 * nlm] = sk[LS_FLUX0 * nlm] + vd * dte;
-          }
-        }
-      } else {
-        for (int k = 0; k < nc; ++k) {  // capacitor.go:155-171
-          const double vd = x[cnodes[2 * k]] - x[cnodes[2 * k + 1]];
-          const double q0 = c_q0[k], v0 = c_v0[k];
-          c_q0[k] = craw[k] * vd;
-          c_q1[k] = q0;
-          c_v0[k] = vd;
-          c_v1[k] = v0;
-        }
-        for (int k = 0; k < nl; ++k) {  // inductor.go:81-114
-          const double vd = x[lnodes[2 * k]] - x[lnodes[2 * k + 1]];
-          const double v0 = l_v0[k];
-          l_i0[k] = vd * 1e-9 / lval[k];
-          l_i1[k] = l_i1[k] + vd * dte / lval[k];
-          l_v0[k] = vd;
-          l_v1[k] = v0;
-          l_flux0[k] = vd * dte;
-        }
-      }
-      t = next_t;
-      if constexpr (STORE) {  // tran.go:141-143
-        if (next_t >= tstart) {
-          if (n_kept < max_store) {
-            const size_t row = (size_t)lane * max_store + n_kept;
-            for (int i = 0; i < n; ++i) out_x[row * n + i] = x[i];
-            out_t[row] = next_t;
-            ++n_kept;
-          } else {
-            dropped = true;
-          }
-        }
-      }
-      const double grown = dte * (lte < trtol100 ? 2.0 : 1.1);
-      const double dt_g = isnan(grown) ? grown : (grown > tmax ? tmax : grown);
-      dt = (next_t < tstop && dte < tmax) ? dt_g : dte;
-      ++acc;
-      if (next_t >= tstop) done = true;
-    } else {
-      dt = dte / 2.0;
-    }
-    if (hard_fail) {
-      done = true;
-      fail = true;
-    }
-    ++att;
-  }
-
-  for (int i = 0; i < deck.kj; ++i) jv_lane[i] = jv[i];
-  nri_out[lane] = nri;
-  t_io[lane] = t;
-  dt_io[lane] = dt;
-  acc_out[lane] = acc;
-  att_io[lane] = att;
-  if constexpr (STORE) {
-    out_n[lane] = n_kept;
-    overflow[lane] = dropped ? 1 : 0;
-  }
-  fail_out[lane] = fail ? 1 : 0;
-}
-
-// ------------------------------------------------ the linear attempt
+// ------------------------------------------------ the segment kernel
 
 // A lane's rows (committed state, device rows, source records) held in its
 // segment's slice of shared memory when together they fit this many
@@ -703,42 +331,63 @@ constexpr int SEG_BLOCKS = 4;
 
 // Doubles of one segment's slice of shared memory: the elimination's
 // exchange buffer and the W = NMAX build rows (stride NMAX + 2, so every
-// row starts 16-byte aligned), x, the source values and the lane's rows.
+// row starts 16-byte aligned), x, the source values and the lane's rows;
+// a Newton deck adds nl_doubles (its junction voltages and value slots,
+// newton_doubles), rounded up to an even count.
 template <int NMAX>
-__host__ __device__ constexpr int seg_slice() {
-  return (NMAX + 2) * (NMAX + 1) + NMAX + MAX_SRC + SEG_ROWS;
+__host__ __device__ constexpr int seg_slice(int nl_doubles = 0) {
+  return (NMAX + 2) * (NMAX + 1) + NMAX + MAX_SRC + SEG_ROWS +
+         ((nl_doubles + 1) & ~1);
 }
 
-// A linear deck's whole run on a segment of W = NMAX lanes of one warp per
+// A deck's whole run on a segment of W = NMAX lanes of one warp per
 // Monte-Carlo lane (THREADS / W lanes a block), thread i of the segment
 // owning row i of the system.  Per attempt: the sources, thread i taking
-// those s = i (mod W); the build, thread i summing its row's stamps in
-// plan order from the row view of the table (ops/run_plan.py row_view)
-// into its row of the slice, then into registers; gj_warp_reg's
-// elimination (x to the slice, all NaN when one x is not finite: the
-// per-thread elimination left a poisoned row's inf there, but either way
-// the attempt fails and its x is never committed or stored, so counters,
-// state and waveforms keep their bits); the LTE, thread i taking the C's
+// those s = i (mod W); then the solve; the LTE, thread i taking the C's
 // and L's k = i (mod W), then a max over the segment (every term is +0 or
 // more, or NaN, so the order does not move it); the step control, which
 // every thread computes from the same values; the commit, each device by
-// the thread k = i (mod W); the store, thread i writing x[i].  The warp's
-// segments (4 of 8 lanes, 2 of 16, or one of 32) run in lockstep under
-// one full-warp mask: the warp attempts while any of its lanes is live,
-// and a lane past its end (done, its attempts spent, paused, or past
-// nlanes) runs the attempt with the others and keeps nothing of it.
-// Per-segment masks let the segments drift apart, and the warp then
-// issues each instruction once per segment.
-template <int NMAX, bool MAG, bool STORE, bool PHYS>
+// the thread k = i (mod W); the store, thread i writing x[i].
+//
+// The solve of a linear deck (NL false) is one build and elimination:
+// thread i sums its row's stamps in plan order from the row view of the
+// table (ops/run_plan.py row_view) into its row of the slice, then into
+// registers; gj_warp_reg's elimination (x to the slice, all NaN when one
+// x is not finite: the per-thread elimination left a poisoned row's inf
+// there, but either way the attempt fails and its x is never committed or
+// stored, so counters, state and waveforms keep their bits).
+//
+// The solve of a Newton deck (NL) is newton.cuh's transient Newton spread
+// over the segment, from x = 0 with the carried junction voltages: per
+// iteration, device j on thread j (mod W) limits its junctions from the
+// last iterate (from iteration 1 on) and evaluates its value slots into
+// the slice (limit_device, device_value; both read and write only that
+// device's rows); then the build, a TAG_NL entry reading its slot; the
+// elimination; the convergence test of row i on thread i (rows past n
+// count as converged), ANDed over the segment with the elimination's
+// finite flag.  The junction voltages stay in the slice across attempts.
+//
+// The warp's segments (8 of 4 lanes, 4 of 8, 2 of 16, or one of 32) run in
+// lockstep under one full-warp mask: the warp attempts while any of its
+// lanes is live, and iterates while any of its segments still iterates;
+// a lane past its end (done, its attempts spent, paused, or past nlanes)
+// runs the attempt with the others, and a segment whose Newton has ended
+// (converged, or at max_iter) runs the later builds and eliminations, and
+// both keep nothing of them: their junction voltages, value slots and
+// counts do not move, and x is put back from the registers of each row's
+// thread.  Per-segment masks let the segments drift apart, and the warp
+// then issues each instruction once per segment.
+template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
 __global__ void __launch_bounds__(THREADS, SEG_BLOCKS)
-run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
+run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
                const double* __restrict__ dev, const double* __restrict__ rc,
-               double* __restrict__ state, double* __restrict__ t_io,
-               double* __restrict__ dt_io, int* __restrict__ acc_out,
-               int* __restrict__ att_io, int* __restrict__ fail_out,
-               int* __restrict__ nri_out, int nlanes, double tstop,
-               double minstep, double tmax, double trtol, int max_attempts,
-               double tstart, int max_store, int stream,
+               double* __restrict__ state, double* __restrict__ jv_g,
+               double* __restrict__ t_io, double* __restrict__ dt_io,
+               int* __restrict__ acc_out, int* __restrict__ att_io,
+               int* __restrict__ fail_out, int* __restrict__ nri_out,
+               int nlanes, double tstop, double minstep, double tmax,
+               double trtol, int max_attempts, double reltol, double abstol,
+               int max_iter, double tstart, int max_store, int stream,
                double* __restrict__ out_x, double* __restrict__ out_t,
                int* __restrict__ out_n, int* __restrict__ overflow,
                int trap) {
@@ -756,7 +405,8 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
   const int row_lane = real ? lane : nlanes - 1;  // rows read, never written
   constexpr unsigned mask = 0xffffffffu;
 
-  double* sl = seg_smem + (topo_len + 3) / 4 * 2 + seg * seg_slice<NMAX>();
+  double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
+               seg * seg_slice<NMAX>(NL ? nl_doubles : 0);
   double* buf = sl;
   double* row = sl + (NMAX + 2) * (1 + me);
   double* xs = sl + (NMAX + 2) * (NMAX + 1);
@@ -789,15 +439,16 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
     st = own;
     dv = own + ks;
     rv = own + ks + nd;
-    __syncwarp(mask);
   }
-  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the magnetic constants
+  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the magnetic constants,
+  // then a Newton deck's device blocks
   const double* g = dv;
   const double* cadj = dv + topo[H_NR];
   const double* craw = cadj + nc;
   const double* lval = craw + nc;
   // committed state rows: q0 q1 v0 v1 [nc], i0 i1 v0 v1 flux0 [nl], then
-  // under physics C i0 hist [nc], L hist [nl], the live LM rows
+  // under physics C i0 hist [nc], L hist [nl], the diode and MOSFET blocks
+  // (DS_ROWS x nD, MS_ROWS x nM), the live LM rows
   double* c_q0 = st;
   double* c_q1 = st + nc;
   double* c_v0 = st + 2 * nc;
@@ -810,14 +461,15 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
   double* c_i0 = l_i0 + 5 * nl;
   double* c_hist = c_i0 + nc;
   double* l_hist = c_hist + nc;
+  double* d_st = l_hist + nl;
+  double* m_st = d_st + DS_ROWS * topo[H_NDD];
   Mag mag{};
   MagPhys mp{};
   const int nlm = topo[H_NLM];
   if constexpr (MAG && PHYS) {
     mp.lm = lval + nl;
     mp.kc = mp.lm + LM_ROWS * nlm;
-    // a linear deck has no diode or MOSFET rows before the LM ones
-    mp.ls = l_hist + nl;
+    mp.ls = m_st + MS_ROWS * topo[H_NM];
     mp.lval = lval;
     mp.l_i1 = l_i1;
     mp.l_hist = l_hist;
@@ -835,12 +487,35 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
   }
   const bool tr = PHYS && trap != 0;
 
+  // a Newton deck's device blocks, its junction voltages (carried across
+  // attempts, in the slice) and its value slots (the slice, after them)
+  const Deck deck(topo, dv);
+  const int ndev = deck.n_d + deck.n_q + deck.n_m;
+  Phys ph;
+  ph.d = d_st;
+  ph.m = m_st;
+  ph.trap = tr;
+  double* jv = own + SEG_ROWS;
+  double* nv = jv + deck.kj;
+  // a slice shorter than the deck's junction voltages and value slots
+  // (nl_doubles is not ops/run.py newton_doubles): every lane fails
+  // before its first attempt, and the slice is neither read nor written
+  const bool short_slice =
+      NL && nl_doubles < deck.kj + D_SLOTS * deck.n_d + Q_SLOTS * deck.n_q +
+                             M_SLOTS * deck.n_m;
+  if constexpr (NL)
+    if (!short_slice)
+      for (int i = me; i < deck.kj; i += W)
+        jv[i] = jv_g[(size_t)row_lane * deck.kj + i];
+  __syncwarp(mask);
+
   double t = STORE ? t_io[row_lane] : 0.0;
   double dt = STORE ? dt_io[row_lane] : minstep;
   int att = STORE ? att_io[row_lane] : 0;
   const int att0 = att;
-  bool done = !real || tstop <= 0.0 || t >= tstop, fail = false;
-  int acc = 0, n_kept = 0;
+  bool done = !real || tstop <= 0.0 || t >= tstop || short_slice,
+       fail = short_slice;
+  int acc = 0, nri = 0, n_kept = 0;
   bool dropped = false;
   const double trtol100 = trtol / 100.0;
   auto live = [&] {
@@ -863,7 +538,6 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
                            t_src);
     __syncwarp(mask);
 
-    // ---- build: this thread's row, its stamps in plan order
     // a stamp's value in this attempt: compat (the reference's companions,
     // the frozen-core LM and K), or physics (BE with the previous step's
     // charge, or the trapezoidal companions after the device's first
@@ -908,24 +582,68 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
         }
       }
     };
-    for (int c = 0; c <= n; ++c) row[c] = 0.0;
-    if (me < n) {
-      for (int e = roff[me]; e < roff[me + 1]; ++e) {
-        const int4 q = ent[e];  // col, tag, index, sign
-        row[q.x] += (double)q.w * stamp(q.y, q.z);
+    // ---- build (this thread's row, its stamps in plan order) and
+    // eliminate: x to the slice; returns whether x is finite
+    auto solve = [&]() -> bool {
+      for (int c = 0; c <= n; ++c) row[c] = 0.0;
+      if (me < n) {
+        for (int e = roff[me]; e < roff[me + 1]; ++e) {
+          const int4 q = ent[e];  // col, tag, index, sign
+          const double v =
+              (NL && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
+          row[q.x] += (double)q.w * v;
+        }
       }
-    }
-    if (me == 0) row[0] = 1.0;  // the ground row is the identity
-    // slot c holds column c, the right-hand side slot NMAX
-    double m[1][NMAX + 1];
+      if (me == 0) row[0] = 1.0;  // the ground row is the identity
+      // slot c holds column c, the right-hand side slot NMAX
+      double m[1][NMAX + 1];
 #pragma unroll
-    for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
-    m[0][NMAX] = row[n];
+      for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
+      m[0][NMAX] = row[n];
+      return gj_warp_reg<NMAX, W, 1>(m, n, buf, me, mask, xs);
+    };
 
-    // ---- one solve, converged when x is finite
-    const bool nr_ok =
-        gj_warp_reg<NMAX, W, 1>(m, n, buf, me, mask, xs);
-    __syncwarp(mask);
+    bool nr_ok;
+    if constexpr (NL) {
+      // ---- Newton from x = 0 with the carried junction voltages
+      double xo = 0.0;  // row me of the last iterate
+      xs[me] = 0.0;
+      int it = 0;
+      bool ok = false;
+      bool iter = active && max_iter > 0;
+      __syncwarp(mask);
+      while (__any_sync(mask, iter)) {
+        if (iter) {
+          for (int j = me; j < ndev; j += W) {
+            if (it > 0) limit_device<PHYS>(deck, j, xs, jv);
+            device_value<true, PHYS>(deck, j, jv, dte, 0.0, nv, ph);
+          }
+        }
+        __syncwarp(mask);
+        const bool finite = solve();
+        __syncwarp(mask);
+        // every |new - old| <= reltol*max(|new|, |old|) + abstol
+        const double xn = xs[me];
+        const double tol = reltol * max_nan(fabs(xn), fabs(xo)) + abstol;
+        bool conv = me >= n || fabs(xn - xo) <= tol;
+#pragma unroll
+        for (int off = W / 2; off > 0; off >>= 1)
+          conv = __shfl_xor_sync(mask, conv ? 1 : 0, off, W) && conv;
+        if (iter) {
+          xo = xn;
+          ok = it > 0 && conv && finite;
+          ++it;
+          iter = !ok && it < max_iter;
+        }
+      }
+      if (me < n) xs[me] = xo;  // what a segment that ran along kept
+      __syncwarp(mask);
+      nri += it;
+      nr_ok = ok;
+    } else {  // ---- one solve, converged when x is finite
+      nr_ok = solve();
+      __syncwarp(mask);
+    }
 
     // ---- LTE from the committed state
     double lte = 0.0;
@@ -973,6 +691,45 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
           l_v1[k] = v0;
           l_flux0[k] = vd * dte;
           l_hist[k] = 1.0;
+        }
+        if constexpr (NL) {
+          const int n_d = deck.n_d, n_m = deck.n_m;
+          for (int k = me; k < n_d; k += W) {  // the diode's charge memory
+            const double vd = xs[deck.dn[2 * k]] - xs[deck.dn[2 * k + 1]];
+            double id, gd;
+            d_phys(vd, deck.d(D_NVT, k), deck.d(D_IST, k), deck.d(D_GMIN, k),
+                   deck.d(D_RS, k), deck.d(D_BV, k), &id, &gd);
+            double* sd = d_st + k;
+            const double q = deck.d(D_TT, k) * id;
+            const double dq = q - sd[DS_Q * n_d];
+            const double ic = (tr && sd[DS_HIST * n_d] > 0)
+                                  ? 2.0 * dq / dte - sd[DS_IC * n_d]
+                                  : dq / dte;
+            sd[DS_VD * n_d] = vd;
+            sd[DS_ID * n_d] = id;
+            sd[DS_Q * n_d] = q;
+            sd[DS_IC * n_d] = ic;
+            sd[DS_HIST * n_d] = 1.0;
+          }
+          for (int k = me; k < n_m; k += W) {  // the MOSFET's charges
+            const int* nd_ = deck.mn + 5 * k;  // drain gate source bulk level
+            const Mos p{deck.pm + k, n_m};
+            const double sg = p[M_SIGN];
+            const double xsrc = xs[nd_[2]];
+            double q[5];
+            mos_charges(p, nd_[4], sg * (xs[nd_[1]] - xsrc),
+                        sg * (xs[nd_[0]] - xsrc), sg * (xs[nd_[3]] - xsrc),
+                        q);
+            double* sm = m_st + k;
+            const bool on = tr && sm[MS_HIST * n_m] > 0;
+            for (int r = 0; r < 5; ++r) {
+              const double dq = (q[r] - sm[(MS_QGS + r) * n_m]) / dte;
+              sm[(MS_ICGS + r) * n_m] =
+                  on ? 2.0 * dq - sm[(MS_ICGS + r) * n_m] : dq;
+              sm[(MS_QGS + r) * n_m] = q[r];
+            }
+            sm[MS_HIST * n_m] = 1.0;
+          }
         }
         if constexpr (MAG) {  // the live J-A commit (engine/state.py)
           const int* lmt = topo + topo[H_LMN];  // n1 n2 branch per winding
@@ -1053,9 +810,14 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
   if (!real) return;
   if (in_sh)
     for (int i = me; i < ks; i += W) st_g[i] = st[i];
+  if constexpr (NL)
+    if (!short_slice)
+      for (int i = me; i < deck.kj; i += W)
+        jv_g[(size_t)lane * deck.kj + i] = jv[i];
   if (me == 0) {
-    // a linear attempt is one solve: this run's attempts
-    nri_out[lane] = att - att0;
+    // a Newton deck's iterations, or a linear deck's attempts (one solve
+    // each), in this run
+    nri_out[lane] = NL ? nri : att - att0;
     t_io[lane] = t;
     dt_io[lane] = dt;
     acc_out[lane] = acc;
@@ -1071,6 +833,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len,
 struct RunArgs {
   const int* topo;
   int topo_len;
+  int nl_doubles;
   const double* dev;
   const double* rc;
   double* state;
@@ -1095,66 +858,62 @@ struct RunArgs {
   int trap;
 };
 
-// A linear deck's launch shape: segments of W = NMAX threads, THREADS /
-// NMAX lanes a block, the table and the segments' slices in dynamic
-// shared memory (bytes).
+// A deck's launch shape: segments of W = NMAX threads, THREADS / NMAX
+// lanes a block, the table and the segments' slices in dynamic shared
+// memory (bytes); nl_doubles is a Newton deck's (0 for a linear one).
 struct SegShape {
   int w, per_block, blocks, threads, shmem;
 };
 
 template <int NMAX>
-SegShape seg_shape(int nlanes, int topo_len) {
+SegShape seg_shape(int nlanes, int topo_len, int nl_doubles) {
   constexpr int per_block = THREADS / NMAX;
-  const int doubles = (topo_len + 3) / 4 * 2 + per_block * seg_slice<NMAX>();
+  const int doubles = (topo_len + 3) / 4 * 2 +
+                      per_block * seg_slice<NMAX>(nl_doubles);
   return {NMAX, per_block, (nlanes + per_block - 1) / per_block, THREADS,
           doubles * static_cast<int>(sizeof(double))};
 }
 
-// the shape of np1's size bucket (what the tsr_run* entries launch for a
-// linear deck); false past the caps
-inline bool seg_shape_np1(int np1, int nlanes, int topo_len, SegShape* s) {
-  if (np1 <= 8) *s = seg_shape<8>(nlanes, topo_len);
-  else if (np1 <= 16) *s = seg_shape<16>(nlanes, topo_len);
-  else if (np1 <= 32) *s = seg_shape<32>(nlanes, topo_len);
-  else return false;
-  return true;
+// np1's size bucket, the NMAX the tsr_run* entries launch (0 past the
+// caps): np1 <= 4 on segments of 4, which halve the instructions a lane
+// issues in the 8-row bucket (on an H100, ab_run_kernel.py: 3.0 ms
+// against 3.7 for the 8192-lane rectifier, 1.2 against 1.4 for an
+// 8192-lane RC low-pass)
+constexpr int seg_bucket(int np1) {
+  return np1 <= 4 ? 4 : np1 <= 8 ? 8 : np1 <= 16 ? 16 : np1 <= 32 ? 32 : 0;
 }
 
-template <int NMAX, bool MAG, bool STORE, bool PHYS>
-cudaError_t launch_seg(const RunArgs& a, cudaStream_t stream) {
-  const SegShape sh = seg_shape<NMAX>(a.nlanes, a.topo_len);
-  auto kernel = run_seg_kernel<NMAX, MAG, STORE, PHYS>;
+// the shape of np1's size bucket; false past the caps
+inline bool seg_shape_np1(int np1, int nlanes, int topo_len, int nl_doubles,
+                          SegShape* s) {
+  switch (seg_bucket(np1)) {
+    case 4: *s = seg_shape<4>(nlanes, topo_len, nl_doubles); return true;
+    case 8: *s = seg_shape<8>(nlanes, topo_len, nl_doubles); return true;
+    case 16: *s = seg_shape<16>(nlanes, topo_len, nl_doubles); return true;
+    case 32: *s = seg_shape<32>(nlanes, topo_len, nl_doubles); return true;
+    default: return false;
+  }
+}
+
+// The launch of one instantiation: a segment of a warp per lane; NL the
+// Newton (a.nl_doubles sizes its slots), else a linear deck.
+template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
+cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
+  const SegShape sh =
+      seg_shape<NMAX>(a.nlanes, a.topo_len, NL ? a.nl_doubles : 0);
+  auto kernel = run_seg_kernel<NMAX, NL, MAG, STORE, PHYS>;
   if (sh.shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.shmem);
     if (err != cudaSuccess) return err;
   }
   kernel<<<sh.blocks, sh.threads, sh.shmem, stream>>>(
-      a.topo, a.topo_len, a.dev, a.rc, a.state, a.t_io, a.dt_io, a.acc,
-      a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep, a.tmax,
-      a.trtol, a.max_attempts, a.tstart, a.max_store, a.stream, a.out_x,
-      a.out_t, a.out_n, a.overflow, a.trap);
+      a.topo, a.topo_len, a.nl_doubles, a.dev, a.rc, a.state, a.jv, a.t_io,
+      a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep,
+      a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter,
+      a.tstart, a.max_store, a.stream, a.out_x, a.out_t, a.out_n,
+      a.overflow, a.trap);
   return cudaGetLastError();
-}
-
-// The launch of one instantiation: a linear deck on a segment per lane, a
-// Newton deck a thread per lane.
-template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
-cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
-  if constexpr (!NL) {
-    return launch_seg<NMAX, MAG, STORE, PHYS>(a, stream);
-  } else {
-    const int blocks = (a.nlanes + THREADS - 1) / THREADS;
-    const size_t shmem = (size_t)a.topo_len * sizeof(int);
-    run_kernel<NMAX, NL, MAG, STORE, PHYS>
-        <<<blocks, THREADS, shmem, stream>>>(
-            a.topo, a.topo_len, a.dev, a.rc, a.state, a.jv, a.t_io,
-            a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop,
-            a.minstep, a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol,
-            a.max_iter, a.tstart, a.max_store, a.stream, a.out_x, a.out_t,
-            a.out_n, a.overflow, a.trap);
-    return cudaGetLastError();
-  }
 }
 
 }  // namespace

@@ -34,10 +34,13 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
   if (!physics || mag) return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (np1 <= 8) return launch_kind<8, STORE>(a, nonlinear, s);
-  if (np1 <= 16) return launch_kind<16, STORE>(a, nonlinear, s);
-  if (np1 <= 32) return launch_kind<32, STORE>(a, nonlinear, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (seg_bucket(np1)) {
+    case 4: return launch_kind<4, STORE>(a, nonlinear, s);
+    case 8: return launch_kind<8, STORE>(a, nonlinear, s);
+    case 16: return launch_kind<16, STORE>(a, nonlinear, s);
+    case 32: return launch_kind<32, STORE>(a, nonlinear, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -50,18 +53,20 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 // place; t, dt and att are written.
 extern "C" int tsr_run_phys(int np1, int nonlinear, int mag, int physics,
                             int trap, const int* topo, int topo_len,
-                            const double* dev, const double* rc,
+                            int nl_doubles, const double* dev,
+                            const double* rc,
                             double* state, double* jv, double* t,
                             double* dt, int* acc, int* att, int* fail,
                             int* nri, int nlanes, double tstop,
                             double minstep, double tmax, double trtol,
                             int max_attempts, double reltol, double abstol,
                             int max_iter, void* stream) {
-  const RunArgs a{topo,    topo_len, dev,     rc,      state,   jv,
-                  t,       dt,       acc,     att,     fail,    nri,
-                  nlanes,  tstop,    minstep, tmax,    trtol,   max_attempts,
-                  reltol,  abstol,   max_iter, 0.0,    0,       0,
-                  nullptr, nullptr,  nullptr, nullptr, trap};
+  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+                  jv,      t,        dt,         acc,     att,     fail,
+                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+                  max_attempts,      reltol,     abstol,  max_iter, 0.0,
+                  0,       0,        nullptr,    nullptr, nullptr, nullptr,
+                  trap};
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics, stream);
 }
 #else
@@ -70,18 +75,19 @@ extern "C" int tsr_run_phys(int np1, int nonlinear, int mag, int physics,
 // arguments of tsr_run_store in csrc/run_kernel.cu).
 extern "C" int tsr_run_phys_store(
     int np1, int nonlinear, int mag, int physics, int trap, const int* topo,
-    int topo_len,
+    int topo_len, int nl_doubles,
     const double* dev, const double* rc, double* state, double* jv,
     double* t, double* dt, int* acc, int* att, int* fail, int* nri,
     int nlanes, double tstop, double minstep, double tmax, double trtol,
     int max_attempts, double reltol, double abstol, int max_iter,
     double tstart, int max_store, int stream, double* out_x, double* out_t,
     int* out_n, int* overflow, void* cuda_stream) {
-  const RunArgs a{topo,    topo_len, dev,     rc,      state,  jv,
-                  t,       dt,       acc,     att,     fail,   nri,
-                  nlanes,  tstop,    minstep, tmax,    trtol,  max_attempts,
-                  reltol,  abstol,   max_iter, tstart, max_store, stream,
-                  out_x,   out_t,    out_n,   overflow, trap};
+  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+                  jv,      t,        dt,         acc,     att,     fail,
+                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+                  max_attempts,      reltol,     abstol,  max_iter, tstart,
+                  max_store, stream, out_x,      out_t,   out_n,   overflow,
+                  trap};
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics,
                                  cuda_stream);
 }

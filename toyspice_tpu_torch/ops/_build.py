@@ -112,17 +112,18 @@ def build(names=tuple(SOURCES), extra_flags=()):
 
 build.log = {}
 
-RUN_SIG = "iiiiipi" + "p" * 10 + "iddddiddip"
-RUN_STORE_SIG = "iiiiipi" + "p" * 10 + "iddddiddi" + "dii" + "p" * 5
+RUN_SIG = "iiiiipii" + "p" * 10 + "iddddiddip"
+RUN_STORE_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "dii" + "p" * 5
 _ARGTYPES = {
-    # tsr_run(np1, nonlinear, mag, physics, trap, topo, topo_len, dev, rc,
-    #         state, jv, t, dt, acc, att, fail, nri, nlanes, tstop, minstep,
-    #         tmax, trtol, max_attempts, reltol, abstol, max_iter, stream)
+    # tsr_run(np1, nonlinear, mag, physics, trap, topo, topo_len,
+    #         nl_doubles, dev, rc, state, jv, t, dt, acc, att, fail, nri,
+    #         nlanes, tstop, minstep, tmax, trtol, max_attempts, reltol,
+    #         abstol, max_iter, stream)
     # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
     #               out_x, out_t, out_n, overflow, stream)
     # tsr_run_phys, tsr_run_mag and their _store entries: the same
-    # tsr_run_seg_shape(np1, nlanes, topo_len, out[5])
-    "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiip")),
+    # tsr_run_seg_shape(np1, nlanes, topo_len, nl_doubles, out[5])
+    "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiiip")),
     "run_store": (("tsr_run_store", RUN_STORE_SIG),),
     "run_phys": (("tsr_run_phys", RUN_SIG),),
     "run_phys_store": (("tsr_run_phys_store", RUN_STORE_SIG),),

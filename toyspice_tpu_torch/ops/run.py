@@ -13,8 +13,9 @@ instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
   ``csrc/run_kernel.cu`` (compat), ``csrc/run_kernel_phys.cu`` (physics)
   and ``csrc/run_kernel_mag.cu`` (physics with LM or K, compat LM or K
   with a Newton), the instantiations of ``csrc/run_kernel.cuh`` (one
-  segment of a warp per lane for a linear deck, one thread per lane for
-  a Newton deck, f64), without and with the waveform store. Each
+  segment of a warp per lane, a thread a row of the system and, in a
+  Newton deck, a thread a device, f64), without and with the waveform
+  store. Each
   checks its inputs, allocates the outputs, launches on the current
   stream and counts its launches in ``.launches``.
 * ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
@@ -72,13 +73,13 @@ from ..models import magnetic
 from ..models.sources import eval_sources
 from . import _build
 from .newton import MAX_NL_DEVICES, Builder, Devices, converged
-from .run_plan import (CORE_KEYS, LM_PHYS_ROWS, const_stack, first_leaf,
-                       fused_ineligible_reason, infer_batch,
+from .run_plan import (CORE_KEYS, LM_PHYS_ROWS, NL_SLOTS, const_stack,
+                       first_leaf, fused_ineligible_reason, infer_batch,
                        init_state_stack, jv_stack, jv_tree, mag_width,
                        make_plan, source_leaves, source_stack, unpack_state)
 
 NP1_CAP = 32  # largest matrix the kernel is compiled for (NMAX 8/16/32)
-MAX_SOURCES = 32  # per-thread source-value array of the kernel
+MAX_SOURCES = 32  # source values a lane keeps in the run kernel's slice
 MAX_TOPO = 12288  # int32 words of shared memory for the plan (48 KB)
 CHECK_EVERY = 256  # plain version: steps between host checks (linear)
 CHECK_EVERY_NL = 64  # the same for a Newton deck (longer steps)
@@ -106,14 +107,25 @@ def kernel_caps_reason(plan):
     return None
 
 
+def newton_doubles(plan):
+    """Doubles a lane of a Newton deck keeps in its segment's slice of the
+    run kernel's shared memory: its junction voltages and its value slots
+    (0 for a linear deck)."""
+    if not plan.nonlinear:
+        return 0
+    return plan.kj + sum(NL_SLOTS[kind] * cnt
+                         for kind, cnt in zip("DQM", plan.counts[5:]))
+
+
 def segment_shape(plan, b):
-    """The linear run kernel's launch for b lanes of ``plan`` as the
-    compat library computes it (``csrc/run_kernel.cuh`` ``seg_shape``, the
-    shape ``launch_seg`` launches): (W, lanes a block, blocks, threads a
-    block, bytes of shared memory a block)."""
+    """The run kernel's launch for b lanes of ``plan`` as the compat
+    library computes it (``csrc/run_kernel.cuh`` ``seg_shape``, the shape
+    ``launch`` launches, linear or Newton): (W, lanes a block, blocks,
+    threads a block, bytes of shared memory a block)."""
     out = (ctypes.c_int * 5)()
     err = _build.load("run").tsr_run_seg_shape(
-        plan.np1, b, int(plan.topo.size), ctypes.addressof(out))
+        plan.np1, b, int(plan.topo.size), newton_doubles(plan),
+        ctypes.addressof(out))
     if err != 0:
         raise ValueError(f"np1={plan.np1} has no segment launch")
     return tuple(out)
@@ -296,10 +308,8 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     fail = torch.empty(b, dtype=I32, device=device)
     nri = torch.empty(b, dtype=I32, device=device)
     args = [plan.np1, int(plan.nonlinear), int(mag), int(plan.physics),
-            int(sc.trap), topo.data_ptr(),
-            # a linear deck's segment kernel reads the row view too
-            int(plan.base_len if plan.nonlinear else plan.topo.size),
-            dev.data_ptr(), src.data_ptr(),
+            int(sc.trap), topo.data_ptr(), int(plan.topo.size),
+            newton_doubles(plan), dev.data_ptr(), src.data_ptr(),
             st.data_ptr(), jv_out.data_ptr(), t.data_ptr(), dt.data_ptr(),
             acc.data_ptr(), att.data_ptr(), fail.data_ptr(), nri.data_ptr(),
             b, float(sc.tstop), float(sc.minstep),

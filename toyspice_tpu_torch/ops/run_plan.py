@@ -375,7 +375,8 @@ class RunPlan:
     @property
     def base_len(self):
         """Length of the table before the row view (the whole table of an
-        OP plan): what the per-thread kernels copy and the caps count."""
+        OP plan, which the OP and DC sweep kernels copy): what the caps
+        count."""
         return int(self.topo[H_ROWS]) or int(self.topo.size)
 
     @property
