@@ -20,12 +20,18 @@ with a rectifier on its secondary), 256 lanes, compat and physics/trap
 ``--rc`` on an 8192-lane RC low-pass (a linear deck of np1 = 4, the
 smallest size bucket), for
 several checkouts of the port, in turns, on one CUDA card.  With ``--opdc``
-it times the OP kernel's first launch on that rectifier (plain Newton from
-the linear estimate), compat and physics, and the DC sweep kernel on
-diode_iv_sweep.cir (35 points), 8192 lanes each, in place of the run
-kernel: each rep is the mean of 20 back-to-back calls of the kernel's C
-entry point on prepared buffers, so that the wrapper's host work does not
-hide a launch that takes tens of microseconds.  ``--ac`` and ``--stamped``
+it times the OP kernel's launches of an OP ladder (that rectifier's one
+launch, plain Newton from the linear estimate, compat and physics;
+ce_amplifier_op.cir's whole ladder; 8192 lanes each) and the DC sweep
+kernel on diode_iv_sweep.cir (35 points, 8192 lanes, compat and physics
+with the diode's Rs per lane), and both on LM_DIODE at 256 lanes (the OP,
+and a 15-point sweep of its source, compat and physics), beside the run
+flags given (alone: no run kernel): each rep is the mean of 20
+back-to-back calls of the kernel's C entry point on the buffers its
+checkout's own wrapper prepared (a ladder's launches in turn), so that the
+wrapper's host work does not hide a launch that takes tens of
+microseconds, and each checkout calls its entry with its own argument
+list.  ``--ac`` and ``--stamped``
 add, beside bench.py's deck, the AC kernel on ce_amplifier_ac.cir's
 8192 x 12 systems of 16 and the stamped solve on one batched Newton
 iteration of cw16 (a 16-stage Cockcroft-Walton multiplier, np1 = 35,
@@ -48,6 +54,7 @@ bench.py's deck only beside another run flag.
     python3 ab_run_kernel.py --rectifier --physics --nlstore --lmdiode \
         _parent . . _parent
     python3 ab_run_kernel.py --opdc --reps 10 _parent . . _parent
+    python3 ab_run_kernel.py --opdc --rectifier --physics _parent . . _parent
 
 The run flags may be given together: each checkout then times each of
 the named runs in turn (bench.py's deck through the run kernel first
@@ -127,83 +134,155 @@ def event_ms(fn, reps):
     return out, ms
 
 
+def entry_calls(_build, launch, args):
+    """Call a checkout's own kernel wrapper ``launch`` once on ``args``,
+    recording each call of its library's C entry (whatever argument list
+    that checkout's entry takes) and keeping every tensor the wrapper
+    makes alive, so that the calls can be replayed on the same buffers:
+    (the wrapper's result, [(entry, arguments)], the tensors kept)."""
+    import torch
+
+    seen, keep = [], []
+    load = _build.load
+
+    class Recorder:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+            if name == "tsr_error_string":
+                return fn
+
+            def call(*a):
+                seen.append((fn, a))
+                return fn(*a)
+            return call
+
+    def keeping(make):
+        def made(*a, **k):
+            out = make(*a, **k)
+            keep.append(out)
+            return out
+        return made
+
+    makers = {name: getattr(torch, name) for name in
+              ("as_tensor", "empty", "empty_like", "zeros", "zeros_like",
+               "full")}
+    _build.load = lambda name="run": Recorder(load(name))
+    for name, make in makers.items():
+        setattr(torch, name, keeping(make))
+    try:
+        out = launch(*args)
+    finally:
+        _build.load = load
+        for name, make in makers.items():
+            setattr(torch, name, make)
+    return out, seen, keep
+
+
 def time_op_dc(root, reps, calls=20):
-    """The OP kernel's first launch of the rectifier's OP ladder, compat and
-    physics, and the DC sweep kernel's one launch of diode_iv_sweep.cir,
-    each captured from its entry's call; each rep times ``calls`` calls of
-    the library's C entry point on the captured inputs."""
+    """The OP kernel's launches of an OP ladder (the rectifier's, compat
+    and physics, 8192 lanes: one launch each; ce_amplifier_op's whole
+    ladder, 8192 lanes; LM_DIODE's, compat and physics, 256 lanes) and the
+    DC sweep kernel's one launch (diode_iv_sweep.cir at 8192 lanes, compat,
+    and physics with the diode's Rs drawn per lane; LM_DIODE's 15 points at
+    256 lanes, compat and physics), each launch's inputs captured from its
+    entry's call and its C entry's arguments from the checkout's own
+    wrapper; each rep times ``calls`` calls of every launch's C entry on
+    those buffers (a ladder: its launches in turn), in ms a call."""
+    import numpy as np
     import torch
 
     import toyspice_tpu_torch as ts
+    from chip_smoke import LM_DIODE
     from toyspice_tpu_torch.engine.options import DEFAULTS
     from toyspice_tpu_torch.ops import _build, dc, op
 
     here = os.path.dirname(os.path.abspath(__file__))
-    seen = {}
 
-    def capture(kind, launch):
-        def solve(*args):
-            seen.setdefault(kind, args)
-            return launch(*args)
-        return solve
-
-    def raw(fn, args):
+    def replay(launches):
+        """Each rep: every launch's entry calls, ``calls`` times over."""
         def many():
             for _ in range(calls):
-                err = fn(*args)
-            return err
+                for fn, a in launches:
+                    err = fn(*a)
+                    if err != 0:
+                        return err
+            return 0
         err, ms = event_ms(many, reps)
         if err != 0:
             raise SystemExit(f"{root}: launch failed: CUDA error {err}")
         return [m / calls for m in ms]
 
-    stream = torch.cuda.current_stream().cuda_stream
+    def op_case(name, cc, params, semantics):
+        args = []
+
+        def solve(*a):
+            args.append(a)
+            return op.op_plain(*a)
+
+        op.make_op_fused(cc, DEFAULTS, semantics, solve=solve)(
+            params, ts.init_state(cc))
+        launches, keep, iters, conv = [], [], 0, 0
+        for a in args:
+            r, seen, kept = entry_calls(_build, op.launch_op_kernel, a)
+            launches += seen
+            keep += kept
+            iters += int(r.iters.sum())
+            conv = int(r.conv.sum())
+        ms = replay(launches)
+        b = args[0][1].shape[0]
+        print(f"{root}: OP kernel ({name}, {semantics}, {b} lanes, "
+              f"{len(args)} launches): Newton iterations {iters}, converged "
+              f"at the last launch {conv}, kernel ms {ms}", flush=True)
+        del keep
+
+    def dc_case(name, cc, params, slots, pts, semantics):
+        args = []
+
+        def solve(*a):
+            args.append(a)
+            return dc.dc_plain(*a)
+
+        dc.make_dc_fused(cc, slots, DEFAULTS, semantics, solve=solve)(
+            params, ts.init_state(cc), pts)
+        r, seen, keep = entry_calls(_build, dc.launch_dc_kernel, args[0])
+        ms = replay(seen)
+        b, npts = r.xs.shape[:2]
+        print(f"{root}: DC sweep kernel ({name}, {semantics}, {b} lanes x "
+              f"{npts} points): Newton iterations {int(r.iters.sum())}, "
+              f"converged {int(r.conv.sum())}, kernel ms {ms}", flush=True)
+        del keep
+
     cc = ts.compile_circuit(ts.parse(rectifier_deck(here)))
     params, _ = spread_params(ts, cc)
     for semantics in ("compat", "physics"):
-        seen.pop("op", None)
-        op.make_op_fused(cc, DEFAULTS, semantics, solve=capture(
-            "op", op.launch_op_kernel))(params, ts.init_state(cc))
-        plan, dev, dyn, x0, jv0, sc = seen["op"]
-        b = dev.shape[0]
-        topo = torch.as_tensor(plan.topo, device=dev.device)
-        x, jv = torch.empty_like(x0), torch.empty_like(jv0)
-        iters = torch.empty(b, dtype=torch.int32, device=dev.device)
-        conv = torch.empty(b, dtype=torch.int32, device=dev.device)
-        ms = raw(_build.load("op").tsr_op, (
-            plan.np1, topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
-            dyn.data_ptr(), x0.data_ptr(), jv0.data_ptr(), x.data_ptr(),
-            jv.data_ptr(), iters.data_ptr(), conv.data_ptr(), b,
-            float(sc.reltol), float(sc.abstol), int(sc.max_iter),
-            float(sc.gmin_floor), int(sc.physics), stream))
-        print(f"{root}: OP kernel (half_wave_rectifier, {semantics}, {b} "
-              f"lanes): Newton iterations {int(iters.sum())}, converged "
-              f"{int(conv.sum())}, kernel ms {ms}", flush=True)
+        op_case("half_wave_rectifier", cc, params, semantics)
+    cc = ts.compile_circuit(ts.parse(deck_text(here, "ce_amplifier_op.cir")))
+    params, _ = spread_params(ts, cc, ("R",))
+    op_case("ce_amplifier_op", cc, params, "compat")
 
     cc = ts.compile_circuit(ts.parse(deck_text(here, "diode_iv_sweep.cir")))
-    params, _ = spread_params(ts, cc, ("R",))
     d = cc.netlist.dc
     slot = (cc.names["V"].index(d.source1),)
     pts = ts.sweep_values(d.start1, d.stop1, d.increment1)
-    dc.make_dc_fused(cc, slot, DEFAULTS, solve=capture(
-        "dc", dc.launch_dc_kernel))(params, ts.init_state(cc), pts)
-    plan, dev, dyn, vs, sc = seen["dc"]
-    b, npts = dev.shape[0], vs.shape[-2]
-    topo = torch.as_tensor(plan.topo, device=dev.device)
-    xs = torch.empty((b, npts, plan.np1), dtype=torch.float64,
-                     device=dev.device)
-    iters = torch.empty((b, npts), dtype=torch.int32, device=dev.device)
-    conv = torch.empty((b, npts), dtype=torch.int32, device=dev.device)
-    ms = raw(_build.load("dc").tsr_dc_sweep, (
-        plan.np1, topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
-        dyn.data_ptr(), vs.data_ptr(),
-        npts * plan.counts[3] if vs.ndim == 3 else 0, npts, xs.data_ptr(),
-        iters.data_ptr(), conv.data_ptr(), b, float(sc.reltol),
-        float(sc.abstol), int(sc.max_iter), float(sc.gmin_floor),
-        int(sc.physics), stream))
-    print(f"{root}: DC sweep kernel (diode_iv_sweep, {b} lanes x {npts} "
-          f"points): Newton iterations {int(iters.sum())}, converged "
-          f"{int(conv.sum())}, kernel ms {ms}", flush=True)
+    params, _ = spread_params(ts, cc, ("R",))
+    dc_case("diode_iv_sweep", cc, params, slot, pts, "compat")
+    rs = np.random.default_rng(0).uniform(1.0, 20.0, (LANES, 1))
+    params, _ = ts.batch_params(cc, {
+        "R": {"value": np.asarray(cc.params["R"]["value"])[None]
+              * np.exp(np.random.default_rng(0).normal(0, 0.1, (LANES, 1)))},
+        "D": {"rs": rs}})
+    dc_case("diode_iv_sweep, Rs per lane", cc, params, slot, pts, "physics")
+
+    cc = ts.compile_circuit(ts.parse(LM_DIODE))
+    params, _ = spread_params(ts, cc, ("R", "C"), 256)
+    for semantics in ("compat", "physics"):
+        op_case("lm_diode", cc, params, semantics)
+        dc_case("lm_diode", cc, params, (0,), np.linspace(-2.0, 5.0, 15),
+                semantics)
+    torch.cuda.synchronize()
 
 
 def entry_ms(root, fn, args, reps, calls=20):
@@ -520,7 +599,7 @@ def time_checkout(root, modes, reps, ptxas=True, opdc=False, do_ac=False,
     if ptxas:
         print_ptxas(root, _build, names)
     if opdc:
-        return time_op_dc(root, reps)
+        time_op_dc(root, reps)
     for mode in modes:
         run_case(root, ts, run, run_plan, mode, reps)
     if do_ac or do_stamped:
@@ -554,8 +633,8 @@ def main():
                     "and physics/trap (the magnetic Newton "
                     "instantiations)")
     ap.add_argument("--opdc", action="store_true",
-                    help="time the OP and DC sweep kernels instead of the "
-                    "run kernel")
+                    help="time the OP and DC sweep kernels (beside the run "
+                    "flags given)")
     ap.add_argument("--ac", action="store_true",
                     help="also time the AC kernel on ce_amplifier_ac.cir")
     ap.add_argument("--stamped", action="store_true",
@@ -579,7 +658,7 @@ def main():
         linear = ((["store"] if a.store else [])
                   + (["magphys"] if a.magphys else [])
                   + (["rc"] if a.rc else []))
-        if a.gj and not (newton or linear):
+        if (a.gj or a.opdc) and not (newton or linear):
             modes = []
         elif newton and not linear:
             modes = newton

@@ -34,7 +34,7 @@ seconds:
    log-normally by 0.1; the diode stack HARD_V with V1 drawn per lane in
    [2, 100] V (stages 0 and 2 both occur) and the current-driven HARD_I
    (no lane converges), 256 lanes.  converged, stage and the iteration
-   counts must be equal per lane, x and jv equal within rtol 1e-9.
+   counts must be equal per lane, x and jv bit for bit.
 6. run kernel against its plain version on nonlinear decks:
    half_wave_rectifier.cir, nmos_inverter_tran.cir and a CE-amplifier BJT
    transient, 8192 lanes, R and C spread log-normally by 0.1, warm-started
@@ -50,7 +50,7 @@ seconds:
 9. DC sweep: run_dc_batch on diode_iv_sweep.cir, 8192 lanes, Rsen and the
    diode's Is spread 0.1, all 35 points in one launch of the DC sweep
    kernel; then the kernel against its plain version (conv and iterations
-   equal per point, xs within rtol 1e-9).
+   equal per point, xs bit for bit).
 10. AC: run_ac_batch on ce_amplifier_ac.cir, 8192 lanes, R and C spread
    0.1, 12 frequencies: the OP kernel's bias, then one launch of the AC
    kernel for the 98,304 (instance, frequency) systems; then the AC kernel
@@ -485,13 +485,13 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry, frame = m.group(1), None
-            k = re.search(r"(run_seg_kernel|op_kernel|"
-                          r"stamped_kernel|dc_sweep_kernel|ac_kernel)"
+            k = re.search(r"(run_seg_kernel|op_seg_kernel|"
+                          r"stamped_kernel|dc_seg_kernel|ac_kernel)"
                           r"ILi(\d+)E((?:Lb[01]E)*)", entry)
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
             # run_seg_kernel<NMAX, NL, MAG, STORE, PHYS> (NL: a Newton
-            # deck), op_kernel<NMAX, PHYS> and dc_sweep_kernel<NMAX, PHYS>
+            # deck), op_seg_kernel<NMAX, PHYS> and dc_seg_kernel<NMAX, PHYS>
             kname = k.group(1) if k is not None else None
             names = ([("linear", "newton"), ("", "mag"), ("", "store"),
                       ("", "physics")] if kname == "run_seg_kernel" else
@@ -650,6 +650,15 @@ def compare_run(name, k, p, check_jv=False):
     if check_jv:
         pairs.append(("jv", k.jv, p.jv))
     for what, a, b in pairs + [("dt_final", k.dt, p.dt)]:
+        if not same_bits(a, b):
+            fail(f"{name}: {what} is not bit for bit the plain version's")
+    return max_err(name, pairs)
+
+
+def exact_err(name, pairs):
+    """max_err, each (what, a, b) also bit for bit (the OP and DC sweep
+    kernels against their plain versions)."""
+    for what, a, b in pairs:
         if not same_bits(a, b):
             fail(f"{name}: {what} is not bit for bit the plain version's")
     return max_err(name, pairs)
@@ -884,7 +893,7 @@ def dc_phase(lanes):
     for key in ("conv", "iters"):
         if not torch.equal(getattr(k, key), getattr(p, key)):
             fail(f"DC sweep: {key} differs from the plain version")
-    dc_err = max_err("DC sweep", [
+    dc_err = exact_err("DC sweep", [
         ("xs", k.xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1)),
         ("xs", xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1))])
     dk_ms, dp_ms = tk.ms(), tp_.ms()
@@ -898,8 +907,9 @@ def dc_phase(lanes):
           f"diode_iv_sweep: {lanes} lanes x {len(pts)} points in one "
           f"launch, np1={cc.np1}, all converged, Newton iterations "
           f"{dc_iters} ({dc_iters / (lanes * len(pts)):.6f} per "
-          f"point), wall={dc_wall:.6f} s; kernel vs plain equal, max abs "
-          f"err {dc_err:.3e}; kernel {dk_ms:.3f} ms, plain {dp_ms:.1f} ms")
+          f"point), wall={dc_wall:.6f} s; kernel vs plain equal, bit for "
+          f"bit, max abs err {dc_err:.3e}; kernel {dk_ms:.3f} ms, plain "
+          f"{dp_ms:.1f} ms")
     return dc_main
 
 
@@ -1544,7 +1554,7 @@ def physics_op_phase(lanes):
             if not torch.equal(getattr(k, key), getattr(p, key)):
                 fail(f"{name}: physics OP {key} differs from the plain "
                      "version")
-        e = max_err(name, [("x", k.x, p.x)] + [
+        e = exact_err(name, [("x", k.x, p.x)] + [
             (f"jv.{kd}.{key}", k.jv[kd][key], p.jv[kd][key])
             for kd in k.jv for key in k.jv[kd]])
         err = max(err, e)
@@ -1554,7 +1564,8 @@ def physics_op_phase(lanes):
         phase("19 physics OP kernel vs plain", t0,
               f"{name}: {lanes} lanes, np1={cc.np1}, converged {conv}, NR "
               f"iterations {int(k.iters_all.sum())}, launches "
-              f"{len(tk.events)}; equal counts, max abs err {e:.3e}; kernel "
+              f"{len(tk.events)}; equal counts, bit for bit, max abs err "
+              f"{e:.3e}; kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
         if name == "half_wave_rectifier":
             plan_op = fk.plan
@@ -1613,7 +1624,7 @@ def physics_dc_phase(lanes):
     for key in ("conv", "iters"):
         if not torch.equal(getattr(k, key), getattr(p, key)):
             fail(f"physics DC sweep: {key} differs from the plain version")
-    err = max_err("physics DC sweep", [
+    err = exact_err("physics DC sweep", [
         ("xs", k.xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1)),
         ("xs", xs.reshape(-1, cc.np1), p.xs.reshape(-1, cc.np1))])
     k_ms, p_ms = tk.ms(), tp_.ms()
@@ -1623,7 +1634,7 @@ def physics_dc_phase(lanes):
           f"diode_iv_sweep (physics, Rs per lane): {lanes} lanes x "
           f"{len(pts)} points in one launch, all converged, Newton "
           f"iterations {iters}, wall={wall:.6f} s; kernel vs plain equal, "
-          f"max abs err {err:.3e}; kernel {k_ms:.3f} ms, plain "
+          f"bit for bit, max abs err {err:.3e}; kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.1f} ms")
     return dict(launches=got["dc_sweep_kernel"], err=err, k_ms=k_ms,
                 p_ms=p_ms, plan=plan_dc, iters=iters,
@@ -1912,7 +1923,7 @@ def mag_newton_phase(lanes, smi):
         for key in ("converged", "stage", "iters", "iters_all"):
             if not torch.equal(getattr(ko, key), getattr(po, key)):
                 fail(f"LM + diode {semantics} OP: {key} differs")
-        eo = max_err("lm_diode OP", [("x", ko.x, po.x), ("x", opr.x, po.x)])
+        eo = exact_err("lm_diode OP", [("x", ko.x, po.x), ("x", opr.x, po.x)])
         if not bool(opr.converged.all()):
             fail(f"LM + diode {semantics} OP: a lane did not converge")
         plan_op = tk.args[0][0]
@@ -1931,7 +1942,8 @@ def mag_newton_phase(lanes, smi):
         phase("23 magnetic OP kernel vs plain", t0,
               f"lm_diode ({semantics}): {lanes} lanes, OP launches "
               f"{got['op_kernel']}, converged {int(opr.converged.sum())}, "
-              f"NR iterations {op_it}; equal counts, max abs err {eo:.3e}; "
+              f"NR iterations {op_it}; equal counts, bit for bit, max abs err "
+              f"{eo:.3e}; "
               f"kernel {res[f'op_{semantics}']['k_ms']:.3f} ms, plain "
               f"{res[f'op_{semantics}']['p_ms']:.1f} ms")
 
@@ -1956,7 +1968,7 @@ def mag_newton_phase(lanes, smi):
         for key in ("conv", "iters"):
             if not torch.equal(getattr(kd, key), getattr(pd, key)):
                 fail(f"LM + diode {semantics} DC: {key} differs")
-        ed = max_err("lm_diode DC", [
+        ed = exact_err("lm_diode DC", [
             ("xs", kd.xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1)),
             ("xs", xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1))])
         plan_dc, dev_, dyn_, vs_, _ = tk.args[0]
@@ -1971,7 +1983,7 @@ def mag_newton_phase(lanes, smi):
         phase("23 magnetic DC sweep kernel vs plain", t0,
               f"lm_diode ({semantics}): {lanes} lanes x {len(pts)} points "
               f"in one launch, all converged, Newton iterations {dc_it}; "
-              f"equal counts, max abs err {ed:.3e}; kernel "
+              f"equal counts, bit for bit, max abs err {ed:.3e}; kernel "
               f"{res[f'dc_{semantics}']['k_ms']:.3f} ms, plain "
               f"{res[f'dc_{semantics}']['p_ms']:.1f} ms on {smi}")
     return res
@@ -2799,7 +2811,7 @@ def main():
         pairs = [("x", k.x, p.x)] + [
             (f"jv.{kd}.{key}", k.jv[kd][key], p.jv[kd][key])
             for kd in k.jv for key in k.jv[kd]]
-        err = max_err(name, pairs)
+        err = exact_err(name, pairs)
         op_err = max(op_err, err)
         stages = torch.bincount(k.stage.long(), minlength=3).tolist()
         conv = int(k.converged.sum())
@@ -2815,7 +2827,8 @@ def main():
               f"{name}: {b} lanes, np1={cc.np1}, stages {stages}, "
               f"converged {conv}, NR iterations stage 0 "
               f"{int(k.iters.sum())}, all {int(k.iters_all.sum())}, "
-              f"launches {launches}; equal counts, max abs err {err:.3e}; "
+              f"launches {launches}; equal counts, bit for bit, max abs err "
+              f"{err:.3e}; "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
         if name == "half_wave_rectifier":
             # bytes of each launch: dev and dyn rows, x and jv in and out,

@@ -248,12 +248,7 @@ def test_op_kernel_matches_plain(cuda, deck, ov):
     launched = op.launch_op_kernel.launches - before
     p = op.make_op_fused(cc, DEFAULTS, solve=op.op_plain)(params, state0)
     assert op.launch_op_kernel.launches - before == launched >= 1
-    for key in ("converged", "stage", "iters", "iters_all"):
-        assert torch.equal(getattr(k, key), getattr(p, key)), key
-    assert torch.equal(k.x.isnan(), p.x.isnan())
-    fin = p.x.isfinite()
-    assert bool(((k.x - p.x).abs()[fin]
-                 <= 1e-9 * p.x.abs()[fin].amax()).all())
+    _assert_op_bits(k, p)
 
 
 def test_nonlinear_main_path_launches_both_kernels(cuda):
@@ -385,8 +380,7 @@ def test_dc_kernel_matches_plain(cuda, deck, nested, batched_v):
     assert dc.launch_dc_kernel.launches == before + 1
     p = dc.make_dc_fused(cc, slots, DEFAULTS, solve=dc.dc_plain)(
         params, state0, pts)
-    assert torch.equal(k.conv, p.conv) and torch.equal(k.iters, p.iters)
-    _assert_close(k.xs, p.xs)
+    _assert_dc_bits(k, p)
     if not nested:
         assert bool(k.conv.all())
     else:  # the general engine converges on the first 20 of the 34 points
@@ -421,6 +415,25 @@ def _same_bits(a, b):
     return (torch.equal(torch.isnan(a), torch.isnan(b))
             and torch.equal(torch.where(torch.isnan(a), 0.0, a),
                             torch.where(torch.isnan(b), 0.0, b)))
+
+
+def _assert_op_bits(k, p):
+    """An OP through make_op_fused against its plain version: converged,
+    stage and the iteration counts equal, x and every jv leaf bit for
+    bit."""
+    for key in ("converged", "stage", "iters", "iters_all"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+    assert _same_bits(k.x, p.x)
+    for kd in p.jv:
+        for key in p.jv[kd]:
+            assert _same_bits(k.jv[kd][key], p.jv[kd][key]), (kd, key)
+
+
+def _assert_dc_bits(k, p):
+    """A DC sweep against its plain version: conv and iterations equal
+    per point, xs bit for bit."""
+    assert torch.equal(k.conv, p.conv) and torch.equal(k.iters, p.iters)
+    assert _same_bits(k.xs, p.xs)
 
 
 @pytest.mark.parametrize("np1", [2, 8, 9, 16, 17, 32])
@@ -723,9 +736,7 @@ def test_physics_op_kernel_matches_plain(cuda, deck):
         params, state0)
     p = op.make_op_fused(cc, DEFAULTS, "physics", solve=op.op_plain)(
         params, state0)
-    for key in ("converged", "stage", "iters", "iters_all"):
-        assert torch.equal(getattr(k, key), getattr(p, key)), key
-    _assert_close(k.x, p.x)
+    _assert_op_bits(k, p)
     assert bool(k.converged.all())
 
 
@@ -745,8 +756,7 @@ def test_physics_dc_kernel_matches_plain(cuda):
     assert dc.launch_dc_kernel.launches == before + 1
     p = dc.make_dc_fused(cc, slots, DEFAULTS, "physics",
                          solve=dc.dc_plain)(params, state0, pts)
-    assert torch.equal(k.conv, p.conv) and torch.equal(k.iters, p.iters)
-    _assert_close(k.xs, p.xs)
+    _assert_dc_bits(k, p)
     assert bool(k.conv.all())
 
 
@@ -835,9 +845,7 @@ def test_magnetic_op_and_dc_kernels_match_plain(cuda, semantics):
     assert op.launch_op_kernel.launches > before
     p = op.make_op_fused(cc, DEFAULTS, semantics, solve=op.op_plain)(
         params, state0)
-    for key in ("converged", "stage", "iters", "iters_all"):
-        assert torch.equal(getattr(k, key), getattr(p, key)), key
-    _assert_close(k.x, p.x)
+    _assert_op_bits(k, p)
     assert bool(k.converged.all())
     pts = np.linspace(-2.0, 5.0, 15)
     before = dc.launch_dc_kernel.launches
@@ -847,8 +855,7 @@ def test_magnetic_op_and_dc_kernels_match_plain(cuda, semantics):
     assert dc.launch_dc_kernel.launches == before + 1
     pd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics,
                           solve=dc.dc_plain)(params, state0, pts)
-    assert torch.equal(kd.conv, pd.conv) and torch.equal(kd.iters, pd.iters)
-    _assert_close(kd.xs, pd.xs)
+    _assert_dc_bits(kd, pd)
     assert bool(kd.conv.all())
 
 
@@ -1489,3 +1496,291 @@ def test_newton_segment_launch_shape(cuda, deck, semantics, store, tag):
     assert len(names) == 1, names
     assert "run_seg_kernel" + tag in names.pop().replace(" ", "").replace(
         ",", ", ")
+
+
+# ------------------- the OP and DC sweep kernels on a warp segment
+
+HARD_I = """i-driven stack
+.op
+I1 0 1 DC 1
+D1 1 2 DM
+D2 2 0 DM
+.model DM D (Is=1e-15 N=1.0)
+"""
+
+
+def _v_draw(lo, hi, seed=0):
+    """Every V source's dc drawn per lane, uniform in [lo, hi]."""
+    def ov(cc, b):
+        nv = len(cc.params["V"]["dc"])
+        return {"V": {"dc": np.random.default_rng(seed).uniform(
+            lo, hi, (b, nv))}}
+    return ov
+
+
+def _mixed_op_draw(cc, b):
+    return {"V": {"dc": np.stack([np.full(b, 5.0), np.linspace(0.5, 4.5, b)],
+                                 axis=1)}}
+
+
+def _op_pair(deck, lanes, device, semantics="compat", ov=None,
+             max_iter=None):
+    """make_op_fused through the kernel (its launches counted) and through
+    the plain version on the same lanes: (kernel result, plain result,
+    kernel launches)."""
+    cc = ts.compile_circuit(ts.parse(deck))
+    params, _ = ts.batch_params(cc, (ov or _rc_spread)(cc, lanes),
+                                device=device)
+    state0 = ts.init_state(cc, device=device)
+    opts = DEFAULTS if max_iter is None else ts.SimOptions(max_iter=max_iter)
+    before = op.launch_op_kernel.launches
+    k = op.make_op_fused(cc, opts, semantics, solve=op.op_lanes)(params,
+                                                                state0)
+    torch.cuda.synchronize()
+    launched = op.launch_op_kernel.launches - before
+    p = op.make_op_fused(cc, opts, semantics, solve=op.op_plain)(params,
+                                                                state0)
+    assert op.launch_op_kernel.launches - before == launched >= 1
+    return k, p, launched
+
+
+@pytest.mark.parametrize("np1", [2, 4, 5, 8, 9, 16, 17, 32])
+def test_op_segment_kernel_is_bit_identical(cuda, np1):
+    """The OP kernel on segments of 4, 8, 16 and 32 lanes at every bucket
+    edge, 259 lanes (not a multiple of a block's lanes): converged, stage,
+    iterations, x and jv equal to op_plain bit for bit."""
+    deck = newton_ladder(np1)
+    assert ts.compile_circuit(ts.parse(deck)).np1 == np1
+    k, p, _ = _op_pair(deck, 259, cuda)
+    _assert_op_bits(k, p)
+    assert bool(k.converged.all())
+
+
+@pytest.mark.parametrize("deck,semantics,ov,max_iter", [
+    (MIXED16, "compat", None, None), (MIXED16, "physics", None, None),
+    (MIXED_OP, "compat", _mixed_op_draw, None),
+    (LM_DIODE, "compat", None, None), (LM_DIODE, "physics", None, None),
+    (D_RS_SIN, "physics", None, None), (D_BV_SIN, "physics", None, None),
+    (HARD_V, "compat", _v_draw(2.0, 100.0), None),
+    (HARD_V, "physics", _v_draw(2.0, 100.0), None),
+    (HARD_I, "compat", lambda cc, b: {"I": {"dc": np.ones((b, 1))}}, None),
+    (BJT_TRAN, "compat", None, 2)],
+    ids=["mixed16", "mixed16_physics", "levels_polarities", "lm_diode",
+         "lm_diode_physics", "diode_rs", "diode_bv", "hard_v",
+         "hard_v_physics", "hard_i", "max_iter_2"])
+def test_op_segment_instantiations_are_bit_identical(cuda, deck, semantics,
+                                                      ov, max_iter):
+    """D, Q and M together at np1 = 32, level-2/3 MOSFETs of both
+    polarities, LM decks, the Rs and Bv diodes, HARD_V's ladder (lanes at
+    stages 0 and 2, from a non-finite linear estimate), HARD_I (no lane
+    converges) and max_iter = 2, 259 lanes: bit for bit with op_plain."""
+    k, p, launched = _op_pair(deck, 259, cuda, semantics, ov, max_iter)
+    _assert_op_bits(k, p)
+    stages = torch.bincount(k.stage.long(), minlength=3).tolist()
+    if deck is HARD_V:
+        assert stages[0] and stages[2] and bool(k.converged.all())
+    elif deck is HARD_I or max_iter == 2:
+        assert stages[2] == 259 and not bool(k.converged.any())
+        assert launched > 3
+    elif deck is MIXED_OP:
+        assert launched > 1  # lanes of one warp on different rungs
+    else:
+        assert bool(k.converged.all())
+
+
+def _first_op_inputs(deck, lanes, device, ov=None):
+    """The first launch's (plan, dev, dyn, x0, jv0, scalars) of a deck's
+    OP ladder."""
+    cc = ts.compile_circuit(ts.parse(deck))
+    params, _ = ts.batch_params(cc, (ov or _rc_spread)(cc, lanes),
+                                device=device)
+    seen = []
+
+    def solve(*args):
+        seen.append(args)
+        return op.op_plain(*args)
+
+    op.make_op_fused(cc, DEFAULTS, solve=solve)(
+        params, ts.init_state(cc, device=device))
+    return seen[0]
+
+
+def test_op_segment_non_finite_estimate_is_zero(cuda):
+    """HARD_V's linear estimate is singular (its diode nodes have no linear
+    stamp): with use_seed and no lane active, x is the zero vector, jv0
+    is kept and no lane iterates, on every lane; then half the lanes
+    active, half not: bit for bit with op_plain."""
+    plan, dev, dyn, x0, jv0, sc = _first_op_inputs(HARD_V, 37, cuda,
+                                                   _v_draw(2.0, 100.0))
+    dyn = dyn.clone()
+    dyn[:, 2] = 0.0  # act
+    k = op.launch_op_kernel(plan, dev, dyn, x0, jv0, sc)
+    p = op.op_plain(plan, dev, dyn, x0, jv0, sc)
+    assert bool((k.x == 0).all()) and not k.iters.any()
+    assert not k.conv.any() and torch.equal(k.jv, jv0)
+    for a, b in zip(k, p):
+        assert _same_bits(a, b) if a.is_floating_point() else \
+            torch.equal(a, b)
+    dyn[::2, 2] = 1.0
+    dyn[1::4, 1] = 0.0  # some lanes from x0 instead of the estimate
+    x1 = torch.rand_like(x0)
+    k = op.launch_op_kernel(plan, dev, dyn, x1, jv0, sc)
+    p = op.op_plain(plan, dev, dyn, x1, jv0, sc)
+    for a, b in zip(k, p):
+        assert _same_bits(a, b) if a.is_floating_point() else \
+            torch.equal(a, b)
+    assert not k.iters[1::2].any() and bool(k.iters[::2].gt(0).all())
+
+
+def _dc_sweep(deck, pts, slots=None):
+    cc = ts.compile_circuit(ts.parse(deck))
+    if slots is None:
+        d = cc.netlist.dc
+        slots = (cc.names["V"].index(d.source1),)
+    return cc, np.asarray(pts), slots
+
+
+def _diode_pts():
+    return np.asarray(ts.sweep_values(0.2, 0.9, 0.02))
+
+
+@pytest.mark.parametrize("case", [
+    "diode", "diode_rs_physics", "diode_lane_table", "diode_150_points",
+    "diode_max_iter_2", "mos_nested", "lm_diode", "lm_diode_physics",
+    "ladder5", "ladder9", "ladder17", "ladder32", "mixed16"])
+def test_dc_segment_kernel_is_bit_identical(cuda, case):
+    """The DC sweep kernel on segments of 4, 8, 16 and 32 lanes, 259
+    lanes, compat and physics (the diode's Rs per lane), a per-lane source
+    table, a sweep of 150 points, max_iter = 2, a nested sweep of level-2/3
+    MOSFETs, LM decks, ladders at the bucket edges and D, Q and M together
+    at np1 = 32: conv and iterations per point equal to dc_plain, xs bit
+    for bit."""
+    semantics, max_iter, lanes = "compat", None, 259
+    ov = _rc_spread
+    if case.startswith("diode"):
+        cc, pts, slots = _dc_sweep(DIODE_IV, _diode_pts())
+        if case == "diode_rs_physics":
+            semantics = "physics"
+
+            def ov(cc, b):
+                o = _rc_spread(cc, b)
+                o["D"] = {"rs": np.linspace(1.0, 20.0, b)[:, None]}
+                return o
+        elif case == "diode_lane_table":
+            ov = _v_draw(0.1, 0.3)
+        elif case == "diode_150_points":
+            pts = np.linspace(-1.0, 0.9, 150)
+        elif case == "diode_max_iter_2":
+            max_iter = 2
+    elif case == "mos_nested":
+        cc, pts, slots = _dc_sweep(MOS_DC, [])
+        d = cc.netlist.dc
+        inner = np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1))
+        pts = np.array([(a, b) for a in (3.0, 5.0) for b in inner])
+        slots = (cc.names["V"].index("VDD"), cc.names["V"].index("VG"))
+    elif case.startswith("lm_diode"):
+        cc, pts, slots = _dc_sweep(LM_DIODE, np.linspace(-2.0, 5.0, 15),
+                                   (0,))
+        semantics = "physics" if case.endswith("physics") else "compat"
+    elif case == "mixed16":
+        cc, pts, slots = _dc_sweep(MIXED16, np.linspace(0.0, 3.0, 9), (1,))
+    else:
+        np1 = int(case[len("ladder"):])
+        cc, pts, slots = _dc_sweep(newton_ladder(np1),
+                                   np.linspace(-3.0, 3.0, 11), (0,))
+        assert cc.np1 == np1
+    params, _ = ts.batch_params(cc, ov(cc, lanes), device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    opts = DEFAULTS if max_iter is None else ts.SimOptions(max_iter=max_iter)
+    before = dc.launch_dc_kernel.launches
+    k = dc.make_dc_fused(cc, slots, opts, semantics)(params, state0, pts)
+    torch.cuda.synchronize()
+    assert dc.launch_dc_kernel.launches == before + 1
+    p = dc.make_dc_fused(cc, slots, opts, semantics, solve=dc.dc_plain)(
+        params, state0, pts)
+    _assert_dc_bits(k, p)
+    assert k.xs.shape == (lanes, len(pts), cc.np1)
+    if max_iter == 2:
+        assert not bool(k.conv.any()) and bool((k.iters == 2).all())
+        return
+    if case != "mos_nested":
+        assert bool(k.conv.all())
+    if case.startswith("lm_diode"):  # every point in 2 iterations
+        assert bool((k.iters == 2).all())
+        return
+    # the first warp's segments (one lane at np1 > 16) end their Newton at
+    # different iterations
+    per_warp = 32 // (4 if cc.np1 <= 4 else 8 if cc.np1 <= 8 else
+                      16 if cc.np1 <= 16 else 32)
+    assert len(set(k.iters[:per_warp].flatten().tolist())) > 1
+
+
+@pytest.mark.parametrize("kind", ["op", "dc"])
+def test_opdc_segment_refuses_a_short_slice(cuda, monkeypatch, kind):
+    """A launch whose lane_doubles is one short of the deck's counts reads
+    and writes no slice: every lane (and point) returns x all NaN, 0
+    iterations and not converged, the OP its jv0."""
+    cc = ts.compile_circuit(ts.parse(MIXED16))
+    params, _ = ts.batch_params(cc, _rc_spread(cc, 37), device=cuda)
+    state0 = ts.init_state(cc, device=cuda)
+    mod = op if kind == "op" else dc
+    need = mod.lane_doubles(run_plan.make_plan(cc, "op"))
+    monkeypatch.setattr(mod, "lane_doubles", lambda plan: need - 1)
+    if kind == "op":
+        plan, dev, dyn, x0, jv0, sc = _first_op_inputs(MIXED16, 37, cuda)
+        k = op.launch_op_kernel(plan, dev, dyn, x0, jv0, sc)
+        torch.cuda.synchronize()
+        assert bool(k.x.isnan().all()) and torch.equal(k.jv, jv0)
+        assert not k.iters.any() and not k.conv.any()
+    else:
+        k = dc.make_dc_fused(cc, (1,), DEFAULTS)(params, state0,
+                                                 np.linspace(0.0, 3.0, 5))
+        torch.cuda.synchronize()
+        assert bool(k.xs.isnan().all())
+        assert not k.iters.any() and not k.conv.any()
+
+
+@pytest.mark.parametrize("deck,semantics,kind,tag", [
+    (HWR, "compat", "op", "op_seg_kernel<4, false>"),
+    (HWR, "physics", "op", "op_seg_kernel<4, true>"),
+    (newton_ladder(8), "compat", "op", "op_seg_kernel<8, false>"),
+    (newton_ladder(9), "physics", "op", "op_seg_kernel<16, true>"),
+    (MIXED16, "compat", "op", "op_seg_kernel<32, false>"),
+    (DIODE_IV, "compat", "dc", "dc_seg_kernel<4, false>"),
+    (DIODE_IV, "physics", "dc", "dc_seg_kernel<4, true>"),
+    (LM_DIODE, "compat", "dc", "dc_seg_kernel<8, false>"),
+    (newton_ladder(16), "physics", "dc", "dc_seg_kernel<16, true>"),
+    (MIXED16, "compat", "dc", "dc_seg_kernel<32, false>")],
+    ids=["op_4", "op_4_physics", "op_8", "op_16_physics", "op_32", "dc_4",
+         "dc_4_physics", "dc_8", "dc_16_physics", "dc_32"])
+def test_opdc_segment_launch_shape(cuda, deck, semantics, kind, tag):
+    """Each OP and DC sweep instantiation launches its segment kernel (by
+    its name in a profile of the card, the one kernel of its kind in the
+    run) in the shape the op library reports: segments of W threads,
+    128 / W lanes a block, enough blocks for 259 lanes, the table and the
+    slices (the lane's inputs, junction voltages and value slots) within
+    a block's shared memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cc = ts.compile_circuit(ts.parse(deck))
+    params, axes = ts.batch_params(cc, _rc_spread(cc, 259), device=cuda)
+    plan = run_plan.make_plan(cc, "op")
+    lane = (op if kind == "op" else dc).lane_doubles(plan)
+    got = op.segment_shape(plan, 259, lane)
+    w = int(tag[tag.index("<") + 1:tag.index(",")])
+    assert got[:4] == (w, 128 // w, -(-259 // (128 // w)), 128)
+    base = (w + 2) * (w + 1) + w
+    assert got[4] == 8 * ((plan.topo.size + 3) // 4 * 2
+                          + (128 // w) * (base + (lane + 1) // 2 * 2))
+    assert got[4] <= 227 * 1024
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if kind == "op":
+            ts.run_op_batch(cc, params, axes, semantics=semantics)
+        else:
+            ts.run_dc_batch(cc, (0,), params, axes, [0.1, 0.5, 0.9],
+                            semantics=semantics)
+        torch.cuda.synchronize()
+    key = tag[:tag.index("<")]
+    names = {e.key for e in prof.key_averages() if key in e.key}
+    assert len(names) == 1, names
+    assert tag in names.pop().replace(" ", "").replace(",", ", ")

@@ -130,18 +130,23 @@ def test_row_view_of_ladders(np1, kind):
 
 def test_op_plan_has_no_view_and_the_caps_count_the_base_table(
         monkeypatch):
+    """The OP plan too carries the row view (the OP and DC sweep kernels
+    build on a warp segment from it), then each row's linear prefix; the
+    caps count the table before the view, for either plan."""
     cc = ts.compile_circuit(ts.parse((CIRCUITS / "rlc_ringdown.cir")
                                      .read_text()))
     op_plan = make_plan(cc, mode="op")
-    assert int(op_plan.topo[H_ROWS]) == 0
-    assert op_plan.base_len == op_plan.topo.size
+    pos, e = int(op_plan.topo[H_ROWS]), len(op_plan.entries)
+    assert pos % 4 == 0 and pos == op_plan.base_len
+    assert pos + 4 * e + 2 * op_plan.np1 + 1 == op_plan.topo.size
     tran = make_plan(cc)
     assert tran.base_len < tran.topo.size
     # the shared-memory cap counts the table before the view, as before it
-    monkeypatch.setattr(run, "MAX_TOPO", tran.base_len)
-    assert run.kernel_caps_reason(tran) is None
-    monkeypatch.setattr(run, "MAX_TOPO", tran.base_len - 1)
-    assert "shared-memory table" in run.kernel_caps_reason(tran)
+    for plan in (tran, op_plan):
+        monkeypatch.setattr(run, "MAX_TOPO", plan.base_len)
+        assert run.kernel_caps_reason(plan) is None
+        monkeypatch.setattr(run, "MAX_TOPO", plan.base_len - 1)
+        assert "shared-memory table" in run.kernel_caps_reason(plan)
 
 
 HWR_MOS = """* a diode and an NMOS

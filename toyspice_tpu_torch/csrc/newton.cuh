@@ -1,9 +1,11 @@
-// The in-kernel Newton of csrc/op_kernel.cu (each OP solve) and
-// csrc/dc_sweep_kernel.cu (each sweep point), one thread per lane, f64;
-// its per-device bodies (limit_diode .. limit_mos, value_diode ..
-// value_mos), which the run kernel's segment (csrc/run_kernel.cuh) calls
-// device by device, a device a thread; and the Gauss-Jordan that
-// csrc/stamped_solve.cu uses too.
+// The Newton of the port's nonlinear kernels, f64: the per-device bodies
+// (limit_diode .. limit_mos, value_diode .. value_mos), which every kernel
+// calls device by device, a device a thread of a lane's warp segment; the
+// segment Newton of csrc/op_kernel.cu (each OP solve) and
+// csrc/dc_sweep_kernel.cu (each sweep point), seg_newton; and the
+// per-thread Gauss-Jordan of csrc/stamped_solve.cu's systems to np1 = 32.
+// The run kernel (csrc/run_kernel.cuh) runs the transient's Newton on the
+// same bodies.
 //
 // The CUDA counterpart of toyspice_tpu/ops/pallas_tran.py's
 // _newton_in_kernel and _device_eval_lib (compat, and with PHYS the
@@ -26,8 +28,9 @@
 //      cold-start guess, with the Meyer charge stamps of a transient
 //      (compat: previous charges frozen, PLAN.md 1; PHYS: the committed
 //      charge memory, trapezoidal after a device's first committed step);
-//   3. the build from the stamp plan in shared memory, the ground row and,
-//      in an OP, the status gmin on every non-ground diagonal;
+//   3. the build from the stamp plan in shared memory, row i from its
+//      entries in plan order, the ground row and, in an OP, the status
+//      gmin on every non-ground diagonal;
 //   4. Gauss-Jordan with partial pivoting (largest |pivot| among unused
 //      rows, lowest row on a tie; a zero pivot poisons the row);
 //   5. convergence from iteration 1 on: every |new - old| <=
@@ -37,13 +40,17 @@
 //
 // Not a copy of the TPU code: that one carries double-float (hi, lo) f32
 // pairs folded to (8, W) tiles and extracts pivot rows by one-hot sums;
-// Hopper has native f64 and a thread per lane, so here the matrix is a
-// per-thread array and the pivot row is indexed.
+// Hopper has native f64, and here a lane's system lives on a segment of
+// W = 4, 8, 16 or 32 lanes of a warp (np1's size bucket), row i in the
+// registers of thread i (gj_warp.cuh), its junction voltages and value
+// slots in the segment's slice of shared memory.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "gj_warp.cuh"
 
 namespace tsr {
 
@@ -73,9 +80,6 @@ enum DState { DS_VD = 0, DS_ID, DS_Q, DS_IC, DS_HIST, DS_ROWS };
 enum MState { MS_QGS = 0, MS_QGD, MS_QGB, MS_QBS, MS_QBD, MS_ICGS, MS_ICGD,
               MS_ICGB, MS_ICBS, MS_ICBD, MS_HIST, MS_ROWS };
 
-constexpr int MAX_NL = 16;  // ops/newton.py MAX_NL_DEVICES
-constexpr int MAX_KJ = 3 * MAX_NL;
-constexpr int MAX_NVAL = M_SLOTS * MAX_NL;
 constexpr int THREADS = 128;
 
 constexpr double EXP_CLAMP = 40.0;  // models/bjt.py, models/diode.py
@@ -382,14 +386,6 @@ __device__ __forceinline__ void limit_mos(const Deck& c, int k,
   vbs[k] = s * (x[nd[3]] - xs);
 }
 
-// Every device's limit, kind by kind.
-template <bool PHYS = false>
-__device__ void limit_jv(const Deck& c, const double* x, double* jv) {
-  for (int k = 0; k < c.n_d; ++k) limit_diode<PHYS>(c, k, x, jv);
-  for (int k = 0; k < c.n_q; ++k) limit_bjt(c, k, x, jv);
-  for (int k = 0; k < c.n_m; ++k) limit_mos(c, k, x, jv);
-}
-
 // The limit of device j of the deck's order (its diodes, then its BJTs,
 // then its MOSFETs).
 template <bool PHYS = false>
@@ -644,18 +640,6 @@ __device__ __forceinline__ void value_mos(const Deck& c, int k,
   }
 }
 
-// Every device's evaluation, kind by kind, without a transient's
-// companions (the OP and the DC sweep).
-template <bool PHYS = false>
-__device__ void device_values(const Deck& c, const double* jv, double gmin,
-                              double* nv) {
-  for (int k = 0; k < c.n_d; ++k)
-    value_diode<false, PHYS>(c, k, jv, 0.0, nv, Phys{});
-  for (int k = 0; k < c.n_q; ++k) value_bjt(c, k, jv, nv);
-  for (int k = 0; k < c.n_m; ++k)
-    value_mos<false, PHYS>(c, k, jv, 0.0, gmin, nv, Phys{});
-}
-
 // The evaluation of device j of the deck's order.
 template <bool TRAN, bool PHYS = false>
 __device__ __forceinline__ void device_value(const Deck& c, int j,
@@ -671,24 +655,6 @@ __device__ __forceinline__ void device_value(const Deck& c, int j,
 }
 
 // ------------------------------------------------------ build and solve
-
-// Zero the augmented system and add the first ne entries of the plan in
-// order: lin(tag, index) gives a linear stamp's value, nv[] the nonlinear
-// slots (NLV: the plan has TAG_NL entries); then the ground row x[0] = 0.
-template <int NMAX, bool NLV, class Lin>
-__device__ __forceinline__ void build(double (*m)[NMAX + 1], int n,
-                                      const int* ent, int ne, const Lin& lin,
-                                      const double* nv) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j <= n; ++j) m[i][j] = 0.0;
-  for (int e = 0; e < ne; ++e) {
-    const int* en = ent + 5 * e;
-    const double v =
-        (NLV && en[2] == TAG_NL) ? nv[en[3]] : lin(en[2], en[3]);
-    m[en[0]][en[1]] += (double)en[4] * v;
-  }
-  m[0][0] = 1.0;
-}
 
 // Gauss-Jordan with partial pivoting (largest |pivot| among unused rows,
 // lowest row on a tie; a zero pivot poisons its row so x goes non-finite;
@@ -743,51 +709,215 @@ __device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
   return finite;
 }
 
-// The Newton flavours of engine/newton.py on one thread: the OP (jv from x
-// at every iteration, status gmin on the MOSFET and the non-ground
-// diagonals) and the DC sweep (iteration 0 stamps the carried jv, a warm
-// start, dc.go:155; status gmin 0, no gmin diagonal, and CheckConvergence:
-// every |new - old| <= abstol or <= reltol*|new|, dc.go:142-187).  The
-// transient's Newton runs on the run kernel's segment (run_kernel.cuh).
+// ------------------------------------------------- the segment Newton
+
+// blocks an SM holds at once under the segment kernels' launch bounds: at
+// most 128 registers a thread (8192 lanes of np1 <= 8 in one wave on 132
+// SMs)
+constexpr int SEG_BLOCKS = 4;
+
+// np1's size bucket, the segment width W = NMAX of a lane's system (0 past
+// the caps): np1 <= 4 on segments of 4, which halve the instructions a
+// lane issues in the 8-row bucket (on an H100, ab_run_kernel.py: 3.0 ms
+// against 3.7 for the 8192-lane rectifier's run, 1.2 against 1.4 for an
+// 8192-lane RC low-pass)
+__host__ __device__ constexpr int seg_bucket(int np1) {
+  return np1 <= 4 ? 4 : np1 <= 8 ? 8 : np1 <= 16 ? 16 : np1 <= 32 ? 32 : 0;
+}
+
+// The Newton flavours of engine/newton.py: the OP (jv from x at every
+// iteration, status gmin on the MOSFET and the non-ground diagonals) and
+// the DC sweep (iteration 0 stamps the carried jv, a warm start,
+// dc.go:155; status gmin 0, no gmin diagonal, and CheckConvergence: every
+// |new - old| <= abstol or <= reltol*|new|, dc.go:142-187).
 enum Flavour { FL_OP = 0, FL_DC };
 
-// The Newton loop of one lane (engine/newton.py) in flavour FL.  x holds
-// x0 on entry and the last solution on exit; jv holds the carried junction
-// voltages on entry and those of the last iteration on exit.  Returns the
-// iteration count; *conv is whether it converged.  PHYS: the physics
-// diode and limit.
-template <int NMAX, int FL, bool PHYS = false, class Lin>
-__device__ int newton(const Deck& c, const int* ent, int ne, const Lin& lin,
-                      double (*m)[NMAX + 1], double* x, double* jv,
-                      double* nv, double gmin, int max_iter, double reltol,
-                      double abstol, bool* conv) {
-  constexpr bool OP = FL == FL_OP;
-  const int n = c.n;
-  double xn[NMAX];
-  int k = 0;
-  bool ok = false;
-  while (!ok && k < max_iter) {
-    if (OP || k > 0) limit_jv<PHYS>(c, x, jv);
-    device_values<PHYS>(c, jv, OP ? gmin : 0.0, nv);
-    build<NMAX, true>(m, n, ent, ne, lin, nv);
-    if (OP)
-      for (int r = 1; r < n; ++r) m[r][r] = m[r][r] + gmin;
-    const bool finite = gauss_jordan<NMAX>(m, n, xn);
-    bool all = true;
-    for (int r = 0; r < n; ++r) {
-      const double d = fabs(xn[r] - x[r]);
-      if (FL == FL_DC)
-        all = all && (d <= abstol || d <= reltol * fabs(xn[r]));
-      else
-        all = all &&
-              d <= reltol * max_nan(fabs(xn[r]), fabs(x[r])) + abstol;
-      x[r] = xn[r];
+// An OP or DC sweep stamp's value (ops/assemble.py mode "op"): the
+// capacitor leaks gc, the inductor stamps its dt = 1e-9 companion, the
+// sources their values of this solve, an LM its +1e-3 branch diagonal
+// against the plan's sign -1 (magnetic.go:216-217); the OP plan has no
+// K, no LM RHS and no TAG_CEQ.
+struct OpStamp {
+  const double* g;     // [nR] 1/R
+  const double* lval;  // [nL] L
+  const double* lrhs;  // [nL] the inductor companion RHS
+  const double* vsrc;  // [nV]
+  const double* isrc;  // [nI]
+  double gc;
+  __device__ __forceinline__ double operator()(int tag, int k) const {
+    switch (tag) {
+      case TAG_G: return g[k];
+      case TAG_GEQ: return gc;
+      case TAG_LTERM: return lval[k] / 1e-9;
+      case TAG_LRHS: return lrhs[k];
+      case TAG_VSRC: return vsrc[k];
+      case TAG_ISRC: return isrc[k];
+      case TAG_LMTERM: return -1e-3;
+      default: return 1.0;  // TAG_ONE
     }
-    ok = k > 0 && all && finite;
-    ++k;
   }
+};
+
+// A launch on warp segments: segments of W = NMAX threads, THREADS / W
+// lanes a block, the table and each segment's slice in dynamic shared
+// memory (bytes).
+struct SegShape {
+  int w, per_block, blocks, threads, shmem;
+};
+
+// The shape of nlanes lanes whose segments each take `slice` doubles
+template <int NMAX>
+SegShape seg_shape_of(int nlanes, int topo_len, int slice) {
+  constexpr int per_block = THREADS / NMAX;
+  const int doubles = (topo_len + 3) / 4 * 2 + per_block * slice;
+  return {NMAX, per_block, (nlanes + per_block - 1) / per_block, THREADS,
+          doubles * static_cast<int>(sizeof(double))};
+}
+
+// Launch a segment kernel in shape sh on `stream` (past 48 KB of shared
+// memory once the kernel's limit is raised); returns the launch's error.
+template <class... P, class... A>
+cudaError_t seg_launch(void (*kernel)(P...), const SegShape& sh,
+                       cudaStream_t stream, A... args) {
+  if (sh.shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.shmem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<sh.blocks, sh.threads, sh.shmem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Doubles of one segment's slice of the OP and DC sweep kernels' shared
+// memory: the elimination's exchange buffer and the W = NMAX build rows
+// (stride NMAX + 2, so that every row starts 16-byte aligned), x, then
+// lane_doubles of the lane's own (its inputs, junction voltages and value
+// slots, sized from the deck's counts by the wrapper), an even count.
+template <int NMAX>
+__host__ __device__ constexpr int opdc_slice(int lane_doubles) {
+  return (NMAX + 2) * (NMAX + 1) + NMAX + ((lane_doubles + 1) & ~1);
+}
+
+template <int NMAX>
+SegShape opdc_shape(int nlanes, int topo_len, int lane_doubles) {
+  return seg_shape_of<NMAX>(nlanes, topo_len,
+                            opdc_slice<NMAX>(lane_doubles));
+}
+
+// The OP or DC sweep kernel's shape for np1; false past the caps
+inline bool opdc_shape_np1(int np1, int nlanes, int topo_len,
+                           int lane_doubles, SegShape* s) {
+  switch (seg_bucket(np1)) {
+    case 4: *s = opdc_shape<4>(nlanes, topo_len, lane_doubles); return true;
+    case 8: *s = opdc_shape<8>(nlanes, topo_len, lane_doubles); return true;
+    case 16: *s = opdc_shape<16>(nlanes, topo_len, lane_doubles); return true;
+    case 32: *s = opdc_shape<32>(nlanes, topo_len, lane_doubles); return true;
+    default: return false;
+  }
+}
+
+// The build and elimination of one system on a segment of W = NMAX lanes:
+// thread me sums the entries [e0, e1) of the table's row view (its row's,
+// in plan order; a TAG_NL entry reads its value slot when NLV) into its
+// row of the slice, adds diag to its diagonal past row 0 when DIAG (after
+// the row's sum, as the plain build does), row 0 being the ground
+// identity row; then gj_warp_reg eliminates from registers and writes x to
+// xs.  Returns whether x is finite (the same on every lane of the
+// segment; x all NaN when not).
+template <int NMAX, bool NLV, bool DIAG, class Stamp>
+__device__ __forceinline__ bool seg_solve(const int4* ent, int e0, int e1,
+                                          const Stamp& stamp,
+                                          const double* nv, double diag,
+                                          int n, double* buf, double* row,
+                                          int me, double* xs) {
+  constexpr unsigned mask = 0xffffffffu;
+  for (int c = 0; c <= n; ++c) row[c] = 0.0;
+  if (me < n) {
+    for (int e = e0; e < e1; ++e) {
+      const int4 q = ent[e];  // col, tag, index, sign
+      const double v = (NLV && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
+      row[q.x] += (double)q.w * v;
+    }
+    if (DIAG && me > 0) row[me] = row[me] + diag;
+  }
+  if (me == 0) row[0] = 1.0;
+  // slot c holds column c, the right-hand side slot NMAX
+  double m[1][NMAX + 1];
+#pragma unroll
+  for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
+  m[0][NMAX] = row[n];
+  return gj_warp_reg<NMAX, NMAX, 1>(m, n, buf, me, mask, xs);
+}
+
+// The Newton loop of one lane (engine/newton.py) in flavour FL on its
+// segment of W = NMAX lanes, thread me owning row me: per iteration,
+// device j on thread j (mod W) limits its junctions from the last iterate
+// (the OP from iteration 0 on, the DC sweep from iteration 1 on) and
+// evaluates its value slots into the slice (limit_device, device_value:
+// each reads and writes only that device's rows); then seg_solve from
+// the row view ent/roff with the status gmin on the diagonals of an OP;
+// then the convergence test of row i on thread i (rows past n count as
+// converged), ANDed over the segment with the solve's finite flag.
+//
+// xs holds x0 on entry and the last solution on exit, jv the carried
+// junction voltages on entry and those of the last iteration on exit;
+// go is whether the lane iterates at all.  Returns the iteration count;
+// *conv is whether it converged.  The warp's segments run in lockstep
+// under one full-warp mask: the warp iterates while any of its segments
+// does, and a segment whose Newton has ended runs the later builds and
+// eliminations with the others and keeps nothing of them (its junction
+// voltages, value slots and counts do not move, and x is put back from
+// the registers of each row's thread).  PHYS: the physics diode and limit.
+template <int NMAX, int FL, bool PHYS, class Stamp>
+__device__ int seg_newton(const Deck& c, const int4* ent, const int* roff,
+                          const Stamp& stamp, double gmin, bool go,
+                          int max_iter, double reltol, double abstol,
+                          double* buf, double* row, double* xs, double* jv,
+                          double* nv, int me, bool* conv) {
+  constexpr bool OP = FL == FL_OP;
+  constexpr int W = NMAX;
+  constexpr unsigned mask = 0xffffffffu;
+  const int n = c.n;
+  const int ndev = c.n_d + c.n_q + c.n_m;
+  const int e0 = me < n ? roff[me] : 0, e1 = me < n ? roff[me + 1] : 0;
+  double xo = me < n ? xs[me] : 0.0;  // row me of the last iterate
+  int it = 0;
+  bool ok = false;
+  bool iter = go && max_iter > 0;
+  __syncwarp(mask);
+  while (__any_sync(mask, iter)) {
+    if (iter) {
+      for (int j = me; j < ndev; j += W) {
+        if (OP || it > 0) limit_device<PHYS>(c, j, xs, jv);
+        device_value<false, PHYS>(c, j, jv, 0.0, OP ? gmin : 0.0, nv,
+                                  Phys{});
+      }
+    }
+    __syncwarp(mask);
+    const bool finite = seg_solve<NMAX, true, OP>(ent, e0, e1, stamp, nv,
+                                                  gmin, n, buf, row, me, xs);
+    __syncwarp(mask);
+    const double xn = xs[me];
+    const double d = fabs(xn - xo);
+    bool cv;
+    if constexpr (OP)  // every |new - old| <= reltol*max(|new|, |old|) + abstol
+      cv = me >= n || d <= reltol * max_nan(fabs(xn), fabs(xo)) + abstol;
+    else  // every |new - old| <= abstol or <= reltol*|new|
+      cv = me >= n || d <= abstol || d <= reltol * fabs(xn);
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1)
+      cv = __shfl_xor_sync(mask, cv ? 1 : 0, off, W) && cv;
+    if (iter) {
+      xo = xn;
+      ok = it > 0 && cv && finite;
+      ++it;
+      iter = !ok && it < max_iter;
+    }
+  }
+  if (me < n) xs[me] = xo;  // what a segment that ran along kept
+  __syncwarp(mask);
   *conv = ok;
-  return k;
+  return it;
 }
 
 }  // namespace tsr

@@ -325,9 +325,6 @@ struct MagPhys {
 // segment's slice of shared memory when together they fit this many
 // doubles; a deck past it reads them in device memory.
 constexpr int SEG_ROWS = 192;
-// blocks an SM holds at once: 8192 lanes of np1 <= 8 (512 blocks) in one
-// wave on 132 SMs, at most 128 registers a thread
-constexpr int SEG_BLOCKS = 4;
 
 // Doubles of one segment's slice of shared memory: the elimination's
 // exchange buffer and the W = NMAX build rows (stride NMAX + 2, so every
@@ -858,32 +855,15 @@ struct RunArgs {
   int trap;
 };
 
-// A deck's launch shape: segments of W = NMAX threads, THREADS / NMAX
-// lanes a block, the table and the segments' slices in dynamic shared
-// memory (bytes); nl_doubles is a Newton deck's (0 for a linear one).
-struct SegShape {
-  int w, per_block, blocks, threads, shmem;
-};
-
+// A deck's launch shape (newton.cuh seg_shape_of): nl_doubles is a
+// Newton deck's (0 for a linear one).
 template <int NMAX>
 SegShape seg_shape(int nlanes, int topo_len, int nl_doubles) {
-  constexpr int per_block = THREADS / NMAX;
-  const int doubles = (topo_len + 3) / 4 * 2 +
-                      per_block * seg_slice<NMAX>(nl_doubles);
-  return {NMAX, per_block, (nlanes + per_block - 1) / per_block, THREADS,
-          doubles * static_cast<int>(sizeof(double))};
+  return seg_shape_of<NMAX>(nlanes, topo_len, seg_slice<NMAX>(nl_doubles));
 }
 
-// np1's size bucket, the NMAX the tsr_run* entries launch (0 past the
-// caps): np1 <= 4 on segments of 4, which halve the instructions a lane
-// issues in the 8-row bucket (on an H100, ab_run_kernel.py: 3.0 ms
-// against 3.7 for the 8192-lane rectifier, 1.2 against 1.4 for an
-// 8192-lane RC low-pass)
-constexpr int seg_bucket(int np1) {
-  return np1 <= 4 ? 4 : np1 <= 8 ? 8 : np1 <= 16 ? 16 : np1 <= 32 ? 32 : 0;
-}
-
-// the shape of np1's size bucket; false past the caps
+// the shape of np1's size bucket (newton.cuh seg_bucket); false past
+// the caps
 inline bool seg_shape_np1(int np1, int nlanes, int topo_len, int nl_doubles,
                           SegShape* s) {
   switch (seg_bucket(np1)) {
@@ -899,21 +879,14 @@ inline bool seg_shape_np1(int np1, int nlanes, int topo_len, int nl_doubles,
 // Newton (a.nl_doubles sizes its slots), else a linear deck.
 template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
 cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
-  const SegShape sh =
-      seg_shape<NMAX>(a.nlanes, a.topo_len, NL ? a.nl_doubles : 0);
-  auto kernel = run_seg_kernel<NMAX, NL, MAG, STORE, PHYS>;
-  if (sh.shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.shmem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<sh.blocks, sh.threads, sh.shmem, stream>>>(
+  return seg_launch(
+      run_seg_kernel<NMAX, NL, MAG, STORE, PHYS>,
+      seg_shape<NMAX>(a.nlanes, a.topo_len, NL ? a.nl_doubles : 0), stream,
       a.topo, a.topo_len, a.nl_doubles, a.dev, a.rc, a.state, a.jv, a.t_io,
       a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep,
       a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter,
       a.tstart, a.max_store, a.stream, a.out_x, a.out_t, a.out_n,
       a.overflow, a.trap);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -7,7 +7,8 @@ physics and magnetic instantiations of ``csrc/run_kernel.cuh``, each
 built twice: without and, with ``-DTSR_STORE``, with the waveform store;
 ``csrc/op_kernel.cu``, ``csrc/dc_sweep_kernel.cu``,
 ``csrc/stamped_solve.cu``, all on ``csrc/newton.cuh``;
-``csrc/ac_kernel.cu``, and the stamped solve's systems of 33 to 64, on
+``csrc/ac_kernel.cu``, the stamped solve's systems of 33 to 64 and every
+warp segment of ``csrc/newton.cuh`` and ``csrc/run_kernel.cuh``, on
 ``csrc/gj_warp.cuh``; ``csrc/gj_kernel.cu``, and the stamped solve's
 systems past 64, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a
 shared library with a plain C entry point (no PyTorch headers, so a build
@@ -129,16 +130,20 @@ _ARGTYPES = {
     "run_phys_store": (("tsr_run_phys_store", RUN_STORE_SIG),),
     "run_mag": (("tsr_run_mag", RUN_SIG),),
     "run_mag_store": (("tsr_run_mag_store", RUN_STORE_SIG),),
-    # tsr_op(np1, topo, topo_len, dev, dyn, x0, jv0, x, jv, iters, conv,
-    #        nlanes, reltol, abstol, max_iter, gmin_floor, physics, stream)
-    "op": (("tsr_op", "ipi" + "p" * 8 + "iddidip"),),
+    # tsr_op(np1, topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x, jv,
+    #        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor,
+    #        physics, stream)
+    # tsr_opdc_seg_shape(np1, nlanes, topo_len, lane_doubles, out[5])
+    "op": (("tsr_op", "ipii" + "p" * 8 + "iddidip"),
+           ("tsr_opdc_seg_shape", "iiiip")),
     # tsr_stamped(n, tab, tab_len, nnz, nrhs, vals, rvals, gmin, x, nlanes,
     #             stream)
     "stamped": (("tsr_stamped", "ipiii" + "p" * 4 + "ip"),),
-    # tsr_dc_sweep(np1, topo, topo_len, dev, dyn, vs, vs_stride, npts, x,
-    #              iters, conv, nlanes, reltol, abstol, max_iter,
-    #              gmin_floor, physics, stream)
-    "dc": (("tsr_dc_sweep", "ipi" + "p" * 3 + "qi" + "p" * 3 + "iddidip"),),
+    # tsr_dc_sweep(np1, topo, topo_len, lane_doubles, dev, dyn, vs,
+    #              vs_stride, npts, x, iters, conv, nlanes, reltol, abstol,
+    #              max_iter, gmin_floor, physics, stream)
+    "dc": (("tsr_dc_sweep", "ipii" + "p" * 3 + "qi" + "p" * 3
+            + "iddidip"),),
     # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
     "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
     # tsr_gj(n, a, b, x, nsys, stream)

@@ -9,8 +9,9 @@ from x = 0 (warm start at iteration 0, OP stamps with status gmin 0,
 CheckConvergence); physics changes only the diode (its Bv/Rs evaluation
 and the breakdown-frame limit).  Three pieces live here:
 
-* ``launch_dc_kernel``: the wrapper of ``csrc/dc_sweep_kernel.cu`` (one
-  thread per lane, f64).  Its dyn rows are ``[isrc(nI), lrhs(nL)]`` and
+* ``launch_dc_kernel``: the wrapper of ``csrc/dc_sweep_kernel.cu`` (a
+  warp segment of 4, 8, 16 or 32 threads per lane, f64).  Its dyn rows
+  are ``[isrc(nI), lrhs(nL)]`` and
   its source table ``vs`` holds each point's V-source values, (P, nV)
   shared by every lane or (B, P, nV).  It counts its launches in
   ``.launches``.
@@ -34,7 +35,7 @@ from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices
 from .op import op_fused_ineligible_reason, op_mag_terms
-from .run import check_caps, check_rows
+from .run import check_caps, check_rows, newton_doubles
 from .run_plan import (const_stack, first_leaf, infer_batch, lanes,
                        make_plan)
 
@@ -63,6 +64,14 @@ class DCResult(NamedTuple):
 
 def dyn_width(plan):
     return plan.counts[4] + plan.counts[2]  # nI + nL
+
+
+def lane_doubles(plan):
+    """Doubles a lane keeps in its segment's slice of the DC sweep
+    kernel's shared memory beside the elimination's rows: its dyn row, the
+    point's nV source values, then its junction voltages and value slots
+    (``newton_doubles``)."""
+    return dyn_width(plan) + plan.counts[3] + newton_doubles(plan)
 
 
 def _check_inputs(plan, dev, dyn, vs):
@@ -102,7 +111,8 @@ def launch_dc_kernel(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tsr_dc_sweep(
-            plan.np1, topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
+            plan.np1, topo.data_ptr(), int(plan.topo.size),
+            lane_doubles(plan), dev.data_ptr(),
             dyn.data_ptr(), vs.data_ptr(), stride, npts, xs.data_ptr(),
             iters.data_ptr(), conv.data_ptr(), b, float(sc.reltol),
             float(sc.abstol), int(sc.max_iter), float(sc.gmin_floor),

@@ -8,12 +8,13 @@ The counterpart of ``ops/pallas_op.py`` in the JAX package
 ``phys_be`` flavour) changes only the diode: its Bv/Rs evaluation and the
 breakdown-frame limit; the OP has no companions.  Three pieces live here:
 
-* ``launch_op_kernel``: the wrapper of ``csrc/op_kernel.cu`` (one thread
-  per lane, f64).  Its dyn rows are ``[status_gmin, use_seed, act,
-  vsrc(nV), isrc(nI), lrhs(nL)]``: the stamp-visible gmin of the rung, a
-  flag to start from the linear-devices-only estimate (else from ``x0``),
-  the lanes to solve, the source values at t = 0 and the inductor
-  companion RHS.  It counts its launches in ``.launches``.
+* ``launch_op_kernel``: the wrapper of ``csrc/op_kernel.cu`` (a warp
+  segment of 4, 8, 16 or 32 threads per lane, f64).  Its dyn rows are
+  ``[status_gmin, use_seed, act, vsrc(nV), isrc(nI), lrhs(nL)]``: the
+  stamp-visible gmin of the rung, a flag to start from the
+  linear-devices-only estimate (else from ``x0``), the lanes to solve, the
+  source values at t = 0 and the inductor companion RHS.  It counts its
+  launches in ``.launches``.
 * ``op_plain``: the same arithmetic as batched f64 torch operations
   (``ops/newton.py``), looking at the host once every ``CHECK_EVERY``
   Newton iterations.
@@ -31,6 +32,7 @@ there are no charge stamps.  The OP Newton updates the junction voltages
 from x at every iteration, iteration 0 included (op.go:25-88).
 """
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -40,7 +42,8 @@ from ..models.sources import eval_sources
 from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices, converged
-from .run import check_caps, check_rows, kernel_caps_reason
+from .run import (check_caps, check_rows, kernel_caps_reason,
+                  newton_doubles)
 from .run_plan import (SLICE_KINDS, const_stack, first_leaf, infer_batch,
                        jv_tree, lanes, make_plan, nonlinear,
                        semantics_reason, source_leaves, source_stack)
@@ -110,6 +113,27 @@ def dyn_width(plan):
     return 3 + nv + ni + nl
 
 
+def lane_doubles(plan):
+    """Doubles a lane keeps in its segment's slice of the OP kernel's
+    shared memory beside the elimination's rows: its dyn row, then its
+    junction voltages and value slots (``newton_doubles``)."""
+    return dyn_width(plan) + newton_doubles(plan)
+
+
+def segment_shape(plan, b, lane):
+    """The OP or DC sweep kernel's launch for b lanes of ``plan`` with
+    ``lane`` doubles a lane (``lane_doubles`` of ``ops/op.py`` or of
+    ``ops/dc.py``), as the op library computes it (``csrc/newton.cuh``
+    ``opdc_shape``): (W, lanes a block, blocks, threads a block, bytes of
+    shared memory a block)."""
+    out = (ctypes.c_int * 5)()
+    err = _build.load("op").tsr_opdc_seg_shape(
+        plan.np1, b, int(plan.topo.size), lane, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"np1={plan.np1} has no segment launch")
+    return tuple(out)
+
+
 def _check_inputs(plan, dev, dyn, x0, jv0):
     if plan.mode != "op":
         raise ValueError("the OP kernel takes a plan of mode 'op'")
@@ -138,7 +162,8 @@ def launch_op_kernel(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tsr_op(
-            plan.np1, topo.data_ptr(), int(plan.topo.size), dev.data_ptr(),
+            plan.np1, topo.data_ptr(), int(plan.topo.size),
+            lane_doubles(plan), dev.data_ptr(),
             dyn.data_ptr(), x0.data_ptr(), jv0.data_ptr(), x.data_ptr(),
             jv.data_ptr(), iters.data_ptr(), conv.data_ptr(), b,
             float(sc.reltol), float(sc.abstol), int(sc.max_iter),

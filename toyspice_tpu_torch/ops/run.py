@@ -89,8 +89,8 @@ I32 = torch.int32
 
 
 def kernel_caps_reason(plan):
-    """Why the kernels' fixed per-thread arrays and shared table can NOT
-    hold this deck; None when they can (the run and the OP kernel)."""
+    """Why the kernels' segments and shared table can NOT hold this deck;
+    None when they can (the run, OP and DC sweep kernels)."""
     if plan.np1 > NP1_CAP:
         return (f"np1={plan.np1} exceeds the kernel's matrix cap of "
                 f"{NP1_CAP}")
@@ -100,8 +100,8 @@ def kernel_caps_reason(plan):
     n_nl = sum(plan.counts[5:])
     if n_nl > MAX_NL_DEVICES:
         return (f"{n_nl} diodes, BJTs and MOSFETs exceed the kernel's cap "
-                f"of {MAX_NL_DEVICES} (its per-thread junction and value "
-                "arrays)")
+                f"of {MAX_NL_DEVICES} (the junction voltages and value "
+                "slots a warp segment keeps in shared memory)")
     if plan.base_len > MAX_TOPO:
         return "stamp plan exceeds the kernel's shared-memory table"
     return None

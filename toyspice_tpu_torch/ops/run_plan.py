@@ -40,12 +40,15 @@ serves every eligible deck:
   of counts and offsets, then the entries, sources, device nodes, each
   K's partners: kind (0 linear L, 1 LM) and index of winding a, then of
   winding b (a pair with both kinds 0 is both-linear), the inductors'
-  branch rows, each LM's nodes and branch row, and each LM's core). A
-  transient plan appends the row view of the entries (``row_view``) at
+  branch rows, each LM's nodes and branch row, and each LM's core). The
+  plan appends the row view of the entries (``row_view``) at
   ``topo[H_ROWS]``, 16-byte aligned: the entries stably sorted by row as
-  (col, tag, index, sign), then the np1 + 1 offsets of the rows into it.
-  The linear run kernel's segment builds row i from its slice alone, in
-  plan order; the other kernels copy only the table before it.
+  (col, tag, index, sign), then the np1 + 1 offsets of the rows into it;
+  an OP plan then each row's linear prefix (``linear_prefix``), from which
+  the OP kernel builds the linear-devices-only estimate. The segment
+  kernels (run, OP, DC sweep) build row i on thread i from its slice of
+  the view, in plan order; the caps count the table before it
+  (``RunPlan.base_len``).
 """
 
 from dataclasses import dataclass
@@ -345,6 +348,15 @@ def row_view(entries, np1):
     return view, offsets
 
 
+def linear_prefix(entries, n_lin, np1):
+    """The (np1,) int32 count of each row's entries among the plan's
+    leading n_lin (the linear stamps): since they lead the plan and the row
+    view keeps plan order within a row, they are a prefix of that row's
+    part of the view."""
+    return np.bincount(entries[:n_lin, 0], minlength=np1)[:np1].astype(
+        np.int32)
+
+
 @dataclass
 class RunPlan:
     """Static tables of one deck (host numpy) for one stamp mode."""
@@ -374,10 +386,9 @@ class RunPlan:
 
     @property
     def base_len(self):
-        """Length of the table before the row view (the whole table of an
-        OP plan, which the OP and DC sweep kernels copy): what the caps
+        """Length of the table before the row view: what the caps
         count."""
-        return int(self.topo[H_ROWS]) or int(self.topo.size)
+        return int(self.topo[H_ROWS])
 
     @property
     def nd(self):
@@ -484,11 +495,13 @@ def make_plan(cc, mode="tran", physics=False) -> RunPlan:
     hdr[H_KJ] = n_d + 2 * n_q + 3 * n_m
     hdr[H_DOFF], hdr[H_QOFF], hdr[H_MOFF] = (dev_offset["D"], dev_offset["Q"],
                                              dev_offset["M"])
-    if mode == "tran":  # the row view, at a multiple of 4 words
-        view, offsets = row_view(entries, cc.np1)
-        pad = -pos % 4
-        hdr[H_ROWS] = pos + pad
-        parts += [np.zeros(pad, np.int32), view.ravel(), offsets]
+    # the row view, at a multiple of 4 words; an OP plan's linear prefixes
+    view, offsets = row_view(entries, cc.np1)
+    pad = -pos % 4
+    hdr[H_ROWS] = pos + pad
+    parts += [np.zeros(pad, np.int32), view.ravel(), offsets]
+    if mode == "op":
+        parts.append(linear_prefix(entries, n_lin, cc.np1))
     topo = np.concatenate([hdr] + parts).astype(np.int32)
     return RunPlan(np1=cc.np1, mode=mode, physics=bool(physics),
                    counts=counts, nlm=nlm, nk=nk,
