@@ -31,17 +31,23 @@ back-to-back calls of the kernel's C entry point on the buffers its
 checkout's own wrapper prepared (a ladder's launches in turn), so that the
 wrapper's host work does not hide a launch that takes tens of
 microseconds, and each checkout calls its entry with its own argument
-list.  ``--ac`` and ``--stamped``
-add, beside bench.py's deck, the AC kernel on ce_amplifier_ac.cir's
-8192 x 12 systems of 16 and the stamped solve on one batched Newton
-iteration of cw16 (a 16-stage Cockcroft-Walton multiplier, np1 = 35,
-8192 lanes: chip_smoke.py's general-engine main path), each captured
-from its entry's call and timed the same way.  ``--gj`` times the GJ
+list.  ``--ac`` adds, beside bench.py's deck, the AC kernel on
+ce_amplifier_ac.cir's 8192 x 12 systems of 16, and ``--stamped`` (bench.py's
+deck only beside another run flag) the stamped solve on each of its main
+paths' launches: divider_op.cir's linear OP (np1 = 4) and its 21-point sweep,
+saturating_transformer.cir's linear OP (8192 lanes each); random dense
+patterns of n = 8, 16 and 32 (8192 lanes: the segment kernel's other
+buckets); one batched Newton iteration of cw16 (a 16-stage
+Cockcroft-Walton multiplier, np1 = 35, 8192 lanes: chip_smoke.py's
+general-engine main path) and of a 127-stage RC ladder (np1 = 130, past
+NBIG, 1024 lanes: chip_smoke.py phase 32; a checkout whose kernel refuses
+it says so), each captured from its wrapper's call of the checkout's own
+C entry and timed the same way.  ``--gj`` times the GJ
 kernel (``csrc/gj_kernel.cu``, the general engine's dense solve) on
 lc16_ac_8192's 172,032 systems of 72 (a 16-section LC ladder's AC, built
 by the general AC as chip_smoke.py phase 30 builds them), on cw16's OP
-seed (8192 systems of 35) and on 8192 random systems of 96 and of 128,
-each through its C entry and through ``launch_gj``; it builds and prints
+seed (8192 systems of 35) and on 8192 random systems of 96, 128 and
+132, each through its C entry and through ``launch_gj``; it builds and prints
 ``-Xptxas -v`` of the ``gj`` and ``stamped`` libraries only, and runs
 bench.py's deck only beside another run flag.
 
@@ -298,17 +304,15 @@ def entry_ms(root, fn, args, reps, calls=20):
 
 
 def time_ac_stamped(root, reps, do_ac, do_stamped):
-    """The AC kernel on ce_amplifier_ac.cir (8192 lanes, R and C spread)
-    and the stamped solve on cw16's 40th batched Newton iteration (8192
-    lanes, C spread: the transient's first attempts), each on the inputs
-    its wrapper was called with."""
+    """The AC kernel on ce_amplifier_ac.cir (8192 lanes, R and C spread),
+    on the inputs its wrapper was called with, and the stamped solve
+    (``time_stamped``)."""
     import torch
 
     import toyspice_tpu_torch as ts
     from toyspice_tpu_torch.engine.ac import make_ac_batch
     from toyspice_tpu_torch.engine.options import DEFAULTS
-    from toyspice_tpu_torch.engine.tran import make_tran
-    from toyspice_tpu_torch.ops import _build, ac, solve_stamped
+    from toyspice_tpu_torch.ops import _build, ac
 
     here = os.path.dirname(os.path.abspath(__file__))
     stream = torch.cuda.current_stream().cuda_stream
@@ -336,39 +340,116 @@ def time_ac_stamped(root, reps, do_ac, do_stamped):
         print(f"{root}: AC kernel (ce_amplifier_ac, {b} x {nf} systems of "
               f"{2 * n}): kernel ms {ms}", flush=True)
     if do_stamped:
-        from chip_smoke import cockcroft_walton
+        time_stamped(root, reps)
 
-        cc = ts.compile_circuit(ts.parse(cockcroft_walton(16)))
-        tp = cc.netlist.tran
-        cfg = ts.build_config(tp.tstart, 1e-4, tp.tstep, tp.tmax, tp.uic)
-        params, _ = spread_params(ts, cc, ("C",))
+
+def time_stamped(root, reps):
+    """The stamped solve's C entry on one launch of each of its paths, the
+    arguments recorded from the checkout's own wrapper (``entry_calls``)."""
+    import numpy as np
+    import torch
+
+    import toyspice_tpu_torch as ts
+    from toyspice_tpu_torch.engine.dc import make_dc
+    from toyspice_tpu_torch.engine.op import make_op
+    from toyspice_tpu_torch.engine.options import SimOptions
+    from toyspice_tpu_torch.engine.tran import make_tran
+    from toyspice_tpu_torch.ops import _build, solve_stamped
+    from chip_smoke import DIVIDER_DC, cockcroft_walton
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def captured(run, k=0):
+        """(pat, vals, rvals, gmin) of launch k of run(solve)."""
         seen = []
 
         def capture(pat, vals, rvals, gmin):
-            if len(seen) < 40:
+            if len(seen) <= k:
                 seen.append((pat, vals.clone(), rvals.clone(),
                              gmin.clone()))
             return solve_stamped.solve_lanes(pat, vals, rvals, gmin)
+        run(capture)
+        return seen[min(k, len(seen) - 1)]
 
-        make_tran(cc, cfg, store="none", solve=capture)(params,
-                                                        ts.init_state(cc))
-        pat, vals, rvals, gmin = seen[-1]
+    def deck(text, keys, lanes=LANES):
+        cc = ts.compile_circuit(ts.parse(text))
+        return cc, spread_params(ts, cc, keys, lanes)[0], ts.init_state(cc)
+
+    def op_of(text, semantics="compat"):
+        cc, params, s0 = deck(text, ("R",))
+        opts = SimOptions(integration="trap" if semantics == "physics"
+                          else "be")
+        return lambda solve: make_op(cc, opts, semantics, solve=solve)(
+            params, s0)
+
+    def sweep_of(text):
+        cc, params, s0 = deck(text, ("R",))
+        d = cc.netlist.dc
+        pts = ts.sweep_values(d.start1, d.stop1, d.increment1)
+        return lambda solve: make_dc(cc, (0,), solve=solve)(params, s0, pts)
+
+    def tran_of(text, lanes, tstop):
+        cc, params, s0 = deck(text, ("C",), lanes)
+        tp = cc.netlist.tran
+        cfg = ts.build_config(tp.tstart, tstop, tp.tstep, tp.tmax, tp.uic)
+        return lambda solve: make_tran(cc, cfg, store="none", solve=solve)(
+            params, s0)
+
+    def dense(n):
+        def run(solve):
+            rng = np.random.default_rng(n)
+            a = rng.normal(size=(LANES, n, n)) + 4.0 * np.eye(n)
+            rows, cols = np.meshgrid(np.arange(1, n), np.arange(n),
+                                     indexing="ij")
+            pat = solve_stamped.solve_stamped_for(
+                n, rows.ravel(), cols.ravel(), np.arange(1, n)).pattern
+            solve(pat, torch.as_tensor(a[:, 1:].reshape(LANES, -1).copy(),
+                                       device="cuda"),
+                  torch.as_tensor(rng.normal(size=(LANES, n - 1)),
+                                  device="cuda"),
+                  torch.zeros(LANES, dtype=torch.float64, device="cuda"))
+        return run
+
+    ladder = ["* 127-stage rc ladder", ".tran 0.01m 0.05m",
+              "Vin 1 0 SIN(0 1 1k)"]
+    for k in range(1, 128):
+        ladder += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 1n"]
+    cases = (
+        ("divider_op linear OP", op_of(deck_text(here, "divider_op.cir")),
+         0),
+        ("divider sweep", sweep_of(DIVIDER_DC), 0),
+        ("saturating_transformer linear OP, physics",
+         op_of(deck_text(here, "saturating_transformer.cir"), "physics"), 0),
+        ("random n=8", dense(8), 0), ("random n=16", dense(16), 0),
+        ("random n=32", dense(32), 0),
+        ("cw16, its 40th batched Newton iteration",
+         tran_of(cockcroft_walton(16), LANES, 1e-4), 39),
+        ("127-stage rc ladder past NBIG, its 5th batched Newton iteration",
+         tran_of("\n".join(ladder) + "\n", 1024, 0.05e-3), 4))
+    for name, run, k in cases:
+        try:
+            pat, vals, rvals, gmin = captured(run, k)
+            _, calls, keep = entry_calls(_build, solve_stamped.launch_stamped,
+                                         (pat, vals, rvals, gmin))
+        except (ValueError, RuntimeError) as e:
+            print(f"{root}: stamped solve ({name}): not run by this "
+                  f"checkout: {e}", flush=True)
+            continue
         b = vals.shape[0]
-        tab = torch.as_tensor(pat.table, device=vals.device)
-        x = torch.empty((b, pat.n), dtype=torch.float64, device=vals.device)
-        ms = entry_ms(root, _build.load("stamped").tsr_stamped, (
-            pat.n, tab.data_ptr(), int(pat.table.size), pat.nnz, pat.nrhs,
-            vals.data_ptr(), rvals.data_ptr(), gmin.data_ptr(), x.data_ptr(),
-            b, stream), reps)
-        print(f"{root}: stamped solve (cw16, {b} systems of {pat.n}, "
+        fn, args = calls[-1]
+        ms = entry_ms(root, fn, args, reps)
+        print(f"{root}: stamped solve ({name}, {b} systems of {pat.n}, "
               f"{int(pat.table[0])} terms): kernel ms {ms}", flush=True)
+        del keep
+        torch.cuda.empty_cache()
 
 
 def time_gj(root, reps):
     """The GJ kernel on lc16_ac_8192's systems (8192 lanes, C spread, 21
     frequencies: 172,032 systems of 72), on cw16's OP seed (8192 systems
     of 35, C spread) and on 8192 random systems of 96 (the largest in
-    registers) and of 128 (in shared memory), each captured from
+    registers), of 128 (in shared memory) and of 132 (in device memory;
+    a checkout whose kernel refuses it says so), each captured from
     its caller (or made from one seed) and timed through the C entry
     (``calls`` calls a rep) and through ``launch_gj``; the first 16384
     systems of each are held to ``gj_plain`` bit for bit."""
@@ -381,8 +462,6 @@ def time_gj(root, reps):
     from toyspice_tpu_torch.ops import _build, solve
     from chip_smoke import cockcroft_walton, lc_ladder, same_bits
 
-    stream = torch.cuda.current_stream().cuda_stream
-    lib = _build.load("gj")
 
     def capture(run):
         seen = []
@@ -416,20 +495,25 @@ def time_gj(root, reps):
     for name, make, calls in (("lc16_ac_8192", lambda: capture(lc16), 5),
                               ("cw16 OP seed", lambda: capture(cw16), 20),
                               ("random n=96", lambda: random(96), 5),
-                              ("random n=128", lambda: random(128), 5)):
+                              ("random n=128", lambda: random(128), 5),
+                              ("random n=132", lambda: random(132), 5)):
         a, b = make()
         nsys, n = a.shape[0], a.shape[1]
-        x = torch.empty((nsys, n), dtype=torch.float64, device=a.device)
-        ms = entry_ms(root, lib.tsr_gj, (n, a.data_ptr(), b.data_ptr(),
-                                         x.data_ptr(), nsys, stream), reps,
-                      calls)
+        try:
+            x, seen, keep = entry_calls(_build, solve.launch_gj, (a, b))
+        except (ValueError, RuntimeError) as e:
+            print(f"{root}: GJ kernel ({name}, {nsys} systems of {n}): not "
+                  f"run by this checkout: {e}", flush=True)
+            continue
+        fn, args = seen[-1]
+        ms = entry_ms(root, fn, args, reps, calls)
         _, wms = event_ms(lambda: solve.launch_gj(a, b), reps)
         k = min(nsys, 16384)
         bits = same_bits(x[:k], solve.gj_plain(a[:k], b[:k]))
         print(f"{root}: GJ kernel ({name}, {nsys} systems of {n}): kernel "
               f"ms {ms}, with launch_gj {wms}, the first {k} bit-identical "
               f"to gj_plain {bits}", flush=True)
-        del a, b, x
+        del a, b, x, keep
         torch.cuda.empty_cache()
 
 
@@ -638,8 +722,8 @@ def main():
     ap.add_argument("--ac", action="store_true",
                     help="also time the AC kernel on ce_amplifier_ac.cir")
     ap.add_argument("--stamped", action="store_true",
-                    help="also time the stamped solve on cw16's n = 35 "
-                    "systems")
+                    help="also time the stamped solve on each of its paths "
+                    "(n = 4 to 130)")
     ap.add_argument("--gj", action="store_true",
                     help="time the GJ kernel on lc16's, cw16's seed's and "
                     "random n = 128 systems (bench.py's deck only beside "
@@ -658,7 +742,7 @@ def main():
         linear = ((["store"] if a.store else [])
                   + (["magphys"] if a.magphys else [])
                   + (["rc"] if a.rc else []))
-        if (a.gj or a.opdc) and not (newton or linear):
+        if (a.gj or a.opdc or a.stamped) and not (newton or linear):
             modes = []
         elif newton and not linear:
             modes = newton

@@ -12,9 +12,10 @@ seconds:
    run_kernel.cu, its physics ones in run_kernel_phys.cu, its physics
    magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
    source built without and with the waveform store), the OP kernel, the
-   DC sweep kernel, the stamped solve (per-thread to np1 = 32, a warp per
-   lane to 64, a block per lane to 128), the AC kernel (a warp segment per
-   system) and the GJ kernel, one ``nvcc`` call per library, all started
+   DC sweep kernel, the stamped solve (a warp segment per lane to np1 =
+   32, a warp per lane to 64, a block per lane to 128 in shared memory and
+   past it in device memory), the AC kernel (a warp segment per system)
+   and the GJ kernel, one ``nvcc`` call per library, all started
    together (ops/_build.py) in a thread of their own, while phase 3's
    plain versions, which need no library, run on the card.
 3. run kernel against its plain torch version on linear decks, on the
@@ -137,11 +138,13 @@ seconds:
    launch, 9.8 GB of output), then that store kernel against the plain
    store on the same lanes, timed alone and through its wrapper.
 27. the GJ kernel (csrc/gj_kernel.cu) against gj_plain on 259 random
-   systems each of n = 1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72, 73,
-   96, 97 and 128 (its bucket edges and the stamped solve's), with a zero
-   diagonal, a singular and a NaN lane: the same non-finite lanes and the
-   same bits, and on the same systems the stamped solve (per-thread to 32,
-   a warp a system to 64, a block above) and its plain version.
+   systems each of n = 1, 2, 4, 5, 6, 8, 9, 16, 17, 32, 33, 40, 48, 49,
+   64, 65, 72, 73, 96, 97, 128, 129, 130, 168, 169 and 200 (its bucket
+   edges and the stamped solve's, and past NBIG = 128 the device-memory
+   body), with a zero diagonal, a singular and a NaN lane: the same
+   non-finite lanes and the same bits, and on the same systems the
+   stamped solve (a warp segment a system to 32, a warp to 64, a block to
+   128, a block in device memory above) and its plain version.
 28. the general engine against the run kernel on an eligible deck: the
    half-wave rectifier, 256 lanes, through engine/tran.make_tran (the
    general OP with its GJ seed, the general Newton over the stamped solve)
@@ -165,11 +168,21 @@ seconds:
    AC source, 1024 lanes: the OP, DC sweep and AC kernels launched, each
    result equal bit for bit to compat/BE's and each kernel bit-identical
    to its plain version; make_tran_batch still refuses compat/trap.
+32. decks past NBIG, where a system no longer fits a block's shared
+   memory: a 127-stage RC ladder (np1 = 130), C spread 0.1, 1024 lanes,
+   make_tran_batch to 0.05 ms: engine "general", one launch of the
+   stamped solve's device-memory body per batched Newton iteration and no
+   other kernel, no lane failed, every lane at tstop; then run_ac_batch on
+   a 31-section LC ladder (np1 = 66, systems of 132), 1024 lanes x 21
+   frequencies: one stamped launch (the linear OP), one GJ launch through
+   the device-memory body, torch.linalg.solve as the yardstick.  For both,
+   the kernels against their plain versions on the same lanes: counters
+   equal, bit for bit.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30) and each path of phases 22-24, 28 and 31 runs with every kernel's
+29, 30, 32) and each path of phases 22-24, 28 and 31 runs with every kernel's
 launch count set to 0 just before and read just after.
 """
 
@@ -486,7 +499,7 @@ def ptxas_summary(log):
         if m:
             entry, frame = m.group(1), None
             k = re.search(r"(run_seg_kernel|op_seg_kernel|"
-                          r"stamped_kernel|dc_seg_kernel|ac_kernel)"
+                          r"stamped_seg_kernel|dc_seg_kernel|ac_kernel)"
                           r"ILi(\d+)E((?:Lb[01]E)*)", entry)
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
@@ -500,7 +513,8 @@ def ptxas_summary(log):
             # shared-memory body); the name follows its mangled length,
             # which tells gj_kernel from the source's gj_kernel_cu
             g = re.search(r"(?<=\d)(gj_kernel|stamped_block_kernel|"
-                          r"ac_smem_kernel|stamped_warp_kernel)"
+                          r"ac_smem_kernel|stamped_warp_kernel|"
+                          r"gj_work_kernel|stamped_work_kernel)"
                           r"(?:ILb([01])E|ILi(\d+)E)?", entry)
             where = ""
             if g is not None and g.group(2):
@@ -2194,8 +2208,9 @@ def cockcroft_walton(stages, tstop="2m"):
 
 def lc_ladder(sections):
     """A doubly terminated 50 Ω LC low-pass of ``sections`` sections
-    (tests/test_torch_general_analyses.py): np1 = sections + 4, 21
-    frequencies from 10 kHz to 100 MHz."""
+    (tests/test_torch_general_analyses.py): np1 = 2·sections + 4 (an
+    inductor's branch row a section), 21 frequencies from 10 kHz to 100
+    MHz."""
     lines = [f"* {sections}-section 50 ohm LC ladder low-pass",
              ".ac dec 21 10k 100meg", "Vin in 0 AC 1 0", "Rs in n0 50"]
     for k in range(1, sections + 1):
@@ -2244,10 +2259,12 @@ def same_bits(a, b):
 
 
 # n of phase 27: the GJ kernel's bucket edges (csrc/gj_block.cuh
-# gj_bucket: a row a thread in registers to 96, the shared-memory body
-# above) and the stamped solve's (a thread a lane to 32, a warp to 64, a
+# gj_bucket: a row a thread in registers to 96, the shared-memory body to
+# NBIG = 128, the device-memory body above) and the stamped solve's (a
+# warp segment of 4, 8, 16 or 32 lanes a lane to 32, a warp to 64, a
 # block above)
-GJ_SIZES = (1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72, 73, 96, 97, 128)
+GJ_SIZES = (1, 2, 4, 5, 6, 8, 9, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72,
+            73, 96, 97, 128, 129, 130, 168, 169, 200)
 # its lanes: no multiple of 32 (256 hid a warp writing into its
 # neighbour's system)
 GJ_LANES = 259
@@ -2258,8 +2275,8 @@ def gj_phase(lanes):
     in GJ_SIZES, with a zero-diagonal column, a singular lane and a NaN
     lane: the same bits and the same non-finite lanes; on the same systems
     (n > 1: row 0 is the ground row the stamped build makes) the stamped
-    solve (per-thread to n = 32, a warp a system to 64, a block above) and
-    its plain version."""
+    solve (a warp segment a system to n = 32, a warp to 64, a block to
+    128, a block in device memory above) and its plain version."""
     t0 = time.perf_counter()
     err = 0.0
     notes = []
@@ -2293,8 +2310,9 @@ def gj_phase(lanes):
                  f"{', '.join(w for w, _ in outs)} vs gj_plain: {bits})")
     phase("27 GJ kernel vs plain", t0,
           f"{lanes} random systems each, a zero diagonal, a singular and a "
-          f"NaN lane: GJ kernel (registers to 96, shared memory above), "
-          f"stamped kernel (per-thread to 32, a warp to 64, a block above) "
+          f"NaN lane: GJ kernel (registers to 96, shared memory to 128, "
+          f"device memory above), stamped kernel (a warp segment to 32, a "
+          f"warp to 64, a block above, in device memory past 128) "
           f"and stamped plain against gj_plain, the same non-finite lanes, "
           f"max abs err {err:.3e}; " + "; ".join(notes))
     return err
@@ -2608,6 +2626,186 @@ def compat_trap_phase(lanes):
     notes.append("the transient refuses it")
     phase("31 compat/trap analyses", t0, "half_wave_rectifier: "
           + "; ".join(notes))
+
+
+# ------------------------------------------------------------ past NBIG
+
+
+def chunked(solve_fn, chunk):
+    """A dense solve over chunks of ``chunk`` systems (the plain version's
+    temporaries on 21,504 systems of 132 would take ~12 GB)."""
+    def run_(a, b):
+        return torch.cat([solve_fn(a[i:i + chunk], b[i:i + chunk])
+                          for i in range(0, a.shape[0], chunk)])
+    return run_
+
+
+def past_nbig_phase(lanes, smi):
+    """Phase 32: decks past NBIG = 128, whose systems the GJ kernel and the
+    stamped solve eliminate in device memory (csrc/gj_block.cuh gj_block
+    on each block's slice of a workspace, a bounded grid): a 127-stage RC
+    ladder (np1 = 130) through make_tran_batch to 0.05 ms (engine
+    "general": one stamped launch per batched Newton iteration, no other
+    kernel; no lane failed, every lane at tstop), and a 31-section LC
+    ladder's AC (np1 = 66, 21 frequencies, systems of 132) through
+    run_ac_batch (the linear OP's stamped launch, one GJ launch); then the
+    kernels against their plain versions on the same lanes, counters equal
+    and bit for bit, and torch.linalg.solve on the same systems."""
+    t0 = time.perf_counter()
+    lines = ["* 127-stage rc ladder", ".tran 0.01m 0.05m",
+             "Vin 1 0 SIN(0 1 1k)"]
+    for k in range(1, 128):
+        lines += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 1n"]
+    cc, cfg, params, axes, state0 = setup("\n".join(lines) + "\n",
+                                          c_spread, lanes)
+    if cc.np1 != 130:
+        fail(f"rc ladder past NBIG: np1 is {cc.np1}, not 130")
+    ts.make_tran_batch(cc, cfg._replace(tstop=1e-5), axes)(params,
+                                                            state0)  # warm-up
+    fn = ts.make_tran_batch(cc, cfg, axes)
+    if fn.engine != "general" or "np1=130" not in fn.engine_reason:
+        fail(f"rc ladder past NBIG: engine {fn.engine!r} "
+             f"({fn.engine_reason})")
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("rc ladder past NBIG", got, {"stamped_solve": (1, 1 << 30)})
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"rc ladder past NBIG: {failed} of {lanes} lanes failed or "
+             "stopped early")
+    tk = TimedSolve(solve_stamped.solve_lanes, stamped_systems)
+    tp_ = TimedSolve(solve_stamped.solve_plain)
+    k = make_tran(cc, cfg, store="none", solve=tk)(params, state0)
+    p = make_tran(cc, cfg, store="none", solve=tp_,
+                  dense_solve=solve.gj_plain)(params, state0)
+    calls = len(tk.args)
+    if calls != got["stamped_solve"] or len(tp_.args) != calls:
+        fail(f"rc ladder past NBIG: {got['stamped_solve']} stamped launches "
+             f"on the main path, {calls} batched Newton iterations with the "
+             f"kernels, {len(tp_.args)} with the plain versions")
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        if not (torch.equal(getattr(k, key), getattr(p, key))
+                and torch.equal(getattr(k, key), getattr(out, key))):
+            fail(f"rc ladder past NBIG: {key} differs between the main "
+                 "path, the kernels and the plain versions")
+    pairs = [(f"{who} {what}.{kd}.{key}", kt[kd][key], pt[kd][key])
+             for who, run_ in (("kernels", k), ("main path", out))
+             for what, kt, pt in (("state", run_.state, p.state),
+                                  ("jv", run_.jv, p.jv))
+             for kd in pt for key in pt[kd]]
+    err = max_err("rc ladder past NBIG kernels vs plain", pairs)
+    if not all(same_bits(a, b) for _, a, b in pairs):
+        fail("rc ladder past NBIG: the kernels' state or jv is not "
+             "bit-identical to the plain versions'")
+    pat, vals, rvals, gmin = tk.args[0]
+    if pat.n != 130:
+        fail(f"rc ladder past NBIG: the stamped systems are {pat.n}, not 130")
+    accepted = int(out.accepted.sum())
+    nri = out.nr_iters
+    st_big = dict(launches=got["stamped_solve"], err=err, k_ms=tk.ms(),
+                  p_ms=tp_.ms(), lib_ms=tk.ms(lib=True), calls=calls,
+                  flops=calls * lanes * stamped_flops(pat),
+                  nbytes=calls * (nbytes(vals, rvals, gmin)
+                                  + pat.table.nbytes + lanes * pat.n * 8),
+                  n=pat.n, terms=int(pat.table[0]))
+    phase("32 rc ladder past NBIG", t0,
+          f"127-stage rc ladder (np1={cc.np1}): engine={fn.engine} "
+          f"({fn.engine_reason}), stamped-solve launches="
+          f"{got['stamped_solve']} (device-memory body, n={pat.n}, "
+          f"{st_big['terms']} terms), one per batched Newton iteration, no "
+          f"other kernel, lanes={lanes}, accepted={accepted}, attempts="
+          f"{int(out.attempts.sum())}, failed={failed}, every lane at "
+          f"tstop, Newton iterations per lane {int(nri.min())}.."
+          f"{int(nri.max())}, wall={wall:.6f} s, {accepted / wall:.6e} "
+          f"accepted steps/s on {smi}; the kernels vs their plain versions "
+          f"on these lanes: counters equal, bit-identical, max abs err "
+          f"{err:.3e}; stamped kernel {st_big['k_ms']:.3f} ms over {calls} "
+          f"launches ({st_big['k_ms'] / calls:.4f} ms a launch), plain "
+          f"{st_big['p_ms']:.1f} ms, torch.linalg.solve on the built "
+          f"systems {st_big['lib_ms']:.3f} ms")
+    del out, k, p, tk, tp_
+    free()
+
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(lc_ladder(31), c_spread, lanes)
+    ap = cc.netlist.ac
+    freqs = ts.frequency_points(ap.sweep, ap.fstart, ap.fstop, ap.points)
+    if cc.np1 != 66 or len(freqs) != 21:
+        fail("lc31: np1 is not 66 or the frequencies are not 21")
+    fn = make_ac_batch(cc, axes)
+    if fn.engine != "general":
+        fail(f"lc31 AC engine {fn.engine!r}, expected 'general'")
+    small = {k_: {kk: (v[:8] if v.ndim == 2 else v) for kk, v in t.items()}
+             for k_, t in params.items()}
+    fn(small, state0, freqs)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("lc31 AC past NBIG", got, {"stamped_solve": (1, 1),
+                                            "gj_kernel": (1, 1)})
+    nf = len(freqs)
+    node = cc.netlist.nodes["n31"]
+    if xr.shape != (lanes, nf, cc.np1) or not bool(
+            torch.isfinite(xr).all() & torch.isfinite(xi).all()) or not bool(
+                opr.converged.all()):
+        fail("lc31 AC: wrong shape, a value not finite, or a bias not "
+             "converged")
+    mag = torch.sqrt(xr[:, :, node] ** 2 + xi[:, :, node] ** 2)
+    if not bool(((mag[:, 0] - 0.5).abs() < 1e-4).all()):
+        fail("lc31 AC: |V(n31)| at 10 kHz is not half the source")
+    gk = TimedSolve(solve.linear_solve)
+    sk = TimedSolve(solve_stamped.solve_lanes)
+    kr, ki, kop = make_ac(cc, solve=sk, dense_solve=gk)(params, state0,
+                                                        freqs)
+    gp = TimedSolve(chunked(solve.gj_plain, 4096))
+    pr, pi, pop = make_ac(cc, solve=solve_stamped.solve_plain,
+                          dense_solve=gp)(params, state0, freqs)
+    if not (torch.equal(kop.converged, pop.converged)
+            and torch.equal(kop.stage, pop.stage)):
+        fail("lc31 AC: the bias's converged or stage differs between the "
+             "kernels and the plain versions")
+    pairs = [("bias x", kop.x, pop.x), ("xr", kr, pr), ("xi", ki, pi),
+             ("main xr", xr, pr), ("main xi", xi, pi)]
+    ac_err = max_err("lc31 AC kernels vs plain", pairs)
+    if not all(same_bits(a, b) for _, a, b in pairs):
+        fail("lc31 AC: the kernels' x is not bit-identical to the plain "
+             "versions'")
+    a2, b2 = gk.args[0]
+    del xr, xi, kr, ki, pr, pi
+    free()
+    _, k2_ms = timed_call(solve.launch_gj, a2, b2)
+    torch.linalg.solve(a2[:1024], b2[:1024])  # warm-up
+    _, lib_ms = timed_call(torch.linalg.solve, a2, b2)
+    nsys = a2.shape[0]
+    gj_big = dict(launches=got["gj_kernel"], err=ac_err, k_ms=k2_ms,
+                  path_ms=gk.ms(), p_ms=gp.ms(), lib_ms=lib_ms,
+                  systems=nsys, n=a2.shape[1],
+                  flops=nsys * lu_flops(a2.shape[1]),
+                  nbytes=nbytes(a2, b2) + nbytes(b2))
+    phase("32 lc31 AC past NBIG", t0,
+          f"lc31 (np1={cc.np1}): engine {fn.engine} ({fn.engine_reason}), "
+          f"stamped-solve launches={got['stamped_solve']}, GJ kernel "
+          f"launches={got['gj_kernel']} for {nsys} systems of "
+          f"{a2.shape[1]} (device-memory body), wall={wall:.6f} s, "
+          f"{nsys / wall:.6e} systems/s on {smi}; |V(n31)| "
+          f"{float(mag[:, 0].mean()):.6f} at 10 kHz; the kernels vs their "
+          f"plain versions on these lanes: converged and stage equal, "
+          f"bit-identical, max abs err {ac_err:.3e}; GJ kernel "
+          f"{k2_ms:.3f} ms (in the path {gj_big['path_ms']:.3f} ms), plain "
+          f"{gj_big['p_ms']:.1f} ms in chunks of 4096; torch.linalg.solve "
+          f"{lib_ms:.3f} ms")
+    del a2, b2, gk, sk, gp
+    free()
+    return st_big, gj_big
 
 
 def main():
@@ -2931,6 +3129,7 @@ def main():
     stamped_big, gj_seed = cw16_phase(BENCH_LANES, smi)
     gj_ac = lc16_phase(BENCH_LANES, smi)
     compat_trap_phase(1024)
+    st_work, gj_work = past_nbig_phase(1024, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -3069,6 +3268,18 @@ def main():
           f"{stamped_big['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
           f"{sb_bound[2]:.6f} ms; {stamped_big['nbytes']} bytes / "
           f"{PEAK_BYTES:.3g} B/s = {sb_bound[3]:.6f} ms", flush=True)
+    swb = bound(st_work["flops"], st_work["nbytes"])
+    print(f"[17 bound] stamped_solve device memory (the 127-stage rc "
+          f"ladder, {st_work['calls']} launches, n={st_work['n']}, "
+          f"{st_work['terms']} terms): {st_work['flops']} f64 operations / "
+          f"{PEAK_F64:.3g} op/s = {swb[2]:.6f} ms; {st_work['nbytes']} bytes "
+          f"/ {PEAK_BYTES:.3g} B/s = {swb[3]:.6f} ms", flush=True)
+    gwb = bound(gj_work["flops"], gj_work["nbytes"])
+    print(f"[17 bound] gj_kernel device memory (lc31's AC, "
+          f"{gj_work['systems']} systems of {gj_work['n']}): "
+          f"{gj_work['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
+          f"{gwb[2]:.6f} ms; {gj_work['nbytes']} bytes / {PEAK_BYTES:.3g} "
+          f"B/s = {gwb[3]:.6f} ms", flush=True)
     gj_flops = gj_seed["flops"] + gj_ac["flops"]
     gj_bytes = gj_seed["nbytes"] + gj_ac["nbytes"]
     gj_bound = bound(gj_flops, gj_bytes)
@@ -3170,7 +3381,17 @@ def main():
               "toyspice_tpu/ops/pallas_solve.py:337",
               stamped_big["launches"], max(stamped_big["err"], gen_err),
               stamped_big["k_ms"], stamped_big["p_ms"], sb_bound,
-              stamped_big["lib_ms"])]}
+              stamped_big["lib_ms"]),
+        entry("stamped_solve_device_memory",
+              "toyspice_tpu_torch/csrc/stamped_solve.cu",
+              "toyspice_tpu/ops/pallas_solve.py:337", st_work["launches"],
+              st_work["err"], st_work["k_ms"], st_work["p_ms"], swb,
+              st_work["lib_ms"]),
+        entry("gj_kernel_device_memory",
+              "toyspice_tpu_torch/csrc/gj_kernel.cu",
+              "toyspice_tpu/ops/pallas_solve.py:235", gj_work["launches"],
+              gj_work["err"], gj_work["k_ms"], gj_work["p_ms"], gwb,
+              gj_work["lib_ms"])]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

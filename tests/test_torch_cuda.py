@@ -1014,6 +1014,115 @@ def test_stamped_warp_kernel_sums_a_large_table(cuda, n):
     assert _same_bits(k, p) and bool(torch.isfinite(p).all())
 
 
+def _dense_pattern_inputs(n, lanes, device, seed):
+    """Random (lanes, n, n) systems as a stamped pattern of one entry per
+    cell of rows 1..n-1 and one RHS entry per row, with a zero diagonal, a
+    singular lane (5), a NaN column (lane 6), a tie in |pivot| (lane 7)
+    and integer entries (lane 8)."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(lanes, n, n)) + 4.0 * np.eye(n)
+    rhs = rng.normal(size=(lanes, n))
+    if n > 3:
+        a[:, 3, 3] = 0.0
+    a[5, min(2, n - 1), :] = 0.0  # singular
+    a[6, :, min(4, n - 1)] = np.nan
+    if n > 2:
+        a[7, 1:, 1] = 0.0
+        a[7, 1, 1], a[7, 2, 1] = 3.0, -3.0  # a tie in column 1
+    a[8, 1:, :] = np.round(a[8, 1:, :])
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                         np.arange(1, n))
+    vals = torch.as_tensor(a[:, 1:, :].reshape(lanes, -1).copy(),
+                           device=device)
+    rv = torch.as_tensor(rhs[:, 1:].copy(), device=device)
+    gmins = (torch.zeros(lanes, dtype=torch.float64, device=device),
+             torch.as_tensor(rng.uniform(0.0, 1e-3, lanes), device=device))
+    return fn, vals, rv, gmins
+
+
+@pytest.mark.parametrize("n", [2, 4, 5, 8, 9, 16, 17, 32])
+def test_stamped_segment_kernel_is_bit_identical(cuda, n):
+    """csrc/stamped_solve.cu to n = 32 (a warp segment of W = 4, 8, 16 or
+    32 lanes per system, row i built from the row view and eliminated on
+    thread i) at every bucket edge, 259 lanes, with a zero pivot (a
+    singular lane), a NaN column, a tie in |pivot| and integer entries;
+    gmin 0 and per lane: torch.equal with the plain version."""
+    lanes = 259
+    fn, vals, rv, gmins = _dense_pattern_inputs(n, lanes, cuda, 200 + n)
+    for gmin in gmins:
+        before = solve_stamped.launch_stamped.launches
+        k = fn(vals, rv, gmin)
+        torch.cuda.synchronize()
+        assert solve_stamped.launch_stamped.launches == before + 1
+        p = solve_stamped.solve_plain(fn.pattern, vals, rv, gmin)
+        assert _same_bits(k, p)
+        bad = ~torch.isfinite(p).all(dim=1)
+        assert bool(bad[6]) and bool(torch.isnan(k[bad]).all())
+        assert not bool(bad[[0, 1, 2, 3, 4, 8, 9, 10, lanes - 1]].any())
+
+
+@pytest.mark.parametrize("n", [9, 32])
+def test_stamped_segment_kernel_reads_a_view_past_its_stage(cuda, n):
+    """Every cell of the pattern many entries deep: a row view past what
+    the segment kernel copies to shared memory (SEG_VSTAGE, 16384 ints;
+    read through the cache then) and a term table past MAX_TOPO, which
+    the per-thread kernel refused; torch.equal with the plain version."""
+    from toyspice_tpu_torch.ops.run import MAX_TOPO
+
+    rng = np.random.default_rng(n)
+    lanes, depth = 67, 40000 // (n * n)
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    rows = np.repeat(rows.ravel(), depth)
+    cols = np.repeat(cols.ravel(), depth)
+    rrows = np.repeat(np.arange(1, n), depth)
+    fn = solve_stamped.solve_stamped_for(n, rows, cols, rrows)
+    assert fn.pattern.view.size > 16384
+    assert fn.pattern.table.size > MAX_TOPO
+    vals = rng.normal(size=(lanes, rows.size)) / depth
+    vals[:, rows == cols] += 4.0 / depth
+    vals = torch.as_tensor(vals, device=cuda)
+    rv = torch.as_tensor(rng.normal(size=(lanes, rrows.size)), device=cuda)
+    gmin = torch.as_tensor(rng.uniform(0.0, 1e-3, lanes), device=cuda)
+    k = fn(vals, rv, gmin)
+    torch.cuda.synchronize()
+    p = solve_stamped.solve_plain(fn.pattern, vals, rv, gmin)
+    assert _same_bits(k, p) and bool(torch.isfinite(p).all())
+
+
+@pytest.mark.parametrize("n", [129, 168, 169, 200])
+def test_gj_and_stamped_kernels_past_nbig(cuda, n):
+    """Past NBIG the GJ kernel and the stamped solve eliminate each system
+    in its block's slice of a workspace in device memory, a bounded grid
+    whose blocks loop over the systems: more systems than the grid has
+    blocks, with a zero diagonal, a singular lane, a NaN lane and a tie;
+    gmin 0 and per lane; torch.equal with gj_plain and solve_plain."""
+    from toyspice_tpu_torch.ops import solve
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lanes = solve.WORK_BLOCKS_PER_SM * sms + 37
+    fn, vals, rv, gmins = _dense_pattern_inputs(n, lanes, cuda, n)
+    a = torch.zeros((lanes, n, n), dtype=torch.float64, device=cuda)
+    a[:, 0, 0] = 1.0
+    a[:, 1:, :] = vals.view(lanes, n - 1, n)
+    b = torch.cat([torch.zeros_like(rv[:, :1]), rv], dim=1)
+    before = solve.launch_gj.launches
+    x = solve.linear_solve(a, b)
+    torch.cuda.synchronize()
+    assert solve.launch_gj.launches == before + 1
+    want = solve.gj_plain(a, b)
+    assert _same_bits(x, want)
+    bad = ~torch.isfinite(want).all(dim=1)
+    assert bad.tolist() == [i in (5, 6) for i in range(lanes)]
+    for gmin in gmins:
+        k = fn(vals, rv, gmin)
+        torch.cuda.synchronize()
+        p = solve_stamped.solve_plain(fn.pattern, vals, rv, gmin)
+        assert _same_bits(k, p)
+        if not bool(gmin.any()):
+            assert _same_bits(k, want)
+
+
 def test_general_engine_matches_the_run_kernel(cuda):
     """The half-wave rectifier through engine/tran.make_tran (the general
     OP with its GJ seed, the general Newton over the stamped solve)

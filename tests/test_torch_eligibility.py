@@ -9,6 +9,7 @@ import os
 import re
 
 import pytest
+import torch
 
 import toyspice_tpu_torch as ts
 from toyspice_tpu_torch.engine.options import SimOptions
@@ -88,13 +89,14 @@ Rl out 0 150
     (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32",
      True),
     (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32", True),
-    (_ladder(130), {}, "np1=133 exceeds the stamped-solve kernel's matrix "
-     "cap of 128", False),
+    (_ladder(130), {}, "np1=133 exceeds the kernel's matrix cap of 32",
+     True),
 ], ids=["diode", "store_bogus", "trap", "trap_mutual_with_diode",
         "source_cap", "np1_cap", "np1_past_nbig"])
 def test_ineligible_raises_with_reason(text, kw, reason, general):
     """Past the kernels' caps the general engine takes the run, with the
-    kernels' reason; past the general engine's too, it raises."""
+    kernels' reason, np1 past NBIG included; past the general engine's
+    too, it raises."""
     if general:
         fn = _build(text, **kw)
         assert fn.engine == "general" and reason in fn.engine_reason
@@ -304,16 +306,24 @@ def test_ac_np1_cap_boundary():
      "semantics='bogus'"),
     (_deck("divider_op.cir"), {"semantics": "bogus"}, "semantics='bogus'"),
     (_diodes(17), {}, "cap of 16"),
-    (_ladder(126), {}, "np1=129 exceeds the stamped-solve kernel's matrix "
-     "cap of 128"),
+    (_ladder(126), {}, None),
 ], ids=["physics", "physics_linear", "device_cap", "np1_cap"])
 def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
     """Past the OP kernel's device cap the general engine takes the OP and
-    the sweep (engine "general"); past NBIG nothing does."""
+    the sweep (engine "general"); a linear deck past NBIG (np1 = 129)
+    takes the linear OP and sweep, whose stamped solve has no cap on np1,
+    and converges; what none serves raises."""
     from toyspice_tpu_torch.engine.batch import select_op_engine
 
     cc = ts.compile_circuit(ts.parse(text))
     params = ts.batch_params(cc, {}, device="cpu")[0]
+    if reason is None:
+        assert cc.np1 == 129 and select_op_engine(cc, **kw)[0] == "linear"
+        xs, conv = ts.run_dc_batch(cc, (0,), params, None, [0.0, 1.0], **kw)
+        assert xs.shape == (1, 2, cc.np1) and bool(conv.all())
+        assert bool(torch.isfinite(xs).all())
+        assert bool(ts.run_op_batch(cc, params, **kw).converged.all())
+        return
     if reason == "cap of 16":
         engine, why = select_op_engine(cc, **kw)
         assert engine == "general" and reason in why

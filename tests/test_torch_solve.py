@@ -138,4 +138,4 @@ def test_large_stamped_solve_matches_jax_solve(n):
     np.testing.assert_allclose(x.numpy(), want, rtol=1e-11,
                                atol=1e-11 * np.abs(want).max())
     assert solve_stamped.caps_reason(n, 0) is None
-    assert "cap of 128" in solve_stamped.caps_reason(129, 0)
+    assert solve_stamped.caps_reason(129, 0) is None

@@ -26,9 +26,10 @@ then the AC kernel.  A deck past the kernels' caps (np1 > 32, more than 32
 sources, more than 16 diodes, BJTs and MOSFETs) takes the general engine
 (engine "general"): the JAX package's batched Newton, OP ladder,
 transient, DC sweep and AC as host loops over per-lane masks, each Newton
-iteration one assembly and one launch of the stamped solve (a block per
-lane past np1 = 32, up to 128), the dense solves (the OP's seed, the AC
-systems, 2np1 up to 128) the GJ kernel.  Entry points run on ``cuda``
+iteration one assembly and one launch of the stamped solve (a warp or a
+block per lane past np1 = 32; past 128 the system in device memory), the
+dense solves (the OP's seed, the AC systems) the GJ kernel, for decks of
+any np1.  Entry points run on ``cuda``
 unless given ``device="cpu"``; on the CPU the kernels' plain torch
 versions run instead.
 

@@ -9,7 +9,7 @@
 // and the phasor RHS r (2N).  Lane = b*F + f, omega = 2*pi*freq[f]:
 //
 //   M = [[G, -(omega B^)], [omega B^, G]] | r,
-//   Gauss-Jordan with partial pivoting (newton.cuh: the largest |pivot|
+//   Gauss-Jordan with partial pivoting (gj_warp.cuh: the largest |pivot|
 //   among unused rows, the lowest row on a tie; a zero pivot poisons its
 //   row), x (2N) = [Re x; Im x].
 //

@@ -20,13 +20,13 @@
 //   1. each warp has its candidate (warp_candidate: the largest |m[i][k]|
 //      over its unused rows, the lowest row on a tie, and a vote on a NaN
 //      there); one block barrier; every thread keeps the largest
-//      candidate, the lowest warp (so the lowest row) on a tie:
-//      newton.cuh's pivot rule.  A NaN there, or no candidate, makes every
+//      candidate, the lowest warp (so the lowest row) on a tie: the
+//      kernels' pivot rule.  A NaN there, or no candidate, makes every
 //      x NaN (the whole block leaves the loop);
 //   2. the pivot row's thread puts it in shared memory; a block barrier;
 //      thread t - 1 divides relative column t by the pivot (a division
-//      per element, as newton.cuh's gauss_jordan does; a zero pivot leaves
-//      the poison row, inf past column k); a block barrier;
+//      per element, as ops/newton.py's gauss_jordan does; a zero pivot
+//      leaves the poison row, inf past column k); a block barrier;
 //   3. every thread updates its row as m[i][j] - f * p[j] over the live
 //      columns from the quotients, f = m[i][k] read before; the pivot row
 //      takes the quotients.  After the first eight slots each warp takes
@@ -40,15 +40,20 @@
 // systems are ~95% zeros.
 //
 // gj_block (n past GJ_NREG, whose rows do not fit 255 registers): the
-// matrix in shared memory (gj_shared_bytes(n)), a block of GJ_THREADS;
-// warp 0 finds the pivot, the pivot row is divided and the factors saved,
-// then every element is updated, dead columns included, a warp a row;
-// three block barriers a column.
+// matrix behind a pointer, a block of GJ_THREADS (GJ_WORK_THREADS in
+// device memory); warp 0 finds the pivot,
+// the pivot row is divided and the factors saved, then the live columns
+// past k of every other row are updated, a warp a row; three block
+// barriers a column.  To n = NBIG the matrix is in shared memory
+// (gj_shared_bytes(n)); past it in the block's slice of a workspace in
+// device memory (gj_slice_doubles(n)), which the block barriers order as
+// they order shared memory: the same elimination, with no cap on n but
+// the card's memory.
 //
-// Each element that reaches x sees the operations of newton.cuh's
-// per-thread gauss_jordan in the same order (built with -fmad=false), so
-// both bodies and ops/newton.py::gauss_jordan give the same bits; a
-// system with a non-finite x gets NaN in every x, as there.
+// Each element that reaches x sees the operations of ops/newton.py::
+// gauss_jordan, the plain versions' elimination, in the same order (built
+// with -fmad=false), so every body gives its bits; a system with a
+// non-finite x gets NaN in every x, as there.
 
 #pragma once
 
@@ -58,7 +63,16 @@
 namespace tsr {
 
 constexpr int GJ_THREADS = 128;  // threads of the shared-memory body
-constexpr int NBIG = 128;        // ops/solve.py NBIG: the largest system
+// threads of the device-memory body's blocks, one an SM (ops/solve.py
+// WORK_BLOCKS_PER_SM): on an H100 (ab_run_kernel.py --stamped --gj) the
+// 127-stage ladder's 1024 systems of 130 took 4.20 ms, lc31-sized random
+// systems (8192 of 132) 32.5 ms, against 11.44 and 89.7 at 4 blocks an SM
+// of 128 threads, 7.75 and 64.9 at 1 of 128, 4.46 and 39.2 at 2 of 256,
+// 4.11 and 30.6 at 1 of 1024: one slice an SM stays in its L1, and 16
+// warps share each column's rows
+constexpr int GJ_WORK_THREADS = 512;
+constexpr int NBIG = 128;        // ops/solve.py NBIG: the largest system in
+                                 // shared memory
 constexpr int GJ_NREG = 96;      // the largest n with the rows in registers
 
 // the slots a row of the register body takes for a system of n (a
@@ -238,13 +252,21 @@ __host__ __device__ inline size_t gj_shared_bytes(int n) {
   return ((size_t)n * (n + 1) + n) * sizeof(double) + 2 * (size_t)n * sizeof(int);
 }
 
-// The shared-memory body: eliminate the system in m (n rows of stride
-// n + 1, then the n factors (doubles), the n pivot rows and the n used
-// flags (ints): gj_shared_bytes(n)) with the whole block and write
-// x[0..n) to x_out.  Every thread of the block must call it.
+// gj_shared_bytes(n) in doubles: one system's slice of the device-memory
+// body's workspace (ops/solve.py work_for)
+__host__ __device__ inline size_t gj_slice_doubles(int n) {
+  return (size_t)n * (n + 3);
+}
+
+// The pointer body: eliminate the system in m (n rows of stride n + 1,
+// then the n factors (doubles), the n pivot rows and the n used flags
+// (ints): gj_shared_bytes(n), in shared or device memory) with the whole
+// block and write x[0..n) to x_out.  Every thread of the block must call
+// it.  Only the live columns past k are divided and updated at column k:
+// the others are never read again.
 __device__ inline void gj_block(double* m, int n, double* x_out) {
-  const int ld = n + 1;
-  double* fac = m + (size_t)n * ld;
+  const size_t ld = n + 1;
+  double* fac = m + n * ld;
   int* perm = reinterpret_cast<int*>(fac + n);
   int* used = perm + n;
   __shared__ int s_p, s_nan;
@@ -294,8 +316,8 @@ __device__ inline void gj_block(double* m, int n, double* x_out) {
     const int p = s_p;
     const double piv = s_piv;
     double* prow = m + p * ld;
-    for (int j = tid; j <= n; j += blockDim.x)
-      prow[j] = piv == 0.0 ? (j == k ? 1.0 : INFINITY) : gj_quot(prow[j], piv);
+    for (int j = k + 1 + tid; j <= n; j += blockDim.x)
+      prow[j] = piv == 0.0 ? INFINITY : gj_quot(prow[j], piv);
     for (int i = tid; i < n; i += blockDim.x)
       if (i != p) fac[i] = m[i * ld + k];
     if (tid == 0) {
@@ -307,7 +329,8 @@ __device__ inline void gj_block(double* m, int n, double* x_out) {
       if (i == p) continue;
       const double f = fac[i];
       double* row = m + i * ld;
-      for (int j = lane; j <= n; j += 32) row[j] = row[j] - f * prow[j];
+      for (int j = k + 1 + lane; j <= n; j += 32)
+        row[j] = row[j] - f * prow[j];
     }
     __syncthreads();
   }

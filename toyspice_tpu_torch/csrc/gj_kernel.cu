@@ -1,7 +1,9 @@
 // Batched dense Gauss-Jordan with partial pivoting: x = a^-1 b for every
 // system of a (B, n, n) and b (B, n) f64 pair, one thread block per
-// system: to n = 96 a row a thread in registers, past it the matrix in
-// shared memory.
+// system: to n = 96 a row a thread in registers, to NBIG = 128 the matrix
+// in shared memory, past it in device memory (a bounded grid whose blocks
+// loop over the systems, each in its slice of a workspace the wrapper
+// allocates).
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_solve.py::_gj_kernel
 // (launched at pallas_solve.py:297 by pallas_solve_batched, the batching
@@ -11,8 +13,8 @@
 // (engine/ac.py:127-141).  Per system the block runs gj_block.cuh's
 // elimination: the largest |pivot| among the unused rows, the lowest row
 // on a tie, a zero pivot's poison row and a NaN pivot column's all-NaN x,
-// with the operations of newton.cuh's per-thread gauss_jordan and of
-// ops/solve.py::gj_plain in the same order.
+// with the operations of ops/solve.py::gj_plain (ops/newton.py's
+// gauss_jordan) in the same order.
 //
 // The TPU kernel's double-float (hi, lo) f32 pairs, its batch-last (n, n,
 // 8, W) folding and its one-hot pivot contractions exist because the TPU
@@ -34,13 +36,31 @@
 // reads its own row from device memory: staging a system through shared
 // memory with coalesced loads first took 20% longer in an earlier form
 // of the kernel (82 ms against 68).  gj_kernel<0>, the shared-memory
-// body, takes n = 97 to NBIG, whose rows would not fit 255 registers.
+// body, takes n = 97 to NBIG, whose rows would not fit 255 registers;
+// gj_work_kernel the systems past NBIG, whose matrix would not fit a
+// block's 227 KB of shared memory.
 
 #include "gj_block.cuh"
 
 namespace {
 
 using namespace tsr;
+
+// System sys of (a, b) into t (stride n + 1, the right-hand side at
+// column n) by the whole block, then a block barrier
+__device__ inline void load_system(int n, const double* __restrict__ a,
+                                   const double* __restrict__ b, size_t sys,
+                                   double* t) {
+  const size_t ld = n + 1, nn = (size_t)n * n;
+  const double* as = a + sys * nn;
+  for (size_t e = threadIdx.x; e < nn; e += blockDim.x) {
+    const size_t i = e / n;
+    t[i * ld + (e - i * n)] = as[e];
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    t[i * ld + n] = b[sys * n + i];
+  __syncthreads();
+}
 
 // NMAX slots a row in registers (gj_rows), or 0: the shared-memory body
 template <int NMAX>
@@ -51,15 +71,7 @@ gj_kernel(int n, const double* __restrict__ a, const double* __restrict__ b,
   const size_t sys = blockIdx.x;
   if constexpr (NMAX == 0) {
     extern __shared__ double t[];
-    const int ld = n + 1;
-    const double* as = a + sys * n * n;
-    for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-      const int i = e / n;
-      t[i * ld + (e - i * n)] = as[e];
-    }
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      t[i * ld + n] = b[sys * n + i];
-    __syncthreads();
+    load_system(n, a, b, sys, t);
     gj_block(t, n, x + sys * n);
   } else {
     const int i = threadIdx.x;
@@ -70,6 +82,21 @@ gj_kernel(int n, const double* __restrict__ a, const double* __restrict__ b,
     for (int j = 0; j < NMAX; ++j) m[j] = row && j < n ? ar[j] : 0.0;
     m[NMAX] = row ? b[sys * n + i] : 0.0;
     gj_rows<NMAX>(m, n, x + sys * n);
+  }
+}
+
+// Past NBIG: block k eliminates systems k, k + gridDim.x, ... in slice k
+// of the workspace (gj_slice_doubles(n) each), so that the workspace is
+// bounded by the grid, not by nsys
+__global__ void __launch_bounds__(GJ_WORK_THREADS)
+gj_work_kernel(int n, const double* __restrict__ a,
+               const double* __restrict__ b, double* __restrict__ x,
+               long long nsys, double* __restrict__ work) {
+  double* t = work + blockIdx.x * gj_slice_doubles(n);
+  for (long long sys = blockIdx.x; sys < nsys; sys += gridDim.x) {
+    __syncthreads();  // the last system's x is read out of t
+    load_system(n, a, b, sys, t);
+    gj_block(t, n, x + sys * n);
   }
 }
 
@@ -95,14 +122,29 @@ cudaError_t launch(int n, const double* a, const double* b, double* x,
 
 }  // namespace
 
-// Solve nsys systems of size n (1 <= n <= NBIG) on `stream`; returns the
-// cudaError_t of the launch (0 on success).
+// Solve nsys systems of size n on `stream`; returns the cudaError_t of the
+// launch (0 on success).  Past NBIG, work holds work_len doubles, room for
+// the slices of the grid's blocks (at least one gj_slice_doubles(n) slice;
+// one block per slice, up to nsys): ops/solve.py work_for sizes it at one
+// block an SM, ~70 MB at n = 256 on 132 SMs.  Up to NBIG work is not
+// read.
 extern "C" int tsr_gj(int n, const double* a, const double* b, double* x,
-                      long long nsys, void* stream) {
+                      long long nsys, double* work, long long work_len,
+                      void* stream) {
   if (nsys <= 0) return 0;
-  if (n < 1 || n > NBIG || nsys > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > NBIG) {
+    const long long slices = work_len / (long long)gj_slice_doubles(n);
+    if (work == nullptr || slices < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = static_cast<unsigned>(
+        slices < nsys ? (slices < 0x7fffffffLL ? slices : 0x7fffffffLL)
+                      : nsys);
+    gj_work_kernel<<<blocks, GJ_WORK_THREADS, 0, s>>>(n, a, b, x, nsys, work);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (nsys > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (gj_bucket(n)) {
     case 16: err = launch<16>(n, a, b, x, nsys, s); break;

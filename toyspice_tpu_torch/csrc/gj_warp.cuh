@@ -13,7 +13,7 @@
 //      (__reduce_max_sync of the high and the low word of |a|, which order
 //      a non-negative double as its value does, and __reduce_min_sync of
 //      the row index among the lanes that hold the maximum) keep the
-//      largest, the lowest row on a tie: newton.cuh's pivot rule (a
+//      largest, the lowest row on a tie: the kernels' pivot rule (a
 //      segment of 4, 8 or 16 lanes takes a butterfly of shuffles instead).
 //      A NaN there (one warp vote), or no candidate, makes every x NaN;
 //      the segment still runs every column, with row 0 as its pivot from
@@ -21,8 +21,9 @@
 //      full-warp mask (a failed system's x is all NaN whatever it runs);
 //   2. the owner of the pivot row puts it in the segment's exchange
 //      buffer in shared memory; the lane of each live column divides its
-//      element by the pivot (a division per element, as newton.cuh does),
-//      or writes the poison row of a zero pivot (inf past column k);
+//      element by the pivot (a division per element, as the plain version
+//      does), or writes the poison row of a zero pivot (inf past column
+//      k);
 //   3. each lane updates its rows as m[i][j] - f * p[j] over the live
 //      columns from the buffer's quotients, f = m[i][k] read before; the
 //      pivot row takes the quotients.
@@ -30,10 +31,11 @@
 // Only columns k+1..n-1 and the right-hand side are live after column k:
 // the earlier ones are never read again (x is the right-hand side of each
 // pivot row), so they are not updated, and every element that reaches x
-// sees newton.cuh's operations in its order (built with -fmad=false).
-// A system whose x has a non-finite entry gets NaN in every entry, as the
-// JAX package's one-hot gather gives (and as newton.cuh's gauss_jordan
-// and ops/newton.py's gauss_jordan do).
+// sees the operations of ops/newton.py's gauss_jordan, the plain
+// versions' elimination, in its order (built with -fmad=false).  A system
+// whose x has a non-finite entry gets NaN in every entry, as the JAX
+// package's one-hot gather gives (and as ops/newton.py's gauss_jordan
+// does).
 //
 // gj_warp_reg keeps the rows in registers, in a size bucket of NMAX slots:
 // at column k, slot c holds column k + c (each update writes its result

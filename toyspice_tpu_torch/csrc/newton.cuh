@@ -2,8 +2,9 @@
 // (limit_diode .. limit_mos, value_diode .. value_mos), which every kernel
 // calls device by device, a device a thread of a lane's warp segment; the
 // segment Newton of csrc/op_kernel.cu (each OP solve) and
-// csrc/dc_sweep_kernel.cu (each sweep point), seg_newton; and the
-// per-thread Gauss-Jordan of csrc/stamped_solve.cu's systems to np1 = 32.
+// csrc/dc_sweep_kernel.cu (each sweep point), seg_newton; and its build
+// and solve, seg_solve, which also solves csrc/stamped_solve.cu's systems
+// to np1 = 32.
 // The run kernel (csrc/run_kernel.cuh) runs the transient's Newton on the
 // same bodies.
 //
@@ -652,61 +653,6 @@ __device__ __forceinline__ void device_value(const Deck& c, int j,
     value_bjt(c, j - c.n_d, jv, nv);
   else
     value_mos<TRAN, PHYS>(c, j - c.n_d - c.n_q, jv, dte, gmin, nv, ph);
-}
-
-// ------------------------------------------------------ build and solve
-
-// Gauss-Jordan with partial pivoting (largest |pivot| among unused rows,
-// lowest row on a tie; a zero pivot poisons its row so x goes non-finite;
-// a NaN in a pivot column makes every x NaN).  Returns whether every x is
-// finite.  gj_warp.cuh's eliminations give the same bits.
-template <int NMAX>
-__device__ __forceinline__ bool gauss_jordan(double (*m)[NMAX + 1], int n,
-                                             double* x) {
-  int perm[NMAX];
-  bool used[NMAX];
-  bool nan_col = false;
-  for (int i = 0; i < n; ++i) used[i] = false;
-  for (int k = 0; k < n && !nan_col; ++k) {
-    int p = -1;
-    double best = -1.0;
-    for (int i = 0; i < n; ++i) {
-      if (used[i]) continue;
-      const double a = fabs(m[i][k]);
-      if (isnan(a)) nan_col = true;
-      if (a > best) {
-        best = a;
-        p = i;
-      }
-    }
-    if (nan_col || p < 0) {
-      nan_col = true;
-      break;
-    }
-    const double piv = m[p][k];
-    if (piv == 0.0) {
-      for (int j = 0; j <= n; ++j) m[p][j] = j == k ? 1.0 : INFINITY;
-    } else {
-      for (int j = 0; j <= n; ++j) m[p][j] = m[p][j] / piv;
-    }
-    for (int i = 0; i < n; ++i) {
-      if (i == p) continue;
-      const double f = m[i][k];
-      for (int j = 0; j <= n; ++j) m[i][j] = m[i][j] - f * m[p][j];
-    }
-    used[p] = true;
-    perm[k] = p;
-  }
-  bool finite = !nan_col;
-  for (int k = 0; k < n; ++k) {
-    x[k] = nan_col ? NAN : m[perm[k]][n];
-    finite = finite && isfinite(x[k]);
-  }
-  // one non-finite x makes every x NaN, as the JAX package's one-hot
-  // gather does
-  if (!finite)
-    for (int k = 0; k < n; ++k) x[k] = NAN;
-  return finite;
 }
 
 // ------------------------------------------------- the segment Newton

@@ -39,22 +39,6 @@ def frequency_points(sweep: str, fstart: float, fstop: float,
         return fstart + i * ((fstop - fstart) / n)  # LIN
 
 
-def general_ac_reason(cc, semantics: str = "compat"):
-    """Why the general AC can NOT run this deck; None when it can: the
-    general engine's kinds and semantics, and a 2np1 system within the GJ
-    kernel's NBIG."""
-    from ..ops.solve import NBIG
-    from .batch import general_ineligible_reason
-
-    why = general_ineligible_reason(cc, semantics)
-    if why is not None:
-        return why
-    if 2 * cc.np1 > NBIG:
-        return (f"2np1={2 * cc.np1} exceeds the GJ kernel's matrix cap of "
-                f"{NBIG}")
-    return None
-
-
 def make_ac(cc, opts: SimOptions = DEFAULTS, semantics: str = "compat",
             solve=None, dense_solve=None):
     """The general AC, batched: fn(params, state0, freqs) -> (xr, xi, opr)
@@ -111,11 +95,12 @@ def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
     from ..ops.assemble import assemble_ac_blocks
     from ..ops.op import make_op_fused
     from ..ops.run_plan import nonlinear
+    from .batch import general_ineligible_reason
     from .op import make_op
 
     why = ac_ineligible_reason(cc, semantics, opts)
     if why is not None:
-        why_not = general_ac_reason(cc, semantics)
+        why_not = general_ineligible_reason(cc, semantics)
         if why_not is not None:
             raise NotImplementedError(f"no AC engine for this deck in the "
                                       f"port: {why}; {why_not}")

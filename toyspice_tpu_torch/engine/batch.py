@@ -18,7 +18,8 @@ point (``engine/dc.make_dc``); for AC, that OP and the AC kernel
 sources, more than 16 diodes, BJTs and MOSFETs) takes the general engine,
 engine "general", as the JAX package does: ``engine/tran.make_tran``,
 ``engine/op.make_op``, ``engine/dc.make_dc`` and ``engine/ac.make_ac``,
-whose Newton is a host loop over the stamped solve (np1 up to NBIG = 128).
+whose Newton is a host loop over the stamped solve (any np1: past NBIG =
+128 its systems are eliminated in device memory).
 A deck, store or semantics none of them covers raises
 ``NotImplementedError`` with the reason.
 """
@@ -60,12 +61,10 @@ def batch_params(cc, overrides: Dict[str, Dict[str, object]],
 
 def general_ineligible_reason(cc, semantics: str = "compat"):
     """Why the general engine can NOT run this deck; None when it can: the
-    port's semantics and device kinds, and np1 within the stamped solve's
-    NBIG.  The integration is not asked: the OP, DC sweep and AC take
-    compat under trap as BE, and a transient's refusal of it comes first
-    (``select_tran_engine``)."""
+    port's semantics and device kinds (any np1).  The integration is not
+    asked: the OP, DC sweep and AC take compat under trap as BE, and a
+    transient's refusal of it comes first (``select_tran_engine``)."""
     from ..ops.run_plan import SLICE_KINDS, semantics_reason
-    from ..ops.solve import NBIG
 
     why = semantics_reason(semantics)
     if why is not None:
@@ -74,9 +73,6 @@ def general_ineligible_reason(cc, semantics: str = "compat"):
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
                 "runs R, C, L, LM, K, V, I, D, Q and M)")
-    if cc.np1 > NBIG:
-        return (f"np1={cc.np1} exceeds the stamped-solve kernel's matrix "
-                f"cap of {NBIG}")
     return None
 
 
@@ -267,7 +263,6 @@ def linear_op_ineligible_reason(cc, semantics: str = "compat"):
     transient stamps and for the diode)."""
     from ..ops.assemble import LINEAR_KINDS
     from ..ops.run_plan import nonlinear, semantics_reason
-    from ..ops.solve import NBIG
 
     why = semantics_reason(semantics)
     if why is not None:
@@ -278,9 +273,6 @@ def linear_op_ineligible_reason(cc, semantics: str = "compat"):
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (a linear OP "
                 "runs R, C, L, LM, K, V and I)")
-    if cc.np1 > NBIG:
-        return (f"np1={cc.np1} exceeds the stamped-solve kernel's matrix "
-                f"cap of {NBIG}")
     return None
 
 
@@ -291,8 +283,8 @@ def select_op_engine(cc, semantics: str = "compat",
     general engine's Newton over the stamped solve, on a nonlinear deck
     past the kernels' caps (with their reason), or "linear", the stamped
     solve, on a linear one; anything none serves (a kind not ported, a
-    semantics other than compat and physics, np1 past NBIG) raises
-    NotImplementedError with the reason."""
+    semantics other than compat and physics) raises NotImplementedError
+    with the reason."""
     from ..ops.run import kernel_caps_reason
     from ..ops.run_plan import make_plan, nonlinear
 

@@ -136,9 +136,9 @@ _ARGTYPES = {
     # tsr_opdc_seg_shape(np1, nlanes, topo_len, lane_doubles, out[5])
     "op": (("tsr_op", "ipii" + "p" * 8 + "iddidip"),
            ("tsr_opdc_seg_shape", "iiiip")),
-    # tsr_stamped(n, tab, tab_len, nnz, nrhs, vals, rvals, gmin, x, nlanes,
-    #             stream)
-    "stamped": (("tsr_stamped", "ipiii" + "p" * 4 + "ip"),),
+    # tsr_stamped(n, tab, tab_len, view, view_len, nnz, nrhs, vals, rvals,
+    #             gmin, x, nlanes, work, work_len, stream)
+    "stamped": (("tsr_stamped", "ipipiii" + "p" * 4 + "ipqp"),),
     # tsr_dc_sweep(np1, topo, topo_len, lane_doubles, dev, dyn, vs,
     #              vs_stride, npts, x, iters, conv, nlanes, reltol, abstol,
     #              max_iter, gmin_floor, physics, stream)
@@ -146,8 +146,8 @@ _ARGTYPES = {
             + "iddidip"),),
     # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
     "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
-    # tsr_gj(n, a, b, x, nsys, stream)
-    "gj": (("tsr_gj", "ipppqp"),),
+    # tsr_gj(n, a, b, x, nsys, work, work_len, stream)
+    "gj": (("tsr_gj", "ipppqpqp"),),
 }
 
 

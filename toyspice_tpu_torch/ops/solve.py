@@ -14,8 +14,9 @@ the system is NaN (as the JAX package's one-hot gather gives).
 * ``launch_gj``: the wrapper of ``csrc/gj_kernel.cu`` (one block per
   system, f64: up to n = 96 row i on thread i in registers, the dead
   columns dropped, the pivot row alone through shared memory, a division
-  a thread; up to NBIG the matrix in shared memory); it counts its
-  launches in ``.launches``.
+  a thread; up to NBIG the matrix in shared memory; past it in a
+  workspace in device memory, ``work_for``); it counts its launches in
+  ``.launches``.
 * ``gj_plain``: the same arithmetic as batched torch operations
   (``ops/newton.py::gauss_jordan``).
 * ``linear_solve``: the kernel for CUDA tensors, the plain version for CPU
@@ -28,7 +29,31 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 
 F64 = torch.float64
-NBIG = 128  # csrc/gj_block.cuh: the largest system the kernel eliminates
+NBIG = 128  # csrc/gj_block.cuh: the largest system in shared memory
+# blocks an SM of the device-memory body past NBIG (csrc/gj_block.cuh
+# GJ_WORK_THREADS has the measurements), each with its slice of the
+# workspace: at n = 256 a slice is 530 KB, 132 SMs x 1 take ~70 MB
+WORK_BLOCKS_PER_SM = 1
+
+
+def work_for(n, systems, device):
+    """The workspace of the kernels' device-memory body past NBIG as an f64
+    tensor on ``device``, None up to NBIG: a slice for each block of the
+    bounded grid (at most ``systems``, WORK_BLOCKS_PER_SM an SM), each of
+    csrc/gj_block.cuh gj_slice_doubles(n) = n (n + 3) doubles (the (n, n+1)
+    matrix, n factors, n pivot rows and n used flags).  An allocation the
+    card cannot hold raises, as torch does."""
+    if n <= NBIG:
+        return None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slices = max(1, min(systems, WORK_BLOCKS_PER_SM * sms))
+    return torch.empty(slices * n * (n + 3), dtype=F64, device=device)
+
+
+def work_args(work):
+    """(pointer, doubles) of a workspace for the C entries (0, 0 for
+    None)."""
+    return (0, 0) if work is None else (work.data_ptr(), work.numel())
 
 
 def _check(a, b):
@@ -49,16 +74,17 @@ def launch_gj(a, b):
         raise ValueError("launch_gj needs CUDA tensors")
     _check(a, b)
     n = a.shape[1]
-    if not 1 <= n <= NBIG:
-        raise ValueError(f"n={n} exceeds the GJ kernel's cap of {NBIG}")
+    if n < 1:
+        raise ValueError("the systems are empty (n = 0)")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     lib = _build.load("gj")
     x = torch.empty((a.shape[0], n), dtype=F64, device=a.device)
+    work = work_for(n, a.shape[0], a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.tsr_gj(n, a.data_ptr(), b.data_ptr(), x.data_ptr(),
-                         a.shape[0], stream)
+                         a.shape[0], *work_args(work), stream)
     if err != 0:
         raise RuntimeError(f"GJ kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'gj')})")

@@ -14,12 +14,14 @@ ground identity row, gmin goes on diagonals 1..n-1 (matrix/circuit.go:
 107-114), and Gauss-Jordan with the kernels' pivot rule solves it (a zero
 pivot poisons its row, so a singular system gives an x of NaN).
 
-* ``launch_stamped``: the wrapper of ``csrc/stamped_solve.cu`` (one thread
-  per lane up to n = 32, the term table in shared memory; one warp per
-  lane up to n = 64, the rows in registers or in the warp's shared memory;
-  one block per lane up to NBIG, the system built in shared memory and
-  eliminated as the GJ kernel does, the rows in registers to n = 96;
-  f64); it counts its launches in ``.launches``.
+* ``launch_stamped``: the wrapper of ``csrc/stamped_solve.cu`` (a warp
+  segment of 4 to 32 lanes per lane up to n = 32, row i built from the
+  pattern's row view and eliminated on thread i; one warp per lane up to
+  n = 64, the rows in registers or in the warp's shared memory; one block
+  per lane up to NBIG, the system built in shared memory and eliminated
+  as the GJ kernel does, the rows in registers to n = 96; past NBIG one
+  block per lane in a workspace in device memory; f64); it counts its
+  launches in ``.launches``.
 * ``solve_plain``: the same arithmetic as batched torch operations.
 * ``solve_lanes``: the kernel for CUDA tensors, the plain version for CPU
   tensors.
@@ -32,8 +34,7 @@ import torch
 
 from . import _build
 from .newton import gauss_jordan, poison_rows
-from .run import MAX_TOPO, NP1_CAP
-from .solve import NBIG
+from .solve import work_args, work_for
 
 F64 = torch.float64
 
@@ -90,7 +91,7 @@ def cell_sums(flat, vals, size):
 class StampPattern:
     """One deck's static stamp pattern: the term table of the kernel (a
     count, then the rows, cols and value indices of the terms, each cell's
-    terms in entry order) and the sizes."""
+    terms in entry order), its row view (``view``) and the sizes."""
 
     def __init__(self, n, rows, cols, rrows):
         self.n = int(n)
@@ -106,17 +107,19 @@ class StampPattern:
                                      t[:, 2]]).astype(np.int32)
         self.flat = t[:, 0] * (self.n + 1) + t[:, 1]  # cell of each term
         self.src = t[:, 2]
+        self.view = row_view(self.n, t)
         self._tables = {}
 
     def table_on(self, device):
-        """The term table on ``device``, copied there once (a pattern is
-        cached per deck, and the general engine launches it every Newton
-        iteration)."""
-        tab = self._tables.get(device)
-        if tab is None:
-            tab = self._tables[device] = torch.as_tensor(self.table,
-                                                         device=device)
-        return tab
+        """The term table and the row view on ``device``, copied there once
+        (a pattern is cached per deck, and the general engine launches it
+        every Newton iteration)."""
+        tabs = self._tables.get(device)
+        if tabs is None:
+            tabs = self._tables[device] = (
+                torch.as_tensor(self.table, device=device),
+                torch.as_tensor(self.view, device=device))
+        return tabs
 
     def check(self, vals, rvals, gmin):
         b = vals.shape[0]
@@ -135,12 +138,26 @@ class StampPattern:
                                  f"{vals.device}")
 
 
+def row_view(n, terms):
+    """The row view of a term table's (row, col, src) terms, from which the
+    segment kernel (n <= 32) builds row i on thread i: each term's int4
+    (col, 0, src, +1), row by row, each row's in table order (so each cell
+    sums its own terms in entry order from 0, as ``cell_sums``), then the
+    n + 1 row offsets; int32."""
+    order = np.argsort(terms[:, 0], kind="stable")
+    ent = np.zeros((len(terms), 4), np.int32)
+    ent[:, 0] = terms[order, 1]
+    ent[:, 2] = terms[order, 2]
+    ent[:, 3] = 1
+    roff = np.searchsorted(terms[order, 0], np.arange(n + 1)).astype(np.int32)
+    return np.concatenate([ent.ravel(), roff]).astype(np.int32)
+
+
 def caps_reason(n, table_size):
-    """Why the kernel can NOT hold this pattern; None when it can."""
-    if n > NBIG:
-        return f"np1={n} exceeds the kernel's matrix cap of {NBIG}"
-    if n <= NP1_CAP and table_size > MAX_TOPO:  # the per-thread kernels'
-        return "stamp pattern exceeds the kernel's shared-memory table"
+    """Why the kernel can NOT hold this pattern; None when it can.  Every
+    pattern fits: past its shared-memory stage the segment body reads the
+    row view through the cache, and past NBIG a block works in device
+    memory, so only the card's memory bounds n."""
     return None
 
 
@@ -155,14 +172,16 @@ def launch_stamped(pat: StampPattern, vals, rvals, gmin):
     lib = _build.load("stamped")
     device = vals.device
     b = vals.shape[0]
-    tab = pat.table_on(device)
+    tab, view = pat.table_on(device)
     x = torch.empty((b, pat.n), dtype=F64, device=device)
+    work = work_for(pat.n, b, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tsr_stamped(pat.n, tab.data_ptr(), int(pat.table.size),
-                              pat.nnz, pat.nrhs, vals.data_ptr(),
-                              rvals.data_ptr(), gmin.data_ptr(),
-                              x.data_ptr(), b, stream)
+                              view.data_ptr(), int(pat.view.size), pat.nnz,
+                              pat.nrhs, vals.data_ptr(), rvals.data_ptr(),
+                              gmin.data_ptr(), x.data_ptr(), b,
+                              *work_args(work), stream)
     if err != 0:
         raise RuntimeError(f"stamped-solve kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err, 'stamped')})")
