@@ -42,19 +42,28 @@ Cockcroft-Walton multiplier, np1 = 35, 8192 lanes: chip_smoke.py's
 general-engine main path) and of a 127-stage RC ladder (np1 = 130, past
 NBIG, 1024 lanes: chip_smoke.py phase 32; a checkout whose kernel refuses
 it says so), each captured from its wrapper's call of the checkout's own
-C entry and timed the same way.  ``--gj`` times the GJ
+C entry and timed the same way, beside torch.linalg.solve on the built
+systems and the bound (chip_smoke.py's).  ``--gj`` times the GJ
 kernel (``csrc/gj_kernel.cu``, the general engine's dense solve) on
 lc16_ac_8192's 172,032 systems of 72 (a 16-section LC ladder's AC, built
 by the general AC as chip_smoke.py phase 30 builds them), on cw16's OP
-seed (8192 systems of 35) and on 8192 random systems of 96, 128 and
-132, each through its C entry and through ``launch_gj``; it builds and prints
-``-Xptxas -v`` of the ``gj`` and ``stamped`` libraries only, and runs
-bench.py's deck only beside another run flag.
+seed (8192 systems of 35), on 8192 random systems of 96, 128 and 132 and
+on lc31_ac_1024's 21,504 systems of 132 (chip_smoke.py phase 32), each
+through its C entry and through ``launch_gj``, beside torch.linalg.solve
+and the bound (chip_smoke.py's); it builds and prints ``-Xptxas -v`` of
+the ``gj`` and ``stamped`` libraries only, and runs bench.py's deck only
+beside another run flag.  ``--floor`` first writes ``_var_floor/``
+(gitignored): this checkout's ``toyspice_tpu_torch`` with the wide
+register body switched off (csrc/gj_block.cuh GJ_NWIDE = GJ_NREG), so
+that 97 <= n <= 168 runs the shared-memory body at 512 threads, the floor
+the register body has to beat; name ``_var_floor`` among the checkouts.
 
     python3 ab_run_kernel.py _parent . . _parent
     python3 ab_run_kernel.py --gj _parent . . _parent
     python3 ab_run_kernel.py --store --magphys --rectifier _parent . . _parent
     python3 ab_run_kernel.py --ac --stamped _parent . . _parent
+    python3 ab_run_kernel.py --gj --stamped --floor _parent . _var_floor \
+        . _var_floor _parent
     python3 ab_run_kernel.py --rectifier --reps 10 _parent . . _parent
     python3 ab_run_kernel.py --physics --reps 10 . .
     python3 ab_run_kernel.py --rectifier --physics --nlstore --lmdiode \
@@ -80,6 +89,8 @@ first.  It needs a card and ``nvcc``.
 
 import argparse
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -355,7 +366,8 @@ def time_stamped(root, reps):
     from toyspice_tpu_torch.engine.options import SimOptions
     from toyspice_tpu_torch.engine.tran import make_tran
     from toyspice_tpu_torch.ops import _build, solve_stamped
-    from chip_smoke import DIVIDER_DC, cockcroft_walton
+    from chip_smoke import (DIVIDER_DC, bound, cockcroft_walton, nbytes,
+                            stamped_flops)
 
     here = os.path.dirname(os.path.abspath(__file__))
 
@@ -438,8 +450,16 @@ def time_stamped(root, reps):
         b = vals.shape[0]
         fn, args = calls[-1]
         ms = entry_ms(root, fn, args, reps)
+        m = solve_stamped.build_plain(pat, vals, rvals, gmin)
+        am, bm = m[:, :, :-1].contiguous(), m[:, :, -1].contiguous()
+        _, lib = event_ms(lambda: torch.linalg.solve(am, bm), reps)
+        bd = bound(b * stamped_flops(pat), nbytes(vals, rvals, gmin)
+                   + pat.table.nbytes + b * pat.n * 8)
         print(f"{root}: stamped solve ({name}, {b} systems of {pat.n}, "
-              f"{int(pat.table[0])} terms): kernel ms {ms}", flush=True)
+              f"{int(pat.table[0])} terms): kernel ms {ms}, "
+              f"torch.linalg.solve ms {lib}, bound ms {bd[0]:.6f} "
+              f"({bd[1]})", flush=True)
+        del m, am, bm
         del keep
         torch.cuda.empty_cache()
 
@@ -447,11 +467,13 @@ def time_stamped(root, reps):
 def time_gj(root, reps):
     """The GJ kernel on lc16_ac_8192's systems (8192 lanes, C spread, 21
     frequencies: 172,032 systems of 72), on cw16's OP seed (8192 systems
-    of 35, C spread) and on 8192 random systems of 96 (the largest in
-    registers), of 128 (in shared memory) and of 132 (in device memory;
-    a checkout whose kernel refuses it says so), each captured from
+    of 35, C spread), on 8192 random systems of 96 (the largest a row a
+    thread), of 128 and of 132 (the wide register body; the shared-memory
+    body in ``_var_floor``) and on lc31_ac_1024's systems (1024 lanes, C
+    spread, 21 frequencies: 21,504 systems of 132), each captured from
     its caller (or made from one seed) and timed through the C entry
-    (``calls`` calls a rep) and through ``launch_gj``; the first 16384
+    (``calls`` calls a rep), through ``launch_gj`` and as
+    torch.linalg.solve, beside chip_smoke.py's bound; the first 16384
     systems of each are held to ``gj_plain`` bit for bit."""
     import numpy as np
     import torch
@@ -460,7 +482,8 @@ def time_gj(root, reps):
     from toyspice_tpu_torch.engine.ac import make_ac
     from toyspice_tpu_torch.engine.op import make_op
     from toyspice_tpu_torch.ops import _build, solve
-    from chip_smoke import cockcroft_walton, lc_ladder, same_bits
+    from chip_smoke import (bound, cockcroft_walton, lc_ladder, lu_flops,
+                            nbytes, same_bits)
 
 
     def capture(run):
@@ -472,9 +495,9 @@ def time_gj(root, reps):
         run(dense)
         return seen[0]
 
-    def lc16(dense):
-        cc = ts.compile_circuit(ts.parse(lc_ladder(16)))
-        params, _ = spread_params(ts, cc, ("C",))
+    def lc_ac(sections, lanes, dense):
+        cc = ts.compile_circuit(ts.parse(lc_ladder(sections)))
+        params, _ = spread_params(ts, cc, ("C",), lanes)
         ap = cc.netlist.ac
         make_ac(cc, dense_solve=dense)(params, ts.init_state(cc),
                                        ts.frequency_points(
@@ -492,11 +515,14 @@ def time_gj(root, reps):
         return (torch.as_tensor(a, device="cuda"),
                 torch.as_tensor(rng.normal(size=(LANES, n)), device="cuda"))
 
-    for name, make, calls in (("lc16_ac_8192", lambda: capture(lc16), 5),
+    for name, make, calls in (("lc16_ac_8192", lambda: capture(
+            lambda d: lc_ac(16, LANES, d)), 5),
                               ("cw16 OP seed", lambda: capture(cw16), 20),
                               ("random n=96", lambda: random(96), 5),
                               ("random n=128", lambda: random(128), 5),
-                              ("random n=132", lambda: random(132), 5)):
+                              ("random n=132", lambda: random(132), 5),
+                              ("lc31_ac_1024", lambda: capture(
+                                  lambda d: lc_ac(31, 1024, d)), 5)):
         a, b = make()
         nsys, n = a.shape[0], a.shape[1]
         try:
@@ -508,11 +534,14 @@ def time_gj(root, reps):
         fn, args = seen[-1]
         ms = entry_ms(root, fn, args, reps, calls)
         _, wms = event_ms(lambda: solve.launch_gj(a, b), reps)
+        _, lib = event_ms(lambda: torch.linalg.solve(a, b), reps)
+        bd = bound(nsys * lu_flops(n), nbytes(a, b) + nbytes(b))
         k = min(nsys, 16384)
         bits = same_bits(x[:k], solve.gj_plain(a[:k], b[:k]))
         print(f"{root}: GJ kernel ({name}, {nsys} systems of {n}): kernel "
-              f"ms {ms}, with launch_gj {wms}, the first {k} bit-identical "
-              f"to gj_plain {bits}", flush=True)
+              f"ms {ms}, with launch_gj {wms}, torch.linalg.solve ms {lib}, "
+              f"bound ms {bd[0]:.6f} ({bd[1]}), the first {k} "
+              f"bit-identical to gj_plain {bits}", flush=True)
         del a, b, x, keep
         torch.cuda.empty_cache()
 
@@ -692,6 +721,26 @@ def time_checkout(root, modes, reps, ptxas=True, opdc=False, do_ac=False,
         time_gj(root, reps)
 
 
+def floor_variant():
+    """``_var_floor/toyspice_tpu_torch``: this checkout's package with
+    csrc/gj_block.cuh's GJ_NWIDE set to GJ_NREG, so that the GJ kernel and
+    the stamped solve run the shared-memory body from n = 97."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    dst = os.path.join(here, "_var_floor", "toyspice_tpu_torch")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(here, "toyspice_tpu_torch"), dst,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    hdr = os.path.join(dst, "csrc", "gj_block.cuh")
+    with open(hdr) as f:
+        text = f.read()
+    edge = re.search(r"constexpr int GJ_NWIDE = \d+;", text)
+    if edge is None:
+        raise SystemExit("no GJ_NWIDE in csrc/gj_block.cuh: no floor variant")
+    with open(hdr, "w") as f:
+        f.write(text.replace(edge.group(0),
+                             "constexpr int GJ_NWIDE = GJ_NREG;"))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rectifier", action="store_true",
@@ -728,6 +777,9 @@ def main():
                     help="time the GJ kernel on lc16's, cw16's seed's and "
                     "random n = 128 systems (bench.py's deck only beside "
                     "another run flag)")
+    ap.add_argument("--floor", action="store_true",
+                    help="write _var_floor/, this checkout with the wide "
+                    "register body off, to name among the checkouts")
     ap.add_argument("--reps", type=int, default=3,
                     help="timed launches per checkout")
     ap.add_argument("--no-ptxas", action="store_true", help=argparse.SUPPRESS)
@@ -751,6 +803,8 @@ def main():
         time_checkout(os.path.abspath(a.roots[0]), modes, a.reps,
                       not a.no_ptxas, a.opdc, a.ac, a.stamped, a.gj)
         return 0
+    if a.floor:
+        floor_variant()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

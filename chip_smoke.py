@@ -13,11 +13,13 @@ seconds:
    magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
    source built without and with the waveform store), the OP kernel, the
    DC sweep kernel, the stamped solve (a warp segment per lane to np1 =
-   32, a warp per lane to 64, a block per lane to 128 in shared memory and
-   past it in device memory), the AC kernel (a warp segment per system)
+   32, a warp per lane to 64, a block per lane above: in registers to 144,
+   in shared memory to 168, past it in device memory), the AC kernel (a
+   warp segment per system)
    and the GJ kernel, one ``nvcc`` call per library, all started
    together (ops/_build.py) in a thread of their own, while phase 3's
-   plain versions, which need no library, run on the card.
+   and phase 27's plain versions, which need no library, run on the
+   card.
 3. run kernel against its plain torch version on linear decks, on the
    card (the plain versions first, beside the build): 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -139,12 +141,15 @@ seconds:
    store on the same lanes, timed alone and through its wrapper.
 27. the GJ kernel (csrc/gj_kernel.cu) against gj_plain on 259 random
    systems each of n = 1, 2, 4, 5, 6, 8, 9, 16, 17, 32, 33, 40, 48, 49,
-   64, 65, 72, 73, 96, 97, 128, 129, 130, 168, 169 and 200 (its bucket
-   edges and the stamped solve's, and past NBIG = 128 the device-memory
-   body), with a zero diagonal, a singular and a NaN lane: the same
+   64, 65, 72, 73, 96, 97, 127, 128, 129, 130, 144, 145, 168, 169 and 200
+   (its bucket edges and the stamped solve's: a row a thread to 96, the
+   registers of a 512-thread block to 144, shared memory to NBIG = 168,
+   device memory above), with a zero diagonal, a singular lane, a NaN
+   lane, a late NaN and a tie between rows on different warps: the same
    non-finite lanes and the same bits, and on the same systems the
-   stamped solve (a warp segment a system to 32, a warp to 64, a block to
-   128, a block in device memory above) and its plain version.
+   stamped solve (a warp segment a system to 32, a warp to 64, a block
+   above) and its plain version; then the GJ kernel beside
+   torch.linalg.solve on 8192 random systems of 128 and of 132.
 28. the general engine against the run kernel on an eligible deck: the
    half-wave rectifier, 256 lanes, through engine/tran.make_tran (the
    general OP with its GJ seed, the general Newton over the stamped solve)
@@ -168,14 +173,15 @@ seconds:
    AC source, 1024 lanes: the OP, DC sweep and AC kernels launched, each
    result equal bit for bit to compat/BE's and each kernel bit-identical
    to its plain version; make_tran_batch still refuses compat/trap.
-32. decks past NBIG, where a system no longer fits a block's shared
-   memory: a 127-stage RC ladder (np1 = 130), C spread 0.1, 1024 lanes,
-   make_tran_batch to 0.05 ms: engine "general", one launch of the
-   stamped solve's device-memory body per batched Newton iteration and no
-   other kernel, no lane failed, every lane at tstop; then run_ac_batch on
-   a 31-section LC ladder (np1 = 66, systems of 132), 1024 lanes x 21
-   frequencies: one stamped launch (the linear OP), one GJ launch through
-   the device-memory body, torch.linalg.solve as the yardstick.  For both,
+32. decks past n = 128, whose systems a block holds in its registers
+   (csrc/gj_block.cuh gj_wide): a 127-stage RC ladder (np1 = 130), C
+   spread 0.1, 1024 lanes, make_tran_batch to 0.05 ms: engine "general",
+   one launch of the stamped solve's wide body per batched Newton
+   iteration and no other kernel, no lane failed, every lane at tstop;
+   then run_ac_batch on a 31-section LC ladder (np1 = 66, systems of
+   132), 1024 lanes x 21 frequencies: one stamped launch (the linear OP),
+   one GJ launch through the wide body, torch.linalg.solve as the
+   yardstick.  Each names the body that ran (ops/solve.py body).  For both,
    the kernels against their plain versions on the same lanes: counters
    equal, bit for bit.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
@@ -2037,12 +2043,18 @@ def mag_ac_phase(lanes):
         ("xr", kr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1)),
         ("xi", ki.reshape(-1, cc.np1), pi_.reshape(-1, cc.np1)),
         ("xr", xr.reshape(-1, cc.np1), pr.reshape(-1, cc.np1))])
+    n2 = 2 * cc.np1
+    m = ac.build_systems(*tk.args[0])
+    a_, b_ = m[:, :, :n2].contiguous(), m[:, :, n2:].contiguous()
+    torch.linalg.solve(a_, b_)  # warm-up
+    _, lib_ms = timed_call(torch.linalg.solve, a_, b_)
     phase("24 magnetic AC", t0,
           f"saturating_transformer (AC source): {lanes} lanes x "
           f"{len(freqs)} frequencies, stamped-solve launches "
           f"{got['stamped_solve']}, AC kernel launches {got['ac_kernel']}; "
           f"kernel vs plain max abs err {err:.3e}; kernel {tk.ms():.3f} ms, "
-          f"plain {tp_.ms():.1f} ms")
+          f"plain {tp_.ms():.1f} ms, torch.linalg.solve {lib_ms:.3f} ms on "
+          f"the same systems")
     return err
 
 
@@ -2090,7 +2102,7 @@ def mag_main_phase(lanes, smi):
     if not all(torch.equal(lm[key][:, 0], lm[key][:, 1])
                for key in ("H", "M", "Mirr", "dMdH")):
         fail("physics magnetic main path: the windings' cores differ")
-    tk = TimedSolve(solve_stamped.solve_lanes)
+    tk = TimedSolve(solve_stamped.solve_lanes, stamped_systems)
     tp_ = TimedSolve(solve_stamped.solve_plain)
     ok_ = make_op(cc, opts, "physics", solve=tk)(params, state0)
     op_ = make_op(cc, opts, "physics", solve=tp_)(params, state0)
@@ -2115,7 +2127,9 @@ def mag_main_phase(lanes, smi):
           f"lane at tstop, wall={wall:.6f} s, {accepted / wall:.6e} "
           f"accepted steps/s on {smi}; the linear OP's stamped solve vs "
           f"plain max abs err {op_err:.3e} ({tk.ms():.3f} ms, plain "
-          f"{tp_.ms():.1f} ms); the run kernel on the same inputs against "
+          f"{tp_.ms():.1f} ms, torch.linalg.solve on the built systems "
+          f"{tk.ms(lib=True):.3f} ms); the run kernel on the same inputs "
+          f"against "
           f"its plain version: counters equal, bit for bit, max abs err "
           f"{err:.3e}; "
           f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
@@ -2228,7 +2242,12 @@ def dense_sets(n, b, seed):
     """b random well-conditioned (n, n) systems on the card with row 0 the
     ground identity (x[0] = 0), a structural zero on diagonal 3 (pivoting
     needed), an all-zero row 2 on lane 5 (singular) and a NaN column 4 on
-    lane 6 (rows 2 and 4 the last one where n is smaller)."""
+    lane 6 (rows 2 and 4 the last one where n is smaller); from n = 8 a NaN
+    in column n - 2 of row 2 on lane 8 (the block leaves the column loop
+    late), and from n = 18 the cross-warp tie on lanes 7 and 9-40:
+    integer entries, and column 1's largest |a| twice, +10 in row 2 and
+    -10 in row 17 (warps 2 and 1 of csrc/gj_block.cuh's gj_wide; the pivot
+    rule takes row 2, and the lowest row in the later columns' ties)."""
     rng = np.random.default_rng(seed)
     a = rng.normal(size=(b, n, n)) + 4.0 * np.eye(n)
     rhs = rng.normal(size=(b, n))
@@ -2239,8 +2258,20 @@ def dense_sets(n, b, seed):
         a[:, 3, 3] = 0.0
     a[5, min(2, n - 1), :] = 0.0
     a[6, :, min(4, n - 1)] = np.nan
+    if n >= 8:
+        a[8, 2, n - 2] = np.nan
+    if n >= 18:
+        tie = [7] + list(range(9, 41))
+        a[tie, 1:, :] = np.round(2.0 * a[tie, 1:, :])
+        a[tie, 1:, 1] = np.clip(a[tie, 1:, 1], -3.0, 3.0)
+        a[tie, 2, 1], a[tie, 17, 1] = 10.0, -10.0
     return (torch.as_tensor(a, device=DEVICE),
             torch.as_tensor(rhs, device=DEVICE))
+
+
+def bad_lanes(n, b):
+    """dense_sets' non-finite lanes."""
+    return [i in (5, 6) or (i == 8 and n >= 8) for i in range(b)]
 
 
 def dense_pattern(n):
@@ -2258,63 +2289,112 @@ def same_bits(a, b):
                        torch.nan_to_num(b, nan=7.0, posinf=8.0, neginf=9.0))
 
 
-# n of phase 27: the GJ kernel's bucket edges (csrc/gj_block.cuh
-# gj_bucket: a row a thread in registers to 96, the shared-memory body to
-# NBIG = 128, the device-memory body above) and the stamped solve's (a
-# warp segment of 4, 8, 16 or 32 lanes a lane to 32, a warp to 64, a
-# block above)
+# n of phase 27: the GJ kernel's bucket edges (csrc/gj_block.cuh:
+# gj_bucket, a row a thread in registers to 96; gj_wide_bucket, the
+# registers of a 512-thread block, buckets 127 and 144; the shared-memory
+# body to NBIG = 168, the device-memory body above) and the stamped
+# solve's (a warp segment of 4, 8, 16 or 32 lanes a lane to 32, a warp to
+# 64, a block above)
 GJ_SIZES = (1, 2, 4, 5, 6, 8, 9, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72,
-            73, 96, 97, 128, 129, 130, 168, 169, 200)
+            73, 96, 97, 127, 128, 129, 130, 144, 145, 168, 169, 200)
+# phase 27's timed sizes: 8192 random systems each, the kernel beside
+# torch.linalg.solve
+GJ_TIMED = (128, 132)
 # its lanes: no multiple of 32 (256 hid a warp writing into its
 # neighbour's system)
 GJ_LANES = 259
 
 
-def gj_phase(lanes):
-    """Phase 27: the GJ kernel against gj_plain on random sets of every n
-    in GJ_SIZES, with a zero-diagonal column, a singular lane and a NaN
-    lane: the same bits and the same non-finite lanes; on the same systems
-    (n > 1: row 0 is the ground row the stamped build makes) the stamped
-    solve (a warp segment a system to n = 32, a warp to 64, a block to
-    128, a block in device memory above) and its plain version."""
+def gj_plain_sets(lanes):
+    """Phase 27's sets and their plain versions' x, made while the kernels
+    build (none needs a library): for each n in GJ_SIZES, dense_sets'
+    systems, gj_plain's x and, past n = 1, the stamped pattern, its inputs
+    and solve_plain's x; with the seconds they took."""
     t0 = time.perf_counter()
-    err = 0.0
-    notes = []
+    sets = []
     for n in GJ_SIZES:
         a, rhs = dense_sets(n, lanes, n)
-        xk = solve.launch_gj(a, rhs)
-        xp = solve.gj_plain(a, rhs)
-        outs = [("GJ kernel", xk)]
+        stamped = None
         if n > 1:
             fn = dense_pattern(n)
             g = torch.zeros(lanes, dtype=torch.float64, device=DEVICE)
             vals = a[:, 1:, :].reshape(lanes, -1).contiguous()
             rv = rhs[:, 1:].contiguous()
+            stamped = (fn, vals, rv, g, solve_stamped.solve_plain(
+                fn.pattern, vals, rv, g))
+        sets.append((n, a, rhs, solve.gj_plain(a, rhs), stamped))
+    torch.cuda.synchronize()
+    return sets, time.perf_counter() - t0
+
+
+def gj_phase(lanes, plain_sets):
+    """Phase 27: the GJ kernel against gj_plain on random sets of every n
+    in GJ_SIZES, with a zero-diagonal column, a singular lane, a NaN lane,
+    a late NaN and a cross-warp tie (dense_sets; ``plain_sets`` from
+    gj_plain_sets): the same bits and the same non-finite lanes; on the
+    same systems (n > 1: row 0 is the ground row the stamped build makes)
+    the stamped solve (a warp segment a system to n = 32, a warp to 64, a
+    block above: a row a thread to 96, 16 warps' registers to 144, shared
+    memory to 168, device memory above) and its plain version.  Then the
+    GJ kernel and torch.linalg.solve timed on 8192 random systems of each
+    n in GJ_TIMED (the faster of two calls each), the kernel's first 512
+    held to gj_plain."""
+    sets, plain_s = plain_sets
+    t0 = time.perf_counter() - plain_s  # the plain versions' seconds too
+    err = 0.0
+    notes = []
+    for n, a, rhs, xp, stamped in sets:
+        outs = [("GJ kernel", solve.launch_gj(a, rhs))]
+        if stamped is not None:
+            fn, vals, rv, g, sp = stamped
             outs += [("stamped kernel", fn(vals, rv, g)),
-                     ("stamped plain",
-                      solve_stamped.solve_plain(fn.pattern, vals, rv, g))]
+                     ("stamped plain", sp)]
         torch.cuda.synchronize()
         bad = ~torch.isfinite(xp).all(dim=1)
-        if bad.tolist() != [i in (5, 6) for i in range(lanes)]:
-            fail(f"GJ n={n}: the singular and the NaN lane are not the only "
-                 "non-finite ones")
+        if bad.tolist() != bad_lanes(n, lanes):
+            fail(f"GJ n={n}: the singular and the NaN lanes are not the "
+                 "only non-finite ones")
         for what, got in outs:
             if not torch.equal(~torch.isfinite(got).all(dim=1), bad):
                 fail(f"GJ n={n}: the {what}'s non-finite lanes differ")
             err = max(err, check_err(f"GJ n={n}", what, got[~bad],
                                      xp[~bad], err_scale(xp[~bad])))
         bits = [same_bits(got, xp) for _, got in outs]
-        notes.append(f"n={n}: bit-identical {'/'.join(map(str, bits))}")
+        notes.append(f"n={n} ({solve.body(n)}): bit-identical "
+                     f"{'/'.join(map(str, bits))}")
         if not all(bits):
             fail(f"GJ n={n}: not bit-identical ("
                  f"{', '.join(w for w, _ in outs)} vs gj_plain: {bits})")
+    del sets
+    timed = []
+    for n in GJ_TIMED:
+        gen = torch.Generator(device=DEVICE).manual_seed(n)
+        a = torch.randn((BENCH_LANES, n, n), generator=gen,
+                        dtype=torch.float64, device=DEVICE) + 4.0 * torch.eye(
+                            n, dtype=torch.float64, device=DEVICE)
+        rhs = torch.randn((BENCH_LANES, n), generator=gen,
+                          dtype=torch.float64, device=DEVICE)
+        xk = solve.launch_gj(a, rhs)  # warm-up
+        if not same_bits(xk[:512], solve.gj_plain(a[:512], rhs[:512])):
+            fail(f"GJ n={n}, 8192 systems: not bit-identical to gj_plain")
+        k_ms = min(timed_call(solve.launch_gj, a, rhs)[1] for _ in range(2))
+        torch.linalg.solve(a[:64], rhs[:64])  # warm-up
+        lib_ms = min(timed_call(torch.linalg.solve, a, rhs)[1]
+                     for _ in range(2))
+        timed.append(f"n={n} ({solve.body(n)}), {BENCH_LANES} random "
+                     f"systems: GJ kernel {k_ms:.3f} ms, torch.linalg.solve "
+                     f"{lib_ms:.3f} ms")
+        del a, rhs, xk
+        free()
     phase("27 GJ kernel vs plain", t0,
-          f"{lanes} random systems each, a zero diagonal, a singular and a "
-          f"NaN lane: GJ kernel (registers to 96, shared memory to 128, "
-          f"device memory above), stamped kernel (a warp segment to 32, a "
-          f"warp to 64, a block above, in device memory past 128) "
+          f"{lanes} random systems each, a zero diagonal, a singular lane, "
+          f"a NaN lane, a late NaN and a cross-warp tie: GJ kernel "
+          f"(registers to 96, 16 warps' registers to 144, shared memory to "
+          f"168, device memory above), stamped kernel (a warp segment to "
+          f"32, a warp to 64, a block above, the same bodies past 64) "
           f"and stamped plain against gj_plain, the same non-finite lanes, "
-          f"max abs err {err:.3e}; " + "; ".join(notes))
+          f"max abs err {err:.3e}; " + "; ".join(notes) + "; "
+          + "; ".join(timed))
     return err
 
 
@@ -2628,7 +2708,7 @@ def compat_trap_phase(lanes):
           + "; ".join(notes))
 
 
-# ------------------------------------------------------------ past NBIG
+# ------------------------------------------------------------- past 128
 
 
 def chunked(solve_fn, chunk):
@@ -2641,9 +2721,10 @@ def chunked(solve_fn, chunk):
 
 
 def past_nbig_phase(lanes, smi):
-    """Phase 32: decks past NBIG = 128, whose systems the GJ kernel and the
-    stamped solve eliminate in device memory (csrc/gj_block.cuh gj_block
-    on each block's slice of a workspace, a bounded grid): a 127-stage RC
+    """Phase 32: decks past n = 128, whose systems the GJ kernel and the
+    stamped solve eliminate in the registers of a 512-thread block
+    (csrc/gj_block.cuh gj_wide; past NBIG = 168 in device memory, gj_block
+    on each block's slice of a workspace; ops/solve.py body): a 127-stage RC
     ladder (np1 = 130) through make_tran_batch to 0.05 ms (engine
     "general": one stamped launch per batched Newton iteration, no other
     kernel; no lane failed, every lane at tstop), and a 31-section LC
@@ -2659,12 +2740,12 @@ def past_nbig_phase(lanes, smi):
     cc, cfg, params, axes, state0 = setup("\n".join(lines) + "\n",
                                           c_spread, lanes)
     if cc.np1 != 130:
-        fail(f"rc ladder past NBIG: np1 is {cc.np1}, not 130")
+        fail(f"rc ladder past 128: np1 is {cc.np1}, not 130")
     ts.make_tran_batch(cc, cfg._replace(tstop=1e-5), axes)(params,
                                                             state0)  # warm-up
     fn = ts.make_tran_batch(cc, cfg, axes)
     if fn.engine != "general" or "np1=130" not in fn.engine_reason:
-        fail(f"rc ladder past NBIG: engine {fn.engine!r} "
+        fail(f"rc ladder past 128: engine {fn.engine!r} "
              f"({fn.engine_reason})")
     torch.cuda.synchronize()
     reset_counts()
@@ -2673,10 +2754,10 @@ def past_nbig_phase(lanes, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     got = counts()
-    check_counts("rc ladder past NBIG", got, {"stamped_solve": (1, 1 << 30)})
+    check_counts("rc ladder past 128", got, {"stamped_solve": (1, 1 << 30)})
     failed = int(out.fail.sum())
     if failed or not bool((out.t_final == cfg.tstop).all()):
-        fail(f"rc ladder past NBIG: {failed} of {lanes} lanes failed or "
+        fail(f"rc ladder past 128: {failed} of {lanes} lanes failed or "
              "stopped early")
     tk = TimedSolve(solve_stamped.solve_lanes, stamped_systems)
     tp_ = TimedSolve(solve_stamped.solve_plain)
@@ -2685,26 +2766,26 @@ def past_nbig_phase(lanes, smi):
                   dense_solve=solve.gj_plain)(params, state0)
     calls = len(tk.args)
     if calls != got["stamped_solve"] or len(tp_.args) != calls:
-        fail(f"rc ladder past NBIG: {got['stamped_solve']} stamped launches "
+        fail(f"rc ladder past 128: {got['stamped_solve']} stamped launches "
              f"on the main path, {calls} batched Newton iterations with the "
              f"kernels, {len(tp_.args)} with the plain versions")
     for key in ("accepted", "attempts", "fail", "nr_iters"):
         if not (torch.equal(getattr(k, key), getattr(p, key))
                 and torch.equal(getattr(k, key), getattr(out, key))):
-            fail(f"rc ladder past NBIG: {key} differs between the main "
+            fail(f"rc ladder past 128: {key} differs between the main "
                  "path, the kernels and the plain versions")
     pairs = [(f"{who} {what}.{kd}.{key}", kt[kd][key], pt[kd][key])
              for who, run_ in (("kernels", k), ("main path", out))
              for what, kt, pt in (("state", run_.state, p.state),
                                   ("jv", run_.jv, p.jv))
              for kd in pt for key in pt[kd]]
-    err = max_err("rc ladder past NBIG kernels vs plain", pairs)
+    err = max_err("rc ladder past 128 kernels vs plain", pairs)
     if not all(same_bits(a, b) for _, a, b in pairs):
-        fail("rc ladder past NBIG: the kernels' state or jv is not "
+        fail("rc ladder past 128: the kernels' state or jv is not "
              "bit-identical to the plain versions'")
     pat, vals, rvals, gmin = tk.args[0]
     if pat.n != 130:
-        fail(f"rc ladder past NBIG: the stamped systems are {pat.n}, not 130")
+        fail(f"rc ladder past 128: the stamped systems are {pat.n}, not 130")
     accepted = int(out.accepted.sum())
     nri = out.nr_iters
     st_big = dict(launches=got["stamped_solve"], err=err, k_ms=tk.ms(),
@@ -2713,10 +2794,10 @@ def past_nbig_phase(lanes, smi):
                   nbytes=calls * (nbytes(vals, rvals, gmin)
                                   + pat.table.nbytes + lanes * pat.n * 8),
                   n=pat.n, terms=int(pat.table[0]))
-    phase("32 rc ladder past NBIG", t0,
+    phase("32 rc ladder past 128", t0,
           f"127-stage rc ladder (np1={cc.np1}): engine={fn.engine} "
           f"({fn.engine_reason}), stamped-solve launches="
-          f"{got['stamped_solve']} (device-memory body, n={pat.n}, "
+          f"{got['stamped_solve']} ({solve.body(pat.n)}, n={pat.n}, "
           f"{st_big['terms']} terms), one per batched Newton iteration, no "
           f"other kernel, lanes={lanes}, accepted={accepted}, attempts="
           f"{int(out.attempts.sum())}, failed={failed}, every lane at "
@@ -2750,7 +2831,7 @@ def past_nbig_phase(lanes, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     got = counts()
-    check_counts("lc31 AC past NBIG", got, {"stamped_solve": (1, 1),
+    check_counts("lc31 AC past 128", got, {"stamped_solve": (1, 1),
                                             "gj_kernel": (1, 1)})
     nf = len(freqs)
     node = cc.netlist.nodes["n31"]
@@ -2791,11 +2872,11 @@ def past_nbig_phase(lanes, smi):
                   systems=nsys, n=a2.shape[1],
                   flops=nsys * lu_flops(a2.shape[1]),
                   nbytes=nbytes(a2, b2) + nbytes(b2))
-    phase("32 lc31 AC past NBIG", t0,
+    phase("32 lc31 AC past 128", t0,
           f"lc31 (np1={cc.np1}): engine {fn.engine} ({fn.engine_reason}), "
           f"stamped-solve launches={got['stamped_solve']}, GJ kernel "
           f"launches={got['gj_kernel']} for {nsys} systems of "
-          f"{a2.shape[1]} (device-memory body), wall={wall:.6f} s, "
+          f"{a2.shape[1]} ({solve.body(a2.shape[1])}), wall={wall:.6f} s, "
           f"{nsys / wall:.6e} systems/s on {smi}; |V(n31)| "
           f"{float(mag[:, 0].mean()):.6f} at 10 kHz; the kernels vs their "
           f"plain versions on these lanes: converged and stage equal, "
@@ -2828,8 +2909,8 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # ----------------------------------------------- 2 build (started)
-    # the libraries build in a thread of their own while phase 3's plain
-    # versions run on the card: those need no library
+    # the libraries build in a thread of their own while phase 3's and
+    # phase 27's plain versions run on the card: those need no library
     fresh = [name for name in _build.SOURCES
              if not _build.library_path(name).exists()]
 
@@ -2882,6 +2963,8 @@ def main():
         plains.append((plan, dev, src, st, sc,
                        *plain_timed(plan, dev, src, st, sc),
                        time.perf_counter() - t0))
+
+    gj_sets = gj_plain_sets(GJ_LANES)  # phase 27's, beside the build too
 
     # ------------------------------------------------ 2 build (finished)
     libs, logs, build_s = building.result()
@@ -3124,7 +3207,8 @@ def main():
     mag_ac_err = mag_ac_phase(BENCH_LANES)
     mag = mag_main_phase(BENCH_LANES, smi)
     phys_store = physics_store_phase(BENCH_LANES, smi)
-    gj_err = gj_phase(GJ_LANES)
+    gj_err = gj_phase(GJ_LANES, gj_sets)
+    del gj_sets
     gen_err = general_vs_run_phase(SMALL_LANES)
     stamped_big, gj_seed = cw16_phase(BENCH_LANES, smi)
     gj_ac = lc16_phase(BENCH_LANES, smi)
@@ -3269,13 +3353,14 @@ def main():
           f"{sb_bound[2]:.6f} ms; {stamped_big['nbytes']} bytes / "
           f"{PEAK_BYTES:.3g} B/s = {sb_bound[3]:.6f} ms", flush=True)
     swb = bound(st_work["flops"], st_work["nbytes"])
-    print(f"[17 bound] stamped_solve device memory (the 127-stage rc "
-          f"ladder, {st_work['calls']} launches, n={st_work['n']}, "
+    print(f"[17 bound] stamped_solve {solve.body(st_work['n'])} (the "
+          f"127-stage rc ladder, {st_work['calls']} launches, "
+          f"n={st_work['n']}, "
           f"{st_work['terms']} terms): {st_work['flops']} f64 operations / "
           f"{PEAK_F64:.3g} op/s = {swb[2]:.6f} ms; {st_work['nbytes']} bytes "
           f"/ {PEAK_BYTES:.3g} B/s = {swb[3]:.6f} ms", flush=True)
     gwb = bound(gj_work["flops"], gj_work["nbytes"])
-    print(f"[17 bound] gj_kernel device memory (lc31's AC, "
+    print(f"[17 bound] gj_kernel {solve.body(gj_work['n'])} (lc31's AC, "
           f"{gj_work['systems']} systems of {gj_work['n']}): "
           f"{gj_work['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
           f"{gwb[2]:.6f} ms; {gj_work['nbytes']} bytes / {PEAK_BYTES:.3g} "
@@ -3382,12 +3467,12 @@ def main():
               stamped_big["launches"], max(stamped_big["err"], gen_err),
               stamped_big["k_ms"], stamped_big["p_ms"], sb_bound,
               stamped_big["lib_ms"]),
-        entry("stamped_solve_device_memory",
+        entry("stamped_solve_wide",
               "toyspice_tpu_torch/csrc/stamped_solve.cu",
               "toyspice_tpu/ops/pallas_solve.py:337", st_work["launches"],
               st_work["err"], st_work["k_ms"], st_work["p_ms"], swb,
               st_work["lib_ms"]),
-        entry("gj_kernel_device_memory",
+        entry("gj_kernel_wide",
               "toyspice_tpu_torch/csrc/gj_kernel.cu",
               "toyspice_tpu/ops/pallas_solve.py:235", gj_work["launches"],
               gj_work["err"], gj_work["k_ms"], gj_work["p_ms"], gwb,

@@ -912,14 +912,15 @@ def _dense_sets(n, lanes, device):
 
 
 @pytest.mark.parametrize("n", [1, 6, 16, 17, 32, 33, 40, 48, 49, 64, 65, 72,
-                               73, 96, 97, 128])
+                               73, 96, 97, 127, 128, 144, 145, 168, 169])
 def test_gj_and_stamped_kernels_match_plain(cuda, n):
     """csrc/gj_kernel.cu at each of its buckets' edges (a row a thread in
-    registers to 96, the matrix in shared memory above) and
-    csrc/stamped_solve.cu (per-thread to 32, a warp a lane to 64, a block
-    a lane above) against gj_plain on the same systems, 259 lanes (no
-    multiple of 32): the same bits, the singular and the NaN lane the only
-    non-finite ones."""
+    registers to 96, the registers of a 512-thread block to 144 (buckets
+    127 and 144), the matrix in shared memory to 168, device memory above)
+    and csrc/stamped_solve.cu (a warp segment a lane to 32, a warp a lane
+    to 64, a block a lane above) against gj_plain on the same systems, 259
+    lanes (no multiple of 32): the same bits, the singular and the NaN lane
+    the only non-finite ones."""
     from toyspice_tpu_torch.ops import solve
 
     lanes = 259
@@ -1090,13 +1091,15 @@ def test_stamped_segment_kernel_reads_a_view_past_its_stage(cuda, n):
     assert _same_bits(k, p) and bool(torch.isfinite(p).all())
 
 
-@pytest.mark.parametrize("n", [129, 168, 169, 200])
+@pytest.mark.parametrize("n", [129, 130, 144, 145, 168, 169, 200])
 def test_gj_and_stamped_kernels_past_nbig(cuda, n):
-    """Past NBIG the GJ kernel and the stamped solve eliminate each system
-    in its block's slice of a workspace in device memory, a bounded grid
-    whose blocks loop over the systems: more systems than the grid has
-    blocks, with a zero diagonal, a singular lane, a NaN lane and a tie;
-    gmin 0 and per lane; torch.equal with gj_plain and solve_plain."""
+    """Past n = 128: to 144 the GJ kernel and the stamped solve eliminate
+    each system in the registers of a 512-thread block, to NBIG = 168 in
+    its shared memory, past NBIG in its block's slice of a workspace in
+    device memory, a bounded grid whose blocks loop over the systems: more
+    systems than that grid has blocks, with a zero diagonal, a singular
+    lane, a NaN lane and a tie; gmin 0 and per lane; torch.equal with
+    gj_plain and solve_plain."""
     from toyspice_tpu_torch.ops import solve
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -1121,6 +1124,47 @@ def test_gj_and_stamped_kernels_past_nbig(cuda, n):
         assert _same_bits(k, p)
         if not bool(gmin.any()):
             assert _same_bits(k, want)
+
+
+@pytest.mark.parametrize("n", [18, 97, 127, 130, 144, 150, 168])
+def test_gj_and_stamped_kernels_break_a_cross_warp_tie(cuda, n):
+    """Integer systems whose column 1 holds its largest |a| twice, +10 in
+    row 2 and -10 in row 17 (warps 2 and 1 of the wide body, whose rows
+    interleave over 16 warps): the kernels take row 2, the lower row on the
+    higher warp, as gj_plain does, and the ties of later columns likewise
+    (a kernel that took the lowest warp differed on 5 of 12 such lanes at
+    n = 130, run on the CPU); lane 8 has a NaN in column n - 2 of row 2
+    (the whole block leaves the column loop there and every x is NaN).
+    259 lanes, the GJ kernel and the stamped solve (gmin 0): torch.equal
+    with gj_plain."""
+    from toyspice_tpu_torch.ops import solve
+
+    lanes = 259
+    rng = np.random.default_rng(300 + n)
+    a = rng.normal(size=(lanes, n, n)) + 4.0 * np.eye(n)
+    b = rng.normal(size=(lanes, n))
+    a[:, 0, :] = 0.0
+    a[:, 0, 0] = 1.0
+    b[:, 0] = 0.0
+    a[:, 1:, :] = np.round(2.0 * a[:, 1:, :])
+    a[:, 1:, 1] = np.clip(a[:, 1:, 1], -3.0, 3.0)
+    a[:, 2, 1], a[:, 17, 1] = 10.0, -10.0
+    a[8, 2, n - 2] = np.nan
+    a = torch.as_tensor(a, device=cuda)
+    b = torch.as_tensor(b, device=cuda)
+    want = solve.gj_plain(a, b)
+    bad = ~torch.isfinite(want).all(dim=1)
+    assert bad.tolist() == [i == 8 for i in range(lanes)]
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                         np.arange(1, n))
+    g = torch.zeros(lanes, dtype=torch.float64, device=cuda)
+    for x in (solve.linear_solve(a, b),
+              fn(a[:, 1:, :].reshape(lanes, -1).contiguous(),
+                 b[:, 1:].contiguous(), g)):
+        torch.cuda.synchronize()
+        assert _same_bits(x, want)
+        assert bool(torch.isnan(x[8]).all())
 
 
 def test_general_engine_matches_the_run_kernel(cuda):

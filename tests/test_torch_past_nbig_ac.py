@@ -1,5 +1,5 @@
-"""The general AC past NBIG on the CPU: a 31-section LC ladder (np1 = 66,
-so (132, 132) AC systems, past the GJ kernel's shared-memory body), 2
+"""The general AC past n = 128 on the CPU: a 31-section LC ladder (np1 =
+66, so (132, 132) AC systems, the GJ kernel's wide register body), 2
 lanes with C spread log-normally by 0.1, three frequencies, through
 ``run_ac_batch`` (engine "general": the linear OP's stamped solve as the
 bias, then one dense solve of every (lane, frequency) system), against

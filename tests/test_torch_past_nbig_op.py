@@ -1,4 +1,4 @@
-"""The linear OP and the linear DC sweep past NBIG on the CPU: a 127-stage
+"""The linear OP and the linear DC sweep past n = 128 on the CPU: a 127-stage
 resistive ladder (np1 = 130, 100 Ω series, 1 kΩ and 1 nF shunts, a DC
 source), 3 lanes with R spread log-normally by 0.1, through
 ``run_op_batch`` and ``run_dc_batch`` (engine "linear": one stamped solve

@@ -1,6 +1,6 @@
-"""A deck past NBIG (np1 > 128, where a block's shared memory no longer
-holds a system: the kernels then eliminate it in device memory) through
-the port's transient on the CPU: a 127-stage RC ladder (np1 = 130), 2
+"""A deck past n = 128 (np1 = 130: on the card the kernels eliminate its
+systems in the registers of a 512-thread block) through the port's
+transient on the CPU: a 127-stage RC ladder (np1 = 130), 2
 lanes with C spread log-normally by 0.1, to 0.05 ms, through
 ``make_tran_batch`` (engine "general": the general OP, then the masked
 attempt loop over the general Newton, ``assemble_entries`` and the plain

@@ -8,7 +8,7 @@
 // ops/solve.py::_gj_batch_last, which carry double-float (hi, lo) f32
 // pairs folded to (8, W) tiles and pick pivot rows by one-hot sums because
 // the TPU has no f64; here the values are native f64 and the pivot row is
-// indexed.  Two bodies, one arithmetic:
+// indexed.  Three bodies, one arithmetic:
 //
 // gj_rows (n <= GJ_NREG = 96): the rows in registers across a block of
 // ceil(NMAX / 32) warps, row i on thread i, in a size bucket of NMAX
@@ -39,15 +39,55 @@
 // numerator's quotient skips the division (gj_quot): the general AC's
 // systems are ~95% zeros.
 //
-// gj_block (n past GJ_NREG, whose rows do not fit 255 registers): the
-// matrix behind a pointer, a block of GJ_THREADS (GJ_WORK_THREADS in
-// device memory); warp 0 finds the pivot,
-// the pivot row is divided and the factors saved, then the live columns
-// past k of every other row are updated, a warp a row; three block
-// barriers a column.  To n = NBIG the matrix is in shared memory
-// (gj_shared_bytes(n)); past it in the block's slice of a workspace in
-// device memory (gj_slice_doubles(n)), which the block barriers order as
-// they order shared memory: the same elimination, with no cap on n but
+// gj_wide (GJ_NREG < n <= GJ_NWIDE = 144): the system in registers across
+// a block of GJ_WIDE_THREADS = 512 threads (16 warps) in a 2-D cyclic
+// layout: row i on warp i mod 16, row slot i / 16; column j (the
+// right-hand side as column n) on lane j mod 32, column slot j / 32.  A
+// thread holds R x S elements (R = 9, S = 5 at n = 144: 90 of its 128
+// registers), and every row and every live column stay spread over all
+// the threads as k grows.  The column loop runs slot by slot (unrolled:
+// column k = 32 s + kl sits in the static slot s, and the slots before s
+// are dead) over kl (rolled).  For each column k:
+//
+//   1. lane kl of each warp holds column k of its rows: it puts them in
+//      shared memory (the rows' factors for step 3) and takes the warp's
+//      candidate over its unused rows in ascending order; one block
+//      barrier; every warp reduces the 16 candidates (three
+//      warp reductions over |a|'s two words and the row), the largest
+//      |a|, on a tie the lowest ROW (rows interleave across warps: row 17
+//      is on warp 1, row 2 on warp 2; the rule picks row 2).  A NaN among
+//      the unused rows' column-k entries, or no candidate, makes every x
+//      NaN;
+//   2. the pivot row's warp puts its live columns in shared memory; one
+//      block barrier; thread t divides column k + 1 + t by the pivot
+//      (gj_quot; inf past column k on a zero pivot), in place; one block
+//      barrier;
+//   3. every thread updates its live column slots, a slot at a time: the
+//      slot's quotient, then each row's m[i][j] - f * q[j], with no branch
+//      inside a slot; the pivot row then takes the quotients.  Column
+//      slots past the right-hand side are skipped (a branch the same on
+//      every thread); the rows past n compute values nothing reads.
+//
+// Three block barriers a column.  The rows are never swapped: a row
+// slot's used bit and the column it was the pivot of (in shared memory)
+// give x.  What bounds it is each column's chain of dependent steps
+// across the block (barriers, warp reductions, a division), at one block
+// an SM: ~1.5 us a column at n = 130, about 33 times the bound of
+// chip_smoke.py (lu_flops at 34 TFLOP/s).  Variants timed in one call on an H100 at 700 W (8192
+// random systems of 130, this body 12.07 ms): a branch-free candidate
+// (keys compared with selects) 12.31; with that candidate, the pivot's
+// warp dividing its slots itself (two barriers) 14.19, a branch per row in
+// the update (rows past n skipped, the pivot row selected per element)
+// 17.38, and the next column's candidate taken inside the update 13.56.
+//
+// gj_block (n past GJ_NWIDE): the matrix behind a pointer, a block of
+// GJ_WORK_THREADS = 512; warp 0 finds the pivot, the pivot row is divided
+// and the factors saved, then the live columns past k of every other row
+// are updated, a warp a row; three block barriers a column.  To n = NBIG =
+// 168, the largest n whose gj_shared_bytes(n) fits a block's 227 KB, the
+// matrix is in shared memory; past it in the block's slice of a workspace
+// in device memory (gj_slice_doubles(n)), which the block barriers order
+// as they order shared memory: the same elimination, with no cap on n but
 // the card's memory.
 //
 // Each element that reaches x sees the operations of ops/newton.py::
@@ -62,18 +102,20 @@
 
 namespace tsr {
 
-constexpr int GJ_THREADS = 128;  // threads of the shared-memory body
-// threads of the device-memory body's blocks, one an SM (ops/solve.py
+// threads of gj_wide's blocks and of the pointer body's, in shared
+// memory and in device memory (one block an SM there, ops/solve.py
 // WORK_BLOCKS_PER_SM): on an H100 (ab_run_kernel.py --stamped --gj) the
-// 127-stage ladder's 1024 systems of 130 took 4.20 ms, lc31-sized random
-// systems (8192 of 132) 32.5 ms, against 11.44 and 89.7 at 4 blocks an SM
-// of 128 threads, 7.75 and 64.9 at 1 of 128, 4.46 and 39.2 at 2 of 256,
-// 4.11 and 30.6 at 1 of 1024: one slice an SM stays in its L1, and 16
-// warps share each column's rows
+// device-memory body took 4.20 ms on the 127-stage ladder's 1024 systems
+// of 130 and 32.5 ms on lc31-sized random systems (8192 of 132), against
+// 11.44 and 89.7 at 4 blocks an SM of 128 threads, 7.75 and 64.9 at 1 of
+// 128, 4.46 and 39.2 at 2 of 256, 4.11 and 30.6 at 1 of 1024: 16 warps
+// share each column's rows
 constexpr int GJ_WORK_THREADS = 512;
-constexpr int NBIG = 128;        // ops/solve.py NBIG: the largest system in
+constexpr int GJ_NREG = 96;      // the largest n with a row a thread
+constexpr int GJ_NWIDE = 144;    // ops/solve.py NWIDE: the largest n of
+                                 // gj_wide (the system in registers)
+constexpr int NBIG = 168;        // ops/solve.py NBIG: the largest system in
                                  // shared memory
-constexpr int GJ_NREG = 96;      // the largest n with the rows in registers
 
 // the slots a row of the register body takes for a system of n (a
 // multiple of 8; 0 past GJ_NREG: the shared-memory body)
@@ -246,6 +288,178 @@ __device__ __forceinline__ void gj_rows(double (&m)[NMAX + 1], int n,
   // does
   const bool bad = __syncthreads_or(nan_col || (row && !isfinite(m[NMAX])));
   if (row) x_out[nan_col ? i : stage] = bad ? NAN : m[NMAX];
+}
+
+// gj_wide's buckets: GJ_WIDE_MID (R = 8 row slots, S = 4 column slots:
+// the largest n whose columns and right-hand side fit four slots) and
+// GJ_NWIDE (R = 9, S = 5); 0 outside (GJ_NREG, GJ_NWIDE]: the other
+// bodies.  With 17 or 18 warps (R = 8 to 136 or 144) a thread may take
+// only 96 registers (a block's warps spread over the SM's four quarters)
+// and both buckets spilled
+constexpr int GJ_WIDE_MID = 127;
+constexpr int GJ_WIDE_WARPS = 16;
+constexpr int GJ_WIDE_THREADS = 32 * GJ_WIDE_WARPS;
+__host__ __device__ constexpr int gj_wide_bucket(int n) {
+  return n <= GJ_NREG || n > GJ_NWIDE ? 0
+       : n <= GJ_WIDE_MID ? GJ_WIDE_MID : GJ_NWIDE;
+}
+// the rows a warp holds (R) and the columns a lane holds, the right-hand
+// side included (S), in a bucket of nb
+__host__ __device__ constexpr int gj_wide_rows(int nb) {
+  return (nb + GJ_WIDE_WARPS - 1) / GJ_WIDE_WARPS;
+}
+__host__ __device__ constexpr int gj_wide_cols(int nb) {
+  return (nb + 32) / 32;
+}
+
+// Eliminate the system that the block's threads hold as m[r][c] = row
+// 16 r + warp, column 32 c + lane (the right-hand side at column n, zeros
+// past n) with the whole block of GJ_WIDE_THREADS threads, and write
+// x[0..n) to x_out.
+template <int R, int S>
+__device__ __forceinline__ void gj_wide(double (&m)[R][S], int n,
+                                        double* __restrict__ x_out) {
+  constexpr int NW = GJ_WIDE_WARPS;
+  constexpr unsigned FULL = 0xffffffffu;
+  static_assert(R <= 32, "a used bit per row slot");
+  __shared__ __align__(16) double s_q[32 * S];  // the pivot row's quotients
+  __shared__ double s_f[NW][R];                 // each row's factor m[i][k]
+  __shared__ int4 s_cand[NW];                   // each warp's candidate
+  __shared__ int s_stage[NW * R];               // the column row i pivoted
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned used = 0u;  // bit r: row NW r + warp was a pivot (or is past n)
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (NW * r + warp >= n) used |= 1u << r;
+  bool nan_col = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (nan_col || 32 * s >= n) break;
+    const int kend = min(32, n - 32 * s);
+    for (int kl = 0; kl < kend; ++kl) {
+      const int k = 32 * s + kl;
+      // 1. each warp's candidate from lane kl, which holds column k of the
+      // warp's rows: the largest |a| over its unused rows, ascending (the
+      // lowest row on a tie; |a|'s bits order as |a| does), and whether
+      // one of them is NaN; and the rows' factors m[i][k] for step 3
+      if (lane == kl) {
+        unsigned long long best = 0ull;
+        int p = -1;
+        bool nan = false;
+#pragma unroll
+        for (int r = 0; r < R; ++r) s_f[warp][r] = m[r][s];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (used >> r & 1u) continue;
+          const double a = fabs(m[r][s]);
+          const unsigned long long bits =
+              static_cast<unsigned long long>(__double_as_longlong(a));
+          if (isnan(a)) {
+            nan = true;
+          } else if (p < 0 || bits > best) {
+            best = bits;
+            p = NW * r + warp;
+          }
+        }
+        s_cand[warp] = make_int4(static_cast<int>(static_cast<unsigned>(best)),
+                                 static_cast<int>(best >> 32), p, nan);
+      }
+      __syncthreads();
+      // the block's pivot, on every warp: the largest candidate, the
+      // lowest row on a tie
+      const int4 c = s_cand[lane % NW];
+      const bool ok = c.z >= 0;
+      const unsigned hi = ok ? static_cast<unsigned>(c.y) : 0u;
+      const unsigned lo = ok ? static_cast<unsigned>(c.x) : 0u;
+      const unsigned mh = __reduce_max_sync(FULL, hi);
+      const unsigned ml = __reduce_max_sync(FULL, hi == mh ? lo : 0u);
+      const unsigned pu = __reduce_min_sync(
+          FULL, ok && hi == mh && lo == ml ? static_cast<unsigned>(c.z)
+                                           : 0xffffffffu);
+      if (__any_sync(FULL, c.w != 0) || pu == 0xffffffffu) {
+        nan_col = true;  // the same on every thread
+        break;
+      }
+      const int p = static_cast<int>(pu);
+      const int wp = p % NW, rp = p / NW;
+      // 2. the pivot row's warp puts its live columns in shared memory; a
+      // block barrier; thread t divides column k + 1 + t by the pivot (a
+      // division per element, as ops/newton.py's gauss_jordan does; a zero
+      // pivot leaves the poison row, inf past column k), in place; a block
+      // barrier
+      if (warp == wp) {
+#pragma unroll
+        for (int cc = s; cc < S; ++cc) {
+          double v = m[0][cc];
+#pragma unroll
+          for (int r = 1; r < R; ++r)
+            if (r == rp) v = m[r][cc];
+          const int j = 32 * cc + lane;
+          if (j >= k && j <= n) s_q[j] = v;
+        }
+        used |= 1u << rp;
+      }
+      if (threadIdx.x == 0) s_stage[p] = k;
+      __syncthreads();
+      if (k + 1 + static_cast<int>(threadIdx.x) <= n) {
+        const int j = k + 1 + threadIdx.x;
+        const double piv = s_q[k];
+        s_q[j] = piv == 0.0 ? INFINITY : gj_quot(s_q[j], piv);
+      }
+      __syncthreads();
+      // 3. the update of the live column slots, a slot at a time: its
+      // quotient, then each row's m[i][j] - f * q[j], f = m[i][k] (stored
+      // by lane kl in step 1); the pivot row then takes the quotients (the
+      // columns at or before k, and the rows past n, compute values nothing
+      // reads).  No branch inside a slot, so that the slot's products and
+      // differences overlap.  The factors are read from shared memory
+      // where they are used (a broadcast load): loaded into 2 R registers
+      // once a column instead, the bucket of 144 took 3% longer
+      const volatile double* fw = s_f[warp];
+#pragma unroll
+      for (int cc = s; cc < S; ++cc) {
+        if (32 * cc > n) break;  // the same on every thread
+        const double q = s_q[32 * cc + lane];
+#pragma unroll
+        for (int r = 0; r < R; ++r) m[r][cc] = m[r][cc] - fw[r] * q;
+      }
+      if (warp == wp) {
+#pragma unroll
+        for (int cc = s; cc < S; ++cc) {
+          if (32 * cc > n) break;
+          const double q = s_q[32 * cc + lane];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r == rp) m[r][cc] = q;
+        }
+      }
+      __syncwarp();  // the factors are read before lane kl + 1 writes them
+    }
+  }
+  // x: each row's right-hand side (lane n mod 32, slot n / 32) at the
+  // column it was the pivot of; one non-finite x makes every x NaN, as the
+  // JAX package's one-hot gather does
+  const int ln = n & 31, cn = n >> 5;
+  double rhs[R];
+  bool bad = nan_col;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    double v = m[r][0];
+#pragma unroll
+    for (int cc = 1; cc < S; ++cc)
+      if (cc == cn) v = m[r][cc];
+    rhs[r] = v;
+    if (lane == ln && NW * r + warp < n && !isfinite(v)) bad = true;
+  }
+  bad = __syncthreads_or(bad) != 0;
+  if (lane == ln) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = NW * r + warp;
+      if (i < n) x_out[nan_col ? i : s_stage[i]] = bad ? NAN : rhs[r];
+    }
+  }
 }
 
 __host__ __device__ inline size_t gj_shared_bytes(int n) {

@@ -1,6 +1,7 @@
 // Batched dense Gauss-Jordan with partial pivoting: x = a^-1 b for every
 // system of a (B, n, n) and b (B, n) f64 pair, one thread block per
-// system: to n = 96 a row a thread in registers, to NBIG = 128 the matrix
+// system: to n = 96 a row a thread in registers, to GJ_NWIDE = 144 the
+// system in the registers of a 512-thread block, to NBIG = 168 the matrix
 // in shared memory, past it in device memory (a bounded grid whose blocks
 // loop over the systems, each in its slice of a workspace the wrapper
 // allocates).
@@ -35,8 +36,15 @@
 // update) at 4 systems an SM, not bytes or f64 operations.  Each thread
 // reads its own row from device memory: staging a system through shared
 // memory with coalesced loads first took 20% longer in an earlier form
-// of the kernel (82 ms against 68).  gj_kernel<0>, the shared-memory
-// body, takes n = 97 to NBIG, whose rows would not fit 255 registers;
+// of the kernel (82 ms against 68).  Past 96 a row no longer fits a
+// thread's registers: gj_wide_kernel spreads the system over the
+// registers of 16 warps (gj_block.cuh gj_wide, three block barriers a
+// column, every thread on every live column), each thread loading its
+// elements straight from a and b (a warp reads 32 consecutive columns of
+// a row): on 8192 random systems of 128 it takes 11.9-12.0 ms against
+// 59.3 for the pointer body in shared memory at 128 threads and 24.6 at
+// 512 (ab_run_kernel.py --gj --floor, an H100 at 700 W).  gj_kernel<0>,
+// that pointer body at 512 threads, takes GJ_NWIDE + 1 to NBIG;
 // gj_work_kernel the systems past NBIG, whose matrix would not fit a
 // block's 227 KB of shared memory.
 
@@ -64,7 +72,8 @@ __device__ inline void load_system(int n, const double* __restrict__ a,
 
 // NMAX slots a row in registers (gj_rows), or 0: the shared-memory body
 template <int NMAX>
-__global__ void __launch_bounds__(NMAX ? gj_reg_threads(NMAX) : GJ_THREADS,
+__global__ void __launch_bounds__(NMAX ? gj_reg_threads(NMAX)
+                                       : GJ_WORK_THREADS,
                                   gj_min_blocks(NMAX))
 gj_kernel(int n, const double* __restrict__ a, const double* __restrict__ b,
           double* __restrict__ x) {
@@ -83,6 +92,30 @@ gj_kernel(int n, const double* __restrict__ a, const double* __restrict__ b,
     m[NMAX] = row ? b[sys * n + i] : 0.0;
     gj_rows<NMAX>(m, n, x + sys * n);
   }
+}
+
+// GJ_NREG < n <= GJ_NWIDE, a bucket of NB: the system in the registers of
+// the block's 16 warps (gj_wide), each thread loading its elements
+template <int NB>
+__global__ void __launch_bounds__(GJ_WIDE_THREADS, 1)
+gj_wide_kernel(int n, const double* __restrict__ a,
+               const double* __restrict__ b, double* __restrict__ x) {
+  constexpr int R = gj_wide_rows(NB), S = gj_wide_cols(NB);
+  const size_t sys = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  double m[R][S];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = GJ_WIDE_WARPS * r + warp;
+    const double* ar = a + (sys * n + (i < n ? i : 0)) * n;
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      const int j = 32 * c + lane;
+      m[r][c] = i >= n ? 0.0 : j < n ? ar[j] : j == n ? b[sys * n + i] : 0.0;
+    }
+  }
+  gj_wide<R, S>(m, n, x + sys * n);
 }
 
 // Past NBIG: block k eliminates systems k, k + gridDim.x, ... in slice k
@@ -107,7 +140,7 @@ cudaError_t launch(int n, const double* a, const double* b, double* x,
   int threads = gj_reg_threads(NMAX);
   if constexpr (NMAX == 0) {
     shmem = gj_shared_bytes(n);
-    threads = GJ_THREADS;
+    threads = GJ_WORK_THREADS;
     if (shmem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           gj_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -117,6 +150,14 @@ cudaError_t launch(int n, const double* a, const double* b, double* x,
   }
   gj_kernel<NMAX><<<static_cast<unsigned>(nsys), threads, shmem, stream>>>(
       n, a, b, x);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_wide(int n, const double* a, const double* b, double* x,
+                        long long nsys, cudaStream_t stream) {
+  gj_wide_kernel<NB><<<static_cast<unsigned>(nsys), GJ_WIDE_THREADS, 0,
+                       stream>>>(n, a, b, x);
   return cudaGetLastError();
 }
 
@@ -146,6 +187,11 @@ extern "C" int tsr_gj(int n, const double* a, const double* b, double* x,
   }
   if (nsys > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
+  const int wide = gj_wide_bucket(n);
+  if (wide == GJ_WIDE_MID)
+    return static_cast<int>(launch_wide<GJ_WIDE_MID>(n, a, b, x, nsys, s));
+  if (wide == GJ_NWIDE)
+    return static_cast<int>(launch_wide<GJ_NWIDE>(n, a, b, x, nsys, s));
   switch (gj_bucket(n)) {
     case 16: err = launch<16>(n, a, b, x, nsys, s); break;
     case 32: err = launch<32>(n, a, b, x, nsys, s); break;

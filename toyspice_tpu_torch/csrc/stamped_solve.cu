@@ -54,11 +54,17 @@
 // 48 (four systems a block); in the warp's slice of shared memory (odd
 // stride) for n <= 64 (two a block);
 //
-// to NBIG = 128, stamped_block_kernel gives each lane a block: it builds
-// the system in shared memory as above, a block's threads over the cells,
-// then runs gj_kernel.cu's elimination (gj_block.cuh): to n = 96
-// (GJ_NREG) row i goes to thread i's registers (gj_rows, three warps),
-// past it the pointer body (gj_block, GJ_THREADS threads);
+// to NBIG = 168, a block per lane: it builds the system in shared memory
+// as above, a block's threads over the cells, then runs gj_kernel.cu's
+// elimination (gj_block.cuh): to n = 96 (GJ_NREG, stamped_block_kernel)
+// row i goes to thread i's registers (gj_rows, three warps); to GJ_NWIDE
+// = 144 (stamped_wide_kernel) the system goes to the registers of a
+// 512-thread block (gj_wide, each thread its elements from shared
+// memory); past it the pointer body on the system in shared memory
+// (gj_block, GJ_WORK_THREADS threads).  At n = 130 (a 127-stage RC
+// ladder's Newton iteration, 1024 lanes; ab_run_kernel.py --stamped
+// --floor, an H100 at 700 W) the wide body takes 1.62 ms a launch against
+// 3.21 for that pointer body and 4.22 for the device-memory one;
 //
 // past NBIG, stamped_work_kernel: the same build and the pointer body in
 // each block's slice of a workspace in device memory (the wrapper's), a
@@ -340,7 +346,8 @@ __device__ inline void block_build(const int* __restrict__ tab, int n,
 // NMAX slots a row in registers (gj_block.cuh's gj_rows), or 0: the
 // pointer body (gj_block) on the system in shared memory
 template <int NMAX>
-__global__ void __launch_bounds__(NMAX ? gj_reg_threads(NMAX) : GJ_THREADS,
+__global__ void __launch_bounds__(NMAX ? gj_reg_threads(NMAX)
+                                       : GJ_WORK_THREADS,
                                   gj_min_blocks(NMAX))
 stamped_block_kernel(const int* __restrict__ tab, int n, int nnz, int nrhs,
                      const double* __restrict__ vals,
@@ -363,6 +370,37 @@ stamped_block_kernel(const int* __restrict__ tab, int n, int nnz, int nrhs,
     r[NMAX] = mine ? mr[n] : 0.0;
     gj_rows<NMAX>(r, n, x_out + lane * n);
   }
+}
+
+// GJ_NREG < n <= GJ_NWIDE, a bucket of NB: the system built in shared
+// memory, then eliminated in the registers of the block's 16 warps
+// (gj_block.cuh's gj_wide)
+template <int NB>
+__global__ void __launch_bounds__(GJ_WIDE_THREADS, 1)
+stamped_wide_kernel(const int* __restrict__ tab, int n, int nnz, int nrhs,
+                    const double* __restrict__ vals,
+                    const double* __restrict__ rvals,
+                    const double* __restrict__ gmin,
+                    double* __restrict__ x_out) {
+  constexpr int R = gj_wide_rows(NB), S = gj_wide_cols(NB);
+  extern __shared__ double t[];
+  const size_t lane = blockIdx.x;
+  block_build(tab, n, nnz, nrhs, vals, rvals, gmin, lane, t);
+  const int ld = n + 1;
+  const int me = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  double m[R][S];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = GJ_WIDE_WARPS * r + warp;
+    const double* tr = t + (i < n ? i : 0) * ld;
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      const int j = 32 * c + me;
+      m[r][c] = i < n && j <= n ? tr[j] : 0.0;
+    }
+  }
+  gj_wide<R, S>(m, n, x_out + lane * n);
 }
 
 // Past NBIG: block k builds and eliminates lanes k, k + gridDim.x, ... in
@@ -396,8 +434,25 @@ cudaError_t launch_block(const int* tab, int n, int nnz, int nrhs,
     if (err != cudaSuccess) return err;
   }
   stamped_block_kernel<NMAX>
-      <<<nlanes, NMAX ? gj_reg_threads(NMAX) : GJ_THREADS, shmem, stream>>>(
-          tab, n, nnz, nrhs, vals, rvals, gmin, x);
+      <<<nlanes, NMAX ? gj_reg_threads(NMAX) : GJ_WORK_THREADS, shmem,
+         stream>>>(tab, n, nnz, nrhs, vals, rvals, gmin, x);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_wide(const int* tab, int n, int nnz, int nrhs,
+                        const double* vals, const double* rvals,
+                        const double* gmin, double* x, int nlanes,
+                        cudaStream_t stream) {
+  const size_t shmem = (size_t)n * (n + 1) * sizeof(double);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stamped_wide_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
+    if (err != cudaSuccess) return err;
+  }
+  stamped_wide_kernel<NB><<<nlanes, GJ_WIDE_THREADS, shmem, stream>>>(
+      tab, n, nnz, nrhs, vals, rvals, gmin, x);
   return cudaGetLastError();
 }
 
@@ -406,9 +461,11 @@ cudaError_t launch_block(const int* tab, int n, int nnz, int nrhs,
 // Solve nlanes stamped systems of size n on `stream`; returns the
 // cudaError_t of the launch (0 on success).  n picks the body: a warp
 // segment per lane up to 32 (from the row view), a warp per lane up to 64
-// and a block per lane up to NBIG (from the term table), past it a block
-// per lane in device memory: work then holds work_len doubles, room for
-// the slices of the grid's blocks (as tsr_gj's; not read up to NBIG).
+// and a block per lane up to NBIG (from the term table: a row a thread to
+// 96, the registers of 16 warps to GJ_NWIDE, shared memory above), past it
+// a block per lane in device memory: work then holds work_len doubles,
+// room for the slices of the grid's blocks (as tsr_gj's; not read up to
+// NBIG).
 extern "C" int tsr_stamped(int n, const int* tab, int tab_len,
                            const int* view, int view_len, int nnz, int nrhs,
                            const double* vals, const double* rvals,
@@ -448,6 +505,13 @@ extern "C" int tsr_stamped(int n, const int* tab, int tab_len,
         tab, n, nnz, nrhs, vals, rvals, gmin, x, nlanes, work);
     return static_cast<int>(cudaGetLastError());
   }
+  const int wide = gj_wide_bucket(n);
+  if (wide == GJ_WIDE_MID)
+    return launch_wide<GJ_WIDE_MID>(tab, n, nnz, nrhs, vals, rvals, gmin, x,
+                                    nlanes, s);
+  if (wide == GJ_NWIDE)
+    return launch_wide<GJ_NWIDE>(tab, n, nnz, nrhs, vals, rvals, gmin, x,
+                                 nlanes, s);
   switch (gj_bucket(n)) {  // past 64 the GJ kernel's buckets: 72, 96, 0
     case 72:
       return launch_block<72>(tab, n, nnz, nrhs, vals, rvals, gmin, x,

@@ -19,7 +19,7 @@ sources, more than 16 diodes, BJTs and MOSFETs) takes the general engine,
 engine "general", as the JAX package does: ``engine/tran.make_tran``,
 ``engine/op.make_op``, ``engine/dc.make_dc`` and ``engine/ac.make_ac``,
 whose Newton is a host loop over the stamped solve (any np1: past NBIG =
-128 its systems are eliminated in device memory).
+168 its systems are eliminated in device memory).
 A deck, store or semantics none of them covers raises
 ``NotImplementedError`` with the reason.
 """

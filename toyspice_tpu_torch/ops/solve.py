@@ -12,11 +12,12 @@ zero pivot poisons its row, so a singular system gives a non-finite x
 the system is NaN (as the JAX package's one-hot gather gives).
 
 * ``launch_gj``: the wrapper of ``csrc/gj_kernel.cu`` (one block per
-  system, f64: up to n = 96 row i on thread i in registers, the dead
+  system, f64: up to NREG = 96 row i on thread i in registers, the dead
   columns dropped, the pivot row alone through shared memory, a division
-  a thread; up to NBIG the matrix in shared memory; past it in a
-  workspace in device memory, ``work_for``); it counts its launches in
-  ``.launches``.
+  a thread; up to NWIDE = 144 the system in the registers of a 512-thread
+  block; up to NBIG = 168 the matrix in shared memory; past it in a
+  workspace in device memory, ``work_for``; ``body`` names the one that
+  runs); it counts its launches in ``.launches``.
 * ``gj_plain``: the same arithmetic as batched torch operations
   (``ops/newton.py::gauss_jordan``).
 * ``linear_solve``: the kernel for CUDA tensors, the plain version for CPU
@@ -29,7 +30,12 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 
 F64 = torch.float64
-NBIG = 128  # csrc/gj_block.cuh: the largest system in shared memory
+# csrc/gj_block.cuh's edges: GJ_NREG, the largest n with a row a thread;
+# GJ_NWIDE, the largest with the system in a 512-thread block's registers;
+# NBIG, the largest in shared memory (a block's 227 KB)
+NREG = 96
+NWIDE = 144
+NBIG = 168
 # blocks an SM of the device-memory body past NBIG (csrc/gj_block.cuh
 # GJ_WORK_THREADS has the measurements), each with its slice of the
 # workspace: at n = 256 a slice is 530 KB, 132 SMs x 1 take ~70 MB
@@ -48,6 +54,16 @@ def work_for(n, systems, device):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     slices = max(1, min(systems, WORK_BLOCKS_PER_SM * sms))
     return torch.empty(slices * n * (n + 3), dtype=F64, device=device)
+
+
+def body(n):
+    """The elimination the GJ kernel, and the stamped solve past n = 64,
+    run on systems of n (csrc/gj_block.cuh)."""
+    if n <= NREG:
+        return "registers, a row a thread"
+    if n <= NWIDE:
+        return "registers, 16 warps"
+    return "shared memory" if n <= NBIG else "device memory"
 
 
 def work_args(work):

@@ -18,9 +18,9 @@ pivot poisons its row, so a singular system gives an x of NaN).
   segment of 4 to 32 lanes per lane up to n = 32, row i built from the
   pattern's row view and eliminated on thread i; one warp per lane up to
   n = 64, the rows in registers or in the warp's shared memory; one block
-  per lane up to NBIG, the system built in shared memory and eliminated
-  as the GJ kernel does, the rows in registers to n = 96; past NBIG one
-  block per lane in a workspace in device memory; f64); it counts its
+  per lane up to NBIG = 168, the system built in shared memory and
+  eliminated as the GJ kernel does, in registers to n = 144; past NBIG
+  one block per lane in a workspace in device memory; f64); it counts its
   launches in ``.launches``.
 * ``solve_plain``: the same arithmetic as batched torch operations.
 * ``solve_lanes``: the kernel for CUDA tensors, the plain version for CPU
