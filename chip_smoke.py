@@ -184,11 +184,27 @@ seconds:
    yardstick.  Each names the body that ran (ops/solve.py body).  For both,
    the kernels against their plain versions on the same lanes: counters
    equal, bit for bit.
+33. the user surface: ``run_analysis`` on the card, one instance of each
+   of divider_op, ce_amplifier_op, diode_iv_sweep, ce_amplifier_ac,
+   rc_lowpass_tran and half_wave_rectifier (the general engine at B = 1:
+   a stamped launch per Newton iteration, the GJ kernel for a nonlinear
+   OP's seed and the AC systems), timed deck by deck with nothing else
+   on the card; each deck's Results within the host engine's bars and
+   bit for bit those of the same call under TOYSPICE_SOLVER=xla (the
+   plain versions, no launch), whose B = 1 systems are kept; beside that
+   pass, ``python -m toyspice_tpu_torch circuits/half_wave_rectifier.cir``
+   in a process of its own exits 0 with the tables of the in-process run,
+   and ``cli.main`` with ``--engine host`` and ``host-native`` exits 0
+   (the native library built by ``make -C native`` in a thread); then,
+   with nothing else on the card, the kept systems are replayed and timed
+   on the kernels, the plain versions and torch.linalg.solve (bit for
+   bit).  The script refuses to run while a TOYSPICE_* engine override
+   is set.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30, 32) and each path of phases 22-24, 28 and 31 runs with every kernel's
+29, 30, 32, 33) and each path of phases 22-24, 28 and 31 runs with every kernel's
 launch count set to 0 just before and read just after.
 """
 
@@ -206,11 +222,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import toyspice_tpu_torch as ts  # noqa: E402
+from toyspice_tpu_torch import native  # noqa: E402
 from toyspice_tpu_torch.compiler import SRC_PULSE, SRC_PWL, SRC_SIN  # noqa: E402
 from toyspice_tpu_torch.engine.ac import make_ac, make_ac_batch  # noqa: E402
 from toyspice_tpu_torch.engine.dc import make_dc  # noqa: E402
 from toyspice_tpu_torch.engine.op import make_op  # noqa: E402
 from toyspice_tpu_torch.engine.options import DEFAULTS  # noqa: E402
+from toyspice_tpu_torch.engine.overrides import VARS as OVERRIDES  # noqa: E402
 from toyspice_tpu_torch.engine.tran import make_tran  # noqa: E402
 from toyspice_tpu_torch.ops import (_build, ac, dc, op, run,  # noqa: E402
                                     run_plan, solve, solve_stamped)
@@ -2889,11 +2907,254 @@ def past_nbig_phase(lanes, smi):
     return st_big, gj_big
 
 
+# ------------------------------------------------ 33 the user surface
+
+SURFACE_DECKS = ("divider_op.cir", "ce_amplifier_op.cir",
+                 "diode_iv_sweep.cir", "ce_amplifier_ac.cir",
+                 "rc_lowpass_tran.cir", "half_wave_rectifier.cir")
+# the decks whose general engine seeds its OP (or solves its AC systems)
+# with the GJ kernel: a nonlinear OP, and AC
+GJ_DECKS = ("ce_amplifier_op.cir", "ce_amplifier_ac.cir",
+            "half_wave_rectifier.cir")
+CLI_DECK = "half_wave_rectifier.cir"
+
+
+class Recorder:
+    """A plain solve put in its module's place: it keeps a copy of every
+    call's arguments and its result."""
+
+    def __init__(self, fn):
+        self.fn, self.args, self.outs = fn, [], []
+
+    def __call__(self, *args):
+        self.args.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args))
+        x = self.fn(*args)
+        self.outs.append(x.clone())
+        return x
+
+
+def results_equal(a, b):
+    return set(a) == set(b) and all(
+        np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+
+def host_reference(name, got, want=None):
+    """Results against the sequential host engine's (``hostsim``, the
+    reference algorithm on numpy, no code shared with the general engine;
+    ``want``, or a run of it here) at tests/test_torch_hostsim.py's bars:
+    the same keys and rows, within rtol 1e-9 of each series' largest
+    magnitude plus atol 1e-9."""
+    from toyspice_tpu_torch import hostsim
+
+    if want is None:
+        hostsim.set_solver("numpy")
+        want = hostsim.run_host_analysis(
+            ts.compile_circuit(ts.parse(deck_file(name))))
+    if set(want) != set(got):
+        fail(f"user surface {name}: keys differ from the host engine's")
+    for key in want:
+        w, g = np.asarray(want[key]), np.asarray(got[key])
+        if key.endswith("_PHASE"):
+            name_ = key[:-len("_PHASE")]
+            w = want[name_ + "_MAG"] * np.exp(1j * np.radians(w))
+            g = got[name_ + "_MAG"] * np.exp(1j * np.radians(g))
+        tol = 1e-9 + 1e-9 * float(np.abs(w).max(initial=0.0))
+        if w.shape != g.shape or not bool(np.all(np.abs(g - w) <= tol)):
+            fail(f"user surface {name}: {key} differs from the host "
+                 f"engine's beyond {tol:.3e}")
+
+
+def user_surface_phase(smi):
+    """Phase 33: the single-instance API and the CLI on the card.  What is
+    timed (the decks' walls, then the replayed B = 1 systems) runs with
+    nothing else on the card; the CLI's process and the native build run
+    beside the untimed reference pass."""
+    import contextlib
+    import io
+
+    from toyspice_tpu_torch import cli, hostsim
+
+    t0 = time.perf_counter()
+    # the main path: run_analysis on the card, counts from 0
+    results, walls, per_deck = {}, {}, {}
+    reset_counts()
+    for name in SURFACE_DECKS:
+        before = counts()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        results[name] = ts.run_analysis(os.path.join(ROOT, "circuits", name))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - w0
+        after = counts()
+        per_deck[name] = {k: after[k] - before[k] for k in after}
+        gj_want = (1, 10 ** 6) if name in GJ_DECKS else (0, 0)
+        check_counts(f"user surface {name}", per_deck[name],
+                     {"stamped_solve": (1, 10 ** 6), "gj_kernel": gj_want})
+    got = counts()
+    launches = {"stamped": got["stamped_solve"], "gj": got["gj_kernel"]}
+    for name in SURFACE_DECKS:
+        if not all(np.isfinite(v).all() for v in results[name].values()):
+            fail(f"user surface {name}: a non-finite value")
+
+    # the host engines' sparse LU (make -C native) in a thread, and the CLI
+    # in a process of its own, beside the reference pass below
+    maker = concurrent.futures.ThreadPoolExecutor(1)
+    made = maker.submit(native.available)
+    env = {k: v for k, v in os.environ.items() if k not in OVERRIDES}
+    cli_t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "toyspice_tpu_torch",
+         os.path.join(ROOT, "circuits", CLI_DECK)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the reference pass: the same calls on the plain versions
+        # (TOYSPICE_SOLVER=xla), no launch, the same Results bit for bit,
+        # so the same B = 1 systems in the same order, each kept
+        rec_s = Recorder(solve_stamped.solve_plain)
+        rec_g = Recorder(solve.gj_plain)
+        solve_stamped.solve_plain, solve.gj_plain = rec_s, rec_g
+        os.environ["TOYSPICE_SOLVER"] = "xla"
+        try:
+            reset_counts()
+            for name in SURFACE_DECKS:
+                p = ts.run_analysis(os.path.join(ROOT, "circuits", name))
+                if not results_equal(results[name], p):
+                    fail(f"user surface {name}: the card's Results are not "
+                         "bit for bit those of the plain versions")
+            check_counts("user surface under TOYSPICE_SOLVER=xla",
+                         counts(), {})
+        finally:
+            del os.environ["TOYSPICE_SOLVER"]
+            solve_stamped.solve_plain, solve.gj_plain = rec_s.fn, rec_g.fn
+        if len(rec_s.args) != launches["stamped"] or len(
+                rec_g.args) != launches["gj"]:
+            fail("user surface: the plain versions solved other systems "
+                 "than the kernels")
+
+        # the CLI's host engines in this process (their Results kept: the
+        # numpy engine's is CLI_DECK's reference below)
+        if not made.result():
+            fail(f"user surface: the native library did not build: "
+                 f"{native._load_error}")
+        run_host, host_runs = hostsim.run_host_analysis, []
+
+        def kept(cc):
+            host_runs.append(run_host(cc))
+            return host_runs[-1]
+
+        hostsim.run_host_analysis = kept
+        try:
+            for engine in ("host", "host-native"):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main([os.path.join(ROOT, "circuits", CLI_DECK),
+                                   "--engine", engine])
+                if rc != 0:
+                    fail(f"user surface: the CLI with --engine {engine} "
+                         f"exited {rc}")
+        finally:
+            hostsim.run_host_analysis = run_host
+            hostsim.set_solver("numpy")
+        for name in SURFACE_DECKS:
+            host_reference(name, results[name],
+                           host_runs[0] if name == CLI_DECK else None)
+
+        # the CLI on the card, in the other process
+        want = io.StringIO()
+        cli.print_results(results[CLI_DECK], out=want)
+        stdout, stderr = proc.communicate(timeout=120)
+        cli_s = time.perf_counter() - cli_t0
+    finally:
+        maker.shutdown()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        fail(f"user surface: python -m toyspice_tpu_torch exited "
+             f"{proc.returncode}: {stderr[-2000:]}")
+    if stdout != want.getvalue():
+        fail("user surface: the CLI's tables differ from print_results of "
+             "the in-process card run")
+
+    # the kept B = 1 systems replayed, with nothing else on the card, on
+    # the kernel, the plain version and torch.linalg.solve, each call
+    # between CUDA events
+    def replay(rec, kernel, systems, flops):
+        k_ms = p_ms = l_ms = 0.0
+        fl = nb = 0
+        by_n = {}  # the kernel's and the plain x of each size
+        for args, xp in zip(rec.args, rec.outs):
+            xk, ms = timed_call(kernel, *args)
+            k_ms += ms
+            _, ms = timed_call(rec.fn, *args)
+            p_ms += ms
+            pair = by_n.setdefault(xp.shape[-1], ([], []))
+            pair[0].append(xk)
+            pair[1].append(xp)
+            a_, b_ = systems(*args)
+            _, ms = timed_call(torch.linalg.solve, a_, b_)
+            l_ms += ms
+            f_, b_bytes = flops(*args, xk)
+            fl += f_
+            nb += b_bytes
+        pairs = [("x", torch.cat(k), torch.cat(p)) for k, p in by_n.values()]
+        err = exact_err(f"user surface: {kernel.__name__} at B = 1", pairs)
+        return dict(k_ms=k_ms, p_ms=p_ms, lib_ms=l_ms, err=err, flops=fl,
+                    nbytes=nb, calls=len(rec.args))
+
+    def st_flops(pat, vals, rvals, gmin, x):
+        return (vals.shape[0] * stamped_flops(pat),
+                nbytes(vals, rvals, gmin, x) + pat.table.nbytes)
+
+    def gj_flops(a, b, x):
+        return a.shape[0] * lu_flops(a.shape[1]), nbytes(a, b, x)
+
+    torch.linalg.solve(*stamped_systems(*rec_s.args[0]))  # warm-up
+    st1 = replay(rec_s, solve_stamped.launch_stamped, stamped_systems,
+                 st_flops)
+    gj1 = replay(rec_g, solve.launch_gj, lambda a, b: (a, b[..., None]),
+                 gj_flops)
+    st1["launches"], gj1["launches"] = launches["stamped"], launches["gj"]
+    sizes = sorted({args[0].n for args in rec_s.args})
+    deck_walls = ", ".join(
+        f"{n[:-4]} {walls[n]:.6f} s ({per_deck[n]['stamped_solve']} "
+        f"stamped, {per_deck[n]['gj_kernel']} GJ)" for n in SURFACE_DECKS)
+    print(f"[33 single instance] {smi}: {deck_walls}; stamped solve at "
+          f"B = 1 (n in {sizes}): {st1['calls']} launches, kernel "
+          f"{st1['k_ms'] / st1['calls']:.6f} ms a launch, plain "
+          f"{st1['p_ms'] / st1['calls']:.6f}, torch.linalg.solve on the same "
+          f"B = 1 systems {st1['lib_ms'] / st1['calls']:.6f}; GJ: "
+          f"{gj1['calls']} launches, kernel "
+          f"{gj1['k_ms'] / gj1['calls']:.6f} ms a launch, plain "
+          f"{gj1['p_ms'] / gj1['calls']:.6f}, torch.linalg.solve "
+          f"{gj1['lib_ms'] / gj1['calls']:.6f} (walls and replays with "
+          f"nothing else on the card); the CLI's process {cli_s:.3f} s from "
+          f"start to exit", flush=True)
+    phase("33 user surface", t0,
+          f"run_analysis on the card on {len(SURFACE_DECKS)} decks "
+          f"({launches['stamped']} stamped and {launches['gj']} GJ "
+          f"launches, each deck's Results within the host engine's bars), "
+          f"bit for bit with TOYSPICE_SOLVER=xla (no launch); the B = 1 "
+          f"kernels bit for bit with their plain versions; python -m "
+          f"toyspice_tpu_torch {CLI_DECK} exited 0 with the in-process "
+          f"tables; --engine host and host-native exited 0")
+    return st1, gj1
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no card, "
               "no run", file=sys.stderr)
+        return 2
+    # the engine overrides would swap kernels for their plain versions or
+    # the general engine; phase 33 sets TOYSPICE_SOLVER for its reference
+    # pass alone
+    forced = sorted(v for v in OVERRIDES if v in os.environ)
+    if forced:
+        print(f"chip_smoke: {', '.join(forced)} set: the kernels' paths "
+              "would not run as measured; unset them", file=sys.stderr)
         return 2
 
     # ---------------------------------------------------------- 1 device
@@ -3214,6 +3475,7 @@ def main():
     gj_ac = lc16_phase(BENCH_LANES, smi)
     compat_trap_phase(1024)
     st_work, gj_work = past_nbig_phase(1024, smi)
+    st_single, gj_single = user_surface_phase(smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -3365,6 +3627,17 @@ def main():
           f"{gj_work['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
           f"{gwb[2]:.6f} ms; {gj_work['nbytes']} bytes / {PEAK_BYTES:.3g} "
           f"B/s = {gwb[3]:.6f} ms", flush=True)
+    single_bounds = {}
+    for key, what, label in (
+            ("stamped", st_single, "stamped_solve at B = 1 (the user "
+             "surface's six decks"),
+            ("gj", gj_single, "gj_kernel at B = 1 (the user surface's OP "
+             "seeds and AC systems")):
+        single_bounds[key] = bd = bound(what["flops"], what["nbytes"])
+        print(f"[17 bound] {label}, {what['calls']} launches): "
+              f"{what['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
+              f"{bd[2]:.6f} ms; {what['nbytes']} bytes / {PEAK_BYTES:.3g} "
+              f"B/s = {bd[3]:.6f} ms", flush=True)
     gj_flops = gj_seed["flops"] + gj_ac["flops"]
     gj_bytes = gj_seed["nbytes"] + gj_ac["nbytes"]
     gj_bound = bound(gj_flops, gj_bytes)
@@ -3476,7 +3749,16 @@ def main():
               "toyspice_tpu_torch/csrc/gj_kernel.cu",
               "toyspice_tpu/ops/pallas_solve.py:235", gj_work["launches"],
               gj_work["err"], gj_work["k_ms"], gj_work["p_ms"], gwb,
-              gj_work["lib_ms"])]}
+              gj_work["lib_ms"]),
+        entry("stamped_solve_single",
+              "toyspice_tpu_torch/csrc/stamped_solve.cu",
+              "toyspice_tpu/ops/pallas_solve.py:337", st_single["launches"],
+              st_single["err"], st_single["k_ms"], st_single["p_ms"],
+              single_bounds["stamped"], st_single["lib_ms"]),
+        entry("gj_kernel_single", "toyspice_tpu_torch/csrc/gj_kernel.cu",
+              "toyspice_tpu/ops/pallas_solve.py:235", gj_single["launches"],
+              gj_single["err"], gj_single["k_ms"], gj_single["p_ms"],
+              single_bounds["gj"], gj_single["lib_ms"])]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

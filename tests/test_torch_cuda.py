@@ -1937,3 +1937,142 @@ def test_opdc_segment_launch_shape(cuda, deck, semantics, kind, tag):
     names = {e.key for e in prof.key_averages() if key in e.key}
     assert len(names) == 1, names
     assert tag in names.pop().replace(" ", "").replace(",", ", ")
+
+
+# ---------------------------------------------------- one lane (B = 1)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 48, 49, 64,
+                               65, 96, 97, 127, 144, 145, 168, 169])
+def test_single_lane_gj_and_stamped_are_bit_identical(cuda, n):
+    """The single-instance API's solves: one system a launch (B = 1), on
+    csrc/gj_kernel.cu and every body of csrc/stamped_solve.cu (a warp
+    segment with one live lane to 32, a warp to 64, a block above), a
+    regular, a singular and a NaN system each alone: the same bits as the
+    plain versions."""
+    from toyspice_tpu_torch.ops import solve
+
+    a8, b8 = _dense_sets(n, 8, cuda)
+    rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
+    fn = solve_stamped.solve_stamped_for(n, rows.ravel(), cols.ravel(),
+                                         np.arange(1, n))
+    g = torch.zeros(1, dtype=torch.float64, device=cuda)
+    for lane in (0, 5, 6):
+        a, b = a8[lane:lane + 1].contiguous(), b8[lane:lane + 1].contiguous()
+        want = solve.gj_plain(a, b)
+        gb = solve.launch_gj.launches
+        sb = solve_stamped.launch_stamped.launches
+        got = solve.linear_solve(a, b)
+        vals = a[:, 1:, :].reshape(1, -1).contiguous()
+        rv = b[:, 1:].contiguous()
+        st = fn(vals, rv, g)
+        torch.cuda.synchronize()
+        assert solve.launch_gj.launches == gb + 1
+        assert solve_stamped.launch_stamped.launches == sb + 1
+        assert _same_bits(got, want), lane
+        assert _same_bits(st, solve_stamped.solve_plain(fn.pattern, vals, rv,
+                                                        g)), lane
+        assert bool(torch.isfinite(want).all()) == (lane == 0)
+
+
+@pytest.mark.parametrize("np1", [2, 8, 9, 16, 17, 32])
+def test_single_instance_ac_kernel_is_bit_identical(cuda, np1):
+    """The AC kernel with one system a frequency (B = 1), one and three
+    frequencies: the same bits as the plain version."""
+    rng = np.random.default_rng(100 + np1)
+    g = rng.normal(size=(1, np1, np1)) + 3.0 * np.eye(np1)
+    bh = rng.normal(size=(1, np1, np1)) * 1e-3
+    r = rng.normal(size=(1, 2 * np1))
+    args = [torch.as_tensor(v, device=cuda) for v in (g, bh, r)]
+    for freqs in (np.array([1e3]), np.array([0.0, 10.0, 1e4])):
+        before = ac.launch_ac_kernel.launches
+        k = ac.ac_solve_batch(*args, freqs)
+        torch.cuda.synchronize()
+        assert ac.launch_ac_kernel.launches == before + 1
+        assert _same_bits(k, ac.ac_solve_batch(*args, freqs,
+                                               solve=ac.ac_plain))
+
+
+@pytest.mark.parametrize("name", ["divider_op.cir", "ce_amplifier_op.cir",
+                                  "diode_iv_sweep.cir", "ce_amplifier_ac.cir",
+                                  "rc_lowpass_tran.cir",
+                                  "half_wave_rectifier.cir"])
+def test_run_analysis_on_the_card_matches_its_plain_versions(
+        cuda, name, monkeypatch):
+    """run_analysis on the card launches the stamped solve (and on a
+    nonlinear OP or AC the GJ kernel) and gives the Results of the same
+    call under TOYSPICE_SOLVER=xla (the plain versions on the card, no
+    launch) bit for bit."""
+    import os
+
+    from toyspice_tpu_torch.ops import solve
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "circuits", name)
+    monkeypatch.delenv("TOYSPICE_SOLVER", raising=False)
+    sb, gb = solve_stamped.launch_stamped.launches, solve.launch_gj.launches
+    k = ts.run_analysis(path)
+    assert solve_stamped.launch_stamped.launches > sb
+    monkeypatch.setenv("TOYSPICE_SOLVER", "xla")
+    s1, g1 = solve_stamped.launch_stamped.launches, solve.launch_gj.launches
+    p = ts.run_analysis(path)
+    assert (solve_stamped.launch_stamped.launches, solve.launch_gj.launches
+            ) == (s1, g1)
+    assert set(k) == set(p)
+    for key in p:
+        assert np.array_equal(k[key], p[key], equal_nan=True), key
+    if name in ("ce_amplifier_op.cir", "ce_amplifier_ac.cir"):
+        assert g1 > gb
+
+
+def test_tran_impl_xla_takes_the_plain_run_on_the_card(cuda, monkeypatch):
+    """TOYSPICE_TRAN_IMPL=xla: the run and OP kernels' plain versions on
+    the card, no launch, the kernels' bits."""
+    cc, cfg, params, state0 = _inputs(
+        _deck_text("half_wave_rectifier.cir"), 8, cuda)[:4]
+    monkeypatch.delenv("TOYSPICE_TRAN_IMPL", raising=False)
+    k = ts.make_tran_batch(cc, cfg, None)(params, state0)
+    monkeypatch.setenv("TOYSPICE_TRAN_IMPL", "xla")
+    r0, o0 = run.launch_run_kernel.launches, op.launch_op_kernel.launches
+    p = ts.make_tran_batch(cc, cfg, None)(params, state0)
+    assert (run.launch_run_kernel.launches, op.launch_op_kernel.launches) \
+        == (r0, o0)
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+    assert _same_bits(k.t_final, p.t_final)
+
+
+def _deck_text(name):
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "circuits", name)) as f:
+        return f.read()
+
+
+def test_wrappers_launch_under_every_override(cuda, monkeypatch):
+    """The engine overrides are read where an engine is built: a wrapper
+    given card tensors launches its kernel under TOYSPICE_SOLVER=xla and
+    TOYSPICE_TRAN_IMPL=xla alike, with the plain version's bits."""
+    from toyspice_tpu_torch.ops import solve
+
+    monkeypatch.setenv("TOYSPICE_SOLVER", "xla")
+    monkeypatch.setenv("TOYSPICE_TRAN_IMPL", "xla")
+    a, b = _dense_sets(9, 8, cuda)
+    a, b = a[:1].contiguous(), b[:1].contiguous()
+    before = solve.launch_gj.launches
+    x = solve.linear_solve(a, b)
+    torch.cuda.synchronize()
+    assert solve.launch_gj.launches == before + 1
+    assert _same_bits(x, solve.gj_plain(a, b))
+    rng = np.random.default_rng(9)
+    g = torch.as_tensor(rng.normal(size=(1, 4, 4)) + 3.0 * np.eye(4),
+                        device=cuda)
+    bh = torch.as_tensor(rng.normal(size=(1, 4, 4)) * 1e-3, device=cuda)
+    r = torch.as_tensor(rng.normal(size=(1, 8)), device=cuda)
+    before = ac.launch_ac_kernel.launches
+    k = ac.ac_solve_batch(g, bh, r, np.array([1e3]))
+    torch.cuda.synchronize()
+    assert ac.launch_ac_kernel.launches == before + 1
+    assert _same_bits(k, ac.ac_solve_batch(g, bh, r, np.array([1e3]),
+                                           solve=ac.ac_plain))

@@ -33,6 +33,21 @@ any np1.  Entry points run on ``cuda``
 unless given ``device="cpu"``; on the CPU the kernels' plain torch
 versions run instead.
 
+The JAX package's user surface runs one instance of a deck as a batch of
+one through the general engine (``run_op``, ``run_transient``, ``run_ac``,
+``run_dc``, ``run_analysis`` returning ``Results``), and its command line
+is ``python -m toyspice_tpu_torch deck.cir`` (``cli.py``: the same tables,
+``--engine xla|host|host-native``, ``--platform cuda|cpu``); the host
+engines (``hostsim``, ``native``), ``debug`` and ``utils.profiling`` are
+there too.  The JAX package's engine overrides (``TOYSPICE_TRAN``,
+``TOYSPICE_TRAN_RUN``, ``TOYSPICE_OP``, ``TOYSPICE_AC``,
+``TOYSPICE_SOLVER``, ``TOYSPICE_TRAN_IMPL``) choose among the port's
+engines and between the kernels and their plain versions
+(``engine/batch.py``, ``ops/solve.py``).
+
+    r = run_analysis("circuits/half_wave_rectifier.cir")  # on the card
+    r["TIME"], r["V(dcout)"]
+
     cc = compile_circuit(parse(deck))
     params, axes = batch_params(cc, overrides)
     fn = make_tran_batch(cc, cfg, axes, store="none")
@@ -45,7 +60,10 @@ versions run instead.
     xr, xi, opr = run_ac_batch(cc, params, axes, freqs)
 """
 
+from .consts import BOLTZMANN, CHARGE, KELVIN  # noqa: F401
 from .compiler import CompiledCircuit, compile_circuit  # noqa: F401
+from .engine import (run_ac, run_analysis, run_dc, run_op,  # noqa: F401
+                     run_transient)
 from .engine.ac import frequency_points, make_ac  # noqa: F401
 from .engine.batch import (batch_params, make_tran_batch,  # noqa: F401
                            make_tran_stream, run_ac_batch, run_dc_batch,
@@ -58,6 +76,7 @@ from .engine.options import DEFAULTS, SimOptions  # noqa: F401
 from .engine.state import init_state  # noqa: F401
 from .engine.tran import (TranConfig, TranOutput, build_config,  # noqa: F401
                           make_tran)
-from .netlist import parse  # noqa: F401
+from .netlist import (AnalysisType, Element, ModelParam,  # noqa: F401
+                      NetlistData, parse, parse_value)
 
 __version__ = "0.1.0"

@@ -1,0 +1,9 @@
+"""``python -m toyspice_tpu_torch <netlist.cir>``: the command line
+(``cli.main``)."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,21 +40,22 @@ def frequency_points(sweep: str, fstart: float, fstop: float,
 
 
 def make_ac(cc, opts: SimOptions = DEFAULTS, semantics: str = "compat",
-            solve=None, dense_solve=None):
+            solve=None, dense_solve=None, bias=None):
     """The general AC, batched: fn(params, state0, freqs) -> (xr, xi, opr)
     with xr, xi (B, F, np1); per lane the JAX package's make_ac_batch
     general branch.  The bias is ``engine/op.make_op`` (the general OP, or
-    a linear deck's one stamped solve); then the (B, F, 2np1, 2np1) systems
-    and one dense solve of all B·F of them.  ``solve``/``dense_solve``
-    override the stamped and the dense solve (the plain versions on the
-    card)."""
+    a linear deck's one stamped solve) unless ``bias`` gives another OP
+    function; then the (B, F, 2np1, 2np1) systems and one dense solve of
+    all B·F of them.  ``solve``/``dense_solve`` override the stamped and
+    the dense solve (the plain versions on the card)."""
     from ..ops.assemble import assemble_system_ac
     from ..ops.solve import linear_solve
     from .op import make_op
 
     dense = dense_solve or linear_solve
     np1 = cc.np1
-    bias = make_op(cc, opts, semantics, solve=solve, dense_solve=dense_solve)
+    bias = bias or make_op(cc, opts, semantics, solve=solve,
+                           dense_solve=dense_solve)
 
     def ac_execute(params, state0, freqs):
         opr = bias(params, state0)
@@ -80,38 +81,57 @@ def make_ac(cc, opts: SimOptions = DEFAULTS, semantics: str = "compat",
 def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
                   semantics: str = "compat", op_solve=None, ac_solve=None):
     """Batched AC: fn(params, state0, freqs) -> (xr, xi, opr) with xr, xi
-    (B, F, np1), and ``.engine`` "fused" or "general" with
-    ``.engine_reason``.  Fused: the bias is the OP kernel under its rescue
-    ladders on a nonlinear deck (``ops/op.make_op_fused``) and the linear
-    OP (``engine/op.make_op``) on a linear one; then one
+    (B, F, np1), and ``.engine`` "fused" or "general" (the AC solve) with
+    ``.engine_reason``, and ``.bias_engine`` (the OP's, as
+    ``engine/batch.select_op_engine`` names it).  Fused: one
     ``assemble_ac_blocks`` of every instance at freq = 1/(2 pi) and one
-    AC solve of every (instance, frequency) pair.  General: ``make_ac``,
-    where the AC kernel does not serve the deck.  ``in_axes`` keeps the
-    JAX package's call shape (the port reads the batch axis from the
-    tensors).  ``op_solve``/``ac_solve`` override the per-launch solvers
-    (the plain versions on the card: the stamped solve and the AC kernel,
-    or on the general branch the stamped and the dense solve)."""
-    from ..ops.ac import ac_ineligible_reason, ac_solve_batch
+    AC solve of every (instance, frequency) pair.  General: ``make_ac``'s
+    dense systems, where the AC kernel does not serve the deck, under
+    ``TOYSPICE_AC=general``, and under ``TOYSPICE_SOLVER=xla`` unless
+    ``TOYSPICE_AC=fused``.  The bias is the OP kernel under its rescue
+    ladders on a nonlinear deck (``ops/op.make_op_fused``), else
+    ``engine/op.make_op`` (engine/ac.py:91-111 of the JAX package, with
+    ``TOYSPICE_OP`` as there); the solves and kernels are those the
+    overrides choose (``engine/overrides.py``).  ``in_axes`` keeps the JAX
+    package's call shape (the port reads the batch axis from the tensors).
+    ``op_solve``/``ac_solve`` override the per-launch solvers (the plain
+    versions on the card: the stamped solve and the AC kernel, or on the
+    general branch the stamped and the dense solve)."""
+    from ..ops.ac import ac_ineligible_reason, ac_plain, ac_solve_batch
     from ..ops.assemble import assemble_ac_blocks
-    from ..ops.op import make_op_fused
-    from ..ops.run_plan import nonlinear
-    from .batch import general_ineligible_reason
+    from ..ops.op import make_op_fused, op_lanes, op_plain
+    from . import overrides
+    from .batch import general_ineligible_reason, select_op_engine
     from .op import make_op
 
-    why = ac_ineligible_reason(cc, semantics, opts)
+    why = overrides.general_reason(
+        "AC", ac_ineligible_reason(cc, semantics, opts))
     if why is not None:
         why_not = general_ineligible_reason(cc, semantics)
         if why_not is not None:
             raise NotImplementedError(f"no AC engine for this deck in the "
                                       f"port: {why}; {why_not}")
-        fn = make_ac(cc, opts, semantics, solve=op_solve,
-                     dense_solve=ac_solve)
-        fn.engine, fn.engine_reason = "general", why
+    plain = overrides.kernels_plain()
+    solves = overrides.solves()
+    if why is not None and ac_solve is None:
+        ac_solve = solves.get("dense_solve")
+    elif ac_solve is None and plain:
+        ac_solve = ac_plain
+    bias_engine, _ = select_op_engine(cc, semantics, opts)
+    if bias_engine == "fused":
+        bias = make_op_fused(cc, opts, semantics=semantics, solve=(
+            op_solve or (op_plain if plain else op_lanes)))
+    else:  # the general branch's dense solve seeds it too
+        bias = make_op(cc, opts, semantics, solve=(
+            op_solve or solves.get("solve")), dense_solve=(
+                ac_solve if why is not None else solves.get("dense_solve")))
+    if why is not None:
+        fn = make_ac(cc, opts, semantics, dense_solve=ac_solve, bias=bias)
+        fn.engine = "general"
+        fn.engine_reason = why + overrides.note(False)
+        fn.bias_engine = bias_engine
         return fn
     np1 = cc.np1
-    kw = {} if op_solve is None else {"solve": op_solve}
-    bias = (make_op_fused(cc, opts, semantics=semantics, **kw)
-            if nonlinear(cc) else make_op(cc, opts, semantics, **kw))
 
     def ac_batch_execute(params, state0, freqs):
         opr = bias(params, state0)
@@ -126,6 +146,8 @@ def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
         return x2[..., :np1], x2[..., np1:], opr
 
     ac_batch_execute.bias = bias
+    ac_batch_execute.bias_engine = bias_engine
     ac_batch_execute.engine = "fused"
-    ac_batch_execute.engine_reason = f"AC kernel eligible ({semantics})"
+    ac_batch_execute.engine_reason = (f"AC kernel eligible ({semantics})"
+                                      + overrides.note(True))
     return ac_batch_execute

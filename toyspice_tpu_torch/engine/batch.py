@@ -22,6 +22,17 @@ whose Newton is a host loop over the stamped solve (any np1: past NBIG =
 168 its systems are eliminated in device memory).
 A deck, store or semantics none of them covers raises
 ``NotImplementedError`` with the reason.
+
+The JAX package's engine overrides choose among them with the same values:
+``TOYSPICE_TRAN=general|fused|auto`` and ``TOYSPICE_TRAN_RUN=off``
+(``select_tran_engine``; the JAX package's "fused" engine is the port's
+"store"), ``TOYSPICE_OP=general|fused|auto`` (``select_op_engine``,
+``engine/ac.make_ac_batch`` and the run kernel's warm-up),
+``TOYSPICE_AC=general|fused|auto`` (``make_ac_batch``), and
+``TOYSPICE_SOLVER=xla``, under which a batch takes the general engine
+unless an override forces a kernel; ``TOYSPICE_SOLVER`` and
+``TOYSPICE_TRAN_IMPL=xla`` choose the kernels or their plain versions for
+the engine built (``engine/overrides.py`` reads them all).
 """
 
 import logging
@@ -31,6 +42,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from . import overrides
 from .options import DEFAULTS, SimOptions
 from .state import init_state
 from .tran import TranConfig
@@ -81,37 +93,50 @@ def select_tran_engine(cc, cfg: TranConfig, in_axes,
                        opts: SimOptions = DEFAULTS, resume: bool = False):
     """(engine_name, reason, fn) for a batched transient: "run", the
     whole-run kernel, for a fresh ``store='none'`` run; "store", its store
-    instantiation (the JAX package's "fused" engine), for ``store='full'``
-    and for ``resume=True``, whose fn(params, state0, t0, jv0, dt0=None,
+    instantiation (the JAX package's "fused" engine), for ``store='full'``,
+    for ``resume=True``, whose fn(params, state0, t0, jv0, dt0=None,
     attempts0=None) continues a checkpointed run
-    (``ops/run.make_tran_run``); "general", ``engine/tran.make_tran``, for
-    a deck past the kernels' caps (resumed: fn(params, state0, t0, jv0,
-    dt0=None)), with the kernels' reason.  Anything none of them serves
-    raises NotImplementedError with the reason.  ``in_axes`` keeps the JAX
-    package's call shape (bench.py passes ``batch_params``' axes); the port
-    reads the batch axis from the tensors themselves."""
+    (``ops/run.make_tran_run``), and under ``TOYSPICE_TRAN_RUN=off``;
+    "general", ``engine/tran.make_tran``, for a deck past the kernels' caps
+    (resumed: fn(params, state0, t0, jv0, dt0=None)), with the kernels'
+    reason, under ``TOYSPICE_TRAN=general``, and under
+    ``TOYSPICE_SOLVER=xla`` unless ``TOYSPICE_TRAN=fused``, as the JAX
+    package decides (engine/batch.py:96-112); the engine takes the solves
+    and kernels the overrides choose, and its reason names them
+    (``engine/overrides.py``).  Anything none of them
+    serves raises NotImplementedError with the reason.  ``in_axes`` keeps
+    the JAX package's call shape (bench.py passes ``batch_params``' axes);
+    the port reads the batch axis from the tensors themselves."""
     from ..ops.run import make_tran_run, run_ineligible_reason
     from ..ops.run_plan import fused_ineligible_reason
     from .tran import make_tran
 
-    why = run_ineligible_reason(cc, semantics, store, opts)
+    why = overrides.general_reason(
+        "TRAN", run_ineligible_reason(cc, semantics, store, opts))
     if why is not None:
         why_not = (fused_ineligible_reason(cc, semantics, store, opts)
                    or general_ineligible_reason(cc, semantics))
         if why_not is not None:
             raise NotImplementedError(
                 f"no transient engine for this run in the port: {why_not}")
-        return "general", why, make_tran(cc, cfg, semantics, store, opts,
-                                         resume=resume)
+        return ("general", why + overrides.note(False),
+                make_tran(cc, cfg, semantics, store, opts, resume=resume,
+                          **overrides.solves()))
+    run_off = overrides.tran_run_off()
+    op_fn = overrides.tran_op(cc, opts, semantics)
     fn = make_tran_run(cc, cfg, opts, semantics=semantics, store=store,
-                       resume=resume)
-    if store == "full" or resume:
-        how = ", resumed from each lane's t0" if resume else ""
+                       resume=resume, via_store=run_off,
+                       plain=overrides.kernels_plain(), op_fn=op_fn)
+    note = overrides.note(True) + (
+        "; the general OP warms it up" if op_fn is not None else "")
+    if store == "full" or resume or run_off:
+        how = (", resumed from each lane's t0" if resume else
+               "" if store == "full" else ", TOYSPICE_TRAN_RUN=off")
         return "store", ("the whole-run kernel's store instantiation "
                          f"({semantics}/{opts.integration}, store={store!r}"
-                         f"{how})"), fn
+                         f"{how}){note}"), fn
     return "run", (f"whole-run kernel eligible ({semantics}/"
-                   f"{opts.integration})"), fn
+                   f"{opts.integration}){note}"), fn
 
 
 def make_tran_batch(cc, cfg: TranConfig, in_axes,
@@ -167,10 +192,13 @@ def make_tran_stream(cc, cfg: TranConfig, chunk_store: int,
     if int(chunk_store) < 1:
         raise ValueError("chunk_store must be at least 1 row")
     cfg_c = cfg._replace(max_store=int(chunk_store))
+    plain = overrides.kernels_plain()
     fresh = make_tran_run(cc, cfg_c, opts, semantics=semantics,
-                          store="full", stream=True)
+                          store="full", stream=True, plain=plain,
+                          op_fn=overrides.tran_op(cc, opts, semantics))
     cont = make_tran_run(cc, cfg_c, opts, semantics=semantics,
-                         store="full", stream=True, resume=True)
+                         store="full", stream=True, resume=True,
+                         plain=plain)
     return fresh, cont
 
 
@@ -282,9 +310,14 @@ def select_op_engine(cc, semantics: str = "compat",
     OP kernel (the DC sweep kernel) on a nonlinear deck, "general", the
     general engine's Newton over the stamped solve, on a nonlinear deck
     past the kernels' caps (with their reason), or "linear", the stamped
-    solve, on a linear one; anything none serves (a kind not ported, a
-    semantics other than compat and physics) raises NotImplementedError
-    with the reason."""
+    solve, on a linear one (the general engine's OP on a linear deck, which
+    the JAX package names "general"); anything none serves (a kind not
+    ported, a semantics other than compat and physics) raises
+    NotImplementedError with the reason.  ``TOYSPICE_OP=general`` takes
+    the general engine on any deck, and ``TOYSPICE_SOLVER=xla`` on a
+    nonlinear one unless ``TOYSPICE_OP=fused`` (engine/batch.py:302-329 of
+    the JAX package); the reason names the solves and kernels the
+    overrides choose (``make_op_engine`` builds it with them)."""
     from ..ops.run import kernel_caps_reason
     from ..ops.run_plan import make_plan, nonlinear
 
@@ -292,16 +325,37 @@ def select_op_engine(cc, semantics: str = "compat",
         # the OP kernel's gates are the general engine's plus its caps
         why = general_ineligible_reason(cc, semantics)
         caps = None if why else kernel_caps_reason(make_plan(cc, "op"))
-        engine, reason = (("general", caps) if caps else
+        general = overrides.general_reason("OP", caps)
+        engine, reason = (("general", general) if general else
                           ("fused", f"OP kernel eligible ({semantics})"))
     else:
         why = linear_op_ineligible_reason(cc, semantics)
         engine, reason = "linear", ("linear circuit: one stamped solve per "
                                     f"rung ({semantics})")
+        if overrides.mode("OP") == "general":
+            engine, reason = "general", "TOYSPICE_OP=general override"
     if why is not None:
         raise NotImplementedError(
             f"no OP engine for this deck in the port: {why}")
-    return engine, reason
+    return engine, reason + overrides.note(engine == "fused")
+
+
+def make_op_engine(cc, opts: SimOptions = DEFAULTS,
+                   semantics: str = "compat"):
+    """(engine, reason, fn) of the batched OP as ``select_op_engine``
+    picks it, built with the solves and kernels the overrides choose:
+    fn(params, state0) is the OP kernel's ``make_op_fused`` or the general
+    engine's ``make_op``."""
+    from ..ops.op import make_op_fused, op_lanes, op_plain
+    from .op import make_op
+
+    engine, reason = select_op_engine(cc, semantics, opts)
+    if engine == "fused":
+        fn = make_op_fused(cc, opts, semantics=semantics, solve=(
+            op_plain if overrides.kernels_plain() else op_lanes))
+    else:
+        fn = make_op(cc, opts, semantics, **overrides.solves())
+    return engine, reason, fn
 
 
 def run_op_batch(cc, params, in_axes=None, opts: SimOptions = DEFAULTS,
@@ -314,14 +368,10 @@ def run_op_batch(cc, params, in_axes=None, opts: SimOptions = DEFAULTS,
     linear one, on the device the parameters lie on; ``in_axes`` keeps the
     JAX package's call shape (the port reads the batch axis from the
     tensors themselves)."""
-    from ..ops.op import make_op_fused
     from ..ops.run_plan import first_leaf
-    from .op import make_op
 
-    engine, reason = select_op_engine(cc, semantics, opts)
+    engine, reason, fn = make_op_engine(cc, opts, semantics)
     _log.info("op engine: %s (%s)", engine, reason)
-    fn = (make_op_fused(cc, opts, semantics=semantics) if engine == "fused"
-          else make_op(cc, opts, semantics))
     return fn(params, init_state(cc, device=first_leaf(params).device))
 
 
@@ -335,7 +385,7 @@ def run_dc_batch(cc, src_slots, params, in_axes=None, points=None,
     through one stamped solve of all B·P systems.  ``points`` is (P,) or
     (P, 2) for a nested sweep; ``in_axes`` keeps the JAX package's call
     shape."""
-    from ..ops.dc import make_dc_fused
+    from ..ops.dc import dc_lanes, dc_plain, make_dc_fused
     from ..ops.run_plan import first_leaf
     from .dc import make_dc
 
@@ -343,10 +393,13 @@ def run_dc_batch(cc, src_slots, params, in_axes=None, points=None,
     _log.info("dc engine: %s (%s)", engine, reason)
     state0 = init_state(cc, device=first_leaf(params).device)
     if engine == "fused":
-        r = make_dc_fused(cc, src_slots, opts, semantics)(params, state0,
-                                                           points)
+        r = make_dc_fused(cc, src_slots, opts, semantics, solve=(
+            dc_plain if overrides.kernels_plain() else dc_lanes))(
+                params, state0, points)
         return r.xs, r.conv
-    return make_dc(cc, src_slots, opts, semantics)(params, state0, points)
+    solve = overrides.solves().get("solve")
+    return make_dc(cc, src_slots, opts, semantics, solve=solve)(
+        params, state0, points)
 
 
 def run_ac_batch(cc, params, in_axes=None, freqs=None,

@@ -748,13 +748,15 @@ class RunInputs(NamedTuple):
 
 
 def make_run_inputs(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
-                    resume: bool = False):
+                    resume: bool = False, plain: bool = False, op_fn=None):
     """fn(params, state0, jv0=None, b=None) -> RunInputs, the inputs of
     ``make_tran_run``'s kernel launch.  Unless ``cfg.uic`` or ``resume``, a
     nonlinear deck first takes its operating point through the OP kernel
     (``ops/op.make_op_fused``, rescue ladders included), and a linear
     physics deck through the linear OP (``engine/op.make_op``): its
-    junction voltages warm-start the transient.  Compat keeps the given
+    junction voltages warm-start the transient; ``op_fn`` replaces that
+    OP (``engine/overrides.tran_op``), and ``plain`` runs the OP kernel's
+    plain version on any device.  Compat keeps the given
     committed state (tran.go:57-75); physics seeds it from the bias point
     (``engine/state.make_op_seed``).  ``jv0`` is a resumed run's
     checkpointed junction voltages; ``b`` the batch, when the start values
@@ -768,12 +770,15 @@ def make_run_inputs(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
                     int(opts.max_iter),
                     physics and opts.integration == "trap")
     need_op = (plan.nonlinear or physics) and not cfg.uic and not resume
-    op_fn = op_seed = None
-    if need_op and plan.nonlinear:
-        from .op import make_op_fused
+    op_seed = None
+    if not need_op:
+        op_fn = None
+    elif op_fn is None and plan.nonlinear:
+        from .op import make_op_fused, op_lanes, op_plain
 
-        op_fn = make_op_fused(cc, opts, semantics=semantics)
-    elif need_op:
+        op_fn = make_op_fused(cc, opts, semantics=semantics,
+                              solve=op_plain if plain else op_lanes)
+    elif op_fn is None:
         from ..engine.op import make_op
 
         op_fn = make_op(cc, opts, semantics)
@@ -811,7 +816,8 @@ def run_inputs(cc, cfg, params, state0, opts=DEFAULTS,
 
 def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
                   store: str = "none", resume: bool = False,
-                  stream: bool = False):
+                  stream: bool = False, via_store: bool = False,
+                  plain: bool = False, op_fn=None):
     """Batched whole-run transient: fn(params, state0) -> TranOutput.
 
     ``params``/``state0`` are dicts of f64 tensors on one device (shared
@@ -830,7 +836,13 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
     (scalar or (B,); t is absolute, so sources keep their phase) with the
     checkpoint's junction voltages jv0, dt0 (default minstep) and
     attempts0 (default 0; ``cfg.max_attempts`` then binds the whole run);
-    ``accepted`` and ``nr_iters`` count this call's work."""
+    ``accepted`` and ``nr_iters`` count this call's work.  ``via_store``
+    runs a ``store='none'`` run through the store instantiation keeping no
+    row (the JAX package's attempt-loop engine under
+    ``TOYSPICE_TRAN_RUN=off``).  ``plain`` runs the kernels' plain
+    versions on any device and ``op_fn`` replaces the OP
+    (``make_run_inputs``); ``engine/batch.select_tran_engine`` sets them
+    from the engine overrides."""
     why = run_ineligible_reason(cc, semantics, store, opts)
     if why is not None:
         raise NotImplementedError(
@@ -838,7 +850,9 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
     if stream and store != "full":
         raise ValueError("stream=True pauses lanes on a full waveform "
                          "buffer and therefore requires store='full'")
-    inputs = make_run_inputs(cc, cfg, opts, semantics, resume)
+    inputs = make_run_inputs(cc, cfg, opts, semantics, resume, plain, op_fn)
+    run_fn, store_fn = ((run_plain, store_plain) if plain else
+                        (run_lanes, store_lanes))
     plan, sc = inputs.plan, inputs.sc
     keep = (Store(float(cfg.tstart), int(cfg.max_store), stream)
             if store == "full" else None)
@@ -864,14 +878,14 @@ def make_tran_run(cc, cfg, opts=DEFAULTS, semantics: str = "compat",
                          lane_vector(dt0, b, sc.minstep, F64, device),
                          lane_vector(attempts0, b, 0, I32, device))
         if keep is not None:
-            res, wave = store_lanes(plan, r.dev, r.src, r.st, sc, keep,
+            res, wave = store_fn(plan, r.dev, r.src, r.st, sc, keep,
                                     r.jv, start)
         else:
-            if resume:
-                res, _ = store_lanes(plan, r.dev, r.src, r.st, sc,
+            if resume or via_store:
+                res, _ = store_fn(plan, r.dev, r.src, r.st, sc,
                                      NO_STORE, r.jv, start)
             else:
-                res = run_lanes(plan, r.dev, r.src, r.st, sc, r.jv)
+                res = run_fn(plan, r.dev, r.src, r.st, sc, r.jv)
             wave = Waveforms(
                 torch.zeros((b, 1, cc.np1), dtype=F64, device=device),
                 torch.zeros((b, 1), dtype=F64, device=device),

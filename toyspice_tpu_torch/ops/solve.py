@@ -22,6 +22,10 @@ the system is NaN (as the JAX package's one-hot gather gives).
   (``ops/newton.py::gauss_jordan``).
 * ``linear_solve``: the kernel for CUDA tensors, the plain version for CPU
   tensors.
+
+``debug_nans`` makes the two solves raise at their first non-finite x.
+The JAX package's engine overrides are read where an engine is built
+(``engine/overrides.py``), never here.
 """
 
 import torch
@@ -118,10 +122,31 @@ def gj_plain(a, b):
                         poison_rows(a.shape[1], a.device))
 
 
+_debug = {"nans": False}
+
+
+def debug_nans(on=True):
+    """Make the GJ and stamped solves raise FloatingPointError at the
+    first non-finite x they return (the port's ``jax_debug_nans``: one
+    host sync a solve, and the rescue ladders legitimately pass through
+    non-finite solves)."""
+    _debug["nans"] = bool(on)
+
+
+def checked(x, what):
+    """x, or FloatingPointError under ``debug_nans``."""
+    if _debug["nans"] and not bool(torch.isfinite(x).all()):
+        raise FloatingPointError(f"debug_nans: the {what} returned a "
+                                 "non-finite x")
+    return x
+
+
 def linear_solve(a, b):
     """The kernel for CUDA tensors, its plain version for CPU tensors."""
     if a.is_cuda:
-        return launch_gj(a.contiguous(), b.contiguous())
-    if a.device.type == "cpu":
-        return gj_plain(a, b)
-    raise ValueError(f"no GJ kernel for device {a.device}")
+        x = launch_gj(a.contiguous(), b.contiguous())
+    elif a.device.type == "cpu":
+        x = gj_plain(a, b)
+    else:
+        raise ValueError(f"no GJ kernel for device {a.device}")
+    return checked(x, "dense solve")

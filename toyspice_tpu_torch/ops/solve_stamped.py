@@ -34,7 +34,7 @@ import torch
 
 from . import _build
 from .newton import gauss_jordan, poison_rows
-from .solve import work_args, work_for
+from .solve import checked, work_args, work_for
 
 F64 = torch.float64
 
@@ -214,10 +214,12 @@ def solve_plain(pat: StampPattern, vals, rvals, gmin):
 def solve_lanes(pat: StampPattern, vals, rvals, gmin):
     """The kernel for CUDA tensors, its plain version for CPU tensors."""
     if vals.is_cuda:
-        return launch_stamped(pat, vals, rvals, gmin)
-    if vals.device.type == "cpu":
-        return solve_plain(pat, vals, rvals, gmin)
-    raise ValueError(f"no stamped-solve kernel for device {vals.device}")
+        x = launch_stamped(pat, vals, rvals, gmin)
+    elif vals.device.type == "cpu":
+        x = solve_plain(pat, vals, rvals, gmin)
+    else:
+        raise ValueError(f"no stamped-solve kernel for device {vals.device}")
+    return checked(x, "stamped solve")
 
 
 @functools.lru_cache(maxsize=None)
