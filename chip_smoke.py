@@ -200,12 +200,25 @@ seconds:
    on the kernels, the plain versions and torch.linalg.solve (bit for
    bit).  The script refuses to run while a TOYSPICE_* engine override
    is set.
+34. the sharded mesh (``toyspice_tpu_torch/parallel/mesh.py``): phase 4's
+   8192 lanes through run_transient_sharded on make_mesh(1) and on a
+   mesh of four shards of cuda:0 (one run-kernel launch a shard), bit for
+   bit with phase 4 and the summed count equal to its accepted steps
+   (across several cards too where the machine has them); then, each held
+   bit for bit to its unsharded run with the launches counted: the
+   rectifier's OP and diode_iv_sweep's sweep at 8192 lanes on four shards
+   (the OP and DC sweep kernels), ce_amplifier_ac on a (2, 2) mesh (the
+   OP and AC kernels) and lc16_ac_8192 on a (2, 3) mesh (its 21
+   frequencies: the stamped and GJ kernels), the rectifier with
+   store='full' and rc127's general engine at 1024 lanes on four shards;
+   then dryrun_multichip on every card.  Each wall is printed beside the
+   unsharded one.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30, 32, 33) and each path of phases 22-24, 28 and 31 runs with every kernel's
-launch count set to 0 just before and read just after.
+29, 30, 32, 33, 34) and each path of phases 22-24, 28 and 31 runs with every
+kernel's launch count set to 0 just before and read just after.
 """
 
 import concurrent.futures
@@ -232,6 +245,7 @@ from toyspice_tpu_torch.engine.overrides import VARS as OVERRIDES  # noqa: E402
 from toyspice_tpu_torch.engine.tran import make_tran  # noqa: E402
 from toyspice_tpu_torch.ops import (_build, ac, dc, op, run,  # noqa: E402
                                     run_plan, solve, solve_stamped)
+from toyspice_tpu_torch.parallel import dryrun, mesh  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_LANES = 8192
@@ -888,17 +902,19 @@ def stamped_phases(lanes):
     return stamped
 
 
+def rsen_is(cc, b):
+    """R, then the diode's Is, spread 0.1, numpy default_rng(0)."""
+    rng = np.random.default_rng(0)
+    ov = perturbed(cc, rng, b, ("R",))
+    is_ = np.asarray(cc.params["D"]["is_"])
+    ov["D"] = {"is_": is_[None] * np.exp(rng.normal(0.0, 0.1,
+                                                    (b, len(is_))))}
+    return ov
+
+
 def dc_phase(lanes):
     """Phase 9: the DC sweep main path and the DC sweep kernel against its
     plain version."""
-    def rsen_is(cc, b):
-        rng = np.random.default_rng(0)
-        ov = perturbed(cc, rng, b, ("R",))
-        is_ = np.asarray(cc.params["D"]["is_"])
-        ov["D"] = {"is_": is_[None] * np.exp(rng.normal(0.0, 0.1,
-                                                        (b, len(is_))))}
-        return ov
-
     t0 = time.perf_counter()
     cc, _, params, axes, state0 = setup(deck_file("diode_iv_sweep.cir"),
                                         rsen_is, lanes)
@@ -2238,6 +2254,16 @@ def cockcroft_walton(stages, tstop="2m"):
     return "\n".join(lines)
 
 
+def rc_ladder(stages):
+    """An RC ladder of ``stages`` stages (np1 = stages + 3) driven by a 1
+    kHz sine, to 0.05 ms."""
+    lines = [f"* {stages}-stage rc ladder", ".tran 0.01m 0.05m",
+             "Vin 1 0 SIN(0 1 1k)"]
+    for k in range(1, stages + 1):
+        lines += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 1n"]
+    return "\n".join(lines) + "\n"
+
+
 def lc_ladder(sections):
     """A doubly terminated 50 Ω LC low-pass of ``sections`` sections
     (tests/test_torch_general_analyses.py): np1 = 2·sections + 4 (an
@@ -2751,12 +2777,7 @@ def past_nbig_phase(lanes, smi):
     kernels against their plain versions on the same lanes, counters equal
     and bit for bit, and torch.linalg.solve on the same systems."""
     t0 = time.perf_counter()
-    lines = ["* 127-stage rc ladder", ".tran 0.01m 0.05m",
-             "Vin 1 0 SIN(0 1 1k)"]
-    for k in range(1, 128):
-        lines += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 1n"]
-    cc, cfg, params, axes, state0 = setup("\n".join(lines) + "\n",
-                                          c_spread, lanes)
+    cc, cfg, params, axes, state0 = setup(rc_ladder(127), c_spread, lanes)
     if cc.np1 != 130:
         fail(f"rc ladder past 128: np1 is {cc.np1}, not 130")
     ts.make_tran_batch(cc, cfg._replace(tstop=1e-5), axes)(params,
@@ -3142,6 +3163,225 @@ def user_surface_phase(smi):
     return st1, gj1
 
 
+MESH_SHARDS = 4
+
+
+def on_card(home, *shape):
+    """A mesh of ``shape`` shards, all on the device ``home`` (several
+    shards on one card run in turn): axes "data" and, for a 2-D shape,
+    "sweep"."""
+    devs = np.empty(shape, dtype=object)
+    devs[...] = home
+    return mesh.Mesh(devs, ("data", "sweep")[:len(shape)])
+
+
+def leaves(tree):
+    """The tensors of a result (tensors, dicts, tuples, None) in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in leaves(tree[key])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in leaves(v)]
+    return []
+
+
+def same_tree(a, b):
+    """Equal structure, shapes and dtypes, and equal bits leaf by leaf."""
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and (
+            same_bits(x, y) if x.is_floating_point() else torch.equal(x, y))
+        for x, y in zip(la, lb))
+
+
+def walled(fn):
+    """(result, wall s, launch counts) of fn(), the counts set to 0 just
+    before and read just after."""
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - w0, counts()
+
+
+def check_sharded(name, got, want, home):
+    """A sharded result: every leaf on ``home`` and equal bit for bit to
+    the unsharded run."""
+    if not all(x.device == home for x in leaves(got)):
+        fail(f"34 {name}: a sharded result is not on {home}")
+    if not same_tree(got, want):
+        fail(f"34 {name}: the sharded result is not bit for bit the "
+             "unsharded one")
+
+
+def mesh_phase(smi, bench_none, bench_wall, bench_overrides, lanes):
+    """Phase 34: the sharded analyses (parallel/mesh.py) on the card, each
+    held bit for bit to the unsharded run of the same inputs, with the
+    launches each shard implies; the store and the general engine at
+    ``lanes`` lanes."""
+    t0 = time.perf_counter()
+    n = MESH_SHARDS
+    home = mesh.make_mesh(1, device=DEVICE).first()
+    # bench_rlc_8192, the main path: one device, then four shards
+    cc = ts.compile_circuit(ts.parse(RLC))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, axes = ts.batch_params(cc, bench_overrides(cc, BENCH_LANES))
+    want_total = int(bench_none.accepted.sum())
+    walls = {}
+    for label, m in (("make_mesh(1)", mesh.make_mesh(1, device=DEVICE)),
+                     (f"{n} shards on {home}", on_card(home, n))):
+        (out, total), walls[label], got = walled(
+            lambda: mesh.run_transient_sharded(cc, cfg, m, params, axes))
+        check_counts(f"34 bench_rlc {label}", got,
+                     {"run_kernel": (m.size, m.size)})
+        check_sharded(f"bench_rlc {label}", out, bench_none, home)
+        if mesh.run_transient_sharded.last_engine != "run":
+            fail(f"34 bench_rlc {label}: engine "
+                 f"{mesh.run_transient_sharded.last_engine!r}")
+        if total.dtype != torch.int64 or int(total) != want_total:
+            fail(f"34 bench_rlc {label}: total {int(total)}, phase 4's "
+                 f"accepted sum {want_total}")
+    del out
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        (out, total), walls[f"make_mesh({cards})"], got = walled(
+            lambda: mesh.run_transient_sharded(
+                cc, cfg, mesh.make_mesh(cards), params, axes))
+        check_counts("34 bench_rlc across cards", got,
+                     {"run_kernel": (cards, cards)})
+        if not same_tree(out, bench_none) or int(total) != want_total:
+            fail("34 bench_rlc across cards differs from phase 4")
+        across = f"make_mesh({cards}) across the cards bit for bit"
+        del out
+    else:
+        across = (f"make_mesh(count) across cards not run: {cards} device "
+                  "on this machine")
+    phase("34 sharded mesh", t0,
+          f"bench_rlc_8192: {BENCH_LANES} lanes, total accepted "
+          f"{want_total} (phase 4's sum), bit for bit with phase 4, one "
+          "run-kernel launch a shard; wall unsharded (phase 4) "
+          f"{bench_wall:.6f} s, " + ", ".join(
+              f"{k} {v:.6f} s" for k, v in walls.items())
+          + f"; {across}; on {smi}")
+
+    def pair(name, deck, ov, b, unsharded, sharded, want, per_shard):
+        """The unsharded run (after a warm-up), then the sharded one, bit
+        for bit, each with its launches counted."""
+        t1 = time.perf_counter()
+        cc_, cfg_, params_, axes_, _ = setup(deck, ov, b)
+        unsharded(cc_, cfg_, params_, axes_)  # warm-up
+        free()
+        want_r, u_wall, u_got = walled(lambda: unsharded(cc_, cfg_, params_,
+                                                         axes_))
+        check_counts(f"34 {name} unsharded", u_got, want)
+        got_r, s_wall, s_got = walled(lambda: sharded(cc_, cfg_, params_,
+                                                      axes_))
+        # each shard launches at least what a run launches at least, and
+        # no more than the whole batch did (its lanes are a subset)
+        check_counts(f"34 {name} sharded", s_got, {
+            k: (lo * per_shard, u_got[k] * per_shard)
+            for k, (lo, _) in want.items()})
+        check_sharded(name, got_r, want_r, home)
+        phase("34 sharded mesh", t1,
+              f"{name}: {b} lanes, {per_shard} shards on {home}, bit "
+              "for bit with the unsharded run; launches unsharded "
+              + ", ".join(f"{k} {c}" for k, c in u_got.items() if c)
+              + ", sharded "
+              + ", ".join(f"{k} {c}" for k, c in s_got.items() if c)
+              + f"; wall unsharded {u_wall:.6f} s, sharded {s_wall:.6f} s "
+              f"on {smi}")
+        return got_r, want_r
+
+    op_mesh, ac_mesh = on_card(home, n), on_card(home, 2, 2)
+    hwr = deck_file("half_wave_rectifier.cir")
+    op_u, _ = pair(
+        "half_wave_rectifier OP (the OP kernel)", hwr, rc_spread,
+        BENCH_LANES, lambda c, f, p, a: ts.run_op_batch(c, p, a),
+        lambda c, f, p, a: mesh.run_op_sharded(c, op_mesh, p, a),
+        {"op_kernel": (1, 1 << 30)}, n)
+    if not bool(op_u.converged.all()) or \
+            mesh.run_op_sharded.last_engine != "fused":
+        fail("34 rectifier OP: a lane did not converge or the engine is "
+             f"{mesh.run_op_sharded.last_engine!r}")
+
+    def dc_args(c):
+        d = c.netlist.dc
+        return ((c.names["V"].index(d.source1),),
+                np.asarray(ts.sweep_values(d.start1, d.stop1, d.increment1)))
+
+    (xs, conv), _ = pair(
+        "diode_iv_sweep (the DC sweep kernel)",
+        deck_file("diode_iv_sweep.cir"), rsen_is, BENCH_LANES,
+        lambda c, f, p, a: ts.run_dc_batch(c, dc_args(c)[0], p, a,
+                                           dc_args(c)[1]),
+        lambda c, f, p, a: mesh.run_dc_sharded(c, dc_args(c)[0], op_mesh,
+                                               p, a, dc_args(c)[1]),
+        {"dc_sweep_kernel": (1, 1)}, n)
+    if not bool(conv.all()) or mesh.run_dc_sharded.last_engine != "fused":
+        fail("34 DC sweep: a point did not converge or the engine is "
+             f"{mesh.run_dc_sharded.last_engine!r}")
+    del xs, conv
+
+    def ac_runs(m):
+        def freqs(c):
+            a = c.netlist.ac
+            return ts.frequency_points(a.sweep, a.fstart, a.fstop, a.points)
+        return (lambda c, f, p, a: ts.run_ac_batch(c, p, a, freqs(c)),
+                lambda c, f, p, a: mesh.run_ac_sharded(c, m, p, a,
+                                                       freqs(c)))
+
+    pair("ce_amplifier_ac (the OP and AC kernels), a (2, 2) mesh",
+         deck_file("ce_amplifier_ac.cir"), rc_spread, BENCH_LANES,
+         *ac_runs(ac_mesh), {"op_kernel": (1, 1 << 30),
+                             "ac_kernel": (1, 1)}, 4)
+    free()
+    # lc16's 21 frequencies do not split over 2 columns: a (2, 3) mesh
+    pair("lc16_ac_8192 (the stamped solve and the GJ kernel), a (2, 3) "
+         "mesh", lc_ladder(16), c_spread, BENCH_LANES,
+         *ac_runs(on_card(home, 2, 3)),
+         {"stamped_solve": (1, 1), "gj_kernel": (1, 1)}, 6)
+    free()
+
+    def store_runs(c, f, p, a):
+        return ts.make_tran_batch(c, f, a, store="full")(
+            p, ts.init_state(c))
+
+    pair("half_wave_rectifier store='full' (the OP and store kernels)", hwr,
+         rc_spread, lanes, store_runs,
+         lambda c, f, p, a: mesh.run_transient_sharded(
+             c, f, op_mesh, p, a, store="full")[0],
+         {"op_kernel": (1, 1 << 30), "run_kernel_store": (1, 1)}, n)
+    free()
+    pair("rc127_1024 (the general engine, the stamped wide body)",
+         rc_ladder(127), c_spread, lanes,
+         lambda c, f, p, a: ts.make_tran_batch(c, f, a)(p, ts.init_state(c)),
+         lambda c, f, p, a: mesh.run_transient_sharded(c, f, op_mesh, p,
+                                                       a)[0],
+         {"stamped_solve": (1, 1 << 30)}, n)
+    if mesh.run_transient_sharded.last_engine != "general":
+        fail("34 rc127: engine "
+             f"{mesh.run_transient_sharded.last_engine!r}, expected "
+             "'general'")
+    free()
+
+    t1 = time.perf_counter()
+    _, d_wall, got = walled(lambda: dryrun.dryrun_multichip(
+        cards, device=DEVICE))
+    want = {"run_kernel": (cards, cards), "op_kernel": (cards, 1 << 30),
+            "dc_sweep_kernel": (cards, cards)}
+    if cards % 2 == 0:
+        want.update(ac_kernel=(cards, cards), stamped_solve=(cards, cards))
+    check_counts("34 dryrun_multichip", got, want)
+    phase("34 sharded mesh", t1,
+          f"dryrun_multichip({cards}) passed, wall {d_wall:.6f} s; launches "
+          + ", ".join(f"{k} {c}" for k, c in got.items() if c))
+    phase("34 sharded mesh", t0, "every sharded run bit for bit with its "
+          "unsharded one")
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3303,7 +3543,7 @@ def main():
             and torch.equal(out.t_final, k.t)):
         fail("main path differs from phase 3's kernel run on the same lanes")
     rate = accepted / wall
-    bench_none = out
+    bench_none, bench_wall = out, wall
     seg_w, seg_lanes, seg_blocks, seg_threads, seg_shmem = \
         run.segment_shape(bench["plan"], BENCH_LANES)
     phase("4 main path", t0,
@@ -3476,6 +3716,7 @@ def main():
     compat_trap_phase(1024)
     st_work, gj_work = past_nbig_phase(1024, smi)
     st_single, gj_single = user_surface_phase(smi)
+    mesh_phase(smi, bench_none, bench_wall, bench_overrides, 1024)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]

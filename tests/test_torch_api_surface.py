@@ -1,15 +1,14 @@
 """Every public name of the JAX package's user surface has its
 counterpart in the port: ``toyspice_tpu``, ``toyspice_tpu.engine``,
-``.utils``, ``.ops``, ``.hostsim``, ``.debug``, ``.cli``, ``.native`` and
-``.utils.profiling``.
+``.utils``, ``.ops``, ``.hostsim``, ``.debug``, ``.cli``, ``.native``,
+``.utils.profiling`` and ``.parallel``.
 
 A public name is one in the module's ``__all__`` where it has one, else
 one without a leading underscore that the JAX package defines (its
 ``__module__`` is in ``toyspice_tpu``) or that is a constant.  Three
 names of ``toyspice_tpu.ops`` are the Pallas kernels' wrappers and have
-the hand-written kernels' wrappers as counterparts (``RENAMED``).
-``toyspice_tpu.parallel`` (the device mesh) is exempt: multi-GPU is the
-next slice of the port."""
+the hand-written kernels' wrappers as counterparts (``RENAMED``).  Every
+subpackage of the JAX package has its counterpart; none is exempt."""
 
 import importlib
 import inspect
@@ -19,10 +18,10 @@ import pytest
 import toyspice_tpu  # noqa: F401  (tests/conftest.py set JAX up)
 
 MODULES = ("", ".engine", ".utils", ".ops", ".hostsim", ".debug", ".cli",
-           ".native", ".utils.profiling")
+           ".native", ".utils.profiling", ".parallel")
 # the JAX package's Pallas wrappers -> the port's kernel wrappers
 RENAMED = {(".ops", "pallas_solve_batched"): "launch_gj"}
-EXEMPT = ("toyspice_tpu.parallel",)
+EXEMPT = ()
 
 
 def public_names(mod):

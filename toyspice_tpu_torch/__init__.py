@@ -45,6 +45,13 @@ there too.  The JAX package's engine overrides (``TOYSPICE_TRAN``,
 engines and between the kernels and their plain versions
 (``engine/batch.py``, ``ops/solve.py``).
 
+``parallel`` shards a Monte-Carlo batch over a mesh of devices
+(``parallel/mesh.py``: ``run_transient_sharded``, ``run_op_sharded``,
+``run_dc_sharded``, ``run_ac_sharded`` over a batch x frequency mesh; a
+host thread a card, each shard the batch API's own engine), and
+``parallel/dryrun.py`` and ``examples/`` are the JAX package's graft entry
+and programmatic-API examples.
+
     r = run_analysis("circuits/half_wave_rectifier.cir")  # on the card
     r["TIME"], r["V(dcout)"]
 

@@ -375,6 +375,29 @@ def run_op_batch(cc, params, in_axes=None, opts: SimOptions = DEFAULTS,
     return fn(params, init_state(cc, device=first_leaf(params).device))
 
 
+def make_dc_engine(cc, src_slots, opts: SimOptions = DEFAULTS,
+                   semantics: str = "compat"):
+    """(engine, reason, fn) of the batched DC sweep as ``select_op_engine``
+    picks it, built with the solves and kernels the overrides choose:
+    fn(params, state0, points) -> (xs, conv) through the DC sweep kernel's
+    ``make_dc_fused`` or the general engine's (or the linear) ``make_dc``."""
+    from ..ops.dc import dc_lanes, dc_plain, make_dc_fused
+    from .dc import make_dc
+
+    engine, reason = select_op_engine(cc, semantics, opts)
+    if engine != "fused":
+        return engine, reason, make_dc(cc, src_slots, opts, semantics,
+                                       solve=overrides.solves().get("solve"))
+    fused = make_dc_fused(cc, src_slots, opts, semantics, solve=(
+        dc_plain if overrides.kernels_plain() else dc_lanes))
+
+    def fn(params, state0, points):
+        r = fused(params, state0, points)
+        return r.xs, r.conv
+
+    return engine, reason, fn
+
+
 def run_dc_batch(cc, src_slots, params, in_axes=None, points=None,
                  opts: SimOptions = DEFAULTS, semantics: str = "compat"):
     """Batched DC sweep.  Returns (xs (B, P, np1), conv (B, P)): a
@@ -382,24 +405,15 @@ def run_dc_batch(cc, src_slots, params, in_axes=None, points=None,
     in one launch, junction voltages carried point to point,
     dc.go:142-187), a nonlinear deck past the kernels' caps through the
     general engine's sweep (one host loop over the points), a linear one
-    through one stamped solve of all B·P systems.  ``points`` is (P,) or
-    (P, 2) for a nested sweep; ``in_axes`` keeps the JAX package's call
-    shape."""
-    from ..ops.dc import dc_lanes, dc_plain, make_dc_fused
+    through one stamped solve of all B·P systems (``make_dc_engine``).
+    ``points`` is (P,) or (P, 2) for a nested sweep; ``in_axes`` keeps the
+    JAX package's call shape."""
     from ..ops.run_plan import first_leaf
-    from .dc import make_dc
 
-    engine, reason = select_op_engine(cc, semantics, opts)
+    engine, reason, fn = make_dc_engine(cc, src_slots, opts, semantics)
     _log.info("dc engine: %s (%s)", engine, reason)
-    state0 = init_state(cc, device=first_leaf(params).device)
-    if engine == "fused":
-        r = make_dc_fused(cc, src_slots, opts, semantics, solve=(
-            dc_plain if overrides.kernels_plain() else dc_lanes))(
-                params, state0, points)
-        return r.xs, r.conv
-    solve = overrides.solves().get("solve")
-    return make_dc(cc, src_slots, opts, semantics, solve=solve)(
-        params, state0, points)
+    return fn(params, init_state(cc, device=first_leaf(params).device),
+              points)
 
 
 def run_ac_batch(cc, params, in_axes=None, freqs=None,

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -51,6 +52,19 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs = {}
+# ``load`` builds and binds under one lock: the mesh's per-device threads
+# (parallel/mesh.py) may ask for a library at once, and two builds of it
+# would write one temporary file
+_load_lock = threading.Lock()
+# the wrappers' launch counts, read-modify-write from those threads
+_count_lock = threading.Lock()
+
+
+def count(wrapper):
+    """Add one to ``wrapper.launches`` (a wrapper calls it where it has
+    launched its kernel)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def nvcc_path():
@@ -153,18 +167,19 @@ _ARGTYPES = {
 
 def load(name="run"):
     """The bound library of one kernel (built at first use)."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        kinds = {"i": ctypes.c_int, "q": ctypes.c_longlong,
-                 "p": ctypes.c_void_p, "d": ctypes.c_double}
-        for fn_name, sig in _ARGTYPES[name]:
-            fn = getattr(lib, fn_name)
-            fn.argtypes = [kinds[c] for c in sig]
-            fn.restype = ctypes.c_int
-        lib.tsr_error_string.argtypes = [ctypes.c_int]
-        lib.tsr_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
+    with _load_lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build((name,))[name]))
+            kinds = {"i": ctypes.c_int, "q": ctypes.c_longlong,
+                     "p": ctypes.c_void_p, "d": ctypes.c_double}
+            for fn_name, sig in _ARGTYPES[name]:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = [kinds[c] for c in sig]
+                fn.restype = ctypes.c_int
+            lib.tsr_error_string.argtypes = [ctypes.c_int]
+            lib.tsr_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
 
 
 def error_string(err, name="run"):

@@ -82,7 +82,7 @@ def launch_ac_kernel(g, bh, r, omega):
     if err != 0:
         raise RuntimeError(f"AC kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'ac')})")
-    launch_ac_kernel.launches += 1
+    _build.count(launch_ac_kernel)
     return x
 
 

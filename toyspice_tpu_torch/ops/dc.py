@@ -120,7 +120,7 @@ def launch_dc_kernel(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
     if err != 0:
         raise RuntimeError(f"DC sweep kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'dc')})")
-    launch_dc_kernel.launches += 1
+    _build.count(launch_dc_kernel)
     return DCResult(xs, conv > 0, iters)
 
 

@@ -171,7 +171,7 @@ def launch_op_kernel(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     if err != 0:
         raise RuntimeError(f"OP kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'op')})")
-    launch_op_kernel.launches += 1
+    _build.count(launch_op_kernel)
     return OPLaunch(x, iters, conv > 0, jv)
 
 

@@ -345,7 +345,7 @@ def launch_run_kernel(plan, dev, src, state, sc: RunScalars,
     ``ops/run_plan`` (``jv`` None: zero junction voltages); the inputs are
     not modified."""
     res, _ = _launch(plan, dev, src, state, sc, jv, None, None)
-    launch_run_kernel.launches += 1
+    _build.count(launch_run_kernel)
     return res
 
 
@@ -362,7 +362,7 @@ def launch_store_kernel(plan, dev, src, state, sc: RunScalars,
     zeroed out_x and out_t to write into (its out_n and overflow are not
     read) in place of new ones."""
     res = _launch(plan, dev, src, state, sc, jv, start, store, out)
-    launch_store_kernel.launches += 1
+    _build.count(launch_store_kernel)
     return res
 
 

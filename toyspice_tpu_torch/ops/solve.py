@@ -108,7 +108,7 @@ def launch_gj(a, b):
     if err != 0:
         raise RuntimeError(f"GJ kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'gj')})")
-    launch_gj.launches += 1
+    _build.count(launch_gj)
     return x
 
 

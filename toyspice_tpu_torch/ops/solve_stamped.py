@@ -185,7 +185,7 @@ def launch_stamped(pat: StampPattern, vals, rvals, gmin):
     if err != 0:
         raise RuntimeError(f"stamped-solve kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err, 'stamped')})")
-    launch_stamped.launches += 1
+    _build.count(launch_stamped)
     return x
 
 
