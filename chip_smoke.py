@@ -11,15 +11,16 @@ seconds:
 2. build: the whole-run kernel (its compat instantiations in
    run_kernel.cu, its physics ones in run_kernel_phys.cu, its physics
    magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
-   source built without and with the waveform store), the OP kernel, the
+   source built without and with the waveform store, each of those as two
+   objects, the 64-row bucket and the rest), the OP kernel, the
    DC sweep kernel, the stamped solve (a warp segment per lane to np1 =
    32, a warp per lane to 64, a block per lane above: in registers to 144,
    in shared memory to 168, past it in device memory), the AC kernel (a
    warp segment per system)
-   and the GJ kernel, one ``nvcc`` call per library, all started
+   and the GJ kernel, one ``nvcc`` call per library or part, all started
    together (ops/_build.py) in a thread of their own, while phase 3's
    and phase 27's plain versions, which need no library, run on the
-   card.
+   card; the line gives each library's seconds.
 3. run kernel against its plain torch version on linear decks, on the
    card (the plain versions first, beside the build): 256 lanes each of an RC driven by SIN, an RL driven by PULSE and a
    PWL current source into an RC ladder, the RL deck again with minstep =
@@ -155,13 +156,18 @@ seconds:
    general OP with its GJ seed, the general Newton over the stamped solve)
    and through make_tran_batch (the OP and run kernels): counters equal,
    state and jv within rtol 1e-9.
-29. the general engine's main path cw16_8192: a 16-stage Cockcroft-Walton
-   multiplier (np1 = 35, 32 diodes, past the kernels' caps), C spread 0.1,
-   make_tran_batch to 2 ms: engine "general", one GJ launch (the OP's
-   seed), one launch of the stamped solve's warp instantiation per batched
-   Newton iteration, no other kernel, no lane failed; then the kernels
-   against their plain versions on the same lanes over the first 0.1 ms
-   (bit-identical).
+29. the main path cw16_8192: a 16-stage Cockcroft-Walton multiplier
+   (np1 = 35, 32 diodes: the 64-row bucket, a warp a lane), C spread 0.1,
+   make_tran_batch to 2 ms: engine "run", one OP and one run launch, no
+   stamped or GJ launch, no lane failed, every lane at tstop, every
+   capacitor voltage finite and under 3200 V; the run kernel against its
+   plain version bit for bit on those lanes over the first 0.1 ms and on
+   259 lanes over the whole run, the OP kernel against its plain
+   version; then, under TOYSPICE_TRAN=general, the general engine over
+   the first 0.1 ms (one GJ launch for the OP's seed, a stamped launch of
+   the warp instantiation per batched Newton iteration): counters equal
+   to the run kernel's over that cut, state within rtol 1e-9, and its
+   kernels against their plain versions (bit-identical).
 30. lc16_ac_8192: a 16-section LC ladder (np1 = 36, a 72 x 72 AC system),
    C spread 0.1, run_ac_batch: the linear OP (one stamped launch at
    n = 36), then one GJ launch for the 8192 x 21 = 172,032 systems; the GJ
@@ -213,12 +219,23 @@ seconds:
    store='full' and rc127's general engine at 1024 lanes on four shards;
    then dryrun_multichip on every card.  Each wall is printed beside the
    unsharded one.
+35. the 64-row bucket's other instantiations at 259 lanes, each through
+   its entry point (counts reset before) and then bit for bit against its
+   plain version: compat linear at np1 = 64 (a 61-stage RC ladder), cw16
+   under physics BE and trap to 0.1 ms, TRANS_SMALL's secondary into a
+   28-section RC ladder (np1 = 35; compat and physics/trap) and with a
+   diode at its end (np1 = 36, the magnetic Newton ones), a deck of np1 =
+   4 with 30 MOSFETs (whose value slots overflow its bucket's block, so
+   it takes the 64-row bucket), cw16 with store='full' to 0.1 ms and its
+   streamed stitch, cw16's OP under physics, and the DC sweep of a string
+   of 32 diodes (compat at 8192 lanes, physics at 259).
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30, 32, 33, 34) and each path of phases 22-24, 28 and 31 runs with every
-kernel's launch count set to 0 just before and read just after.
+29, 30, 32, 33, 34) and each path of phases 22-24, 28, 31 and 35 runs
+with every kernel's launch count set to 0 just before and read just
+after.
 """
 
 import concurrent.futures
@@ -2485,26 +2502,32 @@ def stamped_systems(pat, vals, rvals, gmin):
     return m[:, :, :pat.n].contiguous(), m[:, :, pat.n:].contiguous()
 
 
-def cw16_phase(lanes, smi):
+def cw16_phase(lanes, smi, cut_lanes=GJ_LANES):
     """Phase 29: the main path cw16_8192: a 16-stage Cockcroft-Walton
-    multiplier (np1 = 35, 32 diodes: past the kernels' caps), C spread
-    0.1, compat, store='none', not UIC, through make_tran_batch: engine
-    "general", the GJ kernel for the OP's seed, the stamped solve's warp
-    instantiation (n = 35) once per batched Newton iteration, no run, OP
-    or store kernel; no lane failed, every lane at tstop.  Then the
-    general engine with the kernels against the general engine with their
-    plain versions on the same 8192 lanes over the run's first 0.1 ms:
-    counters equal, state and jv bit-identical; the stamped kernel's, the
-    plain version's and torch.linalg.solve's times are those launches'."""
+    multiplier (np1 = 35, 32 diodes: the kernels' 64-row bucket, a lane's
+    system on a whole warp), C spread 0.1, compat, store='none', not UIC,
+    through make_tran_batch to 2 ms: engine "run", one OP launch and one
+    run launch, no stamped or GJ launch; no lane failed, every lane at
+    tstop, every capacitor voltage finite and under 3200 V.  The run
+    launch alone on the main path's inputs, then the run kernel against
+    run_plain bit for bit on the same lanes over the run's first 0.1 ms
+    and on ``cut_lanes`` lanes over the whole run; the OP kernel against
+    op_plain on the main path's lanes.  Then, under TOYSPICE_TRAN=general,
+    make_tran_batch's general engine over the first 0.1 ms: counters equal
+    to the run kernel's over that cut, state and jv within rtol 1e-9; and
+    the general engine with the stamped and GJ kernels against it with
+    their plain versions on the same lanes (counters equal, state and jv
+    bit for bit), the kernels' times and torch.linalg.solve's being those
+    launches'."""
     t0 = time.perf_counter()
     deck = cockcroft_walton(16)
     cc, cfg, params, axes, state0 = setup(deck, c_spread, lanes)
     if cc.np1 != 35 or cc.kind_count("D") != 32:
         fail("cw16: np1 is not 35 or the diodes are not 32")
     short = cfg._replace(tstop=1e-4)
-    ts.make_tran_batch(cc, short, axes)(params, state0)  # warm-up
+    kr = ts.make_tran_batch(cc, short, axes)(params, state0)  # warm-up
     fn = ts.make_tran_batch(cc, cfg, axes)
-    if fn.engine != "general" or "np1=35" not in fn.engine_reason:
+    if fn.engine != "run":
         fail(f"cw16 engine {fn.engine!r} ({fn.engine_reason})")
     torch.cuda.synchronize()
     reset_counts()
@@ -2513,8 +2536,8 @@ def cw16_phase(lanes, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     got = counts()
-    check_counts("cw16 main path", got, {"gj_kernel": (1, 2),
-                                         "stamped_solve": (1, 1 << 30)})
+    check_counts("cw16 main path", got, {"op_kernel": (1, 1),
+                                         "run_kernel": (1, 1)})
     accepted = int(out.accepted.sum())
     failed = int(out.fail.sum())
     if failed or not bool((out.t_final == cfg.tstop).all()):
@@ -2526,8 +2549,103 @@ def cw16_phase(lanes, smi):
         fail("cw16 main path: a capacitor voltage is not finite or exceeds "
              "16 stages of 200 V")
     nri = out.nr_iters
-    # the kernels against their plain versions on the same 8192 lanes, the
-    # run cut to its first 0.1 ms (a whole plain run takes ~35 s)
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+    shape = run.segment_shape(plan, lanes)
+    k, main_ms = timed_call(run.launch_run_kernel, plan, dev, src, st, sc,
+                            jv0)
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.nr_iters, k.nr_iters)
+            and torch.equal(out.t_final, k.t)
+            and torch.equal(out.jv["D"]["vd"], k.jv)):
+        fail("cw16 main path differs from a run-kernel launch on its "
+             "inputs")
+    main_flops = run_bound(plan, k, False)
+    main_bytes = run_nbytes(plan, dev, src, st, jv0, lanes)
+    del k
+    # the run kernel against its plain version: these lanes over the first
+    # 0.1 ms, cut_lanes lanes over the whole run
+    sc_short = sc._replace(tstop=short.tstop)
+    kc, kc_ms, pc, pc_ms = kernel_vs_plain(plan, dev, src, st, sc_short, jv0)
+    err = compare_run("cw16 run kernel, first 0.1 ms", kc, pc, check_jv=True)
+    cut = [x[:cut_lanes] for x in (dev, src, st, jv0)]
+    kw_ = run.launch_run_kernel(plan, cut[0], cut[1], cut[2], sc, cut[3])
+    pw_, pw_ms = plain_timed(plan, *cut[:3], sc, cut[3])
+    err = max(err, compare_run("cw16 run kernel, whole run", kw_, pw_,
+                               check_jv=True))
+    run_wide = dict(launches=got["run_kernel"], err=err, k_ms=kc_ms,
+                    p_ms=pc_ms, flops=run_bound(plan, kc, False),
+                    nbytes=run_nbytes(plan, dev, src, st, jv0, lanes))
+    del pc, kw_, pw_
+    # the OP kernel against its plain version on the main path's lanes
+    tk, tp_ = TimedSolve(op.op_lanes), TimedSolve(op.op_plain)
+    ko = op.make_op_fused(cc, DEFAULTS, solve=tk)(params, state0)
+    po = op.make_op_fused(cc, DEFAULTS, solve=tp_)(params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        if not torch.equal(getattr(ko, key), getattr(po, key)):
+            fail(f"cw16 OP: {key} differs between the kernel and op_plain")
+    if not bool(ko.converged.all()):
+        fail("cw16 OP: a lane did not converge")
+    plan_op = tk.args[0][0]
+    op_wide = dict(
+        launches=got["op_kernel"],
+        err=exact_err("cw16 OP", [("x", ko.x, po.x)] + [
+            (f"jv.{kd}.{key}", ko.jv[kd][key], po.jv[kd][key])
+            for kd in po.jv for key in po.jv[kd]]),
+        k_ms=tk.ms(), p_ms=tp_.ms(),
+        flops=int(ko.iters_all.sum()) * newton_flops(plan_op) + lanes * (
+            build_flops(plan_op, plan_op.entries[:plan_op.n_lin])
+            + lu_flops(plan_op.np1)),
+        nbytes=len(tk.events) * (lanes * (8 * (
+            plan_op.nd + op.dyn_width(plan_op)
+            + 2 * (plan_op.np1 + plan_op.kj)) + 8) + plan_op.topo.nbytes))
+    del ko, po, tk, tp_
+    phase("29 cw16_8192 main path", t0,
+          f"cw16 (np1={cc.np1}, {cc.kind_count('D')} diodes): engine="
+          f"{fn.engine} ({fn.engine_reason}), OP kernel launches="
+          f"{got['op_kernel']}, run kernel launches={got['run_kernel']}, "
+          f"stamped-solve launches={got['stamped_solve']}, GJ kernel "
+          f"launches={got['gj_kernel']}; launch shape (the library's): "
+          f"segments of W={shape[0]} threads, {shape[1]} lanes a block, "
+          f"{shape[2]} blocks of {shape[3]} threads, {shape[4]} B of shared "
+          f"memory a block; lanes={lanes}, accepted={accepted}, attempts="
+          f"{int(out.attempts.sum())}, failed={failed}, every lane at "
+          f"tstop, Newton iterations per lane {int(nri.min())}.."
+          f"{int(nri.max())} (mean {float(nri.double().mean()):.3f}), wall="
+          f"{wall:.6f} s, {accepted / wall:.6e} accepted steps/s on {smi}; "
+          f"the run launch alone on its inputs {main_ms:.3f} ms; the run "
+          f"kernel vs run_plain on these lanes over the first 0.1 ms "
+          f"(kernel {kc_ms:.3f} ms, plain {pc_ms:.1f} ms) and on "
+          f"{cut_lanes} lanes over the whole run (plain {pw_ms:.1f} ms): "
+          f"counters equal, bit for bit, max abs err {err:.3e}; the OP "
+          f"kernel vs op_plain: bit for bit, kernel {op_wide['k_ms']:.3f} "
+          f"ms, plain {op_wide['p_ms']:.1f} ms")
+
+    # the general engine over the first 0.1 ms, chosen by its override
+    t0 = time.perf_counter()
+    os.environ["TOYSPICE_TRAN"] = "general"
+    try:
+        fg = ts.make_tran_batch(cc, short, axes)
+    finally:
+        del os.environ["TOYSPICE_TRAN"]
+    if fg.engine != "general":
+        fail(f"cw16 under TOYSPICE_TRAN=general: engine {fg.engine!r}")
+    reset_counts()
+    g = fg(params, state0)
+    torch.cuda.synchronize()
+    gc_ = counts()
+    check_counts("cw16 general engine", gc_, {"gj_kernel": (1, 2),
+                                              "stamped_solve": (1, 1 << 30)})
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        if not torch.equal(getattr(kr, key), getattr(g, key)):
+            fail(f"cw16 general engine vs run kernel: {key} differs")
+    gen_err = max_err("cw16 general engine vs run kernel", [
+        ("t_final", g.t_final, kr.t_final)] + [
+        (f"{what}.{kd}.{key}", gt[kd][key], kt[kd][key])
+        for what, gt, kt in (("state", g.state, kr.state),
+                             ("jv", g.jv, kr.jv))
+        for kd in kt for key in kt[kd]])
+    del g, kr
+    # its kernels against their plain versions on the same lanes
     tk, gk = (TimedSolve(solve_stamped.solve_lanes, stamped_systems),
               TimedSolve(solve.linear_solve))
     tp_, gp = TimedSolve(solve_stamped.solve_plain), TimedSolve(solve.gj_plain)
@@ -2553,11 +2671,11 @@ def cw16_phase(lanes, smi):
     per_launch_bytes = (nbytes(vals, rvals, gmin) + pat.table.nbytes
                         + lanes * pat.n * 8)
     stamped_big = dict(
-        launches=got["stamped_solve"], err=err, k_ms=tk.ms(),
+        launches=gc_["stamped_solve"], err=err, k_ms=tk.ms(),
         p_ms=tp_.ms(), lib_ms=tk.ms(lib=True), calls=calls,
         flops=calls * lanes * stamped_flops(pat),
         nbytes=calls * per_launch_bytes, n=pat.n, terms=int(pat.table[0]))
-    gj_seed = dict(launches=got["gj_kernel"], k_ms=gk.ms(), p_ms=gp.ms(),
+    gj_seed = dict(launches=gc_["gj_kernel"], k_ms=gk.ms(), p_ms=gp.ms(),
                    systems=ga.shape[0], n=ga.shape[1],
                    flops=len(gk.args) * ga.shape[0] * lu_flops(ga.shape[1]),
                    nbytes=len(gk.args) * (nbytes(ga, gb) + nbytes(gb)))
@@ -2568,18 +2686,15 @@ def cw16_phase(lanes, smi):
     gl1.record()
     torch.cuda.synchronize()
     gj_seed["lib_ms"] = len(gk.args) * gl0.elapsed_time(gl1)
-    phase("29 cw16_8192 main path", t0,
-          f"cw16 (np1={cc.np1}, {cc.kind_count('D')} diodes): engine="
-          f"{fn.engine} ({fn.engine_reason}), GJ kernel launches="
-          f"{got['gj_kernel']}, stamped-solve launches="
-          f"{got['stamped_solve']} (warp instantiation, n={pat.n}, "
-          f"{int(pat.table[0])} terms), lanes={lanes}, accepted={accepted}, "
-          f"attempts={int(out.attempts.sum())}, failed={failed}, every lane "
-          f"at tstop, Newton iterations per lane {int(nri.min())}.."
-          f"{int(nri.max())} (mean {float(nri.double().mean()):.3f}), wall="
-          f"{wall:.6f} s, {accepted / wall:.6e} accepted steps/s on {smi}; "
-          f"the kernels vs their plain versions on these lanes over the "
-          f"first 0.1 ms ({calls} stamped launches): counters equal, "
+    phase("29 cw16_8192 general engine", t0,
+          f"cw16 under TOYSPICE_TRAN=general, the first 0.1 ms: engine="
+          f"{fg.engine} ({fg.engine_reason}), GJ kernel launches="
+          f"{gc_['gj_kernel']}, stamped-solve launches="
+          f"{gc_['stamped_solve']} (warp instantiation, n={pat.n}, "
+          f"{int(pat.table[0])} terms), no run or OP kernel launch; "
+          f"counters equal to the run kernel's over that cut, max abs err "
+          f"{gen_err:.3e}; the kernels vs their plain versions on these "
+          f"lanes ({calls} stamped launches): counters equal, "
           f"bit-identical, max abs err {err:.3e}; stamped kernel "
           f"{stamped_big['k_ms']:.3f} ms ({stamped_big['k_ms'] / calls:.4f} "
           f"ms a launch), plain {stamped_big['p_ms']:.1f} ms, "
@@ -2588,7 +2703,9 @@ def cw16_phase(lanes, smi):
           f"kernel {gj_seed['k_ms']:.3f} ms, plain {gj_seed['p_ms']:.3f} ms")
     del k, p, tk, gk, tp_, gp
     free()
-    return stamped_big, gj_seed
+    return (stamped_big, gj_seed, run_wide, op_wide,
+            dict(wall=wall, accepted=accepted, main_ms=main_ms,
+                 flops=main_flops, nbytes=main_bytes))
 
 
 def lc16_phase(lanes, smi, chunk=16384):
@@ -2670,6 +2787,249 @@ def lc16_phase(lanes, smi, chunk=16384):
     del a2, b2, x, gk
     free()
     return gj_ac
+
+
+def diode_string(count):
+    """``count`` diodes in series from a swept 0-40 V source through 1 kΩ
+    (np1 = count + 3; tests/test_torch_wide_bucket.py)."""
+    lines = ["* diode string", ".dc V1 0 40 5", "V1 1 0 DC 20", "R1 1 2 1k"]
+    lines += [f"D{k} {k + 2} {k + 3} DM" for k in range(count - 1)]
+    lines += [f"D{count - 1} {count + 1} 0 DM", ".model DM D (Is=1e-14)",
+              ""]
+    return "\n".join(lines)
+
+
+def magnetic_ladder(diode=False):
+    """TRANS_SMALL's secondary into a 28-section RC ladder (np1 = 35), with
+    ``diode`` a diode and an RC load at its end (np1 = 36)
+    (tests/test_torch_wide_bucket.py)."""
+    lines = ["Rl1 3 m1 20", "Cl1 m1 0 10n"]
+    for k in range(2, 29):
+        lines += [f"Rl{k} m{k - 1} m{k} 20", f"Cl{k} m{k} 0 10n"]
+    lines += (["D1 m28 d DMOD", "Rload d 0 1k", "Cload d 0 10u",
+               ".model DMOD D(IS=1e-14)"] if diode else ["Rload m28 0 1000"])
+    return TRANS_SMALL.replace("Rload 3 0 1000", "\n".join(lines))
+
+
+def parallel_mosfets(count):
+    """``count`` diode-connected NMOS in parallel behind 1 kΩ (np1 = 4),
+    whose value slots overflow the 4-row bucket's block: the run kernel
+    takes the 64-row bucket (tests/test_torch_wide_bucket.py)."""
+    lines = ["* diode-connected nmos", ".tran 1u 20u",
+             "V1 1 0 SIN(3 2 100k)", "R1 1 2 1k", "C1 2 0 1n"]
+    lines += [f"M{k} 2 2 0 0 NM L=2u W={10 + k}u" for k in range(count)]
+    lines += [".model NM NMOS(Vto=1 Kp=2e-5)", ""]
+    return "\n".join(lines)
+
+
+# phase 35's transients: (name, deck, semantics, trap), each through
+# make_tran_batch, then its instantiation of the 64-row bucket against its
+# plain version
+WIDE_RUNS = (
+    ("linear", rc_ladder(61), "compat", False),
+    ("physics_be", cockcroft_walton(16, "0.1m"), "physics", False),
+    ("physics", cockcroft_walton(16, "0.1m"), "physics", True),
+    ("magnetic", magnetic_ladder(), "compat", False),
+    ("physics_magnetic", magnetic_ladder(), "physics", True),
+    ("magnetic_newton", magnetic_ladder(True), "compat", False),
+    ("physics_magnetic_newton", magnetic_ladder(True), "physics", True),
+    ("promoted", parallel_mosfets(30), "compat", False))
+
+
+def wide_phase(lanes, main_lanes, smi):
+    """Phase 35: every other instantiation of the 64-row bucket (np1 33 to
+    64, a whole warp a lane), ``lanes`` lanes, R and C spread, each
+    through its entry point with the launch counts set to 0 just before
+    (make_tran_batch, run_op_batch, run_dc_batch), then held bit for bit
+    to its plain version: WIDE_RUNS (compat linear at np1 = 64; cw16 under
+    physics, BE and trap, to 0.1 ms; the magnetic ladder, compat and
+    physics/trap, linear and with a diode; a 4-row deck of 30 MOSFETs
+    that takes the 64-row bucket), the store (cw16 to 0.1 ms with
+    store='full') and a streamed stitch of it, cw16's OP under physics,
+    and the DC sweep of a string of 32 diodes, compat at ``main_lanes``
+    lanes and physics at ``lanes``.  Returns each one's launches, max abs
+    err, kernel and plain ms and bound's work."""
+    res = {}
+    for name, deck, semantics, trap in WIDE_RUNS:
+        t0 = time.perf_counter()
+        opts = ts.SimOptions(integration="trap" if trap else "be")
+        cc, cfg, params, axes, state0 = setup(deck, rc_spread, lanes)
+        fn = ts.make_tran_batch(cc, cfg, axes, semantics=semantics,
+                                opts=opts)
+        if fn.engine != "run":
+            fail(f"wide {name}: engine {fn.engine!r} ({fn.engine_reason})")
+        fn(params, state0)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(params, state0)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"wide {name} path", got, {
+            "run_kernel": (1, 1), "op_kernel": (0, 1 << 30),
+            "stamped_solve": (0, 1 << 30), "gj_kernel": (0, 1 << 30)})
+        if bool(out.fail.any()) or not bool((out.t_final == cfg.tstop).all()):
+            fail(f"wide {name}: a lane failed or stopped early")
+        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0,
+                                                  opts, semantics)
+        shape = run.segment_shape(plan, lanes)
+        if shape[0] != 32:
+            fail(f"wide {name}: segments of {shape[0]}, not a warp")
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+        e = compare_run(f"wide {name}", k, p, check_jv=jv0 is not None)
+        if not (torch.equal(out.attempts, k.attempts)
+                and torch.equal(out.nr_iters, k.nr_iters)
+                and torch.equal(out.t_final, k.t)):
+            fail(f"wide {name}: the path differs from a kernel run")
+        res[name] = dict(launches=got["run_kernel"], err=e, k_ms=k_ms,
+                         p_ms=p_ms,
+                         flops=run_bound(plan, k, semantics == "physics"),
+                         nbytes=run_nbytes(plan, dev, src, st, jv0, lanes))
+        phase("35 64-row bucket vs plain", t0,
+              f"{name} ({semantics}/{'trap' if trap else 'be'}, np1="
+              f"{plan.np1}, {sum(plan.counts[5:])} D/Q/M): {lanes} lanes, "
+              f"segments of {shape[0]}, {shape[1]} lanes a block, "
+              f"{shape[4]} B a block; launches {got}; accepted "
+              f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
+              f"NR iterations {int(k.nr_iters.sum())}, failed 0; counters "
+              f"equal, bit for bit, max abs err {e:.3e}; kernel {k_ms:.3f} "
+              f"ms, plain {p_ms:.1f} ms")
+        del k, p, out
+
+    # the store: cw16 to 0.1 ms with store='full', then a streamed stitch
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(cockcroft_walton(16, "0.1m"),
+                                          rc_spread, lanes)
+    fn = ts.make_tran_batch(cc, cfg, axes, store="full")
+    if fn.engine != "store":
+        fail(f"wide store: engine {fn.engine!r}")
+    fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    whole = fn(params, state0)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("wide store path", got, {"op_kernel": (1, 1),
+                                          "run_kernel_store": (1, 1)})
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    k, kw, e, k_ms, w_ms, p_ms = store_vs_plain("wide store", plan, dev, src,
+                                                st, sc, keep, jv0)
+    if not (torch.equal(whole.out_n, kw.out_n)
+            and same_bits(whole.out_x, kw.out_x)):
+        fail("wide store: the path's rows differ from a store launch's")
+    store_wide = dict(launches=got["run_kernel_store"], err=e, k_ms=k_ms,
+                      p_ms=p_ms, flops=run_bound(plan, k, False),
+                      nbytes=run_nbytes(plan, dev, src, st, jv0, lanes)
+                      + nbytes(kw.out_x, kw.out_t))
+    chunk = int(kw.out_n.max()) // 3 + 1
+    reset_counts()
+    parts = list(ts.stream_transient_chunks(cc, cfg, params, state0, chunk))
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("wide stream path", got, {
+        "op_kernel": (1, 1), "run_kernel_store": (len(parts), len(parts))})
+    n0 = torch.zeros(lanes, dtype=torch.long, device=DEVICE)
+    for w in parts:
+        for lane in range(lanes):
+            a, b = int(n0[lane]), int(w.out_n[lane])
+            if not (torch.equal(w.out_x[lane, :b], kw.out_x[lane, a:a + b])
+                    and torch.equal(w.out_t[lane, :b],
+                                    kw.out_t[lane, a:a + b])):
+                fail(f"wide stream: lane {lane}'s rows differ from the "
+                     "monolithic store's")
+        n0 += w.out_n.long()
+    if not (torch.equal(n0, kw.out_n.long())
+            and torch.equal(parts[-1].attempts, k.attempts)):
+        fail("wide stream: the chunks' totals differ from the monolithic "
+             "store's")
+    # the second chunk's re-entry against the plain store
+    again = run.Store(cfg.tstart, chunk, True)
+    start = run.RunStart(parts[0].t_final, parts[0].dt_final,
+                         parts[0].attempts)
+    st1 = run_plan.init_state_stack(plan, parts[0].state, lanes, DEVICE)
+    jv1 = run_plan.jv_stack(plan, parts[0].jv, lanes)
+    k1, w1 = run.launch_store_kernel(plan, dev, src, st1, sc, again, jv1,
+                                     start=start)
+    p1, pw1 = run.store_plain(plan, dev, src, st1, sc, again, jv1, start)
+    e = max(e, compare_run("wide stream re-entry", k1, p1, check_jv=True),
+            wave_err("wide stream re-entry", w1, pw1))
+    store_wide["err"] = e
+    phase("35 64-row bucket vs plain", t0,
+          f"store (cw16 to 0.1 ms, store='full'): {lanes} lanes, OP "
+          f"launches 1, store launches 1, stored rows "
+          f"{int(kw.out_n.sum())}, bit for bit with store_plain, kernel "
+          f"{k_ms:.3f} ms alone ({w_ms:.3f} ms with the wrapper), plain "
+          f"{p_ms:.1f} ms; streamed in chunks of {chunk} rows: "
+          f"{len(parts)} store launches, every chunk's rows and the totals "
+          f"equal to the monolithic store's, the re-entry bit for bit with "
+          f"the plain store; max abs err {e:.3e}")
+    del whole, k, kw, parts, k1, w1, p1, pw1
+
+    # cw16's OP under physics
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(cockcroft_walton(16), c_spread,
+                                        lanes)
+    reset_counts()
+    opr = ts.run_op_batch(cc, params, axes, semantics="physics")
+    torch.cuda.synchronize()
+    check_counts("wide physics OP path", counts(), {"op_kernel": (1, 1)})
+    po = op.make_op_fused(cc, DEFAULTS, "physics", solve=op.op_plain)(
+        params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        if not torch.equal(getattr(opr, key), getattr(po, key)):
+            fail(f"wide physics OP: {key} differs from op_plain")
+    res["op_physics_err"] = exact_err("wide physics OP", [
+        ("x", opr.x, po.x)] + [(f"jv.{kd}.{key}", opr.jv[kd][key],
+                                po.jv[kd][key])
+                               for kd in po.jv for key in po.jv[kd]])
+    phase("35 64-row bucket vs plain", t0,
+          f"cw16's OP (physics): {lanes} lanes, OP launches 1, converged "
+          f"{int(opr.converged.sum())}, bit for bit with op_plain")
+
+    # the DC sweep of 32 diodes: compat on main_lanes lanes, physics
+    pts = np.linspace(0.0, 40.0, 9)
+    for semantics, b in (("compat", main_lanes), ("physics", lanes)):
+        t0 = time.perf_counter()
+        cc, _, params, axes, state0 = setup(diode_string(32), rc_spread, b)
+        reset_counts()
+        xs, conv = ts.run_dc_batch(cc, (0,), params, axes, pts,
+                                   semantics=semantics)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"wide DC {semantics} path", got,
+                     {"dc_sweep_kernel": (1, 1)})
+        if not bool(conv.all()) or not bool(torch.isfinite(xs).all()):
+            fail(f"wide DC {semantics}: a point did not converge")
+        tk, tp_ = TimedSolve(dc.dc_lanes), TimedSolve(dc.dc_plain)
+        kd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics, solve=tk)(
+            params, state0, pts)
+        pd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics, solve=tp_)(
+            params, state0, pts)
+        for key in ("conv", "iters"):
+            if not torch.equal(getattr(kd, key), getattr(pd, key)):
+                fail(f"wide DC {semantics}: {key} differs from dc_plain")
+        ed = exact_err(f"wide DC {semantics}", [
+            ("xs", kd.xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1)),
+            ("xs", xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1))])
+        plan_dc, dev_, dyn_, vs_, _ = tk.args[0]
+        dc_it = int(kd.iters.sum())
+        per_it = (phys_newton_flops(plan_dc) if semantics == "physics"
+                  else newton_flops(plan_dc)) - (plan_dc.np1 - 1)
+        res[f"dc_{semantics}"] = dict(
+            launches=got["dc_sweep_kernel"], err=ed, k_ms=tk.ms(),
+            p_ms=tp_.ms(), flops=int(dc_it * per_it),
+            nbytes=nbytes(dev_, dyn_, vs_, kd.xs) + plan_dc.topo.nbytes
+            + b * len(pts) * 8)
+        phase("35 64-row bucket vs plain", t0,
+              f"DC sweep of 32 diodes ({semantics}, np1={cc.np1}): {b} "
+              f"lanes x {len(pts)} points in one launch, all converged, "
+              f"Newton iterations {dc_it}; equal counts, bit for bit, max "
+              f"abs err {ed:.3e}; kernel {res[f'dc_{semantics}']['k_ms']:.3f}"
+              f" ms, plain {res[f'dc_{semantics}']['p_ms']:.1f} ms on {smi}")
+        del xs, kd, pd, tk, tp_
+    free()
+    res["store"] = store_wide
+    return res
 
 
 RECTIFIER_AC = """* half-wave rectifier biased at 0.6 V, an AC source in series
@@ -3418,7 +3778,8 @@ def main():
     def build():
         b0 = time.perf_counter()
         libs = _build.build(extra_flags=("-Xptxas", "-v"))
-        return libs, dict(_build.build.log), time.perf_counter() - b0
+        return (libs, dict(_build.build.log), dict(_build.build.seconds),
+                time.perf_counter() - b0)
 
     builder = concurrent.futures.ThreadPoolExecutor(1)
     building = builder.submit(build)
@@ -3468,14 +3829,17 @@ def main():
     gj_sets = gj_plain_sets(GJ_LANES)  # phase 27's, beside the build too
 
     # ------------------------------------------------ 2 build (finished)
-    libs, logs, build_s = building.result()
+    libs, logs, lib_s, build_s = building.result()
     builder.shutdown()
     for name in _build.SOURCES:
         _build.load(name)
     print(f"[2 build] built {fresh or 'nothing'} with one nvcc call per "
           "library, started together, beside phase 3's plain versions: "
-          + ", ".join(p.name for p in libs.values()) + f" ({build_s:.3f} s)",
-          flush=True)
+          + ", ".join(p.name for p in libs.values()) + "; each call's end, "
+          "s from the start: " + ", ".join(
+              f"{name} {sec:.1f}" for name, sec in sorted(
+                  lib_s.items(), key=lambda kv: kv[1]))
+          + f" ({build_s:.3f} s)", flush=True)
     for name, text in logs.items():
         print(f"[2 ptxas] {name}: {'; '.join(ptxas_summary(text))}",
               flush=True)
@@ -3711,12 +4075,14 @@ def main():
     gj_err = gj_phase(GJ_LANES, gj_sets)
     del gj_sets
     gen_err = general_vs_run_phase(SMALL_LANES)
-    stamped_big, gj_seed = cw16_phase(BENCH_LANES, smi)
+    stamped_big, gj_seed, run_wide, op_wide, cw16 = cw16_phase(BENCH_LANES,
+                                                               smi)
     gj_ac = lc16_phase(BENCH_LANES, smi)
     compat_trap_phase(1024)
     st_work, gj_work = past_nbig_phase(1024, smi)
     st_single, gj_single = user_surface_phase(smi)
     mesh_phase(smi, bench_none, bench_wall, bench_overrides, 1024)
+    wide = wide_phase(GJ_LANES, BENCH_LANES, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -3890,6 +4256,40 @@ def main():
           f"lc16 alone: {bound(gj_ac['flops'], gj_ac['nbytes'])[0]:.6f} ms",
           flush=True)
 
+    cb = bound(cw16["flops"], cw16["nbytes"])
+    print(f"[17 bound] run_kernel 64-row bucket (cw16_8192's main path, "
+          f"its run launch alone {cw16['main_ms']:.3f} ms): "
+          f"{cw16['flops']} f64 operations / {PEAK_F64:.3g} op/s = "
+          f"{cb[2]:.6f} ms; {cw16['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+          f"{cb[3]:.6f} ms", flush=True)
+    wide_bounds = {}
+    for key, what, label in (
+            ("run", run_wide, "run_kernel 64-row bucket (cw16_8192's "
+             "first 0.1 ms, 8192 lanes)"),
+            ("op", op_wide, "op_kernel 64-row bucket (cw16_8192's OP)"),
+            ("linear", wide["linear"], "run_kernel 64-row bucket linear "
+             "(rc ladder, np1 = 64, 259 lanes)"),
+            ("physics", wide["physics"], "run_kernel physics 64-row "
+             "bucket (cw16 to 0.1 ms, trap, 259 lanes)"),
+            ("magnetic", wide["magnetic"], "run_kernel magnetic 64-row "
+             "bucket (the magnetic ladder, np1 = 35, 259 lanes)"),
+            ("physics_magnetic", wide["physics_magnetic"], "run_kernel "
+             "physics magnetic 64-row bucket (the magnetic ladder, trap)"),
+            ("magnetic_newton", wide["magnetic_newton"], "run_kernel "
+             "magnetic Newton 64-row bucket (the ladder with a diode)"),
+            ("physics_magnetic_newton", wide["physics_magnetic_newton"],
+             "run_kernel physics magnetic Newton 64-row bucket (the ladder "
+             "with a diode, trap)"),
+            ("store", wide["store"], "run_kernel store 64-row bucket (cw16 "
+             "to 0.1 ms, 259 lanes, the inputs, state and counters and the "
+             "whole zeroed output)"),
+            ("dc", wide["dc_compat"], "dc_sweep_kernel 64-row bucket (32 "
+             "diodes, 8192 lanes x 9 points)")):
+        wide_bounds[key] = bd = bound(what["flops"], what["nbytes"])
+        print(f"[17 bound] {label}: {what['flops']} f64 operations / "
+              f"{PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; {what['nbytes']} "
+              f"bytes / {PEAK_BYTES:.3g} B/s = {bd[3]:.6f} ms", flush=True)
+
     def entry(name, source, replaces, launches, err, k_ms, p_ms, bd,
               lib_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -3999,7 +4399,38 @@ def main():
         entry("gj_kernel_single", "toyspice_tpu_torch/csrc/gj_kernel.cu",
               "toyspice_tpu/ops/pallas_solve.py:235", gj_single["launches"],
               gj_single["err"], gj_single["k_ms"], gj_single["p_ms"],
-              single_bounds["gj"], gj_single["lib_ms"])]}
+              single_bounds["gj"], gj_single["lib_ms"]),
+        entry("run_kernel_wide", run_src,
+              "toyspice_tpu/ops/pallas_run.py:652", run_wide["launches"],
+              max(run_wide["err"], wide["promoted"]["err"]),
+              run_wide["k_ms"], run_wide["p_ms"], wide_bounds["run"]),
+        entry("op_kernel_wide", "toyspice_tpu_torch/csrc/op_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:230", op_wide["launches"],
+              max(op_wide["err"], wide["op_physics_err"]), op_wide["k_ms"],
+              op_wide["p_ms"], wide_bounds["op"]),
+        entry("run_kernel_wide_store", run_src,
+              "toyspice_tpu/ops/pallas_tran.py:1429",
+              wide["store"]["launches"], wide["store"]["err"],
+              wide["store"]["k_ms"], wide["store"]["p_ms"],
+              wide_bounds["store"]),
+        entry("dc_sweep_kernel_wide",
+              "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:431",
+              wide["dc_compat"]["launches"],
+              max(wide["dc_compat"]["err"], wide["dc_physics"]["err"]),
+              wide["dc_compat"]["k_ms"], wide["dc_compat"]["p_ms"],
+              wide_bounds["dc"]),
+    ] + [entry(f"run_kernel_wide_{key}", src_,
+               "toyspice_tpu/ops/pallas_run.py:652", wide[key]["launches"],
+               max(wide[key]["err"], wide["physics_be"]["err"])
+               if key == "physics" else wide[key]["err"],
+               wide[key]["k_ms"], wide[key]["p_ms"], wide_bounds[key])
+         for key, src_ in (
+             ("linear", run_src),
+             ("physics", "toyspice_tpu_torch/csrc/run_kernel_phys.cu"),
+             ("magnetic", run_src), ("physics_magnetic", mag_src),
+             ("magnetic_newton", mag_src),
+             ("physics_magnetic_newton", mag_src))]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

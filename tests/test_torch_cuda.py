@@ -1187,11 +1187,13 @@ def test_general_engine_matches_the_run_kernel(cuda):
                                        rtol=1e-9, atol=1e-15)
 
 
-def test_cw16_takes_the_general_engine(cuda):
+def test_cw16_takes_the_general_engine(cuda, monkeypatch):
     """A 16-stage Cockcroft-Walton multiplier (np1 = 35, 32 diodes) cut to
-    0.1 ms: engine "general", the GJ kernel and the stamped solve's block
-    instantiation launched, no other kernel; the kernels against the plain
-    versions on the same lanes."""
+    0.1 ms under TOYSPICE_TRAN=general (without it the run kernel's 64-row
+    bucket takes it, tests/test_torch_wide_bucket.py): engine "general",
+    the GJ kernel and the stamped solve's warp instantiation launched, no
+    other kernel; the kernels against the plain versions on the same
+    lanes."""
     from toyspice_tpu_torch.engine.tran import make_tran
     from toyspice_tpu_torch.ops import solve
 
@@ -1205,6 +1207,7 @@ def test_cw16_takes_the_general_engine(cuda):
         "Rload s16 0 10meg", ".model DMOD D (Is=1e-14 N=1.0 Cj0=2p Tt=5n)",
         ""])
     cc, cfg, params, state0 = _general_inputs(deck, 32, cuda)
+    monkeypatch.setenv("TOYSPICE_TRAN", "general")
     fn = ts.make_tran_batch(cc, cfg, None)
     assert fn.engine == "general"
     counters = (run.launch_run_kernel, op.launch_op_kernel, solve.launch_gj,
@@ -1388,7 +1391,7 @@ def newton_ladder(np1):
 
 # sixteen devices (6 D, 4 Q, 6 M of levels 1-3), np1 = 32: MOSFET
 # inverters, common-emitter stages and diode clamps
-MIXED16 = """* mixed D/Q/M at the 16-device cap
+MIXED16 = """* mixed D/Q/M, sixteen devices
 .tran 5u 0.2m
 Vdd vdd 0 DC 5
 Vin in 0 SIN(2.5 2 5k)

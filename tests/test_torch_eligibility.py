@@ -1,9 +1,11 @@
 """What the port's transient and OP do not cover raise NotImplementedError
 with the reason.  Compat and physics semantics run every deck of R, C, L,
-LM, K, V, I, D, Q and M within the kernels' caps, magnetic decks with
-diodes included, and their OP, DC sweep and AC; a deck past the kernels'
-caps takes the general engine (engine "general", with the kernels'
-reason); trapezoidal integration under compat stays refused."""
+LM, K, V, I, D, Q and M within the kernels' caps (np1 <= 64, 32 sources,
+a stamp plan within the 48 KB shared-memory table: 718 diodes in a bank),
+magnetic decks with diodes included, and their OP, DC sweep and AC; a deck
+past the kernels' caps takes the general engine (engine "general", with
+the kernels' reason); trapezoidal integration under compat stays
+refused."""
 
 import os
 import re
@@ -44,11 +46,32 @@ def _many_sources(count):
 
 
 def _diodes(count):
-    """``count`` diodes in series from a DC source (np1 = count + 2)."""
+    """``count`` diodes in series from a DC source (np1 = count + 3)."""
     lines = ["* diode chain", ".tran 0.01m 1m", "V1 1 0 DC 5", "R1 1 2 1k"]
     lines += [f"D{k} {k + 2} {k + 3} DM" for k in range(count - 1)]
     lines += [f"D{count - 1} {count + 1} 0 DM", ".model DM D (Is=1e-14)"]
     return "\n".join(lines) + "\n"
+
+
+def _diode_bank(count):
+    """``count`` diodes in parallel behind 1 kΩ (np1 = 4): past 718 their
+    stamp plan outgrows the kernels' shared-memory table."""
+    lines = ["* diode bank", ".tran 0.01m 1m", "V1 1 0 DC 5", "R1 1 2 1k"]
+    lines += [f"D{k} 2 0 DM" for k in range(count)]
+    lines += [".model DM D (Is=1e-14)"]
+    return "\n".join(lines) + "\n"
+
+
+def _mosfet_bank(count):
+    """``count`` diode-connected NMOS in parallel behind 1 kΩ (np1 = 4)."""
+    lines = ["* nmos bank", ".tran 1u 20u", "V1 1 0 SIN(3 2 100k)",
+             "R1 1 2 1k"]
+    lines += [f"M{k} 2 2 0 0 NM L=2u W=20u" for k in range(count)]
+    lines += [".model NM NMOS(Vto=1 Kp=2e-5)"]
+    return "\n".join(lines) + "\n"
+
+
+TABLE_CAP = "exceeds the kernel's shared-memory table cap"
 
 
 def _build(text, **kw):
@@ -79,8 +102,8 @@ Rl out 0 150
 
 
 @pytest.mark.parametrize("text,kw,reason,general", [
-    (_diodes(17), {}, "17 diodes, BJTs and MOSFETs exceed the kernel's cap "
-     "of 16", True),
+    (_diode_bank(719), {}, "(719 diodes, BJTs and MOSFETs) " + TABLE_CAP,
+     True),
     (RLC, {"store": "bogus"}, "store='bogus'", False),
     (RLC, {"opts": SimOptions(integration="trap")},
      "integration='trap' requires semantics='physics'", False),
@@ -88,8 +111,8 @@ Rl out 0 150
      "integration='trap' requires semantics='physics'", False),
     (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32",
      True),
-    (_ladder(40), {}, "np1=43 exceeds the kernel's matrix cap of 32", True),
-    (_ladder(130), {}, "np1=133 exceeds the kernel's matrix cap of 32",
+    (_ladder(62), {}, "np1=65 exceeds the kernel's matrix cap of 64", True),
+    (_ladder(130), {}, "np1=133 exceeds the kernel's matrix cap of 64",
      True),
 ], ids=["diode", "store_bogus", "trap", "trap_mutual_with_diode",
         "source_cap", "np1_cap", "np1_past_nbig"])
@@ -107,11 +130,11 @@ def test_ineligible_raises_with_reason(text, kw, reason, general):
 
 
 def test_np1_cap_boundary():
-    ok = ts.compile_circuit(ts.parse(_ladder(29)))
-    assert ok.np1 == run.NP1_CAP
+    ok = ts.compile_circuit(ts.parse(_ladder(61)))
+    assert ok.np1 == run.NP1_CAP == 64
     assert run.run_ineligible_reason(ok, "compat", "none",
                                      SimOptions()) is None
-    big = ts.compile_circuit(ts.parse(_ladder(30)))
+    big = ts.compile_circuit(ts.parse(_ladder(62)))
     assert "cap" in run.run_ineligible_reason(big, "compat", "none",
                                               SimOptions())
 
@@ -210,12 +233,17 @@ def test_store_full_selects_the_store_engine():
 
 
 def test_nonlinear_device_cap_boundary():
-    ok = ts.compile_circuit(ts.parse(_diodes(16)))
-    assert run.run_ineligible_reason(ok, "compat", "none",
-                                     SimOptions()) is None
-    assert op.op_fused_ineligible_reason(ok) is None
-    big = ts.compile_circuit(ts.parse(_diodes(17)))
-    assert "cap of 16" in op.op_fused_ineligible_reason(big)
+    """The count of diodes, BJTs and MOSFETs is capped by the stamp plan's
+    shared-memory table alone (718 diodes in a bank), at least 32 of any
+    kind: 61 diodes in series at np1 = 64 and 32 MOSFETs on a 4-row deck
+    (the run kernel's 64-row bucket) are eligible too."""
+    for text in (_diode_bank(718), _diodes(61), _mosfet_bank(32)):
+        ok = ts.compile_circuit(ts.parse(text))
+        assert run.run_ineligible_reason(ok, "compat", "none",
+                                         SimOptions()) is None
+        assert op.op_fused_ineligible_reason(ok) is None
+    big = ts.compile_circuit(ts.parse(_diode_bank(719)))
+    assert TABLE_CAP in op.op_fused_ineligible_reason(big)
 
 
 @pytest.mark.parametrize("text,kw,reason", [
@@ -225,7 +253,7 @@ def test_nonlinear_device_cap_boundary():
      "semantics='bogus'"),
     (_deck("saturating_transformer.cir"), {"semantics": "physics"},
      "linear circuit"),
-    (_diodes(17), {}, "cap of 16"),
+    (_diode_bank(719), {}, TABLE_CAP),
 ], ids=["linear", "physics", "magnetic", "device_cap"])
 def test_op_ineligible_reasons(text, kw, reason):
     cc = ts.compile_circuit(ts.parse(text))
@@ -269,7 +297,7 @@ def _ac(text):
     (_deck("ce_amplifier_ac.cir"), {"semantics": "bogus"},
      "semantics='bogus'"),
     (_ac(_ladder(30)), {}, "np1=33 exceeds the AC kernel's matrix cap of 32"),
-    (_ac(_diodes(17)), {}, "cap of 16"),
+    (_ac(_diode_bank(719)), {}, TABLE_CAP),
 ], ids=["physics", "np1_cap", "device_cap"])
 def test_ac_ineligible_raises_with_reason(text, kw, reason):
     """The AC kernel's reasons; past its caps the general AC takes the
@@ -305,7 +333,7 @@ def test_ac_np1_cap_boundary():
     (_deck("diode_iv_sweep.cir"), {"semantics": "bogus"},
      "semantics='bogus'"),
     (_deck("divider_op.cir"), {"semantics": "bogus"}, "semantics='bogus'"),
-    (_diodes(17), {}, "cap of 16"),
+    (_diode_bank(719), {}, TABLE_CAP),
     (_ladder(126), {}, None),
 ], ids=["physics", "physics_linear", "device_cap", "np1_cap"])
 def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
@@ -324,7 +352,7 @@ def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
         assert bool(torch.isfinite(xs).all())
         assert bool(ts.run_op_batch(cc, params, **kw).converged.all())
         return
-    if reason == "cap of 16":
+    if reason == TABLE_CAP:
         engine, why = select_op_engine(cc, **kw)
         assert engine == "general" and reason in why
         xs, conv = ts.run_dc_batch(cc, (0,), params, None, [0.0, 1.0], **kw)

@@ -1,6 +1,6 @@
 // Every point of a DC sweep in one launch, each Monte-Carlo lane on a
-// segment of W = 4, 8, 16 or 32 lanes of a warp (np1's size bucket), in
-// f64.
+// segment of W = 4, 8, 16 or 32 lanes of a warp (np1's size bucket; np1
+// 33 to 64 on a whole warp, two rows a thread), in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_op.py::_dc_sweep_kernel
 // (body _dc_sweep_core, launched at pallas_op.py:837 through
@@ -43,7 +43,8 @@
 // spreads each iteration's device evaluations, build and elimination over
 // its threads, keeps the lane's rows in the segment's slice of shared
 // memory, and leaves the card THREADS / W lanes a block (8192 lanes of
-// np1 <= 4: 256 blocks of 4 warps) to hide one another's latencies.
+// np1 <= 4: 256 blocks of 4 warps; the 64-row bucket as many of its 4 as
+// fit the block's shared memory) to hide one another's latencies.
 
 #include "newton.cuh"
 
@@ -51,8 +52,9 @@ namespace {
 
 using namespace tsr;
 
-// A launch's lanes on segments of W = NMAX threads, THREADS / W lanes a
-// block: the table, then each segment's slice (newton.cuh opdc_slice).
+// A launch's lanes on segments of W threads (newton.cuh Seg), a block's
+// lanes as seg_shape_of sets them: the table, then each segment's slice
+// (newton.cuh opdc_slice).
 // lane_doubles is ops/dc.py lane_doubles: the dyn row, the point's nV
 // source values, then the junction voltages and value slots
 // (newton_doubles); a launch that gives fewer than the deck's counts need
@@ -67,15 +69,16 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
               double* __restrict__ x_out, int* __restrict__ iters_out,
               int* __restrict__ conv_out, int nlanes, double reltol,
               double abstol, int max_iter, double gmin_floor) {
-  constexpr int W = NMAX;
+  constexpr int W = Seg<NMAX>::W;
   constexpr unsigned mask = 0xffffffffu;
   extern __shared__ __align__(16) double seg_smem[];
   int* topo = reinterpret_cast<int*>(seg_smem);
   for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
   __syncthreads();
   const int seg = threadIdx.x / W;
-  const int me = threadIdx.x & (W - 1);  // the row this thread owns
-  const int lane0 = blockIdx.x * (THREADS / W);
+  const int me = threadIdx.x & (W - 1);  // its rows: me + s * W
+  const int lane0 =
+      blockIdx.x * (NMAX > 32 ? (int)blockDim.x / W : THREADS / W);
   if (lane0 + (int)(threadIdx.x & ~31) / W >= nlanes) return;  // the warp
   const int lane = lane0 + seg;
   const bool real = lane < nlanes;
@@ -95,7 +98,7 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
     if (!real) return;  // a short slice
     for (int p = 0; p < npts; ++p) {
       const size_t pt = (size_t)lane * npts + p;
-      if (me < n) x_out[pt * n + me] = NAN;
+      for (int i = me; i < n; i += W) x_out[pt * n + i] = NAN;
       if (me == 0) {
         iters_out[pt] = 0;
         conv_out[pt] = 0;
@@ -107,7 +110,7 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
                seg * opdc_slice<NMAX>(lane_doubles);
   double* buf = sl;
-  double* row = sl + (NMAX + 2) * (1 + me);
+  double* rows = sl + (NMAX + 2);
   double* xs = sl + (NMAX + 2) * (NMAX + 1);
   double* dyn = xs + NMAX;
   double* sv = dyn + dw;
@@ -122,15 +125,15 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
 
   for (int p = 0; p < npts; ++p) {
     for (int s = me; s < nv_src; s += W) sv[s] = vlane[(size_t)p * nv_src + s];
-    xs[me] = 0.0;
+    for (int i = me; i < NMAX; i += W) xs[i] = 0.0;
     __syncwarp(mask);
     bool conv = false;
     const int iters = seg_newton<NMAX, FL_DC, PHYS>(
         deck, ent, roff, stamp, 0.0, real, max_iter, reltol, abstol, buf,
-        row, xs, jv, nv, me, &conv);
+        rows, xs, jv, nv, me, &conv);
     if (real) {
       const size_t pt = (size_t)lane * npts + p;
-      if (me < n) x_out[pt * n + me] = xs[me];
+      for (int i = me; i < n; i += W) x_out[pt * n + i] = xs[i];
       if (me == 0) {
         iters_out[pt] = iters;
         conv_out[pt] = conv ? 1 : 0;
@@ -158,26 +161,11 @@ int launch_np1(int np1, const int* topo, int topo_len, int lane_doubles,
                long long vs_stride, int npts, double* x_out, int* iters,
                int* conv, int nlanes, double reltol, double abstol,
                int max_iter, double gmin_floor, cudaStream_t s) {
-  switch (seg_bucket(np1)) {
-    case 4:
-      return launch<4, PHYS>(topo, topo_len, lane_doubles, dev, dyn, vs,
-                             vs_stride, npts, x_out, iters, conv, nlanes,
-                             reltol, abstol, max_iter, gmin_floor, s);
-    case 8:
-      return launch<8, PHYS>(topo, topo_len, lane_doubles, dev, dyn, vs,
-                             vs_stride, npts, x_out, iters, conv, nlanes,
-                             reltol, abstol, max_iter, gmin_floor, s);
-    case 16:
-      return launch<16, PHYS>(topo, topo_len, lane_doubles, dev, dyn, vs,
-                              vs_stride, npts, x_out, iters, conv, nlanes,
-                              reltol, abstol, max_iter, gmin_floor, s);
-    case 32:
-      return launch<32, PHYS>(topo, topo_len, lane_doubles, dev, dyn, vs,
-                              vs_stride, npts, x_out, iters, conv, nlanes,
-                              reltol, abstol, max_iter, gmin_floor, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_bucket(opdc_bucket(np1, topo_len, lane_doubles), [&](auto b) {
+    return launch<decltype(b)::value, PHYS>(
+        topo, topo_len, lane_doubles, dev, dyn, vs, vs_stride, npts, x_out,
+        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
+  });
 }
 
 }  // namespace

@@ -2,8 +2,10 @@
 // lanes of one warp (W = 4, 8, 16 or 32), with no block barrier: the
 // elimination of csrc/ac_kernel.cu (every (instance, frequency) system),
 // of csrc/stamped_solve.cu's systems of 33 to 64 and of each attempt, or
-// each Newton iteration, of the run kernel (csrc/run_kernel.cuh,
-// run_seg_kernel).
+// each Newton iteration, of the run, OP and DC sweep kernels
+// (csrc/newton.cuh seg_solve: from registers to np1 = 32, from the build
+// rows in shared memory, a whole warp and two rows a lane, for np1 33 to
+// 64).
 //
 // Row i belongs to lane i % W, slot i / W (R slots a lane).  For each
 // column k:
@@ -250,9 +252,10 @@ __device__ __forceinline__ bool gj_warp_reg(double (&m)[R][NMAX + 1], int n,
 
 // The elimination with the rows in shared memory: row i at t + i * ld
 // (the right-hand side at column n), R * W >= n; q is the segment's n + 1
-// doubles of exchange buffer.
+// doubles of exchange buffer.  Returns whether x is finite (the same on
+// every lane).
 template <int W, int R>
-__device__ __forceinline__ void gj_warp_smem(double* t, int ld, int n,
+__device__ __forceinline__ bool gj_warp_smem(double* t, int ld, int n,
                                              double* q, int lane,
                                              unsigned mask, double* x_out) {
   int stage[R];
@@ -312,7 +315,7 @@ __device__ __forceinline__ void gj_warp_smem(double* t, int ld, int n,
     const int i = lane + s * W;
     rhs[s] = i < n ? t[i * ld + n] : 0.0;
   }
-  segment_store_x<W, R>(rhs, stage, n, nan_col, lane, mask, x_out);
+  return segment_store_x<W, R>(rhs, stage, n, nan_col, lane, mask, x_out);
 }
 
 // the stride of a row of n + 1 values in shared memory: odd, so that the

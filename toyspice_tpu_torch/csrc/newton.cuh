@@ -44,12 +44,18 @@
 // Hopper has native f64, and here a lane's system lives on a segment of
 // W = 4, 8, 16 or 32 lanes of a warp (np1's size bucket), row i in the
 // registers of thread i (gj_warp.cuh), its junction voltages and value
-// slots in the segment's slice of shared memory.
+// slots in the segment's slice of shared memory.  Past 32 rows (the
+// 64-row bucket, np1 33 to 64) a lane's system takes a whole warp, two
+// rows a thread (row i on thread i % 32, slot i / 32), and is eliminated
+// where it is built, in the slice's rows (gj_warp_smem): two rows of 65
+// doubles a thread do not fit a thread's 255 registers.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "gj_warp.cuh"
 
@@ -662,13 +668,47 @@ __device__ __forceinline__ void device_value(const Deck& c, int j,
 // SMs)
 constexpr int SEG_BLOCKS = 4;
 
-// np1's size bucket, the segment width W = NMAX of a lane's system (0 past
-// the caps): np1 <= 4 on segments of 4, which halve the instructions a
-// lane issues in the 8-row bucket (on an H100, ab_run_kernel.py: 3.0 ms
-// against 3.7 for the 8192-lane rectifier's run, 1.2 against 1.4 for an
-// 8192-lane RC low-pass)
+// bytes of shared memory a block may use on an H100 (sm_90: 227 KB, past
+// 48 KB once the kernel's limit is raised)
+constexpr int SEG_SMEM = 232448;
+
+// np1's size bucket NMAX (0 past the caps): np1 <= 4 on segments of 4,
+// which halve the instructions a lane issues in the 8-row bucket (on an
+// H100, ab_run_kernel.py: 3.0 ms against 3.7 for the 8192-lane
+// rectifier's run, 1.2 against 1.4 for an 8192-lane RC low-pass); 33 to 64
+// on a whole warp, two rows a thread
 __host__ __device__ constexpr int seg_bucket(int np1) {
-  return np1 <= 4 ? 4 : np1 <= 8 ? 8 : np1 <= 16 ? 16 : np1 <= 32 ? 32 : 0;
+  return np1 <= 4 ? 4 : np1 <= 8 ? 8 : np1 <= 16 ? 16 : np1 <= 32 ? 32
+         : np1 <= 64 ? 64 : 0;
+}
+
+// A segment of the bucket NMAX: W threads (NMAX to 32, a warp past it), R
+// rows a thread (row i on thread i % W, slot i / W), and the stride LD of
+// the build rows in the slice (NMAX + 2 to 32, so that every row starts
+// 16-byte aligned; past it NMAX + 1, odd, so that the 32 rows of a column
+// the elimination reads at once fall in different banks).
+template <int NMAX>
+struct Seg {
+  static constexpr int W = NMAX < 32 ? NMAX : 32;
+  static constexpr int R = NMAX / W;
+  static constexpr int LD = R == 1 ? NMAX + 2 : NMAX + 1;
+};
+
+// Each of thread me's rows' entries [e0[s], e1[s]) in the table's row view
+// (ops/run_plan.py row_view): row me + s * W from roff, its first rlin[i]
+// entries when rlin is given (the linear prefix, ops/run_plan.py
+// linear_prefix); empty past n.
+template <int NMAX>
+__device__ __forceinline__ void seg_ranges(const int* roff, const int* rlin,
+                                           int n, int me,
+                                           int (&e0)[Seg<NMAX>::R],
+                                           int (&e1)[Seg<NMAX>::R]) {
+#pragma unroll
+  for (int s = 0; s < Seg<NMAX>::R; ++s) {
+    const int i = me + s * Seg<NMAX>::W;
+    e0[s] = i < n ? roff[i] : 0;
+    e1[s] = i < n ? (rlin ? e0[s] + rlin[i] : roff[i + 1]) : 0;
+  }
 }
 
 // The Newton flavours of engine/newton.py: the OP (jv from x at every
@@ -704,20 +744,63 @@ struct OpStamp {
   }
 };
 
-// A launch on warp segments: segments of W = NMAX threads, THREADS / W
-// lanes a block, the table and each segment's slice in dynamic shared
-// memory (bytes).
+// A launch on warp segments: segments of W threads, per_block lanes a
+// block, the table and each segment's slice in dynamic shared memory
+// (bytes).
 struct SegShape {
   int w, per_block, blocks, threads, shmem;
 };
 
-// The shape of nlanes lanes whose segments each take `slice` doubles
+// The shape of nlanes lanes whose segments each take `slice` doubles:
+// THREADS / W lanes a block, or in the 64-row bucket the most of its four
+// whose slices fit SEG_SMEM beside the table (a block of one lane may not
+// fit: the caller refuses its bucket then)
 template <int NMAX>
 SegShape seg_shape_of(int nlanes, int topo_len, int slice) {
-  constexpr int per_block = THREADS / NMAX;
-  const int doubles = (topo_len + 3) / 4 * 2 + per_block * slice;
-  return {NMAX, per_block, (nlanes + per_block - 1) / per_block, THREADS,
+  constexpr int W = Seg<NMAX>::W;
+  const int table = (topo_len + 3) / 4 * 2;
+  int per_block = THREADS / W;
+  if constexpr (NMAX > 32) {
+    while (per_block > 1 &&
+           (table + per_block * slice) * (int)sizeof(double) > SEG_SMEM)
+      --per_block;
+  }
+  const int doubles = table + per_block * slice;
+  return {W, per_block, (nlanes + per_block - 1) / per_block, per_block * W,
           doubles * static_cast<int>(sizeof(double))};
+}
+
+// f(std::integral_constant<int, b>()), a launch in bucket b of seg_bucket
+// from MINB to MAXB (the instantiations a library compiles);
+// cudaErrorInvalidValue for another b or b = 0 (past the caps)
+template <int MINB = 4, int MAXB = 64, class F>
+int with_bucket(int b, F f) {
+  auto in = [&](auto c) -> int {
+    constexpr int B = decltype(c)::value;
+    if constexpr (MINB <= B && B <= MAXB) return f(c);
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  switch (b) {
+    case 4: return in(std::integral_constant<int, 4>());
+    case 8: return in(std::integral_constant<int, 8>());
+    case 16: return in(std::integral_constant<int, 16>());
+    case 32: return in(std::integral_constant<int, 32>());
+    case 64: return in(std::integral_constant<int, 64>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bucket a launch of np1 rows takes: np1's (seg_bucket), or the 64-row
+// bucket when np1's block (the table and THREADS / W slices) overflows
+// SEG_SMEM (many devices' value slots on a small deck: the 64-row bucket
+// holds as few lanes a block as fit); 0 when np1 is past 64 or a block of
+// one lane of the 64-row bucket does not fit.  shape(b) is the launch's
+// SegShape in bucket b.
+template <class Shape>
+int fit_bucket(int np1, Shape shape) {
+  int b = seg_bucket(np1);
+  if (b != 0 && b < 64 && shape(b).shmem > SEG_SMEM) b = 64;
+  return b != 0 && shape(b).shmem <= SEG_SMEM ? b : 0;
 }
 
 // Launch a segment kernel in shape sh on `stream` (past 48 KB of shared
@@ -750,60 +833,103 @@ SegShape opdc_shape(int nlanes, int topo_len, int lane_doubles) {
                             opdc_slice<NMAX>(lane_doubles));
 }
 
+// The OP or DC sweep kernel's shape in bucket b (a bucket of seg_bucket)
+inline SegShape opdc_shape_in(int b, int nlanes, int topo_len,
+                              int lane_doubles) {
+  switch (b) {
+    case 4: return opdc_shape<4>(nlanes, topo_len, lane_doubles);
+    case 8: return opdc_shape<8>(nlanes, topo_len, lane_doubles);
+    case 16: return opdc_shape<16>(nlanes, topo_len, lane_doubles);
+    case 32: return opdc_shape<32>(nlanes, topo_len, lane_doubles);
+    default: return opdc_shape<64>(nlanes, topo_len, lane_doubles);
+  }
+}
+
+// The OP and DC sweep kernels' bucket for np1 (fit_bucket); 0 past the
+// caps
+inline int opdc_bucket(int np1, int topo_len, int lane_doubles) {
+  return fit_bucket(np1, [=](int b) {
+    return opdc_shape_in(b, 1, topo_len, lane_doubles);
+  });
+}
+
 // The OP or DC sweep kernel's shape for np1; false past the caps
 inline bool opdc_shape_np1(int np1, int nlanes, int topo_len,
                            int lane_doubles, SegShape* s) {
-  switch (seg_bucket(np1)) {
-    case 4: *s = opdc_shape<4>(nlanes, topo_len, lane_doubles); return true;
-    case 8: *s = opdc_shape<8>(nlanes, topo_len, lane_doubles); return true;
-    case 16: *s = opdc_shape<16>(nlanes, topo_len, lane_doubles); return true;
-    case 32: *s = opdc_shape<32>(nlanes, topo_len, lane_doubles); return true;
-    default: return false;
-  }
+  const int b = opdc_bucket(np1, topo_len, lane_doubles);
+  if (b == 0) return false;
+  *s = opdc_shape_in(b, nlanes, topo_len, lane_doubles);
+  return true;
 }
 
-// The build and elimination of one system on a segment of W = NMAX lanes:
-// thread me sums the entries [e0, e1) of the table's row view (its row's,
-// in plan order; a TAG_NL entry reads its value slot when NLV) into its
-// row of the slice, adds diag to its diagonal past row 0 when DIAG (after
+// The build and elimination of one system on a segment of W lanes
+// (Seg<NMAX>): thread me sums the entries [e0[s], e1[s]) of the table's
+// row view (row me + s * W's, in plan order; a TAG_NL entry reads its
+// value slot when NLV) into that row of the slice (rows: the slice's build
+// rows, stride LD), adds diag to its diagonal past row 0 when DIAG (after
 // the row's sum, as the plain build does), row 0 being the ground
-// identity row; then gj_warp_reg eliminates from registers and writes x to
+// identity row; then gj_warp_reg eliminates from registers (to 32 rows),
+// or gj_warp_smem in the build rows (the 64-row bucket), and writes x to
 // xs.  Returns whether x is finite (the same on every lane of the
 // segment; x all NaN when not).
 template <int NMAX, bool NLV, bool DIAG, class Stamp>
-__device__ __forceinline__ bool seg_solve(const int4* ent, int e0, int e1,
+__device__ __forceinline__ bool seg_solve(const int4* ent,
+                                          const int (&e0)[Seg<NMAX>::R],
+                                          const int (&e1)[Seg<NMAX>::R],
                                           const Stamp& stamp,
                                           const double* nv, double diag,
-                                          int n, double* buf, double* row,
+                                          int n, double* buf, double* rows,
                                           int me, double* xs) {
+  using G = Seg<NMAX>;
   constexpr unsigned mask = 0xffffffffu;
-  for (int c = 0; c <= n; ++c) row[c] = 0.0;
-  if (me < n) {
-    for (int e = e0; e < e1; ++e) {
-      const int4 q = ent[e];  // col, tag, index, sign
-      const double v = (NLV && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
-      row[q.x] += (double)q.w * v;
+  if constexpr (G::R == 1) {
+    double* row = rows + G::LD * me;
+    for (int c = 0; c <= n; ++c) row[c] = 0.0;
+    if (me < n) {
+      for (int e = e0[0]; e < e1[0]; ++e) {
+        const int4 q = ent[e];  // col, tag, index, sign
+        const double v = (NLV && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
+        row[q.x] += (double)q.w * v;
+      }
+      if (DIAG && me > 0) row[me] = row[me] + diag;
     }
-    if (DIAG && me > 0) row[me] = row[me] + diag;
-  }
-  if (me == 0) row[0] = 1.0;
-  // slot c holds column c, the right-hand side slot NMAX
-  double m[1][NMAX + 1];
+    if (me == 0) row[0] = 1.0;
+    // slot c holds column c, the right-hand side slot NMAX
+    double m[1][NMAX + 1];
 #pragma unroll
-  for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
-  m[0][NMAX] = row[n];
-  return gj_warp_reg<NMAX, NMAX, 1>(m, n, buf, me, mask, xs);
+    for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
+    m[0][NMAX] = row[n];
+    return gj_warp_reg<NMAX, NMAX, 1>(m, n, buf, me, mask, xs);
+  } else {
+#pragma unroll
+    for (int s = 0; s < G::R; ++s) {
+      const int i = me + s * G::W;
+      if (i >= n) continue;
+      double* row = rows + G::LD * i;
+      for (int c = 0; c <= n; ++c) row[c] = 0.0;
+      for (int e = e0[s]; e < e1[s]; ++e) {
+        const int4 q = ent[e];  // col, tag, index, sign
+        const double v = (NLV && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
+        row[q.x] += (double)q.w * v;
+      }
+      if (DIAG && i > 0) row[i] = row[i] + diag;
+      if (i == 0) row[0] = 1.0;
+    }
+    __syncwarp(mask);  // the pivot rows are read by every thread
+    return gj_warp_smem<G::W, G::R>(rows, G::LD, n, buf, me, mask, xs);
+  }
 }
 
 // The Newton loop of one lane (engine/newton.py) in flavour FL on its
-// segment of W = NMAX lanes, thread me owning row me: per iteration,
-// device j on thread j (mod W) limits its junctions from the last iterate
-// (the OP from iteration 0 on, the DC sweep from iteration 1 on) and
-// evaluates its value slots into the slice (limit_device, device_value:
-// each reads and writes only that device's rows); then seg_solve from
-// the row view ent/roff with the status gmin on the diagonals of an OP;
-// then the convergence test of row i on thread i (rows past n count as
-// converged), ANDed over the segment with the solve's finite flag.
+// segment of W lanes (Seg<NMAX>), thread me owning rows me + s * W: per
+// iteration, device j on thread j (mod W) limits its junctions from the
+// last iterate (the OP from iteration 0 on, the DC sweep from iteration 1
+// on) and evaluates its value slots into the slice (limit_device,
+// device_value: each reads and writes only that device's rows); then
+// seg_solve from the row view ent/roff into the build rows `rows` with
+// the status gmin on the diagonals of an OP; then the convergence test of
+// row i on its thread (rows past n count as converged), ANDed over the
+// segment with the solve's finite flag.
 //
 // xs holds x0 on entry and the last solution on exit, jv the carried
 // junction voltages on entry and those of the last iteration on exit;
@@ -818,15 +944,19 @@ template <int NMAX, int FL, bool PHYS, class Stamp>
 __device__ int seg_newton(const Deck& c, const int4* ent, const int* roff,
                           const Stamp& stamp, double gmin, bool go,
                           int max_iter, double reltol, double abstol,
-                          double* buf, double* row, double* xs, double* jv,
+                          double* buf, double* rows, double* xs, double* jv,
                           double* nv, int me, bool* conv) {
+  using G = Seg<NMAX>;
   constexpr bool OP = FL == FL_OP;
-  constexpr int W = NMAX;
+  constexpr int W = G::W, R = G::R;
   constexpr unsigned mask = 0xffffffffu;
   const int n = c.n;
   const int ndev = c.n_d + c.n_q + c.n_m;
-  const int e0 = me < n ? roff[me] : 0, e1 = me < n ? roff[me + 1] : 0;
-  double xo = me < n ? xs[me] : 0.0;  // row me of the last iterate
+  int e0[R], e1[R];
+  seg_ranges<NMAX>(roff, nullptr, n, me, e0, e1);
+  double xo[R];  // the thread's rows of the last iterate
+#pragma unroll
+  for (int s = 0; s < R; ++s) xo[s] = me + s * W < n ? xs[me + s * W] : 0.0;
   int it = 0;
   bool ok = false;
   bool iter = go && max_iter > 0;
@@ -841,26 +971,35 @@ __device__ int seg_newton(const Deck& c, const int4* ent, const int* roff,
     }
     __syncwarp(mask);
     const bool finite = seg_solve<NMAX, true, OP>(ent, e0, e1, stamp, nv,
-                                                  gmin, n, buf, row, me, xs);
+                                                  gmin, n, buf, rows, me, xs);
     __syncwarp(mask);
-    const double xn = xs[me];
-    const double d = fabs(xn - xo);
-    bool cv;
-    if constexpr (OP)  // every |new - old| <= reltol*max(|new|, |old|) + abstol
-      cv = me >= n || d <= reltol * max_nan(fabs(xn), fabs(xo)) + abstol;
-    else  // every |new - old| <= abstol or <= reltol*|new|
-      cv = me >= n || d <= abstol || d <= reltol * fabs(xn);
+    double xn[R];
+    bool cv = true;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int i = me + s * W;
+      xn[s] = xs[i];
+      const double d = fabs(xn[s] - xo[s]);
+      if constexpr (OP)  // |new - old| <= reltol*max(|new|, |old|) + abstol
+        cv = cv && (i >= n ||
+                    d <= reltol * max_nan(fabs(xn[s]), fabs(xo[s])) + abstol);
+      else  // every |new - old| <= abstol or <= reltol*|new|
+        cv = cv && (i >= n || d <= abstol || d <= reltol * fabs(xn[s]));
+    }
 #pragma unroll
     for (int off = W / 2; off > 0; off >>= 1)
       cv = __shfl_xor_sync(mask, cv ? 1 : 0, off, W) && cv;
     if (iter) {
-      xo = xn;
+#pragma unroll
+      for (int s = 0; s < R; ++s) xo[s] = xn[s];
       ok = it > 0 && cv && finite;
       ++it;
       iter = !ok && it < max_iter;
     }
   }
-  if (me < n) xs[me] = xo;  // what a segment that ran along kept
+#pragma unroll
+  for (int s = 0; s < R; ++s)  // what a segment that ran along kept
+    if (me + s * W < n) xs[me + s * W] = xo[s];
   __syncwarp(mask);
   *conv = ok;
   return it;

@@ -1,6 +1,6 @@
 // One operating-point Newton solve per Monte-Carlo lane per launch, each
 // lane on a segment of W = 4, 8, 16 or 32 lanes of a warp (np1's size
-// bucket), in f64.
+// bucket; np1 33 to 64 on a whole warp, two rows a thread), in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_op.py::_op_kernel (body
 // _op_core with the "op" flavour, launched at pallas_op.py:555), compat and
@@ -34,10 +34,12 @@
 // A lane's Newton is a chain of dependent steps: its segment spreads each
 // iteration's device evaluations over its threads, the build over its rows
 // and the elimination's divisions and updates over its rows (gj_warp_reg,
-// the matrix in registers), keeps the lane's dyn row, x, junction voltages
-// and value slots in the segment's slice of shared memory, and leaves the
-// card THREADS / W lanes a block (8192 lanes of np1 <= 4: 256 blocks of 4
-// warps) to hide one another's latencies.
+// the matrix in registers; in the 64-row bucket gj_warp_smem, the matrix
+// in the slice), keeps the lane's dyn row, x, junction voltages and value
+// slots in the segment's slice of shared memory, and leaves the card
+// THREADS / W lanes a block (8192 lanes of np1 <= 4: 256 blocks of 4
+// warps; the 64-row bucket as many of its 4 as fit the block's shared
+// memory, newton.cuh seg_shape_of) to hide one another's latencies.
 
 #include "newton.cuh"
 
@@ -45,8 +47,9 @@ namespace {
 
 using namespace tsr;
 
-// A launch's lanes on segments of W = NMAX threads, THREADS / W lanes a
-// block: the table, then each segment's slice (newton.cuh opdc_slice).
+// A launch's lanes on segments of W threads (newton.cuh Seg), a block's
+// lanes as seg_shape_of sets them: the table, then each segment's slice
+// (newton.cuh opdc_slice).
 // lane_doubles is ops/op.py lane_doubles: the dyn row, then the junction
 // voltages and value slots (newton_doubles); a launch that gives fewer
 // than the deck's counts need returns x all NaN, jv0, 0 iterations and
@@ -61,15 +64,16 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
               int* __restrict__ iters_out, int* __restrict__ conv_out,
               int nlanes, double reltol, double abstol, int max_iter,
               double gmin_floor) {
-  constexpr int W = NMAX;
+  constexpr int W = Seg<NMAX>::W, R = Seg<NMAX>::R;
   constexpr unsigned mask = 0xffffffffu;
   extern __shared__ __align__(16) double seg_smem[];
   int* topo = reinterpret_cast<int*>(seg_smem);
   for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
   __syncthreads();
   const int seg = threadIdx.x / W;
-  const int me = threadIdx.x & (W - 1);  // the row this thread owns
-  const int lane0 = blockIdx.x * (THREADS / W);
+  const int me = threadIdx.x & (W - 1);  // its rows: me + s * W
+  const int lane0 =
+      blockIdx.x * (NMAX > 32 ? (int)blockDim.x / W : THREADS / W);
   if (lane0 + (int)(threadIdx.x & ~31) / W >= nlanes) return;  // the warp
   const int lane = lane0 + seg;
   const bool real = lane < nlanes;
@@ -88,7 +92,7 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   if (lane_doubles < dw + kj + D_SLOTS * deck.n_d + Q_SLOTS * deck.n_q +
                          M_SLOTS * deck.n_m) {  // a short slice
     if (!real) return;
-    if (me < n) x_out[(size_t)lane * n + me] = NAN;
+    for (int i = me; i < n; i += W) x_out[(size_t)lane * n + i] = NAN;
     for (int i = me; i < kj; i += W)
       jv_out[(size_t)lane * kj + i] = jv0[(size_t)lane * kj + i];
     if (me == 0) {
@@ -101,13 +105,13 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
                seg * opdc_slice<NMAX>(lane_doubles);
   double* buf = sl;
-  double* row = sl + (NMAX + 2) * (1 + me);
+  double* rows = sl + (NMAX + 2);
   double* xs = sl + (NMAX + 2) * (NMAX + 1);
   double* dyn = xs + NMAX;
   double* jv = dyn + dw;
   double* nv = jv + kj;
   for (int i = me; i < dw; i += W) dyn[i] = dyn_g[(size_t)row_lane * dw + i];
-  if (me < n) xs[me] = x0[(size_t)row_lane * n + me];
+  for (int i = me; i < n; i += W) xs[i] = x0[(size_t)row_lane * n + i];
   for (int i = me; i < kj; i += W) jv[i] = jv0[(size_t)row_lane * kj + i];
   __syncwarp(mask);
   const double gmin = dyn[0];
@@ -121,27 +125,34 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   if (__any_sync(mask, use_seed)) {
     // the linear-devices-only estimate, status gmin 0; a segment without
     // use_seed runs it along and keeps x0
-    const double keep = me < n ? xs[me] : 0.0;
+    double keep[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      keep[s] = me + s * W < n ? xs[me + s * W] : 0.0;
     __syncwarp(mask);
-    const int e0 = me < n ? roff[me] : 0;
-    const int e1 = me < n ? e0 + rlin[me] : 0;
+    int e0[R], e1[R];
+    seg_ranges<NMAX>(roff, rlin, n, me, e0, e1);
     const bool fin = seg_solve<NMAX, false, false>(
         ent, e0, e1, OpStamp{dv, lval, lrhs, vsrc, isrc,
                              max_nan(0.0, gmin_floor)},
-        nullptr, 0.0, n, buf, row, me, xs);
+        nullptr, 0.0, n, buf, rows, me, xs);
     __syncwarp(mask);
-    if (me < n) xs[me] = use_seed ? (fin ? xs[me] : 0.0) : keep;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int i = me + s * W;
+      if (i < n) xs[i] = use_seed ? (fin ? xs[i] : 0.0) : keep[s];
+    }
     __syncwarp(mask);
   }
   bool conv = false;
   const int iters = seg_newton<NMAX, FL_OP, PHYS>(
       deck, ent, roff,
       OpStamp{dv, lval, lrhs, vsrc, isrc, max_nan(gmin, gmin_floor)}, gmin,
-      real && act, max_iter, reltol, abstol, buf, row, xs, jv, nv, me,
+      real && act, max_iter, reltol, abstol, buf, rows, xs, jv, nv, me,
       &conv);
 
   if (!real) return;
-  if (me < n) x_out[(size_t)lane * n + me] = xs[me];
+  for (int i = me; i < n; i += W) x_out[(size_t)lane * n + i] = xs[i];
   for (int i = me; i < kj; i += W) jv_out[(size_t)lane * kj + i] = jv[i];
   if (me == 0) {
     iters_out[lane] = iters;
@@ -169,26 +180,11 @@ int launch_np1(int np1, const int* topo, int topo_len, int lane_doubles,
                const double* jv0, double* x_out, double* jv_out, int* iters,
                int* conv, int nlanes, double reltol, double abstol,
                int max_iter, double gmin_floor, cudaStream_t s) {
-  switch (seg_bucket(np1)) {
-    case 4:
-      return launch<4, PHYS>(topo, topo_len, lane_doubles, dev, dyn, x0, jv0,
-                             x_out, jv_out, iters, conv, nlanes, reltol,
-                             abstol, max_iter, gmin_floor, s);
-    case 8:
-      return launch<8, PHYS>(topo, topo_len, lane_doubles, dev, dyn, x0, jv0,
-                             x_out, jv_out, iters, conv, nlanes, reltol,
-                             abstol, max_iter, gmin_floor, s);
-    case 16:
-      return launch<16, PHYS>(topo, topo_len, lane_doubles, dev, dyn, x0,
-                              jv0, x_out, jv_out, iters, conv, nlanes, reltol,
-                              abstol, max_iter, gmin_floor, s);
-    case 32:
-      return launch<32, PHYS>(topo, topo_len, lane_doubles, dev, dyn, x0,
-                              jv0, x_out, jv_out, iters, conv, nlanes, reltol,
-                              abstol, max_iter, gmin_floor, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_bucket(opdc_bucket(np1, topo_len, lane_doubles), [&](auto b) {
+    return launch<decltype(b)::value, PHYS>(
+        topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x_out, jv_out,
+        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
+  });
 }
 
 }  // namespace

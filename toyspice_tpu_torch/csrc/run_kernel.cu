@@ -29,6 +29,13 @@ constexpr bool STORE_BUILD = true;
 #else
 constexpr bool STORE_BUILD = false;
 #endif
+// the buckets this library holds: with -DTSR_WIDE the 64-row bucket alone
+// (a library of its own, whose nvcc call runs beside this one's)
+#ifdef TSR_WIDE
+constexpr int MIN_BUCKET = 64, MAX_BUCKET = 64;
+#else
+constexpr int MIN_BUCKET = 4, MAX_BUCKET = 32;
+#endif
 
 // compat without trap; LM or K with a Newton is run_kernel_mag.cu's
 template <bool STORE>
@@ -38,13 +45,11 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (seg_bucket(np1)) {
-    case 4: return launch_kind<4, STORE>(a, nonlinear, mag, s);
-    case 8: return launch_kind<8, STORE>(a, nonlinear, mag, s);
-    case 16: return launch_kind<16, STORE>(a, nonlinear, mag, s);
-    case 32: return launch_kind<32, STORE>(a, nonlinear, mag, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int nl = nonlinear ? a.nl_doubles : 0;
+  return with_bucket<MIN_BUCKET, MAX_BUCKET>(
+      run_bucket(np1, a.topo_len, nl), [&](auto b) {
+        return launch_kind<decltype(b)::value, STORE>(a, nonlinear, mag, s);
+      });
 }
 
 }  // namespace
@@ -118,6 +123,15 @@ extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
   out[3] = s.threads;
   out[4] = s.shmem;
   return 0;
+}
+
+// The bucket (newton.cuh seg_bucket) a launch of np1 unknowns with a table
+// of topo_len words and nl_doubles (0 for a linear deck) takes
+// (run_kernel.cuh run_bucket: np1's, or the 64-row one when np1's block
+// overflows shared memory; 0 past the caps): 64 is the -DTSR_WIDE
+// library's, ops/run.py run_bucket says the same.
+extern "C" int tsr_run_bucket(int np1, int topo_len, int nl_doubles) {
+  return run_bucket(np1, topo_len, nl_doubles);
 }
 
 extern "C" const char* tsr_error_string(int err) {

@@ -5,7 +5,8 @@
 // sources, and under compat semantics magnetic inductors and mutual
 // couplings, or diodes, BJTs and MOSFETs under compat or physics
 // semantics), in f64, every deck on a segment of 4, 8, 16 or 32 lanes of
-// a warp per Monte-Carlo lane (run_seg_kernel).
+// a warp per Monte-Carlo lane, or a whole warp for np1 33 to 64
+// (run_seg_kernel).
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_run.py::_run_kernel
 // (body _run_core, launched at pallas_run.py:811) for its compat subset:
@@ -84,13 +85,17 @@
 // eligible deck.  The system's rows, one a lane of the lane's segment of
 // W = NMAX lanes (the size bucket: 4, 8, 16 or 32), live in registers
 // (gj_warp_reg), each built from the table's row view (ops/run_plan.py
-// row_view); a Newton deck's junction voltages and value slots live in the
-// segment's slice of shared memory.  NL (the Newton), MAG (the LM and K
+// row_view); in the 64-row bucket (np1 33 to 64) a whole warp holds two
+// rows a lane, built and eliminated in the segment's slice of shared
+// memory (gj_warp_smem); a Newton deck's junction voltages and value
+// slots live in the segment's slice too.  NL (the Newton), MAG (the LM and K
 // stamps), STORE and PHYS are template parameters: the instantiations
 // without them compile to the code they had before.
 // run_kernel.cu instantiates the compat kernels, run_kernel_phys.cu the
 // PHYS ones without MAG, run_kernel_mag.cu the PHYS MAG ones and compat
-// MAG with NL: three sources, so that their nvcc calls run side by side.
+// MAG with NL: three sources, so that their nvcc calls run side by side,
+// each built for the 4- to 32-row buckets and, with -DTSR_WIDE, for the
+// 64-row bucket alone (ops/_build.py), again side by side.
 //
 // Bound: operations.  An attempt on bench.py's RLC deck (np1 = 6) needs 299
 // f64 operations (chip_smoke.py attempt_flops: 231 for the 6 x 7
@@ -327,32 +332,37 @@ struct MagPhys {
 constexpr int SEG_ROWS = 192;
 
 // Doubles of one segment's slice of shared memory: the elimination's
-// exchange buffer and the W = NMAX build rows (stride NMAX + 2, so every
-// row starts 16-byte aligned), x, the source values and the lane's rows;
-// a Newton deck adds nl_doubles (its junction voltages and value slots,
-// newton_doubles), rounded up to an even count.
+// exchange buffer and the NMAX build rows (newton.cuh Seg: stride NMAX +
+// 2, so every row starts 16-byte aligned, or NMAX + 1 in the 64-row
+// bucket), x, the source values and the lane's rows; a Newton deck adds
+// nl_doubles (its junction voltages and value slots, newton_doubles),
+// rounded up to an even count.
 template <int NMAX>
 __host__ __device__ constexpr int seg_slice(int nl_doubles = 0) {
   return (NMAX + 2) * (NMAX + 1) + NMAX + MAX_SRC + SEG_ROWS +
          ((nl_doubles + 1) & ~1);
 }
 
-// A deck's whole run on a segment of W = NMAX lanes of one warp per
-// Monte-Carlo lane (THREADS / W lanes a block), thread i of the segment
-// owning row i of the system.  Per attempt: the sources, thread i taking
-// those s = i (mod W); then the solve; the LTE, thread i taking the C's
-// and L's k = i (mod W), then a max over the segment (every term is +0 or
-// more, or NaN, so the order does not move it); the step control, which
-// every thread computes from the same values; the commit, each device by
-// the thread k = i (mod W); the store, thread i writing x[i].
+// A deck's whole run on a segment of W lanes of one warp per Monte-Carlo
+// lane (newton.cuh Seg: W = NMAX to 32, a whole warp in the 64-row
+// bucket; THREADS / W lanes a block, or in the 64-row bucket as many as
+// fit), thread i of the segment owning rows i + s * W of the system.  Per
+// attempt: the sources, thread i taking those s = i (mod W); then the
+// solve; the LTE, thread i taking the C's and L's k = i (mod W), then a
+// max over the segment (every term is +0 or more, or NaN, so the order
+// does not move it); the step control, which every thread computes from
+// the same values; the commit, each device by the thread k = i (mod W);
+// the store, each thread writing its rows of x.
 //
-// The solve of a linear deck (NL false) is one build and elimination:
-// thread i sums its row's stamps in plan order from the row view of the
-// table (ops/run_plan.py row_view) into its row of the slice, then into
-// registers; gj_warp_reg's elimination (x to the slice, all NaN when one
-// x is not finite: the per-thread elimination left a poisoned row's inf
-// there, but either way the attempt fails and its x is never committed or
-// stored, so counters, state and waveforms keep their bits).
+// The solve of a linear deck (NL false) is one build and elimination
+// (newton.cuh seg_solve): thread i sums its rows' stamps in plan order
+// from the row view of the table (ops/run_plan.py row_view) into its rows
+// of the slice, then into registers; gj_warp_reg's elimination, or in the
+// 64-row bucket gj_warp_smem's in the slice (x to the slice, all NaN when
+// one x is not finite: the per-thread elimination left a poisoned row's
+// inf there, but either way the attempt fails and its x is never
+// committed or stored, so counters, state and waveforms keep their
+// bits).
 //
 // The solve of a Newton deck (NL) is newton.cuh's transient Newton spread
 // over the segment, from x = 0 with the carried junction voltages: per
@@ -360,11 +370,11 @@ __host__ __device__ constexpr int seg_slice(int nl_doubles = 0) {
 // last iterate (from iteration 1 on) and evaluates its value slots into
 // the slice (limit_device, device_value; both read and write only that
 // device's rows); then the build, a TAG_NL entry reading its slot; the
-// elimination; the convergence test of row i on thread i (rows past n
-// count as converged), ANDed over the segment with the elimination's
+// elimination; the convergence test of each row on its thread (rows past
+// n count as converged), ANDed over the segment with the elimination's
 // finite flag.  The junction voltages stay in the slice across attempts.
 //
-// The warp's segments (8 of 4 lanes, 4 of 8, 2 of 16, or one of 32) run in
+// The warp's segments (8 of 4 lanes, 4 of 8, 2 of 16, or one) run in
 // lockstep under one full-warp mask: the warp attempts while any of its
 // lanes is live, and iterates while any of its segments still iterates;
 // a lane past its end (done, its attempts spent, paused, or past nlanes)
@@ -388,14 +398,15 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
                double* __restrict__ out_x, double* __restrict__ out_t,
                int* __restrict__ out_n, int* __restrict__ overflow,
                int trap) {
-  constexpr int W = NMAX;
+  constexpr int W = Seg<NMAX>::W, R = Seg<NMAX>::R;
   extern __shared__ __align__(16) double seg_smem[];
   int* topo = reinterpret_cast<int*>(seg_smem);
   for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
   __syncthreads();
   const int seg = threadIdx.x / W;
-  const int me = threadIdx.x & (W - 1);  // the row this thread owns
-  const int lane0 = blockIdx.x * (THREADS / W);
+  const int me = threadIdx.x & (W - 1);  // its rows: me + s * W
+  const int lane0 =
+      blockIdx.x * (NMAX > 32 ? (int)blockDim.x / W : THREADS / W);
   if (lane0 + (int)(threadIdx.x & ~31) / W >= nlanes) return;  // the warp
   const int lane = lane0 + seg;
   const bool real = lane < nlanes;
@@ -405,7 +416,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
   double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
                seg * seg_slice<NMAX>(NL ? nl_doubles : 0);
   double* buf = sl;
-  double* row = sl + (NMAX + 2) * (1 + me);
+  double* rows = sl + (NMAX + 2);
   double* xs = sl + (NMAX + 2) * (NMAX + 1);
   double* sv = xs + NMAX;
   double* own = sv + MAX_SRC;
@@ -421,6 +432,8 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
   const int* lbranch = topo + topo[H_LB];
   const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
   const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
+  int e0[R], e1[R];  // the thread's rows' entries in the row view
+  seg_ranges<NMAX>(roff, nullptr, n, me, e0, e1);
 
   // the lane's rows, read once into the slice and the state written back
   // once at the end, when they fit it (the same for every lane of a deck)
@@ -579,32 +592,22 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
         }
       }
     };
-    // ---- build (this thread's row, its stamps in plan order) and
+    // ---- build (this thread's rows, their stamps in plan order) and
     // eliminate: x to the slice; returns whether x is finite
     auto solve = [&]() -> bool {
-      for (int c = 0; c <= n; ++c) row[c] = 0.0;
-      if (me < n) {
-        for (int e = roff[me]; e < roff[me + 1]; ++e) {
-          const int4 q = ent[e];  // col, tag, index, sign
-          const double v =
-              (NL && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
-          row[q.x] += (double)q.w * v;
-        }
-      }
-      if (me == 0) row[0] = 1.0;  // the ground row is the identity
-      // slot c holds column c, the right-hand side slot NMAX
-      double m[1][NMAX + 1];
-#pragma unroll
-      for (int c = 0; c < NMAX; ++c) m[0][c] = c < n ? row[c] : 0.0;
-      m[0][NMAX] = row[n];
-      return gj_warp_reg<NMAX, W, 1>(m, n, buf, me, mask, xs);
+      return seg_solve<NMAX, NL, false>(ent, e0, e1, stamp, nv, 0.0, n, buf,
+                                        rows, me, xs);
     };
 
     bool nr_ok;
     if constexpr (NL) {
       // ---- Newton from x = 0 with the carried junction voltages
-      double xo = 0.0;  // row me of the last iterate
-      xs[me] = 0.0;
+      double xo[R];  // the thread's rows of the last iterate
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        xo[s] = 0.0;
+        xs[me + s * W] = 0.0;
+      }
       int it = 0;
       bool ok = false;
       bool iter = active && max_iter > 0;
@@ -620,20 +623,29 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
         const bool finite = solve();
         __syncwarp(mask);
         // every |new - old| <= reltol*max(|new|, |old|) + abstol
-        const double xn = xs[me];
-        const double tol = reltol * max_nan(fabs(xn), fabs(xo)) + abstol;
-        bool conv = me >= n || fabs(xn - xo) <= tol;
+        double xn[R];
+        bool conv = true;
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          xn[s] = xs[me + s * W];
+          const double tol =
+              reltol * max_nan(fabs(xn[s]), fabs(xo[s])) + abstol;
+          conv = conv && (me + s * W >= n || fabs(xn[s] - xo[s]) <= tol);
+        }
 #pragma unroll
         for (int off = W / 2; off > 0; off >>= 1)
           conv = __shfl_xor_sync(mask, conv ? 1 : 0, off, W) && conv;
         if (iter) {
-          xo = xn;
+#pragma unroll
+          for (int s = 0; s < R; ++s) xo[s] = xn[s];
           ok = it > 0 && conv && finite;
           ++it;
           iter = !ok && it < max_iter;
         }
       }
-      if (me < n) xs[me] = xo;  // what a segment that ran along kept
+#pragma unroll
+      for (int s = 0; s < R; ++s)  // what a segment that ran along kept
+        if (me + s * W < n) xs[me + s * W] = xo[s];
       __syncwarp(mask);
       nri += it;
       nr_ok = ok;
@@ -778,7 +790,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
         if (next_t >= tstart) {
           if (n_kept < max_store) {
             const size_t orow = (size_t)lane * max_store + n_kept;
-            if (me < n) out_x[orow * n + me] = xs[me];
+            for (int i = me; i < n; i += W) out_x[orow * n + i] = xs[i];
             if (me == 0) out_t[orow] = next_t;
             ++n_kept;
           } else {
@@ -862,17 +874,32 @@ SegShape seg_shape(int nlanes, int topo_len, int nl_doubles) {
   return seg_shape_of<NMAX>(nlanes, topo_len, seg_slice<NMAX>(nl_doubles));
 }
 
-// the shape of np1's size bucket (newton.cuh seg_bucket); false past
-// the caps
+// The shape in bucket b (a bucket of seg_bucket)
+inline SegShape seg_shape_in(int b, int nlanes, int topo_len,
+                             int nl_doubles) {
+  switch (b) {
+    case 4: return seg_shape<4>(nlanes, topo_len, nl_doubles);
+    case 8: return seg_shape<8>(nlanes, topo_len, nl_doubles);
+    case 16: return seg_shape<16>(nlanes, topo_len, nl_doubles);
+    case 32: return seg_shape<32>(nlanes, topo_len, nl_doubles);
+    default: return seg_shape<64>(nlanes, topo_len, nl_doubles);
+  }
+}
+
+// The run kernel's bucket for np1 (newton.cuh fit_bucket); 0 past the caps
+inline int run_bucket(int np1, int topo_len, int nl_doubles) {
+  return fit_bucket(np1, [=](int b) {
+    return seg_shape_in(b, 1, topo_len, nl_doubles);
+  });
+}
+
+// the shape of np1's launch; false past the caps
 inline bool seg_shape_np1(int np1, int nlanes, int topo_len, int nl_doubles,
                           SegShape* s) {
-  switch (seg_bucket(np1)) {
-    case 4: *s = seg_shape<4>(nlanes, topo_len, nl_doubles); return true;
-    case 8: *s = seg_shape<8>(nlanes, topo_len, nl_doubles); return true;
-    case 16: *s = seg_shape<16>(nlanes, topo_len, nl_doubles); return true;
-    case 32: *s = seg_shape<32>(nlanes, topo_len, nl_doubles); return true;
-    default: return false;
-  }
+  const int b = run_bucket(np1, topo_len, nl_doubles);
+  if (b == 0) return false;
+  *s = seg_shape_in(b, nlanes, topo_len, nl_doubles);
+  return true;
 }
 
 // The launch of one instantiation: a segment of a warp per lane; NL the

@@ -26,6 +26,13 @@ constexpr bool STORE_BUILD = true;
 #else
 constexpr bool STORE_BUILD = false;
 #endif
+// the buckets this library holds: with -DTSR_WIDE the 64-row bucket alone
+// (a library of its own, whose nvcc call runs beside this one's)
+#ifdef TSR_WIDE
+constexpr int MIN_BUCKET = 64, MAX_BUCKET = 64;
+#else
+constexpr int MIN_BUCKET = 4, MAX_BUCKET = 32;
+#endif
 
 // physics without LM or K (run_kernel_mag.cu holds those)
 template <bool STORE>
@@ -34,13 +41,11 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
   if (!physics || mag) return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (seg_bucket(np1)) {
-    case 4: return launch_kind<4, STORE>(a, nonlinear, s);
-    case 8: return launch_kind<8, STORE>(a, nonlinear, s);
-    case 16: return launch_kind<16, STORE>(a, nonlinear, s);
-    case 32: return launch_kind<32, STORE>(a, nonlinear, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int nl = nonlinear ? a.nl_doubles : 0;
+  return with_bucket<MIN_BUCKET, MAX_BUCKET>(
+      run_bucket(np1, a.topo_len, nl), [&](auto b) {
+        return launch_kind<decltype(b)::value, STORE>(a, nonlinear, s);
+      });
 }
 
 }  // namespace

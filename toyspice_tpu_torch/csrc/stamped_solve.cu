@@ -147,14 +147,14 @@ stamped_seg_kernel(const int* __restrict__ view_g, int view_len, int n,
   const int* roff = view + 4 * nterm;
   double* sl = seg_smem + (staged ? (view_len + 3) / 4 * 2 : 0)
                + seg * seg_slice<NMAX>();
-  double* row = sl + (NMAX + 2) * (1 + me);
   double* xs = real ? x_out + (size_t)lane * n : sl + (NMAX + 2) * (NMAX + 1);
-  const int e0 = me < n ? roff[me] : 0, e1 = me < n ? roff[me + 1] : 0;
+  int e0[1], e1[1];
+  seg_ranges<NMAX>(roff, nullptr, n, me, e0, e1);
   seg_solve<NMAX, false, true>(
       ent, e0, e1,
       FlatStamp{vals + (size_t)row_lane * nnz,
                 rvals + (size_t)row_lane * nrhs, nnz},
-      nullptr, gmin[row_lane], n, sl, row, me, xs);
+      nullptr, gmin[row_lane], n, sl, sl + (NMAX + 2), me, xs);
 }
 
 template <int NMAX>

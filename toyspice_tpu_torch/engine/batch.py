@@ -14,12 +14,17 @@ rescue ladders (``ops/op.py``) on a nonlinear deck and the stamped solve
 under the same ladders (``engine/op.make_op``) on a linear one; for the DC
 sweep, the DC sweep kernel (``ops/dc.py``) or the stamped solve of every
 point (``engine/dc.make_dc``); for AC, that OP and the AC kernel
-(``engine/ac.py``).  A deck past the kernels' caps (np1 > 32, more than 32
-sources, more than 16 diodes, BJTs and MOSFETs) takes the general engine,
-engine "general", as the JAX package does: ``engine/tran.make_tran``,
-``engine/op.make_op``, ``engine/dc.make_dc`` and ``engine/ac.make_ac``,
-whose Newton is a host loop over the stamped solve (any np1: past NBIG =
-168 its systems are eliminated in device memory).
+(``engine/ac.py``).  The JAX package's kernels have no size gate
+(``ops/pallas_run.py`` ``run_ineligible_reason`` checks only the store), so
+its batch sends every deck to them; the port's kernels run np1 up to 64
+(the 64-row bucket: a lane's system on a whole warp) with up to 32 sources
+and a stamp plan within their 48 KB shared-memory table, which is the only
+cap on the count of diodes, BJTs and MOSFETs.  A deck past those caps, or
+an AC past np1 = 32, takes the general engine, engine "general", with the
+cap in its reason: ``engine/tran.make_tran``, ``engine/op.make_op``,
+``engine/dc.make_dc`` and ``engine/ac.make_ac``, whose Newton is a host
+loop over the stamped solve (any np1: past NBIG = 168 its systems are
+eliminated in device memory).
 A deck, store or semantics none of them covers raises
 ``NotImplementedError`` with the reason.
 

@@ -4,7 +4,9 @@ with ``ctypes``.
 Each kernel library compiles from one source (``csrc/run_kernel.cu``,
 ``csrc/run_kernel_phys.cu`` and ``csrc/run_kernel_mag.cu``, the compat,
 physics and magnetic instantiations of ``csrc/run_kernel.cuh``, each
-built twice: without and, with ``-DTSR_STORE``, with the waveform store;
+built twice: without and, with ``-DTSR_STORE``, with the waveform store,
+and each of those again with ``-DTSR_WIDE``, the 64-row bucket alone, as
+a library of its own;
 ``csrc/op_kernel.cu``, ``csrc/dc_sweep_kernel.cu``,
 ``csrc/stamped_solve.cu``, all on ``csrc/newton.cuh``;
 ``csrc/ac_kernel.cu``, the stamped solve's systems of 33 to 64 and every
@@ -25,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -38,10 +41,15 @@ SOURCES = {"run": CSRC / "run_kernel.cu",
            "op": CSRC / "op_kernel.cu", "stamped": CSRC / "stamped_solve.cu",
            "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu",
            "gj": CSRC / "gj_kernel.cu"}
-# the run kernel's store builds: their instantiations compile in a call of
-# their own, beside the others
-DEFINES = {"run_store": ("-DTSR_STORE",), "run_phys_store": ("-DTSR_STORE",),
-           "run_mag_store": ("-DTSR_STORE",)}
+# the run kernel's store builds and its 64-row bucket (ops/run.py
+# run_bucket): their instantiations compile in calls of their own, beside
+# the others
+RUN_LIBS = ("run", "run_store", "run_phys", "run_phys_store", "run_mag",
+            "run_mag_store")
+SOURCES.update({name + "_wide": SOURCES[name] for name in RUN_LIBS})
+DEFINES = {name + wide: (("-DTSR_STORE",) if name.endswith("_store")
+                         else ()) + (("-DTSR_WIDE",) if wide else ())
+           for name in RUN_LIBS for wide in ("", "_wide")}
 HEADERS = (CSRC / "newton.cuh", CSRC / "run_kernel.cuh",
            CSRC / "gj_block.cuh", CSRC / "gj_warp.cuh")
 BUILD_DIR = PKG / "_build"
@@ -95,15 +103,17 @@ def build(names=tuple(SOURCES), extra_flags=()):
     """Compile the named kernels whose libraries are missing, one ``nvcc``
     process each, all at once; returns {name: library path} and, in
     ``build.log``, each compile's output (``extra_flags`` such as
-    ``-Xptxas -v`` show there)."""
+    ``-Xptxas -v`` show there), in ``build.seconds`` each compile's
+    seconds from the start of all of them to its end."""
     out = {name: library_path(name) for name in names}
     todo = [name for name in names if not out[name].exists()]
-    build.log = {}
+    build.log, build.seconds = {}, {}
     if not todo:
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *FLAGS, *flags(name), *extra_flags, "-o", str(tmp),
@@ -111,13 +121,22 @@ def build(names=tuple(SOURCES), extra_flags=()):
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+
+    def drain(name):  # each compile's output read as it comes
+        build.log[name] = procs[name][2].communicate()[0]
+        build.seconds[name] = time.perf_counter() - t0
+
+    readers = [threading.Thread(target=drain, args=(name,))
+               for name in procs]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     failed = []
     for name, (cmd, tmp, proc) in procs.items():
-        text, _ = proc.communicate()
-        build.log[name] = text
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{text}")
+                          f"{' '.join(cmd)}\n{build.log[name]}")
         else:
             os.replace(tmp, out[name])
     if failed:
@@ -126,6 +145,7 @@ def build(names=tuple(SOURCES), extra_flags=()):
 
 
 build.log = {}
+build.seconds = {}
 
 RUN_SIG = "iiiiipii" + "p" * 10 + "iddddiddip"
 RUN_STORE_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "dii" + "p" * 5
@@ -138,12 +158,21 @@ _ARGTYPES = {
     #               out_x, out_t, out_n, overflow, stream)
     # tsr_run_phys, tsr_run_mag and their _store entries: the same
     # tsr_run_seg_shape(np1, nlanes, topo_len, nl_doubles, out[5])
-    "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiiip")),
+    # tsr_run_bucket(np1, topo_len, nl_doubles)
+    # the _wide libraries: their base's entries, the 64-row bucket alone
+    "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiiip"),
+            ("tsr_run_bucket", "iii")),
     "run_store": (("tsr_run_store", RUN_STORE_SIG),),
     "run_phys": (("tsr_run_phys", RUN_SIG),),
     "run_phys_store": (("tsr_run_phys_store", RUN_STORE_SIG),),
     "run_mag": (("tsr_run_mag", RUN_SIG),),
     "run_mag_store": (("tsr_run_mag_store", RUN_STORE_SIG),),
+    "run_wide": (("tsr_run", RUN_SIG),),
+    "run_store_wide": (("tsr_run_store", RUN_STORE_SIG),),
+    "run_phys_wide": (("tsr_run_phys", RUN_SIG),),
+    "run_phys_store_wide": (("tsr_run_phys_store", RUN_STORE_SIG),),
+    "run_mag_wide": (("tsr_run_mag", RUN_SIG),),
+    "run_mag_store_wide": (("tsr_run_mag_store", RUN_STORE_SIG),),
     # tsr_op(np1, topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x, jv,
     #        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor,
     #        physics, stream)

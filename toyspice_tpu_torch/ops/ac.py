@@ -23,10 +23,12 @@ import torch
 from . import _build
 from .newton import gauss_jordan, poison_rows
 from .op import op_fused_ineligible_reason
-from .run import NP1_CAP
 from .run_plan import SLICE_KINDS, nonlinear, semantics_reason
 
 F64 = torch.float64
+# the largest np1 the AC kernel is compiled for: its 2np1 system on a warp
+# segment of N2MAX = 16, 32 or 64 slots (csrc/ac_kernel.cu)
+AC_NP1_CAP = 32
 
 
 def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
@@ -39,9 +41,9 @@ def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
                 "runs R, C, L, LM, K, V, I, D, Q and M)")
-    if cc.np1 > NP1_CAP:  # a 2np1 system: N2MAX 16/32/64
+    if cc.np1 > AC_NP1_CAP:
         return (f"np1={cc.np1} exceeds the AC kernel's matrix cap of "
-                f"{NP1_CAP} (a 2np1 system)")
+                f"{AC_NP1_CAP} (a 2np1 system)")
     if nonlinear(cc):  # the bias is the OP kernel's
         return op_fused_ineligible_reason(cc, semantics, opts)
     return None
@@ -70,9 +72,9 @@ def launch_ac_kernel(g, bh, r, omega):
         raise ValueError("launch_ac_kernel needs CUDA tensors")
     _check(g, bh, r, omega)
     b, n, nf = g.shape[0], g.shape[1], omega.shape[0]
-    if n > NP1_CAP:
+    if n > AC_NP1_CAP:
         raise ValueError(f"np1={n} exceeds the AC kernel's matrix cap of "
-                         f"{NP1_CAP}")
+                         f"{AC_NP1_CAP}")
     lib = _build.load("ac")
     x = torch.empty((b, nf, 2 * n), dtype=F64, device=g.device)
     with torch.cuda.device(g.device):

@@ -10,7 +10,8 @@ CheckConvergence); physics changes only the diode (its Bv/Rs evaluation
 and the breakdown-frame limit).  Three pieces live here:
 
 * ``launch_dc_kernel``: the wrapper of ``csrc/dc_sweep_kernel.cu`` (a
-  warp segment of 4, 8, 16 or 32 threads per lane, f64).  Its dyn rows
+  warp segment of 4, 8, 16 or 32 threads per lane, a whole warp past 32
+  rows, f64).  Its dyn rows
   are ``[isrc(nI), lrhs(nL)]`` and
   its source table ``vs`` holds each point's V-source values, (P, nV)
   shared by every lane or (B, P, nV).  It counts its launches in

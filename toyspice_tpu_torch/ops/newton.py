@@ -41,9 +41,6 @@ from .run_plan import (M_CHARGES, NL_KINDS, PHYS_ROWS, TAG_CEQ, TAG_G,
                        TAG_ONE, TAG_VSRC, jv_tree, nl_params)
 
 F64 = torch.float64
-# diodes + BJTs + MOSFETs per deck in the kernels: their junction voltages
-# and value slots in a warp segment's shared memory (csrc/newton.cuh)
-MAX_NL_DEVICES = 16
 
 
 def gauss_jordan(m, poison):

@@ -9,7 +9,8 @@ The counterpart of ``ops/pallas_op.py`` in the JAX package
 breakdown-frame limit; the OP has no companions.  Three pieces live here:
 
 * ``launch_op_kernel``: the wrapper of ``csrc/op_kernel.cu`` (a warp
-  segment of 4, 8, 16 or 32 threads per lane, f64).  Its dyn rows are
+  segment of 4, 8, 16 or 32 threads per lane, a whole warp past 32
+  rows, f64).  Its dyn rows are
   ``[status_gmin, use_seed, act, vsrc(nV), isrc(nI), lrhs(nL)]``: the
   stamp-visible gmin of the rung, a flag to start from the
   linear-devices-only estimate (else from ``x0``), the lanes to solve, the

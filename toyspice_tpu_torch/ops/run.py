@@ -13,9 +13,9 @@ instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
   ``csrc/run_kernel.cu`` (compat), ``csrc/run_kernel_phys.cu`` (physics)
   and ``csrc/run_kernel_mag.cu`` (physics with LM or K, compat LM or K
   with a Newton), the instantiations of ``csrc/run_kernel.cuh`` (one
-  segment of a warp per lane, a thread a row of the system and, in a
-  Newton deck, a thread a device, f64), without and with the waveform
-  store. Each
+  segment of a warp per lane, a thread a row of the system, two rows on a
+  whole warp for np1 33 to 64, and, in a Newton deck, a thread a device,
+  f64), without and with the waveform store. Each
   checks its inputs, allocates the outputs, launches on the current
   stream and counts its launches in ``.launches``.
 * ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
@@ -72,15 +72,24 @@ from ..engine.tran import TranOutput
 from ..models import magnetic
 from ..models.sources import eval_sources
 from . import _build
-from .newton import MAX_NL_DEVICES, Builder, Devices, converged
+from .newton import Builder, Devices, converged
 from .run_plan import (CORE_KEYS, LM_PHYS_ROWS, NL_SLOTS, const_stack,
                        first_leaf, fused_ineligible_reason, infer_batch,
                        init_state_stack, jv_stack, jv_tree, mag_width,
                        make_plan, source_leaves, source_stack, unpack_state)
 
-NP1_CAP = 32  # largest matrix the kernel is compiled for (NMAX 8/16/32)
+# the largest matrix the run, OP and DC sweep kernels are compiled for:
+# their 64-row bucket, a lane's system on a whole warp, two rows a thread
+# (csrc/newton.cuh seg_bucket)
+NP1_CAP = 64
 MAX_SOURCES = 32  # source values a lane keeps in the run kernel's slice
-MAX_TOPO = 12288  # int32 words of shared memory for the plan (48 KB)
+# int32 words of shared memory for the plan (48 KB), and so the cap on the
+# count of diodes, BJTs and MOSFETs: beside a table at this cap a block of
+# one lane of the 64-row bucket still holds the junction voltages and value
+# slots of every device the table can describe (csrc/newton.cuh
+# fit_bucket: np1's bucket, or the 64-row bucket with as few lanes a block
+# as fit); a launch that found too little shared memory would raise.
+MAX_TOPO = 12288
 CHECK_EVERY = 256  # plain version: steps between host checks (linear)
 CHECK_EVERY_NL = 64  # the same for a Newton deck (longer steps)
 
@@ -93,18 +102,43 @@ def kernel_caps_reason(plan):
     None when they can (the run, OP and DC sweep kernels)."""
     if plan.np1 > NP1_CAP:
         return (f"np1={plan.np1} exceeds the kernel's matrix cap of "
-                f"{NP1_CAP}")
+                f"{NP1_CAP} (its 64-row bucket, a warp a lane)")
     nsrc = sum(len(v) for v in plan.stype.values())
     if nsrc > MAX_SOURCES:
-        return f"{nsrc} sources exceed the kernel's cap of {MAX_SOURCES}"
-    n_nl = sum(plan.counts[5:])
-    if n_nl > MAX_NL_DEVICES:
-        return (f"{n_nl} diodes, BJTs and MOSFETs exceed the kernel's cap "
-                f"of {MAX_NL_DEVICES} (the junction voltages and value "
-                "slots a warp segment keeps in shared memory)")
+        return (f"{nsrc} sources exceed the kernel's cap of {MAX_SOURCES} "
+                "(the source values a lane keeps in shared memory)")
     if plan.base_len > MAX_TOPO:
-        return "stamp plan exceeds the kernel's shared-memory table"
+        return (f"stamp plan of {plan.base_len} words ("
+                f"{sum(plan.counts[5:])} diodes, BJTs and MOSFETs) exceeds "
+                f"the kernel's shared-memory table cap of {MAX_TOPO} words "
+                "(48 KB)")
     return None
+
+
+# bytes of shared memory a block may use on an H100 (csrc/newton.cuh
+# SEG_SMEM) and the lane's rows a segment's slice holds
+# (csrc/run_kernel.cuh SEG_ROWS)
+SEG_SMEM = 232448
+SEG_ROWS = 192
+
+
+def run_bucket(plan):
+    """The run kernel's size bucket for ``plan`` as csrc/run_kernel.cuh
+    run_bucket computes it (newton.cuh fit_bucket): np1's (4, 8, 16, 32 or
+    64 rows), or 64 when the table and the 128 / W slices of np1's block
+    overflow SEG_SMEM; 0 past the caps.  64 is the ``_wide`` libraries'
+    (``ops/_build.py``): the wrapper picks the library by it."""
+    nl = (newton_doubles(plan) + 1) // 2 * 2
+    table = (int(plan.topo.size) + 3) // 4 * 2
+
+    def fits(b, lanes):
+        rows = (b + 2) * (b + 1) + b + MAX_SOURCES + SEG_ROWS + nl
+        return 8 * (table + lanes * rows) <= SEG_SMEM
+
+    b = next((b for b in (4, 8, 16, 32, 64) if plan.np1 <= b), 0)
+    if 0 < b < 64 and not fits(b, 128 // b):
+        b = 64
+    return b if b and fits(b, 128 // b if b < 64 else 1) else 0
 
 
 def newton_doubles(plan):
@@ -284,14 +318,16 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
         raise ValueError("the run kernel takes a plan of mode 'tran'")
     _check_trap(plan, sc)
     check_caps(plan)
-    # the library (and its entry point tsr_<name>) of this instantiation:
-    # run_kernel_mag.cu holds physics with LM or K and compat LM or K with
-    # a Newton, run_kernel_phys.cu the rest of physics, run_kernel.cu the
-    # rest of compat
+    # the library (and its entry point tsr_<family>[_store]) of this
+    # instantiation: run_kernel_mag.cu holds physics with LM or K and
+    # compat LM or K with a Newton, run_kernel_phys.cu the rest of
+    # physics, run_kernel.cu the rest of compat; each built apart for the
+    # 64-row bucket (the _wide libraries)
     mag = plan.nlm + plan.nk > 0
     family = ("run_mag" if mag and (plan.physics or plan.nonlinear)
               else "run_phys" if plan.physics else "run")
-    name = family + ("" if store is None else "_store")
+    name = (family + ("" if store is None else "_store")
+            + ("_wide" if run_bucket(plan) == 64 else ""))
     lib = _build.load(name)
     topo = torch.as_tensor(plan.topo, device=device)
     st = state.clone()
@@ -327,7 +363,8 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
                  wave.out_n.data_ptr(), wave.overflow.data_ptr()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"tsr_{name}")(*args, stream)
+        entry = getattr(lib, "tsr_" + name.removesuffix("_wide"))
+        err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"run kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, name)})")
