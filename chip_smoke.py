@@ -12,7 +12,7 @@ seconds:
    run_kernel.cu, its physics ones in run_kernel_phys.cu, its physics
    magnetic and compat magnetic Newton ones in run_kernel_mag.cu, each
    source built without and with the waveform store, each of those as two
-   objects, the 64-row bucket and the rest), the OP kernel, the
+   objects, the 64-row and block buckets and the rest), the OP kernel, the
    DC sweep kernel, the stamped solve (a warp segment per lane to np1 =
    32, a warp per lane to 64, a block per lane above: in registers to 144,
    in shared memory to 168, past it in device memory), the AC kernel (a
@@ -179,12 +179,14 @@ seconds:
    AC source, 1024 lanes: the OP, DC sweep and AC kernels launched, each
    result equal bit for bit to compat/BE's and each kernel bit-identical
    to its plain version; make_tran_batch still refuses compat/trap.
-32. decks past n = 128, whose systems a block holds in its registers
-   (csrc/gj_block.cuh gj_wide): a 127-stage RC ladder (np1 = 130), C
-   spread 0.1, 1024 lanes, make_tran_batch to 0.05 ms: engine "general",
-   one launch of the stamped solve's wide body per batched Newton
-   iteration and no other kernel, no lane failed, every lane at tstop;
-   then run_ac_batch on a 31-section LC ladder (np1 = 66, systems of
+32. decks past n = 128: a 127-stage RC ladder (np1 = 130), C spread 0.1,
+   1024 lanes, make_tran_batch to 0.05 ms: engine "run" (one launch of
+   the run kernel's block bucket), then under TOYSPICE_TRAN=general the
+   general engine, whose systems a block holds in its registers
+   (csrc/gj_block.cuh gj_wide): one launch of the stamped solve's wide
+   body per batched Newton iteration and no other kernel, no lane failed,
+   every lane at tstop, counters equal to the run engine's; then
+   run_ac_batch on a 31-section LC ladder (np1 = 66, systems of
    132), 1024 lanes x 21 frequencies: one stamped launch (the linear OP),
    one GJ launch through the wide body, torch.linalg.solve as the
    yardstick.  Each names the body that ran (ops/solve.py body).  For both,
@@ -216,7 +218,8 @@ seconds:
    (the OP and DC sweep kernels), ce_amplifier_ac on a (2, 2) mesh (the
    OP and AC kernels) and lc16_ac_8192 on a (2, 3) mesh (its 21
    frequencies: the stamped and GJ kernels), the rectifier with
-   store='full' and rc127's general engine at 1024 lanes on four shards;
+   store='full', and rc127 at 1024 lanes on four shards on the run
+   engine (the block bucket) and under TOYSPICE_TRAN=general;
    then dryrun_multichip on every card.  Each wall is printed beside the
    unsharded one.
 35. the 64-row bucket's other instantiations at 259 lanes, each through
@@ -229,12 +232,29 @@ seconds:
    it takes the 64-row bucket), cw16 with store='full' to 0.1 ms and its
    streamed stitch, cw16's OP under physics, and the DC sweep of a string
    of 32 diodes (compat at 8192 lanes, physics at 259).
+36. the block bucket (np1 past 64: a lane on a whole block of 256
+   threads, its system built and eliminated by gj_block in the block's
+   slice, shared memory while it fits, else a slice of a device-memory
+   workspace): the main paths rc127_8192 (np1 = 130, to 0.05 ms: one run
+   launch, no stamped or GJ launch; beside phase 32's two engines at 1024
+   lanes), cw32_8192 (a 32-stage Cockcroft-Walton multiplier, np1 = 67,
+   64 diodes, to 2 ms: one OP launch, then one run launch) and the DC
+   sweep of a string of 64 diodes at 8192 lanes x 9 points (one launch),
+   each with its run launch alone and its kernel bit for bit against its
+   plain version on 259 of its lanes; then at 259 lanes, through the
+   entry points and bit for bit against the plain versions: compat linear
+   at np1 = 65, cw32 under physics BE and trap to 0.1 ms, TRANS_SMALL's
+   secondary into a 60-section RC ladder (np1 = 67; compat and
+   physics/trap) and with a diode at its end (the magnetic Newton ones),
+   a 180-stage ladder (np1 = 183) on the device-memory workspace, rc127
+   with store='full' and its stream in 3 chunks, cw32's OP under physics
+   and the diode string's sweep under physics.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30, 32, 33, 34) and each path of phases 22-24, 28, 31 and 35 runs
-with every kernel's launch count set to 0 just before and read just
+29, 30, 32, 33, 34, 36) and each path of phases 22-24, 28, 31, 35 and 36
+runs with every kernel's launch count set to 0 just before and read just
 after.
 """
 
@@ -556,6 +576,20 @@ def ptxas_summary(log):
             k = re.search(r"(run_seg_kernel|op_seg_kernel|"
                           r"stamped_seg_kernel|dc_seg_kernel|ac_kernel)"
                           r"ILi(\d+)E((?:Lb[01]E)*)", entry)
+            # the block bucket's kernels: run_block_kernel<NL, MAG, STORE,
+            # PHYS>, op_block_kernel<PHYS>, dc_block_kernel<PHYS>
+            blk = re.search(r"(run_block_kernel|op_block_kernel|"
+                            r"dc_block_kernel)I((?:Lb[01]E)+)", entry)
+            if blk is not None:
+                bits = re.findall(r"Lb([01])E", blk.group(2))
+                bnames = ([("linear", "newton"), ("", "mag"), ("", "store"),
+                           ("", "physics")]
+                          if blk.group(1) == "run_block_kernel"
+                          else [("compat", "physics")])
+                label = blk.group(1) + "<" + ", ".join(
+                    n_[int(f)] for n_, f in zip(bnames, bits) if n_[int(f)]
+                ) + ">"
+                continue
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
             # run_seg_kernel<NMAX, NL, MAG, STORE, PHYS> (NL: a Newton
@@ -2799,16 +2833,19 @@ def diode_string(count):
     return "\n".join(lines)
 
 
-def magnetic_ladder(diode=False):
-    """TRANS_SMALL's secondary into a 28-section RC ladder (np1 = 35), with
-    ``diode`` a diode and an RC load at its end (np1 = 36)
-    (tests/test_torch_wide_bucket.py)."""
+def magnetic_ladder(diode=False, sections=28, tstop="1m"):
+    """TRANS_SMALL's secondary into an RC ladder of ``sections`` sections
+    (np1 = sections + 7), with ``diode`` a diode and an RC load at its end
+    (np1 = sections + 8), to ``tstop`` (tests/test_torch_wide_bucket.py)."""
     lines = ["Rl1 3 m1 20", "Cl1 m1 0 10n"]
-    for k in range(2, 29):
+    for k in range(2, sections + 1):
         lines += [f"Rl{k} m{k - 1} m{k} 20", f"Cl{k} m{k} 0 10n"]
-    lines += (["D1 m28 d DMOD", "Rload d 0 1k", "Cload d 0 10u",
-               ".model DMOD D(IS=1e-14)"] if diode else ["Rload m28 0 1000"])
-    return TRANS_SMALL.replace("Rload 3 0 1000", "\n".join(lines))
+    end = f"m{sections}"
+    lines += ([f"D1 {end} d DMOD", "Rload d 0 1k", "Cload d 0 10u",
+               ".model DMOD D(IS=1e-14)"] if diode
+              else [f"Rload {end} 0 1000"])
+    return TRANS_SMALL.replace("Rload 3 0 1000", "\n".join(lines)).replace(
+        ".tran 20u 1m", f".tran 20u {tstop}")
 
 
 def parallel_mosfets(count):
@@ -2836,6 +2873,133 @@ WIDE_RUNS = (
     ("promoted", parallel_mosfets(30), "compat", False))
 
 
+def runs_vs_plain(runs, lanes, label):
+    """Each (name, deck, semantics, trap) of ``runs`` at ``lanes`` lanes, R
+    and C spread: through make_tran_batch with the launch counts set to 0
+    just before (engine "run", one run launch, no lane failed, every lane
+    at tstop), then its instantiation against its plain version bit for
+    bit, the path's counters equal to the kernel's.  Returns each one's
+    launches, max abs err, kernel and plain ms, bound's work and launch
+    shape (``run.segment_shape``)."""
+    res = {}
+    for name, deck, semantics, trap in runs:
+        t0 = time.perf_counter()
+        opts = ts.SimOptions(integration="trap" if trap else "be")
+        cc, cfg, params, axes, state0 = setup(deck, rc_spread, lanes)
+        fn = ts.make_tran_batch(cc, cfg, axes, semantics=semantics,
+                                opts=opts)
+        if fn.engine != "run":
+            fail(f"{label} {name}: engine {fn.engine!r} "
+                 f"({fn.engine_reason})")
+        fn(params, state0)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(params, state0)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"{label} {name} path", got, {
+            "run_kernel": (1, 1), "op_kernel": (0, 1 << 30),
+            "stamped_solve": (0, 1 << 30), "gj_kernel": (0, 1 << 30)})
+        if bool(out.fail.any()) or not bool((out.t_final == cfg.tstop).all()):
+            fail(f"{label} {name}: a lane failed or stopped early")
+        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0,
+                                                  opts, semantics)
+        shape = run.segment_shape(plan, lanes)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+        e = compare_run(f"{label} {name}", k, p, check_jv=jv0 is not None)
+        if not (torch.equal(out.attempts, k.attempts)
+                and torch.equal(out.nr_iters, k.nr_iters)
+                and torch.equal(out.t_final, k.t)):
+            fail(f"{label} {name}: the path differs from a kernel run")
+        res[name] = dict(launches=got["run_kernel"], err=e, k_ms=k_ms,
+                         p_ms=p_ms, shape=shape,
+                         flops=run_bound(plan, k, semantics == "physics"),
+                         nbytes=run_nbytes(plan, dev, src, st, jv0, lanes))
+        phase(label, t0,
+              f"{name} ({semantics}/{'trap' if trap else 'be'}, np1="
+              f"{plan.np1}, {sum(plan.counts[5:])} D/Q/M): {lanes} lanes, "
+              f"{shape[0]} threads a lane, {shape[1]} lanes a block, "
+              f"{shape[4]} B of shared memory a block, {shape[5]} doubles "
+              f"a slice in device memory; launches {got}; accepted "
+              f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
+              f"NR iterations {int(k.nr_iters.sum())}, failed 0; counters "
+              f"equal, bit for bit, max abs err {e:.3e}; kernel {k_ms:.3f} "
+              f"ms, plain {p_ms:.1f} ms")
+        del k, p, out
+    return res
+
+
+def store_stream_vs_plain(label, deck, lanes, want):
+    """``deck`` with store='full' at ``lanes`` lanes, R and C spread,
+    through make_tran_batch with the counts set to 0 just before (``want``:
+    the launches besides the store's one); the store instantiation against
+    its plain version bit for bit; then its stream in chunks of a third of
+    the most rows a lane keeps (stream_transient_chunks, counted the same
+    way): every chunk's rows and the totals equal to the single launch's,
+    and the second chunk's re-entry bit for bit with the plain store.
+    Returns the store's launches, max abs err, kernel ms alone and with
+    the wrapper, plain ms, bound's work, the rows kept, the chunk's rows
+    and the chunks."""
+    cc, cfg, params, axes, state0 = setup(deck, rc_spread, lanes)
+    fn = ts.make_tran_batch(cc, cfg, axes, store="full")
+    if fn.engine != "store":
+        fail(f"{label} store: engine {fn.engine!r}")
+    fn(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    whole = fn(params, state0)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts(f"{label} store path", got,
+                 {**want, "run_kernel_store": (1, 1)})
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+    keep = run.Store(cfg.tstart, cfg.max_store)
+    k, kw, e, k_ms, w_ms, p_ms = store_vs_plain(f"{label} store", plan, dev,
+                                                src, st, sc, keep, jv0)
+    if not (torch.equal(whole.out_n, kw.out_n)
+            and same_bits(whole.out_x, kw.out_x)):
+        fail(f"{label} store: the path's rows differ from a store launch's")
+    res = dict(launches=got["run_kernel_store"], k_ms=k_ms, w_ms=w_ms,
+               p_ms=p_ms, flops=run_bound(plan, k, False),
+               nbytes=run_nbytes(plan, dev, src, st, jv0, lanes)
+               + nbytes(kw.out_x, kw.out_t), rows=int(kw.out_n.sum()))
+    chunk = int(kw.out_n.max()) // 3 + 1
+    reset_counts()
+    parts = list(ts.stream_transient_chunks(cc, cfg, params, state0, chunk))
+    torch.cuda.synchronize()
+    check_counts(f"{label} stream path", counts(), {
+        **want, "run_kernel_store": (len(parts), len(parts))})
+    n0 = torch.zeros(lanes, dtype=torch.long, device=DEVICE)
+    for w in parts:
+        for lane in range(lanes):
+            a, b = int(n0[lane]), int(w.out_n[lane])
+            if not (torch.equal(w.out_x[lane, :b], kw.out_x[lane, a:a + b])
+                    and torch.equal(w.out_t[lane, :b],
+                                    kw.out_t[lane, a:a + b])):
+                fail(f"{label} stream: lane {lane}'s rows differ from the "
+                     "monolithic store's")
+        n0 += w.out_n.long()
+    if not (torch.equal(n0, kw.out_n.long())
+            and torch.equal(parts[-1].attempts, k.attempts)):
+        fail(f"{label} stream: the chunks' totals differ from the "
+             "monolithic store's")
+    # the second chunk's re-entry against the plain store
+    again = run.Store(cfg.tstart, chunk, True)
+    start = run.RunStart(parts[0].t_final, parts[0].dt_final,
+                         parts[0].attempts)
+    st1 = run_plan.init_state_stack(plan, parts[0].state, lanes, DEVICE)
+    jv1 = (run_plan.jv_stack(plan, parts[0].jv, lanes) if plan.nonlinear
+           else None)
+    k1, w1 = run.launch_store_kernel(plan, dev, src, st1, sc, again, jv1,
+                                     start=start)
+    p1, pw1 = run.store_plain(plan, dev, src, st1, sc, again, jv1, start)
+    res["err"] = max(e, compare_run(f"{label} stream re-entry", k1, p1,
+                                    check_jv=jv1 is not None),
+                     wave_err(f"{label} stream re-entry", w1, pw1))
+    res.update(chunk=chunk, chunks=len(parts))
+    return res
+
+
 def wide_phase(lanes, main_lanes, smi):
     """Phase 35: every other instantiation of the 64-row bucket (np1 33 to
     64, a whole warp a lane), ``lanes`` lanes, R and C spread, each
@@ -2849,121 +3013,24 @@ def wide_phase(lanes, main_lanes, smi):
     and the DC sweep of a string of 32 diodes, compat at ``main_lanes``
     lanes and physics at ``lanes``.  Returns each one's launches, max abs
     err, kernel and plain ms and bound's work."""
-    res = {}
-    for name, deck, semantics, trap in WIDE_RUNS:
-        t0 = time.perf_counter()
-        opts = ts.SimOptions(integration="trap" if trap else "be")
-        cc, cfg, params, axes, state0 = setup(deck, rc_spread, lanes)
-        fn = ts.make_tran_batch(cc, cfg, axes, semantics=semantics,
-                                opts=opts)
-        if fn.engine != "run":
-            fail(f"wide {name}: engine {fn.engine!r} ({fn.engine_reason})")
-        fn(params, state0)  # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        out = fn(params, state0)
-        torch.cuda.synchronize()
-        got = counts()
-        check_counts(f"wide {name} path", got, {
-            "run_kernel": (1, 1), "op_kernel": (0, 1 << 30),
-            "stamped_solve": (0, 1 << 30), "gj_kernel": (0, 1 << 30)})
-        if bool(out.fail.any()) or not bool((out.t_final == cfg.tstop).all()):
-            fail(f"wide {name}: a lane failed or stopped early")
-        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0,
-                                                  opts, semantics)
-        shape = run.segment_shape(plan, lanes)
-        if shape[0] != 32:
-            fail(f"wide {name}: segments of {shape[0]}, not a warp")
-        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
-        e = compare_run(f"wide {name}", k, p, check_jv=jv0 is not None)
-        if not (torch.equal(out.attempts, k.attempts)
-                and torch.equal(out.nr_iters, k.nr_iters)
-                and torch.equal(out.t_final, k.t)):
-            fail(f"wide {name}: the path differs from a kernel run")
-        res[name] = dict(launches=got["run_kernel"], err=e, k_ms=k_ms,
-                         p_ms=p_ms,
-                         flops=run_bound(plan, k, semantics == "physics"),
-                         nbytes=run_nbytes(plan, dev, src, st, jv0, lanes))
-        phase("35 64-row bucket vs plain", t0,
-              f"{name} ({semantics}/{'trap' if trap else 'be'}, np1="
-              f"{plan.np1}, {sum(plan.counts[5:])} D/Q/M): {lanes} lanes, "
-              f"segments of {shape[0]}, {shape[1]} lanes a block, "
-              f"{shape[4]} B a block; launches {got}; accepted "
-              f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
-              f"NR iterations {int(k.nr_iters.sum())}, failed 0; counters "
-              f"equal, bit for bit, max abs err {e:.3e}; kernel {k_ms:.3f} "
-              f"ms, plain {p_ms:.1f} ms")
-        del k, p, out
+    res = runs_vs_plain(WIDE_RUNS, lanes, "35 64-row bucket vs plain")
+    if any(r["shape"][0] != 32 for r in res.values()):
+        fail("wide: a run's segments are not a warp")
 
     # the store: cw16 to 0.1 ms with store='full', then a streamed stitch
     t0 = time.perf_counter()
-    cc, cfg, params, axes, state0 = setup(cockcroft_walton(16, "0.1m"),
-                                          rc_spread, lanes)
-    fn = ts.make_tran_batch(cc, cfg, axes, store="full")
-    if fn.engine != "store":
-        fail(f"wide store: engine {fn.engine!r}")
-    fn(params, state0)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    whole = fn(params, state0)
-    torch.cuda.synchronize()
-    got = counts()
-    check_counts("wide store path", got, {"op_kernel": (1, 1),
-                                          "run_kernel_store": (1, 1)})
-    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
-    keep = run.Store(cfg.tstart, cfg.max_store)
-    k, kw, e, k_ms, w_ms, p_ms = store_vs_plain("wide store", plan, dev, src,
-                                                st, sc, keep, jv0)
-    if not (torch.equal(whole.out_n, kw.out_n)
-            and same_bits(whole.out_x, kw.out_x)):
-        fail("wide store: the path's rows differ from a store launch's")
-    store_wide = dict(launches=got["run_kernel_store"], err=e, k_ms=k_ms,
-                      p_ms=p_ms, flops=run_bound(plan, k, False),
-                      nbytes=run_nbytes(plan, dev, src, st, jv0, lanes)
-                      + nbytes(kw.out_x, kw.out_t))
-    chunk = int(kw.out_n.max()) // 3 + 1
-    reset_counts()
-    parts = list(ts.stream_transient_chunks(cc, cfg, params, state0, chunk))
-    torch.cuda.synchronize()
-    got = counts()
-    check_counts("wide stream path", got, {
-        "op_kernel": (1, 1), "run_kernel_store": (len(parts), len(parts))})
-    n0 = torch.zeros(lanes, dtype=torch.long, device=DEVICE)
-    for w in parts:
-        for lane in range(lanes):
-            a, b = int(n0[lane]), int(w.out_n[lane])
-            if not (torch.equal(w.out_x[lane, :b], kw.out_x[lane, a:a + b])
-                    and torch.equal(w.out_t[lane, :b],
-                                    kw.out_t[lane, a:a + b])):
-                fail(f"wide stream: lane {lane}'s rows differ from the "
-                     "monolithic store's")
-        n0 += w.out_n.long()
-    if not (torch.equal(n0, kw.out_n.long())
-            and torch.equal(parts[-1].attempts, k.attempts)):
-        fail("wide stream: the chunks' totals differ from the monolithic "
-             "store's")
-    # the second chunk's re-entry against the plain store
-    again = run.Store(cfg.tstart, chunk, True)
-    start = run.RunStart(parts[0].t_final, parts[0].dt_final,
-                         parts[0].attempts)
-    st1 = run_plan.init_state_stack(plan, parts[0].state, lanes, DEVICE)
-    jv1 = run_plan.jv_stack(plan, parts[0].jv, lanes)
-    k1, w1 = run.launch_store_kernel(plan, dev, src, st1, sc, again, jv1,
-                                     start=start)
-    p1, pw1 = run.store_plain(plan, dev, src, st1, sc, again, jv1, start)
-    e = max(e, compare_run("wide stream re-entry", k1, p1, check_jv=True),
-            wave_err("wide stream re-entry", w1, pw1))
-    store_wide["err"] = e
+    store_wide = store_stream_vs_plain("wide", cockcroft_walton(16, "0.1m"),
+                                       lanes, {"op_kernel": (1, 1)})
     phase("35 64-row bucket vs plain", t0,
           f"store (cw16 to 0.1 ms, store='full'): {lanes} lanes, OP "
-          f"launches 1, store launches 1, stored rows "
-          f"{int(kw.out_n.sum())}, bit for bit with store_plain, kernel "
-          f"{k_ms:.3f} ms alone ({w_ms:.3f} ms with the wrapper), plain "
-          f"{p_ms:.1f} ms; streamed in chunks of {chunk} rows: "
-          f"{len(parts)} store launches, every chunk's rows and the totals "
-          f"equal to the monolithic store's, the re-entry bit for bit with "
-          f"the plain store; max abs err {e:.3e}")
-    del whole, k, kw, parts, k1, w1, p1, pw1
+          f"launches 1, store launches 1, stored rows {store_wide['rows']}, "
+          f"bit for bit with store_plain, kernel {store_wide['k_ms']:.3f} "
+          f"ms alone ({store_wide['w_ms']:.3f} ms with the wrapper), plain "
+          f"{store_wide['p_ms']:.1f} ms; streamed in chunks of "
+          f"{store_wide['chunk']} rows: {store_wide['chunks']} store "
+          f"launches, every chunk's rows and the totals equal to the "
+          f"monolithic store's, the re-entry bit for bit with the plain "
+          f"store; max abs err {store_wide['err']:.3e}")
 
     # cw16's OP under physics
     t0 = time.perf_counter()
@@ -3029,6 +3096,309 @@ def wide_phase(lanes, main_lanes, smi):
         del xs, kd, pd, tk, tp_
     free()
     res["store"] = store_wide
+    return res
+
+
+# ------------------------------------------------------ 36 the block bucket
+
+
+# phase 36's transients at 259 lanes: (name, deck, semantics, trap), each
+# through make_tran_batch (counts reset before), then the block bucket's
+# run instantiation against its plain version
+BLOCK_RUNS = (
+    ("linear", rc_ladder(62), "compat", False),
+    ("physics_be", cockcroft_walton(32, "0.1m"), "physics", False),
+    ("physics", cockcroft_walton(32, "0.1m"), "physics", True),
+    ("magnetic", magnetic_ladder(False, 60, "0.2m"), "compat", False),
+    ("physics_magnetic", magnetic_ladder(False, 60, "0.2m"), "physics",
+     True),
+    ("magnetic_newton", magnetic_ladder(True, 60, "0.2m"), "compat", False),
+    ("physics_magnetic_newton", magnetic_ladder(True, 60, "0.2m"),
+     "physics", True),
+    ("device_memory", rc_ladder(180), "compat", False))
+
+
+def block_phase(lanes, main_lanes, smi, rc_general):
+    """Phase 36: the block bucket of the run, store, OP and DC sweep
+    kernels (np1 past 64: a lane on a whole block of 256 threads, its
+    system built and eliminated by gj_block in the block's slice, shared
+    memory while it fits, else a slice of a device-memory workspace).
+    Main paths at ``main_lanes`` lanes, lanes from numpy default_rng(0),
+    counts set to 0 just before and read just after: rc127_8192 (np1 =
+    130, C spread 0.1, to 0.05 ms: one run launch, no stamped or GJ launch),
+    printed beside phase 32's run and general engines at 1024 lanes
+    (``rc_general``); cw32_8192 (a 32-stage Cockcroft-Walton multiplier,
+    np1 = 67, 64 diodes, to 2 ms: one OP launch, then one run launch); the
+    DC sweep of a string of 64 diodes (np1 = 67) at 9 points, one launch.
+    Each main path's run launch alone on its inputs, and the kernel
+    against its plain version bit for bit on ``lanes`` of its lanes (cw32
+    over the first 0.1 ms).  Then at ``lanes`` lanes, each through its
+    entry point (counts reset before) and then bit for bit against its
+    plain version: BLOCK_RUNS (compat linear at np1 = 65; cw32 under
+    physics BE and trap to 0.1 ms; TRANS_SMALL's secondary into a
+    60-section RC ladder, np1 = 67, compat and physics/trap, and with a
+    diode at its end, the magnetic Newton ones; a 180-stage ladder, np1 =
+    183, on the device-memory workspace), rc127 with store='full' and its
+    stream in 3 chunks stitched bit for bit with the single launch, cw32's
+    OP under physics and the physics diode-string sweep.  Returns each
+    one's launches, max abs err, kernel and plain ms and bound's work."""
+    res = {}
+
+    # ---- rc127_8192
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(rc_ladder(127), c_spread,
+                                          main_lanes)
+    ts.make_tran_batch(cc, cfg._replace(tstop=1e-5), axes)(
+        params, state0)  # warm-up
+    fn = ts.make_tran_batch(cc, cfg, axes)
+    if fn.engine != "run" or cc.np1 != 130:
+        fail(f"rc127_8192: engine {fn.engine!r} ({fn.engine_reason}), np1 "
+             f"{cc.np1}")
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("rc127_8192 main path", got, {"run_kernel": (1, 1)})
+    if bool(out.fail.any()) or not bool((out.t_final == cfg.tstop).all()):
+        fail("rc127_8192: a lane failed or stopped early")
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+    shape = run.segment_shape(plan, main_lanes)
+    k, main_ms = timed_call(run.launch_run_kernel, plan, dev, src, st, sc,
+                            jv0)
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.t_final, k.t)):
+        fail("rc127_8192: the path differs from a run launch on its inputs")
+    cut = [x[:lanes] for x in (dev, src, st)]
+    kc, kc_ms, pc, pc_ms = kernel_vs_plain(plan, *cut, sc)
+    err = compare_run("rc127 block run vs plain", kc, pc)
+    if not torch.equal(kc.accepted, out.accepted[:lanes]):
+        fail("rc127: the cut's counters differ from the main path's")
+    accepted = int(out.accepted.sum())
+    res["rc127"] = dict(
+        launches=got["run_kernel"], err=err, k_ms=kc_ms, p_ms=pc_ms,
+        flops=run_bound(plan, kc, False),
+        nbytes=run_nbytes(plan, *cut, None, lanes), main_ms=main_ms,
+        main_flops=run_bound(plan, k, False),
+        main_bytes=run_nbytes(plan, dev, src, st, None, main_lanes))
+    mb = bound(res["rc127"]["main_flops"], res["rc127"]["main_bytes"])
+    phase("36 rc127_8192 main path", t0,
+          f"127-stage rc ladder (np1={cc.np1}): engine={fn.engine} "
+          f"({fn.engine_reason}), run kernel launches={got['run_kernel']}, "
+          f"no stamped or GJ launch; launch shape (the library's): "
+          f"{shape[3]} threads a block, {shape[2]} blocks, {shape[4]} B of "
+          f"shared memory a block, {shape[5]} doubles a slice in device "
+          f"memory; lanes={main_lanes}, accepted={accepted}, attempts="
+          f"{int(out.attempts.sum())}, failed=0, every lane at tstop; "
+          f"wall={wall:.6f} s, {accepted / wall:.6e} accepted steps/s; the "
+          f"run launch alone {main_ms:.3f} ms, bound {mb[0]:.6f} ms "
+          f"({mb[1]}); on {lanes} of its lanes kernel {kc_ms:.3f} ms, "
+          f"plain {pc_ms:.1f} ms, counters equal, bit for bit, max abs err "
+          f"{err:.3e}; phase 32 at 1024 lanes: the run engine "
+          f"{rc_general['run_wall']:.6f} s, the general engine "
+          f"{rc_general['wall']:.6f} s "
+          f"({rc_general['accepted'] / rc_general['wall']:.6e} against "
+          f"{rc_general['accepted'] / rc_general['run_wall']:.6e} accepted "
+          f"steps/s); on {smi}")
+    del out, k, kc, pc
+    free()
+
+    # ---- cw32_8192: one OP launch, then one run launch
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(cockcroft_walton(32), c_spread,
+                                          main_lanes)
+    if cc.np1 != 67 or cc.kind_count("D") != 64:
+        fail("cw32: np1 is not 67 or the diodes are not 64")
+    short = cfg._replace(tstop=1e-4)
+    ts.make_tran_batch(cc, cfg._replace(tstop=1e-5), axes)(
+        params, state0)  # warm-up
+    fn = ts.make_tran_batch(cc, cfg, axes)
+    if fn.engine != "run":
+        fail(f"cw32 engine {fn.engine!r} ({fn.engine_reason})")
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fn(params, state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("cw32 main path", got, {"op_kernel": (1, 1),
+                                         "run_kernel": (1, 1)})
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"cw32 main path: {failed} of {main_lanes} lanes failed or "
+             "stopped early")
+    vc = out.state["C"]["v0"]
+    if not bool(torch.isfinite(vc).all()) or not bool(
+            (vc.abs() < 6400.0).all()):
+        fail("cw32 main path: a capacitor voltage is not finite or exceeds "
+             "32 stages of 200 V")
+    accepted = int(out.accepted.sum())
+    nri = out.nr_iters
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+    k, main_ms = timed_call(run.launch_run_kernel, plan, dev, src, st, sc,
+                            jv0)
+    if not (torch.equal(out.accepted, k.accepted)
+            and torch.equal(out.nr_iters, k.nr_iters)
+            and torch.equal(out.t_final, k.t)):
+        fail("cw32 main path differs from a run launch on its inputs")
+    main_flops, main_bytes = (run_bound(plan, k, False),
+                              run_nbytes(plan, dev, src, st, jv0, main_lanes))
+    del k
+    sc_short = sc._replace(tstop=short.tstop)
+    cut = [x[:lanes] for x in (dev, src, st, jv0)]
+    kc, kc_ms, pc, pc_ms = kernel_vs_plain(plan, *cut[:3], sc_short, cut[3])
+    err = compare_run("cw32 block run vs plain, first 0.1 ms", kc, pc,
+                      check_jv=True)
+    res["newton"] = dict(launches=got["run_kernel"], err=err, k_ms=kc_ms,
+                         p_ms=pc_ms, flops=run_bound(plan, kc, False),
+                         nbytes=run_nbytes(plan, *cut, lanes),
+                         main_ms=main_ms, main_flops=main_flops,
+                         main_bytes=main_bytes)
+    del kc, pc
+    # the OP kernel against its plain version on the main path's lanes
+    tk, tp_ = TimedSolve(op.op_lanes), TimedSolve(op.op_plain)
+    ko = op.make_op_fused(cc, DEFAULTS, solve=tk)(params, state0)
+    po = op.make_op_fused(cc, DEFAULTS, solve=tp_)(params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        if not torch.equal(getattr(ko, key), getattr(po, key)):
+            fail(f"cw32 OP: {key} differs between the kernel and op_plain")
+    if not bool(ko.converged.all()):
+        fail("cw32 OP: a lane did not converge")
+    plan_op = tk.args[0][0]
+    res["op"] = dict(
+        launches=got["op_kernel"],
+        err=exact_err("cw32 OP", [("x", ko.x, po.x)] + [
+            (f"jv.{kd}.{key}", ko.jv[kd][key], po.jv[kd][key])
+            for kd in po.jv for key in po.jv[kd]]),
+        k_ms=tk.ms(), p_ms=tp_.ms(),
+        flops=int(ko.iters_all.sum()) * newton_flops(plan_op) + main_lanes
+        * (build_flops(plan_op, plan_op.entries[:plan_op.n_lin])
+           + lu_flops(plan_op.np1)),
+        nbytes=len(tk.events) * (main_lanes * (8 * (
+            plan_op.nd + op.dyn_width(plan_op)
+            + 2 * (plan_op.np1 + plan_op.kj)) + 8) + plan_op.topo.nbytes))
+    del ko, po, tk, tp_
+    mb = bound(main_flops, main_bytes)
+    phase("36 cw32_8192 main path", t0,
+          f"cw32 (np1={cc.np1}, {cc.kind_count('D')} diodes): engine="
+          f"{fn.engine} ({fn.engine_reason}), OP kernel launches="
+          f"{got['op_kernel']}, run kernel launches={got['run_kernel']}, no "
+          f"stamped or GJ launch; lanes={main_lanes}, accepted={accepted}, "
+          f"attempts={int(out.attempts.sum())}, failed=0, every lane at "
+          f"tstop, Newton iterations per lane {int(nri.min())}.."
+          f"{int(nri.max())}; wall={wall:.6f} s, {accepted / wall:.6e} "
+          f"accepted steps/s; the run launch alone {main_ms:.3f} ms, bound "
+          f"{mb[0]:.6f} ms ({mb[1]}); the run kernel vs run_plain on "
+          f"{lanes} lanes over the first 0.1 ms: kernel "
+          f"{res['newton']['k_ms']:.3f} ms, plain "
+          f"{res['newton']['p_ms']:.1f} ms, counters equal, bit for bit, "
+          f"max abs err {err:.3e}; the OP kernel vs op_plain on the main "
+          f"path's lanes: bit for bit, kernel {res['op']['k_ms']:.3f} ms, "
+          f"plain {res['op']['p_ms']:.1f} ms; on {smi}")
+    del out
+    free()
+
+    # ---- the DC sweep of 64 diodes: compat at main_lanes, physics at lanes
+    pts = np.linspace(0.0, 40.0, 9)
+    for semantics, b in (("compat", main_lanes), ("physics", lanes)):
+        t0 = time.perf_counter()
+        cc, _, params, axes, state0 = setup(diode_string(64), rc_spread, b)
+        reset_counts()
+        w0 = time.perf_counter()
+        xs, conv = ts.run_dc_batch(cc, (0,), params, axes, pts,
+                                   semantics=semantics)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        got = counts()
+        check_counts(f"block DC {semantics} path", got,
+                     {"dc_sweep_kernel": (1, 1)})
+        if not bool(conv.all()) or not bool(torch.isfinite(xs).all()):
+            fail(f"block DC {semantics}: a point did not converge")
+        # the plain version on `lanes` of the lanes
+        sub = {k_: {kk: (v[:lanes] if v.ndim == 2 else v)
+                    for kk, v in t.items()} for k_, t in params.items()}
+        tk, tp_ = TimedSolve(dc.dc_lanes), TimedSolve(dc.dc_plain)
+        kd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics, solve=tk)(
+            sub, state0, pts)
+        pd = dc.make_dc_fused(cc, (0,), DEFAULTS, semantics, solve=tp_)(
+            sub, state0, pts)
+        for key in ("conv", "iters"):
+            if not torch.equal(getattr(kd, key), getattr(pd, key)):
+                fail(f"block DC {semantics}: {key} differs from dc_plain")
+        ed = exact_err(f"block DC {semantics}", [
+            ("xs", kd.xs.reshape(-1, cc.np1), pd.xs.reshape(-1, cc.np1)),
+            ("xs", xs[:lanes].reshape(-1, cc.np1),
+             pd.xs.reshape(-1, cc.np1))])
+        plan_dc, dev_, dyn_, vs_, _ = tk.args[0]
+        dc_it = int(kd.iters.sum())
+        per_it = (phys_newton_flops(plan_dc) if semantics == "physics"
+                  else newton_flops(plan_dc)) - (plan_dc.np1 - 1)
+        res[f"dc_{semantics}"] = dict(
+            launches=got["dc_sweep_kernel"], err=ed, k_ms=tk.ms(),
+            p_ms=tp_.ms(), flops=int(dc_it * per_it),
+            nbytes=nbytes(dev_, dyn_, vs_, kd.xs) + plan_dc.topo.nbytes
+            + lanes * len(pts) * 8)
+        phase("36 diode_string64_sweep", t0,
+              f"DC sweep of 64 diodes ({semantics}, np1={cc.np1}): {b} "
+              f"lanes x {len(pts)} points in one launch, all converged, "
+              f"wall {wall:.6f} s, {b * len(pts) / wall:.6e} points/s; on "
+              f"{lanes} of the lanes: Newton iterations {dc_it}, equal "
+              f"counts, bit for bit, max abs err {ed:.3e}; kernel "
+              f"{res[f'dc_{semantics}']['k_ms']:.3f} ms, plain "
+              f"{res[f'dc_{semantics}']['p_ms']:.1f} ms on {smi}")
+        del xs, kd, pd, tk, tp_
+    free()
+
+    # ---- every other instantiation at `lanes` lanes
+    runs = runs_vs_plain(BLOCK_RUNS, lanes, "36 block bucket vs plain")
+    for name, r in runs.items():
+        if r["shape"][0] != 256 or (r["shape"][5] > 0) != (
+                name == "device_memory"):
+            fail(f"block {name}: launch shape {r['shape']}")
+    res.update(runs)
+    free()
+
+    # ---- the store: rc127 with store='full', then its stream
+    t0 = time.perf_counter()
+    res["store"] = st_ = store_stream_vs_plain("block", rc_ladder(127),
+                                               lanes, {})
+    if st_["chunks"] != 3:
+        fail(f"block stream: {st_['chunks']} chunks, not 3")
+    phase("36 block bucket vs plain", t0,
+          f"store (rc127, np1=130, store='full'): {lanes} lanes, store "
+          f"launches 1, stored rows {st_['rows']}, bit for bit with "
+          f"store_plain, kernel {st_['k_ms']:.3f} ms alone "
+          f"({st_['w_ms']:.3f} ms with the wrapper), plain "
+          f"{st_['p_ms']:.1f} ms; streamed in chunks of {st_['chunk']} "
+          f"rows: {st_['chunks']} store launches, every chunk's rows and "
+          f"the totals equal to the single launch's, the re-entry bit for "
+          f"bit with the plain store; max abs err {st_['err']:.3e}")
+    free()
+
+    # ---- cw32's OP under physics
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(cockcroft_walton(32), c_spread,
+                                        lanes)
+    reset_counts()
+    opr = ts.run_op_batch(cc, params, axes, semantics="physics")
+    torch.cuda.synchronize()
+    check_counts("block physics OP path", counts(), {"op_kernel": (1, 1)})
+    po = op.make_op_fused(cc, DEFAULTS, "physics", solve=op.op_plain)(
+        params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        if not torch.equal(getattr(opr, key), getattr(po, key)):
+            fail(f"block physics OP: {key} differs from op_plain")
+    res["op_physics_err"] = exact_err("block physics OP", [
+        ("x", opr.x, po.x)] + [(f"jv.{kd}.{key}", opr.jv[kd][key],
+                                po.jv[kd][key])
+                               for kd in po.jv for key in po.jv[kd]])
+    phase("36 block bucket vs plain", t0,
+          f"cw32's OP (physics): {lanes} lanes, OP launches 1, converged "
+          f"{int(opr.converged.sum())}, bit for bit with op_plain")
+    free()
     return res
 
 
@@ -3125,17 +3495,22 @@ def chunked(solve_fn, chunk):
 
 
 def past_nbig_phase(lanes, smi):
-    """Phase 32: decks past n = 128, whose systems the GJ kernel and the
-    stamped solve eliminate in the registers of a 512-thread block
+    """Phase 32: decks past n = 128: a 127-stage RC ladder (np1 = 130)
+    through make_tran_batch to 0.05 ms, engine "run" (one launch of the
+    run kernel's block bucket, a block a lane, no other kernel; no lane
+    failed, every lane at tstop), then under
+    TOYSPICE_TRAN=general the general engine, whose stamped solve
+    eliminates its systems in the registers of a 512-thread block
     (csrc/gj_block.cuh gj_wide; past NBIG = 168 in device memory, gj_block
-    on each block's slice of a workspace; ops/solve.py body): a 127-stage RC
-    ladder (np1 = 130) through make_tran_batch to 0.05 ms (engine
-    "general": one stamped launch per batched Newton iteration, no other
-    kernel; no lane failed, every lane at tstop), and a 31-section LC
+    on each block's slice of a workspace; ops/solve.py body): one stamped
+    launch per batched Newton iteration, no other kernel, counters equal
+    to the run engine's and state within rtol 1e-9; and a 31-section LC
     ladder's AC (np1 = 66, 21 frequencies, systems of 132) through
     run_ac_batch (the linear OP's stamped launch, one GJ launch); then the
-    kernels against their plain versions on the same lanes, counters equal
-    and bit for bit, and torch.linalg.solve on the same systems."""
+    general engine's kernels against their plain versions on the same
+    lanes, counters equal and bit for bit, and torch.linalg.solve on the
+    same systems.  Returns the stamped and GJ launches' figures and both
+    rc127 walls."""
     t0 = time.perf_counter()
     cc, cfg, params, axes, state0 = setup(rc_ladder(127), c_spread, lanes)
     if cc.np1 != 130:
@@ -3143,13 +3518,33 @@ def past_nbig_phase(lanes, smi):
     ts.make_tran_batch(cc, cfg._replace(tstop=1e-5), axes)(params,
                                                             state0)  # warm-up
     fn = ts.make_tran_batch(cc, cfg, axes)
-    if fn.engine != "general" or "np1=130" not in fn.engine_reason:
+    if fn.engine != "run":
         fail(f"rc ladder past 128: engine {fn.engine!r} "
              f"({fn.engine_reason})")
     torch.cuda.synchronize()
     reset_counts()
     w0 = time.perf_counter()
-    out = fn(params, state0)
+    kr = fn(params, state0)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - w0
+    check_counts("rc ladder past 128, run engine", counts(),
+                 {"run_kernel": (1, 1)})
+    if bool(kr.fail.any()) or not bool((kr.t_final == cfg.tstop).all()):
+        fail("rc ladder past 128, run engine: a lane failed or stopped "
+             "early")
+    os.environ["TOYSPICE_TRAN"] = "general"
+    try:
+        fg = ts.make_tran_batch(cc, cfg, axes)
+    finally:
+        del os.environ["TOYSPICE_TRAN"]
+    if fg.engine != "general":
+        fail(f"rc ladder past 128 under TOYSPICE_TRAN=general: engine "
+             f"{fg.engine!r}")
+    fg(params, state0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out = fg(params, state0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     got = counts()
@@ -3158,6 +3553,14 @@ def past_nbig_phase(lanes, smi):
     if failed or not bool((out.t_final == cfg.tstop).all()):
         fail(f"rc ladder past 128: {failed} of {lanes} lanes failed or "
              "stopped early")
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        if not torch.equal(getattr(kr, key), getattr(out, key)):
+            fail(f"rc ladder past 128: {key} differs between the run and "
+                 "the general engine")
+    gen_err = max_err("rc ladder past 128, general engine vs run kernel", [
+        ("t_final", out.t_final, kr.t_final)] + [
+        (f"state.{kd}.{key}", out.state[kd][key], kr.state[kd][key])
+        for kd in kr.state for key in kr.state[kd]])
     tk = TimedSolve(solve_stamped.solve_lanes, stamped_systems)
     tp_ = TimedSolve(solve_stamped.solve_plain)
     k = make_tran(cc, cfg, store="none", solve=tk)(params, state0)
@@ -3192,23 +3595,29 @@ def past_nbig_phase(lanes, smi):
                   flops=calls * lanes * stamped_flops(pat),
                   nbytes=calls * (nbytes(vals, rvals, gmin)
                                   + pat.table.nbytes + lanes * pat.n * 8),
-                  n=pat.n, terms=int(pat.table[0]))
+                  n=pat.n, terms=int(pat.table[0]), wall=wall,
+                  run_wall=run_wall, accepted=accepted)
     phase("32 rc ladder past 128", t0,
-          f"127-stage rc ladder (np1={cc.np1}): engine={fn.engine} "
-          f"({fn.engine_reason}), stamped-solve launches="
-          f"{got['stamped_solve']} ({solve.body(pat.n)}, n={pat.n}, "
-          f"{st_big['terms']} terms), one per batched Newton iteration, no "
-          f"other kernel, lanes={lanes}, accepted={accepted}, attempts="
+          f"127-stage rc ladder (np1={cc.np1}), lanes={lanes}: engine="
+          f"{fn.engine} ({fn.engine_reason}), one run-kernel launch (the "
+          f"block bucket), wall={run_wall:.6f} s, "
+          f"{accepted / run_wall:.6e} accepted steps/s; under "
+          f"TOYSPICE_TRAN=general engine={fg.engine}, stamped-solve "
+          f"launches={got['stamped_solve']} ({solve.body(pat.n)}, "
+          f"n={pat.n}, {st_big['terms']} terms), one per batched Newton "
+          f"iteration, no other kernel, accepted={accepted}, attempts="
           f"{int(out.attempts.sum())}, failed={failed}, every lane at "
           f"tstop, Newton iterations per lane {int(nri.min())}.."
           f"{int(nri.max())}, wall={wall:.6f} s, {accepted / wall:.6e} "
-          f"accepted steps/s on {smi}; the kernels vs their plain versions "
-          f"on these lanes: counters equal, bit-identical, max abs err "
-          f"{err:.3e}; stamped kernel {st_big['k_ms']:.3f} ms over {calls} "
-          f"launches ({st_big['k_ms'] / calls:.4f} ms a launch), plain "
+          f"accepted steps/s, counters equal to the run engine's, max abs "
+          f"err {gen_err:.3e}, on {smi}; the general engine's kernels vs "
+          f"their plain versions on these lanes: counters equal, "
+          f"bit-identical, max abs err {err:.3e}; stamped kernel "
+          f"{st_big['k_ms']:.3f} ms over {calls} launches "
+          f"({st_big['k_ms'] / calls:.4f} ms a launch), plain "
           f"{st_big['p_ms']:.1f} ms, torch.linalg.solve on the built "
           f"systems {st_big['lib_ms']:.3f} ms")
-    del out, k, p, tk, tp_
+    del out, k, p, tk, tp_, kr
     free()
 
     t0 = time.perf_counter()
@@ -3715,17 +4124,26 @@ def mesh_phase(smi, bench_none, bench_wall, bench_overrides, lanes):
              c, f, op_mesh, p, a, store="full")[0],
          {"op_kernel": (1, 1 << 30), "run_kernel_store": (1, 1)}, n)
     free()
-    pair("rc127_1024 (the general engine, the stamped wide body)",
-         rc_ladder(127), c_spread, lanes,
-         lambda c, f, p, a: ts.make_tran_batch(c, f, a)(p, ts.init_state(c)),
-         lambda c, f, p, a: mesh.run_transient_sharded(c, f, op_mesh, p,
-                                                       a)[0],
-         {"stamped_solve": (1, 1 << 30)}, n)
-    if mesh.run_transient_sharded.last_engine != "general":
-        fail("34 rc127: engine "
-             f"{mesh.run_transient_sharded.last_engine!r}, expected "
-             "'general'")
-    free()
+    for engine, label, want in (
+            ("run", "the run kernel's block bucket",
+             {"run_kernel": (1, 1)}),
+            ("general", "TOYSPICE_TRAN=general: the general engine, the "
+             "stamped wide body", {"stamped_solve": (1, 1 << 30)})):
+        if engine == "general":
+            os.environ["TOYSPICE_TRAN"] = "general"
+        try:
+            pair(f"rc127_1024 ({label})", rc_ladder(127), c_spread, lanes,
+                 lambda c, f, p, a: ts.make_tran_batch(c, f, a)(
+                     p, ts.init_state(c)),
+                 lambda c, f, p, a: mesh.run_transient_sharded(
+                     c, f, op_mesh, p, a)[0], want, n)
+        finally:
+            os.environ.pop("TOYSPICE_TRAN", None)
+        if mesh.run_transient_sharded.last_engine != engine:
+            fail("34 rc127: engine "
+                 f"{mesh.run_transient_sharded.last_engine!r}, expected "
+                 f"{engine!r}")
+        free()
 
     t1 = time.perf_counter()
     _, d_wall, got = walled(lambda: dryrun.dryrun_multichip(
@@ -3909,7 +4327,7 @@ def main():
     rate = accepted / wall
     bench_none, bench_wall = out, wall
     seg_w, seg_lanes, seg_blocks, seg_threads, seg_shmem = \
-        run.segment_shape(bench["plan"], BENCH_LANES)
+        run.segment_shape(bench["plan"], BENCH_LANES)[:5]
     phase("4 main path", t0,
           f"engine={fn.engine}, launches={lin_launches}, "
           f"lanes={BENCH_LANES}, accepted={accepted}, attempts={attempts}, "
@@ -4083,6 +4501,7 @@ def main():
     st_single, gj_single = user_surface_phase(smi)
     mesh_phase(smi, bench_none, bench_wall, bench_overrides, 1024)
     wide = wide_phase(GJ_LANES, BENCH_LANES, smi)
+    block = block_phase(GJ_LANES, BENCH_LANES, smi, st_work)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -4290,6 +4709,38 @@ def main():
               f"{PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; {what['nbytes']} "
               f"bytes / {PEAK_BYTES:.3g} B/s = {bd[3]:.6f} ms", flush=True)
 
+    block_bounds = {}
+    for key, label in (
+            ("rc127", "rc127_8192's first 259 lanes, to 0.05 ms"),
+            ("newton", "cw32_8192's first 259 lanes, the first 0.1 ms"),
+            ("op", "cw32_8192's OP"),
+            ("dc_compat", "64 diodes, 259 of 8192 lanes x 9 points"),
+            ("linear", "rc ladder, np1 = 65, 259 lanes"),
+            ("physics", "cw32 to 0.1 ms, trap, 259 lanes"),
+            ("magnetic", "the magnetic ladder, np1 = 67, 259 lanes"),
+            ("physics_magnetic", "the magnetic ladder, trap"),
+            ("magnetic_newton", "the ladder with a diode"),
+            ("physics_magnetic_newton", "the ladder with a diode, trap"),
+            ("device_memory", "rc ladder, np1 = 183, 259 lanes, the "
+             "device-memory workspace"),
+            ("store", "rc127 to 0.05 ms, 259 lanes, the inputs, state and "
+             "counters and the whole zeroed output")):
+        what = block[key]
+        block_bounds[key] = bd = bound(what["flops"], what["nbytes"])
+        print(f"[17 bound] block bucket {key} ({label}): {what['flops']} "
+              f"f64 operations / {PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; "
+              f"{what['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+              f"{bd[3]:.6f} ms", flush=True)
+    for key, label in (("rc127", "rc127_8192's run launch"),
+                       ("newton", "cw32_8192's run launch")):
+        what = block[key]
+        bd = bound(what["main_flops"], what["main_bytes"])
+        print(f"[17 bound] block bucket main path ({label} alone "
+              f"{what['main_ms']:.3f} ms): {what['main_flops']} f64 "
+              f"operations / {PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; "
+              f"{what['main_bytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+              f"{bd[3]:.6f} ms", flush=True)
+
     def entry(name, source, replaces, launches, err, k_ms, p_ms, bd,
               lib_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -4430,7 +4881,38 @@ def main():
              ("physics", "toyspice_tpu_torch/csrc/run_kernel_phys.cu"),
              ("magnetic", run_src), ("physics_magnetic", mag_src),
              ("magnetic_newton", mag_src),
-             ("physics_magnetic_newton", mag_src))]}
+             ("physics_magnetic_newton", mag_src))] + [
+        entry(f"run_kernel_block{'' if key == 'rc127' else '_' + key}",
+              src_, repl, block[key]["launches"],
+              max(block[key]["err"], block["physics_be"]["err"])
+              if key == "physics" else block[key]["err"],
+              block[key]["k_ms"], block[key]["p_ms"], block_bounds[key])
+        for key, src_, repl in (
+            ("rc127", run_src, "toyspice_tpu/ops/pallas_run.py:652"),
+            ("linear", run_src, "toyspice_tpu/ops/pallas_run.py:652"),
+            ("device_memory", run_src, "toyspice_tpu/ops/pallas_run.py:652"),
+            ("newton", run_src, "toyspice_tpu/ops/pallas_run.py:652"),
+            ("physics", "toyspice_tpu_torch/csrc/run_kernel_phys.cu",
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("magnetic", run_src, "toyspice_tpu/ops/pallas_run.py:652"),
+            ("physics_magnetic", mag_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("magnetic_newton", mag_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("physics_magnetic_newton", mag_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("store", run_src, "toyspice_tpu/ops/pallas_tran.py:1429"))] + [
+        entry("op_kernel_block", "toyspice_tpu_torch/csrc/op_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:230", block["op"]["launches"],
+              max(block["op"]["err"], block["op_physics_err"]),
+              block["op"]["k_ms"], block["op"]["p_ms"], block_bounds["op"]),
+        entry("dc_sweep_kernel_block",
+              "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+              "toyspice_tpu/ops/pallas_op.py:431",
+              block["dc_compat"]["launches"],
+              max(block["dc_compat"]["err"], block["dc_physics"]["err"]),
+              block["dc_compat"]["k_ms"], block["dc_compat"]["p_ms"],
+              block_bounds["dc_compat"])]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """What the port's transient and OP do not cover raise NotImplementedError
 with the reason.  Compat and physics semantics run every deck of R, C, L,
-LM, K, V, I, D, Q and M within the kernels' caps (np1 <= 64, 32 sources,
-a stamp plan within the 48 KB shared-memory table: 718 diodes in a bank),
-magnetic decks with diodes included, and their OP, DC sweep and AC; a deck
-past the kernels' caps takes the general engine (engine "general", with
-the kernels' reason); trapezoidal integration under compat stays
-refused."""
+LM, K, V, I, D, Q and M within the kernels' caps (any np1: to 64 on
+warps, past it a block a lane; 32 sources, a stamp plan within the 48 KB
+shared-memory table: 718 diodes in a bank), magnetic decks with diodes
+included, and their OP, DC sweep and AC; a deck past the kernels' caps
+takes the general engine (engine "general", with the kernels' reason);
+trapezoidal integration under compat stays refused."""
 
 import os
 import re
@@ -111,15 +111,19 @@ Rl out 0 150
      "integration='trap' requires semantics='physics'", False),
     (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32",
      True),
-    (_ladder(62), {}, "np1=65 exceeds the kernel's matrix cap of 64", True),
-    (_ladder(130), {}, "np1=133 exceeds the kernel's matrix cap of 64",
-     True),
+    (_ladder(62), {}, None, False),
+    (_ladder(130), {}, None, False),
 ], ids=["diode", "store_bogus", "trap", "trap_mutual_with_diode",
         "source_cap", "np1_cap", "np1_past_nbig"])
 def test_ineligible_raises_with_reason(text, kw, reason, general):
     """Past the kernels' caps the general engine takes the run, with the
-    kernels' reason, np1 past NBIG included; past the general engine's
-    too, it raises."""
+    kernels' reason; past the general engine's too, it raises.  np1 is no
+    cap: past 64 rows (np1 = 65, and 133 past NBIG) the run engine takes
+    the deck on the kernels' block bucket."""
+    if reason is None:
+        fn = _build(text, **kw)
+        assert fn.engine == "run" and "whole-run kernel" in fn.engine_reason
+        return
     if general:
         fn = _build(text, **kw)
         assert fn.engine == "general" and reason in fn.engine_reason
@@ -130,13 +134,18 @@ def test_ineligible_raises_with_reason(text, kw, reason, general):
 
 
 def test_np1_cap_boundary():
+    """np1 = 64 is the 64-row bucket's (a warp a lane), 65 the block
+    bucket's (a block a lane); both run on the kernels."""
     ok = ts.compile_circuit(ts.parse(_ladder(61)))
-    assert ok.np1 == run.NP1_CAP == 64
+    assert ok.np1 == run.WARP_NP1 == 64
     assert run.run_ineligible_reason(ok, "compat", "none",
                                      SimOptions()) is None
+    assert run.run_bucket(run.make_plan(ok)) == 64
     big = ts.compile_circuit(ts.parse(_ladder(62)))
-    assert "cap" in run.run_ineligible_reason(big, "compat", "none",
-                                              SimOptions())
+    assert big.np1 == 65
+    assert run.run_ineligible_reason(big, "compat", "none",
+                                     SimOptions()) is None
+    assert run.run_bucket(run.make_plan(big)) == run.BLOCK_BUCKET
 
 
 def test_make_tran_run_refuses_ineligible():

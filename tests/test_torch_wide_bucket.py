@@ -89,18 +89,21 @@ def diode_string(count):
     return "\n".join(lines)
 
 
-def magnetic_ladder(diode=False):
-    """A small J-A transformer whose secondary feeds a 28-section RC ladder
-    (np1 = 35), with ``diode`` a diode and an RC load at its end (np1 =
-    36): the magnetic instantiations in the 64-row bucket."""
-    lines = ["* J-A transformer into an rc ladder", ".tran 20u 1m",
+def magnetic_ladder(diode=False, sections=28, tstop="1m"):
+    """A small J-A transformer whose secondary feeds an RC ladder of
+    ``sections`` sections (np1 = sections + 7), with ``diode`` a diode and
+    an RC load at its end (np1 = sections + 8), to ``tstop``: 28 sections
+    (np1 = 35, 36) take the 64-row bucket's magnetic instantiations."""
+    lines = ["* J-A transformer into an rc ladder", f".tran 20u {tstop}",
              "Vin 1 0 sin(0 10 1k)", "Rp 1 2 0.5",
              "Lp 2 0 core=C1 turns=300", "Ls 3 0 core=C1 turns=150",
              "K1 Lp Ls 0.95", "Rl1 3 m1 20", "Cl1 m1 0 10n"]
-    for k in range(2, 29):
+    for k in range(2, sections + 1):
         lines += [f"Rl{k} m{k - 1} m{k} 20", f"Cl{k} m{k} 0 10n"]
-    lines += (["D1 m28 d DMOD", "Rload d 0 1k", "Cload d 0 10u",
-               ".model DMOD D(IS=1e-14)"] if diode else ["Rload m28 0 1000"])
+    end = f"m{sections}"
+    lines += ([f"D1 {end} d DMOD", "Rload d 0 1k", "Cload d 0 10u",
+               ".model DMOD D(IS=1e-14)"] if diode
+              else [f"Rload {end} 0 1000"])
     lines += [".model C1 core(ms=1.6e6 alpha=1e-3 a=1000 c=0.1 k=2000 "
               "area=1e-4 len=0.1)", ""]
     return "\n".join(lines)
@@ -212,7 +215,7 @@ def test_rc_ladder_at_the_largest_matrix_matches_jax():
     from test_torch_run import assert_matches
 
     deck = rc_ladder(61)
-    assert ts.compile_circuit(ts.parse(deck)).np1 == run.NP1_CAP == 64
+    assert ts.compile_circuit(ts.parse(deck)).np1 == run.WARP_NP1 == 64
     cfg, params_np, ref = jax_reference(deck, spread(deck, ("R", "C")))
     out = _port_tran(deck, cfg, params_np)
     assert_matches(out, ref)
@@ -221,12 +224,17 @@ def test_rc_ladder_at_the_largest_matrix_matches_jax():
 
 # the run kernel's bucket of each deck: np1's, or the 64-row one when the
 # value slots of np1's block of lanes overflow its shared memory (the
-# MOSFET bank past 24 devices), which the wrapper reads to pick the _wide
-# library (ops/run.py run_bucket, csrc/run_kernel.cuh run_bucket)
+# MOSFET bank past 24 devices), or past 64 rows the block bucket, which the
+# wrapper reads to pick the _wide library (ops/run.py run_bucket,
+# csrc/run_kernel.cuh run_bucket)
 BUCKETS = [(rc_ladder(29), 32), (rc_ladder(61), 64), (CW16, 64),
-           (parallel_mosfets(24), 4), (parallel_mosfets(25), 64)]
+           (parallel_mosfets(24), 4), (parallel_mosfets(25), 64),
+           (rc_ladder(62), run.BLOCK_BUCKET),
+           (rc_ladder(127), run.BLOCK_BUCKET),
+           (rc_ladder(180), run.BLOCK_BUCKET)]
 BUCKET_IDS = ["ladder_np1_32", "ladder_np1_64", "cw16", "mosfets_24",
-              "mosfets_25"]
+              "mosfets_25", "ladder_np1_65", "ladder_np1_130",
+              "ladder_np1_183"]
 
 
 @pytest.mark.parametrize("deck,bucket", BUCKETS, ids=BUCKET_IDS)

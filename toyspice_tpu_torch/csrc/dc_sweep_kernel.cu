@@ -1,6 +1,7 @@
 // Every point of a DC sweep in one launch, each Monte-Carlo lane on a
 // segment of W = 4, 8, 16 or 32 lanes of a warp (np1's size bucket; np1
-// 33 to 64 on a whole warp, two rows a thread), in f64.
+// 33 to 64 on a whole warp, two rows a thread; past 64 on a whole block,
+// dc_block_kernel), in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_op.py::_dc_sweep_kernel
 // (body _dc_sweep_core, launched at pallas_op.py:837 through
@@ -142,17 +143,112 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   }
 }
 
+// The block bucket (np1 past 64, or a lane that overflows the 64-row
+// bucket's block): a lane's points on a whole block of BLOCK_THREADS, the
+// segment kernel's Newton with the block in place of the segment
+// (newton.cuh block_newton in flavour FL_DC: each device on thread j (mod
+// T), each row on thread i (mod T), the convergence a block-wide AND, the
+// system eliminated by gj_block in the block's slice).  The lane's system,
+// x, the last iterate and its lane_doubles live in the block's slice
+// (newton.cuh block_slice): shared memory while the table and the slice
+// fit it, else a slice of `work` in device memory (block k takes slice k
+// and lanes k, k + gridDim.x, ...).
+template <bool PHYS>
+__global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_MIN_BLOCKS)
+dc_block_kernel(const int* __restrict__ topo_g, int topo_len,
+                int lane_doubles, const double* __restrict__ dev,
+                const double* __restrict__ dyn_g,
+                const double* __restrict__ vs, long long vs_stride, int npts,
+                double* __restrict__ x_out, int* __restrict__ iters_out,
+                int* __restrict__ conv_out, int nlanes, double reltol,
+                double abstol, int max_iter, double gmin_floor,
+                double* work) {
+  constexpr int T = BLOCK_THREADS;
+  extern __shared__ __align__(16) double seg_smem[];
+  int* topo = reinterpret_cast<int*>(seg_smem);
+  for (int i = threadIdx.x; i < topo_len; i += T) topo[i] = topo_g[i];
+  __syncthreads();
+  const int me = threadIdx.x;
+  const int n = topo[H_NP1];
+  const int nr = topo[H_NR], nc = topo[H_NC], nl = topo[H_NL];
+  const int nv_src = topo[H_NV], ni = topo[H_NI];
+  const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
+  const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
+  const int dw = ni + nl;
+  const long long slice = block_slice(n, lane_doubles);
+  double* const m = block_in_shared(topo_len, slice)
+                        ? seg_smem + (topo_len + 3) / 4 * 2
+                        : work + (size_t)blockIdx.x * slice;
+  double* const xs = m + gj_slice_doubles(n);
+  double* const xo = xs + ((n + 1) & ~1);
+  double* const dyn = xo + ((n + 1) & ~1);
+  double* const sv = dyn + dw;
+  double* const jv = sv + nv_src;
+
+  for (int lane = blockIdx.x; lane < nlanes; lane += gridDim.x) {
+    __syncthreads();  // the last lane's reads of the slice are done
+    const double* dv = dev + (size_t)lane * topo[H_ND];
+    const Deck deck(topo, dv);
+    const int kj = deck.kj;
+    if (lane_doubles < dw + nv_src + kj + D_SLOTS * deck.n_d +
+                           Q_SLOTS * deck.n_q + M_SLOTS * deck.n_m) {
+      for (int p = 0; p < npts; ++p) {  // a short slice
+        const size_t pt = (size_t)lane * npts + p;
+        for (int i = me; i < n; i += T) x_out[pt * n + i] = NAN;
+        if (me == 0) {
+          iters_out[pt] = 0;
+          conv_out[pt] = 0;
+        }
+      }
+      continue;
+    }
+    double* const nv = jv + kj;
+    for (int i = me; i < dw; i += T) dyn[i] = dyn_g[(size_t)lane * dw + i];
+    for (int i = me; i < kj; i += T) jv[i] = 0.0;
+    const double* vlane = vs + (size_t)lane * vs_stride;
+    // status gmin 0: the capacitor leak is the floor
+    const OpStamp stamp{dv, dv + nr + 2 * nc, dyn + ni, sv, dyn,
+                        max_nan(0.0, gmin_floor)};
+    for (int p = 0; p < npts; ++p) {
+      for (int s = me; s < nv_src; s += T)
+        sv[s] = vlane[(size_t)p * nv_src + s];
+      for (int i = me; i < n; i += T) xs[i] = 0.0;
+      __syncthreads();
+      bool conv = false;
+      const int iters = block_newton<FL_DC, PHYS>(
+          deck, ent, roff, stamp, 0.0, true, max_iter, reltol, abstol, 0.0,
+          Phys{}, m, xs, xo, jv, nv, &conv);
+      const size_t pt = (size_t)lane * npts + p;
+      for (int i = me; i < n; i += T) x_out[pt * n + i] = xs[i];
+      if (me == 0) {
+        iters_out[pt] = iters;
+        conv_out[pt] = conv ? 1 : 0;
+      }
+      __syncthreads();  // x is read out before the next point clears it
+    }
+  }
+}
+
 template <int NMAX, bool PHYS>
-cudaError_t launch(const int* topo, int topo_len, int lane_doubles,
+cudaError_t launch(int np1, const int* topo, int topo_len, int lane_doubles,
                    const double* dev, const double* dyn, const double* vs,
                    long long vs_stride, int npts, double* x_out, int* iters,
                    int* conv, int nlanes, double reltol, double abstol,
-                   int max_iter, double gmin_floor, cudaStream_t stream) {
-  return seg_launch(dc_seg_kernel<NMAX, PHYS>,
-                    opdc_shape<NMAX>(nlanes, topo_len, lane_doubles), stream,
-                    topo, topo_len, lane_doubles, dev, dyn, vs, vs_stride,
-                    npts, x_out, iters, conv, nlanes, reltol, abstol,
-                    max_iter, gmin_floor);
+                   int max_iter, double gmin_floor, double* work,
+                   long long work_len, cudaStream_t stream) {
+  if constexpr (NMAX == BLOCK_BUCKET)
+    return block_launch(dc_block_kernel<PHYS>,
+                        block_shape(np1, nlanes, topo_len, lane_doubles),
+                        work, work_len, stream, topo, topo_len,
+                        lane_doubles, dev, dyn, vs, vs_stride, npts, x_out,
+                        iters, conv, nlanes, reltol, abstol, max_iter,
+                        gmin_floor);
+  else
+    return seg_launch(dc_seg_kernel<NMAX, PHYS>,
+                      opdc_shape<NMAX>(nlanes, topo_len, lane_doubles),
+                      stream, topo, topo_len, lane_doubles, dev, dyn, vs,
+                      vs_stride, npts, x_out, iters, conv, nlanes, reltol,
+                      abstol, max_iter, gmin_floor);
 }
 
 template <bool PHYS>
@@ -160,11 +256,13 @@ int launch_np1(int np1, const int* topo, int topo_len, int lane_doubles,
                const double* dev, const double* dyn, const double* vs,
                long long vs_stride, int npts, double* x_out, int* iters,
                int* conv, int nlanes, double reltol, double abstol,
-               int max_iter, double gmin_floor, cudaStream_t s) {
+               int max_iter, double gmin_floor, double* work,
+               long long work_len, cudaStream_t s) {
   return with_bucket(opdc_bucket(np1, topo_len, lane_doubles), [&](auto b) {
     return launch<decltype(b)::value, PHYS>(
-        topo, topo_len, lane_doubles, dev, dyn, vs, vs_stride, npts, x_out,
-        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
+        np1, topo, topo_len, lane_doubles, dev, dyn, vs, vs_stride, npts,
+        x_out, iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor,
+        work, work_len, s);
   });
 }
 
@@ -175,23 +273,27 @@ int launch_np1(int np1, const int* topo, int topo_len, int lane_doubles,
 // segment width, physics the physics instantiation; topo is the whole
 // table, row view included; lane_doubles is ops/dc.py lane_doubles;
 // vs_stride is the lane stride of the source table (0 when every lane
-// shares one).
+// shares one); work holds work_len doubles, the block bucket's slices that
+// do not fit shared memory (ops/run.py block_work; not read otherwise).
 extern "C" int tsr_dc_sweep(int np1, const int* topo, int topo_len,
                             int lane_doubles, const double* dev,
                             const double* dyn, const double* vs,
                             long long vs_stride, int npts, double* x_out,
                             int* iters, int* conv, int nlanes, double reltol,
                             double abstol, int max_iter, double gmin_floor,
-                            int physics, void* stream) {
+                            int physics, double* work, long long work_len,
+                            void* stream) {
   if (nlanes <= 0 || npts <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (physics)
     return launch_np1<true>(np1, topo, topo_len, lane_doubles, dev, dyn, vs,
                             vs_stride, npts, x_out, iters, conv, nlanes,
-                            reltol, abstol, max_iter, gmin_floor, s);
+                            reltol, abstol, max_iter, gmin_floor, work,
+                            work_len, s);
   return launch_np1<false>(np1, topo, topo_len, lane_doubles, dev, dyn, vs,
                            vs_stride, npts, x_out, iters, conv, nlanes,
-                           reltol, abstol, max_iter, gmin_floor, s);
+                           reltol, abstol, max_iter, gmin_floor, work,
+                           work_len, s);
 }
 
 extern "C" const char* tsr_error_string(int err) {

@@ -48,7 +48,11 @@
 // 64-row bucket, np1 33 to 64) a lane's system takes a whole warp, two
 // rows a thread (row i on thread i % 32, slot i / 32), and is eliminated
 // where it is built, in the slice's rows (gj_warp_smem): two rows of 65
-// doubles a thread do not fit a thread's 255 registers.
+// doubles a thread do not fit a thread's 255 registers.  Past 64 rows (the
+// block bucket) a lane takes a whole block of BLOCK_THREADS: block_newton
+// and block_solve build its system in the block's slice (shared memory
+// while it fits, else a slice of a workspace in device memory) and
+// eliminate it there with gj_block.cuh's pointer body, gj_block.
 
 #pragma once
 
@@ -57,6 +61,7 @@
 
 #include <type_traits>
 
+#include "gj_block.cuh"
 #include "gj_warp.cuh"
 
 namespace tsr {
@@ -712,11 +717,13 @@ __device__ __forceinline__ void seg_ranges(const int* roff, const int* rlin,
 }
 
 // The Newton flavours of engine/newton.py: the OP (jv from x at every
-// iteration, status gmin on the MOSFET and the non-ground diagonals) and
-// the DC sweep (iteration 0 stamps the carried jv, a warm start,
-// dc.go:155; status gmin 0, no gmin diagonal, and CheckConvergence: every
-// |new - old| <= abstol or <= reltol*|new|, dc.go:142-187).
-enum Flavour { FL_OP = 0, FL_DC };
+// iteration, status gmin on the MOSFET and the non-ground diagonals), the
+// DC sweep (iteration 0 stamps the carried jv, a warm start, dc.go:155;
+// status gmin 0, no gmin diagonal, and CheckConvergence: every |new - old|
+// <= abstol or <= reltol*|new|, dc.go:142-187) and the transient attempt
+// (the DC sweep's warm start and the OP's test, with the companions of the
+// step: csrc/run_kernel.cuh).
+enum Flavour { FL_OP = 0, FL_DC, FL_TRAN };
 
 // An OP or DC sweep stamp's value (ops/assemble.py mode "op"): the
 // capacitor leaks gc, the inductor stamps its dt = 1e-9 companion, the
@@ -746,10 +753,58 @@ struct OpStamp {
 
 // A launch on warp segments: segments of W threads, per_block lanes a
 // block, the table and each segment's slice in dynamic shared memory
-// (bytes).
+// (bytes); in the block bucket (a block a lane) `work` is the doubles of a
+// block's slice in device memory (0 when the slice is in shared memory).
 struct SegShape {
   int w, per_block, blocks, threads, shmem;
+  int work = 0;
 };
+
+// ------------------------------------------------------ the block bucket
+
+// np1 past 64, and a deck whose one lane overflows the 64-row bucket's
+// block: a block of BLOCK_THREADS a lane (named by its first np1)
+constexpr int BLOCK_BUCKET = 65;
+constexpr int BLOCK_THREADS = 256;
+// blocks an SM holds under the block kernels' launch bounds (at most 128
+// registers a thread), and so the slices a device-memory workspace needs
+// for a full wave (ops/run.py block_work)
+constexpr int BLOCK_MIN_BLOCKS = 2;
+// bytes of static shared memory the block kernels may take beside the
+// dynamic (gj_block's pivot, block_max's warp maxima)
+constexpr int BLOCK_STATIC = 1024;
+
+// Doubles of a lane's slice in the block bucket: the system with
+// gj_block's factors, pivot rows and used flags (gj_slice_doubles), x and
+// the last iterate (n each, even counts), then `extra` of the lane's own
+// (the run kernel: its source values, junction voltages and value slots;
+// the OP and DC sweep kernels: lane_doubles), an even count.
+__host__ __device__ inline long long block_slice(int n, int extra) {
+  return (long long)gj_slice_doubles(n) + 2 * ((n + 1) & ~1) +
+         ((extra + 1) & ~1);
+}
+
+// whether the table and a slice fit the block's shared memory
+__host__ __device__ inline bool block_in_shared(int topo_len,
+                                                long long slice) {
+  return ((topo_len + 3) / 4 * 2 + slice) * (long long)sizeof(double) <=
+         SEG_SMEM - BLOCK_STATIC;
+}
+
+// The block bucket's shape for nlanes lanes of np1 with `extra` doubles a
+// lane beside the system (block_slice): the table and the slice in shared
+// memory when they fit, else the table alone and the slice in device
+// memory (work); a block a lane, as many as the launch's workspace holds
+// slices (block_launch).
+inline SegShape block_shape(int np1, int nlanes, int topo_len, int extra) {
+  const long long slice = block_slice(np1, extra);
+  const bool sh = block_in_shared(topo_len, slice);
+  const long long doubles = (topo_len + 3) / 4 * 2 + (sh ? slice : 0);
+  SegShape s{BLOCK_THREADS, 1, nlanes, BLOCK_THREADS,
+             static_cast<int>(doubles * sizeof(double))};
+  s.work = sh ? 0 : static_cast<int>(slice);
+  return s;
+}
 
 // The shape of nlanes lanes whose segments each take `slice` doubles:
 // THREADS / W lanes a block, or in the 64-row bucket the most of its four
@@ -770,10 +825,10 @@ SegShape seg_shape_of(int nlanes, int topo_len, int slice) {
           doubles * static_cast<int>(sizeof(double))};
 }
 
-// f(std::integral_constant<int, b>()), a launch in bucket b of seg_bucket
-// from MINB to MAXB (the instantiations a library compiles);
-// cudaErrorInvalidValue for another b or b = 0 (past the caps)
-template <int MINB = 4, int MAXB = 64, class F>
+// f(std::integral_constant<int, b>()), a launch in bucket b (seg_bucket's,
+// or BLOCK_BUCKET) from MINB to MAXB (the instantiations a library
+// compiles); cudaErrorInvalidValue for another b
+template <int MINB = 4, int MAXB = BLOCK_BUCKET, class F>
 int with_bucket(int b, F f) {
   auto in = [&](auto c) -> int {
     constexpr int B = decltype(c)::value;
@@ -786,6 +841,7 @@ int with_bucket(int b, F f) {
     case 16: return in(std::integral_constant<int, 16>());
     case 32: return in(std::integral_constant<int, 32>());
     case 64: return in(std::integral_constant<int, 64>());
+    case BLOCK_BUCKET: return in(std::integral_constant<int, BLOCK_BUCKET>());
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -793,14 +849,14 @@ int with_bucket(int b, F f) {
 // The bucket a launch of np1 rows takes: np1's (seg_bucket), or the 64-row
 // bucket when np1's block (the table and THREADS / W slices) overflows
 // SEG_SMEM (many devices' value slots on a small deck: the 64-row bucket
-// holds as few lanes a block as fit); 0 when np1 is past 64 or a block of
-// one lane of the 64-row bucket does not fit.  shape(b) is the launch's
-// SegShape in bucket b.
+// holds as few lanes a block as fit); the block bucket when np1 is past 64
+// or a block of one lane of the 64-row bucket does not fit.  shape(b) is
+// the launch's SegShape in a bucket b of seg_bucket.
 template <class Shape>
 int fit_bucket(int np1, Shape shape) {
   int b = seg_bucket(np1);
   if (b != 0 && b < 64 && shape(b).shmem > SEG_SMEM) b = 64;
-  return b != 0 && shape(b).shmem <= SEG_SMEM ? b : 0;
+  return b != 0 && shape(b).shmem <= SEG_SMEM ? b : BLOCK_BUCKET;
 }
 
 // Launch a segment kernel in shape sh on `stream` (past 48 KB of shared
@@ -815,6 +871,23 @@ cudaError_t seg_launch(void (*kernel)(P...), const SegShape& sh,
   }
   kernel<<<sh.blocks, sh.threads, sh.shmem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Launch a block kernel in shape sh (block_shape), whose last argument is
+// the workspace: with the slices in device memory, a bounded grid of as
+// many blocks as `work` (work_len doubles) holds slices, at most one a
+// lane, each looping over the lanes; cudaErrorInvalidValue when it holds
+// none.
+template <class... P, class... A>
+cudaError_t block_launch(void (*kernel)(P...), SegShape sh, double* work,
+                         long long work_len, cudaStream_t stream,
+                         A... args) {
+  if (sh.work > 0) {
+    const long long slices = work_len / sh.work;
+    if (work == nullptr || slices < 1) return cudaErrorInvalidValue;
+    if (slices < sh.blocks) sh.blocks = static_cast<int>(slices);
+  }
+  return seg_launch(kernel, sh, stream, args..., work);
 }
 
 // Doubles of one segment's slice of the OP and DC sweep kernels' shared
@@ -833,32 +906,33 @@ SegShape opdc_shape(int nlanes, int topo_len, int lane_doubles) {
                             opdc_slice<NMAX>(lane_doubles));
 }
 
-// The OP or DC sweep kernel's shape in bucket b (a bucket of seg_bucket)
-inline SegShape opdc_shape_in(int b, int nlanes, int topo_len,
+// The OP or DC sweep kernel's shape in bucket b (a bucket of seg_bucket,
+// or BLOCK_BUCKET)
+inline SegShape opdc_shape_in(int b, int np1, int nlanes, int topo_len,
                               int lane_doubles) {
   switch (b) {
     case 4: return opdc_shape<4>(nlanes, topo_len, lane_doubles);
     case 8: return opdc_shape<8>(nlanes, topo_len, lane_doubles);
     case 16: return opdc_shape<16>(nlanes, topo_len, lane_doubles);
     case 32: return opdc_shape<32>(nlanes, topo_len, lane_doubles);
-    default: return opdc_shape<64>(nlanes, topo_len, lane_doubles);
+    case 64: return opdc_shape<64>(nlanes, topo_len, lane_doubles);
+    default: return block_shape(np1, nlanes, topo_len, lane_doubles);
   }
 }
 
-// The OP and DC sweep kernels' bucket for np1 (fit_bucket); 0 past the
-// caps
+// The OP and DC sweep kernels' bucket for np1 (fit_bucket)
 inline int opdc_bucket(int np1, int topo_len, int lane_doubles) {
   return fit_bucket(np1, [=](int b) {
-    return opdc_shape_in(b, 1, topo_len, lane_doubles);
+    return opdc_shape_in(b, np1, 1, topo_len, lane_doubles);
   });
 }
 
-// The OP or DC sweep kernel's shape for np1; false past the caps
+// The OP or DC sweep kernel's shape for np1 (false for np1 < 1)
 inline bool opdc_shape_np1(int np1, int nlanes, int topo_len,
                            int lane_doubles, SegShape* s) {
-  const int b = opdc_bucket(np1, topo_len, lane_doubles);
-  if (b == 0) return false;
-  *s = opdc_shape_in(b, nlanes, topo_len, lane_doubles);
+  if (np1 < 1) return false;
+  *s = opdc_shape_in(opdc_bucket(np1, topo_len, lane_doubles), np1, nlanes,
+                     topo_len, lane_doubles);
   return true;
 }
 
@@ -1001,6 +1075,118 @@ __device__ int seg_newton(const Deck& c, const int4* ent, const int* roff,
   for (int s = 0; s < R; ++s)  // what a segment that ran along kept
     if (me + s * W < n) xs[me + s * W] = xo[s];
   __syncwarp(mask);
+  *conv = ok;
+  return it;
+}
+
+// ------------------------------------------------- the block Newton
+
+// The largest v of the block's threads (max_nan: NaN if one is NaN), on
+// every thread; the block's threads all call it.  The terms it takes are
+// +0 or more, or NaN, so the order does not move it.
+__device__ __forceinline__ double block_max(double v) {
+  __shared__ double s_max[BLOCK_THREADS / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // the last call's reads are done
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double r = s_max[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = max_nan(r, s_max[w]);
+  return r;
+}
+
+// The build and elimination of one system by the whole block: thread t
+// sums rows t, t + T, ... (T = blockDim.x) from the table's row view
+// (entries [roff[i], roff[i + 1]) in plan order, or the first rlin[i] when
+// rlin is given; a TAG_NL entry reads its value slot when NLV) into m
+// (stride n + 1), adds diag to its diagonal past row 0 when DIAG (after
+// the row's sum), row 0 being the ground identity row, as seg_solve builds
+// them; then gj_block eliminates m in place (m holds gj_slice_doubles(n))
+// and writes x to xs.  Returns whether x is finite (the same on every
+// thread; x all NaN when not).  Every thread of the block calls it.
+template <bool NLV, bool DIAG, class Stamp>
+__device__ __forceinline__ bool block_solve(const int4* ent, const int* roff,
+                                            const int* rlin,
+                                            const Stamp& stamp,
+                                            const double* nv, double diag,
+                                            int n, double* m, double* xs) {
+  const int ld = n + 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    double* row = m + (size_t)i * ld;
+    for (int c = 0; c <= n; ++c) row[c] = 0.0;
+    const int e0 = roff[i], e1 = rlin ? e0 + rlin[i] : roff[i + 1];
+    for (int e = e0; e < e1; ++e) {
+      const int4 q = ent[e];  // col, tag, index, sign
+      const double v = (NLV && q.y == TAG_NL) ? nv[q.z] : stamp(q.y, q.z);
+      row[q.x] += (double)q.w * v;
+    }
+    if (DIAG && i > 0) row[i] = row[i] + diag;
+    if (i == 0) row[0] = 1.0;
+  }
+  __syncthreads();
+  gj_block(m, n, xs);
+  __syncthreads();  // x is read by every thread
+  return isfinite(xs[0]);
+}
+
+// The Newton loop of one lane (engine/newton.py) in flavour FL on the whole
+// block, thread t owning rows and devices t, t + T, ...: per iteration,
+// device j limits its junctions from the last iterate (the OP from
+// iteration 0 on, the DC sweep and the transient from iteration 1 on) and
+// evaluates its value slots (limit_device, device_value; a transient's
+// with the companions of the step dte, and under PHYS its committed rows
+// in ph); then block_solve with the status gmin on the diagonals of an OP;
+// then the convergence test of each row on its thread (the OP's test, or
+// the DC sweep's), a block-wide AND with the solve's finite flag.  seg_newton's
+// order, row by row, so that each instantiation gives the plain version's
+// bits.
+//
+// xs holds x0 on entry and the last solution on exit, xo is n doubles of
+// scratch (the last iterate), jv the carried junction voltages on entry
+// and those of the last iteration on exit; go is whether the lane iterates
+// at all.  Returns the iteration count; *conv is whether it converged.
+template <int FL, bool PHYS, class Stamp>
+__device__ int block_newton(const Deck& c, const int4* ent, const int* roff,
+                            const Stamp& stamp, double gmin, bool go,
+                            int max_iter, double reltol, double abstol,
+                            double dte, const Phys& ph, double* m,
+                            double* xs, double* xo, double* jv, double* nv,
+                            bool* conv) {
+  constexpr bool OP = FL == FL_OP;
+  const int n = c.n;
+  const int ndev = c.n_d + c.n_q + c.n_m;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) xo[i] = xs[i];
+  int it = 0;
+  bool ok = false;
+  bool iter = go && max_iter > 0;
+  __syncthreads();
+  while (iter) {
+    for (int j = threadIdx.x; j < ndev; j += blockDim.x) {
+      if (OP || it > 0) limit_device<PHYS>(c, j, xs, jv);
+      device_value<FL == FL_TRAN, PHYS>(c, j, jv, dte, OP ? gmin : 0.0, nv,
+                                         ph);
+    }
+    __syncthreads();
+    const bool finite = block_solve<true, OP>(ent, roff, nullptr, stamp, nv,
+                                              gmin, n, m, xs);
+    bool cv = true;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const double xn = xs[i], xp = xo[i];
+      const double d = fabs(xn - xp);
+      // the DC sweep's test: every |new - old| <= abstol or <= reltol*|new|
+      if constexpr (FL == FL_DC)
+        cv = cv && (d <= abstol || d <= reltol * fabs(xn));
+      else  // |new - old| <= reltol*max(|new|, |old|) + abstol
+        cv = cv && d <= reltol * max_nan(fabs(xn), fabs(xp)) + abstol;
+      xo[i] = xn;
+    }
+    cv = __syncthreads_and(cv) != 0;
+    ok = it > 0 && cv && finite;
+    ++it;
+    iter = !ok && it < max_iter;
+  }
   *conv = ok;
   return it;
 }

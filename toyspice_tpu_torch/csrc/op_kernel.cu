@@ -1,6 +1,7 @@
 // One operating-point Newton solve per Monte-Carlo lane per launch, each
 // lane on a segment of W = 4, 8, 16 or 32 lanes of a warp (np1's size
-// bucket; np1 33 to 64 on a whole warp, two rows a thread), in f64.
+// bucket; np1 33 to 64 on a whole warp, two rows a thread; past 64 on a
+// whole block, op_block_kernel), in f64.
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_op.py::_op_kernel (body
 // _op_core with the "op" flavour, launched at pallas_op.py:555), compat and
@@ -160,18 +161,120 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   }
 }
 
+// The block bucket (np1 past 64, or a lane that overflows the 64-row
+// bucket's block): a lane on a whole block of BLOCK_THREADS, the segment
+// kernel's solve with the block in place of the segment (newton.cuh
+// block_solve and block_newton: each device on thread j (mod T), each row
+// on thread i (mod T), the convergence a block-wide AND, the system
+// eliminated by gj_block in the block's slice).  The lane's system, x, the
+// last iterate and its lane_doubles live in the block's slice
+// (newton.cuh block_slice): shared memory while the table and the slice
+// fit it, else a slice of `work` in device memory (block k takes slice k
+// and lanes k, k + gridDim.x, ...).
+template <bool PHYS>
+__global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_MIN_BLOCKS)
+op_block_kernel(const int* __restrict__ topo_g, int topo_len,
+                int lane_doubles, const double* __restrict__ dev,
+                const double* __restrict__ dyn_g,
+                const double* __restrict__ x0,
+                const double* __restrict__ jv0, double* __restrict__ x_out,
+                double* __restrict__ jv_out, int* __restrict__ iters_out,
+                int* __restrict__ conv_out, int nlanes, double reltol,
+                double abstol, int max_iter, double gmin_floor,
+                double* work) {
+  constexpr int T = BLOCK_THREADS;
+  extern __shared__ __align__(16) double seg_smem[];
+  int* topo = reinterpret_cast<int*>(seg_smem);
+  for (int i = threadIdx.x; i < topo_len; i += T) topo[i] = topo_g[i];
+  __syncthreads();
+  const int me = threadIdx.x;
+  const int n = topo[H_NP1];
+  const int nr = topo[H_NR], nc = topo[H_NC], nl = topo[H_NL];
+  const int nv_src = topo[H_NV], ni = topo[H_NI];
+  const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
+  const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
+  const int* rlin = roff + n + 1;  // each row's linear prefix
+  const int dw = 3 + nv_src + ni + nl;
+  const long long slice = block_slice(n, lane_doubles);
+  double* const m = block_in_shared(topo_len, slice)
+                        ? seg_smem + (topo_len + 3) / 4 * 2
+                        : work + (size_t)blockIdx.x * slice;
+  double* const xs = m + gj_slice_doubles(n);
+  double* const xo = xs + ((n + 1) & ~1);
+  double* const dyn = xo + ((n + 1) & ~1);
+  double* const jv = dyn + dw;
+
+  for (int lane = blockIdx.x; lane < nlanes; lane += gridDim.x) {
+    __syncthreads();  // the last lane's reads of the slice are done
+    const double* dv = dev + (size_t)lane * topo[H_ND];
+    const Deck deck(topo, dv);
+    const int kj = deck.kj;
+    if (lane_doubles < dw + kj + D_SLOTS * deck.n_d + Q_SLOTS * deck.n_q +
+                           M_SLOTS * deck.n_m) {  // a short slice
+      for (int i = me; i < n; i += T) x_out[(size_t)lane * n + i] = NAN;
+      for (int i = me; i < kj; i += T)
+        jv_out[(size_t)lane * kj + i] = jv0[(size_t)lane * kj + i];
+      if (me == 0) {
+        iters_out[lane] = 0;
+        conv_out[lane] = 0;
+      }
+      continue;
+    }
+    double* const nv = jv + kj;
+    for (int i = me; i < dw; i += T) dyn[i] = dyn_g[(size_t)lane * dw + i];
+    for (int i = me; i < n; i += T) xs[i] = x0[(size_t)lane * n + i];
+    for (int i = me; i < kj; i += T) jv[i] = jv0[(size_t)lane * kj + i];
+    __syncthreads();
+    const double gmin = dyn[0];
+    const bool use_seed = dyn[1] > 0.5;
+    const bool act = dyn[2] > 0.5;
+    const double* vsrc = dyn + 3;
+    const double* isrc = vsrc + nv_src;
+    const double* lrhs = isrc + ni;
+    const double* lval = dv + nr + 2 * nc;
+    if (use_seed) {  // the linear-devices-only estimate, status gmin 0
+      const bool fin = block_solve<false, false>(
+          ent, roff, rlin,
+          OpStamp{dv, lval, lrhs, vsrc, isrc, max_nan(0.0, gmin_floor)},
+          nullptr, 0.0, n, m, xs);
+      for (int i = me; i < n; i += T) xs[i] = fin ? xs[i] : 0.0;
+      __syncthreads();
+    }
+    bool conv = false;
+    const int iters = block_newton<FL_OP, PHYS>(
+        deck, ent, roff,
+        OpStamp{dv, lval, lrhs, vsrc, isrc, max_nan(gmin, gmin_floor)}, gmin,
+        act, max_iter, reltol, abstol, 0.0, Phys{}, m, xs, xo, jv, nv,
+        &conv);
+    for (int i = me; i < n; i += T) x_out[(size_t)lane * n + i] = xs[i];
+    for (int i = me; i < kj; i += T) jv_out[(size_t)lane * kj + i] = jv[i];
+    if (me == 0) {
+      iters_out[lane] = iters;
+      conv_out[lane] = conv ? 1 : 0;
+    }
+  }
+}
+
 template <int NMAX, bool PHYS>
-cudaError_t launch(const int* topo, int topo_len, int lane_doubles,
+cudaError_t launch(int np1, const int* topo, int topo_len, int lane_doubles,
                    const double* dev, const double* dyn, const double* x0,
                    const double* jv0, double* x_out, double* jv_out,
                    int* iters, int* conv, int nlanes, double reltol,
                    double abstol, int max_iter, double gmin_floor,
-                   cudaStream_t stream) {
-  return seg_launch(op_seg_kernel<NMAX, PHYS>,
-                    opdc_shape<NMAX>(nlanes, topo_len, lane_doubles), stream,
-                    topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x_out,
-                    jv_out, iters, conv, nlanes, reltol, abstol, max_iter,
-                    gmin_floor);
+                   double* work, long long work_len, cudaStream_t stream) {
+  if constexpr (NMAX == BLOCK_BUCKET)
+    return block_launch(op_block_kernel<PHYS>,
+                        block_shape(np1, nlanes, topo_len, lane_doubles),
+                        work, work_len, stream, topo, topo_len,
+                        lane_doubles, dev, dyn, x0, jv0, x_out, jv_out,
+                        iters, conv, nlanes, reltol, abstol, max_iter,
+                        gmin_floor);
+  else
+    return seg_launch(op_seg_kernel<NMAX, PHYS>,
+                      opdc_shape<NMAX>(nlanes, topo_len, lane_doubles),
+                      stream, topo, topo_len, lane_doubles, dev, dyn, x0,
+                      jv0, x_out, jv_out, iters, conv, nlanes, reltol,
+                      abstol, max_iter, gmin_floor);
 }
 
 template <bool PHYS>
@@ -179,41 +282,48 @@ int launch_np1(int np1, const int* topo, int topo_len, int lane_doubles,
                const double* dev, const double* dyn, const double* x0,
                const double* jv0, double* x_out, double* jv_out, int* iters,
                int* conv, int nlanes, double reltol, double abstol,
-               int max_iter, double gmin_floor, cudaStream_t s) {
+               int max_iter, double gmin_floor, double* work,
+               long long work_len, cudaStream_t s) {
   return with_bucket(opdc_bucket(np1, topo_len, lane_doubles), [&](auto b) {
     return launch<decltype(b)::value, PHYS>(
-        topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x_out, jv_out,
-        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor, s);
+        np1, topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x_out, jv_out,
+        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor, work,
+        work_len, s);
   });
 }
 
 }  // namespace
 
 // Launch the OP kernel for nlanes lanes on `stream`; returns the
-// cudaError_t of the launch (0 on success).  np1 picks the segment width,
-// physics the physics instantiation; topo is the whole table, row view
-// and linear prefixes included; lane_doubles is ops/op.py lane_doubles.
+// cudaError_t of the launch (0 on success).  np1 picks the segment width
+// (past 64 a block a lane), physics the physics instantiation; topo is the
+// whole table, row view and linear prefixes included; lane_doubles is
+// ops/op.py lane_doubles; work holds work_len doubles, the block bucket's
+// slices that do not fit shared memory (ops/run.py block_work; not read
+// otherwise).
 extern "C" int tsr_op(int np1, const int* topo, int topo_len,
                       int lane_doubles, const double* dev, const double* dyn,
                       const double* x0, const double* jv0, double* x_out,
                       double* jv_out, int* iters, int* conv, int nlanes,
                       double reltol, double abstol, int max_iter,
-                      double gmin_floor, int physics, void* stream) {
+                      double gmin_floor, int physics, double* work,
+                      long long work_len, void* stream) {
   if (nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (physics)
     return launch_np1<true>(np1, topo, topo_len, lane_doubles, dev, dyn, x0,
                             jv0, x_out, jv_out, iters, conv, nlanes, reltol,
-                            abstol, max_iter, gmin_floor, s);
+                            abstol, max_iter, gmin_floor, work, work_len, s);
   return launch_np1<false>(np1, topo, topo_len, lane_doubles, dev, dyn, x0,
                            jv0, x_out, jv_out, iters, conv, nlanes, reltol,
-                           abstol, max_iter, gmin_floor, s);
+                           abstol, max_iter, gmin_floor, work, work_len, s);
 }
 
 // The launch shape of the OP and DC sweep kernels for nlanes lanes of np1
-// (newton.cuh opdc_shape): out = (W, lanes a block, blocks, threads a
-// block, bytes of shared memory a block); returns cudaErrorInvalidValue
-// past the caps.
+// (newton.cuh opdc_shape_in): out = (W, lanes a block, blocks, threads a
+// block, bytes of shared memory a block, doubles of a block's slice in
+// device memory: 0 when the slices fit shared memory); returns
+// cudaErrorInvalidValue for np1 < 1.
 extern "C" int tsr_opdc_seg_shape(int np1, int nlanes, int topo_len,
                                   int lane_doubles, int* out) {
   SegShape s;
@@ -224,6 +334,7 @@ extern "C" int tsr_opdc_seg_shape(int np1, int nlanes, int topo_len,
   out[2] = s.blocks;
   out[3] = s.threads;
   out[4] = s.shmem;
+  out[5] = s.work;
   return 0;
 }
 

@@ -29,10 +29,11 @@ constexpr bool STORE_BUILD = true;
 #else
 constexpr bool STORE_BUILD = false;
 #endif
-// the buckets this library holds: with -DTSR_WIDE the 64-row bucket alone
-// (a library of its own, whose nvcc call runs beside this one's)
+// the buckets this library holds: with -DTSR_WIDE the 64-row bucket and
+// the block bucket (a library of their own, whose nvcc call runs beside
+// this one's)
 #ifdef TSR_WIDE
-constexpr int MIN_BUCKET = 64, MAX_BUCKET = 64;
+constexpr int MIN_BUCKET = 64, MAX_BUCKET = BLOCK_BUCKET;
 #else
 constexpr int MIN_BUCKET = 4, MAX_BUCKET = 32;
 #endif
@@ -63,8 +64,10 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 // holds compat, and refuses physics, trap and LM/K with a Newton).  topo
 // is the whole table, row view included; nl_doubles a Newton deck's
 // junction voltages and value slots a lane (ops/run.py newton_doubles),
-// which size its segments' slices.  state and jv are updated in place; t,
-// dt and att are written.
+// which size its segments' slices; work holds work_len doubles, the block
+// bucket's slices that do not fit shared memory (ops/run.py block_work;
+// not read otherwise).  state and jv are updated in place; t, dt and att
+// are written.
 extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
                        int trap, const int* topo, int topo_len,
                        int nl_doubles, const double* dev, const double* rc,
@@ -72,13 +75,17 @@ extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
                        int* acc, int* att, int* fail, int* nri, int nlanes,
                        double tstop, double minstep, double tmax,
                        double trtol, int max_attempts, double reltol,
-                       double abstol, int max_iter, void* stream) {
-  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
-                  jv,      t,        dt,         acc,     att,     fail,
-                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
-                  max_attempts,      reltol,     abstol,  max_iter, 0.0,
-                  0,       0,        nullptr,    nullptr, nullptr, nullptr,
-                  trap};
+                       double abstol, int max_iter, double* work,
+                       long long work_len, void* stream) {
+  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+            jv,      t,        dt,         acc,     att,     fail,
+            nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+            max_attempts,      reltol,     abstol,  max_iter, 0.0,
+            0,       0,        nullptr,    nullptr, nullptr, nullptr,
+            trap};
+  a.np1 = np1;
+  a.work = work;
+  a.work_len = work_len;
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics, stream);
 }
 #else
@@ -95,13 +102,17 @@ extern "C" int tsr_run_store(
     int nlanes, double tstop, double minstep, double tmax, double trtol,
     int max_attempts, double reltol, double abstol, int max_iter,
     double tstart, int max_store, int stream, double* out_x, double* out_t,
-    int* out_n, int* overflow, void* cuda_stream) {
-  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
-                  jv,      t,        dt,         acc,     att,     fail,
-                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
-                  max_attempts,      reltol,     abstol,  max_iter, tstart,
-                  max_store, stream, out_x,      out_t,   out_n,   overflow,
-                  trap};
+    int* out_n, int* overflow, double* work, long long work_len,
+    void* cuda_stream) {
+  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+            jv,      t,        dt,         acc,     att,     fail,
+            nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+            max_attempts,      reltol,     abstol,  max_iter, tstart,
+            max_store, stream, out_x,      out_t,   out_n,   overflow,
+            trap};
+  a.np1 = np1;
+  a.work = work;
+  a.work_len = work_len;
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics,
                                  cuda_stream);
 }
@@ -111,7 +122,9 @@ extern "C" int tsr_run_store(
 // table of topo_len words (and, a Newton deck, nl_doubles of junction
 // voltages and value slots a lane; 0 for a linear one), as the entries
 // above compute it: out = {W, lanes a block, blocks, threads a block,
-// bytes of shared memory}; returns cudaErrorInvalidValue past the caps.
+// bytes of shared memory, doubles of a block's slice in device memory (0
+// when the slices fit shared memory; the block bucket's grid is then
+// bounded by the workspace)}; returns cudaErrorInvalidValue for np1 < 1.
 extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
                                  int nl_doubles, int* out) {
   SegShape s;
@@ -122,14 +135,16 @@ extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
   out[2] = s.blocks;
   out[3] = s.threads;
   out[4] = s.shmem;
+  out[5] = s.work;
   return 0;
 }
 
-// The bucket (newton.cuh seg_bucket) a launch of np1 unknowns with a table
-// of topo_len words and nl_doubles (0 for a linear deck) takes
-// (run_kernel.cuh run_bucket: np1's, or the 64-row one when np1's block
-// overflows shared memory; 0 past the caps): 64 is the -DTSR_WIDE
-// library's, ops/run.py run_bucket says the same.
+// The bucket (newton.cuh seg_bucket, or BLOCK_BUCKET) a launch of np1
+// unknowns with a table of topo_len words and nl_doubles (0 for a linear
+// deck) takes (run_kernel.cuh run_bucket: np1's, the 64-row one when np1's
+// block overflows shared memory, the block bucket past 64 rows or when one
+// lane overflows the 64-row bucket's block): 64 and BLOCK_BUCKET are the
+// -DTSR_WIDE library's, ops/run.py run_bucket says the same.
 extern "C" int tsr_run_bucket(int np1, int topo_len, int nl_doubles) {
   return run_bucket(np1, topo_len, nl_doubles);
 }

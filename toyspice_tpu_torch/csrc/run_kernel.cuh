@@ -6,7 +6,7 @@
 // couplings, or diodes, BJTs and MOSFETs under compat or physics
 // semantics), in f64, every deck on a segment of 4, 8, 16 or 32 lanes of
 // a warp per Monte-Carlo lane, or a whole warp for np1 33 to 64
-// (run_seg_kernel).
+// (run_seg_kernel), or past 64 rows a whole block (run_block_kernel).
 //
 // Replaces the TPU kernel toyspice_tpu/ops/pallas_run.py::_run_kernel
 // (body _run_core, launched at pallas_run.py:811) for its compat subset:
@@ -88,14 +88,19 @@
 // row_view); in the 64-row bucket (np1 33 to 64) a whole warp holds two
 // rows a lane, built and eliminated in the segment's slice of shared
 // memory (gj_warp_smem); a Newton deck's junction voltages and value
-// slots live in the segment's slice too.  NL (the Newton), MAG (the LM and K
-// stamps), STORE and PHYS are template parameters: the instantiations
-// without them compile to the code they had before.
+// slots live in the segment's slice too.  Past 64 rows (the block bucket,
+// newton.cuh BLOCK_BUCKET) a lane takes a block of BLOCK_THREADS, and
+// its system is built and eliminated (gj_block.cuh gj_block) in the
+// block's slice: shared memory while the table and the slice fit it,
+// else a slice of a workspace in device memory.  NL (the Newton), MAG
+// (the LM and K stamps), STORE and PHYS are template parameters: the
+// instantiations without them compile to the code they had before; both
+// kernels take each attempt's stamps, LTE and commit from Lane.
 // run_kernel.cu instantiates the compat kernels, run_kernel_phys.cu the
 // PHYS ones without MAG, run_kernel_mag.cu the PHYS MAG ones and compat
 // MAG with NL: three sources, so that their nvcc calls run side by side,
 // each built for the 4- to 32-row buckets and, with -DTSR_WIDE, for the
-// 64-row bucket alone (ops/_build.py), again side by side.
+// 64-row and the block buckets (ops/_build.py), again side by side.
 //
 // Bound: operations.  An attempt on bench.py's RLC deck (np1 = 6) needs 299
 // f64 operations (chip_smoke.py attempt_flops: 231 for the 6 x 7
@@ -324,6 +329,296 @@ struct MagPhys {
   }
 };
 
+// ------------------------------------------------------- a lane's run
+
+// What one lane's attempts read and commit, as both kernels below lay it
+// out: the plan's counts and node lists (the table in shared memory), the
+// lane's device rows dv, source records rv and committed state st (in the
+// segment's slice, or in device memory), and the stamps, LTE and commit of
+// one attempt, each device, source and row taken by the thread k = me
+// (mod step) of the lane's team (a warp segment, or a block).
+template <bool NL, bool MAG, bool PHYS>
+struct Lane {
+  int n, nc, nl, nv_src, nsrc, nlm;
+  const int* topo;
+  const int* src;
+  const int* cnodes;
+  const int* lnodes;
+  const int* lbranch;
+  const double* rv;
+  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the magnetic constants,
+  // then a Newton deck's device blocks
+  const double* g;
+  const double* cadj;
+  const double* craw;
+  const double* lval;
+  // committed state rows: q0 q1 v0 v1 [nc], i0 i1 v0 v1 flux0 [nl], then
+  // under physics C i0 hist [nc], L hist [nl], the diode and MOSFET blocks
+  // (DS_ROWS x nD, MS_ROWS x nM), the live LM rows
+  double *c_q0, *c_q1, *c_v0, *c_v1;
+  double *l_i0, *l_i1, *l_v0, *l_v1, *l_flux0;
+  double *c_i0, *c_hist, *l_hist, *d_st, *m_st;
+  Mag mag;
+  MagPhys mp;
+  bool tr;
+  // a Newton deck's device blocks
+  Deck deck;
+  Phys ph;
+
+  __device__ __forceinline__ Lane(const int* topo_, const double* dv,
+                                  const double* rv_, double* st, int trap)
+      : topo(topo_), rv(rv_), deck(topo_, dv) {
+    n = topo[H_NP1];
+    nc = topo[H_NC];
+    nl = topo[H_NL];
+    nv_src = topo[H_NV];
+    nsrc = nv_src + topo[H_NI];
+    nlm = topo[H_NLM];
+    src = topo + topo[H_SRC];
+    cnodes = topo + topo[H_CN];
+    lnodes = topo + topo[H_LN];
+    lbranch = topo + topo[H_LB];
+    g = dv;
+    cadj = dv + topo[H_NR];
+    craw = cadj + nc;
+    lval = craw + nc;
+    c_q0 = st;
+    c_q1 = st + nc;
+    c_v0 = st + 2 * nc;
+    c_v1 = st + 3 * nc;
+    l_i0 = st + 4 * nc;
+    l_i1 = l_i0 + nl;
+    l_v0 = l_i0 + 2 * nl;
+    l_v1 = l_i0 + 3 * nl;
+    l_flux0 = l_i0 + 4 * nl;
+    c_i0 = l_i0 + 5 * nl;
+    c_hist = c_i0 + nc;
+    l_hist = c_hist + nc;
+    d_st = l_hist + nl;
+    m_st = d_st + DS_ROWS * topo[H_NDD];
+    mag = Mag{};
+    mp = MagPhys{};
+    if constexpr (MAG && PHYS) {
+      mp.lm = lval + nl;
+      mp.kc = mp.lm + LM_ROWS * nlm;
+      mp.ls = m_st + MS_ROWS * topo[H_NM];
+      mp.lval = lval;
+      mp.l_i1 = l_i1;
+      mp.l_hist = l_hist;
+      mp.kp = topo + topo[H_KP];
+      mp.nlm = nlm;
+      mp.trap = trap != 0;
+    } else if constexpr (MAG) {
+      mag.l0 = lval + nl;
+      mag.leff = mag.l0 + nlm;
+      mag.i0 = mag.l0 + 2 * nlm;
+      mag.i1 = mag.l0 + 3 * nlm;
+      mag.mij = mag.l0 + 4 * nlm;
+      mag.kp = topo + topo[H_KP];
+      mag.l_i0 = l_i0;
+    }
+    tr = PHYS && trap != 0;
+    ph.d = d_st;
+    ph.m = m_st;
+    ph.trap = tr;
+  }
+
+  // a Newton deck's junction voltages and value slots, in doubles
+  // (ops/run.py newton_doubles)
+  __device__ __forceinline__ int newton_doubles() const {
+    return deck.kj + D_SLOTS * deck.n_d + Q_SLOTS * deck.n_q +
+           M_SLOTS * deck.n_m;
+  }
+
+  // the sources at t_src into sv: trapezoidal physics at the end of the
+  // step (engine/tran.py), the rest at the old time (PLAN.md 2)
+  __device__ __forceinline__ void sources(int me, int step, double t_src,
+                                          double* sv) const {
+    for (int s = me; s < nsrc; s += step)
+      sv[s] = source_value(src[3 * s], rv + src[3 * s + 1], src[3 * s + 2],
+                           t_src);
+  }
+
+  // a stamp's value in an attempt at t of dte (dtl: dte, or 1e-9 at 0):
+  // compat (the reference's companions, the frozen-core LM and K), or
+  // physics (BE with the previous step's charge, or the trapezoidal
+  // companions after the device's first committed step; the live LM and
+  // K), as assemble.py stamps them; sv the sources' values
+  __device__ __forceinline__ double stamp(int tag, int k, double t,
+                                          double dte, double dtl,
+                                          const double* sv) const {
+    if constexpr (PHYS) {
+      switch (tag) {
+        case TAG_G: return g[k];
+        case TAG_GEQ:
+          return (tr && c_hist[k] > 0) ? 2.0 * cadj[k] / dte
+                                       : cadj[k] / dte;
+        case TAG_CEQ:
+          return (tr && c_hist[k] > 0)
+                     ? 2.0 * cadj[k] / dte * c_v0[k] + c_i0[k]
+                     : c_q0[k] / dte;
+        case TAG_LTERM:
+          return (tr && l_hist[k] > 0) ? 2.0 * lval[k] / dtl
+                                       : lval[k] / dtl;
+        case TAG_LRHS: {
+          const bool on = tr && l_hist[k] > 0;
+          const double lc = on ? 2.0 * lval[k] / dtl : lval[k] / dtl;
+          return tr ? lc * l_i1[k] + (on ? l_v0[k] : 0.0) : lc * l_i1[k];
+        }
+        case TAG_VSRC: return sv[k];
+        case TAG_ISRC: return sv[nv_src + k];
+        default:  // TAG_ONE, or a magnetic stamp
+          if constexpr (MAG) return mp.term(tag, k, dte, dtl);
+          return 1.0;
+      }
+    } else {
+      switch (tag) {
+        case TAG_G: return g[k];
+        case TAG_GEQ: return cadj[k] / dte;
+        case TAG_LTERM: return lval[k] / dtl;
+        case TAG_CEQ: return c_q1[k] / dte;
+        case TAG_LRHS: return (lval[k] / dtl) * l_i1[k];
+        case TAG_VSRC: return sv[k];
+        case TAG_ISRC: return sv[nv_src + k];
+        default:  // TAG_ONE, or a magnetic stamp
+          if constexpr (MAG) return mag.term(tag, k, t, dte, dtl);
+          return 1.0;
+      }
+    }
+  }
+
+  // the LTE of this thread's C's and L's from the committed state (the
+  // team takes the max)
+  __device__ __forceinline__ double lte(int me, int step, double dte) const {
+    double e = 0.0;
+    for (int k = me; k < nc; k += step)
+      e = max_nan(e, fabs(craw[k] * c_v0[k] - craw[k] * c_v1[k]) /
+                         (2.0 * dte));
+    for (int k = me; k < nl; k += step) {
+      const double cur = fabs(l_i0[k] - l_i1[k]) / (2.0 * dte);
+      const double vol = fabs(l_v0[k] - l_v1[k]) / (2.0 * dte);
+      e = max_nan(e, max_nan(cur, vol));
+    }
+    return e;
+  }
+
+  // the commit of an accepted step at x (xs) of dte, this thread's
+  // devices: compat (capacitor.go:155-171, inductor.go:81-114) or physics
+  // (engine/state.py make_commit)
+  __device__ __forceinline__ void commit(int me, int step, const double* xs,
+                                         double dte) const {
+    if constexpr (PHYS) {
+      for (int k = me; k < nc; k += step) {
+        const double vd = xs[cnodes[2 * k]] - xs[cnodes[2 * k + 1]];
+        const double q0 = c_q0[k], v0 = c_v0[k];
+        const double dv_ = vd - v0;
+        // trap with the stamp's C_t (the TR recursion must match it)
+        c_i0[k] = tr ? (c_hist[k] > 0 ? 2.0 * cadj[k] / dte * dv_ - c_i0[k]
+                                      : cadj[k] * dv_ / dte)
+                     : craw[k] * dv_ / dte;
+        c_q0[k] = craw[k] * vd;
+        c_q1[k] = q0;
+        c_v0[k] = vd;
+        c_v1[k] = v0;
+        c_hist[k] = 1.0;
+      }
+      for (int k = me; k < nl; k += step) {  // the branch unknown is -I
+        const double vd = xs[lnodes[2 * k]] - xs[lnodes[2 * k + 1]];
+        const double i = -xs[lbranch[k]];
+        const double v0 = l_v0[k];
+        l_i0[k] = i;
+        l_i1[k] = i;
+        l_v0[k] = vd;
+        l_v1[k] = v0;
+        l_flux0[k] = vd * dte;
+        l_hist[k] = 1.0;
+      }
+      if constexpr (NL) {
+        const int n_d = deck.n_d, n_m = deck.n_m;
+        for (int k = me; k < n_d; k += step) {  // the diode's charge memory
+          const double vd = xs[deck.dn[2 * k]] - xs[deck.dn[2 * k + 1]];
+          double id, gd;
+          d_phys(vd, deck.d(D_NVT, k), deck.d(D_IST, k), deck.d(D_GMIN, k),
+                 deck.d(D_RS, k), deck.d(D_BV, k), &id, &gd);
+          double* sd = d_st + k;
+          const double q = deck.d(D_TT, k) * id;
+          const double dq = q - sd[DS_Q * n_d];
+          const double ic = (tr && sd[DS_HIST * n_d] > 0)
+                                ? 2.0 * dq / dte - sd[DS_IC * n_d]
+                                : dq / dte;
+          sd[DS_VD * n_d] = vd;
+          sd[DS_ID * n_d] = id;
+          sd[DS_Q * n_d] = q;
+          sd[DS_IC * n_d] = ic;
+          sd[DS_HIST * n_d] = 1.0;
+        }
+        for (int k = me; k < n_m; k += step) {  // the MOSFET's charges
+          const int* nd_ = deck.mn + 5 * k;  // drain gate source bulk level
+          const Mos p{deck.pm + k, n_m};
+          const double sg = p[M_SIGN];
+          const double xsrc = xs[nd_[2]];
+          double q[5];
+          mos_charges(p, nd_[4], sg * (xs[nd_[1]] - xsrc),
+                      sg * (xs[nd_[0]] - xsrc), sg * (xs[nd_[3]] - xsrc), q);
+          double* sm = m_st + k;
+          const bool on = tr && sm[MS_HIST * n_m] > 0;
+          for (int r = 0; r < 5; ++r) {
+            const double dq = (q[r] - sm[(MS_QGS + r) * n_m]) / dte;
+            sm[(MS_ICGS + r) * n_m] = on ? 2.0 * dq - sm[(MS_ICGS + r) * n_m]
+                                         : dq;
+            sm[(MS_QGS + r) * n_m] = q[r];
+          }
+          sm[MS_HIST * n_m] = 1.0;
+        }
+      }
+      if constexpr (MAG) {  // the live J-A commit (engine/state.py)
+        const int* lmt = topo + topo[H_LMN];  // n1 n2 branch per winding
+        const int* core = topo + topo[H_CORE];
+        const double* lm = mp.lm;
+        double* ls = mp.ls;
+        for (int k = me; k < nlm; k += step) {
+          // the core's summed mmf, in winding order (segment_sum)
+          double mmf = 0.0;
+          for (int w = 0; w < nlm; ++w)
+            mmf = mmf + (core[w] == core[k]
+                             ? lm[LM_TURNS * nlm + w] * -xs[lmt[3 * w + 2]]
+                             : 0.0);
+          const double h = clamp_max(
+              clamp_min(mmf / lm[LM_LEN * nlm + k], -1e6), 1e6);
+          ja_step(lm[LM_MST * nlm + k], lm[LM_A * nlm + k],
+                  lm[LM_K * nlm + k], lm[LM_C * nlm + k],
+                  lm[LM_ALPHA * nlm + k], h, ls + LS_H * nlm + k, nlm);
+          const double vd = xs[lmt[3 * k]] - xs[lmt[3 * k + 1]];
+          double* sk = ls + k;
+          sk[LS_I1 * nlm] = sk[LS_I0 * nlm];
+          sk[LS_I0 * nlm] = -xs[lmt[3 * k + 2]];
+          sk[LS_V1 * nlm] = sk[LS_V0 * nlm];
+          sk[LS_V0 * nlm] = vd;
+          sk[LS_FLUX0 * nlm] = sk[LS_FLUX0 * nlm] + vd * dte;
+        }
+      }
+    } else {
+      for (int k = me; k < nc; k += step) {  // capacitor.go:155-171
+        const double vd = xs[cnodes[2 * k]] - xs[cnodes[2 * k + 1]];
+        const double q0 = c_q0[k], v0 = c_v0[k];
+        c_q0[k] = craw[k] * vd;
+        c_q1[k] = q0;
+        c_v0[k] = vd;
+        c_v1[k] = v0;
+      }
+      for (int k = me; k < nl; k += step) {  // inductor.go:81-114
+        const double vd = xs[lnodes[2 * k]] - xs[lnodes[2 * k + 1]];
+        const double v0 = l_v0[k];
+        l_i0[k] = vd * 1e-9 / lval[k];
+        l_i1[k] = l_i1[k] + vd * dte / lval[k];
+        l_v0[k] = vd;
+        l_v1[k] = v0;
+        l_flux0[k] = vd * dte;
+      }
+    }
+  }
+};
+
 // ------------------------------------------------ the segment kernel
 
 // A lane's rows (committed state, device rows, source records) held in its
@@ -422,14 +717,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
   double* own = sv + MAX_SRC;
 
   const int n = topo[H_NP1];
-  const int nc = topo[H_NC], nl = topo[H_NL];
-  const int nv_src = topo[H_NV];
-  const int nsrc = nv_src + topo[H_NI];
   const int ks = topo[H_KS], nd = topo[H_ND], nrc = topo[H_NRC];
-  const int* src = topo + topo[H_SRC];
-  const int* cnodes = topo + topo[H_CN];
-  const int* lnodes = topo + topo[H_LN];
-  const int* lbranch = topo + topo[H_LB];
   const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
   const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
   int e0[R], e1[R];  // the thread's rows' entries in the row view
@@ -450,73 +738,21 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
     dv = own + ks;
     rv = own + ks + nd;
   }
-  // device rows: g[nr] C_t[nc] C[nc] L[nl], then the magnetic constants,
-  // then a Newton deck's device blocks
-  const double* g = dv;
-  const double* cadj = dv + topo[H_NR];
-  const double* craw = cadj + nc;
-  const double* lval = craw + nc;
-  // committed state rows: q0 q1 v0 v1 [nc], i0 i1 v0 v1 flux0 [nl], then
-  // under physics C i0 hist [nc], L hist [nl], the diode and MOSFET blocks
-  // (DS_ROWS x nD, MS_ROWS x nM), the live LM rows
-  double* c_q0 = st;
-  double* c_q1 = st + nc;
-  double* c_v0 = st + 2 * nc;
-  double* c_v1 = st + 3 * nc;
-  double* l_i0 = st + 4 * nc;
-  double* l_i1 = l_i0 + nl;
-  double* l_v0 = l_i0 + 2 * nl;
-  double* l_v1 = l_i0 + 3 * nl;
-  double* l_flux0 = l_i0 + 4 * nl;
-  double* c_i0 = l_i0 + 5 * nl;
-  double* c_hist = c_i0 + nc;
-  double* l_hist = c_hist + nc;
-  double* d_st = l_hist + nl;
-  double* m_st = d_st + DS_ROWS * topo[H_NDD];
-  Mag mag{};
-  MagPhys mp{};
-  const int nlm = topo[H_NLM];
-  if constexpr (MAG && PHYS) {
-    mp.lm = lval + nl;
-    mp.kc = mp.lm + LM_ROWS * nlm;
-    mp.ls = m_st + MS_ROWS * topo[H_NM];
-    mp.lval = lval;
-    mp.l_i1 = l_i1;
-    mp.l_hist = l_hist;
-    mp.kp = topo + topo[H_KP];
-    mp.nlm = nlm;
-    mp.trap = trap != 0;
-  } else if constexpr (MAG) {
-    mag.l0 = lval + nl;
-    mag.leff = mag.l0 + nlm;
-    mag.i0 = mag.l0 + 2 * nlm;
-    mag.i1 = mag.l0 + 3 * nlm;
-    mag.mij = mag.l0 + 4 * nlm;
-    mag.kp = topo + topo[H_KP];
-    mag.l_i0 = l_i0;
-  }
-  const bool tr = PHYS && trap != 0;
+  const Lane<NL, MAG, PHYS> L(topo, dv, rv, st, trap);
 
-  // a Newton deck's device blocks, its junction voltages (carried across
-  // attempts, in the slice) and its value slots (the slice, after them)
-  const Deck deck(topo, dv);
-  const int ndev = deck.n_d + deck.n_q + deck.n_m;
-  Phys ph;
-  ph.d = d_st;
-  ph.m = m_st;
-  ph.trap = tr;
+  // a Newton deck's junction voltages (carried across attempts, in the
+  // slice) and its value slots (the slice, after them)
+  const int ndev = L.deck.n_d + L.deck.n_q + L.deck.n_m;
   double* jv = own + SEG_ROWS;
-  double* nv = jv + deck.kj;
+  double* nv = jv + L.deck.kj;
   // a slice shorter than the deck's junction voltages and value slots
   // (nl_doubles is not ops/run.py newton_doubles): every lane fails
   // before its first attempt, and the slice is neither read nor written
-  const bool short_slice =
-      NL && nl_doubles < deck.kj + D_SLOTS * deck.n_d + Q_SLOTS * deck.n_q +
-                             M_SLOTS * deck.n_m;
+  const bool short_slice = NL && nl_doubles < L.newton_doubles();
   if constexpr (NL)
     if (!short_slice)
-      for (int i = me; i < deck.kj; i += W)
-        jv[i] = jv_g[(size_t)row_lane * deck.kj + i];
+      for (int i = me; i < L.deck.kj; i += W)
+        jv[i] = jv_g[(size_t)row_lane * L.deck.kj + i];
   __syncwarp(mask);
 
   double t = STORE ? t_io[row_lane] : 0.0;
@@ -542,55 +778,11 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
 
     // ---- sources: trapezoidal physics at the end of the step
     // (engine/tran.py), the rest at the old time (PLAN.md 2)
-    const double t_src = tr ? next_t : t;
-    for (int s = me; s < nsrc; s += W)
-      sv[s] = source_value(src[3 * s], rv + src[3 * s + 1], src[3 * s + 2],
-                           t_src);
+    L.sources(me, W, L.tr ? next_t : t, sv);
     __syncwarp(mask);
 
-    // a stamp's value in this attempt: compat (the reference's companions,
-    // the frozen-core LM and K), or physics (BE with the previous step's
-    // charge, or the trapezoidal companions after the device's first
-    // committed step; the live LM and K), as assemble.py stamps them
-    auto stamp = [=](int tag, int k) -> double {
-      if constexpr (PHYS) {
-        switch (tag) {
-          case TAG_G: return g[k];
-          case TAG_GEQ:
-            return (tr && c_hist[k] > 0) ? 2.0 * cadj[k] / dte
-                                         : cadj[k] / dte;
-          case TAG_CEQ:
-            return (tr && c_hist[k] > 0)
-                       ? 2.0 * cadj[k] / dte * c_v0[k] + c_i0[k]
-                       : c_q0[k] / dte;
-          case TAG_LTERM:
-            return (tr && l_hist[k] > 0) ? 2.0 * lval[k] / dtl
-                                         : lval[k] / dtl;
-          case TAG_LRHS: {
-            const bool on = tr && l_hist[k] > 0;
-            const double lc = on ? 2.0 * lval[k] / dtl : lval[k] / dtl;
-            return tr ? lc * l_i1[k] + (on ? l_v0[k] : 0.0) : lc * l_i1[k];
-          }
-          case TAG_VSRC: return sv[k];
-          case TAG_ISRC: return sv[nv_src + k];
-          default:  // TAG_ONE, or a magnetic stamp
-            if constexpr (MAG) return mp.term(tag, k, dte, dtl);
-            return 1.0;
-        }
-      } else {
-        switch (tag) {
-          case TAG_G: return g[k];
-          case TAG_GEQ: return cadj[k] / dte;
-          case TAG_LTERM: return lval[k] / dtl;
-          case TAG_CEQ: return c_q1[k] / dte;
-          case TAG_LRHS: return (lval[k] / dtl) * l_i1[k];
-          case TAG_VSRC: return sv[k];
-          case TAG_ISRC: return sv[nv_src + k];
-          default:  // TAG_ONE, or a magnetic stamp
-            if constexpr (MAG) return mag.term(tag, k, t, dte, dtl);
-            return 1.0;
-        }
-      }
+    auto stamp = [&](int tag, int k) -> double {
+      return L.stamp(tag, k, t, dte, dtl, sv);
     };
     // ---- build (this thread's rows, their stamps in plan order) and
     // eliminate: x to the slice; returns whether x is finite
@@ -615,8 +807,8 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
       while (__any_sync(mask, iter)) {
         if (iter) {
           for (int j = me; j < ndev; j += W) {
-            if (it > 0) limit_device<PHYS>(deck, j, xs, jv);
-            device_value<true, PHYS>(deck, j, jv, dte, 0.0, nv, ph);
+            if (it > 0) limit_device<PHYS>(L.deck, j, xs, jv);
+            device_value<true, PHYS>(L.deck, j, jv, dte, 0.0, nv, L.ph);
           }
         }
         __syncwarp(mask);
@@ -655,15 +847,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
     }
 
     // ---- LTE from the committed state
-    double lte = 0.0;
-    for (int k = me; k < nc; k += W)
-      lte = max_nan(lte,
-                    fabs(craw[k] * c_v0[k] - craw[k] * c_v1[k]) / (2.0 * dte));
-    for (int k = me; k < nl; k += W) {
-      const double cur = fabs(l_i0[k] - l_i1[k]) / (2.0 * dte);
-      const double vol = fabs(l_v0[k] - l_v1[k]) / (2.0 * dte);
-      lte = max_nan(lte, max_nan(cur, vol));
-    }
+    double lte = L.lte(me, W, dte);
 #pragma unroll
     for (int off = W / 2; off > 0; off >>= 1)
       lte = max_nan(lte, __shfl_xor_sync(mask, lte, off, W));
@@ -675,116 +859,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
         (!nr_ok && can_halve) || (nr_ok && lte > trtol && can_halve);
     const bool accept = active && nr_ok && !reject;
     if (accept) {
-      if constexpr (PHYS) {  // engine/state.py make_commit, physics
-        for (int k = me; k < nc; k += W) {
-          const double vd = xs[cnodes[2 * k]] - xs[cnodes[2 * k + 1]];
-          const double q0 = c_q0[k], v0 = c_v0[k];
-          const double dv_ = vd - v0;
-          // trap with the stamp's C_t (the TR recursion must match it)
-          c_i0[k] = tr ? (c_hist[k] > 0 ? 2.0 * cadj[k] / dte * dv_ - c_i0[k]
-                                        : cadj[k] * dv_ / dte)
-                       : craw[k] * dv_ / dte;
-          c_q0[k] = craw[k] * vd;
-          c_q1[k] = q0;
-          c_v0[k] = vd;
-          c_v1[k] = v0;
-          c_hist[k] = 1.0;
-        }
-        for (int k = me; k < nl; k += W) {  // the branch unknown is -I
-          const double vd = xs[lnodes[2 * k]] - xs[lnodes[2 * k + 1]];
-          const double i = -xs[lbranch[k]];
-          const double v0 = l_v0[k];
-          l_i0[k] = i;
-          l_i1[k] = i;
-          l_v0[k] = vd;
-          l_v1[k] = v0;
-          l_flux0[k] = vd * dte;
-          l_hist[k] = 1.0;
-        }
-        if constexpr (NL) {
-          const int n_d = deck.n_d, n_m = deck.n_m;
-          for (int k = me; k < n_d; k += W) {  // the diode's charge memory
-            const double vd = xs[deck.dn[2 * k]] - xs[deck.dn[2 * k + 1]];
-            double id, gd;
-            d_phys(vd, deck.d(D_NVT, k), deck.d(D_IST, k), deck.d(D_GMIN, k),
-                   deck.d(D_RS, k), deck.d(D_BV, k), &id, &gd);
-            double* sd = d_st + k;
-            const double q = deck.d(D_TT, k) * id;
-            const double dq = q - sd[DS_Q * n_d];
-            const double ic = (tr && sd[DS_HIST * n_d] > 0)
-                                  ? 2.0 * dq / dte - sd[DS_IC * n_d]
-                                  : dq / dte;
-            sd[DS_VD * n_d] = vd;
-            sd[DS_ID * n_d] = id;
-            sd[DS_Q * n_d] = q;
-            sd[DS_IC * n_d] = ic;
-            sd[DS_HIST * n_d] = 1.0;
-          }
-          for (int k = me; k < n_m; k += W) {  // the MOSFET's charges
-            const int* nd_ = deck.mn + 5 * k;  // drain gate source bulk level
-            const Mos p{deck.pm + k, n_m};
-            const double sg = p[M_SIGN];
-            const double xsrc = xs[nd_[2]];
-            double q[5];
-            mos_charges(p, nd_[4], sg * (xs[nd_[1]] - xsrc),
-                        sg * (xs[nd_[0]] - xsrc), sg * (xs[nd_[3]] - xsrc),
-                        q);
-            double* sm = m_st + k;
-            const bool on = tr && sm[MS_HIST * n_m] > 0;
-            for (int r = 0; r < 5; ++r) {
-              const double dq = (q[r] - sm[(MS_QGS + r) * n_m]) / dte;
-              sm[(MS_ICGS + r) * n_m] =
-                  on ? 2.0 * dq - sm[(MS_ICGS + r) * n_m] : dq;
-              sm[(MS_QGS + r) * n_m] = q[r];
-            }
-            sm[MS_HIST * n_m] = 1.0;
-          }
-        }
-        if constexpr (MAG) {  // the live J-A commit (engine/state.py)
-          const int* lmt = topo + topo[H_LMN];  // n1 n2 branch per winding
-          const int* core = topo + topo[H_CORE];
-          const double* lm = mp.lm;
-          double* ls = mp.ls;
-          for (int k = me; k < nlm; k += W) {
-            // the core's summed mmf, in winding order (segment_sum)
-            double mmf = 0.0;
-            for (int w = 0; w < nlm; ++w)
-              mmf = mmf + (core[w] == core[k]
-                               ? lm[LM_TURNS * nlm + w] * -xs[lmt[3 * w + 2]]
-                               : 0.0);
-            const double h = clamp_max(
-                clamp_min(mmf / lm[LM_LEN * nlm + k], -1e6), 1e6);
-            ja_step(lm[LM_MST * nlm + k], lm[LM_A * nlm + k],
-                    lm[LM_K * nlm + k], lm[LM_C * nlm + k],
-                    lm[LM_ALPHA * nlm + k], h, ls + LS_H * nlm + k, nlm);
-            const double vd = xs[lmt[3 * k]] - xs[lmt[3 * k + 1]];
-            double* sk = ls + k;
-            sk[LS_I1 * nlm] = sk[LS_I0 * nlm];
-            sk[LS_I0 * nlm] = -xs[lmt[3 * k + 2]];
-            sk[LS_V1 * nlm] = sk[LS_V0 * nlm];
-            sk[LS_V0 * nlm] = vd;
-            sk[LS_FLUX0 * nlm] = sk[LS_FLUX0 * nlm] + vd * dte;
-          }
-        }
-      } else {
-        for (int k = me; k < nc; k += W) {  // capacitor.go:155-171
-          const double vd = xs[cnodes[2 * k]] - xs[cnodes[2 * k + 1]];
-          const double q0 = c_q0[k], v0 = c_v0[k];
-          c_q0[k] = craw[k] * vd;
-          c_q1[k] = q0;
-          c_v0[k] = vd;
-          c_v1[k] = v0;
-        }
-        for (int k = me; k < nl; k += W) {  // inductor.go:81-114
-          const double vd = xs[lnodes[2 * k]] - xs[lnodes[2 * k + 1]];
-          const double v0 = l_v0[k];
-          l_i0[k] = vd * 1e-9 / lval[k];
-          l_i1[k] = l_i1[k] + vd * dte / lval[k];
-          l_v0[k] = vd;
-          l_v1[k] = v0;
-          l_flux0[k] = vd * dte;
-        }
-      }
+      L.commit(me, W, xs, dte);
       t = next_t;
       if constexpr (STORE) {  // tran.go:141-143
         if (next_t >= tstart) {
@@ -821,8 +896,8 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
     for (int i = me; i < ks; i += W) st_g[i] = st[i];
   if constexpr (NL)
     if (!short_slice)
-      for (int i = me; i < deck.kj; i += W)
-        jv_g[(size_t)lane * deck.kj + i] = jv[i];
+      for (int i = me; i < L.deck.kj; i += W)
+        jv_g[(size_t)lane * L.deck.kj + i] = jv[i];
   if (me == 0) {
     // a Newton deck's iterations, or a linear deck's attempts (one solve
     // each), in this run
@@ -836,6 +911,167 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
       overflow[lane] = dropped ? 1 : 0;
     }
     fail_out[lane] = fail ? 1 : 0;
+  }
+}
+
+// ------------------------------------------------ the block kernel
+
+// A deck's whole run on one block of BLOCK_THREADS per Monte-Carlo lane
+// (the block bucket: np1 past 64, or a lane that overflows the 64-row
+// bucket's block), the segment kernel's attempt with the block in place
+// of the segment: the sources, thread t taking those s = t (mod T); the
+// solve (newton.cuh block_solve, or block_newton in flavour FL_TRAN:
+// device j on thread j (mod T) limits and evaluates, then the build, a
+// TAG_NL entry reading its slot, then the elimination, and the
+// convergence test of each row a block-wide AND with the finite flag);
+// the LTE, a block max (block_max); the step control, which every thread
+// computes from the same shared values; the commit, each device on thread
+// k = t (mod T); the store, each thread writing its rows of x.  The lane's
+// system, x, the last iterate, its source values, junction voltages and
+// value slots live in the block's slice (newton.cuh block_slice): shared
+// memory while the table and the slice fit it, else a slice of `work` in
+// device memory, which the block barriers order as they order shared
+// memory (block k takes slice k and lanes k, k + gridDim.x, ...); the
+// lane's rows (committed state, device rows, source records) are read and
+// written in device memory.  One lane a block runs no attempt another
+// lane needs, so nothing runs along: every loop ends on its own lane's
+// values, the same on every thread.
+template <bool NL, bool MAG, bool STORE, bool PHYS>
+__global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_MIN_BLOCKS)
+run_block_kernel(const int* __restrict__ topo_g, int topo_len,
+                 int nl_doubles, const double* __restrict__ dev,
+                 const double* __restrict__ rc, double* __restrict__ state,
+                 double* __restrict__ jv_g, double* __restrict__ t_io,
+                 double* __restrict__ dt_io, int* __restrict__ acc_out,
+                 int* __restrict__ att_io, int* __restrict__ fail_out,
+                 int* __restrict__ nri_out, int nlanes, double tstop,
+                 double minstep, double tmax, double trtol, int max_attempts,
+                 double reltol, double abstol, int max_iter, double tstart,
+                 int max_store, int stream, double* __restrict__ out_x,
+                 double* __restrict__ out_t, int* __restrict__ out_n,
+                 int* __restrict__ overflow, int trap, double* work) {
+  constexpr int T = BLOCK_THREADS;
+  extern __shared__ __align__(16) double seg_smem[];
+  int* topo = reinterpret_cast<int*>(seg_smem);
+  for (int i = threadIdx.x; i < topo_len; i += T) topo[i] = topo_g[i];
+  __syncthreads();
+  const int me = threadIdx.x;
+  const int n = topo[H_NP1];
+  const int ks = topo[H_KS], nd = topo[H_ND], nrc = topo[H_NRC];
+  const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
+  const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
+  const long long slice = block_slice(n, MAX_SRC + (NL ? nl_doubles : 0));
+  double* const m = block_in_shared(topo_len, slice)
+                        ? seg_smem + (topo_len + 3) / 4 * 2
+                        : work + (size_t)blockIdx.x * slice;
+  double* const xs = m + gj_slice_doubles(n);
+  double* const xo = xs + ((n + 1) & ~1);
+  double* const sv = xo + ((n + 1) & ~1);
+  double* const jv = sv + MAX_SRC;
+  const double trtol100 = trtol / 100.0;
+
+  for (int lane = blockIdx.x; lane < nlanes; lane += gridDim.x) {
+    __syncthreads();  // the last lane's reads of the slice are done
+    double* const st = state + (size_t)lane * ks;
+    const Lane<NL, MAG, PHYS> L(topo, dev + (size_t)lane * nd,
+                                rc + (size_t)lane * nrc, st, trap);
+    const int kj = L.deck.kj;
+    double* const nv = jv + kj;
+    // a slice shorter than the deck's junction voltages and value slots:
+    // every lane fails before its first attempt (the segment kernel's
+    // rule), and the slice's jv and value slots are neither read nor
+    // written
+    const bool short_slice = NL && nl_doubles < L.newton_doubles();
+    if constexpr (NL)
+      if (!short_slice)
+        for (int i = me; i < kj; i += T) jv[i] = jv_g[(size_t)lane * kj + i];
+
+    double t = STORE ? t_io[lane] : 0.0;
+    double dt = STORE ? dt_io[lane] : minstep;
+    int att = STORE ? att_io[lane] : 0;
+    const int att0 = att;
+    bool done = tstop <= 0.0 || t >= tstop || short_slice,
+         fail = short_slice;
+    int acc = 0, nri = 0, n_kept = 0;
+    bool dropped = false;
+    __syncthreads();
+    while (!done && att < max_attempts &&
+           (!STORE || !stream || n_kept < max_store)) {
+      const double tpdt = t + dt;
+      const bool over = tpdt > tstop;
+      const double next_t = over ? tstop : tpdt;
+      const double dte = over ? tstop - t : dt;
+      const double dtl = dte > 0 ? dte : 1e-9;
+      L.sources(me, T, L.tr ? next_t : t, sv);
+      __syncthreads();
+      auto stamp = [&](int tag, int k) -> double {
+        return L.stamp(tag, k, t, dte, dtl, sv);
+      };
+      bool nr_ok;
+      if constexpr (NL) {  // Newton from x = 0, the carried jv
+        for (int i = me; i < n; i += T) xs[i] = 0.0;
+        __syncthreads();
+        nri += block_newton<FL_TRAN, PHYS>(L.deck, ent, roff, stamp, 0.0,
+                                           true, max_iter, reltol, abstol,
+                                           dte, L.ph, m, xs, xo, jv, nv,
+                                           &nr_ok);
+      } else {  // one solve, converged when x is finite
+        nr_ok = block_solve<false, false>(ent, roff, nullptr, stamp,
+                                          nullptr, 0.0, n, m, xs);
+      }
+      const double lte = block_max(L.lte(me, T, dte));
+
+      const bool can_halve = dte > minstep;
+      const bool hard_fail = !nr_ok && !can_halve;
+      const bool reject =
+          (!nr_ok && can_halve) || (nr_ok && lte > trtol && can_halve);
+      if (nr_ok && !reject) {  // accept
+        L.commit(me, T, xs, dte);
+        t = next_t;
+        if constexpr (STORE) {  // tran.go:141-143
+          if (next_t >= tstart) {
+            if (n_kept < max_store) {
+              const size_t orow = (size_t)lane * max_store + n_kept;
+              for (int i = me; i < n; i += T) out_x[orow * n + i] = xs[i];
+              if (me == 0) out_t[orow] = next_t;
+              ++n_kept;
+            } else {
+              dropped = true;
+            }
+          }
+        }
+        const double grown = dte * (lte < trtol100 ? 2.0 : 1.1);
+        const double dt_g =
+            isnan(grown) ? grown : (grown > tmax ? tmax : grown);
+        dt = (next_t < tstop && dte < tmax) ? dt_g : dte;
+        ++acc;
+        if (next_t >= tstop) done = true;
+      } else {
+        dt = dte / 2.0;
+      }
+      if (hard_fail) {
+        done = true;
+        fail = true;
+      }
+      ++att;
+      __syncthreads();  // the commit before the next attempt's reads
+    }
+
+    if constexpr (NL)
+      if (!short_slice)
+        for (int i = me; i < kj; i += T) jv_g[(size_t)lane * kj + i] = jv[i];
+    if (me == 0) {
+      nri_out[lane] = NL ? nri : att - att0;
+      t_io[lane] = t;
+      dt_io[lane] = dt;
+      acc_out[lane] = acc;
+      att_io[lane] = att;
+      if constexpr (STORE) {
+        out_n[lane] = n_kept;
+        overflow[lane] = dropped ? 1 : 0;
+      }
+      fail_out[lane] = fail ? 1 : 0;
+    }
   }
 }
 
@@ -865,6 +1101,11 @@ struct RunArgs {
   int* out_n;
   int* overflow;
   int trap;
+  // the block bucket's: np1, and the workspace of its slices in device
+  // memory (work_len doubles; unused while they fit shared memory)
+  int np1;
+  double* work;
+  long long work_len;
 };
 
 // A deck's launch shape (newton.cuh seg_shape_of): nl_doubles is a
@@ -874,46 +1115,64 @@ SegShape seg_shape(int nlanes, int topo_len, int nl_doubles) {
   return seg_shape_of<NMAX>(nlanes, topo_len, seg_slice<NMAX>(nl_doubles));
 }
 
-// The shape in bucket b (a bucket of seg_bucket)
-inline SegShape seg_shape_in(int b, int nlanes, int topo_len,
+// The shape in bucket b (a bucket of seg_bucket, or BLOCK_BUCKET: the
+// block's slice holds the source values beside a Newton deck's
+// nl_doubles)
+inline SegShape seg_shape_in(int b, int np1, int nlanes, int topo_len,
                              int nl_doubles) {
   switch (b) {
     case 4: return seg_shape<4>(nlanes, topo_len, nl_doubles);
     case 8: return seg_shape<8>(nlanes, topo_len, nl_doubles);
     case 16: return seg_shape<16>(nlanes, topo_len, nl_doubles);
     case 32: return seg_shape<32>(nlanes, topo_len, nl_doubles);
-    default: return seg_shape<64>(nlanes, topo_len, nl_doubles);
+    case 64: return seg_shape<64>(nlanes, topo_len, nl_doubles);
+    default:
+      return block_shape(np1, nlanes, topo_len, MAX_SRC + nl_doubles);
   }
 }
 
-// The run kernel's bucket for np1 (newton.cuh fit_bucket); 0 past the caps
+// The run kernel's bucket for np1 (newton.cuh fit_bucket)
 inline int run_bucket(int np1, int topo_len, int nl_doubles) {
   return fit_bucket(np1, [=](int b) {
-    return seg_shape_in(b, 1, topo_len, nl_doubles);
+    return seg_shape_in(b, np1, 1, topo_len, nl_doubles);
   });
 }
 
-// the shape of np1's launch; false past the caps
+// the shape of np1's launch; false for np1 < 1
 inline bool seg_shape_np1(int np1, int nlanes, int topo_len, int nl_doubles,
                           SegShape* s) {
-  const int b = run_bucket(np1, topo_len, nl_doubles);
-  if (b == 0) return false;
-  *s = seg_shape_in(b, nlanes, topo_len, nl_doubles);
+  if (np1 < 1) return false;
+  *s = seg_shape_in(run_bucket(np1, topo_len, nl_doubles), np1, nlanes,
+                    topo_len, nl_doubles);
   return true;
 }
 
-// The launch of one instantiation: a segment of a warp per lane; NL the
-// Newton (a.nl_doubles sizes its slots), else a linear deck.
+// The launch of one instantiation: a segment of a warp per lane, or in the
+// block bucket a block (a.work holding the slices that do not fit shared
+// memory); NL the Newton (a.nl_doubles sizes its slots), else a linear
+// deck.
 template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
 cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
-  return seg_launch(
-      run_seg_kernel<NMAX, NL, MAG, STORE, PHYS>,
-      seg_shape<NMAX>(a.nlanes, a.topo_len, NL ? a.nl_doubles : 0), stream,
-      a.topo, a.topo_len, a.nl_doubles, a.dev, a.rc, a.state, a.jv, a.t_io,
-      a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop, a.minstep,
-      a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol, a.max_iter,
-      a.tstart, a.max_store, a.stream, a.out_x, a.out_t, a.out_n,
-      a.overflow, a.trap);
+  const int nl = NL ? a.nl_doubles : 0;
+  if constexpr (NMAX == BLOCK_BUCKET) {
+    return block_launch(
+        run_block_kernel<NL, MAG, STORE, PHYS>,
+        block_shape(a.np1, a.nlanes, a.topo_len, MAX_SRC + nl), a.work,
+        a.work_len, stream, a.topo, a.topo_len, a.nl_doubles, a.dev, a.rc,
+        a.state, a.jv, a.t_io, a.dt_io, a.acc, a.att_io, a.fail, a.nri,
+        a.nlanes, a.tstop, a.minstep, a.tmax, a.trtol, a.max_attempts,
+        a.reltol, a.abstol, a.max_iter, a.tstart, a.max_store, a.stream,
+        a.out_x, a.out_t, a.out_n, a.overflow, a.trap);
+  } else {
+    return seg_launch(
+        run_seg_kernel<NMAX, NL, MAG, STORE, PHYS>,
+        seg_shape<NMAX>(a.nlanes, a.topo_len, nl), stream, a.topo,
+        a.topo_len, a.nl_doubles, a.dev, a.rc, a.state, a.jv, a.t_io,
+        a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop,
+        a.minstep, a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol,
+        a.max_iter, a.tstart, a.max_store, a.stream, a.out_x, a.out_t,
+        a.out_n, a.overflow, a.trap);
+  }
 }
 
 }  // namespace

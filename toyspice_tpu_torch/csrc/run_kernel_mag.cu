@@ -42,10 +42,11 @@ constexpr bool STORE_BUILD = true;
 #else
 constexpr bool STORE_BUILD = false;
 #endif
-// the buckets this library holds: with -DTSR_WIDE the 64-row bucket alone
-// (a library of its own, whose nvcc call runs beside this one's)
+// the buckets this library holds: with -DTSR_WIDE the 64-row bucket and
+// the block bucket (a library of their own, whose nvcc call runs beside
+// this one's)
 #ifdef TSR_WIDE
-constexpr int MIN_BUCKET = 64, MAX_BUCKET = 64;
+constexpr int MIN_BUCKET = 64, MAX_BUCKET = BLOCK_BUCKET;
 #else
 constexpr int MIN_BUCKET = 4, MAX_BUCKET = 32;
 #endif
@@ -81,13 +82,16 @@ extern "C" int tsr_run_mag(int np1, int nonlinear, int mag, int physics,
                            int nlanes, double tstop, double minstep,
                            double tmax, double trtol, int max_attempts,
                            double reltol, double abstol, int max_iter,
-                           void* stream) {
-  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
-                  jv,      t,        dt,         acc,     att,     fail,
-                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
-                  max_attempts,      reltol,     abstol,  max_iter, 0.0,
-                  0,       0,        nullptr,    nullptr, nullptr, nullptr,
-                  trap};
+                           double* work, long long work_len, void* stream) {
+  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+            jv,      t,        dt,         acc,     att,     fail,
+            nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+            max_attempts,      reltol,     abstol,  max_iter, 0.0,
+            0,       0,        nullptr,    nullptr, nullptr, nullptr,
+            trap};
+  a.np1 = np1;
+  a.work = work;
+  a.work_len = work_len;
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics, stream);
 }
 #else
@@ -102,13 +106,16 @@ extern "C" int tsr_run_mag_store(
     double tmax, double trtol, int max_attempts, double reltol,
     double abstol, int max_iter, double tstart, int max_store, int stream,
     double* out_x, double* out_t, int* out_n, int* overflow,
-    void* cuda_stream) {
-  const RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
-                  jv,      t,        dt,         acc,     att,     fail,
-                  nri,     nlanes,   tstop,      minstep, tmax,    trtol,
-                  max_attempts,      reltol,     abstol,  max_iter, tstart,
-                  max_store, stream, out_x,      out_t,   out_n,   overflow,
-                  trap};
+    double* work, long long work_len, void* cuda_stream) {
+  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+            jv,      t,        dt,         acc,     att,     fail,
+            nri,     nlanes,   tstop,      minstep, tmax,    trtol,
+            max_attempts,      reltol,     abstol,  max_iter, tstart,
+            max_store, stream, out_x,      out_t,   out_n,   overflow,
+            trap};
+  a.np1 = np1;
+  a.work = work;
+  a.work_len = work_len;
   return launch_np1<STORE_BUILD>(a, np1, nonlinear, mag, physics,
                                  cuda_stream);
 }

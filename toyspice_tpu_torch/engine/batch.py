@@ -16,13 +16,14 @@ sweep, the DC sweep kernel (``ops/dc.py``) or the stamped solve of every
 point (``engine/dc.make_dc``); for AC, that OP and the AC kernel
 (``engine/ac.py``).  The JAX package's kernels have no size gate
 (``ops/pallas_run.py`` ``run_ineligible_reason`` checks only the store), so
-its batch sends every deck to them; the port's kernels run np1 up to 64
-(the 64-row bucket: a lane's system on a whole warp) with up to 32 sources
-and a stamp plan within their 48 KB shared-memory table, which is the only
-cap on the count of diodes, BJTs and MOSFETs.  A deck past those caps, or
-an AC past np1 = 32, takes the general engine, engine "general", with the
-cap in its reason: ``engine/tran.make_tran``, ``engine/op.make_op``,
-``engine/dc.make_dc`` and ``engine/ac.make_ac``, whose Newton is a host
+its batch sends every deck to them; the port's kernels run any np1 (to 64
+on warps, past it a block a lane) with up to 32 sources and a stamp plan
+within their 48 KB shared-memory table, which is the only cap on the
+count of diodes, BJTs and MOSFETs.  A deck past those caps, or an AC past
+np1 = 32, takes the general engine, engine "general", with the cap in its
+reason (the streamed store too, ``make_tran_stream``):
+``engine/tran.make_tran``, ``engine/op.make_op``, ``engine/dc.make_dc``
+and ``engine/ac.make_ac``, whose Newton is a host
 loop over the stamped solve (any np1: past NBIG = 168 its systems are
 eliminated in device memory).
 A deck, store or semantics none of them covers raises
@@ -187,23 +188,45 @@ def make_tran_stream(cc, cfg: TranConfig, chunk_store: int,
                      semantics: str = "compat", opts: SimOptions = DEFAULTS):
     """The (fresh, cont) pair of the streamed store: store='full' with a
     ``chunk_store``-row buffer whose lanes pause when it is full; ``cont``
-    is the resume flavour.  Build once and pass to
+    is the resume flavour.  The kernels' store instantiation runs it
+    (engine "store"); a deck past the kernels' caps takes the general
+    engine's pair (``engine/tran.make_tran`` with ``stream=True``, engine
+    "general"), as the JAX package streams every deck its fused engine
+    takes.  The pair's ``.engine`` and ``.engine_reason`` are set on both
+    callables, as ``make_tran_batch`` sets them.  Build once and pass to
     ``stream_transient_chunks`` via ``fns`` when draining repeatedly."""
     from ..ops.run import make_tran_run, run_ineligible_reason
+    from ..ops.run_plan import fused_ineligible_reason
+    from .tran import make_tran
 
-    why = run_ineligible_reason(cc, semantics, "full", opts)
-    if why is not None:
-        raise ValueError(f"the streamed store needs the store engine: {why}")
     if int(chunk_store) < 1:
         raise ValueError("chunk_store must be at least 1 row")
     cfg_c = cfg._replace(max_store=int(chunk_store))
-    plain = overrides.kernels_plain()
-    fresh = make_tran_run(cc, cfg_c, opts, semantics=semantics,
-                          store="full", stream=True, plain=plain,
-                          op_fn=overrides.tran_op(cc, opts, semantics))
-    cont = make_tran_run(cc, cfg_c, opts, semantics=semantics,
-                         store="full", stream=True, resume=True,
-                         plain=plain)
+    why = run_ineligible_reason(cc, semantics, "full", opts)
+    if why is not None:
+        why_not = (fused_ineligible_reason(cc, semantics, "full", opts)
+                   or general_ineligible_reason(cc, semantics))
+        if why_not is not None:
+            raise ValueError(f"no streamed store for this run: {why_not}")
+        kw = dict(store="full", stream=True, **overrides.solves())
+        fresh = make_tran(cc, cfg_c, semantics, opts=opts, **kw)
+        cont = make_tran(cc, cfg_c, semantics, opts=opts, resume=True, **kw)
+        engine, reason = "general", why + overrides.note(False)
+    else:
+        plain = overrides.kernels_plain()
+        fresh = make_tran_run(cc, cfg_c, opts, semantics=semantics,
+                              store="full", stream=True, plain=plain,
+                              op_fn=overrides.tran_op(cc, opts, semantics))
+        cont = make_tran_run(cc, cfg_c, opts, semantics=semantics,
+                             store="full", stream=True, resume=True,
+                             plain=plain)
+        engine = "store"
+        reason = ("the whole-run kernel's store instantiation, streamed "
+                  f"({semantics}/{opts.integration})"
+                  + overrides.note(True))
+    for fn in (fresh, cont):
+        fn.engine, fn.engine_reason = engine, reason
+    _log.info("streamed transient engine: %s (%s)", engine, reason)
     return fresh, cont
 
 

@@ -82,22 +82,32 @@ class TranOutput(NamedTuple):
 
 def make_tran(cc, cfg: TranConfig, semantics: str = "compat",
               store: str = "full", opts: SimOptions = DEFAULTS,
-              resume: bool = False, solve=None, dense_solve=None):
+              resume: bool = False, solve=None, dense_solve=None,
+              stream: bool = False):
     """The general engine's batched transient, per lane the JAX package's
     tran_execute under vmap: fn(params, state0, t0=0.0, jv0=None,
-    dt0=None) -> TranOutput with the batch axis first.  ``resume=False``
-    runs the reference flow (the OP warm-up unless UIC, under physics the
-    state seeded from the bias point, the clock from 0); ``resume=True``
-    continues a checkpoint from each lane's ``t0`` (a float or (B,)) with
-    its junction voltages ``jv0`` and, if given, its step ``dt0``.
-    ``solve``/``dense_solve`` override the stamped and the dense solve
-    (the plain versions on the card)."""
+    dt0=None, attempts0=None) -> TranOutput with the batch axis first.
+    ``resume=False`` runs the reference flow (the OP warm-up unless UIC,
+    under physics the state seeded from the bias point, the clock from 0);
+    ``resume=True`` continues a checkpoint from each lane's ``t0`` (a float
+    or (B,)) with its junction voltages ``jv0`` and, if given, its step
+    ``dt0`` and its attempt count ``attempts0`` (``cfg.max_attempts`` then
+    binds the whole run; ``accepted`` and ``nr_iters`` count this call's
+    work).  ``stream=True`` (with ``store='full'``) pauses a lane whose
+    ``cfg.max_store`` rows are full: it neither attempts nor fails, and the
+    caller drains its rows and re-enters (the streamed store,
+    ``engine/batch.make_tran_stream``; the JAX kernel's rule,
+    ops/pallas_tran.py:2342-2355).  ``solve``/``dense_solve`` override the
+    stamped and the dense solve (the plain versions on the card)."""
     from ..ops.run_plan import first_leaf, infer_batch
     from .newton import make_nr, tree_where
     from .nlstate import init_jv
     from .op import lanes_of, make_op
     from .state import make_commit, make_lte, make_op_seed
 
+    if stream and store != "full":
+        raise ValueError("stream=True pauses lanes on a full waveform "
+                         "buffer and therefore requires store='full'")
     if opts.integration == "trap" and semantics == "compat":
         raise ValueError("trapezoidal integration requires semantics="
                          "'physics' (compat reproduces the reference's "
@@ -116,10 +126,11 @@ def make_tran(cc, cfg: TranConfig, semantics: str = "compat",
     lte_fn = make_lte(cc)
     k_store = cfg.max_store if store == "full" else 1
 
-    def tran_execute(params, state0, t0=0.0, jv0=None, dt0=None):
+    def tran_execute(params, state0, t0=0.0, jv0=None, dt0=None,
+                     attempts0=None):
         device = first_leaf(params).device
         b = infer_batch(params, state0)
-        for v in (t0, dt0):
+        for v in (t0, dt0, attempts0):
             if isinstance(v, torch.Tensor) and v.ndim == 1:
                 b = max(b, v.shape[0])
 
@@ -149,7 +160,8 @@ def make_tran(cc, cfg: TranConfig, semantics: str = "compat",
         out_t = torch.zeros((b, k_store), dtype=F64, device=device)
         out_n = torch.zeros(b, dtype=I32, device=device)
         accepted = torch.zeros(b, dtype=I32, device=device)
-        attempts = torch.zeros(b, dtype=I32, device=device)
+        attempts = torch.as_tensor(0 if attempts0 is None else attempts0,
+                                   dtype=I32, device=device).expand(b).clone()
         nr_iters = torch.zeros(b, dtype=I32, device=device)
         zeros = torch.zeros((b, np1), dtype=F64, device=device)
         lane = torch.arange(b, device=device)
@@ -157,6 +169,8 @@ def make_tran(cc, cfg: TranConfig, semantics: str = "compat",
         one_one = torch.full((b,), 1.1, dtype=F64, device=device)
         while True:
             active = ~done & (attempts < cfg.max_attempts)
+            if stream:  # a full buffer pauses the lane
+                active = active & (out_n < k_store)
             if not bool(active.any()):
                 break
             next_t = torch.clamp_max(t + dt, cfg.tstop)

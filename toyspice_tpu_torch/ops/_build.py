@@ -5,8 +5,8 @@ Each kernel library compiles from one source (``csrc/run_kernel.cu``,
 ``csrc/run_kernel_phys.cu`` and ``csrc/run_kernel_mag.cu``, the compat,
 physics and magnetic instantiations of ``csrc/run_kernel.cuh``, each
 built twice: without and, with ``-DTSR_STORE``, with the waveform store,
-and each of those again with ``-DTSR_WIDE``, the 64-row bucket alone, as
-a library of its own;
+and each of those again with ``-DTSR_WIDE``, the 64-row and block buckets
+alone, as a library of its own;
 ``csrc/op_kernel.cu``, ``csrc/dc_sweep_kernel.cu``,
 ``csrc/stamped_solve.cu``, all on ``csrc/newton.cuh``;
 ``csrc/ac_kernel.cu``, the stamped solve's systems of 33 to 64 and every
@@ -41,9 +41,9 @@ SOURCES = {"run": CSRC / "run_kernel.cu",
            "op": CSRC / "op_kernel.cu", "stamped": CSRC / "stamped_solve.cu",
            "dc": CSRC / "dc_sweep_kernel.cu", "ac": CSRC / "ac_kernel.cu",
            "gj": CSRC / "gj_kernel.cu"}
-# the run kernel's store builds and its 64-row bucket (ops/run.py
-# run_bucket): their instantiations compile in calls of their own, beside
-# the others
+# the run kernel's store builds and its 64-row and block buckets
+# (ops/run.py run_bucket): their instantiations compile in calls of their
+# own, beside the others
 RUN_LIBS = ("run", "run_store", "run_phys", "run_phys_store", "run_mag",
             "run_mag_store")
 SOURCES.update({name + "_wide": SOURCES[name] for name in RUN_LIBS})
@@ -147,19 +147,20 @@ def build(names=tuple(SOURCES), extra_flags=()):
 build.log = {}
 build.seconds = {}
 
-RUN_SIG = "iiiiipii" + "p" * 10 + "iddddiddip"
-RUN_STORE_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "dii" + "p" * 5
+RUN_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "pqp"
+RUN_STORE_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "dii" + "p" * 4 + "pqp"
 _ARGTYPES = {
     # tsr_run(np1, nonlinear, mag, physics, trap, topo, topo_len,
     #         nl_doubles, dev, rc, state, jv, t, dt, acc, att, fail, nri,
     #         nlanes, tstop, minstep, tmax, trtol, max_attempts, reltol,
-    #         abstol, max_iter, stream)
+    #         abstol, max_iter, work, work_len, stream)
     # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
-    #               out_x, out_t, out_n, overflow, stream)
+    #               out_x, out_t, out_n, overflow, work, work_len, stream)
     # tsr_run_phys, tsr_run_mag and their _store entries: the same
-    # tsr_run_seg_shape(np1, nlanes, topo_len, nl_doubles, out[5])
+    # tsr_run_seg_shape(np1, nlanes, topo_len, nl_doubles, out[6])
     # tsr_run_bucket(np1, topo_len, nl_doubles)
-    # the _wide libraries: their base's entries, the 64-row bucket alone
+    # the _wide libraries: their base's entries, the 64-row and block
+    # buckets alone
     "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiiip"),
             ("tsr_run_bucket", "iii")),
     "run_store": (("tsr_run_store", RUN_STORE_SIG),),
@@ -175,18 +176,18 @@ _ARGTYPES = {
     "run_mag_store_wide": (("tsr_run_mag_store", RUN_STORE_SIG),),
     # tsr_op(np1, topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x, jv,
     #        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor,
-    #        physics, stream)
-    # tsr_opdc_seg_shape(np1, nlanes, topo_len, lane_doubles, out[5])
-    "op": (("tsr_op", "ipii" + "p" * 8 + "iddidip"),
+    #        physics, work, work_len, stream)
+    # tsr_opdc_seg_shape(np1, nlanes, topo_len, lane_doubles, out[6])
+    "op": (("tsr_op", "ipii" + "p" * 8 + "iddidi" + "pqp"),
            ("tsr_opdc_seg_shape", "iiiip")),
     # tsr_stamped(n, tab, tab_len, view, view_len, nnz, nrhs, vals, rvals,
     #             gmin, x, nlanes, work, work_len, stream)
     "stamped": (("tsr_stamped", "ipipiii" + "p" * 4 + "ipqp"),),
     # tsr_dc_sweep(np1, topo, topo_len, lane_doubles, dev, dyn, vs,
     #              vs_stride, npts, x, iters, conv, nlanes, reltol, abstol,
-    #              max_iter, gmin_floor, physics, stream)
+    #              max_iter, gmin_floor, physics, work, work_len, stream)
     "dc": (("tsr_dc_sweep", "ipii" + "p" * 3 + "qi" + "p" * 3
-            + "iddidip"),),
+            + "iddidi" + "pqp"),),
     # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
     "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
     # tsr_gj(n, a, b, x, nsys, work, work_len, stream)

@@ -11,7 +11,7 @@ and the breakdown-frame limit).  Three pieces live here:
 
 * ``launch_dc_kernel``: the wrapper of ``csrc/dc_sweep_kernel.cu`` (a
   warp segment of 4, 8, 16 or 32 threads per lane, a whole warp past 32
-  rows, f64).  Its dyn rows
+  rows, a whole block past 64, f64).  Its dyn rows
   are ``[isrc(nI), lrhs(nL)]`` and
   its source table ``vs`` holds each point's V-source values, (P, nV)
   shared by every lane or (B, P, nV).  It counts its launches in
@@ -35,10 +35,11 @@ from ..models.sources import eval_sources
 from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices
-from .op import op_fused_ineligible_reason, op_mag_terms
+from .op import op_fused_ineligible_reason, op_mag_terms, opdc_work
 from .run import check_caps, check_rows, newton_doubles
 from .run_plan import (const_stack, first_leaf, infer_batch, lanes,
                        make_plan)
+from .solve import work_args
 
 CHECK_EVERY = 8  # plain version: Newton iterations between host checks
 
@@ -109,15 +110,16 @@ def launch_dc_kernel(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
     iters = torch.empty((b, npts), dtype=I32, device=device)
     conv = torch.empty((b, npts), dtype=I32, device=device)
     stride = npts * plan.counts[3] if vs.ndim == 3 else 0
+    lane = lane_doubles(plan)
+    work = opdc_work(plan, lane, b, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tsr_dc_sweep(
-            plan.np1, topo.data_ptr(), int(plan.topo.size),
-            lane_doubles(plan), dev.data_ptr(),
-            dyn.data_ptr(), vs.data_ptr(), stride, npts, xs.data_ptr(),
-            iters.data_ptr(), conv.data_ptr(), b, float(sc.reltol),
-            float(sc.abstol), int(sc.max_iter), float(sc.gmin_floor),
-            int(sc.physics), stream)
+            plan.np1, topo.data_ptr(), int(plan.topo.size), lane,
+            dev.data_ptr(), dyn.data_ptr(), vs.data_ptr(), stride, npts,
+            xs.data_ptr(), iters.data_ptr(), conv.data_ptr(), b,
+            float(sc.reltol), float(sc.abstol), int(sc.max_iter),
+            float(sc.gmin_floor), int(sc.physics), *work_args(work), stream)
     if err != 0:
         raise RuntimeError(f"DC sweep kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'dc')})")

@@ -10,7 +10,7 @@ breakdown-frame limit; the OP has no companions.  Three pieces live here:
 
 * ``launch_op_kernel``: the wrapper of ``csrc/op_kernel.cu`` (a warp
   segment of 4, 8, 16 or 32 threads per lane, a whole warp past 32
-  rows, f64).  Its dyn rows are
+  rows, a whole block past 64, f64).  Its dyn rows are
   ``[status_gmin, use_seed, act, vsrc(nV), isrc(nI), lrhs(nL)]``: the
   stamp-visible gmin of the rung, a flag to start from the
   linear-devices-only estimate (else from ``x0``), the lanes to solve, the
@@ -43,11 +43,12 @@ from ..models.sources import eval_sources
 from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices, converged
-from .run import (check_caps, check_rows, kernel_caps_reason,
-                  newton_doubles)
+from .run import (BLOCK_BUCKET, block_work, check_caps, check_rows,
+                  fit_bucket, kernel_caps_reason, newton_doubles)
 from .run_plan import (SLICE_KINDS, const_stack, first_leaf, infer_batch,
                        jv_tree, lanes, make_plan, nonlinear,
                        semantics_reason, source_leaves, source_stack)
+from .solve import work_args
 
 CHECK_EVERY = 8  # plain version: Newton iterations between host checks
 
@@ -125,14 +126,25 @@ def segment_shape(plan, b, lane):
     """The OP or DC sweep kernel's launch for b lanes of ``plan`` with
     ``lane`` doubles a lane (``lane_doubles`` of ``ops/op.py`` or of
     ``ops/dc.py``), as the op library computes it (``csrc/newton.cuh``
-    ``opdc_shape``): (W, lanes a block, blocks, threads a block, bytes of
-    shared memory a block)."""
-    out = (ctypes.c_int * 5)()
+    ``opdc_shape_in``): (W, lanes a block, blocks, threads a block, bytes
+    of shared memory a block, doubles of a block's slice in device memory:
+    0 unless the block bucket's slices outgrow shared memory)."""
+    out = (ctypes.c_int * 6)()
     err = _build.load("op").tsr_opdc_seg_shape(
         plan.np1, b, int(plan.topo.size), lane, ctypes.addressof(out))
     if err != 0:
         raise ValueError(f"np1={plan.np1} has no segment launch")
     return tuple(out)
+
+
+def opdc_work(plan, lane, b, device):
+    """The block bucket's workspace of an OP or DC sweep launch of b lanes
+    with ``lane`` doubles a lane (``ops/run.py block_work``), None outside
+    the bucket (csrc/newton.cuh opdc_bucket: ``fit_bucket``) or while its
+    slices fit shared memory."""
+    if fit_bucket(plan, lane) != BLOCK_BUCKET:
+        return None
+    return block_work(plan, lane, b, device)
 
 
 def _check_inputs(plan, dev, dyn, x0, jv0):
@@ -160,15 +172,16 @@ def launch_op_kernel(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     jv = torch.empty_like(jv0)
     iters = torch.empty(b, dtype=I32, device=device)
     conv = torch.empty(b, dtype=I32, device=device)
+    lane = lane_doubles(plan)
+    work = opdc_work(plan, lane, b, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.tsr_op(
-            plan.np1, topo.data_ptr(), int(plan.topo.size),
-            lane_doubles(plan), dev.data_ptr(),
-            dyn.data_ptr(), x0.data_ptr(), jv0.data_ptr(), x.data_ptr(),
-            jv.data_ptr(), iters.data_ptr(), conv.data_ptr(), b,
-            float(sc.reltol), float(sc.abstol), int(sc.max_iter),
-            float(sc.gmin_floor), int(sc.physics), stream)
+            plan.np1, topo.data_ptr(), int(plan.topo.size), lane,
+            dev.data_ptr(), dyn.data_ptr(), x0.data_ptr(), jv0.data_ptr(),
+            x.data_ptr(), jv.data_ptr(), iters.data_ptr(), conv.data_ptr(),
+            b, float(sc.reltol), float(sc.abstol), int(sc.max_iter),
+            float(sc.gmin_floor), int(sc.physics), *work_args(work), stream)
     if err != 0:
         raise RuntimeError(f"OP kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'op')})")

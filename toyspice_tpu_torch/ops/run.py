@@ -14,8 +14,8 @@ instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
   and ``csrc/run_kernel_mag.cu`` (physics with LM or K, compat LM or K
   with a Newton), the instantiations of ``csrc/run_kernel.cuh`` (one
   segment of a warp per lane, a thread a row of the system, two rows on a
-  whole warp for np1 33 to 64, and, in a Newton deck, a thread a device,
-  f64), without and with the waveform store. Each
+  whole warp for np1 33 to 64, a whole block past 64, and, in a Newton
+  deck, a thread a device, f64), without and with the waveform store. Each
   checks its inputs, allocates the outputs, launches on the current
   stream and counts its launches in ``.launches``.
 * ``run_plain`` and ``store_plain``: the same arithmetic as batched f64
@@ -77,18 +77,25 @@ from .run_plan import (CORE_KEYS, LM_PHYS_ROWS, NL_SLOTS, const_stack,
                        first_leaf, fused_ineligible_reason, infer_batch,
                        init_state_stack, jv_stack, jv_tree, mag_width,
                        make_plan, source_leaves, source_stack, unpack_state)
+from .solve import work_args
 
-# the largest matrix the run, OP and DC sweep kernels are compiled for:
-# their 64-row bucket, a lane's system on a whole warp, two rows a thread
-# (csrc/newton.cuh seg_bucket)
-NP1_CAP = 64
+# the largest matrix the run, OP and DC sweep kernels hold on a warp, their
+# 64-row bucket (a lane's system on a whole warp, two rows a thread,
+# csrc/newton.cuh seg_bucket); past it the block bucket takes a lane on a
+# whole block, with no cap on np1 (csrc/newton.cuh BLOCK_BUCKET)
+WARP_NP1 = 64
+BLOCK_BUCKET = 65
+BLOCK_THREADS = 256
+BLOCK_MIN_BLOCKS = 2  # blocks an SM, and so the workspace's slices an SM
+BLOCK_STATIC = 1024  # bytes of the block kernels' static shared memory
 MAX_SOURCES = 32  # source values a lane keeps in the run kernel's slice
 # int32 words of shared memory for the plan (48 KB), and so the cap on the
 # count of diodes, BJTs and MOSFETs: beside a table at this cap a block of
 # one lane of the 64-row bucket still holds the junction voltages and value
 # slots of every device the table can describe (csrc/newton.cuh
 # fit_bucket: np1's bucket, or the 64-row bucket with as few lanes a block
-# as fit); a launch that found too little shared memory would raise.
+# as fit, or the block bucket); a launch that found too little shared
+# memory would raise.
 MAX_TOPO = 12288
 CHECK_EVERY = 256  # plain version: steps between host checks (linear)
 CHECK_EVERY_NL = 64  # the same for a Newton deck (longer steps)
@@ -98,11 +105,9 @@ I32 = torch.int32
 
 
 def kernel_caps_reason(plan):
-    """Why the kernels' segments and shared table can NOT hold this deck;
-    None when they can (the run, OP and DC sweep kernels)."""
-    if plan.np1 > NP1_CAP:
-        return (f"np1={plan.np1} exceeds the kernel's matrix cap of "
-                f"{NP1_CAP} (its 64-row bucket, a warp a lane)")
+    """Why the kernels' slices and shared table can NOT hold this deck;
+    None when they can (the run, OP and DC sweep kernels: any np1, to 64 on
+    warps, past it a block a lane)."""
     nsrc = sum(len(v) for v in plan.stype.values())
     if nsrc > MAX_SOURCES:
         return (f"{nsrc} sources exceed the kernel's cap of {MAX_SOURCES} "
@@ -122,23 +127,68 @@ SEG_SMEM = 232448
 SEG_ROWS = 192
 
 
-def run_bucket(plan):
-    """The run kernel's size bucket for ``plan`` as csrc/run_kernel.cuh
-    run_bucket computes it (newton.cuh fit_bucket): np1's (4, 8, 16, 32 or
-    64 rows), or 64 when the table and the 128 / W slices of np1's block
-    overflow SEG_SMEM; 0 past the caps.  64 is the ``_wide`` libraries'
-    (``ops/_build.py``): the wrapper picks the library by it."""
-    nl = (newton_doubles(plan) + 1) // 2 * 2
-    table = (int(plan.topo.size) + 3) // 4 * 2
+def even(k):
+    return (k + 1) // 2 * 2
 
+
+def table_doubles(plan):
+    """The stamp plan's doubles of a block's shared memory."""
+    return (int(plan.topo.size) + 3) // 4 * 2
+
+
+def fit_bucket(plan, extra):
+    """The size bucket of a launch of ``plan`` whose segments each keep
+    ``extra`` doubles beside the elimination's buffer, build rows and x,
+    as csrc/newton.cuh fit_bucket computes it: np1's (4, 8, 16, 32 or 64
+    rows), or 64 when the table and the 128 / W slices of np1's block
+    overflow SEG_SMEM, or BLOCK_BUCKET (a block a lane) past 64 rows or
+    when one lane overflows the 64-row bucket's block."""
     def fits(b, lanes):
-        rows = (b + 2) * (b + 1) + b + MAX_SOURCES + SEG_ROWS + nl
-        return 8 * (table + lanes * rows) <= SEG_SMEM
+        rows = (b + 2) * (b + 1) + b + even(extra)
+        return 8 * (table_doubles(plan) + lanes * rows) <= SEG_SMEM
 
-    b = next((b for b in (4, 8, 16, 32, 64) if plan.np1 <= b), 0)
+    b = next((b for b in (4, 8, 16, 32, WARP_NP1) if plan.np1 <= b), 0)
     if 0 < b < 64 and not fits(b, 128 // b):
         b = 64
-    return b if b and fits(b, 128 // b if b < 64 else 1) else 0
+    return b if b and fits(b, 128 // b if b < 64 else 1) else BLOCK_BUCKET
+
+
+def run_bucket(plan):
+    """The run kernel's bucket for ``plan`` (csrc/run_kernel.cuh
+    run_bucket: ``fit_bucket`` over a slice of MAX_SOURCES, SEG_ROWS and
+    newton_doubles).  64 and BLOCK_BUCKET are the ``_wide`` libraries'
+    (``ops/_build.py``): the wrapper picks the library by it."""
+    return fit_bucket(plan, MAX_SOURCES + SEG_ROWS + newton_doubles(plan))
+
+
+def block_slice(np1, extra):
+    """Doubles of a lane's slice in the block bucket (csrc/newton.cuh
+    block_slice): the system with the elimination's factors, pivot rows
+    and used flags, np1 (np1 + 3); x and the last iterate; then ``extra``
+    of the lane's own (the run kernel: MAX_SOURCES and newton_doubles; the
+    OP and DC sweep kernels: their lane_doubles), even counts."""
+    return np1 * (np1 + 3) + 2 * even(np1) + even(extra)
+
+
+def block_in_shared(plan, extra):
+    """Whether the table and a lane's slice of the block bucket fit a
+    block's shared memory (csrc/newton.cuh block_in_shared)."""
+    return 8 * (table_doubles(plan) + block_slice(plan.np1, extra)) <= (
+        SEG_SMEM - BLOCK_STATIC)
+
+
+def block_work(plan, extra, lanes, device):
+    """The workspace of the block bucket's slices in device memory, as an
+    f64 tensor on ``device``; None when they fit shared memory
+    (``block_in_shared``).  A slice for each block of the bounded grid: at
+    most one a lane, BLOCK_MIN_BLOCKS an SM (at np1 = 183, 34,038 doubles
+    and more a slice: 132 SMs x 2 take ~72 MB)."""
+    if block_in_shared(plan, extra):
+        return None
+    slice_ = block_slice(plan.np1, extra)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slices = max(1, min(lanes, BLOCK_MIN_BLOCKS * sms))
+    return torch.empty(slices * slice_, dtype=F64, device=device)
 
 
 def newton_doubles(plan):
@@ -153,10 +203,13 @@ def newton_doubles(plan):
 
 def segment_shape(plan, b):
     """The run kernel's launch for b lanes of ``plan`` as the compat
-    library computes it (``csrc/run_kernel.cuh`` ``seg_shape``, the shape
-    ``launch`` launches, linear or Newton): (W, lanes a block, blocks,
-    threads a block, bytes of shared memory a block)."""
-    out = (ctypes.c_int * 5)()
+    library computes it (``csrc/run_kernel.cuh`` ``seg_shape_in``, the
+    shape ``launch`` launches, linear or Newton): (W, lanes a block,
+    blocks, threads a block, bytes of shared memory a block, doubles of a
+    block's slice in device memory: 0 unless the block bucket's slices
+    outgrow shared memory, when the grid is as many blocks as the
+    workspace holds slices)."""
+    out = (ctypes.c_int * 6)()
     err = _build.load("run").tsr_run_seg_shape(
         plan.np1, b, int(plan.topo.size), newton_doubles(plan),
         ctypes.addressof(out))
@@ -322,13 +375,16 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     # instantiation: run_kernel_mag.cu holds physics with LM or K and
     # compat LM or K with a Newton, run_kernel_phys.cu the rest of
     # physics, run_kernel.cu the rest of compat; each built apart for the
-    # 64-row bucket (the _wide libraries)
+    # 64-row and block buckets (the _wide libraries)
     mag = plan.nlm + plan.nk > 0
     family = ("run_mag" if mag and (plan.physics or plan.nonlinear)
               else "run_phys" if plan.physics else "run")
+    bucket = run_bucket(plan)
     name = (family + ("" if store is None else "_store")
-            + ("_wide" if run_bucket(plan) == 64 else ""))
+            + ("_wide" if bucket >= 64 else ""))
     lib = _build.load(name)
+    work = (block_work(plan, MAX_SOURCES + newton_doubles(plan), b, device)
+            if bucket == BLOCK_BUCKET else None)
     topo = torch.as_tensor(plan.topo, device=device)
     st = state.clone()
     jv_out = jv.clone()
@@ -361,6 +417,7 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
         args += [float(store.tstart), m, int(store.stream),
                  wave.out_x.data_ptr(), wave.out_t.data_ptr(),
                  wave.out_n.data_ptr(), wave.overflow.data_ptr()]
+    args += work_args(work)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         entry = getattr(lib, "tsr_" + name.removesuffix("_wide"))
