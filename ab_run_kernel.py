@@ -345,9 +345,13 @@ def time_ac_stamped(root, reps, do_ac, do_stamped):
         b, n, nf = g.shape[0], g.shape[1], om.shape[0]
         x = torch.empty((b, nf, 2 * n), dtype=torch.float64,
                         device=g.device)
-        ms = entry_ms(root, _build.load("ac").tsr_ac, (
+        entry = _build.load("ac").tsr_ac
+        # a checkout whose entry takes a workspace (every np1) gets none:
+        # ce_amplifier_ac's systems do not read it
+        work = (0, 0) if len(entry.argtypes) == 11 else ()
+        ms = entry_ms(root, entry, (
             n, b, nf, g.data_ptr(), bh.data_ptr(), r.data_ptr(),
-            om.data_ptr(), x.data_ptr(), stream), reps)
+            om.data_ptr(), x.data_ptr(), *work, stream), reps)
         print(f"{root}: AC kernel (ce_amplifier_ac, {b} x {nf} systems of "
               f"{2 * n}): kernel ms {ms}", flush=True)
     if do_stamped:

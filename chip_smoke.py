@@ -16,8 +16,9 @@ seconds:
    DC sweep kernel, the stamped solve (a warp segment per lane to np1 =
    32, a warp per lane to 64, a block per lane above: in registers to 144,
    in shared memory to 168, past it in device memory), the AC kernel (a
-   warp segment per system)
-   and the GJ kernel, one ``nvcc`` call per library or part, all started
+   warp segment per system to 2N = 64, past it a block per system on the
+   GJ kernel's bodies: registers to 144, shared memory to 168, device
+   memory above) and the GJ kernel, one ``nvcc`` call per library or part, all started
    together (ops/_build.py) in a thread of their own, while phase 3's
    and phase 27's plain versions, which need no library, run on the
    card; the line gives each library's seconds.
@@ -170,9 +171,12 @@ seconds:
    kernels against their plain versions (bit-identical).
 30. lc16_ac_8192: a 16-section LC ladder (np1 = 36, a 72 x 72 AC system),
    C spread 0.1, run_ac_batch: the linear OP (one stamped launch at
-   n = 36), then one GJ launch for the 8192 x 21 = 172,032 systems; the GJ
-   kernel against gj_plain on them, bit for bit on every system,
-   torch.linalg.solve as the yardstick.
+   n = 36), then one AC launch for the 8192 x 21 = 172,032 systems (a
+   block a system, a row a thread), no GJ launch; the AC kernel against
+   ac_plain on them, bit for bit on every system, torch.linalg.solve as
+   the yardstick; then under TOYSPICE_AC=general the general branch (one
+   stamped and one GJ launch), its x within rtol 2e-9 of the AC kernel's,
+   the GJ kernel against gj_plain on its dense systems, bit for bit.
 31. compat semantics under integration="trap" in the analyses, served as
    backward Euler as the JAX package serves them: run_op_batch and
    run_dc_batch on the half-wave rectifier and run_ac_batch on it with an
@@ -186,10 +190,12 @@ seconds:
    (csrc/gj_block.cuh gj_wide): one launch of the stamped solve's wide
    body per batched Newton iteration and no other kernel, no lane failed,
    every lane at tstop, counters equal to the run engine's; then
-   run_ac_batch on a 31-section LC ladder (np1 = 66, systems of
-   132), 1024 lanes x 21 frequencies: one stamped launch (the linear OP),
-   one GJ launch through the wide body, torch.linalg.solve as the
-   yardstick.  Each names the body that ran (ops/solve.py body).  For both,
+   run_ac_batch on a 31-section LC ladder (np1 = 66, systems of 132),
+   lc31_ac_8192: 8192 lanes x 21 frequencies, one stamped launch (the
+   linear OP) and one AC launch through the wide register body, no GJ
+   launch, the AC kernel against ac_plain bit for bit on every system; and
+   at 1024 lanes under TOYSPICE_AC=general: one stamped launch, one GJ
+   launch through the wide body, torch.linalg.solve as the yardstick.  Each names the body that ran (ops/solve.py body).  For both,
    the kernels against their plain versions on the same lanes: counters
    equal, bit for bit.
 33. the user surface: ``run_analysis`` on the card, one instance of each
@@ -217,7 +223,7 @@ seconds:
    rectifier's OP and diode_iv_sweep's sweep at 8192 lanes on four shards
    (the OP and DC sweep kernels), ce_amplifier_ac on a (2, 2) mesh (the
    OP and AC kernels) and lc16_ac_8192 on a (2, 3) mesh (its 21
-   frequencies: the stamped and GJ kernels), the rectifier with
+   frequencies: the stamped and AC kernels), the rectifier with
    store='full', and rc127 at 1024 lanes on four shards on the run
    engine (the block bucket) and under TOYSPICE_TRAN=general;
    then dryrun_multichip on every card.  Each wall is printed beside the
@@ -249,16 +255,25 @@ seconds:
    a 180-stage ladder (np1 = 183) on the device-memory workspace, rc127
    with store='full' and its stream in 3 chunks, cw32's OP under physics
    and the diode string's sweep under physics.
+37. the AC kernel's buckets at 259 instances x 3 frequencies, each
+   through run_ac_batch (counts reset before: one stamped or OP-kernel
+   bias, one AC launch) and then bit for bit against ac_plain: LC ladders
+   at each bucket edge (np1 = 32, the warp body; 34 and 48, a row a
+   thread; 50 and 72, the registers of 16 warps; 74 and 84, shared
+   memory; 86 and 104, the device-memory workspace), an RC ladder at np1 =
+   33 and 29 diodes in series (np1 = 34, the OP kernel's bias) under
+   compat and physics.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30, 32, 33, 34, 36) and each path of phases 22-24, 28, 31, 35 and 36
+29, 30, 32, 33, 34, 36) and each path of phases 22-24, 28, 31, 35-37
 runs with every kernel's launch count set to 0 just before and read just
 after.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -603,7 +618,8 @@ def ptxas_summary(log):
             # which tells gj_kernel from the source's gj_kernel_cu
             g = re.search(r"(?<=\d)(gj_kernel|stamped_block_kernel|"
                           r"ac_smem_kernel|stamped_warp_kernel|"
-                          r"gj_work_kernel|stamped_work_kernel)"
+                          r"gj_work_kernel|stamped_work_kernel|"
+                          r"ac_rows_kernel|ac_wide_kernel|ac_block_kernel)"
                           r"(?:ILb([01])E|ILi(\d+)E)?", entry)
             where = ""
             if g is not None and g.group(2):
@@ -2742,24 +2758,98 @@ def cw16_phase(lanes, smi, cut_lanes=GJ_LANES):
                  flops=main_flops, nbytes=main_bytes))
 
 
+@contextlib.contextmanager
+def override(name, value):
+    """An engine override (engine/overrides.py) set for the block alone."""
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+
+
+def ac_freqs(cc):
+    a = cc.netlist.ac
+    return ts.frequency_points(a.sweep, a.fstart, a.fstop, a.points)
+
+
+def ac_vs_plain(name, cc, params, axes, state0, freqs, main,
+                semantics="compat", chunk=None):
+    """The AC kernel against ac_plain on the inputs of the deck's fused AC
+    (make_ac_batch with a timed launch, counts not read; the kernel's time
+    the fastest of that launch and two more on its inputs): the kernel's x
+    and the main path's (xr, xi) bit for bit against ac_plain on the same
+    G, B^ and RHS, ``chunk`` instances at a time; torch.linalg.solve on
+    the same systems (build_systems) in the same chunks, as the library
+    yardstick.  Returns the figures for the bounds and the kernels line."""
+    tk = TimedSolve(ac.launch_ac_kernel)
+    kr, ki, _ = make_ac_batch(cc, axes, DEFAULTS, semantics, ac_solve=tk)(
+        params, state0, freqs)
+    g, bh, r, om = tk.args[0]
+    k_ms = min([tk.ms()] + [timed_call(ac.launch_ac_kernel, g, bh, r, om)[1]
+                            for _ in range(2)])
+    b, np1 = g.shape[0], g.shape[1]
+    n2, chunk = 2 * np1, chunk or g.shape[0]
+    xr, xi = main
+    p_ms = lib_ms = err = 0.0
+    bits = True
+    for i in range(0, b, chunk):
+        sl = slice(i, i + chunk)
+        xp, ms = timed_call(ac.ac_plain, g[sl], bh[sl], r[sl], om)
+        p_ms += ms
+        pairs = [("xr", kr[sl], xp[..., :np1]), ("xi", ki[sl], xp[..., np1:]),
+                 ("main xr", xr[sl], xp[..., :np1]),
+                 ("main xi", xi[sl], xp[..., np1:])]
+        err = max(err, max_err(name, pairs))
+        bits = bits and all(same_bits(a, b_) for _, a, b_ in pairs)
+        del xp, pairs
+        m = ac.build_systems(g[sl], bh[sl], r[sl], om)
+        a_, b_ = m[:, :, :n2].contiguous(), m[:, :, n2:].contiguous()
+        del m
+        if i == 0:
+            torch.linalg.solve(a_[:64], b_[:64])  # warm-up
+        _, ms = timed_call(torch.linalg.solve, a_, b_)
+        lib_ms += ms
+        del a_, b_
+    if not bits:
+        fail(f"{name}: the AC kernel's x is not bit-identical to ac_plain's")
+    nsys = b * len(freqs)
+    out = dict(err=err, k_ms=k_ms, p_ms=p_ms, lib_ms=lib_ms, systems=nsys,
+               n2=n2, flops=nsys * ac_flops(np1),
+               nbytes=nbytes(g, bh, r, om) + nsys * n2 * 8)
+    del kr, ki, g, bh, r, om, tk
+    free()
+    return out
+
+
+def ac_body(n2):
+    """The body the AC kernel runs on systems of 2N = n2 (csrc/ac_kernel.cu
+    tsr_ac)."""
+    if n2 <= 64:
+        return "a warp segment"
+    return solve.body(n2)
+
+
 def lc16_phase(lanes, smi, chunk=16384):
     """Phase 30: the main path lc16_ac_8192: a 16-section LC ladder (np1 =
-    36, a 72 x 72 AC system: past the AC kernel's 2np1 <= 64), C spread
-    0.1, through run_ac_batch: the linear OP as the bias (one launch of
-    the stamped solve's warp instantiation, n = 36), then one GJ launch
-    for the 8192 x 21 = 172,032 systems; |V(n16)| = 0.5 at 10 kHz.  Then
-    the GJ kernel against gj_plain on the same systems (in chunks), bit
-    for bit on every system, and torch.linalg.solve on them as the
-    yardstick."""
+    36, a 72 x 72 AC system), C spread 0.1, through run_ac_batch: the
+    linear OP as the bias (one launch of the stamped solve's warp
+    instantiation, n = 36), then one AC launch for the 8192 x 21 = 172,032
+    systems (a block a system, row i on thread i, gj_rows' bucket of 72),
+    no GJ launch; |V(n16)| = 0.5 at 10 kHz.  The AC kernel against ac_plain
+    on every system (in chunks of instances), torch.linalg.solve as the
+    yardstick.  Then the general branch (TOYSPICE_AC=general): one stamped
+    and one GJ launch, the GJ kernel against gj_plain on its 172,032 dense
+    systems (in chunks), bit for bit on every system, and its x against
+    the AC kernel's within rtol 2e-9 of the scale."""
     t0 = time.perf_counter()
     cc, _, params, axes, state0 = setup(lc_ladder(16), c_spread, lanes)
-    ap = cc.netlist.ac
-    freqs = ts.frequency_points(ap.sweep, ap.fstart, ap.fstop, ap.points)
+    freqs = ac_freqs(cc)
     if cc.np1 != 36 or len(freqs) != 21:
         fail("lc16: np1 is not 36 or the frequencies are not 21")
     fn = make_ac_batch(cc, axes)
-    if fn.engine != "general":
-        fail(f"lc16 AC engine {fn.engine!r}, expected 'general'")
+    if fn.engine != "fused":
+        fail(f"lc16 AC engine {fn.engine!r}, expected 'fused'")
     small = {k_: {kk: (v[:64] if v.ndim == 2 else v) for kk, v in t.items()}
              for k_, t in params.items()}
     fn(small, state0, freqs)  # warm-up
@@ -2771,7 +2861,7 @@ def lc16_phase(lanes, smi, chunk=16384):
     wall = time.perf_counter() - w0
     got = counts()
     check_counts("lc16 AC main path", got, {"stamped_solve": (1, 1),
-                                            "gj_kernel": (1, 1)})
+                                            "ac_kernel": (1, 1)})
     nf = len(freqs)
     out = cc.netlist.nodes["n16"]
     if xr.shape != (lanes, nf, cc.np1) or not bool(
@@ -2782,7 +2872,46 @@ def lc16_phase(lanes, smi, chunk=16384):
     mag = torch.sqrt(xr[:, :, out] ** 2 + xi[:, :, out] ** 2)
     if not bool(((mag[:, 0] - 0.5).abs() < 1e-4).all()):
         fail("lc16 AC: |V(n16)| at 10 kHz is not half the source")
-    del xr, xi
+    fused = ac_vs_plain("lc16 AC kernel", cc, params, axes, state0, freqs,
+                        (xr, xi), chunk=max(1, chunk // nf))
+    fused.update(launches=got["ac_kernel"], wall=wall)
+    phase("30 lc16_ac_8192 main path", t0,
+          f"lc16 (np1={cc.np1}): engine {fn.engine} ({fn.engine_reason}), "
+          f"stamped-solve launches={got['stamped_solve']}, AC kernel "
+          f"launches={got['ac_kernel']} for {fused['systems']} systems of "
+          f"{fused['n2']} ({ac_body(fused['n2'])}), no GJ launch, "
+          f"wall={wall:.6f} s, {fused['systems'] / wall:.6e} systems/s on "
+          f"{smi}; |V(n16)| {float(mag[:, 0].mean()):.6f} at 10 kHz, "
+          f"{float(mag[:, 10].mean()):.6f} at {freqs[10]:.6g} Hz, "
+          f"{float(mag[:, -1].max()):.3e} at 100 MHz; AC kernel "
+          f"{fused['k_ms']:.3f} ms, plain {fused['p_ms']:.1f} ms in chunks "
+          f"of {max(1, chunk // nf)} instances, bit-identical, max abs err "
+          f"{fused['err']:.3e}; torch.linalg.solve {fused['lib_ms']:.3f} ms "
+          "(same chunks)")
+
+    t0 = time.perf_counter()
+    with override("TOYSPICE_AC", "general"):
+        fg = make_ac_batch(cc, axes)
+        if fg.engine != "general":
+            fail(f"lc16 under TOYSPICE_AC=general: engine {fg.engine!r}")
+        fg(small, state0, freqs)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        w0 = time.perf_counter()
+        gr, gi, _ = ts.run_ac_batch(cc, params, axes, freqs)
+        torch.cuda.synchronize()
+        g_wall = time.perf_counter() - w0
+    g_got = counts()
+    check_counts("lc16 AC general branch", g_got, {"stamped_solve": (1, 1),
+                                                   "gj_kernel": (1, 1)})
+    scale = float(torch.maximum(xr.abs().max(), xi.abs().max()))
+    d = float(torch.maximum((gr - xr).abs().max(), (gi - xi).abs().max()))
+    if not (bool(torch.isfinite(gr).all() & torch.isfinite(gi).all())
+            and bool(((gr - xr).abs() <= 2e-9 * (xr.abs() + scale)).all())
+            and bool(((gi - xi).abs() <= 2e-9 * (xi.abs() + scale)).all())):
+        fail(f"lc16: the general branch's x differs from the AC kernel's "
+             f"beyond rtol 2e-9 of the scale (max abs {d:.3e})")
+    del xr, xi, gr, gi
     free()
     gk = TimedSolve(solve.linear_solve)
     kr, ki, _ = make_ac(cc, dense_solve=gk)(params, state0, freqs)
@@ -2803,24 +2932,24 @@ def lc16_phase(lanes, smi, chunk=16384):
     torch.linalg.solve(a2[:1024], b2[:1024])  # warm-up
     _, lib_ms = timed_call(torch.linalg.solve, a2, b2)
     nsys = a2.shape[0]
-    gj_ac = dict(launches=got["gj_kernel"], err=err, k_ms=k2_ms,
+    gj_ac = dict(launches=g_got["gj_kernel"], err=err, k_ms=k2_ms,
                  p_ms=p_ms, lib_ms=lib_ms, systems=nsys, n=a2.shape[1],
                  flops=nsys * lu_flops(a2.shape[1]),
                  nbytes=nbytes(a2, b2) + nbytes(b2))
-    phase("30 lc16_ac_8192 main path", t0,
-          f"lc16 (np1={cc.np1}): engine {fn.engine} ({fn.engine_reason}), "
-          f"stamped-solve launches={got['stamped_solve']}, GJ kernel "
-          f"launches={got['gj_kernel']} for {nsys} systems of "
-          f"{a2.shape[1]}, wall={wall:.6f} s, {nsys / wall:.6e} systems/s "
-          f"on {smi}; |V(n16)| {float(mag[:, 0].mean()):.6f} at 10 kHz, "
-          f"{float(mag[:, 10].mean()):.6f} at {freqs[10]:.6g} Hz, "
-          f"{float(mag[:, -1].max()):.3e} at 100 MHz; GJ kernel "
-          f"{k2_ms:.3f} ms (in the path {k_ms:.3f} ms), plain {p_ms:.1f} ms "
-          f"in chunks of {chunk}, max abs err {err:.3e}, bit-identical "
-          f"{bits}; torch.linalg.solve {lib_ms:.3f} ms")
+    phase("30 lc16_ac_8192 general branch", t0,
+          f"lc16 under TOYSPICE_AC=general: engine {fg.engine} "
+          f"({fg.engine_reason}), stamped-solve launches="
+          f"{g_got['stamped_solve']}, GJ kernel launches="
+          f"{g_got['gj_kernel']} for {nsys} systems of {a2.shape[1]}, "
+          f"wall={g_wall:.6f} s (the AC kernel's {wall:.6f} s), "
+          f"{nsys / g_wall:.6e} systems/s on {smi}; x within rtol 2e-9 of "
+          f"the AC kernel's (max abs diff {d:.3e}, scale {scale:.3e}); GJ "
+          f"kernel {k2_ms:.3f} ms (in the path {k_ms:.3f} ms), plain "
+          f"{p_ms:.1f} ms in chunks of {chunk}, max abs err {err:.3e}, "
+          f"bit-identical {bits}; torch.linalg.solve {lib_ms:.3f} ms")
     del a2, b2, x, gk
     free()
-    return gj_ac
+    return gj_ac, fused
 
 
 def diode_string(count):
@@ -3413,6 +3542,96 @@ Csmooth dcout 0 4.7u
 """
 
 
+# ------------------------------------------------ 37 the AC kernel's buckets
+# phase 37's decks: (name, deck, semantics), each through run_ac_batch at
+# 259 instances x 3 frequencies (counts reset before), then the AC kernel
+# against ac_plain: LC ladders at each bucket edge of csrc/ac_kernel.cu
+# (lc_ladder(k) has np1 = 2k + 4: 32 the warp body, 34 and 48 gj_rows'
+# buckets 72 and 96, 50 and 72 gj_wide's 127 and 144, 74 and 84 the
+# pointer body in shared memory, 86 and 104 on the device-memory
+# workspace), an RC ladder at np1 = 33 (odd), and 29 diodes in series (np1
+# = 34) biased by the OP kernel, compat and physics
+def rc_ladder_ac(stages):
+    """rc_ladder's network driven by an AC source (np1 = stages + 3), 3
+    frequencies from 1 kHz to 1 MHz."""
+    lines = [f"* {stages}-stage rc ladder, AC", ".ac dec 3 1k 1meg",
+             "Vin 1 0 AC 1"]
+    for k in range(1, stages + 1):
+        lines += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 1n"]
+    return "\n".join(lines) + "\n"
+
+
+def diode_string_ac(count):
+    """``count`` diodes in series from node 2 to ground behind 1 kΩ, a 10
+    pF capacitor across the string, 20 V DC with a 10 mV AC-only source in
+    series (the reference parser drops the AC part of "DC x AC y"): np1 =
+    count + 5 (tests/test_torch_ac_wide.py)."""
+    lines = [f"* {count} diodes in series, AC", ".ac DEC 3 10k 1000meg",
+             "Vdc s 0 DC 20", "Vin 1 s AC 0.01", "R1 1 2 1k", "C1 2 0 10p"]
+    lines += [f"D{k} {k + 2} {k + 3} DM" for k in range(count - 1)]
+    lines += [f"D{count - 1} {count + 1} 0 DM",
+              ".model DM D (Is=1e-14 N=1.2 Cj0=4p Vj=0.8 M=0.4)", ""]
+    return "\n".join(lines)
+
+
+AC_BUCKET_DECKS = [
+    (f"lc{k}", lc_ladder(k).replace(".ac dec 21 10k 100meg",
+                                    ".ac dec 3 10k 100meg"), "compat")
+    for k in (14, 15, 22, 23, 34, 35, 40, 41, 50)] + [
+    ("rc30", rc_ladder_ac(30), "compat"),
+    ("diodes29", diode_string_ac(29), "compat"),
+    ("diodes29_physics", diode_string_ac(29), "physics")]
+
+
+def ac_bucket_phase(lanes, smi):
+    """Phase 37: the AC kernel's buckets at ``lanes`` instances x 3
+    frequencies, each deck of AC_BUCKET_DECKS through run_ac_batch (engine
+    "fused"; one stamped launch, or the OP kernel's, then one AC launch; no
+    GJ launch; every bias converged, every x finite), then the AC kernel
+    against ac_plain on the same inputs, bit for bit, beside
+    torch.linalg.solve.  Returns each deck's figures by name."""
+    out = {}
+    for name, deck, semantics in AC_BUCKET_DECKS:
+        t0 = time.perf_counter()
+        cc, _, params, axes, state0 = setup(deck, c_spread, lanes)
+        freqs = ac_freqs(cc)
+        fn = make_ac_batch(cc, axes, DEFAULTS, semantics)
+        if fn.engine != "fused" or len(freqs) != 3:
+            fail(f"37 {name}: engine {fn.engine!r} ({fn.engine_reason}), "
+                 f"{len(freqs)} frequencies")
+        fn(params, state0, freqs)  # warm-up
+        bias = ({"op_kernel": (1, 1 << 30)} if fn.bias_engine == "fused"
+                else {"stamped_solve": (1, 1)})
+        torch.cuda.synchronize()
+        reset_counts()
+        w0 = time.perf_counter()
+        xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs,
+                                      semantics=semantics)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        got = counts()
+        check_counts(f"37 {name}", got, dict(bias, ac_kernel=(1, 1)))
+        if not (bool(opr.converged.all()) and bool(
+                torch.isfinite(xr).all() & torch.isfinite(xi).all())):
+            fail(f"37 {name}: a bias not converged or a value not finite")
+        r = ac_vs_plain(f"37 {name}", cc, params, axes, state0, freqs,
+                        (xr, xi), semantics)
+        r.update(launches=got["ac_kernel"], wall=wall, np1=cc.np1)
+        out[name] = r
+        phase("37 AC kernel buckets", t0,
+              f"{name} ({semantics}, np1={cc.np1}, 2N={r['n2']}: "
+              f"{ac_body(r['n2'])}): {lanes} x {len(freqs)} systems, "
+              f"bias {fn.bias_engine} ("
+              + ", ".join(f"{k} {c}" for k, c in got.items() if c)
+              + f"), wall={wall:.6f} s on {smi}; AC kernel "
+              f"{r['k_ms']:.3f} ms, plain {r['p_ms']:.1f} ms, bit-identical, "
+              f"max abs err {r['err']:.3e}; torch.linalg.solve "
+              f"{r['lib_ms']:.3f} ms")
+        del xr, xi, opr
+    free()
+    return out
+
+
 def compat_trap_phase(lanes):
     """Phase 31: compat under integration="trap" in the OP, the DC sweep
     and the AC (served as BE, as the JAX package serves them): each entry
@@ -3494,7 +3713,7 @@ def chunked(solve_fn, chunk):
     return run_
 
 
-def past_nbig_phase(lanes, smi):
+def past_nbig_phase(lanes, smi, main_lanes=BENCH_LANES):
     """Phase 32: decks past n = 128: a 127-stage RC ladder (np1 = 130)
     through make_tran_batch to 0.05 ms, engine "run" (one launch of the
     run kernel's block bucket, a block a lane, no other kernel; no lane
@@ -3506,11 +3725,14 @@ def past_nbig_phase(lanes, smi):
     launch per batched Newton iteration, no other kernel, counters equal
     to the run engine's and state within rtol 1e-9; and a 31-section LC
     ladder's AC (np1 = 66, 21 frequencies, systems of 132) through
-    run_ac_batch (the linear OP's stamped launch, one GJ launch); then the
-    general engine's kernels against their plain versions on the same
-    lanes, counters equal and bit for bit, and torch.linalg.solve on the
-    same systems.  Returns the stamped and GJ launches' figures and both
-    rc127 walls."""
+    run_ac_batch at ``main_lanes`` (lc31_ac_8192: the linear OP's stamped
+    launch, one AC launch of gj_wide's bucket of 144, no GJ launch; the AC
+    kernel against ac_plain on every system, in chunks) and, under
+    TOYSPICE_AC=general, at ``lanes`` (the linear OP's stamped launch, one
+    GJ launch); then the general engine's kernels against their plain
+    versions on the same lanes, counters equal and bit for bit, and
+    torch.linalg.solve on the same systems.  Returns the stamped, GJ and AC
+    launches' figures (rc127's walls with the stamped ones)."""
     t0 = time.perf_counter()
     cc, cfg, params, axes, state0 = setup(rc_ladder(127), c_spread, lanes)
     if cc.np1 != 130:
@@ -3621,14 +3843,13 @@ def past_nbig_phase(lanes, smi):
     free()
 
     t0 = time.perf_counter()
-    cc, _, params, axes, state0 = setup(lc_ladder(31), c_spread, lanes)
-    ap = cc.netlist.ac
-    freqs = ts.frequency_points(ap.sweep, ap.fstart, ap.fstop, ap.points)
+    cc, _, params, axes, state0 = setup(lc_ladder(31), c_spread, main_lanes)
+    freqs = ac_freqs(cc)
     if cc.np1 != 66 or len(freqs) != 21:
         fail("lc31: np1 is not 66 or the frequencies are not 21")
     fn = make_ac_batch(cc, axes)
-    if fn.engine != "general":
-        fail(f"lc31 AC engine {fn.engine!r}, expected 'general'")
+    if fn.engine != "fused":
+        fail(f"lc31 AC engine {fn.engine!r}, expected 'fused'")
     small = {k_: {kk: (v[:8] if v.ndim == 2 else v) for kk, v in t.items()}
              for k_, t in params.items()}
     fn(small, state0, freqs)  # warm-up
@@ -3639,10 +3860,54 @@ def past_nbig_phase(lanes, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
     got = counts()
-    check_counts("lc31 AC past 128", got, {"stamped_solve": (1, 1),
-                                            "gj_kernel": (1, 1)})
+    check_counts("lc31_ac_8192 main path", got, {"stamped_solve": (1, 1),
+                                                 "ac_kernel": (1, 1)})
     nf = len(freqs)
     node = cc.netlist.nodes["n31"]
+    if xr.shape != (main_lanes, nf, cc.np1) or not bool(
+            torch.isfinite(xr).all() & torch.isfinite(xi).all()) or not bool(
+                opr.converged.all()):
+        fail("lc31_ac_8192: wrong shape, a value not finite, or a bias not "
+             "converged")
+    mag = torch.sqrt(xr[:, :, node] ** 2 + xi[:, :, node] ** 2)
+    if not bool(((mag[:, 0] - 0.5).abs() < 1e-4).all()):
+        fail("lc31_ac_8192: |V(n31)| at 10 kHz is not half the source")
+    ac_wide = ac_vs_plain("lc31_ac_8192 AC kernel", cc, params, axes, state0,
+                          freqs, (xr, xi), chunk=4096 // nf)
+    ac_wide.update(launches=got["ac_kernel"], wall=wall)
+    phase("32 lc31_ac_8192 main path", t0,
+          f"lc31 (np1={cc.np1}), {main_lanes} lanes: engine {fn.engine} "
+          f"({fn.engine_reason}), stamped-solve launches="
+          f"{got['stamped_solve']}, AC kernel launches={got['ac_kernel']} "
+          f"for {ac_wide['systems']} systems of {ac_wide['n2']} "
+          f"({ac_body(ac_wide['n2'])}), no GJ launch, wall={wall:.6f} s, "
+          f"{ac_wide['systems'] / wall:.6e} systems/s on {smi}; |V(n31)| "
+          f"{float(mag[:, 0].mean()):.6f} at 10 kHz; AC kernel "
+          f"{ac_wide['k_ms']:.3f} ms, plain {ac_wide['p_ms']:.1f} ms in "
+          f"chunks of {4096 // nf} instances, bit-identical, max abs err "
+          f"{ac_wide['err']:.3e}; torch.linalg.solve "
+          f"{ac_wide['lib_ms']:.3f} ms (same chunks)")
+    del xr, xi, opr, mag
+    free()
+
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(lc_ladder(31), c_spread, lanes)
+    with override("TOYSPICE_AC", "general"):
+        fn = make_ac_batch(cc, axes)
+        if fn.engine != "general":
+            fail(f"lc31 under TOYSPICE_AC=general: engine {fn.engine!r}")
+        small = {k_: {kk: (v[:8] if v.ndim == 2 else v)
+                      for kk, v in t.items()} for k_, t in params.items()}
+        fn(small, state0, freqs)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        w0 = time.perf_counter()
+        xr, xi, opr = ts.run_ac_batch(cc, params, axes, freqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("lc31 AC past 128", got, {"stamped_solve": (1, 1),
+                                            "gj_kernel": (1, 1)})
     if xr.shape != (lanes, nf, cc.np1) or not bool(
             torch.isfinite(xr).all() & torch.isfinite(xi).all()) or not bool(
                 opr.converged.all()):
@@ -3681,7 +3946,8 @@ def past_nbig_phase(lanes, smi):
                   flops=nsys * lu_flops(a2.shape[1]),
                   nbytes=nbytes(a2, b2) + nbytes(b2))
     phase("32 lc31 AC past 128", t0,
-          f"lc31 (np1={cc.np1}): engine {fn.engine} ({fn.engine_reason}), "
+          f"lc31 (np1={cc.np1}), {lanes} lanes under TOYSPICE_AC=general: "
+          f"engine {fn.engine} ({fn.engine_reason}), "
           f"stamped-solve launches={got['stamped_solve']}, GJ kernel "
           f"launches={got['gj_kernel']} for {nsys} systems of "
           f"{a2.shape[1]} ({solve.body(a2.shape[1])}), wall={wall:.6f} s, "
@@ -3694,7 +3960,7 @@ def past_nbig_phase(lanes, smi):
           f"{lib_ms:.3f} ms")
     del a2, b2, gk, sk, gp
     free()
-    return st_big, gj_big
+    return st_big, gj_big, ac_wide
 
 
 # ------------------------------------------------ 33 the user surface
@@ -4108,10 +4374,10 @@ def mesh_phase(smi, bench_none, bench_wall, bench_overrides, lanes):
                              "ac_kernel": (1, 1)}, 4)
     free()
     # lc16's 21 frequencies do not split over 2 columns: a (2, 3) mesh
-    pair("lc16_ac_8192 (the stamped solve and the GJ kernel), a (2, 3) "
+    pair("lc16_ac_8192 (the stamped solve and the AC kernel), a (2, 3) "
          "mesh", lc_ladder(16), c_spread, BENCH_LANES,
          *ac_runs(on_card(home, 2, 3)),
-         {"stamped_solve": (1, 1), "gj_kernel": (1, 1)}, 6)
+         {"stamped_solve": (1, 1), "ac_kernel": (1, 1)}, 6)
     free()
 
     def store_runs(c, f, p, a):
@@ -4495,13 +4761,14 @@ def main():
     gen_err = general_vs_run_phase(SMALL_LANES)
     stamped_big, gj_seed, run_wide, op_wide, cw16 = cw16_phase(BENCH_LANES,
                                                                smi)
-    gj_ac = lc16_phase(BENCH_LANES, smi)
+    gj_ac, ac_rows = lc16_phase(BENCH_LANES, smi)
     compat_trap_phase(1024)
-    st_work, gj_work = past_nbig_phase(1024, smi)
+    st_work, gj_work, ac_wide = past_nbig_phase(1024, smi)
     st_single, gj_single = user_surface_phase(smi)
     mesh_phase(smi, bench_none, bench_wall, bench_overrides, 1024)
     wide = wide_phase(GJ_LANES, BENCH_LANES, smi)
     block = block_phase(GJ_LANES, BENCH_LANES, smi, st_work)
+    ac_buckets = ac_bucket_phase(GJ_LANES, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -4600,6 +4867,19 @@ def main():
           f"{ac_main['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
           f"{ac_bound[3]:.6f} ms", flush=True)
 
+    ac_bounds = {}
+    for key, what, label in (
+            ("rows", ac_rows, "lc16_ac_8192's main path"),
+            ("wide", ac_wide, "lc31_ac_8192's main path")) + tuple(
+            (name, r, f"phase 37's {name}, np1 = {r['np1']}")
+            for name, r in ac_buckets.items()):
+        ac_bounds[key] = bd = bound(what["flops"], what["nbytes"])
+        print(f"[17 bound] ac_kernel {ac_body(what['n2'])} ({label}, "
+              f"{what['systems']} systems of {what['n2']}, kernel "
+              f"{what['k_ms']:.3f} ms): {what['flops']} f64 operations / "
+              f"{PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; {what['nbytes']} bytes "
+              f"/ {PEAK_BYTES:.3g} B/s = {bd[3]:.6f} ms", flush=True)
+
     mag_bound = bound(mag["flops"], mag["nbytes"])
     mp_ = mag["plan"]
     print(f"[17 bound] run_kernel physics magnetic (saturating_transformer, "
@@ -4668,7 +4948,8 @@ def main():
     gj_bytes = gj_seed["nbytes"] + gj_ac["nbytes"]
     gj_bound = bound(gj_flops, gj_bytes)
     print(f"[17 bound] gj_kernel (cw16_8192's seed, {gj_seed['systems']} "
-          f"systems of {gj_seed['n']}, and lc16_ac_8192, "
+          f"systems of {gj_seed['n']}, and lc16_ac_8192 under "
+          f"TOYSPICE_AC=general, "
           f"{gj_ac['systems']} systems of {gj_ac['n']}): {gj_flops} f64 "
           f"operations / {PEAK_F64:.3g} op/s = {gj_bound[2]:.6f} ms; "
           f"{gj_bytes} bytes / {PEAK_BYTES:.3g} B/s = {gj_bound[3]:.6f} ms; "
@@ -4785,8 +5066,18 @@ def main():
               phys_dc["err"], phys_dc["k_ms"], phys_dc["p_ms"], pdc_bound),
         entry("ac_kernel", "toyspice_tpu_torch/csrc/ac_kernel.cu",
               "toyspice_tpu/ops/pallas_ac.py:102", ac_main["launches"],
-              max(ac_main["err"], mag_ac_err), ac_main["k_ms"],
-              ac_main["p_ms"], ac_bound, ac_main["lib_ms"]),
+              max(ac_main["err"], mag_ac_err, ac_buckets["lc14"]["err"]),
+              ac_main["k_ms"], ac_main["p_ms"], ac_bound, ac_main["lib_ms"]),
+    ] + [entry(f"ac_kernel_{key}", "toyspice_tpu_torch/csrc/ac_kernel.cu",
+               "toyspice_tpu/ops/pallas_ac.py:102", what["launches"],
+               max([what["err"]] + [ac_buckets[n_]["err"] for n_ in more]),
+               what["k_ms"], what["p_ms"], ac_bounds[bkey], what["lib_ms"])
+         for key, what, bkey, more in (
+             ("rows", ac_rows, "rows", ("lc15", "lc22", "rc30", "diodes29",
+                                        "diodes29_physics")),
+             ("wide", ac_wide, "wide", ("lc23", "lc34")),
+             ("shared", ac_buckets["lc40"], "lc40", ("lc35",)),
+             ("device_memory", ac_buckets["lc50"], "lc50", ("lc41",)))] + [
         entry("run_kernel_physics_magnetic", mag_src,
               "toyspice_tpu/ops/pallas_run.py:652", mag["launches"],
               max(mag["err"], mag_run_err), mag["k_ms"], mag["p_ms"],

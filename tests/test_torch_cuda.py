@@ -467,6 +467,40 @@ def test_ac_warp_kernel_is_bit_identical(cuda, np1):
     assert bool(torch.isnan(k[bad]).all())
 
 
+@pytest.mark.parametrize("np1", [33, 48, 49, 72, 73, 84, 85, 100])
+def test_ac_block_kernel_is_bit_identical(cuda, np1):
+    """The AC kernel past 2np1 = 64 (a block per system, csrc/gj_block.cuh's
+    bodies) at every bucket edge: a row a thread to 2np1 = 96 (buckets 72
+    and 96), the registers of a 512-thread block to 144 (buckets 127 and
+    144), shared memory to 168, the device-memory workspace past it; 259
+    instances x 3 frequencies, with a tie in |pivot|, a zero pivot, a NaN
+    column, an all-zero (singular) system and an integer instance with
+    ties in every column: torch.equal with the plain version."""
+    rng = np.random.default_rng(np1)
+    g = rng.normal(size=(259, np1, np1)) + 3.0 * np.eye(np1)
+    bh = rng.normal(size=(259, np1, np1)) * 1e-3
+    r = rng.normal(size=(259, 2 * np1))
+    g[1, :, 0] = 0.0
+    g[1, 0, 0], g[1, 1, 0] = 2.0, -2.0  # a tie in column 0
+    bh[1, :, 0] = 0.0
+    g[2, 1, :] = 0.0  # a zero row: a zero pivot
+    bh[2, 1, :] = 0.0
+    g[3, :, 1] = np.nan  # a NaN column
+    g[4], bh[4], r[4] = 0.0, 0.0, 0.0  # singular
+    g[5], bh[5] = np.round(2.0 * g[5]), np.round(1e3 * bh[5])  # ties
+    args = [torch.as_tensor(v, device=cuda) for v in (g, bh, r)]
+    freqs = np.array([0.0, 10.0, 1e4])
+    before = ac.launch_ac_kernel.launches
+    k = ac.ac_solve_batch(*args, freqs)
+    torch.cuda.synchronize()
+    assert ac.launch_ac_kernel.launches == before + 1
+    p = ac.ac_solve_batch(*args, freqs, solve=ac.ac_plain)
+    assert _same_bits(k, p)
+    bad = ~torch.isfinite(p).all(dim=2)
+    assert bool(bad[2:5].all()) and not bool(bad[[0, 1, 5, 258]].any())
+    assert bool(torch.isnan(k[bad]).all())
+
+
 def test_ac_main_path_runs_the_op_and_ac_kernels(cuda):
     deck = """Common-emitter amplifier frequency response
 .ac DEC 12 20 2meg

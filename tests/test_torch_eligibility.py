@@ -305,16 +305,27 @@ def _ac(text):
 @pytest.mark.parametrize("text,kw,reason", [
     (_deck("ce_amplifier_ac.cir"), {"semantics": "bogus"},
      "semantics='bogus'"),
-    (_ac(_ladder(30)), {}, "np1=33 exceeds the AC kernel's matrix cap of 32"),
+    (_ac(_ladder(30)), {}, None),
     (_ac(_diode_bank(719)), {}, TABLE_CAP),
 ], ids=["physics", "np1_cap", "device_cap"])
 def test_ac_ineligible_raises_with_reason(text, kw, reason):
-    """The AC kernel's reasons; past its caps the general AC takes the
-    deck (engine "general"), and what neither serves raises."""
+    """The AC kernel's reasons; past the bias's caps the general AC takes
+    the deck (engine "general"), and what neither serves raises.  The AC
+    kernel has no np1 cap: a deck of np1 = 33 takes it (engine "fused")."""
     from toyspice_tpu_torch.engine.ac import make_ac_batch
     from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
 
     cc = ts.compile_circuit(ts.parse(text))
+    if reason is None:
+        assert cc.np1 == 33 and ac_ineligible_reason(cc, **kw) is None
+        fn = make_ac_batch(cc, None, **kw)
+        assert fn.engine == "fused" and "AC kernel eligible" in \
+            fn.engine_reason
+        xr, xi, opr = ts.run_ac_batch(cc, ts.batch_params(
+            cc, {}, device="cpu")[0], None, [1e3], **kw)
+        assert xr.shape == (1, 1, cc.np1) and bool(opr.converged.all())
+        assert bool(torch.isfinite(xr).all() & torch.isfinite(xi).all())
+        return
     assert reason in ac_ineligible_reason(cc, **kw)
     if "cap" in reason:
         fn = make_ac_batch(cc, None, **kw)
@@ -332,10 +343,15 @@ def test_ac_ineligible_raises_with_reason(text, kw, reason):
 
 
 def test_ac_np1_cap_boundary():
+    """No np1 cap: the warp bodies' last size (32), the block bodies'
+    first (33), lc16's 36 and lc31's 66 all take the AC kernel."""
+    from toyspice_tpu_torch.engine.ac import make_ac_batch
     from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
 
-    ok = ts.compile_circuit(ts.parse(_ac(_ladder(29))))
-    assert ok.np1 == 32 and ac_ineligible_reason(ok) is None
+    for stages, np1 in ((29, 32), (30, 33), (33, 36), (63, 66)):
+        ok = ts.compile_circuit(ts.parse(_ac(_ladder(stages))))
+        assert ok.np1 == np1 and ac_ineligible_reason(ok) is None
+        assert make_ac_batch(ok, None).engine == "fused"
 
 
 @pytest.mark.parametrize("text,kw,reason", [

@@ -14,8 +14,9 @@ kernels' caps, through the user's entry points, against the JAX package:
   ``select_op_engine`` gives "general", and ``run_op_batch`` and
   ``run_dc_batch`` run it;
 * the AC of a 16-section LC ladder (a 72 x 72 system): ``make_ac_batch``
-  gives "general", and the ladder passes half the source to its load up to
-  1 MHz and nothing far above its cutoff."""
+  gives "fused" (the AC kernel takes every np1), and "general" under
+  ``TOYSPICE_AC=general``; on both the ladder passes half the source to
+  its load up to 1 MHz and nothing far above its cutoff."""
 
 import numpy as np
 import pytest
@@ -107,20 +108,28 @@ def test_op_and_dc_past_the_device_cap_take_the_general_engine():
     torch.testing.assert_close(xs[:, 2], op.x, rtol=1e-6, atol=1e-9)
 
 
-def test_lc16_ac_takes_the_general_engine():
+def test_lc16_ac_takes_the_general_engine(monkeypatch):
+    """lc16 takes the AC kernel ("fused") by default and the general
+    branch under TOYSPICE_AC=general."""
     deck = lc_ladder(16)
     cc = ts.compile_circuit(ts.parse(deck))
     assert cc.np1 == 36 and 2 * cc.np1 <= NBIG
-    fn = make_ac_batch(cc, None)
-    assert fn.engine == "general"
-    assert "np1=36 exceeds the AC kernel's matrix cap of 32" in \
-        fn.engine_reason
     ap = cc.netlist.ac
     freqs = ts.frequency_points(ap.sweep, ap.fstart, ap.fstop, ap.points)
     assert len(freqs) == 21
     params, _ = ts.batch_params(cc, {}, device="cpu")
-    xr, xi, opr = fn(params, ts.init_state(cc, device="cpu"), freqs)
     out = cc.netlist.nodes["n16"]
-    mag = torch.sqrt(xr[0, :, out] ** 2 + xi[0, :, out] ** 2).numpy()
-    assert np.allclose(mag[freqs <= 1e6], 0.5, atol=1e-3)
-    assert mag[freqs >= 3e7].max() < 1e-3
+    for env, engine, reason in ((None, "fused", "AC kernel eligible"),
+                                ("general", "general",
+                                 "TOYSPICE_AC=general override")):
+        if env is None:
+            monkeypatch.delenv("TOYSPICE_AC", raising=False)
+        else:
+            monkeypatch.setenv("TOYSPICE_AC", env)
+        fn = make_ac_batch(cc, None)
+        assert fn.engine == engine and reason in fn.engine_reason
+        xr, xi, opr = fn(params, ts.init_state(cc, device="cpu"), freqs)
+        assert bool(opr.converged.all())
+        mag = torch.sqrt(xr[0, :, out] ** 2 + xi[0, :, out] ** 2).numpy()
+        assert np.allclose(mag[freqs <= 1e6], 0.5, atol=1e-3)
+        assert mag[freqs >= 3e7].max() < 1e-3

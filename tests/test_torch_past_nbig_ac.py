@@ -1,11 +1,13 @@
-"""The general AC past n = 128 on the CPU: a 31-section LC ladder (np1 =
-66, so (132, 132) AC systems, the GJ kernel's wide register body), 2
-lanes with C spread log-normally by 0.1, three frequencies, through
-``run_ac_batch`` (engine "general": the linear OP's stamped solve as the
-bias, then one dense solve of every (lane, frequency) system), against
-the JAX package's ``run_ac_batch`` (which on the CPU takes its general
-branch) on the same numpy inputs: converged equal, xr and xi within rtol
-1e-9 of their scale."""
+"""The AC past n = 128 on the CPU: a 31-section LC ladder (np1 = 66, so
+(132, 132) AC systems: on the card the AC kernel's wide register body,
+and under ``TOYSPICE_AC=general`` the GJ kernel's), 2 lanes with C spread
+log-normally by 0.1, three frequencies, through ``run_ac_batch`` (engine
+"fused": the linear OP's stamped solve as the bias, then one AC solve of
+every (lane, frequency) system, the AC kernel's plain version) and
+through the general branch (one dense solve of the assembled systems),
+each against the JAX package's ``run_ac_batch`` (which on the CPU takes
+its general branch), computed once, on the same numpy inputs: converged
+equal, xr and xi within rtol 1e-9 of their scale."""
 
 import numpy as np
 
@@ -27,7 +29,7 @@ from test_torch_run import RTOL
 LANES = 2
 
 
-def test_past_nbig_ac_matches_jax():
+def test_past_nbig_ac_matches_jax(monkeypatch):
     deck = lc_ladder(31).replace(".ac dec 21 10k 100meg",
                                  ".ac dec 3 10k 100meg")
     cc = jax_compile(jax_parse(deck))
@@ -44,18 +46,23 @@ def test_past_nbig_ac_matches_jax():
                  for k, t in params.items()}
     pc = ts.compile_circuit(ts.parse(deck))
     assert pc.np1 == 66
-    assert make_ac_batch(pc).engine == "general"
-    xr, xi, out = ts.run_ac_batch(pc, params_from_numpy(params_np,
-                                                        device="cpu"),
-                                  None, freqs)
-    np.testing.assert_array_equal(out.converged.numpy(),
-                                  np.asarray(opr.converged))
-    assert bool(out.converged.all())
     xr_ref, xi_ref = np.asarray(xr_ref), np.asarray(xi_ref)
-    assert xr.shape == xr_ref.shape == (LANES, 3, 66)
     scale = max(np.abs(xr_ref).max(), np.abs(xi_ref).max())
-    np.testing.assert_allclose(xr.numpy(), xr_ref, rtol=RTOL,
-                               atol=RTOL * scale)
-    np.testing.assert_allclose(xi.numpy(), xi_ref, rtol=RTOL,
-                               atol=RTOL * scale)
     assert float(np.abs(xi_ref).max()) > 0
+    for env, engine in ((None, "fused"), ("general", "general")):
+        if env is None:
+            monkeypatch.delenv("TOYSPICE_AC", raising=False)
+        else:
+            monkeypatch.setenv("TOYSPICE_AC", env)
+        assert make_ac_batch(pc).engine == engine
+        xr, xi, out = ts.run_ac_batch(pc, params_from_numpy(params_np,
+                                                            device="cpu"),
+                                      None, freqs)
+        np.testing.assert_array_equal(out.converged.numpy(),
+                                      np.asarray(opr.converged))
+        assert bool(out.converged.all())
+        assert xr.shape == xr_ref.shape == (LANES, 3, 66)
+        np.testing.assert_allclose(xr.numpy(), xr_ref, rtol=RTOL,
+                                   atol=RTOL * scale)
+        np.testing.assert_allclose(xi.numpy(), xi_ref, rtol=RTOL,
+                                   atol=RTOL * scale)

@@ -4,15 +4,16 @@ ac.go): the bias point first, then one solve per (instance, frequency).
 The frequency grid reproduces the reference, including its quirk that
 ``numPoints`` is the TOTAL point count for DEC, OCT and LIN alike
 (ac.go:100-126).  ``make_ac_batch`` takes the JAX package's fused layout
-where the AC kernel serves the deck: the AC system is exactly linear in
-omega, so one assemble per instance at omega = 1 gives G and B^, and one
-launch of the AC kernel (``ops/ac.py``) builds and solves every
-(instance, frequency) system.  Elsewhere (np1 past the AC kernel's 32, or
-a bias the OP kernel does not serve) it takes the general branch,
-``make_ac``: the general OP as the bias, the dense (2np1, 2np1) system of
-every (instance, frequency) assembled at its own omega
-(``assemble_system_ac``), and one dense solve of all B·F systems
-(``ops/solve.linear_solve``; on the card ``csrc/gj_kernel.cu``).
+where the AC kernel serves the deck, as the JAX package does at every
+np1: the AC system is exactly linear in omega, so one assemble per
+instance at omega = 1 gives G and B^, and one launch of the AC kernel
+(``ops/ac.py``) builds and solves every (instance, frequency) system,
+with no (B, F, 2np1, 2np1) tensor in memory.  Where the bias is one the
+OP kernel does not serve (its caps), or under ``TOYSPICE_AC=general``, it
+takes the general branch, ``make_ac``: the general OP as the bias, the
+dense (2np1, 2np1) system of every (instance, frequency) assembled at its
+own omega (``assemble_system_ac``), and one dense solve of all B·F
+systems (``ops/solve.linear_solve``; on the card ``csrc/gj_kernel.cu``).
 """
 
 import math
@@ -85,8 +86,9 @@ def make_ac_batch(cc, in_axes=None, opts: SimOptions = DEFAULTS,
     ``.engine_reason``, and ``.bias_engine`` (the OP's, as
     ``engine/batch.select_op_engine`` names it).  Fused: one
     ``assemble_ac_blocks`` of every instance at freq = 1/(2 pi) and one
-    AC solve of every (instance, frequency) pair.  General: ``make_ac``'s
-    dense systems, where the AC kernel does not serve the deck, under
+    AC solve of every (instance, frequency) pair, at any np1.  General:
+    ``make_ac``'s dense systems, where the OP kernel does not serve a
+    nonlinear deck's bias (``ops/ac.ac_ineligible_reason``), under
     ``TOYSPICE_AC=general``, and under ``TOYSPICE_SOLVER=xla`` unless
     ``TOYSPICE_AC=fused``.  The bias is the OP kernel under its rescue
     ladders on a nonlinear deck (``ops/op.make_op_fused``), else

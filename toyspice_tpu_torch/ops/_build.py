@@ -12,9 +12,10 @@ alone, as a library of its own;
 ``csrc/ac_kernel.cu``, the stamped solve's systems of 33 to 64 and every
 warp segment of ``csrc/newton.cuh`` and ``csrc/run_kernel.cuh``, on
 ``csrc/gj_warp.cuh``; ``csrc/gj_kernel.cu``, and the stamped solve's
-systems past 64, on ``csrc/gj_block.cuh``) with one ``nvcc`` call to a
-shared library with a plain C entry point (no PyTorch headers, so a build
-takes seconds); the calls for every missing library start together.  A
+and the AC kernel's systems past 64, on ``csrc/gj_block.cuh``) with one
+``nvcc`` call to a shared library with a plain C entry point (no PyTorch
+headers, so a build takes seconds); the calls for every missing library
+start together.  A
 library goes to ``toyspice_tpu_torch/_build/``, named by a hash of its
 source, the shared header and the flags, so an edited source builds anew
 and an unchanged one loads.  A missing ``nvcc`` or a failed build raises:
@@ -188,8 +189,8 @@ _ARGTYPES = {
     #              max_iter, gmin_floor, physics, work, work_len, stream)
     "dc": (("tsr_dc_sweep", "ipii" + "p" * 3 + "qi" + "p" * 3
             + "iddidi" + "pqp"),),
-    # tsr_ac(np1, nb, nf, g, bh, r, omega, x, stream)
-    "ac": (("tsr_ac", "iii" + "p" * 5 + "p"),),
+    # tsr_ac(np1, nb, nf, g, bh, r, omega, x, work, work_len, stream)
+    "ac": (("tsr_ac", "iii" + "p" * 5 + "pqp"),),
     # tsr_gj(n, a, b, x, nsys, work, work_len, stream)
     "gj": (("tsr_gj", "ipppqpqp"),),
 }

@@ -8,10 +8,15 @@ B^ (B, N, N) and the RHS (B, 2N); per lane b·F + f the solve builds
 [[G, -omega B^], [omega B^, G]] with omega = 2 pi freqs[f] and eliminates
 the real 2N system with the kernels' pivot rule.
 
-* ``launch_ac_kernel``: the wrapper of ``csrc/ac_kernel.cu`` (a segment of
-  16 or 32 lanes of a warp per system, f64; G, B^ and the RHS read once
-  per instance); it counts its launches in ``.launches``.
-* ``ac_plain``: the same arithmetic as batched torch operations.
+* ``launch_ac_kernel``: the wrapper of ``csrc/ac_kernel.cu`` (f64, every
+  np1: to 2N = 64 a segment of 16 or 32 lanes of a warp per system; past
+  it a block per system on ``csrc/gj_block.cuh``'s bodies, the GJ
+  kernel's, chosen by 2N as ``ops/solve.py body`` names them, past NBIG
+  = 168 on a workspace in device memory, ``ops/solve.py work_for``; G, B^
+  and the RHS read once per instance); it counts its launches in
+  ``.launches``.
+* ``ac_plain``: the same arithmetic as batched torch operations, at every
+  size.
 * ``ac_solve_batch``: the kernel for CUDA tensors, the plain version for
   CPU tensors.
 """
@@ -24,16 +29,16 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 from .op import op_fused_ineligible_reason
 from .run_plan import SLICE_KINDS, nonlinear, semantics_reason
+from .solve import work_args, work_for
 
 F64 = torch.float64
-# the largest np1 the AC kernel is compiled for: its 2np1 system on a warp
-# segment of N2MAX = 16, 32 or 64 slots (csrc/ac_kernel.cu)
-AC_NP1_CAP = 32
 
 
 def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT run the port's AC (its bias and the AC
-    kernel); None when it can."""
+    kernel); None when it can.  The AC kernel takes every np1, as the
+    JAX package's ``ac_fused_ineligible_reason`` does; a nonlinear deck's
+    bias is the OP kernel's, with its caps."""
     why = semantics_reason(semantics)
     if why is not None:
         return why
@@ -41,9 +46,6 @@ def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     if extra:
         return (f"device kinds {sorted(extra)} are not ported (the port "
                 "runs R, C, L, LM, K, V, I, D, Q and M)")
-    if cc.np1 > AC_NP1_CAP:
-        return (f"np1={cc.np1} exceeds the AC kernel's matrix cap of "
-                f"{AC_NP1_CAP} (a 2np1 system)")
     if nonlinear(cc):  # the bias is the OP kernel's
         return op_fused_ineligible_reason(cc, semantics, opts)
     return None
@@ -72,15 +74,16 @@ def launch_ac_kernel(g, bh, r, omega):
         raise ValueError("launch_ac_kernel needs CUDA tensors")
     _check(g, bh, r, omega)
     b, n, nf = g.shape[0], g.shape[1], omega.shape[0]
-    if n > AC_NP1_CAP:
-        raise ValueError(f"np1={n} exceeds the AC kernel's matrix cap of "
-                         f"{AC_NP1_CAP}")
+    if n < 1:
+        raise ValueError("the systems are empty (np1 = 0)")
     lib = _build.load("ac")
     x = torch.empty((b, nf, 2 * n), dtype=F64, device=g.device)
+    work = work_for(2 * n, b * nf, g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.tsr_ac(n, b, nf, g.data_ptr(), bh.data_ptr(), r.data_ptr(),
-                         omega.data_ptr(), x.data_ptr(), stream)
+                         omega.data_ptr(), x.data_ptr(), *work_args(work),
+                         stream)
     if err != 0:
         raise RuntimeError(f"AC kernel launch failed: CUDA error {err} "
                            f"({_build.error_string(err, 'ac')})")
