@@ -57,6 +57,16 @@ beside another run flag.  ``--floor`` first writes ``_var_floor/``
 register body switched off (csrc/gj_block.cuh GJ_NWIDE = GJ_NREG), so
 that 97 <= n <= 168 runs the shared-memory body at 512 threads, the floor
 the register body has to beat; name ``_var_floor`` among the checkouts.
+``--cmos101`` times the run launch of the 101-stage CMOS ring (np1 = 104,
+a table of 187 KB beside a block slice of 126 KB) at 259 lanes over its
+first 0.2 ns and prints where the checkout keeps the table and the slice;
+``--ladder`` times the run launch of a 157-stage RC ladder (np1 = 160,
+a table of 10,437 words beside a block slice of 26,402 doubles: they do
+not fit a block's shared memory together, though the kernels took the
+deck before the table's placement existed) at 8192 lanes, R and C
+spread, and prints the same.  ``--place`` first writes ``_var_place/``,
+this checkout with the block bucket's other placement (csrc/newton.cuh
+and ops/run.py BLOCK_SLICE_FIRST flipped), to name among the checkouts.
 
     python3 ab_run_kernel.py _parent . . _parent
     python3 ab_run_kernel.py --gj _parent . . _parent
@@ -70,6 +80,9 @@ the register body has to beat; name ``_var_floor`` among the checkouts.
         _parent . . _parent
     python3 ab_run_kernel.py --opdc --reps 10 _parent . . _parent
     python3 ab_run_kernel.py --opdc --rectifier --physics _parent . . _parent
+    python3 ab_run_kernel.py --cmos101 --place . _var_place _var_place .
+    python3 ab_run_kernel.py --ladder --place _parent . _var_place \
+        _var_place . _parent
 
 The run flags may be given together: each checkout then times each of
 the named runs in turn (bench.py's deck through the run kernel first
@@ -626,6 +639,62 @@ def lmdiode_case(root, ts, run, reps, lanes=256):
               f"{int(k.nr_iters.sum())}, kernel ms {ms}", flush=True)
 
 
+def cmos_ring(stages, tstop):
+    """chip_smoke.py's level-1 CMOS ring of ``stages`` inverters."""
+    lines = ["* ring", f".tran 10p {tstop}", "VDD vdd 0 DC 1.8",
+             "IK n0 0 PULSE(0 100u 0 50p 50p 100p 1)"]
+    for i in range(stages):
+        out = f"n{(i + 1) % stages}"
+        lines += [f"MP{i} {out} n{i} vdd vdd PM W=2u L=0.18u",
+                  f"MN{i} {out} n{i} 0 0 NM W=1u L=0.18u",
+                  f"CL{i} {out} 0 5f"]
+    lines += [".model NM NMOS(LEVEL=1 VTO=0.5 KP=200u)",
+              ".model PM PMOS(LEVEL=1 VTO=-0.5 KP=80u)"]
+    return "\n".join(lines) + "\n"
+
+
+def rc_ladder(stages):
+    """chip_smoke.py's RC ladder of ``stages`` stages (np1 = stages + 3),
+    to 0.05 ms."""
+    lines = [f"* {stages}-stage rc ladder", ".tran 0.01m 0.05m",
+             "Vin 1 0 SIN(0 1 1k)"]
+    for k in range(1, stages + 1):
+        lines += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 1n"]
+    return "\n".join(lines) + "\n"
+
+
+def placed_case(root, ts, run, reps, mode):
+    """``mode`` "cmos101": the 101-stage CMOS ring (np1 = 104, 202
+    MOSFETs, a table of 187 KB and a block slice of 126 KB that do not fit
+    a block's shared memory together) at 259 lanes, C spread, over its
+    first 0.2 ns from its OP's junction voltages; "ladder": the 157-stage
+    RC ladder (np1 = 160) at 8192 lanes, R and C spread.  The run launch's
+    time, and where the checkout keeps the table and the slice
+    (``run.segment_shape``; a checkout with no table placement keeps the
+    table in shared memory)."""
+    if mode == "cmos101":
+        name, deck, keys, lanes = ("cmos_ring101 (259 lanes, the first 0.2 "
+                                   "ns)", cmos_ring(101, "0.2n"), ("C",), 259)
+    else:
+        name, deck, keys, lanes = ("rc_ladder157 (np1 = 160, 8192 lanes)",
+                                   rc_ladder(157), ("R", "C"), LANES)
+    cc = ts.compile_circuit(ts.parse(deck))
+    tp = cc.netlist.tran
+    cfg = ts.build_config(tp.tstart, tp.tstop, tp.tstep, tp.tmax, tp.uic)
+    params, _ = spread_params(ts, cc, keys, lanes)
+    r = run.run_inputs(cc, cfg, params, ts.init_state(cc))
+    shape = run.segment_shape(r.plan, lanes)
+    table = shape[6] if len(shape) > 6 else 1
+    k, ms = event_ms(lambda: run.launch_run_kernel(r.plan, r.dev, r.src,
+                                                   r.st, r.sc, r.jv), reps)
+    print(f"{root}: {name}: table in {'shared' if table else 'device'} "
+          f"memory, slice in {'device' if shape[5] else 'shared'} memory "
+          f"({shape[4]} B of shared memory a block); accepted "
+          f"{int(k.accepted.sum())}, attempts {int(k.attempts.sum())}, "
+          f"Newton iterations {int(k.nr_iters.sum())}, kernel ms {ms}",
+          flush=True)
+
+
 def run_case(root, ts, run, run_plan, mode, reps):
     """Time one run of the kernel: ``mode`` "rlc" (bench.py's deck),
     "store" (the same deck through the store instantiation, one launch
@@ -640,6 +709,8 @@ def run_case(root, ts, run, run_plan, mode, reps):
         return nlstore_case(root, ts, run, reps)
     if mode == "lmdiode":
         return lmdiode_case(root, ts, run, reps)
+    if mode in ("cmos101", "ladder"):
+        return placed_case(root, ts, run, reps, mode)
     here = os.path.dirname(os.path.abspath(__file__))
     if mode in ("rectifier", "physics"):
         deck, keys = rectifier_deck(here), ("R", "L", "C")
@@ -745,6 +816,33 @@ def floor_variant():
                              "constexpr int GJ_NWIDE = GJ_NREG;"))
 
 
+def place_variant():
+    """``_var_place/toyspice_tpu_torch``: this checkout's package with the
+    block bucket's other placement (csrc/newton.cuh and ops/run.py
+    BLOCK_SLICE_FIRST flipped): where the table and a lane's slice do not
+    fit a block's shared memory together, the other of the two stays
+    there."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    dst = os.path.join(here, "_var_place", "toyspice_tpu_torch")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(here, "toyspice_tpu_torch"), dst,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for rel, pat in (("csrc/newton.cuh",
+                      r"constexpr bool BLOCK_SLICE_FIRST = (true|false);"),
+                     ("ops/run.py", r"BLOCK_SLICE_FIRST = (True|False)")):
+        path = os.path.join(dst, rel)
+        with open(path) as f:
+            text = f.read()
+        m = re.search(pat, text)
+        if m is None:
+            raise SystemExit(f"no BLOCK_SLICE_FIRST in {rel}: no variant")
+        flip = {"true": "false", "false": "true", "True": "False",
+                "False": "True"}[m.group(1)]
+        with open(path, "w") as f:
+            f.write(text.replace(m.group(0),
+                                 m.group(0).replace(m.group(1), flip)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rectifier", action="store_true",
@@ -781,6 +879,18 @@ def main():
                     help="time the GJ kernel on lc16's, cw16's seed's and "
                     "random n = 128 systems (bench.py's deck only beside "
                     "another run flag)")
+    ap.add_argument("--cmos101", action="store_true",
+                    help="time the 101-stage CMOS ring's run launch at 259 "
+                    "lanes over its first 0.2 ns (the block bucket with "
+                    "its table or its slice out of shared memory)")
+    ap.add_argument("--ladder", action="store_true",
+                    help="time a 157-stage RC ladder's run launch at 8192 "
+                    "lanes (np1 = 160: the block bucket's table and slice "
+                    "do not fit shared memory together)")
+    ap.add_argument("--place", action="store_true",
+                    help="write _var_place/, this checkout with the block "
+                    "bucket's other placement, to name among the "
+                    "checkouts")
     ap.add_argument("--floor", action="store_true",
                     help="write _var_floor/, this checkout with the wide "
                     "register body off, to name among the checkouts")
@@ -794,7 +904,9 @@ def main():
         newton = [m for m, on in (("rectifier", a.rectifier),
                                   ("physics", a.physics),
                                   ("nlstore", a.nlstore),
-                                  ("lmdiode", a.lmdiode)) if on]
+                                  ("lmdiode", a.lmdiode),
+                                  ("cmos101", a.cmos101),
+                                  ("ladder", a.ladder)) if on]
         linear = ((["store"] if a.store else [])
                   + (["magphys"] if a.magphys else [])
                   + (["rc"] if a.rc else []))
@@ -809,6 +921,8 @@ def main():
         return 0
     if a.floor:
         floor_variant()
+    if a.place:
+        place_variant()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -820,6 +934,8 @@ def main():
              + (["--physics"] if a.physics else [])
              + (["--nlstore"] if a.nlstore else [])
              + (["--lmdiode"] if a.lmdiode else [])
+             + (["--cmos101"] if a.cmos101 else [])
+             + (["--ladder"] if a.ladder else [])
              + (["--opdc"] if a.opdc else [])
              + (["--ac"] if a.ac else [])
              + (["--stamped"] if a.stamped else [])

@@ -263,11 +263,31 @@ seconds:
    memory; 86 and 104, the device-memory workspace), an RC ladder at np1 =
    33 and 29 diodes in series (np1 = 34, the OP kernel's bias) under
    compat and physics.
+38. the run, store, OP and DC sweep kernels past their former caps (more
+   than 32 sources, a stamp plan past the 48 KB table; the table read in
+   device memory where it does not fit shared memory beside the lanes'
+   slices): the main paths nmos_ring101_8192 (a 101-stage NMOS ring
+   oscillator, np1 = 104, UIC: one run launch), bus48_8192 (48 coupled
+   PULSE-driven lines, np1 = 145, 48 sources: one run launch) and
+   pv72_iv_8192 (a 72-cell PV module with 3 bypass diodes, 73 sources:
+   its OP, then a 121-point I-V sweep in one launch), each against the
+   general engine at 259 lanes over a short span and its kernels bit for
+   bit against their plain versions, and the PV module's AC through the
+   OP kernel's bias; the ring's one lane whose node ends off the rails
+   and the module's one point that does not converge are those the CPU
+   tests hold to the JAX package, and no other; then at 259 lanes,
+   through the entry points and bit for bit against the plain versions
+   over a few attempts: more than 32 sources in every bucket (under
+   physics and with K too), the table in device memory in the 64-row and
+   block buckets, where alone the placement puts it (the block with its
+   slice in shared memory and in the workspace), the store's 3-chunk
+   stream on the bus and the NMOS ring, and the OP and DC sweep with the
+   table in device memory.
 17. the bounds and the ``kernels`` JSON line; the last line is the contract
    line ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 4, 7, 8, 9, 10, 12, 14, 15, 16, 20, 21, 25, 26,
-29, 30, 32, 33, 34, 36) and each path of phases 22-24, 28, 31, 35-37
+29, 30, 32, 33, 34, 36, 38) and each path of phases 22-24, 28, 31, 35-38
 runs with every kernel's launch count set to 0 just before and read just
 after.
 """
@@ -592,7 +612,8 @@ def ptxas_summary(log):
                           r"stamped_seg_kernel|dc_seg_kernel|ac_kernel)"
                           r"ILi(\d+)E((?:Lb[01]E)*)", entry)
             # the block bucket's kernels: run_block_kernel<NL, MAG, STORE,
-            # PHYS>, op_block_kernel<PHYS>, dc_block_kernel<PHYS>
+            # PHYS, TSH>, op_block_kernel<PHYS, TSH>, dc_block_kernel<PHYS,
+            # TSH> (TSH false: the table read in device memory)
             blk = re.search(r"(run_block_kernel|op_block_kernel|"
                             r"dc_block_kernel)I((?:Lb[01]E)+)", entry)
             if blk is not None:
@@ -600,18 +621,24 @@ def ptxas_summary(log):
                 bnames = ([("linear", "newton"), ("", "mag"), ("", "store"),
                            ("", "physics")]
                           if blk.group(1) == "run_block_kernel"
-                          else [("compat", "physics")])
+                          else [("compat", "physics")]) + [
+                              ("device table", "")]
                 label = blk.group(1) + "<" + ", ".join(
                     n_[int(f)] for n_, f in zip(bnames, bits) if n_[int(f)]
                 ) + ">"
                 continue
             flags = [] if k is None else re.findall(r"Lb([01])E",
                                                     k.group(3))
-            # run_seg_kernel<NMAX, NL, MAG, STORE, PHYS> (NL: a Newton
-            # deck), op_seg_kernel<NMAX, PHYS> and dc_seg_kernel<NMAX, PHYS>
+            # run_seg_kernel<NMAX, NL, MAG, STORE, PHYS, TSH> (NL: a Newton
+            # deck; TSH false: the table read in device memory),
+            # op_seg_kernel<NMAX, PHYS, TSH> and dc_seg_kernel<NMAX, PHYS,
+            # TSH>; the other kernels' flags are not named
             kname = k.group(1) if k is not None else None
             names = ([("linear", "newton"), ("", "mag"), ("", "store"),
-                      ("", "physics")] if kname == "run_seg_kernel" else
+                      ("", "physics"), ("device table", "")]
+                     if kname == "run_seg_kernel" else
+                     [("", "physics"), ("device table", "")]
+                     if kname in ("op_seg_kernel", "dc_seg_kernel") else
                      [("", "physics")])
             # the warp kernels' REG flag, the block kernels' NMAX (0: the
             # shared-memory body); the name follows its mangled length,
@@ -4426,6 +4453,669 @@ def mesh_phase(smi, bench_none, bench_wall, bench_overrides, lanes):
           "unsharded one")
 
 
+# ---------------------------------------------------- past the former caps
+# Decks past the kernels' former caps (more than 32 sources, a stamp plan
+# past the 48 KB table; tests/test_torch_past_caps.py keeps the same).
+
+
+def nmos_ring(stages, tstop="500n"):
+    """A resistor-load NMOS ring oscillator of ``stages`` inverters (odd),
+    kicked by a current pulse into n0; np1 = stages + 3."""
+    lines = [f"* {stages}-stage NMOS ring oscillator", f".tran 1n {tstop} uic",
+             "VDD vdd 0 DC 5", "IK n0 0 PULSE(0 200u 0 1n 1n 5n 1)"]
+    for i in range(stages):
+        out = f"n{(i + 1) % stages}"
+        lines += [f"RP{i} vdd {out} 10k", f"MN{i} {out} n{i} 0 0 NSW",
+                  f"CL{i} {out} 0 1p"]
+    lines.append(".model NSW NMOS (VTO=1.1 KP=3m LAMBDA=0.01)")
+    return "\n".join(lines) + "\n"
+
+
+def cmos_ring(stages, tstop="2n"):
+    """A level-1 CMOS ring of ``stages`` inverters (odd), 5 fF loads,
+    kicked by a current pulse into n0; np1 = stages + 3."""
+    lines = ["* ring", f".tran 10p {tstop}", "VDD vdd 0 DC 1.8",
+             "IK n0 0 PULSE(0 100u 0 50p 50p 100p 1)"]
+    for i in range(stages):
+        out = f"n{(i + 1) % stages}"
+        lines += [f"MP{i} {out} n{i} vdd vdd PM W=2u L=0.18u",
+                  f"MN{i} {out} n{i} 0 0 NM W=1u L=0.18u",
+                  f"CL{i} {out} 0 5f"]
+    lines += [".model NM NMOS(LEVEL=1 VTO=0.5 KP=200u)",
+              ".model PM PMOS(LEVEL=1 VTO=-0.5 KP=80u)"]
+    return "\n".join(lines) + "\n"
+
+
+def pv_module(cells, bypass=24, points=".dc VLOAD 0 60 0.5"):
+    """``cells`` PV cells in series (a photocurrent, a diode and a shunt
+    each), a bypass diode across every ``bypass`` cells, a series
+    resistance into the swept load source; np1 = cells + 3."""
+    lines = [f"* {cells}-cell PV module", points]
+    for i in range(cells):
+        a, b = ("0" if i == 0 else f"c{i}"), f"c{i + 1}"
+        lines += [f"IPH{i} {b} {a} DC 8.5", f"D{i} {b} {a} DCELL",
+                  f"RSH{i} {b} {a} 250"]
+    for k in range(cells // bypass):
+        a = "0" if k == 0 else f"c{k * bypass}"
+        lines.append(f"DB{k} {a} c{(k + 1) * bypass} DBYP")
+    lines += [f"RS c{cells} out 0.3", "VLOAD out 0 DC 0",
+              ".model DCELL D(IS=1e-10 N=1.2)",
+              ".model DBYP D(IS=1e-8 N=1.0)"]
+    return "\n".join(lines) + "\n"
+
+
+def bus(count, tstop="10n"):
+    """A parallel bus of ``count`` RC lines, each driven by its own PULSE
+    source through 50 ohm, neighbours coupled by 0.2 pF; np1 = 3 count +
+    1."""
+    lines = [f"* {count}-line coupled bus", f".tran 0.05n {tstop}"]
+    for i in range(count):
+        lines += [f"V{i} d{i} 0 PULSE(0 1 {0.1 * i:.1f}n 0.1n 0.1n 2n 5n)",
+                  f"R{i} d{i} l{i} 50", f"C{i} l{i} 0 1p"]
+        if i:
+            lines.append(f"CC{i} l{i - 1} l{i} 0.2p")
+    return "\n".join(lines) + "\n"
+
+
+def many_sources(count, np1):
+    """``count`` DC current sources spread over the nodes of an RC ladder
+    of np1 - 2 nodes from a SIN source (np1 unknowns)."""
+    nodes = np1 - 2
+    lines = [f"* {count} sources, np1 = {np1}", ".tran 0.01m 0.2m",
+             "Vin 1 0 SIN(0 1 5k)"]
+    for k in range(1, nodes):
+        lines += [f"R{k} {k} {k + 1} 100", f"C{k} {k + 1} 0 10n"]
+    lines.append(f"R{nodes} {nodes} 0 1k")
+    lines += [f"I{k} 0 {k % nodes + 1} DC {0.01 * (k % 7 + 1):.2f}m"
+              for k in range(count)]
+    return "\n".join(lines) + "\n"
+
+
+def resistor_bank(count):
+    """``count`` resistors in parallel into a capacitor (np1 = 4): past
+    about 1,650 the stamp plan alone outgrows a block's shared memory."""
+    lines = ["* resistor bank", ".tran 0.01m 0.2m", "Vin 1 0 SIN(0 1 5k)",
+             "C1 2 0 1u"]
+    lines += [f"R{k} 1 2 {1e3 * count * (1 + k % 3)}" for k in range(count)]
+    return "\n".join(lines) + "\n"
+
+
+def diode_bank(count):
+    """``count`` diodes in parallel behind 1 kohm (np1 = 4)."""
+    lines = ["* diode bank", ".tran 0.01m 1m", "V1 1 0 DC 5", "R1 1 2 1k"]
+    lines += [f"D{k} 2 0 DM" for k in range(count)]
+    lines += [".model DM D (Is=1e-14)"]
+    return "\n".join(lines) + "\n"
+
+
+def coupled_sources(count):
+    """circuits/coupled_inductors.cir's transformer with ``count`` DC
+    current sources into its secondary's load (K beside > 32 sources)."""
+    lines = ["* transformer with many sources", ".tran 5u 0.2m",
+             "Vpri in 0 SIN(0 10 2k)", "Rpri in p1 4.7", "Lp p1 0 8m",
+             "Ls s1 0 2m", "K1 Lp Ls 0.995", "Rsec s1 0 150"]
+    lines += [f"I{k} 0 s1 DC {0.1 * (k % 5 + 1):.1f}m" for k in range(count)]
+    return "\n".join(lines) + "\n"
+
+
+# phase 38's cells: the NMOS ring's tstop (cut if its run launch takes
+# more than 20 s), the bus's and the PV module's sweep
+NMOS_TSTOP = "100n"
+BUS_TSTOP = "10n"
+# the spans (s) over which the two transient cells' 259 lanes are held to
+# run_plain and to the general engine
+NMOS_SPAN, BUS_SPAN = 1e-9, 0.1e-9
+PV_POINTS = (0.0, 60.0, 0.5)
+# what the CPU tests hold to the JAX package's general engine on these
+# cells' seeded lanes, and chip_smoke holds the card to: the NMOS ring's
+# one lane whose node leaves the rails (its n53 alternates step by step
+# between the rails and -1 / LAMBDA from 10.7 ns; held over NMOS_HOLD s,
+# tests/test_torch_past_caps_ring.py), and the PV module's one point that
+# does not converge (the JAX package's sweep does not converge there
+# either; tests/test_torch_past_caps_pv.py): (lane, point)
+NMOS_OFF_RAILS = [337]
+NMOS_HOLD = 15e-9
+PV_UNCONVERGED = [(6232, 36)]
+
+# phase 38's run flavours at 259 lanes: (group, name, deck, semantics,
+# trap, attempts, (bucket, table in shared memory, slice in shared
+# memory)), each through make_tran_batch and bit for bit against run_plain,
+# both over at most ``attempts`` attempts
+BB = run.BLOCK_BUCKET
+PAST_CAPS_RUNS = (
+    ("sources", "sources33_np1_4", many_sources(33, 4), "compat", False,
+     100, (4, True, True)),
+    ("sources", "sources40_np1_6", many_sources(40, 6), "compat", False, 100,
+     (8, True, True)),
+    ("sources", "sources40_np1_14", many_sources(40, 14), "compat", False,
+     100, (16, True, True)),
+    ("sources", "sources40_np1_30", many_sources(40, 30), "compat", False,
+     100, (32, True, True)),
+    ("sources", "sources40_np1_50", many_sources(40, 50), "compat", False,
+     100, (64, True, True)),
+    ("physics", "physics_trap_sources40_np1_14", many_sources(40, 14),
+     "physics", True, 100, (16, True, True)),
+    ("magnetic", "magnetic_sources33", coupled_sources(33), "compat", False,
+     100, (8, True, True)),
+    ("physics_magnetic", "physics_magnetic_sources33", coupled_sources(33),
+     "physics", True, 100, (8, True, True)),
+    ("table", "resistor_bank1700", resistor_bank(1700), "compat", False, 3,
+     (64, False, True)),
+    ("table", "diode_bank2100", diode_bank(2100), "compat", False, 3,
+     (64, False, True)),
+    ("table", "cmos_ring101", cmos_ring(101, "30p uic"), "compat", False, 2,
+     (BB, False, True)),
+    ("table", "cmos_ring151", cmos_ring(151, "30p uic"), "compat", False, 2,
+     (BB, False, False)))
+
+# phase 38's OP and DC sweep flavours at 259 lanes: (name, deck, kind,
+# placement)
+PAST_CAPS_OPDC = (
+    ("op_diode_bank2100", diode_bank(2100), "op", (64, False, True)),
+    ("dc_diode_bank2100", diode_bank(2100), "dc", (64, False, True)),
+    ("op_cmos_ring151", cmos_ring(151), "op", (BB, True, False)))
+
+
+def pv_spread(cc, b):
+    """R spread 0.1 and the photocurrents (the I sources' dc) spread 0.1,
+    numpy default_rng(0)."""
+    rng = np.random.default_rng(0)
+    ov = perturbed(cc, rng, b, ("R",))
+    dc_ = np.asarray(cc.params["I"]["dc"])
+    ov["I"] = {"dc": dc_[None] * np.exp(rng.normal(0.0, 0.1,
+                                                   (b, len(dc_))))}
+    return ov
+
+
+def src_spread(cc, b):
+    """R and C spread 0.1, then the I sources' dc (when there are)."""
+    ov = rc_spread(cc, b)
+    if "I" in cc.params:
+        rng = np.random.default_rng(1)
+        dc_ = np.asarray(cc.params["I"]["dc"])
+        ov["I"] = {"dc": dc_[None] * np.exp(rng.normal(0.0, 0.1,
+                                                       (b, len(dc_))))}
+    return ov
+
+
+def tran_vs(name, a, b):
+    """Counters equal per lane, t_final, state and jv within RTOL: one
+    TranOutput against another (the general engine's)."""
+    for key in ("accepted", "attempts", "fail", "nr_iters"):
+        if not torch.equal(getattr(a, key), getattr(b, key)):
+            bad = int((getattr(a, key) != getattr(b, key)).sum())
+            fail(f"{name}: {key} differs on {bad} lanes")
+    return max_err(name, [("t_final", a.t_final, b.t_final)] + [
+        (f"{what}.{kd}.{key}", at[kd][key], bt[kd][key])
+        for what, at, bt in (("state", a.state, b.state), ("jv", a.jv, b.jv))
+        for kd in bt for key in bt[kd]])
+
+
+def lanes_of(params, axes, lanes):
+    """The lanes ``lanes`` (a count: the first ones; or an index tensor) of
+    a batch's parameters: its batched leaves (axis 0 in ``axes``) cut, the
+    shared ones as they are."""
+    pick = slice(lanes) if isinstance(lanes, int) else lanes
+    return {k: {kk: (v[pick] if axes[k][kk] == 0 else v)
+                for kk, v in t.items()} for k, t in params.items()}
+
+
+def placed(what, got, want):
+    if got != want:
+        fail(f"{what}: placement {got}, expected {want}")
+
+
+def op_bound(plan, ko, lanes, launches):
+    """An OP's operations (every Newton iteration's, the linear estimate of
+    every lane) and bytes (each launch's rows and table)."""
+    return (int(ko.iters_all.sum()) * newton_flops(plan) + lanes * (
+        build_flops(plan, plan.entries[:plan.n_lin]) + lu_flops(plan.np1)),
+        launches * (lanes * (8 * (plan.nd + op.dyn_width(plan)
+                                  + 2 * (plan.np1 + plan.kj)) + 8)
+                    + plan.topo.nbytes))
+
+
+def dc_bound(plan, kd, dev, dyn, vs, lanes, points):
+    """A sweep's operations (every point's Newton iterations) and bytes."""
+    per_it = newton_flops(plan) - (plan.np1 - 1)
+    return (int(int(kd.iters.sum()) * per_it),
+            nbytes(dev, dyn, vs, kd.xs) + plan.topo.nbytes
+            + lanes * points * 8)
+
+
+def op_vs_plain(name, cc, params, state0, semantics="compat"):
+    """The OP through make_op_fused on the kernel and on op_plain, timed
+    per launch: bit for bit; (kernel result, max abs err, kernel ms, plain
+    ms, plan, kernel launches)."""
+    tk, tp_ = TimedSolve(op.op_lanes), TimedSolve(op.op_plain)
+    ko = op.make_op_fused(cc, DEFAULTS, semantics, solve=tk)(params, state0)
+    po = op.make_op_fused(cc, DEFAULTS, semantics, solve=tp_)(params, state0)
+    for key in ("converged", "stage", "iters", "iters_all"):
+        if not torch.equal(getattr(ko, key), getattr(po, key)):
+            fail(f"{name}: {key} differs between the kernel and op_plain")
+    err = exact_err(name, [("x", ko.x, po.x)] + [
+        (f"jv.{kd}.{key}", ko.jv[kd][key], po.jv[kd][key])
+        for kd in po.jv for key in po.jv[kd]])
+    return ko, err, tk.ms(), tp_.ms(), tk.args[0][0], len(tk.events)
+
+
+def dc_vs_plain(name, cc, params, state0, pts):
+    """The sweep through make_dc_fused on the kernel and on dc_plain:
+    bit for bit; (kernel result, max abs err, kernel ms, plain ms, the
+    kernel's arguments)."""
+    tk, tp_ = TimedSolve(dc.dc_lanes), TimedSolve(dc.dc_plain)
+    kd = dc.make_dc_fused(cc, (0,), DEFAULTS, solve=tk)(params, state0, pts)
+    pd = dc.make_dc_fused(cc, (0,), DEFAULTS, solve=tp_)(params, state0, pts)
+    for key in ("conv", "iters"):
+        if not torch.equal(getattr(kd, key), getattr(pd, key)):
+            fail(f"{name}: {key} differs from dc_plain")
+    n = cc.np1
+    err = exact_err(name, [("xs", kd.xs.reshape(-1, n),
+                            pd.xs.reshape(-1, n))])
+    return kd, err, tk.ms(), tp_.ms(), tk.args[0]
+
+
+def tran_cell(label, deck, ov, main_lanes, lanes, span, smi, check,
+              hold=None):
+    """One transient cell: make_tran_batch at ``main_lanes`` lanes (the
+    counts set to 0 just before: one run launch) between CUDA events,
+    ``check`` on its output (it fails, or describes it and names the lanes
+    it found off the rails: those the kernel then runs against run_plain
+    over the first ``hold`` seconds); the kernel against run_plain on
+    ``lanes`` of its lanes over the first ``span`` seconds; the general
+    engine (TOYSPICE_TRAN=general) against the run engine on those lanes
+    over that span.  Returns the cell's numbers."""
+    t0 = time.perf_counter()
+    cc, cfg, params, axes, state0 = setup(deck, ov, main_lanes)
+    ts.make_tran_batch(cc, cfg._replace(tstop=cfg.tstop / 50), axes)(
+        params, state0)  # warm-up
+    fn = ts.make_tran_batch(cc, cfg, axes)
+    if fn.engine != "run":
+        fail(f"{label}: engine {fn.engine!r} ({fn.engine_reason})")
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    out, main_ms = timed_call(fn, params, state0)  # the launch and its host
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts(f"{label} main path", got, {"run_kernel": (1, 1)})
+    failed = int(out.fail.sum())
+    if failed or not bool((out.t_final == cfg.tstop).all()):
+        fail(f"{label}: {failed} lanes failed or stopped early")
+    checked, past = check(cc, out)
+    plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0)
+    shape = run.segment_shape(plan, main_lanes)
+    main_flops = run_bound(plan, out, False)
+    main_bytes = run_nbytes(plan, dev, src, st, jv0, main_lanes)
+    accepted, attempts = int(out.accepted.sum()), int(out.attempts.sum())
+    if past:  # the kernel and the plain over the first `hold` seconds
+        idx = torch.as_tensor(past, device=dev.device)
+        cut = [x[idx] for x in (dev, src, st)]
+        jc = None if jv0 is None else jv0[idx]
+        ko, _, po, _ = kernel_vs_plain(plan, *cut, sc._replace(tstop=hold),
+                                       jc)
+        compare_run(f"{label} lanes {past} vs plain", ko, po,
+                    check_jv=jc is not None)
+        checked += (f" (lanes {past}: the kernel bit for bit with run_plain "
+                    f"over the first {hold:g} s)")
+        del ko, po
+    del out
+    free()
+    # the kernel against its plain version on `lanes` lanes, first `span`
+    short = cfg._replace(tstop=span)
+    scs = sc._replace(tstop=span)
+    cut = [x[:lanes] for x in (dev, src, st)]
+    kc, kc_ms, pc, pc_ms = kernel_vs_plain(plan, *cut, scs)
+    err = compare_run(f"{label} vs plain", kc, pc)
+    res = dict(launches=got["run_kernel"], err=err, k_ms=kc_ms, p_ms=pc_ms,
+               flops=run_bound(plan, kc, False),
+               nbytes=run_nbytes(plan, *cut, None, lanes), main_ms=main_ms,
+               main_flops=main_flops, main_bytes=main_bytes, wall=wall,
+               accepted=accepted, shape=shape)
+    del kc, pc
+    # the general engine on those lanes over that span
+    sub = lanes_of(params, axes, lanes)
+    fk = ts.make_tran_batch(cc, short, axes)
+    kr = fk(sub, state0)
+    with override("TOYSPICE_TRAN", "general"):
+        fg = ts.make_tran_batch(cc, short, axes)
+    if fg.engine != "general":
+        fail(f"{label} under TOYSPICE_TRAN=general: engine {fg.engine!r}")
+    g = fg(sub, state0)
+    torch.cuda.synchronize()
+    res["gen_err"] = tran_vs(f"{label} general engine vs run kernel", kr, g)
+    res["gen_accepted"] = int(g.accepted.sum())
+    mb = bound(main_flops, main_bytes)
+    phase(f"38 {label} main path", t0,
+          f"{label} (np1={cc.np1}, {sum(plan.counts[5:])} D/Q/M, "
+          f"{sum(len(v) for v in plan.stype.values())} sources, a table of "
+          f"{plan.topo.size} words): engine={fn.engine} "
+          f"({fn.engine_reason}), run kernel launches={got['run_kernel']}, "
+          f"no OP, stamped or GJ launch; launch shape (the library's): "
+          f"{shape[3]} threads a block, {shape[1]} lanes a block, "
+          f"{shape[2]} blocks, {shape[4]} B of shared memory a block, table "
+          f"in {'shared' if shape[6] else 'device'} memory, {shape[5]} "
+          f"doubles a slice in device memory; lanes={main_lanes}, "
+          f"accepted={accepted}, attempts={attempts}, failed=0, every lane "
+          f"at tstop, {checked}; wall={wall:.6f} s, {accepted / wall:.6e} "
+          f"accepted steps/s; the path between events {main_ms:.3f} ms "
+          f"(the run launch and its host work), the launch's bound "
+          f"{mb[0]:.6f} ms "
+          f"({mb[1]}); on {lanes} of its lanes over the "
+          f"first {span:g} s: kernel {kc_ms:.3f} ms, plain {pc_ms:.1f} ms, "
+          f"counters equal, bit for bit, max abs err {err:.3e}; the general "
+          f"engine (TOYSPICE_TRAN=general) over that span: counters equal "
+          f"to the run kernel's, max abs err {res['gen_err']:.3e}; on {smi}")
+    free()
+    return res
+
+
+def past_caps_phase(lanes, main_lanes, smi):
+    """Phase 38: the run, store, OP and DC sweep kernels past their former
+    caps (more than 32 sources, a stamp plan past the 48 KB table; the
+    table read in device memory when it does not fit shared memory beside
+    the lanes' slices).  Main paths at ``main_lanes`` lanes, each with the
+    launch counts set to 0 just before and read just after:
+    nmos_ring101_8192 (a 101-stage NMOS ring oscillator, np1 = 104, UIC, R
+    and C spread: one run launch), bus48_8192 (48 PULSE-driven coupled
+    lines, 48 sources, np1 = 145: one run launch) and pv72_iv_8192 (a
+    72-cell PV module with 3 bypass diodes, 73 sources, np1 = 75, the
+    photocurrents spread: its OP under the rescue ladders, then its I-V
+    sweep at 121 points in one DC sweep launch); each against the general
+    engine at ``lanes`` lanes (counters equal, state within rtol 1e-9) and
+    its kernels bit for bit against their plain versions; the PV module's
+    AC at 9 frequencies through the OP kernel's bias.  Only the ring's
+    lanes NMOS_OFF_RAILS end off the rails and only the module's points
+    PV_UNCONVERGED do not converge, as the JAX package's general engine
+    does on those lanes (the CPU tests).  Then at ``lanes``
+    lanes, through the entry points (counts reset before) and bit for bit
+    against the plain versions: PAST_CAPS_RUNS (more than 32 sources in
+    the 4-, 8-, 16-, 32- and 64-row buckets, under physics and with K;
+    the table in device memory in the 64-row and block buckets, the
+    last with the slice in shared memory and in the workspace), the
+    store with its stream in 3 chunks on the bus and on the NMOS ring, and
+    PAST_CAPS_OPDC.  Returns each flavour's numbers."""
+    res = {}
+
+    def nmos_check(cc, out):
+        # every capacitor within the rails (by a tenth of the supply) at
+        # tstop, but on the lanes NMOS_OFF_RAILS, where those past them sit
+        # within 1 V of -1 / LAMBDA (the CPU test holds that lane to the
+        # JAX package)
+        supply = 5.0
+        vc = out.state["C"]["v0"]
+        lo, hi = float(vc.min()), float(vc.max())
+        if not bool(torch.isfinite(vc).all()):
+            fail("nmos_ring101: a capacitor's voltage is not finite")
+        off = (vc < -0.1 * supply) | (vc > 1.1 * supply)
+        lanes_off = torch.nonzero(off.any(dim=1)).flatten().tolist()
+        if lanes_off != NMOS_OFF_RAILS:
+            fail(f"nmos_ring101: lanes {lanes_off[:8]} ({len(lanes_off)}) "
+                 f"end off the rails, not {NMOS_OFF_RAILS}")
+        at = -1.0 / float(cc.params["M"]["lam"][0])
+        if not bool(((vc[off] - at).abs() < 1.0).all()):
+            fail(f"nmos_ring101: lanes {lanes_off} off the rails, not at "
+                 f"-1 / LAMBDA = {at:g} V")
+        return (f"the capacitors at tstop {lo:.6g} .. {hi:.6g} V, within the "
+                f"rails (0 .. {supply:g} V, by a tenth) but {int(off.sum())} "
+                f"on lanes {lanes_off}, at {float(vc[off].min()):.6g} V "
+                f"(-1 / LAMBDA = {at:g} V)"), lanes_off
+
+    def bus_check(cc, out):
+        # the coupling capacitors hold the lines' differences, so no rail
+        # bounds them: finite
+        vc = out.state["C"]["v0"]
+        if not bool(torch.isfinite(vc).all()):
+            fail("bus48: a capacitor's voltage is not finite")
+        return (f"the capacitors at tstop {float(vc.min()):.6g} .. "
+                f"{float(vc.max()):.6g} V"), []
+
+    res["nmos"] = tran_cell("nmos_ring101_8192",
+                            nmos_ring(101, NMOS_TSTOP), rc_spread,
+                            main_lanes, lanes, NMOS_SPAN, smi, nmos_check,
+                            NMOS_HOLD)
+    res["bus"] = tran_cell("bus48_8192", bus(48, BUS_TSTOP), rc_spread,
+                           main_lanes, lanes, BUS_SPAN, smi, bus_check)
+
+    # ---- pv72_iv_8192: the OP, then the sweep
+    t0 = time.perf_counter()
+    cc, _, params, axes, state0 = setup(pv_module(72), pv_spread,
+                                        main_lanes)
+    pts = ts.sweep_values(*PV_POINTS)
+    plan_op = run.make_plan(cc, "op")
+    placed("pv72 OP", run.placement(plan_op, op.lane_doubles(plan_op)),
+           (BB, True, True))
+    ts.run_op_batch(cc, params, axes)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    w0 = time.perf_counter()
+    opr = ts.run_op_batch(cc, params, axes)
+    torch.cuda.synchronize()
+    op_wall = time.perf_counter() - w0
+    xs, conv = ts.run_dc_batch(cc, (0,), params, axes, pts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    got = counts()
+    check_counts("pv72 main path", got, {"op_kernel": (1, 64),
+                                         "dc_sweep_kernel": (1, 1)})
+    # every OP converges, and every point but PV_UNCONVERGED (the JAX
+    # package's sweep does not converge there either); its lane is held,
+    # with the first lanes, to the plain versions and the general engine
+    unconv = [tuple(p) for p in torch.nonzero(~conv).tolist()]
+    if not bool(opr.converged.all()) or unconv != PV_UNCONVERGED:
+        fail(f"pv72: {int((~opr.converged).sum())} OPs and the points "
+             f"{unconv[:8]} ({len(unconv)}) not converged, not "
+             f"{PV_UNCONVERGED}")
+    held = [lane for lane, _ in unconv]
+    cur = xs[:, :, cc.np1 - 1]  # the load source's branch current
+    if not bool(torch.isfinite(xs[conv]).all()) or not bool(
+            (cur[conv].abs() < 20.0).all()):
+        fail("pv72: a converged current is not finite or past 20 A")
+    i0 = float(cur[:, 0][conv[:, 0]].mean())
+    i_end = float(cur[:, -1][conv[:, -1]].mean())
+    # the OP and the sweep against their plain versions on `lanes` lanes
+    firsts = [i for i in range(lanes) if i not in held]
+    pick = torch.as_tensor(held + firsts[:lanes - len(held)],
+                           device=xs.device)
+    sub = lanes_of(params, axes, pick)
+    ko, op_err, op_k, op_p, plan_k, op_n = op_vs_plain("pv72 OP", cc, sub,
+                                                       state0)
+    if not torch.equal(ko.x, opr.x[pick]):
+        fail("pv72 OP: the path's x differs from make_op_fused's")
+    # the sweep's points to the last one not converged (the first 9 at
+    # least): a lane's points carry its junction voltages from the start,
+    # so a shorter sweep gives the same first points
+    cut_pts = pts[:max([9] + [point + 1 for _, point in unconv])]
+    kd, dc_err, dc_k, dc_p, dc_args = dc_vs_plain("pv72 sweep", cc, sub,
+                                                  state0, cut_pts)
+    if not same_bits(kd.xs, xs[pick][:, :len(cut_pts)]):
+        fail("pv72 sweep: the path's xs differs from make_dc_fused's")
+    res["pv_op"] = dict(launches=got["op_kernel"], err=op_err, k_ms=op_k,
+                        p_ms=op_p, wall=op_wall)
+    res["pv_op"]["flops"], res["pv_op"]["nbytes"] = op_bound(
+        plan_k, ko, lanes, op_n)
+    res["pv_dc"] = dict(launches=got["dc_sweep_kernel"], err=dc_err,
+                        k_ms=dc_k, p_ms=dc_p, wall=wall - op_wall)
+    res["pv_dc"]["flops"], res["pv_dc"]["nbytes"] = dc_bound(
+        dc_args[0], kd, *dc_args[1:4], lanes, len(cut_pts))
+    # the general OP and sweep (TOYSPICE_OP=general) on those lanes
+    with override("TOYSPICE_OP", "general"):
+        gop = ts.run_op_batch(cc, sub, axes)
+        gxs, gconv = ts.run_dc_batch(cc, (0,), sub, axes, cut_pts)
+    torch.cuda.synchronize()
+    if not (torch.equal(gop.converged, ko.converged)
+            and torch.equal(gop.stage, ko.stage)
+            and torch.equal(gconv, kd.conv)):
+        fail("pv72: the general OP or sweep converges elsewhere")
+    gen_err = max_err("pv72 general vs kernels", [
+        ("op x", gop.x, ko.x), ("sweep xs", gxs.reshape(-1, cc.np1),
+                                kd.xs.reshape(-1, cc.np1))])
+    # the AC at 9 frequencies through the OP kernel's bias
+    acdeck = pv_module(72, points=".ac DEC 3 1k 1meg").replace(
+        "VLOAD out 0 DC 0", "VLOAD out 0 AC 1")
+    acc_, _, aparams, aaxes, astate = setup(acdeck, pv_spread, lanes)
+    freqs = ts.frequency_points("DEC", 1e3, 1e6, 9)
+    fa = make_ac_batch(acc_, aaxes)
+    if fa.engine != "fused" or fa.bias_engine != "fused":
+        fail(f"pv72 AC: engines {fa.engine!r}, {fa.bias_engine!r}")
+    reset_counts()
+    xr, xi, aop = fa(aparams, astate, freqs)
+    torch.cuda.synchronize()
+    check_counts("pv72 AC path", counts(), {"op_kernel": (1, 64),
+                                            "ac_kernel": (1, 1)})
+    pr, pi, pop = make_ac_batch(acc_, aaxes, op_solve=op.op_plain,
+                                ac_solve=ac.ac_plain)(aparams, astate, freqs)
+    ac_err = exact_err("pv72 AC", [("xr", xr.reshape(-1, acc_.np1),
+                                    pr.reshape(-1, acc_.np1)),
+                                   ("xi", xi.reshape(-1, acc_.np1),
+                                    pi.reshape(-1, acc_.np1)),
+                                   ("bias x", aop.x, pop.x)])
+    res["pv_op"]["err"] = max(op_err, ac_err)
+    phase("38 pv72_iv_8192 main path", t0,
+          f"72-cell PV module (np1={cc.np1}, 75 diodes, 73 sources): OP "
+          f"kernel launches={got['op_kernel']} (the rescue ladders' rungs), "
+          f"DC sweep kernel launches={got['dc_sweep_kernel']}, no stamped "
+          f"or GJ launch; lanes={main_lanes} x {len(pts)} points, every OP "
+          f"converged, {len(unconv)} points not ((lane, point) {unconv}, as in "
+          f"the JAX package's sweep of that lane; the lane among those held "
+          f"below); the load current "
+          f"{i0:.6f} A at 0 V, "
+          f"{i_end:.6f} A at {PV_POINTS[1]:g} V (the lanes' mean); wall "
+          f"{wall:.6f} s (the OP {op_wall:.6f} s), "
+          f"{main_lanes * len(pts) / (wall - op_wall):.6e} points/s; on "
+          f"{lanes} lanes (those first; the sweep's first {len(cut_pts)} "
+          f"points): the OP kernel vs op_plain bit for bit, "
+          f"{op_n} launches, kernel {op_k:.3f} ms, plain {op_p:.1f} ms; the "
+          f"sweep kernel vs dc_plain bit for bit, kernel {dc_k:.3f} ms, "
+          f"plain {dc_p:.1f} ms; the general OP and sweep "
+          f"(TOYSPICE_OP=general): converged equal, max abs err "
+          f"{gen_err:.3e}; its AC at 9 frequencies (one OP-kernel bias, one "
+          f"AC launch) bit for bit with op_plain and ac_plain, max abs err "
+          f"{ac_err:.3e}; on {smi}")
+    del opr, xs, ko, kd, gop, gxs, xr, xi, pr, pi
+    free()
+
+    # ---- the run flavours at `lanes` lanes
+    for group, name, deck, semantics, trap, attempts, place in \
+            PAST_CAPS_RUNS:
+        t0 = time.perf_counter()
+        opts = ts.SimOptions(integration="trap" if trap else "be")
+        cc, cfg, params, axes, state0 = setup(deck, src_spread, lanes)
+        cfg = cfg._replace(max_attempts=attempts)
+        fn = ts.make_tran_batch(cc, cfg, axes, semantics=semantics,
+                                opts=opts)
+        if fn.engine != "run":
+            fail(f"38 {name}: engine {fn.engine!r} ({fn.engine_reason})")
+        reset_counts()
+        out = fn(params, state0)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"38 {name} path", got, {
+            "run_kernel": (1, 1), "op_kernel": (0, 1 << 30),
+            "stamped_solve": (0, 1 << 30), "gj_kernel": (0, 1 << 30)})
+        plan, dev, src, st, sc, jv0 = lane_inputs(cc, cfg, params, state0,
+                                                  opts, semantics)
+        placed(name, run.run_placement(plan), place)
+        shape = run.segment_shape(plan, lanes)
+        k, k_ms, p, p_ms = kernel_vs_plain(plan, dev, src, st, sc, jv0)
+        e = compare_run(f"38 {name}", k, p, check_jv=jv0 is not None)
+        if int(k.accepted.sum()) == 0:
+            fail(f"38 {name}: no lane accepted a step")
+        g = res.setdefault(group, dict(launches=0, err=0.0))
+        g["launches"] += got["run_kernel"]
+        g["err"] = max(g["err"], e)
+        if "k_ms" not in g:  # the group's first flavour is timed
+            g.update(k_ms=k_ms, p_ms=p_ms, name=name,
+                     flops=run_bound(plan, k, semantics == "physics"),
+                     nbytes=run_nbytes(plan, dev, src, st, jv0, lanes))
+        phase("38 past the caps vs plain", t0,
+              f"{name} ({semantics}/{'trap' if trap else 'be'}, np1="
+              f"{plan.np1}, {sum(len(v) for v in plan.stype.values())} "
+              f"sources, {sum(plan.counts[5:])} D/Q/M, a table of "
+              f"{plan.topo.size} words): bucket {place[0]}, table in "
+              f"{'shared' if place[1] else 'device'} memory, slice in "
+              f"{'shared' if place[2] else 'device'} memory; {lanes} lanes,"
+              f" {shape[1]} lanes a block, {shape[4]} B of shared memory a "
+              f"block; launches {got}; over at most {attempts} attempts: "
+              f"accepted {int(k.accepted.sum())}, attempts "
+              f"{int(k.attempts.sum())}, NR iterations "
+              f"{int(k.nr_iters.sum())}; counters equal, bit for bit, max "
+              f"abs err {e:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        del k, p, out
+        free()
+
+    # ---- the store and its stream in 3 chunks, past each former cap
+    for key, label, deck in (("store", "bus48", bus(48, "0.15n")),
+                             ("store_table", "nmos_ring101",
+                              nmos_ring(101, "1n"))):
+        t0 = time.perf_counter()
+        res[key] = st_ = store_stream_vs_plain(f"38 {label}", deck, lanes,
+                                               {})
+        if st_["chunks"] != 3:
+            fail(f"38 {label} stream: {st_['chunks']} chunks, not 3")
+        phase("38 past the caps vs plain", t0,
+              f"store ({label}, store='full'): {lanes} lanes, store "
+              f"launches 1, stored rows {st_['rows']}, bit for bit with "
+              f"store_plain, kernel {st_['k_ms']:.3f} ms alone "
+              f"({st_['w_ms']:.3f} ms with the wrapper), plain "
+              f"{st_['p_ms']:.1f} ms; streamed in chunks of {st_['chunk']} "
+              f"rows: {st_['chunks']} store launches, every chunk's rows "
+              f"and the totals equal to the single launch's, the re-entry "
+              f"bit for bit with the plain store; max abs err "
+              f"{st_['err']:.3e}")
+        free()
+
+    # ---- the OP and DC sweep flavours at `lanes` lanes
+    for name, deck, kind, place in PAST_CAPS_OPDC:
+        t0 = time.perf_counter()
+        cc, _, params, axes, state0 = setup(deck, src_spread, lanes)
+        plan = run.make_plan(cc, "op")
+        lane = (op if kind == "op" else dc).lane_doubles(plan)
+        placed(name, run.placement(plan, lane), place)
+        shape = op.segment_shape(plan, lanes, lane)
+        pts = np.linspace(0.0, 5.0, 3)
+        reset_counts()
+        if kind == "op":
+            ts.run_op_batch(cc, params, axes)
+        else:
+            ts.run_dc_batch(cc, (0,), params, axes, pts)
+        torch.cuda.synchronize()
+        got = counts()
+        counter = "op_kernel" if kind == "op" else "dc_sweep_kernel"
+        check_counts(f"38 {name} path", got,
+                     {counter: (1, 64 if kind == "op" else 1)})
+        if kind == "op":
+            r, e, k_ms, p_ms, plan_k, n_ = op_vs_plain(f"38 {name}", cc,
+                                                       params, state0)
+            flops, nb = op_bound(plan_k, r, lanes, n_)
+            what = (f"converged {int(r.converged.sum())} of {lanes}, "
+                    f"{n_} launches")
+        else:
+            r, e, k_ms, p_ms, args = dc_vs_plain(f"38 {name}", cc, params,
+                                                 state0, pts)
+            flops, nb = dc_bound(args[0], r, *args[1:4], lanes, len(pts))
+            what = (f"{len(pts)} points, converged {int(r.conv.sum())} of "
+                    f"{lanes * len(pts)}")
+        g = res.setdefault(kind + "_table", dict(launches=0, err=0.0))
+        g["launches"] += got[counter]
+        g["err"] = max(g["err"], e)
+        if "k_ms" not in g:
+            g.update(k_ms=k_ms, p_ms=p_ms, name=name, flops=flops,
+                     nbytes=nb)
+        phase("38 past the caps vs plain", t0,
+              f"{name} (np1={plan.np1}, {sum(plan.counts[5:])} D/Q/M, a "
+              f"table of {plan.topo.size} words): bucket {place[0]}, table "
+              f"in {'shared' if place[1] else 'device'} memory, slice in "
+              f"{'shared' if place[2] else 'device'} memory, {shape[1]} "
+              f"lanes a block, {shape[4]} B of shared memory a block; "
+              f"{lanes} lanes, {what}; bit for bit with the plain version, "
+              f"max abs err {e:.3e}; kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms")
+        del r
+        free()
+    return res
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4769,6 +5459,7 @@ def main():
     wide = wide_phase(GJ_LANES, BENCH_LANES, smi)
     block = block_phase(GJ_LANES, BENCH_LANES, smi, st_work)
     ac_buckets = ac_bucket_phase(GJ_LANES, smi)
+    past = past_caps_phase(GJ_LANES, BENCH_LANES, smi)
 
     # ------------------------------------------------ 11 the kernels line
     plan = bench["plan"]
@@ -5022,6 +5713,36 @@ def main():
               f"{what['main_bytes']} bytes / {PEAK_BYTES:.3g} B/s = "
               f"{bd[3]:.6f} ms", flush=True)
 
+    past_bounds = {}
+    for key, label in (("nmos", "nmos_ring101 vs plain, 259 lanes, the "
+                        f"first {NMOS_SPAN:g} s"),
+                       ("bus", "bus48 vs plain, 259 lanes, the first "
+                        f"{BUS_SPAN:g} s"),
+                       ("pv_op", "pv72's OP, 259 lanes"),
+                       ("pv_dc", "pv72's sweep, 259 lanes, its first points"),
+                       ("sources", None), ("physics", None),
+                       ("magnetic", None), ("physics_magnetic", None),
+                       ("table", None), ("store", "bus48 store, 259 lanes"),
+                       ("store_table", "nmos_ring101 store, 259 lanes"),
+                       ("op_table", None), ("dc_table", None)):
+        what = past[key]
+        past_bounds[key] = bd = bound(what["flops"], what["nbytes"])
+        print(f"[17 bound] past the caps {key} "
+              f"({label or what['name'] + ', 259 lanes'}): {what['flops']} "
+              f"f64 operations / {PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; "
+              f"{what['nbytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+              f"{bd[3]:.6f} ms", flush=True)
+    for key, label in (("nmos", "nmos_ring101_8192's path"),
+                       ("bus", "bus48_8192's path")):
+        what = past[key]
+        bd = bound(what["main_flops"], what["main_bytes"])
+        print(f"[17 bound] past the caps main path ({label}, its run "
+              f"launch and host work {what['main_ms']:.3f} ms): "
+              f"{what['main_flops']} f64 "
+              f"operations / {PEAK_F64:.3g} op/s = {bd[2]:.6f} ms; "
+              f"{what['main_bytes']} bytes / {PEAK_BYTES:.3g} B/s = "
+              f"{bd[3]:.6f} ms", flush=True)
+
     def entry(name, source, replaces, launches, err, k_ms, p_ms, bd,
               lib_ms=None):
         return {"name": name, "route": "cuda", "source": source,
@@ -5203,7 +5924,42 @@ def main():
               block["dc_compat"]["launches"],
               max(block["dc_compat"]["err"], block["dc_physics"]["err"]),
               block["dc_compat"]["k_ms"], block["dc_compat"]["p_ms"],
-              block_bounds["dc_compat"])]}
+              block_bounds["dc_compat"])] + [
+        entry(name, src_, repl, past[key]["launches"],
+              past[key]["err"],
+              past[key]["k_ms"], past[key]["p_ms"], past_bounds[key])
+        for name, key, src_, repl in (
+            ("run_kernel_nmos_ring101", "nmos", run_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("run_kernel_bus48", "bus", run_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("op_kernel_pv72", "pv_op",
+             "toyspice_tpu_torch/csrc/op_kernel.cu",
+             "toyspice_tpu/ops/pallas_op.py:230"),
+            ("dc_sweep_kernel_pv72", "pv_dc",
+             "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+             "toyspice_tpu/ops/pallas_op.py:431"),
+            ("run_kernel_sources", "sources", run_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("run_kernel_physics_sources", "physics",
+             "toyspice_tpu_torch/csrc/run_kernel_phys.cu",
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("run_kernel_magnetic_sources", "magnetic", run_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("run_kernel_physics_magnetic_sources", "physics_magnetic",
+             mag_src, "toyspice_tpu/ops/pallas_run.py:652"),
+            ("run_kernel_table_in_memory", "table", run_src,
+             "toyspice_tpu/ops/pallas_run.py:652"),
+            ("run_kernel_store_sources", "store", run_src,
+             "toyspice_tpu/ops/pallas_tran.py:1429"),
+            ("run_kernel_store_table", "store_table", run_src,
+             "toyspice_tpu/ops/pallas_tran.py:1429"),
+            ("op_kernel_table_in_memory", "op_table",
+             "toyspice_tpu_torch/csrc/op_kernel.cu",
+             "toyspice_tpu/ops/pallas_op.py:230"),
+            ("dc_sweep_kernel_table_in_memory", "dc_table",
+             "toyspice_tpu_torch/csrc/dc_sweep_kernel.cu",
+             "toyspice_tpu/ops/pallas_op.py:431"))]}
     phase("done", start, "all phases passed")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,7 +89,9 @@ def test_rc_ladder_runs_on_the_block_bucket_and_matches_jax():
 
     deck = rc_ladder(62)
     cc = ts.compile_circuit(ts.parse(deck))
-    assert cc.np1 == 65 and run.kernel_caps_reason(run.make_plan(cc)) is None
+    assert cc.np1 == 65
+    assert run.run_placement(run.make_plan(cc)) == (run.BLOCK_BUCKET, True,
+                                                    True)
     cfg, params_np, ref = jax_reference(deck, spread(deck, ("R", "C"),
                                                      lanes=LANES))
     out = _port_tran(deck, cfg, params_np)
@@ -165,11 +167,11 @@ BUCKET_IDS = ["np1_64", "np1_65", "np1_130", "np1_183"]
 def test_block_slices_leave_shared_memory_past_its_fit():
     """A block's slice of rc ladders of np1 = 130 and 183: the first fits
     the block's shared memory beside its table, the second takes the
-    device-memory workspace (ops/run.py block_in_shared, csrc/newton.cuh
-    block_in_shared)."""
+    device-memory workspace, the table staying in shared memory (ops/run.py
+    run_placement, csrc/newton.cuh block_place)."""
     for stages, shared in ((127, True), (180, False)):
         plan = run.make_plan(ts.compile_circuit(ts.parse(rc_ladder(stages))))
-        assert run.block_in_shared(plan, run.MAX_SOURCES) == shared
+        assert run.run_placement(plan) == (run.BLOCK_BUCKET, True, shared)
 
 
 # ----------------------------------------- on the card, against the plain
@@ -185,14 +187,14 @@ def test_run_bucket_is_the_library_s(cuda, deck, bucket):
 
     plan = run.make_plan(ts.compile_circuit(ts.parse(deck)))
     assert _build.load("run").tsr_run_bucket(
-        plan.np1, int(plan.topo.size), run.newton_doubles(plan)) == bucket
+        plan.np1, int(plan.topo.size), run.run_doubles(plan)) == bucket
     shape = run.segment_shape(plan, 259)
     if bucket == run.BLOCK_BUCKET:
         assert shape[:4] == (run.BLOCK_THREADS, 1, 259, run.BLOCK_THREADS)
-        slice_ = run.block_slice(plan.np1, run.MAX_SOURCES)
-        shared = run.block_in_shared(plan, run.MAX_SOURCES)
-        assert shape[5] == (0 if shared else slice_)
-        assert shape[4] == 8 * (run.table_doubles(plan)
+        slice_ = run.block_slice(plan.np1, run.run_doubles(plan))
+        _, table, shared = run.run_placement(plan)
+        assert shape[5:] == (0 if shared else slice_, int(table))
+        assert shape[4] == 8 * (run.table_doubles(plan) * table
                                 + (slice_ if shared else 0))
 
 

@@ -11,7 +11,7 @@ of it the JAX engine's compile).
 import toyspice_tpu_torch as ts
 from toyspice_tpu_torch.convert import params_from_numpy
 from toyspice_tpu_torch.engine.batch import select_op_engine
-from toyspice_tpu_torch.ops import run
+from toyspice_tpu_torch.ops import op, run
 
 from test_torch_block_bucket import r_draw
 from test_torch_wide_bucket import diode_string
@@ -24,7 +24,9 @@ def test_diode_string_op_runs_on_the_op_kernel_and_matches_jax():
     cc = ts.compile_circuit(ts.parse(deck))
     assert cc.np1 == 67 and cc.kind_count("D") == 64
     assert select_op_engine(cc)[0] == "fused"
-    assert run.kernel_caps_reason(run.make_plan(cc, "op")) is None
+    plan = run.make_plan(cc, "op")
+    assert run.placement(plan, op.lane_doubles(plan)) == (
+        run.BLOCK_BUCKET, True, True)
     params_np, ref = reference(deck, r_draw(deck, 3))
     out = ts.run_op_batch(cc, params_from_numpy(params_np, device="cpu"))
     assert_matches(out, ref)

@@ -1,7 +1,7 @@
 """The block bucket past its shared-memory fit on the CPU: a 180-stage RC
 ladder (np1 = 183), whose block slice outgrows a block's shared memory so
 that the card runs it on the device-memory workspace
-(``ops/run.py block_in_shared``/``block_work``).  Its transient through
+(``ops/run.py block_place``/``block_work``).  Its transient through
 ``make_tran_batch`` (engine "run", the plain version of the block bucket;
 with ``store='full'`` engine "store"), 2 lanes with R and C spread from a
 numpy seed, held to the JAX package's general engine at the standing bar
@@ -27,7 +27,7 @@ def test_np1_183_runs_on_the_block_bucket_and_matches_jax():
 
     cc = ts.compile_circuit(ts.parse(DECK))
     plan = run.make_plan(cc)
-    assert cc.np1 == 183 and not run.block_in_shared(plan, run.MAX_SOURCES)
+    assert cc.np1 == 183 and not run.run_placement(plan)[2]
     cfg, params_np, ref = jax_reference(DECK, spread(DECK, ("R", "C"),
                                                      lanes=LANES))
     assert ts.make_tran_batch(cc, cfg, None, store="full").engine == "store"
@@ -43,5 +43,4 @@ def test_np1_183_op_and_sweep_take_the_kernels():
     assert cc.np1 == 183 and select_op_engine(cc)[0] == "fused"
     for mod in (op, dc):
         lane = mod.lane_doubles(plan)
-        assert run.fit_bucket(plan, lane) == run.BLOCK_BUCKET
-        assert not run.block_in_shared(plan, lane)
+        assert run.placement(plan, lane) == (run.BLOCK_BUCKET, True, False)

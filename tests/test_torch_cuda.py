@@ -1101,10 +1101,8 @@ def test_stamped_segment_kernel_is_bit_identical(cuda, n):
 def test_stamped_segment_kernel_reads_a_view_past_its_stage(cuda, n):
     """Every cell of the pattern many entries deep: a row view past what
     the segment kernel copies to shared memory (SEG_VSTAGE, 16384 ints;
-    read through the cache then) and a term table past MAX_TOPO, which
+    read through the cache then) and a term table past 12,288 words, which
     the per-thread kernel refused; torch.equal with the plain version."""
-    from toyspice_tpu_torch.ops.run import MAX_TOPO
-
     rng = np.random.default_rng(n)
     lanes, depth = 67, 40000 // (n * n)
     rows, cols = np.meshgrid(np.arange(1, n), np.arange(n), indexing="ij")
@@ -1113,7 +1111,8 @@ def test_stamped_segment_kernel_reads_a_view_past_its_stage(cuda, n):
     rrows = np.repeat(np.arange(1, n), depth)
     fn = solve_stamped.solve_stamped_for(n, rows, cols, rrows)
     assert fn.pattern.view.size > 16384
-    assert fn.pattern.table.size > MAX_TOPO
+    # the per-thread kernel's former table edge (the run kernels' MAX_TOPO)
+    assert fn.pattern.table.size > 12288
     vals = rng.normal(size=(lanes, rows.size)) / depth
     vals[:, rows == cols] += 4.0 / depth
     vals = torch.as_tensor(vals, device=cuda)
@@ -1624,8 +1623,9 @@ def test_newton_segment_stream_pauses_lanes_of_one_warp(cuda):
 
 @pytest.mark.parametrize("store", [False, True], ids=["run", "store"])
 def test_newton_segment_refuses_a_short_slice(cuda, monkeypatch, store):
-    """A launch whose nl_doubles is one short of the deck's junction
-    voltages and value slots fails every lane before its first attempt
+    """A launch whose lane_doubles (ops/run.py run_doubles) is one short of
+    the deck's source values, junction voltages and value slots fails
+    every lane before its first attempt
     and leaves jv and state as they were, where it would otherwise write
     past its segment's slice."""
     cfg, r = _newton_inputs(MIXED16, 37, cuda)
@@ -1643,13 +1643,15 @@ def test_newton_segment_refuses_a_short_slice(cuda, monkeypatch, store):
 
 
 @pytest.mark.parametrize("deck,semantics,store,tag", [
-    (HWR, "compat", False, "<4, true, false, false, false>"),
-    (HWR, "compat", True, "<4, true, false, true, false>"),
-    (newton_ladder(8), "physics", False, "<8, true, false, false, true>"),
-    (newton_ladder(9), "physics", True, "<16, true, false, true, true>"),
-    (MIXED16, "compat", False, "<32, true, false, false, false>"),
-    (LM_DIODE, "compat", True, "<8, true, true, true, false>"),
-    (LM_DIODE, "physics", False, "<8, true, true, false, true>")],
+    (HWR, "compat", False, "<4, true, false, false, false, true>"),
+    (HWR, "compat", True, "<4, true, false, true, false, true>"),
+    (newton_ladder(8), "physics", False,
+     "<8, true, false, false, true, true>"),
+    (newton_ladder(9), "physics", True,
+     "<16, true, false, true, true, true>"),
+    (MIXED16, "compat", False, "<32, true, false, false, false, true>"),
+    (LM_DIODE, "compat", True, "<8, true, true, true, false, true>"),
+    (LM_DIODE, "physics", False, "<8, true, true, false, true, true>")],
     ids=["compat_4", "compat_store_4", "phys_8", "phys_store_16",
          "compat_32", "compat_mag_store", "phys_mag"])
 def test_newton_segment_launch_shape(cuda, deck, semantics, store, tag):
@@ -1666,15 +1668,16 @@ def test_newton_segment_launch_shape(cuda, deck, semantics, store, tag):
     got = run.segment_shape(r.plan, 259)
     w = int(tag[1:tag.index(",")])
     assert got[:4] == (w, 128 // w, -(-259 // (128 // w)), 128)
-    # a slice: the exchange buffer and W build rows, x, 32 source values,
-    # the lane's 192 rows (csrc/run_kernel.cuh seg_slice), then the
-    # junction voltages and value slots, an even count
-    base = (w + 2) * (w + 1) + w + 32 + 192
-    nl = (run.newton_doubles(r.plan) + 1) // 2 * 2
+    # a slice: the exchange buffer and W build rows, x, the lane's 192 rows
+    # (csrc/run_kernel.cuh seg_slice), then its source values (an even
+    # count), junction voltages and value slots, an even count; the table
+    # in shared memory
+    base = (w + 2) * (w + 1) + w + 192
+    nl = (run.run_doubles(r.plan) + 1) // 2 * 2
     assert run.newton_doubles(r.plan) >= r.plan.kj > 0
     assert got[4] == 8 * ((r.plan.topo.size + 3) // 4 * 2
                           + (128 // w) * (base + nl))
-    assert got[4] <= 227 * 1024
+    assert got[4] <= 227 * 1024 and got[6] == 1
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         if store:
             run.launch_store_kernel(r.plan, r.dev, r.src, r.st, sc,
@@ -1931,16 +1934,16 @@ def test_opdc_segment_refuses_a_short_slice(cuda, monkeypatch, kind):
 
 
 @pytest.mark.parametrize("deck,semantics,kind,tag", [
-    (HWR, "compat", "op", "op_seg_kernel<4, false>"),
-    (HWR, "physics", "op", "op_seg_kernel<4, true>"),
-    (newton_ladder(8), "compat", "op", "op_seg_kernel<8, false>"),
-    (newton_ladder(9), "physics", "op", "op_seg_kernel<16, true>"),
-    (MIXED16, "compat", "op", "op_seg_kernel<32, false>"),
-    (DIODE_IV, "compat", "dc", "dc_seg_kernel<4, false>"),
-    (DIODE_IV, "physics", "dc", "dc_seg_kernel<4, true>"),
-    (LM_DIODE, "compat", "dc", "dc_seg_kernel<8, false>"),
-    (newton_ladder(16), "physics", "dc", "dc_seg_kernel<16, true>"),
-    (MIXED16, "compat", "dc", "dc_seg_kernel<32, false>")],
+    (HWR, "compat", "op", "op_seg_kernel<4, false, true>"),
+    (HWR, "physics", "op", "op_seg_kernel<4, true, true>"),
+    (newton_ladder(8), "compat", "op", "op_seg_kernel<8, false, true>"),
+    (newton_ladder(9), "physics", "op", "op_seg_kernel<16, true, true>"),
+    (MIXED16, "compat", "op", "op_seg_kernel<32, false, true>"),
+    (DIODE_IV, "compat", "dc", "dc_seg_kernel<4, false, true>"),
+    (DIODE_IV, "physics", "dc", "dc_seg_kernel<4, true, true>"),
+    (LM_DIODE, "compat", "dc", "dc_seg_kernel<8, false, true>"),
+    (newton_ladder(16), "physics", "dc", "dc_seg_kernel<16, true, true>"),
+    (MIXED16, "compat", "dc", "dc_seg_kernel<32, false, true>")],
     ids=["op_4", "op_4_physics", "op_8", "op_16_physics", "op_32", "dc_4",
          "dc_4_physics", "dc_8", "dc_16_physics", "dc_32"])
 def test_opdc_segment_launch_shape(cuda, deck, semantics, kind, tag):
@@ -1962,7 +1965,7 @@ def test_opdc_segment_launch_shape(cuda, deck, semantics, kind, tag):
     base = (w + 2) * (w + 1) + w
     assert got[4] == 8 * ((plan.topo.size + 3) // 4 * 2
                           + (128 // w) * (base + (lane + 1) // 2 * 2))
-    assert got[4] <= 227 * 1024
+    assert got[4] <= 227 * 1024 and got[6] == 1
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         if kind == "op":
             ts.run_op_batch(cc, params, axes, semantics=semantics)

@@ -1,11 +1,10 @@
 """What the port's transient and OP do not cover raise NotImplementedError
 with the reason.  Compat and physics semantics run every deck of R, C, L,
-LM, K, V, I, D, Q and M within the kernels' caps (any np1: to 64 on
-warps, past it a block a lane; 32 sources, a stamp plan within the 48 KB
-shared-memory table: 718 diodes in a bank), magnetic decks with diodes
-included, and their OP, DC sweep and AC; a deck past the kernels' caps
-takes the general engine (engine "general", with the kernels' reason);
-trapezoidal integration under compat stays refused."""
+LM, K, V, I, D, Q and M on the kernels, which have no cap left (any np1:
+to 64 on warps, past it a block a lane; any number of sources; a stamp
+plan of any size, read in device memory past shared memory: 719 diodes in
+a bank and more), magnetic decks with diodes included, and their OP, DC
+sweep and AC; trapezoidal integration under compat stays refused."""
 
 import os
 import re
@@ -55,7 +54,7 @@ def _diodes(count):
 
 def _diode_bank(count):
     """``count`` diodes in parallel behind 1 kΩ (np1 = 4): past 718 their
-    stamp plan outgrows the kernels' shared-memory table."""
+    stamp plan outgrew the kernels' former 48 KB table."""
     lines = ["* diode bank", ".tran 0.01m 1m", "V1 1 0 DC 5", "R1 1 2 1k"]
     lines += [f"D{k} 2 0 DM" for k in range(count)]
     lines += [".model DM D (Is=1e-14)"]
@@ -69,9 +68,6 @@ def _mosfet_bank(count):
     lines += [f"M{k} 2 2 0 0 NM L=2u W=20u" for k in range(count)]
     lines += [".model NM NMOS(Vto=1 Kp=2e-5)"]
     return "\n".join(lines) + "\n"
-
-
-TABLE_CAP = "exceeds the kernel's shared-memory table cap"
 
 
 def _build(text, **kw):
@@ -101,32 +97,26 @@ Rl out 0 150
 """
 
 
-@pytest.mark.parametrize("text,kw,reason,general", [
-    (_diode_bank(719), {}, "(719 diodes, BJTs and MOSFETs) " + TABLE_CAP,
-     True),
-    (RLC, {"store": "bogus"}, "store='bogus'", False),
+@pytest.mark.parametrize("text,kw,reason", [
+    (_diode_bank(719), {}, None),
+    (RLC, {"store": "bogus"}, "store='bogus'"),
     (RLC, {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'", False),
+     "integration='trap' requires semantics='physics'"),
     (K_DIODE, {"opts": SimOptions(integration="trap")},
-     "integration='trap' requires semantics='physics'", False),
-    (_many_sources(33), {}, "33 sources exceed the kernel's cap of 32",
-     True),
-    (_ladder(62), {}, None, False),
-    (_ladder(130), {}, None, False),
+     "integration='trap' requires semantics='physics'"),
+    (_many_sources(33), {}, None),
+    (_ladder(62), {}, None),
+    (_ladder(130), {}, None),
 ], ids=["diode", "store_bogus", "trap", "trap_mutual_with_diode",
         "source_cap", "np1_cap", "np1_past_nbig"])
-def test_ineligible_raises_with_reason(text, kw, reason, general):
-    """Past the kernels' caps the general engine takes the run, with the
-    kernels' reason; past the general engine's too, it raises.  np1 is no
-    cap: past 64 rows (np1 = 65, and 133 past NBIG) the run engine takes
-    the deck on the kernels' block bucket."""
+def test_ineligible_raises_with_reason(text, kw, reason):
+    """What neither the kernels nor the general engine serve raises with
+    the reason.  No size is a cap: 719 diodes (a stamp plan past the
+    former 48 KB table), 33 sources and np1 past 64 rows (np1 = 65, and
+    133 past NBIG) take the run engine."""
     if reason is None:
         fn = _build(text, **kw)
         assert fn.engine == "run" and "whole-run kernel" in fn.engine_reason
-        return
-    if general:
-        fn = _build(text, **kw)
-        assert fn.engine == "general" and reason in fn.engine_reason
         return
     with pytest.raises(NotImplementedError, match="no transient engine") as e:
         _build(text, **kw)
@@ -242,17 +232,24 @@ def test_store_full_selects_the_store_engine():
 
 
 def test_nonlinear_device_cap_boundary():
-    """The count of diodes, BJTs and MOSFETs is capped by the stamp plan's
-    shared-memory table alone (718 diodes in a bank), at least 32 of any
-    kind: 61 diodes in series at np1 = 64 and 32 MOSFETs on a 4-row deck
-    (the run kernel's 64-row bucket) are eligible too."""
-    for text in (_diode_bank(718), _diodes(61), _mosfet_bank(32)):
+    """The count of diodes, BJTs and MOSFETs has no cap: the former edge
+    of the 48 KB table (718 and 719 diodes in a bank), a bank whose table
+    alone outgrows a block's shared memory (2,100 diodes, read in device
+    memory), 61 diodes in series at np1 = 64 and 32 MOSFETs on a 4-row deck
+    (the run kernel's 64-row bucket) all take the run, OP and DC sweep
+    kernels."""
+    from toyspice_tpu_torch.engine.batch import select_op_engine
+
+    for text in (_diode_bank(718), _diode_bank(719), _diode_bank(2100),
+                 _diodes(61), _mosfet_bank(32)):
         ok = ts.compile_circuit(ts.parse(text))
         assert run.run_ineligible_reason(ok, "compat", "none",
                                          SimOptions()) is None
         assert op.op_fused_ineligible_reason(ok) is None
-    big = ts.compile_circuit(ts.parse(_diode_bank(719)))
-    assert TABLE_CAP in op.op_fused_ineligible_reason(big)
+        assert select_op_engine(ok)[0] == "fused"
+    big = run.make_plan(ts.compile_circuit(ts.parse(_diode_bank(2100))))
+    assert run.table_doubles(big) > run.BLOCK_ROOM
+    assert run.run_placement(big) == (64, False, True)
 
 
 @pytest.mark.parametrize("text,kw,reason", [
@@ -262,12 +259,18 @@ def test_nonlinear_device_cap_boundary():
      "semantics='bogus'"),
     (_deck("saturating_transformer.cir"), {"semantics": "physics"},
      "linear circuit"),
-    (_diode_bank(719), {}, TABLE_CAP),
+    (_diode_bank(719), {}, None),
 ], ids=["linear", "physics", "magnetic", "device_cap"])
 def test_op_ineligible_reasons(text, kw, reason):
+    """The OP kernel's reasons; no count of devices is one (719 diodes, past
+    the former 48 KB table, take the kernel)."""
     cc = ts.compile_circuit(ts.parse(text))
     kw = dict(kw)
     opts = kw.pop("opts", SimOptions())
+    if reason is None:
+        assert op.op_fused_ineligible_reason(cc, opts=opts, **kw) is None
+        assert op.make_op_fused(cc, opts, **kw) is not None
+        return
     assert reason in op.op_fused_ineligible_reason(cc, opts=opts, **kw)
     with pytest.raises(NotImplementedError, match="not eligible"):
         op.make_op_fused(cc, opts, **kw)
@@ -306,19 +309,21 @@ def _ac(text):
     (_deck("ce_amplifier_ac.cir"), {"semantics": "bogus"},
      "semantics='bogus'"),
     (_ac(_ladder(30)), {}, None),
-    (_ac(_diode_bank(719)), {}, TABLE_CAP),
+    (_ac(_diode_bank(719)), {}, None),
 ], ids=["physics", "np1_cap", "device_cap"])
 def test_ac_ineligible_raises_with_reason(text, kw, reason):
-    """The AC kernel's reasons; past the bias's caps the general AC takes
-    the deck (engine "general"), and what neither serves raises.  The AC
-    kernel has no np1 cap: a deck of np1 = 33 takes it (engine "fused")."""
+    """The AC kernel's reasons; what neither it nor the general AC serves
+    raises.  The AC kernel has no np1 cap (a deck of np1 = 33 takes it,
+    engine "fused"), and its bias no device cap (719 diodes, past the
+    former 48 KB table: the OP kernel's bias, engine "fused")."""
     from toyspice_tpu_torch.engine.ac import make_ac_batch
     from toyspice_tpu_torch.ops.ac import ac_ineligible_reason
 
     cc = ts.compile_circuit(ts.parse(text))
     if reason is None:
-        assert cc.np1 == 33 and ac_ineligible_reason(cc, **kw) is None
+        assert cc.np1 in (4, 33) and ac_ineligible_reason(cc, **kw) is None
         fn = make_ac_batch(cc, None, **kw)
+        assert fn.bias_engine == ("fused" if cc.np1 == 4 else "linear")
         assert fn.engine == "fused" and "AC kernel eligible" in \
             fn.engine_reason
         xr, xi, opr = ts.run_ac_batch(cc, ts.batch_params(
@@ -327,13 +332,6 @@ def test_ac_ineligible_raises_with_reason(text, kw, reason):
         assert bool(torch.isfinite(xr).all() & torch.isfinite(xi).all())
         return
     assert reason in ac_ineligible_reason(cc, **kw)
-    if "cap" in reason:
-        fn = make_ac_batch(cc, None, **kw)
-        assert fn.engine == "general" and reason in fn.engine_reason
-        xr, _, opr = ts.run_ac_batch(cc, ts.batch_params(
-            cc, {}, device="cpu")[0], None, [1e3], **kw)
-        assert xr.shape == (1, 1, cc.np1) and bool(opr.converged.all())
-        return
     with pytest.raises(NotImplementedError, match="no AC engine") as e:
         make_ac_batch(cc, None, **kw)
     assert reason in str(e.value)
@@ -358,14 +356,15 @@ def test_ac_np1_cap_boundary():
     (_deck("diode_iv_sweep.cir"), {"semantics": "bogus"},
      "semantics='bogus'"),
     (_deck("divider_op.cir"), {"semantics": "bogus"}, "semantics='bogus'"),
-    (_diode_bank(719), {}, TABLE_CAP),
+    (_diode_bank(719), {}, "fused"),
     (_ladder(126), {}, None),
 ], ids=["physics", "physics_linear", "device_cap", "np1_cap"])
 def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
-    """Past the OP kernel's device cap the general engine takes the OP and
-    the sweep (engine "general"); a linear deck past NBIG (np1 = 129)
-    takes the linear OP and sweep, whose stamped solve has no cap on np1,
-    and converges; what none serves raises."""
+    """719 diodes (past the former 48 KB table) take the OP and DC sweep
+    kernels (engine "fused", their plain versions on the CPU); a linear
+    deck past NBIG (np1 = 129) takes the linear OP and sweep, whose
+    stamped solve has no cap on np1, and converges; what none serves
+    raises."""
     from toyspice_tpu_torch.engine.batch import select_op_engine
 
     cc = ts.compile_circuit(ts.parse(text))
@@ -377,9 +376,9 @@ def test_dc_and_linear_op_ineligible_raise_with_reason(text, kw, reason):
         assert bool(torch.isfinite(xs).all())
         assert bool(ts.run_op_batch(cc, params, **kw).converged.all())
         return
-    if reason == TABLE_CAP:
+    if reason == "fused":
         engine, why = select_op_engine(cc, **kw)
-        assert engine == "general" and reason in why
+        assert engine == "fused" and "OP kernel eligible" in why
         xs, conv = ts.run_dc_batch(cc, (0,), params, None, [0.0, 1.0], **kw)
         assert xs.shape == (1, 2, cc.np1) and bool(conv.all())
         assert bool(ts.run_op_batch(cc, params, **kw).converged.all())

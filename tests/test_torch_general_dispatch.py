@@ -10,9 +10,10 @@ kernels' caps, through the user's entry points, against the JAX package:
   jv within rtol 1e-9); its streamed store now runs, on the store
   kernel's 64-row bucket, and a resumed run takes the store engine;
 * the OP and DC sweep of 17 resistor-fed banks of 48 diodes (816 diodes,
-  a stamp plan past the kernels' 48 KB shared-memory table):
-  ``select_op_engine`` gives "general", and ``run_op_batch`` and
-  ``run_dc_batch`` run it;
+  a stamp plan past the kernels' former 48 KB table): ``select_op_engine``
+  gives "fused" (the OP and DC sweep kernels, their plain versions on the
+  CPU), and "general" under ``TOYSPICE_OP=general``; ``run_op_batch`` and
+  ``run_dc_batch`` run both, and they agree;
 * the AC of a 16-section LC ladder (a 72 x 72 system): ``make_ac_batch``
   gives "fused" (the AC kernel takes every np1), and "general" under
   ``TOYSPICE_AC=general``; on both the ladder passes half the source to
@@ -61,7 +62,7 @@ def test_cw16_takes_the_general_engine_and_matches_jax(monkeypatch):
     assert torch.equal(direct.nr_iters, general.nr_iters)
     # the streamed store: every chunk's rows those of one store='full' run
     whole = ts.make_tran_batch(cc, cfg, None, store="full")(params, state0)
-    fns = ts.make_tran_stream(cc, cfg, 8)  # raised past the caps
+    fns = ts.make_tran_stream(cc, cfg, 8)
     n0 = torch.zeros_like(whole.out_n)
     chunks = list(ts.stream_transient_chunks(cc, cfg, params, state0, 8,
                                              fns=fns))
@@ -89,23 +90,33 @@ def _diode_banks(nodes, per):
     return "\n".join(lines) + "\n"
 
 
-def test_op_and_dc_past_the_device_cap_take_the_general_engine():
+def test_op_and_dc_past_the_device_cap_take_the_general_engine(monkeypatch):
+    """816 diodes take the OP and DC sweep kernels; the general engine
+    (TOYSPICE_OP=general) gives the same bias and sweep."""
     cc = ts.compile_circuit(ts.parse(_diode_banks(17, 48)))
-    engine, reason = select_op_engine(cc)
-    assert engine == "general" and "816 diodes" in reason
-    assert "shared-memory table cap" in reason
     params, _ = ts.batch_params(cc, {"R": {"value": np.full((3, 17), 1e3)
                                            * np.arange(1, 4)[:, None]}},
                                 device="cpu")
-    op = ts.run_op_batch(cc, params)
-    assert bool(op.converged.all()) and op.stage.tolist() == [0, 0, 0]
-    # 1 V through R into 48 forward diodes: between 0.4 and 0.7 V
-    vd = op.x[:, 2:19]
-    assert bool(((vd > 0.4) & (vd < 0.7)).all())
-    xs, conv = ts.run_dc_batch(cc, (0,), params, None,
-                               ts.sweep_values(0.0, 2.0, 0.5))
-    assert xs.shape == (3, 5, cc.np1) and bool(conv.all())
-    torch.testing.assert_close(xs[:, 2], op.x, rtol=1e-6, atol=1e-9)
+    runs = {}
+    for env, want in ((None, "fused"), ("general", "general")):
+        if env is None:
+            monkeypatch.delenv("TOYSPICE_OP", raising=False)
+        else:
+            monkeypatch.setenv("TOYSPICE_OP", env)
+        engine, reason = select_op_engine(cc)
+        assert engine == want, reason
+        op = ts.run_op_batch(cc, params)
+        assert bool(op.converged.all()) and op.stage.tolist() == [0, 0, 0]
+        # 1 V through R into 48 forward diodes: between 0.4 and 0.7 V
+        vd = op.x[:, 2:19]
+        assert bool(((vd > 0.4) & (vd < 0.7)).all())
+        xs, conv = ts.run_dc_batch(cc, (0,), params, None,
+                                   ts.sweep_values(0.0, 2.0, 0.5))
+        assert xs.shape == (3, 5, cc.np1) and bool(conv.all())
+        torch.testing.assert_close(xs[:, 2], op.x, rtol=1e-6, atol=1e-9)
+        runs[engine] = op.x, xs
+    for a, b in zip(runs["fused"], runs["general"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
 
 
 def test_lc16_ac_takes_the_general_engine(monkeypatch):

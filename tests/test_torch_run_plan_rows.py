@@ -131,8 +131,10 @@ def test_row_view_of_ladders(np1, kind):
 def test_op_plan_has_no_view_and_the_caps_count_the_base_table(
         monkeypatch):
     """The OP plan too carries the row view (the OP and DC sweep kernels
-    build on a warp segment from it), then each row's linear prefix; the
-    caps count the table before the view, for either plan."""
+    build on a warp segment from it), then each row's linear prefix; a
+    kernel's placement counts the whole table, the view included (it is
+    copied to shared memory, or read in device memory, whole), for either
+    plan."""
     cc = ts.compile_circuit(ts.parse((CIRCUITS / "rlc_ringdown.cir")
                                      .read_text()))
     op_plan = make_plan(cc, mode="op")
@@ -141,12 +143,12 @@ def test_op_plan_has_no_view_and_the_caps_count_the_base_table(
     assert pos + 4 * e + 2 * op_plan.np1 + 1 == op_plan.topo.size
     tran = make_plan(cc)
     assert tran.base_len < tran.topo.size
-    # the shared-memory cap counts the table before the view, as before it
     for plan in (tran, op_plan):
-        monkeypatch.setattr(run, "MAX_TOPO", plan.base_len)
-        assert run.kernel_caps_reason(plan) is None
-        monkeypatch.setattr(run, "MAX_TOPO", plan.base_len - 1)
-        assert "shared-memory table" in run.kernel_caps_reason(plan)
+        assert run.table_doubles(plan) == (plan.topo.size + 3) // 4 * 2
+        # a table one block of shared memory past the room: device memory
+        monkeypatch.setattr(run, "BLOCK_ROOM", run.table_doubles(plan) - 1)
+        monkeypatch.setattr(run, "SEG_SMEM", 8 * run.BLOCK_ROOM)
+        assert run.run_placement(plan)[1] is False
 
 
 HWR_MOS = """* a diode and an NMOS

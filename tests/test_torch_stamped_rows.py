@@ -5,15 +5,16 @@ np1 <= 32) builds row i of each lane's system on thread i.  A numpy
 emulation of that build (each row's terms summed in view order from 0,
 then gmin on the diagonal after the sum, row 0 the ground identity row)
 must give ``build_plain``'s matrices bit for bit: on random patterns with
-duplicate cells, RHS entries and entries into row 0, and on one past the
-shared-memory stage (``MAX_TOPO``).  CPU only."""
+duplicate cells, RHS entries and entries into row 0, and on one whose view
+is past the segment kernel's shared-memory stage (``SEG_VSTAGE``).  CPU
+only."""
 
 import numpy as np
 import pytest
 import torch
 
 from toyspice_tpu_torch.ops import solve_stamped
-from toyspice_tpu_torch.ops.run import MAX_TOPO
+from toyspice_tpu_torch.ops.solve_stamped import SEG_VSTAGE
 
 LANES = 5
 
@@ -75,7 +76,7 @@ def segment_build(pat, vals, rvals, gmin):
 def test_segment_build_matches_build_plain(n, deep):
     pat, vals, rvals, gmin = pattern(n, n, deep=deep)
     if deep:
-        assert pat.table.size > MAX_TOPO
+        assert pat.view.size > SEG_VSTAGE
     got = segment_build(pat, vals, rvals, gmin)
     want = solve_stamped.build_plain(pat, torch.as_tensor(vals),
                                      torch.as_tensor(rvals),

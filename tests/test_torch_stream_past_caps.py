@@ -4,10 +4,9 @@ on decks the JAX package streams, on the CPU, 2 lanes from numpy seeds:
 * a 62-stage RC ladder (np1 = 65), which the run kernel's store
   instantiation streams through its block bucket (engine "store");
 * 33 current sources into one resistor (``_many_sources(33)`` of
-  tests/test_torch_eligibility.py), past the kernels' source cap: the
-  general engine's pair (``engine/tran.make_tran`` with ``stream=True``,
-  engine "general", its reason naming the cap), where
-  ``make_tran_stream`` raised before.
+  tests/test_torch_eligibility.py), past the kernels' former source cap:
+  the store instantiation too (engine "store"; the general engine's pair
+  runs only under the overrides, tests/test_torch_past_caps.py).
 
 Each chunk's rows are bit for bit those of one ``store='full'`` run of
 the port (the same engine), every lane's attempts equal at the end, and
@@ -30,8 +29,7 @@ RTOL = 1e-9
 LANES = 2
 
 CASES = {"np1_65": (rc_ladder(62), ("R", "C"), "store", "whole-run"),
-         "33_sources": (_many_sources(33), ("R",), "general",
-                        "33 sources exceed the kernel's cap of 32")}
+         "33_sources": (_many_sources(33), ("R",), "store", "whole-run")}
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -141,7 +141,7 @@ def test_cw16_runs_on_the_run_kernel_and_matches_jax():
 
     cc = ts.compile_circuit(ts.parse(CW16))
     assert cc.np1 == 35 and cc.kind_count("D") == 32
-    assert run.kernel_caps_reason(run.make_plan(cc)) is None
+    assert run.run_placement(run.make_plan(cc)) == (64, True, True)
     cfg, params_np, ref = jax_reference(CW16, spread(CW16, ("C",)))
     out = _port_tran(CW16, cfg, params_np)
     assert_matches(out, ref)
@@ -224,16 +224,17 @@ def test_rc_ladder_at_the_largest_matrix_matches_jax():
 
 # the run kernel's bucket of each deck: np1's, or the 64-row one when the
 # value slots of np1's block of lanes overflow its shared memory (the
-# MOSFET bank past 24 devices), or past 64 rows the block bucket, which the
+# MOSFET bank past 25 devices), or past 64 rows the block bucket, which the
 # wrapper reads to pick the _wide library (ops/run.py run_bucket,
 # csrc/run_kernel.cuh run_bucket)
 BUCKETS = [(rc_ladder(29), 32), (rc_ladder(61), 64), (CW16, 64),
-           (parallel_mosfets(24), 4), (parallel_mosfets(25), 64),
+           (parallel_mosfets(24), 4), (parallel_mosfets(25), 4),
+           (parallel_mosfets(26), 64),
            (rc_ladder(62), run.BLOCK_BUCKET),
            (rc_ladder(127), run.BLOCK_BUCKET),
            (rc_ladder(180), run.BLOCK_BUCKET)]
 BUCKET_IDS = ["ladder_np1_32", "ladder_np1_64", "cw16", "mosfets_24",
-              "mosfets_25", "ladder_np1_65", "ladder_np1_130",
+              "mosfets_25", "mosfets_26", "ladder_np1_65", "ladder_np1_130",
               "ladder_np1_183"]
 
 
@@ -254,7 +255,7 @@ def test_run_bucket_is_the_library_s(cuda, deck, bucket):
 
     plan = run.make_plan(ts.compile_circuit(ts.parse(deck)))
     assert _build.load("run").tsr_run_bucket(
-        plan.np1, int(plan.topo.size), run.newton_doubles(plan)) == bucket
+        plan.np1, int(plan.topo.size), run.run_doubles(plan)) == bucket
 
 
 def _run_case(deck, semantics="compat", trap=False):

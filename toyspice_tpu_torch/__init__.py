@@ -22,10 +22,13 @@ the batched operating point (``run_op_batch``), through the OP kernel and
 the rescue ladders, or on a linear deck the stamped-solve kernel under the
 same ladders; the DC sweep (``run_dc_batch``), through the DC sweep kernel
 or the stamped solve; and AC (``run_ac_batch``), that operating point and
-then the AC kernel.  The run, OP and DC sweep kernels take any np1 (past
-64 rows a block a lane).  A deck past the kernels' caps (more than 32
-sources, a stamp plan past the 48 KB table, an AC past np1 = 32) takes
-the general engine (engine "general"): the JAX package's batched Newton, OP ladder,
+then the AC kernel.  The kernels have no cap left: the run, OP and DC
+sweep kernels take any np1 (past 64 rows a block a lane), any number of
+sources and a stamp plan of any size (read in device memory when it does
+not fit shared memory beside the lanes' slices), and the AC kernel any
+np1.  Under the engine overrides (``TOYSPICE_TRAN=general`` and the
+others, ``engine/overrides.py``) the general engine runs (engine
+"general"): the JAX package's batched Newton, OP ladder,
 transient, DC sweep and AC as host loops over per-lane masks, each Newton
 iteration one assembly and one launch of the stamped solve (a warp or a
 block per lane past np1 = 32; past 128 the system in device memory), the

@@ -54,14 +54,15 @@ namespace {
 using namespace tsr;
 
 // A launch's lanes on segments of W threads (newton.cuh Seg), a block's
-// lanes as seg_shape_of sets them: the table, then each segment's slice
+// lanes as seg_shape_of sets them: the table (with TSH; else it is read
+// in device memory, in the 64-row bucket only), then each segment's slice
 // (newton.cuh opdc_slice).
 // lane_doubles is ops/dc.py lane_doubles: the dyn row, the point's nV
 // source values, then the junction voltages and value slots
 // (newton_doubles); a launch that gives fewer than the deck's counts need
 // returns x all NaN, 0 iterations and not converged at every point of
 // every lane, and reads and writes no slice.
-template <int NMAX, bool PHYS>
+template <int NMAX, bool PHYS, bool TSH>
 __global__ void __launch_bounds__(THREADS, SEG_BLOCKS)
 dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
               const double* __restrict__ dev,
@@ -73,9 +74,7 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   constexpr int W = Seg<NMAX>::W;
   constexpr unsigned mask = 0xffffffffu;
   extern __shared__ __align__(16) double seg_smem[];
-  int* topo = reinterpret_cast<int*>(seg_smem);
-  for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
-  __syncthreads();
+  const int* topo = kernel_table<TSH>(topo_g, topo_len, seg_smem);
   const int seg = threadIdx.x / W;
   const int me = threadIdx.x & (W - 1);  // its rows: me + s * W
   const int lane0 =
@@ -108,7 +107,7 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
     return;
   }
 
-  double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
+  double* sl = slice_base<TSH>(seg_smem, topo_len) +
                seg * opdc_slice<NMAX>(lane_doubles);
   double* buf = sl;
   double* rows = sl + (NMAX + 2);
@@ -150,10 +149,10 @@ dc_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
 // T), each row on thread i (mod T), the convergence a block-wide AND, the
 // system eliminated by gj_block in the block's slice).  The lane's system,
 // x, the last iterate and its lane_doubles live in the block's slice
-// (newton.cuh block_slice): shared memory while the table and the slice
-// fit it, else a slice of `work` in device memory (block k takes slice k
-// and lanes k, k + gridDim.x, ...).
-template <bool PHYS>
+// (newton.cuh block_slice): shared memory while it fits (newton.cuh
+// block_place), else a slice of `work` in device memory (block k takes
+// slice k and lanes k, k + gridDim.x, ...; work is null otherwise).
+template <bool PHYS, bool TSH>
 __global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_MIN_BLOCKS)
 dc_block_kernel(const int* __restrict__ topo_g, int topo_len,
                 int lane_doubles, const double* __restrict__ dev,
@@ -165,9 +164,7 @@ dc_block_kernel(const int* __restrict__ topo_g, int topo_len,
                 double* work) {
   constexpr int T = BLOCK_THREADS;
   extern __shared__ __align__(16) double seg_smem[];
-  int* topo = reinterpret_cast<int*>(seg_smem);
-  for (int i = threadIdx.x; i < topo_len; i += T) topo[i] = topo_g[i];
-  __syncthreads();
+  const int* topo = kernel_table<TSH>(topo_g, topo_len, seg_smem);
   const int me = threadIdx.x;
   const int n = topo[H_NP1];
   const int nr = topo[H_NR], nc = topo[H_NC], nl = topo[H_NL];
@@ -175,10 +172,9 @@ dc_block_kernel(const int* __restrict__ topo_g, int topo_len,
   const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
   const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
   const int dw = ni + nl;
-  const long long slice = block_slice(n, lane_doubles);
-  double* const m = block_in_shared(topo_len, slice)
-                        ? seg_smem + (topo_len + 3) / 4 * 2
-                        : work + (size_t)blockIdx.x * slice;
+  double* const m =
+      work ? work + (size_t)blockIdx.x * block_slice(n, lane_doubles)
+           : slice_base<TSH>(seg_smem, topo_len);
   double* const xs = m + gj_slice_doubles(n);
   double* const xo = xs + ((n + 1) & ~1);
   double* const dyn = xo + ((n + 1) & ~1);
@@ -236,19 +232,26 @@ cudaError_t launch(int np1, const int* topo, int topo_len, int lane_doubles,
                    int* conv, int nlanes, double reltol, double abstol,
                    int max_iter, double gmin_floor, double* work,
                    long long work_len, cudaStream_t stream) {
-  if constexpr (NMAX == BLOCK_BUCKET)
-    return block_launch(dc_block_kernel<PHYS>,
-                        block_shape(np1, nlanes, topo_len, lane_doubles),
-                        work, work_len, stream, topo, topo_len,
-                        lane_doubles, dev, dyn, vs, vs_stride, npts, x_out,
-                        iters, conv, nlanes, reltol, abstol, max_iter,
-                        gmin_floor);
-  else
-    return seg_launch(dc_seg_kernel<NMAX, PHYS>,
-                      opdc_shape<NMAX>(nlanes, topo_len, lane_doubles),
-                      stream, topo, topo_len, lane_doubles, dev, dyn, vs,
-                      vs_stride, npts, x_out, iters, conv, nlanes, reltol,
-                      abstol, max_iter, gmin_floor);
+  const SegShape sh =
+      opdc_shape_in(NMAX, np1, nlanes, topo_len, lane_doubles);
+  // the instantiation that keeps the table where the shape does (np1's
+  // buckets of 4 to 32 rows only in shared memory)
+  auto go = [&](auto tsh) -> cudaError_t {
+    constexpr bool T = decltype(tsh)::value;
+    if constexpr (NMAX == BLOCK_BUCKET)
+      return block_launch(dc_block_kernel<PHYS, T>, sh, work, work_len,
+                          stream, topo, topo_len, lane_doubles, dev, dyn,
+                          vs, vs_stride, npts, x_out, iters, conv, nlanes,
+                          reltol, abstol, max_iter, gmin_floor);
+    else
+      return seg_launch(dc_seg_kernel<NMAX, PHYS, T>, sh, stream, topo,
+                        topo_len, lane_doubles, dev, dyn, vs, vs_stride,
+                        npts, x_out, iters, conv, nlanes, reltol, abstol,
+                        max_iter, gmin_floor);
+  };
+  if (sh.table) return go(std::true_type());
+  if constexpr (NMAX >= 64) return go(std::false_type());
+  return cudaErrorInvalidValue;
 }
 
 template <bool PHYS>

@@ -29,7 +29,8 @@
 //      cold-start guess, with the Meyer charge stamps of a transient
 //      (compat: previous charges frozen, PLAN.md 1; PHYS: the committed
 //      charge memory, trapezoidal after a device's first committed step);
-//   3. the build from the stamp plan in shared memory, row i from its
+//   3. the build from the stamp plan (in shared memory while it fits beside
+//      the lanes' slices, else read in device memory), row i from its
 //      entries in plan order, the ground row and, in an OP, the status
 //      gmin on every non-ground diagonal;
 //   4. Gauss-Jordan with partial pivoting (largest |pivot| among unused
@@ -315,8 +316,15 @@ __device__ void mos_charges(const Mos& p, int level, double vgs, double vds,
 
 // ------------------------------------------------------- the lane's deck
 
-// What a lane's Newton reads: the plan in shared memory, its dev row, and
-// where its nonlinear device blocks start.
+// A Newton deck's junction voltages and value slots, in doubles, from its
+// table (ops/run.py newton_doubles)
+__device__ __forceinline__ int deck_doubles(const int* topo) {
+  return topo[H_KJ] + D_SLOTS * topo[H_NDD] + Q_SLOTS * topo[H_NQ] +
+         M_SLOTS * topo[H_NM];
+}
+
+// What a lane's Newton reads: the plan (in shared or device memory), its
+// dev row, and where its nonlinear device blocks start.
 struct Deck {
   const int* topo;
   const double* dv;
@@ -752,13 +760,53 @@ struct OpStamp {
 };
 
 // A launch on warp segments: segments of W threads, per_block lanes a
-// block, the table and each segment's slice in dynamic shared memory
-// (bytes); in the block bucket (a block a lane) `work` is the doubles of a
-// block's slice in device memory (0 when the slice is in shared memory).
+// block, each segment's slice in dynamic shared memory (bytes), after the
+// stamp plan's table when `table` (else the kernels read the table in
+// device memory); in the block bucket (a block a lane) `work` is the
+// doubles of a block's slice in device memory (0 when the slice is in
+// shared memory).
 struct SegShape {
   int w, per_block, blocks, threads, shmem;
   int work = 0;
+  int table = 1;
 };
+
+// Doubles of the stamp plan's table (topo_len int32 words) in a block's
+// shared memory, a whole number of 16-byte rows.
+__host__ __device__ constexpr long long table_doubles(int topo_len) {
+  return (topo_len + 3LL) / 4 * 2;
+}
+
+// The table a kernel reads: with TSH (SegShape table), copied once into
+// the block's shared memory smem, which every thread of the block calls it
+// to do, before any returns; else topo_g itself, read in device memory
+// through the cache.  TSH is a template parameter so that the shared
+// instantiation reads the table with shared-memory loads.
+template <bool TSH>
+__device__ __forceinline__ const int* kernel_table(
+    const int* __restrict__ topo_g, int topo_len, double* smem) {
+  if constexpr (TSH) {
+    int* t = reinterpret_cast<int*>(smem);
+    for (int i = threadIdx.x; i < topo_len; i += blockDim.x) t[i] = topo_g[i];
+    __syncthreads();
+    return t;
+  } else {
+    return topo_g;
+  }
+}
+
+// Where the block's slices start in its shared memory smem: past the
+// table's copy (TSH), or at smem when the table stays in device memory.
+template <bool TSH>
+__device__ __forceinline__ double* slice_base(double* smem, int topo_len) {
+  return smem + (TSH ? table_doubles(topo_len) : 0);
+}
+
+// bytes of `doubles`, past INT_MAX clamped to it (a shape no block holds)
+inline int shmem_bytes(long long doubles) {
+  const long long b = doubles * (long long)sizeof(double);
+  return b > 0x7fffffffLL ? 0x7fffffff : static_cast<int>(b);
+}
 
 // ------------------------------------------------------ the block bucket
 
@@ -773,6 +821,13 @@ constexpr int BLOCK_MIN_BLOCKS = 2;
 // bytes of static shared memory the block kernels may take beside the
 // dynamic (gj_block's pivot, block_max's warp maxima)
 constexpr int BLOCK_STATIC = 1024;
+// doubles of dynamic shared memory a block kernel may take
+constexpr long long BLOCK_ROOM = (SEG_SMEM - BLOCK_STATIC) / sizeof(double);
+// Which of the table and a lane's slice the block bucket keeps in shared
+// memory when they do not fit it together but each fits it alone: true,
+// the slice (the table in device memory); false, the table (the slice in
+// the workspace).  ops/run.py BLOCK_SLICE_FIRST.
+constexpr bool BLOCK_SLICE_FIRST = true;
 
 // Doubles of a lane's slice in the block bucket: the system with
 // gj_block's factors, pivot rows and used flags (gj_slice_doubles), x and
@@ -784,45 +839,59 @@ __host__ __device__ inline long long block_slice(int n, int extra) {
          ((extra + 1) & ~1);
 }
 
-// whether the table and a slice fit the block's shared memory
-__host__ __device__ inline bool block_in_shared(int topo_len,
-                                                long long slice) {
-  return ((topo_len + 3) / 4 * 2 + slice) * (long long)sizeof(double) <=
-         SEG_SMEM - BLOCK_STATIC;
+// The block bucket's placement of the table and a lane's slice: both in
+// shared memory when they fit it together; else the one BLOCK_SLICE_FIRST
+// names when it fits alone, the other in device memory; else each alone
+// where it fits (a slice that does not takes a slice of the workspace).
+struct BlockPlace {
+  bool table, slice;
+};
+inline BlockPlace block_place(int topo_len, long long slice) {
+  const long long table = table_doubles(topo_len);
+  if (table + slice <= BLOCK_ROOM) return {true, true};
+  const bool slice_fits = slice <= BLOCK_ROOM;
+  const bool table_fits = table <= BLOCK_ROOM;
+  if (slice_fits && table_fits)
+    return {!BLOCK_SLICE_FIRST, BLOCK_SLICE_FIRST};
+  return {table_fits, slice_fits};
 }
 
 // The block bucket's shape for nlanes lanes of np1 with `extra` doubles a
-// lane beside the system (block_slice): the table and the slice in shared
-// memory when they fit, else the table alone and the slice in device
-// memory (work); a block a lane, as many as the launch's workspace holds
-// slices (block_launch).
+// lane beside the system (block_slice), the table and the slice placed by
+// block_place; a block a lane, as many as the launch's workspace holds
+// slices when the slice is in device memory (block_launch).
 inline SegShape block_shape(int np1, int nlanes, int topo_len, int extra) {
   const long long slice = block_slice(np1, extra);
-  const bool sh = block_in_shared(topo_len, slice);
-  const long long doubles = (topo_len + 3) / 4 * 2 + (sh ? slice : 0);
+  const BlockPlace at = block_place(topo_len, slice);
   SegShape s{BLOCK_THREADS, 1, nlanes, BLOCK_THREADS,
-             static_cast<int>(doubles * sizeof(double))};
-  s.work = sh ? 0 : static_cast<int>(slice);
+             shmem_bytes((at.table ? table_doubles(topo_len) : 0) +
+                         (at.slice ? slice : 0))};
+  s.work = at.slice ? 0 : static_cast<int>(slice);
+  s.table = at.table ? 1 : 0;
   return s;
 }
 
-// The shape of nlanes lanes whose segments each take `slice` doubles:
-// THREADS / W lanes a block, or in the 64-row bucket the most of its four
-// whose slices fit SEG_SMEM beside the table (a block of one lane may not
-// fit: the caller refuses its bucket then)
+// The shape of nlanes lanes whose segments each take `slice` doubles, the
+// table in shared memory beside them when `table`: THREADS / W lanes a
+// block, or in the 64-row bucket the most of its four whose slices fit
+// SEG_SMEM (beside the table); a block of one lane may not fit (shmem past
+// SEG_SMEM: fit_bucket refuses it then).
 template <int NMAX>
-SegShape seg_shape_of(int nlanes, int topo_len, int slice) {
+SegShape seg_shape_of(int nlanes, int topo_len, int slice,
+                      bool table = true) {
   constexpr int W = Seg<NMAX>::W;
-  const int table = (topo_len + 3) / 4 * 2;
+  const long long tab = table ? table_doubles(topo_len) : 0;
   int per_block = THREADS / W;
   if constexpr (NMAX > 32) {
     while (per_block > 1 &&
-           (table + per_block * slice) * (int)sizeof(double) > SEG_SMEM)
+           (tab + (long long)per_block * slice) * (long long)sizeof(double) >
+               SEG_SMEM)
       --per_block;
   }
-  const int doubles = table + per_block * slice;
-  return {W, per_block, (nlanes + per_block - 1) / per_block, per_block * W,
-          doubles * static_cast<int>(sizeof(double))};
+  SegShape s{W, per_block, (nlanes + per_block - 1) / per_block,
+             per_block * W, shmem_bytes(tab + (long long)per_block * slice)};
+  s.table = table ? 1 : 0;
+  return s;
 }
 
 // f(std::integral_constant<int, b>()), a launch in bucket b (seg_bucket's,
@@ -846,17 +915,53 @@ int with_bucket(int b, F f) {
   }
 }
 
-// The bucket a launch of np1 rows takes: np1's (seg_bucket), or the 64-row
-// bucket when np1's block (the table and THREADS / W slices) overflows
-// SEG_SMEM (many devices' value slots on a small deck: the 64-row bucket
-// holds as few lanes a block as fit); the block bucket when np1 is past 64
-// or a block of one lane of the 64-row bucket does not fit.  shape(b) is
-// the launch's SegShape in a bucket b of seg_bucket.
+// The bucket a launch of np1 rows takes, the table in shared memory where
+// it fits: np1's (seg_bucket), or the 64-row bucket when np1's block (the
+// table and THREADS / W slices) overflows SEG_SMEM (many devices' value
+// slots on a small deck: the 64-row bucket holds as few lanes a block as
+// fit), or the block bucket (np1 past 64, or a block of one lane of the
+// 64-row bucket does not fit) while the table fits a block alone; past
+// that, the 64-row bucket with the table in device memory while one lane
+// fits, else the block bucket.  np1's buckets of 4 to 32 rows keep the
+// table in shared memory, so only the 64-row and block kernels have
+// instantiations that read it in device memory.  shape(b, table) is the
+// launch's SegShape in a bucket b of seg_bucket with the table in shared
+// memory or not.
 template <class Shape>
-int fit_bucket(int np1, Shape shape) {
-  int b = seg_bucket(np1);
-  if (b != 0 && b < 64 && shape(b).shmem > SEG_SMEM) b = 64;
-  return b != 0 && shape(b).shmem <= SEG_SMEM ? b : BLOCK_BUCKET;
+int fit_bucket(int np1, int topo_len, Shape shape) {
+  const int b = seg_bucket(np1);
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool table = pass == 0;
+    if (table && b != 0 && b < 64 && shape(b, true).shmem <= SEG_SMEM)
+      return b;
+    if (b != 0 && shape(64, table).shmem <= SEG_SMEM) return 64;
+    if (table && table_doubles(topo_len) <= BLOCK_ROOM) return BLOCK_BUCKET;
+  }
+  return BLOCK_BUCKET;
+}
+
+// The shape in bucket b of seg_bucket of nlanes lanes whose segments each
+// take slice(std::integral_constant<int, b>()) doubles, the table placed
+// as `table` says: 1 in shared memory, 0 in device memory, -1 in shared
+// memory when it fits beside the slices (fit_bucket's choice)
+template <class Slice>
+SegShape seg_shape_at(int b, int nlanes, int topo_len, int table,
+                      Slice slice) {
+  auto at = [&](auto c) {
+    constexpr int B = decltype(c)::value;
+    const SegShape s =
+        seg_shape_of<B>(nlanes, topo_len, slice(c), table != 0);
+    return table < 0 && s.shmem > SEG_SMEM
+               ? seg_shape_of<B>(nlanes, topo_len, slice(c), false)
+               : s;
+  };
+  switch (b) {
+    case 4: return at(std::integral_constant<int, 4>());
+    case 8: return at(std::integral_constant<int, 8>());
+    case 16: return at(std::integral_constant<int, 16>());
+    case 32: return at(std::integral_constant<int, 32>());
+    default: return at(std::integral_constant<int, 64>());
+  }
 }
 
 // Launch a segment kernel in shape sh on `stream` (past 48 KB of shared
@@ -874,10 +979,10 @@ cudaError_t seg_launch(void (*kernel)(P...), const SegShape& sh,
 }
 
 // Launch a block kernel in shape sh (block_shape), whose last argument is
-// the workspace: with the slices in device memory, a bounded grid of as
-// many blocks as `work` (work_len doubles) holds slices, at most one a
-// lane, each looping over the lanes; cudaErrorInvalidValue when it holds
-// none.
+// the workspace, null while the slices are in shared memory: with the
+// slices in device memory, a bounded grid of as many blocks as `work`
+// (work_len doubles) holds slices, at most one a lane, each looping over
+// the lanes; cudaErrorInvalidValue when it holds none.
 template <class... P, class... A>
 cudaError_t block_launch(void (*kernel)(P...), SegShape sh, double* work,
                          long long work_len, cudaStream_t stream,
@@ -887,7 +992,8 @@ cudaError_t block_launch(void (*kernel)(P...), SegShape sh, double* work,
     if (work == nullptr || slices < 1) return cudaErrorInvalidValue;
     if (slices < sh.blocks) sh.blocks = static_cast<int>(slices);
   }
-  return seg_launch(kernel, sh, stream, args..., work);
+  return seg_launch(kernel, sh, stream, args...,
+                    sh.work > 0 ? work : nullptr);
 }
 
 // Doubles of one segment's slice of the OP and DC sweep kernels' shared
@@ -900,30 +1006,21 @@ __host__ __device__ constexpr int opdc_slice(int lane_doubles) {
   return (NMAX + 2) * (NMAX + 1) + NMAX + ((lane_doubles + 1) & ~1);
 }
 
-template <int NMAX>
-SegShape opdc_shape(int nlanes, int topo_len, int lane_doubles) {
-  return seg_shape_of<NMAX>(nlanes, topo_len,
-                            opdc_slice<NMAX>(lane_doubles));
-}
-
 // The OP or DC sweep kernel's shape in bucket b (a bucket of seg_bucket,
-// or BLOCK_BUCKET)
+// or BLOCK_BUCKET), the table placed as seg_shape_at's `table` says
 inline SegShape opdc_shape_in(int b, int np1, int nlanes, int topo_len,
-                              int lane_doubles) {
-  switch (b) {
-    case 4: return opdc_shape<4>(nlanes, topo_len, lane_doubles);
-    case 8: return opdc_shape<8>(nlanes, topo_len, lane_doubles);
-    case 16: return opdc_shape<16>(nlanes, topo_len, lane_doubles);
-    case 32: return opdc_shape<32>(nlanes, topo_len, lane_doubles);
-    case 64: return opdc_shape<64>(nlanes, topo_len, lane_doubles);
-    default: return block_shape(np1, nlanes, topo_len, lane_doubles);
-  }
+                              int lane_doubles, int table = -1) {
+  if (b == BLOCK_BUCKET)
+    return block_shape(np1, nlanes, topo_len, lane_doubles);
+  return seg_shape_at(b, nlanes, topo_len, table, [=](auto c) {
+    return opdc_slice<decltype(c)::value>(lane_doubles);
+  });
 }
 
 // The OP and DC sweep kernels' bucket for np1 (fit_bucket)
 inline int opdc_bucket(int np1, int topo_len, int lane_doubles) {
-  return fit_bucket(np1, [=](int b) {
-    return opdc_shape_in(b, np1, 1, topo_len, lane_doubles);
+  return fit_bucket(np1, topo_len, [=](int b, bool table) {
+    return opdc_shape_in(b, np1, 1, topo_len, lane_doubles, table);
   });
 }
 

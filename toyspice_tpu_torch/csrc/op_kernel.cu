@@ -49,13 +49,14 @@ namespace {
 using namespace tsr;
 
 // A launch's lanes on segments of W threads (newton.cuh Seg), a block's
-// lanes as seg_shape_of sets them: the table, then each segment's slice
+// lanes as seg_shape_of sets them: the table (with TSH; else it is read
+// in device memory, in the 64-row bucket only), then each segment's slice
 // (newton.cuh opdc_slice).
 // lane_doubles is ops/op.py lane_doubles: the dyn row, then the junction
 // voltages and value slots (newton_doubles); a launch that gives fewer
 // than the deck's counts need returns x all NaN, jv0, 0 iterations and
 // not converged on every lane, and reads and writes no slice.
-template <int NMAX, bool PHYS>
+template <int NMAX, bool PHYS, bool TSH>
 __global__ void __launch_bounds__(THREADS, SEG_BLOCKS)
 op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
               const double* __restrict__ dev,
@@ -68,9 +69,7 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
   constexpr int W = Seg<NMAX>::W, R = Seg<NMAX>::R;
   constexpr unsigned mask = 0xffffffffu;
   extern __shared__ __align__(16) double seg_smem[];
-  int* topo = reinterpret_cast<int*>(seg_smem);
-  for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
-  __syncthreads();
+  const int* topo = kernel_table<TSH>(topo_g, topo_len, seg_smem);
   const int seg = threadIdx.x / W;
   const int me = threadIdx.x & (W - 1);  // its rows: me + s * W
   const int lane0 =
@@ -103,7 +102,7 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
     return;
   }
 
-  double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
+  double* sl = slice_base<TSH>(seg_smem, topo_len) +
                seg * opdc_slice<NMAX>(lane_doubles);
   double* buf = sl;
   double* rows = sl + (NMAX + 2);
@@ -168,10 +167,10 @@ op_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
 // on thread i (mod T), the convergence a block-wide AND, the system
 // eliminated by gj_block in the block's slice).  The lane's system, x, the
 // last iterate and its lane_doubles live in the block's slice
-// (newton.cuh block_slice): shared memory while the table and the slice
-// fit it, else a slice of `work` in device memory (block k takes slice k
-// and lanes k, k + gridDim.x, ...).
-template <bool PHYS>
+// (newton.cuh block_slice): shared memory while it fits (newton.cuh
+// block_place), else a slice of `work` in device memory (block k takes
+// slice k and lanes k, k + gridDim.x, ...; work is null otherwise).
+template <bool PHYS, bool TSH>
 __global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_MIN_BLOCKS)
 op_block_kernel(const int* __restrict__ topo_g, int topo_len,
                 int lane_doubles, const double* __restrict__ dev,
@@ -184,9 +183,7 @@ op_block_kernel(const int* __restrict__ topo_g, int topo_len,
                 double* work) {
   constexpr int T = BLOCK_THREADS;
   extern __shared__ __align__(16) double seg_smem[];
-  int* topo = reinterpret_cast<int*>(seg_smem);
-  for (int i = threadIdx.x; i < topo_len; i += T) topo[i] = topo_g[i];
-  __syncthreads();
+  const int* topo = kernel_table<TSH>(topo_g, topo_len, seg_smem);
   const int me = threadIdx.x;
   const int n = topo[H_NP1];
   const int nr = topo[H_NR], nc = topo[H_NC], nl = topo[H_NL];
@@ -195,10 +192,9 @@ op_block_kernel(const int* __restrict__ topo_g, int topo_len,
   const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
   const int* rlin = roff + n + 1;  // each row's linear prefix
   const int dw = 3 + nv_src + ni + nl;
-  const long long slice = block_slice(n, lane_doubles);
-  double* const m = block_in_shared(topo_len, slice)
-                        ? seg_smem + (topo_len + 3) / 4 * 2
-                        : work + (size_t)blockIdx.x * slice;
+  double* const m =
+      work ? work + (size_t)blockIdx.x * block_slice(n, lane_doubles)
+           : slice_base<TSH>(seg_smem, topo_len);
   double* const xs = m + gj_slice_doubles(n);
   double* const xo = xs + ((n + 1) & ~1);
   double* const dyn = xo + ((n + 1) & ~1);
@@ -262,19 +258,26 @@ cudaError_t launch(int np1, const int* topo, int topo_len, int lane_doubles,
                    int* iters, int* conv, int nlanes, double reltol,
                    double abstol, int max_iter, double gmin_floor,
                    double* work, long long work_len, cudaStream_t stream) {
-  if constexpr (NMAX == BLOCK_BUCKET)
-    return block_launch(op_block_kernel<PHYS>,
-                        block_shape(np1, nlanes, topo_len, lane_doubles),
-                        work, work_len, stream, topo, topo_len,
-                        lane_doubles, dev, dyn, x0, jv0, x_out, jv_out,
-                        iters, conv, nlanes, reltol, abstol, max_iter,
-                        gmin_floor);
-  else
-    return seg_launch(op_seg_kernel<NMAX, PHYS>,
-                      opdc_shape<NMAX>(nlanes, topo_len, lane_doubles),
-                      stream, topo, topo_len, lane_doubles, dev, dyn, x0,
-                      jv0, x_out, jv_out, iters, conv, nlanes, reltol,
-                      abstol, max_iter, gmin_floor);
+  const SegShape sh =
+      opdc_shape_in(NMAX, np1, nlanes, topo_len, lane_doubles);
+  // the instantiation that keeps the table where the shape does (np1's
+  // buckets of 4 to 32 rows only in shared memory)
+  auto go = [&](auto tsh) -> cudaError_t {
+    constexpr bool T = decltype(tsh)::value;
+    if constexpr (NMAX == BLOCK_BUCKET)
+      return block_launch(op_block_kernel<PHYS, T>, sh, work, work_len,
+                          stream, topo, topo_len, lane_doubles, dev, dyn,
+                          x0, jv0, x_out, jv_out, iters, conv, nlanes,
+                          reltol, abstol, max_iter, gmin_floor);
+    else
+      return seg_launch(op_seg_kernel<NMAX, PHYS, T>, sh, stream, topo,
+                        topo_len, lane_doubles, dev, dyn, x0, jv0, x_out,
+                        jv_out, iters, conv, nlanes, reltol, abstol,
+                        max_iter, gmin_floor);
+  };
+  if (sh.table) return go(std::true_type());
+  if constexpr (NMAX >= 64) return go(std::false_type());
+  return cudaErrorInvalidValue;
 }
 
 template <bool PHYS>
@@ -322,7 +325,8 @@ extern "C" int tsr_op(int np1, const int* topo, int topo_len,
 // The launch shape of the OP and DC sweep kernels for nlanes lanes of np1
 // (newton.cuh opdc_shape_in): out = (W, lanes a block, blocks, threads a
 // block, bytes of shared memory a block, doubles of a block's slice in
-// device memory: 0 when the slices fit shared memory); returns
+// device memory: 0 when the slices fit shared memory, 1 when the table is
+// in shared memory: 0 when it is read in device memory); returns
 // cudaErrorInvalidValue for np1 < 1.
 extern "C" int tsr_opdc_seg_shape(int np1, int nlanes, int topo_len,
                                   int lane_doubles, int* out) {
@@ -335,6 +339,7 @@ extern "C" int tsr_opdc_seg_shape(int np1, int nlanes, int topo_len,
   out[3] = s.threads;
   out[4] = s.shmem;
   out[5] = s.work;
+  out[6] = s.table;
   return 0;
 }
 

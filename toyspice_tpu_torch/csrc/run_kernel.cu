@@ -46,9 +46,8 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nl = nonlinear ? a.nl_doubles : 0;
   return with_bucket<MIN_BUCKET, MAX_BUCKET>(
-      run_bucket(np1, a.topo_len, nl), [&](auto b) {
+      run_bucket(np1, a.topo_len, a.lane_doubles), [&](auto b) {
         return launch_kind<decltype(b)::value, STORE>(a, nonlinear, mag, s);
       });
 }
@@ -62,22 +61,24 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 // stamps, physics the physics semantics and trap != 0 its trapezoidal
 // companions (every run-kernel library has this entry point; this one
 // holds compat, and refuses physics, trap and LM/K with a Newton).  topo
-// is the whole table, row view included; nl_doubles a Newton deck's
-// junction voltages and value slots a lane (ops/run.py newton_doubles),
+// is the whole table, row view included; lane_doubles the doubles a lane
+// keeps beside its system (ops/run.py run_doubles: its source values, an
+// even count, then a Newton deck's junction voltages and value slots),
 // which size its segments' slices; work holds work_len doubles, the block
 // bucket's slices that do not fit shared memory (ops/run.py block_work;
 // not read otherwise).  state and jv are updated in place; t, dt and att
 // are written.
 extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
                        int trap, const int* topo, int topo_len,
-                       int nl_doubles, const double* dev, const double* rc,
+                       int lane_doubles, const double* dev,
+                       const double* rc,
                        double* state, double* jv, double* t, double* dt,
                        int* acc, int* att, int* fail, int* nri, int nlanes,
                        double tstop, double minstep, double tmax,
                        double trtol, int max_attempts, double reltol,
                        double abstol, int max_iter, double* work,
                        long long work_len, void* stream) {
-  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+  RunArgs a{topo,    topo_len, lane_doubles, dev,     rc,      state,
             jv,      t,        dt,         acc,     att,     fail,
             nri,     nlanes,   tstop,      minstep, tmax,    trtol,
             max_attempts,      reltol,     abstol,  max_iter, 0.0,
@@ -96,7 +97,7 @@ extern "C" int tsr_run(int np1, int nonlinear, int mag, int physics,
 // lane whose block is full.
 extern "C" int tsr_run_store(
     int np1, int nonlinear, int mag, int physics, int trap, const int* topo,
-    int topo_len, int nl_doubles,
+    int topo_len, int lane_doubles,
     const double* dev, const double* rc, double* state, double* jv,
     double* t, double* dt, int* acc, int* att, int* fail, int* nri,
     int nlanes, double tstop, double minstep, double tmax, double trtol,
@@ -104,7 +105,7 @@ extern "C" int tsr_run_store(
     double tstart, int max_store, int stream, double* out_x, double* out_t,
     int* out_n, int* overflow, double* work, long long work_len,
     void* cuda_stream) {
-  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+  RunArgs a{topo,    topo_len, lane_doubles, dev,     rc,      state,
             jv,      t,        dt,         acc,     att,     fail,
             nri,     nlanes,   tstop,      minstep, tmax,    trtol,
             max_attempts,      reltol,     abstol,  max_iter, tstart,
@@ -119,16 +120,17 @@ extern "C" int tsr_run_store(
 #endif
 
 // The launch shape of a deck of np1 unknowns over nlanes lanes with a
-// table of topo_len words (and, a Newton deck, nl_doubles of junction
-// voltages and value slots a lane; 0 for a linear one), as the entries
-// above compute it: out = {W, lanes a block, blocks, threads a block,
-// bytes of shared memory, doubles of a block's slice in device memory (0
-// when the slices fit shared memory; the block bucket's grid is then
-// bounded by the workspace)}; returns cudaErrorInvalidValue for np1 < 1.
+// table of topo_len words and lane_doubles a lane (ops/run.py
+// run_doubles), as the entries above compute it: out = {W, lanes a block,
+// blocks, threads a block, bytes of shared memory, doubles of a block's
+// slice in device memory (0 when the slices fit shared memory; the block
+// bucket's grid is then bounded by the workspace), 1 when the table is in
+// shared memory (0: read in device memory)}; returns
+// cudaErrorInvalidValue for np1 < 1.
 extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
-                                 int nl_doubles, int* out) {
+                                 int lane_doubles, int* out) {
   SegShape s;
-  if (!seg_shape_np1(np1, nlanes, topo_len, nl_doubles, &s))
+  if (!seg_shape_np1(np1, nlanes, topo_len, lane_doubles, &s))
     return static_cast<int>(cudaErrorInvalidValue);
   out[0] = s.w;
   out[1] = s.per_block;
@@ -136,17 +138,16 @@ extern "C" int tsr_run_seg_shape(int np1, int nlanes, int topo_len,
   out[3] = s.threads;
   out[4] = s.shmem;
   out[5] = s.work;
+  out[6] = s.table;
   return 0;
 }
 
 // The bucket (newton.cuh seg_bucket, or BLOCK_BUCKET) a launch of np1
-// unknowns with a table of topo_len words and nl_doubles (0 for a linear
-// deck) takes (run_kernel.cuh run_bucket: np1's, the 64-row one when np1's
-// block overflows shared memory, the block bucket past 64 rows or when one
-// lane overflows the 64-row bucket's block): 64 and BLOCK_BUCKET are the
-// -DTSR_WIDE library's, ops/run.py run_bucket says the same.
-extern "C" int tsr_run_bucket(int np1, int topo_len, int nl_doubles) {
-  return run_bucket(np1, topo_len, nl_doubles);
+// unknowns with a table of topo_len words and lane_doubles a lane takes
+// (newton.cuh fit_bucket): 64 and BLOCK_BUCKET are the -DTSR_WIDE
+// library's, ops/run.py run_bucket says the same.
+extern "C" int tsr_run_bucket(int np1, int topo_len, int lane_doubles) {
+  return run_bucket(np1, topo_len, lane_doubles);
 }
 
 extern "C" const char* tsr_error_string(int err) {

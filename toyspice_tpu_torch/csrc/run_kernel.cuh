@@ -78,20 +78,22 @@
 // here is rounded on its own, as in the torch version.
 //
 // The deck is data, not code: an int32 table (ops/run_plan.py, copied to
-// shared memory) lists the stamps as (row, col, tag, index, sign) in the
-// general engine's scatter order, the sources and the device nodes; the
-// lane's device values, source records, committed state and junction
-// voltages are f64 rows with the batch axis first.  One build serves every
-// eligible deck.  The system's rows, one a lane of the lane's segment of
-// W = NMAX lanes (the size bucket: 4, 8, 16 or 32), live in registers
-// (gj_warp_reg), each built from the table's row view (ops/run_plan.py
-// row_view); in the 64-row bucket (np1 33 to 64) a whole warp holds two
+// shared memory while it fits beside the lanes' slices, else read in
+// device memory through the cache, newton.cuh fit_bucket) lists the
+// stamps as (row, col, tag, index, sign) in the general engine's scatter
+// order, the sources and the device nodes; the lane's device values,
+// source records, committed state and junction voltages are f64 rows with
+// the batch axis first.  One build serves every eligible deck.  The
+// system's rows, one a lane of the lane's segment of W = NMAX lanes (the
+// size bucket: 4, 8, 16 or 32), live in registers (gj_warp_reg), each
+// built from the table's row view (ops/run_plan.py row_view); in the
+// 64-row bucket (np1 33 to 64) a whole warp holds two
 // rows a lane, built and eliminated in the segment's slice of shared
 // memory (gj_warp_smem); a Newton deck's junction voltages and value
 // slots live in the segment's slice too.  Past 64 rows (the block bucket,
 // newton.cuh BLOCK_BUCKET) a lane takes a block of BLOCK_THREADS, and
 // its system is built and eliminated (gj_block.cuh gj_block) in the
-// block's slice: shared memory while the table and the slice fit it,
+// block's slice: shared memory while it fits (newton.cuh block_place),
 // else a slice of a workspace in device memory.  NL (the Newton), MAG
 // (the LM and K stamps), STORE and PHYS are template parameters: the
 // instantiations without them compile to the code they had before; both
@@ -131,7 +133,6 @@ enum Src { SRC_DC = 0, SRC_SIN = 1, SRC_PULSE = 2, SRC_PWL = 3 };
 enum Rec { R_DC = 0, R_AMPL, R_FREQ, R_PHASE, R_V1, R_V2, R_DELAY, R_RISE,
            R_FALL, R_WIDTH, R_PERIOD, R_KNOTS };
 
-constexpr int MAX_SRC = 32;  // ops/run.py MAX_SOURCES
 constexpr double PI = 3.141592653589793;
 constexpr double TWO_PI = 2.0 * PI;
 
@@ -332,11 +333,12 @@ struct MagPhys {
 // ------------------------------------------------------- a lane's run
 
 // What one lane's attempts read and commit, as both kernels below lay it
-// out: the plan's counts and node lists (the table in shared memory), the
-// lane's device rows dv, source records rv and committed state st (in the
-// segment's slice, or in device memory), and the stamps, LTE and commit of
-// one attempt, each device, source and row taken by the thread k = me
-// (mod step) of the lane's team (a warp segment, or a block).
+// out: the plan's counts and node lists (the table, in shared or device
+// memory), the lane's device rows dv, source records rv and committed
+// state st (in the segment's slice, or in device memory), and the stamps,
+// LTE and commit of one attempt, each device, source and row taken by the
+// thread k = me (mod step) of the lane's team (a warp segment, or a
+// block).
 template <bool NL, bool MAG, bool PHYS>
 struct Lane {
   int n, nc, nl, nv_src, nsrc, nlm;
@@ -421,13 +423,6 @@ struct Lane {
     ph.d = d_st;
     ph.m = m_st;
     ph.trap = tr;
-  }
-
-  // a Newton deck's junction voltages and value slots, in doubles
-  // (ops/run.py newton_doubles)
-  __device__ __forceinline__ int newton_doubles() const {
-    return deck.kj + D_SLOTS * deck.n_d + Q_SLOTS * deck.n_q +
-           M_SLOTS * deck.n_m;
   }
 
   // the sources at t_src into sv: trapezoidal physics at the end of the
@@ -629,13 +624,30 @@ constexpr int SEG_ROWS = 192;
 // Doubles of one segment's slice of shared memory: the elimination's
 // exchange buffer and the NMAX build rows (newton.cuh Seg: stride NMAX +
 // 2, so every row starts 16-byte aligned, or NMAX + 1 in the 64-row
-// bucket), x, the source values and the lane's rows; a Newton deck adds
-// nl_doubles (its junction voltages and value slots, newton_doubles),
-// rounded up to an even count.
+// bucket), x, the lane's rows, and lane_doubles of the lane's own
+// (ops/run.py run_doubles: its source values, an even count, then a Newton
+// deck's junction voltages and value slots, newton_doubles), rounded up to
+// an even count.
 template <int NMAX>
-__host__ __device__ constexpr int seg_slice(int nl_doubles = 0) {
-  return (NMAX + 2) * (NMAX + 1) + NMAX + MAX_SRC + SEG_ROWS +
-         ((nl_doubles + 1) & ~1);
+__host__ __device__ constexpr int seg_slice(int lane_doubles) {
+  return (NMAX + 2) * (NMAX + 1) + NMAX + SEG_ROWS +
+         ((lane_doubles + 1) & ~1);
+}
+
+// The source values' doubles of a lane's slice: the deck's V and I
+// sources, an even count (ops/run.py run_doubles)
+__device__ __forceinline__ int source_slots(const int* topo) {
+  return (topo[H_NV] + topo[H_NI] + 1) & ~1;
+}
+
+// Whether lane_doubles is short of the deck's source values and, in a
+// Newton instantiation, its junction voltages and value slots (ops/run.py
+// run_doubles): every lane fails before its first attempt then, and the
+// slice past the system and x is neither read nor written.
+template <bool NL>
+__device__ __forceinline__ bool short_slice_of(const int* topo,
+                                               int lane_doubles) {
+  return lane_doubles < source_slots(topo) + (NL ? deck_doubles(topo) : 0);
 }
 
 // A deck's whole run on a segment of W lanes of one warp per Monte-Carlo
@@ -679,9 +691,9 @@ __host__ __device__ constexpr int seg_slice(int nl_doubles = 0) {
 // counts do not move, and x is put back from the registers of each row's
 // thread.  Per-segment masks let the segments drift apart, and the warp
 // then issues each instruction once per segment.
-template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
+template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS, bool TSH>
 __global__ void __launch_bounds__(THREADS, SEG_BLOCKS)
-run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
+run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int lane_doubles,
                const double* __restrict__ dev, const double* __restrict__ rc,
                double* __restrict__ state, double* __restrict__ jv_g,
                double* __restrict__ t_io, double* __restrict__ dt_io,
@@ -695,9 +707,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
                int trap) {
   constexpr int W = Seg<NMAX>::W, R = Seg<NMAX>::R;
   extern __shared__ __align__(16) double seg_smem[];
-  int* topo = reinterpret_cast<int*>(seg_smem);
-  for (int i = threadIdx.x; i < topo_len; i += blockDim.x) topo[i] = topo_g[i];
-  __syncthreads();
+  const int* topo = kernel_table<TSH>(topo_g, topo_len, seg_smem);
   const int seg = threadIdx.x / W;
   const int me = threadIdx.x & (W - 1);  // its rows: me + s * W
   const int lane0 =
@@ -708,13 +718,14 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
   const int row_lane = real ? lane : nlanes - 1;  // rows read, never written
   constexpr unsigned mask = 0xffffffffu;
 
-  double* sl = seg_smem + (topo_len + 3) / 4 * 2 +
-               seg * seg_slice<NMAX>(NL ? nl_doubles : 0);
+  double* sl = slice_base<TSH>(seg_smem, topo_len) +
+               seg * seg_slice<NMAX>(lane_doubles);
   double* buf = sl;
   double* rows = sl + (NMAX + 2);
   double* xs = sl + (NMAX + 2) * (NMAX + 1);
   double* sv = xs + NMAX;
-  double* own = sv + MAX_SRC;
+  double* own = sv + source_slots(topo);
+  const bool short_slice = short_slice_of<NL>(topo, lane_doubles);
 
   const int n = topo[H_NP1];
   const int ks = topo[H_KS], nd = topo[H_ND], nrc = topo[H_NRC];
@@ -725,7 +736,7 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
 
   // the lane's rows, read once into the slice and the state written back
   // once at the end, when they fit it (the same for every lane of a deck)
-  const bool in_sh = ks + nd + nrc <= SEG_ROWS;
+  const bool in_sh = !short_slice && ks + nd + nrc <= SEG_ROWS;
   double* const st_g = state + (size_t)row_lane * ks;
   double* st = st_g;
   const double* dv = dev + (size_t)row_lane * nd;
@@ -745,10 +756,6 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
   const int ndev = L.deck.n_d + L.deck.n_q + L.deck.n_m;
   double* jv = own + SEG_ROWS;
   double* nv = jv + L.deck.kj;
-  // a slice shorter than the deck's junction voltages and value slots
-  // (nl_doubles is not ops/run.py newton_doubles): every lane fails
-  // before its first attempt, and the slice is neither read nor written
-  const bool short_slice = NL && nl_doubles < L.newton_doubles();
   if constexpr (NL)
     if (!short_slice)
       for (int i = me; i < L.deck.kj; i += W)
@@ -929,17 +936,17 @@ run_seg_kernel(const int* __restrict__ topo_g, int topo_len, int nl_doubles,
 // k = t (mod T); the store, each thread writing its rows of x.  The lane's
 // system, x, the last iterate, its source values, junction voltages and
 // value slots live in the block's slice (newton.cuh block_slice): shared
-// memory while the table and the slice fit it, else a slice of `work` in
-// device memory, which the block barriers order as they order shared
-// memory (block k takes slice k and lanes k, k + gridDim.x, ...); the
-// lane's rows (committed state, device rows, source records) are read and
-// written in device memory.  One lane a block runs no attempt another
-// lane needs, so nothing runs along: every loop ends on its own lane's
-// values, the same on every thread.
-template <bool NL, bool MAG, bool STORE, bool PHYS>
+// memory while it fits (newton.cuh block_place), else a slice of `work`
+// in device memory (work is null otherwise), which the block barriers
+// order as they order shared memory (block k takes slice k and lanes k,
+// k + gridDim.x, ...); the lane's rows (committed state, device rows,
+// source records) are read and written in device memory.  One lane a
+// block runs no attempt another lane needs, so nothing runs along: every
+// loop ends on its own lane's values, the same on every thread.
+template <bool NL, bool MAG, bool STORE, bool PHYS, bool TSH>
 __global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_MIN_BLOCKS)
 run_block_kernel(const int* __restrict__ topo_g, int topo_len,
-                 int nl_doubles, const double* __restrict__ dev,
+                 int lane_doubles, const double* __restrict__ dev,
                  const double* __restrict__ rc, double* __restrict__ state,
                  double* __restrict__ jv_g, double* __restrict__ t_io,
                  double* __restrict__ dt_io, int* __restrict__ acc_out,
@@ -952,22 +959,20 @@ run_block_kernel(const int* __restrict__ topo_g, int topo_len,
                  int* __restrict__ overflow, int trap, double* work) {
   constexpr int T = BLOCK_THREADS;
   extern __shared__ __align__(16) double seg_smem[];
-  int* topo = reinterpret_cast<int*>(seg_smem);
-  for (int i = threadIdx.x; i < topo_len; i += T) topo[i] = topo_g[i];
-  __syncthreads();
+  const int* topo = kernel_table<TSH>(topo_g, topo_len, seg_smem);
   const int me = threadIdx.x;
   const int n = topo[H_NP1];
   const int ks = topo[H_KS], nd = topo[H_ND], nrc = topo[H_NRC];
   const int4* ent = reinterpret_cast<const int4*>(topo + topo[H_ROWS]);
   const int* roff = topo + topo[H_ROWS] + 4 * topo[H_NE];
-  const long long slice = block_slice(n, MAX_SRC + (NL ? nl_doubles : 0));
-  double* const m = block_in_shared(topo_len, slice)
-                        ? seg_smem + (topo_len + 3) / 4 * 2
-                        : work + (size_t)blockIdx.x * slice;
+  double* const m =
+      work ? work + (size_t)blockIdx.x * block_slice(n, lane_doubles)
+           : slice_base<TSH>(seg_smem, topo_len);
   double* const xs = m + gj_slice_doubles(n);
   double* const xo = xs + ((n + 1) & ~1);
   double* const sv = xo + ((n + 1) & ~1);
-  double* const jv = sv + MAX_SRC;
+  double* const jv = sv + source_slots(topo);
+  const bool short_slice = short_slice_of<NL>(topo, lane_doubles);
   const double trtol100 = trtol / 100.0;
 
   for (int lane = blockIdx.x; lane < nlanes; lane += gridDim.x) {
@@ -977,11 +982,6 @@ run_block_kernel(const int* __restrict__ topo_g, int topo_len,
                                 rc + (size_t)lane * nrc, st, trap);
     const int kj = L.deck.kj;
     double* const nv = jv + kj;
-    // a slice shorter than the deck's junction voltages and value slots:
-    // every lane fails before its first attempt (the segment kernel's
-    // rule), and the slice's jv and value slots are neither read nor
-    // written
-    const bool short_slice = NL && nl_doubles < L.newton_doubles();
     if constexpr (NL)
       if (!short_slice)
         for (int i = me; i < kj; i += T) jv[i] = jv_g[(size_t)lane * kj + i];
@@ -1078,7 +1078,7 @@ run_block_kernel(const int* __restrict__ topo_g, int topo_len,
 struct RunArgs {
   const int* topo;
   int topo_len;
-  int nl_doubles;
+  int lane_doubles;
   const double* dev;
   const double* rc;
   double* state;
@@ -1108,71 +1108,67 @@ struct RunArgs {
   long long work_len;
 };
 
-// A deck's launch shape (newton.cuh seg_shape_of): nl_doubles is a
-// Newton deck's (0 for a linear one).
-template <int NMAX>
-SegShape seg_shape(int nlanes, int topo_len, int nl_doubles) {
-  return seg_shape_of<NMAX>(nlanes, topo_len, seg_slice<NMAX>(nl_doubles));
-}
-
-// The shape in bucket b (a bucket of seg_bucket, or BLOCK_BUCKET: the
-// block's slice holds the source values beside a Newton deck's
-// nl_doubles)
+// The shape in bucket b (a bucket of seg_bucket, or BLOCK_BUCKET) with
+// lane_doubles a lane (ops/run.py run_doubles), the table placed as
+// newton.cuh seg_shape_at's `table` says
 inline SegShape seg_shape_in(int b, int np1, int nlanes, int topo_len,
-                             int nl_doubles) {
-  switch (b) {
-    case 4: return seg_shape<4>(nlanes, topo_len, nl_doubles);
-    case 8: return seg_shape<8>(nlanes, topo_len, nl_doubles);
-    case 16: return seg_shape<16>(nlanes, topo_len, nl_doubles);
-    case 32: return seg_shape<32>(nlanes, topo_len, nl_doubles);
-    case 64: return seg_shape<64>(nlanes, topo_len, nl_doubles);
-    default:
-      return block_shape(np1, nlanes, topo_len, MAX_SRC + nl_doubles);
-  }
+                             int lane_doubles, int table = -1) {
+  if (b == BLOCK_BUCKET)
+    return block_shape(np1, nlanes, topo_len, lane_doubles);
+  return seg_shape_at(b, nlanes, topo_len, table, [=](auto c) {
+    return seg_slice<decltype(c)::value>(lane_doubles);
+  });
 }
 
 // The run kernel's bucket for np1 (newton.cuh fit_bucket)
-inline int run_bucket(int np1, int topo_len, int nl_doubles) {
-  return fit_bucket(np1, [=](int b) {
-    return seg_shape_in(b, np1, 1, topo_len, nl_doubles);
+inline int run_bucket(int np1, int topo_len, int lane_doubles) {
+  return fit_bucket(np1, topo_len, [=](int b, bool table) {
+    return seg_shape_in(b, np1, 1, topo_len, lane_doubles, table);
   });
 }
 
 // the shape of np1's launch; false for np1 < 1
-inline bool seg_shape_np1(int np1, int nlanes, int topo_len, int nl_doubles,
-                          SegShape* s) {
+inline bool seg_shape_np1(int np1, int nlanes, int topo_len,
+                          int lane_doubles, SegShape* s) {
   if (np1 < 1) return false;
-  *s = seg_shape_in(run_bucket(np1, topo_len, nl_doubles), np1, nlanes,
-                    topo_len, nl_doubles);
+  *s = seg_shape_in(run_bucket(np1, topo_len, lane_doubles), np1, nlanes,
+                    topo_len, lane_doubles);
   return true;
 }
 
 // The launch of one instantiation: a segment of a warp per lane, or in the
 // block bucket a block (a.work holding the slices that do not fit shared
-// memory); NL the Newton (a.nl_doubles sizes its slots), else a linear
-// deck.
+// memory); NL the Newton, else a linear deck; a.lane_doubles sizes the
+// lane's source values and a Newton deck's slots.
 template <int NMAX, bool NL, bool MAG, bool STORE, bool PHYS>
 cudaError_t launch(const RunArgs& a, cudaStream_t stream) {
-  const int nl = NL ? a.nl_doubles : 0;
-  if constexpr (NMAX == BLOCK_BUCKET) {
-    return block_launch(
-        run_block_kernel<NL, MAG, STORE, PHYS>,
-        block_shape(a.np1, a.nlanes, a.topo_len, MAX_SRC + nl), a.work,
-        a.work_len, stream, a.topo, a.topo_len, a.nl_doubles, a.dev, a.rc,
-        a.state, a.jv, a.t_io, a.dt_io, a.acc, a.att_io, a.fail, a.nri,
-        a.nlanes, a.tstop, a.minstep, a.tmax, a.trtol, a.max_attempts,
-        a.reltol, a.abstol, a.max_iter, a.tstart, a.max_store, a.stream,
-        a.out_x, a.out_t, a.out_n, a.overflow, a.trap);
-  } else {
-    return seg_launch(
-        run_seg_kernel<NMAX, NL, MAG, STORE, PHYS>,
-        seg_shape<NMAX>(a.nlanes, a.topo_len, nl), stream, a.topo,
-        a.topo_len, a.nl_doubles, a.dev, a.rc, a.state, a.jv, a.t_io,
-        a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop,
-        a.minstep, a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol,
-        a.max_iter, a.tstart, a.max_store, a.stream, a.out_x, a.out_t,
-        a.out_n, a.overflow, a.trap);
-  }
+  const SegShape sh =
+      seg_shape_in(NMAX, a.np1, a.nlanes, a.topo_len, a.lane_doubles);
+  // the instantiation that keeps the table where the shape does (np1's
+  // buckets of 4 to 32 rows only in shared memory)
+  auto go = [&](auto tsh) -> cudaError_t {
+    constexpr bool T = decltype(tsh)::value;
+    if constexpr (NMAX == BLOCK_BUCKET) {
+      return block_launch(
+          run_block_kernel<NL, MAG, STORE, PHYS, T>, sh, a.work, a.work_len,
+          stream, a.topo, a.topo_len, a.lane_doubles, a.dev, a.rc, a.state,
+          a.jv, a.t_io, a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes,
+          a.tstop, a.minstep, a.tmax, a.trtol, a.max_attempts, a.reltol,
+          a.abstol, a.max_iter, a.tstart, a.max_store, a.stream, a.out_x,
+          a.out_t, a.out_n, a.overflow, a.trap);
+    } else {
+      return seg_launch(
+          run_seg_kernel<NMAX, NL, MAG, STORE, PHYS, T>, sh, stream, a.topo,
+          a.topo_len, a.lane_doubles, a.dev, a.rc, a.state, a.jv, a.t_io,
+          a.dt_io, a.acc, a.att_io, a.fail, a.nri, a.nlanes, a.tstop,
+          a.minstep, a.tmax, a.trtol, a.max_attempts, a.reltol, a.abstol,
+          a.max_iter, a.tstart, a.max_store, a.stream, a.out_x, a.out_t,
+          a.out_n, a.overflow, a.trap);
+    }
+  };
+  if (sh.table) return go(std::true_type());
+  if constexpr (NMAX >= 64) return go(std::false_type());
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -59,9 +59,8 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.nlanes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nl = nonlinear ? a.nl_doubles : 0;
   return with_bucket<MIN_BUCKET, MAX_BUCKET>(
-      run_bucket(np1, a.topo_len, nl), [&](auto b) {
+      run_bucket(np1, a.topo_len, a.lane_doubles), [&](auto b) {
         return launch_kind<decltype(b)::value, STORE>(a, nonlinear,
                                                       physics, s);
       });
@@ -76,14 +75,15 @@ int launch_np1(const RunArgs& a, int np1, int nonlinear, int mag,
 // under physics, and under compat with a Newton.
 extern "C" int tsr_run_mag(int np1, int nonlinear, int mag, int physics,
                            int trap, const int* topo, int topo_len,
-                           int nl_doubles, const double* dev, const double* rc,
+                           int lane_doubles, const double* dev,
+                           const double* rc,
                            double* state, double* jv, double* t, double* dt,
                            int* acc, int* att, int* fail, int* nri,
                            int nlanes, double tstop, double minstep,
                            double tmax, double trtol, int max_attempts,
                            double reltol, double abstol, int max_iter,
                            double* work, long long work_len, void* stream) {
-  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+  RunArgs a{topo,    topo_len, lane_doubles, dev,     rc,      state,
             jv,      t,        dt,         acc,     att,     fail,
             nri,     nlanes,   tstop,      minstep, tmax,    trtol,
             max_attempts,      reltol,     abstol,  max_iter, 0.0,
@@ -100,14 +100,14 @@ extern "C" int tsr_run_mag(int np1, int nonlinear, int mag, int physics,
 // arguments of tsr_run_store in csrc/run_kernel.cu).
 extern "C" int tsr_run_mag_store(
     int np1, int nonlinear, int mag, int physics, int trap, const int* topo,
-    int topo_len, int nl_doubles, const double* dev, const double* rc,
+    int topo_len, int lane_doubles, const double* dev, const double* rc,
     double* state, double* jv, double* t, double* dt, int* acc, int* att,
     int* fail, int* nri, int nlanes, double tstop, double minstep,
     double tmax, double trtol, int max_attempts, double reltol,
     double abstol, int max_iter, double tstart, int max_store, int stream,
     double* out_x, double* out_t, int* out_n, int* overflow,
     double* work, long long work_len, void* cuda_stream) {
-  RunArgs a{topo,    topo_len, nl_doubles, dev,     rc,      state,
+  RunArgs a{topo,    topo_len, lane_doubles, dev,     rc,      state,
             jv,      t,        dt,         acc,     att,     fail,
             nri,     nlanes,   tstop,      minstep, tmax,    trtol,
             max_attempts,      reltol,     abstol,  max_iter, tstart,

@@ -8,9 +8,10 @@ where the AC kernel serves the deck, as the JAX package does at every
 np1: the AC system is exactly linear in omega, so one assemble per
 instance at omega = 1 gives G and B^, and one launch of the AC kernel
 (``ops/ac.py``) builds and solves every (instance, frequency) system,
-with no (B, F, 2np1, 2np1) tensor in memory.  Where the bias is one the
-OP kernel does not serve (its caps), or under ``TOYSPICE_AC=general``, it
-takes the general branch, ``make_ac``: the general OP as the bias, the
+with no (B, F, 2np1, 2np1) tensor in memory; a nonlinear deck's bias is
+the OP kernel's, at any size of deck.  Under ``TOYSPICE_AC=general`` (and
+``TOYSPICE_SOLVER=xla`` unless ``TOYSPICE_AC=fused``) it takes the general
+branch, ``make_ac``: the general OP as the bias, the
 dense (2np1, 2np1) system of every (instance, frequency) assembled at its
 own omega (``assemble_system_ac``), and one dense solve of all B·F
 systems (``ops/solve.linear_solve``; on the card ``csrc/gj_kernel.cu``).

@@ -16,16 +16,14 @@ sweep, the DC sweep kernel (``ops/dc.py``) or the stamped solve of every
 point (``engine/dc.make_dc``); for AC, that OP and the AC kernel
 (``engine/ac.py``).  The JAX package's kernels have no size gate
 (``ops/pallas_run.py`` ``run_ineligible_reason`` checks only the store), so
-its batch sends every deck to them; the port's kernels run any np1 (to 64
-on warps, past it a block a lane) with up to 32 sources and a stamp plan
-within their 48 KB shared-memory table, which is the only cap on the
-count of diodes, BJTs and MOSFETs.  A deck past those caps, or an AC past
-np1 = 32, takes the general engine, engine "general", with the cap in its
-reason (the streamed store too, ``make_tran_stream``):
-``engine/tran.make_tran``, ``engine/op.make_op``, ``engine/dc.make_dc``
-and ``engine/ac.make_ac``, whose Newton is a host
-loop over the stamped solve (any np1: past NBIG = 168 its systems are
-eliminated in device memory).
+its batch sends every deck to them, and so does the port's: its kernels
+have no cap left, any np1 (to 64 on warps, past it a block a lane), any
+number of sources and a stamp plan of any size (in shared memory while it
+fits beside the lanes' slices, else read in device memory).  The general
+engine, engine "general" (``engine/tran.make_tran``, ``engine/op.make_op``,
+``engine/dc.make_dc`` and ``engine/ac.make_ac``, whose Newton is a host
+loop over the stamped solve; any np1: past NBIG = 168 its systems are
+eliminated in device memory), runs under the overrides below.
 A deck, store or semantics none of them covers raises
 ``NotImplementedError`` with the reason.
 
@@ -103,9 +101,8 @@ def select_tran_engine(cc, cfg: TranConfig, in_axes,
     for ``resume=True``, whose fn(params, state0, t0, jv0, dt0=None,
     attempts0=None) continues a checkpointed run
     (``ops/run.make_tran_run``), and under ``TOYSPICE_TRAN_RUN=off``;
-    "general", ``engine/tran.make_tran``, for a deck past the kernels' caps
-    (resumed: fn(params, state0, t0, jv0, dt0=None)), with the kernels'
-    reason, under ``TOYSPICE_TRAN=general``, and under
+    "general", ``engine/tran.make_tran`` (resumed: fn(params, state0, t0,
+    jv0, dt0=None)), under ``TOYSPICE_TRAN=general``, and under
     ``TOYSPICE_SOLVER=xla`` unless ``TOYSPICE_TRAN=fused``, as the JAX
     package decides (engine/batch.py:96-112); the engine takes the solves
     and kernels the overrides choose, and its reason names them
@@ -189,12 +186,14 @@ def make_tran_stream(cc, cfg: TranConfig, chunk_store: int,
     """The (fresh, cont) pair of the streamed store: store='full' with a
     ``chunk_store``-row buffer whose lanes pause when it is full; ``cont``
     is the resume flavour.  The kernels' store instantiation runs it
-    (engine "store"); a deck past the kernels' caps takes the general
-    engine's pair (``engine/tran.make_tran`` with ``stream=True``, engine
-    "general"), as the JAX package streams every deck its fused engine
-    takes.  The pair's ``.engine`` and ``.engine_reason`` are set on both
-    callables, as ``make_tran_batch`` sets them.  Build once and pass to
-    ``stream_transient_chunks`` via ``fns`` when draining repeatedly."""
+    (engine "store"), as the JAX package streams every deck on its fused
+    engine; under the overrides that choose the general engine for
+    ``make_tran_batch`` (``TOYSPICE_TRAN=general``, ``TOYSPICE_SOLVER=xla``)
+    the general engine's pair runs (``engine/tran.make_tran`` with
+    ``stream=True``, engine "general").  The pair's ``.engine`` and
+    ``.engine_reason`` are set on both callables, as ``make_tran_batch``
+    sets them.  Build once and pass to ``stream_transient_chunks`` via
+    ``fns`` when draining repeatedly."""
     from ..ops.run import make_tran_run, run_ineligible_reason
     from ..ops.run_plan import fused_ineligible_reason
     from .tran import make_tran
@@ -202,7 +201,8 @@ def make_tran_stream(cc, cfg: TranConfig, chunk_store: int,
     if int(chunk_store) < 1:
         raise ValueError("chunk_store must be at least 1 row")
     cfg_c = cfg._replace(max_store=int(chunk_store))
-    why = run_ineligible_reason(cc, semantics, "full", opts)
+    why = overrides.general_reason(
+        "TRAN", run_ineligible_reason(cc, semantics, "full", opts))
     if why is not None:
         why_not = (fused_ineligible_reason(cc, semantics, "full", opts)
                    or general_ineligible_reason(cc, semantics))
@@ -336,8 +336,8 @@ def select_op_engine(cc, semantics: str = "compat",
                      opts: SimOptions = DEFAULTS):
     """(engine_name, reason) for a batched OP or DC sweep: "fused", the
     OP kernel (the DC sweep kernel) on a nonlinear deck, "general", the
-    general engine's Newton over the stamped solve, on a nonlinear deck
-    past the kernels' caps (with their reason), or "linear", the stamped
+    general engine's Newton over the stamped solve, under the overrides
+    below, or "linear", the stamped
     solve, on a linear one (the general engine's OP on a linear deck, which
     the JAX package names "general"); anything none serves (a kind not
     ported, a semantics other than compat and physics) raises
@@ -346,14 +346,12 @@ def select_op_engine(cc, semantics: str = "compat",
     nonlinear one unless ``TOYSPICE_OP=fused`` (engine/batch.py:302-329 of
     the JAX package); the reason names the solves and kernels the
     overrides choose (``make_op_engine`` builds it with them)."""
-    from ..ops.run import kernel_caps_reason
-    from ..ops.run_plan import make_plan, nonlinear
+    from ..ops.run_plan import nonlinear
 
     if nonlinear(cc):
-        # the OP kernel's gates are the general engine's plus its caps
+        # the OP kernel's gates are the general engine's
         why = general_ineligible_reason(cc, semantics)
-        caps = None if why else kernel_caps_reason(make_plan(cc, "op"))
-        general = overrides.general_reason("OP", caps)
+        general = overrides.general_reason("OP", None)
         engine, reason = (("general", general) if general else
                           ("fused", f"OP kernel eligible ({semantics})"))
     else:
@@ -391,8 +389,8 @@ def run_op_batch(cc, params, in_axes=None, opts: SimOptions = DEFAULTS,
     """Batched operating point: each lane runs plain NR and the rescue
     ladders on its own parameters.  Returns the FusedOPResult (x (B, np1),
     jv, converged (B,), stage (B,), iters) of the OP kernel on a nonlinear
-    deck, the OPResult (x, jv, converged, stage) of the general OP on a
-    nonlinear deck past the kernels' caps and of the linear OP (jv {}) on a
+    deck, the OPResult (x, jv, converged, stage) of the general OP under
+    the overrides (``select_op_engine``) and of the linear OP (jv {}) on a
     linear one, on the device the parameters lie on; ``in_axes`` keeps the
     JAX package's call shape (the port reads the batch axis from the
     tensors themselves)."""
@@ -431,8 +429,8 @@ def run_dc_batch(cc, src_slots, params, in_axes=None, points=None,
     """Batched DC sweep.  Returns (xs (B, P, np1), conv (B, P)): a
     nonlinear deck through the DC sweep kernel (every point of every lane
     in one launch, junction voltages carried point to point,
-    dc.go:142-187), a nonlinear deck past the kernels' caps through the
-    general engine's sweep (one host loop over the points), a linear one
+    dc.go:142-187), under the overrides (``select_op_engine``) through
+    the general engine's sweep (one host loop over the points), a linear one
     through one stamped solve of all B·P systems (``make_dc_engine``).
     ``points`` is (P,) or (P, 2) for a nested sweep; ``in_axes`` keeps the
     JAX package's call shape."""

@@ -152,14 +152,14 @@ RUN_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "pqp"
 RUN_STORE_SIG = "iiiiipii" + "p" * 10 + "iddddiddi" + "dii" + "p" * 4 + "pqp"
 _ARGTYPES = {
     # tsr_run(np1, nonlinear, mag, physics, trap, topo, topo_len,
-    #         nl_doubles, dev, rc, state, jv, t, dt, acc, att, fail, nri,
+    #         lane_doubles, dev, rc, state, jv, t, dt, acc, att, fail, nri,
     #         nlanes, tstop, minstep, tmax, trtol, max_attempts, reltol,
     #         abstol, max_iter, work, work_len, stream)
     # tsr_run_store(the same up to max_iter, tstart, max_store, stream_flag,
     #               out_x, out_t, out_n, overflow, work, work_len, stream)
     # tsr_run_phys, tsr_run_mag and their _store entries: the same
-    # tsr_run_seg_shape(np1, nlanes, topo_len, nl_doubles, out[6])
-    # tsr_run_bucket(np1, topo_len, nl_doubles)
+    # tsr_run_seg_shape(np1, nlanes, topo_len, lane_doubles, out[7])
+    # tsr_run_bucket(np1, topo_len, lane_doubles)
     # the _wide libraries: their base's entries, the 64-row and block
     # buckets alone
     "run": (("tsr_run", RUN_SIG), ("tsr_run_seg_shape", "iiiip"),
@@ -178,7 +178,7 @@ _ARGTYPES = {
     # tsr_op(np1, topo, topo_len, lane_doubles, dev, dyn, x0, jv0, x, jv,
     #        iters, conv, nlanes, reltol, abstol, max_iter, gmin_floor,
     #        physics, work, work_len, stream)
-    # tsr_opdc_seg_shape(np1, nlanes, topo_len, lane_doubles, out[6])
+    # tsr_opdc_seg_shape(np1, nlanes, topo_len, lane_doubles, out[7])
     "op": (("tsr_op", "ipii" + "p" * 8 + "iddidi" + "pqp"),
            ("tsr_opdc_seg_shape", "iiiip")),
     # tsr_stamped(n, tab, tab_len, view, view_len, nnz, nrhs, vals, rvals,

@@ -38,7 +38,7 @@ def ac_ineligible_reason(cc, semantics: str = "compat", opts=None):
     """Why this deck can NOT run the port's AC (its bias and the AC
     kernel); None when it can.  The AC kernel takes every np1, as the
     JAX package's ``ac_fused_ineligible_reason`` does; a nonlinear deck's
-    bias is the OP kernel's, with its caps."""
+    bias is the OP kernel's, at any size of deck."""
     why = semantics_reason(semantics)
     if why is not None:
         return why

@@ -36,7 +36,7 @@ from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices
 from .op import op_fused_ineligible_reason, op_mag_terms, opdc_work
-from .run import check_caps, check_rows, newton_doubles
+from .run import check_rows, check_shape, newton_doubles
 from .run_plan import (const_stack, first_leaf, infer_batch, lanes,
                        make_plan)
 from .solve import work_args
@@ -101,7 +101,8 @@ def launch_dc_kernel(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
     if not dev.is_cuda:
         raise ValueError("launch_dc_kernel needs CUDA tensors")
     _check_inputs(plan, dev, dyn, vs)
-    check_caps(plan)
+    lane = lane_doubles(plan)
+    check_shape(plan, lane)
     lib = _build.load("dc")
     device = dev.device
     b, npts, n = dev.shape[0], vs.shape[-2], plan.np1
@@ -110,7 +111,6 @@ def launch_dc_kernel(plan, dev, dyn, vs, sc: DCScalars) -> DCResult:
     iters = torch.empty((b, npts), dtype=I32, device=device)
     conv = torch.empty((b, npts), dtype=I32, device=device)
     stride = npts * plan.counts[3] if vs.ndim == 3 else 0
-    lane = lane_doubles(plan)
     work = opdc_work(plan, lane, b, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -43,8 +43,8 @@ from ..models.sources import eval_sources
 from ..utils.tensor import true_div
 from . import _build
 from .newton import Builder, Devices, converged
-from .run import (BLOCK_BUCKET, block_work, check_caps, check_rows,
-                  fit_bucket, kernel_caps_reason, newton_doubles)
+from .run import (BLOCK_BUCKET, block_work, check_rows, check_shape,
+                  fit_bucket, newton_doubles)
 from .run_plan import (SLICE_KINDS, const_stack, first_leaf, infer_batch,
                        jv_tree, lanes, make_plan, nonlinear,
                        semantics_reason, source_leaves, source_stack)
@@ -70,7 +70,7 @@ def op_fused_ineligible_reason(cc, semantics: str = "compat", opts=None):
     if not nonlinear(cc):
         return ("linear circuit (the OP kernel serves decks with a diode, "
                 "BJT or MOSFET; a linear OP is one solve, not ported)")
-    return kernel_caps_reason(make_plan(cc, "op"))
+    return None
 
 
 class OPScalars(NamedTuple):
@@ -128,8 +128,10 @@ def segment_shape(plan, b, lane):
     ``ops/dc.py``), as the op library computes it (``csrc/newton.cuh``
     ``opdc_shape_in``): (W, lanes a block, blocks, threads a block, bytes
     of shared memory a block, doubles of a block's slice in device memory:
-    0 unless the block bucket's slices outgrow shared memory)."""
-    out = (ctypes.c_int * 6)()
+    0 unless the block bucket's slices outgrow shared memory, 1 when the
+    table is in shared memory: 0 when the kernel reads it in device
+    memory)."""
+    out = (ctypes.c_int * 7)()
     err = _build.load("op").tsr_opdc_seg_shape(
         plan.np1, b, int(plan.topo.size), lane, ctypes.addressof(out))
     if err != 0:
@@ -141,7 +143,7 @@ def opdc_work(plan, lane, b, device):
     """The block bucket's workspace of an OP or DC sweep launch of b lanes
     with ``lane`` doubles a lane (``ops/run.py block_work``), None outside
     the bucket (csrc/newton.cuh opdc_bucket: ``fit_bucket``) or while its
-    slices fit shared memory."""
+    slices are in shared memory (``block_place``)."""
     if fit_bucket(plan, lane) != BLOCK_BUCKET:
         return None
     return block_work(plan, lane, b, device)
@@ -163,7 +165,8 @@ def launch_op_kernel(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     if not dev.is_cuda:
         raise ValueError("launch_op_kernel needs CUDA tensors")
     _check_inputs(plan, dev, dyn, x0, jv0)
-    check_caps(plan)
+    lane = lane_doubles(plan)
+    check_shape(plan, lane)
     lib = _build.load("op")
     device = dev.device
     b = dev.shape[0]
@@ -172,7 +175,6 @@ def launch_op_kernel(plan, dev, dyn, x0, jv0, sc: OPScalars) -> OPLaunch:
     jv = torch.empty_like(jv0)
     iters = torch.empty(b, dtype=I32, device=device)
     conv = torch.empty(b, dtype=I32, device=device)
-    lane = lane_doubles(plan)
     work = opdc_work(plan, lane, b, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -23,7 +23,8 @@ instantiation, of ``ops/pallas_tran.py``'s ``make_tran_fused``
   ``chip_smoke.py`` holds the kernels against them on the card.  Each
   step is one Newton iteration of every lane (one attempt of a linear
   deck), so lanes at different points of their runs advance together; the
-  host looks for pending lanes once every ``CHECK_EVERY`` steps.
+  host looks for pending lanes after ``CHECK_FIRST`` steps, then once
+  every ``CHECK_EVERY`` steps.
 * ``run_lanes`` and ``store_lanes``: the plain versions for CPU tensors
   only; on CUDA tensors they launch the kernel or raise.
 
@@ -88,36 +89,15 @@ BLOCK_BUCKET = 65
 BLOCK_THREADS = 256
 BLOCK_MIN_BLOCKS = 2  # blocks an SM, and so the workspace's slices an SM
 BLOCK_STATIC = 1024  # bytes of the block kernels' static shared memory
-MAX_SOURCES = 32  # source values a lane keeps in the run kernel's slice
-# int32 words of shared memory for the plan (48 KB), and so the cap on the
-# count of diodes, BJTs and MOSFETs: beside a table at this cap a block of
-# one lane of the 64-row bucket still holds the junction voltages and value
-# slots of every device the table can describe (csrc/newton.cuh
-# fit_bucket: np1's bucket, or the 64-row bucket with as few lanes a block
-# as fit, or the block bucket); a launch that found too little shared
-# memory would raise.
-MAX_TOPO = 12288
 CHECK_EVERY = 256  # plain version: steps between host checks (linear)
 CHECK_EVERY_NL = 64  # the same for a Newton deck (longer steps)
+CHECK_FIRST = 16  # plain version: the first check's steps (a short run)
+# the largest count the kernels' int32 launch arguments hold (the table's
+# words, a lane's doubles)
+INT32_MAX = 2**31 - 1
 
 F64 = torch.float64
 I32 = torch.int32
-
-
-def kernel_caps_reason(plan):
-    """Why the kernels' slices and shared table can NOT hold this deck;
-    None when they can (the run, OP and DC sweep kernels: any np1, to 64 on
-    warps, past it a block a lane)."""
-    nsrc = sum(len(v) for v in plan.stype.values())
-    if nsrc > MAX_SOURCES:
-        return (f"{nsrc} sources exceed the kernel's cap of {MAX_SOURCES} "
-                "(the source values a lane keeps in shared memory)")
-    if plan.base_len > MAX_TOPO:
-        return (f"stamp plan of {plan.base_len} words ("
-                f"{sum(plan.counts[5:])} diodes, BJTs and MOSFETs) exceeds "
-                f"the kernel's shared-memory table cap of {MAX_TOPO} words "
-                "(48 KB)")
-    return None
 
 
 # bytes of shared memory a block may use on an H100 (csrc/newton.cuh
@@ -125,6 +105,14 @@ def kernel_caps_reason(plan):
 # (csrc/run_kernel.cuh SEG_ROWS)
 SEG_SMEM = 232448
 SEG_ROWS = 192
+# doubles of dynamic shared memory a block kernel may take (csrc/newton.cuh
+# BLOCK_ROOM)
+BLOCK_ROOM = (SEG_SMEM - BLOCK_STATIC) // 8
+# which of the table and a lane's slice the block bucket keeps in shared
+# memory when they do not fit it together but each fits it alone: True,
+# the slice, the table read in device memory (csrc/newton.cuh
+# BLOCK_SLICE_FIRST)
+BLOCK_SLICE_FIRST = True
 
 
 def even(k):
@@ -136,59 +124,115 @@ def table_doubles(plan):
     return (int(plan.topo.size) + 3) // 4 * 2
 
 
-def fit_bucket(plan, extra):
-    """The size bucket of a launch of ``plan`` whose segments each keep
-    ``extra`` doubles beside the elimination's buffer, build rows and x,
-    as csrc/newton.cuh fit_bucket computes it: np1's (4, 8, 16, 32 or 64
-    rows), or 64 when the table and the 128 / W slices of np1's block
-    overflow SEG_SMEM, or BLOCK_BUCKET (a block a lane) past 64 rows or
-    when one lane overflows the 64-row bucket's block."""
-    def fits(b, lanes):
-        rows = (b + 2) * (b + 1) + b + even(extra)
-        return 8 * (table_doubles(plan) + lanes * rows) <= SEG_SMEM
+def placement(plan, lane, rows=0):
+    """(bucket, table, slice) of a launch of ``plan`` whose lanes each keep
+    ``lane`` doubles of their own (and a segment ``rows`` more) beside the
+    elimination's buffer, build rows and x, or in the block bucket beside
+    the system, x and the last iterate, as csrc/newton.cuh fit_bucket and
+    block_place compute it: the size bucket, whether the table is in
+    shared memory (else the kernel reads it in device memory), and whether
+    a lane's slice is (else a slice of the block bucket's workspace).  With
+    the table in shared memory: np1's bucket (4, 8, 16, 32 or 64 rows), or
+    64 when the table and the 128 / W slices of np1's block overflow
+    SEG_SMEM, or BLOCK_BUCKET (a block a lane) past 64 rows or when one
+    lane overflows the 64-row bucket's block, while the table fits a block
+    alone; past that, the 64-row bucket with the table in device memory
+    while one lane fits, else BLOCK_BUCKET.  np1's buckets of 4 to 32 rows
+    keep the table in shared memory (their kernels have no instantiation
+    that reads it in device memory)."""
+    def fits(b, table):
+        seg = (b + 2) * (b + 1) + b + even(rows + lane)
+        lanes = 128 // b if b < 64 else 1
+        return 8 * (table_doubles(plan) * table + lanes * seg) <= SEG_SMEM
 
     b = next((b for b in (4, 8, 16, 32, WARP_NP1) if plan.np1 <= b), 0)
-    if 0 < b < 64 and not fits(b, 128 // b):
-        b = 64
-    return b if b and fits(b, 128 // b if b < 64 else 1) else BLOCK_BUCKET
+    for table in (True, False):
+        if table and 0 < b < 64 and fits(b, True):
+            return b, True, True
+        if b and fits(64, table):
+            return 64, table, True
+        if table and table_doubles(plan) <= BLOCK_ROOM:
+            break
+    return (BLOCK_BUCKET,) + block_place(plan, lane)
+
+
+def fit_bucket(plan, extra):
+    """The size bucket of ``placement`` (``extra`` a lane's doubles)."""
+    return placement(plan, extra)[0]
+
+
+def run_doubles(plan):
+    """Doubles a lane keeps beside its system in the run kernel's slice
+    (the entries' ``lane_doubles``): its source values, an even count,
+    then a Newton deck's junction voltages and value slots
+    (``newton_doubles``)."""
+    nsrc = sum(len(v) for v in plan.stype.values())
+    return even(nsrc) + newton_doubles(plan)
+
+
+def run_placement(plan):
+    """The run kernel's ``placement``: a lane's ``run_doubles``, and a
+    segment's SEG_ROWS of the lane's rows (csrc/run_kernel.cuh
+    seg_slice)."""
+    return placement(plan, run_doubles(plan), SEG_ROWS)
 
 
 def run_bucket(plan):
     """The run kernel's bucket for ``plan`` (csrc/run_kernel.cuh
-    run_bucket: ``fit_bucket`` over a slice of MAX_SOURCES, SEG_ROWS and
-    newton_doubles).  64 and BLOCK_BUCKET are the ``_wide`` libraries'
+    run_bucket).  64 and BLOCK_BUCKET are the ``_wide`` libraries'
     (``ops/_build.py``): the wrapper picks the library by it."""
-    return fit_bucket(plan, MAX_SOURCES + SEG_ROWS + newton_doubles(plan))
+    return run_placement(plan)[0]
 
 
 def block_slice(np1, extra):
     """Doubles of a lane's slice in the block bucket (csrc/newton.cuh
     block_slice): the system with the elimination's factors, pivot rows
     and used flags, np1 (np1 + 3); x and the last iterate; then ``extra``
-    of the lane's own (the run kernel: MAX_SOURCES and newton_doubles; the
-    OP and DC sweep kernels: their lane_doubles), even counts."""
+    of the lane's own (the run kernel: ``run_doubles``; the OP and DC
+    sweep kernels: their lane_doubles), even counts."""
     return np1 * (np1 + 3) + 2 * even(np1) + even(extra)
 
 
-def block_in_shared(plan, extra):
-    """Whether the table and a lane's slice of the block bucket fit a
-    block's shared memory (csrc/newton.cuh block_in_shared)."""
-    return 8 * (table_doubles(plan) + block_slice(plan.np1, extra)) <= (
-        SEG_SMEM - BLOCK_STATIC)
+def block_place(plan, extra):
+    """(table, slice): whether the block bucket keeps the table and a
+    lane's slice in shared memory (csrc/newton.cuh block_place): both when
+    they fit together; else the one BLOCK_SLICE_FIRST names when it fits
+    alone; else each alone where it fits.  The other is in device memory:
+    the table read through the cache, the slice a slice of the workspace
+    (``block_work``)."""
+    table, slice_ = table_doubles(plan), block_slice(plan.np1, extra)
+    if table + slice_ <= BLOCK_ROOM:
+        return True, True
+    table_fits, slice_fits = table <= BLOCK_ROOM, slice_ <= BLOCK_ROOM
+    if table_fits and slice_fits:
+        return not BLOCK_SLICE_FIRST, BLOCK_SLICE_FIRST
+    return table_fits, slice_fits
 
 
 def block_work(plan, extra, lanes, device):
     """The workspace of the block bucket's slices in device memory, as an
-    f64 tensor on ``device``; None when they fit shared memory
-    (``block_in_shared``).  A slice for each block of the bounded grid: at
+    f64 tensor on ``device``; None when they are in shared memory
+    (``block_place``).  A slice for each block of the bounded grid: at
     most one a lane, BLOCK_MIN_BLOCKS an SM (at np1 = 183, 34,038 doubles
     and more a slice: 132 SMs x 2 take ~72 MB)."""
-    if block_in_shared(plan, extra):
+    if block_place(plan, extra)[1]:
         return None
     slice_ = block_slice(plan.np1, extra)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     slices = max(1, min(lanes, BLOCK_MIN_BLOCKS * sms))
     return torch.empty(slices * slice_, dtype=F64, device=device)
+
+
+def check_shape(plan, extra):
+    """Raise ValueError when a size of the kernels' launch passes their
+    int32 arguments: the table's words, or the doubles of a lane's block
+    slice (``extra`` doubles of its own beside the system)."""
+    for what, size in (("stamp plan words", int(plan.topo.size)),
+                       ("doubles of a lane's block slice",
+                        block_slice(plan.np1, extra))):
+        if size > INT32_MAX:
+            raise ValueError(f"{size} {what} pass the kernels' int32 "
+                             f"launch arguments ({INT32_MAX})")
 
 
 def newton_doubles(plan):
@@ -208,29 +252,22 @@ def segment_shape(plan, b):
     blocks, threads a block, bytes of shared memory a block, doubles of a
     block's slice in device memory: 0 unless the block bucket's slices
     outgrow shared memory, when the grid is as many blocks as the
-    workspace holds slices)."""
-    out = (ctypes.c_int * 6)()
+    workspace holds slices, 1 when the table is in shared memory: 0 when
+    the kernel reads it in device memory)."""
+    out = (ctypes.c_int * 7)()
     err = _build.load("run").tsr_run_seg_shape(
-        plan.np1, b, int(plan.topo.size), newton_doubles(plan),
+        plan.np1, b, int(plan.topo.size), run_doubles(plan),
         ctypes.addressof(out))
     if err != 0:
         raise ValueError(f"np1={plan.np1} has no segment launch")
     return tuple(out)
 
 
-def check_caps(plan):
-    """Raise unless the kernels can hold the plan (see above)."""
-    why = kernel_caps_reason(plan)
-    if why is not None:
-        raise ValueError(f"deck exceeds the kernel's caps: {why}")
-
-
 def run_ineligible_reason(cc, semantics: str, store: str, opts):
-    """Why this run can NOT use the whole-run kernel; None when it can."""
-    why = fused_ineligible_reason(cc, semantics, store, opts)
-    if why is not None:
-        return why
-    return kernel_caps_reason(make_plan(cc))
+    """Why this run can NOT use the whole-run kernel; None when it can
+    (the kernels take any np1, any number of sources and a stamp plan of
+    any size, as ``ops/pallas_run.py`` ``run_ineligible_reason`` does)."""
+    return fused_ineligible_reason(cc, semantics, store, opts)
 
 
 class RunScalars(NamedTuple):
@@ -370,7 +407,8 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     if plan.mode != "tran":
         raise ValueError("the run kernel takes a plan of mode 'tran'")
     _check_trap(plan, sc)
-    check_caps(plan)
+    lane = run_doubles(plan)
+    check_shape(plan, lane)
     # the library (and its entry point tsr_<family>[_store]) of this
     # instantiation: run_kernel_mag.cu holds physics with LM or K and
     # compat LM or K with a Newton, run_kernel_phys.cu the rest of
@@ -383,8 +421,8 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     name = (family + ("" if store is None else "_store")
             + ("_wide" if bucket >= 64 else ""))
     lib = _build.load(name)
-    work = (block_work(plan, MAX_SOURCES + newton_doubles(plan), b, device)
-            if bucket == BLOCK_BUCKET else None)
+    work = (block_work(plan, lane, b, device) if bucket == BLOCK_BUCKET
+            else None)
     topo = torch.as_tensor(plan.topo, device=device)
     st = state.clone()
     jv_out = jv.clone()
@@ -400,8 +438,8 @@ def _launch(plan, dev, src, state, sc, jv, start, store, out=None):
     fail = torch.empty(b, dtype=I32, device=device)
     nri = torch.empty(b, dtype=I32, device=device)
     args = [plan.np1, int(plan.nonlinear), int(mag), int(plan.physics),
-            int(sc.trap), topo.data_ptr(), int(plan.topo.size),
-            newton_doubles(plan), dev.data_ptr(), src.data_ptr(),
+            int(sc.trap), topo.data_ptr(), int(plan.topo.size), lane,
+            dev.data_ptr(), src.data_ptr(),
             st.data_ptr(), jv_out.data_ptr(), t.data_ptr(), dt.data_ptr(),
             acc.data_ptr(), att.data_ptr(), fail.data_ptr(), nri.data_ptr(),
             b, float(sc.tstop), float(sc.minstep),
@@ -748,11 +786,15 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
         trash = torch.full((b,), b * m, dtype=torch.long, device=device)
         carry += (torch.zeros(b, dtype=I32, device=device),
                   torch.zeros(b, dtype=torch.bool, device=device))
-    every = CHECK_EVERY_NL if nonlin else CHECK_EVERY
+    # every step of a running lane advances its attempt, and an attempt
+    # takes at most max_iter steps, so all lanes stop within this bound
+    steps = (sc.max_attempts + 1) * (sc.max_iter if nonlin else 1)
+    every = min(CHECK_EVERY_NL if nonlin else CHECK_EVERY, steps)
+    first = min(CHECK_FIRST, every)
 
-    def chunk():
+    def chunk(size=every):
         c = carry
-        for _ in range(every):
+        for _ in range(size):
             c = step(c)
         for buf, val in zip(carry, c):
             buf.copy_(val)
@@ -764,22 +806,23 @@ def _plain(plan, dev, src, state, sc, jv, start, store):
             live = live & (carry[12] < store.max_store)
         return bool(live.any())
 
+    # a short first chunk (eager: on a card it warms up), then chunks of
+    # `every` steps (on a card one CUDA graph) while a lane runs
     run_chunk = chunk
     if device.type == "cuda":
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            chunk()  # eager first chunk: warms up, and is real progress
+            chunk(first)
         torch.cuda.current_stream(device).wait_stream(side)
         if pending():
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 chunk()
             run_chunk = graph.replay
-    # every step of a running lane advances its attempt, and an attempt
-    # takes at most max_iter steps, so all lanes stop within this bound
-    steps = (sc.max_attempts + 1) * (sc.max_iter if nonlin else 1)
-    for _ in range(0, steps, every):
+    else:
+        chunk(first)
+    for _ in range(first, steps, every):
         if not pending():
             break
         run_chunk()

@@ -47,8 +47,7 @@ serves every eligible deck:
   an OP plan then each row's linear prefix (``linear_prefix``), from which
   the OP kernel builds the linear-devices-only estimate. The segment
   kernels (run, OP, DC sweep) build row i on thread i from its slice of
-  the view, in plan order; the caps count the table before it
-  (``RunPlan.base_len``).
+  the view, in plan order (``RunPlan.base_len``: the table before it).
 """
 
 from dataclasses import dataclass
@@ -386,8 +385,7 @@ class RunPlan:
 
     @property
     def base_len(self):
-        """Length of the table before the row view: what the caps
-        count."""
+        """Length of the table before the row view."""
         return int(self.topo[H_ROWS])
 
     @property

@@ -36,6 +36,11 @@ from . import _build
 from .newton import gauss_jordan, poison_rows
 from .solve import checked, work_args, work_for
 
+# ints of a row view the segment kernel copies to shared memory; past it
+# the build reads the view through the cache (csrc/stamped_solve.cu
+# SEG_VSTAGE)
+SEG_VSTAGE = 16384
+
 F64 = torch.float64
 
 
